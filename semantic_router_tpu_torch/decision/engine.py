@@ -1,0 +1,115 @@
+"""Boolean decision engine.
+
+Evaluates each configured decision's AND/OR/NOT rule tree against the
+matched signal rules, then picks the best match by strategy ("priority" or
+"confidence").  Leaf matching by "type:name"; confidence aggregation
+AND=min, OR=max over matched children, NOT=1.0 when no child matches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from ..config.schema import Decision, RuleNode
+
+
+@dataclass
+class SignalMatches:
+    """Matched rule names per signal family + confidences keyed
+    "type:name" (default 1.0 when absent)."""
+
+    matches: Dict[str, List[str]] = field(default_factory=dict)
+    confidences: Dict[str, float] = field(default_factory=dict)
+    # per-family payloads (PII types found, ...)
+    details: Dict[str, dict] = field(default_factory=dict)
+
+    def add(self, signal_type: str, rule_name: str,
+            confidence: float = 1.0) -> None:
+        self.matches.setdefault(signal_type, []).append(rule_name)
+        self.confidences[f"{signal_type}:{rule_name}"] = float(confidence)
+
+    def matched(self, signal_type: str, name: str) -> bool:
+        return name in self.matches.get(signal_type, ())
+
+    def confidence(self, signal_type: str, name: str) -> float:
+        return self.confidences.get(f"{signal_type}:{name}", 1.0)
+
+    def all_matched_rules(self) -> List[str]:
+        return [f"{t}:{n}" for t, names in sorted(self.matches.items())
+                for n in names]
+
+
+@dataclass
+class DecisionResult:
+    decision: Decision
+    confidence: float
+    matched_rules: List[str]
+
+
+def eval_rule_node(node: RuleNode, signals: SignalMatches
+                   ) -> Tuple[bool, float, List[str]]:
+    """(matched, confidence, matched leaf rules) of one rule tree."""
+    if node.is_leaf():
+        styp = node.signal_type.lower().strip()
+        if not signals.matched(styp, node.name):
+            return False, 0.0, []
+        return True, signals.confidence(styp, node.name), \
+            [f"{styp}:{node.name}"]
+    op = node.operator.upper()
+    if op == "AND":
+        if not node.conditions:
+            return False, 0.0, []
+        min_conf = 1.0
+        rules: List[str] = []
+        for c in node.conditions:
+            m, conf, r = eval_rule_node(c, signals)
+            if not m:
+                return False, 0.0, []
+            min_conf = min(min_conf, conf)
+            rules.extend(r)
+        return True, min_conf, rules
+    if op == "NOT":
+        for c in node.conditions:
+            if eval_rule_node(c, signals)[0]:
+                return False, 0.0, []
+        return True, 1.0, []
+    # OR (default)
+    best = 0.0
+    rules = []
+    matched = False
+    for c in node.conditions:
+        m, conf, r = eval_rule_node(c, signals)
+        if m:
+            matched = True
+            best = max(best, conf)
+            rules.extend(r)
+    return matched, best, rules
+
+
+class DecisionEngine:
+    """Evaluates decisions over signal matches."""
+
+    def __init__(self, decisions: List[Decision],
+                 strategy: str = "priority") -> None:
+        self.decisions = list(decisions)
+        self.strategy = strategy or "priority"
+
+    def evaluate(self, signals: SignalMatches) -> Optional[DecisionResult]:
+        results = self.evaluate_all(signals)
+        return results[0] if results else None
+
+    def evaluate_all(self, signals: SignalMatches) -> List[DecisionResult]:
+        """All matching decisions, best first."""
+        results = []
+        for dec in self.decisions:
+            matched, conf, rules = eval_rule_node(dec.rules, signals)
+            if matched:
+                results.append(DecisionResult(dec, conf, rules))
+        results.sort(key=self._sort_key)
+        return results
+
+    def _sort_key(self, r: DecisionResult):
+        if self.strategy == "confidence":
+            return (-r.confidence, -r.decision.priority, r.decision.name)
+        return (-r.decision.priority, -r.confidence, r.decision.name)

@@ -1,0 +1,282 @@
+"""Dynamic batching shim — the host-side front end of the engine.
+
+The port's copy of ``semantic_router_tpu.engine.batcher`` without its
+tracing and metrics hooks:
+
+- requests are grouped by (group_key, seq-len bucket); sequences pad to
+  the bucket edge and batches pad to the next power of two ≤
+  max_batch_size, so the device sees a small closed set of shapes;
+- adaptive wait: the scheduler waits at most ``max_wait_ms`` past the
+  oldest queued item, but fires at once when a batch is full or the queue
+  holds a single item;
+- fail-open: a runner error resolves every future of the batch with the
+  exception instead of wedging callers;
+- concurrent dispatch: ready batches go to a small worker pool, at most
+  ONE in-flight batch per group, so a slow bucket cannot park live
+  traffic on others;
+- cancellation: a future cancelled while queued is dropped before its
+  batch runs; once a batch starts, its futures can no longer be cancelled.
+
+The runner receives (group_key, list[BatchItem]) and returns one result
+per item; it owns padding and stacking since shapes are model-specific.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
+
+
+@dataclass
+class BatchItem:
+    payload: Any
+    future: Future = field(default_factory=Future)
+    enqueue_t: float = field(default_factory=time.perf_counter)
+
+
+BatchRunner = Callable[[Hashable, List[BatchItem]], Sequence[Any]]
+
+
+def pow2_batch(n: int, max_batch: int) -> int:
+    """Smallest power of two ≥ n, capped at max_batch (a non-power-of-two
+    cap adds exactly one extra batch shape)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, max_batch)
+
+
+def pick_bucket(seq_len: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket that fits ``seq_len``; past the largest bucket it
+    clamps to buckets[-1] and the batch builder clips the encoding there
+    (the result is then marked truncated)."""
+    for b in buckets:
+        if seq_len <= b:
+            return b
+    return buckets[-1]
+
+
+class _DispatchPool:
+    """N daemon worker threads over a queue (daemon, so a forward wedged in
+    a CUDA call cannot block process exit); shutdown() CANCELS still-queued
+    batches instead of running them against torn-down state."""
+
+    def __init__(self, workers: int, name: str) -> None:
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._stopped = False
+        # serialises submit's check+put against shutdown's flag+drain
+        self._guard = threading.Lock()
+        self._threads = []
+        for i in range(max(1, workers)):
+            t = threading.Thread(target=self._work, daemon=True,
+                                 name=f"{name}-{i}")
+            t.start()
+            self._threads.append(t)
+
+    def submit(self, run: Callable, cancel: Callable, *args: Any) -> None:
+        with self._guard:
+            if self._stopped:
+                raise RuntimeError("dispatch pool stopped")
+            self._q.put((run, cancel, args))
+
+    def _work(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            run, cancel, args = item
+            (cancel if self._stopped else run)(*args)
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        with self._guard:
+            self._stopped = True
+            for _ in self._threads:
+                self._q.put(None)
+        # drain-and-cancel what is still queued; re-put any sentinel the
+        # drain steals so no idle worker blocks in get() forever
+        stolen = 0
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                stolen += 1
+            else:
+                _, cancel, args = item
+                cancel(*args)
+        for _ in range(stolen):
+            self._q.put(None)
+        for t in self._threads:
+            t.join(timeout=timeout)
+
+
+class DynamicBatcher:
+    """Coalesces concurrent requests into padded batches per group."""
+
+    def __init__(self, runner: BatchRunner, max_batch_size: int = 32,
+                 max_wait_ms: float = 2.0, name: str = "batcher",
+                 dispatch_workers: int = 4) -> None:
+        self.runner = runner
+        self.name = name
+        self.max_batch_size = max(1, max_batch_size)
+        self.max_wait_s = max_wait_ms / 1000.0
+        self._queues: Dict[Hashable, List[BatchItem]] = {}
+        self._inflight: Dict[Hashable, int] = {}
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._stop = False
+        self._stats = {"batches": 0, "items": 0, "max_batch": 0,
+                       "cancelled": 0}
+        self._pool = _DispatchPool(dispatch_workers,
+                                   name=f"{name}-dispatch")
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=name)
+        self._thread.start()
+
+    # -- public ------------------------------------------------------------
+
+    def submit(self, group_key: Hashable, payload: Any) -> Future:
+        return self.submit_many(group_key, [payload])[0]
+
+    def submit_many(self, group_key: Hashable,
+                    payloads: Sequence[Any]) -> List[Future]:
+        items = [BatchItem(p) for p in payloads]
+        with self._wake:
+            if self._stop:
+                raise RuntimeError("batcher stopped")
+            self._queues.setdefault(group_key, []).extend(items)
+            self._wake.notify()
+        return [i.future for i in items]
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = dict(self._stats)
+        out["fill_ratio_mean"] = (out["items"] / out["batches"]
+                                  / self.max_batch_size
+                                  if out["batches"] else 0.0)
+        return out
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        with self._wake:
+            self._stop = True
+            self._wake.notify_all()
+        self._thread.join(timeout=timeout)
+        self._pool.shutdown(timeout=timeout)
+        with self._lock:
+            for items in self._queues.values():
+                for it in items:
+                    if not it.future.done():
+                        it.future.set_exception(RuntimeError("batcher stopped"))
+            self._queues.clear()
+
+    # -- scheduler loop ----------------------------------------------------
+
+    def _ready_group(self) -> Optional[Hashable]:
+        """A group is ready when full, or its oldest item aged past
+        max_wait, or (low-QPS fast path) it holds the only pending item.
+        A group with a batch in flight is never ready."""
+        now = time.perf_counter()
+        oldest_key, oldest_age = None, -1.0
+        total = 0
+        for key, items in self._queues.items():
+            if not items or self._inflight.get(key, 0) >= 1:
+                continue
+            total += len(items)
+            if len(items) >= self.max_batch_size:
+                return key
+            age = now - items[0].enqueue_t
+            if age > oldest_age:
+                oldest_key, oldest_age = key, age
+        if oldest_key is None:
+            return None
+        if oldest_age >= self.max_wait_s:
+            return oldest_key
+        if total == len(self._queues.get(oldest_key, ())) and total <= 1:
+            return oldest_key
+        return None
+
+    def _next_deadline(self) -> Optional[float]:
+        deadline = None
+        for key, items in self._queues.items():
+            if items and self._inflight.get(key, 0) < 1:
+                d = items[0].enqueue_t + self.max_wait_s
+                deadline = d if deadline is None else min(deadline, d)
+        return deadline
+
+    def _loop(self) -> None:
+        while True:
+            with self._wake:
+                while not self._stop:
+                    key = self._ready_group()
+                    if key is not None:
+                        break
+                    deadline = self._next_deadline()
+                    timeout = None if deadline is None else \
+                        max(0.0, deadline - time.perf_counter())
+                    self._wake.wait(timeout=timeout)
+                if self._stop:
+                    return
+                items = self._queues[key]
+                batch = items[:self.max_batch_size]
+                self._queues[key] = items[self.max_batch_size:]
+                self._inflight[key] = self._inflight.get(key, 0) + 1
+            try:
+                self._pool.submit(self._dispatch, self._cancel_batch,
+                                  key, batch)
+            except RuntimeError:  # pool shut down underneath us
+                self._cancel_batch(key, batch)
+
+    def _release_inflight(self, key: Hashable) -> None:
+        n = self._inflight.get(key, 0)
+        if n <= 1:
+            self._inflight.pop(key, None)
+        else:
+            self._inflight[key] = n - 1
+
+    def _dispatch(self, key: Hashable, batch: List[BatchItem]) -> None:
+        try:
+            self._run_batch(key, batch)
+        finally:
+            with self._wake:
+                self._release_inflight(key)
+                self._wake.notify()
+
+    def _cancel_batch(self, key: Hashable, batch: List[BatchItem]) -> None:
+        """Shutdown raced this batch out of the pool queue: fail its
+        futures rather than running the model against torn-down state."""
+        with self._wake:
+            self._release_inflight(key)
+        for item in batch:
+            if not item.future.done():
+                item.future.set_exception(RuntimeError("batcher stopped"))
+
+    def _run_batch(self, key: Hashable, batch: List[BatchItem]) -> None:
+        # claim every future: a cancelled one drops out of the batch, the
+        # rest can no longer be cancelled mid-run
+        live = [it for it in batch if it.future.set_running_or_notify_cancel()]
+        with self._lock:
+            self._stats["cancelled"] += len(batch) - len(live)
+            if live:
+                self._stats["batches"] += 1
+                self._stats["items"] += len(live)
+                self._stats["max_batch"] = max(self._stats["max_batch"],
+                                               len(live))
+        if not live:
+            return
+        try:
+            results = self.runner(key, live)
+            if len(results) != len(live):
+                raise RuntimeError(
+                    f"runner returned {len(results)} results for "
+                    f"{len(live)} items")
+            for item, res in zip(live, results):
+                item.future.set_result(res)
+        except Exception as exc:  # fail open: propagate to callers
+            for item in live:
+                if not item.future.done():
+                    item.future.set_exception(exc)

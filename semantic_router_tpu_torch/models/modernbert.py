@@ -1,0 +1,290 @@
+"""ModernBERT encoder family in PyTorch.
+
+The port of ``semantic_router_tpu.models.modernbert``.  Parameter names
+are HuggingFace's (``embeddings.tok_embeddings.weight``,
+``layers.{i}.attn.Wqkv.weight``, ``head.dense.weight``, ...), so an HF
+ModernBERT state dict loads 1:1.  Architecture:
+
+- token embeddings + LayerNorm (no bias, eps 1e-5; positions via RoPE);
+- pre-LN layers; layer 0's attention norm is the identity;
+- fused Wqkv reshaped as (B, S, 3, H, D); every
+  ``global_attn_every_n_layers``-th layer attends globally with
+  ``global_rope_theta`` (YaRN when ``rope_scaling`` says so), the others
+  within a sliding window of ``local_attention`` with ``local_rope_theta``;
+- GeGLU MLP, final LayerNorm; classification heads: dense → act → norm →
+  linear.
+
+``attention_impl``: ``dense`` (SDPA + biases), ``chunked`` (query-block
+streaming) or ``flash`` (the hand-written CUDA kernel on the GPU,
+ops.flash_attention).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention import (
+    chunked_sdpa,
+    cls_pool,
+    mean_pool,
+    padding_bias,
+    sdpa,
+    sliding_window_bias,
+)
+from ..ops.epilogue import activation
+from ..ops.rope import RopeSpec, apply_rotary
+
+ATTENTION_IMPLS = ("dense", "chunked", "flash")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModernBertConfig:
+    vocab_size: int = 50368
+    hidden_size: int = 768
+    intermediate_size: int = 1152
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 8192
+    norm_eps: float = 1e-5
+    norm_bias: bool = False
+    pad_token_id: int = 50283
+    global_rope_theta: float = 160000.0
+    local_rope_theta: Optional[float] = 10000.0
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128  # full window width
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    hidden_activation: str = "gelu"
+    classifier_pooling: str = "cls"  # cls | mean
+    classifier_bias: bool = False
+    classifier_activation: str = "gelu"
+    num_labels: int = 2
+    rope_scaling: Optional[Dict[str, Any]] = None  # {"rope_type": "yarn", ...}
+    attention_impl: str = "dense"  # dense | chunked | flash
+    chunk_block_size: int = 512
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def is_global_layer(self, layer_id: int) -> bool:
+        return layer_id % self.global_attn_every_n_layers == 0
+
+    @classmethod
+    def from_hf(cls, hf_config, **overrides) -> "ModernBertConfig":
+        """Build from an HF ModernBERT config: an object with attributes
+        (``transformers.ModernBertConfig``) or a ``config.json`` dict."""
+        def g(key, default=None):
+            if isinstance(hf_config, dict):
+                return hf_config.get(key, default)
+            return getattr(hf_config, key, default)
+
+        kw = dict(
+            vocab_size=g("vocab_size"),
+            hidden_size=g("hidden_size"),
+            intermediate_size=g("intermediate_size"),
+            num_hidden_layers=g("num_hidden_layers"),
+            num_attention_heads=g("num_attention_heads"),
+            max_position_embeddings=g("max_position_embeddings", 8192),
+            norm_eps=g("norm_eps", 1e-5),
+            norm_bias=g("norm_bias", False),
+            pad_token_id=g("pad_token_id", 0),
+            global_rope_theta=g("global_rope_theta", 160000.0),
+            local_rope_theta=g("local_rope_theta", 10000.0),
+            global_attn_every_n_layers=g("global_attn_every_n_layers", 3),
+            local_attention=g("local_attention", 128),
+            attention_bias=g("attention_bias", False),
+            mlp_bias=g("mlp_bias", False),
+            hidden_activation=g("hidden_activation", "gelu"),
+            classifier_pooling=g("classifier_pooling", "cls"),
+            classifier_bias=g("classifier_bias", False),
+            classifier_activation=g("classifier_activation", "gelu"),
+            num_labels=len(g("id2label") or {}) or 2,
+            rope_scaling=g("rope_scaling", None),
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
+
+def _yarn_dict(cfg: ModernBertConfig) -> Optional[dict]:
+    rs = cfg.rope_scaling
+    if rs and rs.get("rope_type", rs.get("type")) == "yarn":
+        return dict(rs)
+    return None
+
+
+def _norm(cfg: ModernBertConfig) -> nn.LayerNorm:
+    return nn.LayerNorm(cfg.hidden_size, eps=cfg.norm_eps,
+                        bias=cfg.norm_bias)
+
+
+class ModernBertEmbeddings(nn.Module):
+    def __init__(self, cfg: ModernBertConfig) -> None:
+        super().__init__()
+        self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.norm = _norm(cfg)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.tok_embeddings(input_ids))
+
+
+class ModernBertMLP(nn.Module):
+    """GeGLU: Wi → split(input, gate) → act(input) * gate → Wo."""
+
+    def __init__(self, cfg: ModernBertConfig) -> None:
+        super().__init__()
+        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size,
+                            bias=cfg.mlp_bias)
+        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                            bias=cfg.mlp_bias)
+        self.act = activation(cfg.hidden_activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inp, gate = self.Wi(x).chunk(2, dim=-1)
+        return self.Wo(self.act(inp) * gate)
+
+
+class ModernBertAttention(nn.Module):
+    def __init__(self, cfg: ModernBertConfig, layer_id: int) -> None:
+        super().__init__()
+        if cfg.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {cfg.attention_impl!r} not in "
+                             f"{ATTENTION_IMPLS}")
+        self.cfg = cfg
+        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
+                              bias=cfg.attention_bias)
+        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                            bias=cfg.attention_bias)
+        D = cfg.head_dim
+        if cfg.is_global_layer(layer_id):
+            self.rope = RopeSpec(D, cfg.global_rope_theta,
+                                 yarn=_yarn_dict(cfg))
+            self.window = 0
+        else:
+            theta = (cfg.local_rope_theta if cfg.local_rope_theta is not None
+                     else cfg.global_rope_theta)
+            self.rope = RopeSpec(D, theta)
+            self.window = cfg.local_attention
+
+    def forward(self, x: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        qkv = self.Wqkv(x).view(B, S, 3, H, D)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, H, S, D]
+        cos, sin = self.rope.tables(S, x.device)
+        q, k = apply_rotary(q, k, cos, sin)
+        if cfg.attention_impl == "flash":
+            from ..ops.flash_attention import flash_attention
+
+            out = flash_attention(q, k, v, key_padding_mask=attention_mask,
+                                  window=self.window)
+        elif cfg.attention_impl == "chunked":
+            out = chunked_sdpa(q, k, v, key_padding_mask=attention_mask,
+                               window=self.window,
+                               block_size=cfg.chunk_block_size)
+        else:
+            bias = padding_bias(attention_mask)
+            if self.window > 0:
+                bias = bias + sliding_window_bias(S, self.window,
+                                                  device=x.device)
+            out = sdpa(q, k, v, bias=bias)
+        out = out.transpose(1, 2).reshape(B, S, cfg.hidden_size)
+        return self.Wo(out)
+
+
+class ModernBertEncoderLayer(nn.Module):
+    def __init__(self, cfg: ModernBertConfig, layer_id: int) -> None:
+        super().__init__()
+        # layer 0: identity — the embedding norm already applied
+        self.attn_norm = nn.Identity() if layer_id == 0 else _norm(cfg)
+        self.attn = ModernBertAttention(cfg, layer_id)
+        self.mlp_norm = _norm(cfg)
+        self.mlp = ModernBertMLP(cfg)
+
+    def forward(self, x: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), attention_mask)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class ModernBertModel(nn.Module):
+    """Encoder trunk → final-norm hidden states [B, S, hidden]."""
+
+    def __init__(self, cfg: ModernBertConfig) -> None:
+        super().__init__()
+        self.config = cfg
+        self.embeddings = ModernBertEmbeddings(cfg)
+        self.layers = nn.ModuleList(
+            ModernBertEncoderLayer(cfg, i)
+            for i in range(cfg.num_hidden_layers))
+        self.final_norm = _norm(cfg)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        x = self.embeddings(input_ids)
+        for layer in self.layers:
+            x = layer(x, attention_mask)
+        return self.final_norm(x)
+
+
+class ModernBertPredictionHead(nn.Module):
+    def __init__(self, cfg: ModernBertConfig) -> None:
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                               bias=cfg.classifier_bias)
+        self.act = activation(cfg.classifier_activation)
+        self.norm = _norm(cfg)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.act(self.dense(x)))
+
+
+class ModernBertForSequenceClassification(nn.Module):
+    """Sequence classifier (intent/domain, jailbreak, fact-check, ...)."""
+
+    def __init__(self, cfg: ModernBertConfig,
+                 model: Optional[ModernBertModel] = None) -> None:
+        """``model``: an existing trunk to share (the fused classifier
+        bank groups tasks whose trunk is one object)."""
+        super().__init__()
+        self.config = cfg
+        self.model = model if model is not None else ModernBertModel(cfg)
+        self.head = ModernBertPredictionHead(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask)
+        pooled = mean_pool(hidden, attention_mask) \
+            if self.config.classifier_pooling == "mean" else cls_pool(hidden)
+        return self.classifier(self.head(pooled))
+
+
+class ModernBertForTokenClassification(nn.Module):
+    """Token classifier (PII spans): per-token logits [B, S, num_labels]."""
+
+    def __init__(self, cfg: ModernBertConfig,
+                 model: Optional[ModernBertModel] = None) -> None:
+        super().__init__()
+        self.config = cfg
+        self.model = model if model is not None else ModernBertModel(cfg)
+        self.head = ModernBertPredictionHead(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        hidden = self.model(input_ids, attention_mask)
+        return self.classifier(self.head(hidden))

@@ -1,0 +1,32 @@
+from .attention import (
+    NEG_INF,
+    chunked_sdpa,
+    cls_pool,
+    mean_pool,
+    padding_bias,
+    sdpa,
+    sliding_window_bias,
+)
+from .epilogue import head_epilogue, head_epilogue_reference
+from .flash_attention import flash_attention, flash_attention_reference
+from .rope import RopeSpec, apply_rotary, default_inv_freq, rope_tables, \
+    yarn_inv_freq
+
+__all__ = [
+    "NEG_INF",
+    "RopeSpec",
+    "apply_rotary",
+    "chunked_sdpa",
+    "cls_pool",
+    "default_inv_freq",
+    "flash_attention",
+    "flash_attention_reference",
+    "head_epilogue",
+    "head_epilogue_reference",
+    "mean_pool",
+    "padding_bias",
+    "rope_tables",
+    "sdpa",
+    "sliding_window_bias",
+    "yarn_inv_freq",
+]

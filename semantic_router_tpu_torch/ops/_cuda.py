@@ -1,0 +1,153 @@
+"""Build, load and count the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries land in ``_build/`` beside
+this package, named by a digest of their source and flags, so an edited
+source never loads a stale build.  Nothing builds at import time: a
+kernel compiles at its first launch, or all at once, in parallel, through
+``build_all``.
+
+Every ``CudaKernel`` keeps a plain launch counter that its wrapper bumps
+once per launch; ``reset_launch_counts``/``launch_counts`` let a run show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable, List, Sequence
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# dtype codes shared with the C entry points
+DTYPE_F32 = 0
+DTYPE_BF16 = 1
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build from "
+                       "csrc/ with the CUDA toolkit")
+
+
+class CudaKernel:
+    """One ``csrc/<name>.cu`` source: its build, its C entry point and its
+    launch counter."""
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence) -> None:
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> str:
+        with open(self.source, "rb") as f:
+            h = hashlib.blake2b(f.read(), digest_size=8)
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()}.so")
+
+    def build_command(self, out: str) -> List[str]:
+        return [nvcc_path(), *NVCC_FLAGS, "-o", out, self.source]
+
+    def _load(self, path: str):
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def function(self):
+        """The loaded C entry point, building the library first if needed."""
+        fn = self._fn
+        if fn is None:
+            with self._lock:
+                if self._fn is None:
+                    path = self.library_path()
+                    if not os.path.exists(path):
+                        build_all([self])
+                    self._fn = self._load(path)
+                fn = self._fn
+        return fn
+
+    def count(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
+    """Compile every kernel whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns {name: compiler output}; raises
+    with the compiler's output when a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for k in kernels:
+        path = k.library_path()
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.Popen(k.build_command(tmp),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append((k, proc, tmp, path))
+    logs: Dict[str, str] = {}
+    failed: List[str] = []
+    for k, proc, tmp, path in procs:
+        out, _ = proc.communicate()
+        k.build_log = logs[k.name] = out
+        if proc.returncode != 0:
+            failed.append(f"{k.name} (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def check_launch(kernel: CudaKernel, rc: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
+    kernel.count()
+
+
+def registry() -> Dict[str, CudaKernel]:
+    """Every kernel of the port, by name (imports the op modules)."""
+    from .epilogue import HEAD_EPILOGUE
+    from .flash_attention import FLASH_ATTENTION
+
+    return {k.name: k for k in (FLASH_ATTENTION, HEAD_EPILOGUE)}
+
+
+def reset_launch_counts() -> None:
+    for k in registry().values():
+        with k._lock:
+            k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in registry().items()}

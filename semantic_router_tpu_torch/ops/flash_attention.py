@@ -1,0 +1,114 @@
+"""Flash attention: the hand-written CUDA kernel and its plain version.
+
+``flash_attention`` is the entry point every ModernBERT attention layer
+calls with ``attention_impl="flash"``.  On a CUDA tensor it launches
+``csrc/flash_attention.cu`` (the port of the TPU kernel
+``semantic_router_tpu.ops.flash_attention.flash_attention_pallas``); on a
+CPU tensor it runs ``flash_attention_reference``, dense SDPA with the
+summed biases.  There is no fallback: a CUDA tensor the kernel does not
+take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._cuda import DTYPE_BF16, DTYPE_F32, CudaKernel, check_launch
+from .attention import causal_bias, padding_bias, sdpa, sliding_window_bias
+
+_P = ctypes.c_void_p
+_L = ctypes.c_longlong
+_I = ctypes.c_int
+
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention", "srt_flash_attention",
+    [_P, _P, _P, _P, _P,
+     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+     _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              key_padding_mask: Optional[torch.Tensor] = None,
+                              window: int = 0, causal: bool = False,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's plain version: dense SDPA over the summed additive
+    biases (padding + window + causal).  Padding query rows may differ
+    from the kernel's; real rows agree to float32 rounding."""
+    S = q.shape[2]
+    bias = None
+    if key_padding_mask is not None:
+        bias = padding_bias(key_padding_mask)
+    if window > 0:
+        wb = sliding_window_bias(S, window, device=q.device)
+        bias = wb if bias is None else bias + wb
+    if causal:
+        cb = causal_bias(S, device=q.device)
+        bias = cb if bias is None else bias + cb
+    return sdpa(q, k, v, bias=bias, scale=scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_padding_mask: Optional[torch.Tensor] = None,
+                    window: int = 0, causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q/k/v: [B, H, S, D] (any strides with D contiguous);
+    key_padding_mask: [B, S] (1 = real token); ``window``: ModernBERT-style
+    full window width (0 = global).  Returns [B, H, S, D] in q's dtype,
+    laid out as [B, S, H, D] in memory so the caller's head merge is a
+    view."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, key_padding_mask,
+                                         window=window, causal=causal,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, H, S, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q/k/v shapes differ "
+                         f"({tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; the kernel takes float32 or bfloat16")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} head dim is not "
+                             f"contiguous (strides {t.stride()})")
+    mask_ptr = None
+    if key_padding_mask is not None:
+        if key_padding_mask.shape != (B, S) \
+                or key_padding_mask.device != q.device:
+            raise ValueError(
+                f"flash_attention: key_padding_mask must be [B, S] = "
+                f"{(B, S)} on {q.device}, got "
+                f"{tuple(key_padding_mask.shape)} on "
+                f"{key_padding_mask.device}")
+        if key_padding_mask.dtype != torch.int32 \
+                or not key_padding_mask.is_contiguous():
+            key_padding_mask = key_padding_mask.to(torch.int32).contiguous()
+        mask_ptr = key_padding_mask.data_ptr()
+    if scale is None:
+        scale = D ** -0.5
+    out = torch.empty((B, S, H, D), dtype=q.dtype,
+                      device=q.device).permute(0, 2, 1, 3)
+    fn = FLASH_ATTENTION.function()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+            out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            B, H, S, D, int(window), int(bool(causal)), float(scale),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(FLASH_ATTENTION, rc)
+    return out

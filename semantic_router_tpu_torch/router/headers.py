@@ -1,0 +1,27 @@
+"""The x-vsr-* response headers the router stamps."""
+
+SCHEMA_VERSION = "v1"
+
+REQUEST_ID = "x-vsr-request-id"
+DECISION = "x-vsr-selected-decision"
+MODEL = "x-vsr-selected-model"
+CATEGORY = "x-vsr-selected-category"
+REASONING = "x-vsr-selected-reasoning"
+REASONING_EFFORT = "x-vsr-selected-reasoning-effort"
+SCHEMA = "x-vsr-schema-version"
+MATCHED_RULES = "x-vsr-matched-rules"
+
+
+def decision_headers(decision_name: str, model: str, category: str = "",
+                     use_reasoning: bool = False, reasoning_effort: str = "",
+                     matched_rules: list | None = None) -> dict:
+    h = {SCHEMA: SCHEMA_VERSION, DECISION: decision_name, MODEL: model}
+    if category:
+        h[CATEGORY] = category
+    if use_reasoning:
+        h[REASONING] = "true"
+        if reasoning_effort:
+            h[REASONING_EFFORT] = reasoning_effort
+    if matched_rules:
+        h[MATCHED_RULES] = ",".join(matched_rules[:16])
+    return h

@@ -1,0 +1,145 @@
+"""Runtime bootstrap: config → engine → router → HTTP server.
+
+Model loading: ``classifier_models`` maps task name → {checkpoint,
+tokenizer, kind, labels, max_seq_len}.  A checkpoint is a local directory
+holding HF ``config.json`` + ``model.safetensors`` (or the safetensors file
+itself, beside its config.json); there is no download step.  Tasks whose
+specs name the same checkpoint share one trunk module, and so one fused
+trunk group.  Absent checkpoints leave their task unloaded (its signal
+fails open).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Dict, Tuple
+
+from ..config.schema import InferenceEngineConfig, RouterConfig
+from ..utils.device import DeviceLike, resolve_device
+
+log = logging.getLogger(__name__)
+
+# dense SDPA is O(S^2) memory: above this length the CPU path streams
+LONG_SEQ_DENSE_LIMIT = 4096
+
+
+def select_attention_impl(engine_cfg: InferenceEngineConfig,
+                          max_seq_len: int, device: DeviceLike) -> str:
+    """``use_flash_attention`` on a CUDA device → 'flash' (the hand-written
+    kernel); long context elsewhere → 'chunked'; else 'dense'."""
+    dev = resolve_device(device)
+    if engine_cfg.use_flash_attention and dev.type == "cuda":
+        return "flash"
+    if max_seq_len and max_seq_len > LONG_SEQ_DENSE_LIMIT:
+        return "chunked"
+    return "dense"
+
+
+def _checkpoint_files(path: str) -> Tuple[str, str]:
+    """(config.json, model.safetensors) of a checkpoint dir or file."""
+    if os.path.isdir(path):
+        return (os.path.join(path, "config.json"),
+                os.path.join(path, "model.safetensors"))
+    return os.path.join(os.path.dirname(path), "config.json"), path
+
+
+def build_engine(cfg: RouterConfig, device: DeviceLike = None):
+    """Engine from ``cfg.classifier_models`` (ModernBERT sequence and token
+    kinds) on ``device`` (``cuda`` when None).  None when no classifier
+    models are configured — the router then routes on defaults."""
+    specs = cfg.classifier_models or {}
+    if not specs:
+        return None
+    from ..engine.classify import InferenceEngine
+    from ..models.convert import load_safetensors
+    from ..models.modernbert import (
+        ModernBertConfig,
+        ModernBertForSequenceClassification,
+        ModernBertForTokenClassification,
+    )
+    from ..utils.tokenization import HFTokenizer
+
+    dev = resolve_device(device)
+    engine = InferenceEngine(cfg.engine, device=dev)
+    trunks: Dict[str, object] = {}   # checkpoint path → shared trunk module
+    tokenizers: Dict[str, HFTokenizer] = {}
+    buckets = cfg.engine.seq_len_buckets or [512]
+    for task, spec in specs.items():
+        path = spec.get("checkpoint", "")
+        kind = spec.get("kind", "sequence")
+        if kind not in ("sequence", "token"):
+            raise ValueError(f"task {task!r}: kind {kind!r} is not served by "
+                             f"this port yet (sequence and token only)")
+        if not path or not os.path.exists(path):
+            log.warning("model missing: task=%s path=%s", task, path)
+            continue
+        cfg_path, weights_path = _checkpoint_files(path)
+        with open(cfg_path) as f:
+            hf_cfg = json.load(f)
+        id2label = hf_cfg.get("id2label", {})
+        labels = spec.get("labels") or \
+            [id2label.get(str(i), str(i)) for i in range(len(id2label))]
+        max_seq = min(int(spec.get("max_seq_len", 0))
+                      or int(hf_cfg.get("max_position_embeddings", 8192)),
+                      max(buckets))
+        mcfg = ModernBertConfig.from_hf(
+            hf_cfg, num_labels=max(len(labels), 2),
+            attention_impl=select_attention_impl(cfg.engine, max_seq, dev))
+        state = load_safetensors(weights_path)
+        cls = ModernBertForTokenClassification if kind == "token" \
+            else ModernBertForSequenceClassification
+        module = cls(mcfg, model=trunks.get(path))
+        if path in trunks:
+            # the trunk is shared and loaded: this task brings its head
+            state = {k: v for k, v in state.items()
+                     if not k.startswith("model.")}
+            missing, unexpected = module.load_state_dict(state, strict=False)
+            missing = [k for k in missing if not k.startswith("model.")]
+            if missing or unexpected:
+                raise ValueError(f"task {task!r}: checkpoint keys missing "
+                                 f"{missing}, unexpected {unexpected}")
+        else:
+            module.load_state_dict(state)
+            trunks[path] = module.model
+        tok_dir = spec.get("tokenizer") or os.path.dirname(cfg_path)
+        if tok_dir not in tokenizers:
+            tokenizers[tok_dir] = HFTokenizer.from_pretrained_dir(tok_dir)
+        engine.register_task(task, kind, module, tokenizers[tok_dir], labels,
+                             max_seq_len=max_seq,
+                             pad_id=int(hf_cfg.get("pad_token_id", 0)))
+        log.info("model loaded: task=%s kind=%s attention=%s", task, kind,
+                 mcfg.attention_impl)
+    return engine
+
+
+def build_router(cfg: RouterConfig, engine=None):
+    from ..router.pipeline import Router
+
+    return Router(cfg, engine=engine)
+
+
+def serve(config: str, backend: str, host: str = "127.0.0.1",
+          port: int = 8801, device: DeviceLike = None) -> None:
+    """Load the config, build engine + router, and serve
+    ``POST /v1/chat/completions`` until interrupted."""
+    from ..config.loader import load_config
+    from ..router.server import RouterServer
+
+    cfg = load_config(config)
+    engine = build_engine(cfg, device=device)
+    if engine is not None:
+        engine.warmup()
+    router = build_router(cfg, engine)
+    server = RouterServer(router, backend, host=host, port=port)
+    log.info("serving on %s → %s", server.url, backend)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.httpd.server_close()
+        router.shutdown()
+        if engine is not None:
+            engine.shutdown()

@@ -1,0 +1,96 @@
+"""Signal-extraction base types: the request view evaluators inspect and
+the per-family result they report."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Protocol
+
+from ..utils.tokenization import EncodingCache
+
+
+@dataclass
+class Message:
+    role: str
+    content: str = ""
+
+
+@dataclass
+class RequestContext:
+    """Everything signal evaluators may inspect about one request."""
+
+    messages: List[Message] = field(default_factory=list)
+    model: str = ""
+    headers: Dict[str, str] = field(default_factory=dict)
+    body: Dict[str, Any] = field(default_factory=dict)
+    # per-request scratch shared across evaluators
+    ext: Dict[Any, Any] = field(default_factory=dict)
+    # tokenize-once: learned signals thread this cache into every engine
+    # call, so K signals sharing a tokenizer pay ONE encode
+    enc_cache: EncodingCache = field(default_factory=EncodingCache)
+    # (engine id, task, text) → ClassResult, seeded by the dispatcher's
+    # fused prefetch; evaluators consult it before touching the engine
+    class_memo: Dict[Any, Any] = field(default_factory=dict)
+
+    @property
+    def user_text(self) -> str:
+        """Latest user message content — the primary classification input."""
+        for m in reversed(self.messages):
+            if m.role == "user" and m.content:
+                return m.content
+        return ""
+
+    @property
+    def full_text(self) -> str:
+        """All message content joined (history-aware classifiers)."""
+        return "\n".join(m.content for m in self.messages if m.content)
+
+    def text_for(self, include_history: bool) -> str:
+        return self.full_text if include_history else self.user_text
+
+    @classmethod
+    def from_openai_body(cls, body: Dict[str, Any],
+                         headers: Optional[Dict[str, str]] = None
+                         ) -> "RequestContext":
+        """Build from an OpenAI ChatCompletions-shaped request body (text
+        parts of multi-part contents are joined)."""
+        msgs: List[Message] = []
+        for m in body.get("messages", []) or []:
+            content = m.get("content", "")
+            if isinstance(content, list):
+                content = "\n".join(
+                    part.get("text", "") for part in content
+                    if isinstance(part, dict) and part.get("type") == "text")
+            msgs.append(Message(
+                role=m.get("role", "user"),
+                content=content if isinstance(content, str) else ""))
+        return cls(
+            messages=msgs,
+            model=body.get("model", ""),
+            headers={k.lower(): v for k, v in (headers or {}).items()},
+            body=body,
+        )
+
+
+@dataclass
+class SignalHit:
+    rule: str
+    confidence: float = 1.0
+    detail: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class SignalResult:
+    signal_type: str
+    hits: List[SignalHit] = field(default_factory=list)
+    latency_s: float = 0.0
+    error: Optional[str] = None  # evaluators fail open: error recorded, no hits
+    # "engine" (direct classify) or "fused_bank" (served from the
+    # dispatcher's fused-prefetch memo)
+    source: str = ""
+
+
+class SignalEvaluator(Protocol):
+    signal_type: str
+
+    def evaluate(self, ctx: RequestContext) -> SignalResult: ...

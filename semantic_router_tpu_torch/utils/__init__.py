@@ -1,0 +1,19 @@
+from .device import resolve_device
+from .tokenization import (
+    Encoding,
+    EncodingCache,
+    HashTokenizer,
+    HFTokenizer,
+    Tokenizer,
+    decode_entity_spans,
+)
+
+__all__ = [
+    "Encoding",
+    "EncodingCache",
+    "HashTokenizer",
+    "HFTokenizer",
+    "Tokenizer",
+    "decode_entity_spans",
+    "resolve_device",
+]

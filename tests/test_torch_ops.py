@@ -1,0 +1,335 @@
+"""Parity of the PyTorch port's ops (semantic_router_tpu_torch.ops) with
+the JAX reference on the CPU, the kernels' plain versions against the
+Pallas kernels in interpret mode, the port's import isolation, and — on a
+machine with a CUDA device only — the hand-written kernels themselves.
+
+Inputs are numpy arrays from a seed, handed to both frameworks."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semantic_router_tpu.ops import attention as jattn
+from semantic_router_tpu.ops import rope as jrope
+from semantic_router_tpu.ops.epilogue import head_epilogue_pallas
+from semantic_router_tpu.ops.flash_attention import flash_attention_pallas
+from semantic_router_tpu_torch.ops import attention as tattn
+from semantic_router_tpu_torch.ops import rope as trope
+from semantic_router_tpu_torch.ops.epilogue import (
+    ACTIVATIONS,
+    head_epilogue,
+    head_epilogue_reference,
+)
+from semantic_router_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def rand(*shape, seed=0, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def close(got, want, atol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=0)
+
+
+class TestRope:
+    @pytest.mark.parametrize("yarn", [None, {"rope_type": "yarn",
+                                             "factor": 4.0,
+                                             "original_max_position_embeddings":
+                                             64}])
+    def test_tables_match(self, yarn):
+        for base in (10000.0, 160000.0):
+            jspec = jrope.RopeSpec(16, base, yarn=yarn)
+            tspec = trope.RopeSpec(16, base, yarn=yarn)
+            np.testing.assert_array_equal(jspec.inv_freq, tspec.inv_freq)
+            assert jspec.attention_scaling == tspec.attention_scaling
+            jc, js = jspec.tables(40)
+            tc, ts = tspec.tables(40, torch.device("cpu"))
+            close(tc, jc, 0.0)
+            close(ts, js, 0.0)
+
+    def test_rope_tables_function(self):
+        inv = jrope.default_inv_freq(8, 10000.0)
+        np.testing.assert_array_equal(inv, trope.default_inv_freq(8, 10000.0))
+        jc, js = jrope.rope_tables(inv, 12, attention_scaling=1.3)
+        tc, ts = trope.rope_tables(inv, 12, attention_scaling=1.3)
+        close(t(tc), jc, 0.0)
+        close(t(ts), js, 0.0)
+
+    def test_yarn_inv_freq(self):
+        ji, js = jrope.yarn_inv_freq(32, 160000.0, 8.0, 4096)
+        ti, ts = trope.yarn_inv_freq(32, 160000.0, 8.0, 4096)
+        np.testing.assert_array_equal(ji, ti)
+        assert js == ts
+
+    def test_apply_rotary(self):
+        q, k = rand(2, 3, 10, 8, seed=1), rand(2, 3, 10, 8, seed=2)
+        cos, sin = trope.rope_tables(trope.default_inv_freq(8, 1e4), 10)
+        jq, jk = jrope.apply_rotary(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(cos), jnp.asarray(sin))
+        tq, tk = trope.apply_rotary(t(q), t(k), t(cos), t(sin))
+        close(tq, jq, 1e-5)
+        close(tk, jk, 1e-5)
+
+
+class TestAttention:
+    def test_biases(self):
+        mask = (np.arange(12)[None] < np.array([[12], [7]])).astype(np.int32)
+        close(tattn.padding_bias(t(mask)), jattn.padding_bias(mask), 0.0)
+        close(tattn.sliding_window_bias(12, 4),
+              jattn.sliding_window_bias(12, 4), 0.0)
+
+    def test_sdpa_with_bias(self):
+        q, k, v = (rand(2, 2, 16, 8, seed=s) for s in (3, 4, 5))
+        mask = (np.arange(16)[None] < np.array([[16], [9]])).astype(np.int32)
+        jb = jattn.padding_bias(mask) + jattn.sliding_window_bias(16, 6)
+        tb = tattn.padding_bias(t(mask)) + tattn.sliding_window_bias(16, 6)
+        close(tattn.sdpa(t(q), t(k), t(v), bias=tb),
+              jattn.sdpa(q, k, v, bias=jb), 1e-5)
+
+    @pytest.mark.parametrize("window,block", [(0, 8), (6, 8), (4, 5)])
+    def test_chunked_sdpa(self, window, block):
+        q, k, v = (rand(2, 2, 21, 8, seed=s) for s in (6, 7, 8))
+        mask = (np.arange(21)[None] < np.array([[21], [13]])).astype(np.int32)
+        ref = jattn.chunked_sdpa(q, k, v, key_padding_mask=mask,
+                                 window=window, block_size=block)
+        got = tattn.chunked_sdpa(t(q), t(k), t(v),
+                                 key_padding_mask=t(mask), window=window,
+                                 block_size=block)
+        close(got, ref, 1e-5)
+
+    def test_pools(self):
+        h = rand(3, 7, 5, seed=9)
+        mask = (np.arange(7)[None] < np.array([[7], [3], [1]])
+                ).astype(np.int32)
+        close(tattn.mean_pool(t(h), t(mask)), jattn.mean_pool(h, mask), 1e-5)
+        close(tattn.cls_pool(t(h)), jattn.cls_pool(h), 0.0)
+
+
+def _flash_case(case):
+    """(q, k, v, mask or None, kwargs, real query length per batch row):
+    the cases of tests/test_flash_attention.py."""
+    name = case
+    if name == "global":
+        q, k, v = (rand(2, 2, 64, 32, seed=s) for s in (1, 2, 3))
+        return q, k, v, None, {}, [64, 64]
+    if name == "window":
+        q, k, v = (rand(1, 2, 64, 16, seed=s) for s in (4, 5, 6))
+        return q, k, v, None, {"window": 16}, [64]
+    if name == "padding":
+        q, k, v = (rand(2, 1, 48, 16, seed=s) for s in (7, 8, 9))
+        mask = np.concatenate([np.ones((2, 30)), np.zeros((2, 18))], 1)
+        return q, k, v, mask.astype(np.float32), {}, [30, 30]
+    if name == "causal":
+        q, k, v = (rand(1, 1, 32, 16, seed=s) for s in (10, 11, 12))
+        return q, k, v, None, {"causal": True}, [32]
+    if name == "non_divisible":
+        q, k, v = (rand(1, 2, 50, 16, seed=s) for s in (13, 14, 15))
+        return q, k, v, None, {}, [50]
+    if name == "window_padding":
+        q, k, v = (rand(2, 2, 64, 16, seed=s) for s in (16, 17, 18))
+        mask = np.concatenate([np.ones((2, 40)), np.zeros((2, 24))], 1)
+        return q, k, v, mask.astype(np.float32), {"window": 16}, [40, 40]
+    raise KeyError(name)
+
+
+FLASH_CASES = ["global", "window", "padding", "causal", "non_divisible",
+               "window_padding"]
+
+
+class TestFlashPlainVersion:
+    @pytest.mark.parametrize("case", FLASH_CASES)
+    def test_plain_matches_pallas_interpret(self, case):
+        q, k, v, mask, kw, real = _flash_case(case)
+        ref = flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if mask is None else jnp.asarray(mask),
+            block_q=16, block_k=16, interpret=True, **kw)
+        tm = None if mask is None else t(mask)
+        got = flash_attention_reference(t(q), t(k), t(v), tm, **kw)
+        # the dispatching entry takes the plain version for CPU tensors
+        via_entry = flash_attention(t(q), t(k), t(v), tm, **kw)
+        for b, L in enumerate(real):
+            close(got[b, :, :L], np.asarray(ref)[b, :, :L], 1e-5)
+            close(via_entry[b, :, :L], np.asarray(ref)[b, :, :L], 1e-5)
+
+    def test_bf16_inputs(self):
+        q, k, v = (rand(1, 1, 32, 16, seed=s) for s in (19, 20, 21))
+        ref = flash_attention_pallas(
+            *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+            block_q=16, block_k=16, interpret=True)
+        got = flash_attention(*(t(x).to(torch.bfloat16) for x in (q, k, v)))
+        assert got.dtype == torch.bfloat16
+        close(got.float(), np.asarray(ref, dtype=np.float32), 2e-2)
+
+
+class TestEpiloguePlainVersion:
+    @pytest.mark.parametrize("with_bias,with_delta", [
+        (False, False), (True, False), (True, True)])
+    def test_plain_matches_pallas_interpret(self, with_bias, with_delta):
+        rng = np.random.default_rng(5)
+        T, rows, D, H = 3, 10, 32, 40
+        x = rng.standard_normal((rows, D)).astype(np.float32)
+        K = (rng.standard_normal((T, D, H)) * 0.1).astype(np.float32)
+        b = rng.standard_normal((T, H)).astype(np.float32) \
+            if with_bias else None
+        d = (rng.standard_normal((rows, T, H)) * 0.1).astype(np.float32) \
+            if with_delta else None
+        act = lambda h: jax.nn.gelu(h, approximate=False)  # noqa: E731
+        ref = head_epilogue_pallas(
+            jnp.asarray(x), jnp.asarray(K),
+            None if b is None else jnp.asarray(b),
+            None if d is None else jnp.asarray(d), act, block_rows=4,
+            interpret=True)
+        tb = None if b is None else t(b)
+        td = None if d is None else t(d)
+        got = head_epilogue_reference(t(x), t(K), tb, td, "gelu")
+        assert np.max(np.abs(got.numpy() - np.asarray(ref))) <= 1e-4
+        via_entry = head_epilogue(t(x), t(K), tb, td, "gelu")
+        assert np.max(np.abs(via_entry.numpy() - np.asarray(ref))) <= 1e-4
+
+    @pytest.mark.parametrize("name,jax_act", [
+        ("gelu", lambda h: jax.nn.gelu(h, approximate=False)),
+        ("gelu_pytorch_tanh", lambda h: jax.nn.gelu(h, approximate=True)),
+        ("relu", jax.nn.relu),
+        ("silu", jax.nn.silu),
+        ("identity", lambda h: h),
+    ])
+    def test_activations_match_jax(self, name, jax_act):
+        assert name in ACTIVATIONS
+        x = rand(6, 8, seed=3)
+        K = rand(2, 8, 5, seed=4, scale=0.3)
+        ref = jax_act(jnp.einsum("bd,tdh->bth", x, K))
+        close(head_epilogue(t(x), t(K), act=name), ref, 1e-5)
+
+    def test_unknown_activation_raises(self):
+        with pytest.raises(ValueError):
+            head_epilogue(t(rand(2, 4)), t(rand(1, 4, 4)), act="mish")
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernels (CUDA only)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestCudaKernels:
+    @pytest.mark.parametrize("case", FLASH_CASES)
+    def test_flash_kernel_vs_plain(self, cuda_device, case):
+        q, k, v, mask, kw, real = _flash_case(case)
+        dev = [t(x).to(cuda_device) for x in (q, k, v)]
+        tm = None if mask is None else t(mask).to(cuda_device)
+        got = flash_attention(*dev, tm, **kw).cpu()
+        ref = flash_attention_reference(t(q), t(k), t(v),
+                                        None if mask is None else t(mask),
+                                        **kw)
+        for b, L in enumerate(real):
+            close(got[b, :, :L], ref[b, :, :L].numpy(), 1e-5)
+
+    @pytest.mark.parametrize("with_bias,with_delta", [
+        (False, False), (True, True)])
+    def test_epilogue_kernel_vs_plain(self, cuda_device, with_bias,
+                                      with_delta):
+        x, K = rand(37, 64, seed=1), rand(3, 64, 80, seed=2, scale=0.1)
+        b = rand(3, 80, seed=3) if with_bias else None
+        d = rand(37, 3, 80, seed=4, scale=0.1) if with_delta else None
+        on = (lambda a: None if a is None else t(a).to(cuda_device))
+        got = head_epilogue(on(x), on(K), on(b), on(d), "gelu").cpu()
+        ref = head_epilogue_reference(t(x), t(K),
+                                      None if b is None else t(b),
+                                      None if d is None else t(d), "gelu")
+        close(got, ref.numpy(), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# isolation: the port never reaches JAX or the JAX package
+
+
+def _port_sources():
+    files = sorted((REPO / "semantic_router_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "flax", "semantic_router_tpu")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_import_and_cpu_engine_leave_jax_unloaded():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import semantic_router_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "from semantic_router_tpu_torch.engine.testing import "
+        "make_shared_trunk_engine\n"
+        "e = make_shared_trunk_engine(device='cpu')\n"
+        "assert e.classify('intent', 'hello there').label\n"
+        "e.shutdown()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'semantic_router_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch,
+                                                         tmp_path):
+    from semantic_router_tpu_torch.config import load_config
+    from semantic_router_tpu_torch.engine import InferenceEngine
+    from semantic_router_tpu_torch.runtime import build_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config({"classifier_models": {
+        "intent": {"checkpoint": str(tmp_path), "kind": "sequence"}}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(device="cuda")
