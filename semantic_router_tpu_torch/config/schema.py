@@ -4,9 +4,9 @@ The port's own copy of ``semantic_router_tpu.config.schema``: the same YAML
 surface (``routing:`` with ``modelCards``/``signals``/``decisions``, and an
 ``engine:`` block), parsed into dataclasses for the parts the port's main
 path reads — the learned signal families (domain, jailbreak, pii,
-fact_check), decisions with their rule trees and model refs, model cards,
-and the inference-engine knobs.  Other blocks of a config file are not
-read.
+fact_check, user_feedback, modality), decisions with their rule trees
+and model refs, model cards, and the inference-engine knobs.  Other
+blocks of a config file are not read.
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ class DomainRule:
 
 @dataclass
 class NamedRule:
-    """Generic named signal class (fact_check, ...)."""
+    """Generic named signal class (fact_check, user_feedback,
+    modality)."""
 
     name: str
     threshold: float = 0.0
@@ -102,6 +103,8 @@ class SignalsConfig:
 
     domains: List[DomainRule] = field(default_factory=list)
     fact_check: List[NamedRule] = field(default_factory=list)
+    user_feedbacks: List[NamedRule] = field(default_factory=list)
+    modality: List[NamedRule] = field(default_factory=list)
     jailbreak: List[JailbreakRule] = field(default_factory=list)
     pii: List[PIIRule] = field(default_factory=list)
 
@@ -112,6 +115,10 @@ class SignalsConfig:
             domains=[DomainRule.from_dict(x) for x in d.get("domains", [])],
             fact_check=[NamedRule.from_dict(x)
                         for x in d.get("fact_check", [])],
+            user_feedbacks=[NamedRule.from_dict(x)
+                            for x in d.get("user_feedbacks", [])],
+            modality=[NamedRule.from_dict(x)
+                      for x in d.get("modality", [])],
             jailbreak=[JailbreakRule.from_dict(x)
                        for x in d.get("jailbreak", [])],
             pii=[PIIRule.from_dict(x) for x in d.get("pii", [])],

@@ -14,10 +14,13 @@ The port of the unpacked fused path of
 - identical encodings in a batch share one trunk row; rows pad to a power
   of two and sequences to the bucket edge;
 - ``engine.kernels.epilogue`` routes the head dense through the epilogue
-  kernel; ``attention_impl="flash"`` on the trunk runs the flash kernel.
+  kernel; ``attention_impl="flash"`` on the trunk runs the flash kernel;
+  ``engine.kernels.bgmv`` swaps a wide sequence bank (at least
+  ``min_tasks`` heads) for the per-(row, task) gather of the BGMV kernel,
+  so each row computes only the heads its items asked for.
 
-Packing, quantization, meshes, BGMV and the observability hooks of the
-JAX engine are later slices (ROADMAP.md).
+Packing, quantization, meshes and the observability hooks of the JAX
+engine are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 from ..config.schema import InferenceEngineConfig
 from ..models.lora import (
     apply_head_bank,
+    apply_head_bank_bgmv,
     bank_to_device,
     head_bank_entry,
     stack_head_bank,
@@ -131,19 +135,28 @@ class TrunkGroup:
     demux: Any = None
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, flavor: str,
-                demux: dict, epilogue: bool):
+                demux: dict, epilogue: bool,
+                pair_rows: Optional[torch.Tensor] = None,
+                pair_tasks: Optional[torch.Tensor] = None):
         """One trunk forward feeding the head banks the flavor needs:
         ``seq`` → [B, T, L] logits, ``tok`` → [B, S, T, L], ``both`` →
-        both.  Returns (seq_logits or None, tok_logits or None)."""
+        both.  With (pair_rows, pair_tasks) the sequence bank runs per
+        pair (BGMV) and ``seq`` is [P, L].  Returns (seq_logits or None,
+        tok_logits or None)."""
         cfg = self.config
         hidden = self.trunk(ids, mask)
         seq = tok = None
         if flavor in ("seq", "both"):
             pooled = mean_pool(hidden, mask) \
                 if cfg.classifier_pooling == "mean" else cls_pool(hidden)
-            seq = apply_head_bank(demux["bank"], pooled,
-                                  cfg.classifier_activation, cfg.norm_eps,
-                                  epilogue=epilogue)
+            if pair_rows is not None:
+                seq = apply_head_bank_bgmv(
+                    demux["bank"], pooled, pair_rows, pair_tasks,
+                    cfg.classifier_activation, cfg.norm_eps)
+            else:
+                seq = apply_head_bank(demux["bank"], pooled,
+                                      cfg.classifier_activation,
+                                      cfg.norm_eps, epilogue=epilogue)
         if flavor in ("tok", "both"):
             B, S, H = hidden.shape
             flat = apply_head_bank(demux["tok_bank"], hidden.reshape(B * S, H),
@@ -166,7 +179,6 @@ class InferenceEngine:
         self._tasks: Dict[str, _Task] = {}
         self._lock = threading.Lock()
         self._kernels = normalize_kernels(self.cfg.kernels)
-        self._check_kernels(self._kernels)
         self._kernel_rebuilds = 0
         self._trunk_groups: Dict[tuple, TrunkGroup] = {}
         self._task_group: Dict[str, TrunkGroup] = {}
@@ -281,37 +293,35 @@ class InferenceEngine:
 
     # -- kernel knobs ------------------------------------------------------
 
-    @staticmethod
-    def _check_kernels(kk: Dict[str, Any]) -> None:
-        if kk["bgmv"]["enabled"]:
-            raise ValueError(
-                "engine.kernels.bgmv is not ported yet; serve with "
-                "bgmv.enabled: false (the all-heads bank computes the same "
-                "logits)")
-
     def configure_kernels(self, knobs: Optional[Dict[str, Any]]) -> None:
         """Apply an ``engine.kernels`` block (boot or reload).  The next
         batch serves under it; in-flight batches finish under the knobs
         they read."""
         kk = normalize_kernels(knobs)
-        self._check_kernels(kk)
         with self._lock:
             if kk != self._kernels:
                 self._kernel_rebuilds += 1
             self._kernels = kk
 
-    def _serving_meta(self) -> Dict[str, Any]:
-        return {"epilogue": bool(self._kernels["epilogue"]["enabled"]),
-                "bgmv": False}
+    def _serving_meta(self, demux: dict) -> Dict[str, Any]:
+        """The kernel-knob snapshot one batch serves under, for the group
+        whose demux snapshot it read: epilogue fusion, and whether the
+        BGMV gather engages (sequence bank at least min_tasks heads
+        wide)."""
+        kk = self._kernels  # one read: a concurrent flip swaps the dict
+        return {"epilogue": bool(kk["epilogue"]["enabled"]),
+                "bgmv": bool(kk["bgmv"]["enabled"]
+                             and len(demux["widths"])
+                             >= kk["bgmv"]["min_tasks"])}
 
     def kernels_report(self) -> Dict[str, Any]:
         """The live knob block, per-group serving meta, and how many knob
         changes this engine applied."""
-        meta = self._serving_meta()
         return {
             "kernels": {k: dict(v) for k, v in self._kernels.items()},
             "rebuilds": self._kernel_rebuilds,
-            "groups": {gid: dict(meta) for gid in list(self._groups_by_gid)},
+            "groups": {g.gid: self._serving_meta(g.demux)
+                       for g in list(self._groups_by_gid.values())},
             "device": str(self.device),
         }
 
@@ -425,11 +435,13 @@ class InferenceEngine:
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every group's flavors once per bucket at batch 1, off the
         batcher: loads the kernels (building them on first use) and the
-        library handles before live traffic arrives."""
-        meta = self._serving_meta()
+        library handles before live traffic arrives.  A BGMV group warms
+        its sequence flavors at the 1-pair shape."""
         with torch.inference_mode():
             for g in list(self._groups_by_gid.values()):
                 demux = g.demux
+                meta = self._serving_meta(demux)
+                pair = torch.zeros(1, dtype=torch.int32, device=self.device)
                 flavors = [f for f, need in
                            (("seq", demux["bank"] is not None),
                             ("tok", demux["tok_bank"] is not None),
@@ -443,7 +455,10 @@ class InferenceEngine:
                     mask = torch.ones((1, b), dtype=torch.int32)
                     ids, mask = ids.to(self.device), mask.to(self.device)
                     for flavor in flavors:
-                        g.forward(ids, mask, flavor, demux, meta["epilogue"])
+                        pairs = (pair, pair) if meta["bgmv"] \
+                            and flavor != "tok" else ()
+                        g.forward(ids, mask, flavor, demux, meta["epilogue"],
+                                  *pairs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -547,7 +562,13 @@ class InferenceEngine:
         padded_n = pow2_batch(len(uniq), self.cfg.max_batch_size)
         ids, mask, clipped = self._stack_items(uniq, bucket, padded_n,
                                                g.pad_id)
-        meta = self._serving_meta()
+        meta = self._serving_meta(demux)
+        use_bgmv = meta["bgmv"] and flavor in ("seq", "both")
+        pair_index: Dict[tuple, int] = {}
+        pairs: tuple = ()
+        if use_bgmv:
+            pr, pt, pair_index = self._bgmv_pairs(items, urow, demux)
+            pairs = (pr, pt)
         with self._lock:
             self._shapes.setdefault(f"trunk:{g.gid}", set()).add(
                 (padded_n, bucket))
@@ -555,8 +576,9 @@ class InferenceEngine:
         with torch.inference_mode():
             ids_t = torch.from_numpy(ids).to(self.device)
             mask_t = torch.from_numpy(mask).to(self.device)
+            pairs_t = [torch.from_numpy(a).to(self.device) for a in pairs]
             seq_t, tok_t = g.forward(ids_t, mask_t, flavor, demux,
-                                     meta["epilogue"])
+                                     meta["epilogue"], *pairs_t)
             seq_logits = seq_t.float().cpu().numpy() \
                 if seq_t is not None else None
             tok_logits = tok_t.float().cpu().numpy() \
@@ -567,7 +589,10 @@ class InferenceEngine:
             self._steps.append({
                 "group": g.gid, "bucket": bucket, "flavor": flavor,
                 "rows": len(uniq), "padded_rows": padded_n,
-                "epilogue": meta["epilogue"], "seconds": seconds})
+                "epilogue": meta["epilogue"], "bgmv": use_bgmv,
+                "pairs": len(pair_index),
+                "padded_pairs": len(pairs[0]) if pairs else 0,
+                "seconds": seconds})
 
         now = time.perf_counter()
         out: List[Any] = []
@@ -587,11 +612,40 @@ class InferenceEngine:
                 else:
                     row = demux["row_of"][task]
                     width = demux["widths"][row]
-                    p = _softmax(seq_logits[urow[i], row, :width][None])[0]
+                    # the BGMV path demuxes by PAIR: same logits, gathered
+                    # on the device
+                    src = seq_logits[pair_index[(urow[i], row)], :width] \
+                        if use_bgmv else seq_logits[urow[i], row, :width]
+                    p = _softmax(src[None])[0]
                     per_task[task] = self._demux_seq(task, p, latency, trunc)
             out.append(per_task[item.payload.tasks[0]]
                        if len(item.payload.tasks) == 1 else per_task)
         return out
+
+    def _bgmv_pairs(self, items: List[BatchItem], urow: List[int],
+                    demux: dict):
+        """(pair_rows, pair_tasks, pair_index) for the BGMV path: one pair
+        per distinct (trunk row, bank row) a sequence task of this batch
+        needs, in first-appearance order — deduped items share pairs as
+        they share trunk rows.  The pair axis pads to a power of two with
+        dummy pairs (row 0, task 0) that demux to nothing."""
+        pair_index: Dict[tuple, int] = {}
+        for i, item in enumerate(items):
+            for task in item.payload.tasks:
+                t = self._tasks.get(task)
+                if t is None or t.kind == "token":
+                    continue
+                key = (urow[i], demux["row_of"][task])
+                if key not in pair_index:
+                    pair_index[key] = len(pair_index)
+        n = max(1, len(pair_index))
+        p_pad = 1 << (n - 1).bit_length()
+        pr = np.zeros(p_pad, np.int32)
+        pt = np.zeros(p_pad, np.int32)
+        for (u, row), p in pair_index.items():
+            pr[p] = u
+            pt[p] = row
+        return pr, pt, pair_index
 
     def _demux_seq(self, task: str, p: np.ndarray, latency_s: float,
                    truncated: bool) -> ClassResult:

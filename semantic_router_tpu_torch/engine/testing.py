@@ -13,6 +13,7 @@ from torch import nn
 
 from ..config.schema import InferenceEngineConfig
 from ..models.convert import params_from_flax
+from ..models.lora import LoRAConfig, ModernBertLoRAHeadClassifier
 from ..models.modernbert import (
     ModernBertConfig,
     ModernBertForSequenceClassification,
@@ -54,12 +55,17 @@ def tiny_config(num_labels: int, **overrides) -> ModernBertConfig:
     return ModernBertConfig(**{**TINY, "num_labels": num_labels, **overrides})
 
 
-def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> None:
+def init_weights(module: nn.Module, seed: int, std: float = 0.02,
+                 skip: str = "") -> None:
     """Deterministic numpy-seeded weights, in parameter-name order:
-    normal(0, std) for matrices, ones for norm scales, zeros for biases."""
+    normal(0, std) for matrices, ones for norm scales, zeros for biases.
+    Parameters under the ``skip`` prefix (a shared trunk) stay as they
+    are."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, p in sorted(module.named_parameters()):
+            if skip and name.startswith(skip):
+                continue
             if name.endswith("bias"):
                 p.zero_()
             elif p.dim() == 1:
@@ -104,6 +110,7 @@ def make_test_engine(tasks: Optional[Sequence[tuple]] = None,
 
 def make_shared_trunk_engine(
     tasks: Optional[Sequence[tuple]] = None,
+    lora_tasks: Sequence[str] = (),
     token_tasks: Optional[Sequence[tuple]] = None,
     engine_cfg: Optional[InferenceEngineConfig] = None,
     seed: int = 0,
@@ -112,16 +119,20 @@ def make_shared_trunk_engine(
     flax_params: Optional[Mapping[str, Any]] = None,
     tokenizer=None,
     max_seq_len: int = 512,
+    lora: LoRAConfig = LoRAConfig(rank=4, alpha=8.0),
 ) -> InferenceEngine:
     """Engine whose tasks share ONE ModernBERT trunk — the fused
     classifier-bank shape.
 
-    ``tasks``: (name, labels) sequence tasks; ``token_tasks``: (name,
-    labels) token tasks over the SAME trunk.  ``model_config``: the
-    ModernBertConfig fields (default ``TINY``).  ``flax_params``:
-    {task: Flax tree} from the JAX package — the trunk loads from the
-    first task's tree (every task's trunk subtree is the same there), each
-    head from its own; otherwise all weights come from ``seed``."""
+    ``tasks``: (name, labels) sequence tasks; ``lora_tasks``: the member
+    names built as ``ModernBertLoRAHeadClassifier`` with ``lora`` (rank
+    4, alpha 8 by default) and a non-zero ``lora_B``, so the delta
+    provably applies; ``token_tasks``: (name, labels) token tasks over
+    the SAME trunk.  ``model_config``: the ModernBertConfig fields
+    (default ``TINY``).  ``flax_params``: {task: Flax tree} from the JAX
+    package — the trunk loads from the first task's tree (every task's
+    trunk subtree is the same there), each head from its own; otherwise
+    all weights come from ``seed``."""
     tasks = SHARED_TRUNK_TASKS if tasks is None else tasks
     cfg = engine_cfg or InferenceEngineConfig(
         max_batch_size=8, max_wait_ms=1.0, seq_len_buckets=[32, 128, 512])
@@ -133,23 +144,35 @@ def make_shared_trunk_engine(
     trunk = None
     for i, (name, kind, labels) in enumerate(specs):
         mcfg = ModernBertConfig(**{**mfields, "num_labels": len(labels)})
-        module = _classifier(kind, mcfg, trunk)
+        if kind == "sequence" and name in lora_tasks:
+            module = ModernBertLoRAHeadClassifier(mcfg, lora, len(labels),
+                                                  model=trunk)
+        else:
+            module = _classifier(kind, mcfg, trunk)
         if flax_params is not None:
             sd = params_from_flax(flax_params[name])
             if trunk is not None:
                 # the shared trunk already holds these weights: load the
-                # head and classifier, strictly
-                for part in ("head", "classifier"):
-                    getattr(module, part).load_state_dict(
-                        {k[len(part) + 1:]: v for k, v in sd.items()
-                         if k.startswith(part + ".")})
+                # rest of the module, every key of it
+                missing, unexpected = module.load_state_dict(
+                    {k: v for k, v in sd.items()
+                     if not k.startswith("model.")}, strict=False)
+                missing = [k for k in missing if not k.startswith("model.")]
+                if missing or unexpected:
+                    raise KeyError(f"task {name!r}: missing {missing}, "
+                                   f"unexpected {unexpected}")
             else:
                 module.load_state_dict(sd)
-        elif trunk is None:
-            init_weights(module, seed)
         else:
-            init_weights(module.head, seed * 1000 + 2 * i)
-            init_weights(module.classifier, seed * 1000 + 2 * i + 1)
+            init_weights(module, seed if trunk is None else seed * 1000 + i,
+                         skip="" if trunk is None else "model.")
+            if isinstance(module, ModernBertLoRAHeadClassifier):
+                # a zero lora_B is an exact no-op delta
+                rng = np.random.default_rng(seed * 1000 + 500 + i)
+                B = rng.standard_normal(tuple(module.lora_B.shape),
+                                        np.float32) * 0.3
+                with torch.no_grad():
+                    module.lora_B.copy_(torch.from_numpy(B))
         trunk = module.model
         engine.register_task(name, kind, module, tok, labels,
                              max_seq_len=max_seq_len)

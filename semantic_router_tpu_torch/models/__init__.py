@@ -4,7 +4,14 @@ from .convert import (
     read_safetensors,
     state_dict_from_hf,
 )
-from .lora import apply_head_bank, head_bank_entry, stack_head_bank
+from .lora import (
+    LoRAConfig,
+    ModernBertLoRAHeadClassifier,
+    apply_head_bank,
+    apply_head_bank_bgmv,
+    head_bank_entry,
+    stack_head_bank,
+)
 from .modernbert import (
     ModernBertConfig,
     ModernBertForSequenceClassification,
@@ -13,11 +20,14 @@ from .modernbert import (
 )
 
 __all__ = [
+    "LoRAConfig",
     "ModernBertConfig",
     "ModernBertForSequenceClassification",
     "ModernBertForTokenClassification",
+    "ModernBertLoRAHeadClassifier",
     "ModernBertModel",
     "apply_head_bank",
+    "apply_head_bank_bgmv",
     "head_bank_entry",
     "load_safetensors",
     "params_from_flax",

@@ -3,7 +3,8 @@
 - HF ModernBERT state dicts load 1:1: the port's parameter names are HF's.
 - ``params_from_flax`` carries weights from the JAX package's Flax trees
   (numpy arrays) into a state dict: Flax ``Dense`` kernels are [in, out],
-  torch ``Linear`` weights [out, in].
+  torch ``Linear`` weights [out, in]; bare LoRA parameters (``lora_A``,
+  ``lora_B``) keep the Flax layout.
 - ``read_safetensors`` is a numpy-only reader for machines without the
   ``safetensors`` package: an 8-byte little-endian header length, a JSON
   header {name: {dtype, shape, data_offsets}}, then the raw buffers.
@@ -22,12 +23,15 @@ import torch
 _LAYER_RE = re.compile(r"^layers_(\d+)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
+# bare parameters, carried as they are (no transpose)
+_RAW = frozenset({"lora_A", "lora_B"})
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ModernBERT param tree (``{"params": {...}}`` or the inner tree,
-    for ``ModernBertModel`` or ``ModernBertFor*Classification``) → a torch
-    state dict with HF names."""
+    for ``ModernBertModel``, ``ModernBertFor*Classification`` or
+    ``ModernBertLoRAHeadClassifier``) → a torch state dict with HF names
+    (the LoRA head's own names: ``head_dense``, ``lora_A``, ...)."""
     tree = flax_params.get("params", flax_params)
     out: Dict[str, torch.Tensor] = {}
 
@@ -37,14 +41,14 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 m = _LAYER_RE.match(key)
                 walk(val, path + ([f"layers.{m.group(1)}"] if m else [key]))
                 continue
-            if key not in _LEAF:
+            if key not in _LEAF and key not in _RAW:
                 raise KeyError(f"unknown Flax leaf {'/'.join(path + [key])}")
             arr = np.array(val)  # a writable host copy
             if arr.dtype.kind == "V":  # bfloat16 (ml_dtypes) → float32
                 arr = arr.astype(np.float32)
             if key == "kernel":
                 arr = arr.T
-            out[".".join(path + [_LEAF[key]])] = torch.from_numpy(
+            out[".".join(path + [_LEAF.get(key, key)])] = torch.from_numpy(
                 np.ascontiguousarray(arr))
 
     walk(tree, [])

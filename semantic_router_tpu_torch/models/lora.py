@@ -1,16 +1,19 @@
-"""The stacked head bank of the fused classifier bank.
+"""The stacked head bank of the fused classifier bank, and the LoRA-head
+classifier that joins it.
 
 The port of the head-bank half of ``semantic_router_tpu.models.lora``:
 every member task's prediction head (dense → act → LayerNorm →
 classifier, with an optional rank-r LoRA delta on the dense) stacks into
-one bank of [T, ...] arrays, and one batched application fans the shared
-trunk's features out through all of them.  Arrays keep the JAX layout
-(``dense_kernel`` [T, D, H], ``cls_kernel`` [T, H, L]) so the bank and the
-epilogue kernel take the same operands on both sides.
+one bank of [T, ...] arrays.  ``apply_head_bank`` fans the shared trunk's
+features out through every head; ``apply_head_bank_bgmv`` computes only
+the (row, task) pairs a batch asked for, through the BGMV kernel.  Arrays
+keep the JAX layout (``dense_kernel`` [T, D, H], ``cls_kernel`` [T, H, L])
+so the bank and the kernels take the same operands on both sides.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -18,20 +21,99 @@ import torch
 from torch import nn
 
 
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    """A head adapter's rank and alpha (the JAX class's trunk-adapter
+    fields come with the LoRA trunks, a later slice)."""
+
+    rank: int = 8
+    alpha: float = 16.0
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+def merge_lora_into_base(base_kernel: np.ndarray, lora_A: np.ndarray,
+                         lora_B: np.ndarray, scale: float) -> np.ndarray:
+    """Merge one task's adapter into a dense kernel [in, out] (the
+    "merged" deployment path)."""
+    return base_kernel + scale * (lora_A @ lora_B)
+
+
+class ModernBertLoRAHeadClassifier(nn.Module):
+    """Single-task sequence classifier with a LoRA-adapted prediction
+    head: frozen trunk → pool → (dense + scale·(x A) B) → act → norm →
+    classifier.  Submodules keep the Flax names (``model``,
+    ``head_dense``, ``lora_A`` [D, r], ``lora_B`` [r, H], ``head_norm``,
+    ``classifier``), so ``params_from_flax`` carries the JAX module's tree
+    1:1.  As a bank member its head stacks like any other, the delta
+    included."""
+
+    def __init__(self, cfg, lora: LoRAConfig, num_labels: int,
+                 model: Optional[nn.Module] = None) -> None:
+        """``model``: an existing trunk to share (the fused classifier
+        bank groups tasks whose trunk is one object)."""
+        from ..ops.epilogue import activation
+        from .modernbert import ModernBertModel
+
+        super().__init__()
+        D = cfg.hidden_size
+        self.config = cfg
+        self.lora = lora
+        self.model = model if model is not None else ModernBertModel(cfg)
+        self.head_dense = nn.Linear(D, D, bias=cfg.classifier_bias)
+        # Flax's init: A ~ normal(0.02), B = 0 (an exact no-op delta)
+        self.lora_A = nn.Parameter(torch.randn(D, lora.rank) * 0.02)
+        self.lora_B = nn.Parameter(torch.zeros(lora.rank, D))
+        self.head_norm = nn.LayerNorm(D, eps=cfg.norm_eps,
+                                      bias=cfg.norm_bias)
+        self.classifier = nn.Linear(D, num_labels)
+        self.act = activation(cfg.classifier_activation)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        from ..ops.attention import cls_pool, mean_pool
+
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask)
+        pooled = mean_pool(hidden, attention_mask) \
+            if self.config.classifier_pooling == "mean" else cls_pool(hidden)
+        h = self.head_dense(pooled) \
+            + self.lora.scale * ((pooled @ self.lora_A) @ self.lora_B)
+        return self.classifier(self.head_norm(self.act(h)))
+
+
 def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.detach().cpu().numpy()
 
 
 def head_bank_entry(module: nn.Module) -> Optional[Dict[str, Any]]:
-    """The stackable prediction head of a plain ModernBERT sequence or
-    token classifier, as host arrays {dense_kernel [D, H], dense_bias?,
-    lora_A?, lora_B?, scale, norm_scale, norm_bias?, cls_kernel [H, L],
-    cls_bias, kind}; None when the module is not bank-fusable."""
+    """The stackable prediction head of a ModernBERT sequence or token
+    classifier or a LoRA-head classifier, as host arrays {dense_kernel
+    [D, H], dense_bias?, lora_A?, lora_B?, scale, norm_scale, norm_bias?,
+    cls_kernel [H, L], cls_bias, kind}; None when the module is not
+    bank-fusable."""
     from .modernbert import (
         ModernBertForSequenceClassification,
         ModernBertForTokenClassification,
     )
 
+    if isinstance(module, ModernBertLoRAHeadClassifier):
+        return {
+            "dense_kernel": _np(module.head_dense.weight).T,
+            "dense_bias": _np(module.head_dense.bias),
+            "lora_A": _np(module.lora_A),
+            "lora_B": _np(module.lora_B),
+            "scale": float(module.lora.scale),
+            "norm_scale": _np(module.head_norm.weight),
+            "norm_bias": _np(module.head_norm.bias),
+            "cls_kernel": _np(module.classifier.weight).T,
+            "cls_bias": _np(module.classifier.bias),
+            "kind": "sequence",
+        }
     if not isinstance(module, (ModernBertForSequenceClassification,
                                ModernBertForTokenClassification)):
         return None
@@ -147,3 +229,38 @@ def apply_head_bank(bank: Dict[str, torch.Tensor], pooled: torch.Tensor,
         h = h + bank["norm_bias"][None]
     return torch.einsum("bth,thl->btl", h, bank["cls_kernel"]) \
         + bank["cls_bias"][None]
+
+
+def apply_head_bank_bgmv(bank: Dict[str, torch.Tensor], pooled: torch.Tensor,
+                         pair_rows: torch.Tensor, pair_tasks: torch.Tensor,
+                         activation: str, norm_eps: float) -> torch.Tensor:
+    """Per-pair gathered head application: pooled [N, D] and pairs [P]
+    (int32 row and bank-row indices) → logits [P, L_max].  Each (row,
+    task) pair computes only its task's head — the same math as
+    ``apply_head_bank`` at (pair_rows, pair_tasks).
+
+    The two full-width matmuls (head dense, classifier) go through the
+    BGMV kernel (ops.bgmv); the rank-r LoRA delta stays gathered einsums,
+    as the JAX package keeps it outside Pallas."""
+    from ..ops.bgmv import bgmv
+    from ..ops.epilogue import activation as act_fn
+
+    x = pooled.index_select(0, pair_rows)                # [P, D]
+    h = bgmv(x, bank["dense_kernel"], pair_tasks)        # [P, H]
+    if "dense_bias" in bank:
+        h = h + bank["dense_bias"].index_select(0, pair_tasks)
+    if "lora_A" in bank:
+        low = torch.einsum("pd,pdr->pr", x,
+                           bank["lora_A"].index_select(0, pair_tasks))
+        h = h + bank["scale"].index_select(0, pair_tasks)[:, None] \
+            * torch.einsum("pr,prh->ph", low,
+                           bank["lora_B"].index_select(0, pair_tasks))
+    h = act_fn(activation)(h)
+    mu = h.mean(dim=-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + norm_eps)
+    h = h * bank["norm_scale"].index_select(0, pair_tasks)
+    if "norm_bias" in bank:
+        h = h + bank["norm_bias"].index_select(0, pair_tasks)
+    return bgmv(h, bank["cls_kernel"], pair_tasks) \
+        + bank["cls_bias"].index_select(0, pair_tasks)

@@ -7,6 +7,7 @@ from .attention import (
     sdpa,
     sliding_window_bias,
 )
+from .bgmv import bgmv, bgmv_reference
 from .epilogue import head_epilogue, head_epilogue_reference
 from .flash_attention import flash_attention, flash_attention_reference
 from .rope import RopeSpec, apply_rotary, default_inv_freq, rope_tables, \
@@ -16,6 +17,8 @@ __all__ = [
     "NEG_INF",
     "RopeSpec",
     "apply_rotary",
+    "bgmv",
+    "bgmv_reference",
     "chunked_sdpa",
     "cls_pool",
     "default_inv_freq",

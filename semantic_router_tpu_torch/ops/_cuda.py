@@ -137,10 +137,11 @@ def check_launch(kernel: CudaKernel, rc: int) -> None:
 
 def registry() -> Dict[str, CudaKernel]:
     """Every kernel of the port, by name (imports the op modules)."""
+    from .bgmv import BGMV
     from .epilogue import HEAD_EPILOGUE
     from .flash_attention import FLASH_ATTENTION
 
-    return {k.name: k for k in (FLASH_ATTENTION, HEAD_EPILOGUE)}
+    return {k.name: k for k in (FLASH_ATTENTION, HEAD_EPILOGUE, BGMV)}
 
 
 def reset_launch_counts() -> None:

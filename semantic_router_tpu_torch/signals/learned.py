@@ -4,7 +4,8 @@ family's configured rules.
 - domain     → the category (intent) classifier;
 - jailbreak  → classifier / pattern / hybrid methods;
 - pii        → the token classifier + allowed-types policy;
-- fact_check → a binary sequence classifier.
+- fact_check, user_feedback, modality → a sequence classifier whose
+  labels are the rule names.
 
 All evaluators fail open: an engine error is recorded on the
 SignalResult, never raised across the dispatch boundary.
@@ -183,8 +184,8 @@ class PIISignal(_EngineSignal):
 
 
 class BinaryTaskSignal(_EngineSignal):
-    """Classifier label → rule name (fact_check): a rule matches when the
-    classifier emits its name."""
+    """Classifier label → rule name (fact_check, user_feedback,
+    modality): a rule matches when the classifier emits its name."""
 
     def __init__(self, engine, rules: List[NamedRule], task: str,
                  signal_type: str) -> None:
@@ -202,7 +203,8 @@ class BinaryTaskSignal(_EngineSignal):
 
 def build_learned_evaluators(engine, cfg) -> list:
     """Every learned family whose rules are configured, on the engine's
-    default task names (intent / jailbreak / pii / fact_check)."""
+    default task names (intent / jailbreak / pii / fact_check /
+    user_feedback / modality)."""
     s = cfg.signals
     evs: list = []
     if s.domains:
@@ -214,4 +216,10 @@ def build_learned_evaluators(engine, cfg) -> list:
     if s.fact_check:
         evs.append(BinaryTaskSignal(engine, s.fact_check, "fact_check",
                                     "fact_check"))
+    if s.user_feedbacks:
+        evs.append(BinaryTaskSignal(engine, s.user_feedbacks,
+                                    "user_feedback", "user_feedback"))
+    if s.modality:
+        evs.append(BinaryTaskSignal(engine, s.modality, "modality",
+                                    "modality"))
     return evs

@@ -160,8 +160,10 @@ def test_engine_refusals():
             teng.classify("nope", "x")
         with pytest.raises(TypeError, match="token_classify"):
             teng.classify("pii", "x")
-        with pytest.raises(ValueError, match="bgmv"):
-            teng.configure_kernels({"bgmv": {"enabled": True}})
+        # the BGMV knob is served: a 3-head bank engages at min_tasks 2
+        teng.configure_kernels({"bgmv": {"enabled": True, "min_tasks": 2}})
+        assert [m["bgmv"] for m in
+                teng.kernels_report()["groups"].values()] == [True]
         assert teng.fused_covers(["intent", "fact_check"])
         assert not teng.fused_covers(["intent", "pii"])
     finally:

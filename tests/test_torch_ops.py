@@ -1,6 +1,6 @@
 """Parity of the PyTorch port's ops (semantic_router_tpu_torch.ops) with
 the JAX reference on the CPU, the kernels' plain versions against the
-Pallas kernels in interpret mode, the port's import isolation, and — on a
+Pallas kernels in interpret mode (the BGMV op's in test_torch_bgmv.py), the port's import isolation, and — on a
 machine with a CUDA device only — the hand-written kernels themselves.
 
 Inputs are numpy arrays from a seed, handed to both frameworks."""
@@ -23,6 +23,7 @@ from semantic_router_tpu.ops.epilogue import head_epilogue_pallas
 from semantic_router_tpu.ops.flash_attention import flash_attention_pallas
 from semantic_router_tpu_torch.ops import attention as tattn
 from semantic_router_tpu_torch.ops import rope as trope
+from semantic_router_tpu_torch.ops.bgmv import bgmv, bgmv_reference
 from semantic_router_tpu_torch.ops.epilogue import (
     ACTIVATIONS,
     head_epilogue,
@@ -265,6 +266,29 @@ class TestCudaKernels:
                                       None if b is None else t(b),
                                       None if d is None else t(d), "gelu")
         close(got, ref.numpy(), 1e-4)
+
+    @pytest.mark.parametrize("T,P,D,H", [(5, 9, 32, 40), (5, 1, 32, 40),
+                                         (3, 37, 768, 8), (32, 64, 768, 768)])
+    def test_bgmv_kernel_vs_plain(self, cuda_device, T, P, D, H):
+        rng = np.random.default_rng(P)
+        x, w = rand(P, D, seed=1), rand(T, D, H, seed=2, scale=0.05)
+        idx = rng.integers(0, T, P).astype(np.int32)
+        got = bgmv(t(x).to(cuda_device), t(w).to(cuda_device),
+                   t(idx).to(cuda_device)).cpu()
+        close(got, bgmv_reference(t(x), t(w), t(idx)).numpy(), 1e-4)
+
+    def test_bgmv_kernel_refusals_and_bad_index(self, cuda_device):
+        x = t(rand(4, 16)).to(cuda_device)
+        w = t(rand(3, 16, 8)).to(cuda_device)
+        idx = torch.tensor([0, 5, 2, -1], dtype=torch.int32,
+                           device=cuda_device)
+        out = bgmv(x, w, idx).cpu()
+        assert torch.isnan(out[[1, 3]]).all()
+        assert torch.isfinite(out[[0, 2]]).all()
+        with pytest.raises(ValueError, match="int32"):
+            bgmv(x, w, idx.long())
+        with pytest.raises(ValueError, match="contiguous"):
+            bgmv(x.t().contiguous().t(), w, idx)
 
 
 # ---------------------------------------------------------------------------

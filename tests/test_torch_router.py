@@ -176,6 +176,106 @@ class TestRouteParity:
             bare.shutdown()
 
 
+FEEDBACK = ["satisfied", "wrong_answer", "need_clarification",
+            "want_different"]
+MODALITY = ["AR", "DIFFUSION", "BOTH"]
+WIDE_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": {"max_batch_size": 8, "max_wait_ms": 1.0,
+               "seq_len_buckets": [32, 128, 512]},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in
+                       ("qwen3-8b", "fixer", "clarifier", "image-gen",
+                        "omni", "biz")],
+        "signals": {
+            "domains": [{"name": d} for d in DOMAINS],
+            "user_feedbacks": [{"name": n} for n in FEEDBACK],
+            "modality": [{"name": n} for n in MODALITY],
+        },
+        "decisions": [
+            {"name": "fix_answer", "priority": 300,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "user_feedback", "name": "wrong_answer"}]},
+             "modelRefs": [{"model": "fixer"}]},
+            {"name": "image_route", "priority": 250,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "modality", "name": "DIFFUSION"}]},
+             "modelRefs": [{"model": "image-gen"}]},
+            {"name": "clarify_biz", "priority": 200,
+             "rules": {"operator": "AND", "conditions": [
+                 {"type": "user_feedback", "name": "need_clarification"},
+                 {"type": "domain", "name": "business"}]},
+             "modelRefs": [{"model": "clarifier"}]},
+            {"name": "omni_route", "priority": 150,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "modality", "name": "BOTH"}]},
+             "modelRefs": [{"model": "omni"}]},
+            {"name": "business_route", "priority": 90,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "domain", "name": "business"}]},
+             "modelRefs": [{"model": "biz"}]},
+        ],
+    },
+}
+
+
+class TestFeedbackAndModalityParity:
+    """The user_feedback and modality families: the port's router (its
+    five-head bank served through the BGMV path) against the JAX router
+    on one config and the same weights."""
+
+    @pytest.fixture(scope="class")
+    def wide_routers(self):
+        tasks = [("intent", DOMAINS), ("user_feedback", FEEDBACK),
+                 ("modality", MODALITY),
+                 ("jailbreak", ["benign", "jailbreak"]),
+                 ("fact_check", ["no_fact_check_needed",
+                                 "needs_fact_check"])]
+        jeng = jtesting.make_shared_trunk_engine(tasks=tasks,
+                                                 lora_tasks=("modality",),
+                                                 seed=13)
+        cfg = load_config(WIDE_CONFIG)
+        cfg.engine.kernels = {"bgmv": {"enabled": True, "min_tasks": 4}}
+        teng = ttesting.make_shared_trunk_engine(
+            tasks=tasks, lora_tasks=("modality",), device="cpu",
+            engine_cfg=cfg.engine,
+            flax_params={n: t.params for n, t in jeng._tasks.items()})
+        jr = JaxRouter(JaxRouterConfig.from_dict(WIDE_CONFIG), engine=jeng)
+        tr = Router(cfg, engine=teng)
+        yield jr, tr, teng
+        for x in (jr, tr, jeng, teng):
+            x.shutdown()
+
+    def test_same_decisions(self, wide_routers):
+        jr, tr, teng = wide_routers
+        assert [m["bgmv"] for m in
+                teng.kernels_report()["groups"].values()] == [True]
+        families = set()
+        for text in PROMPTS:
+            want = jr.route(_body(text))
+            got = tr.route(_body(text))
+            assert (got.decision is None) == (want.decision is None)
+            if want.decision is not None:
+                assert got.decision.decision.name == \
+                    want.decision.decision.name
+            assert got.model == want.model
+            assert sorted(got.signals.all_matched_rules()) == \
+                sorted(want.signals.all_matched_rules())
+            families |= set(got.signals.matches)
+            assert all(r.error is None for r in got.report.results.values())
+        assert {"user_feedback", "modality"} <= families
+        assert any(s["bgmv"] for s in teng.steps())
+
+    def test_schema_reads_both_families(self):
+        got = load_config(WIDE_CONFIG).signals
+        want = JaxRouterConfig.from_dict(WIDE_CONFIG).signals
+        assert [r.name for r in got.user_feedbacks] == \
+            [r.name for r in want.user_feedbacks] == FEEDBACK
+        assert [r.name for r in got.modality] == \
+            [r.name for r in want.modality] == MODALITY
+
+
 def _post(url, payload, raw=None):
     u = urllib.parse.urlsplit(url)
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
