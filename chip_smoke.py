@@ -10,16 +10,25 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    and convolutions, so every float32 comparison is full float32.
 2. kernels — builds every CUDA kernel of the main paths from ``csrc/``
    (one ``nvcc`` per source, in parallel: flash attention, head epilogue,
-   BGMV) and holds each against its plain PyTorch version on the card, at
-   the main paths' shapes and at edge cases; prints max abs error, kernel
-   / plain / library-call times (and, for BGMV, the all-heads bank's).
+   BGMV), counts the tensor-core (HMMA) instructions in each library's
+   SASS (``cuobjdump``; K1 and K2 must have some), and holds each kernel
+   against its plain PyTorch version on the card, at the main paths'
+   shapes and at edge cases (K1: a mask with holes, an all-padding batch
+   row, S off the tile grid, NaN planted in the K tiles the kernel must
+   skip; K2: rows 1, 64 and 65 on both sides of its path switch, checked
+   by kernel name in a profiler trace); two launches must give the same
+   bits.  Prints max abs error, kernel / plain / library-call times (and,
+   for BGMV, the all-heads bank's), the device kernels SDPA launched for
+   K1's library time, and K1's tile pairs computed of all.
 3. serve — a full-width ModernBERT-base trunk (22 layers, hidden 768,
    random weights from a numpy seed) shared by three sequence heads
    (intent, jailbreak, fact_check) and one token head (pii), behind the
    port's HTTP server and mock backend; ~8 concurrent chat requests; the
    kernels' launch counters must show the main path ran through them; the
    same requests routed by the port on the CPU (plain versions) must give
-   the same decisions, models and top classes.
+   the same decisions, models and top classes.  One trunk forward is timed
+   at B=1 S=128 and at B=16 S=512, all real and padded to lengths
+   512 - 29i, with the kernels and with the plain versions.
 4. wide bank — the same trunk width and depth carrying 32 sequence heads
    (five router families + 27 tenant heads, every other one a LoRA head)
    and the pii token head, with ``engine.kernels.bgmv`` on: 12 concurrent
@@ -32,12 +41,16 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers, ``nvidia-smi``'s name and power limit, and then
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
+phase's rows to FILE; ``--parent-csrc DIR`` times K1 and K2 built from
+another tree's ``csrc/`` (the parent commit's) against this tree's, in
+turns on the same card, after the kernel phase.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -72,9 +85,12 @@ try:
         head_epilogue_reference,
     )
     from semantic_router_tpu_torch.ops.flash_attention import (
+        BLOCK_K,
         FLASH_ATTENTION,
         flash_attention,
         flash_attention_reference,
+        flash_tile_pairs,
+        real_tiles,
     )
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
     from semantic_router_tpu_torch.runtime import (
@@ -90,9 +106,13 @@ except ImportError as exc:
 SEED = 20261016
 DEVICE = "cuda"  # the serve phase's device
 
-# published H100 SXM peaks (data sheet; dense, no sparsity)
+# published H100 SXM peaks (data sheet; dense, no sparsity).  float32 is
+# counted at the float32-accurate tensor-core rate: 3xTF32 spends three
+# TF32 MMAs (495 TFLOP/s) on each float32 product, and that beats the
+# 67 TFLOP/s of float32 FMA outside the tensor cores, so a kernel that
+# uses it must be held to it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12,     # float32 outside the tensor cores
+PEAK_FLOPS = {torch.float32: 495e12 / 3,
               torch.bfloat16: 989e12}
 
 # ModernBERT-base (answerdotai/ModernBERT-base config.json) at full width
@@ -265,14 +285,23 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+SPIN_CYCLES = 10_000_000  # ~5 ms of a spinning kernel at the H100's clock
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, hold: bool = True) -> float:
     """Mean device time of ``fn`` in ms (CUDA events around ``iters``
-    back-to-back calls, after ``warmup`` calls)."""
+    back-to-back calls, after ``warmup`` calls).  With ``hold`` a spinning
+    kernel keeps the card busy while the host enqueues the calls, so a
+    call shorter than its Python launch path is timed on the device, not
+    at the host's launch rate; without it (the forwards) the events see
+    what a caller sees, host gaps included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -364,56 +393,109 @@ def _allowed_pairs(mask, S, window, causal) -> int:
     return int((allowed[None] & m[:, None, :] & m[:, :, None]).sum())
 
 
+def _dead_keys(mask, S) -> torch.Tensor:
+    """[B, S] bool: the keys of every K tile that holds no real key (the
+    tiles the kernel skips)."""
+    dead = ~real_tiles(mask, mask.shape[0], S, BLOCK_K)
+    return dead.repeat_interleave(BLOCK_K, dim=1)[:, :S].to(mask.device)
+
+
 def check_flash(name, B, H, S, D, dtype, tol, window=0, causal=False,
-                lengths=None, packed=True, seed=0) -> dict:
-    q, k, v, mask = _attn_inputs(B, H, S, D, dtype, seed, lengths, packed)
-    use_mask = mask if lengths else None
-    out = flash_attention(q, k, v, use_mask, window=window, causal=causal)
-    torch.cuda.synchronize()
+                lengths=None, packed=True, seed=0, mask=None,
+                poison=False) -> dict:
+    """K1 against its plain version on real query rows; the output must be
+    finite everywhere and the same bits from two launches.  ``mask``: an
+    explicit [B, S] mask (holes, all-padding rows) in place of
+    ``lengths``.  ``poison``: after the reference is taken, K and V of
+    every K tile with no real key become NaN -- finite, matching real
+    rows then show the kernel never read those tiles."""
+    q, k, v, m = _attn_inputs(B, H, S, D, dtype, seed, lengths, packed)
+    if mask is not None:
+        m = mask.to("cuda", torch.int32).contiguous()
+    use_mask = m if (lengths or mask is not None) else None
     ref = flash_attention_reference(q.float(), k.float(), v.float(),
                                     use_mask, window=window, causal=causal)
-    real = mask.bool()[:, None, :, None].expand_as(ref)
+    if poison:
+        dead = _dead_keys(m, S)[:, None, :, None]
+        check(bool(dead.any()), f"flash[{name}]: no tile to poison")
+        k.masked_fill_(dead, float("nan"))
+        v.masked_fill_(dead, float("nan"))
+    out = flash_attention(q, k, v, use_mask, window=window, causal=causal)
+    again = flash_attention(q, k, v, use_mask, window=window, causal=causal)
+    torch.cuda.synchronize()
+    real = m.bool()[:, None, :, None].expand_as(ref)
     err = float((out.float() - ref).abs()[real].max())
     check(bool(torch.isfinite(out.float()).all()),
           f"flash[{name}]: non-finite output")
     check(err <= tol, f"flash[{name}]: max abs err {err:.3e} > {tol:g}")
+    check(torch.equal(out, again),
+          f"flash[{name}]: two launches gave different bits")
     ms = cuda_ms(lambda: flash_attention(q, k, v, use_mask, window=window,
                                          causal=causal))
     plain_ms = cuda_ms(lambda: flash_attention_reference(
         q, k, v, use_mask, window=window, causal=causal))
-    bias = padding_bias(mask) if use_mask is not None else \
+    bias = padding_bias(m) if use_mask is not None else \
         torch.zeros(B, 1, 1, S, device="cuda")
     if window > 0:
         bias = bias + sliding_window_bias(S, window, device="cuda")
     if causal:
         bias = bias + causal_bias(S, device="cuda")
     bias = bias.to(dtype)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=bias))
+    lib = (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    lib_ms = cuda_ms(lib)
+    # which SDPA backend the library time is (flash, memory-efficient /
+    # CUTLASS, or math), by the device kernels it launched
+    lib_kernels = sorted({n[:100] for n in _kernel_names(lib)})
     esize = q.element_size()
     nbytes = 4 * B * H * S * D * esize + (B * S * 4 if use_mask is not None
                                           else 0)
-    flops = 4.0 * D * H * _allowed_pairs(mask, S, window, causal)
+    flops = 4.0 * D * H * _allowed_pairs(m, S, window, causal)
     bms, by = bound_ms(nbytes, flops, dtype)
+    pairs = {key: n * H for key, n in flash_tile_pairs(
+        use_mask, B, S, window, causal).items()}
     row = {"check": name, "shape": [B, H, S, D], "dtype": str(dtype),
            "window": window, "causal": causal, "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "tol": tol, "bit_identical": True, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_kernels": lib_kernels,
            "bound_ms": bms, "bound_by": by,
-           "launches": FLASH_ATTENTION.launches}
+           "tile_pairs": pairs, "launches": FLASH_ATTENTION.launches}
     print("flash_attention " + json.dumps(row), flush=True)
     return row
 
 
+def _kernel_names(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launched
+    (torch.profiler; a trace that came back without device events is
+    taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def check_epilogue(name, rows, T, D, H, dtype, tol, with_bias, with_delta,
-                   act="gelu", seed=0) -> dict:
+                   act="gelu", seed=0, w_scale=0.05) -> dict:
+    """K2 against its plain version; the same bits from two launches, and
+    the launcher's path by shape: the weight-streaming kernel at rows <=
+    64, the tensor-core GEMM above."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(rows, D, generator=g).to("cuda", dtype)
-    W = (torch.randn(T, D, H, generator=g) * 0.05).to("cuda", dtype)
+    W = (torch.randn(T, D, H, generator=g) * w_scale).to("cuda", dtype)
     b = torch.randn(T, H, generator=g).to("cuda", dtype) \
         if with_bias else None
     d = (torch.randn(rows, T, H, generator=g) * 0.1).to("cuda", dtype) \
         if with_delta else None
     out = head_epilogue(x, W, b, d, act)
+    again = head_epilogue(x, W, b, d, act)
     torch.cuda.synchronize()
     up = (lambda t: None if t is None else t.float())
     ref = head_epilogue_reference(x.float(), W.float(), up(b), up(d), act)
@@ -421,6 +503,14 @@ def check_epilogue(name, rows, T, D, H, dtype, tol, with_bias, with_delta,
     check(bool(torch.isfinite(out.float()).all()),
           f"epilogue[{name}]: non-finite output")
     check(err <= tol, f"epilogue[{name}]: max abs err {err:.3e} > {tol:g}")
+    check(torch.equal(out, again),
+          f"epilogue[{name}]: two launches gave different bits")
+    names = [n for n in _kernel_names(lambda: head_epilogue(x, W, b, d, act))
+             if "head_epilogue" in n]
+    path = "small" if rows <= 64 else "gemm"
+    check(len(names) == 1 and f"head_epilogue_{path}" in names[0],
+          f"epilogue[{name}]: rows {rows} launched {names}, expected the "
+          f"{path} kernel")
     ms = cuda_ms(lambda: head_epilogue(x, W, b, d, act))
     plain_ms = cuda_ms(lambda: head_epilogue_reference(x, W, b, d, act))
     act_fn = activation(act)
@@ -442,8 +532,9 @@ def check_epilogue(name, rows, T, D, H, dtype, tol, with_bias, with_delta,
     flops = 2.0 * rows * D * H * T
     bms, by = bound_ms(nbytes, flops, dtype)
     row = {"check": name, "shape": [rows, T, D, H], "dtype": str(dtype),
-           "bias": with_bias, "delta": with_delta, "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bias": with_bias, "delta": with_delta, "path": path,
+           "max_abs_err": err, "tol": tol, "bit_identical": True,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_call": "torch.bmm + bias + delta + gelu",
            "bound_ms": bms, "bound_by": by,
            "launches": HEAD_EPILOGUE.launches}
@@ -525,6 +616,33 @@ def check_bgmv_bad_index() -> dict:
     return row
 
 
+def _holes_mask(B: int, S: int) -> torch.Tensor:
+    """A [B, S] mask with holes: row 0 real but for keys 64..191 (four
+    whole 32-key tiles of the kernel) and a few scattered keys, row 1
+    real on every other 64-key block and padded at the tail."""
+    m = torch.ones(B, S, dtype=torch.int32)
+    m[0, 64:192] = 0
+    m[0, 20:26] = 0
+    m[0, 300:311] = 0
+    for t in range(1, -(-S // 64), 2):
+        m[1, t * 64:(t + 1) * 64] = 0
+    m[1, S - 10:] = 0
+    return m
+
+
+def sass_hmma() -> dict:
+    """HMMA (tensor-core MMA) instructions in each kernel library's SASS,
+    counted from ``cuobjdump --dump-sass``."""
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name, k in _cuda.registry().items():
+        sass = subprocess.run([tool, "--dump-sass", k.library_path()],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+    return counts
+
+
 def phase_kernels() -> dict:
     t0 = time.perf_counter()
     logs = _cuda.build_all(_cuda.registry().values())
@@ -533,6 +651,10 @@ def phase_kernels() -> dict:
                 if "registers" in l or "spill" in l or "smem" in l]
         print(f"built {name}: " + " | ".join(info[:12]), flush=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    hmma = sass_hmma()
+    print("sass HMMA instructions: " + json.dumps(hmma), flush=True)
+    for name in ("flash_attention", "head_epilogue"):
+        check(hmma[name] > 0, f"{name}: no HMMA instruction in its SASS")
 
     f32, bf16 = torch.float32, torch.bfloat16
     flash = [
@@ -556,7 +678,32 @@ def phase_kernels() -> dict:
                     window=128, lengths=[512 - 29 * i for i in range(16)]),
         check_flash("main_global_bf16", 16, 12, 512, 64, bf16, 2e-2,
                     lengths=[512 - 29 * i for i in range(16)]),
+        check_flash("main_local_f32_full", 16, 12, 512, 64, f32, 1e-4,
+                    window=128, lengths=[512] * 16),
+        check_flash("main_global_f32_full", 16, 12, 512, 64, f32, 1e-4,
+                    lengths=[512] * 16),
+        check_flash("mask_holes", 2, 4, 384, 64, f32, 1e-4,
+                    mask=_holes_mask(2, 384)),
+        check_flash("mask_holes_window128", 2, 4, 384, 64, f32, 1e-4,
+                    window=128, mask=_holes_mask(2, 384)),
+        check_flash("mask_holes_bf16", 2, 4, 384, 64, bf16, 2e-2,
+                    mask=_holes_mask(2, 384)),
+        check_flash("all_padding_row", 3, 4, 256, 64, f32, 1e-4,
+                    lengths=[256, 0, 100]),
+        check_flash("S77_not_tile_multiple", 2, 4, 77, 64, f32, 1e-4,
+                    window=128, lengths=[77, 30]),
+        check_flash("S1", 2, 4, 1, 64, f32, 1e-4),
+        check_flash("skip_proof_nan_global", 16, 12, 512, 64, f32, 1e-4,
+                    lengths=[512 - 29 * i for i in range(16)], poison=True),
+        check_flash("skip_proof_nan_holes_window", 2, 4, 384, 64, f32, 1e-4,
+                    window=128, mask=_holes_mask(2, 384), poison=True),
     ]
+    for r in flash:
+        if r["check"].startswith("main_"):
+            p = r["tile_pairs"]
+            print(f"flash tile pairs {r['check']}: computed {p['computed']} "
+                  f"of {p['clipped']} after the window clip, {p['total']} "
+                  f"in all", flush=True)
     epi = [
         check_epilogue("seq_rows16_T3", 16, 3, 768, 768, f32, 1e-4,
                        False, False),
@@ -576,6 +723,15 @@ def phase_kernels() -> dict:
                        act="silu"),
         check_epilogue("seq_rows16_T3_bf16", 16, 3, 768, 768, bf16, 2e-2,
                        True, True),
+        check_epilogue("rows1_T3", 1, 3, 768, 768, f32, 1e-4, True, True),
+        check_epilogue("rows64_T3", 64, 3, 768, 768, f32, 1e-4, True, True),
+        check_epilogue("rows65_T3", 65, 3, 768, 768, f32, 1e-4, True, True),
+        check_epilogue("unaligned_rows100_D30_H37", 100, 2, 30, 37, f32,
+                       1e-4, True, True),
+        # weights scaled so |h| < 8 across 6.3M outputs: above 8 one bf16
+        # rounding step of the output alone is 0.031, past the tolerance
+        check_epilogue("tok_rows8192_T1_bf16", 8192, 1, 768, 768, bf16,
+                       2e-2, True, True, w_scale=0.02),
     ]
     rng = np.random.default_rng(SEED)
     router = router_mix_idx()                     # 80 pairs -> 128
@@ -599,7 +755,55 @@ def phase_kernels() -> dict:
     ]
     bad = check_bgmv_bad_index()
     return {"flash": flash, "epilogue": epi, "bgmv": bg,
-            "bgmv_bad_index": bad}
+            "bgmv_bad_index": bad, "hmma": hmma}
+
+
+def compare_parent(parent_csrc: str) -> list:
+    """K1 and K2 at the main shapes with another tree's kernels (the
+    parent commit's ``csrc/``) and this tree's, in turns: parent, change,
+    change, parent, on one card.  The other tree's sources build beside
+    this tree's and load behind the same wrappers: the C entry points
+    take the same arguments."""
+    kernels = (FLASH_ATTENTION, HEAD_EPILOGUE)
+    other = [_cuda.CudaKernel(k.name, k.symbol, k.argtypes,
+                              csrc_dir=parent_csrc) for k in kernels]
+    _cuda.build_all(other)
+    fns = {k.name: (o.function(), k.function())
+           for k, o in zip(kernels, other)}
+    f32 = torch.float32
+    lengths = [512 - 29 * i for i in range(16)]
+    cases = []
+    for name, window, lens in (("local", 128, lengths),
+                               ("global", 0, lengths),
+                               ("local_full", 128, [512] * 16),
+                               ("global_full", 0, [512] * 16)):
+        q, k, v, m = _attn_inputs(16, 12, 512, 64, f32, 0, lens, True)
+        cases.append((f"flash_{name}", FLASH_ATTENTION,
+                      (lambda q=q, k=k, v=v, m=m, w=window:
+                       flash_attention(q, k, v, m, window=w))))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for name, rows, T in (("seq_rows16_T3", 16, 3),
+                          ("tok_rows8192_T1", 8192, 1)):
+        x = torch.randn(rows, 768, generator=g).cuda()
+        W = (torch.randn(T, 768, 768, generator=g) * 0.05).cuda()
+        cases.append((f"epilogue_{name}", HEAD_EPILOGUE,
+                      (lambda x=x, W=W: head_epilogue(x, W, None, None,
+                                                      "gelu"))))
+    rows = []
+    try:
+        for name, kern, fn in cases:
+            turns = []
+            for which in (0, 1, 1, 0):  # parent, change, change, parent
+                kern._fn = fns[kern.name][which]
+                turns.append(cuda_ms(fn))
+            row = {"case": name, "parent_ms": [turns[0], turns[3]],
+                   "change_ms": [turns[1], turns[2]]}
+            print("compare " + json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        for k in kernels:
+            k._fn = fns[k.name][1]
+    return rows
 
 
 # -- phase 3: serve ----------------------------------------------------------
@@ -754,27 +958,34 @@ def _profile(fn) -> dict:
 
 def measure_forwards(engine, cfg) -> dict:
     """One trunk forward with both head banks, at the serving extremes
-    (B=1 S=128, B=16 S=512): the main path (flash + epilogue kernels) and
-    the plain versions on the card (dense attention, einsum heads), each
-    timed with CUDA events and profiled once."""
+    (B=1 S=128, B=16 S=512 all real, and B=16 S=512 padded to lengths
+    512 - 29i as a bucketed batch is): the main path (flash + epilogue
+    kernels) and the plain versions on the card (dense attention, einsum
+    heads), each timed with CUDA events and profiled once."""
     plain = build_engine_for(DEVICE, cfg, attention_impl="dense")
     out = {}
     try:
-        for B, S in ((1, 128), (16, 512)):
+        for B, S, padded in ((1, 128, False), (16, 512, False),
+                             (16, 512, True)):
             ids = torch.randint(3, MODERNBERT_BASE["vocab_size"], (B, S),
                                 generator=torch.Generator().manual_seed(SEED)
                                 ).to(DEVICE)
             mask = torch.ones(B, S, dtype=torch.int32, device=DEVICE)
+            if padded:
+                for b in range(B):
+                    mask[b, S - 29 * b:] = 0
+                ids = ids * mask
+            tag = f"B{B}_S{S}" + ("_padded" if padded else "")
             for name, eng, epi in (("kernels", engine, True),
                                    ("plain", plain, False)):
                 g = eng.trunk_group("intent")
                 with torch.inference_mode():
                     fn = (lambda: g.forward(ids, mask, "both", g.demux, epi))
-                    ms = cuda_ms(fn, iters=5, warmup=2)
+                    ms = cuda_ms(fn, iters=5, warmup=2, hold=False)
                     prof = _profile(fn)
                 row = {"ms": ms, **prof}
-                out[f"B{B}_S{S}_{name}"] = row
-                print(f"forward B={B} S={S} {name}: " + json.dumps(row),
+                out[f"{tag}_{name}"] = row
+                print(f"forward {tag} {name}: " + json.dumps(row),
                       flush=True)
     finally:
         plain.shutdown()
@@ -1050,7 +1261,8 @@ def measure_wide(engine, g) -> dict:
     with torch.inference_mode():
         for name, extra in (("bgmv_on", router_pairs), ("bgmv_off", ())):
             fn = (lambda: g.forward(ids, mask, "both", demux, True, *extra))
-            row = {"ms": cuda_ms(fn, iters=5, warmup=2), **_profile(fn)}
+            row = {"ms": cuda_ms(fn, iters=5, warmup=2, hold=False),
+                   **_profile(fn)}
             out[f"forward_B{B}_S{S}_{name}"] = row
             print(f"wide forward B={B} S={S} {name}: " + json.dumps(row),
                   flush=True)
@@ -1077,13 +1289,31 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after the kernel phase (prints no result)")
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="also time K1 and K2 built from DIR (another "
+                         "tree's csrc/) against this tree's, in turns")
+    ap.add_argument("--out", metavar="FILE",
+                    help="write every phase's rows to FILE as JSON")
     args = ap.parse_args(argv)
     dev = phase_device()
-    kern = phase_kernels()
+    report = {"device": dev, "kernels": phase_kernels()}
+    kern = report["kernels"]
+    if args.parent_csrc:
+        report["compare"] = compare_parent(args.parent_csrc)
+
+    def save():
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+
     if args.only_kernels:
+        save()
         return 0
-    serve = phase_serve()
-    wide = phase_wide()
+    serve = report["serve"] = phase_serve()
+    wide = report["wide"] = phase_wide()
+    save()
     main_flash = next(r for r in kern["flash"]
                       if r["check"] == "main_local_f32")
     main_epi = next(r for r in kern["epilogue"]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries land in ``_build/`` beside
-this package, named by a digest of their source and flags, so an edited
-source never loads a stale build.  Nothing builds at import time: a
+this package, named by a digest of their source, the ``csrc/*.cuh``
+headers they may include, and the flags, so an edited source or header
+never loads a stale build.  Nothing builds at import time: a
 kernel compiles at its first launch, or all at once, in parallel, through
 ``build_all``.
 
@@ -16,6 +17,7 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -55,19 +57,27 @@ class CudaKernel:
     """One ``csrc/<name>.cu`` source: its build, its C entry point and its
     launch counter."""
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence) -> None:
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 csrc_dir: str = CSRC_DIR) -> None:
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.source = os.path.join(csrc_dir, f"{name}.cu")
         self.launches = 0
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            h = hashlib.blake2b(f.read(), digest_size=8)
+        """``_build/lib<name>-<digest>.so``: the digest covers the source,
+        every ``*.cuh`` header beside it (a header edit must not load a
+        stale build) and the compiler flags."""
+        src_dir = os.path.dirname(self.source)
+        headers = sorted(glob.glob(os.path.join(src_dir, "*.cuh")))
+        h = hashlib.blake2b(digest_size=8)
+        for path in [self.source, *headers]:
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()}.so")
 

@@ -31,6 +31,44 @@ FLASH_ATTENTION = CudaKernel(
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
+BLOCK_Q, BLOCK_K = 64, 32  # query rows, keys per tile (csrc: BQ, BK)
+
+
+def real_tiles(key_padding_mask: Optional[torch.Tensor], B: int, S: int,
+               tile: int) -> torch.Tensor:
+    """[B, ceil(S / tile)] bool, on the CPU: the tiles of ``tile`` tokens
+    that hold a real token."""
+    n = -(-S // tile)
+    if key_padding_mask is None:
+        return torch.ones(B, n, dtype=torch.bool)
+    m = torch.zeros(B, n * tile, dtype=torch.bool)
+    m[:, :S] = key_padding_mask.bool().cpu()
+    return m.view(B, n, tile).any(-1)
+
+
+def flash_tile_pairs(key_padding_mask: Optional[torch.Tensor], B: int,
+                     S: int, window: int = 0, causal: bool = False) -> dict:
+    """(Q tile, K tile) pairs per head: ``computed`` by the kernel's rule
+    (a Q tile with no real query does no work; a K tile with no real key
+    is skipped), ``clipped`` by the window/causal clip alone, and
+    ``total`` without either."""
+    real_q = real_tiles(key_padding_mask, B, S, BLOCK_Q)
+    real_k = real_tiles(key_padding_mask, B, S, BLOCK_K)
+    nq, nk = real_q.shape[1], real_k.shape[1]
+    computed = clipped = 0
+    half = window // 2
+    for qt in range(nq):
+        q0, q_last = qt * BLOCK_Q, min(qt * BLOCK_Q + BLOCK_Q, S) - 1
+        k_lo, k_hi = 0, S - 1
+        if window > 0:
+            k_lo, k_hi = max(q0 - half, 0), min(q_last + half, S - 1)
+        if causal:
+            k_hi = min(k_hi, q_last)
+        lo, hi = k_lo // BLOCK_K, k_hi // BLOCK_K
+        clipped += B * (hi - lo + 1)
+        visits = real_k[:, lo:hi + 1].sum(-1)
+        computed += int((visits * real_q[:, qt]).sum())
+    return {"computed": computed, "clipped": clipped, "total": B * nq * nk}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -40,7 +78,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's plain version: dense SDPA over the summed additive
     biases (padding + window + causal).  Padding query rows may differ
-    from the kernel's; real rows agree to float32 rounding."""
+    from the kernel's (the kernel writes zeros for a 64-row tile with no
+    real query); real rows agree to float32 rounding."""
     S = q.shape[2]
     bias = None
     if key_padding_mask is not None:

@@ -127,8 +127,10 @@ class TestAttention:
 
 
 def _flash_case(case):
-    """(q, k, v, mask or None, kwargs, real query length per batch row):
-    the cases of tests/test_flash_attention.py."""
+    """(q, k, v, mask or None, kwargs, real query rows per batch row: a
+    prefix length or a boolean row mask): the cases of
+    tests/test_flash_attention.py, a mask with holes and a batch row that
+    is all padding."""
     name = case
     if name == "global":
         q, k, v = (rand(2, 2, 64, 32, seed=s) for s in (1, 2, 3))
@@ -150,11 +152,37 @@ def _flash_case(case):
         q, k, v = (rand(2, 2, 64, 16, seed=s) for s in (16, 17, 18))
         mask = np.concatenate([np.ones((2, 40)), np.zeros((2, 24))], 1)
         return q, k, v, mask.astype(np.float32), {"window": 16}, [40, 40]
+    if name in ("mask_holes", "mask_holes_window"):
+        # row 0: keys 64..127 (two whole 32-key tiles of the kernel) and
+        # a few scattered keys masked; row 1: every other 16-key block
+        # masked, and the ragged tail
+        q, k, v = (rand(2, 2, 150, 16, seed=s) for s in (22, 23, 24))
+        mask = np.ones((2, 150), np.float32)
+        mask[0, 64:128] = 0
+        mask[0, [3, 40, 131, 132]] = 0
+        for b0 in range(16, 150, 32):
+            mask[1, b0:b0 + 16] = 0
+        mask[1, 140:] = 0
+        kw = {"window": 32} if name == "mask_holes_window" else {}
+        return q, k, v, mask, kw, list(mask.astype(bool))
+    if name == "all_padding_row":
+        q, k, v = (rand(3, 2, 72, 16, seed=s) for s in (25, 26, 27))
+        mask = np.zeros((3, 72), np.float32)
+        mask[0], mask[2, :30] = 1, 1
+        return q, k, v, mask, {}, [72, 0, 30]
     raise KeyError(name)
 
 
 FLASH_CASES = ["global", "window", "padding", "causal", "non_divisible",
-               "window_padding"]
+               "window_padding", "mask_holes", "mask_holes_window",
+               "all_padding_row"]
+
+
+def _rows(real):
+    """Index of the real query rows: a prefix length or a row mask."""
+    if isinstance(real, (int, np.integer)):
+        return slice(None, int(real))
+    return torch.from_numpy(np.flatnonzero(real))
 
 
 class TestFlashPlainVersion:
@@ -169,9 +197,12 @@ class TestFlashPlainVersion:
         got = flash_attention_reference(t(q), t(k), t(v), tm, **kw)
         # the dispatching entry takes the plain version for CPU tensors
         via_entry = flash_attention(t(q), t(k), t(v), tm, **kw)
+        ref = torch.from_numpy(np.array(ref))
         for b, L in enumerate(real):
-            close(got[b, :, :L], np.asarray(ref)[b, :, :L], 1e-5)
-            close(via_entry[b, :, :L], np.asarray(ref)[b, :, :L], 1e-5)
+            rows = _rows(L)
+            close(got[b, :, rows], ref[b, :, rows].numpy(), 1e-5)
+            close(via_entry[b, :, rows], ref[b, :, rows].numpy(), 1e-5)
+        assert torch.isfinite(got).all()
 
     def test_bf16_inputs(self):
         q, k, v = (rand(1, 1, 32, 16, seed=s) for s in (19, 20, 21))
@@ -207,6 +238,24 @@ class TestEpiloguePlainVersion:
         assert np.max(np.abs(got.numpy() - np.asarray(ref))) <= 1e-4
         via_entry = head_epilogue(t(x), t(K), tb, td, "gelu")
         assert np.max(np.abs(via_entry.numpy() - np.asarray(ref))) <= 1e-4
+
+    @pytest.mark.parametrize("rows", [1, 64, 65])
+    def test_plain_matches_pallas_interpret_rows(self, rows):
+        """Row counts on both sides of the kernel's path switch (the
+        weight-streaming kernel takes rows <= 64, the GEMM the rest)."""
+        rng = np.random.default_rng(rows)
+        T, D, H = 3, 48, 40
+        x = rng.standard_normal((rows, D)).astype(np.float32)
+        K = (rng.standard_normal((T, D, H)) * 0.1).astype(np.float32)
+        b = rng.standard_normal((T, H)).astype(np.float32)
+        d = (rng.standard_normal((rows, T, H)) * 0.1).astype(np.float32)
+        ref = head_epilogue_pallas(
+            jnp.asarray(x), jnp.asarray(K), jnp.asarray(b), jnp.asarray(d),
+            lambda h: jax.nn.gelu(h, approximate=False), block_rows=16,
+            interpret=True)
+        got = head_epilogue(t(x), t(K), t(b), t(d), "gelu")
+        assert got.shape == (rows, T, H)
+        assert np.max(np.abs(got.numpy() - np.asarray(ref))) <= 1e-4
 
     @pytest.mark.parametrize("name,jax_act", [
         ("gelu", lambda h: jax.nn.gelu(h, approximate=False)),
@@ -246,12 +295,17 @@ class TestCudaKernels:
         q, k, v, mask, kw, real = _flash_case(case)
         dev = [t(x).to(cuda_device) for x in (q, k, v)]
         tm = None if mask is None else t(mask).to(cuda_device)
-        got = flash_attention(*dev, tm, **kw).cpu()
+        got = flash_attention(*dev, tm, **kw)
+        again = flash_attention(*dev, tm, **kw)
         ref = flash_attention_reference(t(q), t(k), t(v),
                                         None if mask is None else t(mask),
                                         **kw)
+        assert torch.equal(got, again)  # no atomics: the same bits
+        got = got.cpu()
+        assert torch.isfinite(got).all()  # all-padding rows included
         for b, L in enumerate(real):
-            close(got[b, :, :L], ref[b, :, :L].numpy(), 1e-5)
+            rows = _rows(L)
+            close(got[b, :, rows], ref[b, :, rows].numpy(), 1e-5)
 
     @pytest.mark.parametrize("with_bias,with_delta", [
         (False, False), (True, True)])
@@ -266,6 +320,19 @@ class TestCudaKernels:
                                       None if b is None else t(b),
                                       None if d is None else t(d), "gelu")
         close(got, ref.numpy(), 1e-4)
+
+    @pytest.mark.parametrize("rows", [1, 64, 65])
+    def test_epilogue_kernel_path_switch(self, cuda_device, rows):
+        """768x768 heads at rows on both sides of the launcher's switch
+        (weight streaming at <= 64 rows, the 3xTF32 GEMM above)."""
+        x, K = rand(rows, 768, seed=5), rand(3, 768, 768, seed=6, scale=0.05)
+        b, d = rand(3, 768, seed=7), rand(rows, 3, 768, seed=8, scale=0.1)
+        on = (lambda a: t(a).to(cuda_device))
+        got = head_epilogue(on(x), on(K), on(b), on(d), "gelu")
+        assert torch.equal(got, head_epilogue(on(x), on(K), on(b), on(d),
+                                              "gelu"))
+        ref = head_epilogue_reference(t(x), t(K), t(b), t(d), "gelu")
+        close(got.cpu(), ref.numpy(), 1e-4)
 
     @pytest.mark.parametrize("T,P,D,H", [(5, 9, 32, 40), (5, 1, 32, 40),
                                          (3, 37, 768, 8), (32, 64, 768, 768)])
@@ -289,6 +356,53 @@ class TestCudaKernels:
             bgmv(x, w, idx.long())
         with pytest.raises(ValueError, match="contiguous"):
             bgmv(x.t().contiguous().t(), w, idx)
+
+
+def test_flash_tile_pairs_rule():
+    """The kernel's visit rule: a 64-row Q tile with no real query does no
+    work, a 32-key K tile with no real key is skipped, the window clips."""
+    from semantic_router_tpu_torch.ops.flash_attention import \
+        flash_tile_pairs
+
+    mask = torch.zeros(2, 100, dtype=torch.int32)
+    mask[0, :40] = 1  # Q tiles (real, none), K tiles (real, real, -, -)
+    assert flash_tile_pairs(mask, 2, 100) == {
+        "computed": 2, "clipped": 16, "total": 16}
+    assert flash_tile_pairs(None, 2, 100) == {
+        "computed": 16, "clipped": 16, "total": 16}
+    # window 128: a Q tile sees keys q0 - 64 .. q0 + 127, six K tiles, or
+    # four at either end of the sequence
+    local = flash_tile_pairs(None, 1, 512, window=128)
+    assert local == {"computed": 6 * 6 + 2 * 4, "clipped": 44, "total": 128}
+    causal = flash_tile_pairs(None, 1, 128, causal=True)
+    assert causal == {"computed": 6, "clipped": 6, "total": 8}
+
+
+def test_build_key_covers_headers(tmp_path):
+    """A kernel library is named by a digest of its source AND the
+    csrc/*.cuh headers beside it: editing a shared header must not load a
+    stale build."""
+    from semantic_router_tpu_torch.ops import _cuda
+
+    for name in ("head_epilogue.cu", "tf32x3.cuh"):
+        (tmp_path / name).write_bytes((pathlib.Path(_cuda.CSRC_DIR)
+                                       / name).read_bytes())
+    k = _cuda.CudaKernel("head_epilogue", "srt_head_epilogue", [],
+                         csrc_dir=str(tmp_path))
+    before = k.library_path()
+    assert before == k.library_path()
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert k.library_path() == before
+    header = tmp_path / "tf32x3.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after_header = k.library_path()
+    assert after_header != before
+    src = tmp_path / "head_epilogue.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert k.library_path() not in (before, after_header)
+    # the shipped kernels' names do not depend on where the tree lies
+    assert os.path.basename(_cuda.registry()["head_epilogue"]
+                            .library_path()) == os.path.basename(before)
 
 
 # ---------------------------------------------------------------------------
