@@ -11,15 +11,20 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
 2. kernels — builds every CUDA kernel of the main paths from ``csrc/``
    (one ``nvcc`` per source, in parallel: flash attention, head epilogue,
    BGMV), counts the tensor-core (HMMA) instructions in each library's
-   SASS (``cuobjdump``; K1 and K2 must have some), and holds each kernel
+   SASS (``cuobjdump``; each must have some), and holds each kernel
    against its plain PyTorch version on the card, at the main paths'
    shapes and at edge cases (K1: a mask with holes, an all-padding batch
    row, S off the tile grid, NaN planted in the K tiles the kernel must
    skip; K2: rows 1, 64 and 65 on both sides of its path switch, checked
-   by kernel name in a profiler trace); two launches must give the same
-   bits.  Prints max abs error, kernel / plain / library-call times (and,
-   for BGMV, the all-heads bank's), the device kernels SDPA launched for
-   K1's library time, and K1's tile pairs computed of all.
+   by kernel name in a profiler trace; K3: the engine's row-major pair
+   orders (router mix, tenant mix, 16 rows x 32 tasks), one pair per task,
+   one hot task, an all-dummy batch, P/D/H off every tile edge, bf16, and
+   out-of-range indices mixed into a grouped batch, whose rows must come
+   back NaN); two launches must give the same bits.  Prints max abs
+   error, kernel / plain / library-call times (and, for BGMV, held-L2
+   times, the all-heads bank's and the kernel's grouping:
+   ``bgmv_segments``), the device kernels SDPA launched for K1's library
+   time, and K1's tile pairs computed of all.
 3. serve — a full-width ModernBERT-base trunk (22 layers, hidden 768,
    random weights from a numpy seed) shared by three sequence heads
    (intent, jailbreak, fact_check) and one token head (pii), behind the
@@ -37,14 +42,16 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    the BGMV kernel (2 launches per sequence-carrying forward), the trunk
    through flash attention, the token head through the epilogue kernel;
    decisions and models must match the CPU port, and the burst must give
-   the same labels with BGMV hot-flipped off.
+   the same labels with BGMV hot-flipped off; the head stage alone is
+   timed with a cold and a held L2, and profiled for K3's share.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers, ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
-phase's rows to FILE; ``--parent-csrc DIR`` times K1 and K2 built from
-another tree's ``csrc/`` (the parent commit's) against this tree's, in
-turns on the same card, after the kernel phase.
+phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
+from another tree's ``csrc/`` (the parent commit's) against this tree's,
+in turns on the same card (K3 with a cold and a held L2), after the
+kernel phase.
 """
 
 from __future__ import annotations
@@ -76,8 +83,12 @@ try:
         padding_bias,
         sliding_window_bias,
     )
-    from semantic_router_tpu_torch.ops.bgmv import BGMV, bgmv, \
-        bgmv_reference
+    from semantic_router_tpu_torch.ops.bgmv import (
+        BGMV,
+        bgmv,
+        bgmv_reference,
+        bgmv_segments,
+    )
     from semantic_router_tpu_torch.ops.epilogue import (
         HEAD_EPILOGUE,
         activation,
@@ -552,66 +563,73 @@ def router_mix_idx(rows: int = 16, tasks: int = 5) -> np.ndarray:
     return idx
 
 
+def mix_draws() -> tuple:
+    """The 9-pair reference case's indices over 5 tasks and the tenant
+    mix's (64 pairs over 32 tasks, 28 distinct), drawn in that order from
+    SEED."""
+    rng = np.random.default_rng(SEED)
+    return rng.integers(0, 5, 9), rng.integers(0, 32, 64)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def check_bgmv(name, T, D, H, idx, dtype, tol, rows=16, seed=0) -> dict:
-    """K3 against its plain version on the same inputs; times with a cold
-    L2 (kernel, plain, one-call library yardstick, and the all-heads bank
-    at ``rows`` rows x T tasks — what the engine runs with BGMV off)."""
+    """K3 against its plain version on the same inputs: a pair whose index
+    lies outside [0, T) must come back as a NaN row, every other row within
+    ``tol``; two launches must give the same bits.  A batch with no such
+    index is timed with a cold L2 (kernel, plain, one-call library
+    yardstick, and the all-heads bank at ``rows`` rows x T tasks -- what
+    the engine runs with BGMV off) and the kernel also held (``warm_ms``).
+    The row carries the kernel's grouping (``bgmv_segments``)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
+    idx = np.asarray(idx, np.int32)
     P = len(idx)
     x = torch.randn(P, D, generator=g).to("cuda", dtype)
     w = (torch.randn(T, D, H, generator=g) * 0.05).to("cuda", dtype)
-    idx_t = torch.from_numpy(np.asarray(idx, np.int32)).cuda()
+    idx_t = torch.from_numpy(idx).cuda()
     out = bgmv(x, w, idx_t)
-    torch.cuda.synchronize()
-    ref = bgmv_reference(x.float(), w.float(), idx_t)
-    err = float((out.float() - ref).abs().max())
-    check(bool(torch.isfinite(out.float()).all()),
-          f"bgmv[{name}]: non-finite output")
-    check(err <= tol, f"bgmv[{name}]: max abs err {err:.3e} > {tol:g}")
-    ms = cuda_ms_cold(lambda: bgmv(x, w, idx_t))
-    warm_ms = cuda_ms(lambda: bgmv(x, w, idx_t))
-    plain_ms = cuda_ms_cold(lambda: bgmv_reference(x, w, idx_t))
-    lib_ms = cuda_ms_cold(lambda: torch.bmm(
-        x[:, None], w.index_select(0, idx_t)).squeeze(1))
-    xr = x[:rows].contiguous()
-    all_heads_ms = cuda_ms_cold(lambda: torch.einsum("bd,tdh->bth", xr, w))
-    esize = x.element_size()
-    distinct = len(set(np.asarray(idx).tolist()))
-    nbytes = esize * (P * D + distinct * D * H + P * H) + 4 * P
-    flops = 2.0 * P * D * H
-    bms, by = bound_ms(nbytes, flops, dtype)
-    row = {"check": name, "shape": [P, T, D, H], "dtype": str(dtype),
-           "distinct_tasks": distinct, "max_abs_err": err, "tol": tol,
-           "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms,
-           "library_call": "torch.bmm(x[:, None], w.index_select(0, idx))",
-           "all_heads_ms": all_heads_ms, "all_heads_rows": rows,
-           "bound_ms": bms, "bound_by": by, "launches": BGMV.launches}
-    print("bgmv " + json.dumps(row), flush=True)
-    return row
-
-
-def check_bgmv_bad_index() -> dict:
-    """An index outside [0, T) must not read out of bounds: the kernel
-    returns that pair's row as NaN and every other row as the plain
-    version computes it."""
-    g = torch.Generator(device="cpu").manual_seed(3)
-    T, D, H = 5, 32, 40
-    x = torch.randn(9, D, generator=g).cuda()
-    w = torch.randn(T, D, H, generator=g).cuda()
-    idx = torch.tensor([0, 4, T, 2, -1, 3, 1 << 30, 1, 0],
-                       dtype=torch.int32, device="cuda")
-    out = bgmv(x, w, idx)
+    again = bgmv(x, w, idx_t)
     torch.cuda.synchronize()
     bad = (idx < 0) | (idx >= T)
-    check(bool(torch.isnan(out[bad]).all()),
-          "bgmv[bad_index]: an out-of-range pair's row is not NaN")
-    ref = bgmv_reference(x[~bad], w, idx[~bad])
-    err = float((out[~bad] - ref).abs().max())
-    check(err <= 1e-4, f"bgmv[bad_index]: in-range rows err {err:.3e}")
-    row = {"check": "bad_index", "bad_pairs": int(bad.sum()),
-           "nan_rows": int(torch.isnan(out).all(-1).sum()),
-           "max_abs_err": err, "tol": 1e-4}
+    good = torch.from_numpy(~bad).cuda()
+    check(bool(torch.isnan(out[~good]).all()),
+          f"bgmv[{name}]: an out-of-range pair's row is not NaN")
+    ref = bgmv_reference(x[good].float(), w.float(), idx_t[good])
+    err = float((out[good].float() - ref).abs().max())
+    check(bool(torch.isfinite(out[good].float()).all()),
+          f"bgmv[{name}]: non-finite output")
+    check(err <= tol, f"bgmv[{name}]: max abs err {err:.3e} > {tol:g}")
+    check(_same_bits(out, again),
+          f"bgmv[{name}]: two launches gave different bits")
+    seg = bgmv_segments(idx, T, H, x.element_size())
+    distinct = seg["segments"]
+    row = {"check": name, "shape": [P, T, D, H], "dtype": str(dtype),
+           "distinct_tasks": distinct, "max_abs_err": err, "tol": tol,
+           "bit_identical": True, "nan_rows": int(bad.sum()),
+           "units": len(seg["units"]), "nan_units": len(seg["nan_units"]),
+           "items": seg["items"], "item_bound": seg["item_bound"],
+           "launches": BGMV.launches}
+    if not bad.any():
+        ms = cuda_ms_cold(lambda: bgmv(x, w, idx_t))
+        warm_ms = cuda_ms(lambda: bgmv(x, w, idx_t))
+        plain_ms = cuda_ms_cold(lambda: bgmv_reference(x, w, idx_t))
+        lib_ms = cuda_ms_cold(lambda: torch.bmm(
+            x[:, None], w.index_select(0, idx_t)).squeeze(1))
+        xr = x[:rows].contiguous()
+        all_heads_ms = cuda_ms_cold(
+            lambda: torch.einsum("bd,tdh->bth", xr, w))
+        esize = x.element_size()
+        nbytes = esize * (P * D + distinct * D * H + P * H) + 4 * P
+        flops = 2.0 * P * D * H
+        bms, by = bound_ms(nbytes, flops, dtype)
+        row.update({
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_call": "torch.bmm(x[:, None], w.index_select(0, idx))",
+            "all_heads_ms": all_heads_ms, "all_heads_rows": rows,
+            "bound_ms": bms, "bound_by": by, "launches": BGMV.launches})
     print("bgmv " + json.dumps(row), flush=True)
     return row
 
@@ -653,7 +671,7 @@ def phase_kernels() -> dict:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     hmma = sass_hmma()
     print("sass HMMA instructions: " + json.dumps(hmma), flush=True)
-    for name in ("flash_attention", "head_epilogue"):
+    for name in ("flash_attention", "head_epilogue", "bgmv"):
         check(hmma[name] > 0, f"{name}: no HMMA instruction in its SASS")
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -733,38 +751,50 @@ def phase_kernels() -> dict:
         check_epilogue("tok_rows8192_T1_bf16", 8192, 1, 768, 768, bf16,
                        2e-2, True, True, w_scale=0.02),
     ]
-    rng = np.random.default_rng(SEED)
+    ref_idx, tenant = mix_draws()
     router = router_mix_idx()                     # 80 pairs -> 128
+    fanout = router_mix_idx(16, 32)               # 512 pairs, 32 tasks
     padded = np.zeros(8, np.int32)
     padded[:5] = [7, 3, 3, 11, 30]                # 5 pairs + 3 dummies
+    bad_mix = router.copy()                       # 24 pairs out of range
+    bad_mix[4::9], bad_mix[6::13], bad_mix[100] = -3, 32, 1 << 30
     bg = [
-        check_bgmv("reference_T5_P9_D32_H40", 5, 32, 40,
-                   rng.integers(0, 5, 9), f32, 1e-4, rows=9),
+        check_bgmv("reference_T5_P9_D32_H40", 5, 32, 40, ref_idx, f32, 1e-4,
+                   rows=9),
         check_bgmv("one_pair", 5, 32, 40, [3], f32, 1e-4, rows=1),
+        check_bgmv("P77_D32_H40", 5, 32, 40,
+                   np.random.default_rng(77).integers(0, 5, 77), f32, 1e-4),
+        check_bgmv("bad_index_T5_P9", 5, 32, 40,
+                   [0, 4, 5, 2, -1, 3, 1 << 30, 1, 0], f32, 1e-4, rows=9),
+        check_bgmv("bad_index_router_mix", 32, 768, 768, bad_mix, f32, 1e-4),
         check_bgmv("one_task_P256", 32, 768, 768, np.full(256, 7), f32,
                    1e-4),
+        check_bgmv("all_dummy_P64", 32, 768, 768, np.zeros(64), f32, 1e-4),
+        check_bgmv("many_tasks_one_pair", 32, 768, 768,
+                   np.random.default_rng(SEED).permutation(32), f32, 1e-4),
         check_bgmv("dummy_padded_P8", 32, 768, 768, padded, f32, 1e-4,
                    rows=5),
         check_bgmv("main_dense_router_mix", 32, 768, 768, router, f32,
                    1e-4),
-        check_bgmv("main_dense_tenant_mix", 32, 768, 768,
-                   rng.integers(0, 32, 64), f32, 1e-4),
+        check_bgmv("main_dense_tenant_mix", 32, 768, 768, tenant, f32, 1e-4),
+        check_bgmv("main_dense_full_fanout_P512", 32, 768, 768, fanout, f32,
+                   1e-4),
         check_bgmv("main_cls", 32, 768, 8, router, f32, 1e-4),
         check_bgmv("main_dense_router_mix_bf16", 32, 768, 768, router,
                    bf16, 2e-2),
+        check_bgmv("main_dense_full_fanout_P512_bf16", 32, 768, 768, fanout,
+                   bf16, 2e-2),
     ]
-    bad = check_bgmv_bad_index()
-    return {"flash": flash, "epilogue": epi, "bgmv": bg,
-            "bgmv_bad_index": bad, "hmma": hmma}
+    return {"flash": flash, "epilogue": epi, "bgmv": bg, "hmma": hmma}
 
 
 def compare_parent(parent_csrc: str) -> list:
-    """K1 and K2 at the main shapes with another tree's kernels (the
+    """K1, K2 and K3 at the main shapes with another tree's kernels (the
     parent commit's ``csrc/``) and this tree's, in turns: parent, change,
-    change, parent, on one card.  The other tree's sources build beside
-    this tree's and load behind the same wrappers: the C entry points
-    take the same arguments."""
-    kernels = (FLASH_ATTENTION, HEAD_EPILOGUE)
+    change, parent, on one card; K3 with a held and a cold L2.  The other
+    tree's sources build beside this tree's and load behind the same
+    wrappers: the C entry points take the same arguments."""
+    kernels = (FLASH_ATTENTION, HEAD_EPILOGUE, BGMV)
     other = [_cuda.CudaKernel(k.name, k.symbol, k.argtypes,
                               csrc_dir=parent_csrc) for k in kernels]
     _cuda.build_all(other)
@@ -789,15 +819,30 @@ def compare_parent(parent_csrc: str) -> list:
         cases.append((f"epilogue_{name}", HEAD_EPILOGUE,
                       (lambda x=x, W=W: head_epilogue(x, W, None, None,
                                                       "gelu"))))
+    _, tenant = mix_draws()
+    for name, idx, H in (("router_mix", router_mix_idx(), 768),
+                         ("tenant_mix", tenant, 768),
+                         ("full_fanout_P512", router_mix_idx(16, 32), 768),
+                         ("cls", router_mix_idx(), 8)):
+        x = torch.randn(len(idx), 768, generator=g).cuda()
+        W = (torch.randn(32, 768, H, generator=g) * 0.05).cuda()
+        it = torch.from_numpy(np.asarray(idx, np.int32)).cuda()
+        cases.append((f"bgmv_{name}", BGMV,
+                      (lambda x=x, W=W, it=it: bgmv(x, W, it))))
     rows = []
     try:
         for name, kern, fn in cases:
-            turns = []
-            for which in (0, 1, 1, 0):  # parent, change, change, parent
-                kern._fn = fns[kern.name][which]
-                turns.append(cuda_ms(fn))
-            row = {"case": name, "parent_ms": [turns[0], turns[3]],
-                   "change_ms": [turns[1], turns[2]]}
+            timers = [("", cuda_ms)]
+            if kern is BGMV:
+                timers.append(("cold_", cuda_ms_cold))
+            row = {"case": name}
+            for tag, timer in timers:
+                turns = []
+                for which in (0, 1, 1, 0):  # parent, change, change, parent
+                    kern._fn = fns[kern.name][which]
+                    turns.append(timer(fn))
+                row[f"parent_{tag}ms"] = [turns[0], turns[3]]
+                row[f"change_{tag}ms"] = [turns[1], turns[2]]
             print("compare " + json.dumps(row), flush=True)
             rows.append(row)
     finally:
@@ -1238,9 +1283,11 @@ def phase_wide() -> dict:
 def measure_wide(engine, g) -> dict:
     """One ``both`` forward at B=16, S=512 with BGMV on (16 rows x the 5
     router families, the engine's pair order) and off, CUDA events and
-    one profiled call each; then the head stage alone, cold L2: the
-    per-pair bank against the all-heads bank at 16 rows x 5 and 16 rows x
-    32 tasks."""
+    one profiled call each; then the head stage alone, with a cold L2 (one
+    call timed at a time, host gaps included) and held (the card kept
+    busy while the host enqueues, so device time): the per-pair bank
+    against the all-heads bank at 16 rows x 5 and 16 rows x 32 tasks, and
+    the per-pair bank's device time by kernel (K3's share)."""
     B, S = 16, 512
     ids = torch.randint(3, MODERNBERT_BASE["vocab_size"], (B, S),
                         generator=torch.Generator().manual_seed(SEED)
@@ -1271,14 +1318,24 @@ def measure_wide(engine, g) -> dict:
                              ).to(DEVICE)
         bank = demux["bank"]
         act, eps = cfg.classifier_activation, cfg.norm_eps
-        heads = {"all_heads_ms": cuda_ms_cold(lambda: apply_head_bank(
-            bank, pooled, act, eps, epilogue=True))}
+        all_heads = (lambda: apply_head_bank(bank, pooled, act, eps,
+                                             epilogue=True))
+        heads = {"all_heads_ms": cuda_ms_cold(all_heads),
+                 "all_heads_warm_ms": cuda_ms(all_heads)}
         for tasks in (5, 32):
             pr, pt = pairs(B, tasks)
-            heads[f"bgmv_{B}x{tasks}_ms"] = cuda_ms_cold(
-                lambda: apply_head_bank_bgmv(bank, pooled, pr, pt, act, eps))
-            heads[f"bgmv_{B}x{tasks}_pairs"] = int(pr.numel())
-        print("wide head stage (cold L2): " + json.dumps(heads), flush=True)
+            fn = (lambda pr=pr, pt=pt: apply_head_bank_bgmv(
+                bank, pooled, pr, pt, act, eps))
+            key = f"bgmv_{B}x{tasks}"
+            heads[f"{key}_pairs"] = int(pr.numel())
+            heads[f"{key}_ms"] = cuda_ms_cold(fn)
+            heads[f"{key}_warm_ms"] = cuda_ms(fn)
+            prof = _profile(fn)   # K3's share of the stage's device time
+            heads[f"{key}_device_ms"] = prof["device_ms"]
+            heads[f"{key}_k3_ms"] = prof["by_class_ms"].get("bgmv")
+            heads[f"{key}_kernels"] = prof["kernels"]
+        print("wide head stage (cold and held L2, profiled): "
+              + json.dumps(heads), flush=True)
     out["head_stage"] = heads
     return out
 
@@ -1290,7 +1347,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after the kernel phase (prints no result)")
     ap.add_argument("--parent-csrc", metavar="DIR",
-                    help="also time K1 and K2 built from DIR (another "
+                    help="also time K1, K2 and K3 built from DIR (another "
                          "tree's csrc/) against this tree's, in turns")
     ap.add_argument("--out", metavar="FILE",
                     help="write every phase's rows to FILE as JSON")
@@ -1347,7 +1404,8 @@ def main(argv=None) -> int:
         "launches": wide["launches"]["bgmv"],
         "max_abs_err": max(x["max_abs_err"] for x in kern["bgmv"]
                            if x["dtype"] == "torch.float32"),
-        "ms": main_bgmv["ms"], "plain_ms": main_bgmv["plain_ms"],
+        "ms": main_bgmv["ms"], "warm_ms": main_bgmv["warm_ms"],
+        "plain_ms": main_bgmv["plain_ms"],
         "bound_ms": main_bgmv["bound_ms"], "bound_by": main_bgmv["bound_by"],
         "library_ms": main_bgmv["library_ms"],
         "all_heads_ms": main_bgmv["all_heads_ms"],

@@ -5,9 +5,12 @@ w [T, D, H] and idx [P] → [P, H]: each (row, task) pair of a batch
 computes only its own task's head, so work scales with pairs instead of
 rows × tasks (the S-LoRA / Punica serving shape).  On a CUDA device it
 launches ``csrc/bgmv.cu`` (the port of the TPU kernel
-``semantic_router_tpu.ops.bgmv.bgmv_pallas``); on the CPU it runs
-``bgmv_reference`` (gather, then batched matvec).  There is no fallback:
-a CUDA tensor the kernel does not take raises.
+``semantic_router_tpu.ops.bgmv.bgmv_pallas``), a task-grouped segmented
+GEMM that groups the pairs by task on the device and reads each task's
+weight tile once for up to 16 of its pairs; ``bgmv_segments`` is its
+grouping rule in Python.  On the CPU it runs ``bgmv_reference`` (gather,
+then batched matvec).  There is no fallback: a CUDA tensor the kernel
+does not take raises.
 
 An index outside [0, T) never reads out of bounds: the kernel returns
 that pair's row as NaN (the plain version raises in ``index_select``).
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._cuda import DTYPE_BF16, DTYPE_F32, CudaKernel, check_launch
@@ -27,10 +31,12 @@ _I = ctypes.c_int
 BGMV = CudaKernel("bgmv", "srt_bgmv",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-# csrc/bgmv.cu's limits: the block's x rows live in shared memory, and
-# one pair per block must fit the grid's y extent
+# csrc/bgmv.cu's limits and grouping constants
 MAX_D = 4096
 MAX_P = 65535
+CHUNK = 16               # pairs of one task a work unit applies a W tile to
+PAIRS_PER_LAUNCH = 2048  # one launch counts this many pairs in shared memory
+TASKS_PER_LAUNCH = 1024  # ... over this many tasks; larger calls loop
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 
 
@@ -39,6 +45,64 @@ def bgmv_reference(x: torch.Tensor, w: torch.Tensor,
     """The kernel's plain version: gather each pair's slab, then a
     batched matvec."""
     return torch.einsum("pd,pdh->ph", x, w.index_select(0, idx))
+
+
+def bgmv_segments(idx, T: int, H: int = 0, element_size: int = 4) -> dict:
+    """The kernel's grouping rule.  Each launch takes up to
+    ``PAIRS_PER_LAUNCH`` pairs and ``TASKS_PER_LAUNCH`` tasks; in it the
+    pairs of each task, in ascending pair order, form one segment, cut
+    into work units of ``CHUNK`` pairs, numbered task by task.  A work
+    item is (unit, column tile), a tile being a 128-byte band of W's
+    columns (32 float32 or 64 bfloat16); item i is unit i // column_tiles,
+    and block b of the launch's C takes items b, b + C, ...  Pairs whose
+    index lies outside [0, T) form no segment: the first task window of
+    their slice gathers them into units that write NaN rows.
+
+    Returns ``perm`` (in-range pairs by task, stable), ``offsets`` ([T+1]:
+    task t owns perm[offsets[t]:offsets[t+1]]), ``segments`` (tasks with a
+    pair), ``units`` ((task, pairs) in launch and unit order),
+    ``nan_units`` (pairs of each NaN unit), ``nan_pairs`` and
+    ``grid_units`` (per launch, the most units its pairs can form: C is
+    that many items, or as many blocks as the card holds at once if
+    fewer).  With H (operands of ``element_size`` bytes) also
+    ``column_tiles``, ``items`` and ``item_bound``."""
+    idx = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor) else idx,
+                     np.int64).reshape(-1)
+    P = idx.size
+    ok = (idx >= 0) & (idx < T)
+    counts = np.bincount(idx[ok], minlength=T)
+    perm = np.argsort(np.where(ok, idx, T), kind="stable")[:int(ok.sum())]
+    units, nan_units, grid_units = [], [], []
+    for p0 in range(0, P, PAIRS_PER_LAUNCH):
+        part = idx[p0:p0 + PAIRS_PER_LAUNCH]
+        n = part.size
+        for t_lo in range(0, T, TASKS_PER_LAUNCH):
+            nbins = min(TASKS_PER_LAUNCH, T - t_lo)
+            bad = t_lo == 0
+            key = np.where((part >= t_lo) & (part < t_lo + nbins),
+                           part - t_lo, -1)
+            if bad:
+                key[(part < 0) | (part >= T)] = nbins
+            grid_units.append((n + (CHUNK - 1) * min(nbins + bad, n))
+                              // CHUNK)
+            for b in range(nbins + bad):
+                pairs = (np.flatnonzero(key == b) + p0).tolist()
+                for c in range(0, len(pairs), CHUNK):
+                    chunk = tuple(pairs[c:c + CHUNK])
+                    if b == nbins:
+                        nan_units.append(chunk)
+                    else:
+                        units.append((t_lo + b, chunk))
+    out = {"perm": perm, "offsets": np.concatenate([[0], np.cumsum(counts)]),
+           "segments": int(np.count_nonzero(counts)), "units": units,
+           "nan_units": nan_units, "nan_pairs": np.flatnonzero(~ok),
+           "grid_units": grid_units}
+    if H:
+        tiles = -(-H // (128 // element_size))
+        out.update(column_tiles=tiles,
+                   items=(len(units) + len(nan_units)) * tiles,
+                   item_bound=sum(grid_units) * tiles)
+    return out
 
 
 def bgmv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

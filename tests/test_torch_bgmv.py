@@ -34,7 +34,14 @@ from semantic_router_tpu_torch.models.lora import (
     bank_to_device,
     merge_lora_into_base,
 )
-from semantic_router_tpu_torch.ops.bgmv import bgmv, bgmv_reference
+from semantic_router_tpu_torch.ops.bgmv import (
+    CHUNK,
+    PAIRS_PER_LAUNCH,
+    TASKS_PER_LAUNCH,
+    bgmv,
+    bgmv_reference,
+    bgmv_segments,
+)
 
 TOL = 1e-4
 TASKS = [name for name, _ in jtesting.SHARED_TRUNK_TASKS]
@@ -73,6 +80,11 @@ BGMV_CASES = {
     "repeated_indices": (5, 9, 32, 40, [3, 3, 3, 0, 0, 4, 3, 3, 1]),
     "one_pair": (5, 1, 32, 40, [2]),
     "one_task": (1, 6, 16, 8, [0] * 6),
+    # the engine's pair order: 3 rows x 5 tasks, row-major, one dummy on
+    # task 0 pads it to 16
+    "router_mix_row_major": (5, 16, 32, 40, [0, 1, 2, 3, 4] * 3 + [0]),
+    "many_tasks_one_pair": (8, 8, 32, 40, [5, 2, 7, 0, 3, 6, 1, 4]),
+    "one_task_many_pairs": (3, 40, 32, 40, [1] * 40),
 }
 
 
@@ -90,6 +102,86 @@ def test_bgmv_plain_matches_pallas_interpret(case):
     assert np.max(np.abs(got.numpy() - want)) <= TOL
     assert np.max(np.abs(got.numpy() - jref)) <= TOL
     assert torch.equal(via_entry, got)
+
+
+def router_mix(rows, tasks):
+    """The engine's pair order: row-major, padded to a power of two with
+    dummy pairs on task 0."""
+    n = rows * tasks
+    idx = np.zeros(1 << (n - 1).bit_length(), np.int32)
+    idx[:n] = np.tile(np.arange(tasks), rows)
+    return idx
+
+
+class TestBgmvSegments:
+    """The kernel's grouping rule (ops.bgmv.bgmv_segments)."""
+
+    @staticmethod
+    def _visited(seg):
+        return [p for _, pairs in seg["units"] for p in pairs]
+
+    @pytest.mark.parametrize("P,T,seed", [(9, 5, 0), (128, 32, 1),
+                                          (300, 7, 2), (5000, 3, 3),
+                                          (700, 2500, 4)])
+    def test_every_pair_once_in_order(self, P, T, seed):
+        idx = np.random.default_rng(seed).integers(-2, T + 2, P)
+        seg = bgmv_segments(idx, T)
+        ok = np.flatnonzero((idx >= 0) & (idx < T))
+        visited = self._visited(seg)
+        assert sorted(visited) == ok.tolist()      # each in-range pair once
+        assert seg["perm"].tolist() == sorted(ok.tolist(),
+                                              key=lambda p: (idx[p], p))
+        for task, pairs in seg["units"]:
+            assert 0 < len(pairs) <= CHUNK
+            assert all(idx[p] == task for p in pairs)
+            assert list(pairs) == sorted(pairs)
+        for task in range(T):   # a segment's chunks are its pairs in order
+            got = [p for u, pairs in seg["units"] if u == task for p in pairs]
+            lo, hi = seg["offsets"][task], seg["offsets"][task + 1]
+            assert got == seg["perm"][lo:hi].tolist()
+        # the grid holds every unit of its launch
+        launches = -(-P // PAIRS_PER_LAUNCH) * -(-T // TASKS_PER_LAUNCH)
+        assert len(seg["grid_units"]) == launches
+        assert sum(seg["grid_units"]) >= len(seg["units"]) + \
+            len(seg["nan_units"])
+
+    def test_out_of_range_indices_form_no_segment(self):
+        idx = np.asarray([0, 4, 5, 2, -1, 3, 1 << 30, 1, 0])
+        seg = bgmv_segments(idx, 5)
+        assert seg["nan_pairs"].tolist() == [2, 4, 6]
+        assert seg["nan_units"] == [(2, 4, 6)]
+        assert seg["segments"] == 5
+        assert not {2, 4, 6} & set(self._visited(seg))
+        assert seg["offsets"].tolist() == [0, 2, 3, 4, 5, 6]
+
+    def test_dummies_join_task_0(self):
+        seg = bgmv_segments(router_mix(16, 5), 32, 768)
+        # task 0: 16 real pairs + 48 dummies = 64 pairs, four units
+        assert [len(p) for t, p in seg["units"] if t == 0] == [16] * 4
+        assert seg["units"][0][1] == tuple(range(0, 80, 5))
+        assert seg["units"][1][1] == tuple(range(80, 96))
+        assert [t for t, _ in seg["units"]] == [0, 0, 0, 0, 1, 2, 3, 4]
+
+    def test_long_segment_splits_into_chunks(self):
+        seg = bgmv_segments(np.full(256, 7), 32, 768)
+        assert seg["segments"] == 1
+        assert [t for t, _ in seg["units"]] == [7] * (256 // CHUNK)
+        assert seg["units"][1][1] == tuple(range(CHUNK, 2 * CHUNK))
+        # 16 units x 24 column tiles of 32 float32 columns
+        assert seg["items"] == 16 * 24
+
+    def test_router_mix_gives_five_segments(self):
+        seg = bgmv_segments(router_mix(16, 5), 32, 768)
+        assert seg["segments"] == 5 and len(seg["units"]) == 8
+        assert seg["column_tiles"] == 24 and seg["items"] == 8 * 24
+        assert seg["grid_units"] == [(128 + 15 * 33) // 16]
+        assert seg["item_bound"] == seg["grid_units"][0] * 24
+        assert bgmv_segments(router_mix(16, 5), 32, 768, 2)[
+            "column_tiles"] == 12                      # 64 bfloat16 columns
+        fan = bgmv_segments(router_mix(16, 32), 32, 768)
+        assert fan["segments"] == 32 and len(fan["units"]) == 32
+        cls = bgmv_segments(router_mix(16, 5), 32, 8)
+        assert cls["column_tiles"] == 1 and cls["items"] == 8
 
 
 def test_bgmv_int64_indices_and_bf16_on_cpu():

@@ -280,6 +280,45 @@ class TestEpiloguePlainVersion:
 # the hand-written kernels (CUDA only)
 
 
+def _router_mix(rows, tasks):
+    n = rows * tasks
+    idx = np.zeros(1 << (n - 1).bit_length(), np.int32)
+    idx[:n] = np.tile(np.arange(tasks), rows)
+    return idx
+
+
+def _bad_mixed():
+    """The router mix with out-of-range indices on either side of [0, 32)
+    mixed into its segments."""
+    idx = _router_mix(16, 5)
+    idx[4::9], idx[6::13], idx[100] = -3, 32, 1 << 30
+    return idx
+
+
+# name -> () -> (T, D, H, idx, dtype, tol)
+BGMV_GROUPED = {
+    "router_mix": lambda: (32, 768, 768, _router_mix(16, 5), torch.float32,
+                           1e-4),
+    "full_fanout_P512": lambda: (32, 768, 768, _router_mix(16, 32),
+                                 torch.float32, 1e-4),
+    "full_fanout_P512_bf16": lambda: (32, 768, 768, _router_mix(16, 32),
+                                      torch.bfloat16, 2e-2),
+    "many_tasks_one_pair": lambda: (32, 768, 768,
+                                    np.random.default_rng(0).permutation(32),
+                                    torch.float32, 1e-4),
+    "all_dummy": lambda: (32, 768, 768, np.zeros(64, np.int32),
+                          torch.float32, 1e-4),
+    "one_task_P256": lambda: (32, 768, 768, np.full(256, 7), torch.float32,
+                              1e-4),
+    "bad_mixed": lambda: (32, 768, 768, _bad_mixed(), torch.float32, 1e-4),
+    "P77_D32_H40": lambda: (5, 32, 40, np.random.default_rng(77).integers(
+        0, 5, 77), torch.float32, 1e-4),
+    "cls_H8": lambda: (32, 768, 8, _router_mix(16, 5), torch.float32, 1e-4),
+    "odd_D30_H37": lambda: (4, 30, 37, np.random.default_rng(3).integers(
+        0, 4, 50), torch.float32, 1e-4),
+}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -343,6 +382,23 @@ class TestCudaKernels:
         got = bgmv(t(x).to(cuda_device), t(w).to(cuda_device),
                    t(idx).to(cuda_device)).cpu()
         close(got, bgmv_reference(t(x), t(w), t(idx)).numpy(), 1e-4)
+
+    @pytest.mark.parametrize("case", list(BGMV_GROUPED))
+    def test_bgmv_grouped_kernel_vs_plain(self, cuda_device, case):
+        """The task-grouped kernel at the engine's pair orders and edges:
+        the plain version's rows, NaN rows for out-of-range indices, and
+        the same bits from two launches."""
+        T, D, H, idx, dtype, tol = BGMV_GROUPED[case]()
+        P = len(idx)
+        x = t(rand(P, D, seed=1)).to(cuda_device, dtype)
+        w = t(rand(T, D, H, seed=2, scale=0.05)).to(cuda_device, dtype)
+        ix = t(np.asarray(idx, np.int32)).to(cuda_device)
+        got = bgmv(x, w, ix)
+        assert torch.equal(got, bgmv(x, w, ix))
+        bad = (ix < 0) | (ix >= T)
+        assert torch.isnan(got[bad]).all()
+        ref = bgmv_reference(x[~bad].float(), w.float(), ix[~bad])
+        close(got[~bad].float().cpu(), ref.cpu().numpy(), tol)
 
     def test_bgmv_kernel_refusals_and_bad_index(self, cuda_device):
         x = t(rand(4, 16)).to(cuda_device)
