@@ -44,9 +44,23 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    decisions and models must match the CPU port, and the burst must give
    the same labels with BGMV hot-flipped off; the head stage alone is
    timed with a cold and a held L2, and profiled for K3's share.
+5. embed — a full-width ModernBERT-base embedding model (22 layers, its
+   own random weights from a numpy seed) served 2D-Matryoshka (exits 6 /
+   11 / 16, dims 64 / 128 / 256 / 512): every variant's embeddings of 16
+   prompts (both buckets) must match the port on the CPU within 1e-4 and
+   be unit rows within 1e-5; the flash-attention counter must grow by
+   exactly the layers each forward ran (6 at exit 6, 22 without an exit);
+   a router with embedding, preference and complexity rules and a
+   ``semantic-cache`` plugin serves 8 concurrent chat requests through the
+   HTTP server and the mock backend, whose decisions and models must equal
+   the CPU port's, and a repeated prompt must come back as a cache hit
+   that never reaches the backend.  Embed forwards are timed at B=1 S=128
+   and B=16 S=512 for exits 22 / 11 / 6 (kernels and plain versions, one
+   profiled call each for the device's busy share), and the cache's
+   exact, HNSW and brute-force lookups with 1000 stored entries.
 
 The last three lines of standard output are one JSON object with every
-kernel's numbers, ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3 and 5), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -69,9 +83,17 @@ try:
     import torch
     import torch.nn.functional as F
 
+    from semantic_router_tpu_torch.cache import InMemorySemanticCache
     from semantic_router_tpu_torch.config import load_config
-    from semantic_router_tpu_torch.engine.testing import \
-        make_shared_trunk_engine
+    from semantic_router_tpu_torch.engine import InferenceEngine
+    from semantic_router_tpu_torch.engine.testing import (
+        init_weights,
+        make_shared_trunk_engine,
+    )
+    from semantic_router_tpu_torch.models import (
+        MmBertEmbeddingModel,
+        ModernBertConfig,
+    )
     from semantic_router_tpu_torch.models.lora import (
         LoRAConfig,
         apply_head_bank,
@@ -103,6 +125,7 @@ try:
         flash_tile_pairs,
         real_tiles,
     )
+    from semantic_router_tpu_torch.ops.matryoshka import matryoshka_views
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
     from semantic_router_tpu_torch.runtime import (
         build_router,
@@ -285,6 +308,89 @@ WIDE_PROMPTS = [
     "Explain the scheduler's cache eviction policy in our database.",
 ]
 N_TENANT_CALLS = 64
+
+
+# -- the embedding model (phase 5): 2D-Matryoshka + the semantic cache -------
+
+EMBED_LAYERS = [6, 11, 16]
+EMBED_DIMS = [64, 128, 256, 512]
+EMBED_TASK = "embedding"
+
+EMBED_ROUTER_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": {"max_batch_size": 16, "max_wait_ms": 5.0,
+               "seq_len_buckets": [128, 512],
+               "matryoshka_layers": EMBED_LAYERS,
+               "matryoshka_dims": EMBED_DIMS},
+    "semantic_cache": {"enabled": True, "backend_type": "hnsw",
+                       "similarity_threshold": 0.95},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in
+                       ("qwen3-8b", "reasoner-model", "k8s-model",
+                        "small-model", "mid-model")],
+        "signals": {
+            "embeddings": [
+                {"name": "kube_support", "threshold": 0.8,
+                 "candidates": [
+                     "How do I deploy a service on kubernetes?",
+                     "my kubernetes pod keeps crashing after the upgrade"]},
+                {"name": "billing", "threshold": 0.8,
+                 "aggregation_method": "max",
+                 "candidates": ["why was my invoice charged twice this "
+                                "month"]}],
+            "preferences": [
+                {"name": "terse", "threshold": 0.8,
+                 "examples": ["Keep it short, please.", "please be concise"]}],
+            "complexity": [
+                {"name": "reasoning", "threshold": 0.8,
+                 "hard": {"candidates": [
+                     "Prove that the square root of two is irrational, step "
+                     "by step."]},
+                 "easy": {"candidates": ["What time is it in Tokyo?"]},
+                 "composer": {"operator": "OR", "conditions": [
+                     {"type": "embedding", "name": "billing"}]}}],
+        },
+        "decisions": [
+            {"name": "hard_route", "priority": 300,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "complexity", "name": "reasoning:hard"}]},
+             "modelRefs": [{"model": "reasoner-model"}],
+             "plugins": [{"type": "semantic-cache"}]},
+            {"name": "kube_route", "priority": 200,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "embedding", "name": "kube_support"}]},
+             "modelRefs": [{"model": "k8s-model"}],
+             "plugins": [{"type": "semantic-cache", "configuration": {
+                 "similarity_threshold": 0.97}}]},
+            {"name": "terse_route", "priority": 150,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "preference", "name": "terse"}]},
+             "modelRefs": [{"model": "small-model"}]},
+            {"name": "some_reasoning", "priority": 100,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "complexity", "name": "reasoning"}]},
+             "modelRefs": [{"model": "mid-model"}],
+             "plugins": [{"type": "semantic-cache"}]},
+        ],
+    },
+}
+
+EMBED_PROMPTS = [
+    "How do I deploy a service on kubernetes?",
+    "Prove that the square root of two is irrational, step by step.",
+    "What time is it in Tokyo?",
+    "Keep it short, please.",
+    _words(300, 7),    # > 128 tokens: the 512 bucket
+    "Why was my invoice charged twice this month?",
+    "Draft a note about quarterly revenue and market share.",
+    _words(180, 8),    # > 128 tokens: the 512 bucket
+]
+# the embedding check's 16 prompts: the router's, the phase 3 prompts, and
+# two more of the 512 bucket
+EMBED_CHECK_PROMPTS = EMBED_PROMPTS + PROMPTS[:6] + [_words(220, 9),
+                                                     _words(400, 10)]
+N_CACHE_ENTRIES = 1000
 
 
 class SmokeFailure(RuntimeError):
@@ -474,22 +580,27 @@ def check_flash(name, B, H, S, D, dtype, tol, window=0, causal=False,
     return row
 
 
-def _kernel_names(fn) -> list:
+def _kernel_names(fn, want: str = "") -> list:
     """Names of the device kernels one call of ``fn`` launched
-    (torch.profiler; a trace that came back without device events is
-    taken again, up to three times)."""
+    (torch.profiler).  CUPTI now and then drops a short trace's kernel
+    records, so a trace that holds no kernel whose name contains ``want``
+    (with no ``want``: no kernel at all) is taken again, up to five
+    times, and each retry is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     names = []
-    for _ in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if any(want in n for n in names):
             break
+        print(f"profiler: trace {attempt + 1} held no kernel named "
+              f"{want!r} (device events: {[n[:60] for n in names]}); "
+              f"taking it again", flush=True)
     return names
 
 
@@ -516,7 +627,8 @@ def check_epilogue(name, rows, T, D, H, dtype, tol, with_bias, with_delta,
     check(err <= tol, f"epilogue[{name}]: max abs err {err:.3e} > {tol:g}")
     check(torch.equal(out, again),
           f"epilogue[{name}]: two launches gave different bits")
-    names = [n for n in _kernel_names(lambda: head_epilogue(x, W, b, d, act))
+    names = [n for n in _kernel_names(lambda: head_epilogue(x, W, b, d, act),
+                                      want="head_epilogue")
              if "head_epilogue" in n]
     path = "small" if rows <= 64 else "gemm"
     check(len(names) == 1 and f"head_epilogue_{path}" in names[0],
@@ -1340,6 +1452,269 @@ def measure_wide(engine, g) -> dict:
     return out
 
 
+# -- phase 5: the embedding model --------------------------------------------
+
+
+def build_embed_engine(device: str, cfg, attention_impl=None):
+    """(engine, module): the full-width embedding model with its own seeded
+    weights, registered as the ``embedding`` task."""
+    impl = attention_impl or select_attention_impl(cfg.engine, 512, device)
+    module = MmBertEmbeddingModel(
+        ModernBertConfig(**MODERNBERT_BASE, attention_impl=impl))
+    init_weights(module, SEED + 5)
+    engine = InferenceEngine(cfg.engine, device=device)
+    engine.register_task(
+        EMBED_TASK, "embedding", module,
+        HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"]), [],
+        max_seq_len=512)
+    return engine, module
+
+
+def phase_embed(smi: str) -> dict:
+    cfg = load_config(EMBED_ROUTER_CONFIG)
+    t0 = time.perf_counter()
+    engine, module = build_embed_engine(DEVICE, cfg)
+    check(module.config.attention_impl == "flash",
+          f"embedding attention_impl {module.config.attention_impl!r} != "
+          f"'flash'")
+    engine.warmup()
+    print(f"embed engine: {sum(p.numel() for p in module.parameters()) / 1e6:.1f}"
+          f"M params, {1 + len(EMBED_LAYERS)} exits x {1 + len(EMBED_DIMS)} "
+          f"dims warmed in {time.perf_counter() - t0:.1f} s", flush=True)
+    cpu, _ = build_embed_engine("cpu", cfg)
+    try:
+        variants = check_embeddings(engine, cpu)
+        exits = check_exit_launches(engine)
+        serve = serve_embed(engine, cpu, cfg)
+        timing = measure_embed(module, cfg)
+        cache = measure_cache(engine)
+    finally:
+        cpu.shutdown()
+        engine.shutdown()
+    out = {"variants": variants, "exits": exits, **serve, "timing": timing,
+           "cache": cache, "device": smi}
+    print("embed summary " + json.dumps(
+        {k: out[k] for k in ("launches", "forwards", "decisions",
+                             "cache_hit", "device")}), flush=True)
+    return out
+
+
+def check_embeddings(engine, cpu) -> dict:
+    """Every (exit, dim) variant on the card against the port on the CPU:
+    one CPU forward per exit, its dims by ``matryoshka_views`` (slicing a
+    unit row and re-normalizing is the same function)."""
+    prompts = EMBED_CHECK_PROMPTS
+    steps0 = len(engine.steps())
+    ref = {el: cpu.embed(EMBED_TASK, prompts, exit_layer=el, timeout=600)
+           for el in [None] + EMBED_LAYERS}
+    worst = {"max_abs_err": 0.0, "max_norm_err": 0.0}
+    for el in [None] + EMBED_LAYERS:
+        for od in [None] + EMBED_DIMS:
+            got = engine.embed(EMBED_TASK, prompts, exit_layer=el,
+                               output_dim=od, timeout=600)
+            want = ref[el] if od is None else \
+                matryoshka_views(ref[el], [od])[od]
+            tag = f"embed[exit {el}, dim {od}]"
+            check(got.shape == (len(prompts),
+                                od or MODERNBERT_BASE["hidden_size"]),
+                  f"{tag}: shape {got.shape}")
+            check(bool(np.isfinite(got).all()), f"{tag}: non-finite rows")
+            err = float(np.abs(got - want).max())
+            norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1).max())
+            check(err <= 1e-4, f"{tag}: GPU vs CPU {err:.3e} > 1e-4")
+            check(norm_err <= 1e-5, f"{tag}: |norm - 1| {norm_err:.3e} > "
+                                    f"1e-5")
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["max_norm_err"] = max(worst["max_norm_err"], norm_err)
+    buckets = {s["bucket"] for s in engine.steps()[steps0:]}
+    check(buckets == {128, 512}, f"embed buckets {buckets}")
+    out = {"variants": (1 + len(EMBED_LAYERS)) * (1 + len(EMBED_DIMS)),
+           "prompts": len(prompts), "tol": 1e-4,
+           "norm_tol": 1e-5, **worst}
+    print("embed variants GPU vs CPU " + json.dumps(out), flush=True)
+    return out
+
+
+def check_exit_launches(engine) -> dict:
+    """The flash-attention counter grows by exactly the layers each
+    forward ran: the early exit skips the top layers on the card."""
+    out = {}
+    n_layers = MODERNBERT_BASE["num_hidden_layers"]
+    for el, layers in ((6, 6), (None, n_layers), (11, 11)):
+        _cuda.reset_launch_counts()
+        s0 = len(engine.steps())
+        engine.embed(EMBED_TASK, EMBED_CHECK_PROMPTS, exit_layer=el,
+                     timeout=600)
+        launches = _cuda.launch_counts()["flash_attention"]
+        steps = engine.steps()[s0:]
+        check(steps and all(s["layers"] == layers for s in steps),
+              f"exit {el}: step layers {[s['layers'] for s in steps]}")
+        check(launches == layers * len(steps),
+              f"exit {el}: flash_attention launches {launches} != {layers} "
+              f"x {len(steps)} forwards")
+        out[str(el)] = {"forwards": len(steps), "launches": launches}
+    print("embed early exit launches " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_embed(engine, cpu, cfg) -> dict:
+    """8 concurrent chat requests through the router's embedding families
+    and the semantic cache, then a repeat of the first; the counters are
+    read around exactly that traffic."""
+    router = build_router(cfg, engine)
+    check(router.cache is not None, "the router built no semantic cache")
+    backend = MockVLLMServer().start()
+    server = RouterServer(router, backend.url).start()
+    bodies = [{"model": "auto", "messages": [
+        {"role": "system", "content": "You are helpful."},
+        {"role": "user", "content": p}]} for p in EMBED_PROMPTS]
+    try:
+        _cuda.reset_launch_counts()
+        steps0 = len(engine.steps())
+        t_serve = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            replies = list(pool.map(lambda b: _post(server.url, b), bodies))
+        serve_s = time.perf_counter() - t_serve
+        backend_hits = backend.hits
+        repeat = _post(server.url, bodies[0])
+        launches = _cuda.launch_counts()
+        steps = engine.steps()[steps0:]
+        hits_after = backend.hits
+        stats = router.cache.stats()
+    finally:
+        server.stop()
+        backend.stop()
+        router.shutdown()
+
+    for i, (status, headers, body, _lat) in enumerate(replies):
+        check(status == 200, f"embed request {i}: HTTP {status}: {body}")
+        check("x-vsr-cache-hit" not in headers,
+              f"embed request {i}: a cache hit on first sight")
+    check(backend_hits == len(bodies),
+          f"backend saw {backend_hits} of {len(bodies)} requests")
+    status, headers, body, repeat_s = repeat
+    check(status == 200 and headers.get("x-vsr-cache-hit") == "true",
+          f"the repeated prompt was no cache hit: {status} {headers}")
+    check(hits_after == backend_hits,
+          f"the cache hit reached the backend ({hits_after} requests)")
+    first = replies[0]
+    check(headers["x-vsr-selected-decision"]
+          == first[1]["x-vsr-selected-decision"]
+          and body["choices"][0]["message"]["content"]
+          == first[2]["choices"][0]["message"]["content"],
+          "the cache hit's decision or content differs from the first "
+          "answer")
+    forwards = len(steps)
+    layers = sum(s["layers"] for s in steps)
+    check(forwards > 0 and launches["flash_attention"] == layers,
+          f"flash_attention launches {launches['flash_attention']} != "
+          f"{layers} layers run in {forwards} embed forwards")
+
+    # the same requests, the same port, on the CPU (plain versions)
+    cpu_router = build_router(cfg, cpu)
+    families = set()
+    try:
+        for i, body in enumerate(bodies):
+            res = cpu_router.route(body)
+            h = replies[i][1]
+            cpu_dec = res.decision.decision.name if res.decision else None
+            check(cpu_dec == h.get("x-vsr-selected-decision")
+                  and res.model == h["x-vsr-selected-model"],
+                  f"embed request {i}: CPU routes to {cpu_dec!r} / "
+                  f"{res.model!r}, GPU to "
+                  f"{h.get('x-vsr-selected-decision')!r} / "
+                  f"{h['x-vsr-selected-model']!r}")
+            families |= set(res.signals.matches)
+            print(f"embed request {i}: {replies[i][3] * 1e3:.1f} ms -> "
+                  f"{cpu_dec} / {res.model}; CPU scores "
+                  f"{json.dumps(res.signals.confidences)}", flush=True)
+    finally:
+        cpu_router.shutdown()
+    check({"embedding", "preference", "complexity"} <= families,
+          f"families matched {sorted(families)}")
+    lat = sorted(r[3] for r in replies)
+    decisions = [r[1].get("x-vsr-selected-decision") for r in replies]
+    print(f"embed serve: {len(replies)} requests in {serve_s:.3f} s (p50 "
+          f"{lat[len(lat) // 2] * 1e3:.1f} ms, max {lat[-1] * 1e3:.1f} ms), "
+          f"{forwards} embed forwards running {layers} layers, launches "
+          f"{launches}; repeat answered from the cache in "
+          f"{repeat_s * 1e3:.1f} ms; cache {stats.__dict__}", flush=True)
+    return {"launches": launches, "forwards": forwards, "layers": layers,
+            "decisions": decisions, "cache_hit": True,
+            "latency_ms": [r[3] * 1e3 for r in replies],
+            "repeat_ms": repeat_s * 1e3}
+
+
+def measure_embed(module, cfg) -> dict:
+    """One embed forward at B=1 S=128 and B=16 S=512 (all real) for exits
+    22, 11 and 6: the main path (flash kernel) and the plain version on the
+    card (dense attention, same weights), CUDA events and one profiled call
+    each."""
+    plain = MmBertEmbeddingModel(ModernBertConfig(
+        **MODERNBERT_BASE, attention_impl="dense"))
+    plain.load_state_dict(module.state_dict())
+    plain = plain.to(DEVICE).eval()
+    n_layers = MODERNBERT_BASE["num_hidden_layers"]
+    out = {}
+    for B, S in ((1, 128), (16, 512)):
+        ids = torch.randint(3, MODERNBERT_BASE["vocab_size"], (B, S),
+                            generator=torch.Generator().manual_seed(SEED)
+                            ).to(DEVICE)
+        mask = torch.ones(B, S, dtype=torch.int32, device=DEVICE)
+        for el in (None, 11, 6):
+            for name, m in (("kernels", module), ("plain", plain)):
+                with torch.inference_mode():
+                    fn = (lambda m=m, el=el: m(ids, mask, exit_layer=el))
+                    ms = cuda_ms(fn, iters=5, warmup=2, hold=False)
+                    prof = _profile(fn)
+                tag = f"B{B}_S{S}_exit{el or n_layers}_{name}"
+                out[tag] = {"ms": ms, **prof}
+                print(f"embed forward {tag}: " + json.dumps(out[tag]),
+                      flush=True)
+    return out
+
+
+def measure_cache(engine) -> dict:
+    """Lookups in a cache of N_CACHE_ENTRIES entries, on the host: the
+    exact-hash path, and a miss through the HNSW index and through brute
+    force, with the query's embedding precomputed (one engine embed, timed
+    apart, is what a miss adds); HNSW's top hit against brute force's."""
+    rng = np.random.default_rng(SEED + 6)
+    texts = [_words(int(n), 5000 + i) + f" #{i}"
+             for i, n in enumerate(rng.integers(6, 60, N_CACHE_ENTRIES + 50))]
+    emb = engine.embed(EMBED_TASK, texts, timeout=600)
+    pre = dict(zip(texts, emb))
+    stored, queries = texts[:N_CACHE_ENTRIES], texts[N_CACHE_ENTRIES:]
+    out: dict = {"entries": N_CACHE_ENTRIES, "queries": len(queries)}
+    best = {}
+    for name, use_hnsw in (("hnsw", True), ("brute", False)):
+        cache = InMemorySemanticCache(pre.__getitem__, max_entries=2 * len(
+            texts), similarity_threshold=0.95, use_hnsw=use_hnsw)
+        t0 = time.perf_counter()
+        for t in stored:
+            cache.add(t, t)
+        out[f"{name}_add_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in stored[:len(queries)]:
+            check(cache.find_similar(t).response == t,
+                  f"{name}: an exact lookup missed")
+        out[f"{name}_exact_ms"] = (time.perf_counter() - t0) \
+            / len(queries) * 1e3
+        t0 = time.perf_counter()
+        best[name] = [cache.find_similar(q, threshold=-1.0) for q in queries]
+        out[f"{name}_lookup_ms"] = (time.perf_counter() - t0) \
+            / len(queries) * 1e3
+    out["hnsw_recall_at_1"] = float(np.mean(
+        [a.response == b.response for a, b in zip(best["hnsw"],
+                                                  best["brute"])]))
+    t0 = time.perf_counter()
+    for q in queries[:20]:
+        engine.embed(EMBED_TASK, [q + " ?"])
+    out["query_embed_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    print("cache lookups (host) " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1370,6 +1745,7 @@ def main(argv=None) -> int:
         return 0
     serve = report["serve"] = phase_serve()
     wide = report["wide"] = phase_wide()
+    embed = report["embed"] = phase_embed(dev["smi"])
     save()
     main_flash = next(r for r in kern["flash"]
                       if r["check"] == "main_local_f32")
@@ -1388,7 +1764,9 @@ def main(argv=None) -> int:
         rows.append({
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
-            "launches": serve["launches"][kname],
+            # K1 runs in the serve trunk and in the embedding trunk
+            "launches": serve["launches"][kname]
+            + embed["launches"][kname],
             "max_abs_err": max(x["max_abs_err"] for x in
                                kern["flash" if kname == "flash_attention"
                                     else "epilogue"]

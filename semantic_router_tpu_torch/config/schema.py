@@ -4,15 +4,16 @@ The port's own copy of ``semantic_router_tpu.config.schema``: the same YAML
 surface (``routing:`` with ``modelCards``/``signals``/``decisions``, and an
 ``engine:`` block), parsed into dataclasses for the parts the port's main
 path reads — the learned signal families (domain, jailbreak, pii,
-fact_check, user_feedback, modality), decisions with their rule trees
-and model refs, model cards, and the inference-engine knobs.  Other
-blocks of a config file are not read.
+fact_check, user_feedback, modality), the embedding-scored families
+(embedding, preference, complexity), decisions with their rule trees,
+model refs and plugins, model cards, the semantic cache, and the
+inference-engine knobs.  Other blocks of a config file are not read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 def _take(d: Dict[str, Any], *names: str, default: Any = None) -> Any:
     for n in names:
@@ -24,6 +25,76 @@ def _take(d: Dict[str, Any], *names: str, default: Any = None) -> Any:
 # --------------------------------------------------------------------------
 # Signal rule configs
 # --------------------------------------------------------------------------
+
+
+@dataclass
+class EmbeddingRule:
+    """Embedding-similarity rule: the query against the candidates,
+    aggregated by max | any | mean and held to the threshold."""
+
+    name: str
+    candidates: List[str] = field(default_factory=list)
+    threshold: float = 0.75
+    aggregation_method: str = "max"  # max | any | mean
+    query_modality: str = "text"  # text | image | audio
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EmbeddingRule":
+        return cls(
+            name=d["name"],
+            candidates=list(d.get("candidates", [])),
+            threshold=float(d.get("threshold", 0.75)),
+            aggregation_method=d.get("aggregation_method", "max"),
+            query_modality=d.get("query_modality", "text"),
+        )
+
+
+@dataclass
+class PreferenceRule:
+    """Example-set similarity: matches when the closest example clears the
+    threshold."""
+
+    name: str
+    examples: List[str] = field(default_factory=list)
+    threshold: float = 0.7
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PreferenceRule":
+        return cls(
+            name=d["name"],
+            examples=list(d.get("examples", [])),
+            threshold=float(d.get("threshold", 0.7)),
+        )
+
+
+@dataclass
+class ComplexityRule:
+    """Difficulty rule with hard/easy prototype candidate sets (text, and
+    text describing images) and an optional ``composer`` expression over
+    other signals that escalates the rule to hard."""
+
+    name: str
+    threshold: float = 0.75
+    hard_candidates: List[str] = field(default_factory=list)
+    easy_candidates: List[str] = field(default_factory=list)
+    hard_image_candidates: List[str] = field(default_factory=list)
+    easy_image_candidates: List[str] = field(default_factory=list)
+    composer: Optional["RuleNode"] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ComplexityRule":
+        hard = d.get("hard", {}) or {}
+        easy = d.get("easy", {}) or {}
+        composer = d.get("composer")
+        return cls(
+            name=d["name"],
+            threshold=float(d.get("threshold", 0.75)),
+            hard_candidates=list(hard.get("candidates", [])),
+            easy_candidates=list(easy.get("candidates", [])),
+            hard_image_candidates=list(hard.get("image_candidates", [])),
+            easy_image_candidates=list(easy.get("image_candidates", [])),
+            composer=RuleNode.from_dict(composer) if composer else None,
+        )
 
 
 @dataclass
@@ -99,11 +170,15 @@ class PIIRule:
 
 @dataclass
 class SignalsConfig:
-    """The learned signal families the port evaluates."""
+    """The learned and embedding-scored signal families the port
+    evaluates."""
 
+    embeddings: List[EmbeddingRule] = field(default_factory=list)
     domains: List[DomainRule] = field(default_factory=list)
     fact_check: List[NamedRule] = field(default_factory=list)
     user_feedbacks: List[NamedRule] = field(default_factory=list)
+    preferences: List[PreferenceRule] = field(default_factory=list)
+    complexity: List[ComplexityRule] = field(default_factory=list)
     modality: List[NamedRule] = field(default_factory=list)
     jailbreak: List[JailbreakRule] = field(default_factory=list)
     pii: List[PIIRule] = field(default_factory=list)
@@ -112,6 +187,12 @@ class SignalsConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "SignalsConfig":
         d = d or {}
         return cls(
+            embeddings=[EmbeddingRule.from_dict(x)
+                        for x in d.get("embeddings", [])],
+            preferences=[PreferenceRule.from_dict(x)
+                         for x in d.get("preferences", [])],
+            complexity=[ComplexityRule.from_dict(x)
+                        for x in d.get("complexity", [])],
             domains=[DomainRule.from_dict(x) for x in d.get("domains", [])],
             fact_check=[NamedRule.from_dict(x)
                         for x in d.get("fact_check", [])],
@@ -183,14 +264,34 @@ class ModelRef:
 
 
 @dataclass
+class PluginConfig:
+    """A decision plugin (``semantic-cache``, ...): its type and its
+    configuration block."""
+
+    type: str
+    configuration: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PluginConfig":
+        return cls(type=d["type"],
+                   configuration=dict(d.get("configuration", {}) or {}))
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.configuration.get("enabled", True))
+
+
+@dataclass
 class Decision:
-    """A routing decision: its rule tree, its priority and its candidate
-    models (the port selects statically: the first modelRef)."""
+    """A routing decision: its rule tree, its priority, its candidate
+    models (the port selects statically: the first modelRef) and its
+    plugins."""
 
     name: str
     rules: RuleNode = field(default_factory=RuleNode)
     priority: int = 0
     model_refs: List[ModelRef] = field(default_factory=list)
+    plugins: List[PluginConfig] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Decision":
@@ -202,7 +303,14 @@ class Decision:
                 ModelRef.from_dict(m)
                 for m in _take(d, "modelRefs", "model_refs", default=[])
             ],
+            plugins=[PluginConfig.from_dict(p) for p in d.get("plugins", [])],
         )
+
+    def plugin(self, ptype: str) -> Optional[PluginConfig]:
+        for p in self.plugins:
+            if p.type == ptype:
+                return p
+        return None
 
 
 @dataclass
@@ -218,20 +326,53 @@ class ModelCard:
 
 
 # --------------------------------------------------------------------------
-# Engine + top level
+# Semantic cache, engine, top level
 # --------------------------------------------------------------------------
+
+
+@dataclass
+class SemanticCacheConfig:
+    """The response cache: backend, similarity threshold, capacity, TTL,
+    eviction policy, and the embedding task that backs it (empty = the
+    router's default embedding task)."""
+
+    enabled: bool = False
+    backend_type: str = "memory"  # memory | hnsw | hybrid
+    similarity_threshold: float = 0.8
+    max_entries: int = 1000
+    ttl_seconds: int = 3600
+    eviction_policy: str = "fifo"  # fifo | lru | lfu
+    embedding_model: str = ""
+    use_hnsw: bool = True
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SemanticCacheConfig":
+        d = d or {}
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            backend_type=d.get("backend_type", "memory"),
+            similarity_threshold=float(d.get("similarity_threshold", 0.8)),
+            max_entries=int(d.get("max_entries", 1000)),
+            ttl_seconds=int(d.get("ttl_seconds", 3600)),
+            eviction_policy=d.get("eviction_policy", "fifo"),
+            embedding_model=d.get("embedding_model", ""),
+            use_hnsw=bool(d.get("use_hnsw", True)),
+        )
 
 
 @dataclass
 class InferenceEngineConfig:
     """Engine knobs: the batching shim, the padding buckets, attention and
-    kernel toggles."""
+    kernel toggles, and the 2D-Matryoshka variants an embedding task
+    serves (layer exits x output dims)."""
 
     max_batch_size: int = 32
     max_wait_ms: float = 2.0
     seq_len_buckets: List[int] = field(
         default_factory=lambda: [128, 512, 2048, 8192, 32768])
     use_flash_attention: bool = True
+    matryoshka_layers: List[int] = field(default_factory=list)
+    matryoshka_dims: List[int] = field(default_factory=list)
     # concurrent batch-dispatch workers: one slow (group, bucket) step
     # must not park live traffic on other buckets
     dispatch_workers: int = 4
@@ -245,6 +386,8 @@ class InferenceEngineConfig:
             max_batch_size=int(d.get("max_batch_size", 32)),
             max_wait_ms=float(d.get("max_wait_ms", 2.0)),
             use_flash_attention=bool(d.get("use_flash_attention", True)),
+            matryoshka_layers=list(d.get("matryoshka_layers", [])),
+            matryoshka_dims=list(d.get("matryoshka_dims", [])),
             dispatch_workers=int(d.get("dispatch_workers", 4)),
             kernels=dict(d.get("kernels", {}) or {}),
         )
@@ -262,6 +405,8 @@ class RouterConfig:
     default_model: str = ""
     engine: InferenceEngineConfig = field(
         default_factory=InferenceEngineConfig)
+    semantic_cache: SemanticCacheConfig = field(
+        default_factory=SemanticCacheConfig)
     # task name -> {checkpoint, tokenizer, kind, labels, max_seq_len}
     classifier_models: Dict[str, Any] = field(default_factory=dict)
 
@@ -281,12 +426,16 @@ class RouterConfig:
                                 routing.get("default_model", "")),
             engine=InferenceEngineConfig.from_dict(
                 d.get("engine", d.get("inference_engine", {}))),
+            semantic_cache=SemanticCacheConfig.from_dict(
+                d.get("semantic_cache", {})),
             classifier_models=dict(d.get("classifier_models", {}) or {}),
         )
 
     def used_signal_types(self) -> List[str]:
-        """Signal families referenced by decision rules — the dispatcher
-        only evaluates these."""
-        used = {leaf.signal_type.lower()
-                for dec in self.decisions for leaf in dec.rules.leaves()}
-        return sorted(t for t in used if t)
+        """Signal families referenced by decision rules or complexity
+        composers — the dispatcher only evaluates these."""
+        leaves = [leaf for dec in self.decisions for leaf in dec.rules.leaves()]
+        leaves += [leaf for rule in self.signals.complexity
+                   if rule.composer is not None
+                   for leaf in rule.composer.leaves()]
+        return sorted({leaf.signal_type.lower() for leaf in leaves} - {""})

@@ -2,8 +2,9 @@
 
 Evaluates each configured decision's AND/OR/NOT rule tree against the
 matched signal rules, then picks the best match by strategy ("priority" or
-"confidence").  Leaf matching by "type:name"; confidence aggregation
-AND=min, OR=max over matched children, NOT=1.0 when no child matches.
+"confidence").  Leaf matching by "type:name" (a bare complexity rule name
+matches any level the family reported); confidence aggregation AND=min,
+OR=max over matched children, NOT=1.0 when no child matches.
 """
 
 from __future__ import annotations
@@ -30,10 +31,23 @@ class SignalMatches:
         self.confidences[f"{signal_type}:{rule_name}"] = float(confidence)
 
     def matched(self, signal_type: str, name: str) -> bool:
-        return name in self.matches.get(signal_type, ())
+        names = self.matches.get(signal_type, ())
+        if name in names:
+            return True
+        # complexity reports "rule:level": a bare rule name matches any level
+        if signal_type == "complexity" and ":" not in name:
+            return any(n.split(":", 1)[0] == name for n in names)
+        return False
 
     def confidence(self, signal_type: str, name: str) -> float:
-        return self.confidences.get(f"{signal_type}:{name}", 1.0)
+        key = f"{signal_type}:{name}"
+        if key in self.confidences:
+            return self.confidences[key]
+        if signal_type == "complexity" and ":" not in name:
+            for n in self.matches.get(signal_type, ()):
+                if n.split(":", 1)[0] == name:
+                    return self.confidences.get(f"{signal_type}:{n}", 1.0)
+        return 1.0
 
     def all_matched_rules(self) -> List[str]:
         return [f"{t}:{n}" for t, names in sorted(self.matches.items())

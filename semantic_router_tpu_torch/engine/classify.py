@@ -1,6 +1,7 @@
-"""The inference engine: the fused classifier bank behind the batcher.
+"""The inference engine: the fused classifier bank and the embedding
+tasks behind the batcher.
 
-The port of the unpacked fused path of
+The port of the unpacked fused path and the embedding path of
 ``semantic_router_tpu.engine.classify``:
 
 - tasks register a ModernBERT sequence or token classifier + tokenizer +
@@ -17,7 +18,11 @@ The port of the unpacked fused path of
   kernel; ``attention_impl="flash"`` on the trunk runs the flash kernel;
   ``engine.kernels.bgmv`` swaps a wide sequence bank (at least
   ``min_tasks`` heads) for the per-(row, task) gather of the BGMV kernel,
-  so each row computes only the heads its items asked for.
+  so each row computes only the heads its items asked for;
+- embedding tasks (``MmBertEmbeddingModel``) are never fused: each batches
+  on its own under the key (task, bucket, exit_layer, output_dim), so the
+  2D-Matryoshka variants never share a forward; rows pad to a power of
+  two, one forward returns host float32 unit rows.
 
 Packing, quantization, meshes and the observability hooks of the JAX
 engine are later slices (ROADMAP.md).
@@ -36,6 +41,7 @@ import torch
 from torch import nn
 
 from ..config.schema import InferenceEngineConfig
+from ..models.embeddings import MmBertEmbeddingModel
 from ..models.lora import (
     apply_head_bank,
     apply_head_bank_bgmv,
@@ -98,7 +104,7 @@ class TokenClassResult:
 @dataclass
 class _Task:
     name: str
-    kind: str  # "sequence" | "token"
+    kind: str  # "sequence" | "token" | "embedding"
     labels: List[str]
     tokenizer: Tokenizer
     module: nn.Module
@@ -201,11 +207,25 @@ class InferenceEngine:
     def register_task(self, name: str, kind: str, module: nn.Module,
                       tokenizer: Tokenizer, labels: List[str],
                       max_seq_len: int = 0, pad_id: int = 0) -> None:
-        """Register a ModernBERT sequence or token classifier.  The module
-        moves to the engine's device; tasks whose ``module.model`` is one
+        """Register a ModernBERT sequence or token classifier, or an
+        ``MmBertEmbeddingModel`` (kind ``embedding``).  The module moves to
+        the engine's device; classifiers whose ``module.model`` is one
         trunk object share a trunk group and its forward."""
-        if kind not in ("sequence", "token"):
+        if kind not in ("sequence", "token", "embedding"):
             raise ValueError(f"unknown task kind {kind!r}")
+        if kind == "embedding":
+            if not isinstance(module, MmBertEmbeddingModel):
+                raise ValueError(f"task {name!r}: an embedding task takes an "
+                                 f"MmBertEmbeddingModel, got "
+                                 f"{type(module).__name__}")
+            module = module.to(self.device).eval()
+            with self._lock:
+                # re-registration under a new kind leaves no fused member
+                self._evict_locked(name)
+                self._tasks[name] = _Task(
+                    name, kind, list(labels), tokenizer, module,
+                    max_seq_len or self.cfg.seq_len_buckets[-1], pad_id)
+            return
         entry = head_bank_entry(module)
         if entry is None:
             raise ValueError(f"task {name!r}: {type(module).__name__} is not "
@@ -432,12 +452,54 @@ class InferenceEngine:
             _Payload(text, enc, threshold, tasks=(t.name,)))
         return fut.result(timeout=timeout)
 
+    def embed(self, task: str, texts: Sequence[str],
+              exit_layer: Optional[int] = None,
+              output_dim: Optional[int] = None,
+              timeout: float = 30.0) -> np.ndarray:
+        """Batch-embed texts → [n, dim] float32 unit rows.  ``exit_layer``
+        / ``output_dim`` select the 2D-Matryoshka variant."""
+        if not texts:
+            return np.zeros((0, 0), dtype=np.float32)
+        futures = self.embed_async(task, texts, exit_layer, output_dim)
+        return np.stack([f.result(timeout=timeout) for f in futures])
+
+    def embed_async(self, task: str, texts: Sequence[str],
+                    exit_layer: Optional[int] = None,
+                    output_dim: Optional[int] = None) -> list:
+        """One Future per text.  The variant is part of the batch key:
+        different variants never share a forward."""
+        t = self._require(task, kind="embedding")
+        futures = []
+        for text in texts:
+            enc = self._encode(t, text)
+            bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
+            futures.append(self.batcher.submit(
+                (task, bucket, exit_layer, output_dim),
+                _Payload(text, enc, tasks=(task,))))
+        return futures
+
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every group's flavors once per bucket at batch 1, off the
         batcher: loads the kernels (building them on first use) and the
         library handles before live traffic arrives.  A BGMV group warms
-        its sequence flavors at the 1-pair shape."""
+        its sequence flavors at the 1-pair shape; an embedding task warms
+        every configured Matryoshka variant."""
+        def inputs(b: int, pad_id: int):
+            ids = torch.full((1, b), pad_id, dtype=torch.long)
+            ids[:, 0] = 1
+            return (ids.to(self.device),
+                    torch.ones((1, b), dtype=torch.int32, device=self.device))
+
         with torch.inference_mode():
+            for t in list(self._tasks.values()):
+                if t.kind != "embedding":
+                    continue
+                for b in buckets or self.cfg.seq_len_buckets:
+                    if b > t.max_seq_len:
+                        continue
+                    ids, mask = inputs(b, t.pad_id)
+                    for el, od in self._matryoshka_variants():
+                        t.module(ids, mask, exit_layer=el, output_dim=od)
             for g in list(self._groups_by_gid.values()):
                 demux = g.demux
                 meta = self._serving_meta(demux)
@@ -450,10 +512,7 @@ class InferenceEngine:
                 for b in buckets or self.cfg.seq_len_buckets:
                     if b > g.max_seq_len:
                         continue
-                    ids = torch.full((1, b), g.pad_id, dtype=torch.long)
-                    ids[:, 0] = 1
-                    mask = torch.ones((1, b), dtype=torch.int32)
-                    ids, mask = ids.to(self.device), mask.to(self.device)
+                    ids, mask = inputs(b, g.pad_id)
                     for flavor in flavors:
                         pairs = (pair, pair) if meta["bgmv"] \
                             and flavor != "tok" else ()
@@ -472,6 +531,15 @@ class InferenceEngine:
         with self._lock:
             return {k: sorted(v) for k, v in self._shapes.items()}
 
+    def _matryoshka_variants(self) -> List[tuple]:
+        """(exit_layer, output_dim) pairs an embedding task serves: the
+        full model plus every configured 2D-Matryoshka combination."""
+        layers = [int(el) for el in self.cfg.matryoshka_layers or []]
+        dims = [int(od) for od in self.cfg.matryoshka_dims or []]
+        return ([(None, None)] + [(el, None) for el in layers]
+                + [(None, od) for od in dims]
+                + [(el, od) for el in layers for od in dims])
+
     def shutdown(self) -> None:
         self.batcher.shutdown()
 
@@ -483,7 +551,8 @@ class InferenceEngine:
             raise KeyError(f"task {task!r} not registered "
                            f"(known: {sorted(self._tasks)})")
         if kind is not None and t.kind != kind:
-            right = {"token": "token_classify", "sequence": "classify"}
+            right = {"token": "token_classify", "sequence": "classify",
+                     "embedding": "embed"}
             raise TypeError(f"task {task!r} is a {t.kind} task; use "
                             f"{right[t.kind]}()")
         return t
@@ -513,8 +582,40 @@ class InferenceEngine:
 
     def _run_batch(self, group_key: Hashable,
                    items: List[BatchItem]) -> Sequence[Any]:
-        _, gid, bucket = group_key
-        return self._run_fused_batch(gid, bucket, items)
+        if group_key[0] == TRUNK_KEY:
+            _, gid, bucket = group_key
+            return self._run_fused_batch(gid, bucket, items)
+        return self._run_embed_batch(*group_key, items)
+
+    def _run_embed_batch(self, task: str, bucket: int,
+                         exit_layer: Optional[int],
+                         output_dim: Optional[int],
+                         items: List[BatchItem]) -> Sequence[Any]:
+        """One embedding forward: rows padded to a power of two, stacked to
+        the bucket edge; host float32 rows out, one per item."""
+        t = self._require(task, kind="embedding")
+        n = len(items)
+        padded_n = pow2_batch(n, self.cfg.max_batch_size)
+        ids, mask, _ = self._stack_items(items, bucket, padded_n, t.pad_id)
+        with self._lock:
+            self._shapes.setdefault(f"task:{task}", set()).add(
+                (padded_n, bucket))
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            emb = t.module(torch.from_numpy(ids).to(self.device),
+                           torch.from_numpy(mask).to(self.device),
+                           exit_layer=exit_layer, output_dim=output_dim)
+            emb = emb.float().cpu().numpy()
+        seconds = time.perf_counter() - t0
+        with self._lock:
+            self.trunk_forwards += 1
+            self._steps.append({
+                "group": f"task:{task}", "bucket": bucket, "flavor": "embed",
+                "rows": n, "padded_rows": padded_n, "exit_layer": exit_layer,
+                "output_dim": output_dim,
+                "layers": t.module.model.layers_run(exit_layer),
+                "seconds": seconds})
+        return [emb[i] for i in range(n)]
 
     def _run_fused_batch(self, gid: str, bucket: int,
                          items: List[BatchItem]) -> Sequence[Any]:

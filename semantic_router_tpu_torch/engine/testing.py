@@ -1,7 +1,8 @@
 """Model-free engine fixtures: tiny (or full-width) ModernBERT classifiers
-with weights from a numpy seed, or carried from a JAX Flax tree, plus the
-deterministic HashTokenizer.  Real model code paths (batching, padding,
-the fused bank, span decoding) with no checkpoint and no network."""
+and embedding models with weights from a numpy seed, or carried from a
+JAX Flax tree, plus the deterministic HashTokenizer.  Real model code
+paths (batching, padding, the fused bank, span decoding, Matryoshka
+variants) with no checkpoint and no network."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 
 from ..config.schema import InferenceEngineConfig
 from ..models.convert import params_from_flax
+from ..models.embeddings import MmBertEmbeddingModel
 from ..models.lora import LoRAConfig, ModernBertLoRAHeadClassifier
 from ..models.modernbert import (
     ModernBertConfig,
@@ -77,6 +79,8 @@ def init_weights(module: nn.Module, seed: int, std: float = 0.02,
 
 def _classifier(kind: str, cfg: ModernBertConfig,
                 trunk: Optional[ModernBertModel]) -> nn.Module:
+    if kind == "embedding":
+        return MmBertEmbeddingModel(cfg)
     cls = ModernBertForTokenClassification if kind == "token" \
         else ModernBertForSequenceClassification
     return cls(cfg, model=trunk)
@@ -87,9 +91,11 @@ def make_test_engine(tasks: Optional[Sequence[tuple]] = None,
                      seed: int = 0, device: DeviceLike = None,
                      flax_params: Optional[Mapping[str, Any]] = None
                      ) -> InferenceEngine:
-    """Engine with tiny classifiers, each on its own trunk.
+    """Engine with tiny classifiers (and embedding models), each on its
+    own trunk.
 
-    ``tasks``: (name, kind, labels) triples (default intent/jailbreak/pii);
+    ``tasks``: (name, kind, labels) triples (default intent/jailbreak/pii;
+    kind ``embedding`` builds an ``MmBertEmbeddingModel``);
     ``flax_params``: {task: Flax tree} carries the JAX engine's weights in
     through ``params_from_flax``; otherwise weights come from ``seed``."""
     tasks = DEFAULT_TASKS if tasks is None else tasks
@@ -177,3 +183,15 @@ def make_shared_trunk_engine(
         engine.register_task(name, kind, module, tok, labels,
                              max_seq_len=max_seq_len)
     return engine
+
+
+def make_embedding_engine(seed: int = 0,
+                          engine_cfg: Optional[InferenceEngineConfig] = None,
+                          device: DeviceLike = None,
+                          flax_params: Optional[Mapping[str, Any]] = None
+                          ) -> InferenceEngine:
+    """Engine with the default trio plus a tiny embedding task."""
+    return make_test_engine(
+        tasks=DEFAULT_TASKS + [("embedding", "embedding", [])],
+        engine_cfg=engine_cfg, seed=seed, device=device,
+        flax_params=flax_params)

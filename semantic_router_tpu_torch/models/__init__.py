@@ -4,6 +4,7 @@ from .convert import (
     read_safetensors,
     state_dict_from_hf,
 )
+from .embeddings import MmBertEmbeddingModel
 from .lora import (
     LoRAConfig,
     ModernBertLoRAHeadClassifier,
@@ -21,6 +22,7 @@ from .modernbert import (
 
 __all__ = [
     "LoRAConfig",
+    "MmBertEmbeddingModel",
     "ModernBertConfig",
     "ModernBertForSequenceClassification",
     "ModernBertForTokenClassification",

@@ -226,14 +226,22 @@ class ModernBertModel(nn.Module):
         self.final_norm = _norm(cfg)
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor] = None,
+                exit_layer: Optional[int] = None) -> torch.Tensor:
+        """``exit_layer``: the Matryoshka layer early exit — only the first
+        ``exit_layer`` layers run, and the final norm applies to the last
+        of them (None runs every layer)."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         x = self.embeddings(input_ids)
-        for layer in self.layers:
+        for layer in self.layers[:self.layers_run(exit_layer)]:
             x = layer(x, attention_mask)
         return self.final_norm(x)
+
+    def layers_run(self, exit_layer: Optional[int] = None) -> int:
+        """How many layers a forward at ``exit_layer`` runs."""
+        n = len(self.layers)
+        return n if exit_layer is None else max(0, min(int(exit_layer), n))
 
 
 class ModernBertPredictionHead(nn.Module):

@@ -10,6 +10,7 @@ from .attention import (
 from .bgmv import bgmv, bgmv_reference
 from .epilogue import head_epilogue, head_epilogue_reference
 from .flash_attention import flash_attention, flash_attention_reference
+from .matryoshka import matryoshka_views, truncate_normalize
 from .rope import RopeSpec, apply_rotary, default_inv_freq, rope_tables, \
     yarn_inv_freq
 
@@ -26,10 +27,12 @@ __all__ = [
     "flash_attention_reference",
     "head_epilogue",
     "head_epilogue_reference",
+    "matryoshka_views",
     "mean_pool",
     "padding_bias",
     "rope_tables",
     "sdpa",
     "sliding_window_bias",
+    "truncate_normalize",
     "yarn_inv_freq",
 ]

@@ -10,6 +10,7 @@ REASONING = "x-vsr-selected-reasoning"
 REASONING_EFFORT = "x-vsr-selected-reasoning-effort"
 SCHEMA = "x-vsr-schema-version"
 MATCHED_RULES = "x-vsr-matched-rules"
+CACHE_HIT = "x-vsr-cache-hit"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

@@ -1,8 +1,10 @@
 """The request routing pipeline, trimmed to the port's main path:
 
-  parse → learned signal fan-out (fused classifier bank) → decision
-  engine → static model selection (the decision's first modelRef) →
-  request rewrite (model, reasoning fields) → x-vsr-* headers.
+  parse → signal fan-out (fused classifier bank, embedding-scored
+  families) → decision engine → semantic cache (the decision's
+  ``semantic-cache`` plugin) → static model selection (the decision's
+  first modelRef) → request rewrite (model, reasoning fields) → x-vsr-*
+  headers; and on the response path, the cache write.
 
 Signal families fail open: a dead engine degrades routing to the default
 model, never to an outage.
@@ -10,24 +12,30 @@ model, never to an outage.
 
 from __future__ import annotations
 
+import logging
 import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
-from ..config.schema import ModelRef, RouterConfig
+from ..cache.semantic_cache import build_cache
+from ..config.schema import Decision, ModelRef, RouterConfig
 from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
 from ..signals.base import RequestContext
 from ..signals.dispatch import DispatchReport, build_dispatcher
 from . import headers as H
 
+log = logging.getLogger(__name__)
+
 
 @dataclass
 class RouteResult:
-    kind: str  # "route"
+    kind: str  # "route" | "cache_hit"
     model: str = ""
     body: Optional[Dict[str, Any]] = None
     headers: Dict[str, str] = field(default_factory=dict)
+    # the answer itself, when the router answers without the backend
+    response_body: Optional[Dict[str, Any]] = None
     decision: Optional[DecisionResult] = None
     signals: Optional[SignalMatches] = None
     report: Optional[DispatchReport] = None
@@ -35,14 +43,41 @@ class RouteResult:
     request_id: str = ""
 
 
+def _immediate_chat_completion(content: str, model: str = "router") -> dict:
+    return {
+        "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
+        "object": "chat.completion",
+        "created": int(time.time()),
+        "model": model,
+        "choices": [{
+            "index": 0,
+            "message": {"role": "assistant", "content": content},
+            "finish_reason": "stop",
+        }],
+        "usage": {"prompt_tokens": 0, "completion_tokens": 0,
+                  "total_tokens": 0},
+    }
+
+
 class Router:
-    """The routing pipeline.  Embed directly, or serve via router.server."""
+    """The routing pipeline.  Embed directly, or serve via router.server.
+
+    With ``semantic_cache.enabled`` the router keeps a semantic cache on
+    the engine's ``semantic_cache.embedding_model`` task (``embedding``
+    when that is empty), provided the engine serves it."""
 
     def __init__(self, cfg: RouterConfig, engine=None) -> None:
         self.cfg = cfg
         self.engine = engine
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
+        cache_task = cfg.semantic_cache.embedding_model or "embedding"
+        self.cache = None
+        if cfg.semantic_cache.enabled and engine is not None \
+                and engine.has_task(cache_task):
+            self.cache = build_cache(
+                cfg.semantic_cache,
+                lambda text: engine.embed(cache_task, [text])[0])
 
     def route(self, body: Dict[str, Any],
               headers: Optional[Dict[str, str]] = None) -> RouteResult:
@@ -62,6 +97,10 @@ class Router:
             ref = None
         else:
             decision = decision_res.decision
+            hit = self._check_cache(decision, ctx, result)
+            if hit is not None:
+                hit.routing_latency_s = time.perf_counter() - start
+                return hit
             ref = decision.model_refs[0] if decision.model_refs else \
                 ModelRef(model=self.cfg.default_model or ctx.model)
             result.model = ref.model
@@ -75,6 +114,53 @@ class Router:
         result.headers[H.REQUEST_ID] = request_id
         result.routing_latency_s = time.perf_counter() - start
         return result
+
+    def _check_cache(self, decision: Decision, ctx: RequestContext,
+                     result: RouteResult) -> Optional[RouteResult]:
+        """A ``cache_hit`` result when the decision's semantic-cache plugin
+        is on and the cache holds the query (at the plugin's
+        ``similarity_threshold`` when it sets one).  A failing cache is a
+        miss."""
+        plugin = decision.plugin("semantic-cache")
+        if self.cache is None or plugin is None or not plugin.enabled:
+            return None
+        threshold = plugin.configuration.get("similarity_threshold")
+        try:
+            hit = self.cache.find_similar(
+                ctx.user_text,
+                threshold=float(threshold) if threshold else None)
+        except Exception:
+            log.warning("semantic cache lookup failed", exc_info=True)
+            return None
+        if hit is None:
+            return None
+        model = hit.model or "cache"
+        return RouteResult(
+            kind="cache_hit", request_id=result.request_id,
+            decision=result.decision, signals=result.signals,
+            report=result.report, model=model,
+            response_body=_immediate_chat_completion(hit.response,
+                                                     model=model),
+            headers={H.CACHE_HIT: "true", H.DECISION: decision.name,
+                     H.REQUEST_ID: result.request_id})
+
+    def process_response(self, route: RouteResult,
+                         response_body: Dict[str, Any]) -> None:
+        """The response path of a routed request the backend answered: the
+        semantic-cache write, when the decision's plugin is on and the
+        answer has content.  A failing write is dropped."""
+        content = _response_text(response_body)
+        decision = route.decision.decision if route.decision else None
+        if self.cache is None or route.kind != "route" or not content \
+                or decision is None or not route.body:
+            return
+        plugin = decision.plugin("semantic-cache")
+        if plugin is not None and plugin.enabled:
+            try:
+                ctx = RequestContext.from_openai_body(route.body)
+                self.cache.add(ctx.user_text, content, model=route.model)
+            except Exception:
+                log.warning("semantic cache write failed", exc_info=True)
 
     @staticmethod
     def _finalize_body(result: RouteResult, ref: Optional[ModelRef]) -> None:
@@ -92,3 +178,14 @@ class Router:
 
     def shutdown(self) -> None:
         self.dispatcher.shutdown()
+
+
+def _response_text(body: Dict[str, Any]) -> str:
+    """The first choice's message content of a chat completion."""
+    try:
+        choices = body.get("choices") or []
+        if choices:
+            return (choices[0].get("message") or {}).get("content") or ""
+    except AttributeError:
+        pass
+    return ""

@@ -1,6 +1,8 @@
 """HTTP front end: ``POST /v1/chat/completions`` routes the request, forwards
 the rewritten body to the backend, and answers with the backend's response
-stamped with the router's x-vsr-* headers.  ``GET /health`` reports
+stamped with the router's x-vsr-* headers; a semantic-cache hit is
+answered by the router without the backend, and a routed 200 goes through
+the router's response path (the cache write).  ``GET /health`` reports
 liveness.  Standard library only (``ThreadingHTTPServer`` + ``http.client``).
 """
 
@@ -41,6 +43,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         srv: RouterServer = self.server.owner
         result = srv.router.route(body, dict(self.headers.items()))
+        if result.kind == "cache_hit":
+            self._reply(200, result.response_body, result.headers)
+            return
         try:
             status, data = srv.forward(result.body)
         except OSError as exc:
@@ -48,6 +53,13 @@ class _Handler(BaseHTTPRequestHandler):
                                                    f"{exc}"}},
                         result.headers)
             return
+        if status == 200:
+            try:
+                reply = json.loads(data)
+            except ValueError:
+                reply = None
+            if isinstance(reply, dict):
+                srv.router.process_response(result, reply)
         self._reply_raw(status, data, result.headers)
 
     def _reply(self, status: int, payload: dict,

@@ -1,12 +1,13 @@
 """Runtime bootstrap: config → engine → router → HTTP server.
 
 Model loading: ``classifier_models`` maps task name → {checkpoint,
-tokenizer, kind, labels, max_seq_len}.  A checkpoint is a local directory
-holding HF ``config.json`` + ``model.safetensors`` (or the safetensors file
-itself, beside its config.json); there is no download step.  Tasks whose
-specs name the same checkpoint share one trunk module, and so one fused
-trunk group.  Absent checkpoints leave their task unloaded (its signal
-fails open).
+tokenizer, kind, labels, max_seq_len}.  A checkpoint is a local
+directory holding HF ``config.json`` + ``model.safetensors`` (or the
+safetensors file itself, beside its config.json); there is no download
+step.  Classifier tasks whose specs name the same checkpoint share one
+trunk module, and so one fused trunk group; ``kind: embedding`` loads an
+``MmBertEmbeddingModel`` of its own.  Absent checkpoints leave their task
+unloaded (its signal fails open).
 """
 
 from __future__ import annotations
@@ -46,14 +47,15 @@ def _checkpoint_files(path: str) -> Tuple[str, str]:
 
 
 def build_engine(cfg: RouterConfig, device: DeviceLike = None):
-    """Engine from ``cfg.classifier_models`` (ModernBERT sequence and token
-    kinds) on ``device`` (``cuda`` when None).  None when no classifier
+    """Engine from ``cfg.classifier_models`` (ModernBERT sequence, token and
+    embedding kinds) on ``device`` (``cuda`` when None).  None when no
     models are configured — the router then routes on defaults."""
     specs = cfg.classifier_models or {}
     if not specs:
         return None
     from ..engine.classify import InferenceEngine
     from ..models.convert import load_safetensors
+    from ..models.embeddings import MmBertEmbeddingModel
     from ..models.modernbert import (
         ModernBertConfig,
         ModernBertForSequenceClassification,
@@ -69,9 +71,10 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
     for task, spec in specs.items():
         path = spec.get("checkpoint", "")
         kind = spec.get("kind", "sequence")
-        if kind not in ("sequence", "token"):
+        if kind not in ("sequence", "token", "embedding"):
             raise ValueError(f"task {task!r}: kind {kind!r} is not served by "
-                             f"this port yet (sequence and token only)")
+                             f"this port yet (sequence, token and embedding "
+                             f"only)")
         if not path or not os.path.exists(path):
             log.warning("model missing: task=%s path=%s", task, path)
             continue
@@ -88,21 +91,27 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
             hf_cfg, num_labels=max(len(labels), 2),
             attention_impl=select_attention_impl(cfg.engine, max_seq, dev))
         state = load_safetensors(weights_path)
-        cls = ModernBertForTokenClassification if kind == "token" \
-            else ModernBertForSequenceClassification
-        module = cls(mcfg, model=trunks.get(path))
-        if path in trunks:
-            # the trunk is shared and loaded: this task brings its head
-            state = {k: v for k, v in state.items()
-                     if not k.startswith("model.")}
-            missing, unexpected = module.load_state_dict(state, strict=False)
-            missing = [k for k in missing if not k.startswith("model.")]
-            if missing or unexpected:
-                raise ValueError(f"task {task!r}: checkpoint keys missing "
-                                 f"{missing}, unexpected {unexpected}")
-        else:
+        if kind == "embedding":
+            module = MmBertEmbeddingModel(mcfg)
             module.load_state_dict(state)
-            trunks[path] = module.model
+        else:
+            cls = ModernBertForTokenClassification if kind == "token" \
+                else ModernBertForSequenceClassification
+            module = cls(mcfg, model=trunks.get(path))
+            if path in trunks:
+                # the trunk is shared and loaded: this task brings its head
+                state = {k: v for k, v in state.items()
+                         if not k.startswith("model.")}
+                missing, unexpected = module.load_state_dict(state,
+                                                             strict=False)
+                missing = [k for k in missing if not k.startswith("model.")]
+                if missing or unexpected:
+                    raise ValueError(f"task {task!r}: checkpoint keys "
+                                     f"missing {missing}, unexpected "
+                                     f"{unexpected}")
+            else:
+                module.load_state_dict(state)
+                trunks[path] = module.model
         tok_dir = spec.get("tokenizer") or os.path.dirname(cfg_path)
         if tok_dir not in tokenizers:
             tokenizers[tok_dir] = HFTokenizer.from_pretrained_dir(tok_dir)

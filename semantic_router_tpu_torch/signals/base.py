@@ -13,6 +13,9 @@ from ..utils.tokenization import EncodingCache
 class Message:
     role: str
     content: str = ""
+    # image references (URLs or data URIs) of multi-part content, as
+    # given: the port decodes no image
+    images: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -48,22 +51,38 @@ class RequestContext:
     def text_for(self, include_history: bool) -> str:
         return self.full_text if include_history else self.user_text
 
+    def has_images(self) -> bool:
+        return any(m.images for m in self.messages)
+
     @classmethod
     def from_openai_body(cls, body: Dict[str, Any],
                          headers: Optional[Dict[str, str]] = None
                          ) -> "RequestContext":
         """Build from an OpenAI ChatCompletions-shaped request body (text
-        parts of multi-part contents are joined)."""
+        parts of multi-part contents are joined; image parts keep their
+        reference)."""
         msgs: List[Message] = []
         for m in body.get("messages", []) or []:
             content = m.get("content", "")
+            images: List[str] = []
             if isinstance(content, list):
-                content = "\n".join(
-                    part.get("text", "") for part in content
-                    if isinstance(part, dict) and part.get("type") == "text")
+                parts = []
+                for part in content:
+                    if not isinstance(part, dict):
+                        continue
+                    ptype = part.get("type", "")
+                    if ptype == "text":
+                        parts.append(part.get("text", ""))
+                    elif ptype in ("image_url", "input_image"):
+                        url = part.get("image_url")
+                        if isinstance(url, dict):
+                            url = url.get("url", "")
+                        images.append(url or "")
+                content = "\n".join(parts)
             msgs.append(Message(
                 role=m.get("role", "user"),
-                content=content if isinstance(content, str) else ""))
+                content=content if isinstance(content, str) else "",
+                images=images))
         return cls(
             messages=msgs,
             model=body.get("model", ""),

@@ -1,11 +1,13 @@
-"""Concurrent signal dispatch over the learned families.
+"""Concurrent signal dispatch over the learned and embedding-scored
+families.
 
-Only families referenced by decisions are evaluated; each active family
-runs on its own worker and the join is the wall clock of the slowest one.
-Before the fan-out, the sequence tasks one fused trunk group can serve
-classify the user text together (one tokenization, one trunk forward) and
-seed the request's memo.  Evaluator exceptions are contained and recorded
-(fail-open: a dead family never kills routing).
+Only families referenced by decisions (or complexity composers) are
+evaluated; each active family runs on its own worker and the join is the
+wall clock of the slowest one.  Before the fan-out, the sequence tasks one
+fused trunk group can serve classify the user text together (one
+tokenization, one trunk forward) and seed the request's memo.  After it,
+complexity composers escalate their rules.  Evaluator exceptions are
+contained and recorded (fail-open: a dead family never kills routing).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from ..decision.engine import SignalMatches
+from ..decision.engine import SignalMatches, eval_rule_node
 from .base import RequestContext, SignalEvaluator, SignalResult
 
 # serial prefetch budget: past it the evaluators classify on their own
@@ -28,11 +30,31 @@ class DispatchReport:
     wall_s: float = 0.0
 
 
+def apply_complexity_composers(signals: SignalMatches,
+                               complexity_rules) -> None:
+    """Composer escalation: a matched composer forces its rule to
+    ":hard", dropping any lower level the family evaluator reported.  A
+    composer leaf naming a family the port does not evaluate has no hits,
+    so it does not match."""
+    for rule in complexity_rules:
+        if rule.composer is None:
+            continue
+        matched, conf, _ = eval_rule_node(rule.composer, signals)
+        hard = f"{rule.name}:hard"
+        if matched and hard not in signals.matches.get("complexity", ()):
+            levels = signals.matches.get("complexity", [])
+            signals.matches["complexity"] = [
+                n for n in levels if n.split(":", 1)[0] != rule.name]
+            signals.add("complexity", hard, max(conf, 0.5))
+
+
 class SignalDispatcher:
     def __init__(self, evaluators: List[SignalEvaluator],
-                 used_types: Optional[List[str]] = None) -> None:
+                 used_types: Optional[List[str]] = None,
+                 complexity_rules: Optional[list] = None) -> None:
         self.evaluators = {e.signal_type: e for e in evaluators}
         self.used_types = set(used_types) if used_types is not None else None
+        self.complexity_rules = list(complexity_rules or [])
         # one worker per learned family
         self.pool = ThreadPoolExecutor(max_workers=max(1, len(evaluators)),
                                        thread_name_prefix="signal")
@@ -60,6 +82,7 @@ class SignalDispatcher:
                 if h.detail:
                     signals.details.setdefault(r.signal_type, {})[h.rule] = \
                         h.detail
+        apply_complexity_composers(signals, self.complexity_rules)
         report.wall_s = time.perf_counter() - start
         return signals, report
 
@@ -110,11 +133,14 @@ class SignalDispatcher:
 
 
 def build_dispatcher(cfg, engine=None) -> SignalDispatcher:
-    """The learned evaluators the config needs, restricted to the families
-    its decisions reference."""
+    """The learned and embedding-scored evaluators the config needs,
+    restricted to the families its decisions and composers reference."""
+    from .embedding_signal import build_embedding_evaluators
     from .learned import build_learned_evaluators
 
     evaluators = build_learned_evaluators(engine, cfg) \
+        + build_embedding_evaluators(engine, cfg) \
         if engine is not None else []
     return SignalDispatcher(evaluators,
-                            used_types=cfg.used_signal_types() or None)
+                            used_types=cfg.used_signal_types() or None,
+                            complexity_rules=cfg.signals.complexity)

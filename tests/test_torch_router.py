@@ -432,3 +432,190 @@ def test_build_engine_from_local_checkpoint(tmp_path, monkeypatch):
         assert eng.classify("intent", "w1 w2 w3 w77").probs == res.probs
     finally:
         eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the embedding-scored families and the semantic cache
+
+
+EMBED_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": {"max_batch_size": 8, "max_wait_ms": 1.0,
+               "seq_len_buckets": [32, 128, 512],
+               "matryoshka_layers": [1], "matryoshka_dims": [16]},
+    "semantic_cache": {"enabled": True, "backend_type": "hnsw",
+                       "similarity_threshold": 0.95},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in
+                       ("qwen3-8b", "k8s-expert", "reasoner", "small", "mid")],
+        "signals": {
+            "embeddings": [{"name": "kube_support", "threshold": 0.9,
+                            "candidates": ["how do I deploy on kubernetes",
+                                           "my kubernetes pod keeps crashing"]}],
+            "preferences": [{"name": "terse", "threshold": 0.9,
+                             "examples": ["keep it short", "be concise"]}],
+            "complexity": [{"name": "reasoning", "threshold": 0.9,
+                            "hard": {"candidates": [
+                                "prove this theorem step by step"]},
+                            "easy": {"candidates": ["what time is it"]},
+                            "composer": {"operator": "OR", "conditions": [
+                                {"type": "embedding",
+                                 "name": "kube_support"}]}}],
+        },
+        "decisions": [
+            {"name": "kube_route", "priority": 200,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "embedding", "name": "kube_support"}]},
+             "modelRefs": [{"model": "k8s-expert"}],
+             "plugins": [{"type": "semantic-cache", "configuration": {
+                 "enabled": True, "similarity_threshold": 0.99}}]},
+            {"name": "hard_route", "priority": 150,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "complexity", "name": "reasoning:hard"}]},
+             "modelRefs": [{"model": "reasoner"}]},
+            {"name": "terse_route", "priority": 100,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "preference", "name": "terse"}]},
+             "modelRefs": [{"model": "small"}],
+             "plugins": [{"type": "semantic-cache",
+                          "configuration": {"enabled": False}}]},
+            {"name": "any_complexity", "priority": 50,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "complexity", "name": "reasoning"}]},
+             "modelRefs": [{"model": "mid"}],
+             "plugins": [{"type": "semantic-cache"}]},
+        ],
+    },
+}
+
+EMBED_PROMPTS = [
+    "how do I deploy on kubernetes",
+    "my kubernetes pod keeps crashing",
+    "prove this theorem step by step",
+    "what time is it",
+    "keep it short",
+    "completely unrelated banana words",
+    " ".join(f"word{i}" for i in range(60)),
+]
+
+
+@pytest.fixture(scope="module")
+def embed_engines():
+    jeng = jtesting.make_embedding_engine(seed=21)
+    cfg = load_config(EMBED_CONFIG)
+    teng = ttesting.make_embedding_engine(
+        device="cpu", engine_cfg=cfg.engine,
+        flax_params={n: t.params for n, t in jeng._tasks.items()})
+    yield jeng, teng
+    jeng.shutdown()
+    teng.shutdown()
+
+
+class TestEmbeddingFamiliesParity:
+    def test_same_decisions_as_jax(self, embed_engines):
+        jeng, teng = embed_engines
+        jr = JaxRouter(JaxRouterConfig.from_dict(EMBED_CONFIG), engine=jeng)
+        tr = Router(load_config(EMBED_CONFIG), engine=teng)
+        try:
+            families, decisions = set(), set()
+            for text in EMBED_PROMPTS:
+                want = jr.route(_body(text))
+                got = tr.route(_body(text))
+                assert got.kind == want.kind == "route"
+                assert (got.decision is None) == (want.decision is None)
+                if want.decision is not None:
+                    assert got.decision.decision.name == \
+                        want.decision.decision.name
+                    decisions.add(got.decision.decision.name)
+                    assert abs(got.decision.confidence
+                               - want.decision.confidence) <= 1e-4
+                assert got.model == want.model
+                assert sorted(got.signals.all_matched_rules()) == \
+                    sorted(want.signals.all_matched_rules())
+                for key, conf in want.signals.confidences.items():
+                    assert abs(got.signals.confidences[key] - conf) <= 1e-4
+                for fam in ("embedding", "preference", "complexity"):
+                    assert got.report.results[fam].error is None
+                families |= set(got.signals.matches)
+            assert families == {"embedding", "preference", "complexity"}
+            assert len(decisions) >= 3
+        finally:
+            jr.shutdown()
+            tr.shutdown()
+
+    def test_cache_uses_the_configured_embedding_task(self, embed_engines):
+        _, teng = embed_engines
+        tr = Router(load_config(EMBED_CONFIG), engine=teng)
+        cfg = load_config(dict(EMBED_CONFIG, semantic_cache=dict(
+            EMBED_CONFIG["semantic_cache"], embedding_model="ghost")))
+        ghost = Router(cfg, engine=teng)
+        off = Router(load_config(dict(EMBED_CONFIG, semantic_cache={})),
+                     engine=teng)
+        try:
+            assert tr.cache is not None and tr.cache.use_hnsw
+            assert ghost.cache is None and off.cache is None
+        finally:
+            for r in (tr, ghost, off):
+                r.shutdown()
+
+    def test_route_and_response_path(self, embed_engines):
+        """A cache-plugin decision misses, the response path writes, the
+        repeat hits; a decision with the plugin off never reads or
+        writes."""
+        _, teng = embed_engines
+        tr = Router(load_config(EMBED_CONFIG), engine=teng)
+        try:
+            first = tr.route(_body(EMBED_PROMPTS[0]))
+            assert first.kind == "route"
+            assert first.decision.decision.name == "kube_route"
+            tr.process_response(first, {"choices": [
+                {"message": {"role": "assistant", "content": "use kubectl"}}]})
+            hit = tr.route(_body(EMBED_PROMPTS[0]))
+            assert hit.kind == "cache_hit"
+            assert hit.headers["x-vsr-cache-hit"] == "true"
+            assert hit.headers["x-vsr-selected-decision"] == "kube_route"
+            assert hit.model == "k8s-expert"
+            assert hit.response_body["choices"][0]["message"]["content"] \
+                == "use kubectl"
+            terse = tr.route(_body("keep it short"))
+            assert terse.decision.decision.name == "terse_route"
+            tr.process_response(terse, {"choices": [
+                {"message": {"content": "ok"}}]})
+            assert tr.route(_body("keep it short")).kind == "route"
+            assert tr.cache.stats().entries == 1
+        finally:
+            tr.shutdown()
+
+
+class TestHttpCache:
+    def test_repeat_is_a_cache_hit_that_never_reaches_the_backend(
+            self, embed_engines):
+        _, teng = embed_engines
+        tr = Router(load_config(EMBED_CONFIG), engine=teng)
+        backend = MockVLLMServer().start()
+        server = RouterServer(tr, backend.url).start()
+        try:
+            status, h1, data1 = _post(server.url, _body(EMBED_PROMPTS[1]))
+            h1 = {k.lower(): v for k, v in h1.items()}
+            assert status == 200 and "x-vsr-cache-hit" not in h1
+            assert h1["x-vsr-selected-decision"] == "kube_route"
+            assert backend.hits == 1
+            status, h2, data2 = _post(server.url, _body(EMBED_PROMPTS[1]))
+            h2 = {k.lower(): v for k, v in h2.items()}
+            assert status == 200
+            assert h2["x-vsr-cache-hit"] == "true"
+            assert h2["x-vsr-selected-decision"] == "kube_route"
+            assert backend.hits == 1
+            first, again = json.loads(data1), json.loads(data2)
+            assert again["choices"][0]["message"]["content"] == \
+                first["choices"][0]["message"]["content"]
+            assert again["model"] == first["model"] == "k8s-expert"
+            # a decision without the plugin still goes to the backend
+            _post(server.url, _body("keep it short"))
+            _post(server.url, _body("keep it short"))
+            assert backend.hits == 3
+        finally:
+            server.stop()
+            backend.stop()
+            tr.shutdown()
