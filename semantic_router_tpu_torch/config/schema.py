@@ -3,17 +3,49 @@
 The port's own copy of ``semantic_router_tpu.config.schema``: the same YAML
 surface (``routing:`` with ``modelCards``/``signals``/``decisions``, and an
 ``engine:`` block), parsed into dataclasses for the parts the port's main
-path reads — the learned signal families (domain, jailbreak, pii,
-fact_check, user_feedback, modality), the embedding-scored families
-(embedding, preference, complexity), decisions with their rule trees,
-model refs and plugins, model cards, the semantic cache, and the
-inference-engine knobs.  Other blocks of a config file are not read.
+path reads — every signal family (the heuristic ones: keyword, context,
+structure, conversation, language, authz role bindings, event, reask;
+the learned ones: domain, jailbreak, pii, fact_check, user_feedback,
+modality; the embedding-scored ones: embedding, preference, complexity,
+kb with its knowledge bases), projections, decisions with their rule
+trees, model refs and plugins, model cards, the semantic cache, the
+``authz`` block, and the inference-engine knobs (``engine.quant``
+included).  Other blocks of a config file are not read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+SIGNAL_KEYWORD = "keyword"
+SIGNAL_EMBEDDING = "embedding"
+SIGNAL_DOMAIN = "domain"
+SIGNAL_FACT_CHECK = "fact_check"
+SIGNAL_USER_FEEDBACK = "user_feedback"
+SIGNAL_REASK = "reask"
+SIGNAL_PREFERENCE = "preference"
+SIGNAL_LANGUAGE = "language"
+SIGNAL_CONTEXT = "context"
+SIGNAL_STRUCTURE = "structure"
+SIGNAL_COMPLEXITY = "complexity"
+SIGNAL_MODALITY = "modality"
+SIGNAL_AUTHZ = "authz"
+SIGNAL_JAILBREAK = "jailbreak"
+SIGNAL_PII = "pii"
+SIGNAL_KB = "kb"
+SIGNAL_CONVERSATION = "conversation"
+SIGNAL_EVENT = "event"
+SIGNAL_PROJECTION = "projection"
+
+ALL_SIGNAL_TYPES = (
+    SIGNAL_KEYWORD, SIGNAL_EMBEDDING, SIGNAL_DOMAIN, SIGNAL_FACT_CHECK,
+    SIGNAL_USER_FEEDBACK, SIGNAL_REASK, SIGNAL_PREFERENCE, SIGNAL_LANGUAGE,
+    SIGNAL_CONTEXT, SIGNAL_STRUCTURE, SIGNAL_COMPLEXITY, SIGNAL_MODALITY,
+    SIGNAL_AUTHZ, SIGNAL_JAILBREAK, SIGNAL_PII, SIGNAL_KB,
+    SIGNAL_CONVERSATION, SIGNAL_EVENT, SIGNAL_PROJECTION,
+)
+
 
 def _take(d: Dict[str, Any], *names: str, default: Any = None) -> Any:
     for n in names:
@@ -25,6 +57,257 @@ def _take(d: Dict[str, Any], *names: str, default: Any = None) -> Any:
 # --------------------------------------------------------------------------
 # Signal rule configs
 # --------------------------------------------------------------------------
+
+
+@dataclass
+class KeywordRule:
+    """Keyword rule: exact substring, regex, fuzzy, BM25 or n-gram
+    matching of the keywords against the user text."""
+
+    name: str
+    keywords: List[str] = field(default_factory=list)
+    operator: str = "OR"  # OR | AND
+    method: str = "exact"  # exact | regex | fuzzy | bm25 | ngram
+    case_sensitive: bool = False
+    fuzzy_match: bool = False
+    fuzzy_threshold: float = 80.0  # 0-100 similarity percent
+    bm25_threshold: float = 0.1
+    ngram_threshold: float = 0.4
+    ngram_arity: int = 3
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "KeywordRule":
+        return cls(
+            name=d["name"],
+            keywords=list(d.get("keywords", [])),
+            operator=str(d.get("operator", "OR")).upper(),
+            method=d.get("method",
+                         "fuzzy" if d.get("fuzzy_match") else "exact"),
+            case_sensitive=bool(d.get("case_sensitive", False)),
+            fuzzy_match=bool(d.get("fuzzy_match", False)),
+            fuzzy_threshold=float(d.get("fuzzy_threshold", 80.0)),
+            bm25_threshold=float(d.get("bm25_threshold", 0.1)),
+            ngram_threshold=float(d.get("ngram_threshold", 0.4)),
+            ngram_arity=int(d.get("ngram_arity", 3)),
+        )
+
+
+@dataclass
+class ReaskRule:
+    """Repeated-user-turn dissatisfaction: the current user turn against
+    the previous ``lookback_turns`` user turns."""
+
+    name: str
+    threshold: float = 0.8
+    lookback_turns: int = 1
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ReaskRule":
+        return cls(name=d["name"],
+                   threshold=float(d.get("threshold", 0.8)),
+                   lookback_turns=int(d.get("lookback_turns", 1)))
+
+
+_TOKEN_SUFFIX = {"k": 1024, "m": 1024 * 1024}
+
+
+def parse_token_count(v: Any) -> int:
+    """'32K' / '256K' / plain numbers → a token count."""
+    if v is None:
+        return 0
+    if isinstance(v, (int, float)):
+        return int(v)
+    s = str(v).strip().lower()
+    if not s:
+        return 0
+    if s[-1] in _TOKEN_SUFFIX:
+        return int(float(s[:-1]) * _TOKEN_SUFFIX[s[-1]])
+    return int(float(s))
+
+
+@dataclass
+class ContextRule:
+    """Token-length band (max_tokens 0 = unbounded)."""
+
+    name: str
+    min_tokens: int = 0
+    max_tokens: int = 0
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ContextRule":
+        return cls(name=d["name"],
+                   min_tokens=parse_token_count(d.get("min_tokens")),
+                   max_tokens=parse_token_count(d.get("max_tokens")))
+
+
+@dataclass
+class FeatureSource:
+    """Where a structure or conversation feature is computed from."""
+
+    # regex | keyword_set | sequence | message | tool_definition |
+    # active_tool_loop
+    type: str = "regex"
+    pattern: str = ""
+    keywords: List[str] = field(default_factory=list)
+    sequences: List[List[str]] = field(default_factory=list)
+    case_sensitive: bool = False
+    role: str = ""  # message source: user | assistant | ... | non_user
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FeatureSource":
+        return cls(
+            type=d.get("type", "regex"),
+            pattern=d.get("pattern", ""),
+            keywords=list(d.get("keywords", [])),
+            sequences=[list(s) for s in d.get("sequences", [])],
+            case_sensitive=bool(d.get("case_sensitive", False)),
+            role=d.get("role", ""),
+        )
+
+
+@dataclass
+class Predicate:
+    """Numeric comparison bundle: any subset of gt/gte/lt/lte/eq."""
+
+    gt: Optional[float] = None
+    gte: Optional[float] = None
+    lt: Optional[float] = None
+    lte: Optional[float] = None
+    eq: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "Predicate":
+        d = d or {}
+
+        def fv(k: str) -> Optional[float]:
+            return float(d[k]) if d.get(k) is not None else None
+
+        return cls(gt=fv("gt"), gte=fv("gte"), lt=fv("lt"), lte=fv("lte"),
+                   eq=fv("eq"))
+
+    def check(self, value: float) -> bool:
+        if self.gt is not None and not value > self.gt:
+            return False
+        if self.gte is not None and not value >= self.gte:
+            return False
+        if self.lt is not None and not value < self.lt:
+            return False
+        if self.lte is not None and not value <= self.lte:
+            return False
+        if self.eq is not None and value != self.eq:
+            return False
+        return True
+
+
+@dataclass
+class StructureRule:
+    """Prompt-structure feature (count | exists | sequence | density over
+    a regex, keyword-set or sequence source) held to a predicate.  The
+    conversation family reads the same shape over message sources."""
+
+    name: str
+    feature_type: str = "count"
+    source: FeatureSource = field(default_factory=FeatureSource)
+    predicate: Predicate = field(default_factory=Predicate)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "StructureRule":
+        feat = d.get("feature", {}) or {}
+        return cls(
+            name=d["name"],
+            feature_type=feat.get("type", "count"),
+            source=FeatureSource.from_dict(feat.get("source", {}) or {}),
+            predicate=Predicate.from_dict(d.get("predicate")),
+        )
+
+
+ConversationRule = StructureRule
+
+
+@dataclass
+class AuthzRule:
+    """Role binding: identity groups and users (``subjects`` of
+    {kind, name}) mapped to a named role signal."""
+
+    name: str
+    role: str = ""
+    subjects: List[Dict[str, str]] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AuthzRule":
+        return cls(name=d["name"], role=d.get("role", d["name"]),
+                   subjects=[dict(s) for s in d.get("subjects", [])])
+
+
+@dataclass
+class KBRule:
+    """Knowledge-base rule: the query's best label or group score in one
+    knowledge base (``target`` {kind: label | group, value}) against the
+    threshold."""
+
+    name: str
+    kb: str = ""
+    target: Dict[str, str] = field(default_factory=dict)
+    match: str = "best"  # best | any
+    # None = the evaluator's default; an explicit 0.0 is unconditional
+    threshold: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "KBRule":
+        return cls(
+            name=d["name"],
+            kb=d.get("kb", ""),
+            target=dict(d.get("target", {}) or {}),
+            match=d.get("match", "best"),
+            threshold=None if d.get("threshold") is None
+            else float(d["threshold"]),
+        )
+
+
+@dataclass
+class KnowledgeBaseDef:
+    """Exemplar knowledge base: labels with exemplar texts, label groups,
+    and metrics ({name, type: group_margin, positive_group,
+    negative_group}) that feed ``kb_metric`` projection inputs."""
+
+    name: str
+    labels: Dict[str, List[str]] = field(default_factory=dict)
+    groups: Dict[str, List[str]] = field(default_factory=dict)
+    metrics: List[Dict[str, str]] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "KnowledgeBaseDef":
+        labels = {}
+        for label, spec in (d.get("labels", {}) or {}).items():
+            if isinstance(spec, dict):
+                labels[label] = list(spec.get("exemplars", []) or [])
+            else:
+                labels[label] = list(spec or [])
+        return cls(
+            name=d["name"],
+            labels=labels,
+            groups={g: list(v or []) for g, v in
+                    (d.get("groups", {}) or {}).items()},
+            metrics=[dict(m) for m in (d.get("metrics", []) or [])],
+        )
+
+
+@dataclass
+class EventRule:
+    """Request event metadata (type, severity, action code) against the
+    rule's allowed values (an empty list allows any)."""
+
+    name: str
+    event_types: List[str] = field(default_factory=list)
+    severities: List[str] = field(default_factory=list)
+    action_codes: List[str] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EventRule":
+        return cls(name=d["name"],
+                   event_types=list(d.get("event_types", [])),
+                   severities=list(d.get("severities", [])),
+                   action_codes=list(d.get("action_codes", [])))
 
 
 @dataclass
@@ -170,39 +453,164 @@ class PIIRule:
 
 @dataclass
 class SignalsConfig:
-    """The learned and embedding-scored signal families the port
-    evaluates."""
+    """Every configured signal rule, by family."""
 
+    keywords: List[KeywordRule] = field(default_factory=list)
     embeddings: List[EmbeddingRule] = field(default_factory=list)
     domains: List[DomainRule] = field(default_factory=list)
     fact_check: List[NamedRule] = field(default_factory=list)
     user_feedbacks: List[NamedRule] = field(default_factory=list)
+    reasks: List[ReaskRule] = field(default_factory=list)
     preferences: List[PreferenceRule] = field(default_factory=list)
+    language: List[NamedRule] = field(default_factory=list)
+    context: List[ContextRule] = field(default_factory=list)
+    structure: List[StructureRule] = field(default_factory=list)
     complexity: List[ComplexityRule] = field(default_factory=list)
     modality: List[NamedRule] = field(default_factory=list)
+    role_bindings: List[AuthzRule] = field(default_factory=list)
     jailbreak: List[JailbreakRule] = field(default_factory=list)
     pii: List[PIIRule] = field(default_factory=list)
+    kb: List[KBRule] = field(default_factory=list)
+    conversation: List[ConversationRule] = field(default_factory=list)
+    events: List[EventRule] = field(default_factory=list)
+
+    # signal type → (attribute, rule class)
+    FAMILIES = {
+        SIGNAL_KEYWORD: ("keywords", KeywordRule),
+        SIGNAL_EMBEDDING: ("embeddings", EmbeddingRule),
+        SIGNAL_DOMAIN: ("domains", DomainRule),
+        SIGNAL_FACT_CHECK: ("fact_check", NamedRule),
+        SIGNAL_USER_FEEDBACK: ("user_feedbacks", NamedRule),
+        SIGNAL_REASK: ("reasks", ReaskRule),
+        SIGNAL_PREFERENCE: ("preferences", PreferenceRule),
+        SIGNAL_LANGUAGE: ("language", NamedRule),
+        SIGNAL_CONTEXT: ("context", ContextRule),
+        SIGNAL_STRUCTURE: ("structure", StructureRule),
+        SIGNAL_COMPLEXITY: ("complexity", ComplexityRule),
+        SIGNAL_MODALITY: ("modality", NamedRule),
+        SIGNAL_AUTHZ: ("role_bindings", AuthzRule),
+        SIGNAL_JAILBREAK: ("jailbreak", JailbreakRule),
+        SIGNAL_PII: ("pii", PIIRule),
+        SIGNAL_KB: ("kb", KBRule),
+        SIGNAL_CONVERSATION: ("conversation", ConversationRule),
+        SIGNAL_EVENT: ("events", EventRule),
+    }
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "SignalsConfig":
         d = d or {}
+        return cls(**{attr: [rule.from_dict(x) for x in d.get(attr, [])]
+                      for attr, rule in cls.FAMILIES.values()})
+
+    def rule_names(self, signal_type: str) -> List[str]:
+        """Every configured rule name of one signal family."""
+        attr = self.FAMILIES.get(signal_type, ("", None))[0]
+        return [r.name for r in getattr(self, attr, [])] if attr else []
+
+
+# --------------------------------------------------------------------------
+# Projections
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class ProjectionPartition:
+    """Mutually interacting signal rules normalized into a distribution
+    (temperature softmax over member confidences)."""
+
+    name: str
+    members: List[str] = field(default_factory=list)
+    semantics: str = "exclusive"  # exclusive | overlapping
+    temperature: float = 1.0
+    default: str = ""
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ProjectionPartition":
+        return cls(name=d["name"], members=list(d.get("members", [])),
+                   semantics=d.get("semantics", "exclusive"),
+                   temperature=float(d.get("temperature", 1.0)),
+                   default=d.get("default", ""))
+
+
+@dataclass
+class ScoreInput:
+    type: str = ""
+    name: str = ""
+    weight: float = 0.0
+    value_source: str = "match"  # match | confidence | score
+    match: float = 1.0
+    miss: float = 0.0
+    kb: str = ""
+    metric: str = ""
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ScoreInput":
+        return cls(type=d.get("type", ""), name=d.get("name", ""),
+                   weight=float(d.get("weight", 0.0)),
+                   value_source=d.get("value_source", "match"),
+                   match=float(d.get("match", 1.0)),
+                   miss=float(d.get("miss", 0.0)),
+                   kb=d.get("kb", ""), metric=d.get("metric", ""))
+
+
+@dataclass
+class ProjectionScore:
+    name: str
+    method: str = "weighted_sum"
+    inputs: List[ScoreInput] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ProjectionScore":
+        return cls(name=d["name"], method=d.get("method", "weighted_sum"),
+                   inputs=[ScoreInput.from_dict(x)
+                           for x in d.get("inputs", [])])
+
+
+@dataclass
+class MappingOutput:
+    name: str
+    predicate: Predicate = field(default_factory=Predicate)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MappingOutput":
+        return cls(name=d["name"], predicate=Predicate.from_dict(d))
+
+
+@dataclass
+class ProjectionMapping:
+    """Score → named band, optionally calibrated into a confidence."""
+
+    name: str
+    source: str = ""
+    method: str = "threshold_bands"
+    calibration: Dict[str, Any] = field(default_factory=dict)
+    outputs: List[MappingOutput] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ProjectionMapping":
+        return cls(name=d["name"], source=d.get("source", ""),
+                   method=d.get("method", "threshold_bands"),
+                   calibration=dict(d.get("calibration", {}) or {}),
+                   outputs=[MappingOutput.from_dict(x)
+                            for x in d.get("outputs", [])])
+
+
+@dataclass
+class ProjectionsConfig:
+    partitions: List[ProjectionPartition] = field(default_factory=list)
+    scores: List[ProjectionScore] = field(default_factory=list)
+    mappings: List[ProjectionMapping] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ProjectionsConfig":
+        d = d or {}
         return cls(
-            embeddings=[EmbeddingRule.from_dict(x)
-                        for x in d.get("embeddings", [])],
-            preferences=[PreferenceRule.from_dict(x)
-                         for x in d.get("preferences", [])],
-            complexity=[ComplexityRule.from_dict(x)
-                        for x in d.get("complexity", [])],
-            domains=[DomainRule.from_dict(x) for x in d.get("domains", [])],
-            fact_check=[NamedRule.from_dict(x)
-                        for x in d.get("fact_check", [])],
-            user_feedbacks=[NamedRule.from_dict(x)
-                            for x in d.get("user_feedbacks", [])],
-            modality=[NamedRule.from_dict(x)
-                      for x in d.get("modality", [])],
-            jailbreak=[JailbreakRule.from_dict(x)
-                       for x in d.get("jailbreak", [])],
-            pii=[PIIRule.from_dict(x) for x in d.get("pii", [])],
+            partitions=[ProjectionPartition.from_dict(x)
+                        for x in d.get("partitions", [])],
+            scores=[ProjectionScore.from_dict(x)
+                    for x in d.get("scores", [])],
+            mappings=[ProjectionMapping.from_dict(x)
+                      for x in d.get("mappings", [])],
         )
 
 
@@ -249,6 +657,7 @@ class ModelRef:
     """Candidate model for a decision, with reasoning controls."""
 
     model: str
+    weight: float = 1.0
     use_reasoning: bool = False
     reasoning_effort: str = ""
     lora_name: str = ""
@@ -257,6 +666,7 @@ class ModelRef:
     def from_dict(cls, d: Dict[str, Any]) -> "ModelRef":
         return cls(
             model=d["model"],
+            weight=float(d.get("weight", 1.0)),
             use_reasoning=bool(d.get("use_reasoning", False)),
             reasoning_effort=d.get("reasoning_effort", ""),
             lora_name=d.get("lora_name", ""),
@@ -284,13 +694,14 @@ class PluginConfig:
 @dataclass
 class Decision:
     """A routing decision: its rule tree, its priority, its candidate
-    models (the port selects statically: the first modelRef) and its
-    plugins."""
+    models (the port selects the first modelRef, or for a looper
+    ``algorithm`` the highest-weight one) and its plugins."""
 
     name: str
     rules: RuleNode = field(default_factory=RuleNode)
     priority: int = 0
     model_refs: List[ModelRef] = field(default_factory=list)
+    algorithm: Dict[str, Any] = field(default_factory=dict)  # {type: ...}
     plugins: List[PluginConfig] = field(default_factory=list)
 
     @classmethod
@@ -303,6 +714,7 @@ class Decision:
                 ModelRef.from_dict(m)
                 for m in _take(d, "modelRefs", "model_refs", default=[])
             ],
+            algorithm=dict(d.get("algorithm", {}) or {}),
             plugins=[PluginConfig.from_dict(p) for p in d.get("plugins", [])],
         )
 
@@ -378,6 +790,9 @@ class InferenceEngineConfig:
     dispatch_workers: int = 4
     # tuned-kernel toggles, normalized by engine.kernels.normalize_kernels
     kernels: Dict[str, Any] = field(default_factory=dict)
+    # quantized trunk serving (mode off | bf16 | int8, group selector,
+    # parity calibration), normalized by engine.kernels.normalize_quant
+    quant: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "InferenceEngineConfig":
@@ -390,16 +805,24 @@ class InferenceEngineConfig:
             matryoshka_dims=list(d.get("matryoshka_dims", [])),
             dispatch_workers=int(d.get("dispatch_workers", 4)),
             kernels=dict(d.get("kernels", {}) or {}),
+            quant=dict(d.get("quant", {}) or {}),
         )
         if d.get("seq_len_buckets"):
             out.seq_len_buckets = [int(x) for x in d["seq_len_buckets"]]
         return out
+
+    def quant_config(self) -> Dict[str, Any]:
+        """The normalized ``engine.quant`` block."""
+        from ..engine.kernels import normalize_quant
+
+        return normalize_quant(self.quant)
 
 
 @dataclass
 class RouterConfig:
     model_cards: List[ModelCard] = field(default_factory=list)
     signals: SignalsConfig = field(default_factory=SignalsConfig)
+    projections: ProjectionsConfig = field(default_factory=ProjectionsConfig)
     decisions: List[Decision] = field(default_factory=list)
     strategy: str = "priority"  # priority | confidence
     default_model: str = ""
@@ -409,6 +832,9 @@ class RouterConfig:
         default_factory=SemanticCacheConfig)
     # task name -> {checkpoint, tokenizer, kind, labels, max_seq_len}
     classifier_models: Dict[str, Any] = field(default_factory=dict)
+    # {fail_open: bool}: whether an authz evaluation error passes
+    authz: Dict[str, Any] = field(default_factory=dict)
+    knowledge_bases: List[KnowledgeBaseDef] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "RouterConfig":
@@ -419,6 +845,8 @@ class RouterConfig:
                          routing.get("modelCards", d.get("model_cards", []))],
             signals=SignalsConfig.from_dict(
                 routing.get("signals", d.get("signals", {}))),
+            projections=ProjectionsConfig.from_dict(
+                routing.get("projections", d.get("projections", {}))),
             decisions=[Decision.from_dict(x) for x in
                        routing.get("decisions", d.get("decisions", []))],
             strategy=routing.get("strategy", d.get("strategy", "priority")),
@@ -429,13 +857,30 @@ class RouterConfig:
             semantic_cache=SemanticCacheConfig.from_dict(
                 d.get("semantic_cache", {})),
             classifier_models=dict(d.get("classifier_models", {}) or {}),
+            authz=dict(d.get("authz", {}) or {}),
+            knowledge_bases=[
+                KnowledgeBaseDef.from_dict(k) for k in
+                d.get("knowledge_bases",
+                      routing.get("knowledge_bases", [])) or []],
         )
 
     def used_signal_types(self) -> List[str]:
-        """Signal families referenced by decision rules or complexity
-        composers — the dispatcher only evaluates these."""
+        """Signal families referenced by decision rules, complexity
+        composers or projections — the dispatcher only evaluates these."""
         leaves = [leaf for dec in self.decisions for leaf in dec.rules.leaves()]
         leaves += [leaf for rule in self.signals.complexity
                    if rule.composer is not None
                    for leaf in rule.composer.leaves()]
-        return sorted({leaf.signal_type.lower() for leaf in leaves} - {""})
+        used = {leaf.signal_type.lower() for leaf in leaves}
+        for score in self.projections.scores:
+            for inp in score.inputs:
+                # kb_metric values come from the kb family
+                used.add(SIGNAL_KB if inp.type == "kb_metric"
+                         else inp.type.lower())
+        # partition members are rule names of any family: the families
+        # that define them are evaluated too
+        members = {m for p in self.projections.partitions for m in p.members}
+        if members:
+            used.update(t for t in ALL_SIGNAL_TYPES
+                        if members & set(self.signals.rule_names(t)))
+        return sorted(used - {""})

@@ -3,7 +3,8 @@
 Evaluates each configured decision's AND/OR/NOT rule tree against the
 matched signal rules, then picks the best match by strategy ("priority" or
 "confidence").  Leaf matching by "type:name" (a bare complexity rule name
-matches any level the family reported); confidence aggregation AND=min,
+matches any level the family reported; ``projection`` leaves match the
+outputs the projections added); confidence aggregation AND=min,
 OR=max over matched children, NOT=1.0 when no child matches.
 """
 
@@ -59,6 +60,8 @@ class DecisionResult:
     decision: Decision
     confidence: float
     matched_rules: List[str]
+    # the keywords behind the winner's keyword leaves
+    matched_keywords: List[str] = field(default_factory=list)
 
 
 def eval_rule_node(node: RuleNode, signals: SignalMatches
@@ -111,7 +114,14 @@ class DecisionEngine:
 
     def evaluate(self, signals: SignalMatches) -> Optional[DecisionResult]:
         results = self.evaluate_all(signals)
-        return results[0] if results else None
+        if not results:
+            return None
+        best = results[0]
+        kw_detail = signals.details.get("keyword", {})
+        best.matched_keywords = [
+            kw for rule in best.matched_rules if rule.startswith("keyword:")
+            for kw in kw_detail.get(rule.split(":", 1)[1], [])]
+        return best
 
     def evaluate_all(self, signals: SignalMatches) -> List[DecisionResult]:
         """All matching decisions, best first."""

@@ -7,10 +7,12 @@ from .classify import (
     TokenClassResult,
     TrunkGroup,
 )
-from .kernels import normalize_kernels
+from .kernels import QUANT_MODES, normalize_kernels, normalize_quant, \
+    quant_selects
 
 __all__ = [
     "BatchItem",
+    "QUANT_MODES",
     "ClassResult",
     "DynamicBatcher",
     "EntitySpan",
@@ -19,6 +21,8 @@ __all__ = [
     "TokenClassResult",
     "TrunkGroup",
     "normalize_kernels",
+    "normalize_quant",
     "pick_bucket",
     "pow2_batch",
+    "quant_selects",
 ]

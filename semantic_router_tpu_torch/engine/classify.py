@@ -19,13 +19,22 @@ The port of the unpacked fused path and the embedding path of
   ``engine.kernels.bgmv`` swaps a wide sequence bank (at least
   ``min_tasks`` heads) for the per-(row, task) gather of the BGMV kernel,
   so each row computes only the heads its items asked for;
+- ``engine.quant`` (mode off | bf16 | int8, a group selector) gives each
+  trunk group a serving trunk (models.quant.build_quant_trunk): ``bf16``
+  computes the trunk in bfloat16 over the float32 parameters (flash
+  attention takes bf16), ``int8`` also swaps Wqkv / Wo / Wi for int8
+  per-channel weights quantized once, when the mode is applied; the
+  pooled features (or every token's) enter the float32 head bank, as
+  the reference's dtype promotion has it; ``off`` serves the registered
+  trunk untouched;
 - embedding tasks (``MmBertEmbeddingModel``) are never fused: each batches
   on its own under the key (task, bucket, exit_layer, output_dim), so the
   2D-Matryoshka variants never share a forward; rows pad to a power of
-  two, one forward returns host float32 unit rows.
+  two, one forward returns host float32 unit rows; they stay float32
+  under any ``engine.quant``.
 
-Packing, quantization, meshes and the observability hooks of the JAX
-engine are later slices (ROADMAP.md).
+Packing, meshes and the observability hooks of the JAX engine are later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from torch import nn
 
 from ..config.schema import InferenceEngineConfig
 from ..models.embeddings import MmBertEmbeddingModel
+from ..models.quant import build_quant_trunk
 from ..models.lora import (
     apply_head_bank,
     apply_head_bank_bgmv,
@@ -53,7 +63,7 @@ from ..ops.attention import cls_pool, mean_pool
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tokenization import Encoding, Tokenizer, decode_entity_spans
 from .batcher import BatchItem, DynamicBatcher, pick_bucket, pow2_batch
-from .kernels import normalize_kernels
+from .kernels import normalize_kernels, normalize_quant, quant_selects
 
 # batch-group key prefix for fused trunk groups
 TRUNK_KEY = "__trunk__"
@@ -135,9 +145,10 @@ class TrunkGroup:
     pad_id: int
     members: List[str] = field(default_factory=list)
     entries: List[dict] = field(default_factory=list)
-    # atomic demux snapshot {bank, tok_bank, row_of, widths, tok_row_of,
-    # tok_widths}: a runner reads ONE consistent view, so a concurrent
-    # re-registration never pairs new row indices with old logits
+    # atomic demux snapshot {trunk, quant, bank, tok_bank, row_of, widths,
+    # tok_row_of, tok_widths}: a runner reads ONE consistent view, so a
+    # concurrent re-registration or quant flip never pairs new row
+    # indices (or a new serving trunk) with old ones
     demux: Any = None
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, flavor: str,
@@ -147,14 +158,16 @@ class TrunkGroup:
         """One trunk forward feeding the head banks the flavor needs:
         ``seq`` → [B, T, L] logits, ``tok`` → [B, S, T, L], ``both`` →
         both.  With (pair_rows, pair_tasks) the sequence bank runs per
-        pair (BGMV) and ``seq`` is [P, L].  Returns (seq_logits or None,
-        tok_logits or None)."""
+        pair (BGMV) and ``seq`` is [P, L].  The serving trunk (and its
+        compute dtype) is the snapshot's; the heads take float32.  Returns
+        (seq_logits or None, tok_logits or None)."""
         cfg = self.config
-        hidden = self.trunk(ids, mask)
+        hidden = demux["trunk"](ids, mask)
         seq = tok = None
         if flavor in ("seq", "both"):
             pooled = mean_pool(hidden, mask) \
                 if cfg.classifier_pooling == "mean" else cls_pool(hidden)
+            pooled = pooled.float()
             if pair_rows is not None:
                 seq = apply_head_bank_bgmv(
                     demux["bank"], pooled, pair_rows, pair_tasks,
@@ -165,7 +178,8 @@ class TrunkGroup:
                                       cfg.norm_eps, epilogue=epilogue)
         if flavor in ("tok", "both"):
             B, S, H = hidden.shape
-            flat = apply_head_bank(demux["tok_bank"], hidden.reshape(B * S, H),
+            flat = apply_head_bank(demux["tok_bank"],
+                                   hidden.reshape(B * S, H).float(),
                                    cfg.classifier_activation, cfg.norm_eps,
                                    epilogue=epilogue)
             tok = flat.reshape(B, S, flat.shape[-2], flat.shape[-1])
@@ -185,6 +199,7 @@ class InferenceEngine:
         self._tasks: Dict[str, _Task] = {}
         self._lock = threading.Lock()
         self._kernels = normalize_kernels(self.cfg.kernels)
+        self._quant = normalize_quant(self.cfg.quant)
         self._kernel_rebuilds = 0
         self._trunk_groups: Dict[tuple, TrunkGroup] = {}
         self._task_group: Dict[str, TrunkGroup] = {}
@@ -286,9 +301,19 @@ class InferenceEngine:
             self._rebuild_bank(g)
             self._task_group[name] = g
 
+    def _serving_trunk(self, g: TrunkGroup) -> tuple:
+        """(quant mode, serving trunk) the group gets under the live quant
+        block: the current one when its mode is unchanged, else a new
+        one (caller holds self._lock)."""
+        mode = quant_selects(self._quant, g.gid, g.members)
+        if g.demux is not None and g.demux["quant"] == mode:
+            return mode, g.demux["trunk"]
+        return mode, build_quant_trunk(g.trunk, mode)
+
     def _rebuild_bank(self, g: TrunkGroup) -> None:
         """Re-stack the sequence and token head banks after a membership
-        change and publish them as one demux snapshot."""
+        change and publish them, with the group's serving trunk, as one
+        demux snapshot."""
         seq_idx = [i for i, e in enumerate(g.entries)
                    if e["kind"] == "sequence"]
         tok_idx = [i for i, e in enumerate(g.entries) if e["kind"] == "token"]
@@ -302,7 +327,10 @@ class InferenceEngine:
         def width(i: int) -> int:
             return int(np.shape(g.entries[i]["cls_kernel"])[1])
 
+        mode, trunk = self._serving_trunk(g)
         g.demux = {
+            "trunk": trunk,
+            "quant": mode,
             "bank": stack(seq_idx),
             "tok_bank": stack(tok_idx),
             "row_of": {g.members[i]: r for r, i in enumerate(seq_idx)},
@@ -323,21 +351,42 @@ class InferenceEngine:
                 self._kernel_rebuilds += 1
             self._kernels = kk
 
+    def configure_quant(self, knobs: Optional[Dict[str, Any]]) -> None:
+        """Apply an ``engine.quant`` block (boot or reload): each trunk
+        group whose mode changes gets a new serving trunk (the int8
+        weights quantize here, once) in a new demux snapshot; the others
+        keep theirs.  In-flight batches finish on the snapshot they
+        read."""
+        qk = normalize_quant(knobs)
+        with self._lock:
+            self._quant = qk
+            for g in list(self._groups_by_gid.values()):
+                mode = quant_selects(qk, g.gid, g.members)
+                if mode != g.demux["quant"]:
+                    g.demux = dict(g.demux, quant=mode,
+                                   trunk=build_quant_trunk(g.trunk, mode))
+                    self._kernel_rebuilds += 1
+
     def _serving_meta(self, demux: dict) -> Dict[str, Any]:
-        """The kernel-knob snapshot one batch serves under, for the group
-        whose demux snapshot it read: epilogue fusion, and whether the
-        BGMV gather engages (sequence bank at least min_tasks heads
-        wide)."""
+        """The knob snapshot one batch serves under, for the group whose
+        demux snapshot it read: its quant mode, epilogue fusion, and
+        whether the BGMV gather engages (sequence bank at least
+        min_tasks heads wide)."""
         kk = self._kernels  # one read: a concurrent flip swaps the dict
-        return {"epilogue": bool(kk["epilogue"]["enabled"]),
+        return {"quant": demux["quant"],
+                "epilogue": bool(kk["epilogue"]["enabled"]),
                 "bgmv": bool(kk["bgmv"]["enabled"]
                              and len(demux["widths"])
                              >= kk["bgmv"]["min_tasks"])}
 
     def kernels_report(self) -> Dict[str, Any]:
-        """The live knob block, per-group serving meta, and how many knob
-        changes this engine applied."""
+        """The live knob blocks, per-group serving meta (the quant mode
+        included), and how many knob changes and serving-trunk rebuilds
+        this engine applied."""
         return {
+            "quant": {"mode": self._quant["mode"],
+                      "groups": list(self._quant["groups"]),
+                      "parity": dict(self._quant["parity"])},
             "kernels": {k: dict(v) for k, v in self._kernels.items()},
             "rebuilds": self._kernel_rebuilds,
             "groups": {g.gid: self._serving_meta(g.demux)
@@ -690,6 +739,7 @@ class InferenceEngine:
             self._steps.append({
                 "group": g.gid, "bucket": bucket, "flavor": flavor,
                 "rows": len(uniq), "padded_rows": padded_n,
+                "quant": meta["quant"],
                 "epilogue": meta["epilogue"], "bgmv": use_bgmv,
                 "pairs": len(pair_index),
                 "padded_pairs": len(pairs[0]) if pairs else 0,

@@ -19,6 +19,7 @@ from .modernbert import (
     ModernBertForTokenClassification,
     ModernBertModel,
 )
+from .quant import QuantDense, build_quant_trunk, quantize_trunk_params
 
 __all__ = [
     "LoRAConfig",
@@ -28,11 +29,14 @@ __all__ = [
     "ModernBertForTokenClassification",
     "ModernBertLoRAHeadClassifier",
     "ModernBertModel",
+    "QuantDense",
     "apply_head_bank",
     "apply_head_bank_bgmv",
+    "build_quant_trunk",
     "head_bank_entry",
     "load_safetensors",
     "params_from_flax",
+    "quantize_trunk_params",
     "read_safetensors",
     "stack_head_bank",
     "state_dict_from_hf",

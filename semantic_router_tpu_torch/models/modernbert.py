@@ -17,6 +17,15 @@ ModernBERT state dict loads 1:1.  Architecture:
 ``attention_impl``: ``dense`` (SDPA + biases), ``chunked`` (query-block
 streaming) or ``flash`` (the hand-written CUDA kernel on the GPU,
 ops.flash_attention).
+
+``dtype`` is the compute dtype, with Flax's semantics: parameters stay
+float32 and are cast per op (dense inputs, kernels and biases to
+``dtype``; the embedding lookup cast to ``dtype``), LayerNorm statistics
+and normalization run in float32 with the output cast to ``dtype``, RoPE
+rotates in float32 and attention's softmax is float32 whatever the
+input.  ``dense_factory(in_features, out_features, bias)`` builds every
+trunk projection (Wqkv, Wo, Wi): the seam the int8 serving trunk uses
+(models.quant).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (
@@ -66,6 +76,7 @@ class ModernBertConfig:
     rope_scaling: Optional[Dict[str, Any]] = None  # {"rope_type": "yarn", ...}
     attention_impl: str = "dense"  # dense | chunked | flash
     chunk_block_size: int = 512
+    dtype: torch.dtype = torch.float32  # compute dtype
 
     @property
     def head_dim(self) -> int:
@@ -117,30 +128,66 @@ def _yarn_dict(cfg: ModernBertConfig) -> Optional[dict]:
     return None
 
 
-def _norm(cfg: ModernBertConfig) -> nn.LayerNorm:
-    return nn.LayerNorm(cfg.hidden_size, eps=cfg.norm_eps,
-                        bias=cfg.norm_bias)
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with a compute dtype: below float32 the input is
+    normalized in float32 (statistics and affine) and the output cast to
+    ``compute_dtype``."""
+
+    def __init__(self, cfg: ModernBertConfig) -> None:
+        super().__init__(cfg.hidden_size, eps=cfg.norm_eps, bias=cfg.norm_bias)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
+
+
+class Dense(nn.Linear):
+    """Linear with a compute dtype: below float32 the input, weight and
+    bias are cast to ``compute_dtype`` for the product."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+def _dense_factory(cfg: ModernBertConfig, dense_factory=None):
+    if dense_factory is not None:
+        return dense_factory
+    return lambda d_in, d_out, bias: Dense(d_in, d_out, bias, cfg.dtype)
 
 
 class ModernBertEmbeddings(nn.Module):
     def __init__(self, cfg: ModernBertConfig) -> None:
         super().__init__()
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.norm = _norm(cfg)
+        self.norm = LayerNorm(cfg)
+        self.compute_dtype = cfg.dtype
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.tok_embeddings(input_ids))
+        return self.norm(self.tok_embeddings(input_ids)
+                         .to(self.compute_dtype))
 
 
 class ModernBertMLP(nn.Module):
     """GeGLU: Wi → split(input, gate) → act(input) * gate → Wo."""
 
-    def __init__(self, cfg: ModernBertConfig) -> None:
+    def __init__(self, cfg: ModernBertConfig, dense_factory=None) -> None:
         super().__init__()
-        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size,
-                            bias=cfg.mlp_bias)
-        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                            bias=cfg.mlp_bias)
+        dense = _dense_factory(cfg, dense_factory)
+        self.Wi = dense(cfg.hidden_size, 2 * cfg.intermediate_size,
+                        cfg.mlp_bias)
+        self.Wo = dense(cfg.intermediate_size, cfg.hidden_size, cfg.mlp_bias)
         self.act = activation(cfg.hidden_activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -149,16 +196,17 @@ class ModernBertMLP(nn.Module):
 
 
 class ModernBertAttention(nn.Module):
-    def __init__(self, cfg: ModernBertConfig, layer_id: int) -> None:
+    def __init__(self, cfg: ModernBertConfig, layer_id: int,
+                 dense_factory=None) -> None:
         super().__init__()
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {cfg.attention_impl!r} not in "
                              f"{ATTENTION_IMPLS}")
         self.cfg = cfg
-        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
-                              bias=cfg.attention_bias)
-        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size,
-                            bias=cfg.attention_bias)
+        dense = _dense_factory(cfg, dense_factory)
+        self.Wqkv = dense(cfg.hidden_size, 3 * cfg.hidden_size,
+                          cfg.attention_bias)
+        self.Wo = dense(cfg.hidden_size, cfg.hidden_size, cfg.attention_bias)
         D = cfg.head_dim
         if cfg.is_global_layer(layer_id):
             self.rope = RopeSpec(D, cfg.global_rope_theta,
@@ -199,13 +247,14 @@ class ModernBertAttention(nn.Module):
 
 
 class ModernBertEncoderLayer(nn.Module):
-    def __init__(self, cfg: ModernBertConfig, layer_id: int) -> None:
+    def __init__(self, cfg: ModernBertConfig, layer_id: int,
+                 dense_factory=None) -> None:
         super().__init__()
         # layer 0: identity — the embedding norm already applied
-        self.attn_norm = nn.Identity() if layer_id == 0 else _norm(cfg)
-        self.attn = ModernBertAttention(cfg, layer_id)
-        self.mlp_norm = _norm(cfg)
-        self.mlp = ModernBertMLP(cfg)
+        self.attn_norm = nn.Identity() if layer_id == 0 else LayerNorm(cfg)
+        self.attn = ModernBertAttention(cfg, layer_id, dense_factory)
+        self.mlp_norm = LayerNorm(cfg)
+        self.mlp = ModernBertMLP(cfg, dense_factory)
 
     def forward(self, x: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
@@ -214,16 +263,17 @@ class ModernBertEncoderLayer(nn.Module):
 
 
 class ModernBertModel(nn.Module):
-    """Encoder trunk → final-norm hidden states [B, S, hidden]."""
+    """Encoder trunk → final-norm hidden states [B, S, hidden] in the
+    compute dtype."""
 
-    def __init__(self, cfg: ModernBertConfig) -> None:
+    def __init__(self, cfg: ModernBertConfig, dense_factory=None) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = ModernBertEmbeddings(cfg)
         self.layers = nn.ModuleList(
-            ModernBertEncoderLayer(cfg, i)
+            ModernBertEncoderLayer(cfg, i, dense_factory)
             for i in range(cfg.num_hidden_layers))
-        self.final_norm = _norm(cfg)
+        self.final_norm = LayerNorm(cfg)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -247,10 +297,10 @@ class ModernBertModel(nn.Module):
 class ModernBertPredictionHead(nn.Module):
     def __init__(self, cfg: ModernBertConfig) -> None:
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size,
-                               bias=cfg.classifier_bias)
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size,
+                           cfg.classifier_bias, cfg.dtype)
         self.act = activation(cfg.classifier_activation)
-        self.norm = _norm(cfg)
+        self.norm = LayerNorm(cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.act(self.dense(x)))
@@ -267,7 +317,8 @@ class ModernBertForSequenceClassification(nn.Module):
         self.config = cfg
         self.model = model if model is not None else ModernBertModel(cfg)
         self.head = ModernBertPredictionHead(cfg)
-        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+        self.classifier = Dense(cfg.hidden_size, cfg.num_labels, True,
+                                cfg.dtype)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None
@@ -289,7 +340,8 @@ class ModernBertForTokenClassification(nn.Module):
         self.config = cfg
         self.model = model if model is not None else ModernBertModel(cfg)
         self.head = ModernBertPredictionHead(cfg)
-        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+        self.classifier = Dense(cfg.hidden_size, cfg.num_labels, True,
+                                cfg.dtype)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None

@@ -23,7 +23,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -64,6 +66,8 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.source = os.path.join(csrc_dir, f"{name}.cu")
         self.launches = 0
+        # the same launches by input dtype ("float32", "bfloat16")
+        self.launches_by_dtype: Dict[str, int] = {}
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
@@ -104,9 +108,12 @@ class CudaKernel:
                 fn = self._fn
         return fn
 
-    def count(self) -> None:
+    def count(self, dtype: Optional[torch.dtype] = None) -> None:
+        key = str(dtype).replace("torch.", "") if dtype is not None else "?"
         with self._lock:
             self.launches += 1
+            self.launches_by_dtype[key] = \
+                self.launches_by_dtype.get(key, 0) + 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
@@ -138,11 +145,13 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     return logs
 
 
-def check_launch(kernel: CudaKernel, rc: int) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
+def check_launch(kernel: CudaKernel, rc: int,
+                 dtype: Optional[torch.dtype] = None) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a C entry point;
+    count the launch (under the dtype it ran in)."""
     if rc != 0:
         raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
-    kernel.count()
+    kernel.count(dtype)
 
 
 def registry() -> Dict[str, CudaKernel]:
@@ -158,7 +167,13 @@ def reset_launch_counts() -> None:
     for k in registry().values():
         with k._lock:
             k.launches = 0
+            k.launches_by_dtype = {}
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in registry().items()}
+
+
+def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
+    return {name: dict(k.launches_by_dtype)
+            for name, k in registry().items()}

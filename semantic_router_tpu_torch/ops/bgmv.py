@@ -137,5 +137,5 @@ def bgmv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rc = BGMV.function()(
         x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), P, D, H,
         T, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(BGMV, rc)
+    check_launch(BGMV, rc, x.dtype)
     return out

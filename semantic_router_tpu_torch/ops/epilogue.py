@@ -107,5 +107,5 @@ def head_epilogue(x: torch.Tensor, kernel: torch.Tensor,
             delta.data_ptr() if delta is not None else None,
             out.data_ptr(), rows, D, H, T, ACTIVATIONS[act],
             _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(HEAD_EPILOGUE, rc)
+    check_launch(HEAD_EPILOGUE, rc, x.dtype)
     return out

@@ -149,5 +149,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *out.stride()[:3],
             B, H, S, D, int(window), int(bool(causal)), float(scale),
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(FLASH_ATTENTION, rc)
+    check_launch(FLASH_ATTENTION, rc, q.dtype)
     return out

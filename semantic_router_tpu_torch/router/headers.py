@@ -11,6 +11,8 @@ REASONING_EFFORT = "x-vsr-selected-reasoning-effort"
 SCHEMA = "x-vsr-schema-version"
 MATCHED_RULES = "x-vsr-matched-rules"
 CACHE_HIT = "x-vsr-cache-hit"
+PII_VIOLATION = "x-vsr-pii-violation"
+JAILBREAK_BLOCKED = "x-vsr-jailbreak-blocked"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

@@ -1,10 +1,18 @@
 """The request routing pipeline, trimmed to the port's main path:
 
-  parse → signal fan-out (fused classifier bank, embedding-scored
-  families) → decision engine → semantic cache (the decision's
+  parse → signal fan-out (heuristic families, fused classifier bank,
+  embedding-scored and kb families) → complexity composers and
+  projections → decision engine → policy plugins (``fast_response``
+  answers without the backend; PII matches stamp
+  ``x-vsr-pii-violation`` or, with the decision's ``pii`` plugin at
+  ``action: block``, refuse with 403) → semantic cache (the decision's
   ``semantic-cache`` plugin) → static model selection (the decision's
-  first modelRef) → request rewrite (model, reasoning fields) → x-vsr-*
-  headers; and on the response path, the cache write.
+  first modelRef; a looper algorithm's highest-weight one) → request
+  rewrite (model, reasoning fields) → x-vsr-* headers; and on the
+  response path, the cache write.
+
+The dispatch report on the result carries the projection trace and the
+kb family's metrics (``report.results["kb"].metrics``).
 
 Signal families fail open: a dead engine degrades routing to the default
 model, never to an outage.
@@ -28,14 +36,21 @@ from . import headers as H
 log = logging.getLogger(__name__)
 
 
+# decision algorithms that run several models downstream: the primary
+# model is the highest-weight candidate
+LOOPER_ALGORITHMS = ("confidence", "ratings", "remom", "fusion",
+                     "workflows")
+
+
 @dataclass
 class RouteResult:
-    kind: str  # "route" | "cache_hit"
+    kind: str  # "route" | "cache_hit" | "blocked"
     model: str = ""
     body: Optional[Dict[str, Any]] = None
     headers: Dict[str, str] = field(default_factory=dict)
     # the answer itself, when the router answers without the backend
     response_body: Optional[Dict[str, Any]] = None
+    status: int = 200
     decision: Optional[DecisionResult] = None
     signals: Optional[SignalMatches] = None
     report: Optional[DispatchReport] = None
@@ -97,23 +112,68 @@ class Router:
             ref = None
         else:
             decision = decision_res.decision
-            hit = self._check_cache(decision, ctx, result)
-            if hit is not None:
-                hit.routing_latency_s = time.perf_counter() - start
-                return hit
-            ref = decision.model_refs[0] if decision.model_refs else \
-                ModelRef(model=self.cfg.default_model or ctx.model)
+            early = self._apply_policy_plugins(decision, signals, result) \
+                or self._check_cache(decision, ctx, result)
+            if early is not None:
+                early.routing_latency_s = time.perf_counter() - start
+                return early
+            ref = self._select_model(decision, ctx)
             result.model = ref.model
             category = next(iter(signals.matches.get("domain", ())), "")
-            result.headers = H.decision_headers(
+            result.headers.update(H.decision_headers(
                 decision.name, ref.model, category=category,
                 use_reasoning=ref.use_reasoning,
                 reasoning_effort=ref.reasoning_effort,
-                matched_rules=decision_res.matched_rules)
+                matched_rules=decision_res.matched_rules))
         self._finalize_body(result, ref)
         result.headers[H.REQUEST_ID] = request_id
         result.routing_latency_s = time.perf_counter() - start
         return result
+
+    def _select_model(self, decision: Decision,
+                      ctx: RequestContext) -> ModelRef:
+        refs = decision.model_refs or [
+            ModelRef(model=self.cfg.default_model or ctx.model)]
+        if len(refs) > 1 and str((decision.algorithm or {}).get(
+                "type", "static")) in LOOPER_ALGORITHMS:
+            return max(refs, key=lambda r: r.weight)
+        return refs[0]
+
+    @staticmethod
+    def _apply_policy_plugins(decision: Decision, signals: SignalMatches,
+                              result: RouteResult) -> Optional[RouteResult]:
+        """``fast_response``: a ``blocked`` result whose answer is the
+        plugin's response.  PII matches: ``x-vsr-pii-violation`` on the
+        route, or a 403 ``blocked`` result when the decision's ``pii``
+        plugin says ``action: block``."""
+        fast = decision.plugin("fast_response")
+        if fast is not None and fast.enabled:
+            content = fast.configuration.get("response",
+                                             "Request handled by policy.")
+            return RouteResult(
+                kind="blocked", request_id=result.request_id,
+                decision=result.decision, signals=signals,
+                report=result.report,
+                response_body=_immediate_chat_completion(content),
+                headers={H.JAILBREAK_BLOCKED: "true",
+                         H.DECISION: decision.name})
+        pii_hits = signals.matches.get("pii", [])
+        if not pii_hits:
+            return None
+        plugin = decision.plugin("pii")
+        action = plugin.configuration.get("action", "header") \
+            if plugin is not None else "header"
+        if action == "block":
+            return RouteResult(
+                kind="blocked", status=403, request_id=result.request_id,
+                decision=result.decision, signals=signals,
+                report=result.report,
+                response_body={"error": {
+                    "message": "request contains disallowed PII",
+                    "type": "pii_policy_violation"}},
+                headers={H.PII_VIOLATION: ",".join(pii_hits)})
+        result.headers[H.PII_VIOLATION] = ",".join(pii_hits)
+        return None
 
     def _check_cache(self, decision: Decision, ctx: RequestContext,
                      result: RouteResult) -> Optional[RouteResult]:

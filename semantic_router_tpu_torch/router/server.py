@@ -43,8 +43,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         srv: RouterServer = self.server.owner
         result = srv.router.route(body, dict(self.headers.items()))
-        if result.kind == "cache_hit":
-            self._reply(200, result.response_body, result.headers)
+        if result.kind in ("cache_hit", "blocked"):
+            self._reply(result.status, result.response_body, result.headers)
             return
         try:
             status, data = srv.forward(result.body)

@@ -1,4 +1,5 @@
-from .bootstrap import build_engine, build_router, select_attention_impl, \
-    serve
+from .bootstrap import apply_quant_knobs, build_engine, build_router, \
+    modernbert_state, select_attention_impl, serve
 
-__all__ = ["build_engine", "build_router", "select_attention_impl", "serve"]
+__all__ = ["apply_quant_knobs", "build_engine", "build_router",
+           "modernbert_state", "select_attention_impl", "serve"]

@@ -6,8 +6,11 @@ directory holding HF ``config.json`` + ``model.safetensors`` (or the
 safetensors file itself, beside its config.json); there is no download
 step.  Classifier tasks whose specs name the same checkpoint share one
 trunk module, and so one fused trunk group; ``kind: embedding`` loads an
-``MmBertEmbeddingModel`` of its own.  Absent checkpoints leave their task
-unloaded (its signal fails open).
+``MmBertEmbeddingModel`` of its own.  As the reference's converter does,
+only the trunk keys (and a classifier's ``head.*`` / ``classifier.*``)
+are read: a masked-LM checkpoint's decoder and an embedding checkpoint's
+bottleneck ``dense_i`` are dropped.  Absent checkpoints leave their task
+unloaded (its signal fails open).  ``engine.quant`` applies at boot.
 """
 
 from __future__ import annotations
@@ -36,6 +39,27 @@ def select_attention_impl(engine_cfg: InferenceEngineConfig,
     if max_seq_len and max_seq_len > LONG_SEQ_DENSE_LIMIT:
         return "chunked"
     return "dense"
+
+
+TRUNK_PREFIXES = ("embeddings.", "layers.", "final_norm.")
+
+
+def modernbert_state(state: Dict[str, object], kind: str) -> Dict[str, object]:
+    """The keys a ModernBERT task of ``kind`` reads from a checkpoint: the
+    trunk under ``model.`` (a bare trunk's keys gain the prefix), plus
+    ``head.*`` and ``classifier.*`` for a classifier.  Everything else —
+    a masked-LM ``decoder.*`` and ``head.*`` on an embedding task, a
+    bottleneck ``dense_i`` — is dropped."""
+    prefixed = any(k.startswith("model.") for k in state)
+    out = {}
+    for k, v in state.items():
+        if prefixed and k.startswith("model."):
+            out[k] = v
+        elif not prefixed and k.startswith(TRUNK_PREFIXES):
+            out["model." + k] = v
+        elif kind != "embedding" and k.startswith(("head.", "classifier.")):
+            out[k] = v
+    return out
 
 
 def _checkpoint_files(path: str) -> Tuple[str, str]:
@@ -90,7 +114,7 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
         mcfg = ModernBertConfig.from_hf(
             hf_cfg, num_labels=max(len(labels), 2),
             attention_impl=select_attention_impl(cfg.engine, max_seq, dev))
-        state = load_safetensors(weights_path)
+        state = modernbert_state(load_safetensors(weights_path), kind)
         if kind == "embedding":
             module = MmBertEmbeddingModel(mcfg)
             module.load_state_dict(state)
@@ -120,7 +144,21 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
                              pad_id=int(hf_cfg.get("pad_token_id", 0)))
         log.info("model loaded: task=%s kind=%s attention=%s", task, kind,
                  mcfg.attention_impl)
+    apply_quant_knobs(cfg, engine)
     return engine
+
+
+def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
+    """Apply ``engine.quant`` to a live engine (boot, or a config reload):
+    each affected trunk group rebuilds its serving trunk at the selected
+    mode.  A malformed block normalizes to off."""
+    if engine is None:
+        return
+    engine.configure_quant(cfg.engine.quant)
+    log.info("quant configured: mode=%s groups=%s",
+             cfg.engine.quant_config()["mode"],
+             {gid: m["quant"] for gid, m in
+              engine.kernels_report()["groups"].items()})
 
 
 def build_router(cfg: RouterConfig, engine=None):

@@ -1,4 +1,5 @@
-from .base import Message, RequestContext, SignalHit, SignalResult
+from .base import Message, RequestContext, SignalHit, SignalResult, \
+    text_units
 from .dispatch import (
     DispatchReport,
     SignalDispatcher,
@@ -11,6 +12,18 @@ from .embedding_signal import (
     PreferenceSignal,
     build_embedding_evaluators,
 )
+from .heuristic import (
+    AuthzSignal,
+    ContextSignal,
+    ConversationSignal,
+    EventSignal,
+    LanguageSignal,
+    ReaskSignal,
+    StructureSignal,
+    detect_language,
+)
+from .kb import KBSignal
+from .keyword import KeywordSignal
 from .learned import (
     BinaryTaskSignal,
     DomainSignal,
@@ -20,21 +33,32 @@ from .learned import (
 )
 
 __all__ = [
+    "AuthzSignal",
     "BinaryTaskSignal",
     "ComplexitySignal",
+    "ContextSignal",
+    "ConversationSignal",
     "DispatchReport",
     "DomainSignal",
     "EmbeddingSignal",
+    "EventSignal",
     "JailbreakSignal",
+    "KBSignal",
+    "KeywordSignal",
+    "LanguageSignal",
     "Message",
     "PIISignal",
     "PreferenceSignal",
+    "ReaskSignal",
     "RequestContext",
     "SignalDispatcher",
     "SignalHit",
     "SignalResult",
+    "StructureSignal",
     "apply_complexity_composers",
     "build_dispatcher",
     "build_embedding_evaluators",
     "build_learned_evaluators",
+    "detect_language",
+    "text_units",
 ]

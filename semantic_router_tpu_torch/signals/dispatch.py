@@ -1,13 +1,14 @@
-"""Concurrent signal dispatch over the learned and embedding-scored
-families.
+"""Concurrent signal dispatch over every signal family.
 
-Only families referenced by decisions (or complexity composers) are
-evaluated; each active family runs on its own worker and the join is the
-wall clock of the slowest one.  Before the fan-out, the sequence tasks one
-fused trunk group can serve classify the user text together (one
-tokenization, one trunk forward) and seed the request's memo.  After it,
-complexity composers escalate their rules.  Evaluator exceptions are
-contained and recorded (fail-open: a dead family never kills routing).
+Only families referenced by decisions, complexity composers or
+projections are evaluated; each active family runs on its own worker and
+the join is the wall clock of the slowest one.  Before the fan-out, the
+sequence tasks one fused trunk group can serve classify the user text
+together (one tokenization, one trunk forward) and seed the request's
+memo.  After it, complexity composers escalate their rules, then the
+projections derive their outputs (with the kb family's metrics).
+Evaluator exceptions are contained and recorded (fail-open: a dead family
+never kills routing).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..config.schema import SIGNAL_PROJECTION
 from ..decision.engine import SignalMatches, eval_rule_node
+from ..decision.projections import ProjectionEvaluator, ProjectionTrace
 from .base import RequestContext, SignalEvaluator, SignalResult
 
 # serial prefetch budget: past it the evaluators classify on their own
@@ -28,6 +31,7 @@ PREFETCH_TIMEOUT_S = 10.0
 class DispatchReport:
     results: Dict[str, SignalResult] = field(default_factory=dict)
     wall_s: float = 0.0
+    projection_trace: Optional[ProjectionTrace] = None
 
 
 def apply_complexity_composers(signals: SignalMatches,
@@ -50,12 +54,14 @@ def apply_complexity_composers(signals: SignalMatches,
 
 class SignalDispatcher:
     def __init__(self, evaluators: List[SignalEvaluator],
+                 projections: Optional[ProjectionEvaluator] = None,
                  used_types: Optional[List[str]] = None,
                  complexity_rules: Optional[list] = None) -> None:
         self.evaluators = {e.signal_type: e for e in evaluators}
+        self.projections = projections
         self.used_types = set(used_types) if used_types is not None else None
         self.complexity_rules = list(complexity_rules or [])
-        # one worker per learned family
+        # one worker per family
         self.pool = ThreadPoolExecutor(max_workers=max(1, len(evaluators)),
                                        thread_name_prefix="signal")
 
@@ -75,26 +81,57 @@ class SignalDispatcher:
             results = list(self.pool.map(lambda e: self._run(e, ctx), active))
         signals = SignalMatches()
         report = DispatchReport()
+        kb_metrics: dict = {}
         for r in results:
-            report.results[r.signal_type] = r
-            for h in r.hits:
-                signals.add(r.signal_type, h.rule, h.confidence)
-                if h.detail:
-                    signals.details.setdefault(r.signal_type, {})[h.rule] = \
-                        h.detail
-        apply_complexity_composers(signals, self.complexity_rules)
+            self._fold_result(r, signals, report, kb_metrics)
+        self._finalize(signals, report, kb_metrics)
         report.wall_s = time.perf_counter() - start
         return signals, report
 
     @staticmethod
     def _run(e: SignalEvaluator, ctx: RequestContext) -> SignalResult:
+        """One family, failing open; a result with no source says
+        ``engine`` when the evaluator holds one, else ``heuristic``."""
+        source = "engine" if getattr(e, "engine", None) is not None \
+            else "heuristic"
         t0 = time.perf_counter()
         try:
-            return e.evaluate(ctx)
+            out = e.evaluate(ctx)
         except Exception as exc:  # fail open per family
-            return SignalResult(signal_type=e.signal_type,
-                                latency_s=time.perf_counter() - t0,
-                                error=f"{type(exc).__name__}: {exc}")
+            out = SignalResult(signal_type=e.signal_type,
+                               latency_s=time.perf_counter() - t0,
+                               error=f"{type(exc).__name__}: {exc}")
+        out.source = out.source or source
+        return out
+
+    @staticmethod
+    def _fold_result(r: SignalResult, signals: SignalMatches,
+                     report: DispatchReport, kb_metrics: dict) -> None:
+        """Fold one family's result into the match set: hits, their
+        details (a keyword hit's detail is its matched keywords), and the
+        kb family's metrics."""
+        report.results[r.signal_type] = r
+        for h in r.hits:
+            signals.add(r.signal_type, h.rule, h.confidence)
+            if h.detail:
+                signals.details.setdefault(r.signal_type, {})[h.rule] = \
+                    h.detail.get("keywords", h.detail)
+        kb_metrics.update(r.metrics)
+
+    def _needs_projection(self) -> bool:
+        return self.projections is not None and (
+            self.used_types is None or SIGNAL_PROJECTION in self.used_types
+            or bool(self.projections.cfg.scores)
+            or bool(self.projections.cfg.partitions))
+
+    def _finalize(self, signals: SignalMatches, report: DispatchReport,
+                  kb_metrics: dict) -> None:
+        """After the fan-out: complexity composers, then projections."""
+        if self.complexity_rules:
+            apply_complexity_composers(signals, self.complexity_rules)
+        if self._needs_projection():
+            report.projection_trace = self.projections.evaluate(
+                signals, kb_metrics=kb_metrics)
 
     def _prefetch_fused(self, ctx: RequestContext, active: list) -> None:
         """Tokenize-once + trunk-once for the learned fan-out: when ≥2
@@ -133,14 +170,42 @@ class SignalDispatcher:
 
 
 def build_dispatcher(cfg, engine=None) -> SignalDispatcher:
-    """The learned and embedding-scored evaluators the config needs,
-    restricted to the families its decisions and composers reference."""
+    """Every model-free evaluator, plus the learned, embedding-scored and
+    kb evaluators when an engine is given, restricted to the families
+    the config's decisions, composers and projections reference."""
     from .embedding_signal import build_embedding_evaluators
+    from .heuristic import (
+        AuthzSignal,
+        ContextSignal,
+        ConversationSignal,
+        EventSignal,
+        LanguageSignal,
+        ReaskSignal,
+        StructureSignal,
+    )
+    from .keyword import KeywordSignal
     from .learned import build_learned_evaluators
 
-    evaluators = build_learned_evaluators(engine, cfg) \
-        + build_embedding_evaluators(engine, cfg) \
-        if engine is not None else []
+    s = cfg.signals
+    evaluators: List[SignalEvaluator] = [
+        KeywordSignal(s.keywords),
+        ContextSignal(s.context),
+        StructureSignal(s.structure),
+        ConversationSignal(s.conversation),
+        LanguageSignal(s.language),
+        AuthzSignal(s.role_bindings,
+                    fail_open=bool(cfg.authz.get("fail_open", True))),
+        EventSignal(s.events),
+        ReaskSignal(s.reasks),
+    ]
+    if engine is not None:
+        evaluators += build_learned_evaluators(engine, cfg)
+        if s.kb and cfg.knowledge_bases:
+            from .kb import KBSignal
+
+            evaluators.append(KBSignal(engine, s.kb, cfg.knowledge_bases))
+        evaluators += build_embedding_evaluators(engine, cfg)
     return SignalDispatcher(evaluators,
+                            projections=ProjectionEvaluator(cfg.projections),
                             used_types=cfg.used_signal_types() or None,
-                            complexity_rules=cfg.signals.complexity)
+                            complexity_rules=s.complexity)

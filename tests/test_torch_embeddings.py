@@ -328,3 +328,73 @@ def test_build_engine_loads_an_embedding_checkpoint(tmp_path):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     finally:
         eng.shutdown()
+
+
+@pytest.mark.parametrize("layout", ["masked_lm", "masked_lm_bottleneck"])
+def test_build_engine_reads_an_hf_masked_lm_checkpoint(tmp_path, layout):
+    """A checkpoint in the HF masked-LM layout (``model.*`` plus the MLM
+    head and decoder, and here a bottleneck ``dense_0``) loads its trunk
+    through both packages' ``build_engine``, whose embeddings agree;
+    the tensors the reference's converter ignores are dropped, and the
+    config's other tasks still load."""
+    st = pytest.importorskip("safetensors.torch")
+    tokenizers = pytest.importorskip("tokenizers")
+    from semantic_router_tpu.config import RouterConfig as JRouterConfig
+    from semantic_router_tpu.runtime.bootstrap import \
+        build_engine as jbuild_engine
+
+    fields = {k: TINY[k] for k in ("vocab_size", "hidden_size",
+                                   "intermediate_size", "num_hidden_layers",
+                                   "num_attention_heads",
+                                   "max_position_embeddings")}
+    module = MmBertEmbeddingModel(ModernBertConfig(**fields))
+    ttesting.init_weights(module, 6, std=0.2)
+    rng = np.random.default_rng(6)
+    H, V = fields["hidden_size"], fields["vocab_size"]
+    state = {k: v.contiguous() for k, v in module.state_dict().items()}
+    state["head.dense.weight"] = torch.from_numpy(
+        rng.standard_normal((H, H), np.float32))
+    state["head.norm.weight"] = torch.ones(H)
+    state["decoder.weight"] = torch.from_numpy(
+        rng.standard_normal((V, H), np.float32))
+    state["decoder.bias"] = torch.zeros(V)
+    if layout == "masked_lm_bottleneck":
+        state["dense_0.weight"] = torch.from_numpy(
+            rng.standard_normal((8, H), np.float32))
+    root = str(tmp_path / "mlm")
+    os.makedirs(root)
+    st.save_file(state, os.path.join(root, "model.safetensors"))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dict(fields, model_type="modernbert",
+                       architectures=["ModernBertForMaskedLM"]), f)
+    vocab = {"[PAD]": 0, "[UNK]": 1}
+    vocab.update({f"w{i}": i + 2 for i in range(100)})
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(
+        vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    tok.save(os.path.join(root, "tokenizer.json"))
+    cls_root = str(tmp_path / "cls")
+    from test_torch_router import _write_checkpoint
+
+    _write_checkpoint(cls_root, ["a", "b"])
+    d = {"engine": {"seq_len_buckets": [16, 64], "max_batch_size": 4},
+         "classifier_models": {
+             "embedding": {"checkpoint": root, "kind": "embedding"},
+             "intent": {"checkpoint": cls_root, "kind": "sequence"}}}
+    texts = ["w1 w2 w3 w77", "w5", " ".join(f"w{i}" for i in range(30))]
+    jeng = jbuild_engine(JRouterConfig.from_dict(d))
+    eng = build_engine(load_config(d), device="cpu")
+    try:
+        assert sorted(eng.tasks()) == ["embedding", "intent"]
+        got = eng.embed("embedding", texts)
+        want = jeng.embed("embedding", texts)
+        assert got.shape == want.shape == (len(texts), H)
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        ids = torch.tensor([eng._tasks["embedding"].tokenizer.encode(
+            texts[0]).ids])
+        with torch.no_grad():
+            np.testing.assert_allclose(
+                got[0], module.eval()(ids)[0].numpy(), atol=1e-5, rtol=0)
+    finally:
+        eng.shutdown()
+        jeng.shutdown()

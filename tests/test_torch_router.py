@@ -352,6 +352,30 @@ def test_fixture_config_matches_jax(fixture_config_path):
     assert [m.name for m in got.model_cards] == \
         [m.name for m in want.model_cards]
     assert got.default_model == want.default_model
+    # every signal family, rule by rule, field by field
+    import dataclasses
+
+    for fam, (attr, _) in got.signals.FAMILIES.items():
+        g, w = getattr(got.signals, attr), getattr(want.signals, attr)
+        assert [r.name for r in g] == [r.name for r in w], fam
+        for gr, wr in zip(g, w):
+            wd = dataclasses.asdict(wr)
+            for f, v in dataclasses.asdict(gr).items():
+                if f != "composer":
+                    assert v == wd[f], (fam, gr.name, f)
+        assert got.signals.rule_names(fam) == want.signals.rule_names(fam)
+    assert dataclasses.asdict(got.projections) == \
+        dataclasses.asdict(want.projections)
+    assert [dataclasses.asdict(k) for k in got.knowledge_bases] == \
+        [dataclasses.asdict(k) for k in want.knowledge_bases]
+    assert got.authz == want.authz
+    assert got.used_signal_types() == want.used_signal_types()
+    assert [(d.name, d.algorithm, [(r.model, r.weight) for r in
+                                   d.model_refs]) for d in got.decisions] \
+        == [(d.name, d.algorithm, [(r.model, r.weight) for r in
+                                   d.model_refs]) for d in want.decisions]
+    assert got.engine.quant == want.engine.quant
+    assert got.engine.quant_config() == want.engine.quant_config()
 
 
 def test_select_attention_impl(monkeypatch):
