@@ -788,6 +788,11 @@ class InferenceEngineConfig:
     # concurrent batch-dispatch workers: one slow (group, bucket) step
     # must not park live traffic on other buckets
     dispatch_workers: int = 4
+    # fused classifier bank: classifiers whose trunk weights (by content),
+    # tokenizer and shape discipline agree batch as ONE (trunk, bucket)
+    # group; False serves every task on its own (register_task's ``fuse``
+    # overrides it per task)
+    fuse_trunks: bool = True
     # tuned-kernel toggles, normalized by engine.kernels.normalize_kernels
     kernels: Dict[str, Any] = field(default_factory=dict)
     # quantized trunk serving (mode off | bf16 | int8, group selector,
@@ -804,6 +809,7 @@ class InferenceEngineConfig:
             matryoshka_layers=list(d.get("matryoshka_layers", [])),
             matryoshka_dims=list(d.get("matryoshka_dims", [])),
             dispatch_workers=int(d.get("dispatch_workers", 4)),
+            fuse_trunks=bool(d.get("fuse_trunks", True)),
             kernels=dict(d.get("kernels", {}) or {}),
             quant=dict(d.get("quant", {}) or {}),
         )

@@ -1,19 +1,30 @@
-"""The inference engine: the fused classifier bank and the embedding
-tasks behind the batcher.
+"""The inference engine: the fused classifier bank, the per-task path and
+the embedding tasks behind the batcher, every step a CUDA graph on the
+card.
 
-The port of the unpacked fused path and the embedding path of
-``semantic_router_tpu.engine.classify``:
+The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
 
-- tasks register a ModernBERT sequence or token classifier + tokenizer +
-  label set; tasks whose trunk is ONE module object (and whose tokenizer,
-  max_seq_len, pad id and config agree) form a ``TrunkGroup``;
-- requests flow through the DynamicBatcher keyed by (trunk group, seq
-  bucket): one trunk forward per batch serves sequences of every member
-  task, and the members' heads apply as one stacked head bank
+- tasks register a ModernBERT sequence or token classifier (or a LoRA-head
+  classifier) + tokenizer + label set; classifiers whose trunk tensors
+  hold the SAME CONTENT (blake2b digests, memoized per tensor), and whose
+  tokenizer, max_seq_len, pad id and config agree, form a ``TrunkGroup``:
+  two checkpoint files with one frozen trunk fuse.  A module that joins
+  an existing group is served through the group's trunk (its own trunk is
+  never copied to the device);
+- a module the bank cannot stack, a task registered with ``fuse=False``,
+  and every task under ``engine.fuse_trunks: false`` serve per task: each
+  batches on its own under (task, bucket) through the module's own
+  float32 forward, whatever ``engine.quant`` says;
+- fused requests flow through the DynamicBatcher keyed by (trunk group,
+  seq bucket): one trunk forward per batch serves sequences of every
+  member task, and the members' heads apply as one stacked head bank
   (models.lora.apply_head_bank), whose logits demux back to each item's
   own task and label set with a host softmax over the true label width;
-- identical encodings in a batch share one trunk row; rows pad to a power
-  of two and sequences to the bucket edge;
+- identical encodings in a fused batch share one trunk row; rows pad to a
+  power of two and sequences to the bucket edge;
+- ``classify_windowed`` classifies a text past ``max_seq_len`` as stride
+  windows (utils.tokenization.encode_windows) on the per-task path and
+  combines their probabilities by content share;
 - ``engine.kernels.epilogue`` routes the head dense through the epilogue
   kernel; ``attention_impl="flash"`` on the trunk runs the flash kernel;
   ``engine.kernels.bgmv`` swaps a wide sequence bank (at least
@@ -31,7 +42,13 @@ The port of the unpacked fused path and the embedding path of
   on its own under the key (task, bucket, exit_layer, output_dim), so the
   2D-Matryoshka variants never share a forward; rows pad to a power of
   two, one forward returns host float32 unit rows; they stay float32
-  under any ``engine.quant``.
+  under any ``engine.quant``;
+- every step runs through a compiled-step cache (engine.graphs): on the
+  card the first execution of a (group, variant, bucket, rows, ...) key
+  is captured as a CUDA graph and later ones replay it, as the JAX
+  engine compiles a shape once; a group's cache lives in its demux
+  snapshot, so a bank rebuild, a quant flip or a kernels flip starts the
+  group on an empty one.  ``warmup`` captures every bucket at batch 1.
 
 Packing, meshes and the observability hooks of the JAX engine are later
 slices (ROADMAP.md).
@@ -40,10 +57,13 @@ slices (ROADMAP.md).
 from __future__ import annotations
 
 import collections
+import contextlib
+import hashlib
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Hashable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,12 +81,52 @@ from ..models.lora import (
 )
 from ..ops.attention import cls_pool, mean_pool
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.tokenization import Encoding, Tokenizer, decode_entity_spans
+from ..utils.tokenization import (
+    Encoding,
+    Tokenizer,
+    decode_entity_spans,
+    encode_windows,
+)
 from .batcher import BatchItem, DynamicBatcher, pick_bucket, pow2_batch
+from .graphs import CaptureGate, SnapshotRetired, StepGraphs
 from .kernels import normalize_kernels, normalize_quant, quant_selects
 
 # batch-group key prefix for fused trunk groups
 TRUNK_KEY = "__trunk__"
+
+# content digests of trunk tensors, memoized by (id, version) with a
+# weakref guard: a recycled id recomputes instead of serving a stale
+# digest, and an in-place write bumps the tensor's version.  K tasks
+# registered over the SAME trunk hash each tensor once.
+_LEAF_DIGESTS: Dict[tuple, tuple] = {}
+_LEAF_DIGESTS_LOCK = threading.Lock()
+
+
+def _leaf_digest(t: torch.Tensor) -> str:
+    """Content address of one tensor: blake2b over dtype, shape and
+    bytes.  Registration-time only, never on the hot path."""
+    key = (id(t), t._version)
+    with _LEAF_DIGESTS_LOCK:
+        hit = _LEAF_DIGESTS.get(key)
+    if hit is not None:
+        ref, digest = hit
+        if ref() is t:
+            return digest
+    x = t.detach().contiguous().cpu()
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(x.dtype).encode())
+    h.update(str(tuple(x.shape)).encode())
+    h.update(x.reshape(-1).view(torch.uint8).numpy().data)
+    digest = h.hexdigest()
+    with _LEAF_DIGESTS_LOCK:
+        _LEAF_DIGESTS[key] = (weakref.ref(t), digest)
+        if len(_LEAF_DIGESTS) > 4096:
+            # sweep entries whose tensors died (re-registrations would
+            # otherwise grow the memo by one stale tuple per tensor)
+            for k in [k for k, (r, _d) in _LEAF_DIGESTS.items()
+                      if r() is None]:
+                del _LEAF_DIGESTS[k]
+    return digest
 
 
 def _tokenizer_fingerprint(tok) -> Hashable:
@@ -120,6 +180,8 @@ class _Task:
     module: nn.Module
     max_seq_len: int
     pad_id: int = 0
+    # the per-task and embedding steps' compiled-step cache
+    graphs: Optional[StepGraphs] = None
 
 
 @dataclass
@@ -146,9 +208,10 @@ class TrunkGroup:
     members: List[str] = field(default_factory=list)
     entries: List[dict] = field(default_factory=list)
     # atomic demux snapshot {trunk, quant, bank, tok_bank, row_of, widths,
-    # tok_row_of, tok_widths}: a runner reads ONE consistent view, so a
-    # concurrent re-registration or quant flip never pairs new row
-    # indices (or a new serving trunk) with old ones
+    # tok_row_of, tok_widths, graphs}: a runner reads ONE consistent view,
+    # so a concurrent re-registration or quant flip never pairs new row
+    # indices (or a new serving trunk, or graphs captured over the old
+    # tensors) with old ones
     demux: Any = None
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, flavor: str,
@@ -205,7 +268,14 @@ class InferenceEngine:
         self._task_group: Dict[str, TrunkGroup] = {}
         self._groups_by_gid: Dict[str, TrunkGroup] = {}
         self._next_gid = 0  # monotonic: eviction never recycles a gid
+        # distinct device batch shapes executed per batch group
+        # (shape_census())
         self._shapes: Dict[str, set] = {}
+        # step caches a change of snapshots replaced, retired once the
+        # change releases the lock (_changing)
+        self._stale: List[StepGraphs] = []
+        # replays share the gate, a capture holds it alone
+        self._gate = CaptureGate()
         # step accounting: one record per trunk forward (bounded)
         self._steps: collections.deque = collections.deque(maxlen=4096)
         self.trunk_forwards = 0
@@ -221,52 +291,97 @@ class InferenceEngine:
 
     def register_task(self, name: str, kind: str, module: nn.Module,
                       tokenizer: Tokenizer, labels: List[str],
-                      max_seq_len: int = 0, pad_id: int = 0) -> None:
-        """Register a ModernBERT sequence or token classifier, or an
-        ``MmBertEmbeddingModel`` (kind ``embedding``).  The module moves to
-        the engine's device; classifiers whose ``module.model`` is one
-        trunk object share a trunk group and its forward."""
+                      max_seq_len: int = 0, pad_id: int = 0,
+                      fuse: Optional[bool] = None) -> None:
+        """Register a sequence or token classifier (``module(ids, mask)`` →
+        logits), or an ``MmBertEmbeddingModel`` (kind ``embedding``).  The
+        module moves to the engine's device.
+
+        ``fuse``: join the fused classifier bank when the module's head
+        stacks and its trunk's content + tokenizer match another task's
+        (None → ``engine.fuse_trunks``).  A module that joins a group
+        whose trunk is another object of equal content has its ``model``
+        set to the group's trunk, so one device copy serves both.  Any
+        other classifier serves per task; re-registering a fused member
+        that way leaves the group."""
         if kind not in ("sequence", "token", "embedding"):
             raise ValueError(f"unknown task kind {kind!r}")
-        if kind == "embedding":
-            if not isinstance(module, MmBertEmbeddingModel):
-                raise ValueError(f"task {name!r}: an embedding task takes an "
-                                 f"MmBertEmbeddingModel, got "
-                                 f"{type(module).__name__}")
-            module = module.to(self.device).eval()
-            with self._lock:
-                # re-registration under a new kind leaves no fused member
-                self._evict_locked(name)
-                self._tasks[name] = _Task(
-                    name, kind, list(labels), tokenizer, module,
-                    max_seq_len or self.cfg.seq_len_buckets[-1], pad_id)
-            return
-        entry = head_bank_entry(module)
-        if entry is None:
-            raise ValueError(f"task {name!r}: {type(module).__name__} is not "
-                             f"a bank-fusable ModernBERT classifier")
-        if entry["kind"] != kind:
-            raise ValueError(f"task {name!r}: kind {kind!r} but the module "
-                             f"is a {entry['kind']} classifier")
-        module = module.to(self.device).eval()
+        if kind == "embedding" and not isinstance(module,
+                                                  MmBertEmbeddingModel):
+            raise ValueError(f"task {name!r}: an embedding task takes an "
+                             f"MmBertEmbeddingModel, got "
+                             f"{type(module).__name__}")
         max_len = max_seq_len or self.cfg.seq_len_buckets[-1]
-        with self._lock:
-            self._tasks[name] = _Task(name, kind, list(labels), tokenizer,
-                                      module, max_len, pad_id)
-        self._join_trunk_group(name, module, tokenizer, entry, max_len,
-                               pad_id)
+        entry = tkey = None
+        want_fuse = self.cfg.fuse_trunks if fuse is None else bool(fuse)
+        if kind != "embedding":
+            entry = head_bank_entry(module)
+            if entry is not None and entry["kind"] != kind:
+                raise ValueError(f"task {name!r}: kind {kind!r} but the "
+                                 f"module is a {entry['kind']} classifier")
+            if want_fuse and entry is not None:
+                # hashed on the caller's tensors, before the device move
+                tkey = self._trunk_fingerprint(module, tokenizer, max_len,
+                                               pad_id)
+        if tkey is not None:
+            with self._lock:
+                g = self._trunk_groups.get(tkey)
+                if g is not None and module.model is not g.trunk:
+                    module.model = g.trunk
+        module = module.to(self.device).eval()
+        task = _Task(name, kind, list(labels), tokenizer, module, max_len,
+                     pad_id, graphs=StepGraphs(self.device, self._gate,
+                                               f"task:{name}"))
+        with self._changing():
+            old = self._tasks.get(name)
+            self._tasks[name] = task
+            if old is not None:
+                self._stale.append(old.graphs)
+        if tkey is not None:
+            self._join_trunk_group(tkey, name, module, tokenizer, entry,
+                                   max_len, pad_id)
+        else:
+            # re-registration as non-fusable (fuse=False, a new kind, a
+            # module the bank cannot stack) leaves no stale fused member
+            with self._changing():
+                self._evict_locked(name)
 
-    def _trunk_key(self, module, tokenizer, max_seq_len: int,
-                   pad_id: int) -> tuple:
-        """Grouping key: the trunk module's identity, a content-equivalent
-        tokenizer, and compatible shape discipline (label width is per
-        head, never part of the trunk identity)."""
-        cfg_key = repr(replace(module.config, num_labels=0))
-        return (id(module.model), _tokenizer_fingerprint(tokenizer),
+    @contextlib.contextmanager
+    def _changing(self):
+        """Hold the engine lock for a change of snapshots, then retire the
+        step caches the change replaced (``self._stale``) after releasing
+        it.  The new snapshot is live before the old one retires, so a
+        batch that raises ``SnapshotRetired`` on the old one finds the new
+        one when it runs again; and a retire's wait for running replays
+        and captures holds no lock a batch takes."""
+        try:
+            with self._lock:
+                yield
+        finally:
+            with self._lock:
+                stale, self._stale = self._stale, []
+            for cache in stale:
+                cache.retire()
+
+    @staticmethod
+    def _trunk_fingerprint(module, tokenizer, max_seq_len: int,
+                           pad_id: int) -> Optional[tuple]:
+        """Grouping key: the trunk's tensors by CONTENT (parameters and
+        buffers in name order), a content-equivalent tokenizer, and
+        compatible shape discipline (label width is per head, never part
+        of the trunk identity).  None when the module has no trunk."""
+        trunk = getattr(module, "model", None)
+        cfg = getattr(module, "config", None)
+        if trunk is None or cfg is None:
+            return None
+        tensors = list(trunk.named_parameters()) + list(trunk.named_buffers())
+        leaf_key = tuple((n, _leaf_digest(t)) for n, t in tensors)
+        cfg_key = repr(replace(cfg, num_labels=0))
+        return (leaf_key, _tokenizer_fingerprint(tokenizer),
                 int(max_seq_len), int(pad_id), cfg_key)
 
     def _evict_locked(self, name: str) -> None:
-        """Remove a task from its trunk group (caller holds self._lock):
+        """Remove a task from its trunk group (caller is ``_changing``):
         re-registration REPLACES the member."""
         g = self._task_group.pop(name, None)
         if g is None:
@@ -281,11 +396,11 @@ class InferenceEngine:
             for k, v in list(self._trunk_groups.items()):
                 if v is g:
                     del self._trunk_groups[k]
+            self._stale.append(g.demux["graphs"])
 
-    def _join_trunk_group(self, name: str, module, tokenizer, entry: dict,
-                          max_len: int, pad_id: int) -> None:
-        tkey = self._trunk_key(module, tokenizer, max_len, pad_id)
-        with self._lock:
+    def _join_trunk_group(self, tkey: tuple, name: str, module, tokenizer,
+                          entry: dict, max_len: int, pad_id: int) -> None:
+        with self._changing():
             self._evict_locked(name)
             g = self._trunk_groups.get(tkey)
             if g is None:
@@ -328,7 +443,7 @@ class InferenceEngine:
             return int(np.shape(g.entries[i]["cls_kernel"])[1])
 
         mode, trunk = self._serving_trunk(g)
-        g.demux = {
+        self._publish(g, {
             "trunk": trunk,
             "quant": mode,
             "bank": stack(seq_idx),
@@ -337,34 +452,50 @@ class InferenceEngine:
             "widths": [width(i) for i in seq_idx],
             "tok_row_of": {g.members[i]: r for r, i in enumerate(tok_idx)},
             "tok_widths": [width(i) for i in tok_idx],
-        }
+        })
+
+    def _publish(self, g: TrunkGroup, demux: dict) -> None:
+        """Swap in a demux snapshot with an empty step cache; the old
+        snapshot's graphs retire when the change ends (caller is
+        ``_changing``): a graph holds the addresses of the bank and trunk
+        tensors it was captured with."""
+        demux["graphs"] = StepGraphs(self.device, self._gate,
+                                     f"trunk:{g.gid}")
+        old, g.demux = g.demux, demux
+        if old is not None:
+            self._stale.append(old["graphs"])
 
     # -- kernel knobs ------------------------------------------------------
 
     def configure_kernels(self, knobs: Optional[Dict[str, Any]]) -> None:
         """Apply an ``engine.kernels`` block (boot or reload).  The next
-        batch serves under it; in-flight batches finish under the knobs
-        they read."""
+        batch serves under it; a change gives every trunk group a new
+        snapshot with an empty step cache (an in-flight batch on the old
+        one runs again on the new one)."""
         kk = normalize_kernels(knobs)
-        with self._lock:
+        with self._changing():
             if kk != self._kernels:
                 self._kernel_rebuilds += 1
+                # graphs were captured under the old toggles
+                for g in list(self._groups_by_gid.values()):
+                    self._publish(g, dict(g.demux))
             self._kernels = kk
 
     def configure_quant(self, knobs: Optional[Dict[str, Any]]) -> None:
         """Apply an ``engine.quant`` block (boot or reload): each trunk
         group whose mode changes gets a new serving trunk (the int8
-        weights quantize here, once) in a new demux snapshot; the others
-        keep theirs.  In-flight batches finish on the snapshot they
-        read."""
+        weights quantize here, once) in a new demux snapshot, with an
+        empty step cache; the others keep theirs.  An in-flight batch on a
+        retired snapshot runs again on the new one."""
         qk = normalize_quant(knobs)
-        with self._lock:
+        with self._changing():
             self._quant = qk
             for g in list(self._groups_by_gid.values()):
                 mode = quant_selects(qk, g.gid, g.members)
                 if mode != g.demux["quant"]:
-                    g.demux = dict(g.demux, quant=mode,
-                                   trunk=build_quant_trunk(g.trunk, mode))
+                    self._publish(g, dict(
+                        g.demux, quant=mode,
+                        trunk=build_quant_trunk(g.trunk, mode)))
                     self._kernel_rebuilds += 1
 
     def _serving_meta(self, demux: dict) -> Dict[str, Any]:
@@ -412,8 +543,28 @@ class InferenceEngine:
         t = self._tasks.get(name)
         return t.kind if t is not None else ""
 
+    def task_labels(self, name: str) -> List[str]:
+        return list(self._tasks[name].labels)
+
     def tasks(self) -> List[str]:
         return list(self._tasks)
+
+    def task_info(self, name: str) -> Dict[str, Any]:
+        """Serving metadata: kind, max_seq_len, attention impl and, for a
+        fused member, its trunk group."""
+        t = self._tasks.get(name)
+        if t is None:
+            return {}
+        impl = getattr(getattr(t.module, "config", None),
+                       "attention_impl", None)
+        info: Dict[str, Any] = {"task": name, "kind": t.kind,
+                                "max_seq_len": t.max_seq_len}
+        if impl:
+            info["attention_impl"] = impl
+        g = self._task_group.get(name)
+        if g is not None:
+            info["trunk_group"] = g.gid
+        return info
 
     def _common_trunk_group(self, tasks: Sequence[str]
                             ) -> Optional[TrunkGroup]:
@@ -449,13 +600,21 @@ class InferenceEngine:
 
     def classify_async(self, task: str, text: str, enc_cache=None):
         """Submit one sequence classification; returns its Future (a
-        cancelled future is dropped before its batch runs)."""
-        t = self._require(task, kind="sequence")
-        g = self._task_group[task]
-        enc = self._encode(g, text, enc_cache)
+        cancelled future is dropped before its batch runs).  A fused
+        member batches under its trunk group, any other task under
+        (task, bucket)."""
+        return self._submit(self._require(task, kind="sequence"), text,
+                            enc_cache)
+
+    def _submit(self, t: _Task, text: str, enc_cache=None,
+                threshold: float = 0.5):
+        g = self._task_group.get(t.name)
+        enc = self._encode(g or t, text, enc_cache)
         bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
-        return self.batcher.submit((TRUNK_KEY, g.gid, bucket),
-                                   _Payload(text, enc, tasks=(t.name,)))
+        key = (TRUNK_KEY, g.gid, bucket) if g is not None \
+            else (t.name, bucket)
+        return self.batcher.submit(
+            key, _Payload(text, enc, threshold, tasks=(t.name,)))
 
     def classify_multi(self, tasks: Sequence[str], texts: Sequence[str],
                        timeout: float = 30.0,
@@ -489,16 +648,48 @@ class InferenceEngine:
             results[ti] = res if isinstance(res, dict) else {tasks[0]: res}
         return {t: [results[i][t] for i in range(len(texts))] for t in tasks}
 
+    def classify_windowed(self, task: str, text: str, stride: int = 64,
+                          timeout: float = 30.0) -> ClassResult:
+        """Whole-input classification for texts past ``max_seq_len``:
+        stride windows (utils.tokenization.encode_windows, every window a
+        CLS/SEP-framed input) classified on the per-task path (a fused
+        member's windows bypass its group), their probabilities combined
+        by each window's share of the tokens.  The result covers the
+        whole text, so it is never marked truncated.  A text that fits
+        one window is ``classify``'s."""
+        t = self._require(task, kind="sequence")
+        windows = encode_windows(t.tokenizer, text, t.max_seq_len,
+                                 stride=stride)
+        if len(windows) == 1:
+            return self.classify(task, text, timeout=timeout)
+        futures = []
+        for enc in windows:
+            bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
+            futures.append(self.batcher.submit(
+                (task, bucket), _Payload(text, enc, tasks=(task,))))
+        results = [f.result(timeout=timeout) for f in futures]
+        weights = np.asarray([len(w) for w in windows], np.float64)
+        weights = weights / weights.sum()
+        labels = list(results[0].probs)
+        combined = {
+            lab: float(sum(w * r.probs.get(lab, 0.0)
+                           for w, r in zip(weights, results)))
+            for lab in labels}
+        best = max(combined, key=combined.get)
+        return ClassResult(
+            label=best,
+            index=t.labels.index(best) if best in t.labels else -1,
+            confidence=combined[best],
+            probs=combined,
+            latency_s=max(r.latency_s for r in results),
+            truncated=False,
+        )
+
     def token_classify(self, task: str, text: str, threshold: float = 0.5,
                        timeout: float = 30.0,
                        enc_cache=None) -> TokenClassResult:
-        t = self._require(task, kind="token")
-        g = self._task_group[task]
-        enc = self._encode(g, text, enc_cache)
-        bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
-        fut = self.batcher.submit(
-            (TRUNK_KEY, g.gid, bucket),
-            _Payload(text, enc, threshold, tasks=(t.name,)))
+        fut = self._submit(self._require(task, kind="token"), text,
+                           enc_cache, threshold)
         return fut.result(timeout=timeout)
 
     def embed(self, task: str, texts: Sequence[str],
@@ -528,57 +719,75 @@ class InferenceEngine:
         return futures
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run every group's flavors once per bucket at batch 1, off the
-        batcher: loads the kernels (building them on first use) and the
-        library handles before live traffic arrives.  A BGMV group warms
-        its sequence flavors at the 1-pair shape; an embedding task warms
-        every configured Matryoshka variant."""
-        def inputs(b: int, pad_id: int):
+        """Capture, off the batcher, every step the engine serves at batch
+        1 for every bucket its tasks take: each fused flavor a trunk group
+        serves (a BGMV group's sequence flavors with one pair), every
+        per-task task, every configured Matryoshka variant of an embedding
+        task.  Other row counts capture on first use.  On the CPU the same
+        steps run eagerly.  A step that fails to capture raises."""
+        def inputs(b: int, pad_id: int) -> List[torch.Tensor]:
             ids = torch.full((1, b), pad_id, dtype=torch.long)
             ids[:, 0] = 1
-            return (ids.to(self.device),
-                    torch.ones((1, b), dtype=torch.int32, device=self.device))
+            return [ids, torch.ones((1, b), dtype=torch.int32)]
 
-        with torch.inference_mode():
-            for t in list(self._tasks.values()):
-                if t.kind != "embedding":
+        buckets = list(buckets or self.cfg.seq_len_buckets)
+        for t in list(self._tasks.values()):
+            if t.name in self._task_group:
+                continue  # a fused member's steps are its group's
+            for b in buckets:
+                if b > t.max_seq_len:
                     continue
-                for b in buckets or self.cfg.seq_len_buckets:
-                    if b > t.max_seq_len:
-                        continue
-                    ids, mask = inputs(b, t.pad_id)
+                if t.kind == "embedding":
                     for el, od in self._matryoshka_variants():
-                        t.module(ids, mask, exit_layer=el, output_dim=od)
-            for g in list(self._groups_by_gid.values()):
-                demux = g.demux
-                meta = self._serving_meta(demux)
-                pair = torch.zeros(1, dtype=torch.int32, device=self.device)
-                flavors = [f for f, need in
-                           (("seq", demux["bank"] is not None),
-                            ("tok", demux["tok_bank"] is not None),
-                            ("both", demux["bank"] is not None
-                             and demux["tok_bank"] is not None)) if need]
-                for b in buckets or self.cfg.seq_len_buckets:
-                    if b > g.max_seq_len:
-                        continue
-                    ids, mask = inputs(b, g.pad_id)
-                    for flavor in flavors:
-                        pairs = (pair, pair) if meta["bgmv"] \
-                            and flavor != "tok" else ()
-                        g.forward(ids, mask, flavor, demux, meta["epilogue"],
-                                  *pairs)
+                        self._embed_step(t, b, 1, el, od,
+                                         inputs(b, t.pad_id))
+                else:
+                    self._task_step(t, b, 1, inputs(b, t.pad_id))
+        for g in list(self._groups_by_gid.values()):
+            demux = g.demux
+            meta = self._serving_meta(demux)
+            flavors = [f for f, need in
+                       (("seq", demux["bank"] is not None),
+                        ("tok", demux["tok_bank"] is not None),
+                        ("both", demux["bank"] is not None
+                         and demux["tok_bank"] is not None)) if need]
+            pairs = [torch.zeros(1, dtype=torch.int32)] * 2
+            for b in buckets:
+                if b > g.max_seq_len:
+                    continue
+                for flavor in flavors:
+                    use_bgmv = meta["bgmv"] and flavor != "tok"
+                    self._fused_step(g, demux, flavor, b, 1, meta, use_bgmv,
+                                     inputs(b, g.pad_id)
+                                     + (pairs if use_bgmv else []))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def steps(self) -> List[dict]:
-        """Recent trunk-forward step records (oldest first)."""
+        """Recent step records (oldest first); ``graph`` says whether the
+        step was ``captured``, ``replayed`` or run ``eager`` (CPU)."""
         with self._lock:
             return list(self._steps)
 
     def shape_census(self) -> Dict[str, list]:
-        """Distinct (padded_batch, bucket) device shapes per trunk group."""
+        """Distinct (padded_batch, bucket) device shapes per batch group."""
         with self._lock:
             return {k: sorted(v) for k, v in self._shapes.items()}
+
+    def graph_report(self) -> Dict[str, Dict[str, Any]]:
+        """Per live step cache (a trunk group's snapshot, a task's): graphs
+        captured, their capture seconds, and the bytes the card reserved
+        while they captured."""
+        with self._lock:
+            caches = self._live_caches()
+        return {c.name: {"graphs": c.captured(),
+                         "capture_s": c.capture_seconds(),
+                         "pool_bytes": c.pool_bytes()} for c in caches}
+
+    def _live_caches(self) -> List[StepGraphs]:
+        """Every live step cache (caller holds self._lock)."""
+        return ([g.demux["graphs"] for g in self._groups_by_gid.values()]
+                + [t.graphs for t in self._tasks.values()])
 
     def _matryoshka_variants(self) -> List[tuple]:
         """(exit_layer, output_dim) pairs an embedding task serves: the
@@ -590,7 +799,13 @@ class InferenceEngine:
                 + [(el, od) for el in layers for od in dims])
 
     def shutdown(self) -> None:
+        """Stop the batcher and drop every captured graph (their pools
+        return to the card)."""
         self.batcher.shutdown()
+        with self._lock:
+            caches = self._live_caches()
+        for c in caches:
+            c.retire()
 
     # -- internals ---------------------------------------------------------
 
@@ -607,10 +822,13 @@ class InferenceEngine:
         return t
 
     @staticmethod
-    def _encode(g: TrunkGroup, text: str, enc_cache=None) -> Encoding:
+    def _encode(owner, text: str, enc_cache=None) -> Encoding:
+        """Encode with a trunk group's or a task's tokenizer and
+        max_seq_len."""
         if enc_cache is None:
-            return g.tokenizer.encode(text, max_length=g.max_seq_len)
-        return enc_cache.get_or_encode(g.tokenizer, text, g.max_seq_len)
+            return owner.tokenizer.encode(text, max_length=owner.max_seq_len)
+        return enc_cache.get_or_encode(owner.tokenizer, text,
+                                       owner.max_seq_len)
 
     @staticmethod
     def _stack_items(items: List[BatchItem], bucket: int, padded_n: int,
@@ -629,12 +847,132 @@ class InferenceEngine:
             mask[i, :L] = enc.attention_mask[:L]
         return ids, mask, clipped
 
+    # -- the compiled-step census and the steps ----------------------------
+
+    def _note_shape(self, group: str, shape: tuple) -> bool:
+        """Record a device shape; True the first time the group runs it."""
+        shape = tuple(shape)
+        with self._lock:
+            seen = self._shapes.setdefault(group, set())
+            fresh = shape not in seen
+            seen.add(shape)
+        return fresh
+
+    def _step_fresh(self, group: str, variant: str, shape: tuple) -> bool:
+        """True while (group, variant, *shape) has not executed on a live
+        step cache: its next execution is a graph capture on the card (the
+        fused flavors, the per-task ``split`` and the ``embed`` steps are
+        distinct graphs; shape_census stays variant-free).  The census is
+        the caches' own, so a retired snapshot's keys leave with it."""
+        key = (group, variant, *shape)
+        with self._lock:
+            caches = self._live_caches()
+        return not any(key in c.keys() for c in caches)
+
+    @staticmethod
+    def _execute(cache: StepGraphs, group: str, variant: str, shape: tuple,
+                 fn: Callable, inputs: Sequence[torch.Tensor]) -> tuple:
+        """One step through ``cache`` under the key (group, variant,
+        *shape).  Returns (host outputs, how)."""
+        return cache.run((group, variant, *shape), fn, inputs)
+
+    def _fused_step(self, g: TrunkGroup, demux: dict, flavor: str,
+                    bucket: int, padded_n: int, meta: dict, use_bgmv: bool,
+                    inputs: Sequence[torch.Tensor]) -> tuple:
+        """A trunk group's step: keyed on the flavor, the shape, the padded
+        pair count and the kernel toggles, which the batch read from the
+        live knobs (the quant mode is the snapshot's own, and every
+        snapshot has its own cache)."""
+        shape = (bucket, padded_n, len(inputs[2]) if use_bgmv else 0,
+                 meta["epilogue"], use_bgmv)
+
+        def step(ids, mask, *pairs):
+            return g.forward(ids, mask, flavor, demux, meta["epilogue"],
+                             *pairs)
+
+        return self._execute(demux["graphs"], f"trunk:{g.gid}", flavor,
+                             shape, step, inputs)
+
+    def _task_step(self, t: _Task, bucket: int, padded_n: int,
+                   inputs: Sequence[torch.Tensor]) -> tuple:
+        """A per-task step: the module's own float32 forward."""
+        return self._execute(t.graphs, f"task:{t.name}", "split",
+                             (bucket, padded_n),
+                             lambda ids, mask: (t.module(ids, mask),),
+                             inputs)
+
+    def _embed_step(self, t: _Task, bucket: int, padded_n: int,
+                    exit_layer: Optional[int], output_dim: Optional[int],
+                    inputs: Sequence[torch.Tensor]) -> tuple:
+        """An embedding step at one 2D-Matryoshka variant."""
+        return self._execute(
+            t.graphs, f"task:{t.name}", "embed",
+            (bucket, padded_n, exit_layer, output_dim),
+            lambda ids, mask: (t.module(ids, mask, exit_layer=exit_layer,
+                                        output_dim=output_dim),),
+            inputs)
+
+    def _record(self, rec: Dict[str, Any]) -> None:
+        with self._lock:
+            self.trunk_forwards += 1
+            self._steps.append(rec)
+
+    # -- the batch runners -------------------------------------------------
+
     def _run_batch(self, group_key: Hashable,
                    items: List[BatchItem]) -> Sequence[Any]:
+        try:
+            return self._dispatch(group_key, items)
+        except SnapshotRetired:
+            # a rebuild or a flip retired the snapshot this batch read:
+            # it runs once more, on the live one
+            return self._dispatch(group_key, items)
+
+    def _dispatch(self, group_key: Hashable,
+                  items: List[BatchItem]) -> Sequence[Any]:
         if group_key[0] == TRUNK_KEY:
             _, gid, bucket = group_key
             return self._run_fused_batch(gid, bucket, items)
-        return self._run_embed_batch(*group_key, items)
+        if self._require(group_key[0]).kind == "embedding":
+            return self._run_embed_batch(*group_key, items)
+        return self._run_task_batch(*group_key, items)
+
+    def _run_task_batch(self, task: str, bucket: int,
+                        items: List[BatchItem]) -> Sequence[Any]:
+        """One per-task forward of the task's own module (float32, whatever
+        its group's quant mode): rows padded to a power of two, logits
+        demuxed with the task's label set."""
+        t = self._require(task)
+        n = len(items)
+        padded_n = pow2_batch(n, self.cfg.max_batch_size)
+        ids, mask, clipped = self._stack_items(items, bucket, padded_n,
+                                               t.pad_id)
+        self._note_shape(f"task:{task}", (padded_n, bucket))
+        t0 = time.perf_counter()
+        (logits,), how = self._task_step(
+            t, bucket, padded_n, [torch.from_numpy(ids),
+                                  torch.from_numpy(mask)])
+        model = getattr(t.module, "model", None)
+        self._record({
+            "group": f"task:{task}", "bucket": bucket, "flavor": "split",
+            "rows": n, "padded_rows": padded_n,
+            "layers": model.layers_run() if model is not None else None,
+            "seconds": time.perf_counter() - t0, "graph": how})
+        logits = logits.numpy()
+        now = time.perf_counter()
+        out: List[Any] = []
+        for i, item in enumerate(items):
+            enc = item.payload.encoding
+            latency = now - item.payload.submit_t
+            trunc = enc.truncated or clipped[i]
+            if t.kind == "sequence":
+                p = _softmax(logits[i][None])[0]
+                out.append(self._demux_seq(task, p, latency, trunc))
+            else:
+                L = min(len(enc), bucket)
+                out.append(self._demux_tok(task, _softmax(logits[i, :L]),
+                                           item, enc, L, latency, trunc))
+        return out
 
     def _run_embed_batch(self, task: str, bucket: int,
                          exit_layer: Optional[int],
@@ -646,24 +984,18 @@ class InferenceEngine:
         n = len(items)
         padded_n = pow2_batch(n, self.cfg.max_batch_size)
         ids, mask, _ = self._stack_items(items, bucket, padded_n, t.pad_id)
-        with self._lock:
-            self._shapes.setdefault(f"task:{task}", set()).add(
-                (padded_n, bucket))
+        self._note_shape(f"task:{task}", (padded_n, bucket))
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            emb = t.module(torch.from_numpy(ids).to(self.device),
-                           torch.from_numpy(mask).to(self.device),
-                           exit_layer=exit_layer, output_dim=output_dim)
-            emb = emb.float().cpu().numpy()
-        seconds = time.perf_counter() - t0
-        with self._lock:
-            self.trunk_forwards += 1
-            self._steps.append({
-                "group": f"task:{task}", "bucket": bucket, "flavor": "embed",
-                "rows": n, "padded_rows": padded_n, "exit_layer": exit_layer,
-                "output_dim": output_dim,
-                "layers": t.module.model.layers_run(exit_layer),
-                "seconds": seconds})
+        (emb,), how = self._embed_step(
+            t, bucket, padded_n, exit_layer, output_dim,
+            [torch.from_numpy(ids), torch.from_numpy(mask)])
+        self._record({
+            "group": f"task:{task}", "bucket": bucket, "flavor": "embed",
+            "rows": n, "padded_rows": padded_n, "exit_layer": exit_layer,
+            "output_dim": output_dim,
+            "layers": t.module.model.layers_run(exit_layer),
+            "seconds": time.perf_counter() - t0, "graph": how})
+        emb = emb.numpy()
         return [emb[i] for i in range(n)]
 
     def _run_fused_batch(self, gid: str, bucket: int,
@@ -719,31 +1051,21 @@ class InferenceEngine:
         if use_bgmv:
             pr, pt, pair_index = self._bgmv_pairs(items, urow, demux)
             pairs = (pr, pt)
-        with self._lock:
-            self._shapes.setdefault(f"trunk:{g.gid}", set()).add(
-                (padded_n, bucket))
+        self._note_shape(f"trunk:{g.gid}", (padded_n, bucket))
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(self.device)
-            mask_t = torch.from_numpy(mask).to(self.device)
-            pairs_t = [torch.from_numpy(a).to(self.device) for a in pairs]
-            seq_t, tok_t = g.forward(ids_t, mask_t, flavor, demux,
-                                     meta["epilogue"], *pairs_t)
-            seq_logits = seq_t.float().cpu().numpy() \
-                if seq_t is not None else None
-            tok_logits = tok_t.float().cpu().numpy() \
-                if tok_t is not None else None
-        seconds = time.perf_counter() - t0
-        with self._lock:
-            self.trunk_forwards += 1
-            self._steps.append({
-                "group": g.gid, "bucket": bucket, "flavor": flavor,
-                "rows": len(uniq), "padded_rows": padded_n,
-                "quant": meta["quant"],
-                "epilogue": meta["epilogue"], "bgmv": use_bgmv,
-                "pairs": len(pair_index),
-                "padded_pairs": len(pairs[0]) if pairs else 0,
-                "seconds": seconds})
+        (seq_t, tok_t), how = self._fused_step(
+            g, demux, flavor, bucket, padded_n, meta, use_bgmv,
+            [torch.from_numpy(a) for a in (ids, mask, *pairs)])
+        seq_logits = seq_t.numpy() if seq_t is not None else None
+        tok_logits = tok_t.numpy() if tok_t is not None else None
+        self._record({
+            "group": g.gid, "bucket": bucket, "flavor": flavor,
+            "rows": len(uniq), "padded_rows": padded_n,
+            "quant": meta["quant"],
+            "epilogue": meta["epilogue"], "bgmv": use_bgmv,
+            "pairs": len(pair_index),
+            "padded_pairs": len(pairs[0]) if pairs else 0,
+            "seconds": time.perf_counter() - t0, "graph": how})
 
         now = time.perf_counter()
         out: List[Any] = []

@@ -126,6 +126,7 @@ def make_shared_trunk_engine(
     tokenizer=None,
     max_seq_len: int = 512,
     lora: LoRAConfig = LoRAConfig(rank=4, alpha=8.0),
+    fuse: Optional[bool] = None,
 ) -> InferenceEngine:
     """Engine whose tasks share ONE ModernBERT trunk — the fused
     classifier-bank shape.
@@ -138,7 +139,9 @@ def make_shared_trunk_engine(
     (default ``TINY``).  ``flax_params``: {task: Flax tree} from the JAX
     package — the trunk loads from the first task's tree (every task's
     trunk subtree is the same there), each head from its own; otherwise
-    all weights come from ``seed``."""
+    all weights come from ``seed``.  ``fuse``: forwarded to
+    ``register_task`` (None → ``engine.fuse_trunks``); ``False`` serves
+    every task on the per-task path over the one trunk."""
     tasks = SHARED_TRUNK_TASKS if tasks is None else tasks
     cfg = engine_cfg or InferenceEngineConfig(
         max_batch_size=8, max_wait_ms=1.0, seq_len_buckets=[32, 128, 512])
@@ -181,7 +184,7 @@ def make_shared_trunk_engine(
                     module.lora_B.copy_(torch.from_numpy(B))
         trunk = module.model
         engine.register_task(name, kind, module, tok, labels,
-                             max_seq_len=max_seq_len)
+                             max_seq_len=max_seq_len, fuse=fuse)
     return engine
 
 

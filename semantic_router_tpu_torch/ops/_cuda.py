@@ -11,11 +11,15 @@ kernel compiles at its first launch, or all at once, in parallel, through
 
 Every ``CudaKernel`` keeps a plain launch counter that its wrapper bumps
 once per launch; ``reset_launch_counts``/``launch_counts`` let a run show
-that its main path went through the kernels.
+that its main path went through the kernels.  A CUDA graph capture runs
+the wrappers but launches nothing: inside ``recording_launches`` the
+wrappers' launches are recorded instead of counted, and every replay of
+the graph adds that record (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -108,12 +112,20 @@ class CudaKernel:
                 fn = self._fn
         return fn
 
-    def count(self, dtype: Optional[torch.dtype] = None) -> None:
-        key = str(dtype).replace("torch.", "") if dtype is not None else "?"
+    def count(self, key: str, n: int = 1) -> None:
+        """Add ``n`` launches under the dtype name ``key``."""
         with self._lock:
-            self.launches += 1
+            self.launches += n
             self.launches_by_dtype[key] = \
-                self.launches_by_dtype.get(key, 0) + 1
+                self.launches_by_dtype.get(key, 0) + n
+
+
+def _dtype_key(dtype: Optional[torch.dtype]) -> str:
+    return str(dtype).replace("torch.", "") if dtype is not None else "?"
+
+
+# per thread: the launch record of a graph capture in progress, or None
+_RECORDING = threading.local()
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
@@ -148,10 +160,40 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
 def check_launch(kernel: CudaKernel, rc: int,
                  dtype: Optional[torch.dtype] = None) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a C entry point;
-    count the launch (under the dtype it ran in)."""
+    count the launch (under the dtype it ran in), or record it when this
+    thread is capturing a graph."""
     if rc != 0:
         raise RuntimeError(f"{kernel.name} launch failed: CUDA error {rc}")
-    kernel.count(dtype)
+    key = _dtype_key(dtype)
+    log = getattr(_RECORDING, "log", None)
+    if log is None:
+        kernel.count(key)
+        return
+    by_dtype = log.setdefault(kernel.name, {})
+    by_dtype[key] = by_dtype.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, this thread's launches are recorded in the
+    yielded {kernel: {dtype: n}} and not counted: a graph capture runs
+    the wrappers, the card runs nothing."""
+    prev = getattr(_RECORDING, "log", None)
+    log: Dict[str, Dict[str, int]] = {}
+    _RECORDING.log = log
+    try:
+        yield log
+    finally:
+        _RECORDING.log = prev
+
+
+def add_launches(log: Dict[str, Dict[str, int]]) -> None:
+    """Count the launches of one graph replay: the record its capture
+    made."""
+    kernels = registry()
+    for name, by_dtype in log.items():
+        for key, n in by_dtype.items():
+            kernels[name].count(key, n)
 
 
 def registry() -> Dict[str, CudaKernel]:

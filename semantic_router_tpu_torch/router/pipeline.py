@@ -35,6 +35,10 @@ from . import headers as H
 
 log = logging.getLogger(__name__)
 
+# the engine task the semantic cache (when its config names none) and the
+# server's embeddings and similarity routes embed with
+EMBEDDING_TASK = "embedding"
+
 
 # decision algorithms that run several models downstream: the primary
 # model is the highest-weight candidate
@@ -78,15 +82,16 @@ class Router:
     """The routing pipeline.  Embed directly, or serve via router.server.
 
     With ``semantic_cache.enabled`` the router keeps a semantic cache on
-    the engine's ``semantic_cache.embedding_model`` task (``embedding``
-    when that is empty), provided the engine serves it."""
+    the engine's ``semantic_cache.embedding_model`` task
+    (``EMBEDDING_TASK`` when that is empty), provided the engine serves
+    it."""
 
     def __init__(self, cfg: RouterConfig, engine=None) -> None:
         self.cfg = cfg
         self.engine = engine
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
-        cache_task = cfg.semantic_cache.embedding_model or "embedding"
+        cache_task = cfg.semantic_cache.embedding_model or EMBEDDING_TASK
         self.cache = None
         if cfg.semantic_cache.enabled and engine is not None \
                 and engine.has_task(cache_task):

@@ -4,6 +4,17 @@ stamped with the router's x-vsr-* headers; a semantic-cache hit is
 answered by the router without the backend, and a routed 200 goes through
 the router's response path (the cache write).  ``GET /health`` reports
 liveness.  Standard library only (``ThreadingHTTPServer`` + ``http.client``).
+
+The Classification API answers as the reference server's handlers do
+with no API keys configured:
+
+  POST /api/v1/classify/intent|pii|security|fact-check|user-feedback
+       (``windowed`` / ``stride`` classify a long text over stride windows)
+  POST /api/v1/classify/combined   every loaded task on one text
+  POST /api/v1/classify/batch      one task over ``texts``
+  POST /api/v1/embeddings          ``input``, ``dimensions`` → output_dim
+  POST /api/v1/similarity[/batch]  cosine of embedded text pairs
+  GET  /api/v1                     the routes this server answers
 """
 
 from __future__ import annotations
@@ -15,7 +26,31 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from .pipeline import Router
+from .pipeline import EMBEDDING_TASK, Router
+
+# the routes this server answers (the reference's discovery document,
+# trimmed to what the port serves)
+API_CATALOG = {"endpoints": [
+    {"path": p, "method": m} for p, m in (
+        ("/health", "GET"),
+        ("/api/v1", "GET"),
+        ("/v1/chat/completions", "POST"),
+        ("/api/v1/classify/intent", "POST"),
+        ("/api/v1/classify/pii", "POST"),
+        ("/api/v1/classify/security", "POST"),
+        ("/api/v1/classify/fact-check", "POST"),
+        ("/api/v1/classify/user-feedback", "POST"),
+        ("/api/v1/classify/combined", "POST"),
+        ("/api/v1/classify/batch", "POST"),
+        ("/api/v1/embeddings", "POST"),
+        ("/api/v1/similarity", "POST"),
+        ("/api/v1/similarity/batch", "POST"),
+    )]}
+
+# Classification API route name → engine task
+CLASSIFY_TASKS = {"intent": "intent", "security": "jailbreak", "pii": "pii",
+                  "fact-check": "fact_check",
+                  "user-feedback": "user_feedback"}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -28,19 +63,133 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         if self.path in ("/health", "/healthz"):
             self._reply(200, {"status": "ok"})
+        elif self.path.split("?", 1)[0] == "/api/v1":
+            self._reply(200, API_CATALOG)
         else:
             self._reply(404, {"error": "not found"})
 
     def do_POST(self):
-        if self.path != "/v1/chat/completions":
+        path = self.path.split("?", 1)[0]
+        length = int(self.headers.get("content-length", 0))
+        data = self.rfile.read(length)
+        known = path == "/v1/chat/completions" or path in (
+            "/api/v1/embeddings", "/api/v1/similarity",
+            "/api/v1/similarity/batch") \
+            or path.startswith("/api/v1/classify/")
+        if not known:
             self._reply(404, {"error": "not found"})
             return
-        length = int(self.headers.get("content-length", 0))
         try:
-            body = json.loads(self.rfile.read(length) or b"{}")
+            body = json.loads(data or b"{}")
         except json.JSONDecodeError:
             self._reply(400, {"error": {"message": "request body is not JSON"}})
             return
+        if path == "/v1/chat/completions":
+            self._chat(body)
+            return
+        try:
+            if path.startswith("/api/v1/classify/"):
+                self._classify(path.rsplit("/", 1)[1], body)
+            elif path == "/api/v1/embeddings":
+                self._embeddings(body)
+            else:
+                self._similarity(body)
+        except Exception as exc:
+            self._reply(500, {"error": {
+                "message": f"{type(exc).__name__}: {exc}"}})
+
+    # -- the Classification API --------------------------------------------
+
+    def _classify(self, task: str, body: dict) -> None:
+        eng = self.server.owner.router.engine
+        if eng is None:
+            self._reply(503, {"error": "no inference engine"})
+            return
+        if task == "batch":
+            results = eng.classify_batch(body.get("task", "intent"),
+                                         body.get("texts", []))
+            self._reply(200, {"results": [
+                dict({"label": r.label, "confidence": r.confidence},
+                     **({"truncated": True} if r.truncated else {}))
+                for r in results]})
+            return
+        if task == "combined":
+            text = body.get("text", "")
+            out = {}
+            for api_name, engine_task in CLASSIFY_TASKS.items():
+                if not eng.has_task(engine_task):
+                    continue
+                if engine_task == "pii":
+                    r = eng.token_classify(engine_task, text)
+                    out[api_name] = {"entities": [e.__dict__
+                                                  for e in r.entities]}
+                else:
+                    r = eng.classify(engine_task, text)
+                    out[api_name] = {"label": r.label, "class_idx": r.index,
+                                     "confidence": r.confidence}
+            self._reply(200, out)
+            return
+        engine_task = CLASSIFY_TASKS.get(task, task)
+        if not eng.has_task(engine_task):
+            self._reply(404, {"error": f"task {engine_task!r} not loaded"})
+            return
+        text = body.get("text", "")
+        if engine_task == "pii":
+            r = eng.token_classify(engine_task, text)
+            resp = {"entities": [e.__dict__ for e in r.entities]}
+        else:
+            if body.get("windowed"):
+                r = eng.classify_windowed(engine_task, text,
+                                          stride=int(body.get("stride", 64)))
+            else:
+                r = eng.classify(engine_task, text)
+            resp = {"label": r.label, "class_idx": r.index,
+                    "confidence": r.confidence, "probs": r.probs}
+        if r.truncated:
+            # the model never saw the input's tail: a consumer reading
+            # "no entities" or a label as covering all of it must see this
+            resp["truncated"] = True
+        self._reply(200, resp)
+
+    def _embeddings(self, body: dict) -> None:
+        router = self.server.owner.router
+        eng = router.engine
+        task = body.get("model", EMBEDDING_TASK)
+        if eng is None or not eng.has_task(task):
+            self._reply(503, {"error": "embedding task not loaded"})
+            return
+        texts = body.get("input")
+        if isinstance(texts, str):
+            texts = [texts]
+        embs = eng.embed(task, texts, output_dim=body.get("dimensions"))
+        self._reply(200, {"object": "list", "data": [
+            {"object": "embedding", "index": i, "embedding": e.tolist()}
+            for i, e in enumerate(embs)]})
+
+    def _similarity(self, body: dict) -> None:
+        router = self.server.owner.router
+        eng = router.engine
+        task = EMBEDDING_TASK
+        if eng is None or not eng.has_task(task):
+            self._reply(503, {"error": "embedding task not loaded"})
+            return
+        pairs = body.get("pairs")
+        if pairs:
+            out = []
+            for p in pairs:
+                e = eng.embed(task, [p.get("text_a", ""),
+                                     p.get("text_b", "")])
+                out.append(float(e[0] @ e[1]))
+            self._reply(200, {"similarities": out})
+            return
+        a = body.get("text_a") or body.get("text1", "")
+        b = body.get("text_b") or body.get("text2", "")
+        e = eng.embed(task, [a, b])
+        self._reply(200, {"similarity": float(e[0] @ e[1])})
+
+    # -- chat ----------------------------------------------------------------
+
+    def _chat(self, body: dict) -> None:
         srv: RouterServer = self.server.owner
         result = srv.router.route(body, dict(self.headers.items()))
         if result.kind in ("cache_hit", "blocked"):

@@ -170,7 +170,9 @@ def build_router(cfg: RouterConfig, engine=None):
 def serve(config: str, backend: str, host: str = "127.0.0.1",
           port: int = 8801, device: DeviceLike = None) -> None:
     """Load the config, build engine + router, and serve
-    ``POST /v1/chat/completions`` until interrupted."""
+    ``POST /v1/chat/completions`` and the Classification API until
+    interrupted.  The engine warms (captures every served step at batch
+    1) before the server accepts a request; a warmup failure raises."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
 

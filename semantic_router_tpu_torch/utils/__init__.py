@@ -6,6 +6,7 @@ from .tokenization import (
     HFTokenizer,
     Tokenizer,
     decode_entity_spans,
+    encode_windows,
 )
 
 __all__ = [
@@ -15,5 +16,6 @@ __all__ = [
     "HFTokenizer",
     "Tokenizer",
     "decode_entity_spans",
+    "encode_windows",
     "resolve_device",
 ]

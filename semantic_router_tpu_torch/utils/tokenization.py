@@ -5,6 +5,8 @@
 - ``HashTokenizer`` is the deterministic model-free stand-in for tests and
   the smoke run: one token per whitespace word, exact char offsets.
 - ``EncodingCache`` is the request-scoped tokenize-once cache.
+- ``encode_windows`` splits a long input into overlapping stride windows,
+  each a valid CLS/SEP-framed input.
 
 Both tokenizers emit ``Encoding`` with char offsets so token-classification
 span decoding is tokenizer-exact.
@@ -162,6 +164,55 @@ class EncodingCache:
         if on_miss is not None:
             on_miss()
         return enc
+
+
+def encode_windows(tokenizer: "Tokenizer", text: str, max_length: int,
+                   stride: int = 0) -> List[Encoding]:
+    """The whole text as overlapping windows of at most ``max_length``
+    tokens: encode once (absolute char offsets kept), then slice the
+    content into windows where consecutive windows share ``stride``
+    tokens.  The special-token frame of the full encode (leading and
+    trailing tokens with (0, 0) offsets, [CLS]/[SEP]) is re-attached to
+    every window, so a CLS-pooled classifier reads a real [CLS] on each.
+    Windows are not marked truncated (nothing was dropped) and carry
+    ``total_tokens`` = the full encode's count.  A text that fits comes
+    back as its one full encode."""
+    if max_length <= 0:
+        return [tokenizer.encode(text)]
+    full = tokenizer.encode(text)
+    n = len(full)
+    if n <= max_length:
+        return [full]
+    pre = 1 if full.offsets and full.offsets[0] == (0, 0) else 0
+    post = 1 if n > pre and full.offsets[-1] == (0, 0) else 0
+    budget = max_length - pre - post  # content tokens per window
+    if stride < 0 or stride >= budget:
+        raise ValueError(f"stride must be in [0, {budget}) "
+                         f"(max_length minus the special-token frame); "
+                         f"got {stride}")
+    head = slice(0, pre)
+    tail = slice(n - post, n)
+    body_ids = full.ids[pre:n - post]
+    body_mask = full.attention_mask[pre:n - post]
+    body_offs = full.offsets[pre:n - post]
+    step = budget - stride
+    windows: List[Encoding] = []
+    start = 0
+    while start < len(body_ids):
+        end = min(start + budget, len(body_ids))
+        windows.append(Encoding(
+            ids=full.ids[head] + body_ids[start:end] + full.ids[tail],
+            attention_mask=(full.attention_mask[head] + body_mask[start:end]
+                            + full.attention_mask[tail]),
+            offsets=(full.offsets[head] + body_offs[start:end]
+                     + full.offsets[tail]),
+            truncated=False,
+            total_tokens=n,
+        ))
+        if end == len(body_ids):
+            break
+        start += step
+    return windows
 
 
 def decode_entity_spans(text: str, offsets: List[Tuple[int, int]],
