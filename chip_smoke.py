@@ -84,9 +84,27 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    captures in the first burst that meets it, then replays; graphs,
    capture seconds and pool bytes printed), and runs the ``cuda``-marked
    tests of ``tests/test_torch_graphs.py`` in a pytest process of its own.
+8. respond — phase 3's trunk and heads with new seeded fact_check,
+   hallucination (token) and nli heads, and phase 5's embedding model,
+   behind a router whose decisions select among three models each by
+   ``knn``, ``mlp`` and ``kmeans`` over query embeddings and run the
+   ``system_prompt``, ``memory`` (auto-store), ``tools`` (auto-selection
+   over a 16-tool DB) and ``hallucination`` (NLI on) plugins.  The
+   fact_check bias splits the prompts at the gate and the hallucination
+   bias flags ~5% of answer tokens (both set from the heads' margins on
+   the card).  64 chat requests from 16 users go through the HTTP server
+   and the mock backend (answers of 300-2000 characters): the first alone,
+   then 63 over 16 clients.  K1 launches must equal the layers the
+   forwards ran and K2's the head banks the fused steps applied; the gate
+   must go both ways; the mlp and kmeans selectors must have fitted on the
+   card, holding the engine's capture gate.  Route, response-path and
+   feedback times (p50 / p95), NLI calls and captures are printed, the
+   first request apart.  Then 8 requests run in order through routers on
+   the card's and the CPU's engines: decisions, models, reasons, headers
+   and bodies equal, span scores within 1e-4, selector states equal.
 
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3 and 5), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6 and 8), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -97,6 +115,7 @@ kernel phase.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -842,6 +861,11 @@ def phase_kernels() -> dict:
                     window=128, lengths=[512] * 16),
         check_flash("main_global_f32_full", 16, 12, 512, 64, f32, 1e-4,
                     lengths=[512] * 16),
+        # phase 8: one response of ~330 tokens in the 512 bucket
+        check_flash("respond_global_B1", 1, 12, 512, 64, f32, 1e-4,
+                    lengths=[333]),
+        check_flash("respond_local_B1", 1, 12, 512, 64, f32, 1e-4,
+                    window=128, lengths=[333]),
         check_flash("mask_holes", 2, 4, 384, 64, f32, 1e-4,
                     mask=_holes_mask(2, 384)),
         check_flash("mask_holes_window128", 2, 4, 384, 64, f32, 1e-4,
@@ -884,6 +908,12 @@ def phase_kernels() -> dict:
         check_epilogue("seq_rows16_T3_bf16", 16, 3, 768, 768, bf16, 2e-2,
                        True, True),
         check_epilogue("rows1_T3", 1, 3, 768, 768, f32, 1e-4, True, True),
+        # phase 8: the token bank (pii, hallucination) over one 512-token
+        # response; the sequence bank (four heads) over one NLI span
+        check_epilogue("respond_tok_rows512_T2", 512, 2, 768, 768, f32,
+                       1e-4, False, False),
+        check_epilogue("respond_seq_rows1_T4", 1, 4, 768, 768, f32, 1e-4,
+                       False, False),
         check_epilogue("rows64_T3", 64, 3, 768, 768, f32, 1e-4, True, True),
         check_epilogue("rows65_T3", 65, 3, 768, 768, f32, 1e-4, True, True),
         check_epilogue("unaligned_rows100_D30_H37", 100, 2, 30, 37, f32,
@@ -2039,6 +2069,9 @@ def _floats_close(a, b, tol: float) -> bool:
     if isinstance(a, dict):
         return isinstance(b, dict) and a.keys() == b.keys() \
             and all(_floats_close(a[k], b[k], tol) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) \
+            and all(_floats_close(x, y, tol) for x, y in zip(a, b))
     if isinstance(a, float) or isinstance(b, float):
         return abs(a - b) <= tol
     return a == b
@@ -2902,6 +2935,557 @@ def phase_graphs(modules3: dict, modules5: dict, wide) -> dict:
     return out
 
 
+# -- phase 8: selection, request mutation and the response path -------------
+
+RESPOND_MODELS = {"code": ["code-small", "code-mid", "code-large"],
+                  "travel": ["trip-small", "trip-mid", "trip-large"],
+                  "health": ["care-small", "care-mid", "care-large"]}
+# the phase's new heads over phase 3's trunk: (name, kind, labels, seed)
+RESPOND_HEADS = [
+    ("fact_check", "sequence", ["needs_fact_check", "no_fact_check_needed"],
+     SEED + 801),
+    ("hallucination", "token", ["SUPPORTED", "HALLUCINATED"], SEED + 802),
+    ("nli", "sequence", ["entailment", "neutral", "contradiction"],
+     SEED + 803)]
+# share of response tokens the hallucination head flags (its bias is set
+# so; the spans it makes go to NLI one at a time)
+HALU_SHARE = 0.05
+RESPOND_TOOLS = [
+    {"type": "function", "function": {"name": n, "description": d}}
+    for n, d in (
+        ("run_python", "execute a python snippet and return its output"),
+        ("lint_code", "check source code for style and bugs"),
+        ("search_docs", "search library documentation"),
+        ("git_log", "list recent commits of a repository"),
+        ("book_flight", "search and book a flight between two cities"),
+        ("hotel_search", "find hotels near a place for given dates"),
+        ("currency", "convert an amount between currencies"),
+        ("weather", "weather forecast for a city"),
+        ("visa_rules", "entry and visa rules of a country"),
+        ("symptom_check", "list likely causes of a symptom"),
+        ("sleep_log", "read the user's sleep records"),
+        ("diet_plan", "draft a meal plan for a calorie target"),
+        ("pharmacy", "find an open pharmacy nearby"),
+        ("calendar", "create a calendar event"),
+        ("send_email", "send an email to a contact"),
+        ("translate", "translate text between languages"))]
+SYSTEM_PROMPT = "You are a careful assistant; cite sources when you can."
+
+
+def _respond_decision(name, priority, topic, algorithm, plugins):
+    return {"name": name, "priority": priority,
+            "rules": {"operator": "OR", "conditions": [
+                {"type": "keyword", "name": topic}]},
+            "modelRefs": [{"model": m, "weight": w} for m, w in
+                          zip(RESPOND_MODELS[topic], (0.5, 0.3, 0.2))],
+            "algorithm": algorithm, "plugins": plugins}
+
+
+def _respond_plugins(mode: str) -> list:
+    return [{"type": "system_prompt", "configuration": {
+                "mode": mode, "system_prompt": SYSTEM_PROMPT}},
+            {"type": "memory", "configuration": {
+                "auto_store": True, "retrieval_limit": 3}},
+            {"type": "tools", "configuration": {
+                "auto_select": True, "top_k": 3,
+                "similarity_threshold": -1.0}},
+            {"type": "hallucination", "configuration": {
+                "use_nli": True, "include_hallucination_details": True}}]
+
+
+RESPOND_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": ROUTER_CONFIG["engine"],
+    "tool_selection": {"tools": RESPOND_TOOLS},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m, "quality_score": 0.6 + 0.15 * i}
+                       for ms in RESPOND_MODELS.values()
+                       for i, m in enumerate(ms)]
+        + [{"name": "qwen3-8b"}],
+        "signals": {
+            "keywords": [
+                {"name": "code", "keywords": ["python", "code", "debug"]},
+                {"name": "travel", "keywords": ["trip", "flight", "travel"]},
+                {"name": "health", "keywords": ["sleep", "diet", "health"]}],
+            "fact_check": [{"name": "needs_fact_check"},
+                           {"name": "no_fact_check_needed"}]},
+        "decisions": [
+            _respond_decision("code_knn", 300, "code",
+                              {"type": "knn", "k": 2, "seed": 0},
+                              _respond_plugins("insert")),
+            _respond_decision("travel_mlp", 250, "travel",
+                              {"type": "mlp", "hidden": 64,
+                               "refit_every": 4, "seed": 0},
+                              _respond_plugins("replace")),
+            _respond_decision("health_kmeans", 200, "health",
+                              {"type": "kmeans", "n_clusters": 3,
+                               "refit_every": 4, "seed": 0},
+                              _respond_plugins("insert")),
+            # reads the fact_check family, so every request runs it
+            {"name": "checked", "priority": 10,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "fact_check", "name": "needs_fact_check"}]},
+             "modelRefs": [{"model": "qwen3-8b"}]}]},
+}
+
+N_RESPOND = 64
+N_USERS = 16
+_TOPICS = ["python code", "flight trip", "sleep diet", "python debug",
+           "travel flight", "health sleep", "code review", "plain question"]
+_FACTS = ["My name is {n}.", "I live in {c}.", "I prefer {p}.",
+          "I am allergic to {a}.", "I work at {w}."]
+_NAMES = ["Ada", "Grace", "Alan", "Edsger", "Barbara", "Donald", "Frances",
+          "John"]
+_CITIES = ["Zürich", "東京", "Lisbon", "Nairobi", "Québec", "Oslo"]
+# filler words: none of them a routing keyword
+_FILLER = ("please explain the main points with one example and keep "
+           "the answer clear because I want to understand what matters "
+           "most here today").split()
+
+
+def respond_bodies() -> list:
+    """64 chat requests from 16 users: a topic (the decision), a fact
+    about the user (memory) and filler words."""
+    rng = np.random.default_rng(SEED + 8)
+    out = []
+    for i in range(N_RESPOND):
+        user = f"user-{i % N_USERS:02d}"
+        fact = _FACTS[i % len(_FACTS)].format(
+            n=_NAMES[i % len(_NAMES)], c=_CITIES[i % len(_CITIES)],
+            p=("short answers", "tables", "examples")[i % 3],
+            a=("peanuts", "pollen")[i % 2], w=("Acme", "Initech")[i % 2])
+        filler = rng.choice(_FILLER, size=int(rng.integers(4, 40)))
+        text = f"{_TOPICS[i % len(_TOPICS)]}: {fact} {' '.join(filler)}?"
+        messages = [{"role": "user", "content": text}]
+        if i % 3 == 0:
+            messages.insert(0, {"role": "system",
+                                "content": "Answer in English."})
+        out.append({"model": "auto", "messages": messages, "user": user})
+    return out
+
+
+def respond_answer(body: dict) -> str:
+    """The mock backend's answer to a request: 300-2000 characters of
+    words (some multibyte), the same for the same request."""
+    text = body["messages"][-1]["content"]
+    seed = int.from_bytes(hashlib.blake2b(text.encode(), digest_size=8)
+                          .digest(), "little")
+    rng = np.random.default_rng(seed)
+    n_chars = int(rng.integers(300, 2001))
+    words = _words(400, seed % 100_000).split()
+    extra = ["Zürich", "naïve", "café", "東京", "1889", "330", "über"]
+    out = []
+    while len(" ".join(out)) < n_chars:
+        w = words[len(out) % len(words)]
+        out.append(extra[len(out) % len(extra)] if len(out) % 9 == 4
+                   else w)
+    s = " ".join(out)[:n_chars]
+    return s.rsplit(" ", 1)[0] + "."
+
+
+def _encode_batch(texts, tok):
+    encs = [tok.encode(t, max_length=512) for t in texts]
+    L = max(len(e.ids) for e in encs)
+    ids = np.zeros((len(encs), L), np.int64)
+    mask = np.zeros((len(encs), L), np.int32)
+    for i, e in enumerate(encs):
+        ids[i, :len(e.ids)] = e.ids
+        mask[i, :len(e.ids)] = 1
+    return torch.from_numpy(ids), torch.from_numpy(mask), encs
+
+
+def _midpoint(margins: np.ndarray, k: int) -> float:
+    """The bias that puts the decision boundary midway between the k-th
+    and (k+1)-th smallest margins: k of them fall below it."""
+    m = np.sort(margins)
+    return -0.5 * float(m[k - 1] + m[k])
+
+
+def respond_heads(device: str, trunk, tok, biases=None) -> tuple:
+    """The phase's new heads (seeded) over ``trunk``.  Without ``biases``
+    three classifier biases are set from the heads' margins on ``device``
+    (each boundary midway between two neighbouring margins): fact_check
+    splits this phase's prompts in half, the hallucination head flags
+    ``HALU_SHARE`` of the answers' tokens, and NLI calls half of the
+    distinct spans those tokens make entailed.
+    Returns (heads, biases)."""
+    from semantic_router_tpu_torch.models import (
+        ModernBertForSequenceClassification,
+        ModernBertForTokenClassification,
+    )
+
+    heads = {}
+    for name, kind, labels, seed in RESPOND_HEADS:
+        cls = ModernBertForTokenClassification if kind == "token" \
+            else ModernBertForSequenceClassification
+        module = cls(dataclasses.replace(trunk.config,
+                                         num_labels=len(labels)),
+                     model=trunk)
+        init_weights(module, seed, skip="model.")
+        heads[name] = (kind, module.to(device), labels)
+    if biases is None:
+        bodies = respond_bodies()
+        answers = [respond_answer(b) for b in bodies]
+
+        def logits(name, texts):
+            ids, mask, encs = _encode_batch(texts, tok)
+            with torch.inference_mode():
+                out = heads[name][1](ids.to(device), mask.to(device))
+            return out.float().cpu().numpy(), encs
+
+        fc, _ = logits("fact_check", [b["messages"][-1]["content"]
+                                      for b in bodies])
+        tok_l, encs = logits("hallucination", answers)
+        d = [tok_l[i, :len(e.ids), 1] - tok_l[i, :len(e.ids), 0]
+             for i, e in enumerate(encs)]
+        real = np.concatenate([x[1:-1] for x in d])
+        biases = {
+            "fact_check": _midpoint(fc[:, 0] - fc[:, 1], len(fc) // 2),
+            "hallucination": _midpoint(real,
+                                       int(len(real) * (1 - HALU_SHARE)))}
+        # the spans those flags make (runs of flagged tokens), as the
+        # response path will hand them to NLI
+        spans = set()
+        for a, e, x in zip(answers, encs, d):
+            run = []
+            for k in range(1, len(e.ids) - 1):
+                if x[k] + biases["hallucination"] > 0:
+                    run.append(e.offsets[k])
+                elif run:
+                    spans.add(a[run[0][0]:run[-1][1]])
+                    run = []
+            if run:
+                spans.add(a[run[0][0]:run[-1][1]])
+        nli, _ = logits("nli", sorted(spans))
+        biases["nli"] = _midpoint(nli[:, 0] - nli[:, 1:].max(1),
+                                  len(nli) // 2)
+    with torch.no_grad():
+        # each bias raises its class: needs_fact_check, HALLUCINATED,
+        # entailment
+        heads["fact_check"][1].classifier.bias[0] += biases["fact_check"]
+        heads["hallucination"][1].classifier.bias[1] += \
+            biases["hallucination"]
+        heads["nli"][1].classifier.bias[0] += biases["nli"]
+    return heads, biases
+
+
+def respond_engine(device: str, cfg, modules3: dict, embed_module,
+                   heads: dict):
+    """Phase 3's bank (its intent, jailbreak and pii heads) with this
+    phase's fact_check, hallucination and nli heads over the same trunk,
+    plus phase 5's embedding model as the ``embedding`` task."""
+    engine = InferenceEngine(cfg.engine, device=device)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    tasks = {n: m for n, m in modules3.items() if n != "fact_check"}
+    tasks.update(heads)
+    for name, (kind, module, labels) in tasks.items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    engine.register_task(EMBED_TASK, "embedding", embed_module, tok, [],
+                         max_seq_len=512)
+    return engine
+
+
+class _Timed:
+    """Wall time of each call of a router's route / process_response /
+    record_feedback, the route results, and the engine's classify calls
+    by task."""
+
+    def __init__(self, router, engine) -> None:
+        self.ms = {"route": [], "process_response": [],
+                   "record_feedback": []}
+        self.classify = {}
+        self.routes = []
+        for name in self.ms:
+            setattr(router, name, self._wrap(getattr(router, name),
+                                             self.ms[name]))
+        inner_route = router.route
+
+        def route(*a, **kw):
+            res = inner_route(*a, **kw)
+            self.routes.append(res)
+            return res
+
+        router.route = route
+        inner = engine.classify
+
+        def classify(task, text, *a, **kw):
+            self.classify[task] = self.classify.get(task, 0) + 1
+            return inner(task, text, *a, **kw)
+
+        engine.classify = classify
+
+    @staticmethod
+    def _wrap(fn, sink):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sink.append((time.perf_counter() - t0) * 1e3)
+        return timed
+
+    def reset(self) -> None:
+        for v in self.ms.values():
+            v.clear()
+        self.classify.clear()
+
+    def summary(self) -> dict:
+        out = {}
+        for k, v in self.ms.items():
+            s = sorted(v)
+            out[k] = {"n": len(s), "p50_ms": s[len(s) // 2] if s else None,
+                      "p95_ms": s[min(len(s) - 1, int(0.95 * len(s)))]
+                      if s else None}
+        out["classify_calls"] = dict(self.classify)
+        return out
+
+
+def _predicted_launches(steps) -> dict:
+    """K1 = the layers each step ran; K2 = one launch a head bank a fused
+    step applied (sequence, token, both = 2) with the epilogue on."""
+    n_layers = MODERNBERT_BASE["num_hidden_layers"]
+    k2 = {"seq": 1, "tok": 1, "both": 2}
+    return {"flash_attention": sum(s.get("layers", n_layers) for s in steps),
+            "head_epilogue": sum(k2.get(s.get("flavor"), 0)
+                                 for s in steps if s.get("epilogue"))}
+
+
+def _response_row(res) -> dict:
+    return {"warnings": res.warnings,
+            "headers": dict(sorted(res.headers.items())),
+            "spans": res.hallucination_spans, "body": res.body}
+
+
+def _reason_counts(routes) -> dict:
+    """{decision: {selection reason: requests}} of route results."""
+    out: dict = {}
+    for r in routes:
+        name = r.decision.decision.name if r.decision else "(none)"
+        by = out.setdefault(name, {})
+        by[r.selection_reason] = by.get(r.selection_reason, 0) + 1
+    return out
+
+
+def _route_headers(res) -> dict:
+    return {k: v for k, v in sorted(res.headers.items())
+            if k != "x-vsr-request-id"}
+
+
+def compare_respond(engine, cpu, cfg, bodies) -> dict:
+    """Routers over the card's and the CPU's engines take the same
+    requests in the same order (route, the response path on the same
+    answer, feedback): decisions, models, reasons, headers and bodies
+    equal, span scores and probabilities within PROB_TOL."""
+    routers = (build_router(cfg, engine), build_router(cfg, cpu))
+    worst = 0.0
+    rows = []
+    try:
+        for i, body in enumerate(bodies):
+            got, want = (r.route(json.loads(json.dumps(body)))
+                         for r in routers)
+            for key in ("kind", "model", "selection_reason", "body"):
+                check(getattr(got, key) == getattr(want, key),
+                      f"respond compare {i}: {key} card "
+                      f"{getattr(got, key)!r} != CPU {getattr(want, key)!r}")
+            check(_route_headers(got) == _route_headers(want),
+                  f"respond compare {i}: headers {got.headers} != "
+                  f"{want.headers}")
+            answer = _answer_body(respond_answer(body))
+            rg = _response_row(routers[0].process_response(
+                got, json.loads(json.dumps(answer))))
+            rw = _response_row(routers[1].process_response(
+                want, json.loads(json.dumps(answer))))
+            check(_floats_close(rg, rw, PROB_TOL),
+                  f"respond compare {i}: response card {rg} != CPU {rw}")
+            for a, b in zip(rg["spans"], rw["spans"]):
+                worst = max(worst, abs(a["score"] - b["score"]))
+            for r, res in zip(routers, (got, want)):
+                r.record_feedback(res, success=i % 4 != 3,
+                                  latency_ms=100.0 + i)
+            rows.append({"decision": got.decision.decision.name
+                         if got.decision else None, "model": got.model,
+                         "reason": got.selection_reason,
+                         "spans": len(rg["spans"]),
+                         "headers": sorted(rg["headers"])})
+            print(f"respond compare {i}: {json.dumps(rows[-1])}", flush=True)
+        for name, sel in routers[0]._selectors.items():
+            other = routers[1]._selectors[name]
+            if hasattr(sel, "to_json"):
+                check(_floats_close(json.loads(sel.to_json()),
+                                    json.loads(other.to_json()), 1e-4),
+                      f"respond compare: selector {name} state differs")
+    finally:
+        for r in routers:
+            r.shutdown()
+    return {"requests": len(rows), "rows": rows, "max_span_score_err": worst,
+            "tol": PROB_TOL}
+
+
+def _answer_body(content: str) -> dict:
+    return {"id": "chatcmpl-respond", "object": "chat.completion",
+            "created": 0, "model": "mock",
+            "choices": [{"index": 0, "finish_reason": "stop",
+                         "message": {"role": "assistant",
+                                     "content": content}}],
+            "usage": {"prompt_tokens": 10, "completion_tokens": 20,
+                      "total_tokens": 30}}
+
+
+def phase_respond(modules3: dict, modules5: dict) -> dict:
+    """Phase 8: 64 chat requests from 16 users through the HTTP server on
+    the card (knn / mlp / kmeans selection over query embeddings, system
+    prompt, memory, tools auto-selection over a 16-tool DB, the response
+    jailbreak screen, hallucination spans with the NLI gate, feedback);
+    launches against the forwards; 8 requests against the CPU port."""
+    cfg = load_config(RESPOND_CONFIG)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    t0 = time.perf_counter()
+    trunk = modules3["cuda"]["intent"][1].model
+    heads, biases = respond_heads(DEVICE, trunk, tok)
+    engine = respond_engine(DEVICE, cfg, modules3["cuda"], modules5["cuda"],
+                            heads)
+    cpu_heads, _ = respond_heads("cpu", modules3["cpu"]["intent"][1].model,
+                                 tok, biases)
+    cpu = respond_engine("cpu", cfg, modules3["cpu"], modules5["cpu"],
+                         cpu_heads)
+    engine.warmup()
+    print(f"respond engine: {len(engine.tasks())} tasks (biases "
+          f"{json.dumps(biases)}), warmed in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    gate = {"entries": 0}
+    inner_gate = engine.device_work
+
+    def counted_gate():
+        gate["entries"] += 1
+        return inner_gate()
+
+    engine.device_work = counted_gate
+    router = build_router(cfg, engine)
+    timed = _Timed(router, engine)
+    backend = MockVLLMServer(content_fn=respond_answer).start()
+    server = RouterServer(router, backend.url).start()
+    bodies = respond_bodies()
+    try:
+        _cuda.reset_launch_counts()
+        steps0 = len(engine.steps())
+        first = _post(server.url, bodies[0])
+        first_steps = engine.steps()[steps0:]
+        first_t = timed.summary()
+        timed.reset()
+        batches0 = engine.batcher.stats()
+        t_serve = time.perf_counter()
+        replies = []
+        # two waves over 16 clients: the second meets selectors the
+        # first wave's feedback fitted
+        for wave in (bodies[1:N_RESPOND // 2], bodies[N_RESPOND // 2:]):
+            with ThreadPoolExecutor(max_workers=N_USERS) as pool:
+                replies += pool.map(lambda b: _post(server.url, b), wave)
+        serve_s = time.perf_counter() - t_serve
+        launches = _cuda.launch_counts()
+        steps = engine.steps()[steps0:]
+        batches = {k: v - batches0.get(k, 0) for k, v in
+                   engine.batcher.stats().items()
+                   if k in ("batches", "items")}
+        steady = timed.summary()
+        selectors = dict(router._selectors)
+        memories = sum(len(router.memory_store.list(f"user-{u:02d}"))
+                       for u in range(N_USERS))
+    finally:
+        server.stop()
+        backend.stop()
+        router.shutdown()
+    replies = [first] + replies
+    gated = halu = tools = mem_used = 0
+    for i, (status, h, body, _lat) in enumerate(replies):
+        check(status == 200, f"respond request {i}: HTTP {status}: {body}")
+        check(body["choices"][0]["message"]["content"]
+              == respond_answer(bodies[i]),
+              f"respond request {i}: the answer changed on its way")
+        gated += "x-vsr-hallucination" in h
+        halu += len(body.get("vsr_annotations", {})
+                    .get("hallucination_spans", []))
+        tools += "x-vsr-tools-injected" in h
+        mem_used += "x-vsr-memories-used" in h
+    want = _predicted_launches(steps)
+    for k in ("flash_attention", "head_epilogue"):
+        check(launches[k] == want[k],
+              f"respond: {k} launches {launches[k]} != {want[k]} predicted "
+              f"by {len(steps)} forwards")
+    flavors = {s.get("flavor") for s in steps}
+    check("embed" in flavors and flavors & {"seq", "both"}
+          and flavors & {"tok", "both"}, f"respond: step flavors {flavors}")
+    nli_calls = steady["classify_calls"].get("nli", 0) \
+        + first_t["classify_calls"].get("nli", 0)
+    check(nli_calls > 0, "respond: NLI never ran")
+    check(gated > 0 and tools > 0 and mem_used > 0,
+          f"respond: hallucination headers {gated}, tools injected {tools}, "
+          f"memories used {mem_used}")
+    mlp = selectors.get("travel_mlp")
+    km = selectors.get("health_kmeans")
+    check(mlp is not None and mlp.params is not None
+          and km is not None and km.centroids is not None,
+          "respond: the mlp or kmeans selector never fitted")
+    check(str(mlp.work.device).startswith("cuda")
+          and str(km.work.device).startswith("cuda"),
+          f"respond: selector fits on {mlp.work.device} / "
+          f"{km.work.device}, not the card")
+    check(gate["entries"] > 0, "respond: no selector work took the gate")
+    # the HaluGate both ways: fact_check said needs_fact_check on a
+    # request whose decision runs the hallucination plugin, and it did not
+    gate_runs = [bool(r.decision) and r.decision.decision.plugin(
+        "hallucination") is not None and "needs_fact_check" in
+        r.signals.matches.get("fact_check", ()) for r in timed.routes]
+    check(any(gate_runs) and not all(gate_runs),
+          f"respond: the fact_check gate went one way only "
+          f"({sum(gate_runs)} of {len(gate_runs)} requests checked)")
+    captured = sum(s.get("graph") == "captured" for s in steps)
+    lat = sorted(r[3] * 1e3 for r in replies[1:])
+    steady_steps = steps[len(first_steps):]
+    kinds: dict = {}
+    for s in steady_steps:
+        key = f"{s.get('flavor')}@{s.get('bucket')}"
+        kinds[key] = kinds.get(key, 0) + 1
+    in_router_ms = sum(sum(v) for v in timed.ms.values())
+    breakdown = {
+        # mean requests in flight (Little's law over the two waves)
+        "in_flight_mean": sum(lat) / 1e3 / serve_s,
+        "router_share": in_router_ms / sum(lat),
+        "engine_step_s": sum(s["seconds"] for s in steady_steps),
+        "captured_steps": sum(s.get("graph") == "captured"
+                              for s in steady_steps),
+        "capture_step_s": sum(s["seconds"] for s in steady_steps
+                              if s.get("graph") == "captured"),
+        "steps_by_flavor_bucket": kinds, **batches}
+    out = {"launches": launches, "predicted": want, "forwards": len(steps),
+           "first_request": {"ms": first[3] * 1e3, **first_t,
+                             "steps": len(first_steps),
+                             "captured": sum(s.get("graph") == "captured"
+                                             for s in first_steps)},
+           "steady": {**steady, "requests": len(replies) - 1,
+                      "p50_ms": lat[len(lat) // 2],
+                      "p95_ms": lat[int(0.95 * (len(lat) - 1))],
+                      "serve_s": serve_s, **breakdown},
+           "captured": captured, "gated_responses": gated,
+           "spans_kept": halu, "nli_calls": nli_calls,
+           "tools_injected": tools, "memories_used": mem_used,
+           "memories": memories, "gate_entries": gate["entries"],
+           "halugate_runs": sum(gate_runs),
+           "reasons": _reason_counts(timed.routes),
+           "selectors": {k: type(v).__name__ for k, v in selectors.items()},
+           "biases": biases}
+    print("respond serve " + json.dumps(out), flush=True)
+    try:
+        out["cpu_agreement"] = compare_respond(
+            engine, cpu, cfg, [bodies[i] for i in (0, 1, 2, 3, 6, 9, 12, 17)])
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    print(f"phase 8 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2939,6 +3523,7 @@ def main(argv=None) -> int:
     fixture = report["fixture"] = phase_fixture(modules3, modules5)
     quant = report["quant"] = phase_quant(modules3)
     report["graphs"] = phase_graphs(modules3, modules5, wide_engine)
+    respond = report["respond"] = phase_respond(modules3, modules5)
     print(f"card: {dev['smi']}", flush=True)
     save()
     main_flash = next(r for r in kern["flash"]
@@ -2958,11 +3543,13 @@ def main(argv=None) -> int:
         rows.append({
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
-            # K1 runs in the serve trunk, the embedding trunk and the
-            # fixture router's trunks; K2 in the serve and fixture banks
+            # K1 runs in the serve trunk, the embedding trunk, the
+            # fixture router's trunks and the respond phase's bank and
+            # embedding model; K2 in the serve, fixture and respond banks
             # and under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
+            + respond["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -8,9 +8,11 @@ structure, conversation, language, authz role bindings, event, reask;
 the learned ones: domain, jailbreak, pii, fact_check, user_feedback,
 modality; the embedding-scored ones: embedding, preference, complexity,
 kb with its knowledge bases), projections, decisions with their rule
-trees, model refs and plugins, model cards, the semantic cache, the
+trees, model refs, selection algorithms and plugins, model cards, the
+semantic cache, the ``memory`` and ``tool_selection`` blocks, the
 ``authz`` block, and the inference-engine knobs (``engine.quant``
-included).  Other blocks of a config file are not read.
+included).  Other blocks of a config file are not read; the options the
+port does not serve yet (``UNPORTED``) are refused at load.
 """
 
 from __future__ import annotations
@@ -694,8 +696,8 @@ class PluginConfig:
 @dataclass
 class Decision:
     """A routing decision: its rule tree, its priority, its candidate
-    models (the port selects the first modelRef, or for a looper
-    ``algorithm`` the highest-weight one) and its plugins."""
+    models, the selection ``algorithm`` that picks one of them
+    (``{type: ..., <keyword arguments>}``) and its plugins."""
 
     name: str
     rules: RuleNode = field(default_factory=RuleNode)
@@ -728,13 +730,31 @@ class Decision:
 @dataclass
 class ModelCard:
     """Backend model card (routing.modelCards): the catalog of models the
-    decisions may name."""
+    decisions may name, with what selectors read of each."""
 
     name: str
+    param_size: str = ""
+    context_window_size: int = 0
+    quality_score: float = 0.0
+    pricing: Dict[str, float] = field(default_factory=dict)  # per 1M tokens
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelCard":
-        return cls(name=d["name"])
+        return cls(
+            name=d["name"],
+            param_size=str(d.get("param_size", "")),
+            context_window_size=parse_token_count(
+                d.get("context_window_size", 0)),
+            quality_score=float(d.get("quality_score", 0.0)),
+            pricing=dict(d.get("pricing", {}) or {}),
+        )
+
+    def param_size_billions(self) -> float:
+        s = self.param_size.strip().upper().rstrip("B")
+        try:
+            return float(s)
+        except ValueError:
+            return 0.0
 
 
 # --------------------------------------------------------------------------
@@ -824,6 +844,45 @@ class InferenceEngineConfig:
         return normalize_quant(self.quant)
 
 
+# options the JAX router serves and this port does not yet: a config that
+# asks for one is refused at load, never served as if it were absent
+UNPORTED = {
+    "learning": "router learning (learning.enabled)",
+    "flywheel": "the routing flywheel (flywheel.enabled)",
+    "resilience": "the degradation ladder (resilience.enabled)",
+}
+
+
+def refuse_unported(d: Dict[str, Any]) -> None:
+    """Raise ValueError naming the first unported option ``d`` enables:
+    the blocks of ``UNPORTED``, a qdrant / milvus memory store, an enabled
+    ``rag`` plugin, a selector ``algorithm.artifact``."""
+    routing = d.get("routing", {}) or {}
+    for key, what in UNPORTED.items():
+        block = routing.get(key, d.get(key)) or {}
+        if isinstance(block, dict) and block.get("enabled"):
+            raise ValueError(f"{what} is not served by this port yet")
+    if ((d.get("resilience") or {}).get("upstream") or {}).get("enabled"):
+        raise ValueError("the upstream health plane "
+                         "(resilience.upstream.enabled) is not served by "
+                         "this port yet")
+    backend = str((d.get("memory") or {}).get("backend", ""))
+    if backend in ("qdrant", "milvus"):
+        raise ValueError(f"memory backend {backend!r} is not served by "
+                         f"this port yet (\"\" or sqlite)")
+    for dec in routing.get("decisions", d.get("decisions", [])) or []:
+        name = dec.get("name", "")
+        if (dec.get("algorithm") or {}).get("artifact"):
+            raise ValueError(f"decision {name!r}: selector artifacts "
+                             f"(algorithm.artifact) are not served by "
+                             f"this port yet")
+        for p in dec.get("plugins", []) or []:
+            if p.get("type") == "rag" and \
+                    PluginConfig.from_dict(p).enabled:
+                raise ValueError(f"decision {name!r}: the rag plugin is "
+                                 f"not served by this port yet")
+
+
 @dataclass
 class RouterConfig:
     model_cards: List[ModelCard] = field(default_factory=list)
@@ -841,11 +900,16 @@ class RouterConfig:
     # {fail_open: bool}: whether an authz evaluation error passes
     authz: Dict[str, Any] = field(default_factory=dict)
     knowledge_bases: List[KnowledgeBaseDef] = field(default_factory=list)
+    # {backend: "" | sqlite, path}: the user-memory store
+    memory: Dict[str, Any] = field(default_factory=dict)
+    # {tools: [...]}: the tools database of ``auto_select``
+    tool_selection: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "RouterConfig":
         d = d or {}
         routing = d.get("routing", {}) or {}
+        refuse_unported(d)
         return cls(
             model_cards=[ModelCard.from_dict(m) for m in
                          routing.get("modelCards", d.get("model_cards", []))],
@@ -868,6 +932,8 @@ class RouterConfig:
                 KnowledgeBaseDef.from_dict(k) for k in
                 d.get("knowledge_bases",
                       routing.get("knowledge_bases", [])) or []],
+            memory=dict(d.get("memory", {}) or {}),
+            tool_selection=dict(d.get("tool_selection", {}) or {}),
         )
 
     def used_signal_types(self) -> List[str]:

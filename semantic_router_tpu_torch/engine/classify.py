@@ -534,6 +534,12 @@ class InferenceEngine:
     def trunk_group(self, task: str) -> Optional[TrunkGroup]:
         return self._task_group.get(task)
 
+    def device_work(self):
+        """A context for work a caller launches on the engine's device
+        outside the engine's steps (a selector's fit): it holds the
+        capture gate shared, so no CUDA graph capture runs meanwhile."""
+        return self._gate.shared()
+
     # -- task metadata -----------------------------------------------------
 
     def has_task(self, name: str) -> bool:

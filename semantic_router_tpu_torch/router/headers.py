@@ -13,6 +13,12 @@ MATCHED_RULES = "x-vsr-matched-rules"
 CACHE_HIT = "x-vsr-cache-hit"
 PII_VIOLATION = "x-vsr-pii-violation"
 JAILBREAK_BLOCKED = "x-vsr-jailbreak-blocked"
+INJECTED_SYSTEM_PROMPT = "x-vsr-injected-system-prompt"
+MEMORIES_USED = "x-vsr-memories-used"
+TOOLS_INJECTED = "x-vsr-tools-injected"
+WARNINGS = "x-vsr-warnings"
+HALLUCINATION = "x-vsr-hallucination"
+UNVERIFIED_FACTUAL = "x-vsr-unverified-factual"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

@@ -1,6 +1,8 @@
 """Mock vLLM backend: a deterministic OpenAI-compatible server that echoes
 request facts as the completion content, so routing assertions read the
-echoed model and messages instead of needing a real model."""
+echoed model and messages instead of needing a real model.  A
+``content_fn`` replaces the echo with its own answer to each request body
+(a response path's input: long answers, facts to check)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Callable, Optional
 
 
 def _echo_payload(body: dict) -> dict:
@@ -58,8 +60,7 @@ class _Handler(BaseHTTPRequestHandler):
             "model": body.get("model", self.server.model_name),
             "choices": [{"index": 0,
                          "message": {"role": "assistant",
-                                     "content": json.dumps(
-                                         _echo_payload(body))},
+                                     "content": self.server.content_fn(body)},
                          "finish_reason": "stop"}],
             "usage": {"prompt_tokens": 17, "completion_tokens": 23,
                       "total_tokens": 40},
@@ -75,10 +76,13 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class MockVLLMServer:
-    def __init__(self, port: int = 0, model_name: str = "mock-model") -> None:
+    def __init__(self, port: int = 0, model_name: str = "mock-model",
+                 content_fn: Optional[Callable[[dict], str]] = None) -> None:
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), _Handler)
         self.httpd.daemon_threads = True
         self.httpd.model_name = model_name  # type: ignore[attr-defined]
+        self.httpd.content_fn = content_fn or (  # type: ignore[attr-defined]
+            lambda body: json.dumps(_echo_payload(body)))
         self.httpd.hits = 0  # type: ignore[attr-defined]
         self.httpd.hits_lock = threading.Lock()  # type: ignore[attr-defined]
         self.port = self.httpd.server_address[1]

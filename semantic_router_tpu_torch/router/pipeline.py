@@ -1,4 +1,4 @@
-"""The request routing pipeline, trimmed to the port's main path:
+"""The request/response routing pipeline, trimmed to the port's main path:
 
   parse → signal fan-out (heuristic families, fused classifier bank,
   embedding-scored and kb families) → complexity composers and
@@ -6,37 +6,51 @@
   answers without the backend; PII matches stamp
   ``x-vsr-pii-violation`` or, with the decision's ``pii`` plugin at
   ``action: block``, refuse with 403) → semantic cache (the decision's
-  ``semantic-cache`` plugin) → static model selection (the decision's
-  first modelRef; a looper algorithm's highest-weight one) → request
-  rewrite (model, reasoning fields) → x-vsr-* headers; and on the
-  response path, the cache write.
+  ``semantic-cache`` plugin) → model selection (the decision's
+  ``algorithm`` through the selector registry, over query embeddings
+  where the algorithm reads them; a looper algorithm's highest-weight
+  ref) → request mutation (``system_prompt``, ``memory`` retrieval,
+  ``tools`` / ``tool_selection`` filtering and auto-selection) → request
+  rewrite (model, reasoning fields) → x-vsr-* headers;
+
+and the response path: the response jailbreak screen → hallucination
+spans (the ``hallucination`` token classifier, filtered by the ``nli``
+classifier; gated on the ``fact_check`` signal and the decision's
+``hallucination`` plugin) → warnings → the cache write → memory
+auto-store; then ``record_feedback`` feeds the outcome to the decision's
+selector.
 
 The dispatch report on the result carries the projection trace and the
 kb family's metrics (``report.results["kb"].metrics``).
 
-Signal families fail open: a dead engine degrades routing to the default
-model, never to an outage.
+Signal families, plugins and response stages fail open: a dead engine
+degrades routing to the default model, never to an outage.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 from ..cache.semantic_cache import build_cache
 from ..config.schema import Decision, ModelRef, RouterConfig
 from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
+from ..selection import Feedback, SelectionContext, registry as selectors
 from ..signals.base import RequestContext
 from ..signals.dispatch import DispatchReport, build_dispatcher
 from . import headers as H
 
 log = logging.getLogger(__name__)
 
-# the engine task the semantic cache (when its config names none) and the
-# server's embeddings and similarity routes embed with
+# the engine task the semantic cache (when its config names none),
+# selection, tools selection, memory and the server's embeddings and
+# similarity routes embed with
 EMBEDDING_TASK = "embedding"
 
 
@@ -58,8 +72,21 @@ class RouteResult:
     decision: Optional[DecisionResult] = None
     signals: Optional[SignalMatches] = None
     report: Optional[DispatchReport] = None
+    selection_reason: str = ""
     routing_latency_s: float = 0.0
     request_id: str = ""
+
+
+@dataclass
+class ResponseResult:
+    """The response path's verdict on a backend answer: the body to send
+    (annotated when the hallucination plugin asks), the headers to add,
+    the warnings, and the hallucination spans found."""
+
+    body: Dict[str, Any]
+    headers: Dict[str, str] = field(default_factory=dict)
+    warnings: List[str] = field(default_factory=list)
+    hallucination_spans: List[dict] = field(default_factory=list)
 
 
 def _immediate_chat_completion(content: str, model: str = "router") -> dict:
@@ -78,13 +105,23 @@ def _immediate_chat_completion(content: str, model: str = "router") -> dict:
     }
 
 
+def _tool_name(t: dict) -> str:
+    return (t.get("function", {}) or {}).get("name", t.get("name", ""))
+
+
+def _tool_desc(t: dict) -> str:
+    f = t.get("function", {}) or {}
+    return f"{_tool_name(t)}: {f.get('description', '')}"
+
+
 class Router:
     """The routing pipeline.  Embed directly, or serve via router.server.
 
     With ``semantic_cache.enabled`` the router keeps a semantic cache on
     the engine's ``semantic_cache.embedding_model`` task
     (``EMBEDDING_TASK`` when that is empty), provided the engine serves
-    it."""
+    it.  ``memory_store`` (None until bootstrap attaches one) backs the
+    ``memory`` plugin and the response path's auto-store."""
 
     def __init__(self, cfg: RouterConfig, engine=None) -> None:
         self.cfg = cfg
@@ -98,6 +135,21 @@ class Router:
             self.cache = build_cache(
                 cfg.semantic_cache,
                 lambda text: engine.embed(cache_task, [text])[0])
+        self.model_cards = {m.name: m for m in cfg.model_cards}
+        # the operator's tools database for auto-selection; its
+        # description embeddings are computed once, at first use
+        self._tools_db: List[dict] = list(
+            (cfg.tool_selection or {}).get("tools", []) or [])
+        self._tools_db_embs: Optional[np.ndarray] = None
+        # one selector per decision, built at its first request
+        self._selectors: Dict[str, Any] = {}
+        self.memory_store = None
+
+    def _embeds(self) -> bool:
+        return self.engine is not None and self.engine.has_task(EMBEDDING_TASK)
+
+    def _embed(self, texts: List[str]) -> np.ndarray:
+        return self.engine.embed(EMBEDDING_TASK, texts)
 
     def route(self, body: Dict[str, Any],
               headers: Optional[Dict[str, str]] = None) -> RouteResult:
@@ -122,8 +174,10 @@ class Router:
             if early is not None:
                 early.routing_latency_s = time.perf_counter() - start
                 return early
-            ref = self._select_model(decision, ctx)
+            ref, result.selection_reason = self._select_model(
+                decision, ctx, signals)
             result.model = ref.model
+            self._apply_mutation_plugins(decision, ctx, result)
             category = next(iter(signals.matches.get("domain", ())), "")
             result.headers.update(H.decision_headers(
                 decision.name, ref.model, category=category,
@@ -135,14 +189,173 @@ class Router:
         result.routing_latency_s = time.perf_counter() - start
         return result
 
-    def _select_model(self, decision: Decision,
-                      ctx: RequestContext) -> ModelRef:
+    # -- selection -----------------------------------------------------------
+
+    def _selector(self, decision: Decision):
+        """The decision's selector, built at its first request from
+        ``algorithm`` (type + keyword arguments); one the registry cannot
+        build is ``static``.  Selectors that run torch (kmeans, mlp) run it
+        on the engine's device, holding the engine's capture gate."""
+        selector = self._selectors.get(decision.name)
+        if selector is None:
+            algo = dict(decision.algorithm or {})
+            kwargs = {k: v for k, v in algo.items()
+                      if k not in ("type", "on_error")}
+            if self.engine is not None:
+                kwargs.update(device=self.engine.device,
+                              gate=self.engine.device_work)
+            try:
+                selector = selectors.create(str(algo.get("type", "static")),
+                                            **kwargs)
+            except (KeyError, TypeError):
+                selector = selectors.create("static")
+            # concurrent first requests keep one selector
+            selector = self._selectors.setdefault(decision.name, selector)
+        return selector
+
+    def _select_model(self, decision: Decision, ctx: RequestContext,
+                      signals: SignalMatches) -> tuple:
+        """(ref, reason): a single candidate as is, a looper algorithm's
+        highest-weight ref, else the decision's selector's choice (its
+        query embedding taken lazily, on the ``EMBEDDING_TASK``).  A
+        selector that raises routes to the first candidate."""
         refs = decision.model_refs or [
             ModelRef(model=self.cfg.default_model or ctx.model)]
-        if len(refs) > 1 and str((decision.algorithm or {}).get(
-                "type", "static")) in LOOPER_ALGORITHMS:
-            return max(refs, key=lambda r: r.weight)
-        return refs[0]
+        if len(refs) == 1:
+            return refs[0], "single candidate"
+        algo_type = str((decision.algorithm or {}).get("type", "static"))
+        if algo_type in LOOPER_ALGORITHMS:
+            return max(refs, key=lambda r: r.weight), f"looper:{algo_type}"
+        selector = self._selector(decision)
+        sctx = SelectionContext(
+            query=ctx.user_text,
+            decision_name=decision.name,
+            category=next(iter(signals.matches.get("domain", ())), ""),
+            session_id=ctx.headers.get("x-session-id", ""),
+            user_id=ctx.user_id,
+            signals=signals,
+            token_count=ctx.approx_token_count(),
+            model_cards=self.model_cards,
+            embed_fn=(lambda text: self._embed([text])[0])
+            if self._embeds() else None)
+        try:
+            res = selector.select(refs, sctx)
+            return res.ref, res.reason
+        except Exception:
+            log.warning("selector of %s failed", decision.name,
+                        exc_info=True)
+            return refs[0], "selector error → first candidate"
+
+    # -- request mutation ----------------------------------------------------
+
+    def _apply_mutation_plugins(self, decision: Decision,
+                                ctx: RequestContext,
+                                result: RouteResult) -> None:
+        """The decision's system prompt first (``replace`` / ``insert``
+        act on the original system message), then retrieved memories
+        ahead of it, then the tools."""
+        body = result.body
+        sp = decision.plugin("system_prompt")
+        if sp is not None and sp.enabled:
+            prompt = sp.configuration.get("system_prompt", "")
+            mode = sp.configuration.get("mode", "insert")
+            if prompt:
+                messages = list(body.get("messages", []))
+                has_system = messages and messages[0].get("role") == "system"
+                if has_system and mode == "replace":
+                    messages[0] = {"role": "system", "content": prompt}
+                elif has_system and mode == "insert":
+                    messages[0] = {
+                        "role": "system",
+                        "content": prompt + "\n"
+                        + messages[0].get("content", "")}
+                elif not has_system:
+                    messages = [{"role": "system", "content": prompt}] \
+                        + messages
+                body["messages"] = messages
+                result.headers[H.INJECTED_SYSTEM_PROMPT] = "true"
+
+        mem = decision.plugin("memory")
+        if mem is not None and mem.enabled \
+                and self.memory_store is not None and ctx.user_id:
+            try:
+                items = self.memory_store.search(
+                    ctx.user_id, ctx.user_text,
+                    limit=int(mem.configuration.get("retrieval_limit", 5)),
+                    threshold=float(
+                        mem.configuration.get("similarity_threshold", 0.0)))
+                if items:
+                    facts = "; ".join(i.text for i in items)
+                    body["messages"] = (
+                        [{"role": "system",
+                          "content": f"Known about this user: {facts}"}]
+                        + list(body.get("messages", [])))
+                    result.headers[H.MEMORIES_USED] = str(len(items))
+            except Exception:
+                log.warning("memory retrieval failed", exc_info=True)
+
+        tools = decision.plugin("tools") or decision.plugin("tool_selection")
+        if tools is not None and tools.enabled:
+            conf = tools.configuration
+            if body.get("tools"):
+                body["tools"] = self._filter_tools(conf, ctx, body["tools"])
+            elif conf.get("auto_select") and self._tools_db:
+                selected = self._auto_select_tools(conf, ctx)
+                if selected:
+                    body["tools"] = selected
+                    result.headers[H.TOOLS_INJECTED] = str(len(selected))
+
+    def _filter_tools(self, conf: Dict[str, Any], ctx: RequestContext,
+                      tools: List[dict]) -> List[dict]:
+        """Allow / block lists, then (``semantic_selection``) the top-k
+        by the similarity of each tool's description to the query."""
+        allow = set(conf.get("allow_tools", []) or [])
+        block = set(conf.get("block_tools", []) or [])
+        out = [t for t in tools
+               if (not allow or _tool_name(t) in allow)
+               and _tool_name(t) not in block]
+        if conf.get("semantic_selection") and self._embeds() and out:
+            try:
+                top_k = int(conf.get("top_k", 5))
+                sims = self._embed([_tool_desc(t) for t in out]) \
+                    @ self._embed([ctx.user_text])[0]
+                thresh = float(conf.get("similarity_threshold", 0.0))
+                ranked = sorted(zip(sims, range(len(out))), reverse=True)
+                keep = [i for s, i in ranked[:top_k] if s >= thresh]
+                if keep or not conf.get("fallback_to_empty", True):
+                    out = [out[i] for i in sorted(keep)] if keep else out
+                else:
+                    out = []
+            except Exception:
+                log.warning("tool selection failed", exc_info=True)
+        return out
+
+    def _auto_select_tools(self, conf: Dict[str, Any],
+                           ctx: RequestContext) -> List[dict]:
+        """The top-k tools of the configured database by description
+        similarity to the query (word overlap without an embedding
+        task)."""
+        top_k = int(conf.get("top_k", 3))
+        thresh = float(conf.get("similarity_threshold", 0.1))
+        try:
+            if self._embeds():
+                if self._tools_db_embs is None:
+                    self._tools_db_embs = self._embed(
+                        [_tool_desc(t) for t in self._tools_db])
+                sims = self._tools_db_embs @ self._embed([ctx.user_text])[0]
+            else:
+                q_words = set(w.lower() for w in
+                              re.findall(r"\w+", ctx.user_text))
+                sims = np.asarray([
+                    len(q_words & set(w.lower() for w in re.findall(
+                        r"\w+", _tool_desc(t)))) / (len(q_words) or 1)
+                    for t in self._tools_db])
+            order = np.argsort(-sims)
+            return [self._tools_db[i] for i in order[:top_k]
+                    if sims[i] >= thresh]
+        except Exception:
+            log.warning("tool auto-selection failed", exc_info=True)
+            return []
 
     @staticmethod
     def _apply_policy_plugins(decision: Decision, signals: SignalMatches,
@@ -209,23 +422,126 @@ class Router:
             headers={H.CACHE_HIT: "true", H.DECISION: decision.name,
                      H.REQUEST_ID: result.request_id})
 
+    # -- response path -------------------------------------------------------
+
     def process_response(self, route: RouteResult,
-                         response_body: Dict[str, Any]) -> None:
-        """The response path of a routed request the backend answered: the
-        semantic-cache write, when the decision's plugin is on and the
-        answer has content.  A failing write is dropped."""
+                         response_body: Dict[str, Any]) -> ResponseResult:
+        """The response path of a routed request the backend answered:
+        jailbreak screen, hallucination spans, warnings, the cache write
+        and memory auto-store.  Each stage fails open."""
+        out = ResponseResult(body=response_body)
         content = _response_text(response_body)
         decision = route.decision.decision if route.decision else None
-        if self.cache is None or route.kind != "route" or not content \
-                or decision is None or not route.body:
-            return
-        plugin = decision.plugin("semantic-cache")
-        if plugin is not None and plugin.enabled:
+        eng = self.engine
+
+        if content and eng is not None and eng.has_task("jailbreak"):
+            try:
+                r = eng.classify("jailbreak", content[:4000])
+                if r.label.lower() in ("jailbreak", "unsafe") \
+                        and r.confidence >= 0.8:
+                    out.warnings.append("response_jailbreak")
+                    out.headers[H.JAILBREAK_BLOCKED] = "response"
+            except Exception:
+                log.warning("response jailbreak screen failed",
+                            exc_info=True)
+
+        needs_check = bool(route.signals and "needs_fact_check" in
+                           route.signals.matches.get("fact_check", ()))
+        halu = decision.plugin("hallucination") if decision else None
+        if content and needs_check and halu is not None and halu.enabled \
+                and eng is not None and eng.has_task("hallucination"):
+            try:
+                spans = self._detect_hallucinations(
+                    content,
+                    use_nli=bool(halu.configuration.get("use_nli", True)))
+                if spans:
+                    out.hallucination_spans = spans
+                    out.headers[H.HALLUCINATION] = "true"
+                    if halu.configuration.get(
+                            "include_hallucination_details"):
+                        out.body.setdefault("vsr_annotations", {})[
+                            "hallucination_spans"] = spans
+            except Exception:
+                log.warning("hallucination check failed", exc_info=True)
+                out.headers[H.UNVERIFIED_FACTUAL] = "true"
+
+        if out.warnings:
+            out.headers[H.WARNINGS] = ",".join(out.warnings)
+
+        if self.cache is not None and route.kind == "route" and content \
+                and decision is not None and route.body:
+            plugin = decision.plugin("semantic-cache")
+            if plugin is not None and plugin.enabled:
+                try:
+                    ctx = RequestContext.from_openai_body(route.body)
+                    self.cache.add(ctx.user_text, content, model=route.model)
+                except Exception:
+                    log.warning("semantic cache write failed", exc_info=True)
+
+        mem = decision.plugin("memory") if decision is not None else None
+        if self.memory_store is not None and route.body and mem is not None \
+                and mem.enabled and mem.configuration.get("auto_store"):
             try:
                 ctx = RequestContext.from_openai_body(route.body)
-                self.cache.add(ctx.user_text, content, model=route.model)
+                if ctx.user_id:
+                    # the router's own system messages (retrieved
+                    # memories) never feed back into extraction
+                    convo = [m for m in route.body.get("messages", [])
+                             if m.get("role") != "system"]
+                    self.memory_store.auto_store(
+                        ctx.user_id,
+                        convo + [{"role": "assistant", "content": content}])
             except Exception:
-                log.warning("semantic cache write failed", exc_info=True)
+                log.warning("memory auto-store failed", exc_info=True)
+        return out
+
+    def _detect_hallucinations(self, content: str,
+                               use_nli: bool = True) -> List[dict]:
+        """Spans the ``hallucination`` token classifier flags; with
+        ``use_nli`` each span is classified by ``nli``, one at a time, and
+        the entailed ones are dropped."""
+        res = self.engine.token_classify("hallucination", content,
+                                         threshold=0.5)
+        spans = [
+            {"type": e.type, "start": e.start, "end": e.end,
+             "text": e.text, "score": e.score}
+            for e in res.entities if e.type.upper() not in ("O", "SUPPORTED")]
+        if spans and use_nli and self.engine.has_task("nli"):
+            kept = []
+            for s in spans:
+                r = self.engine.classify("nli", s["text"])
+                if r.label.lower() != "entailment":
+                    s["nli"] = r.label
+                    kept.append(s)
+            spans = kept
+        return spans
+
+    def record_feedback(self, route: RouteResult, success: bool = True,
+                        quality: float = 0.0, latency_ms: float = 0.0,
+                        ttft_ms: float = 0.0) -> None:
+        """Feed a routed request's outcome to its decision's selector, with
+        the query's embedding (one forward on the ``EMBEDDING_TASK``)."""
+        if route.decision is None:
+            return
+        selector = self._selectors.get(route.decision.decision.name)
+        if selector is None:
+            return
+        query, emb = "", None
+        if route.body:
+            try:
+                query = RequestContext.from_openai_body(route.body).user_text
+            except Exception:
+                query = ""
+            if self._embeds():
+                try:
+                    emb = self._embed([query])[0]
+                except Exception:
+                    log.warning("feedback embedding failed", exc_info=True)
+        selector.update(Feedback(
+            model=route.model, success=success, quality=quality,
+            latency_ms=latency_ms, ttft_ms=ttft_ms,
+            query=query, query_embedding=emb,
+            session_id=(route.body or {}).get("user", "")))
 
     @staticmethod
     def _finalize_body(result: RouteResult, ref: Optional[ModelRef]) -> None:

@@ -1,8 +1,11 @@
 """HTTP front end: ``POST /v1/chat/completions`` routes the request, forwards
 the rewritten body to the backend, and answers with the backend's response
 stamped with the router's x-vsr-* headers; a semantic-cache hit is
-answered by the router without the backend, and a routed 200 goes through
-the router's response path (the cache write).  ``GET /health`` reports
+answered by the router without the backend.  Each backend call is counted
+in the in-flight tracker (the ``multi_factor`` selector's load) and timed;
+a 200 goes through the router's response path (its headers and annotated
+body are what the client gets), and every answer, 200 or not, is fed
+back to the decision's selector (``record_feedback``).  ``GET /health`` reports
 liveness.  Standard library only (``ThreadingHTTPServer`` + ``http.client``).
 
 The Classification API answers as the reference server's handlers do
@@ -22,10 +25,12 @@ from __future__ import annotations
 import http.client
 import json
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..observability.inflight import default_tracker
 from .pipeline import EMBEDDING_TASK, Router
 
 # the routes this server answers (the reference's discovery document,
@@ -191,25 +196,38 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _chat(self, body: dict) -> None:
         srv: RouterServer = self.server.owner
-        result = srv.router.route(body, dict(self.headers.items()))
+        router = srv.router
+        result = router.route(body, dict(self.headers.items()))
         if result.kind in ("cache_hit", "blocked"):
             self._reply(result.status, result.response_body, result.headers)
             return
+        t0 = time.perf_counter()
+        token = default_tracker.begin(result.model)
         try:
             status, data = srv.forward(result.body)
         except OSError as exc:
-            self._reply(502, {"error": {"message": f"backend unreachable: "
-                                                   f"{exc}"}},
-                        result.headers)
+            status, data = 502, json.dumps({"error": {
+                "message": f"backend unreachable: {exc}"}}).encode()
+        finally:
+            default_tracker.end(result.model, token)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            router.record_feedback(result, success=False,
+                                   latency_ms=latency_ms)
+            self._reply_raw(status, data, result.headers)
             return
-        if status == 200:
-            try:
-                reply = json.loads(data)
-            except ValueError:
-                reply = None
-            if isinstance(reply, dict):
-                srv.router.process_response(result, reply)
-        self._reply_raw(status, data, result.headers)
+        try:
+            reply = json.loads(data)
+        except ValueError:
+            reply = None
+        processed = router.process_response(result, reply) \
+            if isinstance(reply, dict) else None
+        router.record_feedback(result, success=True, latency_ms=latency_ms)
+        if processed is None:
+            self._reply_raw(status, data, result.headers)
+            return
+        self._reply(200, processed.body,
+                    {**result.headers, **processed.headers})
 
     def _reply(self, status: int, payload: dict,
                headers: Optional[dict] = None) -> None:

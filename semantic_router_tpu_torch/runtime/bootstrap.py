@@ -162,9 +162,22 @@ def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
 
 
 def build_router(cfg: RouterConfig, engine=None):
-    from ..router.pipeline import Router
+    """The Router over ``engine``, with its memory store: SQLite at
+    ``memory.path`` under ``memory.backend: sqlite``, else in-process; both
+    embed on the engine's ``EMBEDDING_TASK`` when it serves one."""
+    from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
+    from ..router.pipeline import EMBEDDING_TASK, Router
 
-    return Router(cfg, engine=engine)
+    router = Router(cfg, engine=engine)
+    embed_fn = None
+    if engine is not None and engine.has_task(EMBEDDING_TASK):
+        embed_fn = lambda text: engine.embed(EMBEDDING_TASK, [text])[0]
+    mem_cfg = cfg.memory or {}
+    if mem_cfg.get("backend", "") == "sqlite" and mem_cfg.get("path"):
+        router.memory_store = SQLiteMemoryStore(mem_cfg["path"], embed_fn)
+    else:
+        router.memory_store = InMemoryMemoryStore(embed_fn)
+    return router
 
 
 def serve(config: str, backend: str, host: str = "127.0.0.1",

@@ -472,7 +472,7 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "flax", "semantic_router_tpu")
+    return root in ("jax", "jaxlib", "flax", "optax", "semantic_router_tpu")
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -502,7 +502,7 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "assert e.classify('intent', 'hello there').label\n"
         "e.shutdown()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'semantic_router_tpu')]\n"
+        "('jax', 'flax', 'optax', 'semantic_router_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

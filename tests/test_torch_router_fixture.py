@@ -203,9 +203,11 @@ def _same_route(got, want):
             want.decision.matched_keywords
         if len(dec.model_refs) > 1 and \
                 dec.algorithm.get("type", "static") == "static":
-            # the reference draws a static decision's model at random by
-            # weight; the port serves its first modelRef
-            assert got.model == dec.model_refs[0].model
+            # both draw a static decision's model at random by weight
+            # (the fixture gives the selector no seed)
+            assert got.selection_reason == want.selection_reason \
+                == "weighted static"
+            assert got.model in {r.model for r in dec.model_refs}
             assert want.model in {r.model for r in dec.model_refs}
         else:
             assert got.model == want.model
