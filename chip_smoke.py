@@ -103,8 +103,36 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    the card's and the CPU's engines: decisions, models, reasons, headers
    and bodies equal, span scores within 1e-4, selector states equal.
 
+9. observe — phase 8's router, engines and registry behind a new server
+   and mock backend, 16 clients x 4 of phase 8's requests a run.  9.1:
+   batch-trace sample rate 0 and no ``traceparent``: K1/K2 launches equal
+   the layers and banks the run's steps ran (tracing adds none), no
+   detailed step, decisions equal phase 8's (models too where a decision
+   has one candidate).  9.2: rate 1.0, every request with a client
+   ``traceparent``: each trace holds one ``router.route`` continuing the
+   client's span, ``signals.evaluate`` under it and per engine call a
+   ``batch.wait`` + ``batch.ride`` pair whose ride links a recorded
+   ``batch.execute`` step, with stage spans exactly where the reference's
+   gate samples them; the backend sees each client's trace id; signal
+   confidences within 1e-4 of 9.1's; every answer names its decision
+   record and ``/debug/decisions/{id}`` serves it.  A rate 0.1 run, and a
+   rate 1.0 run with the epilogue knob off (the fused seq steps then run
+   as fenced trunk and head calls).  9.3 prints the per-engine-call
+   breakdown (queue wait, ride, trunk and head stages; route time outside
+   any ride) at p50 / p95 and the three runs' route times and requests/s
+   with the card's name and power limit.  9.4 scrapes ``/metrics`` (0.0.4,
+   then OpenMetrics with exemplars, each linted; routed requests equal the
+   requests sent, ``llm_classifier_batch_size`` counts the steps
+   runtimestats recorded), ``/debug/runtime`` (every step program that
+   ran, torch.cuda memory rows with the graph pools), ``/debug/programs``
+   (every captured step counted, the H100 tier, no roofline fraction above
+   1.0) and ``/debug/flightrec``, and takes a trace through
+   ``/debug/profiler/start|stop`` that must name K1 and K2.  9.5 routes 8
+   requests in order on the card's and the CPU's engines: the same span
+   names and parentage, decision records equal but for times and ids.
+
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3, 5, 6 and 8), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6, 8 and 9), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -131,6 +159,7 @@ try:
 
     from semantic_router_tpu_torch.cache import InMemorySemanticCache
     from semantic_router_tpu_torch.config import load_config
+    from semantic_router_tpu_torch.config.schema import LOOPER_ALGORITHMS
     from semantic_router_tpu_torch.engine import InferenceEngine
     from semantic_router_tpu_torch.engine.testing import (
         init_weights,
@@ -172,8 +201,11 @@ try:
         real_tiles,
     )
     from semantic_router_tpu_torch.ops.matryoshka import matryoshka_views
+    from semantic_router_tpu_torch.observability.tracing import Tracer
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
     from semantic_router_tpu_torch.runtime import (
+        RuntimeRegistry,
+        apply_observability_knobs,
         build_router,
         select_attention_impl,
     )
@@ -2140,8 +2172,15 @@ def phase_fixture(modules3: dict, modules5: dict) -> dict:
                 fired |= {t for t, n in got["matches"].items() if n}
                 decisions.add(got["decision"])
                 if which == "fixture":
+                    # a looper decision is routed, and the server refuses
+                    # to execute it (501) rather than answer from one model
+                    looper = {d.name for d in gpu_router.cfg.decisions
+                              if str((d.algorithm or {}).get("type"))
+                              in LOOPER_ALGORITHMS}
                     status, h, _b, _l = replies[i]
-                    check(status == 200 and h.get("x-vsr-selected-decision")
+                    check(status == (501 if got["decision"] in looper
+                                     else 200)
+                          and h.get("x-vsr-selected-decision")
                           == got["decision"],
                           f"fixture body {i}: HTTP {status}, decision "
                           f"{h.get('x-vsr-selected-decision')!r} != "
@@ -3171,11 +3210,17 @@ def respond_heads(device: str, trunk, tok, biases=None) -> tuple:
 
 
 def respond_engine(device: str, cfg, modules3: dict, embed_module,
-                   heads: dict):
+                   heads: dict, registry=None):
     """Phase 3's bank (its intent, jailbreak and pii heads) with this
     phase's fact_check, hallucination and nli heads over the same trunk,
-    plus phase 5's embedding model as the ``embedding`` task."""
-    engine = InferenceEngine(cfg.engine, device=device)
+    plus phase 5's embedding model as the ``embedding`` task; its
+    observability bound to ``registry`` (the process defaults when
+    None)."""
+    obs = {} if registry is None else {
+        "metrics": registry.metric_series(),
+        "runtime_stats": registry.runtimestats,
+        "program_stats": registry.programstats}
+    engine = InferenceEngine(cfg.engine, device=device, **obs)
     tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
     tasks = {n: m for n, m in modules3.items() if n != "fact_check"}
     tasks.update(heads)
@@ -3269,8 +3314,10 @@ def _reason_counts(routes) -> dict:
 
 
 def _route_headers(res) -> dict:
+    """The route's headers but its request id and its decision record's
+    id (random on both sides)."""
     return {k: v for k, v in sorted(res.headers.items())
-            if k != "x-vsr-request-id"}
+            if k not in ("x-vsr-request-id", "x-vsr-decision-record")}
 
 
 def compare_respond(engine, cpu, cfg, bodies) -> dict:
@@ -3342,10 +3389,15 @@ def phase_respond(modules3: dict, modules5: dict) -> dict:
     cfg = load_config(RESPOND_CONFIG)
     tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
     t0 = time.perf_counter()
+    # the card's router and engine report to a registry of their own, which
+    # phase 9 reads (its tracer holds a whole run's spans)
+    registry = RuntimeRegistry.isolated(tracer=Tracer(capacity=1 << 17))
+    apply_observability_knobs(load_config(dict(
+        RESPOND_CONFIG, observability=OBSERVE_KNOBS)), registry)
     trunk = modules3["cuda"]["intent"][1].model
     heads, biases = respond_heads(DEVICE, trunk, tok)
     engine = respond_engine(DEVICE, cfg, modules3["cuda"], modules5["cuda"],
-                            heads)
+                            heads, registry)
     cpu_heads, _ = respond_heads("cpu", modules3["cpu"]["intent"][1].model,
                                  tok, biases)
     cpu = respond_engine("cpu", cfg, modules3["cpu"], modules5["cpu"],
@@ -3362,10 +3414,10 @@ def phase_respond(modules3: dict, modules5: dict) -> dict:
         return inner_gate()
 
     engine.device_work = counted_gate
-    router = build_router(cfg, engine)
+    router = build_router(cfg, engine, registry=registry)
     timed = _Timed(router, engine)
     backend = MockVLLMServer(content_fn=respond_answer).start()
-    server = RouterServer(router, backend.url).start()
+    server = RouterServer(router, backend.url, registry=registry).start()
     bodies = respond_bodies()
     try:
         _cuda.reset_launch_counts()
@@ -3395,7 +3447,6 @@ def phase_respond(modules3: dict, modules5: dict) -> dict:
     finally:
         server.stop()
         backend.stop()
-        router.shutdown()
     replies = [first] + replies
     gated = halu = tools = mem_used = 0
     for i, (status, h, body, _lat) in enumerate(replies):
@@ -3478,11 +3529,669 @@ def phase_respond(modules3: dict, modules5: dict) -> dict:
     print("respond serve " + json.dumps(out), flush=True)
     try:
         out["cpu_agreement"] = compare_respond(
-            engine, cpu, cfg, [bodies[i] for i in (0, 1, 2, 3, 6, 9, 12, 17)])
-    finally:
-        engine.shutdown()
-        cpu.shutdown()
+            engine, cpu, cfg, [bodies[i] for i in COMPARE_BODIES])
+    except BaseException:
+        for obj in (router, engine, cpu):
+            obj.shutdown()
+        registry.runtimestats.stop()
+        raise
     print(f"phase 8 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 9 serves on: the router, both engines, the registry, the
+    # decisions and models phase 8's requests got
+    out["_keep"] = {"engine": engine, "cpu": cpu, "router": router,
+                    "registry": registry, "cfg": cfg, "timed": timed,
+                    "bodies": bodies,
+                    "decisions": [(h.get("x-vsr-selected-decision"),
+                                   h.get("x-vsr-selected-model"))
+                                  for _, h, _, _ in replies]}
+    return out
+
+
+# -- phase 9: observe --------------------------------------------------------
+
+# the observability block phase 8's registry starts with: no detailed
+# batch tracing, the runtime-stats sampler every 5 s
+OBSERVE_KNOBS = {"tracing": {"sample_rate": 0.0},
+                 "runtime_stats": {"interval_s": 5.0},
+                 "flight_recorder": {"slowest_n": 8}}
+COMPARE_BODIES = (0, 1, 2, 3, 6, 9, 12, 17)
+OBSERVE_CLIENTS = 16
+OBSERVE_PER_CLIENT = 4
+# the client's span every traced request continues
+CLIENT_SPAN = "00f067aa0ba902b7"
+
+
+def _trace_id(run: int, i: int) -> str:
+    """The client's trace id of request ``i`` of run ``run``: random low
+    bytes (a 0.1 sample rate samples about a tenth), seeded."""
+    rng = np.random.default_rng(SEED + 900 + 1000 * run + i)
+    return f"{run:04x}{i:04x}" + "".join(
+        f"{b:02x}" for b in rng.integers(0, 256, 12))
+
+
+def _pct(xs, p: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * (len(xs) - 1) + 0.5))] if xs else None
+
+
+def _api_call(url: str, method: str, path: str, body=None) -> tuple:
+    """(status, headers, raw body) of one call of the router's API."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
+def lint_exposition(text: str, openmetrics: bool) -> list:
+    """Problems of a Prometheus text exposition (0.0.4, or OpenMetrics
+    1.0 with exemplars): every sample's family declared once by ``# TYPE``
+    and the line well-formed; histogram buckets cumulative and ending at
+    ``+Inf`` equal to ``_count``; no exemplar in 0.0.4, well-formed ones,
+    suffix-less counter families and a final ``# EOF`` in OpenMetrics."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+(\S+)'
+                        r'(\s+#\s+\{trace_id="[0-9a-f]+"\}\s+\S+\s+\S+)?$')
+
+    def series(labels: str) -> tuple:  # the label pairs but ``le``
+        return tuple(sorted(p for p in re.findall(r'(\w+)="([^"]*)"',
+                                                  labels or "")
+                            if p[0] != "le"))
+
+    problems, types, buckets, counts = [], {}, {}, {}
+    lines = text.splitlines()
+    if openmetrics:
+        if not lines or lines[-1] != "# EOF":
+            problems.append("OpenMetrics exposition does not end in # EOF")
+        lines = lines[:-1]
+    for line in lines:
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if name in types:
+                problems.append(f"family {name} declared twice")
+            if openmetrics and kind == "counter" and name.endswith("_total"):
+                problems.append(f"OpenMetrics counter family {name}")
+            types[name] = kind
+            continue
+        if line.startswith("#") or not line:
+            continue
+        m = sample.match(line)
+        if m is None:
+            problems.append(f"malformed sample: {line[:120]}")
+            continue
+        name, labels, value, exemplar = m.groups()
+        if exemplar and not openmetrics:
+            problems.append(f"exemplar in 0.0.4: {line[:120]}")
+        float(value)
+        family = next((f for f in (name, re.sub(
+            r"_(bucket|sum|count|total)$", "", name)) if f in types), None)
+        if family is None:
+            problems.append(f"sample of an undeclared family: {name}")
+            continue
+        if types[family] == "histogram":
+            key = (family, series(labels))
+            if name.endswith("_bucket"):
+                prev = buckets.get(key, (None, -1.0))[1]
+                if float(value) < prev:
+                    problems.append(f"buckets not cumulative: {line[:120]}")
+                buckets[key] = ('le="+Inf"' in (labels or ""), float(value))
+            elif name.endswith("_count"):
+                counts[key] = float(value)
+    for key, (inf, last) in buckets.items():
+        if not inf or counts.get(key) != last:
+            problems.append(f"histogram {key} does not end at +Inf = "
+                            f"_count")
+    return problems
+
+
+def _parse_exposition(text: str) -> dict:
+    """{sample name: {sorted label pairs: value}}."""
+    import re
+
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+(\S+)", line)
+        labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                         m.group(2) or "")))
+        out.setdefault(m.group(1), {})[labels] = float(m.group(3))
+    return out
+
+
+def _serve_run(keep: dict, url: str, run: int, rate: float,
+               traced: bool) -> dict:
+    """16 clients x 4 requests of phase 8's bodies at a batch-trace sample
+    rate: the replies, route results by request, the run's engine steps,
+    launches, and route / HTTP times."""
+    engine, reg, timed = keep["engine"], keep["registry"], keep["timed"]
+    bodies = keep["bodies"][:OBSERVE_CLIENTS * OBSERVE_PER_CLIENT]
+    reg.tracer.sample_rate = rate
+    reg.tracer.clear()
+    timed.reset()
+    timed.routes.clear()
+    steps0 = len(engine.steps())
+    epilogue = engine.kernels_report()["kernels"]["epilogue"]["enabled"]
+    _cuda.reset_launch_counts()
+
+    def client(k: int) -> list:
+        out = []
+        for j in range(OBSERVE_PER_CLIENT):
+            i = k * OBSERVE_PER_CLIENT + j
+            headers = {"x-vsr-request-id": f"obs{run}-{i:02d}"}
+            if traced:
+                headers["traceparent"] = \
+                    f"00-{_trace_id(run, i)}-{CLIENT_SPAN}-01"
+            out.append((i, _post(url, bodies[i], headers)))
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=OBSERVE_CLIENTS) as pool:
+        done = [r for chunk in pool.map(client, range(OBSERVE_CLIENTS))
+                for r in chunk]
+    wall = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    steps = engine.steps()[steps0:]
+    replies = [r for _, r in sorted(done, key=lambda x: x[0])]
+    for i, (status, h, body, _) in enumerate(replies):
+        check(status == 200, f"observe run {run} request {i}: HTTP {status}"
+                             f": {body}")
+    want = _predicted_launches(steps)
+    for k in ("flash_attention", "head_epilogue"):
+        check(launches[k] == want[k],
+              f"observe run {run} (sample rate {rate}): {k} launches "
+              f"{launches[k]} != {want[k]} predicted by {len(steps)} steps")
+    routes = {r.request_id: r for r in timed.routes}
+    route_ms = list(timed.ms["route"])
+    http_ms = [r[3] * 1e3 for r in replies]
+    return {"run": run, "rate": rate, "traced": traced, "replies": replies,
+            "epilogue": epilogue,
+            "routes": [routes[f"obs{run}-{i:02d}"]
+                       for i in range(len(replies))],
+            "steps": steps, "launches": launches,
+            "summary": {"requests": len(replies), "sample_rate": rate,
+                        "traced": traced, "wall_s": wall,
+                        "requests_per_s": len(replies) / wall,
+                        "route_p50_ms": _pct(route_ms, 0.5),
+                        "route_p95_ms": _pct(route_ms, 0.95),
+                        "http_p50_ms": _pct(http_ms, 0.5),
+                        "http_p95_ms": _pct(http_ms, 0.95),
+                        "steps": len(steps),
+                        "captured": sum(s.get("graph") == "captured"
+                                        for s in steps),
+                        # a detailed step is the card's one eager step
+                        "detailed": sum(s.get("graph") == "eager"
+                                        and engine.device.type == "cuda"
+                                        for s in steps),
+                        "launches": launches}}
+
+
+def _check_decisions(keep: dict, res: dict) -> dict:
+    """Run ``res``'s decisions against phase 8's for the same bodies:
+    equal decisions, and equal models wherever the decision has one
+    candidate (a selector's choice follows the feedback it learned)."""
+    cfg = keep["cfg"]
+    single = {d.name for d in cfg.decisions if len(d.model_refs) <= 1}
+    learned = agree = 0
+    for i, (_, h, _, _) in enumerate(res["replies"]):
+        dec, model = keep["decisions"][i]
+        got = (h.get("x-vsr-selected-decision"), h.get("x-vsr-selected-model"))
+        check(got[0] == dec, f"observe run {res['run']} request {i}: "
+                             f"decision {got[0]} != phase 8's {dec}")
+        if dec is None or dec in single:
+            check(got[1] == model, f"observe run {res['run']} request {i}: "
+                                   f"model {got[1]} != phase 8's {model}")
+        else:
+            learned += 1
+            agree += got[1] == model
+    return {"selector_requests": learned, "selector_same_model": agree}
+
+
+def _route_confidences(res: dict) -> list:
+    return [dict(r.signals.confidences) for r in res["routes"]]
+
+
+def _check_confidences(base: dict, res: dict, tol: float) -> float:
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(_route_confidences(base),
+                                   _route_confidences(res))):
+        check(a.keys() == b.keys(), f"observe run {res['run']} request {i}: "
+                                    f"matched rules {sorted(b)} != "
+                                    f"{sorted(a)}")
+        for k in a:
+            worst = max(worst, abs(a[k] - b[k]))
+    check(worst <= tol, f"observe run {res['run']}: signal confidences "
+                        f"{worst:.3g} from run {base['run']}'s (tol {tol})")
+    return worst
+
+
+def _check_traces(keep: dict, res: dict, backend) -> dict:
+    """Every request's trace: one router.route continuing the client's
+    span, signals.evaluate under it, and per engine call one batch.wait +
+    batch.ride pair whose ride links a recorded batch.execute step;
+    detailed stages only on the steps the reference's gate samples.  The
+    backend saw each request's trace id."""
+    engine = keep["engine"]
+    tracer = keep["registry"].tracer
+    steps = {(s.trace_id, s.span_id): s for s in tracer.spans("batch.execute")}
+    gate_fused = not res["epilogue"]
+    token_tasks = {t for t in engine.tasks()
+                   if engine.task_kind(t) == "token"}
+    calls = []
+    routes = []
+    for i in range(len(res["replies"])):
+        tid = _trace_id(res["run"], i)
+        spans = tracer.trace(tid)
+        by_id = {s.span_id: s for s in spans}
+        roots = [s for s in spans if s.name == "router.route"]
+        check(len(roots) == 1 and roots[0].parent_id == CLIENT_SPAN,
+              f"observe trace {i}: router.route spans {len(roots)}, "
+              f"parent {[r.parent_id for r in roots]}")
+        root = roots[0]
+        sig = [s for s in spans if s.name == "signals.evaluate"]
+        check(len(sig) == 1 and sig[0].parent_id == root.span_id,
+              f"observe trace {i}: signals.evaluate not under router.route")
+        rides = [s for s in spans if s.name == "batch.ride"]
+        waits = [s for s in spans if s.name == "batch.wait"]
+        check(rides and len(rides) == len(waits),
+              f"observe trace {i}: {len(rides)} rides, {len(waits)} waits")
+        check(any(_under(r, sig[0].span_id, by_id) for r in rides),
+              f"observe trace {i}: no engine call under signals.evaluate")
+        intervals = []
+        for ride in rides:
+            check(len(ride.links) == 1 and (ride.links[0]["trace_id"],
+                                            ride.links[0]["span_id"])
+                  in steps, f"observe trace {i}: a ride without its step")
+            step = steps[(ride.links[0]["trace_id"],
+                          ride.links[0]["span_id"])]
+            wait = next(w for w in waits if w.parent_id == ride.parent_id
+                        and abs(w.end_pc - ride.start_pc) < 1e-6)
+            stages = {s.name: s.duration_s * 1e3 for s in spans
+                      if s.parent_id == ride.span_id}
+            kind = step.attributes["kind"]
+            # a step is detailed when a trace riding it is sampled (its
+            # stack stage is timed); at rate 1.0 every traced step is
+            sampled = "stage.stack_ms" in step.attributes
+            check(sampled or res["rate"] < 1.0,
+                  f"observe trace {i}: a step not sampled at rate 1.0")
+            if kind == "fused":
+                mix = {x.split(":")[0] for x in
+                       step.attributes.get("task_mix", "").split(",") if x}
+                want = sampled and gate_fused and not mix & token_tasks
+            else:
+                want = sampled
+            for stage in (("batch.trunk_forward", "batch.head_matmul")
+                          if kind == "fused" else ("batch.trunk_forward",)):
+                mix_attr = step.attributes.get("task_mix")
+                check((stage in stages) == want,
+                      f"observe trace {i}: a {kind} step ({mix_attr}, "
+                      f"sampled {sampled}) with stages {sorted(stages)} "
+                      f"broke the reference's gate")
+            calls.append({"kind": kind, "group": step.attributes["group"],
+                          "wait_ms": wait.duration_s * 1e3,
+                          "ride_ms": ride.duration_s * 1e3,
+                          "trunk_ms": stages.get("batch.trunk_forward"),
+                          "head_ms": stages.get("batch.head_matmul")})
+            intervals.append((wait.start_pc, ride.end_pc))
+        routes.append({"route_ms": root.duration_s * 1e3,
+                       "outside_ms": (root.duration_s
+                                      - _union(intervals)) * 1e3,
+                       "calls": len(rides)})
+    seen = {tp.split("-")[1] for tp in backend.traceparents}
+    want = {_trace_id(res["run"], i) for i in range(len(res["replies"]))}
+    check(want <= seen, f"observe run {res['run']}: the backend never saw "
+                        f"{len(want - seen)} of the clients' trace ids")
+    return {"calls": calls, "routes": routes}
+
+
+def _under(span, ancestor: str, by_id: dict) -> bool:
+    while span is not None:
+        if span.parent_id == ancestor:
+            return True
+        span = by_id.get(span.parent_id)
+    return False
+
+
+def _union(intervals) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _breakdown(traces: dict) -> dict:
+    """p50 / p95 over the engine calls (by step kind) of queue wait,
+    ride, trunk and head stages, and over the requests of the route time
+    and the route time outside any ride."""
+    out: dict = {}
+    for kind in sorted({c["kind"] for c in traces["calls"]}):
+        calls = [c for c in traces["calls"] if c["kind"] == kind]
+        row = {"calls": len(calls)}
+        for key in ("wait_ms", "ride_ms", "trunk_ms", "head_ms"):
+            xs = [c[key] for c in calls if c[key] is not None]
+            if xs:
+                row[key] = {"p50": _pct(xs, 0.5), "p95": _pct(xs, 0.95),
+                            "n": len(xs)}
+        out[kind] = row
+    routes = traces["routes"]
+    for key in ("route_ms", "outside_ms", "calls"):
+        xs = [r[key] for r in routes]
+        out[f"request_{key}"] = {"p50": _pct(xs, 0.5), "p95": _pct(xs, 0.95)}
+    return out
+
+
+def _check_records(url: str, res: dict) -> int:
+    for i, (_, h, _, _) in enumerate(res["replies"]):
+        rid = h.get("x-vsr-decision-record")
+        check(bool(rid), f"observe request {i}: no x-vsr-decision-record")
+        status, _, data = _api_call(url, "GET", f"/debug/decisions/{rid}")
+        rec = json.loads(data)
+        check(status == 200 and rec["record_id"] == rid,
+              f"observe request {i}: /debug/decisions/{rid} → {status}")
+    return len(res["replies"])
+
+
+def _runtime_variant(engine, s: dict) -> tuple:
+    """(group, bucket, variant) a step record lands under in runtimestats."""
+    if s["flavor"] in ("split", "embed"):
+        variant = engine._split_variant(s.get("exit_layer"),
+                                        s.get("output_dim")) \
+            if s["flavor"] == "embed" else "split"
+        return s["group"], s["bucket"], variant
+    detailed = s["graph"] == "eager" and engine.device.type == "cuda"
+    return (f"trunk:{s['group']}", s["bucket"],
+            "fused_detailed" if detailed else "fused")
+
+
+def _program_key(engine, s: dict) -> tuple:
+    """(group, bucket, catalog variant) of a captured step."""
+    group, bucket, variant = _runtime_variant(engine, s)
+    if variant == "fused":
+        variant = f"fused:{s['flavor']}" + (
+            f":p{s['padded_pairs']}" if s.get("bgmv") else "")
+    return group, bucket, variant
+
+
+def check_scrape(keep: dict, url: str, sent: int, all_steps: list,
+                 backend) -> dict:
+    """9.4: /metrics in both formats against the requests sent and the
+    steps recorded; /debug/runtime, /debug/programs, /debug/flightrec;
+    the profiler routes' trace holding K1 and K2."""
+    engine, reg = keep["engine"], keep["registry"]
+    status, h, data = _api_call(url, "GET", "/metrics")
+    text = data.decode()
+    check(status == 200 and h["content-type"].startswith(
+        "text/plain; version=0.0.4"), f"/metrics: {status} {h}")
+    problems = lint_exposition(text, openmetrics=False)
+    check(not problems, f"/metrics (0.0.4): {problems[:5]}")
+    m = _parse_exposition(text)
+    routed = sum(m.get("llm_model_routing_latency_seconds_count",
+                       {}).values())
+    matched = sum(m.get("llm_model_requests_total", {}).values()) + sum(
+        v for k, v in m.get("llm_decision_fallbacks_total", {}).items()
+        if ("reason", "no_decision_matched") in k)
+    check(routed == matched == sent,
+          f"/metrics: {routed} routing latencies, {matched} routed "
+          f"requests, {sent} sent")
+    # the batcher's observations fail open, counted: none may have failed
+    observe_errors = engine.batcher.stats()["observe_errors"]
+    check(observe_errors == 0,
+          f"the batcher failed {observe_errors} batch observations")
+    rs_progs = reg.runtimestats.programs()
+    recorded = sum(p["executes"] + p["compiles"] for p in rs_progs)
+    batches = sum(m.get("llm_classifier_batch_size_count", {}).values())
+    check(batches == recorded,
+          f"/metrics: batch_size counted {batches} steps, runtimestats "
+          f"recorded {recorded}")
+    # OpenMetrics with exemplars: recorded while the knob is on
+    reg.metrics.enable_exemplars(True)
+    try:
+        for body in keep["bodies"][:4]:
+            _post(url, body, {"traceparent":
+                              f"00-{_trace_id(99, 0)}-{CLIENT_SPAN}-01"})
+        sent += 4
+        status, h, data = _api_call(url, "GET", "/metrics")
+    finally:
+        reg.metrics.enable_exemplars(False)
+    om = data.decode()
+    check(h["content-type"].startswith("application/openmetrics-text"),
+          f"/metrics with exemplars: content type {h['content-type']}")
+    problems = lint_exposition(om, openmetrics=True)
+    check(not problems and '# {trace_id="' in om,
+          f"/metrics (OpenMetrics): {problems[:5]}")
+    # /debug/runtime: every (group, bucket, variant) that ran, card rows
+    status, _, data = _api_call(url, "GET", "/debug/runtime")
+    runtime = json.loads(data)
+    listed = {(p["group"], p["bucket"], p["variant"])
+              for p in runtime["programs"]}
+    ran = {_runtime_variant(engine, s) for s in all_steps}
+    check(status == 200 and ran <= listed,
+          f"/debug/runtime misses {sorted(ran - listed)[:5]}")
+    devs = runtime["process"]["devices"]
+    check(devs and devs[0].get("bytes_in_use", 0) > 0
+          and devs[0].get("graph_pool_bytes", 0) > 0
+          and devs[0].get("bytes_limit", 0) > 0,
+          f"/debug/runtime device rows {devs}")
+    # /debug/programs: every captured step's count, under the H100 tier
+    status, _, data = _api_call(url, "GET", "/debug/programs")
+    progs = json.loads(data)
+    rows = {(p["group"], p["bucket"], p["variant"]): p
+            for p in progs["programs"]}
+    captured = {_program_key(engine, s) for s in all_steps
+                if s["graph"] == "captured"}
+    check(status == 200 and captured <= set(rows),
+          f"/debug/programs misses {sorted(captured - set(rows))[:5]}")
+    tier = progs["device"]
+    check(tier["tier"].startswith("h100") and not tier.get("placeholder"),
+          f"/debug/programs tier {tier}")
+    fractions = [p["roofline_fraction"] for p in rows.values()
+                 if "roofline_fraction" in p]
+    check(all(p["flops"] > 0 and p["bytes_accessed"] > 0
+              for p in rows.values()) and fractions
+          and max(fractions) <= 1.0,
+          f"/debug/programs: fractions {sorted(fractions)[-3:]}")
+    # /debug/flightrec: the slowest requests with their span trees
+    status, _, data = _api_call(url, "GET", "/debug/flightrec")
+    fr = json.loads(data)
+    check(status == 200 and fr["slowest"] and all(
+        any(s["name"] == "router.route" for s in r["spans"])
+        for r in fr["slowest"]), "/debug/flightrec: no span trees")
+    prof = profile_routes(keep, url)
+    sent += prof.pop("sent")
+    return {"routed": routed, "steps_recorded": recorded,
+            "observe_errors": observe_errors,
+            "runtime_programs": len(listed), "catalog": len(rows),
+            "captured_keys": len(captured), "tier": tier["tier"],
+            "roofline_fraction_max": max(fractions),
+            "roofline_fractions": len(fractions),
+            "flightrec_slowest": [r["duration_s"] for r in fr["slowest"]],
+            "devices": devs, "profiler": prof, "sent": sent,
+            "programs": [dict(k=list(k), flops=p["flops"],
+                              bytes=p["bytes_accessed"],
+                              frac=p.get("roofline_fraction"))
+                         for k, p in sorted(rows.items())]}
+
+
+def profile_routes(keep: dict, url: str) -> dict:
+    """POST /debug/profiler/start, 8 concurrent requests, stop: the trace
+    the server wrote must name K1 and K2 among its device kernels (CUPTI
+    may drop a record: a trace without both is taken again, up to three
+    times)."""
+    sent = 0
+    for attempt in range(3):
+        status, _, data = _api_call(url, "POST", "/debug/profiler/start", {
+            "dir": os.path.abspath(os.path.join(
+                "chiprun_out", "profile", f"observe{attempt}"))})
+        check(status == 200, f"profiler start: {status} {data[:200]}")
+        try:
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                list(pool.map(lambda b: _post(url, b), keep["bodies"][:8]))
+            sent += 8
+        finally:
+            status, _, data = _api_call(url, "POST", "/debug/profiler/stop", {})
+        out = json.loads(data)
+        check(status == 200 and "trace.json" in out["files"],
+              f"profiler stop: {status} {out}")
+        with open(os.path.join(out["dir"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        got = {k: sum(TRACE_MARKS[k] in n for n in kernels)
+               for k in ("flash_attention", "head_epilogue")}
+        if all(got.values()):
+            return {"kernels": len(kernels), "named": got,
+                    "attempts": attempt + 1, "sent": sent}
+        print(f"profiler: observe trace {attempt + 1} named {got} of "
+              f"{len(kernels)} kernels; taking it again", flush=True)
+    check(False, f"the profiler routes' trace never named K1 and K2 ({got})")
+    return {"kernels": len(kernels), "named": got, "attempts": 3,
+            "sent": sent}
+
+
+def compare_traces(keep: dict) -> dict:
+    """9.5: 8 requests in order through fresh routers on the card's and
+    the CPU's engines, every trace sampled: the same span names and
+    parentage per request, and decision records equal but for times and
+    ids."""
+    engine, cpu, cfg = keep["engine"], keep["cpu"], keep["cfg"]
+    regs = [RuntimeRegistry.isolated(), RuntimeRegistry.isolated()]
+    for reg in regs:
+        reg.tracer.sample_rate = 1.0
+    routers = [build_router(cfg, eng, registry=reg)
+               for eng, reg in ((engine, regs[0]), (cpu, regs[1]))]
+    volatile = ("record_id", "trace_id", "ts_unix", "routing_latency_ms")
+    rows = []
+    try:
+        for i in COMPARE_BODIES:
+            body = keep["bodies"][i]
+            tid = _trace_id(95, i)
+            trees, recs = [], []
+            for router, reg in zip(routers, regs):
+                res = router.route(
+                    json.loads(json.dumps(body)),
+                    {"traceparent": f"00-{tid}-{CLIENT_SPAN}-01",
+                     "x-vsr-request-id": f"cmp-{i}"})
+                spans = reg.tracer.trace(tid)
+                by_id = {s.span_id: s for s in spans}
+                trees.append(sorted(
+                    (s.name, by_id[s.parent_id].name
+                     if s.parent_id in by_id else "") for s in spans))
+                rec = json.loads(json.dumps(reg.explain.get(
+                    res.decision_record_id)))
+                for k in volatile:
+                    rec.pop(k)
+                for row in rec["signals"].values():
+                    row.pop("latency_ms")
+                recs.append(rec)
+            check(trees[0] == trees[1],
+                  f"observe compare {i}: card spans {trees[0]} != CPU "
+                  f"{trees[1]}")
+            check(_floats_close(recs[0], recs[1], PROB_TOL),
+                  f"observe compare {i}: decision records differ: "
+                  f"{recs[0]} != {recs[1]}")
+            rows.append({"spans": len(trees[0]),
+                         "decision": (recs[0]["decision"] or {}).get("name")})
+    finally:
+        for r in routers:
+            r.shutdown()
+    return {"requests": len(rows), "rows": rows}
+
+
+def phase_observe(keep: dict, smi: str) -> dict:
+    """Phase 9: phase 8's router behind a new server and mock backend.
+    9.1 sample rate 0, no traceparent; 9.2 rate 1.0, every request with a
+    traceparent; a rate 0.1 run; then the epilogue knob off at rate 1.0,
+    so the fused steps are sampled as the reference's gate allows (trunk
+    and heads as two fenced calls).  9.3 prints the per-engine-call
+    breakdown and the fence costs, 9.4 scrapes /metrics and the /debug
+    routes and profiles through the server, 9.5 compares span trees and
+    decision records of the card and the CPU."""
+    t0 = time.perf_counter()
+    engine, router, reg = keep["engine"], keep["router"], keep["registry"]
+    cfg = keep["cfg"]
+    backend = MockVLLMServer(content_fn=respond_answer).start()
+    server = RouterServer(router, backend.url, registry=reg).start()
+    url = server.url
+    out: dict = {}
+    steps0 = len(engine.steps())
+    sent = 0
+    try:
+        base = _serve_run(keep, url, 1, 0.0, traced=False)
+        out["9.1"] = dict(base["summary"], **_check_decisions(keep, base))
+        check(base["summary"]["detailed"] == 0,
+              "observe 9.1: a detailed step ran at sample rate 0")
+        traced = _serve_run(keep, url, 2, 1.0, traced=True)
+        out["9.2"] = dict(traced["summary"], **_check_decisions(keep,
+                                                                traced))
+        out["9.2"]["confidence_err"] = _check_confidences(base, traced,
+                                                          PROB_TOL)
+        traces = _check_traces(keep, traced, backend)
+        out["9.2"]["records"] = _check_records(url, traced)
+        tenth = _serve_run(keep, url, 3, 0.1, traced=True)
+        out["0.1"] = dict(tenth["summary"], **_check_decisions(keep, tenth))
+        _check_traces(keep, tenth, backend)
+        # the reference's gate samples a fused step only with the epilogue
+        # knob off: one run so, for the trunk / head split
+        engine.configure_kernels({"epilogue": {"enabled": False}})
+        engine.warmup()
+        try:
+            split = _serve_run(keep, url, 4, 1.0, traced=True)
+        finally:
+            engine.configure_kernels(cfg.engine.kernels)
+        out["9.2b"] = dict(split["summary"], **_check_decisions(keep, split))
+        out["9.2b"]["confidence_err"] = _check_confidences(base, split,
+                                                           PROB_TOL)
+        split_traces = _check_traces(keep, split, backend)
+        check(any(c["head_ms"] is not None for c in split_traces["calls"]),
+              "observe 9.2b: no fused step ran detailed with the epilogue "
+              "knob off")
+        sent = 4 * OBSERVE_CLIENTS * OBSERVE_PER_CLIENT
+        out["9.3"] = {"card": smi,
+                      "as_served": _breakdown(traces),
+                      "epilogue_off": _breakdown(split_traces),
+                      "fence_cost": {k: {f: out[k][f] for f in (
+                          "route_p50_ms", "route_p95_ms", "http_p50_ms",
+                          "http_p95_ms", "requests_per_s", "detailed")}
+                          for k in ("9.1", "0.1", "9.2")}}
+        print("observe breakdown " + json.dumps(out["9.3"]), flush=True)
+        all_steps = engine.steps()
+        # phase 8's 64 requests reached this registry too
+        routed_before = len(keep["decisions"])
+        scrape = check_scrape(keep, url, routed_before + sent, all_steps,
+                              backend)
+        scrape.pop("sent")
+        out["9.4"] = scrape
+        out["9.5"] = compare_traces(keep)
+        launches = {k: sum(r["launches"][k] for r in (base, traced, tenth,
+                                                       split))
+                    for k in ("flash_attention", "head_epilogue", "bgmv")}
+        out["launches"] = launches
+        out["steps"] = len(engine.steps()) - steps0
+    finally:
+        server.stop()
+        backend.stop()
+        for obj in (router, engine, keep["cpu"]):
+            obj.shutdown()
+        reg.runtimestats.stop()
+    print("observe " + json.dumps({k: v for k, v in out.items()
+                                   if k != "9.4"}), flush=True)
+    print("observe scrape " + json.dumps(out["9.4"]), flush=True)
+    print(f"phase 9 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -3524,6 +4233,8 @@ def main(argv=None) -> int:
     quant = report["quant"] = phase_quant(modules3)
     report["graphs"] = phase_graphs(modules3, modules5, wide_engine)
     respond = report["respond"] = phase_respond(modules3, modules5)
+    observe = report["observe"] = phase_observe(respond.pop("_keep"),
+                                                dev["smi"])
     print(f"card: {dev['smi']}", flush=True)
     save()
     main_flash = next(r for r in kern["flash"]
@@ -3544,12 +4255,12 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
             # K1 runs in the serve trunk, the embedding trunk, the
-            # fixture router's trunks and the respond phase's bank and
-            # embedding model; K2 in the serve, fixture and respond banks
-            # and under every quant mode
+            # fixture router's trunks and the respond / observe phases'
+            # bank and embedding model; K2 in the serve, fixture, respond
+            # and observe banks and under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
-            + respond["launches"][kname]
+            + respond["launches"][kname] + observe["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

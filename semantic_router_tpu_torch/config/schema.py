@@ -10,13 +10,19 @@ modality; the embedding-scored ones: embedding, preference, complexity,
 kb with its knowledge bases), projections, decisions with their rule
 trees, model refs, selection algorithms and plugins, model cards, the
 semantic cache, the ``memory`` and ``tool_selection`` blocks, the
-``authz`` block, and the inference-engine knobs (``engine.quant``
-included).  Other blocks of a config file are not read; the options the
-port does not serve yet (``UNPORTED``) are refused at load.
+``authz`` block, the inference-engine knobs (``engine.quant``
+included) and the ``observability`` block (tracing, metrics, flight
+recorder, runtime and program stats, decision records).  A canonical
+``global:`` block is lifted to the top level first, as the reference
+does.  Other blocks of a config file are not read; the options the
+reference serves and the port does not yet (``refuse_unported``) are
+refused at load, never served as if absent.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -852,16 +858,112 @@ UNPORTED = {
     "resilience": "the degradation ladder (resilience.enabled)",
 }
 
+# top-level blocks the JAX router reads and this port does not: refused
+# when enabled (``enabled: true``, or a non-empty block or list without an
+# ``enabled`` switch), as the reference's default leaves each off
+UNPORTED_BLOCKS = {
+    "ratelimit": "rate limiting",
+    "skip_processing": "the skip-processing passthrough",
+    "prompt_compression": "prompt compression",
+    "recipes": "routing recipes",
+    "entrypoints": "virtual-model entrypoints",
+    "stateplane": "the shared state plane",
+    "ann": "the on-device ANN plane",
+    "vectorstore": "vector stores",
+    "response_store": "the Responses API store",
+    "mcp": "MCP classifiers",
+    "external_models": "external models",
+    "router_replay": "router replay",
+}
+# engine knobs the JAX engine reads and this port does not
+UNPORTED_ENGINE = {
+    "cascade": "the decision-aware signal cascade",
+    "packing": "sequence packing",
+    "mesh": "the serving mesh",
+    "mesh_shape": "the engine mesh",
+}
+# decision algorithms that run several models downstream (the
+# reference's looper): routed, and refused by the HTTP server
+LOOPER_ALGORITHMS = ("confidence", "ratings", "remom", "fusion",
+                     "workflows")
+
+
+def lift_global(d: Dict[str, Any]) -> Dict[str, Any]:
+    """The canonical ``global:`` block's keys lifted to the top level;
+    explicit top-level keys win (the reference's rule)."""
+    if isinstance(d.get("global"), dict):
+        d = {**d["global"], **{k: v for k, v in d.items() if k != "global"}}
+    return d
+
+
+def _enabled(block: Any) -> bool:
+    """A block or list the reference would act on: ``enabled`` true, or
+    non-empty with no ``enabled`` switch."""
+    if isinstance(block, dict):
+        if "enabled" in block:
+            return bool(block["enabled"])
+        return bool(block)
+    return bool(block)
+
+
+def config_hash(raw: Dict[str, Any]) -> str:
+    """Stable content hash of a config dict (decision-record provenance):
+    the reference's, sha256 over the YAML dump, when ``yaml`` is present;
+    over canonical JSON otherwise."""
+    try:
+        import yaml
+
+        dumped = yaml.safe_dump(raw or {}, sort_keys=True)
+    except ImportError:
+        dumped = json.dumps(raw or {}, sort_keys=True, default=str)
+    return hashlib.sha256(dumped.encode()).hexdigest()[:16]
+
 
 def refuse_unported(d: Dict[str, Any]) -> None:
-    """Raise ValueError naming the first unported option ``d`` enables:
-    the blocks of ``UNPORTED``, a qdrant / milvus memory store, an enabled
-    ``rag`` plugin, a selector ``algorithm.artifact``."""
+    """Raise ValueError naming the first unported option ``d`` (with its
+    ``global:`` block lifted) enables: the blocks of ``UNPORTED`` and
+    ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
+    observability sub-blocks this port does not serve (SLO objectives,
+    the fleet plane, OTLP export, a durable decision store other than
+    SQLite), a qdrant / milvus memory store, an enabled ``rag`` or
+    ``image_generation`` plugin, a selector ``algorithm.artifact``.
+
+    A looper algorithm (``LOOPER_ALGORITHMS``) loads, as the reference's
+    own fixture config carries one: the route names the decision and its
+    highest-weight model, as the reference's does, and the HTTP server
+    refuses to execute it (501) instead of forwarding to that one
+    model."""
+    d = lift_global(d)
     routing = d.get("routing", {}) or {}
     for key, what in UNPORTED.items():
         block = routing.get(key, d.get(key)) or {}
         if isinstance(block, dict) and block.get("enabled"):
             raise ValueError(f"{what} is not served by this port yet")
+    for key, what in UNPORTED_BLOCKS.items():
+        if _enabled(routing.get(key, d.get(key))):
+            raise ValueError(f"{key}: {what} is not served by this port "
+                             f"yet")
+    engine = d.get("engine", d.get("inference_engine", {})) or {}
+    for key, what in UNPORTED_ENGINE.items():
+        if _enabled(engine.get(key)):
+            raise ValueError(f"engine.{key}: {what} is not served by this "
+                             f"port yet")
+    obs = d.get("observability", {}) or {}
+    if (obs.get("slo") or {}).get("objectives"):
+        raise ValueError("observability.slo: SLO objectives are not served "
+                         "by this port yet")
+    if (obs.get("fleet") or {}).get("enabled"):
+        raise ValueError("observability.fleet.enabled: the fleet "
+                         "observability plane is not served by this port "
+                         "yet")
+    if (obs.get("tracing") or {}).get("otlp_endpoint"):
+        raise ValueError("observability.tracing.otlp_endpoint: OTLP export "
+                         "is not served by this port yet")
+    durable = (obs.get("decisions") or {}).get("durable") or {}
+    if str(durable.get("backend", "") or "") not in ("", "sqlite"):
+        raise ValueError(f"observability.decisions.durable.backend "
+                         f"{durable['backend']!r} is not served by this "
+                         f"port yet (sqlite only)")
     if ((d.get("resilience") or {}).get("upstream") or {}).get("enabled"):
         raise ValueError("the upstream health plane "
                          "(resilience.upstream.enabled) is not served by "
@@ -872,15 +974,16 @@ def refuse_unported(d: Dict[str, Any]) -> None:
                          f"this port yet (\"\" or sqlite)")
     for dec in routing.get("decisions", d.get("decisions", [])) or []:
         name = dec.get("name", "")
-        if (dec.get("algorithm") or {}).get("artifact"):
+        algo = dec.get("algorithm") or {}
+        if algo.get("artifact"):
             raise ValueError(f"decision {name!r}: selector artifacts "
                              f"(algorithm.artifact) are not served by "
                              f"this port yet")
         for p in dec.get("plugins", []) or []:
-            if p.get("type") == "rag" and \
+            if p.get("type") in ("rag", "image_generation") and \
                     PluginConfig.from_dict(p).enabled:
-                raise ValueError(f"decision {name!r}: the rag plugin is "
-                                 f"not served by this port yet")
+                raise ValueError(f"decision {name!r}: the {p['type']} "
+                                 f"plugin is not served by this port yet")
 
 
 @dataclass
@@ -904,10 +1007,14 @@ class RouterConfig:
     memory: Dict[str, Any] = field(default_factory=dict)
     # {tools: [...]}: the tools database of ``auto_select``
     tool_selection: Dict[str, Any] = field(default_factory=dict)
+    # the observability block, read through the accessors below
+    observability: Dict[str, Any] = field(default_factory=dict)
+    # the dict this config was parsed from (``global:`` lifted)
+    raw: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "RouterConfig":
-        d = d or {}
+        d = lift_global(d or {})
         routing = d.get("routing", {}) or {}
         refuse_unported(d)
         return cls(
@@ -934,7 +1041,97 @@ class RouterConfig:
                       routing.get("knowledge_bases", [])) or []],
             memory=dict(d.get("memory", {}) or {}),
             tool_selection=dict(d.get("tool_selection", {}) or {}),
+            observability=dict(d.get("observability", {}) or {}),
+            raw=d,
         )
+
+    # -- observability knobs ------------------------------------------------
+    # The reference's accessors, with its defaults: the ONE place the
+    # block's sub-keys are interpreted.  A malformed telemetry value
+    # falls back to the default (telemetry config is never fatal).
+
+    def tracing_config(self) -> Dict[str, Any]:
+        return dict((self.observability or {}).get("tracing", {}) or {})
+
+    def tracing_sample_rate(self) -> float:
+        """Fraction of traces given DETAILED batch tracing (the fenced
+        per-stage device timing); continuity spans are never sampled
+        away."""
+        try:
+            return float(self.tracing_config().get("sample_rate", 0.1))
+        except (TypeError, ValueError):
+            return 0.1
+
+    def metrics_exemplars_enabled(self) -> bool:
+        m = (self.observability or {}).get("metrics", {}) or {}
+        return bool(m.get("exemplars", False))
+
+    def flight_recorder_config(self) -> Dict[str, Any]:
+        """FlightRecorder.configure kwargs (ms → s for the threshold)."""
+        fr = (self.observability or {}).get("flight_recorder", {}) or {}
+        out: Dict[str, Any] = {}
+        try:
+            if "slowest_n" in fr:
+                out["slowest_n"] = int(fr["slowest_n"])
+            if "threshold_ms" in fr:
+                out["threshold_s"] = float(fr["threshold_ms"]) / 1e3
+            if "breach_capacity" in fr:
+                out["breach_capacity"] = int(fr["breach_capacity"])
+        except (TypeError, ValueError):
+            return {}
+        return out
+
+    def runtime_stats_config(self) -> Dict[str, Any]:
+        """The always-on device-step sampler + process gauges (on by
+        default)."""
+        rs = (self.observability or {}).get("runtime_stats", {}) or {}
+        try:
+            interval = float(rs.get("interval_s", 10.0))
+        except (TypeError, ValueError):
+            interval = 10.0
+        return {"enabled": bool(rs.get("enabled", True)),
+                "interval_s": interval}
+
+    def programstats_config(self) -> Dict[str, Any]:
+        """The program-cost catalog (on by default).  The reference's
+        ``slo_capture`` arm waits for the SLO engine: it is normalized
+        and not served."""
+        ps = (self.observability or {}).get("programstats", {}) or {}
+        cap = ps.get("slo_capture", {}) or {}
+        try:
+            trace_s = float(cap.get("trace_s", 2.0))
+        except (TypeError, ValueError):
+            trace_s = 2.0
+        try:
+            cooldown_s = float(cap.get("cooldown_s", 300.0))
+        except (TypeError, ValueError):
+            cooldown_s = 300.0
+        return {"enabled": bool(ps.get("enabled", True)),
+                "slo_capture": {
+                    "enabled": bool(cap.get("enabled", True)),
+                    "trace_s": max(0.0, trace_s),
+                    "cooldown_s": max(0.0, cooldown_s)}}
+
+    def decision_explain_config(self) -> Dict[str, Any]:
+        """The per-request decision-record knobs: enabled, ring_size,
+        sample_rate (deterministic per trace id), redact_pii, and an
+        optional SQLite ``durable`` mirror ({backend: sqlite, path,
+        max_records})."""
+        d = (self.observability or {}).get("decisions", {}) or {}
+        out: Dict[str, Any] = {"enabled": bool(d.get("enabled", True)),
+                               "redact_pii": bool(d.get("redact_pii",
+                                                        True)),
+                               "durable": dict(d.get("durable", {})
+                                               or {})}
+        try:
+            out["ring_size"] = int(d.get("ring_size", 512))
+        except (TypeError, ValueError):
+            out["ring_size"] = 512
+        try:
+            out["sample_rate"] = float(d.get("sample_rate", 1.0))
+        except (TypeError, ValueError):
+            out["sample_rate"] = 1.0
+        return out
 
     def used_signal_types(self) -> List[str]:
         """Signal families referenced by decision rules, complexity

@@ -5,11 +5,14 @@ matched signal rules, then picks the best match by strategy ("priority" or
 "confidence").  Leaf matching by "type:name" (a bare complexity rule name
 matches any level the family reported; ``projection`` leaves match the
 outputs the projections added); confidence aggregation AND=min,
-OR=max over matched children, NOT=1.0 when no child matches.
+OR=max over matched children, NOT=1.0 when no child matches.  A caller
+that passes ``trace`` gets every decision's full rule tree
+(``explain_rule_node``), the audit view decision records store.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -64,6 +67,16 @@ class DecisionResult:
     matched_keywords: List[str] = field(default_factory=list)
 
 
+@dataclass
+class DecisionTraceEntry:
+    decision: str
+    matched: bool
+    confidence: float
+    matched_rules: List[str]
+    # full rule-evaluation tree (explain_rule_node): every node's outcome
+    tree: Optional[dict] = None
+
+
 def eval_rule_node(node: RuleNode, signals: SignalMatches
                    ) -> Tuple[bool, float, List[str]]:
     """(matched, confidence, matched leaf rules) of one rule tree."""
@@ -104,6 +117,41 @@ def eval_rule_node(node: RuleNode, signals: SignalMatches
     return matched, best, rules
 
 
+def explain_rule_node(node: RuleNode, signals: SignalMatches) -> dict:
+    """Full-fidelity rule-tree evaluation: the same (matched, confidence,
+    matched_rules) as ``eval_rule_node``, with EVERY node's outcome
+    captured — also the branches short-circuit evaluation never visits."""
+    if node.is_leaf():
+        styp = node.signal_type.lower().strip()
+        matched = signals.matched(styp, node.name)
+        conf = signals.confidence(styp, node.name) if matched else 0.0
+        return {"node": "leaf", "signal": f"{styp}:{node.name}",
+                "matched": matched, "confidence": conf,
+                "matched_rules": [f"{styp}:{node.name}"] if matched
+                else []}
+    op = node.operator.upper()
+    if op not in ("AND", "NOT"):
+        op = "OR"
+    children = [explain_rule_node(c, signals) for c in node.conditions]
+    if op == "AND":
+        matched = bool(children) and all(c["matched"] for c in children)
+        conf = min((c["confidence"] for c in children), default=0.0) \
+            if matched else 0.0
+        rules = [r for c in children for r in c["matched_rules"]] \
+            if matched else []
+    elif op == "NOT":
+        matched = not any(c["matched"] for c in children)
+        conf = 1.0 if matched else 0.0
+        rules = []
+    else:  # OR
+        hit = [c for c in children if c["matched"]]
+        matched = bool(hit)
+        conf = max((c["confidence"] for c in hit), default=0.0)
+        rules = [r for c in hit for r in c["matched_rules"]]
+    return {"node": op.lower(), "matched": matched, "confidence": conf,
+            "matched_rules": rules, "children": children}
+
+
 class DecisionEngine:
     """Evaluates decisions over signal matches."""
 
@@ -111,9 +159,18 @@ class DecisionEngine:
                  strategy: str = "priority") -> None:
         self.decisions = list(decisions)
         self.strategy = strategy or "priority"
+        self.last_eval_latency_s: float = 0.0
 
-    def evaluate(self, signals: SignalMatches) -> Optional[DecisionResult]:
-        results = self.evaluate_all(signals)
+    def evaluate(self, signals: SignalMatches,
+                 trace: Optional[List[DecisionTraceEntry]] = None
+                 ) -> Optional[DecisionResult]:
+        """The best matching decision, or None.  With ``trace`` (a list)
+        every decision's full rule tree is appended to it."""
+        start = time.perf_counter()
+        try:
+            results = self.evaluate_all(signals, trace=trace)
+        finally:
+            self.last_eval_latency_s = time.perf_counter() - start
         if not results:
             return None
         best = results[0]
@@ -123,11 +180,21 @@ class DecisionEngine:
             for kw in kw_detail.get(rule.split(":", 1)[1], [])]
         return best
 
-    def evaluate_all(self, signals: SignalMatches) -> List[DecisionResult]:
+    def evaluate_all(self, signals: SignalMatches,
+                     trace: Optional[List[DecisionTraceEntry]] = None
+                     ) -> List[DecisionResult]:
         """All matching decisions, best first."""
         results = []
         for dec in self.decisions:
-            matched, conf, rules = eval_rule_node(dec.rules, signals)
+            if trace is not None:
+                # one evaluation: the summary is read off the tree's root
+                tree = explain_rule_node(dec.rules, signals)
+                matched, conf, rules = (tree["matched"], tree["confidence"],
+                                        tree["matched_rules"])
+                trace.append(DecisionTraceEntry(dec.name, matched, conf,
+                                                rules, tree=tree))
+            else:
+                matched, conf, rules = eval_rule_node(dec.rules, signals)
             if matched:
                 results.append(DecisionResult(dec, conf, rules))
         results.sort(key=self._sort_key)

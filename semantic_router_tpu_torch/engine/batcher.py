@@ -1,7 +1,6 @@
 """Dynamic batching shim — the host-side front end of the engine.
 
-The port's copy of ``semantic_router_tpu.engine.batcher`` without its
-tracing and metrics hooks:
+The port's copy of ``semantic_router_tpu.engine.batcher``:
 
 - requests are grouped by (group_key, seq-len bucket); sequences pad to
   the bucket edge and batches pad to the next power of two ≤
@@ -15,7 +14,12 @@ tracing and metrics hooks:
   ONE in-flight batch per group, so a slow bucket cannot park live
   traffic on others;
 - cancellation: a future cancelled while queued is dropped before its
-  batch runs; once a batch starts, its futures can no longer be cancelled.
+  batch runs; once a batch starts, its futures can no longer be cancelled;
+- tracing: each item captures the submitting thread's trace context at
+  enqueue (observability.batchtrace), so the runner can emit the
+  request's batch.wait / batch.ride spans from a dispatch thread; each
+  dispatched batch feeds ``llm_batcher_queue_wait_seconds`` (with the
+  request's trace id as exemplar) and ``llm_batcher_batch_fill_ratio``.
 
 The runner receives (group_key, list[BatchItem]) and returns one result
 per item; it owns padding and stacking since shapes are model-specific.
@@ -30,12 +34,17 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 
+from ..observability.batchtrace import capture as _capture_trace
+
 
 @dataclass
 class BatchItem:
     payload: Any
     future: Future = field(default_factory=Future)
     enqueue_t: float = field(default_factory=time.perf_counter)
+    # the originating request's (tracer, trace_id, span_id, sampled),
+    # captured at enqueue — None on untraced requests
+    trace: Any = field(default_factory=_capture_trace)
 
 
 BatchRunner = Callable[[Hashable, List[BatchItem]], Sequence[Any]]
@@ -120,7 +129,7 @@ class DynamicBatcher:
 
     def __init__(self, runner: BatchRunner, max_batch_size: int = 32,
                  max_wait_ms: float = 2.0, name: str = "batcher",
-                 dispatch_workers: int = 4) -> None:
+                 dispatch_workers: int = 4, metrics=None) -> None:
         self.runner = runner
         self.name = name
         self.max_batch_size = max(1, max_batch_size)
@@ -131,7 +140,10 @@ class DynamicBatcher:
         self._wake = threading.Condition(self._lock)
         self._stop = False
         self._stats = {"batches": 0, "items": 0, "max_batch": 0,
-                       "cancelled": 0}
+                       "cancelled": 0, "observe_errors": 0}
+        # the MetricSeries the batch observations go to (None: the
+        # process default series)
+        self._metrics = metrics
         self._pool = _DispatchPool(dispatch_workers,
                                    name=f"{name}-dispatch")
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -152,6 +164,48 @@ class DynamicBatcher:
             self._queues.setdefault(group_key, []).extend(items)
             self._wake.notify()
         return [i.future for i in items]
+
+    def _series(self):
+        if self._metrics is not None:
+            return self._metrics
+        from ..observability.metrics import default_series
+
+        return default_series
+
+    def _observe_batch(self, batch: List[BatchItem]) -> None:
+        """Queue-wait + occupancy series per dispatched batch.  Runs on
+        the single picker thread, so it fails open — an observability
+        error must never kill the loop all serving depends on — but
+        counts the failure (``stats()["observe_errors"]``)."""
+        try:
+            s = self._series()
+            now = time.perf_counter()
+            for item in batch:
+                # exemplar: the waiting request's trace id, so a slow
+                # queue-wait bucket links to the trace that landed there
+                tid = item.trace.trace_id if item.trace is not None else None
+                s.batcher_queue_wait.observe(now - item.enqueue_t,
+                                             exemplar=tid,
+                                             batcher=self.name)
+            s.batcher_fill_ratio.observe(len(batch) / self.max_batch_size,
+                                         batcher=self.name)
+        except Exception:
+            with self._lock:
+                self._stats["observe_errors"] += 1
+
+    def queue_depths(self) -> dict:
+        """Live congestion snapshot for the runtime-stats sampler
+        (llm_dispatcher_queue_depth): queued items/groups and in-flight
+        groups."""
+        with self._lock:
+            return {
+                "pending_items": sum(len(v) for v in
+                                     self._queues.values()),
+                "pending_groups": sum(1 for v in self._queues.values()
+                                      if v),
+                "inflight_groups": sum(1 for v in self._inflight.values()
+                                       if v > 0),
+            }
 
     def stats(self) -> dict:
         with self._lock:
@@ -225,6 +279,7 @@ class DynamicBatcher:
                 batch = items[:self.max_batch_size]
                 self._queues[key] = items[self.max_batch_size:]
                 self._inflight[key] = self._inflight.get(key, 0) + 1
+            self._observe_batch(batch)
             try:
                 self._pool.submit(self._dispatch, self._cancel_batch,
                                   key, batch)

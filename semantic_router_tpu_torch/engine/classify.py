@@ -48,15 +48,24 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   is captured as a CUDA graph and later ones replay it, as the JAX
   engine compiles a shape once; a group's cache lives in its demux
   snapshot, so a bank rebuild, a quant flip or a kernels flip starts the
-  group on an empty one.  ``warmup`` captures every bucket at batch 1.
+  group on an empty one.  ``warmup`` captures every bucket at batch 1;
+- observability, as the JAX engine's: every step is one
+  ``runtimestats.record_step`` (``steps()`` is a view of that record), a
+  step key's first execution is counted into the program catalog
+  (``programstats``: FLOPs and bytes), the step feeds the canonical
+  series (trunk forwards, kernel steps, truncated inputs, bucket
+  overflows, dedup rows, tokenizations), and a batch carrying a request
+  trace opens a ``batch.execute`` step span with the requests'
+  ``batch.wait`` / ``batch.tokenize`` / ``batch.ride`` spans
+  (observability.batchtrace).  A sampled trace's plain fused step (seq
+  flavor, quant off, no epilogue, no BGMV) runs as two fenced eager
+  calls, trunk then heads, under the variant ``fused_detailed``.
 
-Packing, meshes and the observability hooks of the JAX engine are later
-slices (ROADMAP.md).
+Packing and meshes of the JAX engine are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import hashlib
 import threading
@@ -79,6 +88,8 @@ from ..models.lora import (
     head_bank_entry,
     stack_head_bank,
 )
+from ..observability import batchtrace
+from ..observability.profiler import trace_span
 from ..ops.attention import cls_pool, mean_pool
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tokenization import (
@@ -88,7 +99,12 @@ from ..utils.tokenization import (
     encode_windows,
 )
 from .batcher import BatchItem, DynamicBatcher, pick_bucket, pow2_batch
-from .graphs import CaptureGate, SnapshotRetired, StepGraphs
+from .graphs import (
+    CaptureGate,
+    SnapshotRetired,
+    StepGraphs,
+    on_first_execution,
+)
 from .kernels import normalize_kernels, normalize_quant, quant_selects
 
 # batch-group key prefix for fused trunk groups
@@ -193,6 +209,11 @@ class _Payload:
     # resolves that task's result; several → a {task: result} dict
     tasks: tuple = ()
     submit_t: float = field(default_factory=time.perf_counter)
+    # host tokenization cost for batch tracing (a batch.tokenize span
+    # per traced request): seconds spent encoding, and whether the
+    # request's EncodingCache already held the encoding
+    tok_s: float = 0.0
+    tok_cached: bool = False
 
 
 @dataclass
@@ -228,9 +249,7 @@ class TrunkGroup:
         hidden = demux["trunk"](ids, mask)
         seq = tok = None
         if flavor in ("seq", "both"):
-            pooled = mean_pool(hidden, mask) \
-                if cfg.classifier_pooling == "mean" else cls_pool(hidden)
-            pooled = pooled.float()
+            pooled = self.pool(hidden, mask)
             if pair_rows is not None:
                 seq = apply_head_bank_bgmv(
                     demux["bank"], pooled, pair_rows, pair_tasks,
@@ -248,17 +267,45 @@ class TrunkGroup:
             tok = flat.reshape(B, S, flat.shape[-2], flat.shape[-1])
         return seq, tok
 
+    def pool(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The sequence heads' float32 features: mean or CLS pooling."""
+        pooled = mean_pool(hidden, mask) \
+            if self.config.classifier_pooling == "mean" else cls_pool(hidden)
+        return pooled.float()
+
+    def heads(self, demux: dict, pooled: torch.Tensor) -> torch.Tensor:
+        """The sequence head bank over pooled features, plain einsums (the
+        detailed step's second call)."""
+        cfg = self.config
+        return apply_head_bank(demux["bank"], pooled,
+                               cfg.classifier_activation, cfg.norm_eps)
+
 
 class InferenceEngine:
     """Owner of the served classifier tasks + the batching shim.
 
     ``device``: where the models run — ``cuda`` when None (raises without
-    a GPU), or the caller's explicit choice such as ``"cpu"``."""
+    a GPU), or the caller's explicit choice such as ``"cpu"``.
+    ``metrics`` (a MetricSeries), ``runtime_stats`` and ``program_stats``
+    bind the engine's observability (None: the process defaults)."""
 
     def __init__(self, cfg: Optional[InferenceEngineConfig] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, metrics=None,
+                 runtime_stats=None, program_stats=None) -> None:
         self.cfg = cfg or InferenceEngineConfig()
         self.device = resolve_device(device)
+        self._metrics = metrics
+        if runtime_stats is None:
+            from ..observability.runtimestats import default_runtime_stats
+
+            runtime_stats = default_runtime_stats
+        self._runtime_stats = runtime_stats
+        if program_stats is None:
+            from ..observability.programstats import default_program_stats
+
+            program_stats = default_program_stats
+        self._program_stats = program_stats
+        program_stats.device = self.device.type
         self._tasks: Dict[str, _Task] = {}
         self._lock = threading.Lock()
         self._kernels = normalize_kernels(self.cfg.kernels)
@@ -276,8 +323,6 @@ class InferenceEngine:
         self._stale: List[StepGraphs] = []
         # replays share the gate, a capture holds it alone
         self._gate = CaptureGate()
-        # step accounting: one record per trunk forward (bounded)
-        self._steps: collections.deque = collections.deque(maxlen=4096)
         self.trunk_forwards = 0
         self.fused_dedup_rows = 0
         self.batcher = DynamicBatcher(
@@ -285,7 +330,16 @@ class InferenceEngine:
             max_batch_size=self.cfg.max_batch_size,
             max_wait_ms=self.cfg.max_wait_ms,
             name="torch-engine-batcher",
-            dispatch_workers=self.cfg.dispatch_workers)
+            dispatch_workers=self.cfg.dispatch_workers,
+            metrics=metrics)
+        # the sampler's queue-depth and graph-pool rows
+        self._queue_provider = self.batcher.queue_depths
+        self._memory_provider = lambda: {"graph_pool_bytes": sum(
+            r["pool_bytes"] for r in self.graph_report().values())}
+        runtime_stats.register_provider(self.batcher.name,
+                                        self._queue_provider)
+        runtime_stats.register_memory_provider(f"engine:{id(self):x}",
+                                               self._memory_provider)
 
     # -- registration ------------------------------------------------------
 
@@ -615,12 +669,15 @@ class InferenceEngine:
     def _submit(self, t: _Task, text: str, enc_cache=None,
                 threshold: float = 0.5):
         g = self._task_group.get(t.name)
-        enc = self._encode(g or t, text, enc_cache)
+        # counted per task, as the reference does for one task's call
+        enc, tok_s, cached = self._encode(g or t, text, enc_cache, t.name,
+                                          (t.name,))
         bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
         key = (TRUNK_KEY, g.gid, bucket) if g is not None \
             else (t.name, bucket)
         return self.batcher.submit(
-            key, _Payload(text, enc, threshold, tasks=(t.name,)))
+            key, _Payload(text, enc, threshold, tasks=(t.name,),
+                          tok_s=tok_s, tok_cached=cached))
 
     def classify_multi(self, tasks: Sequence[str], texts: Sequence[str],
                        timeout: float = 30.0,
@@ -639,10 +696,12 @@ class InferenceEngine:
         deadline = time.perf_counter() + timeout
         by_bucket: Dict[int, List[tuple]] = {}
         for ti, text in enumerate(texts):
-            enc = self._encode(g, text, enc_cache)
+            enc, tok_s, cached = self._encode(g, text, enc_cache, g.gid,
+                                              tasks)
             bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
             by_bucket.setdefault(bucket, []).append(
-                (ti, _Payload(text, enc, tasks=tuple(tasks))))
+                (ti, _Payload(text, enc, tasks=tuple(tasks), tok_s=tok_s,
+                              tok_cached=cached)))
         futs: List[tuple] = []
         for bucket, entries in by_bucket.items():
             fs = self.batcher.submit_many((TRUNK_KEY, g.gid, bucket),
@@ -717,11 +776,12 @@ class InferenceEngine:
         t = self._require(task, kind="embedding")
         futures = []
         for text in texts:
-            enc = self._encode(t, text)
+            enc, tok_s, cached = self._encode(t, text, None, task, (task,))
             bucket = pick_bucket(len(enc), self.cfg.seq_len_buckets)
             futures.append(self.batcher.submit(
                 (task, bucket, exit_layer, output_dim),
-                _Payload(text, enc, tasks=(task,))))
+                _Payload(text, enc, tasks=(task,), tok_s=tok_s,
+                         tok_cached=cached)))
         return futures
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
@@ -770,10 +830,11 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
 
     def steps(self) -> List[dict]:
-        """Recent step records (oldest first); ``graph`` says whether the
-        step was ``captured``, ``replayed`` or run ``eager`` (CPU)."""
-        with self._lock:
-            return list(self._steps)
+        """Recent step records (oldest first), a view of this engine's
+        ``runtimestats.record_step`` log; ``graph`` says whether the step
+        was ``captured``, ``replayed`` or run ``eager`` (the CPU, and a
+        sampled trace's detailed step)."""
+        return self._runtime_stats.steps(self)
 
     def shape_census(self) -> Dict[str, list]:
         """Distinct (padded_batch, bucket) device shapes per batch group."""
@@ -808,6 +869,11 @@ class InferenceEngine:
         """Stop the batcher and drop every captured graph (their pools
         return to the card)."""
         self.batcher.shutdown()
+        rs = self._runtime_stats
+        rs.unregister_provider(self.batcher.name, self._queue_provider)
+        rs.unregister_memory_provider(f"engine:{id(self):x}",
+                                      self._memory_provider)
+        rs.drop_steps(self)
         with self._lock:
             caches = self._live_caches()
         for c in caches:
@@ -827,21 +893,47 @@ class InferenceEngine:
                             f"{right[t.kind]}()")
         return t
 
-    @staticmethod
-    def _encode(owner, text: str, enc_cache=None) -> Encoding:
-        """Encode with a trunk group's or a task's tokenizer and
-        max_seq_len."""
-        if enc_cache is None:
-            return owner.tokenizer.encode(text, max_length=owner.max_seq_len)
-        return enc_cache.get_or_encode(owner.tokenizer, text,
-                                       owner.max_seq_len)
+    def _series(self):
+        if self._metrics is not None:
+            return self._metrics
+        from ..observability.metrics import default_series
 
-    @staticmethod
-    def _stack_items(items: List[BatchItem], bucket: int, padded_n: int,
-                     pad_id: int):
+        return default_series
+
+    def _encode(self, owner, text: str, enc_cache, tok_tag: str,
+                trunc_tags: Sequence[str]) -> tuple:
+        """Encode with a trunk group's or a task's tokenizer and
+        max_seq_len (or reuse the request's shared Encoding).  Counts the
+        tokenizations actually run under ``tok_tag`` and each clipped
+        input per task of ``trunc_tags``.  Returns (encoding, seconds
+        spent encoding, whether the request's cache held it)."""
+        t0 = time.perf_counter()
+        missed = []
+
+        def on_miss():
+            missed.append(True)
+            self._series().tokenizations.inc(task=tok_tag)
+
+        if enc_cache is None:
+            enc = owner.tokenizer.encode(text, max_length=owner.max_seq_len)
+            on_miss()
+        else:
+            enc = enc_cache.get_or_encode(owner.tokenizer, text,
+                                          owner.max_seq_len, on_miss=on_miss)
+        tok_s = time.perf_counter() - t0
+        if enc.truncated:
+            s = self._series()
+            for tag in trunc_tags:
+                s.truncated_inputs.inc(task=tag)
+        return enc, tok_s, not missed
+
+    def _stack_items(self, items: List[BatchItem], bucket: int,
+                     padded_n: int, pad_id: int, tag: Optional[str] = None):
         """Pad item encodings into one (padded_n, bucket) host batch.
         Returns (ids, mask, clipped): an encoding longer than the bucket
-        clips at its edge and is flagged, never silently."""
+        clips at its edge, is flagged and counted
+        (``llm_batcher_bucket_overflow_total`` under ``tag``; with no tag
+        the caller counts per task), never silently."""
         ids = np.full((padded_n, bucket), pad_id, dtype=np.int64)
         mask = np.zeros((padded_n, bucket), dtype=np.int32)
         clipped = [False] * len(items)
@@ -851,6 +943,9 @@ class InferenceEngine:
             clipped[i] = len(enc) > bucket
             ids[i, :L] = enc.ids[:L]
             mask[i, :L] = enc.attention_mask[:L]
+        n_clipped = sum(clipped)
+        if n_clipped and tag is not None:
+            self._series().bucket_overflows.inc(n_clipped, task=tag)
         return ids, mask, clipped
 
     # -- the compiled-step census and the steps ----------------------------
@@ -875,53 +970,127 @@ class InferenceEngine:
             caches = self._live_caches()
         return not any(key in c.keys() for c in caches)
 
-    @staticmethod
-    def _execute(cache: StepGraphs, group: str, variant: str, shape: tuple,
-                 fn: Callable, inputs: Sequence[torch.Tensor]) -> tuple:
+    def _execute(self, cache: StepGraphs, group: str, variant: str,
+                 shape: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
+                 program: tuple, first: Optional[list] = None) -> tuple:
         """One step through ``cache`` under the key (group, variant,
-        *shape).  Returns (host outputs, how)."""
-        return cache.run((group, variant, *shape), fn, inputs)
+        *shape).  ``program`` is (bucket, padded rows, catalog variant,
+        measured variant, serving meta or None): the key's first
+        execution is counted into the program catalog under it, and
+        marked in ``first`` (a list) when given.  Returns (host outputs,
+        how)."""
+        def on_first(cost, info) -> None:
+            if first is not None:
+                first.append(True)
+            self._note_program(group, program, cost, info)
+
+        with on_first_execution(on_first):
+            return cache.run((group, variant, *shape), fn, inputs)
+
+    def _note_program(self, group: str, program: tuple, cost,
+                      info: Dict[str, Any]) -> None:
+        """Register a fresh step's count with the program catalog
+        (observability.programstats) under the reference's key (group,
+        bucket, variant, quant, kernels, mesh)."""
+        bucket, padded_n, variant, measured, meta = program
+        meta = meta or {}
+        kernels = "+".join(k for k in ("epilogue", "bgmv")
+                           if meta.get(k)) or "off"
+        self._program_stats.note_compile(
+            group, bucket, variant, (padded_n, bucket),
+            cost, measured_variant=measured,
+            quant=str(meta.get("quant") or "off"), kernels=kernels,
+            argument_bytes=info["argument_bytes"],
+            output_bytes=info["output_bytes"],
+            temp_bytes=info["temp_bytes"], capture_s=info["capture_s"])
 
     def _fused_step(self, g: TrunkGroup, demux: dict, flavor: str,
                     bucket: int, padded_n: int, meta: dict, use_bgmv: bool,
-                    inputs: Sequence[torch.Tensor]) -> tuple:
+                    inputs: Sequence[torch.Tensor],
+                    first: Optional[list] = None) -> tuple:
         """A trunk group's step: keyed on the flavor, the shape, the padded
         pair count and the kernel toggles, which the batch read from the
         live knobs (the quant mode is the snapshot's own, and every
-        snapshot has its own cache)."""
-        shape = (bucket, padded_n, len(inputs[2]) if use_bgmv else 0,
-                 meta["epilogue"], use_bgmv)
+        snapshot has its own cache).  Its catalog variant is the
+        reference's ``fused:<flavor>[:p<pairs>]``."""
+        pairs = len(inputs[2]) if use_bgmv else 0
+        shape = (bucket, padded_n, pairs, meta["epilogue"], use_bgmv)
 
         def step(ids, mask, *pairs):
             return g.forward(ids, mask, flavor, demux, meta["epilogue"],
                              *pairs)
 
-        return self._execute(demux["graphs"], f"trunk:{g.gid}", flavor,
-                             shape, step, inputs)
+        variant = f"fused:{flavor}" + (f":p{pairs}" if use_bgmv else "")
+        with trace_span(f"engine.classify.fused.{g.gid}",
+                        cuda=self.device.type == "cuda"):
+            return self._execute(
+                demux["graphs"], f"trunk:{g.gid}", flavor, shape, step,
+                inputs, (bucket, padded_n, variant, "fused",
+                         dict(meta, bgmv=use_bgmv)), first)
 
     def _task_step(self, t: _Task, bucket: int, padded_n: int,
-                   inputs: Sequence[torch.Tensor]) -> tuple:
+                   inputs: Sequence[torch.Tensor],
+                   first: Optional[list] = None) -> tuple:
         """A per-task step: the module's own float32 forward."""
-        return self._execute(t.graphs, f"task:{t.name}", "split",
-                             (bucket, padded_n),
-                             lambda ids, mask: (t.module(ids, mask),),
-                             inputs)
+        with trace_span(f"engine.classify.{t.name}",
+                        cuda=self.device.type == "cuda"):
+            return self._execute(
+                t.graphs, f"task:{t.name}", "split", (bucket, padded_n),
+                lambda ids, mask: (t.module(ids, mask),), inputs,
+                (bucket, padded_n, "split", "split", None), first)
+
+    @staticmethod
+    def _split_variant(exit_layer: Optional[int],
+                       output_dim: Optional[int]) -> str:
+        """The runtimestats / catalog variant of an embedding step: the
+        reference's ``split``, with the 2D-Matryoshka variant named."""
+        return "split" + (f":exit{exit_layer}" if exit_layer else "") \
+            + (f":dim{output_dim}" if output_dim else "")
 
     def _embed_step(self, t: _Task, bucket: int, padded_n: int,
                     exit_layer: Optional[int], output_dim: Optional[int],
-                    inputs: Sequence[torch.Tensor]) -> tuple:
+                    inputs: Sequence[torch.Tensor],
+                    first: Optional[list] = None) -> tuple:
         """An embedding step at one 2D-Matryoshka variant."""
-        return self._execute(
-            t.graphs, f"task:{t.name}", "embed",
-            (bucket, padded_n, exit_layer, output_dim),
-            lambda ids, mask: (t.module(ids, mask, exit_layer=exit_layer,
-                                        output_dim=output_dim),),
-            inputs)
+        variant = self._split_variant(exit_layer, output_dim)
+        with trace_span(f"engine.embed.{t.name}",
+                        cuda=self.device.type == "cuda"):
+            return self._execute(
+                t.graphs, f"task:{t.name}", "embed",
+                (bucket, padded_n, exit_layer, output_dim),
+                lambda ids, mask: (t.module(ids, mask, exit_layer=exit_layer,
+                                            output_dim=output_dim),),
+                inputs, (bucket, padded_n, variant, variant, None), first)
 
-    def _record(self, rec: Dict[str, Any]) -> None:
+    def _record_step(self, group: str, bucket: int, variant: str,
+                     rows: int, padded_rows: int, seconds: float,
+                     compiled: bool, detail: Dict[str, Any],
+                     tokens_real: int = 0, tokens_padded: int = 0) -> None:
+        """The step's one record: a runtimestats sample (a bounded deque
+        append) carrying ``detail``, the record ``steps()`` shows, and one
+        ``llm_classifier_batch_size`` observation of its real rows (the
+        reference declares the series; the port feeds it per step)."""
         with self._lock:
             self.trunk_forwards += 1
-            self._steps.append(rec)
+        self._series().batch_size.observe(rows)
+        self._runtime_stats.record_step(
+            group, bucket, variant, rows, padded_rows, seconds,
+            compiled=compiled, tokens_real=tokens_real,
+            tokens_padded=tokens_padded,
+            segments=rows if tokens_padded else 0,
+            detail=detail, source=self)
+
+    def _count_kernel_step(self, gid: str, meta: dict,
+                           used_bgmv: bool) -> None:
+        """llm_engine_kernel_steps_total: device steps served through each
+        tuned-kernel path."""
+        m = self._series()
+        if meta["quant"] != "off":
+            m.kernel_steps.inc(group=gid, kernel=f"quant_{meta['quant']}")
+        if meta["epilogue"]:
+            m.kernel_steps.inc(group=gid, kernel="epilogue")
+        if used_bgmv:
+            m.kernel_steps.inc(group=gid, kernel="bgmv")
 
     # -- the batch runners -------------------------------------------------
 
@@ -951,34 +1120,56 @@ class InferenceEngine:
         t = self._require(task)
         n = len(items)
         padded_n = pow2_batch(n, self.cfg.max_batch_size)
-        ids, mask, clipped = self._stack_items(items, bucket, padded_n,
-                                               t.pad_id)
-        self._note_shape(f"task:{task}", (padded_n, bucket))
-        t0 = time.perf_counter()
-        (logits,), how = self._task_step(
-            t, bucket, padded_n, [torch.from_numpy(ids),
-                                  torch.from_numpy(mask)])
-        model = getattr(t.module, "model", None)
-        self._record({
-            "group": f"task:{task}", "bucket": bucket, "flavor": "split",
-            "rows": n, "padded_rows": padded_n,
-            "layers": model.layers_run() if model is not None else None,
-            "seconds": time.perf_counter() - t0, "graph": how})
-        logits = logits.numpy()
-        now = time.perf_counter()
-        out: List[Any] = []
-        for i, item in enumerate(items):
-            enc = item.payload.encoding
-            latency = now - item.payload.submit_t
-            trunc = enc.truncated or clipped[i]
-            if t.kind == "sequence":
-                p = _softmax(logits[i][None])[0]
-                out.append(self._demux_seq(task, p, latency, trunc))
-            else:
-                L = min(len(enc), bucket)
-                out.append(self._demux_tok(task, _softmax(logits[i, :L]),
-                                           item, enc, L, latency, trunc))
-        return out
+        # opened before stacking: batch.wait ends where queue wait ends
+        step = batchtrace.start_step(
+            items, group=f"task:{task}", bucket=bucket,
+            max_batch=self.cfg.max_batch_size, padded_rows=padded_n,
+            kind=t.kind)
+        try:
+            with batchtrace.stage(step, "stack"):
+                ids, mask, clipped = self._stack_items(items, bucket,
+                                                       padded_n, t.pad_id,
+                                                       tag=task)
+            self._note_shape(f"task:{task}", (padded_n, bucket))
+            t0 = time.perf_counter()
+            first: list = []
+            with batchtrace.stage(step, "trunk_forward"):
+                (logits,), how = self._task_step(
+                    t, bucket, padded_n, [torch.from_numpy(ids),
+                                          torch.from_numpy(mask)], first)
+            model = getattr(t.module, "model", None)
+            secs = time.perf_counter() - t0
+            self._record_step(f"task:{task}", bucket, "split", n, padded_n,
+                              secs, bool(first), {
+                                  "group": f"task:{task}", "bucket": bucket,
+                                  "flavor": "split", "rows": n,
+                                  "padded_rows": padded_n,
+                                  "layers": model.layers_run()
+                                  if model is not None else None,
+                                  "seconds": secs, "graph": how})
+            self._series().trunk_forwards.inc(group=task,
+                                              path="traditional")
+            with batchtrace.stage(step, "demux"):
+                logits = logits.numpy()
+                now = time.perf_counter()
+                out: List[Any] = []
+                for i, item in enumerate(items):
+                    enc = item.payload.encoding
+                    latency = now - item.payload.submit_t
+                    trunc = enc.truncated or clipped[i]
+                    if t.kind == "sequence":
+                        p = _softmax(logits[i][None])[0]
+                        out.append(self._demux_seq(task, p, latency, trunc))
+                    else:
+                        L = min(len(enc), bucket)
+                        out.append(self._demux_tok(
+                            task, _softmax(logits[i, :L]), item, enc, L,
+                            latency, trunc))
+            return out
+        finally:
+            # a failing batch is exactly one a trace must explain
+            if step is not None:
+                step.finish()
 
     def _run_embed_batch(self, task: str, bucket: int,
                          exit_layer: Optional[int],
@@ -989,20 +1180,38 @@ class InferenceEngine:
         t = self._require(task, kind="embedding")
         n = len(items)
         padded_n = pow2_batch(n, self.cfg.max_batch_size)
-        ids, mask, _ = self._stack_items(items, bucket, padded_n, t.pad_id)
-        self._note_shape(f"task:{task}", (padded_n, bucket))
-        t0 = time.perf_counter()
-        (emb,), how = self._embed_step(
-            t, bucket, padded_n, exit_layer, output_dim,
-            [torch.from_numpy(ids), torch.from_numpy(mask)])
-        self._record({
-            "group": f"task:{task}", "bucket": bucket, "flavor": "embed",
-            "rows": n, "padded_rows": padded_n, "exit_layer": exit_layer,
-            "output_dim": output_dim,
-            "layers": t.module.model.layers_run(exit_layer),
-            "seconds": time.perf_counter() - t0, "graph": how})
-        emb = emb.numpy()
-        return [emb[i] for i in range(n)]
+        step = batchtrace.start_step(
+            items, group=f"task:{task}", bucket=bucket,
+            max_batch=self.cfg.max_batch_size, padded_rows=padded_n,
+            kind=t.kind)
+        try:
+            with batchtrace.stage(step, "stack"):
+                ids, mask, _ = self._stack_items(items, bucket, padded_n,
+                                                 t.pad_id, tag=task)
+            self._note_shape(f"task:{task}", (padded_n, bucket))
+            t0 = time.perf_counter()
+            first: list = []
+            with batchtrace.stage(step, "trunk_forward"):
+                (emb,), how = self._embed_step(
+                    t, bucket, padded_n, exit_layer, output_dim,
+                    [torch.from_numpy(ids), torch.from_numpy(mask)], first)
+            secs = time.perf_counter() - t0
+            self._record_step(
+                f"task:{task}", bucket,
+                self._split_variant(exit_layer, output_dim), n, padded_n,
+                secs, bool(first), {
+                    "group": f"task:{task}", "bucket": bucket,
+                    "flavor": "embed", "rows": n, "padded_rows": padded_n,
+                    "exit_layer": exit_layer, "output_dim": output_dim,
+                    "layers": t.module.model.layers_run(exit_layer),
+                    "seconds": secs, "graph": how})
+            self._series().trunk_forwards.inc(group=task,
+                                              path="traditional")
+            emb = emb.numpy()
+            return [emb[i] for i in range(n)]
+        finally:
+            if step is not None:
+                step.finish()
 
     def _run_fused_batch(self, gid: str, bucket: int,
                          items: List[BatchItem]) -> Sequence[Any]:
@@ -1031,6 +1240,7 @@ class InferenceEngine:
         if len(uniq) < len(items):
             with self._lock:
                 self.fused_dedup_rows += len(items) - len(uniq)
+            self._series().fused_dedup_rows.inc(len(items) - len(uniq))
         # a batch with no token items never pays the per-token head matmul
         kinds = {self._tasks[t].kind for item in items
                  for t in item.payload.tasks if t in self._tasks}
@@ -1048,58 +1258,118 @@ class InferenceEngine:
         """The fixed-row fused path: one trunk row per unique encoding,
         padded to the bucket edge."""
         padded_n = pow2_batch(len(uniq), self.cfg.max_batch_size)
-        ids, mask, clipped = self._stack_items(uniq, bucket, padded_n,
-                                               g.pad_id)
         meta = self._serving_meta(demux)
         use_bgmv = meta["bgmv"] and flavor in ("seq", "both")
-        pair_index: Dict[tuple, int] = {}
-        pairs: tuple = ()
-        if use_bgmv:
-            pr, pt, pair_index = self._bgmv_pairs(items, urow, demux)
-            pairs = (pr, pt)
-        self._note_shape(f"trunk:{g.gid}", (padded_n, bucket))
-        t0 = time.perf_counter()
-        (seq_t, tok_t), how = self._fused_step(
-            g, demux, flavor, bucket, padded_n, meta, use_bgmv,
-            [torch.from_numpy(a) for a in (ids, mask, *pairs)])
-        seq_logits = seq_t.numpy() if seq_t is not None else None
-        tok_logits = tok_t.numpy() if tok_t is not None else None
-        self._record({
-            "group": g.gid, "bucket": bucket, "flavor": flavor,
-            "rows": len(uniq), "padded_rows": padded_n,
-            "quant": meta["quant"],
-            "epilogue": meta["epilogue"], "bgmv": use_bgmv,
-            "pairs": len(pair_index),
-            "padded_pairs": len(pairs[0]) if pairs else 0,
-            "seconds": time.perf_counter() - t0, "graph": how})
+        step = batchtrace.start_step(
+            items, group=f"trunk:{g.gid}", bucket=bucket,
+            max_batch=self.cfg.max_batch_size, padded_rows=padded_n,
+            kind="fused")
+        try:
+            # the detailed (fenced two-call) step only describes the plain
+            # step: with a kernel or quant knob live it would time math the
+            # serving step does not run
+            detailed = step is not None and step.detailed \
+                and flavor == "seq" and meta["quant"] == "off" \
+                and not meta["epilogue"] and not use_bgmv
+            pair_index: Dict[tuple, int] = {}
+            pairs: tuple = ()
+            with batchtrace.stage(step, "stack"):
+                ids, mask, clipped = self._stack_items(uniq, bucket,
+                                                       padded_n, g.pad_id)
+                for i, item in enumerate(items):
+                    if clipped[urow[i]]:
+                        for task in item.payload.tasks:
+                            self._series().bucket_overflows.inc(task=task)
+                if use_bgmv:
+                    pr, pt, pair_index = self._bgmv_pairs(items, urow, demux)
+                    pairs = (pr, pt)
+                host = [torch.from_numpy(a) for a in (ids, mask, *pairs)]
+                if detailed:
+                    host = [x.to(self.device) for x in host]
+            self._note_shape(f"trunk:{g.gid}", (padded_n, bucket))
+            tokens_real = sum(min(len(it.payload.encoding), bucket)
+                              for it in uniq)
+            t0 = time.perf_counter()
+            first: list = []
+            if detailed:
+                seq_t, tok_t = self._fused_detailed(g, demux, step, *host)
+                how, variant = "eager", "fused_detailed"
+            else:
+                (seq_t, tok_t), how = self._fused_step(
+                    g, demux, flavor, bucket, padded_n, meta, use_bgmv,
+                    host, first)
+                variant = "fused"
+            seq_logits = seq_t.numpy() if seq_t is not None else None
+            tok_logits = tok_t.numpy() if tok_t is not None else None
+            secs = time.perf_counter() - t0
+            self._record_step(
+                f"trunk:{g.gid}", bucket, variant, len(uniq), padded_n,
+                secs, bool(first), {
+                    "group": g.gid, "bucket": bucket, "flavor": flavor,
+                    "rows": len(uniq), "padded_rows": padded_n,
+                    "quant": meta["quant"],
+                    "epilogue": meta["epilogue"], "bgmv": use_bgmv,
+                    "pairs": len(pair_index),
+                    "padded_pairs": len(pairs[0]) if pairs else 0,
+                    "seconds": secs, "graph": how},
+                tokens_real=tokens_real, tokens_padded=padded_n * bucket)
+            self._series().trunk_forwards.inc(group=g.gid, path="fused")
+            self._count_kernel_step(g.gid, meta, use_bgmv)
 
-        now = time.perf_counter()
-        out: List[Any] = []
-        for i, item in enumerate(items):
-            enc = item.payload.encoding
-            L = min(len(enc), bucket)
-            latency = now - item.payload.submit_t
-            trunc = enc.truncated or clipped[urow[i]]
-            per_task: Dict[str, Any] = {}
-            for task in item.payload.tasks:
-                if self._tasks[task].kind == "token":
-                    row = demux["tok_row_of"][task]
-                    width = demux["tok_widths"][row]
-                    probs = _softmax(tok_logits[urow[i], :L, row, :width])
-                    per_task[task] = self._demux_tok(task, probs, item, enc,
-                                                     L, latency, trunc)
-                else:
-                    row = demux["row_of"][task]
-                    width = demux["widths"][row]
-                    # the BGMV path demuxes by PAIR: same logits, gathered
-                    # on the device
-                    src = seq_logits[pair_index[(urow[i], row)], :width] \
-                        if use_bgmv else seq_logits[urow[i], row, :width]
-                    p = _softmax(src[None])[0]
-                    per_task[task] = self._demux_seq(task, p, latency, trunc)
-            out.append(per_task[item.payload.tasks[0]]
-                       if len(item.payload.tasks) == 1 else per_task)
-        return out
+            with batchtrace.stage(step, "demux"):
+                now = time.perf_counter()
+                out: List[Any] = []
+                for i, item in enumerate(items):
+                    enc = item.payload.encoding
+                    L = min(len(enc), bucket)
+                    latency = now - item.payload.submit_t
+                    trunc = enc.truncated or clipped[urow[i]]
+                    per_task: Dict[str, Any] = {}
+                    for task in item.payload.tasks:
+                        if self._tasks[task].kind == "token":
+                            row = demux["tok_row_of"][task]
+                            width = demux["tok_widths"][row]
+                            probs = _softmax(
+                                tok_logits[urow[i], :L, row, :width])
+                            per_task[task] = self._demux_tok(
+                                task, probs, item, enc, L, latency, trunc)
+                        else:
+                            row = demux["row_of"][task]
+                            width = demux["widths"][row]
+                            # the BGMV path demuxes by PAIR: same logits,
+                            # gathered on the device
+                            src = seq_logits[pair_index[(urow[i], row)],
+                                             :width] \
+                                if use_bgmv else \
+                                seq_logits[urow[i], row, :width]
+                            p = _softmax(src[None])[0]
+                            per_task[task] = self._demux_seq(task, p,
+                                                             latency, trunc)
+                    out.append(per_task[item.payload.tasks[0]]
+                               if len(item.payload.tasks) == 1 else per_task)
+            return out
+        finally:
+            if step is not None:
+                step.finish()
+
+    def _fused_detailed(self, g: TrunkGroup, demux: dict,
+                        step: "batchtrace.BatchStep", ids: torch.Tensor,
+                        mask: torch.Tensor) -> tuple:
+        """A sampled trace's seq step as two fenced eager calls — the
+        trunk with pooling (``trunk_forward``), then the head bank
+        (``head_matmul``) — the fused step's math in its order.  It never
+        captures, and holds the capture gate shared so no capture runs
+        meanwhile.  Returns (host seq logits, None)."""
+        with self._gate.shared(), torch.inference_mode(), \
+                trace_span(f"engine.classify.detailed.{g.gid}",
+                           cuda=self.device.type == "cuda"):
+            with step.stage("trunk_forward"):
+                pooled = g.pool(demux["trunk"](ids, mask), mask)
+                step.fence(pooled)
+            with step.stage("head_matmul"):
+                logits = g.heads(demux, pooled)
+                step.fence(logits)
+            return logits.float().cpu(), None
 
     def _bgmv_pairs(self, items: List[BatchItem], urow: List[int],
                     demux: dict):

@@ -21,6 +21,10 @@ with one graph memory pool and one lock:
 - the kernel wrappers run during the capture but the card runs nothing:
   their launches are recorded (``ops._cuda.recording_launches``) and
   added on every replay, so the launch counts stay counts of kernels run;
+- inside ``on_first_execution(fn)`` the first execution of a key is
+  counted (``observability.programstats.StepCost``, the FLOPs and bytes
+  of the step) and handed to ``fn``: on the card that is the served
+  eager run the graph is captured after, never the capture;
 - a snapshot that is rebuilt or flipped retires its cache: the graphs are
   dropped (they hold the addresses of the bank and trunk tensors they
   were captured with) and a step on a retired cache raises
@@ -41,9 +45,27 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
+from ..observability.programstats import StepCost
 from ..ops import _cuda
 
 Outputs = Tuple[Optional[torch.Tensor], ...]
+
+# per thread: the callback a step's first execution is counted for
+_FIRST = threading.local()
+
+
+@contextlib.contextmanager
+def on_first_execution(fn: Callable):
+    """Inside the block, a ``StepGraphs.run`` on this thread that is the
+    first execution of its key counts the step and calls
+    ``fn(cost, info)`` after it (``info``: argument, output and
+    graph-pool bytes, capture seconds)."""
+    prev = getattr(_FIRST, "fn", None)
+    _FIRST.fn = fn
+    try:
+        yield
+    finally:
+        _FIRST.fn = prev
 
 
 class SnapshotRetired(RuntimeError):
@@ -178,22 +200,40 @@ class StepGraphs:
         """Execute the step ``fn`` (device tensors in, a tuple of tensors
         or None out) on host ``inputs``.  Returns (host float32 outputs,
         how): ``eager`` on the CPU, else ``captured`` for the first
-        execution of ``key`` and ``replayed`` after it."""
+        execution of ``key`` and ``replayed`` after it.  Inside
+        ``on_first_execution`` the first execution is counted."""
+        on_first = getattr(_FIRST, "fn", None)
         if self.device.type != "cuda":
             with self.lock:
                 if self.retired:
                     raise SnapshotRetired(f"step cache {self.name!r} is "
                                           f"retired")
+                first = key not in self._eager
                 self._eager.add(key)
             with torch.inference_mode():
-                return _to_host(fn(*inputs)), "eager"
+                if not (first and on_first is not None):
+                    return _to_host(fn(*inputs)), "eager"
+                with StepCost() as cost:
+                    outs = _to_host(fn(*inputs))
+            on_first(cost, {"argument_bytes": _cuda.nbytes(*inputs),
+                            "output_bytes": _cuda.nbytes(*outs),
+                            "temp_bytes": 0, "capture_s": 0.0})
+            return outs, "eager"
         with self.lock:
             if self.retired:
                 raise SnapshotRetired(f"step cache {self.name!r} is retired")
             step = self.steps.get(key)
             if step is None:
                 with self.gate.exclusive():
-                    outs, self.steps[key] = self._capture(fn, inputs)
+                    outs, self.steps[key], cost = self._capture(
+                        fn, inputs, count=on_first is not None)
+                if on_first is not None:
+                    new = self.steps[key]
+                    on_first(cost, {
+                        "argument_bytes": _cuda.nbytes(*inputs),
+                        "output_bytes": _cuda.nbytes(*outs),
+                        "temp_bytes": new.pool_bytes,
+                        "capture_s": new.capture_s})
                 return outs, "captured"
             with self.gate.shared():
                 step.load(inputs)
@@ -219,9 +259,12 @@ class StepGraphs:
                     pass  # the allocator had already stopped
         self._pool = None
 
-    def _capture(self, fn, inputs) -> Tuple[Outputs, CapturedStep]:
-        """The served eager run on the capture stream, then the capture.
-        Raises whatever the run or the capture raises."""
+    def _capture(self, fn, inputs, count: bool = False
+                 ) -> Tuple[Outputs, CapturedStep, object]:
+        """The served eager run on the capture stream (counted with
+        ``count``), then the capture.  Returns (outputs, step, the
+        count or None).  Raises whatever the run or the capture
+        raises."""
         dev = self.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -231,8 +274,13 @@ class StepGraphs:
             dst.copy_(src)
         stream = self.gate.stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        cost = None
         with torch.cuda.stream(stream), torch.inference_mode():
-            served = _to_host(fn(*static))
+            if count:
+                with StepCost() as cost:
+                    served = _to_host(fn(*static))
+            else:
+                served = _to_host(fn(*static))
             torch.cuda.synchronize(dev)
             reserved = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
@@ -262,4 +310,4 @@ class StepGraphs:
         grown = torch.cuda.memory_reserved(dev) - reserved
         step = CapturedStep(graph, static, tuple(outs), launches, capture_s,
                             grown)
-        return served, step
+        return served, step, cost

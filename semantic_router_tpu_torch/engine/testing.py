@@ -89,19 +89,21 @@ def _classifier(kind: str, cfg: ModernBertConfig,
 def make_test_engine(tasks: Optional[Sequence[tuple]] = None,
                      engine_cfg: Optional[InferenceEngineConfig] = None,
                      seed: int = 0, device: DeviceLike = None,
-                     flax_params: Optional[Mapping[str, Any]] = None
-                     ) -> InferenceEngine:
+                     flax_params: Optional[Mapping[str, Any]] = None,
+                     **observability) -> InferenceEngine:
     """Engine with tiny classifiers (and embedding models), each on its
     own trunk.
 
     ``tasks``: (name, kind, labels) triples (default intent/jailbreak/pii;
     kind ``embedding`` builds an ``MmBertEmbeddingModel``);
     ``flax_params``: {task: Flax tree} carries the JAX engine's weights in
-    through ``params_from_flax``; otherwise weights come from ``seed``."""
+    through ``params_from_flax``; otherwise weights come from ``seed``.
+    ``observability``: ``metrics`` / ``runtime_stats`` / ``program_stats``
+    for the engine."""
     tasks = DEFAULT_TASKS if tasks is None else tasks
     cfg = engine_cfg or InferenceEngineConfig(
         max_batch_size=8, max_wait_ms=1.0, seq_len_buckets=[32, 128, 512])
-    engine = InferenceEngine(cfg, device=device)
+    engine = InferenceEngine(cfg, device=device, **observability)
     tok = HashTokenizer(vocab_size=TINY["vocab_size"])
     for i, (name, kind, labels) in enumerate(tasks):
         module = _classifier(kind, tiny_config(len(labels)), None)
@@ -127,6 +129,7 @@ def make_shared_trunk_engine(
     max_seq_len: int = 512,
     lora: LoRAConfig = LoRAConfig(rank=4, alpha=8.0),
     fuse: Optional[bool] = None,
+    **observability,
 ) -> InferenceEngine:
     """Engine whose tasks share ONE ModernBERT trunk — the fused
     classifier-bank shape.
@@ -141,12 +144,14 @@ def make_shared_trunk_engine(
     trunk subtree is the same there), each head from its own; otherwise
     all weights come from ``seed``.  ``fuse``: forwarded to
     ``register_task`` (None → ``engine.fuse_trunks``); ``False`` serves
-    every task on the per-task path over the one trunk."""
+    every task on the per-task path over the one trunk.
+    ``observability``: ``metrics`` / ``runtime_stats`` / ``program_stats``
+    for the engine."""
     tasks = SHARED_TRUNK_TASKS if tasks is None else tasks
     cfg = engine_cfg or InferenceEngineConfig(
         max_batch_size=8, max_wait_ms=1.0, seq_len_buckets=[32, 128, 512])
     mfields = dict(TINY if model_config is None else model_config)
-    engine = InferenceEngine(cfg, device=device)
+    engine = InferenceEngine(cfg, device=device, **observability)
     tok = tokenizer or HashTokenizer(vocab_size=mfields["vocab_size"])
     specs = [(n, "sequence", l) for n, l in tasks]
     specs += [(n, "token", l) for n, l in (token_tasks or [])]

@@ -15,6 +15,13 @@ that its main path went through the kernels.  A CUDA graph capture runs
 the wrappers but launches nothing: inside ``recording_launches`` the
 wrappers' launches are recorded instead of counted, and every replay of
 the graph adds that record (``add_launches``).
+
+Each wrapper also reports the cost of its call (FLOPs, and bytes with
+each input read once and each output written once) through
+``note_cost`` — the same cost whether it launches its kernel or runs its
+plain version — and runs its plain version inside ``plain_region``, so a
+step's cost count (``observability.programstats.StepCost``) does not
+count the plain version's own aten work again.
 """
 
 from __future__ import annotations
@@ -126,6 +133,8 @@ def _dtype_key(dtype: Optional[torch.dtype]) -> str:
 
 # per thread: the launch record of a graph capture in progress, or None
 _RECORDING = threading.local()
+# per thread: the cost record of a step being counted, or None
+_COSTS = threading.local()
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
@@ -185,6 +194,51 @@ def recording_launches():
         yield log
     finally:
         _RECORDING.log = prev
+
+
+@contextlib.contextmanager
+def recording_costs():
+    """Inside the block, this thread's wrappers append (kernel, flops,
+    bytes) to the yielded list (observability.programstats.StepCost)."""
+    prev = getattr(_COSTS, "log", None)
+    log: List[tuple] = []
+    _COSTS.log = log
+    try:
+        yield log
+    finally:
+        _COSTS.log = prev
+
+
+def note_cost(kernel: CudaKernel, flops: float, nbytes: float) -> None:
+    """Report one wrapper call's cost when this thread is counting a
+    step; nothing otherwise (one thread-local read)."""
+    log = getattr(_COSTS, "log", None)
+    if log is not None:
+        log.append((kernel.name, float(flops), float(nbytes)))
+
+
+def counting_costs() -> bool:
+    return getattr(_COSTS, "log", None) is not None
+
+
+@contextlib.contextmanager
+def plain_region():
+    """Run a wrapper's plain version: while this thread counts a step,
+    the counting dispatch modes are off inside (the wrapper reported the
+    call's cost already)."""
+    if not counting_costs():
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def add_launches(log: Dict[str, Dict[str, int]]) -> None:

@@ -23,7 +23,16 @@ import ctypes
 import numpy as np
 import torch
 
-from ._cuda import DTYPE_BF16, DTYPE_F32, CudaKernel, check_launch
+from ._cuda import (
+    DTYPE_BF16,
+    DTYPE_F32,
+    CudaKernel,
+    check_launch,
+    counting_costs,
+    nbytes,
+    note_cost,
+    plain_region,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -105,11 +114,24 @@ def bgmv_segments(idx, T: int, H: int = 0, element_size: int = 4) -> dict:
     return out
 
 
+def cost(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """(FLOPs, bytes) of one call, the same for the kernel and its plain
+    version: one [D] x [D, H] product per pair, 2·P·D·H, and x, the bank,
+    the indices and the [P, H] output each moved once."""
+    P, D = x.shape
+    H = w.shape[-1]
+    return (2.0 * P * D * H,
+            float(nbytes(x, w, idx) + P * H * x.element_size()))
+
+
 def bgmv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [P, D] × w [T, D, H] gathered by idx [P] → [P, H] in x's dtype
     (float32 accumulation on the GPU)."""
+    if counting_costs():
+        note_cost(BGMV, *cost(x, w, idx))
     if x.device.type == "cpu":
-        return bgmv_reference(x, w, idx)
+        with plain_region():
+            return bgmv_reference(x, w, idx)
     if x.device.type != "cuda":
         raise ValueError(f"bgmv: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 3 or idx.dim() != 1 \

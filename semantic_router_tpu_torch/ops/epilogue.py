@@ -16,7 +16,16 @@ from typing import Optional
 
 import torch
 
-from ._cuda import DTYPE_BF16, DTYPE_F32, CudaKernel, check_launch
+from ._cuda import (
+    DTYPE_BF16,
+    DTYPE_F32,
+    CudaKernel,
+    check_launch,
+    counting_costs,
+    nbytes,
+    note_cost,
+    plain_region,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,14 +74,31 @@ def head_epilogue_reference(x: torch.Tensor, kernel: torch.Tensor,
     return activation(act)(h)
 
 
+def cost(x: torch.Tensor, kernel: torch.Tensor,
+         bias: Optional[torch.Tensor] = None,
+         delta: Optional[torch.Tensor] = None) -> tuple:
+    """(FLOPs, bytes) of one call, the same for the kernel and its plain
+    version: the [rows, D] x [D, H] product of every task,
+    2·rows·D·H·T, and x, the kernel, bias, delta and the [rows, T, H]
+    output each moved once."""
+    rows, D = x.shape
+    T, _, H = kernel.shape
+    return (2.0 * rows * D * H * T,
+            float(nbytes(x, kernel, bias, delta)
+                  + rows * T * H * x.element_size()))
+
+
 def head_epilogue(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   delta: Optional[torch.Tensor] = None,
                   act: str = "identity") -> torch.Tensor:
     """x [rows, D] × kernel [T, D, H] (+ bias [T, H]) (+ delta
     [rows, T, H]) → act(x@W + b + delta) [rows, T, H] in x's dtype."""
+    if counting_costs():
+        note_cost(HEAD_EPILOGUE, *cost(x, kernel, bias, delta))
     if x.device.type == "cpu":
-        return head_epilogue_reference(x, kernel, bias, delta, act)
+        with plain_region():
+            return head_epilogue_reference(x, kernel, bias, delta, act)
     if x.device.type != "cuda":
         raise ValueError(f"head_epilogue: unsupported device {x.device}")
     if act not in ACTIVATIONS:

@@ -16,7 +16,16 @@ from typing import Optional
 
 import torch
 
-from ._cuda import DTYPE_BF16, DTYPE_F32, CudaKernel, check_launch
+from ._cuda import (
+    DTYPE_BF16,
+    DTYPE_F32,
+    CudaKernel,
+    check_launch,
+    counting_costs,
+    nbytes,
+    note_cost,
+    plain_region,
+)
 from .attention import causal_bias, padding_bias, sdpa, sliding_window_bias
 
 _P = ctypes.c_void_p
@@ -93,6 +102,18 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return sdpa(q, k, v, bias=bias, scale=scale)
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         key_padding_mask: Optional[torch.Tensor] = None) -> tuple:
+    """(FLOPs, bytes) of one call, the same for the kernel and its plain
+    version: the two [S, S] products of every head, 4·B·H·S·S·D (a
+    shape count, like a compiled program's cost model: the kernel's
+    skipped tiles and the window are not subtracted), and q, k, v, the
+    mask and the output each moved once."""
+    B, H, S, D = q.shape
+    return (4.0 * B * H * S * S * D,
+            float(nbytes(q, k, v, key_padding_mask) + nbytes(q)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor] = None,
                     window: int = 0, causal: bool = False,
@@ -102,10 +123,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     full window width (0 = global).  Returns [B, H, S, D] in q's dtype,
     laid out as [B, S, H, D] in memory so the caller's head merge is a
     view."""
+    if counting_costs():
+        note_cost(FLASH_ATTENTION, *cost(q, k, v, key_padding_mask))
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_padding_mask,
-                                         window=window, causal=causal,
-                                         scale=scale)
+        with plain_region():
+            return flash_attention_reference(q, k, v, key_padding_mask,
+                                             window=window, causal=causal,
+                                             scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, S, D = q.shape

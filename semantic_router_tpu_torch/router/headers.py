@@ -3,6 +3,7 @@
 SCHEMA_VERSION = "v1"
 
 REQUEST_ID = "x-vsr-request-id"
+DECISION_RECORD = "x-vsr-decision-record"
 DECISION = "x-vsr-selected-decision"
 MODEL = "x-vsr-selected-model"
 CATEGORY = "x-vsr-selected-category"

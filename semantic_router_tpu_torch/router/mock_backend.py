@@ -2,7 +2,9 @@
 request facts as the completion content, so routing assertions read the
 echoed model and messages instead of needing a real model.  A
 ``content_fn`` replaces the echo with its own answer to each request body
-(a response path's input: long answers, facts to check)."""
+(a response path's input: long answers, facts to check).  The W3C
+``traceparent`` of every completion request is kept (``traceparents``),
+so a test can see the router's trace reach the backend."""
 
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         with self.server.hits_lock:
             self.server.hits += 1
+            self.server.traceparents.append(
+                self.headers.get("traceparent", ""))
         self._json(200, {
             "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion",
@@ -84,6 +88,7 @@ class MockVLLMServer:
         self.httpd.content_fn = content_fn or (  # type: ignore[attr-defined]
             lambda body: json.dumps(_echo_payload(body)))
         self.httpd.hits = 0  # type: ignore[attr-defined]
+        self.httpd.traceparents = []  # type: ignore[attr-defined]
         self.httpd.hits_lock = threading.Lock()  # type: ignore[attr-defined]
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
@@ -97,6 +102,13 @@ class MockVLLMServer:
         """Completion requests served."""
         with self.httpd.hits_lock:  # type: ignore[attr-defined]
             return self.httpd.hits  # type: ignore[attr-defined]
+
+    @property
+    def traceparents(self) -> list:
+        """The ``traceparent`` header of each completion request, in
+        arrival order ("" when absent)."""
+        with self.httpd.hits_lock:  # type: ignore[attr-defined]
+            return list(self.httpd.traceparents)  # type: ignore
 
     def start(self) -> "MockVLLMServer":
         self._thread = threading.Thread(target=self.httpd.serve_forever,

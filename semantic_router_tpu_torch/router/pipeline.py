@@ -9,7 +9,8 @@
   ``semantic-cache`` plugin) → model selection (the decision's
   ``algorithm`` through the selector registry, over query embeddings
   where the algorithm reads them; a looper algorithm's highest-weight
-  ref) → request mutation (``system_prompt``, ``memory`` retrieval,
+  ref, which the server refuses to execute) → request mutation
+  (``system_prompt``, ``memory`` retrieval,
   ``tools`` / ``tool_selection`` filtering and auto-selection) → request
   rewrite (model, reasoning fields) → x-vsr-* headers;
 
@@ -22,6 +23,16 @@ selector.
 
 The dispatch report on the result carries the projection trace and the
 kb family's metrics (``report.results["kb"].metrics``).
+
+Observability, as the JAX router's: each request is one ``router.route``
+span continuing the client's W3C ``traceparent`` (``signals.evaluate``,
+the per-family ``signal.<family>`` spans and ``decision.evaluate`` under
+it, and through the batcher the engine's ``batch.*`` spans); the
+canonical series (``observability.metrics.MetricSeries``) count routes,
+decisions, rule hits, cache lookups, policy blocks and latencies; a
+sampled request's decision record (``observability.explain``) is
+committed and named in ``x-vsr-decision-record``; and every request is
+offered to the slow-request flight recorder.
 
 Signal families, plugins and response stages fail open: a dead engine
 degrades routing to the default model, never to an outage.
@@ -39,8 +50,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..cache.semantic_cache import build_cache
-from ..config.schema import Decision, ModelRef, RouterConfig
+from ..config.schema import LOOPER_ALGORITHMS, Decision, ModelRef, \
+    RouterConfig
 from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
+from ..observability import metrics as M
+from ..observability.explain import default_decision_explainer
+from ..observability.flightrec import default_flight_recorder
+from ..observability.tracing import default_tracer
 from ..selection import Feedback, SelectionContext, registry as selectors
 from ..signals.base import RequestContext
 from ..signals.dispatch import DispatchReport, build_dispatcher
@@ -52,12 +68,6 @@ log = logging.getLogger(__name__)
 # selection, tools selection, memory and the server's embeddings and
 # similarity routes embed with
 EMBEDDING_TASK = "embedding"
-
-
-# decision algorithms that run several models downstream: the primary
-# model is the highest-weight candidate
-LOOPER_ALGORITHMS = ("confidence", "ratings", "remom", "fusion",
-                     "workflows")
 
 
 @dataclass
@@ -75,6 +85,14 @@ class RouteResult:
     selection_reason: str = ""
     routing_latency_s: float = 0.0
     request_id: str = ""
+    # a looper decision's algorithm: the reference executes several
+    # models here; this port's server refuses it
+    looper_algorithm: str = ""
+    # the request's trace and its root (router.route) span, and the
+    # committed decision record's id ("" when not sampled)
+    trace_id: str = ""
+    root_span_id: str = ""
+    decision_record_id: str = ""
 
 
 @dataclass
@@ -105,6 +123,15 @@ def _immediate_chat_completion(content: str, model: str = "router") -> dict:
     }
 
 
+def usage_cost(usage: Dict[str, Any], pricing: Dict[str, float]) -> float:
+    """$ cost of one response from its usage block and a model card's
+    per-Mtok pricing."""
+    return ((usage or {}).get("prompt_tokens", 0) / 1e6
+            * (pricing or {}).get("prompt", 0.0)
+            + (usage or {}).get("completion_tokens", 0) / 1e6
+            * (pricing or {}).get("completion", 0.0))
+
+
 def _tool_name(t: dict) -> str:
     return (t.get("function", {}) or {}).get("name", t.get("name", ""))
 
@@ -121,11 +148,27 @@ class Router:
     the engine's ``semantic_cache.embedding_model`` task
     (``EMBEDDING_TASK`` when that is empty), provided the engine serves
     it.  ``memory_store`` (None until bootstrap attaches one) backs the
-    ``memory`` plugin and the response path's auto-store."""
+    ``memory`` plugin and the response path's auto-store.  ``metrics`` (a
+    MetricSeries), ``tracer``, ``flightrec`` and ``explain`` bind the
+    router's observability (None: the process defaults)."""
 
-    def __init__(self, cfg: RouterConfig, engine=None) -> None:
+    def __init__(self, cfg: RouterConfig, engine=None, metrics=None,
+                 tracer=None, flightrec=None, explain=None) -> None:
         self.cfg = cfg
         self.engine = engine
+        self.M = metrics or M.default_series
+        self.tracer = tracer or default_tracer
+        self.flightrec = flightrec if flightrec is not None \
+            else default_flight_recorder
+        # tail-based sampling: a request the recorder retains pins its
+        # trace as force-sampled on this router's tracer.  The process
+        # default recorder pairs only with the default tracer.
+        paired = flightrec is not None or self.tracer is default_tracer
+        if paired and self.flightrec.on_retain is None:
+            self.flightrec.on_retain = self.tracer.force_sample
+        self.explain = explain if explain is not None \
+            else default_decision_explainer
+        self._cfg_hash: Optional[str] = None
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
         cache_task = cfg.semantic_cache.embedding_model or EMBEDDING_TASK
@@ -156,9 +199,85 @@ class Router:
         start = time.perf_counter()
         headers = {k.lower(): v for k, v in (headers or {}).items()}
         request_id = headers.get(H.REQUEST_ID, uuid.uuid4().hex[:16])
+        # ONE root span per request, continuing the caller's traceparent:
+        # the signal fan-out and the batcher's batch.wait / batch.ride
+        # spans all hang off this trace
+        trace_id, parent_span = self.tracer.extract(headers)
+        # the decision-record sampling gate runs once, here; every capture
+        # downstream is a no-op when rec is None
+        rec = self.explain.begin(trace_id, request_id)
+        with self.tracer.span("router.route", trace_id=trace_id,
+                              parent_id=parent_span,
+                              request_id=request_id) as root:
+            result = self._route_impl(body, headers, request_id, trace_id,
+                                      start, rec)
+            result.trace_id = trace_id
+            result.root_span_id = root.span_id
+            root.set(kind=result.kind, model=result.model)
+        self._commit_decision_record(rec, result)
+        self._flight_record(result, trace_id, request_id,
+                            time.perf_counter() - start)
+        return result
+
+    def _config_hash(self) -> str:
+        if self._cfg_hash is None:
+            from ..config.schema import config_hash
+
+            self._cfg_hash = config_hash(self.cfg.raw)
+        return self._cfg_hash
+
+    def _commit_decision_record(self, rec, result: RouteResult) -> None:
+        """Freeze and ring the request's decision record, and name it in
+        ``x-vsr-decision-record``."""
+        if rec is None:
+            return
+        record = rec.finish(
+            kind=result.kind, model=result.model,
+            latency_ms=result.routing_latency_s * 1e3, query=rec.query,
+            redact_pii=self.explain.redact_pii,
+            config_hash=self._config_hash())
+        result.decision_record_id = self.explain.commit(record)
+        result.headers[H.DECISION_RECORD] = result.decision_record_id
+        self.M.decision_records.inc(kind=result.kind)
+
+    def _flight_record(self, result: RouteResult, trace_id: str,
+                       request_id: str, duration_s: float) -> None:
+        """Offer the finished request to the slow-request flight recorder;
+        the span tree only serializes when the recorder keeps it."""
+        if self.flightrec is None:
+            return
+        self.flightrec.consider(
+            request_id=request_id, trace_id=trace_id,
+            duration_s=duration_s,
+            span_provider=lambda: self.tracer.trace(trace_id),
+            meta={"kind": result.kind, "model": result.model,
+                  "decision": result.decision.decision.name
+                  if result.decision else ""})
+
+    def _route_impl(self, body: Dict[str, Any], headers: Dict[str, str],
+                    request_id: str, trace_id: str, start: float,
+                    rec) -> RouteResult:
         ctx = RequestContext.from_openai_body(body, headers)
-        signals, report = self.dispatcher.evaluate(ctx)
-        decision_res = self.decision_engine.evaluate(signals)
+        with self.tracer.span("signals.evaluate", request_id=request_id):
+            signals, report = self.dispatcher.evaluate(ctx)
+        for family, res in report.results.items():
+            # trace-id exemplar: a slow signal-latency bucket links to a
+            # trace that landed there (no-op unless exemplars are on)
+            self.M.signal_latency.observe(res.latency_s, family=family,
+                                          exemplar=trace_id)
+            if res.error:
+                self.M.signal_errors.inc(family=family)
+        if rec is not None:
+            rec.query = ctx.user_text
+            rec.capture_signals(signals, report, self.explain.redact_pii)
+        decision_trace = [] if rec is not None else None
+        with self.tracer.decision_span():
+            decision_res = self.decision_engine.evaluate(
+                signals, trace=decision_trace)
+        self.M.decision_latency.observe(
+            self.decision_engine.last_eval_latency_s)
+        if rec is not None:
+            rec.capture_rule_trace(decision_trace)
         result = RouteResult(kind="route", request_id=request_id,
                              signals=signals, report=report,
                              decision=decision_res, body=dict(body))
@@ -166,17 +285,40 @@ class Router:
             result.model = self.cfg.default_model or ctx.model
             result.headers = {H.SCHEMA: H.SCHEMA_VERSION,
                               H.MODEL: result.model}
+            self.M.decision_fallbacks.inc(reason="no_decision_matched")
+            if rec is not None:
+                rec.fallback_reason = "no_decision_matched"
             ref = None
         else:
             decision = decision_res.decision
-            early = self._apply_policy_plugins(decision, signals, result) \
-                or self._check_cache(decision, ctx, result)
+            self.M.decision_matches.inc(name=decision.name)
+            for rule in decision_res.matched_rules:
+                self.M.rule_hits.inc(rule=rule, decision=decision.name)
+            if rec is not None:
+                rec.capture_decision(decision_res,
+                                     self.decision_engine.strategy)
+            early = self._apply_policy_plugins(decision, signals, result,
+                                               rec) \
+                or self._check_cache(decision, ctx, result, rec)
             if early is not None:
                 early.routing_latency_s = time.perf_counter() - start
+                self.M.routing_latency.observe(early.routing_latency_s,
+                                               exemplar=trace_id,
+                                               model=early.model)
                 return early
             ref, result.selection_reason = self._select_model(
                 decision, ctx, signals)
             result.model = ref.model
+            if result.selection_reason.startswith("selector error"):
+                self.M.decision_fallbacks.inc(reason="selector_error")
+                if rec is not None:
+                    rec.fallback_reason = "selector_error"
+            if rec is not None:
+                self._capture_selection(rec, decision, ref,
+                                        result.selection_reason)
+            algo = str((decision.algorithm or {}).get("type", "static"))
+            if algo in LOOPER_ALGORITHMS:
+                result.looper_algorithm = algo
             self._apply_mutation_plugins(decision, ctx, result)
             category = next(iter(signals.matches.get("domain", ())), "")
             result.headers.update(H.decision_headers(
@@ -184,10 +326,37 @@ class Router:
                 use_reasoning=ref.use_reasoning,
                 reasoning_effort=ref.reasoning_effort,
                 matched_rules=decision_res.matched_rules))
+            self.M.model_requests.inc(model=ref.model,
+                                      decision=decision.name)
         self._finalize_body(result, ref)
         result.headers[H.REQUEST_ID] = request_id
         result.routing_latency_s = time.perf_counter() - start
+        self.M.routing_latency.observe(result.routing_latency_s,
+                                       exemplar=trace_id, model=result.model)
         return result
+
+    @staticmethod
+    def _capture_selection(rec, decision: Decision, ref: ModelRef,
+                           reason: str) -> None:
+        """The selection block of the decision record, as the reference
+        builds it: a single candidate scores 1.0, a looper's candidates
+        their weights; the port's selectors expose no per-candidate
+        breakdown, so their choice records none, as the reference does
+        for a selector without ``score_breakdown``."""
+        algo_type = str((decision.algorithm or {}).get("type", "static"))
+        refs = decision.model_refs or []
+        if len(refs) <= 1:
+            breakdown = [{"model": r.model, "score": 1.0,
+                          "components": {"single_candidate": True}}
+                         for r in refs]
+        elif algo_type in LOOPER_ALGORITHMS:
+            breakdown = [{"model": r.model, "score": r.weight,
+                          "components": {"weight": r.weight,
+                                         "looper": algo_type}}
+                         for r in refs]
+        else:
+            breakdown = []
+        rec.capture_selection(algo_type, reason, ref.model, breakdown)
 
     # -- selection -----------------------------------------------------------
 
@@ -216,9 +385,11 @@ class Router:
     def _select_model(self, decision: Decision, ctx: RequestContext,
                       signals: SignalMatches) -> tuple:
         """(ref, reason): a single candidate as is, a looper algorithm's
-        highest-weight ref, else the decision's selector's choice (its
-        query embedding taken lazily, on the ``EMBEDDING_TASK``).  A
-        selector that raises routes to the first candidate."""
+        highest-weight ref (the reference's primary model; the server
+        refuses to execute the looper), else the decision's selector's
+        choice (its query embedding taken lazily, on the
+        ``EMBEDDING_TASK``).  A selector that raises routes to the first
+        candidate."""
         refs = decision.model_refs or [
             ModelRef(model=self.cfg.default_model or ctx.model)]
         if len(refs) == 1:
@@ -357,9 +528,9 @@ class Router:
             log.warning("tool auto-selection failed", exc_info=True)
             return []
 
-    @staticmethod
-    def _apply_policy_plugins(decision: Decision, signals: SignalMatches,
-                              result: RouteResult) -> Optional[RouteResult]:
+    def _apply_policy_plugins(self, decision: Decision,
+                              signals: SignalMatches, result: RouteResult,
+                              rec=None) -> Optional[RouteResult]:
         """``fast_response``: a ``blocked`` result whose answer is the
         plugin's response.  PII matches: ``x-vsr-pii-violation`` on the
         route, or a 403 ``blocked`` result when the decision's ``pii``
@@ -368,6 +539,10 @@ class Router:
         if fast is not None and fast.enabled:
             content = fast.configuration.get("response",
                                              "Request handled by policy.")
+            self.M.jailbreak_blocks.inc(decision=decision.name)
+            if rec is not None:
+                rec.capture_plugin("fast_response", "blocked",
+                                   decision=decision.name)
             return RouteResult(
                 kind="blocked", request_id=result.request_id,
                 decision=result.decision, signals=signals,
@@ -378,10 +553,13 @@ class Router:
         pii_hits = signals.matches.get("pii", [])
         if not pii_hits:
             return None
+        self.M.pii_violations.inc(decision=decision.name)
         plugin = decision.plugin("pii")
         action = plugin.configuration.get("action", "header") \
             if plugin is not None else "header"
         if action == "block":
+            if rec is not None:
+                rec.capture_plugin("pii", "blocked", rules=list(pii_hits))
             return RouteResult(
                 kind="blocked", status=403, request_id=result.request_id,
                 decision=result.decision, signals=signals,
@@ -391,10 +569,13 @@ class Router:
                     "type": "pii_policy_violation"}},
                 headers={H.PII_VIOLATION: ",".join(pii_hits)})
         result.headers[H.PII_VIOLATION] = ",".join(pii_hits)
+        if rec is not None:
+            rec.capture_plugin("pii", "annotated", rules=list(pii_hits))
         return None
 
     def _check_cache(self, decision: Decision, ctx: RequestContext,
-                     result: RouteResult) -> Optional[RouteResult]:
+                     result: RouteResult,
+                     rec=None) -> Optional[RouteResult]:
         """A ``cache_hit`` result when the decision's semantic-cache plugin
         is on and the cache holds the query (at the plugin's
         ``similarity_threshold`` when it sets one).  A failing cache is a
@@ -409,10 +590,19 @@ class Router:
                 threshold=float(threshold) if threshold else None)
         except Exception:
             log.warning("semantic cache lookup failed", exc_info=True)
+            self.M.cache_lookups.inc(outcome="error")
+            if rec is not None:
+                rec.capture_plugin("semantic-cache", "error")
             return None
         if hit is None:
+            self.M.cache_lookups.inc(outcome="miss")
+            if rec is not None:
+                rec.capture_plugin("semantic-cache", "miss")
             return None
+        self.M.cache_lookups.inc(outcome="hit")
         model = hit.model or "cache"
+        if rec is not None:
+            rec.capture_plugin("semantic-cache", "hit", model=model)
         return RouteResult(
             kind="cache_hit", request_id=result.request_id,
             decision=result.decision, signals=result.signals,
@@ -450,6 +640,7 @@ class Router:
         halu = decision.plugin("hallucination") if decision else None
         if content and needs_check and halu is not None and halu.enabled \
                 and eng is not None and eng.has_task("hallucination"):
+            t0 = time.perf_counter()
             try:
                 spans = self._detect_hallucinations(
                     content,
@@ -464,6 +655,7 @@ class Router:
             except Exception:
                 log.warning("hallucination check failed", exc_info=True)
                 out.headers[H.UNVERIFIED_FACTUAL] = "true"
+            self.M.hallucination_latency.observe(time.perf_counter() - t0)
 
         if out.warnings:
             out.headers[H.WARNINGS] = ",".join(out.warnings)
@@ -477,6 +669,14 @@ class Router:
                     self.cache.add(ctx.user_text, content, model=route.model)
                 except Exception:
                     log.warning("semantic cache write failed", exc_info=True)
+
+        # usage / cost series
+        usage = response_body.get("usage") or {}
+        if usage and route.model:
+            card = self.model_cards.get(route.model)
+            if card is not None and card.pricing:
+                self.M.model_cost.inc(usage_cost(usage, card.pricing),
+                                      model=route.model)
 
         mem = decision.plugin("memory") if decision is not None else None
         if self.memory_store is not None and route.body and mem is not None \
@@ -542,6 +742,11 @@ class Router:
             latency_ms=latency_ms, ttft_ms=ttft_ms,
             query=query, query_embedding=emb,
             session_id=(route.body or {}).get("user", "")))
+        if latency_ms:
+            self.M.completion_latency.observe(latency_ms / 1e3,
+                                              model=route.model)
+        if ttft_ms:
+            self.M.ttft.observe(ttft_ms / 1e3, model=route.model)
 
     @staticmethod
     def _finalize_body(result: RouteResult, ref: Optional[ModelRef]) -> None:

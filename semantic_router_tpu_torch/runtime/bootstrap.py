@@ -10,7 +10,14 @@ trunk module, and so one fused trunk group; ``kind: embedding`` loads an
 only the trunk keys (and a classifier's ``head.*`` / ``classifier.*``)
 are read: a masked-LM checkpoint's decoder and an embedding checkpoint's
 bottleneck ``dense_i`` are dropped.  Absent checkpoints leave their task
-unloaded (its signal fails open).  ``engine.quant`` applies at boot.
+unloaded (its signal fails open).  A checkpoint of another architecture
+(``architecture`` in the spec, else the config's ``model_type`` and
+``architectures``) is refused by name.  ``engine.quant`` applies at boot.
+
+The observability sinks come from a ``RuntimeRegistry``
+(``runtime/registry.py``; the process defaults unless the caller passes
+one): ``apply_observability_knobs`` applies the config's
+``observability`` block to them.
 """
 
 from __future__ import annotations
@@ -70,10 +77,23 @@ def _checkpoint_files(path: str) -> Tuple[str, str]:
     return os.path.join(os.path.dirname(path), "config.json"), path
 
 
-def build_engine(cfg: RouterConfig, device: DeviceLike = None):
+def checkpoint_architecture(spec: Dict[str, object], hf_cfg: Dict) -> str:
+    """The architecture a checkpoint declares, read as the reference
+    reads it: the spec's ``architecture``, else the config's
+    ``model_type``, else its ``architectures``; ``modernbert`` when none
+    says."""
+    arch = spec.get("architecture") or hf_cfg.get("model_type") \
+        or next(iter(hf_cfg.get("architectures") or []), "") \
+        or "modernbert"
+    return str(arch)
+
+
+def build_engine(cfg: RouterConfig, device: DeviceLike = None,
+                 registry=None):
     """Engine from ``cfg.classifier_models`` (ModernBERT sequence, token and
-    embedding kinds) on ``device`` (``cuda`` when None).  None when no
-    models are configured — the router then routes on defaults."""
+    embedding kinds) on ``device`` (``cuda`` when None), its observability
+    bound to ``registry``'s sinks (the process defaults when None).  None
+    when no models are configured — the router then routes on defaults."""
     specs = cfg.classifier_models or {}
     if not specs:
         return None
@@ -88,7 +108,12 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
     from ..utils.tokenization import HFTokenizer
 
     dev = resolve_device(device)
-    engine = InferenceEngine(cfg.engine, device=dev)
+    obs = {}
+    if registry is not None:
+        obs = {"metrics": registry.metric_series(),
+               "runtime_stats": registry.runtimestats,
+               "program_stats": registry.programstats}
+    engine = InferenceEngine(cfg.engine, device=dev, **obs)
     trunks: Dict[str, object] = {}   # checkpoint path → shared trunk module
     tokenizers: Dict[str, HFTokenizer] = {}
     buckets = cfg.engine.seq_len_buckets or [512]
@@ -105,6 +130,13 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None):
         cfg_path, weights_path = _checkpoint_files(path)
         with open(cfg_path) as f:
             hf_cfg = json.load(f)
+        arch = checkpoint_architecture(spec, hf_cfg)
+        names = [arch] + [str(a) for a in hf_cfg.get("architectures") or []]
+        if any("modernbert" not in n.lower().replace("-", "").replace(
+                "_", "") for n in names):
+            raise ValueError(f"task {task!r}: checkpoint {path!r} is a "
+                             f"{arch!r} model ({', '.join(names)}); this "
+                             f"port serves ModernBERT checkpoints only")
         id2label = hf_cfg.get("id2label", {})
         labels = spec.get("labels") or \
             [id2label.get(str(i), str(i)) for i in range(len(id2label))]
@@ -161,14 +193,21 @@ def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
               engine.kernels_report()["groups"].items()})
 
 
-def build_router(cfg: RouterConfig, engine=None):
-    """The Router over ``engine``, with its memory store: SQLite at
-    ``memory.path`` under ``memory.backend: sqlite``, else in-process; both
-    embed on the engine's ``EMBEDDING_TASK`` when it serves one."""
+def build_router(cfg: RouterConfig, engine=None, registry=None):
+    """The Router over ``engine``, its observability bound to
+    ``registry``'s sinks (the process defaults when None), with its memory
+    store: SQLite at ``memory.path`` under ``memory.backend: sqlite``,
+    else in-process; both embed on the engine's ``EMBEDDING_TASK`` when it
+    serves one."""
     from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
     from ..router.pipeline import EMBEDDING_TASK, Router
 
-    router = Router(cfg, engine=engine)
+    obs = {}
+    if registry is not None:
+        obs = {"metrics": registry.metric_series(),
+               "tracer": registry.tracer, "flightrec": registry.flightrec,
+               "explain": registry.explain}
+    router = Router(cfg, engine=engine, **obs)
     embed_fn = None
     if engine is not None and engine.has_task(EMBEDDING_TASK):
         embed_fn = lambda text: engine.embed(EMBEDDING_TASK, [text])[0]
@@ -180,21 +219,76 @@ def build_router(cfg: RouterConfig, engine=None):
     return router
 
 
+def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
+    """Apply the ``observability`` block (the config's accessors are the
+    one interpretation point) to a registry's sinks: batch-trace sampling
+    on the tracer, OpenMetrics exemplars on the metrics registry,
+    flight-recorder retention (and its tail-based sampling hook on the
+    tracer), the runtime-stats sampler (started, or stopped), the
+    program catalog's switch, and the decision-record knobs with their
+    SQLite mirror.  The accessors already fall back to the defaults on a
+    malformed value, so nothing here fails open; the runtime-stats
+    sampler it starts is stopped by ``registry.runtimestats.stop()``."""
+    registry.tracer.sample_rate = cfg.tracing_sample_rate()
+    # unconditional: a reload must be able to turn exemplars OFF
+    registry.metrics.enable_exemplars(cfg.metrics_exemplars_enabled())
+    fr = registry.get("flightrec")
+    if fr is not None:
+        fr_cfg = cfg.flight_recorder_config()
+        if fr_cfg:
+            fr.configure(**fr_cfg)
+        if fr.on_retain is None:
+            fr.on_retain = registry.tracer.force_sample
+    rs = registry.get("runtimestats")
+    if rs is not None:
+        rs_cfg = cfg.runtime_stats_config()
+        rs.enabled = rs_cfg["enabled"]
+        if rs_cfg["enabled"]:
+            rs.start(rs_cfg["interval_s"])
+        else:
+            rs.stop()
+    ps = registry.get("programstats")
+    if ps is not None:
+        ps.enabled = cfg.programstats_config()["enabled"]
+    explain = registry.get("explain")
+    if explain is not None:
+        ex_cfg = cfg.decision_explain_config()
+        explain.configure(ex_cfg)
+        durable = ex_cfg.get("durable") or {}
+        if durable.get("backend") == "sqlite" and durable.get("path"):
+            cur = explain.durable_store
+            if cur is None or cur.path != durable["path"]:
+                from ..observability.explain_store import \
+                    SQLiteDecisionStore
+
+                explain.attach_durable(SQLiteDecisionStore(
+                    durable["path"],
+                    max_records=int(durable.get("max_records", 100_000))))
+        elif explain.durable_store is not None:
+            explain.attach_durable(None)
+
+
 def serve(config: str, backend: str, host: str = "127.0.0.1",
           port: int = 8801, device: DeviceLike = None) -> None:
-    """Load the config, build engine + router, and serve
-    ``POST /v1/chat/completions`` and the Classification API until
-    interrupted.  The engine warms (captures every served step at batch
-    1) before the server accepts a request; a warmup failure raises."""
+    """Load the config, build engine + router over the process-default
+    observability sinks (configured by ``apply_observability_knobs``),
+    and serve ``POST /v1/chat/completions``, the Classification API,
+    ``/metrics`` and ``/debug/*`` until interrupted.  The engine warms
+    (captures every served step at batch 1) before the server accepts a
+    request; a warmup failure raises."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
+    from .registry import RuntimeRegistry
 
     cfg = load_config(config)
-    engine = build_engine(cfg, device=device)
+    registry = RuntimeRegistry.with_defaults()
+    apply_observability_knobs(cfg, registry)
+    engine = build_engine(cfg, device=device, registry=registry)
     if engine is not None:
         engine.warmup()
-    router = build_router(cfg, engine)
-    server = RouterServer(router, backend, host=host, port=port)
+    router = build_router(cfg, engine, registry=registry)
+    server = RouterServer(router, backend, host=host, port=port,
+                          registry=registry)
     log.info("serving on %s → %s", server.url, backend)
     try:
         server.serve_forever()
@@ -205,3 +299,4 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         router.shutdown()
         if engine is not None:
             engine.shutdown()
+        registry.runtimestats.stop()

@@ -1,0 +1,119 @@
+"""Runtime service registry: the per-instance observability sinks.
+
+The port's copy of ``semantic_router_tpu.runtime.registry``, with the
+slots this package fills: the metrics registry, the tracer, the profiler
+control, the flight recorder, the runtime-stats sampler, the program-cost
+catalog and the decision-record ring.  ``RuntimeRegistry.with_defaults()``
+binds the process-default singletons (the single-router posture);
+``isolated()`` builds fresh sinks, so two routers in one process built
+over isolated registries share no series, spans or records.  Consumers
+read services through the registry, so ``swap`` takes effect atomically
+on the next access.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict
+
+_SLOTS = ("metrics", "tracer", "profiler", "flightrec", "runtimestats",
+          "programstats", "explain", "engine")
+
+
+class RuntimeRegistry:
+    def __init__(self, **services: Any) -> None:
+        unknown = set(services) - set(_SLOTS)
+        if unknown:
+            raise ValueError(f"unknown services: {sorted(unknown)}")
+        self._services: Dict[str, Any] = {s: services.get(s)
+                                          for s in _SLOTS}
+        self._lock = threading.Lock()
+
+    @classmethod
+    def with_defaults(cls, **overrides: Any) -> "RuntimeRegistry":
+        """Process-default sinks (shared across instances — the
+        single-router posture)."""
+        from ..observability.explain import default_decision_explainer
+        from ..observability.flightrec import default_flight_recorder
+        from ..observability.metrics import default_registry
+        from ..observability.profiler import default_profiler
+        from ..observability.programstats import default_program_stats
+        from ..observability.runtimestats import default_runtime_stats
+        from ..observability.tracing import default_tracer
+
+        base: Dict[str, Any] = {
+            "metrics": default_registry,
+            "tracer": default_tracer,
+            "profiler": default_profiler,
+            "flightrec": default_flight_recorder,
+            "runtimestats": default_runtime_stats,
+            "programstats": default_program_stats,
+            "explain": default_decision_explainer,
+        }
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def isolated(cls, **overrides: Any) -> "RuntimeRegistry":
+        """Fully per-instance sinks: a fresh metrics registry (the
+        runtime-stats and program-catalog series register in it), tracer,
+        profiler control, flight recorder and decision ring.  Wire them
+        with ``build_engine(cfg, registry=...)``,
+        ``build_router(cfg, engine, registry=...)`` and
+        ``RouterServer(..., registry=...)``."""
+        from ..observability.explain import DecisionExplainer
+        from ..observability.flightrec import FlightRecorder
+        from ..observability.metrics import MetricsRegistry
+        from ..observability.profiler import ProfilerControl
+        from ..observability.programstats import ProgramCatalog
+        from ..observability.runtimestats import RuntimeStats
+        from ..observability.tracing import Tracer
+
+        metrics = MetricsRegistry()
+        base: Dict[str, Any] = {
+            "metrics": metrics,
+            "tracer": Tracer(),
+            "profiler": ProfilerControl(),
+            "flightrec": FlightRecorder(),
+            "runtimestats": RuntimeStats(metrics),
+            "programstats": ProgramCatalog(metrics),
+            "explain": DecisionExplainer(),
+        }
+        base.update(overrides)
+        return cls(**base)
+
+    def metric_series(self):
+        """The canonical series bound to THIS registry's metrics slot
+        (idempotent — get-or-create by name)."""
+        from ..observability.metrics import MetricSeries
+
+        return MetricSeries(self.metrics)
+
+    def __getattr__(self, name: str) -> Any:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        services = object.__getattribute__(self, "_services")
+        if name in services:
+            with object.__getattribute__(self, "_lock"):
+                return services[name]
+        raise AttributeError(f"no service {name!r} "
+                             f"(slots: {', '.join(_SLOTS)})")
+
+    def get(self, name: str, default: Any = None) -> Any:
+        with self._lock:
+            return self._services.get(name, default)
+
+    def swap(self, **services: Any) -> Dict[str, Any]:
+        """Atomically replace the named services; returns the replaced
+        ones (callers retire them)."""
+        unknown = set(services) - set(_SLOTS)
+        if unknown:
+            raise ValueError(f"unknown services: {sorted(unknown)}")
+        with self._lock:
+            old = {k: self._services[k] for k in services}
+            self._services.update(services)
+            return old
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self._services)

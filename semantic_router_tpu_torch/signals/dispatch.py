@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..config.schema import SIGNAL_PROJECTION
+from ..observability import batchtrace
 from ..decision.engine import SignalMatches, eval_rule_node
 from ..decision.projections import ProjectionEvaluator, ProjectionTrace
 from .base import RequestContext, SignalEvaluator, SignalResult
@@ -74,11 +75,16 @@ class SignalDispatcher:
                  ) -> "tuple[SignalMatches, DispatchReport]":
         start = time.perf_counter()
         active = self.active_evaluators()
+        # the request's trace, re-established on each family's worker as a
+        # signal.<family> span (the engine calls under it carry it into
+        # the batcher); no open trace costs one thread-local read
+        parent = batchtrace.capture()
         self._prefetch_fused(ctx, active)
         if len(active) <= 1:
-            results = [self._run(e, ctx) for e in active]
+            results = [self._run(e, ctx, parent) for e in active]
         else:
-            results = list(self.pool.map(lambda e: self._run(e, ctx), active))
+            results = list(self.pool.map(
+                lambda e: self._run(e, ctx, parent), active))
         signals = SignalMatches()
         report = DispatchReport()
         kb_metrics: dict = {}
@@ -89,14 +95,17 @@ class SignalDispatcher:
         return signals, report
 
     @staticmethod
-    def _run(e: SignalEvaluator, ctx: RequestContext) -> SignalResult:
-        """One family, failing open; a result with no source says
-        ``engine`` when the evaluator holds one, else ``heuristic``."""
+    def _run(e: SignalEvaluator, ctx: RequestContext,
+             parent=None) -> SignalResult:
+        """One family, failing open, under a ``signal.<family>`` span of
+        the request's trace; a result with no source says ``engine`` when
+        the evaluator holds one, else ``heuristic``."""
         source = "engine" if getattr(e, "engine", None) is not None \
             else "heuristic"
         t0 = time.perf_counter()
         try:
-            out = e.evaluate(ctx)
+            with batchtrace.activate(parent, f"signal.{e.signal_type}"):
+                out = e.evaluate(ctx)
         except Exception as exc:  # fail open per family
             out = SignalResult(signal_type=e.signal_type,
                                latency_s=time.perf_counter() - t0,

@@ -1,0 +1,248 @@
+"""The port's loader against the JAX loader on the options the port does
+not serve: each one the JAX router acts on is loaded by the JAX loader and
+refused by the port's, the key named in the message, and loads on both
+when off; a canonical ``global:`` block lifts to the same fields on both;
+``stream: true`` gets an error body and a looper decision a 501, and the
+backend sees neither; a checkpoint of another architecture is refused by
+name."""
+
+import copy
+import http.client
+import json
+import urllib.parse
+
+import pytest
+
+from semantic_router_tpu.config import RouterConfig as JRouterConfig
+from semantic_router_tpu.router.pipeline import Router as JRouter
+from semantic_router_tpu_torch.config import load_config
+from semantic_router_tpu_torch.router import MockVLLMServer, Router, \
+    RouterServer
+from semantic_router_tpu_torch.runtime import build_engine
+
+DEC = {"name": "d", "priority": 1,
+       "rules": {"operator": "OR",
+                 "conditions": [{"type": "keyword", "name": "k"}]},
+       "modelRefs": [{"model": "m"}]}
+
+# refused key → (the config that enables it, the same block off)
+REFUSED = {
+    "engine.cascade": ({"engine": {"cascade": {"enabled": True}}},
+                       {"engine": {"cascade": {"enabled": False}}}),
+    "engine.packing": ({"engine": {"packing": {"enabled": True}}},
+                       {"engine": {"packing": {"enabled": False}}}),
+    "engine.mesh": ({"engine": {"mesh": {"enabled": True, "dp": 1,
+                                         "tp": 1}}},
+                    {"engine": {"mesh": {"enabled": False}}}),
+    "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
+                          {"engine": {"mesh_shape": {}}}),
+    "ratelimit": ({"ratelimit": {"requests_per_minute": 60}},
+                  {"ratelimit": {}}),
+    "skip_processing": ({"skip_processing": {"enabled": True}},
+                        {"skip_processing": {"enabled": False}}),
+    "prompt_compression": ({"prompt_compression": {"enabled": True}},
+                           {"prompt_compression": {"enabled": False}}),
+    "recipes": ({"recipes": [{"name": "fast", "decisions": [DEC]}]},
+                {"recipes": []}),
+    "entrypoints": ({"entrypoints": [{"name": "auto", "recipe": "fast"}]},
+                    {"entrypoints": []}),
+    "stateplane": ({"stateplane": {"enabled": True, "backend": "memory"}},
+                   {"stateplane": {"enabled": False, "backend": "memory"}}),
+    "ann": ({"ann": {"enabled": True}}, {"ann": {"enabled": False}}),
+    "vectorstore": ({"vectorstore": {"enabled": True}},
+                    {"vectorstore": {"enabled": False}}),
+    "response_store": ({"response_store": {"enabled": True}},
+                       {"response_store": {"enabled": False}}),
+    "mcp": ({"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
+            {"mcp": {}}),
+    "external_models": ({"external_models": [{"name": "x",
+                                              "role": "guard"}]},
+                        {"external_models": []}),
+    "router_replay": ({"router_replay": {"enabled": True}},
+                      {"router_replay": {"enabled": False}}),
+    "observability.slo": (
+        {"observability": {"slo": {"enabled": True, "objectives": [
+            "routing_latency p99 < 25ms over 5m"]}}},
+        {"observability": {"slo": {"enabled": True, "objectives": []}}}),
+    "observability.fleet.enabled": (
+        {"observability": {"fleet": {"enabled": True}}},
+        {"observability": {"fleet": {"enabled": False}}}),
+    "observability.tracing.otlp_endpoint": (
+        {"observability": {"tracing": {
+            "otlp_endpoint": "http://collector:4318"}}},
+        {"observability": {"tracing": {"sample_rate": 0.5}}}),
+    "observability.decisions.durable.backend": (
+        {"observability": {"decisions": {"durable": {
+            "backend": "stateplane"}}}},
+        {"observability": {"decisions": {"durable": {
+            "backend": "sqlite", "path": ""}}}}),
+    # a global: block is lifted before the refusals run
+    "resilience": ({"global": {"resilience": {"enabled": True}}},
+                   {"global": {"resilience": {"enabled": False}}}),
+    "image_generation": (
+        {"routing": {"decisions": [dict(DEC, plugins=[
+            {"type": "image_generation",
+             "configuration": {"backend": "mock"}}])]}},
+        {"routing": {"decisions": [dict(DEC, plugins=[
+            {"type": "image_generation",
+             "configuration": {"enabled": False, "backend": "mock"}}])]}}),
+}
+
+
+@pytest.mark.parametrize("key", sorted(REFUSED))
+def test_refused_at_load(key):
+    on, _ = REFUSED[key]
+    JRouterConfig.from_dict(copy.deepcopy(on))  # the reference serves it
+    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
+        load_config(copy.deepcopy(on))
+
+
+@pytest.mark.parametrize("key", sorted(REFUSED))
+def test_off_loads_on_both(key):
+    _, off = REFUSED[key]
+    JRouterConfig.from_dict(copy.deepcopy(off))
+    load_config(copy.deepcopy(off))
+
+
+GLOBAL = {
+    "global": {
+        "default_model": "global-model",
+        "engine": {"max_batch_size": 12, "max_wait_ms": 3.0,
+                   "seq_len_buckets": [64, 256],
+                   "kernels": {"epilogue": {"enabled": True}},
+                   "quant": {"mode": "bf16"}},
+        "semantic_cache": {"enabled": True, "similarity_threshold": 0.9,
+                           "max_entries": 77},
+        "observability": {"tracing": {"sample_rate": 0.25},
+                          "decisions": {"ring_size": 9}},
+        "memory": {"backend": "sqlite", "path": "m.db"},
+    },
+    # explicit top-level keys win over the global block's
+    "semantic_cache": {"enabled": False, "max_entries": 5},
+    "routing": {"decisions": [DEC], "modelCards": [{"name": "m"}]},
+}
+
+
+def test_global_block_lifts_like_the_reference():
+    j = JRouterConfig.from_dict(copy.deepcopy(GLOBAL))
+    t = load_config(copy.deepcopy(GLOBAL))
+    assert t.default_model == j.default_model == "global-model"
+    for f in ("max_batch_size", "max_wait_ms", "seq_len_buckets", "kernels",
+              "quant"):
+        assert getattr(t.engine, f) == getattr(j.engine, f), f
+    for f in ("enabled", "similarity_threshold", "max_entries"):
+        assert getattr(t.semantic_cache, f) \
+            == getattr(j.semantic_cache, f), f
+    assert t.semantic_cache.max_entries == 5
+    assert t.tracing_sample_rate() == j.tracing_sample_rate() == 0.25
+    assert t.decision_explain_config() == j.decision_explain_config()
+    assert t.memory == j.memory
+    assert [d.name for d in t.decisions] == [d.name for d in j.decisions]
+
+
+@pytest.mark.parametrize("knob, value, want", [
+    ("tracing.sample_rate", "often", 0.1),
+    ("runtime_stats.interval_s", "soon", 10.0),
+    ("decisions.ring_size", "big", 512),
+])
+def test_malformed_telemetry_falls_back_like_the_reference(knob, value,
+                                                           want):
+    block, key = knob.split(".")
+    d = {"observability": {block: {key: value}}}
+    j = JRouterConfig.from_dict(copy.deepcopy(d))
+    t = load_config(copy.deepcopy(d))
+    read = {"tracing": lambda c: c.tracing_sample_rate(),
+            "runtime_stats": lambda c: c.runtime_stats_config()["interval_s"],
+            "decisions": lambda c: c.decision_explain_config()["ring_size"]}
+    assert read[block](t) == read[block](j) == want
+    assert t.programstats_config() == j.programstats_config()
+
+
+def _post(url, body):
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
+    try:
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("content-type"), \
+            json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+LOOPER = {"default_model": "base",
+          "routing": {"decisions": [
+              {"name": "fusion_route", "priority": 10,
+               "rules": {"operator": "OR", "conditions": [
+                   {"type": "keyword", "name": "panel"}]},
+               "modelRefs": [{"model": "qwen3-8b", "weight": 0.3},
+                             {"model": "qwen3-32b", "weight": 0.7}],
+               "algorithm": {"type": "fusion"}}],
+              "signals": {"keywords": [
+                  {"name": "panel", "keywords": ["panel"]}]}}}
+
+
+@pytest.fixture
+def served():
+    """(port server URL, mock backend) over the looper config."""
+    backend = MockVLLMServer().start()
+    router = Router(load_config(copy.deepcopy(LOOPER)))
+    server = RouterServer(router, backend.url).start()
+    yield server.url, backend
+    server.stop()
+    backend.stop()
+    router.shutdown()
+
+
+def test_stream_true_gets_an_error_body(served):
+    url, backend = served
+    status, ctype, body = _post(url, {
+        "model": "auto", "stream": True,
+        "messages": [{"role": "user", "content": "hello"}]})
+    assert status == 400 and ctype == "application/json"
+    assert "stream" in body["error"]["message"]
+    assert backend.hits == 0
+
+
+def test_looper_decision_is_routed_and_refused_by_the_server(served):
+    url, backend = served
+    body = {"model": "auto",
+            "messages": [{"role": "user", "content": "ask the panel"}]}
+    jr = JRouter(JRouterConfig.from_dict(copy.deepcopy(LOOPER)))
+    tr = Router(load_config(copy.deepcopy(LOOPER)))
+    try:
+        want, got = jr.route(copy.deepcopy(body)), tr.route(
+            copy.deepcopy(body))
+        assert want.looper_algorithm == got.looper_algorithm == "fusion"
+        assert (got.model, got.selection_reason) == \
+            (want.model, want.selection_reason)
+    finally:
+        jr.shutdown()
+        tr.shutdown()
+    status, _, reply = _post(url, body)
+    assert status == 501 and "fusion" in reply["error"]["message"]
+    assert backend.hits == 0
+
+
+@pytest.mark.parametrize("hf, spec, name", [
+    ({"model_type": "deberta-v2",
+      "architectures": ["DebertaV2ForSequenceClassification"]}, {},
+     "deberta-v2"),
+    ({"architectures": ["DebertaV2ForTokenClassification"]}, {},
+     "DebertaV2ForTokenClassification"),
+    ({"model_type": "modernbert"}, {"architecture": "deberta-v3"},
+     "deberta-v3"),
+])
+def test_non_modernbert_checkpoint_refused_by_name(tmp_path, hf, spec,
+                                                   name):
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(
+        dict(hf, id2label={"0": "a", "1": "b"})))
+    (ckpt / "model.safetensors").write_bytes(b"")
+    cfg = load_config({"classifier_models": {
+        "intent": dict(spec, checkpoint=str(ckpt))}})
+    with pytest.raises(ValueError, match=name):
+        build_engine(cfg, device="cpu")
