@@ -131,8 +131,29 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    requests in order on the card's and the CPU's engines: the same span
    names and parentage, decision records equal but for times and ids.
 
+10. gates — the decision-aware cascade and the route's front gates,
+   f32 at full width.  64 requests, every other one carrying an
+   escalation keyword (a top-priority decision), routed one at a time
+   with the cascade off and then on (``engine.cascade`` defaults): 10a
+   with the skippable user_feedback and modality heads on a second
+   full-width trunk beside phase 3's (intent, jailbreak, pii: pinned),
+   10b with them on phase 3's trunk.  Decisions and models must be equal
+   request by request; per run it prints trunk forwards
+   (``llm_engine_trunk_forwards_total``) and K1 / K2 launches per request
+   (which must equal the layers and banks the run's steps ran), route
+   p50 / p95, graph captures and skipped forwards by reason; one
+   cascaded request is profiled for its kernels by name, six run on the
+   CPU port with the same decisions, waves and skips.  10c serves the
+   rate limit (a 429 with ``retry-after``, nothing at the backend),
+   skip-processing (the body untouched, no kernel launched), prompt
+   compression (a ~720-word prompt; the compressed text and the decision
+   equal the CPU's) and an entrypoint's recipe (decisions equal the
+   CPU's) through the HTTP server and the mock backend, and reads the
+   cascade's ``/debug/runtime`` block; then the cuda-marked test of
+   ``tests/test_torch_cascade_cuda.py`` runs in a pytest process.
+
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3, 5, 6, 8 and 9), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9 and 10), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -2926,21 +2947,26 @@ def serve_graphs(cfg, modules: dict) -> dict:
     return out
 
 
-def run_graph_tests() -> dict:
-    """The cuda-marked graph tests (capture, replay against eager, launch
-    counts through replays, retirement, the failures that must raise) in a
-    pytest process of their own; the repository's conftest imports JAX,
-    which the card's machine lacks, so it is not loaded."""
+def run_cuda_tests(name: str, passed: int = 0) -> dict:
+    """The cuda-marked tests of ``tests/<name>`` (the graph tests: capture,
+    replay against eager, launch counts through replays, retirement, the
+    failures that must raise; the cascade's: its waves through K1 / K2)
+    in a pytest process of their own; the repository's conftest imports
+    JAX, which the card's machine lacks, so it is not loaded.  With
+    ``passed``, exactly that many must pass (none skipped)."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p",
          "no:cacheprovider", "-q", "-m", "cuda",
-         os.path.join("tests", "test_torch_graphs.py")],
+         os.path.join("tests", name)],
         cwd=here, capture_output=True, text=True, timeout=600)
     tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-    print("graph tests: " + " | ".join(tail), flush=True)
-    check(proc.returncode == 0, "the cuda graph tests failed:\n"
+    print(f"{name}: " + " | ".join(tail), flush=True)
+    last = tail[-1] if tail else ""
+    check(proc.returncode == 0 and (not passed or (
+        f"{passed} passed" in last and "skipped" not in last)),
+          f"the cuda tests of {name} failed:\n"
           + (proc.stdout + proc.stderr)[-4000:])
     return {"rc": proc.returncode, "summary": tail[-1] if tail else "",
             "seconds": time.perf_counter() - t0}
@@ -2969,7 +2995,7 @@ def phase_graphs(modules3: dict, modules5: dict, wide) -> dict:
         cpu.shutdown()
         embed.shutdown()
     out["burst"] = serve_graphs(cfg, modules3["cuda"])
-    out["tests"] = run_graph_tests()
+    out["tests"] = run_cuda_tests("test_torch_graphs.py")
     print(f"phase 7 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -4195,6 +4221,467 @@ def phase_observe(keep: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 10: the route's front gates and the decision-aware cascade -------
+
+# the skippable heads: a second full-width trunk's (10a) or phase 3's (10b)
+CASCADE_HEADS = [("user_feedback", FEEDBACK, SEED + 1001),
+                 ("modality", MODALITY, SEED + 1002)]
+
+
+def _rule_decision(name: str, priority: int, family: str, rules: list,
+                   model: str) -> dict:
+    return {"name": name, "priority": priority,
+            "rules": {"operator": "OR", "conditions": [
+                {"type": family, "name": r} for r in rules]},
+            "modelRefs": [{"model": model}]}
+
+
+CASCADE_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": {"max_batch_size": 16, "max_wait_ms": 5.0,
+               "seq_len_buckets": [128, 512],
+               "kernels": {"epilogue": {"enabled": True}},
+               "cascade": {"enabled": True}},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in
+                       ("qwen3-8b", "qwen3-32b", "guard-model",
+                        "private-model", "oncall-model", "retry-model",
+                        "image-model")],
+        "signals": {
+            "keywords": [{"name": "escalate",
+                          "keywords": ["urgent", "outage"]}],
+            "domains": [{"name": d} for d in DOMAINS],
+            "jailbreak": ROUTER_CONFIG["routing"]["signals"]["jailbreak"],
+            "pii": ROUTER_CONFIG["routing"]["signals"]["pii"],
+            "user_feedbacks": [{"name": n} for n in FEEDBACK],
+            "modality": [{"name": n} for n in MODALITY]},
+        # the pinned families (jailbreak, domain, pii) run in wave 0; the
+        # keyword decision outranks every decision on the skippable ones
+        "decisions": [
+            _rule_decision("jailbreak_block", 500, "jailbreak",
+                           ["prompt_injection"], "guard-model"),
+            _rule_decision("escalation", 400, "keyword", ["escalate"],
+                           "oncall-model"),
+            _rule_decision("retry_route", 200, "user_feedback",
+                           ["wrong_answer", "want_different"],
+                           "retry-model"),
+            _rule_decision("image_route", 150, "modality",
+                           ["DIFFUSION", "BOTH"], "image-model"),
+            _rule_decision("cs_route", 100, "domain",
+                           ["computer science"], "qwen3-32b"),
+            _rule_decision("pii_route", 50, "pii", ["restricted_pii"],
+                           "private-model"),
+        ]},
+}
+# 10c: the same profile behind the other gates, and a recipe an
+# entrypoint's virtual model selects
+GATES_CONFIG = dict(
+    CASCADE_CONFIG,
+    ratelimit={"per_user": {"limited": 6}, "burst": 1},
+    skip_processing={"enabled": True},
+    prompt_compression={"enabled": True, "profile": "default",
+                        "target_ratio": 0.5, "min_tokens": 512},
+    recipes=[{"name": "fast", "routing": {
+        "signals": {"keywords": [{"name": "hurry",
+                                  "keywords": ["quick", "asap"]}]},
+        "decisions": [
+            _rule_decision("fast_kw", 20, "keyword", ["hurry"], "qwen3-8b"),
+            _rule_decision("fast_cs", 10, "domain", ["computer science"],
+                           "qwen3-32b")]}}],
+    entrypoints=[{"model_names": ["fast-auto"], "recipe": "fast"}])
+N_CASCADE = 64
+N_CASCADE_CPU = 6
+
+
+def cascade_bodies() -> list:
+    """64 chat requests; every other one carries an escalation keyword
+    (decided in wave 0), one in eight is long (the 512 bucket)."""
+    out = []
+    for i in range(N_CASCADE):
+        text = _words(200 if i % 8 == 7 else 8 + i % 13, SEED + 900 + i)
+        if i % 2 == 0:
+            text = f"urgent: {text}" if i % 4 else f"{text} - outage now"
+        out.append({"model": "auto", "messages": [
+            {"role": "user", "content": text}]})
+    return out
+
+
+def cascade_heads(trunk=None) -> dict:
+    """{task: ("sequence", module, labels)} for CASCADE_HEADS on the CPU:
+    over a new full-width trunk of their own (``trunk`` None; its weights
+    seeded) or over ``trunk``; the heads' own weights are seeded the same
+    either way."""
+    from semantic_router_tpu_torch.models import \
+        ModernBertForSequenceClassification
+
+    base = ModernBertConfig(**dict(MODERNBERT_BASE, attention_impl="dense"))
+    heads = {}
+    for name, labels, seed in CASCADE_HEADS:
+        cfg = dataclasses.replace(trunk.config if trunk is not None else
+                                  base, num_labels=len(labels))
+        module = ModernBertForSequenceClassification(cfg, model=trunk)
+        if trunk is None:
+            init_weights(module, SEED + 1000)
+        init_weights(module, seed, skip="model.")
+        trunk = module.model
+        heads[name] = ("sequence", module, labels)
+    return heads
+
+
+def _on_card(heads: dict) -> dict:
+    """A card copy of CPU-built heads (one trunk between them, as on the
+    CPU), attending through K1."""
+    from semantic_router_tpu_torch.models import \
+        ModernBertForSequenceClassification
+
+    out, trunk = {}, None
+    for name, (kind, module, labels) in heads.items():
+        card = ModernBertForSequenceClassification(
+            dataclasses.replace(module.config, attention_impl="flash"),
+            model=trunk)
+        card.load_state_dict(module.state_dict())
+        trunk = card.model
+        out[name] = (kind, card.to(DEVICE), labels)
+    return out
+
+
+def gates_engine(device: str, cfg, modules3: dict, heads: dict,
+                 registry=None):
+    """Phase 3's intent, jailbreak and pii heads (its trunk) and ``heads``
+    in one engine."""
+    obs = {} if registry is None else {
+        "metrics": registry.metric_series(),
+        "runtime_stats": registry.runtimestats,
+        "program_stats": registry.programstats}
+    engine = InferenceEngine(cfg.engine, device=device, **obs)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    tasks = {n: m for n, m in modules3.items() if n != "fact_check"}
+    tasks.update(heads)
+    for name, (kind, module, labels) in tasks.items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    return engine
+
+
+def _decision(res):
+    return res.decision.decision.name if res.decision else None
+
+
+def cascade_run(router, engine, registry, bodies, casc) -> dict:
+    """Each body routed alone with ``casc`` attached (None: the full
+    fan-out): per request the decision, model, trunk forwards
+    (``llm_engine_trunk_forwards_total``), K1 / K2 launches and route
+    time; the run's launches against the layers and head banks its steps
+    ran, its captures, and the skipped forwards by reason."""
+    router.cascade = casc
+    series = registry.metric_series()
+    steps0 = len(engine.steps())
+    rows = []
+    _cuda.reset_launch_counts()
+    for body in bodies:
+        f0 = series.trunk_forwards.total()
+        l0 = _cuda.launch_counts()
+        t0 = time.perf_counter()
+        res = router.route(dict(body))
+        ms = (time.perf_counter() - t0) * 1e3
+        l1 = _cuda.launch_counts()
+        rows.append({
+            "decision": _decision(res), "model": res.model,
+            "forwards": int(series.trunk_forwards.total() - f0),
+            "k1": l1["flash_attention"] - l0["flash_attention"],
+            "k2": l1["head_epilogue"] - l0["head_epilogue"],
+            "ms": ms, "cascade": res.report.cascade})
+    launches = _cuda.launch_counts()
+    steps = engine.steps()[steps0:]
+    want = _predicted_launches(steps)
+    check(all(launches[k] == want[k] for k in want),
+          f"cascade run: launches {launches} != the layers and banks of "
+          f"its {len(steps)} steps {want}")
+    skipped: dict = {}
+    for r in rows:
+        for fam, reason in ((r["cascade"] or {}).get("skipped") or {}).items():
+            skipped.setdefault(reason, {}).setdefault(fam, 0)
+            skipped[reason][fam] += 1
+    keyword = [r for i, r in enumerate(rows) if i % 2 == 0]
+    other = [r for i, r in enumerate(rows) if i % 2 == 1]
+
+    def per_req(rs, k):
+        return sum(r[k] for r in rs) / len(rs)
+
+    ms = [r["ms"] for r in rows]
+    return {"rows": rows, "launches": launches,
+            "captures": sum(1 for s in steps if s.get("graph") == "captured"),
+            "steps": len(steps),
+            "forwards_per_request": per_req(rows, "forwards"),
+            "forwards_keyword": per_req(keyword, "forwards"),
+            "forwards_other": per_req(other, "forwards"),
+            "k1_per_request": per_req(rows, "k1"),
+            "k1_keyword": per_req(keyword, "k1"),
+            "k1_other": per_req(other, "k1"),
+            "k2_per_request": per_req(rows, "k2"),
+            "route_p50_ms": _pct(ms, 0.5), "route_p95_ms": _pct(ms, 0.95),
+            "route_p50_keyword_ms": _pct([r["ms"] for r in keyword], 0.5),
+            "route_p50_other_ms": _pct([r["ms"] for r in other], 0.5),
+            "skipped": skipped}
+
+
+def _run_summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "rows"}
+
+
+def cascade_phase(tag: str, smi: str, engine, cpu, registry, bodies) -> dict:
+    """Routes ``bodies`` with the cascade off, then on, on the card
+    (decisions and models equal request by request), profiles one
+    cascaded request for K1 / K2 by name, and routes the first
+    N_CASCADE_CPU bodies with the cascade on the CPU port (decisions,
+    models, waves and skips equal)."""
+    cfg = load_config(CASCADE_CONFIG)
+    router = build_router(cfg, engine, registry=registry)
+    casc = router.cascade
+    check(casc is not None, f"{tag}: engine.cascade attached no evaluator")
+    try:
+        off = cascade_run(router, engine, registry, bodies, None)
+        on = cascade_run(router, engine, registry, bodies, casc)
+        for i, (a, b) in enumerate(zip(off["rows"], on["rows"])):
+            check((a["decision"], a["model"]) == (b["decision"], b["model"]),
+                  f"{tag} request {i}: cascade on {b['decision']} / "
+                  f"{b['model']} != off {a['decision']} / {a['model']}")
+            check(a["cascade"] is None and b["cascade"] is not None,
+                  f"{tag} request {i}: certificate off/on wrong")
+        check(any(r["cascade"]["waves"] for r in on["rows"]),
+              f"{tag}: no request ran a cascaded wave")
+        check(any(r["cascade"]["skipped"] for r in on["rows"]),
+              f"{tag}: no request skipped a forward")
+        # one cascaded request, profiled: its waves' kernels by name
+        waved = next(i for i, r in enumerate(on["rows"])
+                     if r["cascade"]["waves"])
+        _cuda.reset_launch_counts()
+        names = _kernel_names(lambda: router.route(dict(bodies[waved])),
+                              "flash_fwd")
+        prof_launches = _cuda.launch_counts()
+        traced = {k: sum(m in n for n in names)
+                  for k, m in TRACE_MARKS.items()}
+        check(traced["flash_attention"] > 0 and traced["head_epilogue"] > 0,
+              f"{tag}: the cascaded request's trace named no K1 / K2 "
+              f"kernel: {traced}")
+        report = casc.report()
+    finally:
+        router.cascade = None
+        router.shutdown()
+    cpu_router = build_router(cfg, cpu, registry=RuntimeRegistry.isolated(
+        runtimestats=None))
+    cpu_rows = []
+    try:
+        for i in range(N_CASCADE_CPU):
+            res = cpu_router.route(dict(bodies[i]))
+            card = on["rows"][i]
+            cert = res.report.cascade
+            # a wave lists its families as they completed: compare sets
+            cpu_rows.append({"decision": _decision(res), "model": res.model,
+                             "waves": [sorted(w) for w in cert["waves"]],
+                             "skipped": cert["skipped"]})
+            check((card["decision"], card["model"],
+                   [sorted(w) for w in card["cascade"]["waves"]],
+                   card["cascade"]["skipped"]) == tuple(
+                       cpu_rows[-1].values()),
+                  f"{tag} request {i}: card {card} != CPU {cpu_rows[-1]}")
+    finally:
+        cpu_router.shutdown()
+    out = {"card": smi, "off": _run_summary(off), "on": _run_summary(on),
+           "decisions": {d: sum(1 for r in on["rows"] if r["decision"] == d)
+                         for d in sorted({str(r["decision"])
+                                          for r in on["rows"]})},
+           "profiled": {"request": waved, "kernels_by_name": traced,
+                        "launches": prof_launches},
+           "cascade_report": report, "cpu_rows": cpu_rows,
+           "launches": {k: off["launches"][k] + on["launches"][k]
+                        + prof_launches[k] for k in prof_launches}}
+    print(f"gates {tag} " + json.dumps({k: v for k, v in out.items()
+                                        if k not in ("cpu_rows",)}),
+          flush=True)
+    return out
+
+
+def _spy_view(router, seen: list) -> None:
+    """Record the text the signals see (after prompt compression)."""
+    inner = router._prepare_signal_view
+
+    def view(ctx, headers):
+        skip = inner(ctx, headers)
+        seen.append(ctx.user_text)
+        return skip
+
+    router._prepare_signal_view = view
+
+
+def long_prompt() -> str:
+    """~720 words in 60 sentences: past prompt_compression.min_tokens."""
+    return " ".join(_words(12, SEED + 1100 + i).capitalize() + "."
+                    for i in range(60))
+
+
+def gates_http(engine, cpu, registry) -> dict:
+    """10c: the rate limit, skip-processing, prompt compression and an
+    entrypoint over HTTP through the port's server and mock backend,
+    against a router on the CPU port."""
+    cfg = load_config(GATES_CONFIG)
+    router = build_router(cfg, engine, registry=registry)
+    cpu_router = build_router(cfg, cpu, registry=RuntimeRegistry.isolated(
+        runtimestats=None))
+    seen, cpu_seen = [], []
+    _spy_view(router, seen)
+    _spy_view(cpu_router, cpu_seen)
+    backend = MockVLLMServer().start()
+    server = RouterServer(router, backend.url, registry=registry).start()
+    out: dict = {}
+    launches = {"flash_attention": 0, "head_epilogue": 0, "bgmv": 0}
+
+    def post(body, headers=None):
+        _cuda.reset_launch_counts()
+        r = _post(server.url, body, headers)
+        for k, v in _cuda.launch_counts().items():
+            launches[k] += v
+        return r
+
+    def user(text, model="auto", uid=""):
+        b = {"model": model, "messages": [{"role": "user",
+                                            "content": text}]}
+        if uid:
+            b["user"] = uid
+        return b
+
+    try:
+        # rate limit: the second request of a limited user is refused
+        hits0 = backend.hits
+        first = post(user("status of the build", uid="limited"))
+        second = post(user("status of the build", uid="limited"))
+        check(first[0] == 200 and second[0] == 429,
+              f"rate limit: HTTP {first[0]}, {second[0]}")
+        check(int(second[1].get("retry-after", "0")) >= 1,
+              f"rate limit: retry-after {second[1].get('retry-after')!r}")
+        check(backend.hits == hits0 + 1,
+              "rate limit: the refused request reached the backend")
+        out["ratelimit"] = {"status": [first[0], second[0]],
+                            "retry_after": second[1]["retry-after"],
+                            "body": second[2]}
+        # skip-processing: passed through untouched, no kernel launched
+        _cuda.reset_launch_counts()
+        hits0 = backend.hits
+        status, headers, body, _ = _post(
+            server.url, user("pass me through", uid="u1"),
+            {"x-vsr-skip-processing": "true"})
+        added = _cuda.launch_counts()
+        echo = json.loads(body["choices"][0]["message"]["content"])
+        check(status == 200 and backend.hits == hits0 + 1
+              and echo["model"] == "auto"
+              and "x-vsr-selected-model" not in headers,
+              f"skip-processing: HTTP {status}, echo {echo}")
+        check(added["flash_attention"] == 0 and added["head_epilogue"] == 0,
+              f"skip-processing launched kernels: {added}")
+        out["skip_processing"] = {"status": status, "echo": echo,
+                                  "launches": added}
+        # prompt compression: the long prompt is compressed before the bank
+        text = long_prompt()
+        n = len(seen)
+        status, headers, _b, _ = post(user(text, uid="u2"))
+        cpu_res = cpu_router.route(user(text, uid="u2"))
+        got = seen[n]
+        check(status == 200 and got == cpu_seen[-1]
+              and len(got) < len(text),
+              f"compression: the card saw {len(got)} chars, the CPU "
+              f"{len(cpu_seen[-1])}, of {len(text)}")
+        check(headers.get("x-vsr-selected-decision") == _decision(cpu_res)
+              and headers.get("x-vsr-selected-model") == cpu_res.model,
+              f"compression: card {headers.get('x-vsr-selected-decision')}"
+              f" / {headers.get('x-vsr-selected-model')} != CPU "
+              f"{_decision(cpu_res)} / {cpu_res.model}")
+        out["compression"] = {"chars": [len(text), len(got)],
+                              "decision": _decision(cpu_res),
+                              "model": cpu_res.model}
+        # entrypoints: the virtual model routes through the recipe
+        rows = []
+        for text in ("a quick look at the python compiler please",
+                     "compiler kernel tensor database thread",
+                     "dose clinic vaccine symptom patient"):
+            status, headers, _b, _ = post(user(text, model="fast-auto"))
+            cpu_res = cpu_router.route(user(text, model="fast-auto"))
+            row = {"decision": headers.get("x-vsr-selected-decision"),
+                   "model": headers.get("x-vsr-selected-model")}
+            check(status == 200 and row == {
+                "decision": _decision(cpu_res), "model": cpu_res.model},
+                f"entrypoint: card {row} != CPU {_decision(cpu_res)} / "
+                f"{cpu_res.model}")
+            rows.append(row)
+        check(any(r["decision"] in ("fast_kw", "fast_cs") for r in rows),
+              f"entrypoint: no recipe decision matched: {rows}")
+        out["entrypoints"] = rows
+        status, _h, raw = _api_call(server.url, "GET", "/debug/runtime")
+        rt = json.loads(raw)
+        check(status == 200 and "cascade" in rt,
+              "/debug/runtime has no cascade block")
+        out["debug_runtime_cascade"] = rt["cascade"]
+    finally:
+        server.stop()
+        backend.stop()
+        router.shutdown()
+        cpu_router.shutdown()
+    out["launches"] = launches
+    print("gates 10c " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_gates(modules3: dict, smi: str) -> dict:
+    """Phase 10: 10a the cascade with the skippable heads on a second
+    full-width trunk, 10b on phase 3's trunk, 10c the rate limit,
+    skip-processing, prompt compression and an entrypoint over HTTP."""
+    t0 = time.perf_counter()
+    cfg = load_config(CASCADE_CONFIG)
+    bodies = cascade_bodies()
+    out: dict = {}
+    # 10a: a second trunk of their own
+    heads = {"cpu": cascade_heads()}
+    heads["cuda"] = _on_card(heads["cpu"])
+    registry = RuntimeRegistry.isolated()
+    engine = gates_engine(DEVICE, cfg, modules3["cuda"], heads["cuda"],
+                          registry)
+    cpu = gates_engine("cpu", cfg, modules3["cpu"], heads["cpu"])
+    try:
+        groups = engine.trunk_group_info()
+        check(len(groups) == 2, f"10a: expected two trunk groups, got "
+                                f"{groups}")
+        engine.warmup()
+        out["10a"] = cascade_phase("10a", smi, engine, cpu, registry, bodies)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    # 10b: the same heads on phase 3's trunk
+    shared = {d: cascade_heads(modules3[d]["intent"][1].model)
+              for d in ("cpu", "cuda")}
+    for _kind, module, _labels in shared["cuda"].values():
+        module.to(DEVICE)
+    engine = gates_engine(DEVICE, cfg, modules3["cuda"], shared["cuda"],
+                          registry)
+    cpu = gates_engine("cpu", cfg, modules3["cpu"], shared["cpu"])
+    try:
+        groups = engine.trunk_group_info()
+        check(len(groups) == 1, f"10b: expected one trunk group, got "
+                                f"{groups}")
+        engine.warmup()
+        out["10b"] = cascade_phase("10b", smi, engine, cpu, registry, bodies)
+        out["10c"] = gates_http(engine, cpu, registry)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+        registry.runtimestats.stop()
+    out["launches"] = {k: out["10a"]["launches"][k] + out["10b"]["launches"][k]
+                       + out["10c"]["launches"][k]
+                       for k in out["10c"]["launches"]}
+    out["tests"] = run_cuda_tests("test_torch_cascade_cuda.py", passed=1)
+    print(f"phase 10 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4235,6 +4722,7 @@ def main(argv=None) -> int:
     respond = report["respond"] = phase_respond(modules3, modules5)
     observe = report["observe"] = phase_observe(respond.pop("_keep"),
                                                 dev["smi"])
+    gates = report["gates"] = phase_gates(modules3, dev["smi"])
     print(f"card: {dev['smi']}", flush=True)
     save()
     main_flash = next(r for r in kern["flash"]
@@ -4255,12 +4743,14 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
             # K1 runs in the serve trunk, the embedding trunk, the
-            # fixture router's trunks and the respond / observe phases'
-            # bank and embedding model; K2 in the serve, fixture, respond
-            # and observe banks and under every quant mode
+            # fixture router's trunks, the respond / observe phases' bank
+            # and embedding model and the gates phase's trunks; K2 in the
+            # serve, fixture, respond, observe and gates banks and under
+            # every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
+            + gates["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

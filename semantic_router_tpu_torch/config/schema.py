@@ -10,9 +10,13 @@ modality; the embedding-scored ones: embedding, preference, complexity,
 kb with its knowledge bases), projections, decisions with their rule
 trees, model refs, selection algorithms and plugins, model cards, the
 semantic cache, the ``memory`` and ``tool_selection`` blocks, the
-``authz`` block, the inference-engine knobs (``engine.quant``
-included) and the ``observability`` block (tracing, metrics, flight
-recorder, runtime and program stats, decision records).  A canonical
+``authz`` block, the inference-engine knobs (``engine.quant`` and
+``engine.cascade`` included), the ``observability`` block (tracing,
+metrics, flight recorder, runtime and program stats, decision records),
+the request gates (``ratelimit``, ``skip_processing``,
+``prompt_compression``) and the named routing profiles (``recipes``)
+with the virtual model names that select them (``entrypoints``).  A
+canonical
 ``global:`` block is lifted to the top level first, as the reference
 does.  Other blocks of a config file are not read; the options the
 reference serves and the port does not yet (``refuse_unported``) are
@@ -824,6 +828,10 @@ class InferenceEngineConfig:
     # quantized trunk serving (mode off | bf16 | int8, group selector,
     # parity calibration), normalized by engine.kernels.normalize_quant
     quant: Dict[str, Any] = field(default_factory=dict)
+    # the decision-aware signal cascade (enabled, wave_size, max_waves,
+    # brownout_max_waves, cost_default_ms, value_blend), normalized by
+    # engine.cascade.normalize_cascade; off = the full fan-out
+    cascade: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "InferenceEngineConfig":
@@ -838,6 +846,7 @@ class InferenceEngineConfig:
             fuse_trunks=bool(d.get("fuse_trunks", True)),
             kernels=dict(d.get("kernels", {}) or {}),
             quant=dict(d.get("quant", {}) or {}),
+            cascade=dict(d.get("cascade", {}) or {}),
         )
         if d.get("seq_len_buckets"):
             out.seq_len_buckets = [int(x) for x in d["seq_len_buckets"]]
@@ -848,6 +857,62 @@ class InferenceEngineConfig:
         from ..engine.kernels import normalize_quant
 
         return normalize_quant(self.quant)
+
+    def cascade_config(self) -> Dict[str, Any]:
+        """The normalized ``engine.cascade`` block."""
+        from ..engine.cascade import normalize_cascade
+
+        return normalize_cascade(self.cascade)
+
+
+DEFAULT_RECIPE_NAME = "default"
+
+
+@dataclass
+class RoutingRecipe:
+    """One named routing profile: signals, projections, decisions and
+    strategy, as the top-level routing block has them (the model catalog
+    stays shared across recipes).  The profile's keys sit under its
+    ``routing:`` key or on the recipe itself."""
+
+    name: str
+    description: str = ""
+    signals: SignalsConfig = field(default_factory=SignalsConfig)
+    projections: ProjectionsConfig = field(default_factory=ProjectionsConfig)
+    decisions: List[Decision] = field(default_factory=list)
+    strategy: str = "priority"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RoutingRecipe":
+        d = d or {}
+        routing = d.get("routing", d) or {}
+        return cls(
+            name=str(d.get("name", "")),
+            description=str(d.get("description", "")),
+            signals=SignalsConfig.from_dict(routing.get("signals", {})),
+            projections=ProjectionsConfig.from_dict(
+                routing.get("projections", {})),
+            decisions=[Decision.from_dict(x)
+                       for x in routing.get("decisions", []) or []],
+            strategy=str(routing.get("strategy", "priority")),
+        )
+
+
+@dataclass
+class Entrypoint:
+    """Virtual request model names bound to a recipe: a request naming
+    one routes through the recipe's profile; the name never reaches a
+    backend."""
+
+    model_names: List[str] = field(default_factory=list)
+    recipe: str = ""
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Entrypoint":
+        d = d or {}
+        return cls(
+            model_names=[str(m) for m in d.get("model_names", []) or []],
+            recipe=str(d.get("recipe", "")))
 
 
 # options the JAX router serves and this port does not yet: a config that
@@ -862,11 +927,6 @@ UNPORTED = {
 # when enabled (``enabled: true``, or a non-empty block or list without an
 # ``enabled`` switch), as the reference's default leaves each off
 UNPORTED_BLOCKS = {
-    "ratelimit": "rate limiting",
-    "skip_processing": "the skip-processing passthrough",
-    "prompt_compression": "prompt compression",
-    "recipes": "routing recipes",
-    "entrypoints": "virtual-model entrypoints",
     "stateplane": "the shared state plane",
     "ann": "the on-device ANN plane",
     "vectorstore": "vector stores",
@@ -877,7 +937,6 @@ UNPORTED_BLOCKS = {
 }
 # engine knobs the JAX engine reads and this port does not
 UNPORTED_ENGINE = {
-    "cascade": "the decision-aware signal cascade",
     "packing": "sequence packing",
     "mesh": "the serving mesh",
     "mesh_shape": "the engine mesh",
@@ -972,7 +1031,12 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     if backend in ("qdrant", "milvus"):
         raise ValueError(f"memory backend {backend!r} is not served by "
                          f"this port yet (\"\" or sqlite)")
-    for dec in routing.get("decisions", d.get("decisions", [])) or []:
+    decisions = list(routing.get("decisions", d.get("decisions", [])) or [])
+    for rec in d.get("recipes", []) or []:
+        rec = rec or {}
+        decisions += (rec.get("routing", rec) or {}).get("decisions", []) \
+            or []
+    for dec in decisions:
         name = dec.get("name", "")
         algo = dec.get("algorithm") or {}
         if algo.get("artifact"):
@@ -1009,6 +1073,19 @@ class RouterConfig:
     tool_selection: Dict[str, Any] = field(default_factory=dict)
     # the observability block, read through the accessors below
     observability: Dict[str, Any] = field(default_factory=dict)
+    # per-(user, model) token buckets: {requests_per_minute, burst,
+    # per_user, per_model}; no rate set = no limit
+    ratelimit: Dict[str, Any] = field(default_factory=dict)
+    # {enabled, profile, target_ratio, min_tokens}: extractive compression
+    # of long prompts before the signals see them
+    prompt_compression: Dict[str, Any] = field(default_factory=dict)
+    # {enabled, allow_skip_signals_header, skip_signals}: the
+    # x-vsr-skip-processing passthrough and the operator's skipped
+    # families, both off unless enabled
+    skip_processing: Dict[str, Any] = field(default_factory=dict)
+    # named routing profiles, and the virtual model names that select them
+    recipes: List[RoutingRecipe] = field(default_factory=list)
+    entrypoints: List[Entrypoint] = field(default_factory=list)
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -1042,8 +1119,42 @@ class RouterConfig:
             memory=dict(d.get("memory", {}) or {}),
             tool_selection=dict(d.get("tool_selection", {}) or {}),
             observability=dict(d.get("observability", {}) or {}),
+            ratelimit=dict(d.get("ratelimit", {}) or {}),
+            prompt_compression=dict(d.get("prompt_compression", {}) or {}),
+            skip_processing=dict(d.get("skip_processing", {}) or {}),
+            recipes=[RoutingRecipe.from_dict(r)
+                     for r in d.get("recipes", []) or []],
+            entrypoints=[Entrypoint.from_dict(e)
+                         for e in d.get("entrypoints", []) or []],
             raw=d,
         )
+
+    # -- recipes -------------------------------------------------------------
+
+    def recipe_by_name(self, name: str) -> Optional[RoutingRecipe]:
+        """A recipe by name; ``DEFAULT_RECIPE_NAME`` always resolves, to
+        a recipe of the top-level routing fields."""
+        for r in self.recipes:
+            if r.name == name:
+                return r
+        if name == DEFAULT_RECIPE_NAME:
+            return RoutingRecipe(
+                name=DEFAULT_RECIPE_NAME, signals=self.signals,
+                projections=self.projections, decisions=self.decisions,
+                strategy=self.strategy)
+        return None
+
+    def recipe_for_request_model(self, model: str
+                                 ) -> Optional[RoutingRecipe]:
+        """The recipe an entrypoint binds a request's model name to;
+        None when no entrypoint names it."""
+        model = (model or "").strip()
+        if not model:
+            return None
+        for ep in self.entrypoints:
+            if model in ep.model_names:
+                return self.recipe_by_name(ep.recipe)
+        return None
 
     # -- observability knobs ------------------------------------------------
     # The reference's accessors, with its defaults: the ONE place the

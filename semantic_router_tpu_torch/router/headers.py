@@ -1,4 +1,5 @@
-"""The x-vsr-* response headers the router stamps."""
+"""The x-vsr-* response headers the router stamps, and the request headers
+its gates read."""
 
 SCHEMA_VERSION = "v1"
 
@@ -20,6 +21,14 @@ TOOLS_INJECTED = "x-vsr-tools-injected"
 WARNINGS = "x-vsr-warnings"
 HALLUCINATION = "x-vsr-hallucination"
 UNVERIFIED_FACTUAL = "x-vsr-unverified-factual"
+
+# request headers, honoured only when skip_processing is enabled: pass the
+# request through untouched; drop the named signal families (also behind
+# skip_processing.allow_skip_signals_header)
+SKIP_PROCESSING = "x-vsr-skip-processing"
+SKIP_SIGNALS = "x-vsr-skip-signals"
+# seconds a rate-limited client waits before its next request
+RETRY_AFTER = "retry-after"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

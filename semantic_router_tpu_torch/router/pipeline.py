@@ -1,7 +1,15 @@
 """The request/response routing pipeline, trimmed to the port's main path:
 
-  parse → signal fan-out (heuristic families, fused classifier bank,
-  embedding-scored and kb families) → complexity composers and
+  parse → rate limit (``rate_limited``, 429 with ``retry-after``) →
+  skip-processing (``x-vsr-skip-processing``, only when the operator
+  enabled it: ``passthrough``) → the request model's routing profile (an
+  entrypoint's virtual name selects its recipe's dispatcher and decision
+  engine) → prompt compression and the skipped families (operator
+  ``skip_signals``; ``x-vsr-skip-signals`` behind
+  ``allow_skip_signals_header``) → signal fan-out (heuristic families,
+  fused classifier bank, embedding-scored and kb families), or, with
+  ``engine.cascade`` attached, the decision-aware cascade's waves
+  (engine/cascade) → complexity composers and
   projections → decision engine → policy plugins (``fast_response``
   answers without the backend; PII matches stamp
   ``x-vsr-pii-violation`` or, with the decision's ``pii`` plugin at
@@ -40,6 +48,7 @@ degrades routing to the default model, never to an outage.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import re
 import time
@@ -61,6 +70,8 @@ from ..selection import Feedback, SelectionContext, registry as selectors
 from ..signals.base import RequestContext
 from ..signals.dispatch import DispatchReport, build_dispatcher
 from . import headers as H
+from .promptcompression import PromptCompressor
+from .ratelimit import RateLimiter
 
 log = logging.getLogger(__name__)
 
@@ -72,7 +83,8 @@ EMBEDDING_TASK = "embedding"
 
 @dataclass
 class RouteResult:
-    kind: str  # "route" | "cache_hit" | "blocked"
+    # "route" | "cache_hit" | "blocked" | "rate_limited" | "passthrough"
+    kind: str
     model: str = ""
     body: Optional[Dict[str, Any]] = None
     headers: Dict[str, str] = field(default_factory=dict)
@@ -171,6 +183,32 @@ class Router:
         self._cfg_hash: Optional[str] = None
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
+        # each recipe's own dispatcher and decision engine, built once: a
+        # request resolves its profile with a dict lookup
+        self._recipe_engines: Dict[str, tuple] = {}
+        for rec in cfg.recipes:
+            sub = dataclasses.replace(
+                cfg, signals=rec.signals, projections=rec.projections,
+                decisions=rec.decisions, strategy=rec.strategy)
+            self._recipe_engines[rec.name] = (
+                build_dispatcher(sub, engine, learned_cfg=cfg),
+                DecisionEngine(rec.decisions, rec.strategy))
+        self.rate_limiter = RateLimiter.from_config(cfg.ratelimit)
+        sp_cfg = cfg.skip_processing or {}
+        self._skip_enabled = bool(sp_cfg.get("enabled", False))
+        self._allow_skip_signals_header = bool(
+            sp_cfg.get("allow_skip_signals_header", False))
+        self._skip_signals_cfg = [str(s) for s in
+                                  (sp_cfg.get("skip_signals", []) or [])]
+        pc_cfg = cfg.prompt_compression or {}
+        self.compressor = PromptCompressor(
+            profile=pc_cfg.get("profile", "default"),
+            target_ratio=float(pc_cfg.get("target_ratio", 0.5)),
+        ) if pc_cfg.get("enabled") else None
+        self.pc_min_tokens = int(pc_cfg.get("min_tokens", 512))
+        # the decision-aware cascade (engine.cascade.CascadeEvaluator),
+        # attached by bootstrap's apply_cascade_knobs; None = full fan-out
+        self.cascade = None
         cache_task = cfg.semantic_cache.embedding_model or EMBEDDING_TASK
         self.cache = None
         if cfg.semantic_cache.enabled and engine is not None \
@@ -187,6 +225,57 @@ class Router:
         # one selector per decision, built at its first request
         self._selectors: Dict[str, Any] = {}
         self.memory_store = None
+
+    def skip_requested(self, headers: Dict[str, str]) -> bool:
+        """True when skip-processing is enabled and the request asks for
+        it (``x-vsr-skip-processing: 1 | true``)."""
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        return self._skip_enabled and headers.get(
+            H.SKIP_PROCESSING, "").lower() in ("1", "true")
+
+    def _engines_for_model(self, model: str) -> tuple:
+        """(dispatcher, decision engine, via_entrypoint) for a request's
+        model name: an entrypoint's virtual name selects its recipe's
+        engines (the top-level ones for the ``default`` recipe); any other
+        name the top-level ones."""
+        if self._recipe_engines or self.cfg.entrypoints:
+            rec = self.cfg.recipe_for_request_model(model)
+            if rec is not None:
+                pair = self._recipe_engines.get(rec.name)
+                if pair is not None:
+                    return pair[0], pair[1], True
+                return self.dispatcher, self.decision_engine, True
+        return self.dispatcher, self.decision_engine, False
+
+    def _prepare_signal_view(self, ctx: RequestContext,
+                             headers: Dict[str, str]) -> List[str]:
+        """What reaches the classifiers: compresses a long prompt in
+        ``ctx`` (in place; the reference sheds this under overload, and
+        the port serves no overload ladder, so it always runs) and returns
+        the families to skip — the operator's, plus the request header's
+        only behind ``allow_skip_signals_header`` (a client must not empty
+        e.g. the pii family and dodge its policy)."""
+        if self.compressor is not None \
+                and ctx.approx_token_count() >= self.pc_min_tokens:
+            ctx._user_text = self.compressor.compress(ctx.user_text).text
+        skip = list(self._skip_signals_cfg)
+        if self._skip_enabled and self._allow_skip_signals_header:
+            skip += [s.strip() for s in
+                     headers.get(H.SKIP_SIGNALS, "").split(",")
+                     if s.strip()]
+        return skip
+
+    def _signals_cfg_for(self, dispatcher):
+        """The SignalsConfig ``dispatcher`` was built from (the cascade's
+        planner resolves projection members through it); None for a
+        dispatcher of neither profile."""
+        if dispatcher is self.dispatcher:
+            return self.cfg.signals
+        for name, (disp, _eng) in self._recipe_engines.items():
+            if disp is dispatcher:
+                rec = self.cfg.recipe_by_name(name)
+                return rec.signals if rec is not None else None
+        return None
 
     def _embeds(self) -> bool:
         return self.engine is not None and self.engine.has_task(EMBEDDING_TASK)
@@ -228,8 +317,9 @@ class Router:
 
     def _commit_decision_record(self, rec, result: RouteResult) -> None:
         """Freeze and ring the request's decision record, and name it in
-        ``x-vsr-decision-record``."""
-        if rec is None:
+        ``x-vsr-decision-record``.  A passthrough or rate-limited request
+        ran no signal, so it leaves no record."""
+        if rec is None or result.kind in ("passthrough", "rate_limited"):
             return
         record = rec.finish(
             kind=result.kind, model=result.model,
@@ -258,8 +348,32 @@ class Router:
                     request_id: str, trace_id: str, start: float,
                     rec) -> RouteResult:
         ctx = RequestContext.from_openai_body(body, headers)
+        # the rate limit runs before any client-controlled skip, so a
+        # bypass header cannot evade it
+        rl = self.rate_limiter.check(ctx.user_id, ctx.model)
+        if not rl.allowed:
+            return RouteResult(
+                kind="rate_limited", status=429, request_id=request_id,
+                response_body={"error": {
+                    "message": "rate limit exceeded",
+                    "type": "rate_limit_exceeded",
+                    "retry_after": round(rl.retry_after_s, 2)}},
+                headers={H.RETRY_AFTER: str(int(rl.retry_after_s) + 1)})
+        if self.skip_requested(headers):
+            return RouteResult(kind="passthrough", body=body,
+                               request_id=request_id)
+        dispatcher, decision_engine, via_entrypoint = \
+            self._engines_for_model(ctx.model)
+        skip = self._prepare_signal_view(ctx, headers)
         with self.tracer.span("signals.evaluate", request_id=request_id):
-            signals, report = self.dispatcher.evaluate(ctx)
+            if self.cascade is not None:
+                signals, report = self.cascade.evaluate(
+                    ctx, dispatcher, decision_engine,
+                    signals_cfg=self._signals_cfg_for(dispatcher),
+                    skip_signals=skip)
+            else:
+                signals, report = dispatcher.evaluate(ctx,
+                                                      skip_signals=skip)
         for family, res in report.results.items():
             # trace-id exemplar: a slow signal-latency bucket links to a
             # trace that landed there (no-op unless exemplars are on)
@@ -270,19 +384,26 @@ class Router:
         if rec is not None:
             rec.query = ctx.user_text
             rec.capture_signals(signals, report, self.explain.redact_pii)
+            if report.cascade is not None:
+                rec.capture_cascade(report.cascade)
         decision_trace = [] if rec is not None else None
         with self.tracer.decision_span():
-            decision_res = self.decision_engine.evaluate(
+            decision_res = decision_engine.evaluate(
                 signals, trace=decision_trace)
-        self.M.decision_latency.observe(
-            self.decision_engine.last_eval_latency_s)
+        self.M.decision_latency.observe(decision_engine.last_eval_latency_s)
         if rec is not None:
             rec.capture_rule_trace(decision_trace)
         result = RouteResult(kind="route", request_id=request_id,
                              signals=signals, report=report,
                              decision=decision_res, body=dict(body))
         if decision_res is None:
-            result.model = self.cfg.default_model or ctx.model
+            # an entrypoint's virtual name never reaches a backend: with no
+            # default model the recipe path falls to the model catalog
+            if via_entrypoint and not self.cfg.default_model:
+                result.model = (self.cfg.model_cards[0].name
+                                if self.cfg.model_cards else ctx.model)
+            else:
+                result.model = self.cfg.default_model or ctx.model
             result.headers = {H.SCHEMA: H.SCHEMA_VERSION,
                               H.MODEL: result.model}
             self.M.decision_fallbacks.inc(reason="no_decision_matched")
@@ -295,8 +416,7 @@ class Router:
             for rule in decision_res.matched_rules:
                 self.M.rule_hits.inc(rule=rule, decision=decision.name)
             if rec is not None:
-                rec.capture_decision(decision_res,
-                                     self.decision_engine.strategy)
+                rec.capture_decision(decision_res, decision_engine.strategy)
             early = self._apply_policy_plugins(decision, signals, result,
                                                rec) \
                 or self._check_cache(decision, ctx, result, rec)
@@ -764,6 +884,8 @@ class Router:
 
     def shutdown(self) -> None:
         self.dispatcher.shutdown()
+        for disp, _eng in self._recipe_engines.values():
+            disp.shutdown()
 
 
 def _response_text(body: Dict[str, Any]) -> str:

@@ -7,9 +7,13 @@ a 200 goes through the router's response path (its headers and annotated
 body are what the client gets), and every answer, 200 or not, is fed
 back to the decision's selector (``record_feedback``).  The client's W3C
 ``traceparent`` is continued by the router's ``router.route`` span, and
-the router's own goes to the backend.  A ``stream: true`` request is
-answered 400 and a request routed to a looper decision 501: neither is
-served by this port yet, and neither reaches the backend.  ``GET /health``
+the router's own goes to the backend.  A rate-limited request is answered
+429 with ``retry-after``, and never reaches the backend; a passthrough
+(``x-vsr-skip-processing``, when enabled) goes to the backend untouched
+and its answer comes back untouched, with no response path and no
+feedback.  A ``stream: true`` request is answered 400 and a request
+routed to a looper decision 501: neither is served by this port yet, and
+neither reaches the backend.  ``GET /health``
 reports liveness, ``GET /ready`` readiness.  Standard library only
 (``ThreadingHTTPServer`` + ``http.client``).
 
@@ -36,7 +40,9 @@ and the reference's telemetry surface, over the server's
   GET  /debug/flightrec            slowest requests with span trees
   POST /debug/flightrec/clear
   GET  /debug/runtime              per-step-program stats, process and
-                                   torch.cuda memory rows, kernel knobs
+                                   torch.cuda memory rows, kernel knobs,
+                                   the cascade's block when one is
+                                   attached
   GET  /debug/programs             step costs and roofline fractions
   GET  /debug/decisions[/{id}]     decision records (?source=durable)
 """
@@ -337,8 +343,16 @@ class _Handler(BaseHTTPRequestHandler):
                 "type": "unsupported_stream"}})
             return
         result = router.route(body, dict(self.headers.items()))
-        if result.kind in ("cache_hit", "blocked"):
+        if result.kind in ("cache_hit", "blocked", "rate_limited"):
             self._reply(result.status, result.response_body, result.headers)
+            return
+        if result.kind == "passthrough":
+            try:
+                status, data = srv.forward(result.body)
+            except OSError as exc:
+                status, data = 502, json.dumps({"error": {
+                    "message": f"backend unreachable: {exc}"}}).encode()
+            self._reply_raw(status, data)
             return
         if result.looper_algorithm:
             # the reference fans a looper decision out over its models;
@@ -406,11 +420,15 @@ class _Handler(BaseHTTPRequestHandler):
 def runtime_debug_report(registry, engine) -> dict:
     """The GET /debug/runtime body: the runtimestats snapshot (per
     (group, bucket, variant) step stats, process gauges, torch.cuda memory
-    rows) plus the engine's kernel knobs and step-graph caches."""
+    rows) plus the engine's kernel knobs and step-graph caches, and the
+    cascade's block exactly when an evaluator is attached."""
     rep = registry.runtimestats.report()
     if engine is not None:
         rep["kernels"] = engine.kernels_report()
         rep["graphs"] = engine.graph_report()
+    casc = registry.get("cascade")
+    if casc is not None:
+        rep["cascade"] = casc.report()
     return rep
 
 
@@ -434,6 +452,8 @@ class RouterServer:
             if router.engine is not None:
                 own.update(runtimestats=router.engine._runtime_stats,
                            programstats=router.engine._program_stats)
+            if router.cascade is not None:
+                own["cascade"] = router.cascade
             registry = RuntimeRegistry.with_defaults(**own)
         self.registry = registry
         self.started_t = time.time()

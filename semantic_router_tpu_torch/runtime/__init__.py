@@ -1,9 +1,9 @@
-from .bootstrap import apply_observability_knobs, apply_quant_knobs, \
-    build_engine, build_router, checkpoint_architecture, modernbert_state, \
-    select_attention_impl, serve
+from .bootstrap import apply_cascade_knobs, apply_observability_knobs, \
+    apply_quant_knobs, build_engine, build_router, checkpoint_architecture, \
+    modernbert_state, select_attention_impl, serve
 from .registry import RuntimeRegistry
 
-__all__ = ["RuntimeRegistry", "apply_observability_knobs",
-           "apply_quant_knobs", "build_engine", "build_router",
-           "checkpoint_architecture", "modernbert_state",
+__all__ = ["RuntimeRegistry", "apply_cascade_knobs",
+           "apply_observability_knobs", "apply_quant_knobs", "build_engine",
+           "build_router", "checkpoint_architecture", "modernbert_state",
            "select_attention_impl", "serve"]

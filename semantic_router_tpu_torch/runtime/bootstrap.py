@@ -17,7 +17,9 @@ unloaded (its signal fails open).  A checkpoint of another architecture
 The observability sinks come from a ``RuntimeRegistry``
 (``runtime/registry.py``; the process defaults unless the caller passes
 one): ``apply_observability_knobs`` applies the config's
-``observability`` block to them.
+``observability`` block to them.  ``build_router`` attaches the
+decision-aware signal cascade when ``engine.cascade`` enables it
+(``apply_cascade_knobs``, which a config reload calls again).
 """
 
 from __future__ import annotations
@@ -195,10 +197,11 @@ def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
 
 def build_router(cfg: RouterConfig, engine=None, registry=None):
     """The Router over ``engine``, its observability bound to
-    ``registry``'s sinks (the process defaults when None), with its memory
-    store: SQLite at ``memory.path`` under ``memory.backend: sqlite``,
-    else in-process; both embed on the engine's ``EMBEDDING_TASK`` when it
-    serves one."""
+    ``registry``'s sinks (the process defaults when None), its cascade
+    attached as ``engine.cascade`` says (in ``registry``'s ``cascade``
+    slot), with its memory store: SQLite at ``memory.path`` under
+    ``memory.backend: sqlite``, else in-process; both embed on the
+    engine's ``EMBEDDING_TASK`` when it serves one."""
     from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
     from ..router.pipeline import EMBEDDING_TASK, Router
 
@@ -208,6 +211,11 @@ def build_router(cfg: RouterConfig, engine=None, registry=None):
                "tracer": registry.tracer, "flightrec": registry.flightrec,
                "explain": registry.explain}
     router = Router(cfg, engine=engine, **obs)
+    if registry is None:
+        from .registry import RuntimeRegistry
+
+        registry = RuntimeRegistry.with_defaults()
+    apply_cascade_knobs(cfg, registry, router)
     embed_fn = None
     if engine is not None and engine.has_task(EMBEDDING_TASK):
         embed_fn = lambda text: engine.embed(EMBEDDING_TASK, [text])[0]
@@ -217,6 +225,39 @@ def build_router(cfg: RouterConfig, engine=None, registry=None):
     else:
         router.memory_store = InMemoryMemoryStore(embed_fn)
     return router
+
+
+def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
+    """Attach, reconfigure or detach the decision-aware signal cascade
+    (``engine/cascade``) on ``router``: enabled, the registry's evaluator
+    (made once, so a reload keeps its counters) takes the normalized
+    knobs and the router reads it; disabled, both let it go and the
+    router fans out in full.  A malformed block never stops the server:
+    it is logged and leaves the cascade as it was."""
+    try:
+        ck = cfg.engine.cascade_config()
+        if not ck["enabled"]:
+            if registry.get("cascade") is not None:
+                registry.swap(cascade=None)
+                log.info("cascade detached")
+            if router is not None:
+                router.cascade = None
+            return
+        from ..engine.cascade import CascadeEvaluator
+
+        casc = registry.get("cascade")
+        if casc is None:
+            casc = CascadeEvaluator(
+                metrics=registry.metric_series(),
+                runtime_stats=registry.get("runtimestats"))
+            registry.swap(cascade=casc)
+            log.info("cascade attached")
+        casc.runtime_stats = registry.get("runtimestats")
+        casc.configure(ck)
+        if router is not None:
+            router.cascade = casc
+    except Exception:
+        log.warning("cascade config invalid", exc_info=True)
 
 
 def apply_observability_knobs(cfg: RouterConfig, registry) -> None:

@@ -3,7 +3,7 @@
 The port's copy of ``semantic_router_tpu.runtime.registry``, with the
 slots this package fills: the metrics registry, the tracer, the profiler
 control, the flight recorder, the runtime-stats sampler, the program-cost
-catalog and the decision-record ring.  ``RuntimeRegistry.with_defaults()``
+catalog, the decision-record ring and the cascade evaluator.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -17,7 +17,10 @@ import threading
 from typing import Any, Dict
 
 _SLOTS = ("metrics", "tracer", "profiler", "flightrec", "runtimestats",
-          "programstats", "explain", "engine")
+          "programstats", "explain", "engine",
+          # the decision-aware cascade's evaluator: empty unless
+          # engine.cascade is enabled (apply_cascade_knobs)
+          "cascade")
 
 
 class RuntimeRegistry:

@@ -56,10 +56,16 @@ class RequestContext:
     # (engine id, task, text) → ClassResult, seeded by the dispatcher's
     # fused prefetch; evaluators consult it before touching the engine
     class_memo: Dict[Any, Any] = field(default_factory=dict)
+    # the classification input when the router compressed the prompt
+    # (router.promptcompression); None = the latest user message
+    _user_text: Optional[str] = None
 
     @property
     def user_text(self) -> str:
-        """Latest user message content — the primary classification input."""
+        """Latest user message content — the primary classification input
+        — or its compressed form."""
+        if self._user_text is not None:
+            return self._user_text
         for m in reversed(self.messages):
             if m.role == "user" and m.content:
                 return m.content

@@ -1,14 +1,17 @@
 """Concurrent signal dispatch over every signal family.
 
 Only families referenced by decisions, complexity composers or
-projections are evaluated; each active family runs on its own worker and
-the join is the wall clock of the slowest one.  Before the fan-out, the
+projections are evaluated (less the request's ``skip_signals``); each
+active family runs on its own worker and the join is the wall clock of
+the slowest one.  Before the fan-out, the
 sequence tasks one fused trunk group can serve classify the user text
 together (one tokenization, one trunk forward) and seed the request's
 memo.  After it, complexity composers escalate their rules, then the
 projections derive their outputs (with the kb family's metrics).
 Evaluator exceptions are contained and recorded (fail-open: a dead family
-never kills routing).
+never kills routing).  The decision-aware cascade (``engine/cascade``)
+drives the same per-family call, prefetch, fold and derivations in
+waves instead of all at once.
 """
 
 from __future__ import annotations
@@ -27,12 +30,19 @@ from .base import RequestContext, SignalEvaluator, SignalResult
 # serial prefetch budget: past it the evaluators classify on their own
 PREFETCH_TIMEOUT_S = 10.0
 
+# families that are a safety control, not a quality optimization: the
+# cascade pins them (never skipped), as the reference's brownout keeps them
+SAFETY_FAMILIES = ("jailbreak",)
+
 
 @dataclass
 class DispatchReport:
     results: Dict[str, SignalResult] = field(default_factory=dict)
     wall_s: float = 0.0
     projection_trace: Optional[ProjectionTrace] = None
+    # the cascade's skip certificate (engine/cascade): the waves, the
+    # forwards never submitted or cancelled and why; None = full fan-out
+    cascade: Optional[dict] = None
 
 
 def apply_complexity_composers(signals: SignalMatches,
@@ -71,20 +81,28 @@ class SignalDispatcher:
             return list(self.evaluators.values())
         return [e for t, e in self.evaluators.items() if t in self.used_types]
 
-    def evaluate(self, ctx: RequestContext
+    def learned_types(self, keep=None) -> List[str]:
+        """Families backed by an inference engine (device work), minus
+        ``keep``."""
+        keep_set = set(keep or ())
+        return sorted(t for t, e in self.evaluators.items()
+                      if getattr(e, "engine", None) is not None
+                      and t not in keep_set)
+
+    def evaluate(self, ctx: RequestContext,
+                 skip_signals: Optional[List[str]] = None
                  ) -> "tuple[SignalMatches, DispatchReport]":
+        """Every active family but ``skip_signals``, at once."""
         start = time.perf_counter()
-        active = self.active_evaluators()
-        # the request's trace, re-established on each family's worker as a
-        # signal.<family> span (the engine calls under it carry it into
-        # the batcher); no open trace costs one thread-local read
-        parent = batchtrace.capture()
+        skip = set(skip_signals or ())
+        active = [e for e in self.active_evaluators()
+                  if e.signal_type not in skip]
+        run = self._runner(ctx)
         self._prefetch_fused(ctx, active)
         if len(active) <= 1:
-            results = [self._run(e, ctx, parent) for e in active]
+            results = [run(e) for e in active]
         else:
-            results = list(self.pool.map(
-                lambda e: self._run(e, ctx, parent), active))
+            results = list(self.pool.map(run, active))
         signals = SignalMatches()
         report = DispatchReport()
         kb_metrics: dict = {}
@@ -95,23 +113,30 @@ class SignalDispatcher:
         return signals, report
 
     @staticmethod
-    def _run(e: SignalEvaluator, ctx: RequestContext,
-             parent=None) -> SignalResult:
-        """One family, failing open, under a ``signal.<family>`` span of
-        the request's trace; a result with no source says ``engine`` when
-        the evaluator holds one, else ``heuristic``."""
-        source = "engine" if getattr(e, "engine", None) is not None \
-            else "heuristic"
-        t0 = time.perf_counter()
-        try:
-            with batchtrace.activate(parent, f"signal.{e.signal_type}"):
-                out = e.evaluate(ctx)
-        except Exception as exc:  # fail open per family
-            out = SignalResult(signal_type=e.signal_type,
-                               latency_s=time.perf_counter() - t0,
-                               error=f"{type(exc).__name__}: {exc}")
-        out.source = out.source or source
-        return out
+    def _runner(ctx: RequestContext):
+        """The per-family call the full fan-out and the cascade's waves
+        share: one family, failing open, under a ``signal.<family>`` span
+        of the request's trace (captured here, on the request's thread:
+        the engine calls under it carry it into the batcher; no open
+        trace costs one thread-local read); a result with no source says
+        ``engine`` when the evaluator holds one, else ``heuristic``."""
+        parent = batchtrace.capture()
+
+        def run(e: SignalEvaluator) -> SignalResult:
+            source = "engine" if getattr(e, "engine", None) is not None \
+                else "heuristic"
+            t0 = time.perf_counter()
+            try:
+                with batchtrace.activate(parent, f"signal.{e.signal_type}"):
+                    out = e.evaluate(ctx)
+            except Exception as exc:  # fail open per family
+                out = SignalResult(signal_type=e.signal_type,
+                                   latency_s=time.perf_counter() - t0,
+                                   error=f"{type(exc).__name__}: {exc}")
+            out.source = out.source or source
+            return out
+
+        return run
 
     @staticmethod
     def _fold_result(r: SignalResult, signals: SignalMatches,
@@ -178,10 +203,14 @@ class SignalDispatcher:
         self.pool.shutdown(wait=False, cancel_futures=True)
 
 
-def build_dispatcher(cfg, engine=None) -> SignalDispatcher:
+def build_dispatcher(cfg, engine=None, learned_cfg=None) -> SignalDispatcher:
     """Every model-free evaluator, plus the learned, embedding-scored and
     kb evaluators when an engine is given, restricted to the families
-    the config's decisions, composers and projections reference."""
+    the config's decisions, composers and projections reference.  The
+    engine-backed evaluators read ``learned_cfg``'s rules (default
+    ``cfg``): a recipe's dispatcher takes its heuristic rules from the
+    recipe and its learned ones from the top-level config, as the
+    reference's does."""
     from .embedding_signal import build_embedding_evaluators
     from .heuristic import (
         AuthzSignal,
@@ -208,12 +237,14 @@ def build_dispatcher(cfg, engine=None) -> SignalDispatcher:
         ReaskSignal(s.reasks),
     ]
     if engine is not None:
-        evaluators += build_learned_evaluators(engine, cfg)
-        if s.kb and cfg.knowledge_bases:
+        lcfg = learned_cfg or cfg
+        evaluators += build_learned_evaluators(engine, lcfg)
+        if lcfg.signals.kb and lcfg.knowledge_bases:
             from .kb import KBSignal
 
-            evaluators.append(KBSignal(engine, s.kb, cfg.knowledge_bases))
-        evaluators += build_embedding_evaluators(engine, cfg)
+            evaluators.append(KBSignal(engine, lcfg.signals.kb,
+                                       lcfg.knowledge_bases))
+        evaluators += build_embedding_evaluators(engine, lcfg)
     return SignalDispatcher(evaluators,
                             projections=ProjectionEvaluator(cfg.projections),
                             used_types=cfg.used_signal_types() or None,

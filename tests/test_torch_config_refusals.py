@@ -1,7 +1,10 @@
 """The port's loader against the JAX loader on the options the port does
 not serve: each one the JAX router acts on is loaded by the JAX loader and
 refused by the port's, the key named in the message, and loads on both
-when off; a canonical ``global:`` block lifts to the same fields on both;
+when off; the options a later slice ported (the cascade, the rate limit,
+skip-processing, prompt compression, recipes and entrypoints) load on
+both and parse to the same block; a canonical ``global:`` block lifts to
+the same fields on both;
 ``stream: true`` gets an error body and a looper decision a 501, and the
 backend sees neither; a checkpoint of another architecture is refused by
 name."""
@@ -25,17 +28,10 @@ DEC = {"name": "d", "priority": 1,
                  "conditions": [{"type": "keyword", "name": "k"}]},
        "modelRefs": [{"model": "m"}]}
 
-# refused key → (the config that enables it, the same block off)
-REFUSED = {
+# ported key → (the config that enables it, the same block off)
+PORTED = {
     "engine.cascade": ({"engine": {"cascade": {"enabled": True}}},
                        {"engine": {"cascade": {"enabled": False}}}),
-    "engine.packing": ({"engine": {"packing": {"enabled": True}}},
-                       {"engine": {"packing": {"enabled": False}}}),
-    "engine.mesh": ({"engine": {"mesh": {"enabled": True, "dp": 1,
-                                         "tp": 1}}},
-                    {"engine": {"mesh": {"enabled": False}}}),
-    "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
-                          {"engine": {"mesh_shape": {}}}),
     "ratelimit": ({"ratelimit": {"requests_per_minute": 60}},
                   {"ratelimit": {}}),
     "skip_processing": ({"skip_processing": {"enabled": True}},
@@ -46,6 +42,17 @@ REFUSED = {
                 {"recipes": []}),
     "entrypoints": ({"entrypoints": [{"name": "auto", "recipe": "fast"}]},
                     {"entrypoints": []}),
+}
+
+# refused key → (the config that enables it, the same block off)
+REFUSED = {
+    "engine.packing": ({"engine": {"packing": {"enabled": True}}},
+                       {"engine": {"packing": {"enabled": False}}}),
+    "engine.mesh": ({"engine": {"mesh": {"enabled": True, "dp": 1,
+                                         "tp": 1}}},
+                    {"engine": {"mesh": {"enabled": False}}}),
+    "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
+                          {"engine": {"mesh_shape": {}}}),
     "stateplane": ({"stateplane": {"enabled": True, "backend": "memory"}},
                    {"stateplane": {"enabled": False, "backend": "memory"}}),
     "ann": ({"ann": {"enabled": True}}, {"ann": {"enabled": False}}),
@@ -97,11 +104,33 @@ def test_refused_at_load(key):
         load_config(copy.deepcopy(on))
 
 
-@pytest.mark.parametrize("key", sorted(REFUSED))
+@pytest.mark.parametrize("key", sorted({**REFUSED, **PORTED}))
 def test_off_loads_on_both(key):
-    _, off = REFUSED[key]
+    _, off = {**REFUSED, **PORTED}[key]
     JRouterConfig.from_dict(copy.deepcopy(off))
     load_config(copy.deepcopy(off))
+
+
+def _parsed(cfg, key):
+    """The block ``key`` parses to, as plain data."""
+    if key == "engine.cascade":
+        return cfg.engine.cascade, cfg.engine.cascade_config()
+    if key == "recipes":
+        return [(r.name, r.description, r.strategy,
+                 [(d.name, d.priority, [m.model for m in d.model_refs])
+                  for d in r.decisions]) for r in cfg.recipes]
+    if key == "entrypoints":
+        return [(e.model_names, e.recipe) for e in cfg.entrypoints]
+    return getattr(cfg, key)
+
+
+@pytest.mark.parametrize("key", sorted(PORTED))
+def test_ported_option_loads_like_the_reference(key):
+    on, _ = PORTED[key]
+    j = JRouterConfig.from_dict(copy.deepcopy(on))
+    t = load_config(copy.deepcopy(on))
+    assert _parsed(t, key) == _parsed(j, key)
+    assert _parsed(t, key)  # the enabled block is not parsed away
 
 
 GLOBAL = {
