@@ -152,8 +152,41 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    cascade's ``/debug/runtime`` block; then the cuda-marked test of
    ``tests/test_torch_cascade_cuda.py`` runs in a pytest process.
 
+11. resilience — phase 10b's engine under the degradation ladder, f32 at
+   full width.  11a raises the ladder to each rung through its real
+   inputs (``max_level``, a fast ``slo_alert_firing`` on the registry's
+   event bus, ticks on an explicit clock; L4 also by ``engine_failed``)
+   and routes phase 10's 64 bodies one at a time, pairs of them taking
+   the classes critical / high / normal / low in turn
+   (``x-vsr-priority``), with the cascade off and then on
+   (``wave_size`` 1): per rung and class the kinds (route / shed /
+   fail_static), trunk forwards, K1 / K2 launches (equal to the steps'
+   layers and banks) and route p50; L3 must shed exactly the low class,
+   L4 launch nothing, L2's browned-out classes spend fewer K1 than L0's
+   (cascade off; no more with it on), and the first four bodies of
+   every run route on the CPU port with equal kinds, statuses, headers,
+   decisions and models.  11b serves the router behind the HTTP server
+   and the mock backend with the SLO monitor (``routing_latency p99 <
+   20ms over 1s``) and the ladder ticking every 0.25 s
+   (``queue_high_watermark`` 16): 48 persistent clients (12 a class) for
+   8 s, then one until the ladder is back at L0 (at least 8 s); it prints
+   the level timeline, the alert and level events, sheds per class,
+   requests/s and client p50 / p99 per class in each half and K1 per
+   answered request, and must leave L0, come back, shed no critical
+   request and answer ``/health`` ``degraded`` while the alert fires.
+   11c gives two model groups their own ``backend_refs`` with the
+   upstream plane on (``breaker.failures`` 3): model A's heavy endpoint
+   is a fault proxy answering 5xx; every answer must be 200, the circuit
+   must open after 3 failures and be skipped while open (the proxy's
+   counters), ``llm_upstream_failovers_total`` and
+   ``/debug/resilience`` must agree with them, each model must reach
+   only its own backends, a half-open probe must close the circuit
+   once the proxy heals, and a refused proxy must fail over and reopen
+   it.  Then the cuda-marked tests of
+   ``tests/test_torch_resilience_cuda.py`` run in a pytest process.
+
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9 and 10), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10 and 11), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -163,12 +196,15 @@ kernel phase.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import faulthandler
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -222,6 +258,7 @@ try:
         real_tiles,
     )
     from semantic_router_tpu_torch.ops.matryoshka import matryoshka_views
+    from semantic_router_tpu_torch.observability.profiler import gated_trace
     from semantic_router_tpu_torch.observability.tracing import Tracer
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
     from semantic_router_tpu_torch.runtime import (
@@ -504,6 +541,19 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# the run stops itself before a caller's 1200 s limit: every thread's
+# stack goes to stderr, then the process exits 1 (faulthandler's watchdog
+# runs outside the interpreter, so it fires whatever holds the GIL)
+WATCHDOG_S = 1140.0
+_T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """A progress line on stderr: seconds since start, then ``what``."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:.1f} s] {what}",
+          file=sys.stderr, flush=True)
+
+
 SPIN_CYCLES = 10_000_000  # ~5 ms of a spinning kernel at the H100's clock
 
 
@@ -688,12 +738,9 @@ def _kernel_names(fn, want: str = "") -> list:
     records, so a trace that holds no kernel whose name contains ``want``
     (with no ``want``: no kernel at all) is taken again, up to five
     times, and each retry is printed."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = []
     for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with gated_trace() as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
@@ -1207,10 +1254,7 @@ def _task_modules(engine) -> dict:
 def _profile(fn) -> dict:
     """Device time by kernel class over one call of ``fn`` (torch.profiler,
     CUPTI), and the device's busy share of the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with gated_trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4507,8 +4551,8 @@ def _spy_view(router, seen: list) -> None:
     """Record the text the signals see (after prompt compression)."""
     inner = router._prepare_signal_view
 
-    def view(ctx, headers):
-        skip = inner(ctx, headers)
+    def view(ctx, headers, **kw):
+        skip = inner(ctx, headers, **kw)
         seen.append(ctx.user_text)
         return skip
 
@@ -4682,6 +4726,587 @@ def phase_gates(modules3: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the resilience plane
+
+PRIORITIES = ("critical", "high", "normal", "low")
+RESILIENCE_KNOBS = {"enabled": True, "interval_s": 0.25,
+                    "escalate_ticks": 1, "hysteresis_ticks": 3,
+                    "queue_high_watermark": 16}
+# wave_size 1: a browned-out request's cascade (brownout_max_waves 1) can
+# then stop before the second skippable family
+RESILIENCE_CONFIG = dict(
+    CASCADE_CONFIG, resilience=RESILIENCE_KNOBS,
+    engine=dict(CASCADE_CONFIG["engine"],
+                cascade={"enabled": True, "wave_size": 1}))
+N_RES_CPU = 4                 # bodies a (mode, rung) run routes on the CPU
+LOOP_CLIENTS = 48             # 11b: 12 per priority class
+LOOP_OVERLOAD_S = 8.0
+LOOP_QUIET_S = 8.0            # then one client, until L0 (at most 3x)
+LOOP_SLO = {"evaluation_interval_s": 0.25,
+            "objectives": ["routing_latency p99 < 20ms over 1s"]}
+UPSTREAM_OPEN_S = 1.0         # 11c: open_s for the probe (30 s before)
+
+
+def _res_kind(res) -> str:
+    """route / shed / fail_static (a fail-static request is a route whose
+    selection reason says so)."""
+    if res.kind == "route" and res.selection_reason == "fail_static":
+        return "fail_static"
+    return res.kind
+
+
+def _res_row(res) -> dict:
+    """What card and CPU must agree on, request by request."""
+    return {"kind": _res_kind(res), "status": res.status,
+            "decision": _decision(res), "model": res.model,
+            "headers": {k: (True if k == "x-vsr-decision-record" else v)
+                        for k, v in sorted(res.headers.items())}}
+
+
+def _set_rung(ctl, bus, level: int, via: str = "alert") -> None:
+    """The ladder at ``level`` through its real inputs: back to L0 (the
+    controller disabled, the alert resolved, the engine ready), then
+    ``max_level``, a fast ``slo_alert_firing`` (or ``engine_failed``) on
+    the bus and ticks on an explicit clock."""
+    ctl.configure(dict(RESILIENCE_KNOBS, enabled=False))
+    bus.emit("slo_alert_resolved", objective="routing_latency_p99")
+    bus.emit("engine_ready")
+    ctl.configure(dict(RESILIENCE_KNOBS, max_level=level))
+    if level:
+        if via == "engine_failed":
+            bus.emit("engine_failed", during="chip_smoke")
+        else:
+            bus.emit("slo_alert_firing", objective="routing_latency_p99",
+                     severity="fast")
+        for i in range(level):
+            ctl.tick(now=float(i))
+    check(ctl.level() == level, f"11a: ladder at {ctl.level()}, wanted "
+                                f"{level} ({via})")
+
+
+def _class_of(i: int) -> str:
+    """Body i's class: pairs of bodies (one with the escalation keyword,
+    one without) take the classes in turn, 8 + 8 of 64 each."""
+    return PRIORITIES[(i // 2) % 4]
+
+
+def _headers_for(i: int) -> dict:
+    return {"x-vsr-priority": _class_of(i),
+            "x-vsr-request-id": f"res-{i:03d}"}
+
+
+def ladder_run(router, engine, series, bodies) -> dict:
+    """Each body routed alone at the controller's current rung, body i
+    in class ``_class_of(i)``: per request the row card and CPU compare,
+    trunk forwards, K1 / K2 launches and route ms; the run's launches
+    against the layers and banks its steps ran."""
+    steps0 = len(engine.steps())
+    rows = []
+    _cuda.reset_launch_counts()
+    for i, body in enumerate(bodies):
+        f0 = series.trunk_forwards.total()
+        l0 = _cuda.launch_counts()
+        t0 = time.perf_counter()
+        res = router.route(dict(body), _headers_for(i))
+        ms = (time.perf_counter() - t0) * 1e3
+        l1 = _cuda.launch_counts()
+        rows.append(dict(_res_row(res), cls=_class_of(i), ms=ms,
+                         forwards=int(series.trunk_forwards.total() - f0),
+                         k1=l1["flash_attention"] - l0["flash_attention"],
+                         k2=l1["head_epilogue"] - l0["head_epilogue"],
+                         cascade=res.report.cascade if res.report
+                         else None))
+    launches = _cuda.launch_counts()
+    steps = engine.steps()[steps0:]
+    want = _predicted_launches(steps)
+    check(all(launches[k] == want[k] for k in want),
+          f"11a: launches {launches} != the layers and banks of its "
+          f"{len(steps)} steps {want}")
+    per_class = {}
+    for cls in PRIORITIES:
+        rs = [r for r in rows if r["cls"] == cls]
+        kinds: dict = {}
+        for r in rs:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        per_class[cls] = {
+            "kinds": kinds,
+            "forwards_per_request": sum(r["forwards"] for r in rs) / len(rs),
+            "k1_per_request": sum(r["k1"] for r in rs) / len(rs),
+            "k2_per_request": sum(r["k2"] for r in rs) / len(rs),
+            "route_p50_ms": _pct([r["ms"] for r in rs], 0.5),
+            "truncated": sum(1 for r in rs if "truncated" in (
+                (r["cascade"] or {}).get("skipped") or {}).values())}
+    return {"rows": rows, "per_class": per_class, "launches": launches,
+            "captures": sum(1 for s in steps
+                            if s.get("graph") == "captured")}
+
+
+def ladder_phase(engine, cpu, registry, smi: str) -> dict:
+    """11a: every rung, cascade off then on, 64 requests each (16 per
+    class); the first N_RES_CPU of each run routed on the CPU port at the
+    same rung, row by row equal."""
+    from semantic_router_tpu_torch.resilience import DegradationController
+    from semantic_router_tpu_torch.runtime.events import EventBus
+
+    cfg = load_config(RESILIENCE_CONFIG)
+    router = build_router(cfg, engine, registry=registry)
+    casc = router.cascade
+    ctl = registry.resilience
+    bus = registry.events
+    ctl.bind(events=bus, runtimestats=registry.runtimestats)
+    cpu_ctl = DegradationController(
+        registry=type(registry.metrics)())
+    cpu_bus = EventBus()
+    cpu_ctl.bind(events=cpu_bus)
+    cpu_router = build_router(cfg, cpu, registry=RuntimeRegistry.isolated(
+        runtimestats=None, resilience=cpu_ctl, events=cpu_bus))
+    series = registry.metric_series()
+    bodies = cascade_bodies()
+    cpu_casc = cpu_router.cascade
+    rungs = [(0, "alert"), (1, "alert"), (2, "alert"), (3, "alert"),
+             (4, "alert"), (4, "engine_failed")]
+    out: dict = {"card": smi, "runs": {}}
+    launches = {"flash_attention": 0, "head_epilogue": 0, "bgmv": 0}
+    try:
+        for mode in ("off", "on"):
+            router.cascade = casc if mode == "on" else None
+            cpu_router.cascade = cpu_casc if mode == "on" else None
+            for level, via in rungs:
+                tag = f"{mode}/L{level}" + ("/engine_failed"
+                                             if via == "engine_failed"
+                                             else "")
+                stamp(f"11a {tag}")
+                _set_rung(ctl, bus, level, via)
+                _set_rung(cpu_ctl, cpu_bus, level, via)
+                run = ladder_run(router, engine, series, bodies)
+                for k in launches:
+                    launches[k] += run["launches"][k]
+                for i in range(N_RES_CPU):
+                    want = _res_row(cpu_router.route(dict(bodies[i]),
+                                                     _headers_for(i)))
+                    got = {k: run["rows"][i][k] for k in want}
+                    check(got == want, f"11a {tag} request {i}: card "
+                                       f"{got} != CPU {want}")
+                pc = run["per_class"]
+                if level == 3:
+                    check(pc["low"]["kinds"] == {"shed": 16} and all(
+                        "shed" not in pc[c]["kinds"]
+                        for c in PRIORITIES[:3]),
+                        f"11a {tag}: L3 must shed exactly the low class: "
+                        f"{ {c: pc[c]['kinds'] for c in PRIORITIES} }")
+                if level == 4:
+                    check(all(pc[c]["k1_per_request"] == 0
+                              and pc[c]["k2_per_request"] == 0
+                              and pc[c]["kinds"] == {"fail_static": 16}
+                              for c in PRIORITIES),
+                          f"11a {tag}: L4 launched kernels or did not "
+                          f"fail static: {pc}")
+                out["runs"][tag] = {k: v for k, v in run.items()
+                                    if k != "rows"}
+            # L2 browns out normal and low: without the cascade they keep
+            # only the safety floor; with it their cascade stops after
+            # brownout_max_waves, which saves only where L0 ran more
+            l0, l2 = out["runs"][f"{mode}/L0"], out["runs"][f"{mode}/L2"]
+            for cls in ("normal", "low"):
+                k0 = l0["per_class"][cls]["k1_per_request"]
+                k2 = l2["per_class"][cls]["k1_per_request"]
+                check(k2 < k0 if mode == "off" else k2 <= k0,
+                      f"11a {mode}: L2 {cls} spent {k2} K1 a request, "
+                      f"L0 {k0}")
+    finally:
+        router.cascade = None
+        router.shutdown()
+        cpu_router.shutdown()
+        # leave the ladder at L0 with no latched input for 11b
+        ctl.configure(dict(RESILIENCE_KNOBS, enabled=False))
+        bus.emit("slo_alert_resolved", objective="routing_latency_p99")
+        bus.emit("engine_ready")
+    out["launches"] = launches
+    out["cpu_compared"] = N_RES_CPU * len(rungs) * 2
+    print("resilience 11a " + json.dumps(out), flush=True)
+    return out
+
+
+class _LoopClient:
+    """One persistent-connection client posting in a loop until stopped:
+    (start offset s, latency s, status, level header) per request."""
+
+    def __init__(self, url: str, cls: str, idx: int, stop, t0: float):
+        import urllib.parse
+
+        self.u = urllib.parse.urlsplit(url)
+        self.cls, self.idx, self.stop, self.t0 = cls, idx, stop, t0
+        self.rows = []
+        self.thread = threading.Thread(target=self.run, daemon=True,
+                                       name=f"loop-client-{idx}")
+
+    def run(self) -> None:
+        import http.client
+
+        conn = None
+        n = 0
+        while not self.stop.is_set():
+            body = {"model": "auto", "messages": [{"role": "user",
+                    "content": _words(8 + (self.idx + n) % 13,
+                                      SEED + 1300 + self.idx * 997 + n)}]}
+            n += 1
+            t = time.perf_counter()
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection(self.u.hostname,
+                                                      self.u.port,
+                                                      timeout=60)
+                conn.request("POST", "/v1/chat/completions",
+                             body=json.dumps(body).encode(),
+                             headers={"content-type": "application/json",
+                                      "x-vsr-priority": self.cls})
+                resp = conn.getresponse()
+                resp.read()
+                status = resp.status
+                level = resp.getheader("x-vsr-degradation-level", "0")
+            except (OSError, http.client.HTTPException):
+                status, level = 0, ""
+                if conn is not None:
+                    conn.close()
+                conn = None
+            self.rows.append((t - self.t0, time.perf_counter() - t, status,
+                              level))
+        if conn is not None:
+            conn.close()
+
+
+def _join_all(threads, timeout: float) -> None:
+    """Join ``threads`` within ``timeout`` seconds in all."""
+    end = time.perf_counter() + timeout
+    for t in threads:
+        t.join(timeout=max(0.0, end - time.perf_counter()))
+
+
+def _half_stats(rows, start: float, end: float) -> dict:
+    """Requests/s and client latency per class over [start, end)."""
+    out = {}
+    for cls in PRIORITIES + ("all",):
+        rs = [r for r in rows if start <= r[1] < end
+              and (cls == "all" or r[0] == cls)]
+        lat = [r[2] * 1e3 for r in rs if r[3] == 200]
+        out[cls] = {"requests": len(rs),
+                    "answered": sum(1 for r in rs if r[3] == 200),
+                    "shed": sum(1 for r in rs if r[3] == 429),
+                    "errors": sum(1 for r in rs if r[3] not in (200, 429)),
+                    "rps": len(rs) / max(1e-9, end - start),
+                    "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99)}
+    return out
+
+
+def closed_loop(engine, registry, smi: str) -> dict:
+    """11b: the router behind the HTTP server with the SLO monitor and the
+    controller running (both every 0.25 s): 48 persistent clients
+    (12 a class) for LOOP_OVERLOAD_S, then one normal client until the
+    ladder is back at L0 (at least LOOP_QUIET_S)."""
+    cfg = load_config(dict(RESILIENCE_CONFIG, resilience=dict(
+        RESILIENCE_KNOBS, max_level=4), observability={
+        "slo": LOOP_SLO, "tracing": {"sample_rate": 0.0},
+        "programstats": {"slo_capture": {"enabled": True, "trace_s": 1.0,
+                                         "cooldown_s": 300}}}))
+    apply_observability_knobs(cfg, registry)
+    ctl, slo = registry.resilience, registry.slo
+    check(ctl.enabled and slo.enabled, "11b: ladder or SLO monitor off")
+    router = build_router(cfg, engine, registry=registry)
+    router.cascade = None
+    backend = MockVLLMServer().start()
+    server = RouterServer(router, backend.url, registry=registry).start()
+    stop_all, stop_one = threading.Event(), threading.Event()
+    samples, health = [], []
+    seen = []
+    unsub = registry.events.subscribe(
+        lambda e: seen.append(e) if e.stage in (
+            "slo_alert_firing", "slo_alert_resolved",
+            "degradation_level_changed", "slo_capture") else None)
+    t0 = time.perf_counter()
+    _cuda.reset_launch_counts()
+    shed0 = dict(ctl.shed_total.values())
+
+    def monitor() -> None:
+        n = 0
+        while not stop_all.is_set():
+            samples.append((time.perf_counter() - t0, ctl.level(),
+                            slo.degraded()))
+            if n % 3 == 0:
+                try:
+                    status, _h, raw = _api_call(server.url, "GET",
+                                                "/health")
+                    health.append((time.perf_counter() - t0,
+                                   json.loads(raw).get("status"),
+                                   bool(slo.degraded())))
+                except OSError:
+                    pass
+            n += 1
+            time.sleep(0.1)
+
+    mon = threading.Thread(target=monitor, daemon=True, name="loop-mon")
+    clients = [_LoopClient(server.url, PRIORITIES[i % 4], i,
+                           stop_one if i else stop_all, t0)
+               for i in range(LOOP_CLIENTS)]
+    quiet_end = None
+    try:
+        stamp("11b: overload")
+        mon.start()
+        for c in clients:
+            c.thread.start()
+        time.sleep(LOOP_OVERLOAD_S)
+        overload_end = time.perf_counter() - t0
+        stamp("11b: one client")
+        stop_one.set()           # 47 clients stop; client 0 (critical) runs
+        _join_all([c.thread for c in clients[1:]], 70.0)
+        deadline = time.perf_counter() + 3 * LOOP_QUIET_S
+        while True:
+            now = time.perf_counter()
+            if now - t0 >= overload_end + LOOP_QUIET_S \
+                    and ctl.level() == 0 or now >= deadline:
+                break
+            time.sleep(0.1)
+        quiet_end = time.perf_counter() - t0
+    finally:
+        stamp("11b: teardown")
+        stop_all.set()
+        stop_one.set()
+        _join_all([c.thread for c in clients], 70.0)
+        mon.join(timeout=5)
+        server.stop()
+        backend.stop()
+        slo.stop()
+        ctl.stop()
+        unsub()
+        registry.runtimestats.stop()
+        cap = registry.programstats.slo_capture
+        if cap is not None:
+            cap.join()
+            cap.detach()
+        router.shutdown()
+    launches = _cuda.launch_counts()
+    rows = [(c.cls,) + r for c in clients for r in c.rows]
+    levels = [lv for _, lv, _ in samples]
+    over = [lv for t, lv, _ in samples if t < overload_end]
+    shed = {}
+    for key, v in ctl.shed_total.values().items():
+        labels = dict(key)
+        base = shed0.get(key, 0.0)
+        shed.setdefault(labels["priority"], 0)
+        shed[labels["priority"]] += int(v - base)
+    events = [{"t_unix": e.ts, "stage": e.stage,
+               **{k: e.detail.get(k) for k in ("objective", "severity",
+                                               "from_level", "to_level",
+                                               "reason", "trace_dir")
+                  if k in e.detail}} for e in seen]
+    answered = sum(1 for r in rows if r[3] == 200)
+    timeline, last = [], None
+    for t, lv, deg in samples:
+        if lv != last:
+            timeline.append((round(t, 2), lv))
+            last = lv
+    out = {"card": smi, "clients": LOOP_CLIENTS,
+           "overload_s": overload_end, "quiet_s": quiet_end - overload_end,
+           "max_level": max(over) if over else 0,
+           "final_level": ctl.level(), "timeline": timeline,
+           "alert_events": events,
+           "degraded_health_samples": sum(
+               1 for _, st, deg in health if deg and st == "degraded"),
+           "health_samples_while_firing": sum(1 for _, _, deg in health
+                                              if deg),
+           "health_mismatch": [h for h in health
+                               if h[2] and h[1] != "degraded"],
+           "shed_by_class": shed,
+           "overload": _half_stats(rows, 0.0, overload_end),
+           "quiet": _half_stats(rows, overload_end, quiet_end),
+           "answered": answered, "launches": launches,
+           "k1_per_answered": launches["flash_attention"] / max(1, answered),
+           "transitions": [dict(t, at_unix=None) for t in ctl.transitions],
+           "slo_captures": registry.programstats.slo_capture.links()
+           if registry.programstats.slo_capture is not None else []}
+    print("resilience 11b " + json.dumps(out), flush=True)
+    check(out["max_level"] > 0, "11b: the ladder never left L0 under load")
+    check(out["final_level"] == 0 and levels and levels[-1] == 0,
+          f"11b: the ladder ended at L{out['final_level']}, not L0")
+    check(shed.get("critical", 0) == 0 and not any(
+        r[0] == "critical" and r[3] == 429 for r in rows),
+        "11b: a critical request was shed")
+    check(out["health_samples_while_firing"] > 0
+          and out["degraded_health_samples"] > 0,
+          "11b: /health never said degraded while the alert fired")
+    return out
+
+
+def upstream_phase(engine, smi: str) -> dict:
+    """11c: two model groups, each with its own backends behind the HTTP
+    server with the upstream plane on (breaker.failures 3): model A's
+    heavy endpoint is a FaultProxy answering 5xx."""
+    from semantic_router_tpu_torch.router.fault_proxy import FaultProxy
+
+    log = []
+
+    def recorder(name):
+        def content(body):
+            log.append((name, body.get("model", "")))
+            return f"answered by {name}"
+        return content
+
+    mocks = {n: MockVLLMServer(content_fn=recorder(n)).start()
+             for n in ("A_ok", "A_fault", "B1", "B2")}
+    proxy = FaultProxy(mocks["A_fault"].url).start()
+    proxy.set_flap(3600.0, 0.0, "error")
+    a_refs = [{"endpoint": proxy.url, "weight": 100},
+              {"endpoint": mocks["A_ok"].url, "weight": 0}]
+    b_refs = [{"endpoint": mocks["B1"].url, "weight": 50},
+              {"endpoint": mocks["B2"].url, "weight": 50}]
+    d = copy.deepcopy(CASCADE_CONFIG)
+    d["engine"]["cascade"] = {"enabled": False}
+    d["routing"]["modelCards"] = [
+        dict(c, backend_refs=a_refs if c["name"] == "oncall-model"
+             else b_refs) for c in d["routing"]["modelCards"]]
+    d["resilience"] = {"upstream": {
+        "enabled": True, "breaker": {"failures": 3, "open_s": 30.0}}}
+    cfg = load_config(d)
+    registry = RuntimeRegistry.isolated(runtimestats=None)
+    router = build_router(cfg, engine, registry=registry)
+    default = MockVLLMServer().start()
+    server = RouterServer(router, default.url, registry=registry).start()
+    up = registry.upstreams
+    out: dict = {"card": smi}
+    launches = {"flash_attention": 0, "head_epilogue": 0, "bgmv": 0}
+
+    def post(body):
+        _cuda.reset_launch_counts()
+        r = _post(server.url, body)
+        for k, v in _cuda.launch_counts().items():
+            launches[k] += v
+        return r
+
+    def endpoint_row():
+        return next(r for r in up.report()["endpoints"]
+                    if r["endpoint"] == proxy.url)
+
+    try:
+        stamp("11c: upstream")
+        check(up is not None and router.upstream_health is up,
+              "11c: no upstream plane attached")
+        bodies = cascade_bodies()[:32]
+        statuses, a_sent = [], 0
+        for i, body in enumerate(bodies):
+            status, headers, _b, _ = post(dict(body))
+            statuses.append(status)
+            if headers.get("x-vsr-selected-model") == "oncall-model":
+                a_sent += 1
+            if i == 5:
+                out["proxy_after_6"] = dict(proxy.stats)
+        check(all(s == 200 for s in statuses),
+              f"11c: statuses {statuses}")
+        row = endpoint_row()
+        a_log = [n for n, m in log if m == "oncall-model"]
+        check(all(n.startswith("A_") for n, m in log
+                  if m == "oncall-model")
+              and all(n in ("B1", "B2") for n, m in log
+                      if m != "oncall-model"),
+              f"11c: a model reached another model's backend: {log}")
+        check({"B1", "B2"} <= {n for n, _ in log},
+              f"11c: model B's weighted pick missed an endpoint: {log}")
+        check(proxy.stats["error"] == 3 and row["state"] == "open"
+              and row["failures"] == 3 and row["opens"] == 1,
+              f"11c: the circuit did not open after 3 failures: "
+              f"{proxy.stats}, {row}")
+        failovers = int(up.failovers.values().get(
+            (("model", "oncall-model"),), 0))
+        status, _h, raw = _api_call(server.url, "GET", "/debug/resilience")
+        dbg = json.loads(raw)["upstreams"]
+        dbg_row = next(r for r in dbg["endpoints"]
+                       if r["endpoint"] == proxy.url)
+        check(failovers == proxy.stats["error"] == dbg_row["failures"],
+              f"11c: failovers {failovers}, proxy errors "
+              f"{proxy.stats['error']}, /debug/resilience {dbg_row}")
+        out.update(requests=len(bodies), to_model_a=a_sent,
+                   a_backends={n: a_log.count(n) for n in set(a_log)},
+                   b_backends={n: sum(1 for x, m in log
+                                      if x == n and m != "oncall-model")
+                               for n in ("B1", "B2")},
+                   proxy=dict(proxy.stats), failovers=failovers,
+                   breaker=dict(row))
+        # heal, shorten open_s (a reload) and wait it out: the next
+        # model-A request is the half-open probe
+        proxy.clear_flap()
+        up.configure({"breaker": {"open_s": UPSTREAM_OPEN_S}})
+        time.sleep(UPSTREAM_OPEN_S + 0.2)
+        probe = next(b for b in bodies if "urgent" in
+                     b["messages"][0]["content"]
+                     or "outage" in b["messages"][0]["content"])
+        status = post(dict(probe))[0]
+        row = endpoint_row()
+        check(status == 200 and row["state"] == "closed"
+              and proxy.stats["ok"] == 1,
+              f"11c: the half-open probe did not close the circuit: "
+              f"{status}, {row}, {proxy.stats}")
+        out["after_probe"] = {"breaker": dict(row),
+                              "proxy": dict(proxy.stats)}
+        # a dead endpoint (connect refused): undelivered, fails over
+        proxy.refuse()
+        refused = [post(dict(probe))[0] for _ in range(4)]
+        row = endpoint_row()
+        check(all(s == 200 for s in refused) and row["state"] == "open"
+              and row["opens"] == 2,
+              f"11c: refused endpoint: {refused}, {row}")
+        out["after_refuse"] = {"statuses": refused, "breaker": dict(row)}
+        out["transitions"] = up.breaker_transitions.values()
+        out["transitions"] = {dict(k)["state"]: int(v)
+                              for k, v in out["transitions"].items()}
+        out["failovers_total"] = int(up.failovers.values().get(
+            (("model", "oncall-model"),), 0))
+    finally:
+        server.stop()
+        router.shutdown()
+        proxy.stop()
+        default.stop()
+        for m in mocks.values():
+            m.stop()
+    out["launches"] = launches
+    print("resilience 11c " + json.dumps(out, default=str), flush=True)
+    return out
+
+
+def phase_resilience(modules3: dict, smi: str) -> dict:
+    """Phase 11: phase 10b's engine (phase 3's trunk with intent,
+    jailbreak, pii, user_feedback and modality) under the degradation
+    ladder (11a, every rung and class, cascade off and on), the closed
+    loop under overload (11b) and the upstream plane (11c)."""
+    t0 = time.perf_counter()
+    cfg = load_config(RESILIENCE_CONFIG)
+    shared = {d: cascade_heads(modules3[d]["intent"][1].model)
+              for d in ("cpu", "cuda")}
+    for _kind, module, _labels in shared["cuda"].values():
+        module.to(DEVICE)
+    registry = RuntimeRegistry.isolated()
+    engine = gates_engine(DEVICE, cfg, modules3["cuda"], shared["cuda"],
+                          registry)
+    cpu = gates_engine("cpu", cfg, modules3["cpu"], shared["cpu"])
+    out: dict = {}
+    try:
+        engine.warmup()
+        out["11a"] = ladder_phase(engine, cpu, registry, smi)
+        out["11b"] = closed_loop(engine, registry, smi)
+        out["11c"] = upstream_phase(engine, smi)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+        registry.slo.stop()
+        registry.resilience.stop()
+        registry.runtimestats.stop()
+    out["launches"] = {k: out["11a"]["launches"][k]
+                       + out["11b"]["launches"][k]
+                       + out["11c"]["launches"][k]
+                       for k in out["11a"]["launches"]}
+    out["tests"] = run_cuda_tests("test_torch_resilience_cuda.py", passed=2)
+    print(f"phase 11 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4694,7 +5319,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", metavar="FILE",
                     help="write every phase's rows to FILE as JSON")
     args = ap.parse_args(argv)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    stamp("phase 1: device")
     dev = phase_device()
+    stamp("phase 2: kernels")
     report = {"device": dev, "kernels": phase_kernels()}
     kern = report["kernels"]
     if args.parent_csrc:
@@ -4710,19 +5338,30 @@ def main(argv=None) -> int:
     if args.only_kernels:
         save()
         return 0
+    stamp("phase 3: serve")
     serve = report["serve"] = phase_serve()
     modules3 = serve.pop("_modules")
+    stamp("phase 4: wide bank")
     wide = report["wide"] = phase_wide()
     wide_engine = wide.pop("_engine")
+    stamp("phase 5: embed")
     embed = report["embed"] = phase_embed(dev["smi"])
     modules5 = embed.pop("_modules")
+    stamp("phase 6: fixture and quant")
     fixture = report["fixture"] = phase_fixture(modules3, modules5)
     quant = report["quant"] = phase_quant(modules3)
+    stamp("phase 7: graphs")
     report["graphs"] = phase_graphs(modules3, modules5, wide_engine)
+    stamp("phase 8: respond")
     respond = report["respond"] = phase_respond(modules3, modules5)
+    stamp("phase 9: observe")
     observe = report["observe"] = phase_observe(respond.pop("_keep"),
                                                 dev["smi"])
+    stamp("phase 10: gates")
     gates = report["gates"] = phase_gates(modules3, dev["smi"])
+    stamp("phase 11: resilience")
+    res = report["resilience"] = phase_resilience(modules3, dev["smi"])
+    stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
     main_flash = next(r for r in kern["flash"]
@@ -4750,7 +5389,7 @@ def main(argv=None) -> int:
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
-            + gates["launches"][kname]
+            + gates["launches"][kname] + res["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),
@@ -4792,6 +5431,7 @@ def main(argv=None) -> int:
         "dtype": main_bf16["dtype"]})
     print(json.dumps({"kernels": rows}))
     print(dev["smi"])
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
     return 0

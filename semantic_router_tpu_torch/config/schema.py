@@ -740,13 +740,16 @@ class Decision:
 @dataclass
 class ModelCard:
     """Backend model card (routing.modelCards): the catalog of models the
-    decisions may name, with what selectors read of each."""
+    decisions may name, with what selectors read of each, and the
+    model's own weighted backend endpoints (``backend_refs``: [{endpoint,
+    weight}]; none = the server's default backend)."""
 
     name: str
     param_size: str = ""
     context_window_size: int = 0
     quality_score: float = 0.0
     pricing: Dict[str, float] = field(default_factory=dict)  # per 1M tokens
+    backend_refs: List[Dict[str, Any]] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelCard":
@@ -757,6 +760,7 @@ class ModelCard:
                 d.get("context_window_size", 0)),
             quality_score=float(d.get("quality_score", 0.0)),
             pricing=dict(d.get("pricing", {}) or {}),
+            backend_refs=[dict(b) for b in d.get("backend_refs", [])],
         )
 
     def param_size_billions(self) -> float:
@@ -920,7 +924,6 @@ class Entrypoint:
 UNPORTED = {
     "learning": "router learning (learning.enabled)",
     "flywheel": "the routing flywheel (flywheel.enabled)",
-    "resilience": "the degradation ladder (resilience.enabled)",
 }
 
 # top-level blocks the JAX router reads and this port does not: refused
@@ -981,11 +984,13 @@ def config_hash(raw: Dict[str, Any]) -> str:
 def refuse_unported(d: Dict[str, Any]) -> None:
     """Raise ValueError naming the first unported option ``d`` (with its
     ``global:`` block lifted) enables: the blocks of ``UNPORTED`` and
-    ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
-    observability sub-blocks this port does not serve (SLO objectives,
-    the fleet plane, OTLP export, a durable decision store other than
-    SQLite), a qdrant / milvus memory store, an enabled ``rag`` or
-    ``image_generation`` plugin, a selector ``algorithm.artifact``.
+    ``UNPORTED_BLOCKS`` (the state plane's fleet-shared ladder,
+    ``stateplane.share.fleet``, by name), the engine knobs of
+    ``UNPORTED_ENGINE``, the observability sub-blocks this port does not
+    serve (fleet-scoped SLO objectives, the fleet plane, OTLP export, a
+    durable decision store other than SQLite), a qdrant / milvus memory
+    store, an enabled ``rag`` or ``image_generation`` plugin, a selector
+    ``algorithm.artifact``.
 
     A looper algorithm (``LOOPER_ALGORITHMS``) loads, as the reference's
     own fixture config carries one: the route names the decision and its
@@ -994,6 +999,21 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     model."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
+    # what the resilience plane reads through the shared state plane,
+    # named before the plane itself is refused below
+    if _enabled(d.get("stateplane")):
+        share = (d.get("stateplane") or {}).get("share") or {}
+        upstream = (d.get("resilience") or {}).get("upstream") or {}
+        if share.get("fleet"):
+            raise ValueError("stateplane.share.fleet: the fleet-shared "
+                             "degradation ladder (resilience over the "
+                             "shared state plane) is not served by this "
+                             "port yet")
+        if upstream.get("enabled") and upstream.get("fleet_share", True):
+            raise ValueError("resilience.upstream.fleet_share: the "
+                             "fleet-shared open circuits and retry budget "
+                             "(upstream health over the shared state "
+                             "plane) are not served by this port yet")
     for key, what in UNPORTED.items():
         block = routing.get(key, d.get(key)) or {}
         if isinstance(block, dict) and block.get("enabled"):
@@ -1008,9 +1028,13 @@ def refuse_unported(d: Dict[str, Any]) -> None:
             raise ValueError(f"engine.{key}: {what} is not served by this "
                              f"port yet")
     obs = d.get("observability", {}) or {}
-    if (obs.get("slo") or {}).get("objectives"):
-        raise ValueError("observability.slo: SLO objectives are not served "
-                         "by this port yet")
+    for spec in (obs.get("slo") or {}).get("objectives", []) or []:
+        if isinstance(spec, dict) and \
+                str(spec.get("scope", "")).lower() == "fleet":
+            raise ValueError(f"observability.slo: objective {spec!r} has "
+                             f"scope: fleet, which reads merged fleet "
+                             f"counts through the shared state plane; "
+                             f"this port does not serve it yet")
     if (obs.get("fleet") or {}).get("enabled"):
         raise ValueError("observability.fleet.enabled: the fleet "
                          "observability plane is not served by this port "
@@ -1023,10 +1047,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         raise ValueError(f"observability.decisions.durable.backend "
                          f"{durable['backend']!r} is not served by this "
                          f"port yet (sqlite only)")
-    if ((d.get("resilience") or {}).get("upstream") or {}).get("enabled"):
-        raise ValueError("the upstream health plane "
-                         "(resilience.upstream.enabled) is not served by "
-                         "this port yet")
     backend = str((d.get("memory") or {}).get("backend", ""))
     if backend in ("qdrant", "milvus"):
         raise ValueError(f"memory backend {backend!r} is not served by "
@@ -1085,6 +1105,9 @@ class RouterConfig:
     skip_processing: Dict[str, Any] = field(default_factory=dict)
     # named routing profiles, and the virtual model names that select them
     recipes: List[RoutingRecipe] = field(default_factory=list)
+    # the degradation ladder and the upstream health plane, read through
+    # resilience_config() and upstream_config()
+    resilience: Dict[str, Any] = field(default_factory=dict)
     entrypoints: List[Entrypoint] = field(default_factory=list)
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
@@ -1126,6 +1149,7 @@ class RouterConfig:
                      for r in d.get("recipes", []) or []],
             entrypoints=[Entrypoint.from_dict(e)
                          for e in d.get("entrypoints", []) or []],
+            resilience=dict(d.get("resilience", {}) or {}),
             raw=d,
         )
 
@@ -1205,8 +1229,9 @@ class RouterConfig:
 
     def programstats_config(self) -> Dict[str, Any]:
         """The program-cost catalog (on by default).  The reference's
-        ``slo_capture`` arm waits for the SLO engine: it is normalized
-        and not served."""
+        ``slo_capture`` arm (one bounded profiler trace and a catalog
+        snapshot per firing SLO alert, cooldown-gated) is on by default
+        too."""
         ps = (self.observability or {}).get("programstats", {}) or {}
         cap = ps.get("slo_capture", {}) or {}
         try:
@@ -1222,6 +1247,123 @@ class RouterConfig:
                     "enabled": bool(cap.get("enabled", True)),
                     "trace_s": max(0.0, trace_s),
                     "cooldown_s": max(0.0, cooldown_s)}}
+
+    def slo_config(self) -> Dict[str, Any]:
+        """The observability.slo block, passed verbatim to
+        SLOMonitor.configure (which owns parsing + error containment) —
+        absent block = no objectives = monitor disabled."""
+        return dict((self.observability or {}).get("slo", {}) or {})
+
+    def resilience_config(self) -> Dict[str, Any]:
+        """The ``resilience`` block, passed verbatim to
+        DegradationController.configure / PriorityResolver.from_config
+        (which own parsing + error containment — a malformed resilience
+        knob must never stop the server)::
+
+          resilience:
+            enabled: true
+            interval_s: 2            # control-loop tick period
+            max_level: 4             # ladder ceiling (0..4)
+            escalate_ticks: 1        # overloaded ticks per rung up
+            hysteresis_ticks: 3      # healthy ticks per rung down
+            queue_high_watermark: 64 # batcher pending_items trip point
+            saturation_high_watermark: 0.9   # dispatch-pool busy ratio
+            brownout_class: normal   # this class and below go
+                                     # heuristic-only at L2
+            admission:               # L3 token buckets
+              target_utilization: 0.8
+              burst_s: 2.0
+              reject_class: low      # 429'd outright at L3
+              default_cost_ms: 5     # pre-telemetry request cost
+            fail_static:
+              model: ""              # L4 model ("" = default_model)
+            priority:
+              header: x-vsr-priority
+              trust_header: true
+              default: normal
+              model_classes: {}      # model/entrypoint -> class
+              group_classes: {}      # authz group -> class
+        """
+        return dict(self.resilience or {})
+
+    def upstream_config(self) -> Dict[str, Any]:
+        """Normalized ``resilience.upstream`` block — the upstream
+        resilience plane (resilience/upstream.py), the one
+        interpretation point::
+
+          resilience:
+            upstream:
+              enabled: false       # default OFF: byte-identical routing
+              fleet_share: true    # the reference's state-plane share
+                                   # (normalized; no state plane here)
+              breaker:
+                failures: 5        # consecutive failures to open
+                open_s: 10         # cooldown before the half-open probe
+                ewma_alpha: 0.2    # error-rate / latency EWMA weight
+                error_rate: 0.5    # ALSO open on sustained EWMA error
+                                   # rate >= this once >= 10 samples
+                                   # exist (0 or 1 disables this leg)
+              retry:
+                budget_per_s: 1.0  # token-bucket retry budget
+                burst: 10          # bucket burst (retries)
+                max_attempts: 3    # total attempts incl. the first
+                backoff_ms: 50     # jittered exponential backoff base
+                disable_at_level: 2   # no retries at degradation >= L2
+                on: [connect, 5xx, timeout, reset]  # retryable kinds
+              deadline:
+                header: x-vsr-deadline
+                default_s: 0       # request budget (0 = flat forward
+                                   # timeout)
+                floor_s: 0.5       # per-attempt timeout floor
+
+        Malformed values fall back to defaults — resilience config must
+        never stop the server."""
+        up = dict((self.resilience or {}).get("upstream", {}) or {})
+        out: Dict[str, Any] = {
+            "enabled": bool(up.get("enabled", False)),
+            "fleet_share": bool(up.get("fleet_share", True)),
+        }
+
+        def _block(name: str, defaults: Dict[str, Any]) -> Dict[str, Any]:
+            raw = dict(up.get(name, {}) or {})
+            merged = dict(defaults)
+            for k, v in raw.items():
+                if k not in defaults:
+                    continue
+                want = type(defaults[k])
+                try:
+                    if want is bool:
+                        merged[k] = bool(v)
+                    elif want is int:
+                        merged[k] = int(v)
+                    elif want is float:
+                        merged[k] = float(v)
+                    elif want is list:
+                        if isinstance(v, (list, tuple)):
+                            merged[k] = [str(x) for x in v]
+                        elif v:
+                            merged[k] = [str(v)]
+                    else:
+                        merged[k] = str(v)
+                except (TypeError, ValueError):
+                    pass
+            return merged
+
+        out["breaker"] = _block("breaker", {
+            "failures": 5, "open_s": 10.0, "ewma_alpha": 0.2,
+            "error_rate": 0.5})
+        out["retry"] = _block("retry", {
+            "budget_per_s": 1.0, "burst": 10.0, "max_attempts": 3,
+            "backoff_ms": 50.0, "disable_at_level": 2,
+            "on": ["connect", "5xx", "timeout", "reset"],
+            # the reference's fleet-wide retry budget over the state
+            # plane: normalized as the reference does, inert here (no
+            # state plane; the local bucket always decides)
+            "fleet_budget": True})
+        out["deadline"] = _block("deadline", {
+            "header": "x-vsr-deadline", "default_s": 0.0,
+            "floor_s": 0.5})
+        return out
 
     def decision_explain_config(self) -> Dict[str, Any]:
         """The per-request decision-record knobs: enabled, ring_size,

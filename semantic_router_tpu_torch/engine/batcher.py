@@ -79,12 +79,22 @@ class _DispatchPool:
         self._stopped = False
         # serialises submit's check+put against shutdown's flag+drain
         self._guard = threading.Lock()
+        # workers inside a batch (the saturation the degradation ladder
+        # reads), under a lock of its own: += is not atomic
+        self._busy = 0
+        self._busy_lock = threading.Lock()
         self._threads = []
         for i in range(max(1, workers)):
             t = threading.Thread(target=self._work, daemon=True,
                                  name=f"{name}-{i}")
             t.start()
             self._threads.append(t)
+
+    def stats(self) -> dict:
+        """Queued batches and busy / total workers: all busy with a
+        backlog means the dispatch pool is the bottleneck."""
+        return {"workers": len(self._threads), "queued": self._q.qsize(),
+                "busy": self._busy}
 
     def submit(self, run: Callable, cancel: Callable, *args: Any) -> None:
         with self._guard:
@@ -98,7 +108,13 @@ class _DispatchPool:
             if item is None:
                 return
             run, cancel, args = item
-            (cancel if self._stopped else run)(*args)
+            with self._busy_lock:
+                self._busy += 1
+            try:
+                (cancel if self._stopped else run)(*args)
+            finally:
+                with self._busy_lock:
+                    self._busy -= 1
 
     def shutdown(self, timeout: float = 5.0) -> None:
         with self._guard:
@@ -195,10 +211,11 @@ class DynamicBatcher:
 
     def queue_depths(self) -> dict:
         """Live congestion snapshot for the runtime-stats sampler
-        (llm_dispatcher_queue_depth): queued items/groups and in-flight
-        groups."""
+        (llm_dispatcher_queue_depth) and the degradation ladder: queued
+        items/groups, in-flight groups, and the dispatch pool's queued
+        batches, busy workers and saturation."""
         with self._lock:
-            return {
+            out = {
                 "pending_items": sum(len(v) for v in
                                      self._queues.values()),
                 "pending_groups": sum(1 for v in self._queues.values()
@@ -206,6 +223,12 @@ class DynamicBatcher:
                 "inflight_groups": sum(1 for v in self._inflight.values()
                                        if v > 0),
             }
+        pool = self._pool.stats()
+        out["pool_queued"] = pool["queued"]
+        out["pool_busy"] = pool["busy"]
+        out["pool_saturation"] = (pool["busy"] / pool["workers"]
+                                  if pool["workers"] else 0.0)
+        return out
 
     def stats(self) -> dict:
         with self._lock:

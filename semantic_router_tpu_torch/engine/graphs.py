@@ -18,6 +18,10 @@ with one graph memory pool and one lock:
 - every later execution copies its host inputs into the graph's static
   buffers, replays, and copies the outputs to the host, all under the
   owner's lock, with the gate held shared;
+- both hold the process-wide ``observability.profiler.TRACE_GATE``
+  shared, so no profiler trace starts or stops during a step (either
+  synchronizes the device and toggles CUPTI, which a capture does not
+  allow and a concurrent graph launch can deadlock with);
 - the kernel wrappers run during the capture but the card runs nothing:
   their launches are recorded (``ops._cuda.recording_launches``) and
   added on every replay, so the launch counts stay counts of kernels run;
@@ -45,8 +49,10 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
+from ..observability.profiler import TRACE_GATE
 from ..observability.programstats import StepCost
 from ..ops import _cuda
+from ..utils.rwgate import RWGate
 
 Outputs = Tuple[Optional[torch.Tensor], ...]
 
@@ -73,46 +79,14 @@ class SnapshotRetired(RuntimeError):
     kernels flip retired."""
 
 
-class CaptureGate:
+class CaptureGate(RWGate):
     """The engine-wide reader/writer gate: replays hold it shared, a
     capture holds it alone (a waiting capture stops new replays from
     entering).  Also owns the side stream captures run on."""
 
     def __init__(self) -> None:
-        self._cond = threading.Condition()
-        self._readers = 0
-        self._writer = False
-        self._waiting = 0
+        super().__init__()
         self._streams: Dict[str, torch.cuda.Stream] = {}
-
-    @contextlib.contextmanager
-    def shared(self):
-        with self._cond:
-            while self._writer or self._waiting:
-                self._cond.wait()
-            self._readers += 1
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._readers -= 1
-                if not self._readers:
-                    self._cond.notify_all()
-
-    @contextlib.contextmanager
-    def exclusive(self):
-        with self._cond:
-            self._waiting += 1
-            while self._writer or self._readers:
-                self._cond.wait()
-            self._waiting -= 1
-            self._writer = True
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._writer = False
-                self._cond.notify_all()
 
     def stream(self, device: torch.device) -> "torch.cuda.Stream":
         """The capture stream of ``device`` (taken under ``exclusive``)."""
@@ -224,7 +198,7 @@ class StepGraphs:
                 raise SnapshotRetired(f"step cache {self.name!r} is retired")
             step = self.steps.get(key)
             if step is None:
-                with self.gate.exclusive():
+                with self.gate.exclusive(), TRACE_GATE.shared():
                     outs, self.steps[key], cost = self._capture(
                         fn, inputs, count=on_first is not None)
                 if on_first is not None:
@@ -235,7 +209,7 @@ class StepGraphs:
                         "temp_bytes": new.pool_bytes,
                         "capture_s": new.capture_s})
                 return outs, "captured"
-            with self.gate.shared():
+            with self.gate.shared(), TRACE_GATE.shared():
                 step.load(inputs)
                 step.replay()
                 return _to_host(step.outputs), "replayed"

@@ -61,6 +61,11 @@ class FlightRecorder:
         # threshold-breaching / slowest-N traces are force-kept by the
         # sampler, not just recorded locally
         self.on_retain: Optional[Callable[[str], None]] = None
+        # the SLO-burn capture's cross-links (programstats'
+        # SLOCaptureController.links): a dump carries them, so an
+        # incident's slow requests point at the trace taken at the burn
+        self.capture_provider: Optional[
+            Callable[[], List[Dict[str, Any]]]] = None
 
     def configure(self, slowest_n: Optional[int] = None,
                   threshold_s: Optional[float] = None,
@@ -147,6 +152,13 @@ class FlightRecorder:
                 "slowest": slowest,
                 "breaches": list(self._breaches),
             }
+        provider = self.capture_provider
+        if provider is not None:
+            # outside the lock: the provider reads another subsystem
+            try:
+                out["slo_captures"] = provider()
+            except Exception:
+                pass
         return out
 
     def clear(self) -> None:

@@ -258,6 +258,30 @@ class Histogram:
                     per_key[idx + 1] = per_key.pop(idx)
             return True
 
+    def le_total(self, value: float,
+                 labels: Optional[Dict[str, str]] = None
+                 ) -> Tuple[int, int]:
+        """(observations ≤ the largest bucket edge not above ``value``,
+        total observations) — the streaming SLI the SLO monitor reads.
+        Sums across all label sets; ``labels`` restricts to the sets
+        carrying every given (k, v) pair.  A threshold between bucket
+        edges rounds down (some good events count as bad, never the
+        reverse)."""
+        import bisect
+
+        want = set((labels or {}).items())
+        with self._lock:
+            k = bisect.bisect_right(self.buckets, value)  # [:k] ≤ value
+            if not want:
+                total = sum(self._totals.values())
+                good = sum(sum(counts[:k])
+                           for counts in self._counts.values())
+            else:
+                keys = [key for key in self._counts if want <= set(key)]
+                total = sum(self._totals.get(key, 0) for key in keys)
+                good = sum(sum(self._counts[key][:k]) for key in keys)
+        return good, total
+
     def totals(self) -> Dict[tuple, int]:
         """Locked snapshot of per-label observation counts."""
         with self._lock:

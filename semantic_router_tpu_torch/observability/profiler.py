@@ -9,6 +9,14 @@ written as a Chrome trace (``trace.json``, viewable in Perfetto) under
 ``record_function`` range, plus an NVTX range when the work runs on the
 card.
 
+A trace starts and stops holding ``TRACE_GATE`` alone, and every engine
+step on the card (``engine/graphs.py``: a capture or a replay) holds it
+shared: the profiler's start and stop synchronize the device and switch
+CUPTI's tracing on or off, and neither may overlap a step.  Toggled
+mid-capture, a trace ends the capture with an error and leaves the
+profiler half-stopped; stopped while another thread launches a graph,
+both can block for good.
+
 The reference's ``configure_xla_dump`` (``POST /debug/profiler/xla-dump``)
 has no counterpart on this backend: the server answers that route 501.
 """
@@ -21,6 +29,32 @@ import os
 import threading
 import time
 from typing import Any, Dict, Optional
+
+from ..utils.rwgate import RWGate
+
+# engine steps on the card hold it shared, a trace's start and stop alone;
+# one for the process: the profiler is process-wide, and so is CUPTI
+TRACE_GATE = RWGate()
+
+
+@contextlib.contextmanager
+def gated_trace():
+    """A ``torch.profiler.profile`` over the block (the host's operators,
+    and the card's kernels when there is one), started and stopped
+    holding ``TRACE_GATE`` alone; yields the profile."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    with TRACE_GATE.exclusive():
+        prof.start()
+    try:
+        yield prof
+    finally:
+        with TRACE_GATE.exclusive():
+            prof.stop()
 
 
 def _default_base_dir() -> str:
@@ -42,13 +76,8 @@ class _Session:
                                        name="torch-profiler")
 
     def _run(self) -> None:
-        import torch
-
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
         try:
-            with torch.profiler.profile(activities=activities) as prof:
+            with gated_trace() as prof:
                 self.started.set()
                 self.finish.wait()
             prof.export_chrome_trace(os.path.join(self.target,

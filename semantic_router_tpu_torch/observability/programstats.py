@@ -35,8 +35,9 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 # -- per-device peak table ----------------------------------------------------
 #
@@ -243,6 +244,9 @@ class ProgramCatalog:
         self.registry = registry
         self.enabled = True
         self.max_programs = max_programs
+        # the SLO-burn capture armed on this catalog (bootstrap's
+        # apply_observability_knobs); None until enabled
+        self.slo_capture: Optional["SLOCaptureController"] = None
         self._lock = threading.Lock()
         self._costs: Dict[Key, ProgramCost] = {}
         self._capture_errors = 0
@@ -395,7 +399,7 @@ class ProgramCatalog:
 
         with self._lock:
             errors = self._capture_errors
-        return {
+        out = {
             "enabled": self.enabled,
             "device": tier,
             "programs": rows,
@@ -403,6 +407,9 @@ class ProgramCatalog:
             "pending_captures": 0,
             "capture_errors": errors,
         }
+        if self.slo_capture is not None:
+            out["slo_captures"] = self.slo_capture.links()
+        return out
 
     def report(self, runtime_stats=None) -> Dict[str, Any]:
         """Operator snapshot for GET /debug/programs."""
@@ -414,6 +421,156 @@ class ProgramCatalog:
         with self._lock:
             self._costs.clear()
             self._capture_errors = 0
+
+
+# -- SLO-burn-triggered capture ----------------------------------------------
+
+
+class SLOCaptureController:
+    """One bounded profiler trace + a program-catalog snapshot per firing
+    SLO alert.  Subscribes to the runtime event bus; on
+    ``slo_alert_firing`` (cooldown-gated, so a flapping alert cannot
+    profile the process to death) it starts the ``ProfilerControl``'s
+    ``torch.profiler`` trace for ``trace_s`` seconds and snapshots the
+    catalog's rows into a bounded ring, which the flight recorder's dump
+    links."""
+
+    def __init__(self, catalog: Optional[ProgramCatalog] = None,
+                 runtime_stats=None, profiler=None, flightrec=None,
+                 events=None, trace_s: float = 2.0,
+                 cooldown_s: float = 300.0, max_captures: int = 8) -> None:
+        self.catalog = catalog
+        self.runtime_stats = runtime_stats
+        self.profiler = profiler
+        self.flightrec = flightrec
+        self.events = events
+        self.trace_s = float(trace_s)
+        self.cooldown_s = float(cooldown_s)
+        self._captures: deque = deque(maxlen=max_captures)
+        self._lock = threading.Lock()
+        self._last_mono: float = 0.0
+        self._seq = 0
+        self._unsub: Optional[Callable[[], None]] = None
+        self._stop_timer: Optional[threading.Timer] = None
+        if flightrec is not None:
+            flightrec.capture_provider = self.links
+
+    # -- wiring ------------------------------------------------------------
+
+    def attach(self, bus) -> None:
+        """Subscribe to the event bus (re-attach replaces)."""
+        self.detach()
+        if bus is None:
+            return
+        unsub = bus.subscribe(self.on_event)
+        self.events = bus
+        with self._lock:
+            self._unsub = unsub
+
+    def detach(self) -> None:
+        with self._lock:
+            unsub, self._unsub = self._unsub, None
+        if unsub is not None:
+            unsub()
+
+    def on_event(self, ev) -> None:
+        from ..runtime.events import SLO_ALERT_FIRING
+
+        if getattr(ev, "stage", None) != SLO_ALERT_FIRING:
+            return
+        detail = getattr(ev, "detail", None) or {}
+        self.trigger(objective=str(detail.get("objective", "")),
+                     reason="slo_alert")
+
+    # -- capture -----------------------------------------------------------
+
+    def trigger(self, objective: str = "", reason: str = "manual"
+                ) -> Optional[Dict[str, Any]]:
+        """One capture now (cooldown permitting); the capture record, or
+        None when the cooldown suppressed it."""
+        now = time.monotonic()
+        with self._lock:
+            if self._last_mono and now - self._last_mono < self.cooldown_s:
+                return None
+            self._last_mono = now
+            self._seq += 1
+            seq = self._seq
+        cap: Dict[str, Any] = {
+            "id": f"slocap-{seq}",
+            "at_unix": time.time(),
+            "objective": objective,
+            "reason": reason,
+            "trace_s": self.trace_s,
+        }
+        # the catalog's rows at the burn, not minutes later
+        if self.catalog is not None:
+            try:
+                snap = self.catalog.catalog(
+                    runtime_stats=self.runtime_stats)
+                cap["catalog_size"] = snap.get("catalog_size", 0)
+                cap["programs"] = snap.get("programs", [])[:64]
+                cap["device"] = snap.get("device", {})
+            except Exception as exc:
+                cap["catalog_error"] = str(exc)[:200]
+        # one bounded trace; a trace already running (an operator's, or a
+        # previous burn's) is respected, never clobbered
+        if self.profiler is not None and self.trace_s > 0.0:
+            try:
+                started = self.profiler.start()
+            except Exception as exc:
+                started = {"started": False, "error": str(exc)[:200]}
+            if started.get("started"):
+                cap["trace_dir"] = started.get("dir", "")
+                timer = threading.Timer(self.trace_s, self._stop_trace)
+                timer.daemon = True
+                timer.name = "slo-capture-stop"
+                with self._lock:
+                    self._stop_timer = timer
+                timer.start()
+            else:
+                cap["trace_skipped"] = started.get(
+                    "error", "profiler busy")
+        self._captures.append(cap)
+        if self.events is not None:
+            try:
+                from ..runtime.events import SLO_CAPTURE
+
+                self.events.emit(
+                    SLO_CAPTURE, id=cap["id"], objective=objective,
+                    trace_dir=cap.get("trace_dir", ""),
+                    catalog_size=cap.get("catalog_size", 0))
+            except Exception:
+                pass
+        return cap
+
+    def _stop_trace(self) -> None:
+        try:
+            if self.profiler is not None:
+                self.profiler.stop()
+        except Exception:
+            pass
+
+    def join(self, timeout: float = 5.0) -> None:
+        """Wait for an in-flight bounded trace to stop."""
+        with self._lock:
+            timer = self._stop_timer
+        if timer is not None:
+            timer.join(timeout)
+
+    # -- reading -----------------------------------------------------------
+
+    def links(self) -> List[Dict[str, Any]]:
+        """Cross-link rows for the flight recorder: capture id, time,
+        objective, trace dir."""
+        return [{"id": c["id"], "at_unix": c["at_unix"],
+                 "objective": c.get("objective", ""),
+                 "reason": c.get("reason", ""),
+                 "trace_dir": c.get("trace_dir", ""),
+                 "catalog_size": c.get("catalog_size", 0)}
+                for c in list(self._captures)]
+
+    def report(self) -> List[Dict[str, Any]]:
+        return [dict(c) for c in self._captures]
 
 
 # process-global default (single-engine/dev posture, same pattern as

@@ -27,8 +27,16 @@ UNVERIFIED_FACTUAL = "x-vsr-unverified-factual"
 # skip_processing.allow_skip_signals_header)
 SKIP_PROCESSING = "x-vsr-skip-processing"
 SKIP_SIGNALS = "x-vsr-skip-signals"
-# seconds a rate-limited client waits before its next request
+# seconds a rate-limited or shed client waits before its next request
 RETRY_AFTER = "retry-after"
+# the degradation ladder: the level echoed while above L0, and the
+# request's priority class (also read from the request)
+DEGRADATION = "x-vsr-degradation-level"
+PRIORITY = "x-vsr-priority"
+# the upstream plane: ranked next-best models for failover, and the model
+# that finally served when a failover changed it
+FALLBACK_MODELS = "x-vsr-fallback-models"
+FAILOVER_MODEL = "x-vsr-failover-model"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

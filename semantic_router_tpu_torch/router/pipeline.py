@@ -4,7 +4,11 @@
   skip-processing (``x-vsr-skip-processing``, only when the operator
   enabled it: ``passthrough``) → the request model's routing profile (an
   entrypoint's virtual name selects its recipe's dispatcher and decision
-  engine) → prompt compression and the skipped families (operator
+  engine) → the overload gate (the degradation ladder, above L0 only:
+  ``shed``, 429 with ``retry-after``; L4 fail-static, the static model
+  with no signal work; L2 brownout, the request's class routes without
+  the learned families but the safety floor, or on a truncated cascade)
+  → prompt compression (shed from L1) and the skipped families (operator
   ``skip_signals``; ``x-vsr-skip-signals`` behind
   ``allow_skip_signals_header``) → signal fan-out (heuristic families,
   fused classifier bank, embedding-scored and kb families), or, with
@@ -17,7 +21,10 @@
   ``semantic-cache`` plugin) → model selection (the decision's
   ``algorithm`` through the selector registry, over query embeddings
   where the algorithm reads them; a looper algorithm's highest-weight
-  ref, which the server refuses to execute) → request mutation
+  ref, which the server refuses to execute; with the upstream plane, a
+  model whose every endpoint circuit is open is masked while others
+  remain, and the ranked alternates ride ``x-vsr-fallback-models``) →
+  request mutation
   (``system_prompt``, ``memory`` retrieval,
   ``tools`` / ``tool_selection`` filtering and auto-selection) → request
   rewrite (model, reasoning fields) → x-vsr-* headers;
@@ -25,9 +32,9 @@
 and the response path: the response jailbreak screen → hallucination
 spans (the ``hallucination`` token classifier, filtered by the ``nli``
 classifier; gated on the ``fact_check`` signal and the decision's
-``hallucination`` plugin) → warnings → the cache write → memory
-auto-store; then ``record_feedback`` feeds the outcome to the decision's
-selector.
+``hallucination`` plugin) → warnings → the cache write (shed from L1)
+→ memory auto-store; then ``record_feedback`` feeds the outcome to the
+decision's selector.
 
 The dispatch report on the result carries the projection trace and the
 kb family's metrics (``report.results["kb"].metrics``).
@@ -66,6 +73,8 @@ from ..observability import metrics as M
 from ..observability.explain import default_decision_explainer
 from ..observability.flightrec import default_flight_recorder
 from ..observability.tracing import default_tracer
+from ..resilience.controller import default_degradation_controller
+from ..resilience.priority import PriorityResolver
 from ..selection import Feedback, SelectionContext, registry as selectors
 from ..signals.base import RequestContext
 from ..signals.dispatch import DispatchReport, build_dispatcher
@@ -83,7 +92,9 @@ EMBEDDING_TASK = "embedding"
 
 @dataclass
 class RouteResult:
-    # "route" | "cache_hit" | "blocked" | "rate_limited" | "passthrough"
+    # "route" | "cache_hit" | "blocked" | "rate_limited" | "shed" |
+    # "passthrough" (an L4 fail-static request is a "route" whose
+    # selection_reason is "fail_static")
     kind: str
     model: str = ""
     body: Optional[Dict[str, Any]] = None
@@ -105,6 +116,8 @@ class RouteResult:
     trace_id: str = ""
     root_span_id: str = ""
     decision_record_id: str = ""
+    # the upstream plane's ranked next-best models (failover targets)
+    fallback_models: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -162,10 +175,15 @@ class Router:
     it.  ``memory_store`` (None until bootstrap attaches one) backs the
     ``memory`` plugin and the response path's auto-store.  ``metrics`` (a
     MetricSeries), ``tracer``, ``flightrec`` and ``explain`` bind the
-    router's observability (None: the process defaults)."""
+    router's observability, ``resilience`` its degradation controller
+    (None: the process defaults; the default controller stays disabled
+    at L0 until bootstrap configures it).  ``upstream_health`` (None
+    until bootstrap attaches the upstream plane) masks models whose
+    circuits are open and ranks the failover alternates."""
 
     def __init__(self, cfg: RouterConfig, engine=None, metrics=None,
-                 tracer=None, flightrec=None, explain=None) -> None:
+                 tracer=None, flightrec=None, explain=None,
+                 resilience=None) -> None:
         self.cfg = cfg
         self.engine = engine
         self.M = metrics or M.default_series
@@ -180,6 +198,13 @@ class Router:
             self.flightrec.on_retain = self.tracer.force_sample
         self.explain = explain if explain is not None \
             else default_decision_explainer
+        # the shed-ladder gate every request passes (one integer read at
+        # L0), and the one place a request's priority class is derived
+        self.resilience = resilience if resilience is not None \
+            else default_degradation_controller
+        self.priority = PriorityResolver.from_config(
+            cfg.resilience_config())
+        self.upstream_health = None
         self._cfg_hash: Optional[str] = None
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
@@ -193,6 +218,12 @@ class Router:
             self._recipe_engines[rec.name] = (
                 build_dispatcher(sub, engine, learned_cfg=cfg),
                 DecisionEngine(rec.decisions, rec.strategy))
+        # each dispatcher's learned families, frozen at construction: the
+        # overload gate reads them per request while degraded
+        self._learned_types: Dict[int, List[str]] = {
+            id(d): d.learned_types() for d in
+            [self.dispatcher] + [d for d, _ in
+                                 self._recipe_engines.values()]}
         self.rate_limiter = RateLimiter.from_config(cfg.ratelimit)
         sp_cfg = cfg.skip_processing or {}
         self._skip_enabled = bool(sp_cfg.get("enabled", False))
@@ -248,14 +279,14 @@ class Router:
         return self.dispatcher, self.decision_engine, False
 
     def _prepare_signal_view(self, ctx: RequestContext,
-                             headers: Dict[str, str]) -> List[str]:
-        """What reaches the classifiers: compresses a long prompt in
-        ``ctx`` (in place; the reference sheds this under overload, and
-        the port serves no overload ladder, so it always runs) and returns
-        the families to skip — the operator's, plus the request header's
-        only behind ``allow_skip_signals_header`` (a client must not empty
-        e.g. the pii family and dodge its policy)."""
-        if self.compressor is not None \
+                             headers: Dict[str, str],
+                             compress: bool = True) -> List[str]:
+        """What reaches the classifiers: with ``compress``, compresses a
+        long prompt in ``ctx`` (in place) and returns the families to
+        skip — the operator's, plus the request header's only behind
+        ``allow_skip_signals_header`` (a client must not empty e.g. the
+        pii family and dodge its policy)."""
+        if compress and self.compressor is not None \
                 and ctx.approx_token_count() >= self.pc_min_tokens:
             ctx._user_text = self.compressor.compress(ctx.user_text).text
         skip = list(self._skip_signals_cfg)
@@ -264,6 +295,18 @@ class Router:
                      headers.get(H.SKIP_SIGNALS, "").split(",")
                      if s.strip()]
         return skip
+
+    def _compress_allowed(self) -> bool:
+        """Prompt compression is optional work: shed while the ladder is
+        at L1 or above."""
+        return self.resilience is None \
+            or not self.resilience.shed_optional_active()
+
+    def _learned_families(self, dispatcher, keep=()) -> List[str]:
+        """Engine-backed families of ``dispatcher`` minus the brownout
+        safety floor ``keep``."""
+        return [t for t in self._learned_types[id(dispatcher)]
+                if t not in keep]
 
     def _signals_cfg_for(self, dispatcher):
         """The SignalsConfig ``dispatcher`` was built from (the cascade's
@@ -303,6 +346,14 @@ class Router:
             result.trace_id = trace_id
             result.root_span_id = root.span_id
             root.set(kind=result.kind, model=result.model)
+        # degradation echo: while the ladder is above L0 every response
+        # carries the level, so clients and balancers see brownouts
+        if self.resilience is not None:
+            lvl = self.resilience.level()
+            if lvl > 0:
+                result.headers.setdefault(H.DEGRADATION, str(lvl))
+                if rec is not None:
+                    rec.degradation_level = max(rec.degradation_level, lvl)
         self._commit_decision_record(rec, result)
         self._flight_record(result, trace_id, request_id,
                             time.perf_counter() - start)
@@ -317,9 +368,10 @@ class Router:
 
     def _commit_decision_record(self, rec, result: RouteResult) -> None:
         """Freeze and ring the request's decision record, and name it in
-        ``x-vsr-decision-record``.  A passthrough or rate-limited request
-        ran no signal, so it leaves no record."""
-        if rec is None or result.kind in ("passthrough", "rate_limited"):
+        ``x-vsr-decision-record``.  A passthrough, rate-limited or shed
+        request ran no signal, so it leaves no record."""
+        if rec is None or result.kind in ("passthrough", "rate_limited",
+                                          "shed"):
             return
         record = rec.finish(
             kind=result.kind, model=result.model,
@@ -362,15 +414,53 @@ class Router:
         if self.skip_requested(headers):
             return RouteResult(kind="passthrough", body=body,
                                request_id=request_id)
+        # the overload gate speaks before any signal work; it fails open —
+        # a broken controller degrades to full service, never an outage.
+        # The engines resolve first, so the gate costs the request's own
+        # dispatcher's learned families
         dispatcher, decision_engine, via_entrypoint = \
             self._engines_for_model(ctx.model)
-        skip = self._prepare_signal_view(ctx, headers)
+        disp = None
+        if self.resilience is not None and self.resilience.level() > 0:
+            try:
+                disp = self.resilience.admit(
+                    self.priority.resolve(ctx),
+                    n_signals=len(self._learned_families(dispatcher)) or 1)
+            except Exception:
+                disp = None
+        if disp is not None and rec is not None:
+            rec.degradation_level = disp.level
+        if disp is not None and disp.action == "shed":
+            # L3+ admission: 429 + Retry-After, load-driven
+            return RouteResult(
+                kind="shed", status=429, request_id=request_id,
+                response_body={"error": {
+                    "message": "router overloaded — request shed "
+                               f"({disp.reason})",
+                    "type": "overloaded",
+                    "retry_after": round(disp.retry_after_s, 2)}},
+                headers={H.RETRY_AFTER: str(int(disp.retry_after_s) + 1),
+                         H.DEGRADATION: str(disp.level),
+                         H.PRIORITY: disp.priority})
+        if disp is not None and disp.fail_static:
+            return self._fail_static(body, ctx, request_id, trace_id,
+                                     start, disp, rec)
+        skip = self._prepare_signal_view(ctx, headers,
+                                         compress=self._compress_allowed())
+        browned = disp is not None and not disp.use_learned
+        if browned and self.cascade is None:
+            # L2 brownout: this class routes without the engine-backed
+            # families, except the safety floor (disp.keep_families);
+            # with the cascade attached the same level truncates the
+            # cascade instead
+            skip = skip + self._learned_families(dispatcher,
+                                                 disp.keep_families)
         with self.tracer.span("signals.evaluate", request_id=request_id):
             if self.cascade is not None:
                 signals, report = self.cascade.evaluate(
                     ctx, dispatcher, decision_engine,
                     signals_cfg=self._signals_cfg_for(dispatcher),
-                    skip_signals=skip)
+                    brownout=browned, skip_signals=skip)
             else:
                 signals, report = dispatcher.evaluate(ctx,
                                                       skip_signals=skip)
@@ -435,11 +525,19 @@ class Router:
                     rec.fallback_reason = "selector_error"
             if rec is not None:
                 self._capture_selection(rec, decision, ref,
-                                        result.selection_reason)
+                                        result.selection_reason, ctx,
+                                        signals)
             algo = str((decision.algorithm or {}).get("type", "static"))
             if algo in LOOPER_ALGORITHMS:
                 result.looper_algorithm = algo
             self._apply_mutation_plugins(decision, ctx, result)
+            if self.upstream_health is not None:
+                # ranked next-best candidates for the server's budgeted
+                # failover
+                alts = self._ranked_alternates(decision, ref, ctx, signals)
+                if alts:
+                    result.fallback_models = alts
+                    result.headers[H.FALLBACK_MODELS] = ",".join(alts)
             category = next(iter(signals.matches.get("domain", ())), "")
             result.headers.update(H.decision_headers(
                 decision.name, ref.model, category=category,
@@ -455,28 +553,132 @@ class Router:
                                        exemplar=trace_id, model=result.model)
         return result
 
-    @staticmethod
-    def _capture_selection(rec, decision: Decision, ref: ModelRef,
-                           reason: str) -> None:
+    def _fail_static(self, body: Dict[str, Any], ctx: RequestContext,
+                     request_id: str, trace_id: str, start: float, disp,
+                     rec) -> RouteResult:
+        """L4 fail-static: the configured static model with no signal
+        extraction — no classifier forward, no cache, no plugin — still a
+        valid routed request."""
+        model = getattr(self.resilience, "fail_static_model", "") \
+            or self.cfg.default_model \
+            or (self.cfg.model_cards[0].name if self.cfg.model_cards
+                else ctx.model)
+        result = RouteResult(
+            kind="route", request_id=request_id, model=model,
+            body=dict(body), selection_reason="fail_static")
+        self._finalize_body(result, None)
+        result.headers = {H.SCHEMA: H.SCHEMA_VERSION, H.MODEL: model,
+                          H.REQUEST_ID: request_id,
+                          H.DEGRADATION: str(disp.level),
+                          H.PRIORITY: disp.priority}
+        if rec is not None:
+            rec.fallback_reason = "fail_static"
+            rec.degradation_level = disp.level
+        self.M.decision_fallbacks.inc(reason="fail_static")
+        self.M.model_requests.inc(model=model, decision="fail_static")
+        result.routing_latency_s = time.perf_counter() - start
+        self.M.routing_latency.observe(result.routing_latency_s,
+                                       exemplar=trace_id, model=model)
+        return result
+
+    def _selection_ctx(self, decision: Decision, ctx: RequestContext,
+                       signals: SignalMatches,
+                       embed_fn=None) -> SelectionContext:
+        """The one SelectionContext construction: selection, the decision
+        record's breakdown and the failover ranking see the same."""
+        return SelectionContext(
+            query=ctx.user_text,
+            decision_name=decision.name,
+            category=next(iter(signals.matches.get("domain", ())), ""),
+            session_id=ctx.headers.get("x-session-id", ""),
+            user_id=ctx.user_id,
+            signals=signals,
+            token_count=ctx.approx_token_count(),
+            model_cards=self.model_cards,
+            embed_fn=embed_fn)
+
+    def _capture_selection(self, rec, decision: Decision, ref: ModelRef,
+                           reason: str, ctx: RequestContext,
+                           signals: SignalMatches) -> None:
         """The selection block of the decision record, as the reference
         builds it: a single candidate scores 1.0, a looper's candidates
-        their weights; the port's selectors expose no per-candidate
-        breakdown, so their choice records none, as the reference does
-        for a selector without ``score_breakdown``."""
-        algo_type = str((decision.algorithm or {}).get("type", "static"))
-        refs = decision.model_refs or []
-        if len(refs) <= 1:
-            breakdown = [{"model": r.model, "score": 1.0,
-                          "components": {"single_candidate": True}}
-                         for r in refs]
-        elif algo_type in LOOPER_ALGORITHMS:
-            breakdown = [{"model": r.model, "score": r.weight,
-                          "components": {"weight": r.weight,
-                                         "looper": algo_type}}
-                         for r in refs]
-        else:
-            breakdown = []
-        rec.capture_selection(algo_type, reason, ref.model, breakdown)
+        their weights, any other decision its selector's
+        ``score_breakdown`` (none for a selector without one).  Read-only
+        and embed-free: the breakdown adds no device work."""
+        try:
+            algo_type = str((decision.algorithm or {}).get("type",
+                                                           "static"))
+            refs = decision.model_refs or []
+            breakdown: List[dict] = []
+            if len(refs) <= 1:
+                breakdown = [{"model": r.model, "score": 1.0,
+                              "components": {"single_candidate": True}}
+                             for r in refs]
+            elif algo_type in LOOPER_ALGORITHMS:
+                breakdown = [{"model": r.model, "score": r.weight,
+                              "components": {"weight": r.weight,
+                                             "looper": algo_type}}
+                             for r in refs]
+            else:
+                fn = getattr(self._selectors.get(decision.name),
+                             "score_breakdown", None)
+                if fn is not None:
+                    breakdown = fn(refs, self._selection_ctx(
+                        decision, ctx, signals))
+            rec.capture_selection(algo_type, reason, ref.model, breakdown)
+        except Exception:
+            rec.capture_selection("", reason, ref.model, [])
+
+    def _ranked_alternates(self, decision: Decision, chosen: ModelRef,
+                           ctx: RequestContext,
+                           signals: SignalMatches) -> List[str]:
+        """Next-best candidate models after ``chosen``, best first: the
+        selector's score (``score_breakdown``, else the configured
+        weight) times the upstream health score, open circuits dropped,
+        at most three.  Read-only and embed-free; fails open to none."""
+        try:
+            refs = [r for r in (decision.model_refs or [])
+                    if r.model != chosen.model]
+            if not refs:
+                return []
+            scores: Dict[str, float] = {}
+            fn = getattr(self._selectors.get(decision.name),
+                         "score_breakdown", None)
+            if fn is not None:
+                try:
+                    for row in fn(decision.model_refs,
+                                  self._selection_ctx(decision, ctx,
+                                                      signals)):
+                        scores[str(row.get("model", ""))] = \
+                            float(row.get("score", 0.0))
+                except Exception:
+                    scores = {}
+            up = self.upstream_health
+            ranked = sorted(
+                refs, key=lambda r: -(scores.get(r.model, r.weight)
+                                      * up.health_score(r.model)))
+            return [r.model for r in ranked
+                    if not up.model_open(r.model)][:3]
+        except Exception:
+            return []
+
+    def _upstream_mask(self, refs: List[ModelRef]) -> tuple:
+        """Drop candidates whose every endpoint circuit is open: an
+        unhealthy model is never chosen while alternatives exist.
+        Masking never empties the candidate set, and a plane error never
+        masks."""
+        if self.upstream_health is None or len(refs) <= 1:
+            return refs, ()
+        try:
+            masked = tuple(sorted({r.model for r in refs
+                                   if self.upstream_health.model_open(
+                                       r.model)}))
+            if masked and len(masked) < len(refs):
+                return [r for r in refs
+                        if r.model not in masked], masked
+        except Exception:
+            pass
+        return refs, ()
 
     # -- selection -----------------------------------------------------------
 
@@ -509,33 +711,33 @@ class Router:
         refuses to execute the looper), else the decision's selector's
         choice (its query embedding taken lazily, on the
         ``EMBEDDING_TASK``).  A selector that raises routes to the first
-        candidate."""
+        candidate.  With the upstream plane, models whose every endpoint
+        circuit is open are masked first while others remain (the reason
+        names them)."""
         refs = decision.model_refs or [
             ModelRef(model=self.cfg.default_model or ctx.model)]
+        refs, masked = self._upstream_mask(refs)
         if len(refs) == 1:
-            return refs[0], "single candidate"
+            return refs[0], ("single candidate" if not masked else
+                             "single healthy candidate (upstream mask: "
+                             + ",".join(masked) + ")")
         algo_type = str((decision.algorithm or {}).get("type", "static"))
         if algo_type in LOOPER_ALGORITHMS:
             return max(refs, key=lambda r: r.weight), f"looper:{algo_type}"
         selector = self._selector(decision)
-        sctx = SelectionContext(
-            query=ctx.user_text,
-            decision_name=decision.name,
-            category=next(iter(signals.matches.get("domain", ())), ""),
-            session_id=ctx.headers.get("x-session-id", ""),
-            user_id=ctx.user_id,
-            signals=signals,
-            token_count=ctx.approx_token_count(),
-            model_cards=self.model_cards,
+        sctx = self._selection_ctx(
+            decision, ctx, signals,
             embed_fn=(lambda text: self._embed([text])[0])
             if self._embeds() else None)
+        mask_note = (" (upstream mask: " + ",".join(masked) + ")") \
+            if masked else ""
         try:
             res = selector.select(refs, sctx)
-            return res.ref, res.reason
+            return res.ref, res.reason + mask_note
         except Exception:
             log.warning("selector of %s failed", decision.name,
                         exc_info=True)
-            return refs[0], "selector error → first candidate"
+            return refs[0], "selector error → first candidate" + mask_note
 
     # -- request mutation ----------------------------------------------------
 
@@ -780,8 +982,12 @@ class Router:
         if out.warnings:
             out.headers[H.WARNINGS] = ",".join(out.warnings)
 
+        # cache writes are optional work: shed while the ladder is at L1+
+        # (reads stay on — a hit still sheds load)
+        shed_writes = self.resilience is not None \
+            and self.resilience.shed_optional_active()
         if self.cache is not None and route.kind == "route" and content \
-                and decision is not None and route.body:
+                and decision is not None and route.body and not shed_writes:
             plugin = decision.plugin("semantic-cache")
             if plugin is not None and plugin.enabled:
                 try:

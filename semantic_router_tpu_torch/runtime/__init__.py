@@ -1,9 +1,11 @@
 from .bootstrap import apply_cascade_knobs, apply_observability_knobs, \
-    apply_quant_knobs, build_engine, build_router, checkpoint_architecture, \
-    modernbert_state, select_attention_impl, serve
+    apply_quant_knobs, apply_resilience_knobs, apply_upstream_knobs, \
+    build_engine, build_router, checkpoint_architecture, modernbert_state, \
+    select_attention_impl, serve, warm_engine
 from .registry import RuntimeRegistry
 
 __all__ = ["RuntimeRegistry", "apply_cascade_knobs",
-           "apply_observability_knobs", "apply_quant_knobs", "build_engine",
+           "apply_observability_knobs", "apply_quant_knobs",
+           "apply_resilience_knobs", "apply_upstream_knobs", "build_engine",
            "build_router", "checkpoint_architecture", "modernbert_state",
-           "select_attention_impl", "serve"]
+           "select_attention_impl", "serve", "warm_engine"]

@@ -17,9 +17,14 @@ unloaded (its signal fails open).  A checkpoint of another architecture
 The observability sinks come from a ``RuntimeRegistry``
 (``runtime/registry.py``; the process defaults unless the caller passes
 one): ``apply_observability_knobs`` applies the config's
-``observability`` block to them.  ``build_router`` attaches the
-decision-aware signal cascade when ``engine.cascade`` enables it
-(``apply_cascade_knobs``, which a config reload calls again).
+``observability`` block to them, and binds and starts the SLO monitor
+and the degradation controller (``resilience``) on the registry's event
+bus.  ``build_router`` attaches the decision-aware signal cascade when
+``engine.cascade`` enables it (``apply_cascade_knobs``) and the upstream
+health plane when ``resilience.upstream`` does (``apply_upstream_knobs``);
+a config reload calls both again.  ``warm_engine`` warms the engine and
+emits ``engine_ready`` (or ``engine_failed``) on the bus, which the
+controller reads.
 """
 
 from __future__ import annotations
@@ -196,10 +201,11 @@ def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
 
 
 def build_router(cfg: RouterConfig, engine=None, registry=None):
-    """The Router over ``engine``, its observability bound to
-    ``registry``'s sinks (the process defaults when None), its cascade
-    attached as ``engine.cascade`` says (in ``registry``'s ``cascade``
-    slot), with its memory store: SQLite at ``memory.path`` under
+    """The Router over ``engine``, its observability and degradation
+    controller bound to ``registry``'s sinks (the process defaults when
+    None), its cascade attached as ``engine.cascade`` says (in
+    ``registry``'s ``cascade`` slot) and its upstream plane as
+    ``resilience.upstream`` says (``upstreams``), with its memory store: SQLite at ``memory.path`` under
     ``memory.backend: sqlite``, else in-process; both embed on the
     engine's ``EMBEDDING_TASK`` when it serves one."""
     from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
@@ -210,12 +216,15 @@ def build_router(cfg: RouterConfig, engine=None, registry=None):
         obs = {"metrics": registry.metric_series(),
                "tracer": registry.tracer, "flightrec": registry.flightrec,
                "explain": registry.explain}
+    if registry is not None:
+        obs["resilience"] = registry.get("resilience")
     router = Router(cfg, engine=engine, **obs)
     if registry is None:
         from .registry import RuntimeRegistry
 
         registry = RuntimeRegistry.with_defaults()
     apply_cascade_knobs(cfg, registry, router)
+    apply_upstream_knobs(cfg, registry, router)
     embed_fn = None
     if engine is not None and engine.has_task(EMBEDDING_TASK):
         embed_fn = lambda text: engine.embed(EMBEDDING_TASK, [text])[0]
@@ -260,16 +269,112 @@ def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
         log.warning("cascade config invalid", exc_info=True)
 
 
+def apply_upstream_knobs(cfg: RouterConfig, registry, router) -> None:
+    """Attach, reconfigure or detach the upstream health plane
+    (``resilience/upstream.py``): enabled, the registry's plane (made
+    once, so a reload keeps its breakers) takes the normalized block and
+    reads the ladder's level through the registry's controller; disabled,
+    nothing is built and the router forwards with plain endpoint
+    failover.  A malformed block never stops the server."""
+    try:
+        up_cfg = cfg.upstream_config()
+        if not up_cfg["enabled"]:
+            if registry.get("upstreams") is not None:
+                registry.swap(upstreams=None)
+                log.info("upstream plane detached")
+            if router is not None:
+                router.upstream_health = None
+            return
+        from ..resilience.upstream import UpstreamHealth
+
+        up = registry.get("upstreams")
+        if up is None:
+            up = UpstreamHealth(registry.metrics)
+            registry.swap(upstreams=up)
+            log.info("upstream plane attached")
+        up.bind(events=registry.get("events"),
+                resilience=registry.get("resilience"))
+        up.configure(up_cfg)
+        if router is not None:
+            router.upstream_health = up
+    except Exception:
+        log.warning("upstream config invalid", exc_info=True)
+
+
+def apply_resilience_knobs(cfg: RouterConfig, registry) -> None:
+    """The SLO monitor and the degradation ladder on ``registry``: the
+    monitor takes ``observability.slo`` (malformed objectives land in its
+    ``config_errors``) and emits its alert transitions on the registry's
+    event bus; the controller binds that bus, the monitor, the
+    runtime-stats pressure providers, the tracer and the decision
+    explainer (its L1 knob effects), takes the ``resilience`` block, and
+    re-sheds the sampling knobs the observability block just restored.
+    Each runs its loop when enabled and is stopped when not; ``stop`` on
+    both (``registry.slo.stop()``, ``registry.resilience.stop()``) ends
+    the threads.  A malformed block never stops the server."""
+    slo = registry.get("slo")
+    if slo is not None:
+        try:
+            slo.event_bus = registry.get("events")
+            slo.configure(cfg.slo_config())
+            if slo.enabled:
+                slo.start(slo.evaluation_interval_s)
+            else:
+                slo.stop()
+            if slo.config_errors:
+                log.warning("SLO objectives invalid: %s",
+                            slo.config_errors[:5])
+        except Exception:
+            log.warning("SLO config invalid", exc_info=True)
+    res = registry.get("resilience")
+    if res is not None:
+        try:
+            res.bind(events=registry.get("events"), slo=slo,
+                     runtimestats=registry.get("runtimestats"),
+                     tracer=registry.tracer,
+                     explain=registry.get("explain"))
+            res.configure(cfg.resilience_config())
+            res.resync_knob_effects()
+            if res.enabled:
+                res.start(res.interval_s)
+            else:
+                res.stop()
+        except Exception:
+            log.warning("resilience config invalid", exc_info=True)
+
+
+def warm_engine(engine, registry) -> None:
+    """Warm ``engine`` (every served step captured at batch 1) and emit
+    ``engine_ready`` on the registry's event bus, or ``engine_failed``
+    and raise: the degradation controller jumps to fail-static on a
+    failed engine and comes back on a ready one."""
+    from .events import ENGINE_FAILED, ENGINE_READY
+
+    bus = registry.get("events")
+    try:
+        engine.warmup()
+    except Exception as exc:
+        if bus is not None:
+            bus.emit(ENGINE_FAILED, during="warmup",
+                     error=f"{type(exc).__name__}: {exc}"[:200])
+        raise
+    if bus is not None:
+        bus.emit(ENGINE_READY, tasks=sorted(engine.tasks()))
+
+
 def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
     """Apply the ``observability`` block (the config's accessors are the
     one interpretation point) to a registry's sinks: batch-trace sampling
     on the tracer, OpenMetrics exemplars on the metrics registry,
     flight-recorder retention (and its tail-based sampling hook on the
     tracer), the runtime-stats sampler (started, or stopped), the
-    program catalog's switch, and the decision-record knobs with their
-    SQLite mirror.  The accessors already fall back to the defaults on a
-    malformed value, so nothing here fails open; the runtime-stats
-    sampler it starts is stopped by ``registry.runtimestats.stop()``."""
+    program catalog's switch and its SLO-burn capture (one bounded
+    ``torch.profiler`` trace and a catalog snapshot per firing alert, on
+    the registry's event bus), the decision-record knobs with their
+    SQLite mirror, and then the SLO monitor and the degradation ladder
+    (``apply_resilience_knobs``).  The accessors already fall back to the
+    defaults on a malformed value; the runtime-stats sampler it starts
+    is stopped by ``registry.runtimestats.stop()``."""
     registry.tracer.sample_rate = cfg.tracing_sample_rate()
     # unconditional: a reload must be able to turn exemplars OFF
     registry.metrics.enable_exemplars(cfg.metrics_exemplars_enabled())
@@ -290,7 +395,27 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
             rs.stop()
     ps = registry.get("programstats")
     if ps is not None:
-        ps.enabled = cfg.programstats_config()["enabled"]
+        ps_cfg = cfg.programstats_config()
+        ps.enabled = ps_cfg["enabled"]
+        cap_cfg = ps_cfg["slo_capture"]
+        ctl = getattr(ps, "slo_capture", None)
+        if ps_cfg["enabled"] and cap_cfg["enabled"]:
+            if ctl is None:
+                from ..observability.programstats import \
+                    SLOCaptureController
+
+                ctl = ps.slo_capture = SLOCaptureController(catalog=ps)
+            # rebound every apply: a reload may have swapped any slot
+            ctl.runtime_stats = registry.get("runtimestats")
+            ctl.profiler = registry.get("profiler")
+            ctl.flightrec = registry.get("flightrec")
+            ctl.trace_s = cap_cfg["trace_s"]
+            ctl.cooldown_s = cap_cfg["cooldown_s"]
+            if ctl.flightrec is not None:
+                ctl.flightrec.capture_provider = ctl.links
+            ctl.attach(registry.get("events"))
+        elif ctl is not None:
+            ctl.detach()
     explain = registry.get("explain")
     if explain is not None:
         ex_cfg = cfg.decision_explain_config()
@@ -307,6 +432,7 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
                     max_records=int(durable.get("max_records", 100_000))))
         elif explain.durable_store is not None:
             explain.attach_durable(None)
+    apply_resilience_knobs(cfg, registry)
 
 
 def serve(config: str, backend: str, host: str = "127.0.0.1",
@@ -326,7 +452,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     apply_observability_knobs(cfg, registry)
     engine = build_engine(cfg, device=device, registry=registry)
     if engine is not None:
-        engine.warmup()
+        warm_engine(engine, registry)
     router = build_router(cfg, engine, registry=registry)
     server = RouterServer(router, backend, host=host, port=port,
                           registry=registry)
@@ -341,3 +467,5 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         if engine is not None:
             engine.shutdown()
         registry.runtimestats.stop()
+        registry.slo.stop()
+        registry.resilience.stop()

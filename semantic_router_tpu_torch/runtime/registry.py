@@ -2,8 +2,10 @@
 
 The port's copy of ``semantic_router_tpu.runtime.registry``, with the
 slots this package fills: the metrics registry, the tracer, the profiler
-control, the flight recorder, the runtime-stats sampler, the program-cost
-catalog, the decision-record ring and the cascade evaluator.  ``RuntimeRegistry.with_defaults()``
+control, the runtime event bus, the flight recorder, the runtime-stats
+sampler, the program-cost catalog, the SLO monitor, the decision-record
+ring, the degradation controller, the upstream health plane and the
+cascade evaluator.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -16,8 +18,12 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict
 
-_SLOTS = ("metrics", "tracer", "profiler", "flightrec", "runtimestats",
-          "programstats", "explain", "engine",
+_SLOTS = ("metrics", "tracer", "profiler", "events", "flightrec",
+          "runtimestats", "programstats", "slo", "explain", "resilience",
+          "engine",
+          # the upstream health plane (resilience.upstream.UpstreamHealth):
+          # empty unless resilience.upstream.enabled (apply_upstream_knobs)
+          "upstreams",
           # the decision-aware cascade's evaluator: empty unless
           # engine.cascade is enabled (apply_cascade_knobs)
           "cascade")
@@ -42,16 +48,22 @@ class RuntimeRegistry:
         from ..observability.profiler import default_profiler
         from ..observability.programstats import default_program_stats
         from ..observability.runtimestats import default_runtime_stats
+        from ..observability.slo import default_slo_monitor
         from ..observability.tracing import default_tracer
+        from ..resilience.controller import default_degradation_controller
+        from .events import default_bus
 
         base: Dict[str, Any] = {
             "metrics": default_registry,
             "tracer": default_tracer,
             "profiler": default_profiler,
+            "events": default_bus,
             "flightrec": default_flight_recorder,
             "runtimestats": default_runtime_stats,
             "programstats": default_program_stats,
+            "slo": default_slo_monitor,
             "explain": default_decision_explainer,
+            "resilience": default_degradation_controller,
         }
         base.update(overrides)
         return cls(**base)
@@ -59,8 +71,10 @@ class RuntimeRegistry:
     @classmethod
     def isolated(cls, **overrides: Any) -> "RuntimeRegistry":
         """Fully per-instance sinks: a fresh metrics registry (the
-        runtime-stats and program-catalog series register in it), tracer,
-        profiler control, flight recorder and decision ring.  Wire them
+        runtime-stats, program-catalog, SLO and ladder series register in
+        it), tracer, profiler control, event bus, flight recorder, SLO
+        monitor, decision ring and degradation controller (one router
+        browning out never sheds a sibling's traffic).  Wire them
         with ``build_engine(cfg, registry=...)``,
         ``build_router(cfg, engine, registry=...)`` and
         ``RouterServer(..., registry=...)``."""
@@ -70,19 +84,28 @@ class RuntimeRegistry:
         from ..observability.profiler import ProfilerControl
         from ..observability.programstats import ProgramCatalog
         from ..observability.runtimestats import RuntimeStats
+        from ..observability.slo import SLOMonitor
         from ..observability.tracing import Tracer
+        from ..resilience.controller import DegradationController
+        from ..resilience.costmodel import CostModel
+        from .events import EventBus
 
         metrics = MetricsRegistry()
         base: Dict[str, Any] = {
             "metrics": metrics,
             "tracer": Tracer(),
             "profiler": ProfilerControl(),
+            "events": EventBus(),
             "flightrec": FlightRecorder(),
             "runtimestats": RuntimeStats(metrics),
             "programstats": ProgramCatalog(metrics),
+            "slo": SLOMonitor(metrics),
             "explain": DecisionExplainer(),
         }
         base.update(overrides)
+        if "resilience" not in overrides:
+            base["resilience"] = DegradationController(
+                metrics, cost_model=CostModel(base["runtimestats"]))
         return cls(**base)
 
     def metric_series(self):

@@ -8,7 +8,11 @@ escalation on a belief over query difficulty), hybrid (blend), rl_driven
 (epsilon-greedy bandit per category), session_aware (sticky session
 affinity), lookup_table (query → model table with auto-save).  The port's
 copy of the JAX package's ``selection/algorithms.py``: host numpy there,
-host numpy here, the same draws from the same seeds.
+host numpy here, the same draws from the same seeds.  Each selector's
+``score_breakdown`` is the per-candidate audit view a decision record's
+``selection.candidates`` carries (and the upstream plane ranks failover
+alternates by): each model's score with the components that produced it,
+read-only — no draw, no state change.
 """
 
 from __future__ import annotations
@@ -49,6 +53,15 @@ class StaticSelector:
         ref = weighted_choice(candidates, self.rng)
         return SelectionResult(ref, ref.weight, "weighted static")
 
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        total = sum(max(c.weight, 0.0) for c in candidates) or 1.0
+        return [{"model": c.model, "score": round(c.weight / total, 6),
+                 "components": {"weight": c.weight,
+                                "probability": round(
+                                    max(c.weight, 0.0) / total, 6)}}
+                for c in candidates]
+
     def update(self, fb: Feedback) -> None:
         pass
 
@@ -79,6 +92,14 @@ class EloSelector:
         best = max(candidates, key=lambda c: self.rating(c.model))
         return SelectionResult(best, self.rating(best.model), "highest elo")
 
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        return [{"model": c.model, "score": round(self.rating(c.model), 3),
+                 "components": {"elo_rating": round(self.rating(c.model),
+                                                    3),
+                                "exploration": self.exploration}}
+                for c in candidates]
+
     def update(self, fb: Feedback) -> None:
         with self._lock:
             if fb.winner and fb.loser:
@@ -107,7 +128,8 @@ class LatencyAwareSelector:
 
     def _scored(self, candidates: List[ModelRef], ctx: SelectionContext
                 ) -> List[tuple]:
-        """(score, ref) per candidate."""
+        """(score, components, ref) per candidate: the one scoring path
+        select() and score_breakdown() share."""
         latencies = []
         for c in candidates:
             lat = self.tracker.percentile(c.model, self.percentile,
@@ -122,15 +144,24 @@ class LatencyAwareSelector:
             lat_score = 1.0 - (lat / max_lat if lat else 0.5)
             score = ((1 - self.quality_weight) * lat_score
                      + self.quality_weight * quality)
-            out.append((score, c))
+            out.append((score, {"latency_p_ms": lat or 0.0,
+                                "latency_score": round(lat_score, 6),
+                                "quality": quality,
+                                "quality_weight": self.quality_weight},
+                        c))
         return out
 
     def select(self, candidates: List[ModelRef], ctx: SelectionContext
                ) -> SelectionResult:
-        score, best = max(self._scored(candidates, ctx),
-                          key=lambda t: t[0])
+        score, _, best = max(self._scored(candidates, ctx),
+                             key=lambda t: t[0])
         return SelectionResult(best, score,
                                f"latency p{self.percentile:.0f} blend")
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        return [{"model": c.model, "score": round(s, 6), "components": comp}
+                for s, comp, c in self._scored(candidates, ctx)]
 
     def update(self, fb: Feedback) -> None:
         if fb.latency_ms > 0:
@@ -153,7 +184,7 @@ class MultiFactorSelector:
 
     def _scored(self, candidates: List[ModelRef], ctx: SelectionContext
                 ) -> List[tuple]:
-        """(score, ref) per candidate."""
+        """(score, components, ref) per candidate."""
         w = self.weights
         out = []
         costs, lats, loads = [], [], []
@@ -181,14 +212,24 @@ class MultiFactorSelector:
             score = (w["quality"] * quality + w["cost"] * cost_score
                      + w["latency"] * lat_score + w["context_fit"] * fit
                      + w["load"] * load_score)
-            out.append((score, c))
+            out.append((score, {"quality": quality,
+                                "cost_score": round(cost_score, 6),
+                                "latency_score": round(lat_score, 6),
+                                "context_fit": fit,
+                                "load_score": round(load_score, 6),
+                                "weights": dict(w)}, c))
         return out
 
     def select(self, candidates: List[ModelRef], ctx: SelectionContext
                ) -> SelectionResult:
-        score, best = max(self._scored(candidates, ctx),
-                          key=lambda t: t[0])
+        score, _, best = max(self._scored(candidates, ctx),
+                             key=lambda t: t[0])
         return SelectionResult(best, score, "multi-factor")
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        return [{"model": c.model, "score": round(s, 6), "components": comp}
+                for s, comp, c in self._scored(candidates, ctx)]
 
     def update(self, fb: Feedback) -> None:
         if fb.latency_ms > 0:
@@ -250,6 +291,24 @@ class AutoMixSelector:
                     c, expected, f"automix belief={belief:.2f}")
         return SelectionResult(ordered[-1], belief, "automix escalated")
 
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        belief = self._belief(ctx)
+        bar = 0.35 + belief * (0.55 - 0.25 * self.tradeoff)
+        out = []
+        for c in candidates:
+            card = ctx.card(c.model)
+            quality = card.quality_score if card else 0.5
+            rate = self._success_rate(c.model)
+            expected = 0.5 * quality + 0.5 * rate
+            out.append({"model": c.model, "score": round(expected, 6),
+                        "components": {"quality": quality,
+                                       "success_rate": round(rate, 6),
+                                       "belief_hard": round(belief, 6),
+                                       "acceptance_bar": round(bar, 6),
+                                       "clears_bar": expected >= bar}})
+        return out
+
     def update(self, fb: Feedback) -> None:
         with self._lock:
             a, b = self._posteriors.get(fb.model, [1.0, 1.0])
@@ -288,6 +347,16 @@ class RLDrivenSelector:
                    key=lambda c: self._qval(ctx.category, c.model))
         return SelectionResult(best, self._qval(ctx.category, best.model),
                                "bandit exploit")
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        return [{"model": c.model,
+                 "score": round(self._qval(ctx.category, c.model), 6),
+                 "components": {"q_value": round(
+                     self._qval(ctx.category, c.model), 6),
+                     "category": ctx.category,
+                     "epsilon": round(self.epsilon, 6)}}
+                for c in candidates]
 
     def update(self, fb: Feedback) -> None:
         reward = fb.quality if fb.quality else (1.0 if fb.success else 0.0)
@@ -329,6 +398,35 @@ class SessionAwareSelector:
                 self._affinity[ctx.session_id] = (res.ref.model, now)
         return res
 
+    def _fallback_rows(self, candidates: List[ModelRef],
+                       ctx: SelectionContext) -> Dict[str, dict]:
+        breakdown = getattr(self._fallback, "score_breakdown", None)
+        if breakdown is None:
+            return {}
+        try:
+            return {row["model"]: row for row in breakdown(candidates, ctx)}
+        except Exception:
+            return {}
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        now = time.time()
+        with self._lock:
+            aff = self._affinity.get(ctx.session_id)
+        sticky = aff[0] if aff and now - aff[1] < self.ttl else ""
+        fb_scores = self._fallback_rows(candidates, ctx)
+        out = []
+        for c in candidates:
+            row = fb_scores.get(c.model,
+                                {"score": 0.0, "components": {}})
+            comp = dict(row.get("components", {}))
+            comp["session_affinity"] = c.model == sticky
+            out.append({"model": c.model,
+                        "score": 1.0 if c.model == sticky
+                        else row.get("score", 0.0),
+                        "components": comp})
+        return out
+
     def update(self, fb: Feedback) -> None:
         if not fb.success and fb.session_id:
             with self._lock:
@@ -347,7 +445,7 @@ class HybridSelector:
 
     def _scored(self, candidates: List[ModelRef], ctx: SelectionContext
                 ) -> List[tuple]:
-        """(score, ref) per candidate."""
+        """(score, components, ref) per candidate."""
         ratings = {c.model: self.elo.rating(c.model) for c in candidates}
         lo, hi = min(ratings.values()), max(ratings.values())
         span = (hi - lo) or 1.0
@@ -357,14 +455,23 @@ class HybridSelector:
             lat = self.latency.tracker.percentile(c.model, 90.0, 0.0)
             lat_score = 1.0 / (1.0 + lat / 1000.0)
             out.append((0.5 * elo_score + 0.3 * lat_score
-                        + 0.2 * c.weight, c))
+                        + 0.2 * c.weight,
+                        {"elo_score": round(elo_score, 6),
+                         "elo_rating": round(ratings[c.model], 3),
+                         "latency_score": round(lat_score, 6),
+                         "weight": c.weight}, c))
         return out
 
     def select(self, candidates: List[ModelRef], ctx: SelectionContext
                ) -> SelectionResult:
-        score, best = max(self._scored(candidates, ctx),
-                          key=lambda t: t[0])
+        score, _, best = max(self._scored(candidates, ctx),
+                             key=lambda t: t[0])
         return SelectionResult(best, score, "hybrid blend")
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        return [{"model": c.model, "score": round(s, 6), "components": comp}
+                for s, comp, c in self._scored(candidates, ctx)]
 
     def update(self, fb: Feedback) -> None:
         self.elo.update(fb)
@@ -406,6 +513,35 @@ class LookupTableSelector:
                 if c.model == model:
                     return SelectionResult(c, 1.0, "lookup hit")
         return self._fallback.select(candidates, ctx)
+
+    def _fallback_rows(self, candidates: List[ModelRef],
+                       ctx: SelectionContext) -> Dict[str, dict]:
+        breakdown = getattr(self._fallback, "score_breakdown", None)
+        if breakdown is None:
+            return {}
+        try:
+            return {row["model"]: row for row in breakdown(candidates, ctx)}
+        except Exception:
+            return {}
+
+    def score_breakdown(self, candidates: List[ModelRef],
+                        ctx: SelectionContext) -> List[dict]:
+        key = self._key(ctx.query)
+        with self._lock:
+            model = self.table.get(key)
+        hit = model if any(c.model == model for c in candidates) else ""
+        fb_scores = self._fallback_rows(candidates, ctx)
+        out = []
+        for c in candidates:
+            row = fb_scores.get(c.model,
+                                {"score": 0.0, "components": {}})
+            comp = dict(row.get("components", {}))
+            comp["lookup_hit"] = c.model == hit
+            out.append({"model": c.model,
+                        "score": 1.0 if c.model == hit
+                        else row.get("score", 0.0),
+                        "components": comp})
+        return out
 
     def update(self, fb: Feedback) -> None:
         # Feedback.query gives exact attribution under concurrency; the

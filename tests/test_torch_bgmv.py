@@ -453,6 +453,7 @@ class TestEngineBgmv:
         need, a short switch interval) never tears a batch."""
         import sys
         import threading
+        import time
 
         _, on, off = engines
         texts = CORPUS[:4]
@@ -477,9 +478,17 @@ class TestEngineBgmv:
         try:
             for th in threads:
                 th.start()
-            for i in range(40):
+            # at least 40 flips, and on until batches ran under both
+            # settings (a loaded machine may run few batches in 40)
+            deadline = time.monotonic() + 60.0
+            i = 0
+            while i < 40 or ({s["bgmv"] for s in on.steps()[steps0:]}
+                             != {True, False}
+                             and time.monotonic() < deadline
+                             and not errors):
                 on.configure_kernels(BGMV if i % 2 else {})
                 stop.wait(0.005)
+                i += 1
         finally:
             stop.set()
             for th in threads:

@@ -7,7 +7,11 @@ both and parse to the same block; a canonical ``global:`` block lifts to
 the same fields on both;
 ``stream: true`` gets an error body and a looper decision a 501, and the
 backend sees neither; a checkpoint of another architecture is refused by
-name."""
+name.  The resilience plane (the degradation ladder, the upstream health
+plane, local SLO objectives) loads and parses as the reference's; what it
+reads through the shared state plane (fleet-scoped objectives, the
+fleet-shared ladder of ``stateplane.share.fleet``, the fleet-shared open
+circuits and retry budget) is refused."""
 
 import copy
 import http.client
@@ -42,6 +46,25 @@ PORTED = {
                 {"recipes": []}),
     "entrypoints": ({"entrypoints": [{"name": "auto", "recipe": "fast"}]},
                     {"entrypoints": []}),
+    "resilience.enabled": (
+        {"resilience": {"enabled": True, "interval_s": 0.5,
+                        "max_level": 3, "brownout_class": "high",
+                        "admission": {"reject_class": "normal"},
+                        "priority": {"model_classes": {"m": "low"}}}},
+        {"resilience": {"enabled": False}}),
+    "resilience.upstream.enabled": (
+        {"resilience": {"upstream": {
+            "enabled": True, "breaker": {"failures": 3, "open_s": 2},
+            "retry": {"on": "connect", "max_attempts": "4"},
+            "deadline": {"default_s": 5}}}},
+        {"resilience": {"upstream": {"enabled": False}}}),
+    "observability.slo.objectives": (
+        {"observability": {"slo": {"evaluation_interval_s": 0.25,
+                                   "objectives": [
+            "routing_latency p99 < 20ms over 1s",
+            {"name": "errs", "objective": "signal error-rate < 1% over 5m",
+             "scope": "local"}]}}},
+        {"observability": {"slo": {"objectives": []}}}),
 }
 
 # refused key → (the config that enables it, the same block off)
@@ -67,10 +90,22 @@ REFUSED = {
                         {"external_models": []}),
     "router_replay": ({"router_replay": {"enabled": True}},
                       {"router_replay": {"enabled": False}}),
+    # a fleet-scoped objective reads merged fleet counts (state plane)
     "observability.slo": (
         {"observability": {"slo": {"enabled": True, "objectives": [
-            "routing_latency p99 < 25ms over 5m"]}}},
-        {"observability": {"slo": {"enabled": True, "objectives": []}}}),
+            {"objective": "routing_latency p99 < 25ms over 5m",
+             "scope": "fleet"}]}}},
+        {"observability": {"slo": {"enabled": True, "objectives": [
+            {"objective": "routing_latency p99 < 25ms over 5m",
+             "scope": "local"}]}}}),
+    "stateplane.share.fleet": (
+        {"stateplane": {"enabled": True, "share": {"fleet": True}}},
+        {"stateplane": {"enabled": False, "share": {"fleet": True}}}),
+    "resilience.upstream.fleet_share": (
+        {"stateplane": {"enabled": True},
+         "resilience": {"upstream": {"enabled": True}}},
+        {"stateplane": {"enabled": False},
+         "resilience": {"upstream": {"enabled": True}}}),
     "observability.fleet.enabled": (
         {"observability": {"fleet": {"enabled": True}}},
         {"observability": {"fleet": {"enabled": False}}}),
@@ -83,9 +118,12 @@ REFUSED = {
             "backend": "stateplane"}}}},
         {"observability": {"decisions": {"durable": {
             "backend": "sqlite", "path": ""}}}}),
-    # a global: block is lifted before the refusals run
-    "resilience": ({"global": {"resilience": {"enabled": True}}},
-                   {"global": {"resilience": {"enabled": False}}}),
+    # a global: block is lifted before the refusals run; the ladder is
+    # served, its fleet-shared form is not
+    "resilience": ({"global": {"resilience": {"enabled": True},
+                               "stateplane": {"enabled": True,
+                                              "share": {"fleet": True}}}},
+                   {"global": {"resilience": {"enabled": True}}}),
     "image_generation": (
         {"routing": {"decisions": [dict(DEC, plugins=[
             {"type": "image_generation",
@@ -121,6 +159,12 @@ def _parsed(cfg, key):
                   for d in r.decisions]) for r in cfg.recipes]
     if key == "entrypoints":
         return [(e.model_names, e.recipe) for e in cfg.entrypoints]
+    if key == "resilience.enabled":
+        return cfg.resilience_config()
+    if key == "resilience.upstream.enabled":
+        return cfg.upstream_config()
+    if key == "observability.slo.objectives":
+        return cfg.slo_config()
     return getattr(cfg, key)
 
 

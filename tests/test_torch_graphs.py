@@ -23,6 +23,10 @@ from semantic_router_tpu_torch.engine.testing import (
     make_embedding_engine,
     make_shared_trunk_engine,
 )
+from semantic_router_tpu_torch.observability.profiler import (
+    TRACE_GATE,
+    ProfilerControl,
+)
 from semantic_router_tpu_torch.ops import _cuda
 from semantic_router_tpu_torch.ops.flash_attention import FLASH_ATTENTION
 
@@ -188,6 +192,39 @@ def test_a_flip_publishes_before_it_retires(monkeypatch):
 
 
 # -- on the card ---------------------------------------------------------------
+
+
+def test_a_trace_starts_and_stops_only_between_steps(tmp_path):
+    """A step on the card holds TRACE_GATE shared: a trace's start and its
+    stop wait for it (either synchronizes the device and toggles CUPTI,
+    which a capture does not allow and a graph launch can deadlock
+    with), and no step enters while one waits."""
+    pc = ProfilerControl(base_dir=str(tmp_path))
+    res = {}
+
+    def call(what):
+        res[what] = getattr(pc, what)()
+
+    for what, key in (("start", "started"), ("stop", "stopped")):
+        entered = threading.Event()
+
+        def step():
+            with TRACE_GATE.shared():
+                entered.set()
+
+        with TRACE_GATE.shared():
+            t = threading.Thread(target=call, args=(what,))
+            t.start()
+            t.join(0.3)
+            assert t.is_alive(), f"{what} ran while a step held the gate"
+            late = threading.Thread(target=step)
+            late.start()
+            assert not entered.wait(0.2), f"a step entered while {what} waited"
+        t.join(60)
+        late.join(60)
+        assert entered.is_set()
+        assert not t.is_alive() and res[what].get(key), res[what]
+    assert "trace.json" in res["stop"]["files"]
 
 
 @pytest.fixture
@@ -375,3 +412,49 @@ def test_a_failed_capture_fails_warmup(cuda_device, monkeypatch):
             eng.classify("intent", TEXTS[0])
     finally:
         eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_traces_toggle_while_steps_capture(cuda_device, tmp_path):
+    """Traces start and stop (as an SLO burn's capture does, under load)
+    while serving threads capture steps: kernel flips retire the graphs,
+    so every flip is followed by fresh captures.  No trace and no step
+    fails."""
+    eng = _engine(cuda_device)
+    pc = ProfilerControl(base_dir=str(tmp_path))
+    stop, errors, traces = threading.Event(), [], []
+
+    def traffic(k):
+        i = 0
+        while not stop.is_set():
+            texts = [TEXTS[(k + j) % len(TEXTS)] * (1 + (i + j) % 6)
+                     for j in range(1 + (k + i) % 8)]
+            try:
+                eng.classify_multi(SEQ_TASKS, texts, timeout=60)
+            except Exception as exc:  # reported below
+                errors.append(exc)
+                return
+            i += 1
+
+    threads = [threading.Thread(target=traffic, args=(k,))
+               for k in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        end = time.monotonic() + 8.0
+        n = 0
+        while time.monotonic() < end and not errors:
+            eng.configure_kernels({} if n % 2 else
+                                  {"epilogue": {"enabled": True}})
+            traces.append((pc.start(), pc.stop()))
+            n += 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        captured = sum(1 for s in eng.steps() if s["graph"] == "captured")
+        eng.shutdown()
+    assert not errors, errors[:3]
+    assert all(a.get("started") and b.get("stopped") for a, b in traces), \
+        [tr for tr in traces if "error" in tr[0] or "error" in tr[1]][:3]
+    assert len(traces) >= 4 and captured >= len(traces)

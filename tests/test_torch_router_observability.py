@@ -261,12 +261,9 @@ def test_decision_records_match_the_reference(served):
             for row in rec["signals"].values():
                 row.pop("latency_ms")
             rec.pop("config_hash")
-        # the reference's static selector reports a per-candidate
-        # breakdown; the port's selectors have none (the record keeps the
-        # key, empty, as the reference does for a selector without one)
+        # every selector's per-candidate breakdown is the reference's
         if got["selection"]["reason"] == "weighted static":
-            assert got["selection"]["candidates"] == []
-            got["selection"]["candidates"] = want["selection"]["candidates"]
+            assert len(got["selection"]["candidates"]) > 1
         assert _mismatch(got, want) is None, _mismatch(got, want)
     status, _, data = _call(tside["url"], "GET",
                             "/debug/decisions?limit=3")

@@ -429,8 +429,13 @@ def _refused(**change):
         "type": "mlp", "artifact": "sel.json"}), "artifact"),
     (_refused(learning={"enabled": True}), "learning"),
     (_refused(flywheel={"enabled": True}), "flywheel"),
-    (_refused(resilience={"enabled": True}), "resilience"),
-    (_refused(resilience={"upstream": {"enabled": True}}), "upstream"),
+    # the ladder and the upstream plane are served; what they read
+    # through the shared state plane is not
+    (_refused(resilience={"enabled": True},
+              stateplane={"enabled": True, "share": {"fleet": True}}),
+     "resilience"),
+    (_refused(resilience={"upstream": {"enabled": True}},
+              stateplane={"enabled": True}), "upstream"),
 ], ids=["rag", "qdrant", "milvus", "artifact", "learning", "flywheel",
         "resilience", "upstream"])
 def test_unported_options_are_refused_at_load(cfg, what):
