@@ -145,7 +145,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    cascaded request is profiled for its kernels by name, six run on the
    CPU port with the same decisions, waves and skips.  10c serves the
    rate limit (a 429 with ``retry-after``, nothing at the backend),
-   skip-processing (the body untouched, no kernel launched), prompt
+   skip-processing (the body untouched, no signal run, the answer
+   screened: one trunk forward), prompt
    compression (a ~720-word prompt; the compressed text and the decision
    equal the CPU's) and an entrypoint's recipe (decisions equal the
    CPU's) through the HTTP server and the mock backend, and reads the
@@ -184,9 +185,34 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    once the proxy heals, and a refused proxy must fail over and reopen
    it.  Then the cuda-marked tests of
    ``tests/test_torch_resilience_cuda.py`` run in a pytest process.
+12. chat — phase 8's engines (its trunk, its heads and phase 5's
+   embedding model; the card's and the CPU's, kept alive by phase 9)
+   behind the pooled server and a mock backend that streams SSE.
+   12a sends 32 of phase 8's bodies plain and then streamed: per request
+   the same decision, model, route headers and K1 / K2 launches for both
+   forms, the relayed text equal to the mock's chunks joined, TTFT p50
+   at the client beside the route p50; a stream the mock cuts after 3
+   chunks is fed back a failure and not cached, a completed stream is
+   (its plain twin is a cache hit the backend never sees).  12b sends 16
+   bodies through ``/v1/messages``, plain and streamed; 12c a three-turn
+   ``previous_response_id`` chain on ``/v1/responses`` (streamed last
+   turn; each stored conversation holds every turn) and an upstream that
+   dies mid-stream (``response.incomplete``, nothing stored); 12e the
+   credential header at the backend, a ``fail_open: false`` miss
+   answered 403 with no backend call, a chunked POST routed as its
+   content-length twin, a passthrough through the response path.  12d
+   runs a router with one decision per looper algorithm (confidence,
+   ratings, remom, fusion with NLI grounding, static workflows) over
+   three models: backend calls, wall time and K1 / K2 launches beyond
+   the route's; fusion must classify ``nli`` once per panel answer and
+   workflows answer a tool interrupt and its resume.  The first requests
+   of each part run again on the CPU port and must give the same
+   statuses and x-vsr-* headers.  Then the cuda-marked test of
+   ``tests/test_torch_chat_surface_cuda.py`` runs in a pytest process.
 
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10 and 11), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11 and
+12), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -261,6 +287,7 @@ try:
     from semantic_router_tpu_torch.observability.profiler import gated_trace
     from semantic_router_tpu_torch.observability.tracing import Tracer
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
+    from semantic_router_tpu_torch.router.mock_backend import stream_pieces
     from semantic_router_tpu_torch.runtime import (
         RuntimeRegistry,
         apply_observability_knobs,
@@ -2237,19 +2264,22 @@ def phase_fixture(modules3: dict, modules5: dict) -> dict:
                 fired |= {t for t, n in got["matches"].items() if n}
                 decisions.add(got["decision"])
                 if which == "fixture":
-                    # a looper decision is routed, and the server refuses
-                    # to execute it (501) rather than answer from one model
-                    looper = {d.name for d in gpu_router.cfg.decisions
+                    # a looper decision is routed and executed over its
+                    # models (the answer names the algorithm)
+                    looper = {d.name: str(d.algorithm.get("type"))
+                              for d in gpu_router.cfg.decisions
                               if str((d.algorithm or {}).get("type"))
                               in LOOPER_ALGORITHMS}
                     status, h, _b, _l = replies[i]
-                    check(status == (501 if got["decision"] in looper
-                                     else 200)
+                    check(status == 200
                           and h.get("x-vsr-selected-decision")
-                          == got["decision"],
+                          == got["decision"]
+                          and h.get("x-vsr-looper-algorithm")
+                          == looper.get(got["decision"]),
                           f"fixture body {i}: HTTP {status}, decision "
                           f"{h.get('x-vsr-selected-decision')!r} != "
-                          f"{got['decision']!r}")
+                          f"{got['decision']!r} (looper "
+                          f"{h.get('x-vsr-looper-algorithm')!r})")
                     print(f"fixture body {i}: {replies[i][3] * 1e3:.1f} ms "
                           f"-> {got['kind']} {got['decision']} / "
                           f"{got['model']}; projection "
@@ -2456,13 +2486,21 @@ def check_trace_launches(tag: str, step) -> dict:
     """K1/K2/K3 kernels one replay of a captured step ran, counted by name
     in its torch.profiler trace, against the launches its capture recorded
     (what every replay adds to the launch counts).  CUPTI now and then
-    drops records of a trace, which can only lower a count: a trace that
-    disagrees is taken again, up to five times, each retry printed."""
+    drops a run of a trace's records (~15 of ~490 at B=16 S=512, 1 trace
+    in 240 in one process, and 5 traces in a row of one step in
+    another), which can only lower a count: a trace that disagrees is
+    taken again, up to ten times, each retry printed and each after a
+    spacer trace of one small op, so a retry does not meet the same
+    record stream."""
     from torch.profiler import ProfilerActivity, profile
 
     want = {k: sum(step.launches.get(k, {}).values()) for k in TRACE_MARKS}
     traces = []
-    for attempt in range(5):
+    for attempt in range(10):
+        if attempt:
+            with profile(activities=[ProfilerActivity.CUDA]):
+                torch.ones(attempt, device=DEVICE).add_(1)
+                torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             step.replay()
@@ -4200,6 +4238,7 @@ def phase_observe(keep: dict, smi: str) -> dict:
     out: dict = {}
     steps0 = len(engine.steps())
     sent = 0
+    done = False
     try:
         base = _serve_run(keep, url, 1, 0.0, traced=False)
         out["9.1"] = dict(base["summary"], **_check_decisions(keep, base))
@@ -4252,16 +4291,21 @@ def phase_observe(keep: dict, smi: str) -> dict:
                     for k in ("flash_attention", "head_epilogue", "bgmv")}
         out["launches"] = launches
         out["steps"] = len(engine.steps()) - steps0
+        done = True
     finally:
         server.stop()
         backend.stop()
-        for obj in (router, engine, keep["cpu"]):
-            obj.shutdown()
+        router.shutdown()
         reg.runtimestats.stop()
+        if not done:
+            engine.shutdown()
+            keep["cpu"].shutdown()
     print("observe " + json.dumps({k: v for k, v in out.items()
                                    if k != "9.4"}), flush=True)
     print("observe scrape " + json.dumps(out["9.4"]), flush=True)
     print(f"phase 9 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 12 serves on both engines (and shuts them down)
+    out["_keep"] = {"engine": engine, "cpu": keep["cpu"]}
     return out
 
 
@@ -4609,7 +4653,9 @@ def gates_http(engine, cpu, registry) -> dict:
         out["ratelimit"] = {"status": [first[0], second[0]],
                             "retry_after": second[1]["retry-after"],
                             "body": second[2]}
-        # skip-processing: passed through untouched, no kernel launched
+        # skip-processing: passed through untouched, no signal run; its
+        # answer goes through the response path as the reference's does:
+        # the jailbreak screen, one trunk forward
         _cuda.reset_launch_counts()
         hits0 = backend.hits
         status, headers, body, _ = _post(
@@ -4621,8 +4667,10 @@ def gates_http(engine, cpu, registry) -> dict:
               and echo["model"] == "auto"
               and "x-vsr-selected-model" not in headers,
               f"skip-processing: HTTP {status}, echo {echo}")
-        check(added["flash_attention"] == 0 and added["head_epilogue"] == 0,
-              f"skip-processing launched kernels: {added}")
+        check(added["flash_attention"] == N_LAYERS
+              and added["head_epilogue"] == 1,
+              f"skip-processing: launches {added}, want one screen "
+              f"forward ({N_LAYERS} K1, 1 K2)")
         out["skip_processing"] = {"status": status, "echo": echo,
                                   "launches": added}
         # prompt compression: the long prompt is compressed before the bank
@@ -5307,6 +5355,658 @@ def phase_resilience(modules3: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 12: the chat surface ----------------------------------------------
+
+CHAT_MODELS = [m for ms in RESPOND_MODELS.values() for m in ms] + ["qwen3-8b"]
+CHAT_CUT = "cutoff"     # a streamed answer to a prompt with it dies ...
+CHAT_CUT_CHUNKS = 3     # ... after this many chunks
+N_CHAT = 32             # 12a: phase 8's bodies, each plain then streamed
+N_ANTHROPIC = 16        # 12b: the next ones through /v1/messages
+N_CHAT_CPU = 4          # requests of each part replayed on the CPU port
+# the response path's headers: a stream's go out before its answer is
+# assembled, so only its plain twin carries them
+RESPONSE_HEADERS = ("x-vsr-hallucination", "x-vsr-unverified-factual",
+                    "x-vsr-warnings", "x-vsr-jailbreak-blocked")
+RANDOM_HEADERS = ("x-vsr-request-id", "x-vsr-decision-record")
+LOOPER_CHAT_MODELS = ["chat-a", "chat-b", "chat-c"]
+CHAT_TOOL_CALL = {"id": "call_0", "type": "function",
+                  "function": {"name": "search_docs",
+                               "arguments": "{\"q\": \"tides\"}"}}
+
+
+def _chat_plugins(mode: str) -> list:
+    """Phase 8's plugins without memory: a memory stored from one answer
+    would change its streamed twin's request."""
+    return [p for p in _respond_plugins(mode) if p["type"] != "memory"]
+
+
+def _chat_decision(name: str, priority: int, topic: str, mode: str) -> dict:
+    """Phase 8's decision for ``topic`` on its first model alone: a
+    weighted pick (or a selector that learns from feedback) could give a
+    request and its streamed twin different models."""
+    d = _respond_decision(name, priority, topic, {"type": "static"},
+                          _chat_plugins(mode))
+    d["modelRefs"] = d["modelRefs"][:1]
+    return d
+
+
+def _kw_decision(name: str, priority: int, keyword: str, models: list,
+                 algorithm: dict = None, plugins: list = None) -> dict:
+    d = {"name": name, "priority": priority,
+         "rules": {"operator": "OR", "conditions": [
+             {"type": "keyword", "name": keyword}]},
+         "modelRefs": [{"model": m} for m in models],
+         "algorithm": algorithm or {"type": "static"}}
+    if plugins:
+        d["plugins"] = plugins
+    return d
+
+
+_RESPOND_SIGNALS = RESPOND_CONFIG["routing"]["signals"]
+_CHECKED = RESPOND_CONFIG["routing"]["decisions"][-1]
+CHAT_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": ROUTER_CONFIG["engine"],
+    "tool_selection": {"tools": RESPOND_TOOLS},
+    "semantic_cache": {"enabled": True, "backend_type": "memory",
+                       "similarity_threshold": 0.999, "max_entries": 64},
+    "skip_processing": {"enabled": True},
+    # the vault's model answers its user only; every other model (and a
+    # passthrough, model "") has the operator's key; no match = 403
+    "authz": {"fail_open": False, "trust_identity_headers": True,
+              "credentials": [
+                  {"models": ["vault-model"], "users": ["vip"],
+                   "api_key": "k-vault"},
+                  {"models": CHAT_MODELS + ["cache-model", ""],
+                   "api_key": "k-chat"}]},
+    "routing": {
+        "strategy": "priority",
+        "modelCards": RESPOND_CONFIG["routing"]["modelCards"]
+        + [{"name": "vault-model"}, {"name": "cache-model"}],
+        "signals": {
+            "keywords": _RESPOND_SIGNALS["keywords"] + [
+                {"name": "vault", "keywords": ["vault"]},
+                {"name": "cacheable", "keywords": ["cacheable"]}],
+            "fact_check": _RESPOND_SIGNALS["fact_check"]},
+        "decisions": [
+            _kw_decision("vault", 500, "vault", ["vault-model"]),
+            _kw_decision("cached", 400, "cacheable", ["cache-model"],
+                         plugins=[{"type": "semantic-cache",
+                                   "configuration": {
+                                       "similarity_threshold": 0.999}}]),
+            _chat_decision("code", 300, "code", "insert"),
+            _chat_decision("travel", 250, "travel", "replace"),
+            _chat_decision("health", 200, "health", "insert"),
+            _CHECKED]},
+}
+LOOPER_CHAT_ALGORITHMS = {
+    "confidence": {"type": "confidence", "confidence": {"threshold": 0.9}},
+    "ratings": {"type": "ratings", "ratings": {"max_concurrent": 3}},
+    "remom": {"type": "remom", "remom": {"breadth_schedule": [3, 2]}},
+    "fusion": {"type": "fusion", "fusion": {"grounding": {"enabled": True},
+                                            "synthesis_model": "chat-c"}},
+    "workflows": {"type": "workflows", "workflows": {
+        "mode": "static",
+        "roles": [{"id": "draft", "models": ["chat-a"],
+                   "prompt": "Look it up."},
+                  {"id": "review", "models": ["chat-b"],
+                   "prompt": "Check the draft.", "access_list": ["draft"]}],
+        "final": {"model": "chat-c", "prompt": "Write the answer."}}},
+}
+LOOPER_CHAT_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": ROUTER_CONFIG["engine"],
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in LOOPER_CHAT_MODELS
+                       + ["qwen3-8b"]],
+        "signals": {
+            "keywords": [{"name": f"lp_{a}", "keywords": [f"zz{a}"]}
+                         for a in LOOPER_CHAT_ALGORITHMS],
+            "fact_check": _RESPOND_SIGNALS["fact_check"]},
+        "decisions": [_kw_decision(f"looper_{a}", 500, f"lp_{a}",
+                                   LOOPER_CHAT_MODELS, spec)
+                      for a, spec in LOOPER_CHAT_ALGORITHMS.items()]
+        + [_CHECKED]},
+}
+
+
+def chat_answer(body: dict):
+    """The phase's mock backend: phase 8's answers, but ``chat-a`` asks
+    for a tool while the conversation holds no tool result and the
+    request offers tools."""
+    msgs = body.get("messages", [])
+    if body.get("model") == "chat-a" and body.get("tools") \
+            and not any(m.get("role") == "tool" for m in msgs):
+        return {"content": None, "tool_calls": [dict(CHAT_TOOL_CALL)]}
+    return respond_answer(body)
+
+
+def chat_cut(body: dict):
+    text = str(body["messages"][-1].get("content") or "")
+    return CHAT_CUT_CHUNKS if CHAT_CUT in text else None
+
+
+def _chat_call(url: str, path: str, body: dict, headers: dict = None,
+               chunked: bool = False) -> dict:
+    """One request: status, headers, the JSON answer or the SSE frames
+    [(event, data)], the client's time to the first data frame and to
+    the end of the answer."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    data = json.dumps(body).encode()
+    if chunked:
+        data = iter([data[:len(data) // 2], data[len(data) // 2:]])
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=data,
+                     headers={"content-type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        ttft = None
+        if "event-stream" in hdrs.get("content-type", ""):
+            frames, event, lines = [], "", []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().rstrip("\n")
+                if line.startswith("data: ") and ttft is None:
+                    ttft = time.perf_counter() - t0
+                if line.startswith("event: "):
+                    event = line[7:]
+                elif line.startswith("data: "):
+                    lines.append(line[6:])
+                elif not line and lines:
+                    data_s = "\n".join(lines)
+                    frames.append((event, data_s if data_s == "[DONE]"
+                                   else json.loads(data_s)))
+                    event, lines = "", []
+            payload = frames
+        else:
+            raw = resp.read()
+            payload = json.loads(raw) if raw else None
+        return {"status": resp.status, "headers": hdrs, "body": payload,
+                "ttft_s": ttft, "s": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def _vsr(headers: dict, drop: tuple = ()) -> dict:
+    return {k: v for k, v in sorted(headers.items())
+            if k.startswith("x-vsr-") and k not in RANDOM_HEADERS + drop}
+
+
+def _sse_text(frames: list, kind: str = "chat") -> str:
+    """The answer text an SSE answer carried."""
+    out = []
+    for event, data in frames:
+        if not isinstance(data, dict):
+            continue
+        if kind == "chat" and data.get("choices"):
+            out.append((data["choices"][0].get("delta") or {})
+                       .get("content") or "")
+        elif kind == "anthropic" and event == "content_block_delta":
+            out.append(data["delta"].get("text", ""))
+        elif kind == "responses" and event == "response.output_text.delta":
+            out.append(data["delta"])
+    return "".join(out)
+
+
+def _anthropic_body(body: dict, stream: bool) -> dict:
+    msgs = body["messages"]
+    out = {"model": "auto", "max_tokens": 512, "stream": stream,
+           "messages": [{"role": "user", "content": [
+               {"type": "text", "text": msgs[-1]["content"]}]}]}
+    if msgs[0]["role"] == "system":
+        out["system"] = msgs[0]["content"]
+    return out
+
+
+class _ChatRun:
+    """A router over one engine behind its own pooled server and mock
+    backend; every request's K1 / K2 launches (card only), the feedback
+    each route got, the engine's classifications by task."""
+
+    def __init__(self, cfg_dict: dict, engine, on_card: bool,
+                 nli_counts: dict) -> None:
+        self.cfg = load_config(json.loads(json.dumps(cfg_dict)))
+        self.registry = RuntimeRegistry.isolated(runtimestats=None)
+        self.router = build_router(self.cfg, engine, registry=self.registry)
+        self.engine = engine
+        self.on_card = on_card
+        self.feedback: list = []
+        self.route_ms: list = []
+        inner_fb = self.router.record_feedback
+
+        def record_feedback(route, success=True, **kw):
+            self.feedback.append((success, kw.get("ttft_ms", 0.0)))
+            return inner_fb(route, success=success, **kw)
+
+        self.router.record_feedback = record_feedback
+        inner_route = self.router.route
+
+        def route(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner_route(*a, **kw)
+            finally:
+                self.route_ms.append((time.perf_counter() - t0) * 1e3)
+
+        self.router.route = route
+        self.backend = MockVLLMServer(content_fn=chat_answer,
+                                      cut_fn=chat_cut).start()
+        self.server = RouterServer(self.router, self.backend.url,
+                                   registry=self.registry).start()
+        self.launches = {"flash_attention": 0, "head_epilogue": 0}
+        self._nli = nli_counts
+
+    @property
+    def nli(self) -> int:
+        """``nli`` classifications the engine has run so far."""
+        return self._nli[id(self.engine)]
+
+    def call(self, path: str, body: dict, headers: dict = None,
+             chunked: bool = False) -> dict:
+        if self.on_card:
+            _cuda.reset_launch_counts()
+        hits = self.backend.hits
+        row = _chat_call(self.server.url, path, body, headers, chunked)
+        row["backend_calls"] = self.backend.hits - hits
+        if self.on_card:
+            got = _cuda.launch_counts()
+            row["launches"] = {k: got[k] for k in self.launches}
+            for k in self.launches:
+                self.launches[k] += got[k]
+        return row
+
+    def stop(self) -> None:
+        self.server.stop()
+        self.backend.stop()
+        self.router.shutdown()
+
+
+def _chat_streaming(run: "_ChatRun", bodies: list) -> dict:
+    """12a: each body plain, then streamed: route headers, decision,
+    model and K1 / K2 launches equal; the relayed text is the mock's
+    chunks joined; a cut stream is not cached and fed back a failure,
+    a completed one is cached."""
+    rows, ttft = [], []
+    # the tools plugin embeds its tool database once, at first use: not
+    # in either twin's count
+    run.router.route(json.loads(json.dumps(bodies[0])))
+    run.route_ms.clear()
+    for i, body in enumerate(bodies):
+        plain = run.call("/v1/chat/completions", body)
+        streamed = run.call("/v1/chat/completions", dict(body, stream=True))
+        want = respond_answer(body)
+        check(plain["status"] == streamed["status"] == 200,
+              f"chat 12a {i}: HTTP {plain['status']} / "
+              f"{streamed['status']}")
+        check(plain["body"]["choices"][0]["message"]["content"] == want,
+              f"chat 12a {i}: the plain answer changed on its way")
+        frames = streamed["body"]
+        check(_sse_text(frames) == want and frames[-1] == ("", "[DONE]")
+              and len(frames) == len(stream_pieces(want)) + 2,
+              f"chat 12a {i}: the relayed text is not the backend's "
+              f"{len(stream_pieces(want))} chunks joined")
+        ph = _vsr(plain["headers"])
+        sh = _vsr(streamed["headers"])
+        check(_vsr(plain["headers"], RESPONSE_HEADERS) == sh,
+              f"chat 12a {i}: stream headers {sh} != plain {ph}")
+        check(plain["launches"] == streamed["launches"],
+              f"chat 12a {i}: launches plain {plain['launches']} != "
+              f"streamed {streamed['launches']}")
+        ttft.append(streamed["ttft_s"] * 1e3)
+        rows.append({"decision": ph.get("x-vsr-selected-decision"),
+                     "model": ph.get("x-vsr-selected-model"),
+                     "vsr": ph, "launches": plain["launches"],
+                     "plain_ms": plain["s"] * 1e3,
+                     "stream_ms": streamed["s"] * 1e3,
+                     "ttft_ms": ttft[-1]})
+        print(f"chat 12a {i}: " + json.dumps(
+            {k: v for k, v in rows[-1].items() if k != "vsr"}), flush=True)
+    route_p50 = _pct(run.route_ms, 0.5)
+    # cache on completion: a cut stream never, a completed one yes
+    cut_text = f"cacheable: how tall is the tallest tree {CHAT_CUT}"
+    fb0 = len(run.feedback)
+    cut = run.call("/v1/chat/completions", {
+        "model": "auto", "stream": True,
+        "messages": [{"role": "user", "content": cut_text}]})
+    check(len(cut["body"]) == CHAT_CUT_CHUNKS + 1
+          and run.feedback[fb0:] and not run.feedback[fb0][0]
+          and run.feedback[fb0][1] > 0,
+          f"chat 12a cut: {len(cut['body'])} frames, feedback "
+          f"{run.feedback[fb0:]}")
+    twin = run.call("/v1/chat/completions", {
+        "model": "auto", "messages": [{"role": "user",
+                                        "content": cut_text}]})
+    check(twin["backend_calls"] == 1
+          and "x-vsr-cache-hit" not in twin["headers"],
+          "chat 12a cut: the cut stream's answer was cached")
+    done_text = "cacheable: name three rivers of europe"
+    done = run.call("/v1/chat/completions", {
+        "model": "auto", "stream": True,
+        "messages": [{"role": "user", "content": done_text}]})
+    hit = run.call("/v1/chat/completions", {
+        "model": "auto", "messages": [{"role": "user",
+                                        "content": done_text}]})
+    check(done["status"] == 200 and hit["backend_calls"] == 0
+          and hit["headers"].get("x-vsr-cache-hit") == "true",
+          f"chat 12a: a completed stream was not cached "
+          f"({hit['backend_calls']} backend calls)")
+    return {"requests": len(rows), "rows": rows,
+            "k1_per_request": sum(r["launches"]["flash_attention"]
+                                  for r in rows) / len(rows),
+            "ttft_p50_ms": _pct(ttft, 0.5), "ttft_p90_ms": _pct(ttft, 0.9),
+            "route_p50_ms": route_p50,
+            "plain_p50_ms": _pct([r["plain_ms"] for r in rows], 0.5),
+            "stream_p50_ms": _pct([r["stream_ms"] for r in rows], 0.5),
+            "cut": {"frames": len(cut["body"]),
+                    "feedback": run.feedback[fb0]},
+            "cache_hit_after_stream": True}
+
+
+def _chat_anthropic(run: "_ChatRun", bodies: list) -> dict:
+    """12b: /v1/messages, plain then streamed."""
+    rows = []
+    for i, body in enumerate(bodies):
+        want = respond_answer(body)
+        plain = run.call("/v1/messages", _anthropic_body(body, False))
+        streamed = run.call("/v1/messages", _anthropic_body(body, True))
+        check(plain["status"] == streamed["status"] == 200
+              and plain["body"]["type"] == "message"
+              and plain["body"]["content"][0]["text"] == want,
+              f"chat 12b {i}: HTTP {plain['status']}: {plain['body']}")
+        events = [e for e, _ in streamed["body"]]
+        check(events[0] == "message_start" and events[-1] == "message_stop"
+              and _sse_text(streamed["body"], "anthropic") == want,
+              f"chat 12b {i}: events {events[:3]}...{events[-2:]}")
+        check(_vsr(plain["headers"], RESPONSE_HEADERS)
+              == _vsr(streamed["headers"])
+              and plain["launches"] == streamed["launches"],
+              f"chat 12b {i}: plain and streamed differ")
+        rows.append({"vsr": _vsr(plain["headers"]),
+                     "launches": plain["launches"], "events": len(events)})
+    return {"requests": 2 * len(rows), "rows": rows,
+            "k1_per_request": sum(r["launches"]["flash_attention"]
+                                  for r in rows) / len(rows)}
+
+
+def _responses_chain(run: "_ChatRun") -> list:
+    """12c: a three-turn previous_response_id chain, streamed on its
+    last turn, then an upstream that dies mid-stream.  Rows of the four
+    requests."""
+    rows, prev = [], None
+    store = run.server.response_store
+    texts = ["plan a python code review checklist", "now add testing items",
+             "summarize it in three bullets"]
+    for turn, text in enumerate(texts):
+        req = {"model": "auto", "input": text,
+               "instructions": "Answer in English."}
+        if prev:
+            req["previous_response_id"] = prev
+        if turn == 2:
+            req["stream"] = True
+        row = run.call("/v1/responses", req)
+        check(row["status"] == 200, f"chat 12c turn {turn}: HTTP "
+                                    f"{row['status']}: {row['body']}")
+        if turn < 2:
+            prev = row["body"]["id"]
+            check(row["body"]["status"] == "completed",
+                  f"chat 12c turn {turn}: {row['body']['status']}")
+        else:
+            events = [e for e, _ in row["body"]]
+            check(events[0] == "response.created"
+                  and events[-1] == "response.completed",
+                  f"chat 12c turn 2: events {events}")
+            prev = row["body"][-1][1]["response"]["id"]
+        # the stored conversation threads every turn so far
+        stored = store.get(prev)
+        users = [m["content"] for m in (stored.messages if stored else [])
+                 if m["role"] == "user"]
+        check(users == texts[:turn + 1]
+              and stored.messages[-1]["role"] == "assistant",
+              f"chat 12c turn {turn}: stored user turns {users}")
+        rows.append(row)
+    dead = run.call("/v1/responses", {"model": "auto", "stream": True,
+                                      "input": f"tell a story {CHAT_CUT}"})
+    events = [e for e, _ in dead["body"]]
+    created = dead["body"][0][1]["response"]["id"]
+    check(events[-1] == "response.incomplete"
+          and "response.completed" not in events
+          and store.get(created) is None,
+          f"chat 12c: upstream death gave {events[-3:]}")
+    rows.append(dead)
+    return rows
+
+
+def _looper_rows(run: "_ChatRun", algos: list) -> dict:
+    """12d: one request per algorithm (the workflows one interrupted by
+    a tool call, then resumed): backend calls, wall time, K1 / K2
+    launches beyond the route's, nli forwards."""
+    out = {}
+    for algo in algos:
+        body = {"model": "auto", "messages": [
+            {"role": "user", "content": f"zz{algo} why do tides happen "
+                                        f"twice a day"}]}
+        if algo == "workflows":
+            body["tools"] = [t for t in RESPOND_TOOLS
+                             if t["function"]["name"] == "search_docs"]
+        route_l = None
+        if run.on_card:
+            _cuda.reset_launch_counts()
+            run.router.route(copy.deepcopy(body))
+            route_l = _cuda.launch_counts()
+        nli0 = run.nli
+        row = run.call("/v1/chat/completions", body)
+        check(row["status"] == 200 and row["headers"].get(
+            "x-vsr-looper-algorithm") == algo,
+              f"chat 12d {algo}: HTTP {row['status']}: {row['body']}")
+        rec = {"backend_calls": row["backend_calls"],
+               "wall_ms": row["s"] * 1e3, "nli": run.nli - nli0,
+               "model": row["headers"].get("x-vsr-selected-model"),
+               "candidates": row["headers"].get("x-vsr-looper-candidates"),
+               "headers": _vsr(row["headers"])}
+        if run.on_card:
+            rec["launches"] = row["launches"]
+            rec["beyond_route"] = {k: row["launches"][k] - route_l[k]
+                                   for k in row["launches"]}
+        if algo == "fusion":
+            check(rec["nli"] == len(LOOPER_CHAT_MODELS),
+                  f"chat 12d fusion: {rec['nli']} nli forwards for "
+                  f"{len(LOOPER_CHAT_MODELS)} panel answers")
+        if algo == "workflows":
+            msg = row["body"]["choices"][0]["message"]
+            tc_id = msg["tool_calls"][0]["id"]
+            check(row["body"]["choices"][0]["finish_reason"] == "tool_calls"
+                  and tc_id.startswith("vsrwf-"),
+                  f"chat 12d workflows: no tool interrupt: {msg}")
+            resume = copy.deepcopy(body)
+            resume["messages"] += [msg, {"role": "tool",
+                                         "tool_call_id": tc_id,
+                                         "content": "the moon's pull"}]
+            again = run.call("/v1/chat/completions", resume)
+            trace = (again["body"] or {}).get("vsr_annotations", {}).get(
+                "workflow_trace", {})
+            check(again["status"] == 200
+                  and again["body"]["choices"][0]["finish_reason"] == "stop"
+                  and again["headers"].get("x-vsr-selected-model")
+                  == "chat-c" and trace.get("tool_trajectory"),
+                  f"chat 12d workflows: resume HTTP {again['status']}: "
+                  f"{again['body']}")
+            rec["resume"] = {"backend_calls": again["backend_calls"],
+                             "wall_ms": again["s"] * 1e3,
+                             "headers": _vsr(again["headers"])}
+            if run.on_card:
+                rec["resume"]["launches"] = again["launches"]
+        out[algo] = rec
+        print(f"chat 12d {algo}: {json.dumps(rec)}", flush=True)
+    return out
+
+
+def _repair_rows(run: "_ChatRun", bodies: list) -> list:
+    """12e: the credential at the backend, the vault's 403 with no
+    backend call, a chunked POST like its content-length twin, a
+    passthrough through the response path."""
+    rows = []
+    code = bodies[0]
+    seen0 = len(run.backend.headers_seen)
+    row = run.call("/v1/chat/completions", code)
+    auth = [h.get("authorization") for h in
+            run.backend.headers_seen[seen0:]]
+    check(row["status"] == 200 and auth == ["Bearer k-chat"],
+          f"chat 12e: credential at the backend {auth}")
+    rows.append(row)
+    vault = {"model": "auto", "messages": [
+        {"role": "user", "content": "open the vault please"}]}
+    denied = run.call("/v1/chat/completions", vault,
+                      {"x-authz-user-id": "guest"})
+    check(denied["status"] == 403 and denied["backend_calls"] == 0
+          and denied["body"]["error"]["type"] == "authz_error",
+          f"chat 12e: vault for a guest: HTTP {denied['status']}, "
+          f"{denied['backend_calls']} backend calls")
+    rows.append(denied)
+    seen0 = len(run.backend.headers_seen)
+    vip = run.call("/v1/chat/completions", vault, {"x-authz-user-id": "vip"})
+    check(vip["status"] == 200 and [h.get("authorization") for h in
+                                    run.backend.headers_seen[seen0:]]
+          == ["Bearer k-vault"], "chat 12e: the vip's vault key")
+    chunked = run.call("/v1/chat/completions", code, chunked=True)
+    check(chunked["status"] == 200
+          and _vsr(chunked["headers"]) == _vsr(row["headers"])
+          and (not run.on_card or chunked["launches"] == row["launches"]),
+          f"chat 12e: chunked {_vsr(chunked['headers'])} != "
+          f"{_vsr(row['headers'])}")
+    rows.append(chunked)
+    passed = run.call("/v1/chat/completions", code,
+                      {"x-vsr-skip-processing": "true"})
+    check(passed["status"] == 200 and passed["backend_calls"] == 1
+          and "x-vsr-selected-decision" not in passed["headers"]
+          and passed["body"]["choices"][0]["message"]["content"]
+          == respond_answer(code)
+          and (not run.on_card or passed["launches"]["flash_attention"] > 0),
+          f"chat 12e: passthrough HTTP {passed['status']}, "
+          f"{passed.get('launches')}")
+    rows.append(passed)
+    return rows
+
+
+def _row_key(row: dict) -> list:
+    return [row["status"], _vsr(row["headers"])]
+
+
+def phase_chat(keep: dict, smi: str) -> dict:
+    """Phase 12: phase 8's engines (trunk, heads, embedding model) behind
+    the pooled server: 12a streaming, 12b /v1/messages, 12c the Responses
+    API, 12d the looper, 12e the repairs; the first requests of each part
+    again on the CPU port."""
+    t0 = time.perf_counter()
+    engine, cpu = keep["engine"], keep["cpu"]
+    nli = {id(engine): 0, id(cpu): 0}
+    for eng in (engine, cpu):
+        inner = eng.classify
+
+        def classify(task, text, *a, _inner=inner, _key=id(eng), **kw):
+            if task == "nli":
+                nli[_key] += 1
+            return _inner(task, text, *a, **kw)
+
+        eng.classify = classify
+    bodies = respond_bodies()
+    out: dict = {"card": smi}
+    runs = []
+    try:
+        card = _ChatRun(CHAT_CONFIG, engine, True, nli)
+        runs.append(card)
+        stamp("12a: streaming")
+        out["12a"] = _chat_streaming(card, bodies[:N_CHAT])
+        stamp("12b: anthropic")
+        out["12b"] = _chat_anthropic(
+            card, bodies[N_CHAT:N_CHAT + N_ANTHROPIC])
+        stamp("12c: responses")
+        chain = _responses_chain(card)
+        out["12c"] = {"requests": len(chain),
+                      "ttft_ms": chain[2]["ttft_s"] * 1e3,
+                      "events_last_turn": len(chain[2]["body"]),
+                      "launches": [r["launches"] for r in chain]}
+        stamp("12e: repairs")
+        repairs = _repair_rows(card, bodies)
+        out["12e"] = {"rows": [_row_key(r) for r in repairs],
+                      "launches": [r["launches"] for r in repairs]}
+        looper = _ChatRun(LOOPER_CHAT_CONFIG, engine, True, nli)
+        runs.append(looper)
+        stamp("12d: looper")
+        out["12d"] = _looper_rows(looper, list(LOOPER_CHAT_ALGORITHMS))
+        out["launches"] = {k: card.launches[k] + looper.launches[k]
+                           for k in card.launches}
+        # the CPU port on the first requests of each part: equal
+        # statuses and x-vsr-* headers (so decisions and models)
+        stamp("12: CPU replay")
+        cpu_card = _ChatRun(CHAT_CONFIG, cpu, False, nli)
+        runs.append(cpu_card)
+        agree = 0
+        half = N_CHAT_CPU // 2
+        for part, path, make, rows in (
+                ("12a", "/v1/chat/completions",
+                 lambda b, s: dict(b, stream=s), out["12a"]["rows"]),
+                ("12b", "/v1/messages", _anthropic_body,
+                 out["12b"]["rows"])):
+            first = bodies[:half] if part == "12a" \
+                else bodies[N_CHAT:N_CHAT + half]
+            for i, body in enumerate(first):
+                for stream in (False, True):
+                    got = cpu_card.call(path, make(body, stream))
+                    want = rows[i]["vsr"]
+                    if stream:
+                        want = {k: v for k, v in want.items()
+                                if k not in RESPONSE_HEADERS}
+                    check(got["status"] == 200
+                          and _vsr(got["headers"]) == want,
+                          f"chat CPU {part} {i}: {_vsr(got['headers'])} "
+                          f"!= card {want}")
+                    agree += 1
+        for part, got_rows, want_rows in (
+                ("12c", _responses_chain(cpu_card), chain),
+                ("12e", _repair_rows(cpu_card, bodies), repairs)):
+            for i, (got, want) in enumerate(zip(got_rows, want_rows)):
+                check(_row_key(got) == _row_key(want),
+                      f"chat CPU {part} {i}: {_row_key(got)} != card "
+                      f"{_row_key(want)}")
+                agree += 1
+        cpu_looper = _ChatRun(LOOPER_CHAT_CONFIG, cpu, False, nli)
+        runs.append(cpu_looper)
+        algos = list(LOOPER_CHAT_ALGORITHMS)[:N_CHAT_CPU]
+        cpu_loop = _looper_rows(cpu_looper, algos)
+        for algo in algos:
+            got, want = cpu_loop[algo], out["12d"][algo]
+            check((got["headers"], got["backend_calls"], got["nli"])
+                  == (want["headers"], want["backend_calls"], want["nli"]),
+                  f"chat CPU 12d {algo}: {got} != card {want}")
+            agree += 1
+        out["cpu_agreement"] = {"requests": agree}
+    finally:
+        for r in runs:
+            r.stop()
+        engine.shutdown()
+        cpu.shutdown()
+    out["tests"] = run_cuda_tests("test_torch_chat_surface_cuda.py",
+                                  passed=1)
+    print("chat " + json.dumps({k: v for k, v in out.items()
+                                if k not in ("12a", "12b")}), flush=True)
+    for part in ("12a", "12b"):
+        print(f"chat {part} " + json.dumps(
+            {k: v for k, v in out[part].items() if k != "rows"}),
+            flush=True)
+    print(f"phase 12 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5357,10 +6057,13 @@ def main(argv=None) -> int:
     stamp("phase 9: observe")
     observe = report["observe"] = phase_observe(respond.pop("_keep"),
                                                 dev["smi"])
+    chat_keep = observe.pop("_keep")
     stamp("phase 10: gates")
     gates = report["gates"] = phase_gates(modules3, dev["smi"])
     stamp("phase 11: resilience")
     res = report["resilience"] = phase_resilience(modules3, dev["smi"])
+    stamp("phase 12: chat")
+    chat = report["chat"] = phase_chat(chat_keep, dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -5382,14 +6085,15 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": route_src,
             "replaces": replaces,
             # K1 runs in the serve trunk, the embedding trunk, the
-            # fixture router's trunks, the respond / observe phases' bank
-            # and embedding model and the gates phase's trunks; K2 in the
-            # serve, fixture, respond, observe and gates banks and under
-            # every quant mode
+            # fixture router's trunks, the respond / observe / chat
+            # phases' bank and embedding model and the gates phase's
+            # trunks; K2 in the serve, fixture, respond, observe, gates
+            # and chat banks and under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
             + gates["launches"][kname] + res["launches"][kname]
+            + chat["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

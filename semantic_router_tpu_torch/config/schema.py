@@ -748,6 +748,8 @@ class ModelCard:
     param_size: str = ""
     context_window_size: int = 0
     quality_score: float = 0.0
+    modality: str = "ar"  # ar | diffusion | omni (GET /v1/models)
+    tags: List[str] = field(default_factory=list)
     pricing: Dict[str, float] = field(default_factory=dict)  # per 1M tokens
     backend_refs: List[Dict[str, Any]] = field(default_factory=list)
 
@@ -759,6 +761,8 @@ class ModelCard:
             context_window_size=parse_token_count(
                 d.get("context_window_size", 0)),
             quality_score=float(d.get("quality_score", 0.0)),
+            modality=d.get("modality", "ar"),
+            tags=list(d.get("tags", [])),
             pricing=dict(d.get("pricing", {}) or {}),
             backend_refs=[dict(b) for b in d.get("backend_refs", [])],
         )
@@ -933,7 +937,6 @@ UNPORTED_BLOCKS = {
     "stateplane": "the shared state plane",
     "ann": "the on-device ANN plane",
     "vectorstore": "vector stores",
-    "response_store": "the Responses API store",
     "mcp": "MCP classifiers",
     "external_models": "external models",
     "router_replay": "router replay",
@@ -945,7 +948,7 @@ UNPORTED_ENGINE = {
     "mesh_shape": "the engine mesh",
 }
 # decision algorithms that run several models downstream (the
-# reference's looper): routed, and refused by the HTTP server
+# reference's looper): the HTTP server executes them
 LOOPER_ALGORITHMS = ("confidence", "ratings", "remom", "fusion",
                      "workflows")
 
@@ -989,14 +992,10 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     ``UNPORTED_ENGINE``, the observability sub-blocks this port does not
     serve (fleet-scoped SLO objectives, the fleet plane, OTLP export, a
     durable decision store other than SQLite), a qdrant / milvus memory
-    store, an enabled ``rag`` or ``image_generation`` plugin, a selector
-    ``algorithm.artifact``.
-
-    A looper algorithm (``LOOPER_ALGORITHMS``) loads, as the reference's
-    own fixture config carries one: the route names the decision and its
-    highest-weight model, as the reference's does, and the HTTP server
-    refuses to execute it (501) instead of forwarding to that one
-    model."""
+    store, a ``response_store`` or ``looper.workflow_state`` backend other
+    than the in-memory one (the Redis / Valkey stores need a RESP client),
+    an enabled ``rag`` or ``image_generation`` plugin, a selector
+    ``algorithm.artifact``."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
     # what the resilience plane reads through the shared state plane,
@@ -1047,6 +1046,18 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         raise ValueError(f"observability.decisions.durable.backend "
                          f"{durable['backend']!r} is not served by this "
                          f"port yet (sqlite only)")
+    # the reference builds the configured store whether or not the block
+    # says enabled
+    store = d.get("response_store") or {}
+    if isinstance(store, dict) \
+            and str(store.get("backend", "memory") or "memory") != "memory":
+        raise ValueError(f"response_store.backend {store['backend']!r} is "
+                         f"not served by this port yet (memory only)")
+    wf_state = ((d.get("looper") or {}).get("workflow_state") or {})
+    if str(wf_state.get("backend", "") or "") in ("redis", "valkey"):
+        raise ValueError(f"looper.workflow_state.backend "
+                         f"{wf_state['backend']!r} is not served by this "
+                         f"port yet (memory only)")
     backend = str((d.get("memory") or {}).get("backend", ""))
     if backend in ("qdrant", "milvus"):
         raise ValueError(f"memory backend {backend!r} is not served by "
@@ -1084,7 +1095,9 @@ class RouterConfig:
         default_factory=SemanticCacheConfig)
     # task name -> {checkpoint, tokenizer, kind, labels, max_seq_len}
     classifier_models: Dict[str, Any] = field(default_factory=dict)
-    # {fail_open: bool}: whether an authz evaluation error passes
+    # {fail_open, credentials, trust_identity_headers}: the upstream
+    # credentials (router/authz.py) and whether an authz evaluation error
+    # passes
     authz: Dict[str, Any] = field(default_factory=dict)
     knowledge_bases: List[KnowledgeBaseDef] = field(default_factory=list)
     # {backend: "" | sqlite, path}: the user-memory store
@@ -1109,6 +1122,13 @@ class RouterConfig:
     # resilience_config() and upstream_config()
     resilience: Dict[str, Any] = field(default_factory=dict)
     entrypoints: List[Entrypoint] = field(default_factory=list)
+    # {http_workers}: the pooled front end's request workers
+    api_server: Dict[str, Any] = field(default_factory=dict)
+    # {workflow_state: {backend: memory, ttl_seconds}}: the looper's
+    # workflow state store
+    looper: Dict[str, Any] = field(default_factory=dict)
+    # {backend: memory, max_entries, ttl_seconds}: the Responses API store
+    response_store: Dict[str, Any] = field(default_factory=dict)
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -1150,6 +1170,9 @@ class RouterConfig:
             entrypoints=[Entrypoint.from_dict(e)
                          for e in d.get("entrypoints", []) or []],
             resilience=dict(d.get("resilience", {}) or {}),
+            api_server=dict(d.get("api_server", {}) or {}),
+            looper=dict(d.get("looper", {}) or {}),
+            response_store=dict(d.get("response_store", {}) or {}),
             raw=d,
         )
 

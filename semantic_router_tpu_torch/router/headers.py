@@ -37,6 +37,12 @@ PRIORITY = "x-vsr-priority"
 # that finally served when a failover changed it
 FALLBACK_MODELS = "x-vsr-fallback-models"
 FAILOVER_MODEL = "x-vsr-failover-model"
+# marks the looper's own fan-out calls: a request carrying it is served
+# single-model and never fans out again
+LOOPER = "x-vsr-looper-request"
+# a looper answer: the algorithm that ran and the models it used
+LOOPER_ALGORITHM = "x-vsr-looper-algorithm"
+LOOPER_CANDIDATES = "x-vsr-looper-candidates"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

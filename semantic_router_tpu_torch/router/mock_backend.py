@@ -2,9 +2,17 @@
 request facts as the completion content, so routing assertions read the
 echoed model and messages instead of needing a real model.  A
 ``content_fn`` replaces the echo with its own answer to each request body
-(a response path's input: long answers, facts to check).  The W3C
-``traceparent`` of every completion request is kept (``traceparents``),
-so a test can see the router's trace reach the backend."""
+(a response path's input: long answers, facts to check); an answer that
+is a dict is the whole assistant message (tool calls).  ``stream: true``
+is answered as the reference's mock answers it: SSE chunks of 40
+characters, a final chunk with ``finish_reason`` and the usage, then
+``data: [DONE]``; a ``cut_fn`` that returns n for a request body drops
+that stream after its first n chunks, with no finish and no ``[DONE]``
+(an upstream that dies mid-answer).  The W3C ``traceparent`` and every
+header of each completion request are kept (``traceparents``,
+``headers_seen``), so a test can see what the router sent.  Serves on
+the pooled front end (``httpserver.PooledHTTPServer``), as the
+reference's mock does."""
 
 from __future__ import annotations
 
@@ -12,8 +20,13 @@ import json
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from http.server import BaseHTTPRequestHandler
+from typing import Callable, Optional, Union
+
+from .httpserver import PooledHTTPServer
+
+STREAM_PIECE = 40  # characters per streamed chunk
+USAGE = {"prompt_tokens": 17, "completion_tokens": 23, "total_tokens": 40}
 
 
 def _echo_payload(body: dict) -> dict:
@@ -27,9 +40,16 @@ def _echo_payload(body: dict) -> dict:
     }
 
 
+def stream_pieces(content: str) -> list:
+    """The content pieces a streamed answer carries, in order."""
+    return [content[i:i + STREAM_PIECE]
+            for i in range(0, len(content), STREAM_PIECE)]
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "mock-vllm/0.1"
     protocol_version = "HTTP/1.1"
+    timeout = 65
 
     def log_message(self, *args):  # silence
         pass
@@ -57,18 +77,52 @@ class _Handler(BaseHTTPRequestHandler):
             self.server.hits += 1
             self.server.traceparents.append(
                 self.headers.get("traceparent", ""))
+            self.server.headers_seen.append(
+                {k.lower(): v for k, v in self.headers.items()})
+        answer = self.server.content_fn(body)
+        message = dict(answer) if isinstance(answer, dict) else {
+            "role": "assistant", "content": answer}
+        message.setdefault("role", "assistant")
+        if body.get("stream"):
+            self._stream(body, message.get("content") or "")
+            return
         self._json(200, {
             "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion",
             "created": int(time.time()),
             "model": body.get("model", self.server.model_name),
-            "choices": [{"index": 0,
-                         "message": {"role": "assistant",
-                                     "content": self.server.content_fn(body)},
-                         "finish_reason": "stop"}],
-            "usage": {"prompt_tokens": 17, "completion_tokens": 23,
-                      "total_tokens": 40},
+            "choices": [{"index": 0, "message": message,
+                         "finish_reason": "tool_calls"
+                         if message.get("tool_calls") else "stop"}],
+            "usage": dict(USAGE),
         })
+
+    def _stream(self, body: dict, content: str) -> None:
+        self.send_response(200)
+        self.send_header("content-type", "text/event-stream")
+        # no content-length on SSE: the connection closes after the stream
+        self.send_header("connection", "close")
+        self.close_connection = True
+        self.end_headers()
+        cid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        model = body.get("model", self.server.model_name)
+        cut = self.server.cut_fn(body)
+        for i, piece in enumerate(stream_pieces(content)):
+            if cut is not None and i >= cut:
+                return  # dies mid-answer: no finish, no [DONE]
+            chunk = {"id": cid, "object": "chat.completion.chunk",
+                     "created": int(time.time()), "model": model,
+                     "choices": [{"index": 0, "delta": {"content": piece},
+                                  "finish_reason": None}]}
+            self.wfile.write(f"data: {json.dumps(chunk)}\n\n".encode())
+            self.wfile.flush()
+        final = {"id": cid, "object": "chat.completion.chunk",
+                 "created": int(time.time()), "model": model,
+                 "choices": [{"index": 0, "delta": {},
+                              "finish_reason": "stop"}],
+                 "usage": dict(USAGE)}
+        self.wfile.write(f"data: {json.dumps(final)}\n\n".encode())
+        self.wfile.write(b"data: [DONE]\n\n")
 
     def _json(self, status: int, payload: dict) -> None:
         data = json.dumps(payload).encode()
@@ -81,14 +135,20 @@ class _Handler(BaseHTTPRequestHandler):
 
 class MockVLLMServer:
     def __init__(self, port: int = 0, model_name: str = "mock-model",
-                 content_fn: Optional[Callable[[dict], str]] = None) -> None:
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", port), _Handler)
-        self.httpd.daemon_threads = True
+                 content_fn: Optional[Callable[[dict],
+                                               Union[str, dict]]] = None,
+                 cut_fn: Optional[Callable[[dict], Optional[int]]] = None
+                 ) -> None:
+        self.httpd = PooledHTTPServer(("127.0.0.1", port), _Handler,
+                                      max_workers=64)
         self.httpd.model_name = model_name  # type: ignore[attr-defined]
         self.httpd.content_fn = content_fn or (  # type: ignore[attr-defined]
             lambda body: json.dumps(_echo_payload(body)))
+        self.httpd.cut_fn = cut_fn or (  # type: ignore[attr-defined]
+            lambda body: None)
         self.httpd.hits = 0  # type: ignore[attr-defined]
         self.httpd.traceparents = []  # type: ignore[attr-defined]
+        self.httpd.headers_seen = []  # type: ignore[attr-defined]
         self.httpd.hits_lock = threading.Lock()  # type: ignore[attr-defined]
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
@@ -109,6 +169,13 @@ class MockVLLMServer:
         arrival order ("" when absent)."""
         with self.httpd.hits_lock:  # type: ignore[attr-defined]
             return list(self.httpd.traceparents)  # type: ignore
+
+    @property
+    def headers_seen(self) -> list:
+        """Every completion request's headers (lower-cased names), in
+        arrival order."""
+        with self.httpd.hits_lock:  # type: ignore[attr-defined]
+            return list(self.httpd.headers_seen)  # type: ignore
 
     def start(self) -> "MockVLLMServer":
         self._thread = threading.Thread(target=self.httpd.serve_forever,

@@ -21,7 +21,8 @@
   ``semantic-cache`` plugin) → model selection (the decision's
   ``algorithm`` through the selector registry, over query embeddings
   where the algorithm reads them; a looper algorithm's highest-weight
-  ref, which the server refuses to execute; with the upstream plane, a
+  ref, the server then executing the looper over the decision's
+  models; with the upstream plane, a
   model whose every endpoint circuit is open is masked while others
   remain, and the ranked alternates ride ``x-vsr-fallback-models``) →
   request mutation
@@ -108,8 +109,8 @@ class RouteResult:
     selection_reason: str = ""
     routing_latency_s: float = 0.0
     request_id: str = ""
-    # a looper decision's algorithm: the reference executes several
-    # models here; this port's server refuses it
+    # a looper decision's algorithm: the server executes it over the
+    # decision's models (``looper/``)
     looper_algorithm: str = ""
     # the request's trace and its root (router.route) span, and the
     # committed decision record's id ("" when not sampled)
@@ -708,7 +709,7 @@ class Router:
                       signals: SignalMatches) -> tuple:
         """(ref, reason): a single candidate as is, a looper algorithm's
         highest-weight ref (the reference's primary model; the server
-        refuses to execute the looper), else the decision's selector's
+        then runs the looper), else the decision's selector's
         choice (its query embedding taken lazily, on the
         ``EMBEDDING_TASK``).  A selector that raises routes to the first
         candidate.  With the upstream plane, models whose every endpoint

@@ -2,6 +2,12 @@
 the rewritten body to the routed model's backend, and answers with the
 backend's response stamped with the router's x-vsr-* headers; a
 semantic-cache hit is answered by the router without the backend.
+``POST /v1/messages`` takes an Anthropic Messages request and
+``POST /v1/responses`` an OpenAI Responses request through the same
+route (``anthropic.py``, ``responseapi.py`` translate both ways; a
+Responses turn is stored, and ``previous_response_id`` threads the
+stored conversation into the next); ``GET /v1/models`` lists the model
+cards.
 
 Backends: each model card's ``backend_refs`` (weighted endpoints) name
 the model's own backends (``BackendResolver``: a seeded weighted pick,
@@ -24,15 +30,31 @@ back to the decision's selector (``record_feedback``).  The client's W3C
 the router's own goes to the backend.  A rate-limited request is answered
 429 with ``retry-after``, and never reaches the backend; a passthrough
 (``x-vsr-skip-processing``, when enabled) goes to the default backend
-untouched and its answer comes back untouched, with no response path and
-no feedback.  A request the degradation ladder sheds is answered 429 with
-``retry-after`` and never reaches a backend; a fail-static one is
-forwarded to the static model.  A ``stream: true`` request is answered 400 and a request
-routed to a looper decision 501: neither is served by this port yet, and
-neither reaches the backend.  ``GET /health``
-reports liveness (``healthy``, or ``degraded`` with the firing SLO
-objectives, HTTP 200 either way), ``GET /ready`` readiness.  Standard
-library only (``ThreadingHTTPServer`` + ``http.client``).
+untouched, and its answer goes through the response path and feedback
+like any other.  A request the degradation ladder sheds is answered 429
+with ``retry-after`` and never reaches a backend; a fail-static one is
+forwarded to the static model.  Every upstream call carries the
+client's headers, the route's x-vsr-* headers and the credential
+``authz.credentials`` names for the (user, model) pair
+(``authz.CredentialResolver``); with no credential and ``fail_open:
+false`` the request is answered 403 and forwarded nowhere.
+
+A ``stream: true`` request is relayed frame by frame from one backend
+(the first whose circuit is not open), its time to first token fed
+back; when the stream ends with ``[DONE]`` or a ``finish_reason`` the
+response path runs on the assembled text (so the cache is written only
+then), and a truncated or aborted stream is never cached and fed back
+as a failure.  A decision with a looper algorithm (confidence, ratings,
+remom, fusion, workflows) is executed over its models
+(``looper/``): the router becomes the client, each fan-out call marked
+``x-vsr-looper-request`` (a request so marked is served single-model)
+and carrying its own candidate's credential; fusion's grounding runs
+one ``nli`` classification per panel answer.  ``GET /health`` reports
+liveness (``healthy``, or ``degraded`` with the firing SLO objectives,
+HTTP 200 either way), ``GET /ready`` readiness.  Serves on
+``httpserver.PooledHTTPServer`` (``api_server.http_workers`` request
+workers, idle keep-alive connections parked on a selector); request
+bodies may be chunked.  Standard library only.
 
 The Classification API answers as the reference server's handlers do
 with no API keys configured:
@@ -80,19 +102,39 @@ import json
 import socket
 import threading
 import time
+import urllib.error
 import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional, Tuple
+import urllib.request
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..config.schema import RouterConfig
+from ..looper import HTTPLLMClient, Looper
+from ..looper.workflows import WorkflowsLooper, build_workflow_state_store
 from ..observability.inflight import default_tracker
 from ..observability.profiler import XLA_DUMP_UNSUPPORTED
 from ..resilience.upstream import attempt_timeout, parse_deadline
 from . import headers as H
+from .anthropic import (
+    anthropic_to_openai,
+    openai_sse_to_anthropic_events,
+    openai_to_anthropic_response,
+)
+from .authz import CredentialResolver
 from .httpclient import UpstreamPool
-from .pipeline import EMBEDDING_TASK, Router
+from .httpserver import PooledHTTPServer
+from .pipeline import EMBEDDING_TASK, Router, usage_cost
+from .responseapi import (
+    build_incomplete_response,
+    build_response_store,
+    chat_sse_to_response_events,
+    chat_to_response,
+    responses_to_chat,
+)
 
 # the routes this server answers (the reference's discovery document,
 # trimmed to what the port serves)
@@ -101,6 +143,9 @@ API_CATALOG = {"endpoints": [
         ("/health", "GET"),
         ("/api/v1", "GET"),
         ("/v1/chat/completions", "POST"),
+        ("/v1/messages", "POST"),
+        ("/v1/responses", "POST"),
+        ("/v1/models", "GET"),
         ("/api/v1/classify/intent", "POST"),
         ("/api/v1/classify/pii", "POST"),
         ("/api/v1/classify/security", "POST"),
@@ -136,10 +181,95 @@ CLASSIFY_TASKS = {"intent": "intent", "security": "jailbreak", "pii": "pii",
 
 class _Handler(BaseHTTPRequestHandler):
     server_version = "semantic-router-torch/0.1"
+    # keep-alive: every JSON answer carries content-length; an SSE answer
+    # closes its connection (_sse_headers)
     protocol_version = "HTTP/1.1"
+    # an idle kept-alive connection must not pin a pool worker forever
+    timeout = 65
+    # the most a chunked request body may carry
+    _MAX_CHUNKED = 64 * 1024 * 1024
 
     def log_message(self, *args):  # silence
         pass
+
+    def handle_one_request(self):
+        # the handler instance serves every request of its connection:
+        # whether THIS request's body was read is per request
+        self._body_consumed = False
+        super().handle_one_request()
+
+    def _req_headers(self) -> Dict[str, str]:
+        return {k.lower(): v for k, v in self.headers.items()}
+
+    # -- request bodies ----------------------------------------------------
+
+    def _raw_body(self) -> bytes:
+        """The request body: chunked or content-length framed."""
+        if "chunked" in self.headers.get("transfer-encoding", "").lower():
+            raw = self._read_chunked()
+        else:
+            length = int(self.headers.get("content-length", 0) or 0)
+            raw = self.rfile.read(length) if length else b""
+        self._body_consumed = True
+        return raw
+
+    def _read_chunked(self) -> bytes:
+        """A ``Transfer-Encoding: chunked`` body.  Left unread, its bytes
+        would be parsed as the connection's next request."""
+        out, total = [], 0
+        while True:
+            line = self.rfile.readline(65557)
+            try:
+                size = int(line.split(b";")[0].strip() or b"0", 16)
+            except ValueError:
+                self.close_connection = True
+                break
+            if size == 0:
+                while True:  # trailers until the blank line
+                    t = self.rfile.readline(65557)
+                    if t in (b"\r\n", b"\n", b""):
+                        break
+                break
+            total += size
+            if total > self._MAX_CHUNKED:
+                self.close_connection = True
+                break
+            out.append(self.rfile.read(size))
+            self.rfile.read(2)  # the chunk's CRLF
+        return b"".join(out)
+
+    def _drain_body(self) -> None:
+        """Consume an unread request body before answering, so an early
+        answer leaves no body bytes to be read as the next request."""
+        if getattr(self, "_body_consumed", False):
+            return
+        self._body_consumed = True
+        if "chunked" in self.headers.get("transfer-encoding", "").lower():
+            # no parser for a drain: stop reusing the connection
+            self.close_connection = True
+            return
+        remaining = int(self.headers.get("content-length", 0) or 0)
+        while remaining > 0:
+            chunk = self.rfile.read(min(65536, remaining))
+            if not chunk:
+                break
+            remaining -= len(chunk)
+
+    def _sse_headers(self, headers: Dict[str, str]) -> None:
+        """Start a text/event-stream answer.  SSE has no content-length,
+        so the connection closes when the stream ends (a kept-alive
+        connection's next request would hang otherwise)."""
+        self.send_response(200)
+        self.send_header("content-type", "text/event-stream")
+        self.send_header("connection", "close")
+        self.close_connection = True
+        for k, v in headers.items():
+            self.send_header(k, v)
+        self.end_headers()
+
+    def _event(self, event: str, payload: dict) -> None:
+        self.wfile.write(f"event: {event}\ndata: "
+                         f"{json.dumps(payload)}\n\n".encode())
 
     def _query(self) -> dict:
         q = urllib.parse.urlsplit(self.path).query
@@ -161,6 +291,12 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, {"status": "healthy"})
         elif path == "/api/v1":
             self._reply(200, API_CATALOG)
+        elif path == "/v1/models":
+            self._reply(200, {"object": "list", "data": [
+                {"id": m.name, "object": "model",
+                 "metadata": {"quality_score": m.quality_score,
+                              "modality": m.modality, "tags": m.tags}}
+                for m in srv.router.cfg.model_cards]})
         elif path == "/ready":
             ok = srv.ready.is_set()
             self._reply(200 if ok else 503, {
@@ -266,8 +402,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         path = self.path.split("?", 1)[0]
-        length = int(self.headers.get("content-length", 0))
-        data = self.rfile.read(length)
+        data = self._raw_body()
         if path == "/debug/flightrec/clear" \
                 or path.startswith("/debug/profiler/"):
             try:
@@ -276,7 +411,8 @@ class _Handler(BaseHTTPRequestHandler):
                 body = {}
             self._debug_post(path, body if isinstance(body, dict) else {})
             return
-        known = path == "/v1/chat/completions" or path in (
+        known = path in (
+            "/v1/chat/completions", "/v1/messages", "/v1/responses",
             "/api/v1/embeddings", "/api/v1/similarity",
             "/api/v1/similarity/batch") \
             or path.startswith("/api/v1/classify/")
@@ -288,8 +424,11 @@ class _Handler(BaseHTTPRequestHandler):
         except json.JSONDecodeError:
             self._reply(400, {"error": {"message": "request body is not JSON"}})
             return
-        if path == "/v1/chat/completions":
-            self._chat(body)
+        if path in ("/v1/chat/completions", "/v1/messages"):
+            self._chat(body, anthropic=path == "/v1/messages")
+            return
+        if path == "/v1/responses":
+            self._responses(body)
             return
         try:
             if path.startswith("/api/v1/classify/"):
@@ -393,43 +532,52 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- chat ----------------------------------------------------------------
 
-    def _chat(self, body: dict) -> None:
+    def _chat(self, body: dict, anthropic: bool) -> None:
+        """A chat turn, OpenAI-shaped or (``anthropic``) a Messages
+        request translated in and its answer translated back."""
         srv: RouterServer = self.server.owner
         router = srv.router
-        if body.get("stream"):
-            # the reference streams the backend's SSE answer through its
-            # response path; until that is ported the request is refused,
-            # never forwarded and answered with raw SSE bytes
-            self._reply(400, {"error": {
-                "message": "stream: true is not served by this router "
-                           "yet; send the request without streaming",
-                "type": "unsupported_stream"}})
+        req_headers = self._req_headers()
+        openai_body = anthropic_to_openai(body) if anthropic else body
+        result = router.route(openai_body, req_headers)
+        if result.kind in ("cache_hit", "blocked", "rate_limited", "shed") \
+                or result.response_body is not None:
+            payload = result.response_body
+            if anthropic and result.status == 200 and payload \
+                    and "choices" in payload:
+                payload = openai_to_anthropic_response(payload)
+            self._reply(result.status, payload, result.headers)
             return
-        req_headers = {k.lower(): v for k, v in self.headers.items()}
-        result = router.route(body, req_headers)
-        if result.kind in ("cache_hit", "blocked", "rate_limited", "shed"):
-            self._reply(result.status, result.response_body, result.headers)
+        # a looper-marked request is one of the looper's own fan-out calls
+        # coming back: served single-model, never fanned out again
+        is_looper_call = req_headers.get(H.LOOPER, "").lower() in (
+            "1", "true")
+        if result.looper_algorithm and result.decision is not None \
+                and not is_looper_call:
+            self._looper_chat(result, req_headers, anthropic)
             return
-        if result.kind == "passthrough":
-            status, data = srv.forward(result.body)
-            self._reply_raw(status, data)
+        try:
+            fwd_headers = srv.upstream_headers(result, req_headers)
+        except PermissionError as exc:
+            self._reply(403, {"error": {"message": str(exc),
+                                        "type": "authz_error"}},
+                        result.headers)
             return
-        if result.looper_algorithm:
-            # the reference fans a looper decision out over its models;
-            # forwarding to the one primary model would answer
-            # differently without a word
-            self._reply(501, {"error": {
-                "message": f"decision {result.decision.decision.name!r} "
-                           f"runs the looper algorithm "
-                           f"{result.looper_algorithm!r} (multi-model "
-                           f"execution), which this router does not "
-                           f"serve yet",
-                "type": "unsupported_looper"}}, result.headers)
+        if result.body.get("stream"):
+            # a stream pins one endpoint (no failover mid-stream), the
+            # first whose circuit is not open
+            backend = srv._pick_stream_backend(result.model)
+            if not backend:
+                self._reply(502, {"error": {
+                    "message": f"no backend for model {result.model!r}",
+                    "type": "backend_error"}}, result.headers)
+                return
+            token = default_tracker.begin(result.model)
+            try:
+                self._stream_chat(result, backend, fwd_headers, anthropic)
+            finally:
+                default_tracker.end(result.model, token)
             return
-        # the backend's spans parent under this request's router.route
-        fwd_headers: dict = {}
-        router.tracer.inject(result.trace_id, result.root_span_id,
-                             fwd_headers)
         t0 = time.perf_counter()
         token = default_tracker.begin(result.model)
         try:
@@ -439,25 +587,427 @@ class _Handler(BaseHTTPRequestHandler):
             default_tracker.end(result.model, token)
         latency_ms = (time.perf_counter() - t0) * 1e3
         failover_headers = srv._annotate_failover(result, path)
+        reply = _parse_upstream(data)
         if status != 200:
             router.record_feedback(result, success=False,
                                    latency_ms=latency_ms)
-            self._reply_raw(status, data, result.headers)
+            self._reply(status, reply, result.headers)
+            return
+        processed = router.process_response(result, reply)
+        router.record_feedback(result, success=True, latency_ms=latency_ms)
+        self._record_session(result, reply, req_headers)
+        payload = processed.body
+        if anthropic:
+            payload = openai_to_anthropic_response(payload)
+        self._reply(200, payload, {**result.headers, **failover_headers,
+                                   **processed.headers})
+
+    def _record_session(self, route, resp: dict,
+                        headers: Dict[str, str]) -> None:
+        """Session telemetry after an answered turn: turns, tokens, cost
+        and model transitions of the session the conversation derives.
+        Telemetry never fails a request."""
+        sessions = self.server.owner.registry.get("sessions")
+        if sessions is None:
             return
         try:
-            reply = json.loads(data)
-        except ValueError:
-            reply = None
-        processed = router.process_response(result, reply) \
-            if isinstance(reply, dict) else None
-        router.record_feedback(result, success=True, latency_ms=latency_ms)
-        if processed is None:
-            self._reply_raw(status, data,
-                            {**result.headers, **failover_headers})
+            usage = resp.get("usage") or {}
+            card = self.server.owner.router.model_cards.get(route.model)
+            cost = usage_cost(usage, (card.pricing if card else {}) or {})
+            category = ""
+            if route.signals:
+                category = next(iter(
+                    route.signals.matches.get("domain", ())), "")
+            sessions.record_turn(
+                (route.body or {}).get("messages", []), route.model,
+                user_id=headers.get("x-authz-user-id",
+                                    (route.body or {}).get("user", "")),
+                prompt_tokens=usage.get("prompt_tokens", 0),
+                completion_tokens=usage.get("completion_tokens", 0),
+                cost=cost, domain=category)
+        except Exception:
+            pass
+
+    def _open_stream(self, route, backend: str, body: dict,
+                     fwd_headers: Dict[str, str]):
+        """POST a streaming request to ``backend``: (the open response,
+        t0), or (None, t0) once an error answer went to the client (the
+        backend's own status and payload on an HTTP error, 502 when it
+        cannot be reached) and the failure was fed back."""
+        srv: RouterServer = self.server.owner
+        req = urllib.request.Request(backend + "/v1/chat/completions",
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        req.add_header("content-type", "application/json")
+        for k, v in fwd_headers.items():
+            if k.lower() not in _HOP_BY_HOP:
+                req.add_header(k, v)
+        t0 = time.perf_counter()
+        try:
+            upstream = urllib.request.urlopen(req,
+                                              timeout=srv.forward_timeout_s)
+        except urllib.error.HTTPError as e:
+            try:
+                payload = json.loads(e.read() or b"{}")
+            except json.JSONDecodeError:
+                payload = {"error": {"message": str(e)}}
+            srv.router.record_feedback(
+                route, success=False,
+                latency_ms=(time.perf_counter() - t0) * 1e3)
+            srv._note_stream_outcome(route.model, backend, e.code < 500,
+                                     time.perf_counter() - t0,
+                                     kind="5xx" if e.code >= 500 else "ok")
+            self._reply(e.code, payload, route.headers)
+            return None, t0
+        except Exception as exc:
+            srv.router.record_feedback(
+                route, success=False,
+                latency_ms=(time.perf_counter() - t0) * 1e3)
+            srv._note_stream_outcome(route.model, backend, False,
+                                     time.perf_counter() - t0)
+            self._reply(502, {"error": {
+                "message": f"backend unreachable: {exc}",
+                "type": "backend_error"}}, route.headers)
+            return None, t0
+        srv._note_stream_outcome(route.model, backend, True,
+                                 time.perf_counter() - t0)
+        return upstream, t0
+
+    def _stream_chat(self, route, backend: str, fwd_headers: Dict[str, str],
+                     anthropic: bool) -> None:
+        """Relay the backend's SSE answer frame by frame (re-synthesized
+        as Anthropic events for ``/v1/messages``), time its first token,
+        and run the response path on the assembled text once the stream
+        completed; a truncated or aborted stream is never cached."""
+        srv: RouterServer = self.server.owner
+        upstream, t0 = self._open_stream(route, backend, route.body,
+                                         fwd_headers)
+        if upstream is None:
             return
-        self._reply(200, processed.body,
-                    {**result.headers, **failover_headers,
-                     **processed.headers})
+        self._sse_headers(route.headers)
+        chunks: list = []
+        ttft_ms = 0.0
+        aborted = finished = False
+
+        def iter_chunks():
+            nonlocal ttft_ms, finished
+            while True:
+                line = upstream.readline()
+                if not line:
+                    break
+                if not line.startswith(b"data:"):
+                    continue
+                payload = line[5:].strip()
+                if payload == b"[DONE]":
+                    finished = True
+                    break
+                try:
+                    chunk = json.loads(payload)
+                except json.JSONDecodeError:
+                    continue
+                if not ttft_ms:
+                    ttft_ms = (time.perf_counter() - t0) * 1e3
+                chunks.append(chunk)
+                if any((c.get("finish_reason") or "")
+                       for c in chunk.get("choices", ())):
+                    finished = True
+                yield chunk
+
+        try:
+            if anthropic:
+                for event, payload in openai_sse_to_anthropic_events(
+                        iter_chunks()):
+                    self._event(event, payload)
+            else:
+                for chunk in iter_chunks():
+                    self.wfile.write(
+                        f"data: {json.dumps(chunk)}\n\n".encode())
+                self.wfile.write(b"data: [DONE]\n\n")
+        except Exception:
+            # the client left or the backend stalled: the SSE headers are
+            # on the wire, so stop writing (never a second answer)
+            aborted = True
+        finally:
+            upstream.close()
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        if aborted or not finished:
+            srv.router.record_feedback(route, success=False,
+                                       latency_ms=latency_ms,
+                                       ttft_ms=ttft_ms)
+            return
+        text = "".join((c.get("choices") or [{}])[0].get("delta", {})
+                       .get("content") or "" for c in chunks)
+        usage = next((c.get("usage") for c in reversed(chunks)
+                      if c.get("usage")), {})
+        final = {"choices": [{"message": {"role": "assistant",
+                                          "content": text},
+                              "finish_reason": "stop"}],
+                 "usage": usage or {}}
+        srv.router.process_response(route, final)
+        srv.router.record_feedback(route, success=True,
+                                   latency_ms=latency_ms, ttft_ms=ttft_ms)
+
+    # -- the Responses API ---------------------------------------------------
+
+    def _responses(self, body: dict) -> None:
+        """``POST /v1/responses``: translate to a chat request (with the
+        stored conversation of ``previous_response_id``), route, forward,
+        translate back and store."""
+        srv: RouterServer = self.server.owner
+        router = srv.router
+        req_headers = self._req_headers()
+        chat_body = responses_to_chat(body, srv.response_store)
+        result = router.route(chat_body, req_headers)
+        if result.kind in ("cache_hit", "blocked", "rate_limited", "shed") \
+                or result.response_body is not None:
+            payload = result.response_body
+            if result.status == 200 and payload and "choices" in payload:
+                payload = chat_to_response(payload, body,
+                                           chat_request=result.body,
+                                           store=srv.response_store)
+                if body.get("stream"):
+                    # an SSE client gets an event sequence, never a bare
+                    # JSON body
+                    self._oneshot_response_sse(payload, result.headers)
+                    return
+            self._reply(result.status, payload, result.headers)
+            return
+        if result.looper_algorithm and result.decision is not None \
+                and req_headers.get(H.LOOPER, "").lower() not in (
+                    "1", "true"):
+            self._looper_chat(result, req_headers, anthropic=False,
+                              responses_request=body)
+            return
+        try:
+            fwd_headers = srv.upstream_headers(result, req_headers)
+        except PermissionError as exc:
+            self._reply(403, {"error": {"message": str(exc),
+                                        "type": "authz_error"}},
+                        result.headers)
+            return
+        if body.get("stream"):
+            backend = srv._pick_stream_backend(result.model)
+            if not backend:
+                self._reply(502, {"error": {
+                    "message": f"no backend for model {result.model!r}",
+                    "type": "backend_error"}}, result.headers)
+                return
+            self._stream_responses(result, backend, fwd_headers, body)
+            return
+        t0 = time.perf_counter()
+        status, data, _, path = srv._forward_resilient(result, fwd_headers,
+                                                       req_headers)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        failover_headers = srv._annotate_failover(result, path)
+        reply = _parse_upstream(data)
+        if status != 200:
+            router.record_feedback(result, success=False,
+                                   latency_ms=latency_ms)
+            self._reply(status, reply, result.headers)
+            return
+        processed = router.process_response(result, reply)
+        router.record_feedback(result, success=True, latency_ms=latency_ms)
+        out = chat_to_response(processed.body, body,
+                               chat_request=result.body,
+                               store=srv.response_store)
+        self._reply(200, out, {**result.headers, **failover_headers,
+                               **processed.headers})
+
+    def _oneshot_response_sse(self, response_obj: dict,
+                              headers: Dict[str, str]) -> None:
+        """A finished response object as the whole event sequence
+        (created → item added → part added → delta → text done → part
+        done → item done → completed): SDK accumulators key deltas on the
+        announced item."""
+        self._sse_headers(headers)
+        text = response_obj.get("output_text", "")
+        item_id = f"msg_{uuid.uuid4().hex[:16]}"
+        part = {"type": "output_text", "text": text, "annotations": []}
+        where = {"item_id": item_id, "output_index": 0, "content_index": 0}
+        events = [
+            ("response.created", {
+                "type": "response.created",
+                "response": {**response_obj, "status": "in_progress",
+                             "output": []}}),
+            ("response.output_item.added", {
+                "type": "response.output_item.added", "output_index": 0,
+                "item": {"type": "message", "id": item_id,
+                         "role": "assistant", "status": "in_progress",
+                         "content": []}}),
+            ("response.content_part.added", {
+                "type": "response.content_part.added", **where,
+                "part": {"type": "output_text", "text": "",
+                         "annotations": []}}),
+            ("response.output_text.delta", {
+                "type": "response.output_text.delta", **where,
+                "delta": text}),
+            ("response.output_text.done", {
+                "type": "response.output_text.done", **where,
+                "text": text}),
+            ("response.content_part.done", {
+                "type": "response.content_part.done", **where,
+                "part": part}),
+            ("response.output_item.done", {
+                "type": "response.output_item.done", "output_index": 0,
+                "item": {"type": "message", "id": item_id,
+                         "role": "assistant", "status": "completed",
+                         "content": [part]}}),
+            ("response.completed", {"type": "response.completed",
+                                    "response": response_obj}),
+        ]
+        try:
+            for event, payload in events:
+                self._event(event, payload)
+        except Exception:
+            pass
+
+    def _stream_responses(self, route, backend: str,
+                          fwd_headers: Dict[str, str],
+                          request_body: dict) -> None:
+        """A streamed Responses turn: the backend's chat SSE chunks become
+        the response.* event sequence; an upstream that dies mid-answer
+        ends it with ``response.incomplete`` carrying the partial text,
+        and nothing is stored or cached."""
+        srv: RouterServer = self.server.owner
+        upstream_body = dict(route.body)
+        upstream_body["stream"] = True
+        # without include_usage an OpenAI-compatible backend sends no
+        # usage chunk
+        upstream_body.setdefault("stream_options", {})
+        upstream_body["stream_options"].setdefault("include_usage", True)
+        upstream, t0 = self._open_stream(route, backend, upstream_body,
+                                         fwd_headers)
+        if upstream is None:
+            return
+        self._sse_headers(route.headers)
+        finished = False
+
+        def iter_chunks():
+            nonlocal finished
+            while True:
+                try:
+                    line = upstream.readline()
+                except OSError:
+                    break  # a reset mid-answer reads as its end
+                if not line:
+                    break
+                if not line.startswith(b"data:"):
+                    continue
+                payload = line[5:].strip()
+                if payload == b"[DONE]":
+                    finished = True
+                    break
+                try:
+                    chunk = json.loads(payload)
+                except json.JSONDecodeError:
+                    continue
+                if any((c.get("finish_reason") or "")
+                       for c in chunk.get("choices", ())):
+                    finished = True
+                yield chunk
+
+        completed = False
+        created: Dict[str, Any] = {}
+        try:
+            for event, payload in chat_sse_to_response_events(
+                    iter_chunks(), request_body, chat_request=route.body,
+                    store=srv.response_store):
+                if event == "response.created":
+                    created = payload["response"]
+                if event == "response.output_text.done" and not finished:
+                    # the upstream died: never done / completed for
+                    # partial text, never store it, but tell the client
+                    failed = build_incomplete_response(
+                        created, payload.get("item_id", ""),
+                        payload.get("text", ""))
+                    self._event("response.incomplete",
+                                {"type": "response.incomplete",
+                                 "response": failed})
+                    break
+                self._event(event, payload)
+                if event == "response.completed":
+                    completed = True
+                    final = payload["response"]
+                    usage = final.get("usage") or {}
+                    srv.router.process_response(route, {
+                        "choices": [{"message": {
+                            "role": "assistant",
+                            "content": final.get("output_text", "")},
+                            "finish_reason": "stop"}],
+                        "usage": {
+                            "prompt_tokens": usage.get("input_tokens", 0),
+                            "completion_tokens":
+                                usage.get("output_tokens", 0),
+                            "total_tokens": usage.get("total_tokens", 0)}})
+        except Exception:
+            pass  # the client left mid-stream: stop writing
+        finally:
+            upstream.close()
+        srv.router.record_feedback(
+            route, success=completed,
+            latency_ms=(time.perf_counter() - t0) * 1e3)
+
+    # -- the looper ----------------------------------------------------------
+
+    def _looper_chat(self, route, req_headers: Dict[str, str],
+                     anthropic: bool,
+                     responses_request: Optional[dict] = None) -> None:
+        """Execute a looper decision over its models: the router is the
+        client, each fan-out call carries the client's headers and its
+        own candidate's credential (a candidate without one fails
+        closed)."""
+        srv: RouterServer = self.server.owner
+        decision = route.decision.decision
+        nli = None
+        eng = srv.router.engine
+        if eng is not None and eng.has_task("nli"):
+            def nli(premise, claim):
+                r = eng.classify("nli", f"{premise}\n[SEP]\n{claim}")
+                return r.probs.get("entailment", r.confidence)
+        looper = Looper(srv.looper_client, nli, pool=srv.looper_pool)
+
+        def headers_for(model: str) -> Dict[str, str]:
+            return srv._credentials_for_model(model, req_headers)
+
+        t0 = time.perf_counter()
+        try:
+            if route.looper_algorithm == "workflows":
+                result = srv.workflows.execute(
+                    decision.algorithm, decision.model_refs, route.body,
+                    headers=req_headers, headers_for=headers_for)
+            else:
+                result = looper.execute(
+                    decision.algorithm, decision.model_refs, route.body,
+                    headers=req_headers, headers_for=headers_for)
+        except Exception as exc:
+            srv.router.record_feedback(
+                route, success=False,
+                latency_ms=(time.perf_counter() - t0) * 1e3)
+            self._reply(502, {"error": {"message": f"looper failed: {exc}",
+                                        "type": "looper_error"}},
+                        route.headers)
+            return
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        route.model = result.model
+        processed = srv.router.process_response(route, result.body)
+        srv.router.record_feedback(route, success=True,
+                                   latency_ms=latency_ms)
+        out_headers = {**route.headers, **processed.headers,
+                       H.MODEL: result.model,
+                       H.LOOPER_ALGORITHM: result.algorithm,
+                       H.LOOPER_CANDIDATES: ",".join(
+                           result.candidates_used)}
+        payload = processed.body
+        if anthropic:
+            payload = openai_to_anthropic_response(payload)
+        elif responses_request is not None:
+            payload = chat_to_response(payload, responses_request,
+                                       chat_request=route.body,
+                                       store=srv.response_store)
+            if responses_request.get("stream"):
+                self._oneshot_response_sse(payload, out_headers)
+                return
+        self._reply(200, payload, out_headers)
 
     def _reply(self, status: int, payload: dict,
                headers: Optional[dict] = None) -> None:
@@ -469,6 +1019,7 @@ class _Handler(BaseHTTPRequestHandler):
     def _reply_raw(self, status: int, data: bytes,
                    headers: Optional[dict] = None,
                    content_type: str = "application/json") -> None:
+        self._drain_body()
         self.send_response(status)
         self.send_header("content-type", content_type)
         self.send_header("content-length", str(len(data)))
@@ -505,6 +1056,15 @@ def _error_bytes(message: str) -> bytes:
                                  "type": "backend_error"}}).encode()
 
 
+def _parse_upstream(raw: bytes) -> Any:
+    """A backend's answer as JSON; a body that is not JSON becomes an
+    error object carrying its first 300 bytes."""
+    try:
+        return json.loads(raw or b"{}")
+    except json.JSONDecodeError:
+        return {"error": {"message": raw[:300].decode(errors="replace")}}
+
+
 class BackendResolver:
     """model name → base URL through ``modelCards[].backend_refs``
     (weighted endpoints); a model without any goes to the default
@@ -523,6 +1083,11 @@ class BackendResolver:
             if refs:
                 self._by_model[card.name] = refs
         self._rng = np.random.default_rng(0)
+
+    def resolve(self, model: str) -> str:
+        """The model's first candidate endpoint ("" when there is none)."""
+        candidates = self.resolve_candidates(model)
+        return candidates[0] if candidates else ""
 
     def resolve_candidates(self, model: str) -> list:
         """Ordered endpoint candidates: a weighted pick first, then every
@@ -553,7 +1118,10 @@ class RouterServer:
     sinks ``/metrics`` and ``/debug/*`` read; None binds the router's own
     (its series' metrics registry, tracer, flight recorder, decision
     ring, degradation controller and upstream plane) and the engine's
-    runtime stats and program catalog."""
+    runtime stats and program catalog.  The looper's client and its pool
+    of 16 fan-out workers, the workflows engine (its pending tool state
+    lives across requests), the Responses store and the credential
+    resolver are the server's own."""
 
     def __init__(self, router: Router, backend_url: str,
                  host: str = "127.0.0.1", port: int = 0,
@@ -582,9 +1150,19 @@ class RouterServer:
                              f"{backend_url!r}")
         self.resolver = BackendResolver(router.cfg, backend_url.rstrip("/"))
         self.forward_timeout_s = timeout_s
+        cfg = router.cfg
+        self.credentials = CredentialResolver.from_config(cfg.authz)
+        self.response_store = build_response_store(cfg.response_store)
+        self.looper_client = HTTPLLMClient(self.resolver.resolve, timeout_s)
+        self.looper_pool = ThreadPoolExecutor(max_workers=16,
+                                              thread_name_prefix="looper")
+        self.workflows = WorkflowsLooper(
+            self.looper_client, pool=self.looper_pool,
+            state_store=build_workflow_state_store(cfg.looper))
         self.upstream_pool = UpstreamPool()
-        self.httpd = ThreadingHTTPServer((host, port), _Handler)
-        self.httpd.daemon_threads = True
+        workers = int((cfg.api_server or {}).get("http_workers", 64))
+        self.httpd = PooledHTTPServer((host, port), _Handler,
+                                      max_workers=workers)
         self.httpd.owner = self  # type: ignore[attr-defined]
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
@@ -600,6 +1178,51 @@ class RouterServer:
         endpoint-failover forward)."""
         return self.registry.get("upstreams")
 
+    # -- upstream headers --------------------------------------------------
+
+    def _credentials_for_model(self, model: str, headers: Dict[str, str]
+                               ) -> Dict[str, str]:
+        """The credential header for (the request's user, ``model``);
+        identity headers count only with ``authz.trust_identity_headers``.
+        Raises PermissionError with no match and ``fail_open: false``."""
+        user_id = headers.get("x-authz-user-id", "")
+        groups = [g.strip() for g in
+                  headers.get("x-authz-user-groups", "").split(",")
+                  if g.strip()]
+        return self.credentials.headers_for(model, user_id, groups)
+
+    def upstream_headers(self, route, req_headers: Dict[str, str]
+                         ) -> Dict[str, str]:
+        """What a routed request's upstream call carries: the client's
+        headers, the router's ``traceparent`` (the backend's spans parent
+        under ``router.route``), the route's x-vsr-* headers and the
+        credential.  Raises PermissionError as the resolver does."""
+        fwd = dict(req_headers)
+        self.router.tracer.inject(route.trace_id, route.root_span_id, fwd)
+        fwd.update(route.headers)
+        fwd.update(self._credentials_for_model(route.model, req_headers))
+        return fwd
+
+    def _pick_stream_backend(self, model: str) -> str:
+        """A stream pins one endpoint: the first candidate whose circuit
+        is not open (the first candidate without the upstream plane)."""
+        candidates = self.resolver.resolve_candidates(model)
+        up = self.upstreams
+        if up is not None:
+            for url in candidates:
+                if up.allow(model, url):
+                    return url
+        return candidates[0] if candidates else ""
+
+    def _note_stream_outcome(self, model: str, endpoint: str, ok: bool,
+                             latency_s: float, kind: str = "") -> None:
+        """A stream's outcome for the upstream plane's health scorer
+        (streams bypass ``_forward_resilient``)."""
+        up = self.upstreams
+        if up is not None:
+            up.record(model, endpoint, ok, latency_s,
+                      kind=kind or ("ok" if ok else "connect"))
+
     # -- forwarding ------------------------------------------------------------
 
     @staticmethod
@@ -610,20 +1233,6 @@ class RouterServer:
             if k.lower() not in _HOP_BY_HOP:
                 hdrs[k] = v
         return json.dumps(body).encode(), hdrs
-
-    def forward(self, body: dict,
-                headers: Optional[dict] = None) -> "tuple[int, bytes]":
-        """POST ``body`` to the default backend; (status, response bytes),
-        502 when it cannot be reached."""
-        data, hdrs = self._prep_forward(body, headers)
-        try:
-            status, _, raw = self.upstream_pool.request(
-                "POST", self.resolver.default_backend
-                + "/v1/chat/completions", data, hdrs,
-                self.forward_timeout_s)
-        except (http.client.HTTPException, OSError) as exc:
-            return 502, _error_bytes(f"backend unreachable: {exc}")
-        return status, raw
 
     def _forward_failover(self, model: str, body: dict,
                           headers: Optional[dict]
@@ -860,3 +1469,4 @@ class RouterServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.upstream_pool.close()
+        self.looper_pool.shutdown(wait=False, cancel_futures=True)

@@ -1,8 +1,8 @@
 """Runtime service registry: the per-instance observability sinks.
 
 The port's copy of ``semantic_router_tpu.runtime.registry``, with the
-slots this package fills: the metrics registry, the tracer, the profiler
-control, the runtime event bus, the flight recorder, the runtime-stats
+slots this package fills: the metrics registry, the tracer, the session
+telemetry, the profiler control, the runtime event bus, the flight recorder, the runtime-stats
 sampler, the program-cost catalog, the SLO monitor, the decision-record
 ring, the degradation controller, the upstream health plane and the
 cascade evaluator.  ``RuntimeRegistry.with_defaults()``
@@ -18,8 +18,8 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict
 
-_SLOTS = ("metrics", "tracer", "profiler", "events", "flightrec",
-          "runtimestats", "programstats", "slo", "explain", "resilience",
+_SLOTS = ("metrics", "tracer", "sessions", "profiler", "events",
+          "flightrec", "runtimestats", "programstats", "slo", "explain", "resilience",
           "engine",
           # the upstream health plane (resilience.upstream.UpstreamHealth):
           # empty unless resilience.upstream.enabled (apply_upstream_knobs)
@@ -48,6 +48,7 @@ class RuntimeRegistry:
         from ..observability.profiler import default_profiler
         from ..observability.programstats import default_program_stats
         from ..observability.runtimestats import default_runtime_stats
+        from ..observability.session import default_session_telemetry
         from ..observability.slo import default_slo_monitor
         from ..observability.tracing import default_tracer
         from ..resilience.controller import default_degradation_controller
@@ -56,6 +57,7 @@ class RuntimeRegistry:
         base: Dict[str, Any] = {
             "metrics": default_registry,
             "tracer": default_tracer,
+            "sessions": default_session_telemetry,
             "profiler": default_profiler,
             "events": default_bus,
             "flightrec": default_flight_recorder,
@@ -73,7 +75,8 @@ class RuntimeRegistry:
         """Fully per-instance sinks: a fresh metrics registry (the
         runtime-stats, program-catalog, SLO and ladder series register in
         it), tracer, profiler control, event bus, flight recorder, SLO
-        monitor, decision ring and degradation controller (one router
+        monitor, session telemetry, decision ring and degradation
+        controller (one router
         browning out never sheds a sibling's traffic).  Wire them
         with ``build_engine(cfg, registry=...)``,
         ``build_router(cfg, engine, registry=...)`` and
@@ -84,6 +87,7 @@ class RuntimeRegistry:
         from ..observability.profiler import ProfilerControl
         from ..observability.programstats import ProgramCatalog
         from ..observability.runtimestats import RuntimeStats
+        from ..observability.session import SessionTelemetry
         from ..observability.slo import SLOMonitor
         from ..observability.tracing import Tracer
         from ..resilience.controller import DegradationController
@@ -94,6 +98,7 @@ class RuntimeRegistry:
         base: Dict[str, Any] = {
             "metrics": metrics,
             "tracer": Tracer(),
+            "sessions": SessionTelemetry(),
             "profiler": ProfilerControl(),
             "events": EventBus(),
             "flightrec": FlightRecorder(),

@@ -2,12 +2,15 @@
 not serve: each one the JAX router acts on is loaded by the JAX loader and
 refused by the port's, the key named in the message, and loads on both
 when off; the options a later slice ported (the cascade, the rate limit,
-skip-processing, prompt compression, recipes and entrypoints) load on
-both and parse to the same block; a canonical ``global:`` block lifts to
-the same fields on both;
-``stream: true`` gets an error body and a looper decision a 501, and the
-backend sees neither; a checkpoint of another architecture is refused by
-name.  The resilience plane (the degradation ladder, the upstream health
+skip-processing, prompt compression, recipes and entrypoints, the
+in-memory Responses store) load on both and parse to the same block; a
+canonical ``global:`` block lifts to the same fields on both; a
+``stream: true`` request whose backend cannot answer gets the
+reference's error body, and a looper decision is routed as the
+reference routes it, executed over a live backend and refused (502,
+``looper_error``) when none of its models answers, as the reference's
+server does; a checkpoint of another architecture is refused by name.
+The resilience plane (the degradation ladder, the upstream health
 plane, local SLO objectives) loads and parses as the reference's; what it
 reads through the shared state plane (fleet-scoped objectives, the
 fleet-shared ladder of ``stateplane.share.fleet``, the fleet-shared open
@@ -58,6 +61,10 @@ PORTED = {
             "retry": {"on": "connect", "max_attempts": "4"},
             "deadline": {"default_s": 5}}}},
         {"resilience": {"upstream": {"enabled": False}}}),
+    "response_store": ({"response_store": {"enabled": True,
+                                           "backend": "memory",
+                                           "max_entries": 8}},
+                       {"response_store": {"enabled": False}}),
     "observability.slo.objectives": (
         {"observability": {"slo": {"evaluation_interval_s": 0.25,
                                    "objectives": [
@@ -81,8 +88,14 @@ REFUSED = {
     "ann": ({"ann": {"enabled": True}}, {"ann": {"enabled": False}}),
     "vectorstore": ({"vectorstore": {"enabled": True}},
                     {"vectorstore": {"enabled": False}}),
-    "response_store": ({"response_store": {"enabled": True}},
-                       {"response_store": {"enabled": False}}),
+    # the Redis / Valkey stores need a RESP client
+    "response_store.backend": ({"response_store": {"backend": "redis",
+                                                   "host": "r"}},
+                               {"response_store": {"backend": "memory"}}),
+    "looper.workflow_state.backend": (
+        {"looper": {"workflow_state": {"backend": "valkey"}}},
+        {"looper": {"workflow_state": {"backend": "memory",
+                                       "ttl_seconds": 60}}}),
     "mcp": ({"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
             {"mcp": {}}),
     "external_models": ({"external_models": [{"name": "x",
@@ -259,28 +272,85 @@ LOOPER = {"default_model": "base",
 
 @pytest.fixture
 def served():
-    """(port server URL, mock backend) over the looper config."""
-    backend = MockVLLMServer().start()
-    router = Router(load_config(copy.deepcopy(LOOPER)))
-    server = RouterServer(router, backend.url).start()
-    yield server.url, backend
-    server.stop()
-    backend.stop()
-    router.shutdown()
+    """{"jax" | "port": (server URL, mock backend)} over the looper
+    config, and a URL where nothing listens."""
+    from semantic_router_tpu.router.server import RouterServer as JServer
+
+    out = {}
+    stop = []
+    for side in ("jax", "port"):
+        backend = MockVLLMServer().start()
+        if side == "jax":
+            router = JRouter(JRouterConfig.from_dict(copy.deepcopy(LOOPER)))
+            server = JServer(router, router.cfg,
+                             default_backend=backend.url).start()
+        else:
+            router = Router(load_config(copy.deepcopy(LOOPER)))
+            server = RouterServer(router, backend.url).start()
+        out[side] = (server.url, backend)
+        stop.append((server, backend, router))
+    dead = MockVLLMServer()
+    dead_url = dead.url
+    dead.httpd.server_close()
+    out["dead"] = dead_url
+    yield out
+    for server, backend, router in stop:
+        server.stop()
+        backend.stop()
+        router.shutdown()
+
+
+def _strip(reply):
+    """An answer without its random id and time."""
+    return {k: v for k, v in reply.items() if k not in ("id", "created")}
 
 
 def test_stream_true_gets_an_error_body(served):
-    url, backend = served
-    status, ctype, body = _post(url, {
-        "model": "auto", "stream": True,
-        "messages": [{"role": "user", "content": "hello"}]})
-    assert status == 400 and ctype == "application/json"
-    assert "stream" in body["error"]["message"]
-    assert backend.hits == 0
+    """A streamed request whose backend cannot be reached gets the
+    reference's error body (502, JSON), not an SSE stream; with a live
+    backend the stream is relayed as the reference relays it."""
+    from semantic_router_tpu.router.server import RouterServer as JServer
+
+    body = {"model": "auto", "stream": True,
+            "messages": [{"role": "user", "content": "hello"}]}
+    out = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            router = JRouter(JRouterConfig.from_dict(copy.deepcopy(LOOPER)))
+            server = JServer(router, router.cfg,
+                             default_backend=served["dead"]).start()
+        else:
+            router = Router(load_config(copy.deepcopy(LOOPER)))
+            server = RouterServer(router, served["dead"]).start()
+        try:
+            status, ctype, reply = _post(server.url, body)
+        finally:
+            server.stop()
+            router.shutdown()
+        out[side] = (status, ctype, reply["error"]["type"])
+    assert out["port"] == out["jax"] == (502, "application/json",
+                                         "backend_error")
+    for side in ("jax", "port"):
+        url, backend = served[side]
+        u = urllib.parse.urlsplit(url)
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(body).encode())
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert resp.getheader("content-type") == "text/event-stream"
+        assert resp.read().endswith(b"data: [DONE]\n\n")
+        conn.close()
+        assert backend.hits == 1
 
 
 def test_looper_decision_is_routed_and_refused_by_the_server(served):
-    url, backend = served
+    """Routed as the reference routes it; executed over the live backend
+    as the reference executes it (the panel, then the synthesis); and
+    refused (502, ``looper_error``) by both servers when no model of the
+    panel answers."""
+    from semantic_router_tpu.router.server import RouterServer as JServer
+
     body = {"model": "auto",
             "messages": [{"role": "user", "content": "ask the panel"}]}
     jr = JRouter(JRouterConfig.from_dict(copy.deepcopy(LOOPER)))
@@ -294,9 +364,32 @@ def test_looper_decision_is_routed_and_refused_by_the_server(served):
     finally:
         jr.shutdown()
         tr.shutdown()
-    status, _, reply = _post(url, body)
-    assert status == 501 and "fusion" in reply["error"]["message"]
-    assert backend.hits == 0
+    answers = {}
+    for side in ("jax", "port"):
+        url, backend = served[side]
+        status, _, reply = _post(url, body)
+        answers[side] = (status, _strip(reply), backend.hits)
+    assert answers["port"] == answers["jax"]
+    assert answers["port"][0] == 200 and answers["port"][2] == 3
+    refused = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            router = JRouter(JRouterConfig.from_dict(copy.deepcopy(LOOPER)))
+            server = JServer(router, router.cfg,
+                             default_backend=served["dead"]).start()
+        else:
+            router = Router(load_config(copy.deepcopy(LOOPER)))
+            server = RouterServer(router, served["dead"]).start()
+        try:
+            status, _, reply = _post(server.url, body)
+        finally:
+            server.stop()
+            router.shutdown()
+        refused[side] = (status, reply["error"]["type"],
+                         reply["error"]["message"].split(" (")[0])
+    assert refused["port"] == refused["jax"] == (
+        502, "looper_error", "looper failed: all fusion panel models "
+                             "failed")
 
 
 @pytest.mark.parametrize("hf, spec, name", [

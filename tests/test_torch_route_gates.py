@@ -418,18 +418,20 @@ def _post(url, body, headers=None):
         conn.close()
 
 
+PASSTHROUGH_CONFIG = {
+    "default_model": "base-model",
+    "ratelimit": {"per_user": {"limited": 6}, "burst": 1},
+    "skip_processing": {"enabled": True},
+    "routing": {"decisions": [_dec("legal", 10, _leaf("keyword", "legal"),
+                                   model="law-model")],
+                "signals": {"keywords": [
+                    {"name": "legal", "keywords": ["contract"]}]}}}
+
+
 @pytest.fixture
 def served():
-    cfg = {"default_model": "base-model",
-           "ratelimit": {"per_user": {"limited": 6}, "burst": 1},
-           "skip_processing": {"enabled": True},
-           "routing": {"decisions": [_dec("legal", 10,
-                                          _leaf("keyword", "legal"),
-                                          model="law-model")],
-                       "signals": {"keywords": [
-                           {"name": "legal", "keywords": ["contract"]}]}}}
     backend = MockVLLMServer().start()
-    router = Router(load_config(cfg))
+    router = Router(load_config(copy.deepcopy(PASSTHROUGH_CONFIG)))
     server = RouterServer(router, backend.url).start()
     yield server.url, backend
     server.stop()
@@ -452,6 +454,12 @@ def test_rate_limited_user_gets_429_and_the_backend_nothing(served):
 
 
 def test_passthrough_reaches_the_backend_untouched(served):
+    """The passthrough's request reaches the default backend as sent;
+    its answer goes through the response path and feedback as the
+    reference's server sends it (equal status, headers and body on the
+    JAX server over the same config)."""
+    from semantic_router_tpu.router.server import RouterServer as JServer
+
     url, backend = served
     body = _body("auto", "review the contract", "u1")
     body["reasoning_effort"] = "high"
@@ -463,6 +471,23 @@ def test_passthrough_reaches_the_backend_untouched(served):
     assert echo["reasoning_effort"] == "high"
     assert echo["n_messages"] == 2
     assert not any(k.startswith("x-vsr-") for k in headers)
+    jbackend = MockVLLMServer().start()
+    jcfg = JRouterConfig.from_dict(copy.deepcopy(PASSTHROUGH_CONFIG))
+    jrouter = JRouter(jcfg)
+    jserver = JServer(jrouter, jcfg, default_backend=jbackend.url).start()
+    try:
+        jstatus, jheaders, jreply = _post(jserver.url, body,
+                                          {H.SKIP_PROCESSING: "true"})
+    finally:
+        jserver.stop()
+        jbackend.stop()
+        jrouter.shutdown()
+    assert (status, {k: v for k, v in headers.items()
+                     if k.startswith("x-vsr-")}) == \
+        (jstatus, {k: v for k, v in jheaders.items()
+                   if k.startswith("x-vsr-")})
+    assert {k: v for k, v in reply.items() if k not in ("id", "created")} \
+        == {k: v for k, v in jreply.items() if k not in ("id", "created")}
     status, headers, reply = _post(url, body)
     echo = json.loads(reply["choices"][0]["message"]["content"])
     assert echo["model"] == "law-model"
