@@ -43,6 +43,14 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   2D-Matryoshka variants never share a forward; rows pad to a power of
   two, one forward returns host float32 unit rows; they stay float32
   under any ``engine.quant``;
+- a classifier with no stackable head (DeBERTa-v3 sequence and token
+  classifiers) serves on the per-task path;
+- ``generative`` tasks (``register_generative``: a Qwen3 guard or
+  multi-LoRA generative classifier behind a ``GreedyGenerator``) bypass
+  the batcher: ``generate`` runs one generation at a time under
+  ``_generative_lock``, its adapter selected by name, its prefill and
+  decode steps in the task's step cache under the engine's capture gate;
+  ``guard_classify`` parses the guard's verdict;
 - every step runs through a compiled-step cache (engine.graphs): on the
   card the first execution of a (group, variant, bucket, rows, ...) key
   is captured as a CUDA graph and later ones replay it, as the JAX
@@ -190,14 +198,17 @@ class TokenClassResult:
 @dataclass
 class _Task:
     name: str
-    kind: str  # "sequence" | "token" | "embedding"
+    kind: str  # "sequence" | "token" | "embedding" | "generative"
     labels: List[str]
     tokenizer: Tokenizer
     module: nn.Module
     max_seq_len: int
     pad_id: int = 0
-    # the per-task and embedding steps' compiled-step cache
+    # the per-task, embedding and generation steps' compiled-step cache
     graphs: Optional[StepGraphs] = None
+    # generative kind: the GreedyGenerator, and adapter name → LoRA row
+    generator: Any = None
+    adapter_index: Dict[str, int] = field(default_factory=dict)
 
 
 @dataclass
@@ -323,6 +334,9 @@ class InferenceEngine:
         self._stale: List[StepGraphs] = []
         # replays share the gate, a capture holds it alone
         self._gate = CaptureGate()
+        # one generation runs at a time (its decode steps saturate the
+        # card; concurrency comes from the classify batcher)
+        self._generative_lock = threading.Lock()
         self.trunk_forwards = 0
         self.fused_dedup_rows = 0
         self.batcher = DynamicBatcher(
@@ -399,6 +413,66 @@ class InferenceEngine:
             # module the bank cannot stack) leaves no stale fused member
             with self._changing():
                 self._evict_locked(name)
+
+    def register_generative(self, name: str, generator,
+                            labels: Optional[List[str]] = None,
+                            adapter_index: Optional[Dict[str, int]] = None
+                            ) -> None:
+        """Register a KV-cached greedy generator
+        (``models.generate.GreedyGenerator`` on this engine's device) as a
+        ``generative`` task.  ``adapter_index`` maps adapter names to LoRA
+        rows, so a request selects its adapter by name.  The generator's
+        prefill and decode steps join the engine's step caches, under its
+        capture gate; generative tasks are never batched, fused or
+        warmed."""
+        if generator.device != self.device:
+            raise ValueError(f"task {name!r}: the generator runs on "
+                             f"{generator.device}, the engine on "
+                             f"{self.device}")
+        generator.graphs = StepGraphs(self.device, self._gate,
+                                      f"task:{name}")
+        task = _Task(name, "generative", list(labels or []),
+                     generator.tokenizer, generator.model, 0,
+                     graphs=generator.graphs, generator=generator,
+                     adapter_index=dict(adapter_index or {}))
+        with self._changing():
+            old = self._tasks.get(name)
+            self._tasks[name] = task
+            if old is not None:
+                self._stale.append(old.graphs)
+            self._evict_locked(name)
+
+    def generate(self, task: str, prompts: Sequence[str],
+                 max_new_tokens: int = 64, adapter: str = "",
+                 stop_strings: Sequence[str] = ()) -> List[Any]:
+        """Greedy generation on a generative task; ``adapter`` selects the
+        LoRA row by name (an unknown name raises ``KeyError``: a silent
+        row-0 fallback would run the wrong policy)."""
+        t = self._require(task, kind="generative")
+        if adapter:
+            if adapter not in t.adapter_index:
+                raise KeyError(
+                    f"unknown adapter {adapter!r} for task {task!r} "
+                    f"(known: {sorted(t.adapter_index)})")
+            task_index = t.adapter_index[adapter]
+        else:
+            task_index = 0
+        with self._generative_lock:
+            return t.generator.generate(list(prompts),
+                                        max_new_tokens=max_new_tokens,
+                                        task_index=task_index,
+                                        stop_strings=stop_strings)
+
+    def guard_classify(self, task: str, text: str, role: str = "user",
+                       adapter: str = "", max_new_tokens: int = 32):
+        """Qwen3Guard-style safety classification: structured-output
+        generation + regex parse.  Returns a ``GuardVerdict``; parse
+        failures fail closed to Controversial."""
+        from ..models.generate import build_guard_prompt, parse_guard_output
+
+        out = self.generate(task, [build_guard_prompt(text, role=role)],
+                            max_new_tokens=max_new_tokens, adapter=adapter)
+        return parse_guard_output(out[0].text)
 
     @contextlib.contextmanager
     def _changing(self):
@@ -798,8 +872,10 @@ class InferenceEngine:
 
         buckets = list(buckets or self.cfg.seq_len_buckets)
         for t in list(self._tasks.values()):
-            if t.name in self._task_group:
-                continue  # a fused member's steps are its group's
+            if t.name in self._task_group or t.kind == "generative":
+                # a fused member's steps are its group's; a decode step
+                # keys on the batch and cache length a call brings
+                continue
             for b in buckets:
                 if b > t.max_seq_len:
                     continue
@@ -888,7 +964,8 @@ class InferenceEngine:
                            f"(known: {sorted(self._tasks)})")
         if kind is not None and t.kind != kind:
             right = {"token": "token_classify", "sequence": "classify",
-                     "embedding": "embed"}
+                     "embedding": "embed", "generative": "generate",
+                     "multimodal": "embed_multimodal"}
             raise TypeError(f"task {task!r} is a {t.kind} task; use "
                             f"{right[t.kind]}()")
         return t

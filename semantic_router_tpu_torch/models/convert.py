@@ -1,10 +1,16 @@
 """Checkpoint conversion into the port's modules.
 
-- HF ModernBERT state dicts load 1:1: the port's parameter names are HF's.
+- HF ModernBERT, DeBERTa-v2/v3 and Qwen3 state dicts load 1:1: the port's
+  parameter names are HF's (``hf_state_for`` keeps the keys a module
+  has and drops what HF stores beside them: a tied ``lm_head``, buffers).
 - ``params_from_flax`` carries weights from the JAX package's Flax trees
   (numpy arrays) into a state dict: Flax ``Dense`` kernels are [in, out],
   torch ``Linear`` weights [out, in]; bare LoRA parameters (``lora_A``,
-  ``lora_B``) keep the Flax layout.
+  ``lora_B``) keep the Flax layout.  It reads ModernBERT trees and the
+  Qwen3 trees (``Qwen3ForCausalLM``, ``Qwen3Decoder`` with its LoRA
+  leaves), whose Flax names follow HF's; ``deberta_params_from_flax``
+  maps the DeBERTa tree's own names (``deberta/layers_i/...``,
+  ``pooler_dense``, ``encoder_LayerNorm``, ``rel_embeddings``) onto HF's.
 - ``read_safetensors`` is a numpy-only reader for machines without the
   ``safetensors`` package: an 8-byte little-endian header length, a JSON
   header {name: {dtype, shape, data_offsets}}, then the raw buffers.
@@ -22,16 +28,17 @@ import torch
 
 _LAYER_RE = re.compile(r"^layers_(\d+)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias"}
+         "weight": "weight", "bias": "bias"}
 # bare parameters, carried as they are (no transpose)
 _RAW = frozenset({"lora_A", "lora_B"})
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ModernBERT param tree (``{"params": {...}}`` or the inner tree,
-    for ``ModernBertModel``, ``ModernBertFor*Classification`` or
-    ``ModernBertLoRAHeadClassifier``) → a torch state dict with HF names
-    (the LoRA head's own names: ``head_dense``, ``lora_A``, ...)."""
+    """Flax ModernBERT or Qwen3 param tree (``{"params": {...}}`` or the
+    inner tree, for ``ModernBertModel``, ``ModernBertFor*Classification``,
+    ``ModernBertLoRAHeadClassifier``, ``Qwen3ForCausalLM`` or
+    ``Qwen3Decoder``) → a torch state dict with HF names (the LoRA
+    head's own names: ``head_dense``, ``lora_A``, ...)."""
     tree = flax_params.get("params", flax_params)
     out: Dict[str, torch.Tensor] = {}
 
@@ -43,21 +50,87 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 continue
             if key not in _LEAF and key not in _RAW:
                 raise KeyError(f"unknown Flax leaf {'/'.join(path + [key])}")
-            arr = np.array(val)  # a writable host copy
-            if arr.dtype.kind == "V":  # bfloat16 (ml_dtypes) → float32
-                arr = arr.astype(np.float32)
-            if key == "kernel":
-                arr = arr.T
-            out[".".join(path + [_LEAF.get(key, key)])] = torch.from_numpy(
-                np.ascontiguousarray(arr))
+            t = _host(val)
+            out[".".join(path + [_LEAF.get(key, key)])] = \
+                t.T.contiguous() if key == "kernel" else t
 
     walk(tree, [])
     return out
 
 
+def _host(val) -> torch.Tensor:
+    arr = np.array(val)  # a writable host copy
+    if arr.dtype.kind == "V":  # bfloat16 (ml_dtypes) → float32
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+# DeBERTa: Flax module path → HF module path (after ``deberta/``)
+_DEBERTA_NAMES = {
+    "word_embeddings": "embeddings.word_embeddings",
+    "embeddings_LayerNorm": "embeddings.LayerNorm",
+    "encoder_LayerNorm": "encoder.LayerNorm",
+    "attention_self": "attention.self",
+    "attention_output": "attention.output",
+    "intermediate_dense": "intermediate.dense",
+    "output_dense": "output.dense",
+    "output_LayerNorm": "output.LayerNorm",
+    "pooler_dense": "pooler.dense",
+}
+# DeBERTa's bare parameters → HF names
+_DEBERTA_RAW = {"rel_embeddings": "encoder.rel_embeddings.weight",
+                "position_embeddings": "embeddings.position_embeddings.weight"}
+
+
+def deberta_params_from_flax(flax_params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax DeBERTa tree (``DebertaV3ForSequenceClassification``,
+    ``DebertaV3ForTokenClassification`` or a bare ``DebertaV3Model``) →
+    a torch state dict with HF names."""
+    tree = flax_params.get("params", flax_params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], path: list) -> None:
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                m = _LAYER_RE.match(key)
+                name = f"encoder.layer.{m.group(1)}" if m \
+                    else _DEBERTA_NAMES.get(key, key)
+                walk(val, path + [name])
+                continue
+            if key in _DEBERTA_RAW:
+                out[".".join(path + [_DEBERTA_RAW[key]])] = _host(val)
+                continue
+            if key not in _LEAF:
+                raise KeyError(f"unknown Flax leaf {'/'.join(path + [key])}")
+            t = _host(val)
+            out[".".join(path + [_LEAF[key]])] = \
+                t.T.contiguous() if key == "kernel" else t
+
+    walk(tree, [])
+    return out
+
+
+def hf_state_for(module: torch.nn.Module, state: Mapping[str, Any]
+                 ) -> Dict[str, torch.Tensor]:
+    """The tensors of an HF state dict that ``module`` has, as torch
+    tensors; keys it lacks (a tied ``lm_head``, position-id buffers, a
+    masked-LM decoder) are dropped.  A parameter of the module the state
+    lacks raises, naming it (LoRA adapter leaves are not an HF
+    checkpoint's: ``with_lora_leaves`` adds them)."""
+    want = dict(module.state_dict())
+    out = {k: v for k, v in state_dict_from_hf(state).items() if k in want}
+    missing = [k for k in want if k not in out
+               and not k.endswith(("lora_A", "lora_B"))]
+    if missing:
+        raise ValueError(f"checkpoint lacks {len(missing)} tensors of "
+                         f"{type(module).__name__}: {missing[:8]}")
+    return out
+
+
 def state_dict_from_hf(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """An HF ModernBERT state dict (tensors or numpy arrays) as torch
-    tensors under the port's names — HF's own."""
+    """An HF state dict (tensors or numpy arrays) as torch tensors under
+    the port's names — HF's own."""
     return {k: v if isinstance(v, torch.Tensor)
             else torch.from_numpy(np.ascontiguousarray(v))
             for k, v in state.items()}

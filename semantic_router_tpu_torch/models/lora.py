@@ -1,5 +1,6 @@
-"""The stacked head bank of the fused classifier bank, and the LoRA-head
-classifier that joins it.
+"""The stacked head bank of the fused classifier bank, the LoRA-head
+classifier that joins it, and the task-stacked ``LoRADense`` of the
+generative decoder.
 
 The port of the head-bank half of ``semantic_router_tpu.models.lora``:
 every member task's prediction head (dense → act → LayerNorm →
@@ -23,11 +24,13 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class LoRAConfig:
-    """A head adapter's rank and alpha (the JAX class's trunk-adapter
-    fields come with the LoRA trunks, a later slice)."""
+    """An adapter's rank and alpha, and the number of task-stacked
+    adapters a ``LoRADense`` carries (the JAX class's ``adapt_*`` fields
+    come with the LoRA trunks, a later slice)."""
 
     rank: int = 8
     alpha: float = 16.0
+    num_tasks: int = 1
 
     @property
     def scale(self) -> float:
@@ -84,6 +87,40 @@ class ModernBertLoRAHeadClassifier(nn.Module):
         h = self.head_dense(pooled) \
             + self.lora.scale * ((pooled @ self.lora_A) @ self.lora_B)
         return self.classifier(self.head_norm(self.act(h)))
+
+
+class LoRADense(nn.Module):
+    """A dense layer with a task-stacked LoRA delta, one task per call:
+    ``x W^T + b + scale · (x A[t]) B[t]``.  ``weight`` [out, in] is the
+    frozen base (torch layout); ``lora_A`` [T, in, r] and ``lora_B``
+    [T, r, out] keep the Flax layout.  ``task_index`` is a one-element
+    int64 tensor on the layer's device, read by a gather, so switching
+    adapters changes no shape and no captured step.  With ``lora=None``
+    the layer is a plain dense.  A fresh layer's adapters are zero (the
+    identity); its weights come from a loader
+    (``models.generate.with_lora_leaves`` draws A as Flax's init does)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 lora: Optional[LoRAConfig] = None,
+                 bias: bool = False) -> None:
+        super().__init__()
+        self.lora = lora
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        if lora is not None:
+            self.lora_A = nn.Parameter(torch.zeros(
+                lora.num_tasks, in_features, lora.rank))
+            self.lora_B = nn.Parameter(torch.zeros(
+                lora.num_tasks, lora.rank, out_features))
+
+    def forward(self, x: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = nn.functional.linear(x, self.weight, self.bias)
+        if self.lora is None:
+            return y
+        a = self.lora_A.index_select(0, task_index.reshape(1))[0]
+        b = self.lora_B.index_select(0, task_index.reshape(1))[0]
+        return y + self.lora.scale * ((x @ a) @ b)
 
 
 def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:

@@ -947,7 +947,10 @@ class Router:
         decision = route.decision.decision if route.decision else None
         eng = self.engine
 
-        if content and eng is not None and eng.has_task("jailbreak"):
+        # the screen reads a sequence classifier's label (a generative
+        # guard is no such task: the reference's classify raises there)
+        if content and eng is not None \
+                and eng.task_kind("jailbreak") == "sequence":
             try:
                 r = eng.classify("jailbreak", content[:4000])
                 if r.label.lower() in ("jailbreak", "unsafe") \

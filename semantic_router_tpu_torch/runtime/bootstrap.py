@@ -1,18 +1,31 @@
 """Runtime bootstrap: config → engine → router → HTTP server.
 
 Model loading: ``classifier_models`` maps task name → {checkpoint,
-tokenizer, kind, labels, max_seq_len}.  A checkpoint is a local
-directory holding HF ``config.json`` + ``model.safetensors`` (or the
-safetensors file itself, beside its config.json); there is no download
-step.  Classifier tasks whose specs name the same checkpoint share one
-trunk module, and so one fused trunk group; ``kind: embedding`` loads an
-``MmBertEmbeddingModel`` of its own.  As the reference's converter does,
-only the trunk keys (and a classifier's ``head.*`` / ``classifier.*``)
-are read: a masked-LM checkpoint's decoder and an embedding checkpoint's
-bottleneck ``dense_i`` are dropped.  Absent checkpoints leave their task
-unloaded (its signal fails open).  A checkpoint of another architecture
-(``architecture`` in the spec, else the config's ``model_type`` and
-``architectures``) is refused by name.  ``engine.quant`` applies at boot.
+tokenizer, kind, labels, max_seq_len, architecture, adapters, lora,
+eos_token_ids}.  A checkpoint is a local directory holding HF
+``config.json`` + ``model.safetensors`` (or the safetensors file itself,
+beside its config.json); there is no download step.  The architecture is
+read as the reference reads it: the spec's ``architecture``, else the
+config's ``model_type`` (else its ``architectures``).
+
+- ModernBERT (kinds sequence, token, embedding): classifier tasks whose
+  specs name the same checkpoint share one trunk module, and so one fused
+  trunk group; ``kind: embedding`` loads an ``MmBertEmbeddingModel`` of
+  its own.  As the reference's converter does, only the trunk keys (and a
+  classifier's ``head.*`` / ``classifier.*``) are read: a masked-LM
+  checkpoint's decoder and an embedding checkpoint's bottleneck
+  ``dense_i`` are dropped.
+- DeBERTa-v2/v3 (``deberta``, ``deberta-v2``, ``deberta-v3``; kinds
+  sequence and token): a ``DebertaV3For*Classification`` on the engine's
+  per-task path.
+- ``kind: generative``: a Qwen3 causal LM behind a ``GreedyGenerator``;
+  ``adapters`` names its LoRA rows (``lora: {rank, alpha}``, default 8 /
+  16; each adapter starts as the identity) and ``eos_token_ids`` (an int
+  or a list; else the config's ``eos_token_id``) ends a row.
+
+Absent checkpoints leave their task unloaded (its signal fails open).
+Any other architecture, and ``kind: multimodal``, are refused by name.
+``engine.quant`` applies at boot (to ModernBERT trunk groups only).
 
 The observability sinks come from a ``RuntimeRegistry``
 (``runtime/registry.py``; the process defaults unless the caller passes
@@ -95,12 +108,43 @@ def checkpoint_architecture(spec: Dict[str, object], hf_cfg: Dict) -> str:
     return str(arch)
 
 
+def _family(name: str) -> str:
+    """The model family an architecture name belongs to (``deberta-v3``
+    and ``DebertaV2ForTokenClassification`` are both ``deberta``)."""
+    n = name.lower().replace("-", "").replace("_", "")
+    return next((f for f in ("modernbert", "deberta", "qwen3") if f in n), n)
+
+
+def _refuse_foreign(task: str, path: str, names, family: str,
+                    serves: str) -> None:
+    """Refuse, by its name, a checkpoint that declares an architecture
+    outside ``family``."""
+    foreign = [n for n in names if _family(n) != family]
+    if foreign:
+        raise ValueError(f"task {task!r}: checkpoint {path!r} is a "
+                         f"{foreign[0]!r} model ({', '.join(names)}); this "
+                         f"port serves {serves}")
+
+
+def _meta_load(build, state_of):
+    """A module built on the meta device (no weights allocated), then
+    given the tensors ``state_of(module)`` returns (checked strictly)."""
+    import torch
+
+    with torch.device("meta"):
+        module = build()
+    module.load_state_dict(state_of(module), assign=True)
+    return module
+
+
 def build_engine(cfg: RouterConfig, device: DeviceLike = None,
                  registry=None):
     """Engine from ``cfg.classifier_models`` (ModernBERT sequence, token and
-    embedding kinds) on ``device`` (``cuda`` when None), its observability
-    bound to ``registry``'s sinks (the process defaults when None).  None
-    when no models are configured — the router then routes on defaults."""
+    embedding kinds, DeBERTa-v2/v3 sequence and token classifiers, Qwen3
+    generative tasks) on ``device`` (``cuda`` when None), its
+    observability bound to ``registry``'s sinks (the process defaults
+    when None).  None when no models are configured — the router then
+    routes on defaults."""
     specs = cfg.classifier_models or {}
     if not specs:
         return None
@@ -124,13 +168,21 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
     trunks: Dict[str, object] = {}   # checkpoint path → shared trunk module
     tokenizers: Dict[str, HFTokenizer] = {}
     buckets = cfg.engine.seq_len_buckets or [512]
+
+    def tokenizer_for(tok_dir: str) -> HFTokenizer:
+        """One tokenizer per directory, loaded once a task's architecture
+        passed its checks (a refused checkpoint reads none)."""
+        if tok_dir not in tokenizers:
+            tokenizers[tok_dir] = HFTokenizer.from_pretrained_dir(tok_dir)
+        return tokenizers[tok_dir]
+
     for task, spec in specs.items():
         path = spec.get("checkpoint", "")
         kind = spec.get("kind", "sequence")
-        if kind not in ("sequence", "token", "embedding"):
+        if kind not in ("sequence", "token", "embedding", "generative"):
             raise ValueError(f"task {task!r}: kind {kind!r} is not served by "
-                             f"this port yet (sequence, token and embedding "
-                             f"only)")
+                             f"this port yet (sequence, token, embedding "
+                             f"and generative only)")
         if not path or not os.path.exists(path):
             log.warning("model missing: task=%s path=%s", task, path)
             continue
@@ -139,14 +191,39 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
             hf_cfg = json.load(f)
         arch = checkpoint_architecture(spec, hf_cfg)
         names = [arch] + [str(a) for a in hf_cfg.get("architectures") or []]
-        if any("modernbert" not in n.lower().replace("-", "").replace(
-                "_", "") for n in names):
-            raise ValueError(f"task {task!r}: checkpoint {path!r} is a "
-                             f"{arch!r} model ({', '.join(names)}); this "
-                             f"port serves ModernBERT checkpoints only")
         id2label = hf_cfg.get("id2label", {})
         labels = spec.get("labels") or \
             [id2label.get(str(i), str(i)) for i in range(len(id2label))]
+        tok_dir = spec.get("tokenizer") or os.path.dirname(cfg_path)
+        if kind == "generative":
+            # served as Qwen3, as the reference serves it, unless the
+            # checkpoint declares another architecture
+            declared = spec.get("architecture") or hf_cfg.get("model_type") \
+                or hf_cfg.get("architectures")
+            _refuse_foreign(task, path, names if declared else [], "qwen3",
+                            "Qwen3 generative checkpoints only")
+            generator, adapters = _generative(spec, hf_cfg, weights_path,
+                                              tokenizer_for(tok_dir), dev)
+            engine.register_generative(task, generator, labels=labels,
+                                       adapter_index=adapters)
+            log.info("model loaded: task=%s kind=generative", task)
+            continue
+        if _family(arch) == "deberta" and kind in ("sequence", "token"):
+            _refuse_foreign(task, path, names, "deberta",
+                            "a DeBERTa architecture from DeBERTa "
+                            "checkpoints only")
+            engine.register_task(
+                task, kind, _deberta(kind, hf_cfg, labels, weights_path),
+                tokenizer_for(tok_dir), labels,
+                max_seq_len=int(spec.get("max_seq_len", 0)),
+                pad_id=int(hf_cfg.get("pad_token_id", 0) or 0))
+            log.info("model loaded: task=%s kind=%s architecture=deberta-v3",
+                     task, kind)
+            continue
+        _refuse_foreign(task, path, names, "modernbert",
+                        "ModernBERT checkpoints, DeBERTa-v2/v3 sequence "
+                        "and token classifiers and Qwen3 generative "
+                        "checkpoints only")
         max_seq = min(int(spec.get("max_seq_len", 0))
                       or int(hf_cfg.get("max_position_embeddings", 8192)),
                       max(buckets))
@@ -175,16 +252,69 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
             else:
                 module.load_state_dict(state)
                 trunks[path] = module.model
-        tok_dir = spec.get("tokenizer") or os.path.dirname(cfg_path)
-        if tok_dir not in tokenizers:
-            tokenizers[tok_dir] = HFTokenizer.from_pretrained_dir(tok_dir)
-        engine.register_task(task, kind, module, tokenizers[tok_dir], labels,
-                             max_seq_len=max_seq,
+        engine.register_task(task, kind, module, tokenizer_for(tok_dir),
+                             labels, max_seq_len=max_seq,
                              pad_id=int(hf_cfg.get("pad_token_id", 0)))
         log.info("model loaded: task=%s kind=%s attention=%s", task, kind,
                  mcfg.attention_impl)
     apply_quant_knobs(cfg, engine)
     return engine
+
+
+def _deberta(kind: str, hf_cfg: Dict, labels, weights_path: str):
+    """A DeBERTa-v2/v3 sequence or token classifier from an HF checkpoint
+    (``config.json`` fields through ``DebertaV3Config.from_hf``, HF tensor
+    names as they are)."""
+    import dataclasses
+
+    from ..models.convert import hf_state_for, load_safetensors
+    from ..models.deberta import (
+        DebertaV3Config,
+        DebertaV3ForSequenceClassification,
+        DebertaV3ForTokenClassification,
+    )
+
+    dcfg = dataclasses.replace(DebertaV3Config.from_hf(hf_cfg),
+                               num_labels=max(len(labels), 2))
+    cls = DebertaV3ForTokenClassification if kind == "token" \
+        else DebertaV3ForSequenceClassification
+    state = load_safetensors(weights_path)
+    return _meta_load(lambda: cls(dcfg), lambda m: hf_state_for(m, state))
+
+
+def _generative(spec: Dict, hf_cfg: Dict, weights_path: str, tokenizer,
+                dev) -> tuple:
+    """(GreedyGenerator, adapter index) of a Qwen3 generative task: LoRA
+    rows for the spec's ``adapters`` (identity adapters, A drawn from a
+    generator seeded 0), EOS from ``eos_token_ids`` or the config."""
+    import torch
+
+    from ..models.convert import hf_state_for, load_safetensors
+    from ..models.generate import GreedyGenerator, Qwen3Decoder, \
+        with_lora_leaves
+    from ..models.lora import LoRAConfig
+    from ..models.qwen3 import Qwen3Config
+
+    qcfg = Qwen3Config.from_hf(dict(
+        hf_cfg, num_key_value_heads=hf_cfg.get(
+            "num_key_value_heads", hf_cfg["num_attention_heads"])))
+    adapters = {name: i for i, name in
+                enumerate(spec.get("adapters", []) or [])}
+    lora_spec = spec.get("lora") or {}
+    lora = LoRAConfig(rank=int(lora_spec.get("rank", 8)),
+                      alpha=float(lora_spec.get("alpha", 16.0)),
+                      num_tasks=max(1, len(adapters))) if adapters else None
+    state = load_safetensors(weights_path)
+    if lora is not None:
+        state = with_lora_leaves(qcfg, lora, state,
+                                 torch.Generator().manual_seed(0))
+    model = _meta_load(lambda: Qwen3Decoder(qcfg, lora),
+                       lambda m: hf_state_for(m, state))
+    eos_raw = spec.get("eos_token_ids") or hf_cfg.get("eos_token_id", 0)
+    # HF configs carry an int or a list (the Qwen family uses a list)
+    eos = list(eos_raw) if isinstance(eos_raw, (list, tuple)) else [eos_raw]
+    return GreedyGenerator(qcfg, model, tokenizer, eos_token_ids=eos,
+                           device=dev), adapters
 
 
 def apply_quant_knobs(cfg: RouterConfig, engine) -> None:

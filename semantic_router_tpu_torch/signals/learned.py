@@ -2,7 +2,8 @@
 family's configured rules.
 
 - domain     → the category (intent) classifier;
-- jailbreak  → classifier / pattern / hybrid methods;
+- jailbreak  → classifier / pattern / hybrid methods; a generative
+  (Qwen3Guard) task's verdict maps through ``GUARD_SCORES``;
 - pii        → the token classifier + allowed-types policy;
 - fact_check, user_feedback, modality → a sequence classifier whose
   labels are the rule names.
@@ -107,10 +108,19 @@ class JailbreakSignal(_EngineSignal):
         super().__init__(engine, task)
         self.rules = rules
 
+    # guard safety levels → jailbreak scores (Unsafe blocks outright;
+    # Controversial lands at typical rule thresholds)
+    GUARD_SCORES = {"Unsafe": 0.95, "Controversial": 0.6, "Safe": 0.0}
+
     def _needs_task(self) -> bool:
         return False  # pattern-only rules work with no model loaded
 
     def _classifier_score(self, ctx: RequestContext, text: str) -> float:
+        if self.engine.task_kind(self.task) == "generative":
+            # a Qwen3Guard-style generative safety classifier: structured
+            # generation + parse instead of a softmax head
+            verdict = self.engine.guard_classify(self.task, text)
+            return self.GUARD_SCORES.get(verdict.safety, 0.6)
         out = self._classify(ctx, text)
         if out.label.lower() in self.POSITIVE:
             return out.confidence

@@ -39,6 +39,8 @@ class Encoding:
 class Tokenizer(Protocol):
     def encode(self, text: str, max_length: int = 0) -> Encoding: ...
 
+    def decode(self, ids: List[int]) -> str: ...
+
     @property
     def vocab_size(self) -> int: ...
 
@@ -82,6 +84,12 @@ class HashTokenizer:
                         offsets=offsets, truncated=truncated,
                         total_tokens=(n_words + 2) if truncated else 0)
 
+    def decode(self, ids: List[int]) -> str:
+        """Hashing is lossy: stable ``tok<id>`` placeholders, specials
+        dropped."""
+        return " ".join(f"tok{int(i)}" for i in ids
+                        if int(i) not in (self.CLS, self.SEP, self.PAD))
+
 
 class HFTokenizer:
     """Wraps a ``tokenizers`` fast tokenizer loaded from tokenizer.json."""
@@ -120,6 +128,9 @@ class HFTokenizer:
         return Encoding(ids=ids, attention_mask=mask, offsets=offsets,
                         truncated=truncated,
                         total_tokens=total if truncated else 0)
+
+    def decode(self, ids: List[int]) -> str:
+        return self.tok.decode(list(ids), skip_special_tokens=True)
 
 
 class EncodingCache:

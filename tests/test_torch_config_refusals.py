@@ -9,7 +9,9 @@ canonical ``global:`` block lifts to the same fields on both; a
 reference's error body, and a looper decision is routed as the
 reference routes it, executed over a live backend and refused (502,
 ``looper_error``) when none of its models answers, as the reference's
-server does; a checkpoint of another architecture is refused by name.
+server does; a checkpoint of an architecture the port does not serve
+(Gemma3, SigLIP, ``kind: multimodal``) is refused by name, and a
+DeBERTa-v2/v3 classifier loads.
 The resilience plane (the degradation ladder, the upstream health
 plane, local SLO objectives) loads and parses as the reference's; what it
 reads through the shared state plane (fleet-scoped objectives, the
@@ -393,13 +395,12 @@ def test_looper_decision_is_routed_and_refused_by_the_server(served):
 
 
 @pytest.mark.parametrize("hf, spec, name", [
-    ({"model_type": "deberta-v2",
-      "architectures": ["DebertaV2ForSequenceClassification"]}, {},
-     "deberta-v2"),
-    ({"architectures": ["DebertaV2ForTokenClassification"]}, {},
-     "DebertaV2ForTokenClassification"),
-    ({"model_type": "modernbert"}, {"architecture": "deberta-v3"},
-     "deberta-v3"),
+    ({"model_type": "gemma3",
+      "architectures": ["Gemma3ForSequenceClassification"]}, {},
+     "gemma3"),
+    ({"architectures": ["SiglipModel"]}, {"kind": "sequence"},
+     "SiglipModel"),
+    ({"model_type": "siglip"}, {"kind": "multimodal"}, "multimodal"),
 ])
 def test_non_modernbert_checkpoint_refused_by_name(tmp_path, hf, spec,
                                                    name):
@@ -412,3 +413,57 @@ def test_non_modernbert_checkpoint_refused_by_name(tmp_path, hf, spec,
         "intent": dict(spec, checkpoint=str(ckpt))}})
     with pytest.raises(ValueError, match=name):
         build_engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("hf, spec, kind", [
+    ({"model_type": "deberta-v2",
+      "architectures": ["DebertaV2ForSequenceClassification"]}, {},
+     "sequence"),
+    ({"architectures": ["DebertaV2ForTokenClassification"]},
+     {"kind": "token"}, "token"),
+    ({"model_type": "modernbert"}, {"architecture": "deberta-v3"},
+     "sequence"),
+])
+def test_deberta_checkpoint_loads(tmp_path, hf, spec, kind):
+    """The DeBERTa declarations the port once refused now load, each as
+    the classifier its kind names, on the per-task path."""
+    st = pytest.importorskip("safetensors.torch")
+    tokenizers = pytest.importorskip("tokenizers")
+    from semantic_router_tpu_torch.models.deberta import (
+        DebertaV3Config,
+        DebertaV3ForSequenceClassification,
+        DebertaV3ForTokenClassification,
+    )
+
+    fields = dict(vocab_size=64, hidden_size=16, intermediate_size=32,
+                  num_hidden_layers=1, num_attention_heads=2,
+                  max_position_embeddings=32, position_buckets=8,
+                  relative_attention=True, pos_att_type=["p2c", "c2p"],
+                  share_att_key=True, norm_rel_ebd="layer_norm",
+                  position_biased_input=False)
+    cls = DebertaV3ForTokenClassification if kind == "token" \
+        else DebertaV3ForSequenceClassification
+    module = cls(DebertaV3Config(**fields, num_labels=2))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    st.save_file({k: v.contiguous() for k, v in module.state_dict().items()},
+                 str(ckpt / "model.safetensors"))
+    (ckpt / "config.json").write_text(json.dumps(
+        dict(fields, **hf, id2label={"0": "a", "1": "b"})))
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(
+        {"[PAD]": 0, "[UNK]": 1, "hello": 2}, unk_token="[UNK]"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    tok.save(str(ckpt / "tokenizer.json"))
+    cfg = load_config({
+        "engine": {"seq_len_buckets": [16, 32]},
+        "classifier_models": {"intent": dict(spec, checkpoint=str(ckpt))}})
+    eng = build_engine(cfg, device="cpu")
+    try:
+        assert eng.task_kind("intent") == kind
+        assert isinstance(eng._tasks["intent"].module, cls)
+        assert eng.trunk_group_info() == {}
+        out = eng.token_classify("intent", "hello world") \
+            if kind == "token" else eng.classify("intent", "hello world")
+        assert out is not None
+    finally:
+        eng.shutdown()
