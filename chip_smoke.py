@@ -232,10 +232,43 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    latency, 4 requests again on the CPU port with the same decision,
    model and headers.  Then the cuda-marked tests of
    ``tests/test_torch_generative_cuda.py`` run in a pytest process.
+14. multimodal and endpoints — SigLIP at google/siglip-base-patch16-224's
+   width and depth (both towers, 12 layers each, 203 M parameters, f32,
+   seeded), phase 3's trunk with its intent head and new modality and
+   nli heads, phase 5's embedding model; it prints whether PIL imports.
+   14a: each tower at B=1 and B=16, eager and as a captured step's
+   replay (CUDA events, host wall, profiled busy share, TFLOP/s); the
+   replay bit for bit equal to the eager run, 4 rows of each against
+   the CPU port within 1e-4.  14b: a router with an image-modality
+   embedding rule (its threshold set across the widest gap of 8 seeded
+   images' scores), a text rule and a complexity rule with image
+   candidates routes 16 requests one at a time, 8 with a PNG ``data:``
+   URI part, behind the HTTP server and the mock backend: K1 / K2 per
+   request equal to the bank steps' layers and banks, the image leg's
+   ms, route p50 / p99; without PIL every image request must record the
+   ``image:`` error and keep its text hits; 4 requests again on the CPU
+   port (decision, model, headers, the family's hits and error); the
+   image rules evaluated on each engine with the request memo holding
+   its tower's embedding of the same pixels, hits equal.  14c: the
+   ``image_generation`` plugin (a draw and a paint request picked by the
+   modality head and a keyword) against a stdlib image stub in both
+   backend shapes, plain, streamed and through ``/v1/messages``:
+   ``x-vsr-image-backend``, the answer equal to the CPU port's but for
+   ids and times, K1 / K2 equal to the bank steps'; the stub failing
+   gives 502 ``imagegen_error`` fed back as a failure.  14d:
+   ``/api/v1/eval`` on 8 texts and ``/api/v1/nli`` against the CPU port,
+   a ``/v1/memory`` round trip, ``/debug/upstreams``, ``/openapi.json``
+   (valid), ``/docs``, ``/startup-status`` (and a ``serve`` boot to
+   ready), ``/info/models``.  14e: phase 13's guard on prompts of 7
+   distinct lengths, twice in turn: at most ``MAX_CACHED_SHAPES`` KV
+   shapes and their graphs kept, every returning shape captured again
+   with the same text, the graph pool no larger in the second pass.
+   Then the cuda-marked tests of ``tests/test_torch_multimodal_cuda.py``
+   run in a pytest process.
 
 The last three lines of standard output are one JSON object with every
-kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12
-and 13), ``nvidia-smi``'s name and power limit, and then
+kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
+13 and 14), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -6098,8 +6131,9 @@ def _seeded_module(build, seed: int, std: float = 0.02):
         elif p.dim() == 1:
             state[name] = torch.ones(p.shape)
         else:
-            state[name] = torch.from_numpy(
-                rng.standard_normal(tuple(p.shape), np.float32) * std)
+            # (np.asarray: a 0-d draw is a numpy scalar, not an array)
+            state[name] = torch.from_numpy(np.asarray(
+                rng.standard_normal(tuple(p.shape), np.float32) * std))
     module.load_state_dict(state, assign=True)
     return module.eval()
 
@@ -6481,6 +6515,862 @@ def phase_models(modules3: dict, smi: str) -> dict:
     out["route"] = models_route(modules3, deb, cfg_q, dec, smi)
     out["launches"] = out["route"]["launches"]
     out["cuda_tests"] = run_cuda_tests("test_torch_generative_cuda.py", 5)
+    # phase 14e calls the same guard
+    out["_guard"] = (cfg_q, dec)
+    return out
+
+
+# -- phase 14: the multimodal surface and the endpoints ----------------------
+
+# google/siglip-base-patch16-224 config.json's towers at full width
+SIGLIP_TEXT = dict(vocab_size=32000, hidden_size=768, intermediate_size=3072,
+                   num_hidden_layers=12, num_attention_heads=12,
+                   max_position_embeddings=64, layer_norm_eps=1e-6)
+SIGLIP_VISION = dict(hidden_size=768, intermediate_size=3072,
+                     num_hidden_layers=12, num_attention_heads=12,
+                     image_size=224, patch_size=16, num_channels=3,
+                     layer_norm_eps=1e-6)
+MM_TASK = "multimodal"
+MM_TOL = 1e-4                # unit embeddings and scores, card vs CPU
+EVAL_TOL = 1e-3              # /api/v1/eval confidences, card vs CPU
+MM_CPU_BODIES = (0, 1, 2, 3)  # 14b requests routed again on the CPU port
+# 14e: prompt words of the guard calls (7 distinct cache lengths M)
+GUARD_LENGTHS = (4, 70, 140, 200, 270, 330, 400)
+GUARD_BOUND_TOKENS = 8
+MM_IMAGE_CANDIDATES = ["a bar chart of quarterly revenue",
+                       "a scanned invoice with a total", "a photo of a cat"]
+# 16 requests; the even ones carry an image part
+MM_PROMPTS = [
+    "What does this chart say about our quarterly revenue?",
+    "Why was my invoice charged twice this month?",
+    "Describe the picture in one sentence.",
+    "Prove that the square root of two is irrational, step by step.",
+    "Is this scan a receipt or an invoice?",
+    "What dose of vitamin D is typical for adults?",
+    "Which parts of this diagram are labelled?",
+    "How do I speed up a python loop over a large list?",
+    "Summarize what you see here.",
+    "Draft a short note about our quarterly revenue and market share.",
+    "Is the patient chart in this photo complete?",
+    "What time is it in Tokyo?",
+    "Prove that the square root of two is irrational, step by step.",
+    "Explain the scheduler's cache eviction policy in our database.",
+    "Read the numbers in this table.",
+    "Why was my invoice charged twice this month?"]
+# 14c: (prompt, the decision its keyword picks, that decision's backend)
+MM_DRAW = [("Please draw a lighthouse at dawn in watercolor.",
+            "draw_openai", "openai"),
+           ("Paint a field of sunflowers under a storm.",
+            "paint_omni", "vllm_omni")]
+NLI_PAIRS = [("The invoice was paid twice in March.",
+              "The customer was charged more than once."),
+             ("The clinic opens at nine.", "The clinic is closed all day."),
+             ("The kernel uses tensor cores.", "The GPU computes."),
+             ("A cat sleeps on the chart.", "A dog is barking.")]
+
+
+def mm_config(stub_url: str, image_threshold: float) -> dict:
+    """Phase 14's router: domain rules on phase 3's intent head, the
+    modality head with the draw / paint keywords sending a request to an
+    ``image_generation`` decision (the stub's openai and vllm_omni
+    shapes), an image-modality embedding rule on the SigLIP task, a text
+    embedding rule and a complexity rule with image candidates on phase
+    5's embedding model, and the upstream plane on."""
+    def gen(name, priority, keyword, model, backend):
+        return {"name": name, "priority": priority,
+                "rules": {"operator": "AND", "conditions": [
+                    {"type": "modality", "name": "DIFFUSION"},
+                    {"type": "keyword", "name": keyword}]},
+                "modelRefs": [{"model": model}],
+                "plugins": [{"type": "image_generation", "configuration": {
+                    "backend": backend, "base_url": stub_url,
+                    "model": model, "width": 512, "height": 512}}]}
+
+    def rule(name, priority, family, what, model):
+        return {"name": name, "priority": priority,
+                "rules": {"operator": "OR", "conditions": [
+                    {"type": family, "name": what}]},
+                "modelRefs": [{"model": model}]}
+
+    return {
+        "default_model": "qwen3-8b",
+        "engine": copy.deepcopy(ROUTER_CONFIG["engine"]),
+        "resilience": {"upstream": {"enabled": True}},
+        "routing": {
+            "strategy": "priority",
+            "modelCards": [{"name": m} for m in (
+                "qwen3-8b", "qwen3-32b", "biz-model", "med-model",
+                "image-model", "omni-image-model", "vision-model",
+                "billing-model", "reasoner-model")],
+            "signals": {
+                "domains": [{"name": d} for d in DOMAINS],
+                "modality": [{"name": n} for n in MODALITY],
+                "keywords": [
+                    {"name": "draw_words", "operator": "OR",
+                     "keywords": ["draw"]},
+                    {"name": "paint_words", "operator": "OR",
+                     "keywords": ["paint"]}],
+                "embeddings": [
+                    {"name": "chart_image", "threshold": image_threshold,
+                     "query_modality": "image", "aggregation_method": "max",
+                     "candidates": MM_IMAGE_CANDIDATES},
+                    {"name": "billing", "threshold": 0.8,
+                     "candidates": [
+                         "Why was my invoice charged twice this month?"]}],
+                "complexity": [
+                    {"name": "visual_reasoning", "threshold": 0.8,
+                     "hard": {"candidates": [
+                         "Prove that the square root of two is irrational,"
+                         " step by step."],
+                         "image_candidates": [
+                             "a dense technical diagram with many labels"]},
+                     "easy": {"candidates": ["What time is it in Tokyo?"],
+                              "image_candidates": [
+                                  "a plain photo of the sky"]}}]},
+            "decisions": [
+                gen("draw_openai", 400, "draw_words", "image-model",
+                    "openai"),
+                gen("paint_omni", 390, "paint_words", "omni-image-model",
+                    "vllm_omni"),
+                rule("chart_route", 300, "embedding", "chart_image",
+                     "vision-model"),
+                rule("billing_route", 200, "embedding", "billing",
+                     "billing-model"),
+                rule("hard_route", 150, "complexity",
+                     "visual_reasoning:hard", "reasoner-model"),
+            ] + copy.deepcopy(ROUTER_CONFIG["routing"]["decisions"][2:])}}
+
+
+def _png(img: np.ndarray) -> bytes:
+    """An RGB uint8 image [H, W, 3] as PNG bytes (zlib and struct: the
+    wire form needs no imaging package)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def mm_images(n: int, seed: int) -> list:
+    """``n`` seeded uint8 RGB images of assorted sizes (the tower resizes
+    each to 224 x 224)."""
+    rng = np.random.default_rng(seed)
+    sizes = [(224, 224), (256, 192), (180, 300), (224, 240)]
+    return [rng.integers(0, 256, sizes[i % 4] + (3,), dtype=np.uint8)
+            for i in range(n)]
+
+
+def _data_uri(img: np.ndarray) -> str:
+    import base64
+
+    return "data:image/png;base64," + base64.b64encode(_png(img)).decode()
+
+
+def _have_pil() -> str:
+    """PIL's version, or "" when it does not import."""
+    try:
+        import PIL
+    except ImportError:
+        return ""
+    return str(getattr(PIL, "__version__", "?"))
+
+
+def siglip_models() -> tuple:
+    """(text config, vision config, {"cpu"|"cuda": SiglipModel}) at
+    google/siglip-base-patch16-224's width and depth, seeded on the CPU
+    and copied to the card."""
+    from semantic_router_tpu_torch.models.siglip import SiglipModel, \
+        SiglipTowerConfig
+
+    tt = SiglipTowerConfig.from_hf(SIGLIP_TEXT)
+    tv = SiglipTowerConfig.from_hf(SIGLIP_VISION)
+    cpu = _seeded_module(lambda: SiglipModel(tt, tv), SEED + 1401)
+    return tt, tv, {"cpu": cpu, "cuda": _card_copy(
+        lambda: SiglipModel(tt, tv), cpu)}
+
+
+def _embedder(tt, tv, model, device: str):
+    from semantic_router_tpu_torch.models.siglip import SiglipEmbedder
+
+    return SiglipEmbedder(
+        tt, tv, model, device=device,
+        tokenizer=HashTokenizer(vocab_size=SIGLIP_TEXT["vocab_size"]))
+
+
+def _tower_flops(tower: str, B: int) -> float:
+    """Multiply-adds x 2 of one tower forward: linears, attention, the
+    patch conv and the pooling head."""
+    c = SIGLIP_TEXT if tower == "text" else SIGLIP_VISION
+    H, I, L = c["hidden_size"], c["intermediate_size"], \
+        c["num_hidden_layers"]
+    P = SIGLIP_VISION["patch_size"]
+    S = SIGLIP_TEXT["max_position_embeddings"] if tower == "text" \
+        else (SIGLIP_VISION["image_size"] // P) ** 2
+    layers = L * (2 * B * S * (4 * H * H + 2 * H * I) + 4 * B * S * S * H)
+    if tower == "text":
+        return layers + 2 * B * H * H
+    patch = 2 * B * S * 3 * P * P * H
+    head = 2 * B * (2 * S * H * H + 2 * H * H + 2 * H * I) + 4 * B * S * H
+    return layers + patch + head
+
+
+def mm_towers(tt, tv, models: dict, smi: str) -> dict:
+    """14a: each tower at B=1 and B=16 on the card, eager and as a
+    captured step's replay (CUDA events, host wall, profiled busy share),
+    the replay bit for bit equal to the eager run; 4 rows of each tower
+    against the CPU port."""
+    from semantic_router_tpu_torch.models.siglip import preprocess_image
+
+    card = _embedder(tt, tv, models["cuda"], DEVICE)
+    cpu = _embedder(tt, tv, models["cpu"], "cpu")
+    texts = (MM_PROMPTS + [p for p, _, _ in MM_DRAW])[:16]
+    px = np.stack([preprocess_image(im, tv.image_size)
+                   for im in mm_images(16, SEED + 1402)])
+    out = {}
+    for tower in ("text", "image"):
+        for B in (1, 16):
+            if tower == "text":
+                host = torch.from_numpy(card.text_ids(texts[:B]))
+                fn = card.model.embed_text
+
+                def run(eager=False, B=B):
+                    return card.embed_text(texts[:B], eager=eager)
+            else:
+                host = torch.from_numpy(px[:B])
+                fn = card.model.embed_image
+
+                def run(eager=False, B=B):
+                    return card.embed_image(px[:B], eager=eager)
+            eager = run(eager=True)
+            cap = run()
+            how0 = card.last_graph
+            rep = run()
+            how1 = card.last_graph
+            check((how0, how1) == ("captured", "replayed"),
+                  f"14a {tower} B{B}: {how0}, {how1}")
+            diff = float(np.abs(rep - eager).max())
+            check(np.array_equal(rep, eager) and np.array_equal(cap, eager),
+                  f"14a {tower} B{B}: the replay differs from the eager "
+                  f"run by {diff}")
+            norms = np.linalg.norm(rep, axis=-1)
+            check(bool(np.isfinite(rep).all())
+                  and rep.shape == (B, tt.projection_size)
+                  and float(np.abs(norms - 1).max()) <= 1e-5,
+                  f"14a {tower} B{B}: shape {rep.shape}, norms {norms}")
+            step = _captured(card.graphs, (tower, B))
+            step.load([host])
+            dev = host.to(DEVICE)
+            flops = _tower_flops(tower, B)
+            row = {"eager": _timed(lambda: fn(dev)),
+                   "graph": _timed(step.replay), "gflop": flops / 1e9,
+                   "replay_bitwise_equal": True, "card": smi}
+            row["graph_tflops"] = flops / row["graph"]["ms"] / 1e9
+            out[f"{tower}_B{B}"] = row
+            print(f"siglip {tower} B={B}: " + json.dumps(row), flush=True)
+    for tower in ("text", "image"):
+        if tower == "text":
+            got, want = card.embed_text(texts[:4]), cpu.embed_text(texts[:4])
+        else:
+            got, want = card.embed_image(px[:4]), cpu.embed_image(px[:4])
+        err = float(np.abs(got - want).max())
+        check(err <= MM_TOL, f"14a {tower}: card vs CPU {err} > {MM_TOL}")
+        out[f"{tower}_cpu"] = {"rows": 4, "max_abs_err": err,
+                               "tol": MM_TOL}
+        print(f"siglip {tower} vs CPU (4 rows): max abs err {err}",
+              flush=True)
+    out["graphs"] = {"captured": card.graphs.captured(),
+                     "pool_bytes": card.graphs.pool_bytes()}
+    return out
+
+
+def mm_heads(device: str, trunk) -> dict:
+    """The modality head (DIFFUSION biased up, so the keywords decide an
+    image request) and phase 8's nli head, over ``trunk``."""
+    from semantic_router_tpu_torch.models import \
+        ModernBertForSequenceClassification
+
+    nli = next(h for h in RESPOND_HEADS if h[0] == "nli")
+    heads = {}
+    for name, labels, seed in (("modality", MODALITY, SEED + 1403),
+                               ("nli", nli[2], nli[3])):
+        module = ModernBertForSequenceClassification(
+            dataclasses.replace(trunk.config, num_labels=len(labels)),
+            model=trunk)
+        init_weights(module, seed, skip="model.")
+        heads[name] = ("sequence", module.to(device), labels)
+    with torch.no_grad():
+        heads["modality"][1].classifier.bias[MODALITY.index("DIFFUSION")] \
+            += 8.0
+    return heads
+
+
+def mm_engine(device: str, cfg, modules3: dict, embed_module, embedder):
+    """Phase 3's trunk with its intent head, the modality and nli heads
+    (one fused bank: K1 / K2), phase 5's embedding model and the SigLIP
+    task."""
+    engine = InferenceEngine(cfg.engine, device=device)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    kind, module, labels = modules3["intent"]
+    tasks = {"intent": (kind, module, labels)}
+    tasks.update(mm_heads(device, module.model))
+    for name, (kind, module, labels) in tasks.items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    engine.register_task(EMBED_TASK, "embedding", embed_module, tok, [],
+                         max_seq_len=512)
+    engine.register_multimodal(MM_TASK, embedder)
+    return engine
+
+
+def _image_threshold(embedder, px: np.ndarray) -> tuple:
+    """The image rule's threshold: midway across the widest gap among the
+    middle of the images' best candidate scores, so about half of them
+    match and none sits near the edge.  Returns (threshold, the
+    scores)."""
+    cands = embedder.embed_text(MM_IMAGE_CANDIDATES)
+    best = np.sort((embedder.embed_image(px) @ cands.T).max(axis=1))
+    n = len(best)
+    k = max(range(n // 4, n - n // 4), key=lambda i: best[i] - best[i - 1])
+    check(best[k] - best[k - 1] > 4 * MM_TOL,
+          f"14b: no clear gap among the image scores {best.tolist()}")
+    return float(0.5 * (best[k] + best[k - 1])), best.tolist()
+
+
+class ImageStub:
+    """A stdlib image backend for phase 14c: ``POST
+    /v1/images/generations`` (openai) and ``POST /v1/chat/completions``
+    (vllm_omni: the image as a content part); with ``fail`` set it
+    answers 500.  Keeps every request path."""
+
+    B64 = "iVBORw0KGgo="
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub = self
+        self.fail = False
+        self.paths: list = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("content-length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
+                stub.paths.append(self.path)
+                if stub.fail:
+                    self.send_response(500)
+                    self.send_header("content-length", "0")
+                    self.end_headers()
+                    return
+                if self.path == "/v1/images/generations":
+                    out = {"created": 1, "data": [{
+                        "b64_json": stub.B64,
+                        "revised_prompt": "watercolor: " + body["prompt"]}]}
+                else:
+                    out = {"model": body.get("model", ""), "choices": [
+                        {"message": {"content": [{
+                            "type": "image_url", "image_url": {
+                                "url": "data:image/png;base64,"
+                                       + stub.B64}}]}}]}
+                data = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("content-type", "application/json")
+                self.send_header("content-length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def _mm_body(i: int, uris: list) -> dict:
+    content = [{"type": "text", "text": MM_PROMPTS[i]}]
+    if i % 2 == 0:
+        content.append({"type": "image_url",
+                        "image_url": {"url": uris[i // 2]}})
+    return {"model": "auto", "messages": [
+        {"role": "user", "content": content}]}
+
+
+def _family(res, family: str = "embedding") -> dict:
+    """A route's hits and error of one signal family."""
+    r = res.report.results.get(family) if res.report else None
+    if r is None:
+        return {"hits": [], "error": None}
+    return {"hits": [(h.rule, round(h.confidence, 6)) for h in r.hits],
+            "error": r.error}
+
+
+def _same_hits(got: list, want: list, tol: float) -> bool:
+    return [h for h, _ in got] == [h for h, _ in want] and all(
+        abs(a - b) <= tol for (_, a), (_, b) in zip(got, want))
+
+
+class _MMRun:
+    """Phase 14's engine pair, routers and servers: the card's behind the
+    HTTP server and the mock backend, the CPU port's behind its own."""
+
+    def __init__(self, cfg, modules3, modules5, models, tt, tv) -> None:
+        self.cfg = cfg
+        self.engine = mm_engine(DEVICE, cfg, modules3["cuda"],
+                                modules5["cuda"],
+                                _embedder(tt, tv, models["cuda"], DEVICE))
+        self.cpu = mm_engine("cpu", cfg, modules3["cpu"], modules5["cpu"],
+                             _embedder(tt, tv, models["cpu"], "cpu"))
+        self.router = build_router(cfg, self.engine)
+        self.timed = _Timed(self.router, self.engine)
+        self.cpu_router = build_router(cfg, self.cpu)
+        self.backend = MockVLLMServer().start()
+        self.server = RouterServer(self.router, self.backend.url).start()
+        self.cpu_server = RouterServer(self.cpu_router,
+                                       self.backend.url).start()
+        self.mm_calls: list = []
+        inner = self.engine.embed_multimodal
+
+        def timed_mm(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.mm_calls.append((time.perf_counter() - t0) * 1e3)
+
+        self.engine.embed_multimodal = timed_mm
+
+    def close(self) -> None:
+        for s in (self.server, self.cpu_server):
+            s.stop()
+        self.backend.stop()
+        for r in (self.router, self.cpu_router):
+            r.shutdown()
+        for e in (self.engine, self.cpu):
+            e.shutdown()
+
+    def post(self, body: dict, path: str = "/v1/chat/completions",
+             cpu: bool = False) -> tuple:
+        """(result, K1, K2, the launches the steps predict)."""
+        l0 = _cuda.launch_counts()
+        s0 = len(self.engine.steps())
+        res = _chat_call((self.cpu_server if cpu else self.server).url,
+                         path, body)
+        l1 = _cuda.launch_counts()
+        want = _predicted_launches([] if cpu
+                                   else self.engine.steps()[s0:])
+        return (res, l1["flash_attention"] - l0["flash_attention"],
+                l1["head_epilogue"] - l0["head_epilogue"], want)
+
+
+def mm_route(run: "_MMRun", uris: list, px: np.ndarray, pil: str,
+             smi: str) -> dict:
+    """14b: 16 requests one at a time (8 with an image part) behind the
+    HTTP server; K1 / K2 per request equal to the bank steps' layers and
+    banks; the image leg's ms; route p50 / p99; 4 requests again on the
+    CPU port; the image rules' hits on the card against the CPU's with
+    the request memo holding each tower's embedding of the same
+    pixels."""
+    from semantic_router_tpu_torch.signals import RequestContext
+    from semantic_router_tpu_torch.signals.embedding_signal import \
+        EmbeddingSignal
+
+    rows = []
+    for i in range(len(MM_PROMPTS)):
+        run.mm_calls.clear()
+        r, k1, k2, want = run.post(_mm_body(i, uris))
+        check(r["status"] == 200, f"14b request {i}: HTTP {r['status']}: "
+                                  f"{r['body']}")
+        check(k1 == want["flash_attention"] and k2 == want["head_epilogue"]
+              and k1 > 0 and k2 > 0,
+              f"14b request {i}: K1 {k1} / K2 {k2} != the steps' {want}")
+        fam = _family(run.timed.routes[-1])
+        if i % 2 == 0 and not pil:
+            check((fam["error"] or "").startswith("image: "),
+                  f"14b request {i}: without PIL the image leg must fail "
+                  f"open: {fam}")
+        else:
+            check(fam["error"] is None, f"14b request {i}: {fam}")
+        rows.append({"image": i % 2 == 0, "k1": k1, "k2": k2,
+                     "decision": r["headers"].get("x-vsr-selected-decision"),
+                     "model": r["headers"].get("x-vsr-selected-model"),
+                     "image_leg_ms": sum(run.mm_calls),
+                     "http_ms": r["s"] * 1e3, **fam})
+    routes = run.timed.routes[-len(MM_PROMPTS):]
+    # the first requests again on the CPU port
+    agree = []
+    for i in MM_CPU_BODIES:
+        want = run.cpu_router.route(_mm_body(i, uris))
+        got = routes[i]
+        gf, wf = _family(got), _family(want)
+        same = (_decision(got), got.model, _route_headers(got),
+                gf["error"]) == (_decision(want), want.model,
+                                 _route_headers(want), wf["error"]) \
+            and _same_hits(gf["hits"], wf["hits"], MM_TOL)
+        agree.append({"request": i, "decision": _decision(want),
+                      "equal": same})
+        check(same, f"14b request {i}: card {_decision(got)} {gf} != CPU "
+                    f"{_decision(want)} {wf}")
+    # the image rules on each engine, the memo holding its tower's
+    # embedding of the same pixels
+    card_img = run.engine.embed_multimodal(MM_TASK, images=px)["image"]
+    cpu_img = run.cpu.embed_multimodal(MM_TASK, images=px)["image"]
+    preset = []
+    rules = run.cfg.signals.embeddings
+    for k in range(len(px)):
+        hits = []
+        for engine, emb in ((run.engine, card_img), (run.cpu, cpu_img)):
+            sig = EmbeddingSignal(engine, rules, multimodal_task=MM_TASK)
+            ctx = RequestContext.from_openai_body(_mm_body(2 * k, uris))
+            ctx.ext[("query_img_emb", MM_TASK)] = emb[k]
+            t0 = time.perf_counter()
+            res = sig.evaluate(ctx)
+            hits.append(({"hits": [(h.rule, h.confidence)
+                                   for h in res.hits], "error": res.error},
+                         (time.perf_counter() - t0) * 1e3))
+        (g, g_ms), (w, _) = hits
+        same = g["error"] is None and w["error"] is None \
+            and _same_hits(g["hits"], w["hits"], MM_TOL)
+        check(same, f"14b image {k}: card {g} != CPU {w}")
+        preset.append({"image": k, "hits": [h for h, _ in g["hits"]],
+                       "score": dict(g["hits"]).get("chart_image"),
+                       "ms": g_ms})
+    n_image_hits = sum("chart_image" in p["hits"] for p in preset)
+    check(0 < n_image_hits < len(px),
+          f"14b: the image rule matched {n_image_hits} of {len(px)} images")
+    route_ms = run.timed.ms["route"][-len(MM_PROMPTS):]
+    img_rows = [r for r in rows if r["image"]]
+    out = {"rows": rows, "cpu_agreement": agree, "preset": preset,
+           "k1_k2": [[r["k1"], r["k2"]] for r in rows],
+           "image_rule_hits": n_image_hits, "pil": pil or None,
+           "k1_per_request": sum(r["k1"] for r in rows) / len(rows),
+           "k2_per_request": sum(r["k2"] for r in rows) / len(rows),
+           "route_p50_ms": _pct(route_ms, 0.5),
+           "route_p99_ms": _pct(route_ms, 0.99),
+           "image_leg_p50_ms": _pct([r["image_leg_ms"] for r in img_rows],
+                                    0.5),
+           "image_leg_max_ms": max(r["image_leg_ms"] for r in img_rows),
+           "preset_image_rules_p50_ms": _pct([p["ms"] for p in preset],
+                                             0.5),
+           "decisions": sorted({str(r["decision"]) for r in rows}),
+           "card": smi}
+    print("mm route " + json.dumps({k: v for k, v in out.items()
+                                    if k not in ("rows", "preset")}),
+          flush=True)
+    return out
+
+
+def _strip_ids(obj):
+    """An answer with its generated ids and times set aside."""
+    if isinstance(obj, dict):
+        return {k: _strip_ids(v) for k, v in obj.items()
+                if k not in ("id", "created")}
+    if isinstance(obj, (list, tuple)):
+        return [_strip_ids(v) for v in obj]
+    return obj
+
+
+def mm_imagegen(run: "_MMRun", stub: "ImageStub", smi: str) -> dict:
+    """14c: the draw and paint requests plain, streamed and through
+    ``/v1/messages`` on the card and on the CPU port: the stub's answer
+    as a chat completion with ``x-vsr-image-backend``, the content equal
+    to the CPU's but for ids and times, K1 / K2 from the modality head's
+    bank step; then a failing stub: 502 ``imagegen_error``, fed back as a
+    failure."""
+    rows = []
+    hits0 = run.backend.hits
+    for prompt, decision, backend in MM_DRAW:
+        for form in ("plain", "stream", "anthropic"):
+            if form == "anthropic":
+                body = {"model": "auto", "max_tokens": 64, "messages": [
+                    {"role": "user", "content": prompt}]}
+                path = "/v1/messages"
+            else:
+                body = {"model": "auto", "stream": form == "stream",
+                        "messages": [{"role": "user", "content": prompt}]}
+                path = "/v1/chat/completions"
+            n0 = len(stub.paths)
+            r, k1, k2, want = run.post(body, path)
+            c, _, _, _ = run.post(body, path, cpu=True)
+            h = r["headers"]
+            check(r["status"] == c["status"] == 200
+                  and h.get("x-vsr-image-backend") == backend
+                  and h.get("x-vsr-selected-decision") == decision,
+                  f"14c {decision} {form}: {r['status']} {h}")
+            check(_strip_ids(r["body"]) == _strip_ids(c["body"])
+                  and _vsr(h) == _vsr(c["headers"]),
+                  f"14c {decision} {form}: card {r['body']} != CPU "
+                  f"{c['body']}")
+            check(k1 == want["flash_attention"] and k2 ==
+                  want["head_epilogue"] and k1 > 0 and k2 > 0,
+                  f"14c {decision} {form}: K1 {k1} / K2 {k2} != {want}")
+            check(len(stub.paths) - n0 == 2,
+                  f"14c {decision} {form}: the stub saw "
+                  f"{stub.paths[n0:]}")
+            rows.append({"decision": decision, "form": form, "k1": k1,
+                         "k2": k2, "http_ms": r["s"] * 1e3,
+                         "stub_path": stub.paths[-1]})
+    check(run.backend.hits == hits0,
+          "14c: an image request reached the text backend")
+    feedback = []
+    inner = run.router.record_feedback
+
+    def spy(route, success=True, **kw):
+        feedback.append(success)
+        return inner(route, success=success, **kw)
+
+    run.router.record_feedback = spy
+    stub.fail = True
+    try:
+        r, _, _, _ = run.post({"model": "auto", "messages": [
+            {"role": "user", "content": MM_DRAW[0][0]}]})
+    finally:
+        stub.fail = False
+        run.router.record_feedback = inner
+    err = (r["body"] or {}).get("error", {})
+    check(r["status"] == 502 and err.get("type") == "imagegen_error"
+          and feedback == [False],
+          f"14c failing stub: {r['status']} {r['body']} feedback "
+          f"{feedback}")
+    out = {"rows": rows, "failure": {"status": r["status"],
+                                     "type": err.get("type"),
+                                     "feedback": feedback},
+           "k1_per_request": sum(x["k1"] for x in rows) / len(rows),
+           "http_p50_ms": _pct([x["http_ms"] for x in rows], 0.5),
+           "card": smi}
+    print("mm imagegen " + json.dumps({k: v for k, v in out.items()
+                                       if k != "rows"}), flush=True)
+    return out
+
+
+def _json_call(url: str, method: str, path: str, body=None) -> tuple:
+    status, headers, raw = _api_call(url, method, path, body)
+    if headers.get("content-type", "").startswith("application/json"):
+        return status, headers, json.loads(raw or b"{}")
+    return status, headers, raw.decode()
+
+
+def _eval_same(got: dict, want: dict) -> bool:
+    if {k: sorted(v) for k, v in got["signals"].items()} != \
+            {k: sorted(v) for k, v in want["signals"].items()}:
+        return False
+    if got["confidences"].keys() != want["confidences"].keys() or any(
+            abs(got["confidences"][k] - v) > EVAL_TOL
+            for k, v in want["confidences"].items()):
+        return False
+    if {k: v["error"] for k, v in got["families"].items()} != \
+            {k: v["error"] for k, v in want["families"].items()}:
+        return False
+    gd, wd = got["decisions"], want["decisions"]
+    return [(d["name"], sorted(d["matched_rules"])) for d in gd] == \
+        [(d["name"], sorted(d["matched_rules"])) for d in wd] and all(
+            abs(a["confidence"] - b["confidence"]) <= EVAL_TOL
+            for a, b in zip(gd, wd))
+
+
+def mm_endpoints(run: "_MMRun", smi: str) -> dict:
+    """14d: ``/api/v1/eval`` on 8 texts and ``/api/v1/nli`` against the
+    CPU port, a ``/v1/memory`` round trip, ``/debug/upstreams``,
+    ``/openapi.json`` (valid), ``/docs``, ``/startup-status`` (and a
+    ``serve`` boot to ready), ``/info/models``."""
+    import tempfile
+
+    from semantic_router_tpu_torch.router.openapi import validate_spec
+    from semantic_router_tpu_torch.router.server import API_CATALOG
+    from semantic_router_tpu_torch.runtime.bootstrap import serve
+
+    url, cpu_url = run.server.url, run.cpu_server.url
+    out = {"eval": [], "nli": []}
+    for text in MM_PROMPTS[:8]:
+        t0 = time.perf_counter()
+        s, _, got = _json_call(url, "POST", "/api/v1/eval", {"text": text})
+        ms = (time.perf_counter() - t0) * 1e3
+        cs, _, want = _json_call(cpu_url, "POST", "/api/v1/eval",
+                                 {"text": text})
+        check(s == cs == 200 and _eval_same(got, want),
+              f"14d eval {text!r}: card {got} != CPU {want}")
+        out["eval"].append({"ms": ms, "decisions": [
+            d["name"] for d in got["decisions"]]})
+    for premise, hypothesis in NLI_PAIRS:
+        body = {"premise": premise, "hypothesis": hypothesis}
+        s, _, got = _json_call(url, "POST", "/api/v1/nli", body)
+        cs, _, want = _json_call(cpu_url, "POST", "/api/v1/nli", body)
+        check(s == cs == 200 and got["label"] == want["label"]
+              and abs(got["confidence"] - want["confidence"]) <= EVAL_TOL,
+              f"14d nli: card {got} != CPU {want}")
+        out["nli"].append(got["label"])
+    # a memory round trip
+    s, _, made = _json_call(url, "POST", "/v1/memory", {
+        "user_id": "mm-user", "text": "I prefer charts in dark mode"})
+    s2, _, listed = _json_call(url, "GET", "/v1/memory?user_id=mm-user")
+    s3, _, one = _json_call(url, "GET", f"/v1/memory/{made['id']}")
+    s4, _, gone = _json_call(url, "DELETE", f"/v1/memory/{made['id']}")
+    s5, _, after = _json_call(url, "GET", "/v1/memory?user_id=mm-user")
+    check((s, s2, s3, s4, s5) == (200,) * 5
+          and [i["id"] for i in listed["data"]] == [made["id"]]
+          and one["user_id"] == "mm-user" and gone == {"deleted": True}
+          and after == {"data": []},
+          f"14d memory: {made} {listed} {one} {gone} {after}")
+    out["memory"] = "ok"
+    s, _, ups = _json_call(url, "GET", "/debug/upstreams")
+    check(s == 200 and ups["enabled"] and sum(
+        e["requests"] for e in ups["endpoints"]) > 0,
+          f"14d /debug/upstreams: {s} {ups}")
+    out["upstreams"] = {"endpoints": len(ups["endpoints"]),
+                        "open_circuits": ups["open_circuits"]}
+    s, _, spec = _json_call(url, "GET", "/openapi.json")
+    problems = validate_spec(spec)
+    ops = {(m, p) for p, d in spec["paths"].items() for m in d}
+    check(s == 200 and problems == [] and ops == {
+        (e["method"].lower(), e["path"]) for e in API_CATALOG["endpoints"]},
+          f"14d /openapi.json: {s} {problems}")
+    s, h, page = _json_call(url, "GET", "/docs")
+    check(s == 200 and h["content-type"] == "text/html"
+          and "openapi.json" in page, f"14d /docs: {s}")
+    s, _, st = _json_call(url, "GET", "/startup-status")
+    check(s == 200 and st["ready"] is True, f"14d /startup-status: {st}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "router.json")
+        with open(path, "w") as f:
+            json.dump({"default_model": "qwen3-8b"}, f)
+        srv, tracker = serve(path, run.backend.url, port=0,
+                             status_path=os.path.join(tmp, "status.json"),
+                             block=False)
+        try:
+            s, _, booted = _json_call(srv.url, "GET", "/startup-status")
+        finally:
+            srv.stop()
+            srv.router.shutdown()
+            for name in ("runtimestats", "slo", "resilience"):
+                getattr(srv.registry, name).stop()
+    check(s == 200 and booted["phase"] == "ready" and booted["ready"],
+          f"14d serve: /startup-status {booted}")
+    out["startup"] = {"phases": [n.split(":")[0] for n in booted["notes"]],
+                      "phase": booted["phase"]}
+    s, _, models = _json_call(url, "GET", "/info/models")
+    rows = {r["task"]: r for r in models["tasks"]}
+    check(s == 200 and rows.get(MM_TASK, {}).get("kind") == "multimodal"
+          and rows[MM_TASK]["labels"] == []
+          and rows["nli"]["labels"] == next(
+              h[2] for h in RESPOND_HEADS if h[0] == "nli"),
+          f"14d /info/models: {models}")
+    out["info_models"] = sorted(rows)
+    out["eval_p50_ms"] = _pct([e["ms"] for e in out["eval"]], 0.5)
+    out["card"] = smi
+    print("mm endpoints " + json.dumps(out), flush=True)
+    return out
+
+
+def mm_guard_bound(cfg_q, dec: dict, smi: str) -> dict:
+    """14e: phase 13's guard on prompts of 7 distinct lengths, twice in
+    turn: the generator keeps at most ``MAX_CACHED_SHAPES`` (B, M) KV
+    shapes and their graphs, every shape of the second pass is captured
+    again with the same tokens, and the graph pool stops growing once
+    the bound is reached."""
+    from semantic_router_tpu_torch.models.generate import MAX_CACHED_SHAPES
+
+    tok = HashTokenizer(vocab_size=QWEN3_06B["vocab_size"])
+    engine = _guard_engine(DEVICE, cfg_q, dec["cuda"], tok)
+    gen = engine._tasks["jailbreak"].generator
+    rows = []
+    try:
+        for rnd in range(2):
+            for n in GUARD_LENGTHS:
+                text = _words(n, SEED + 1404 + n)
+                t0 = time.perf_counter()
+                v = engine.guard_classify("jailbreak", text,
+                                          max_new_tokens=GUARD_BOUND_TOKENS)
+                rep = engine.graph_report()["task:jailbreak"]
+                rows.append({
+                    "pass": rnd, "words": n, "M": gen.stats["M"],
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "prefill_graph": gen.stats["prefill_graph"],
+                    "raw": v.raw, "shapes": len(gen._caches),
+                    "graphs": rep["graphs"], "pool_bytes": rep["pool_bytes"],
+                    "reserved_bytes": torch.cuda.memory_reserved()})
+                check(len(gen._caches) <= MAX_CACHED_SHAPES and {
+                    (k[1], k[-1]) for k in gen.graphs.keys()}
+                      <= set(gen._caches),
+                      f"14e: {len(gen._caches)} shapes, graphs "
+                      f"{sorted(map(str, gen.graphs.keys()))}")
+    finally:
+        engine.shutdown()
+    first, second = rows[:len(GUARD_LENGTHS)], rows[len(GUARD_LENGTHS):]
+    check(len({r["M"] for r in first}) == len(GUARD_LENGTHS),
+          f"14e: cache lengths {[r['M'] for r in first]}")
+    check([r["raw"] for r in second] == [r["raw"] for r in first],
+          "14e: a returning shape generated other tokens")
+    check(all(r["prefill_graph"] == "captured" for r in second),
+          "14e: an evicted shape was not captured again")
+    check(max(r["pool_bytes"] for r in second)
+          <= max(r["pool_bytes"] for r in first),
+          f"14e: the pool grew past the bound: "
+          f"{[r['pool_bytes'] for r in rows]}")
+    out = {"bound": MAX_CACHED_SHAPES, "rows": [
+        {k: v for k, v in r.items() if k != "raw"} for r in rows],
+        "card": smi}
+    print("guard bound " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_multimodal(modules3: dict, modules5: dict, guard: tuple,
+                     smi: str) -> dict:
+    """Phase 14: 14a SigLIP's towers, 14b routing with images, 14c
+    image_generation, 14d the endpoints, 14e the guard's bounded caches;
+    then the cuda tests of ``tests/test_torch_multimodal_cuda.py``."""
+    from semantic_router_tpu_torch.models.siglip import preprocess_image
+
+    pil = _have_pil()
+    print("phase 14: PIL " + (f"imports ({pil})" if pil else
+                              "does not import") + " on this machine",
+          flush=True)
+    t0 = time.perf_counter()
+    tt, tv, models = siglip_models()
+    built_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in models["cpu"].parameters())
+    print(f"phase 14: SigLIP ({n_params / 1e6:.1f}M params) seeded and on "
+          f"the card in {built_s:.1f} s", flush=True)
+    stamp("phase 14a: towers")
+    out = {"built_s": built_s, "pil": pil or None,
+           "towers": mm_towers(tt, tv, models, smi)}
+    images = mm_images(8, SEED + 1405)
+    uris = [_data_uri(im) for im in images]
+    px = np.stack([preprocess_image(im, tv.image_size) for im in images])
+    threshold, best = _image_threshold(
+        _embedder(tt, tv, models["cuda"], DEVICE), px)
+    stub = ImageStub()
+    print(f"phase 14: image rule threshold {threshold} over best scores "
+          f"{best}", flush=True)
+    run = _MMRun(load_config(mm_config(stub.url, threshold)), modules3,
+                 modules5, models, tt, tv)
+    try:
+        _cuda.reset_launch_counts()
+        stamp("phase 14b: route")
+        out["route"] = mm_route(run, uris, px, pil, smi)
+        stamp("phase 14c: image_generation")
+        out["imagegen"] = mm_imagegen(run, stub, smi)
+        stamp("phase 14d: endpoints")
+        out["endpoints"] = mm_endpoints(run, smi)
+        out["launches"] = _cuda.launch_counts()
+    finally:
+        run.close()
+        stub.stop()
+    stamp("phase 14e: guard bound")
+    out["guard_bound"] = mm_guard_bound(*guard, smi)
+    out["cuda_tests"] = run_cuda_tests("test_torch_multimodal_cuda.py", 4)
     return out
 
 
@@ -6543,6 +7433,10 @@ def main(argv=None) -> int:
     chat = report["chat"] = phase_chat(chat_keep, dev["smi"])
     stamp("phase 13: models")
     models = report["models"] = phase_models(modules3, dev["smi"])
+    guard = models.pop("_guard")
+    stamp("phase 14: multimodal and endpoints")
+    mm = report["multimodal"] = phase_multimodal(modules3, modules5, guard,
+                                                 dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -6566,14 +7460,16 @@ def main(argv=None) -> int:
             # K1 runs in the serve trunk, the embedding trunk, the
             # fixture router's trunks, the respond / observe / chat
             # phases' bank and embedding model, the gates phase's
-            # trunks and the models phase's intent bank; K2 in the
-            # serve, fixture, respond, observe, gates, chat and models
-            # banks and under every quant mode
+            # trunks, the models phase's intent bank and the multimodal
+            # phase's bank and embedding model; K2 in the serve, fixture,
+            # respond, observe, gates, chat, models and multimodal banks
+            # and under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
             + gates["launches"][kname] + res["launches"][kname]
             + chat["launches"][kname] + models["launches"][kname]
+            + mm["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

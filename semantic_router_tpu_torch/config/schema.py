@@ -994,7 +994,8 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     durable decision store other than SQLite), a qdrant / milvus memory
     store, a ``response_store`` or ``looper.workflow_state`` backend other
     than the in-memory one (the Redis / Valkey stores need a RESP client),
-    an enabled ``rag`` or ``image_generation`` plugin, a selector
+    an enabled ``rag`` plugin (the retrieval plane is not ported; an
+    ``image_generation`` plugin is served), a selector
     ``algorithm.artifact``."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
@@ -1075,7 +1076,7 @@ def refuse_unported(d: Dict[str, Any]) -> None:
                              f"(algorithm.artifact) are not served by "
                              f"this port yet")
         for p in dec.get("plugins", []) or []:
-            if p.get("type") in ("rag", "image_generation") and \
+            if p.get("type") == "rag" and \
                     PluginConfig.from_dict(p).enabled:
                 raise ValueError(f"decision {name!r}: the {p['type']} "
                                  f"plugin is not served by this port yet")

@@ -51,6 +51,10 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   ``_generative_lock``, its adapter selected by name, its prefill and
   decode steps in the task's step cache under the engine's capture gate;
   ``guard_classify`` parses the guard's verdict;
+- ``multimodal`` tasks (``register_multimodal``: a SigLIP
+  ``SiglipEmbedder``) bypass the batcher too: ``embed_multimodal``
+  embeds texts and images into the shared space, each tower step in the
+  task's step cache under the engine's capture gate;
 - every step runs through a compiled-step cache (engine.graphs): on the
   card the first execution of a (group, variant, bucket, rows, ...) key
   is captured as a CUDA graph and later ones replay it, as the JAX
@@ -198,7 +202,8 @@ class TokenClassResult:
 @dataclass
 class _Task:
     name: str
-    kind: str  # "sequence" | "token" | "embedding" | "generative"
+    # "sequence" | "token" | "embedding" | "generative" | "multimodal"
+    kind: str
     labels: List[str]
     tokenizer: Tokenizer
     module: nn.Module
@@ -206,7 +211,8 @@ class _Task:
     pad_id: int = 0
     # the per-task, embedding and generation steps' compiled-step cache
     graphs: Optional[StepGraphs] = None
-    # generative kind: the GreedyGenerator, and adapter name → LoRA row
+    # generative kind: the GreedyGenerator, and adapter name → LoRA row;
+    # multimodal kind: the SiglipEmbedder
     generator: Any = None
     adapter_index: Dict[str, int] = field(default_factory=dict)
 
@@ -441,6 +447,50 @@ class InferenceEngine:
             if old is not None:
                 self._stale.append(old.graphs)
             self._evict_locked(name)
+
+    def register_multimodal(self, name: str, embedder) -> None:
+        """Register a shared text/image embedding space
+        (``models.siglip.SiglipEmbedder`` on this engine's device) as a
+        ``multimodal`` task.  Its tower steps join the engine's step
+        caches, under its capture gate; multimodal tasks are never
+        batched, fused or warmed."""
+        device = getattr(embedder, "device", self.device)
+        if device != self.device:
+            raise ValueError(f"task {name!r}: the embedder runs on "
+                             f"{device}, the engine on {self.device}")
+        graphs = StepGraphs(self.device, self._gate, f"task:{name}")
+        if hasattr(embedder, "graphs"):
+            embedder.graphs = graphs
+        task = _Task(name, "multimodal", [],
+                     getattr(embedder, "tokenizer", None),
+                     getattr(embedder, "model", None), 0, graphs=graphs,
+                     generator=embedder)
+        with self._changing():
+            old = self._tasks.get(name)
+            self._tasks[name] = task
+            if old is not None:
+                self._stale.append(old.graphs)
+            self._evict_locked(name)
+
+    def embed_multimodal(self, task: str, texts: Optional[Sequence[str]] = None,
+                         images=None,
+                         image_refs: Optional[Sequence[str]] = None
+                         ) -> Dict[str, np.ndarray]:
+        """Embed texts and/or images into the task's shared space:
+        {"text": [n, d], "image": [m, d]}, only the keys asked for.
+        ``images`` are preprocessed float arrays [m, H, W, C] and win
+        over ``image_refs`` (wire references, data URIs or base64,
+        decoded on the host).  Cross-modal similarity is the dot
+        product."""
+        t = self._require(task, kind="multimodal")
+        out: Dict[str, np.ndarray] = {}
+        if texts:
+            out["text"] = t.generator.embed_text(list(texts))
+        if images is not None and len(images):
+            out["image"] = t.generator.embed_image(images)
+        elif image_refs:
+            out["image"] = t.generator.embed_image_refs(list(image_refs))
+        return out
 
     def generate(self, task: str, prompts: Sequence[str],
                  max_new_tokens: int = 64, adapter: str = "",
@@ -872,9 +922,10 @@ class InferenceEngine:
 
         buckets = list(buckets or self.cfg.seq_len_buckets)
         for t in list(self._tasks.values()):
-            if t.name in self._task_group or t.kind == "generative":
+            if t.name in self._task_group or t.kind in ("generative",
+                                                        "multimodal"):
                 # a fused member's steps are its group's; a decode step
-                # keys on the batch and cache length a call brings
+                # and a tower step key on the shapes a call brings
                 continue
             for b in buckets:
                 if b > t.max_seq_len:

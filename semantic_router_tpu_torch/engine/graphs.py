@@ -29,8 +29,9 @@ with one graph memory pool and one lock:
   counted (``observability.programstats.StepCost``, the FLOPs and bytes
   of the step) and handed to ``fn``: on the card that is the served
   eager run the graph is captured after, never the capture;
-- a snapshot that is rebuilt or flipped retires its cache: the graphs are
-  dropped (they hold the addresses of the bank and trunk tensors they
+- ``evict`` drops the graphs of some keys (the generator's least
+  recently used shapes); a snapshot that is rebuilt or flipped retires
+  its cache: the graphs are dropped (they hold the addresses of the bank and trunk tensors they
   were captured with) and a step on a retired cache raises
   ``SnapshotRetired``.
 
@@ -152,6 +153,21 @@ class StepGraphs:
         if dropped:
             with self.gate.exclusive():
                 del dropped
+
+    def evict(self, drop: Callable[[Hashable], bool]) -> int:
+        """Drop the graphs of every key ``drop`` accepts, as ``retire``
+        drops all of them (destroyed with the gate held alone); the cache
+        stays live and such a key is captured again at its next
+        execution.  Returns how many keys went."""
+        with self.lock:
+            gone = [k for k in self.steps if drop(k)]
+            dropped = [self.steps.pop(k) for k in gone]
+            eager = [k for k in self._eager if drop(k)]
+            self._eager.difference_update(eager)
+        if dropped:
+            with self.gate.exclusive():
+                del dropped
+        return len(gone) + len(eager)
 
     def captured(self) -> int:
         return len(self.steps)

@@ -206,6 +206,16 @@ class InMemoryMemoryStore:
         with self._lock:
             return list(self._items.get(user_id, ()))
 
+    def list_all(self, limit: int = 5000) -> List[MemoryItem]:
+        """Every user's items, at most ``limit``."""
+        out: List[MemoryItem] = []
+        with self._lock:
+            for items in self._items.values():
+                out.extend(items)
+                if len(out) >= limit:
+                    break
+        return out[:limit]
+
     def delete(self, user_id: str, memory_id: str) -> bool:
         with self._lock:
             items = self._items.get(user_id, [])
@@ -214,6 +224,15 @@ class InMemoryMemoryStore:
                     del items[i]
                     return True
         return False
+
+    def find_by_id(self, memory_id: str) -> Optional[MemoryItem]:
+        """Cross-user lookup by id (``GET /v1/memory/{id}``)."""
+        with self._lock:
+            for items in self._items.values():
+                for item in items:
+                    if item.id == memory_id:
+                        return item
+        return None
 
     # -- pipeline integration ---------------------------------------------
 

@@ -11,6 +11,12 @@
   leaves), whose Flax names follow HF's; ``deberta_params_from_flax``
   maps the DeBERTa tree's own names (``deberta/layers_i/...``,
   ``pooler_dense``, ``encoder_LayerNorm``, ``rel_embeddings``) onto HF's.
+- SigLIP: the port's names are the JAX tree's (``layers_i`` → ``layers.i``),
+  so ``siglip_params_from_flax`` only transposes (Dense kernels; the patch
+  conv's HWIO kernel → OIHW); ``siglip_state_from_hf`` maps an HF
+  ``SiglipModel`` state dict onto them, splitting the MAP head's packed
+  ``in_proj_weight`` / ``in_proj_bias`` into ``attn_q`` / ``attn_k`` /
+  ``attn_v``, as the JAX package's ``siglip_params_from_state_dict`` does.
 - ``read_safetensors`` is a numpy-only reader for machines without the
   ``safetensors`` package: an 8-byte little-endian header length, a JSON
   header {name: {dtype, shape, data_offsets}}, then the raw buffers.
@@ -108,6 +114,76 @@ def deberta_params_from_flax(flax_params: Mapping[str, Any]
                 t.T.contiguous() if key == "kernel" else t
 
     walk(tree, [])
+    return out
+
+
+# SigLIP's bare parameters, carried as they are
+_SIGLIP_RAW = frozenset({"position_embedding", "probe", "logit_scale",
+                         "logit_bias"})
+
+
+def siglip_params_from_flax(flax_params: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """Flax ``SiglipModel`` params (numpy) → the port's ``SiglipModel``
+    state dict."""
+    tree = flax_params.get("params", flax_params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], path: list) -> None:
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                m = _LAYER_RE.match(key)
+                walk(val, path + ([f"layers.{m.group(1)}"] if m else [key]))
+                continue
+            t = _host(val).reshape(np.shape(val))  # keeps a 0-d scale
+            if key in _SIGLIP_RAW:
+                out[".".join(path + [key])] = t
+                continue
+            if key not in _LEAF:
+                raise KeyError(f"unknown Flax leaf {'/'.join(path + [key])}")
+            if key == "kernel":
+                # a conv kernel is HWIO (torch: OIHW), a Dense one [in, out]
+                t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T
+                t = t.contiguous()
+            out[".".join(path + [_LEAF[key]])] = t
+
+    walk(tree, [])
+    return out
+
+
+def siglip_state_from_hf(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An HF ``SiglipModel`` state dict (tensors or numpy arrays) → the
+    port's ``SiglipModel`` state dict.  Buffers (``position_ids``) are
+    dropped."""
+    src = state_dict_from_hf(state)
+    out: Dict[str, torch.Tensor] = {}
+    for key, w in src.items():
+        parts = key.split(".")
+        if parts[0] in ("logit_scale", "logit_bias"):
+            out[parts[0]] = w.reshape(())
+            continue
+        tower, rest = parts[0], parts[1:]
+        if rest[0] == "embeddings":
+            if rest[1] == "position_ids":
+                continue
+            if rest[1] == "position_embedding":
+                out[f"{tower}.position_embedding"] = w
+            else:  # token_embedding.weight, patch_embedding.weight/bias
+                out[".".join([tower] + rest[1:])] = w
+        elif rest[0] == "encoder":  # encoder.layers.i.* → layers.i.*
+            out[".".join([tower] + rest[1:])] = w
+        elif tower == "vision_model" and rest[:2] == ["head", "attention"]:
+            leaf = rest[2]
+            if leaf in ("in_proj_weight", "in_proj_bias"):
+                n = w.shape[0] // 3
+                kind = "weight" if leaf == "in_proj_weight" else "bias"
+                for i, name in enumerate(("attn_q", "attn_k", "attn_v")):
+                    out[f"{tower}.head.{name}.{kind}"] = \
+                        w[i * n:(i + 1) * n].contiguous()
+            else:  # out_proj.weight / out_proj.bias
+                out[f"{tower}.head.attn_out.{rest[-1]}"] = w
+        else:  # final_layer_norm, post_layernorm, head.*
+            out[key] = w
     return out
 
 

@@ -22,6 +22,11 @@ The port of ``semantic_router_tpu.models.generate``:
   one step per shape.  The argmax runs on the device; the host loop
   handles EOS per row and stop strings, as the JAX loop does.
   ``generate(..., eager=True)`` runs the same step functions op by op.
+- The generator keeps the KV buffers and graphs of at most
+  ``MAX_CACHED_SHAPES`` (B, M) shapes, least recently used first out: an
+  evicted shape drops its buffers, its decode graph and its prefill
+  graphs, and is captured again when it comes back.  (The JAX loop
+  allocates its caches per call and keeps only the compiled programs.)
 - The adapter (``task_index``) is a gather, so switching adapters per
   request changes no shape and no graph.
 """
@@ -32,6 +37,7 @@ import math
 import re
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -47,6 +53,8 @@ from .lora import LoRAConfig, LoRADense
 from .qwen3 import Qwen3Config, RMSNorm
 
 NEG_INF = -1e30
+# the (B, M) shapes a generator keeps KV buffers and graphs for
+MAX_CACHED_SHAPES = 4
 # the projections a LoRA decoder adapts (every attention and MLP dense)
 LORA_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                     "up_proj", "down_proj")
@@ -265,21 +273,31 @@ class GreedyGenerator:
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.pad_id = pad_id
         self.graphs = StepGraphs(self.device, CaptureGate(), "generative")
-        self._caches: Dict[Tuple[int, int], list] = {}
+        # (B, M) -> KV buffers, least recently used first
+        self._caches: "OrderedDict[Tuple[int, int], list]" = OrderedDict()
         self._lock = threading.Lock()
         self.stats: Dict[str, object] = {}
 
     def _caches_for(self, B: int, M: int) -> list:
-        """The (B, M) KV buffers, made once and kept: a captured step
-        writes into these addresses."""
+        """The (B, M) KV buffers, kept while (B, M) is among the
+        ``MAX_CACHED_SHAPES`` most recently used shapes: a captured step
+        writes into these addresses.  Making a new shape's buffers evicts
+        the least recently used shape, its buffers and its graphs."""
         caches = self._caches.get((B, M))
-        if caches is None:
-            cfg = self.config
-            shape = (B, cfg.num_key_value_heads, M, cfg.head_dim)
-            caches = [(torch.zeros(shape, device=self.device),
-                       torch.zeros(shape, device=self.device))
-                      for _ in range(cfg.num_hidden_layers)]
-            self._caches[(B, M)] = caches
+        if caches is not None:
+            self._caches.move_to_end((B, M))
+            return caches
+        while len(self._caches) >= MAX_CACHED_SHAPES:
+            (b, m), _ = self._caches.popitem(last=False)
+            # the graphs first: they hold the buffers' addresses
+            self.graphs.evict(lambda key, b=b, m=m: key[1] == b
+                              and key[-1] == m)
+        cfg = self.config
+        shape = (B, cfg.num_key_value_heads, M, cfg.head_dim)
+        caches = [(torch.zeros(shape, device=self.device),
+                   torch.zeros(shape, device=self.device))
+                  for _ in range(cfg.num_hidden_layers)]
+        self._caches[(B, M)] = caches
         return caches
 
     @staticmethod

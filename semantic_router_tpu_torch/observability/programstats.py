@@ -126,6 +126,10 @@ class StepCost:
         from ..ops import _cuda
 
         self._flop_mode = FlopCounterMode(display=False)
+        # no module tracking: its forward hooks are process-wide, and would
+        # run (and fail, under inference mode) in the forwards of other
+        # threads while this one counts a step
+        self._flop_mode.mod_tracker = _GlobalOnly()
         self._byte_mode = _matmul_bytes_mode()
         stack = contextlib.ExitStack()
         self._costs = stack.enter_context(_cuda.recording_costs())
@@ -147,6 +151,19 @@ class StepCost:
             flops += f
             nbytes += b
         self.flops, self.bytes_accessed = flops, nbytes
+        return False
+
+
+class _GlobalOnly:
+    """FlopCounterMode's module tracker, minus the modules: every count
+    goes to "Global", and no hook is installed."""
+
+    parents = ("Global",)
+
+    def __enter__(self) -> "_GlobalOnly":
+        return self
+
+    def __exit__(self, *exc) -> bool:
         return False
 
 

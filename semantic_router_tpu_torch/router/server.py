@@ -49,7 +49,13 @@ remom, fusion, workflows) is executed over its models
 (``looper/``): the router becomes the client, each fan-out call marked
 ``x-vsr-looper-request`` (a request so marked is served single-model)
 and carrying its own candidate's credential; fusion's grounding runs
-one ``nli`` classification per panel answer.  ``GET /health`` reports
+one ``nli`` classification per panel answer.  A decision whose
+``image_generation`` plugin is enabled runs on the plugin's image
+backend (``imagegen.py``; one per decision and configuration) and
+answers as a chat completion with ``x-vsr-image-backend``
+(Anthropic-shaped for ``/v1/messages``, one SSE chunk for a stream); a
+backend that cannot be built or fails answers 502 ``imagegen_error``.
+``GET /health`` reports
 liveness (``healthy``, or ``degraded`` with the firing SLO objectives,
 HTTP 200 either way), ``GET /ready`` readiness.  Serves on
 ``httpserver.PooledHTTPServer`` (``api_server.http_workers`` request
@@ -65,6 +71,16 @@ with no API keys configured:
   POST /api/v1/classify/batch      one task over ``texts``
   POST /api/v1/embeddings          ``input``, ``dimensions`` → output_dim
   POST /api/v1/similarity[/batch]  cosine of embedded text pairs
+  POST /api/v1/eval                every signal family and decision for
+                                   a text
+  POST /api/v1/nli                 ``premise`` / ``hypothesis`` on the
+                                   ``nli`` task
+  GET|POST|DELETE /v1/memory       a user's memories (``user_id``)
+  GET|DELETE /v1/memory/{id}       one memory; a DELETE without
+                                   ``user_id`` finds its owner
+  GET  /info/models                every task: kind, labels, task_info
+  GET  /startup-status             the boot's phases (``serve``)
+  GET  /openapi.json, /docs        the OpenAPI document of the catalog
   GET  /api/v1                     the routes this server answers
 
 and the reference's telemetry surface, over the server's
@@ -89,6 +105,8 @@ and the reference's telemetry surface, over the server's
                                    pressure, buckets, transitions) and,
                                    under ``upstreams``, the upstream
                                    plane's breakers and retry budget
+  GET  /debug/upstreams            the upstream plane alone (503 when
+                                   it is off)
   GET  /metrics/external           ExternalMetricValueList scaling
                                    signals (degradation level, queue
                                    pressure) for an autoscaler
@@ -141,7 +159,10 @@ from .responseapi import (
 API_CATALOG = {"endpoints": [
     {"path": p, "method": m} for p, m in (
         ("/health", "GET"),
+        ("/startup-status", "GET"),
         ("/api/v1", "GET"),
+        ("/openapi.json", "GET"),
+        ("/docs", "GET"),
         ("/v1/chat/completions", "POST"),
         ("/v1/messages", "POST"),
         ("/v1/responses", "POST"),
@@ -153,6 +174,8 @@ API_CATALOG = {"endpoints": [
         ("/api/v1/classify/user-feedback", "POST"),
         ("/api/v1/classify/combined", "POST"),
         ("/api/v1/classify/batch", "POST"),
+        ("/api/v1/eval", "POST"),
+        ("/api/v1/nli", "POST"),
         ("/api/v1/embeddings", "POST"),
         ("/api/v1/similarity", "POST"),
         ("/api/v1/similarity/batch", "POST"),
@@ -170,7 +193,14 @@ API_CATALOG = {"endpoints": [
         ("/debug/decisions/{id}", "GET"),
         ("/debug/slo", "GET"),
         ("/debug/resilience", "GET"),
+        ("/debug/upstreams", "GET"),
         ("/metrics/external", "GET"),
+        ("/info/models", "GET"),
+        ("/v1/memory", "GET"),
+        ("/v1/memory", "POST"),
+        ("/v1/memory", "DELETE"),
+        ("/v1/memory/{id}", "GET"),
+        ("/v1/memory/{id}", "DELETE"),
     )]}
 
 # Classification API route name → engine task
@@ -289,6 +319,19 @@ class _Handler(BaseHTTPRequestHandler):
                                   "slo_breaches": breaches})
             else:
                 self._reply(200, {"status": "healthy"})
+        elif path == "/startup-status":
+            if srv.startup is not None:
+                self._reply(200, srv.startup.snapshot())
+            else:
+                self._reply(200, {"ready": srv.ready.is_set(),
+                                  "uptime_s": round(
+                                      time.time() - srv.started_t, 1)})
+        elif path == "/openapi.json":
+            self._reply(200, srv.openapi_spec())
+        elif path == "/docs":
+            from .openapi import DOCS_HTML
+
+            self._reply_text(200, DOCS_HTML, "text/html")
         elif path == "/api/v1":
             self._reply(200, API_CATALOG)
         elif path == "/v1/models":
@@ -339,9 +382,39 @@ class _Handler(BaseHTTPRequestHandler):
                 rep["upstreams"] = up.report() if up is not None \
                     else {"enabled": False}
                 self._reply(200, rep)
+        elif path == "/debug/upstreams":
+            up = reg.get("upstreams")
+            if up is None:
+                self._reply(503, {"error": "no upstream resilience plane "
+                                           "(resilience.upstream.enabled "
+                                           "is false)"})
+            else:
+                self._reply(200, up.report())
         elif path == "/metrics/external":
             self._reply(200, srv.external_metrics(
                 self._query().get("metric", "")))
+        elif path == "/info/models":
+            self._reply(200, {"tasks": info_models(srv.router.engine)})
+        elif path == "/v1/memory":
+            store = srv.router.memory_store
+            if store is None:
+                self._reply(503, {"error": "no memory store"})
+                return
+            user = self._query().get("user_id", "")
+            items = store.list(user) if user else []
+            self._reply(200, {"data": [
+                {"id": i.id, "user_id": i.user_id, "text": i.text,
+                 "kind": i.kind, "created": i.created_t} for i in items]})
+        elif path.startswith("/v1/memory/"):
+            store = srv.router.memory_store
+            item = store.find_by_id(path.rsplit("/", 1)[1]) if store \
+                else None
+            if item is None:
+                self._reply(404, {"error": "memory not found"})
+            else:
+                self._reply(200, {"id": item.id, "text": item.text,
+                                  "kind": item.kind,
+                                  "user_id": item.user_id})
         elif path == "/debug/decisions":
             self._decisions(reg.explain)
         elif path.startswith("/debug/decisions/"):
@@ -414,7 +487,8 @@ class _Handler(BaseHTTPRequestHandler):
         known = path in (
             "/v1/chat/completions", "/v1/messages", "/v1/responses",
             "/api/v1/embeddings", "/api/v1/similarity",
-            "/api/v1/similarity/batch") \
+            "/api/v1/similarity/batch", "/api/v1/eval", "/api/v1/nli",
+            "/v1/memory") \
             or path.startswith("/api/v1/classify/")
         if not known:
             self._reply(404, {"error": "not found"})
@@ -435,6 +509,12 @@ class _Handler(BaseHTTPRequestHandler):
                 self._classify(path.rsplit("/", 1)[1], body)
             elif path == "/api/v1/embeddings":
                 self._embeddings(body)
+            elif path == "/api/v1/eval":
+                self._eval(body)
+            elif path == "/api/v1/nli":
+                self._nli(body)
+            elif path == "/v1/memory":
+                self._memory_create(body)
             else:
                 self._similarity(body)
         except Exception as exc:
@@ -530,6 +610,75 @@ class _Handler(BaseHTTPRequestHandler):
         e = eng.embed(task, [a, b])
         self._reply(200, {"similarity": float(e[0] @ e[1])})
 
+    def _eval(self, body: dict) -> None:
+        """Every configured signal family and decision for one text: each
+        family's matches, confidences, kb metrics, latency and error."""
+        from ..signals.base import RequestContext
+
+        router = self.server.owner.router
+        ctx = RequestContext.from_openai_body(
+            {"messages": [{"role": "user", "content": body.get("text", "")}]})
+        signals, report = router.dispatcher.evaluate(ctx)
+        decisions = router.decision_engine.evaluate_all(signals)
+        kb_metrics: dict = {}
+        for r in report.results.values():
+            if r.metrics:
+                kb_metrics.update(r.metrics)
+        self._reply(200, {
+            "signals": {t: list(names)
+                        for t, names in signals.matches.items()},
+            "confidences": dict(signals.confidences),
+            "kb_metrics": kb_metrics,
+            "families": {t: {"latency_ms": round(r.latency_s * 1e3, 3),
+                             "error": r.error}
+                         for t, r in report.results.items()},
+            "decisions": [{"name": d.decision.name,
+                           "confidence": round(d.confidence, 4),
+                           "matched_rules": d.matched_rules}
+                          for d in decisions]})
+
+    def _nli(self, body: dict) -> None:
+        eng = self.server.owner.router.engine
+        if eng is None or not eng.has_task("nli"):
+            self._reply(503, {"error": "nli task not loaded"})
+            return
+        r = eng.classify("nli", f"{body.get('premise', '')}\n[SEP]\n"
+                                f"{body.get('hypothesis', '')}")
+        self._reply(200, {"label": r.label, "confidence": r.confidence,
+                          "probs": r.probs})
+
+    def _memory_create(self, body: dict) -> None:
+        store = self.server.owner.router.memory_store
+        if store is None:
+            self._reply(503, {"error": "no memory store"})
+            return
+        item = store.remember(str(body.get("user_id", "")),
+                              str(body.get("text", "")),
+                              kind=str(body.get("kind", "fact")))
+        self._reply(200, {"id": item.id, "text": item.text})
+
+    def do_DELETE(self):
+        path = self.path.split("?", 1)[0]
+        if not path.startswith("/v1/memory"):
+            self._reply(404, {"error": "not found"})
+            return
+        store = self.server.owner.router.memory_store
+        if store is None:
+            self._reply(503, {"error": "no memory store"})
+            return
+        user = self._query().get("user_id", "")
+        if path == "/v1/memory":  # the user's whole scope
+            n = sum(bool(store.delete(user, item.id))
+                    for item in list(store.list(user)))
+            self._reply(200, {"deleted": n})
+            return
+        mid = path.rsplit("/", 1)[1]
+        if not user:  # the owner, found by id
+            item = store.find_by_id(mid)
+            user = item.user_id if item else ""
+        ok = store.delete(user, mid) if user else False
+        self._reply(200 if ok else 404, {"deleted": bool(ok)})
+
     # -- chat ----------------------------------------------------------------
 
     def _chat(self, body: dict, anthropic: bool) -> None:
@@ -555,6 +704,14 @@ class _Handler(BaseHTTPRequestHandler):
         if result.looper_algorithm and result.decision is not None \
                 and not is_looper_call:
             self._looper_chat(result, req_headers, anthropic)
+            return
+        # an image_generation decision runs on an image backend and
+        # answers as a chat completion
+        plugin = result.decision.decision.plugin("image_generation") \
+            if result.decision is not None else None
+        if plugin is not None and plugin.enabled:
+            self._image_generation(result, plugin.configuration, anthropic,
+                                   req_headers)
             return
         try:
             fwd_headers = srv.upstream_headers(result, req_headers)
@@ -601,6 +758,70 @@ class _Handler(BaseHTTPRequestHandler):
             payload = openai_to_anthropic_response(payload)
         self._reply(200, payload, {**result.headers, **failover_headers,
                                    **processed.headers})
+
+    def _image_generation(self, route, conf: Dict[str, Any],
+                          anthropic: bool,
+                          req_headers: Dict[str, str]) -> None:
+        """Generate on the decision's image backend: a 502
+        ``imagegen_error`` when the backend cannot be built or its call
+        fails; else the image as a chat completion (Anthropic-shaped for
+        ``/v1/messages``, one SSE chunk then ``[DONE]`` when the body
+        streams) with ``x-vsr-image-backend``, fed back and recorded as
+        a session turn."""
+        from ..signals.base import RequestContext
+        from .imagegen import GenerateRequest, image_chat_completion
+
+        srv: RouterServer = self.server.owner
+        try:
+            backend = srv._imagegen_backend(route.decision.decision.name,
+                                            conf)
+        except ValueError as exc:
+            self._reply(502, {"error": {"message": str(exc),
+                                        "type": "imagegen_error"}},
+                        route.headers)
+            return
+        prompt = RequestContext.from_openai_body(route.body or {}).user_text
+        req = GenerateRequest(
+            prompt=prompt, model=conf.get("model", ""),
+            width=int(conf.get("width", 1024)),
+            height=int(conf.get("height", 1024)),
+            num_inference_steps=int(conf.get("num_inference_steps", 0)),
+            guidance_scale=float(conf.get("guidance_scale", 0.0)),
+            quality=conf.get("quality", ""), style=conf.get("style", ""))
+        t0 = time.perf_counter()
+        try:
+            result = backend.generate(req)
+        except Exception as exc:
+            srv.router.record_feedback(
+                route, success=False,
+                latency_ms=(time.perf_counter() - t0) * 1e3)
+            self._reply(502, {"error": {
+                "message": f"image generation failed: {exc}",
+                "type": "imagegen_error"}}, route.headers)
+            return
+        payload = image_chat_completion(result, prompt)
+        srv.router.record_feedback(
+            route, success=True, latency_ms=(time.perf_counter() - t0) * 1e3)
+        self._record_session(route, payload, req_headers)
+        out_headers = dict(route.headers)
+        out_headers["x-vsr-image-backend"] = result.backend
+        if anthropic:
+            self._reply(200, openai_to_anthropic_response(payload),
+                        out_headers)
+            return
+        if (route.body or {}).get("stream"):
+            self._sse_headers(out_headers)
+            chunk = {"id": payload["id"], "object": "chat.completion.chunk",
+                     "created": payload["created"], "model": payload["model"],
+                     "choices": [{"index": 0, "delta": {
+                         "role": "assistant",
+                         "content": payload["choices"][0]["message"][
+                             "content"]},
+                         "finish_reason": "stop"}]}
+            self.wfile.write(f"data: {json.dumps(chunk)}\n\n".encode())
+            self.wfile.write(b"data: [DONE]\n\n")
+            return
+        self._reply(200, payload, out_headers)
 
     def _record_session(self, route, resp: dict,
                         headers: Dict[str, str]) -> None:
@@ -1029,6 +1250,23 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
 
+def info_models(engine) -> List[dict]:
+    """The GET /info/models rows: one per task with its kind, its labels
+    (a classifier's; none for the other kinds) and its ``task_info``."""
+    rows: List[dict] = []
+    if engine is None:
+        return rows
+    for t in engine.tasks():
+        kind = engine.task_kind(t)
+        row = {"task": t, "kind": kind,
+               "labels": engine.task_labels(t)
+               if kind in ("sequence", "token") else []}
+        row.update({k: v for k, v in engine.task_info(t).items()
+                    if k not in row})
+        rows.append(row)
+    return rows
+
+
 def runtime_debug_report(registry, engine) -> dict:
     """The GET /debug/runtime body: the runtimestats snapshot (per
     (group, bucket, variant) step stats, process gauges, torch.cuda memory
@@ -1160,6 +1398,11 @@ class RouterServer:
             self.looper_client, pool=self.looper_pool,
             state_store=build_workflow_state_store(cfg.looper))
         self.upstream_pool = UpstreamPool()
+        # the boot's StartupTracker (runtime/startup.py), set by serve()
+        self.startup = None
+        self._openapi_cache: Optional[Dict[str, Any]] = None
+        self._imagegen_backends: Dict[tuple, Any] = {}
+        self._imagegen_lock = threading.Lock()
         workers = int((cfg.api_server or {}).get("http_workers", 64))
         self.httpd = PooledHTTPServer((host, port), _Handler,
                                       max_workers=workers)
@@ -1171,6 +1414,27 @@ class RouterServer:
     def url(self) -> str:
         host = self.httpd.server_address[0]
         return f"http://{host}:{self.port}"
+
+    def openapi_spec(self) -> Dict[str, Any]:
+        """The OpenAPI document of ``API_CATALOG``, built once."""
+        if self._openapi_cache is None:
+            from .openapi import build_spec
+
+            self._openapi_cache = build_spec(API_CATALOG)
+        return self._openapi_cache
+
+    def _imagegen_backend(self, decision_name: str, conf: Dict[str, Any]):
+        """The image backend of (decision, configuration), built once; a
+        changed configuration builds a new one."""
+        from .imagegen import build_backend
+
+        key = (decision_name, json.dumps(conf, sort_keys=True))
+        with self._imagegen_lock:
+            backend = self._imagegen_backends.get(key)
+            if backend is None:
+                backend = build_backend(conf)
+                self._imagegen_backends[key] = backend
+            return backend
 
     @property
     def upstreams(self):

@@ -23,8 +23,15 @@ config's ``model_type`` (else its ``architectures``).
   16; each adapter starts as the identity) and ``eos_token_ids`` (an int
   or a list; else the config's ``eos_token_id``) ends a row.
 
+- ``kind: multimodal``: a SigLIP ``SiglipModel`` (the shared text/image
+  space the image-modality embedding rules read) behind a
+  ``SiglipEmbedder``: per-tower configs from the config's
+  ``text_config`` / ``vision_config``, the tokenizer from the checkpoint
+  directory, the HF tensors through ``convert.siglip_state_from_hf``.
+
 Absent checkpoints leave their task unloaded (its signal fails open).
-Any other architecture, and ``kind: multimodal``, are refused by name.
+Any other architecture (Gemma3, a SigLIP checkpoint under a classifier
+kind) is refused by name.
 ``engine.quant`` applies at boot (to ModernBERT trunk groups only).
 
 The observability sinks come from a ``RuntimeRegistry``
@@ -45,7 +52,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..config.schema import InferenceEngineConfig, RouterConfig
 from ..utils.device import DeviceLike, resolve_device
@@ -112,7 +119,8 @@ def _family(name: str) -> str:
     """The model family an architecture name belongs to (``deberta-v3``
     and ``DebertaV2ForTokenClassification`` are both ``deberta``)."""
     n = name.lower().replace("-", "").replace("_", "")
-    return next((f for f in ("modernbert", "deberta", "qwen3") if f in n), n)
+    return next((f for f in ("modernbert", "deberta", "qwen3", "siglip")
+                 if f in n), n)
 
 
 def _refuse_foreign(task: str, path: str, names, family: str,
@@ -141,9 +149,9 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
                  registry=None):
     """Engine from ``cfg.classifier_models`` (ModernBERT sequence, token and
     embedding kinds, DeBERTa-v2/v3 sequence and token classifiers, Qwen3
-    generative tasks) on ``device`` (``cuda`` when None), its
-    observability bound to ``registry``'s sinks (the process defaults
-    when None).  None when no models are configured — the router then
+    generative tasks, SigLIP multimodal tasks) on ``device`` (``cuda``
+    when None), its observability bound to ``registry``'s sinks (the
+    process defaults when None).  None when no models are configured — the router then
     routes on defaults."""
     specs = cfg.classifier_models or {}
     if not specs:
@@ -179,10 +187,11 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
     for task, spec in specs.items():
         path = spec.get("checkpoint", "")
         kind = spec.get("kind", "sequence")
-        if kind not in ("sequence", "token", "embedding", "generative"):
+        if kind not in ("sequence", "token", "embedding", "generative",
+                        "multimodal"):
             raise ValueError(f"task {task!r}: kind {kind!r} is not served by "
-                             f"this port yet (sequence, token, embedding "
-                             f"and generative only)")
+                             f"this port yet (sequence, token, embedding, "
+                             f"generative and multimodal only)")
         if not path or not os.path.exists(path):
             log.warning("model missing: task=%s path=%s", task, path)
             continue
@@ -207,6 +216,15 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
             engine.register_generative(task, generator, labels=labels,
                                        adapter_index=adapters)
             log.info("model loaded: task=%s kind=generative", task)
+            continue
+        if kind == "multimodal":
+            # SigLIP: its config nests a config per tower
+            _refuse_foreign(task, path, names, "siglip",
+                            "SigLIP multimodal checkpoints only")
+            engine.register_multimodal(task, _siglip(
+                hf_cfg, weights_path, tokenizer_for(tok_dir), dev))
+            log.info("model loaded: task=%s kind=multimodal "
+                     "architecture=siglip", task)
             continue
         if _family(arch) == "deberta" and kind in ("sequence", "token"):
             _refuse_foreign(task, path, names, "deberta",
@@ -315,6 +333,21 @@ def _generative(spec: Dict, hf_cfg: Dict, weights_path: str, tokenizer,
     eos = list(eos_raw) if isinstance(eos_raw, (list, tuple)) else [eos_raw]
     return GreedyGenerator(qcfg, model, tokenizer, eos_token_ids=eos,
                            device=dev), adapters
+
+
+def _siglip(hf_cfg: Dict, weights_path: str, tokenizer, dev):
+    """A ``SiglipEmbedder`` over an HF SigLIP checkpoint (pad id 1, as
+    the reference's embedder pads)."""
+    from ..models.convert import load_safetensors, siglip_state_from_hf
+    from ..models.siglip import SiglipEmbedder, SiglipModel, \
+        SiglipTowerConfig
+
+    text = SiglipTowerConfig.from_hf(hf_cfg["text_config"])
+    vision = SiglipTowerConfig.from_hf(hf_cfg["vision_config"])
+    state = siglip_state_from_hf(load_safetensors(weights_path))
+    model = _meta_load(lambda: SiglipModel(text, vision), lambda m: state)
+    return SiglipEmbedder(text, vision, model, tokenizer=tokenizer,
+                          device=dev)
 
 
 def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
@@ -566,27 +599,55 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
 
 
 def serve(config: str, backend: str, host: str = "127.0.0.1",
-          port: int = 8801, device: DeviceLike = None) -> None:
+          port: int = 8801, device: DeviceLike = None,
+          status_path: Optional[str] = None, block: bool = True):
     """Load the config, build engine + router over the process-default
     observability sinks (configured by ``apply_observability_knobs``),
     and serve ``POST /v1/chat/completions``, the Classification API,
     ``/metrics`` and ``/debug/*`` until interrupted.  The engine warms
     (captures every served step at batch 1) before the server accepts a
-    request; a warmup failure raises."""
+    request; a warmup failure raises.
+
+    A ``StartupTracker`` (written to ``status_path`` when given) follows
+    the boot through ``loading_config``, ``loading_models``, ``warming``
+    and ``ready``, or ``failed`` with the error; the server's
+    ``GET /startup-status`` serves it.  With ``block=False`` the server
+    starts in the background and (server, tracker) is returned; the
+    caller then does what the blocking path does when it ends (stop the
+    server, shut the router and engine down, stop the registry's
+    sampler, SLO monitor and controller)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
     from .registry import RuntimeRegistry
+    from .startup import StartupTracker
 
-    cfg = load_config(config)
+    tracker = StartupTracker(path=status_path)
     registry = RuntimeRegistry.with_defaults()
-    apply_observability_knobs(cfg, registry)
-    engine = build_engine(cfg, device=device, registry=registry)
-    if engine is not None:
-        warm_engine(engine, registry)
-    router = build_router(cfg, engine, registry=registry)
-    server = RouterServer(router, backend, host=host, port=port,
-                          registry=registry)
+    engine = None
+    try:
+        tracker.advance("loading_config", config)
+        cfg = load_config(config)
+        apply_observability_knobs(cfg, registry)
+        tracker.advance("loading_models",
+                        f"{len(cfg.classifier_models or {})} configured")
+        engine = build_engine(cfg, device=device, registry=registry)
+        tracker.advance("warming")
+        if engine is not None:
+            warm_engine(engine, registry)
+        router = build_router(cfg, engine, registry=registry)
+        server = RouterServer(router, backend, host=host, port=port,
+                              registry=registry)
+        server.startup = tracker
+    except Exception as exc:
+        # a readiness monitor must see failed, not a boot that never ends
+        tracker.fail(f"{type(exc).__name__}: {exc}")
+        if engine is not None:
+            engine.shutdown()
+        raise
+    tracker.advance("ready")
     log.info("serving on %s → %s", server.url, backend)
+    if not block:
+        return server.start(), tracker
     try:
         server.serve_forever()
     except KeyboardInterrupt:

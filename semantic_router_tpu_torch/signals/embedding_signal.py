@@ -13,16 +13,18 @@ The port of ``semantic_router_tpu.signals.embedding_signal``:
 Candidate embeddings are computed on first use and kept per rule (the
 prototype bank); the query embedding is memoized in ``ctx.ext`` so the
 three families share one forward.  Scores are host numpy dots of unit
-rows.  The port serves no multimodal (image) embedding task: an image
-rule behaves as the reference does when that task is not loaded — the
-error is recorded and the text rules' hits stand.
+rows.  An embedding rule with ``query_modality: image`` embeds the
+request's first image through the engine's ``multimodal`` task (SigLIP's
+shared text/image space) and scores it against the rule's candidate
+texts embedded in that same space; the text and image branches fail
+open each on its own.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -39,12 +41,17 @@ class _PrototypeBank:
         self._cache: Dict[str, np.ndarray] = {}
         self._lock = threading.Lock()
 
-    def get(self, key: str, texts: List[str]) -> np.ndarray:
+    def get(self, key: str, texts: List[str],
+            embed_fn: Optional[Callable] = None) -> np.ndarray:
+        """The rule's candidate embeddings, embedded on first use by
+        ``embed_fn`` (the image rules' shared space) or else by the
+        bank's task."""
         with self._lock:
             hit = self._cache.get(key)
         if hit is not None:
             return hit
-        emb = self.engine.embed(self.task, texts)
+        emb = embed_fn(texts) if embed_fn is not None \
+            else self.engine.embed(self.task, texts)
         with self._lock:
             self._cache[key] = emb
         return emb
@@ -105,35 +112,83 @@ class _EmbeddingFamily:
 
 
 class EmbeddingSignal(_EmbeddingFamily):
-    """Similarity routing over candidate prototypes.  Rules with
-    ``query_modality: image`` need the multimodal task, which the port
-    does not serve: when the request carries an image they record the
-    error, and the text rules' hits stand."""
+    """Similarity routing over candidate prototypes.  Text rules embed the
+    query text with the ``task`` embedding model; rules with
+    ``query_modality: image`` embed the request's first image through the
+    ``multimodal_task`` shared space and score it against the rule's
+    candidate texts embedded in that space.  The two branches fail open
+    each on its own: a bad image records ``image: ...`` and the text
+    rules' hits stand, and a missing text task does not stop the image
+    rules."""
 
     signal_type = "embedding"
-    MULTIMODAL_TASK = "multimodal"
+
+    def __init__(self, engine, rules: list, task: str = "embedding",
+                 multimodal_task: str = "multimodal") -> None:
+        super().__init__(engine, rules, task)
+        self.multimodal_task = multimodal_task
+
+    def _image_query(self, ctx: RequestContext) -> np.ndarray:
+        """The first image's shared-space embedding, memoized per
+        request (the image rules share one forward)."""
+        key = ("query_img_emb", self.multimodal_task)
+        if key in ctx.ext:
+            return ctx.ext[key]
+        ref = next(ref for m in ctx.messages for ref in m.images)
+        emb = self.engine.embed_multimodal(
+            self.multimodal_task, image_refs=[ref])["image"][0]
+        ctx.ext[key] = emb
+        return emb
+
+    def _mm_candidates(self, rule) -> np.ndarray:
+        """The rule's candidate texts in the shared space, kept in the
+        bank."""
+        return self.bank.get(
+            f"mm_cands:{rule.name}", rule.candidates,
+            embed_fn=lambda texts: self.engine.embed_multimodal(
+                self.multimodal_task, texts=texts)["text"])
 
     def evaluate(self, ctx: RequestContext) -> SignalResult:
+        start = time.perf_counter()
+        res = SignalResult(self.signal_type, source="engine")
         text_rules = [r for r in self.rules if r.query_modality != "image"]
         image_rules = [r for r in self.rules if r.query_modality == "image"]
-        if text_rules:
-            res = super().evaluate(ctx)
-        else:
-            res = SignalResult(self.signal_type, source="engine")
-        if image_rules and ctx.has_images():
-            res.error = f"task {self.MULTIMODAL_TASK!r} not loaded"
+        try:
+            if text_rules:
+                if not self.engine.has_task(self.task):
+                    res.error = f"task {self.task!r} not loaded"
+                else:
+                    query = self.bank.embed_query(ctx.user_text, ctx)
+                    self._score(text_rules, query, res,
+                                lambda r: self.bank.get(f"emb:{r.name}",
+                                                        r.candidates))
+        except Exception as exc:
+            res.error = f"{type(exc).__name__}: {exc}"
+        try:
+            if image_rules and ctx.has_images():
+                if not self.engine.has_task(self.multimodal_task):
+                    res.error = f"task {self.multimodal_task!r} not loaded"
+                else:
+                    self._score(image_rules, self._image_query(ctx), res,
+                                self._mm_candidates, {"modality": "image"})
+        except Exception as exc:
+            res.error = f"image: {type(exc).__name__}: {exc}"
+        res.latency_s = time.perf_counter() - start
         return res
 
-    def _evaluate(self, ctx: RequestContext, res: SignalResult) -> None:
-        query = self.bank.embed_query(ctx.user_text, ctx)
-        for rule in self.rules:
-            if rule.query_modality == "image" or not rule.candidates:
+    @staticmethod
+    def _score(rules: list, query: np.ndarray, res: SignalResult,
+               candidates_of: Callable, detail: Optional[dict] = None
+               ) -> None:
+        for rule in rules:
+            if not rule.candidates:
                 continue
-            sims = self.bank.get(f"emb:{rule.name}", rule.candidates) @ query
+            sims = candidates_of(rule) @ query
             matched, score = _aggregate(sims, rule.aggregation_method,
                                         rule.threshold)
             if matched:
-                res.hits.append(SignalHit(rule.name, score))
+                res.hits.append(SignalHit(rule.name, score,
+                                          dict(detail or {})))
 
 
 class PreferenceSignal(_EmbeddingFamily):
@@ -193,11 +248,16 @@ class ComplexitySignal(_EmbeddingFamily):
 
 def build_embedding_evaluators(engine, cfg) -> list:
     """The embedding-scored families whose rules are configured, on the
-    engine's ``embedding`` task."""
+    engine's ``embedding`` task; image rules go through the engine's
+    first ``multimodal`` task (``multimodal`` when none is
+    registered)."""
     s = cfg.signals
     evs: list = []
     if s.embeddings:
-        evs.append(EmbeddingSignal(engine, s.embeddings))
+        mm = next((t for t in engine.tasks()
+                   if engine.task_kind(t) == "multimodal"), "multimodal")
+        evs.append(EmbeddingSignal(engine, s.embeddings,
+                                   multimodal_task=mm))
     if s.preferences:
         evs.append(PreferenceSignal(engine, s.preferences))
     if s.complexity:

@@ -10,8 +10,10 @@ reference's error body, and a looper decision is routed as the
 reference routes it, executed over a live backend and refused (502,
 ``looper_error``) when none of its models answers, as the reference's
 server does; a checkpoint of an architecture the port does not serve
-(Gemma3, SigLIP, ``kind: multimodal``) is refused by name, and a
-DeBERTa-v2/v3 classifier loads.
+(Gemma3, a SigLIP checkpoint under a classifier kind) is refused by
+name, and a DeBERTa-v2/v3 classifier and a SigLIP ``kind: multimodal``
+checkpoint load; an enabled ``image_generation`` plugin loads and a
+``rag`` one is refused.
 The resilience plane (the degradation ladder, the upstream health
 plane, local SLO objectives) loads and parses as the reference's; what it
 reads through the shared state plane (fleet-scoped objectives, the
@@ -24,6 +26,7 @@ import json
 import urllib.parse
 
 import pytest
+import torch
 
 from semantic_router_tpu.config import RouterConfig as JRouterConfig
 from semantic_router_tpu.router.pipeline import Router as JRouter
@@ -139,18 +142,34 @@ REFUSED = {
                                "stateplane": {"enabled": True,
                                               "share": {"fleet": True}}}},
                    {"global": {"resilience": {"enabled": True}}}),
-    "image_generation": (
-        {"routing": {"decisions": [dict(DEC, plugins=[
-            {"type": "image_generation",
-             "configuration": {"backend": "mock"}}])]}},
-        {"routing": {"decisions": [dict(DEC, plugins=[
-            {"type": "image_generation",
-             "configuration": {"enabled": False, "backend": "mock"}}])]}}),
 }
+# options the port once refused and serves now, each beside the option of
+# the same refusal that stays refused (and a config enabling that one)
+PORTED["image_generation"] = (
+    {"routing": {"decisions": [dict(DEC, plugins=[
+        {"type": "image_generation",
+         "configuration": {"backend": "mock"}}])]}},
+    {"routing": {"decisions": [dict(DEC, plugins=[
+        {"type": "image_generation",
+         "configuration": {"enabled": False, "backend": "mock"}}])]}})
+SERVED_SINCE = {"image_generation": (
+    "rag", {"routing": {"decisions": [dict(DEC, plugins=[
+        {"type": "rag", "configuration": {"backend": "mock"}}])]}})}
 
 
-@pytest.mark.parametrize("key", sorted(REFUSED))
+@pytest.mark.parametrize("key", sorted({**REFUSED, **SERVED_SINCE}))
 def test_refused_at_load(key):
+    if key in SERVED_SINCE:
+        # served since: the config loads and parses as the reference's;
+        # its sibling option stays refused
+        on, _ = PORTED[key]
+        assert _parsed(load_config(copy.deepcopy(on)), key) == _parsed(
+            JRouterConfig.from_dict(copy.deepcopy(on)), key)
+        still, twin = SERVED_SINCE[key]
+        JRouterConfig.from_dict(copy.deepcopy(twin))
+        with pytest.raises(ValueError, match=still):
+            load_config(copy.deepcopy(twin))
+        return
     on, _ = REFUSED[key]
     JRouterConfig.from_dict(copy.deepcopy(on))  # the reference serves it
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
@@ -180,6 +199,9 @@ def _parsed(cfg, key):
         return cfg.upstream_config()
     if key == "observability.slo.objectives":
         return cfg.slo_config()
+    if key == "image_generation":
+        return [(d.name, [(p.type, p.configuration, p.enabled)
+                          for p in d.plugins]) for d in cfg.decisions]
     return getattr(cfg, key)
 
 
@@ -394,16 +416,81 @@ def test_looper_decision_is_routed_and_refused_by_the_server(served):
                              "failed")
 
 
+def _siglip_checkpoint(ckpt, hf) -> None:
+    """A tiny SigLIP checkpoint: weights, a config declaring ``hf``, a
+    word-level tokenizer."""
+    st = pytest.importorskip("safetensors.torch")
+    tokenizers = pytest.importorskip("tokenizers")
+    from semantic_router_tpu_torch.models.siglip import (
+        SiglipModel,
+        SiglipTowerConfig,
+    )
+
+    text = dict(vocab_size=16, hidden_size=8, intermediate_size=16,
+                num_hidden_layers=1, num_attention_heads=2,
+                max_position_embeddings=4)
+    vision = dict(hidden_size=8, intermediate_size=16, num_hidden_layers=1,
+                  num_attention_heads=2, image_size=8, patch_size=4)
+    model = SiglipModel(SiglipTowerConfig.from_hf(text),
+                        SiglipTowerConfig.from_hf(vision))
+    state = {k: v.contiguous() for k, v in model.state_dict().items()}
+    state["vision_model.head.attention.in_proj_weight"] = torch.cat(
+        [state.pop(f"vision_model.head.attn_{n}.weight") for n in "qkv"])
+    state["vision_model.head.attention.in_proj_bias"] = torch.cat(
+        [state.pop(f"vision_model.head.attn_{n}.bias") for n in "qkv"])
+    st.save_file(state, str(ckpt / "model.safetensors"))
+    (ckpt / "config.json").write_text(json.dumps(dict(
+        hf, text_config=text, vision_config=vision)))
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(
+        {"[PAD]": 0, "[UNK]": 1, "hello": 2}, unk_token="[UNK]"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    tok.save(str(ckpt / "tokenizer.json"))
+
+
 @pytest.mark.parametrize("hf, spec, name", [
     ({"model_type": "gemma3",
       "architectures": ["Gemma3ForSequenceClassification"]}, {},
      "gemma3"),
-    ({"architectures": ["SiglipModel"]}, {"kind": "sequence"},
+    ({"architectures": ["SiglipModel"]}, {"kind": "multimodal"},
      "SiglipModel"),
     ({"model_type": "siglip"}, {"kind": "multimodal"}, "multimodal"),
 ])
 def test_non_modernbert_checkpoint_refused_by_name(tmp_path, hf, spec,
                                                    name):
+    """Gemma3 stays refused by name; a SigLIP checkpoint (declared by its
+    architectures or its model type) now loads as a ``multimodal`` task,
+    which the port once refused."""
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    cfg = load_config({"classifier_models": {
+        "intent": dict(spec, checkpoint=str(ckpt))}})
+    if name == "gemma3":
+        (ckpt / "config.json").write_text(json.dumps(
+            dict(hf, id2label={"0": "a", "1": "b"})))
+        (ckpt / "model.safetensors").write_bytes(b"")
+        with pytest.raises(ValueError, match=name):
+            build_engine(cfg, device="cpu")
+        return
+    _siglip_checkpoint(ckpt, hf)
+    eng = build_engine(cfg, device="cpu")
+    try:
+        assert eng.task_kind("intent") == "multimodal"
+        out = eng.embed_multimodal("intent", texts=["hello"],
+                                   images=torch.zeros(1, 8, 8, 3).numpy())
+        assert out["text"].shape == out["image"].shape == (1, 8)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("hf, spec, name", [
+    ({"architectures": ["SiglipModel"]}, {"kind": "sequence"},
+     "SiglipModel"),
+    ({"model_type": "gemma3"}, {"kind": "multimodal"}, "gemma3"),
+])
+def test_siglip_under_another_kind_and_others_as_multimodal_refused(
+        tmp_path, hf, spec, name):
+    """A SigLIP checkpoint served as a classifier, and another
+    architecture served as ``multimodal``, are refused by name."""
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     (ckpt / "config.json").write_text(json.dumps(

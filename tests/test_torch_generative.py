@@ -212,6 +212,59 @@ def test_generator_on_another_device_is_refused(guard_weights):
         eng.shutdown()
 
 
+# (prompt, max_new_tokens, batch size): seven (B, M) shapes from prompts
+# of many lengths, more than the generator keeps
+SHAPE_CALLS = [("short prompt", 6, 1),
+               (" ".join(f"w{i}" for i in range(40)), 6, 1),
+               ("a mid length prompt here", 100, 1),
+               (" ".join(f"v{i}" for i in range(50)), 150, 1),
+               ("two rows of it", 6, 2),
+               (" ".join(f"u{i}" for i in range(20)), 250, 1),
+               ("three rows now", 6, 3)]
+
+
+def _shape_tokens(gen, calls):
+    return [[r.token_ids for r in gen.generate([p] * b, max_new_tokens=n)]
+            for p, n, b in calls]
+
+
+def test_generator_keeps_a_bounded_set_of_shapes(guard_weights):
+    """Prompts of many lengths leave at most ``MAX_CACHED_SHAPES`` (B, M)
+    KV buffers and the graphs of those shapes only."""
+    _, _, _, tcfg = guard_weights
+    gen = tgen.GreedyGenerator(tcfg, _decoder(guard_weights),
+                               ttok.HashTokenizer(QWEN_TINY["vocab_size"]),
+                               eos_token_ids=[7], device="cpu")
+    seen = set()
+    for p, n, b in SHAPE_CALLS * 2:
+        gen.generate([p] * b, max_new_tokens=n)
+        seen.add((gen.stats["B"], gen.stats["M"]))
+        assert len(gen._caches) <= tgen.MAX_CACHED_SHAPES
+        assert {(k[1], k[-1]) for k in gen.graphs.keys()} \
+            <= set(gen._caches)
+        assert (gen.stats["B"], gen.stats["M"]) in gen._caches
+    assert len(seen) > tgen.MAX_CACHED_SHAPES + 2
+    assert len(gen._caches) == tgen.MAX_CACHED_SHAPES
+    assert list(gen._caches)[-1] == (3, 64)
+
+
+def test_an_evicted_shape_gives_the_same_tokens(guard_weights):
+    """A shape that was evicted and comes back decodes the same tokens as
+    its first run, and as the JAX loop, which allocates per call."""
+    jcfg, jl, jp, tcfg = guard_weights
+    gen = tgen.GreedyGenerator(tcfg, _decoder(guard_weights),
+                               ttok.HashTokenizer(QWEN_TINY["vocab_size"]),
+                               eos_token_ids=[7], device="cpu")
+    first = _shape_tokens(gen, SHAPE_CALLS)
+    assert (1, 64) not in gen._caches  # the first shape was evicted
+    again = _shape_tokens(gen, SHAPE_CALLS)
+    assert again == first
+    jg = jgen.GreedyGenerator(jcfg, jp,
+                              jtok.HashTokenizer(QWEN_TINY["vocab_size"]),
+                              lora=jl, eos_token_ids=[7])
+    assert _shape_tokens(jg, SHAPE_CALLS) == first
+
+
 class _StubGuard:
     """An engine whose guard always answers ``safety``."""
 
