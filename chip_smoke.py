@@ -265,10 +265,37 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    with the same text, the graph pool no larger in the second pass.
    Then the cuda-marked tests of ``tests/test_torch_multimodal_cuda.py``
    run in a pytest process.
+15. state plane — three router replicas, each with its own engine (phase
+   3's trunk and heads and phase 5's embedding model, the weights shared
+   on the card), batcher, graphs, registry, router and HTTP server, and
+   only a RESP store in common: the port's ``MiniRedis`` over TCP on
+   127.0.0.1 (it prints whether ``redis-server`` exists there; it is
+   never needed), counting the commands it serves by key family.  The
+   plane is ``backend: resp`` sharing the semantic cache, the decision
+   records and the ladder, with ``resilience.upstream.fleet_share``.
+   15a: a ``/v1/responses`` turn stored through replica A continued with
+   ``previous_response_id`` through B; a workflow state written on A
+   taken on B; a ``backend: redis`` semantic cache written on A hit on B.
+   15b: 32 requests, each of 16 prompts on one replica and again on the
+   next: the same ``x-vsr-affinity-replica`` everywhere, every repeat a
+   cache hit with no backend call, K1 / K2 a request per replica equal to
+   what the engine's steps predict, the route's p50 / p99 against the
+   same requests on a router with no plane, RESP commands a request by
+   family, the cache lookup's ms, the fleet-wide decision records.  15c:
+   a fast SLO alert on A's bus: every replica at the same level within
+   the reference's ticks, up and back to L0 (ticks and seconds); a
+   circuit opened on A open on B and C.  15d: the store stopped after 4
+   of 12 requests: all answered (repeats from the local caches), the
+   breakers open; restarted, the replicas reattach and a write buffered
+   during the outage replays (seconds).  15e: the first 8 requests of 15b
+   on three CPU replicas: the same status, kind, decision, model and
+   affinity (a cache outcome that differs must be a similarity within
+   1e-4 of the threshold).  Then the cuda-marked tests of
+   ``tests/test_torch_stateplane_cuda.py`` run in a pytest process.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13 and 14), ``nvidia-smi``'s name and power limit, and then
+13, 14 and 15), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -278,12 +305,14 @@ kernel phase.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import faulthandler
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -359,8 +388,10 @@ try:
         RuntimeRegistry,
         apply_observability_knobs,
         build_router,
+        close_stateplane,
         select_attention_impl,
     )
+    from semantic_router_tpu_torch.state.resp import MiniRedis
     from semantic_router_tpu_torch.utils.tokenization import (
         HashTokenizer,
         encode_windows,
@@ -7374,6 +7405,591 @@ def phase_multimodal(modules3: dict, modules5: dict, guard: tuple,
     return out
 
 
+# -- phase 15: the state plane ----------------------------------------------
+
+SP_NS = "p15"
+SP_REPLICAS = ("replica-0", "replica-1", "replica-2")
+SP_THRESHOLD = 0.95          # the shared cache's similarity threshold
+SP_TICK_S = 0.5              # heartbeat, controller tick, breaker cooldown
+SP_MAX_LEVEL = 3
+N_SP_CPU = 8                 # 15e: the first 15b requests on the CPU port
+SP_MARGIN = 1e-4             # a similarity this near the threshold is a tie
+SP_CIRCUIT = ("p15-model", "http://p15-upstream")
+# 16 prompts (both buckets); 15b sends each twice, the second time to the
+# next replica, so every repeat is another replica's cache hit
+SP_PROMPTS = PROMPTS[:7] + [EMBED_PROMPTS[i] for i in (0, 1, 2, 3, 5, 6)] + [
+    "Summarize the clinic's vaccine budget for the next quarter.",
+    "Which database index speeds up this invoice query?",
+    _words(40, 15)]
+# the background's keys (membership beats, the ladder's pressure rows)
+SP_BACKGROUND = ("replica", "pressure")
+
+
+def sp_config(port: int, replica: str, ns: str = SP_NS,
+              plane: bool = True) -> dict:
+    """Phase 3's router with a semantic-cache plugin on every decision but
+    the jailbreak block, the ladder and the upstream plane on, and (with
+    ``plane``) the state plane over the RESP store at ``port`` sharing
+    the cache, the decision records and the ladder, with the Responses
+    and workflow stores on the same server."""
+    d = copy.deepcopy(ROUTER_CONFIG)
+    for dec in d["routing"]["decisions"]:
+        if dec["name"] != "jailbreak_block":
+            dec["plugins"] = [{"type": "semantic-cache"}]
+    d["semantic_cache"] = {"enabled": True, "backend_type": "memory",
+                           "use_hnsw": False,
+                           "similarity_threshold": SP_THRESHOLD}
+    # 15c's alert is a sensor input, not a reason to trace the card
+    d["observability"] = {"programstats": {"slo_capture": {
+        "enabled": False}}}
+    d["resilience"] = {"enabled": True, "interval_s": SP_TICK_S,
+                       "escalate_ticks": 1, "hysteresis_ticks": 2,
+                       "max_level": SP_MAX_LEVEL,
+                       "upstream": {"enabled": True, "fleet_share": True,
+                                    "breaker": {"failures": 3,
+                                                "open_s": 30.0}}}
+    if plane:
+        store = {"host": "127.0.0.1", "port": port}
+        d["stateplane"] = {
+            "enabled": True, "backend": "resp", "backend_config": store,
+            "replica_id": replica, "namespace": ns,
+            "heartbeat_s": SP_TICK_S, "cooldown_s": SP_TICK_S,
+            "share": {"cache": True, "explain": True, "fleet": True}}
+        d["response_store"] = {"backend": "redis", **store,
+                               "key_prefix": f"{ns}:resp"}
+        d["looper"] = {"workflow_state": {"backend": "redis", **store}}
+    return d
+
+
+class CountingMiniRedis(MiniRedis):
+    """The embedded RESP server, counting the commands it serves by
+    (command, key family): the family is the key's second ``:`` part (a
+    SCAN's, its MATCH pattern's)."""
+
+    def __init__(self, port: int = 0) -> None:
+        super().__init__(port=port)
+        self.counts: collections.Counter = collections.Counter()
+        self._count_lock = threading.Lock()
+
+    def _dispatch(self, name, args):
+        key = args[0] if args else b""
+        if name == "SCAN":
+            key = next((args[i + 1] for i in range(len(args) - 1)
+                        if args[i].upper() == b"MATCH"), b"")
+        parts = key.decode("utf-8", "replace").split(":")
+        with self._count_lock:
+            self.counts[(name, parts[1] if len(parts) > 1 else "-")] += 1
+        return super()._dispatch(name, args)
+
+    def snapshot(self) -> collections.Counter:
+        with self._count_lock:
+            return collections.Counter(self.counts)
+
+
+def _commands(before, after, families=None) -> dict:
+    """{family: commands} served between two snapshots."""
+    out: dict = {}
+    for (name, fam), n in (after - before).items():
+        if families is None or fam in families:
+            out[fam] = out.get(fam, 0) + n
+    return out
+
+
+def sp_engine(device: str, cfg, modules3: dict, embed_module):
+    """Phase 3's trunk and heads (one fused bank: K1 / K2) and phase 5's
+    embedding model, on an engine of its own."""
+    engine = InferenceEngine(cfg.engine, device=device)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in modules3.items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    engine.register_task(EMBED_TASK, "embedding", embed_module, tok, [],
+                         max_seq_len=512)
+    return engine
+
+
+class _SPReplica:
+    """One router replica: its own engine (shared weights), registry,
+    router, state plane handle and HTTP server; its route and cache
+    lookups timed."""
+
+    def __init__(self, name: str, port: int, device: str, modules3: dict,
+                 embed_module, backend_url: str, ns: str = SP_NS,
+                 plane: bool = True, engine=None) -> None:
+        self.name = name
+        self.cfg = load_config(sp_config(port, name, ns, plane))
+        self.registry = RuntimeRegistry.isolated(runtimestats=None)
+        self.own_engine = engine is None
+        self.engine = engine or sp_engine(device, self.cfg, modules3,
+                                          embed_module)
+        if self.own_engine and device != "cpu":
+            self.engine.warmup()
+        apply_observability_knobs(self.cfg, self.registry)
+        self.router = build_router(self.cfg, self.engine,
+                                   registry=self.registry)
+        self.server = RouterServer(self.router, backend_url,
+                                   registry=self.registry).start()
+        self.route_ms: list = []
+        self.lookups: list = []      # (ms, hit)
+        self.ticks = 0
+        inner_route = self.router.route
+
+        def route(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner_route(*a, **kw)
+            finally:
+                self.route_ms.append((time.perf_counter() - t0) * 1e3)
+
+        self.router.route = route
+        cache = self.router.cache
+        inner_find = cache.find_similar
+
+        def find_similar(*a, **kw):
+            t0 = time.perf_counter()
+            hit = inner_find(*a, **kw)
+            self.lookups.append(((time.perf_counter() - t0) * 1e3,
+                                 hit is not None))
+            return hit
+
+        cache.find_similar = find_similar
+        ctl = self.registry.resilience
+        inner_tick = ctl.tick
+
+        def tick(*a, **kw):
+            self.ticks += 1
+            return inner_tick(*a, **kw)
+
+        ctl.tick = tick
+
+    @property
+    def plane(self):
+        return self.registry.get("stateplane")
+
+    def post(self, prompt: str, path: str = "/v1/chat/completions",
+             body: dict = None) -> dict:
+        """One request; its row: status, kind, decision, model, affinity,
+        K1 / K2 and what the engine's steps predict, route ms."""
+        l0 = _cuda.launch_counts()
+        s0 = len(self.engine.steps())
+        n0 = len(self.route_ms)
+        res = _chat_call(self.server.url, path,
+                         body or {"model": "auto", "messages": [
+                             {"role": "user", "content": prompt}]})
+        l1 = _cuda.launch_counts()
+        h = res["headers"]
+        want = _predicted_launches(self.engine.steps()[s0:])
+        return {"replica": self.name, "status": res["status"],
+                "kind": "cache_hit" if h.get("x-vsr-cache-hit") == "true"
+                else "route",
+                "decision": h.get("x-vsr-selected-decision"),
+                "model": h.get("x-vsr-selected-model"),
+                "affinity": h.get("x-vsr-affinity-replica"),
+                "k1": l1["flash_attention"] - l0["flash_attention"],
+                "k2": l1["head_epilogue"] - l0["head_epilogue"],
+                "k1_want": want["flash_attention"],
+                "k2_want": want["head_epilogue"],
+                "route_ms": self.route_ms[n0] if len(self.route_ms) > n0
+                else None, "body": res["body"]}
+
+    def close(self) -> None:
+        self.server.stop()
+        for store in (self.server.response_store,
+                      self.server.workflows.state_store):
+            client = getattr(store, "client", None)
+            if client is not None:
+                client.close()
+        self.router.shutdown()
+        self.registry.slo.stop()
+        self.registry.resilience.stop()
+        close_stateplane(self.registry)
+        if self.own_engine:
+            self.engine.shutdown()
+
+
+def _wait_for(cond, timeout: float, step: float = 0.02) -> float:
+    """Seconds until ``cond()`` held (polled), or None at the deadline."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(step)
+    return None
+
+
+def sp_stores(reps: list, mini, smi: str) -> dict:
+    """15a: a /v1/responses turn stored through A continued through B, a
+    workflow state written on A taken on B, a ``backend: redis`` semantic
+    cache written on A and hit on B (each cache embedding through its own
+    replica's engine)."""
+    from semantic_router_tpu_torch.cache.semantic_cache import build_cache
+    from semantic_router_tpu_torch.config.schema import SemanticCacheConfig
+    from semantic_router_tpu_torch.looper.workflows import PendingToolState
+
+    a, b = reps[0], reps[1]
+    out: dict = {"card": smi}
+    first = _chat_call(a.server.url, "/v1/responses", {
+        "model": "auto", "input": "Remember the number 4217, please."})
+    check(first["status"] == 200, f"15a: /v1/responses on A answered "
+                                  f"{first['status']}")
+    rid = first["body"]["id"]
+    second = _chat_call(b.server.url, "/v1/responses", {
+        "model": "auto", "input": "Which number did I ask you to keep?",
+        "previous_response_id": rid})
+    check(second["status"] == 200, f"15a: the continuation on B answered "
+                                   f"{second['status']}")
+    thread = b.server.response_store.get(second["body"]["id"])
+    roles = [m["role"] for m in thread.messages] if thread else []
+    check(roles == ["user", "assistant", "user", "assistant"],
+          f"15a: B's stored thread {roles} does not continue A's turn")
+    out["responses"] = {"first": rid, "thread_roles": roles,
+                        "store": type(b.server.response_store).__name__}
+    state = PendingToolState(
+        state_id=f"p15-{SEED}", phase="step", step_index=0, model="m",
+        messages=[{"role": "user", "content": "q"}], plan={"steps": []},
+        step_results=[], sibling_responses=[], original_body={},
+        config={"mode": "static"})
+    a.server.workflows.state_store.put(state)
+    taken = b.server.workflows.state_store.take(state.state_id)
+    check(taken is not None and taken.messages == state.messages,
+          "15a: the workflow state written on A was not taken on B")
+    check(a.server.workflows.state_store.take(state.state_id) is None,
+          "15a: a workflow state was taken twice")
+    out["workflow_state"] = type(a.server.workflows.state_store).__name__
+    rc_cfg = SemanticCacheConfig(
+        enabled=True, backend_type="redis",
+        similarity_threshold=SP_THRESHOLD,
+        backend_config={"host": "127.0.0.1", "port": mini.port,
+                        "key_prefix": f"{SP_NS}:rc"})
+    caches = [build_cache(rc_cfg, (lambda eng: lambda text: eng.embed(
+        EMBED_TASK, [text])[0])(r.engine)) for r in (a, b)]
+    _cuda.reset_launch_counts()
+    caches[0].add(SP_PROMPTS[2], "a stored answer", model="med-model")
+    k1_add = _cuda.launch_counts()["flash_attention"]
+    caches[1]._resync()
+    t0 = time.perf_counter()
+    hit = caches[1].find_similar(SP_PROMPTS[2])
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    k1_lookup = _cuda.launch_counts()["flash_attention"] - k1_add
+    check(hit is not None and hit.response == "a stored answer",
+          "15a: the redis cache entry written on A missed on B")
+    n_layers = MODERNBERT_BASE["num_hidden_layers"]
+    check(k1_add == n_layers and k1_lookup == n_layers,
+          f"15a: the redis cache's write / lookup launched K1 "
+          f"{k1_add} / {k1_lookup} times, wanted {n_layers} each")
+    out["redis_cache"] = {"k1_add": k1_add, "k1_lookup": k1_lookup,
+                          "lookup_ms": lookup_ms}
+    for c in caches:
+        c.client.close()
+    print("phase 15a stores: " + json.dumps(out), flush=True)
+    return out
+
+
+def _sp_joined(reps: list):
+    """Seconds until every replica's ring holds every replica (a few
+    heartbeats), or None."""
+    return _wait_for(lambda: all(
+        r.plane is not None and r.plane.members() == sorted(SP_REPLICAS)
+        for r in reps), timeout=10 * SP_TICK_S)
+
+
+def _sp_sends() -> list:
+    """(prompt index, replica index) of the 32 requests of 15b."""
+    return [(i, (i + k) % len(SP_REPLICAS)) for i in range(len(SP_PROMPTS))
+            for k in (0, 1)]
+
+
+def sp_plane(reps: list, plain, mini, backend, smi: str) -> dict:
+    """15b: 32 requests spread over the replicas (each prompt twice, the
+    second time on the next replica), then the same on a router with no
+    plane over replica A's engine."""
+    sends = _sp_sends()
+    for r in reps:
+        r.lookups.clear()
+        r.route_ms.clear()
+    c0, hits0 = mini.snapshot(), backend.hits
+    rows = []
+    for i, ri in sends:
+        row = reps[ri].post(SP_PROMPTS[i])
+        row["prompt"] = i
+        rows.append(row)
+    # the decision mirror writes off the routing thread: let it drain
+    for r in reps:
+        r.registry.explain.durable_store._drain()
+    c1, backend_calls = mini.snapshot(), backend.hits - hits0
+    out: dict = {"card": smi, "rows": [{k: v for k, v in row.items()
+                                        if k != "body"} for row in rows]}
+    for row in rows:
+        check(row["status"] == 200, f"15b: request {row['prompt']} on "
+                                    f"{row['replica']} answered "
+                                    f"{row['status']}")
+        check((row["k1"], row["k2"]) == (row["k1_want"], row["k2_want"]),
+              f"15b: K1 / K2 {row['k1']} / {row['k2']} against the steps' "
+              f"{row['k1_want']} / {row['k2_want']}")
+    by_prompt: dict = {}
+    for row in rows:
+        by_prompt.setdefault(row["prompt"], []).append(row)
+    for i, (x, y) in by_prompt.items():
+        owners = {r.plane.owner_of(SP_PROMPTS[i]) for r in reps}
+        check(x["affinity"] == y["affinity"] and owners == {x["affinity"]},
+              f"15b: prompt {i}: affinity {x['affinity']} / "
+              f"{y['affinity']}, owners {owners}")
+        if x["decision"] not in (None, "jailbreak_block"):
+            check(y["kind"] == "cache_hit",
+                  f"15b: prompt {i} answered on {x['replica']} was a "
+                  f"{y['kind']} on {y['replica']}")
+    n_hits = sum(r["kind"] == "cache_hit" for r in rows)
+    check(backend_calls == len(rows) - n_hits,
+          f"15b: the backend took {backend_calls} calls for "
+          f"{len(rows) - n_hits} misses")
+    per_replica = {}
+    for r in reps:
+        mine = [row for row in rows if row["replica"] == r.name]
+        per_replica[r.name] = {
+            "requests": len(mine),
+            "k1": [row["k1"] for row in mine],
+            "k2": [row["k2"] for row in mine],
+            "hits": sum(row["kind"] == "cache_hit" for row in mine)}
+    lookups = [x for r in reps for x in r.lookups]
+    hit_ms = [ms for ms, hit in lookups if hit]
+    miss_ms = [ms for ms, hit in lookups if not hit]
+    route_ms = [row["route_ms"] for row in rows]
+    fam = _commands(c0, c1)
+    per_request = {k: v / len(rows) for k, v in fam.items()
+                   if k not in SP_BACKGROUND}
+    # the same 32 requests on one router with no plane (its own
+    # in-process cache), over replica A's engine
+    plain.route_ms.clear()
+    plain_rows = [plain.post(SP_PROMPTS[i]) for i, _ in sends]
+    records = [len(r.registry.explain.durable_store) for r in reps]
+    check(len(set(records)) == 1 and records[0] >= len(rows),
+          f"15b: the replicas' fleet-wide decision records {records}, "
+          f"wanted one count >= {len(rows)}")
+    out.update({
+        "per_replica": per_replica, "hits": n_hits,
+        "backend_calls": backend_calls,
+        "route_ms": {"p50": _pct(route_ms, 0.5), "p99": _pct(route_ms,
+                                                              0.99)},
+        "route_ms_no_plane": {
+            "p50": _pct([r["route_ms"] for r in plain_rows], 0.5),
+            "p99": _pct([r["route_ms"] for r in plain_rows], 0.99)},
+        "no_plane_hits": sum(r["kind"] == "cache_hit" for r in plain_rows),
+        "first_send_hits": sum(r["kind"] == "cache_hit"
+                               for r in rows[0::2]),
+        "lookup_ms": {"hit_p50": _pct(hit_ms, 0.5),
+                      "miss_p50": _pct(miss_ms, 0.5),
+                      "hits": len(hit_ms), "misses": len(miss_ms)},
+        "resp_commands_per_request": per_request,
+        "resp_commands_background": {k: v for k, v in fam.items()
+                                     if k in SP_BACKGROUND},
+        "decision_records": records,
+        "roundtrip_ms": [r.plane.backend.report()["mean_roundtrip_ms"]
+                         for r in reps],
+        "members": reps[0].plane.members()})
+    print("phase 15b plane: " + json.dumps(
+        {k: v for k, v in out.items() if k != "rows"}), flush=True)
+    return out
+
+
+def sp_fleet(reps: list, smi: str) -> dict:
+    """15c: a fast SLO alert on replica A's bus drives its pressure up:
+    every replica climbs to max_level through the plane's aggregate
+    within the reference's ticks (one rung a tick) and comes back to L0
+    when it resolves (hysteresis 2); a circuit opened on A is open on B
+    and C."""
+    a = reps[0]
+    out: dict = {"card": smi}
+    for up_down, event, want, ticks_cap in (
+            ("up", "slo_alert_firing", SP_MAX_LEVEL, SP_MAX_LEVEL + 1),
+            ("down", "slo_alert_resolved", 0, 2 * SP_MAX_LEVEL + 2)):
+        t0 = [r.ticks for r in reps]
+        s = time.perf_counter()
+        a.registry.events.emit(event, objective="p15_overload",
+                               severity="fast")
+        took = _wait_for(lambda: all(r.registry.resilience.level() == want
+                                     for r in reps),
+                         timeout=(ticks_cap + 4) * SP_TICK_S * 2)
+        ticks = [r.ticks - t for r, t in zip(reps, t0)]
+        check(took is not None, f"15c: the fleet did not reach L{want} "
+                                f"({[r.registry.resilience.level() for r in reps]})")
+        check(max(ticks) <= ticks_cap,
+              f"15c: {up_down}: {ticks} ticks, the reference takes at "
+              f"most {ticks_cap}")
+        rep = a.registry.resilience.report()
+        check(rep["fleet_attached"] and rep["pressure"]["fleet"][
+            "replicas"] == len(reps),
+              f"15c: A's ladder report {rep['pressure'].get('fleet')}")
+        out[up_down] = {"seconds": took, "ticks": ticks,
+                        "wall_s": time.perf_counter() - s,
+                        "levels": [r.registry.resilience.level()
+                                   for r in reps]}
+    ups = [r.registry.upstreams for r in reps]
+    for _ in range(3):
+        ups[0].record(*SP_CIRCUIT, ok=False)
+    # a sibling's view refreshes at most every 2 s
+    seen = _wait_for(lambda: all(up.model_open(SP_CIRCUIT[0])
+                                 for up in ups[1:]), timeout=5.0)
+    check(seen is not None, "15c: a circuit opened on A is not open on "
+                            "B and C")
+    fleet_open = ups[1].report()["fleet_open"]
+    ups[0].record(*SP_CIRCUIT, ok=True)
+    out["circuit"] = {"seen_s": seen, "fleet_open_on_b": fleet_open,
+                      "fleet_budget": ups[1].report()["fleet_budget"]}
+    print("phase 15c fleet: " + json.dumps(out), flush=True)
+    return out
+
+
+def sp_chaos(reps: list, mini, smi: str) -> tuple:
+    """15d: four requests, then the store stops; four new prompts and the
+    same four again on the same replicas: every request is answered (the
+    repeats from the replicas' local caches), the breakers open.
+    Restarted on the same port, the replicas reattach (membership back)
+    and reconcile (a write buffered on one replica hits on the next).
+    Returns (row, the new server)."""
+    port = mini.port
+    away = " (while the store is away)"
+    plan = [(SP_PROMPTS[k], k % 3) for k in range(4)]
+    plan += [(SP_PROMPTS[k + 5] + away, k % 3) for k in range(4)]
+    plan += plan[4:]
+    rows, stopped = [], None
+    for k, (prompt, ri) in enumerate(plan):
+        if k == 4:
+            mini.stop()
+            stopped = time.perf_counter()
+        rows.append(reps[ri].post(prompt))
+    answered = sum(r["status"] == 200 for r in rows) / len(rows)
+    check(answered == 1.0, f"15d: {answered:.3f} of the requests were "
+                           f"answered with the store down")
+    for first, again in zip(rows[4:8], rows[8:]):
+        if first["decision"] not in (None, "jailbreak_block"):
+            check(again["kind"] == "cache_hit",
+                  f"15d: a repeat on {again['replica']} missed its local "
+                  f"cache while the store was down")
+    opened = _wait_for(lambda: not any(r.plane.available for r in reps),
+                       timeout=10 * SP_TICK_S)
+    check(opened is not None, "15d: the breakers did not open")
+    t0 = time.perf_counter()
+    mini = CountingMiniRedis(port=port).start()
+    back = _wait_for(lambda: all(r.plane.available for r in reps)
+                     and all(r.plane.members() == sorted(SP_REPLICAS)
+                             for r in reps), timeout=20 * SP_TICK_S)
+    check(back is not None, "15d: the replicas did not reattach")
+    buffered = rows[4]["decision"] not in (None, "jailbreak_block")
+    other = reps[(plan[4][1] + 1) % 3].router.cache
+    replayed = _wait_for(lambda: other.find_similar(plan[4][0])
+                         is not None, timeout=20 * SP_TICK_S, step=0.1)
+    check(not buffered or replayed is not None,
+          "15d: the write buffered during the outage did not replay")
+    out = {"card": smi, "answered": answered,
+           "kinds": [r["kind"] for r in rows],
+           "breakers_open_s": opened, "down_s": t0 - stopped,
+           "reattach_s": back, "replayed_s": replayed,
+           "errors": [r.plane.backend.errors for r in reps]}
+    print("phase 15d chaos: " + json.dumps(out), flush=True)
+    return out, mini
+
+
+def sp_parity(modules3: dict, modules5: dict, backend, card_rows: list,
+              smi: str) -> dict:
+    """15e: the first N_SP_CPU requests of 15b, in the same order, on a
+    fleet of CPU replicas over a store of their own: the same status,
+    kind, decision, model and affinity; a cache outcome that differs
+    must sit within SP_MARGIN of the threshold."""
+    mini = CountingMiniRedis().start()
+    reps = []
+    try:
+        reps = [_SPReplica(n, mini.port, "cpu", modules3["cpu"],
+                           modules5["cpu"], backend.url)
+                for n in SP_REPLICAS]
+        check(_sp_joined(reps) is not None,
+              "15e: the CPU replicas do not see one fleet")
+        rows = []
+        for i, ri in _sp_sends()[:N_SP_CPU]:
+            row = reps[ri].post(SP_PROMPTS[i])
+            row["prompt"] = i
+            rows.append(row)
+        keys = ("status", "kind", "decision", "model", "affinity")
+        ties = 0
+        for j, (got, want) in enumerate(zip(rows, card_rows)):
+            for k in keys:
+                if got[k] == want[k]:
+                    continue
+                if k == "kind":
+                    embed = reps[0].engine.embed
+                    q = embed(EMBED_TASK, [SP_PROMPTS[got["prompt"]]])[0]
+                    prev = [SP_PROMPTS[r["prompt"]] for r in rows[:j]]
+                    sims = embed(EMBED_TASK, prev) @ q if prev else []
+                    if any(abs(float(s) - SP_THRESHOLD) <= SP_MARGIN
+                           for s in sims):
+                        ties += 1
+                        continue
+                check(False, f"15e: request {j}: {k} {got[k]!r} on the "
+                             f"CPU port, {want[k]!r} on the card")
+        out = {"card": smi, "requests": len(rows), "near_ties": ties,
+               "kinds": [r["kind"] for r in rows]}
+    finally:
+        for r in reps:
+            r.close()
+        mini.stop()
+    print("phase 15e parity: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_stateplane(modules3: dict, modules5: dict, smi: str) -> dict:
+    """Phase 15: three router replicas over one RESP store (15a stores,
+    15b the plane, 15c the fleet ladder and circuits, 15d chaos), then
+    15e the CPU port on the same requests and the cuda tests of
+    ``tests/test_torch_stateplane_cuda.py``."""
+    redis = shutil.which("redis-server")
+    print(f"phase 15: redis-server {'at ' + redis if redis else 'absent'} "
+          f"on this machine; the store is the port's MiniRedis", flush=True)
+    mini = CountingMiniRedis().start()
+    backend = MockVLLMServer().start()
+    reps, plain = [], None
+    out: dict = {"card": smi, "redis_server": redis}
+    try:
+        t0 = time.perf_counter()
+        reps = [_SPReplica(n, mini.port, DEVICE, modules3["cuda"],
+                           modules5["cuda"], backend.url)
+                for n in SP_REPLICAS]
+        plain = _SPReplica("no-plane", mini.port, DEVICE, modules3["cuda"],
+                           modules5["cuda"], backend.url, plane=False,
+                           engine=reps[0].engine)
+        out["built_s"] = time.perf_counter() - t0
+        print(f"phase 15: {len(reps)} replicas (one engine each, phase 3's "
+              f"and phase 5's weights shared on the card) built and warmed "
+              f"in {out['built_s']:.1f} s", flush=True)
+        joined = _sp_joined(reps)
+        check(joined is not None, "15: the replicas do not see one fleet")
+        out["joined_s"] = joined
+        _cuda.reset_launch_counts()
+        stamp("phase 15a: stores")
+        out["stores"] = sp_stores(reps, mini, smi)
+        stamp("phase 15b: plane")
+        out["plane"] = sp_plane(reps, plain, mini, backend, smi)
+        stamp("phase 15c: fleet ladder and circuits")
+        out["fleet"] = sp_fleet(reps, smi)
+        stamp("phase 15d: chaos")
+        out["chaos"], mini = sp_chaos(reps, mini, smi)
+        out["launches"] = _cuda.launch_counts()
+    finally:
+        if plain is not None:
+            plain.close()
+        for r in reps:
+            r.close()
+        backend.stop()
+        mini.stop()
+    stamp("phase 15e: parity")
+    parity_backend = MockVLLMServer().start()
+    try:
+        out["parity"] = sp_parity(modules3, modules5, parity_backend,
+                                  out["plane"]["rows"], smi)
+    finally:
+        parity_backend.stop()
+    out["cuda_tests"] = run_cuda_tests("test_torch_stateplane_cuda.py", 1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7437,6 +8053,9 @@ def main(argv=None) -> int:
     stamp("phase 14: multimodal and endpoints")
     mm = report["multimodal"] = phase_multimodal(modules3, modules5, guard,
                                                  dev["smi"])
+    stamp("phase 15: state plane")
+    sp = report["stateplane"] = phase_stateplane(modules3, modules5,
+                                                 dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -7460,16 +8079,17 @@ def main(argv=None) -> int:
             # K1 runs in the serve trunk, the embedding trunk, the
             # fixture router's trunks, the respond / observe / chat
             # phases' bank and embedding model, the gates phase's
-            # trunks, the models phase's intent bank and the multimodal
-            # phase's bank and embedding model; K2 in the serve, fixture,
-            # respond, observe, gates, chat, models and multimodal banks
-            # and under every quant mode
+            # trunks, the models phase's intent bank, the multimodal
+            # phase's bank and embedding model and the state plane
+            # phase's replicas' banks and embedding models; K2 in the
+            # serve, fixture, respond, observe, gates, chat, models,
+            # multimodal and state plane banks and under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
             + gates["launches"][kname] + res["launches"][kname]
             + chat["launches"][kname] + models["launches"][kname]
-            + mm["launches"][kname]
+            + mm["launches"][kname] + sp["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

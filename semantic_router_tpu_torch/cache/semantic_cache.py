@@ -41,6 +41,8 @@ class CacheStats:
     exact_hits: int = 0
     evictions: int = 0
     entries: int = 0
+    additions: int = 0
+    errors: int = 0  # external-backend IO failures (fail-open occurrences)
 
     @property
     def hit_rate(self) -> float:
@@ -214,11 +216,12 @@ class InMemorySemanticCache:
         self._stats.evictions += 1
 
 
-def build_cache(cfg, embed_fn: Callable[[str], np.ndarray]
-                ) -> Optional[InMemorySemanticCache]:
+def build_cache(cfg, embed_fn: Callable[[str], np.ndarray]):
     """The backend a ``SemanticCacheConfig`` names: ``memory``, ``hnsw``
-    and ``hybrid`` are in-process; the external stores are not served by
-    this port yet."""
+    and ``hybrid`` are in-process; ``redis`` / ``valkey`` is the
+    ``RedisSemanticCache`` over the RESP client (its ``backend_config``:
+    host, port, db, password, key_prefix); ``qdrant`` and ``milvus`` are
+    not served by this port yet."""
     if not cfg.enabled:
         return None
     if cfg.backend_type in ("memory", "hnsw", "hybrid"):
@@ -230,9 +233,24 @@ def build_cache(cfg, embed_fn: Callable[[str], np.ndarray]
             eviction_policy=cfg.eviction_policy,
             use_hnsw=cfg.backend_type != "memory" or cfg.use_hnsw,
         )
-    if cfg.backend_type in ("redis", "valkey", "qdrant", "milvus"):
+    if cfg.backend_type in ("redis", "valkey"):
+        from .redis_cache import RedisSemanticCache
+
+        bc = cfg.backend_config or {}
+        return RedisSemanticCache(
+            embed_fn,
+            host=bc.get("host", "127.0.0.1"),
+            port=int(bc.get("port", 6379)),
+            db=int(bc.get("db", 0)),
+            password=str(bc.get("password", "")),
+            key_prefix=bc.get("key_prefix", "vsr:cache"),
+            similarity_threshold=cfg.similarity_threshold,
+            ttl_seconds=cfg.ttl_seconds,
+        )
+    if cfg.backend_type in ("qdrant", "milvus"):
         raise ValueError(f"cache backend {cfg.backend_type!r} is not served "
-                         f"by this port yet (memory|hnsw|hybrid)")
+                         f"by this port yet (memory|hnsw|hybrid|redis|"
+                         f"valkey)")
     raise ValueError(f"unsupported cache backend {cfg.backend_type!r} "
                      f"(backends: memory|hnsw|hybrid|redis|valkey|"
                      f"qdrant|milvus)")

@@ -787,13 +787,16 @@ class SemanticCacheConfig:
     router's default embedding task)."""
 
     enabled: bool = False
-    backend_type: str = "memory"  # memory | hnsw | hybrid
+    backend_type: str = "memory"  # memory | hnsw | hybrid | redis | valkey
     similarity_threshold: float = 0.8
     max_entries: int = 1000
     ttl_seconds: int = 3600
     eviction_policy: str = "fifo"  # fifo | lru | lfu
     embedding_model: str = ""
     use_hnsw: bool = True
+    # the external store's connection: host, port, db, password,
+    # key_prefix (redis / valkey)
+    backend_config: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "SemanticCacheConfig":
@@ -807,6 +810,7 @@ class SemanticCacheConfig:
             eviction_policy=d.get("eviction_policy", "fifo"),
             embedding_model=d.get("embedding_model", ""),
             use_hnsw=bool(d.get("use_hnsw", True)),
+            backend_config=dict(d.get("backend_config", {}) or {}),
         )
 
 
@@ -934,7 +938,6 @@ UNPORTED = {
 # when enabled (``enabled: true``, or a non-empty block or list without an
 # ``enabled`` switch), as the reference's default leaves each off
 UNPORTED_BLOCKS = {
-    "stateplane": "the shared state plane",
     "ann": "the on-device ANN plane",
     "vectorstore": "vector stores",
     "mcp": "MCP classifiers",
@@ -984,36 +987,26 @@ def config_hash(raw: Dict[str, Any]) -> str:
     return hashlib.sha256(dumped.encode()).hexdigest()[:16]
 
 
+# the Responses API stores the port builds (router/responseapi.py)
+RESPONSE_STORE_BACKENDS = ("memory", "redis", "valkey", "redis-cluster",
+                           "valkey-cluster")
+
+
 def refuse_unported(d: Dict[str, Any]) -> None:
     """Raise ValueError naming the first unported option ``d`` (with its
     ``global:`` block lifted) enables: the blocks of ``UNPORTED`` and
-    ``UNPORTED_BLOCKS`` (the state plane's fleet-shared ladder,
-    ``stateplane.share.fleet``, by name), the engine knobs of
-    ``UNPORTED_ENGINE``, the observability sub-blocks this port does not
-    serve (fleet-scoped SLO objectives, the fleet plane, OTLP export, a
-    durable decision store other than SQLite), a qdrant / milvus memory
-    store, a ``response_store`` or ``looper.workflow_state`` backend other
-    than the in-memory one (the Redis / Valkey stores need a RESP client),
-    an enabled ``rag`` plugin (the retrieval plane is not ported; an
+    ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
+    observability sub-blocks this port does not serve (fleet-scoped SLO
+    objectives, the fleet observability plane, OTLP export, a durable
+    decision store other than SQLite), a qdrant / milvus memory store, a
+    ``response_store`` backend outside ``RESPONSE_STORE_BACKENDS``, an
+    enabled ``rag`` plugin (the retrieval plane is not ported; an
     ``image_generation`` plugin is served), a selector
-    ``algorithm.artifact``."""
+    ``algorithm.artifact``.  The shared state plane (``stateplane``, its
+    fleet-shared ladder and upstream circuits) and the RESP-backed stores
+    are served."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
-    # what the resilience plane reads through the shared state plane,
-    # named before the plane itself is refused below
-    if _enabled(d.get("stateplane")):
-        share = (d.get("stateplane") or {}).get("share") or {}
-        upstream = (d.get("resilience") or {}).get("upstream") or {}
-        if share.get("fleet"):
-            raise ValueError("stateplane.share.fleet: the fleet-shared "
-                             "degradation ladder (resilience over the "
-                             "shared state plane) is not served by this "
-                             "port yet")
-        if upstream.get("enabled") and upstream.get("fleet_share", True):
-            raise ValueError("resilience.upstream.fleet_share: the "
-                             "fleet-shared open circuits and retry budget "
-                             "(upstream health over the shared state "
-                             "plane) are not served by this port yet")
     for key, what in UNPORTED.items():
         block = routing.get(key, d.get(key)) or {}
         if isinstance(block, dict) and block.get("enabled"):
@@ -1032,8 +1025,8 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         if isinstance(spec, dict) and \
                 str(spec.get("scope", "")).lower() == "fleet":
             raise ValueError(f"observability.slo: objective {spec!r} has "
-                             f"scope: fleet, which reads merged fleet "
-                             f"counts through the shared state plane; "
+                             f"scope: fleet, which reads the merged fleet "
+                             f"counts of the fleet observability plane; "
                              f"this port does not serve it yet")
     if (obs.get("fleet") or {}).get("enabled"):
         raise ValueError("observability.fleet.enabled: the fleet "
@@ -1050,15 +1043,12 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     # the reference builds the configured store whether or not the block
     # says enabled
     store = d.get("response_store") or {}
-    if isinstance(store, dict) \
-            and str(store.get("backend", "memory") or "memory") != "memory":
+    if isinstance(store, dict) and str(store.get("backend", "memory")
+                                       or "memory") \
+            not in RESPONSE_STORE_BACKENDS:
         raise ValueError(f"response_store.backend {store['backend']!r} is "
-                         f"not served by this port yet (memory only)")
-    wf_state = ((d.get("looper") or {}).get("workflow_state") or {})
-    if str(wf_state.get("backend", "") or "") in ("redis", "valkey"):
-        raise ValueError(f"looper.workflow_state.backend "
-                         f"{wf_state['backend']!r} is not served by this "
-                         f"port yet (memory only)")
+                         f"not served by this port yet "
+                         f"({'|'.join(RESPONSE_STORE_BACKENDS)})")
     backend = str((d.get("memory") or {}).get("backend", ""))
     if backend in ("qdrant", "milvus"):
         raise ValueError(f"memory backend {backend!r} is not served by "
@@ -1125,11 +1115,15 @@ class RouterConfig:
     entrypoints: List[Entrypoint] = field(default_factory=list)
     # {http_workers}: the pooled front end's request workers
     api_server: Dict[str, Any] = field(default_factory=dict)
-    # {workflow_state: {backend: memory, ttl_seconds}}: the looper's
-    # workflow state store
+    # {workflow_state: {backend: memory | redis | valkey, ttl_seconds,
+    # host, port}}: the looper's workflow state store
     looper: Dict[str, Any] = field(default_factory=dict)
-    # {backend: memory, max_entries, ttl_seconds}: the Responses API store
+    # {backend: memory | redis | valkey | redis-cluster | valkey-cluster,
+    # max_entries, ttl_seconds, host, port, nodes, key_prefix}: the
+    # Responses API store
     response_store: Dict[str, Any] = field(default_factory=dict)
+    # the shared state plane, read through stateplane_config()
+    stateplane: Dict[str, Any] = field(default_factory=dict)
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -1174,6 +1168,7 @@ class RouterConfig:
             api_server=dict(d.get("api_server", {}) or {}),
             looper=dict(d.get("looper", {}) or {}),
             response_store=dict(d.get("response_store", {}) or {}),
+            stateplane=dict(d.get("stateplane", {}) or {}),
             raw=d,
         )
 
@@ -1318,8 +1313,9 @@ class RouterConfig:
           resilience:
             upstream:
               enabled: false       # default OFF: byte-identical routing
-              fleet_share: true    # the reference's state-plane share
-                                   # (normalized; no state plane here)
+              fleet_share: true    # share open circuits and the retry
+                                   # budget over the state plane (only
+                                   # with stateplane.enabled)
               breaker:
                 failures: 5        # consecutive failures to open
                 open_s: 10         # cooldown before the half-open probe
@@ -1380,13 +1376,68 @@ class RouterConfig:
             "budget_per_s": 1.0, "burst": 10.0, "max_attempts": 3,
             "backoff_ms": 50.0, "disable_at_level": 2,
             "on": ["connect", "5xx", "timeout", "reset"],
-            # the reference's fleet-wide retry budget over the state
-            # plane: normalized as the reference does, inert here (no
-            # state plane; the local bucket always decides)
+            # share the retry budget FLEET-WIDE through the state plane:
+            # N replicas spend ONE budget_per_s pool — only with a plane
+            # attached and fleet_share on; plane loss degrades to the
+            # local per-replica bucket
             "fleet_budget": True})
         out["deadline"] = _block("deadline", {
             "header": "x-vsr-deadline", "default_s": 0.0,
             "floor_s": 0.5})
+        return out
+
+    def stateplane_config(self) -> Dict[str, Any]:
+        """Normalized ``stateplane`` block — the ONE interpretation
+        point (bootstrap, the fleet harness, and tests must never drift
+        on defaults)::
+
+          stateplane:
+            enabled: false         # default OFF: byte-identical
+                                   # single-process behavior
+            backend: resp          # memory | resp/redis/valkey | sqlite
+            backend_config:
+              host: redis.svc      # resp
+              port: 6379
+              path: /var/lib/vsr/plane.db   # sqlite
+            replica_id: ""         # default host-pid-nonce
+            namespace: srt         # key prefix on the shared store
+            heartbeat_s: 2         # membership beat; TTL = 3x
+            ring_vnodes: 64        # consistent-hash ring resolution
+            cooldown_s: 2          # breaker reopen probe interval
+            share:                 # which layers ride the plane
+              cache: true
+              vectorstore: true    # (the vector store is not served)
+              explain: true
+              fleet: true          # fleet-aggregated shed ladder
+
+        Malformed values fall back to defaults — shared-state config
+        must never stop a replica."""
+        sp = dict(self.stateplane or {})
+        out: Dict[str, Any] = {
+            "enabled": bool(sp.get("enabled", False)),
+            "backend": str(sp.get("backend", "memory")),
+            "replica_id": str(sp.get("replica_id", "")),
+            "namespace": str(sp.get("namespace", "srt")) or "srt",
+            "backend_config": dict(sp.get("backend_config", {}) or {}),
+        }
+
+        def _f(key: str, default: float, lo: float) -> float:
+            try:
+                return max(lo, float(sp.get(key, default)))
+            except (TypeError, ValueError):
+                return default
+
+        out["heartbeat_s"] = _f("heartbeat_s", 2.0, 0.05)
+        out["ttl_s"] = _f("ttl_s", 0.0, 0.0)  # 0 = 3x heartbeat
+        out["cooldown_s"] = _f("cooldown_s", 2.0, 0.05)
+        try:
+            out["ring_vnodes"] = max(1, int(sp.get("ring_vnodes", 64)))
+        except (TypeError, ValueError):
+            out["ring_vnodes"] = 64
+        share = dict(sp.get("share", {}) or {})
+        out["share"] = {k: bool(share.get(k, True))
+                        for k in ("cache", "vectorstore", "explain",
+                                  "fleet")}
         return out
 
     def decision_explain_config(self) -> Dict[str, Any]:

@@ -24,8 +24,8 @@ Capability parity with pkg/looper/workflows*.go (6.9k LoC, 16 files):
   trailing tool messages are matched by that prefix, state is taken, the
   model is re-called with the tool results, and the remaining plan
   executes (workflows_tool_state.go:90, workflows_tool_resume.go,
-  workflows_state_store.go; the port keeps the in-memory store, and its
-  loader refuses the redis / valkey ones).
+  workflows_state_store.go: the in-memory store, or the redis / valkey
+  one a workflow interrupted on one replica resumes from on another).
 - **final synthesis + output contracts**: a final model fuses step
   outputs; contracts post-process the final response — ``json_action``
   extracts the first JSON object, ``reference_selection`` resolves an
@@ -267,16 +267,55 @@ class MemoryWorkflowStateStore:
             del self._items[k]
 
 
+class RedisWorkflowStateStore:
+    """Durable pending-state store over RESP — a workflow interrupted on
+    one replica resumes on another (workflowRedisToolStateStore)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 6379,
+                 db: int = 0, password: str = "",
+                 key_prefix: str = "vsr:wfstate",
+                 ttl_s: float = 600.0, client=None) -> None:
+        from ..state.resp import RedisClient
+
+        self.prefix = key_prefix
+        self.ttl_s = ttl_s
+        self.client = client or RedisClient(host, port, db, password)
+
+    def put(self, state: PendingToolState) -> str:
+        payload = json.dumps(asdict(state))
+        self.client.set(f"{self.prefix}:{state.state_id}", payload,
+                        ex=max(1, int(self.ttl_s)))
+        return state.state_id
+
+    def take(self, state_id: str) -> Optional[PendingToolState]:
+        key = f"{self.prefix}:{state_id}"
+        raw = self.client.get(key)
+        if not raw:
+            return None
+        # claim check: DEL returns 0 when another replica raced us to the
+        # same pending state (client/proxy retry) — exactly one resumer wins
+        if not self.client.delete(key):
+            return None
+        try:
+            return PendingToolState(**json.loads(raw))
+        except (TypeError, json.JSONDecodeError):
+            return None
+
+
 def build_workflow_state_store(looper_cfg: Optional[Dict[str, Any]]):
     """State-store factory from the ``looper.workflow_state`` config block
-    (newWorkflowToolStateStoreFromConfig role): the in-memory store."""
+    (newWorkflowToolStateStoreFromConfig role): the RESP store for
+    ``backend: redis | valkey`` (host, port, db, password), else the
+    in-memory one."""
     wf_cfg = (looper_cfg or {}).get("workflow_state", {}) or {}
     ttl = float(wf_cfg.get("ttl_seconds", 600.0))
     if wf_cfg.get("backend") in ("redis", "valkey"):
-        # a RESP client this port does not have; the loader refuses it
-        raise ValueError(f"looper.workflow_state.backend "
-                         f"{wf_cfg['backend']!r} is not served by this port "
-                         f"yet (memory only)")
+        return RedisWorkflowStateStore(
+            host=wf_cfg.get("host", "127.0.0.1"),
+            port=int(wf_cfg.get("port", 6379)),
+            db=int(wf_cfg.get("db", 0)),
+            password=str(wf_cfg.get("password", "")),
+            ttl_s=ttl)
     return MemoryWorkflowStateStore(ttl_s=ttl)
 
 

@@ -28,9 +28,10 @@ Alerting is multiwindow, multi-burn-rate: with a base window *w* (the
 both (w, 12w), a **slow** one at > 6x in both (6w, 72w).  Each tick
 snapshots cumulative (good, bad) counts into a bounded ring.
 
-Objectives scoped ``fleet`` read merged fleet counts, which need the
-shared state plane this port does not serve: the loader refuses them,
-and the monitor records one as a configuration error.
+Objectives scoped ``fleet`` read the fleet's merged counts, which the
+fleet observability plane (``observability.fleet``, over the state
+plane) publishes and this port does not serve yet: the loader refuses
+them, and the monitor records one as a configuration error.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ RATIO_ALIASES: Dict[str, Tuple[str, str]] = {
 FAST_BURN = 14.4   # 2% of a 30d budget in 1h (SRE workbook page pair)
 SLOW_BURN = 6.0    # 10% of a 30d budget in 6h (ticket pair)
 
-FLEET_REFUSED = ("scope: fleet reads merged fleet counts, which need the "
-                 "shared state plane; this port does not serve it")
+FLEET_REFUSED = ("scope: fleet reads merged fleet counts, which the fleet "
+                 "observability plane publishes; this port does not serve "
+                 "it yet")
 
 _DURATION_RE = re.compile(r"^\s*([\d.]+)\s*(ms|s|m|h|d)?\s*$")
 _DUR_MULT = {"ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0,

@@ -33,8 +33,11 @@ moves the ``llm_degradation_level`` gauge and counts in
 ``llm_degradation_transitions_total``; sheds count in
 ``llm_shed_total{level,priority}``.  The L0 hot path is one integer read.
 
-The reference's fleet exchange (stepping from the shared state plane's
-aggregate pressure) is left out: the state plane is refused at load.
+With a state plane bound (``bind(fleet=plane)``, under
+``stateplane.share.fleet``), every tick publishes this replica's pressure
+to the plane and steps from the fleet aggregate (worst queues anywhere,
+the union of firing alerts), so N replicas climb and recover as one; a
+plane failure steps from the local sensors alone.
 """
 
 from __future__ import annotations
@@ -178,6 +181,9 @@ class DegradationController:
         self.event_bus = None
         self.slo = None
         self.runtime_stats = None
+        # the shared state plane (stateplane.StatePlane): ticks then step
+        # from the fleet's aggregate pressure
+        self.fleet = None
         self._unsubscribe: Optional[Callable[[], None]] = None
         # knob-shedding targets (L1 side effects) + saved values
         self._tracer = None
@@ -292,14 +298,19 @@ class DegradationController:
             self._after_transition(old_level, new_level)
 
     def bind(self, events=None, slo=None, runtimestats=None,
-             tracer=None, explain=None) -> "DegradationController":
+             tracer=None, explain=None,
+             fleet=None) -> "DegradationController":
         """Attach the sensor/effect surfaces (registry slots).  Re-bind
-        is idempotent: the previous event subscription is dropped."""
+        is idempotent: the previous event subscription is dropped.
+        ``fleet`` is a stateplane.StatePlane — ticks then aggregate
+        fleet-wide pressure instead of this process's alone."""
         if runtimestats is not None:
             self.runtime_stats = runtimestats
             self.cost_model.runtime_stats = runtimestats
         if slo is not None:
             self.slo = slo
+        if fleet is not None:
+            self.fleet = fleet
         if tracer is not None or explain is not None:
             # the knob-shed path reads/writes these under the lock; a
             # hot-reload rebind racing an L1 transition must not tear
@@ -392,6 +403,32 @@ class DegradationController:
                 pass
         return firing
 
+    def _fleet_exchange(self, firing: Dict[str, str],
+                        queues: Dict[str, float]
+                        ) -> Optional[Dict[str, Any]]:
+        """Publish this replica's pressure to the state plane and read
+        the fleet aggregate.  Any plane failure returns None — the tick
+        proceeds on LOCAL sensors only, so a partition degrades to
+        per-replica behavior instead of flapping the ladder or (worse)
+        treating the outage itself as overload."""
+        if self.fleet is None:
+            return None
+        try:
+            with self._lock:
+                level = self._level
+                engine_down = self._engine_down
+            self.fleet.publish_pressure({
+                "firing": dict(firing),
+                "pending_items": queues["pending_items"],
+                "pool_saturation": queues["pool_saturation"],
+                "engine_down": engine_down,
+                "level": level,
+                "interval_s": self.interval_s,
+            })
+            return self.fleet.fleet_pressure()
+        except Exception:
+            return None
+
     def _drain_retry_s(self, fallback: float) -> float:
         """Retry-After from the LIVE queue drain rate: backlog depth ×
         the warm per-row device cost (runtimestats EWMAs through the
@@ -420,6 +457,20 @@ class DegradationController:
             return self._level
         firing = self._alert_severities()
         queues = self._queue_pressure()
+        fleet_view = self._fleet_exchange(firing, queues)
+        if fleet_view is not None:
+            # the fleet aggregate is the sensor: worst queues anywhere,
+            # union of firing alerts — every replica steps from the
+            # same inputs, so levels converge within one poll interval
+            for name, sev in (fleet_view.get("firing") or {}).items():
+                if firing.get(name) != "fast":
+                    firing[name] = str(sev)
+            queues["pending_items"] = max(
+                queues["pending_items"],
+                float(fleet_view.get("pending_items", 0.0)))
+            queues["pool_saturation"] = max(
+                queues["pool_saturation"],
+                float(fleet_view.get("pool_saturation", 0.0)))
         fast = any(sev == "fast" for sev in firing.values())
         slow = bool(firing) and not fast
         pending = queues["pending_items"]
@@ -435,6 +486,12 @@ class DegradationController:
                 "pool_saturation": sat, "engine_down": engine_down,
                 "overloaded": overloaded, "stressed": stressed,
             }
+            if self.fleet is not None:
+                self._last_pressure["fleet"] = {
+                    "aggregated": fleet_view is not None,
+                    "replicas": (fleet_view or {}).get("replicas", 0),
+                    "levels": (fleet_view or {}).get("levels", {}),
+                }
             old = self._level
             if engine_down:
                 # a dead engine IS the fail-static posture — jump, don't
@@ -696,7 +753,7 @@ class DegradationController:
                 "brownout_class": PRIORITY_CLASSES[min(
                     self.brownout_min_rank, len(PRIORITY_CLASSES) - 1)],
                 "brownout_keep_families": sorted(self.brownout_keep),
-                "fleet_attached": False,  # no state plane in this port
+                "fleet_attached": self.fleet is not None,
                 "reject_class": PRIORITY_CLASSES[min(
                     self.reject_min_rank, len(PRIORITY_CLASSES) - 1)],
                 "pressure": dict(self._last_pressure),

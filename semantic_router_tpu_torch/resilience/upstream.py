@@ -4,8 +4,11 @@ deadline propagation.
 The port's copy of ``semantic_router_tpu.resilience.upstream``:
 
 - ``UpstreamHealth`` — a passive per-(model, endpoint) health scorer fed
-  by every forward outcome: EWMA error rate and latency, and a
-  consecutive-failure circuit breaker with half-open probing;
+  by every forward outcome: EWMA error rate and latency, a
+  consecutive-failure circuit breaker with half-open probing, and, with
+  a state plane bound (``fleet_share``), a fleet-shared view: replicas
+  publish their open circuits and siblings mask them too, and N replicas
+  spend one retry budget;
 - the selection-time candidate mask: a model whose every endpoint has an
   open circuit is never chosen while alternatives exist
   (``Router._select_model`` consults ``model_open``);
@@ -19,17 +22,16 @@ The port's copy of ``semantic_router_tpu.resilience.upstream``:
   budget is forwarded upstream.
 
 Disabled by default (``resilience.upstream.enabled: false``): the plane
-is never constructed and routing is byte-identical.  The reference's
-fleet-shared open circuits and fleet retry budget ride the shared state
-plane, which this port refuses at load; they are left out.
+is never constructed and routing is byte-identical.
 """
 
 from __future__ import annotations
 
+import json
 import random
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..observability.logging import component_event
 from .controller import TokenBucket
@@ -144,9 +146,22 @@ class UpstreamHealth:
 
         # bound surfaces (bind())
         self.event_bus = None
+        self.plane = None        # stateplane.StatePlane (fleet share)
         self.resilience = None   # DegradationController (retry gate)
 
+        # fleet-shared open circuits: {(model, endpoint)} published by
+        # SIBLING replicas, refreshed lazily at most every _fleet_ttl_s
+        self._fleet_open: set = set()
+        self._fleet_read_t = 0.0
+        self._fleet_ttl_s = 2.0
+
         self._retry_bucket = self._build_bucket()
+        # fleet-shared retry budget accounting (report()) + per-window
+        # caches so a retry spike costs one backend round trip per
+        # attempt (prev-window count is immutable; reap runs once)
+        self._fleet_budget_stats = {"granted": 0, "denied": 0}
+        self._fleet_prev = (-1, 0)       # (window, count)
+        self._fleet_reaped_window = -1
 
         self.requests = registry.counter(
             "llm_upstream_requests_total",
@@ -188,11 +203,16 @@ class UpstreamHealth:
                     merged = dict(self.cfg[block])
                     merged.update(cfg[block])
                     self.cfg[block] = merged
+            if "fleet_share" in cfg:
+                self.cfg["fleet_share"] = bool(cfg["fleet_share"])
             self._retry_bucket = self._build_bucket()
 
-    def bind(self, events=None, resilience=None) -> "UpstreamHealth":
+    def bind(self, events=None, plane=None, resilience=None
+             ) -> "UpstreamHealth":
         if events is not None:
             self.event_bus = events
+        if plane is not None:
+            self.plane = plane
         if resilience is not None:
             self.resilience = resilience
         return self
@@ -289,6 +309,7 @@ class UpstreamHealth:
         component_event("upstream", "breaker_" + new_state,
                         model=row["model"], endpoint=row["endpoint"],
                         error_rate=row["error_rate_ewma"])
+        self._publish_fleet()
 
     # -- gates -------------------------------------------------------------
 
@@ -321,8 +342,11 @@ class UpstreamHealth:
         """Selection-time mask: True when every known endpoint of
         ``model`` has an open circuit still inside its cooldown (a
         probe-ready circuit un-masks the model so traffic can drive the
-        half-open probe)."""
+        half-open probe).  The fleet view counts too: an endpoint a
+        sibling replica opened is masked here unless LOCAL state knows
+        better."""
         now = time.monotonic()
+        fleet = self._fleet_view()
         with self._lock:
             open_s = float(self.cfg["breaker"]["open_s"])
             seen = 0
@@ -332,6 +356,11 @@ class UpstreamHealth:
                 seen += 1
                 if ep.state != OPEN or now - ep.opened_at >= open_s:
                     return False
+            # endpoints only SIBLINGS know about count as open; local
+            # knowledge (the loop above) always wins for shared ones
+            fleet_eps = {e for (m, e) in fleet if m == model}
+            local_eps = {e for (m, e) in self._eps if m == model}
+            seen += len(fleet_eps - local_eps)
             return seen > 0
 
     def health_score(self, model: str) -> float:
@@ -362,7 +391,14 @@ class UpstreamHealth:
             except Exception:
                 pass
             return False, f"degraded_l{level}"
-        granted = self._retry_bucket.try_take(1.0)
+        # fleet-shared budget first (retry.fleet_budget over the state
+        # plane): N replicas spend ONE budget_per_s pool; a dead/absent
+        # plane falls back to the local per-replica bucket
+        granted = None
+        if self._fleet_budget_active():
+            granted = self._fleet_take()
+        if granted is None:
+            granted = self._retry_bucket.try_take(1.0)
         if not granted:
             try:
                 # the same string as the failover_path entry
@@ -391,6 +427,119 @@ class UpstreamHealth:
             jitter = 0.5 + self._rng.random()
         return min(1.0, base * (2 ** max(0, attempt - 1)) * jitter)
 
+    # -- fleet-shared retry budget (state plane) ---------------------------
+
+    def _fleet_budget_active(self) -> bool:
+        return (self.plane is not None
+                and bool(self.cfg.get("fleet_share", True))
+                and bool(self.cfg["retry"].get("fleet_budget", True)))
+
+    def _fleet_take(self) -> Optional[bool]:
+        """One retry token from the FLEET-WIDE budget: an atomic incr on
+        a per-second window key shared by every replica, with one
+        window's unused allowance carrying over (capped by ``burst``) so
+        short bursts still pass — a windowed approximation of the local
+        token bucket whose budget N replicas would otherwise each spend
+        in full.  Returns True/False = fleet decision, None = the plane
+        is unusable (caller falls back to the local bucket: a partition
+        degrades to per-replica budgets instead of refusing retries).
+        """
+        plane = self.plane
+        try:
+            window = int(time.time())
+            r = self.cfg["retry"]
+            per_s = float(r["budget_per_s"])
+            count = plane.backend.incr(
+                plane.key("retrybudget", str(window)), 1)
+            # the previous window's count is immutable once its second
+            # has passed: read it ONCE per window and cache — a retry
+            # spike (exactly when this path is hot) costs one round
+            # trip per attempt, not three
+            with self._lock:
+                prev_window, prev = self._fleet_prev
+            if prev_window != window - 1:
+                prev = 0
+                raw = plane.backend.get(
+                    plane.key("retrybudget", str(window - 1)))
+                if raw:
+                    try:
+                        prev = int(raw.decode())
+                    except (ValueError, UnicodeDecodeError):
+                        prev = 0
+                with self._lock:
+                    self._fleet_prev = (window - 1, prev)
+            carry = min(float(r["burst"]), max(0.0, per_s - prev))
+            granted = count <= per_s + carry
+            reap = False
+            with self._lock:
+                self._fleet_budget_stats[
+                    "granted" if granted else "denied"] += 1
+                if self._fleet_reaped_window != window:
+                    self._fleet_reaped_window = window
+                    reap = True
+            if reap:
+                # reap a stale window ONCE per window so the shared
+                # keyspace stays O(1) without a delete per attempt
+                try:
+                    plane.backend.delete(
+                        plane.key("retrybudget", str(window - 3)))
+                except Exception:
+                    pass
+            return granted
+        except Exception:
+            return None
+
+    # -- fleet share (state plane) ------------------------------------------
+
+    def _publish_fleet(self) -> None:
+        """Publish this replica's open circuits so siblings mask them
+        too.  Best-effort: a dead plane degrades to local-only health."""
+        plane = self.plane
+        if plane is None or not self.cfg.get("fleet_share", True):
+            return
+        try:
+            with self._lock:
+                rows: List[List[str]] = [[ep.model, ep.endpoint]
+                                         for ep in self._eps.values()
+                                         if ep.state == OPEN]
+                ttl = max(10.0, 3.0 * float(
+                    self.cfg["breaker"]["open_s"]))
+            plane.backend.put(plane.key("upstream", plane.replica_id),
+                              json.dumps(rows).encode(), ttl_s=ttl)
+        except Exception:
+            pass
+
+    def _fleet_view(self) -> set:
+        """Open circuits reported by SIBLING replicas (lazy refresh, at
+        most every ``_fleet_ttl_s``); empty without a plane."""
+        plane = self.plane
+        if plane is None or not self.cfg.get("fleet_share", True):
+            return set()
+        now = time.monotonic()
+        with self._lock:
+            if now - self._fleet_read_t < self._fleet_ttl_s:
+                return set(self._fleet_open)
+            self._fleet_read_t = now
+        merged: set = set()
+        try:
+            prefix = plane.key("upstream") + ":"
+            own = plane.key("upstream", plane.replica_id)
+            for key in plane.backend.scan(prefix):
+                if key == own:
+                    continue
+                raw = plane.backend.get(key)
+                if not raw:
+                    continue
+                for row in json.loads(raw.decode()):
+                    if isinstance(row, (list, tuple)) and len(row) == 2:
+                        merged.add((str(row[0]), str(row[1])))
+        except Exception:
+            with self._lock:
+                return set(self._fleet_open)  # stale beats absent
+        with self._lock:
+            self._fleet_open = merged
+            return set(merged)
+
     # -- reporting (GET /debug/resilience) ---------------------------------
 
     def report(self) -> Dict[str, Any]:
@@ -398,6 +547,7 @@ class UpstreamHealth:
             rows = [ep.row() for ep in self._eps.values()]
             cfg = {k: (dict(v) if isinstance(v, dict) else v)
                    for k, v in self.cfg.items()}
+            fleet = sorted(list(self._fleet_open))
         rows.sort(key=lambda r: (r["model"], r["endpoint"]))
         return {
             "enabled": True,
@@ -410,5 +560,11 @@ class UpstreamHealth:
                 "budget_per_s": float(
                     self.cfg["retry"]["budget_per_s"]),
                 "burst": float(self.cfg["retry"]["burst"])},
+            "fleet_budget": {
+                "active": self._fleet_budget_active(),
+                "granted": self._fleet_budget_stats["granted"],
+                "denied": self._fleet_budget_stats["denied"]},
+            "fleet_open": [{"model": m, "endpoint": e}
+                           for m, e in fleet],
             "config": cfg,
         }

@@ -43,6 +43,10 @@ LOOPER = "x-vsr-looper-request"
 # a looper answer: the algorithm that ran and the models it used
 LOOPER_ALGORITHM = "x-vsr-looper-algorithm"
 LOOPER_CANDIDATES = "x-vsr-looper-candidates"
+# the state plane: the replica whose hot local state (encoding rows,
+# classify memos, captured steps) this prompt belongs on — the ring's
+# owner, the same on every replica
+AFFINITY = "x-vsr-affinity-replica"
 
 
 def decision_headers(decision_name: str, model: str, category: str = "",

@@ -206,6 +206,9 @@ class Router:
         self.priority = PriorityResolver.from_config(
             cfg.resilience_config())
         self.upstream_health = None
+        # the shared state plane (stateplane.StatePlane), attached by
+        # build_router when stateplane.enabled; None = single process
+        self.stateplane = None
         self._cfg_hash: Optional[str] = None
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
@@ -497,6 +500,7 @@ class Router:
                 result.model = self.cfg.default_model or ctx.model
             result.headers = {H.SCHEMA: H.SCHEMA_VERSION,
                               H.MODEL: result.model}
+            self._stamp_affinity(result, ctx)
             self.M.decision_fallbacks.inc(reason="no_decision_matched")
             if rec is not None:
                 rec.fallback_reason = "no_decision_matched"
@@ -509,8 +513,11 @@ class Router:
             if rec is not None:
                 rec.capture_decision(decision_res, decision_engine.strategy)
             early = self._apply_policy_plugins(decision, signals, result,
-                                               rec) \
-                or self._check_cache(decision, ctx, result, rec)
+                                               rec)
+            if early is None:
+                early = self._check_cache(decision, ctx, result, rec)
+                if early is not None:
+                    self._stamp_affinity(early, ctx)
             if early is not None:
                 early.routing_latency_s = time.perf_counter() - start
                 self.M.routing_latency.observe(early.routing_latency_s,
@@ -545,6 +552,7 @@ class Router:
                 use_reasoning=ref.use_reasoning,
                 reasoning_effort=ref.reasoning_effort,
                 matched_rules=decision_res.matched_rules))
+            self._stamp_affinity(result, ctx)
             self.M.model_requests.inc(model=ref.model,
                                       decision=decision.name)
         self._finalize_body(result, ref)
@@ -553,6 +561,21 @@ class Router:
         self.M.routing_latency.observe(result.routing_latency_s,
                                        exemplar=trace_id, model=result.model)
         return result
+
+    def _stamp_affinity(self, result: "RouteResult",
+                        ctx: RequestContext) -> None:
+        """Replica affinity (the state plane's ring): which replica's hot
+        local state — encoding rows, classify memos, captured steps —
+        this prompt belongs on.  An affinity-aware load balancer keys
+        its hashing off this echo; one blake2b and a ring lookup, only
+        when a plane is attached, on every routed response (matched,
+        fallback or cache hit)."""
+        if self.stateplane is not None:
+            try:
+                result.headers[H.AFFINITY] = \
+                    self.stateplane.owner_of(ctx.user_text)
+            except Exception:
+                pass
 
     def _fail_static(self, body: Dict[str, Any], ctx: RequestContext,
                      request_id: str, trace_id: str, start: float, disp,

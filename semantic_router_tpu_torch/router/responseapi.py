@@ -5,14 +5,16 @@ extproc/req_filter_response_api.go:527) and pkg/responsestore (2.3k):
 inbound `/v1/responses` requests translate to the internal ChatCompletions
 shape for the signal/decision pipeline; completions translate back to
 Response objects; `previous_response_id` threads stored conversation
-history into the new request; responses persist in a store.  The port's
-copy of ``semantic_router_tpu.router.responseapi`` with the in-memory
-store only: the Redis / Valkey (cluster) stores need a RESP client, and
-the config loader refuses them.
+history into the new request; responses persist in a store (in memory,
+or on Redis / Valkey / a Redis Cluster over the port's RESP clients, with
+the reference's keys and JSON, so a turn stored through any replica of
+either package continues through any other).  The port's copy of
+``semantic_router_tpu.router.responseapi``.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 import uuid
@@ -59,16 +61,90 @@ class ResponseStore:
             return self._items.pop(response_id, None) is not None
 
 
+class RedisResponseStore:
+    """Redis/Valkey-backed response store (pkg/responsestore redis backend):
+    conversation threads survive restarts and are shared across replicas.
+    Same surface as ResponseStore; entries carry a server-side TTL."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 6379,
+                 db: int = 0, password: str = "",
+                 key_prefix: str = "vsr:resp",
+                 ttl_seconds: float = 86_400.0, client=None) -> None:
+        from ..state.resp import RedisClient
+
+        self.prefix = key_prefix
+        self.ttl_seconds = ttl_seconds
+        self.client = client or RedisClient(host, port, db, password)
+
+    def _key(self, response_id: str) -> str:
+        return f"{self.prefix}:{response_id}"
+
+    def put(self, resp: StoredResponse) -> None:
+        payload = json.dumps({
+            "id": resp.id, "model": resp.model, "messages": resp.messages,
+            "created_t": resp.created_t, "metadata": resp.metadata})
+        # sub-second TTLs round up to 1s rather than silently never expiring
+        ex = max(1, int(round(self.ttl_seconds))) \
+            if self.ttl_seconds > 0 else None
+        try:
+            self.client.set(self._key(resp.id), payload, ex=ex)
+        except Exception:
+            pass  # fail open: thread continuity degrades, requests succeed
+
+    def get(self, response_id: str) -> Optional[StoredResponse]:
+        try:
+            raw = self.client.get(self._key(response_id))
+            if not raw:
+                return None
+            d = json.loads(raw)
+            return StoredResponse(id=d["id"], model=d.get("model", ""),
+                                  messages=d.get("messages", []),
+                                  created_t=d.get("created_t", time.time()),
+                                  metadata=d.get("metadata", {}))
+        except Exception:
+            # unreachable store, WRONGTYPE collision, corrupt payload,
+            # foreign schema — all degrade to "no stored thread", never 500
+            return None
+
+    def delete(self, response_id: str) -> bool:
+        try:
+            return bool(self.client.delete(self._key(response_id)))
+        except Exception:
+            return False
+
+
 def build_response_store(cfg: Dict[str, Any]):
     """Factory from the ``response_store`` config block: the in-memory
-    store (``backend: memory``, the default)."""
+    store (``backend: memory``, the default), a ``RedisResponseStore`` on
+    one server (``redis`` / ``valkey``: host, port, db, password) or on a
+    cluster (``redis-cluster`` / ``valkey-cluster``: ``nodes``, the slot
+    map read at build)."""
     cfg = cfg or {}
     backend = str(cfg.get("backend", "memory") or "memory")
+    if backend in ("redis-cluster", "valkey-cluster"):
+        from ..state.rediscluster import RedisClusterClient
+
+        nodes = [(str(n.get("host", "127.0.0.1")), int(n.get("port")))
+                 for n in cfg.get("nodes", []) or []]
+        client = RedisClusterClient(nodes,
+                                    password=str(cfg.get("password", "")))
+        client.refresh_slots()
+        return RedisResponseStore(
+            key_prefix=cfg.get("key_prefix", "vsr:resp"),
+            ttl_seconds=float(cfg.get("ttl_seconds", 86_400.0)),
+            client=client)
+    if backend in ("redis", "valkey"):
+        return RedisResponseStore(
+            host=cfg.get("host", "127.0.0.1"),
+            port=int(cfg.get("port", 6379)),
+            db=int(cfg.get("db", 0)),
+            password=str(cfg.get("password", "")),
+            key_prefix=cfg.get("key_prefix", "vsr:resp"),
+            ttl_seconds=float(cfg.get("ttl_seconds", 86_400.0)))
     if backend != "memory":
-        # the RESP-backed stores need a client this port does not have;
-        # the config loader refuses them first
+        # the config loader refuses it first
         raise ValueError(f"response_store.backend {backend!r} is not "
-                         f"served by this port yet (memory only)")
+                         f"served by this port yet")
     return ResponseStore(
         max_entries=int(cfg.get("max_entries", 10_000)),
         ttl_seconds=float(cfg.get("ttl_seconds", 86_400.0)))

@@ -107,9 +107,15 @@ and the reference's telemetry surface, over the server's
                                    plane's breakers and retry budget
   GET  /debug/upstreams            the upstream plane alone (503 when
                                    it is off)
+  GET  /debug/stateplane           the shared state plane: members, the
+                                   ring's distribution, the backend's
+                                   health, fleet pressure (503 without
+                                   a plane)
   GET  /metrics/external           ExternalMetricValueList scaling
                                    signals (degradation level, queue
-                                   pressure) for an autoscaler
+                                   pressure; the fleet maximum and one
+                                   level row per replica with a plane)
+                                   for an autoscaler
 """
 
 from __future__ import annotations
@@ -194,6 +200,7 @@ API_CATALOG = {"endpoints": [
         ("/debug/slo", "GET"),
         ("/debug/resilience", "GET"),
         ("/debug/upstreams", "GET"),
+        ("/debug/stateplane", "GET"),
         ("/metrics/external", "GET"),
         ("/info/models", "GET"),
         ("/v1/memory", "GET"),
@@ -390,6 +397,13 @@ class _Handler(BaseHTTPRequestHandler):
                                            "is false)"})
             else:
                 self._reply(200, up.report())
+        elif path == "/debug/stateplane":
+            plane = reg.get("stateplane") or srv.router.stateplane
+            if plane is None:
+                self._reply(503, {"error": "no state plane "
+                                           "(stateplane.enabled is false)"})
+            else:
+                self._reply(200, plane.report())
         elif path == "/metrics/external":
             self._reply(200, srv.external_metrics(
                 self._query().get("metric", "")))
@@ -1689,15 +1703,35 @@ class RouterServer:
 
     def external_metrics(self, metric: str = "") -> dict:
         """ExternalMetricValueList-shaped scaling signals for an
-        autoscaler: the ladder's ``llm_degradation_level`` and the worst
-        ``llm_queue_pressure`` (this replica's; the reference's fleet
-        rows need the state plane).  ``metric`` filters by name."""
+        autoscaler: ``llm_degradation_level`` and the worst
+        ``llm_queue_pressure``, first (stable order), then one level row
+        per replica when a state plane is attached.  With a plane both
+        ``scope="fleet"`` rows are the fleet's maxima over the replicas'
+        published pressure (``fleet_pressure``); without one, or while
+        the plane is down, this replica's own values.  ``metric``
+        filters by name."""
         res = self.registry.get("resilience")
+        plane = self.registry.get("stateplane") or self.router.stateplane
         level = float(res.level()) if res is not None else 0.0
         pending = 0.0
         if res is not None:
-            pending = float(res.report()["pressure"].get("pending_items",
-                                                         0.0))
+            try:
+                pending = float(res.report()["pressure"].get(
+                    "pending_items", 0.0))
+            except Exception:
+                pending = 0.0
+        levels: Dict[str, float] = {}
+        if plane is not None:
+            try:
+                fleet = plane.fleet_pressure()
+                levels = {str(r): float(v)
+                          for r, v in (fleet.get("levels") or {}).items()}
+                if levels:
+                    level = max(level, max(levels.values()))
+                pending = max(pending,
+                              float(fleet.get("pending_items", 0.0)))
+            except Exception:
+                pass  # plane down: serve the local view
         ts = datetime.datetime.now(datetime.timezone.utc).isoformat()
 
         def item(name: str, value: float, **labels: str) -> dict:
@@ -1707,6 +1741,9 @@ class RouterServer:
 
         items = [item("llm_degradation_level", level, scope="fleet"),
                  item("llm_queue_pressure", pending, scope="fleet")]
+        for replica, lvl in sorted(levels.items()):
+            items.append(item("llm_degradation_level", lvl,
+                              replica=replica))
         if metric:
             items = [i for i in items if i["metricName"] == metric]
         return {"kind": "ExternalMetricValueList",

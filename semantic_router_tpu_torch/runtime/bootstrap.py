@@ -40,9 +40,13 @@ one): ``apply_observability_knobs`` applies the config's
 ``observability`` block to them, and binds and starts the SLO monitor
 and the degradation controller (``resilience``) on the registry's event
 bus.  ``build_router`` attaches the decision-aware signal cascade when
-``engine.cascade`` enables it (``apply_cascade_knobs``) and the upstream
-health plane when ``resilience.upstream`` does (``apply_upstream_knobs``);
-a config reload calls both again.  ``warm_engine`` warms the engine and
+``engine.cascade`` enables it (``apply_cascade_knobs``), the shared
+state plane when ``stateplane`` does (``apply_stateplane_knobs``: the
+plane in the registry's ``stateplane`` slot, the plane-shared semantic
+cache, the fleet-aggregated ladder and the fleet-wide decision mirror)
+and the upstream health plane when ``resilience.upstream`` does
+(``apply_upstream_knobs``); a config reload calls them again.
+``warm_engine`` warms the engine and
 emits ``engine_ready`` (or ``engine_failed``) on the bus, which the
 controller reads.
 """
@@ -55,6 +59,7 @@ import os
 from typing import Dict, Optional, Tuple
 
 from ..config.schema import InferenceEngineConfig, RouterConfig
+from ..observability.logging import component_event
 from ..utils.device import DeviceLike, resolve_device
 
 log = logging.getLogger(__name__)
@@ -363,14 +368,18 @@ def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
               engine.kernels_report()["groups"].items()})
 
 
-def build_router(cfg: RouterConfig, engine=None, registry=None):
+def build_router(cfg: RouterConfig, engine=None, registry=None,
+                 carry_from=None):
     """The Router over ``engine``, its observability and degradation
     controller bound to ``registry``'s sinks (the process defaults when
     None), its cascade attached as ``engine.cascade`` says (in
-    ``registry``'s ``cascade`` slot) and its upstream plane as
-    ``resilience.upstream`` says (``upstreams``), with its memory store: SQLite at ``memory.path`` under
-    ``memory.backend: sqlite``, else in-process; both embed on the
-    engine's ``EMBEDDING_TASK`` when it serves one."""
+    ``registry``'s ``cascade`` slot), the shared state plane as
+    ``stateplane`` says (``stateplane``) and its upstream plane as
+    ``resilience.upstream`` says (``upstreams``), with its memory store:
+    SQLite at ``memory.path`` under ``memory.backend: sqlite``, else
+    in-process; both embed on the engine's ``EMBEDDING_TASK`` when it
+    serves one.  ``carry_from`` (the router a config reload replaces)
+    hands on its semantic cache and its state plane."""
     from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
     from ..router.pipeline import EMBEDDING_TASK, Router
 
@@ -382,11 +391,14 @@ def build_router(cfg: RouterConfig, engine=None, registry=None):
     if registry is not None:
         obs["resilience"] = registry.get("resilience")
     router = Router(cfg, engine=engine, **obs)
+    if carry_from is not None and carry_from.cache is not None:
+        router.cache = carry_from.cache
     if registry is None:
         from .registry import RuntimeRegistry
 
         registry = RuntimeRegistry.with_defaults()
     apply_cascade_knobs(cfg, registry, router)
+    apply_stateplane_knobs(cfg, registry, router, carry_from=carry_from)
     apply_upstream_knobs(cfg, registry, router)
     embed_fn = None
     if engine is not None and engine.has_task(EMBEDDING_TASK):
@@ -432,13 +444,143 @@ def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
         log.warning("cascade config invalid", exc_info=True)
 
 
+def apply_stateplane_knobs(cfg: RouterConfig, registry, router,
+                           carry_from=None) -> None:
+    """Attach, carry or detach the shared state plane (``stateplane/``)
+    for a registry and router pair.  Enabled: the plane ``carry_from``
+    or the registry already holds is kept (a reload keeps its
+    membership and breaker), else one is built and started
+    (``stateplane_attached``; a plane that fails to build leaves the
+    replica on local state, ``stateplane_failed``).  Disabled: a plane
+    the registry or ``carry_from`` holds is closed and let go
+    (``stateplane_detached``).  Then the consumers follow the plane:
+    the in-process semantic cache is wrapped in a ``SharedSemanticCache``
+    under ``share.cache`` (which embeds through the cache's own embedding
+    function, on the engine's embedding task) or unwrapped to its local
+    fallback; the degradation controller steps from the fleet's pressure
+    under ``share.fleet``; the decision mirror follows ``share.explain``
+    (``_attach_durable``).  ``enabled: false`` (the default) builds
+    nothing."""
+    sp_cfg = cfg.stateplane_config()
+    old = registry.get("stateplane")
+    if old is None and carry_from is not None:
+        old = carry_from.stateplane
+    plane = None
+    if sp_cfg["enabled"]:
+        plane = old
+        if plane is None:
+            try:
+                from ..stateplane import build_state_plane
+
+                plane = build_state_plane(cfg, metrics=registry.metrics)
+                plane.start()
+                component_event("bootstrap", "stateplane_attached",
+                                backend=sp_cfg["backend"],
+                                replica=plane.replica_id)
+            except Exception as exc:
+                component_event("bootstrap", "stateplane_failed",
+                                level="warning",
+                                error=f"{type(exc).__name__}: "
+                                      f"{exc}"[:200])
+                plane = None
+    elif old is not None:
+        # a reload that turned the plane off must stop it: heartbeat
+        # thread, registry slot, /debug/stateplane, fleet sensing
+        try:
+            old.close()
+        except Exception:
+            pass
+        component_event("bootstrap", "stateplane_detached")
+    registry.swap(stateplane=plane)
+    if router is not None:
+        router.stateplane = plane
+        _wrap_cache(cfg, sp_cfg, plane, router)
+    _bind_fleet(cfg, registry)
+    explain = registry.get("explain")
+    if explain is not None and (plane is not None or getattr(
+            explain.durable_store, "plane", None) is not None):
+        _attach_durable(cfg, registry, explain)
+
+
+def _wrap_cache(cfg: RouterConfig, sp_cfg: Dict, plane, router) -> None:
+    """The plane-shared semantic cache: only an in-process cache is
+    wrapped (a redis / valkey cache is cross-replica already), and it
+    stays as the local fallback the plane degrades to.  Reload-aware
+    both ways: a carried plain cache is wrapped when the plane turns on,
+    a carried shared one unwraps when the plane (or ``share.cache``)
+    turns off."""
+    from ..stateplane.cache import SharedSemanticCache
+
+    cache = router.cache
+    if plane is not None and sp_cfg["share"]["cache"] \
+            and cache is not None \
+            and cfg.semantic_cache.backend_type in ("memory", "hnsw",
+                                                    "hybrid"):
+        if not isinstance(cache, SharedSemanticCache):
+            router.cache = SharedSemanticCache(
+                plane, cache.embed_fn,
+                similarity_threshold=cfg.semantic_cache
+                .similarity_threshold,
+                ttl_seconds=cfg.semantic_cache.ttl_seconds,
+                local=cache)
+    elif isinstance(cache, SharedSemanticCache) and cache.local is not None:
+        cache.backend.off_recover(cache.reconcile)
+        router.cache = cache.local
+
+
+def _bind_fleet(cfg: RouterConfig, registry) -> None:
+    """The ladder's fleet sensor: the registry's plane under
+    ``stateplane.share.fleet``, else none (``bind`` only attaches, so a
+    reload that turned the share off detaches here)."""
+    res = registry.get("resilience")
+    if res is None:
+        return
+    plane = registry.get("stateplane")
+    if plane is not None and cfg.stateplane_config()["share"]["fleet"]:
+        res.bind(fleet=plane)
+    else:
+        res.fleet = None
+
+
+def _attach_durable(cfg: RouterConfig, registry, explain) -> None:
+    """The decision records' durable mirror: SQLite at
+    ``observability.decisions.durable.path`` when configured (the same
+    path keeps the same store across reloads), else the plane's
+    fleet-wide mirror while a plane is attached with ``share.explain``
+    (every replica then serves the fleet's records at
+    ``/debug/decisions?source=durable``), else none."""
+    durable = cfg.decision_explain_config().get("durable") or {}
+    plane = registry.get("stateplane")
+    cur = explain.durable_store
+    if durable.get("backend") == "sqlite" and durable.get("path"):
+        if cur is None or getattr(cur, "path", "") != durable["path"]:
+            from ..observability.explain_store import SQLiteDecisionStore
+
+            explain.attach_durable(SQLiteDecisionStore(
+                durable["path"],
+                max_records=int(durable.get("max_records", 100_000))))
+    elif plane is not None \
+            and cfg.stateplane_config()["share"]["explain"]:
+        from ..stateplane import StatePlaneDecisionStore
+
+        if not isinstance(cur, StatePlaneDecisionStore) \
+                or cur.plane is not plane:
+            explain.attach_durable(StatePlaneDecisionStore(
+                plane, max_records=int(durable.get("max_records",
+                                                   10_000))))
+    elif cur is not None:
+        explain.attach_durable(None)
+
+
 def apply_upstream_knobs(cfg: RouterConfig, registry, router) -> None:
     """Attach, reconfigure or detach the upstream health plane
     (``resilience/upstream.py``): enabled, the registry's plane (made
     once, so a reload keeps its breakers) takes the normalized block and
     reads the ladder's level through the registry's controller; disabled,
     nothing is built and the router forwards with plain endpoint
-    failover.  A malformed block never stops the server."""
+    failover.  With a state plane in the registry and ``fleet_share``
+    on, open circuits and the retry budget are shared over it.  A
+    malformed block never stops the server."""
     try:
         up_cfg = cfg.upstream_config()
         if not up_cfg["enabled"]:
@@ -456,7 +598,13 @@ def apply_upstream_knobs(cfg: RouterConfig, registry, router) -> None:
             registry.swap(upstreams=up)
             log.info("upstream plane attached")
         up.bind(events=registry.get("events"),
+                plane=registry.get("stateplane"),
                 resilience=registry.get("resilience"))
+        if not up_cfg["fleet_share"]:
+            # bind() only ever attaches; a reload that turned
+            # fleet_share off must detach the plane or open circuits
+            # keep publishing
+            up.plane = None
         up.configure(up_cfg)
         if router is not None:
             router.upstream_health = up
@@ -496,6 +644,7 @@ def apply_resilience_knobs(cfg: RouterConfig, registry) -> None:
                      runtimestats=registry.get("runtimestats"),
                      tracer=registry.tracer,
                      explain=registry.get("explain"))
+            _bind_fleet(cfg, registry)
             res.configure(cfg.resilience_config())
             res.resync_knob_effects()
             if res.enabled:
@@ -581,20 +730,8 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
             ctl.detach()
     explain = registry.get("explain")
     if explain is not None:
-        ex_cfg = cfg.decision_explain_config()
-        explain.configure(ex_cfg)
-        durable = ex_cfg.get("durable") or {}
-        if durable.get("backend") == "sqlite" and durable.get("path"):
-            cur = explain.durable_store
-            if cur is None or cur.path != durable["path"]:
-                from ..observability.explain_store import \
-                    SQLiteDecisionStore
-
-                explain.attach_durable(SQLiteDecisionStore(
-                    durable["path"],
-                    max_records=int(durable.get("max_records", 100_000))))
-        elif explain.durable_store is not None:
-            explain.attach_durable(None)
+        explain.configure(cfg.decision_explain_config())
+        _attach_durable(cfg, registry, explain)
     apply_resilience_knobs(cfg, registry)
 
 
@@ -615,7 +752,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     starts in the background and (server, tracker) is returned; the
     caller then does what the blocking path does when it ends (stop the
     server, shut the router and engine down, stop the registry's
-    sampler, SLO monitor and controller)."""
+    sampler, SLO monitor and controller, ``close_stateplane``)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
     from .registry import RuntimeRegistry
@@ -660,3 +797,19 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         registry.runtimestats.stop()
         registry.slo.stop()
         registry.resilience.stop()
+        close_stateplane(registry)
+
+
+def close_stateplane(registry) -> None:
+    """Stop what the state plane runs in ``registry``: its decision
+    mirror's writer and its heartbeat (the replica leaves the ring), and
+    let the plane go.  A no-op without a plane."""
+    plane = registry.get("stateplane")
+    if plane is None:
+        return
+    explain = registry.get("explain")
+    if explain is not None and getattr(explain.durable_store, "plane",
+                                       None) is plane:
+        explain.attach_durable(None)
+    registry.swap(stateplane=None)
+    plane.close()

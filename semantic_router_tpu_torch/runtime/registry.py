@@ -4,8 +4,8 @@ The port's copy of ``semantic_router_tpu.runtime.registry``, with the
 slots this package fills: the metrics registry, the tracer, the session
 telemetry, the profiler control, the runtime event bus, the flight recorder, the runtime-stats
 sampler, the program-cost catalog, the SLO monitor, the decision-record
-ring, the degradation controller, the upstream health plane and the
-cascade evaluator.  ``RuntimeRegistry.with_defaults()``
+ring, the degradation controller, the upstream health plane, the
+cascade evaluator and the shared state plane.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -26,7 +26,11 @@ _SLOTS = ("metrics", "tracer", "sessions", "profiler", "events",
           "upstreams",
           # the decision-aware cascade's evaluator: empty unless
           # engine.cascade is enabled (apply_cascade_knobs)
-          "cascade")
+          "cascade",
+          # the shared state plane (stateplane.StatePlane): empty unless
+          # stateplane.enabled (build_router); per registry, so two
+          # embedded routers can sit on different planes
+          "stateplane")
 
 
 class RuntimeRegistry:

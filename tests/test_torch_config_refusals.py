@@ -15,10 +15,13 @@ name, and a DeBERTa-v2/v3 classifier and a SigLIP ``kind: multimodal``
 checkpoint load; an enabled ``image_generation`` plugin loads and a
 ``rag`` one is refused.
 The resilience plane (the degradation ladder, the upstream health
-plane, local SLO objectives) loads and parses as the reference's; what it
-reads through the shared state plane (fleet-scoped objectives, the
-fleet-shared ladder of ``stateplane.share.fleet``, the fleet-shared open
-circuits and retry budget) is refused."""
+plane, local SLO objectives) loads and parses as the reference's.  The
+shared state plane (``stateplane``), its fleet-shared ladder
+(``stateplane.share.fleet``), the fleet-shared open circuits and retry
+budget, and the RESP-backed Responses and workflow stores load and parse
+as the reference's too; beside each stays a refused option of its kind
+(the ANN plane, the fleet observability plane, fleet-scoped objectives,
+the vector store, a milvus memory store)."""
 
 import copy
 import http.client
@@ -70,6 +73,30 @@ PORTED = {
                                            "backend": "memory",
                                            "max_entries": 8}},
                        {"response_store": {"enabled": False}}),
+    # the state plane and the RESP-backed stores (served since they were
+    # refused; SERVED_SINCE below names what stays refused beside each)
+    "stateplane": ({"stateplane": {"enabled": True, "backend": "memory"}},
+                   {"stateplane": {"enabled": False, "backend": "memory"}}),
+    "stateplane.share.fleet": (
+        {"stateplane": {"enabled": True, "share": {"fleet": True}}},
+        {"stateplane": {"enabled": False, "share": {"fleet": True}}}),
+    "resilience.upstream.fleet_share": (
+        {"stateplane": {"enabled": True},
+         "resilience": {"upstream": {"enabled": True}}},
+        {"stateplane": {"enabled": False},
+         "resilience": {"upstream": {"enabled": True}}}),
+    "response_store.backend": ({"response_store": {"backend": "redis",
+                                                   "host": "r"}},
+                               {"response_store": {"backend": "memory"}}),
+    "looper.workflow_state.backend": (
+        {"looper": {"workflow_state": {"backend": "valkey"}}},
+        {"looper": {"workflow_state": {"backend": "memory",
+                                       "ttl_seconds": 60}}}),
+    # a global: block is lifted before the refusals run
+    "resilience": ({"global": {"resilience": {"enabled": True},
+                               "stateplane": {"enabled": True,
+                                              "share": {"fleet": True}}}},
+                   {"global": {"resilience": {"enabled": True}}}),
     "observability.slo.objectives": (
         {"observability": {"slo": {"evaluation_interval_s": 0.25,
                                    "objectives": [
@@ -88,19 +115,9 @@ REFUSED = {
                     {"engine": {"mesh": {"enabled": False}}}),
     "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
                           {"engine": {"mesh_shape": {}}}),
-    "stateplane": ({"stateplane": {"enabled": True, "backend": "memory"}},
-                   {"stateplane": {"enabled": False, "backend": "memory"}}),
     "ann": ({"ann": {"enabled": True}}, {"ann": {"enabled": False}}),
     "vectorstore": ({"vectorstore": {"enabled": True}},
                     {"vectorstore": {"enabled": False}}),
-    # the Redis / Valkey stores need a RESP client
-    "response_store.backend": ({"response_store": {"backend": "redis",
-                                                   "host": "r"}},
-                               {"response_store": {"backend": "memory"}}),
-    "looper.workflow_state.backend": (
-        {"looper": {"workflow_state": {"backend": "valkey"}}},
-        {"looper": {"workflow_state": {"backend": "memory",
-                                       "ttl_seconds": 60}}}),
     "mcp": ({"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
             {"mcp": {}}),
     "external_models": ({"external_models": [{"name": "x",
@@ -116,14 +133,6 @@ REFUSED = {
         {"observability": {"slo": {"enabled": True, "objectives": [
             {"objective": "routing_latency p99 < 25ms over 5m",
              "scope": "local"}]}}}),
-    "stateplane.share.fleet": (
-        {"stateplane": {"enabled": True, "share": {"fleet": True}}},
-        {"stateplane": {"enabled": False, "share": {"fleet": True}}}),
-    "resilience.upstream.fleet_share": (
-        {"stateplane": {"enabled": True},
-         "resilience": {"upstream": {"enabled": True}}},
-        {"stateplane": {"enabled": False},
-         "resilience": {"upstream": {"enabled": True}}}),
     "observability.fleet.enabled": (
         {"observability": {"fleet": {"enabled": True}}},
         {"observability": {"fleet": {"enabled": False}}}),
@@ -136,12 +145,6 @@ REFUSED = {
             "backend": "stateplane"}}}},
         {"observability": {"decisions": {"durable": {
             "backend": "sqlite", "path": ""}}}}),
-    # a global: block is lifted before the refusals run; the ladder is
-    # served, its fleet-shared form is not
-    "resilience": ({"global": {"resilience": {"enabled": True},
-                               "stateplane": {"enabled": True,
-                                              "share": {"fleet": True}}}},
-                   {"global": {"resilience": {"enabled": True}}}),
 }
 # options the port once refused and serves now, each beside the option of
 # the same refusal that stays refused (and a config enabling that one)
@@ -152,9 +155,39 @@ PORTED["image_generation"] = (
     {"routing": {"decisions": [dict(DEC, plugins=[
         {"type": "image_generation",
          "configuration": {"enabled": False, "backend": "mock"}}])]}})
-SERVED_SINCE = {"image_generation": (
-    "rag", {"routing": {"decisions": [dict(DEC, plugins=[
-        {"type": "rag", "configuration": {"backend": "mock"}}])]}})}
+SERVED_SINCE = {
+    "image_generation": (
+        "rag", {"routing": {"decisions": [dict(DEC, plugins=[
+            {"type": "rag", "configuration": {"backend": "mock"}}])]}}),
+    # the plane is served; the ANN plane over it is not
+    "stateplane": ("ann", {"stateplane": {"enabled": True},
+                           "ann": {"enabled": True}}),
+    # the fleet-shared ladder is served; the fleet observability plane
+    # (federated metrics, fleet-scoped objectives) is not
+    "stateplane.share.fleet": (
+        r"observability\.fleet", {
+            "stateplane": {"enabled": True, "share": {"fleet": True}},
+            "observability": {"fleet": {"enabled": True}}}),
+    "resilience.upstream.fleet_share": (
+        "scope: fleet", {
+            "stateplane": {"enabled": True},
+            "resilience": {"upstream": {"enabled": True}},
+            "observability": {"slo": {"objectives": [
+                {"objective": "routing_latency p99 < 25ms over 5m",
+                 "scope": "fleet"}]}}}),
+    # the RESP stores are served; the vector store is not
+    "response_store.backend": (
+        "vectorstore", {"response_store": {"backend": "redis"},
+                        "vectorstore": {"enabled": True}}),
+    "looper.workflow_state.backend": (
+        "milvus", {"looper": {"workflow_state": {"backend": "redis"}},
+                   "memory": {"backend": "milvus"}}),
+    "resilience": (
+        r"observability\.fleet", {"global": {
+            "resilience": {"enabled": True},
+            "stateplane": {"enabled": True, "share": {"fleet": True}},
+            "observability": {"fleet": {"enabled": True}}}}),
+}
 
 
 @pytest.mark.parametrize("key", sorted({**REFUSED, **SERVED_SINCE}))
@@ -202,6 +235,16 @@ def _parsed(cfg, key):
     if key == "image_generation":
         return [(d.name, [(p.type, p.configuration, p.enabled)
                           for p in d.plugins]) for d in cfg.decisions]
+    if key in ("stateplane", "stateplane.share.fleet"):
+        return cfg.stateplane_config()
+    if key == "resilience.upstream.fleet_share":
+        return cfg.stateplane_config(), cfg.upstream_config()
+    if key == "resilience":
+        return cfg.stateplane_config(), cfg.resilience_config()
+    if key == "response_store.backend":
+        return cfg.response_store
+    if key == "looper.workflow_state.backend":
+        return cfg.looper
     return getattr(cfg, key)
 
 

@@ -470,6 +470,19 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py"]
 
 
+def test_port_sources_cover_every_package():
+    """The scan below reaches every package of the port, the state
+    plane's and the RESP family's included."""
+    scanned = {p.parent.name for p in _port_sources()}
+    for pkg in ("state", "stateplane", "cache", "router", "runtime",
+                "resilience", "ops"):
+        assert pkg in scanned, pkg
+    assert (REPO / "semantic_router_tpu_torch" / "stateplane"
+            / "plane.py") in _port_sources()
+    assert (REPO / "semantic_router_tpu_torch" / "state"
+            / "resp.py") in _port_sources()
+
+
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
     return root in ("jax", "jaxlib", "flax", "optax", "semantic_router_tpu")
@@ -496,6 +509,11 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "assert {'semantic_router_tpu_torch.state.resp',\n"
+        "        'semantic_router_tpu_torch.state.rediscluster',\n"
+        "        'semantic_router_tpu_torch.stateplane.plane',\n"
+        "        'semantic_router_tpu_torch.stateplane.harness'} \\\n"
+        "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_shared_trunk_engine\n"
         "e = make_shared_trunk_engine(device='cpu')\n"

@@ -201,8 +201,18 @@ def test_memory_store_builds_like_the_reference(cfg):
 @pytest.mark.parametrize("backend", ["redis", "valkey", "redis-cluster",
                                      "valkey-cluster"])
 def test_resp_backed_store_is_refused_by_name(backend):
+    # served since the RESP family was ported: the port builds the store
+    # the reference builds (a cluster over no reachable node keeps an
+    # empty slot map); an unknown backend stays refused by name
+    cfg = {"backend": backend, "key_prefix": "p", "ttl_seconds": 9,
+           "port": 1, "nodes": [{"host": "127.0.0.1", "port": 1}]}
+    got, want = tr.build_response_store(cfg), jr.build_response_store(cfg)
+    assert type(got).__name__ == type(want).__name__ == "RedisResponseStore"
+    assert (got.prefix, got.ttl_seconds) == (want.prefix,
+                                             want.ttl_seconds) == ("p", 9.0)
+    assert type(got.client).__name__ == type(want.client).__name__
     with pytest.raises(ValueError, match="response_store.backend"):
-        tr.build_response_store({"backend": backend})
+        tr.build_response_store({"backend": backend + "-x"})
 
 
 def test_events_are_json_serializable():

@@ -429,18 +429,27 @@ def _refused(**change):
         "type": "mlp", "artifact": "sel.json"}), "artifact"),
     (_refused(learning={"enabled": True}), "learning"),
     (_refused(flywheel={"enabled": True}), "flywheel"),
-    # the ladder and the upstream plane are served; what they read
-    # through the shared state plane is not
+    # the ladder and the upstream plane are served over the shared state
+    # plane too; the fleet observability plane and fleet-scoped objectives
+    # beside them are not
     (_refused(resilience={"enabled": True},
-              stateplane={"enabled": True, "share": {"fleet": True}}),
-     "resilience"),
+              stateplane={"enabled": True, "share": {"fleet": True}},
+              observability={"fleet": {"enabled": True}}),
+     r"observability\.fleet"),
     (_refused(resilience={"upstream": {"enabled": True}},
-              stateplane={"enabled": True}), "upstream"),
+              stateplane={"enabled": True},
+              observability={"slo": {"objectives": [
+                  {"objective": "routing_latency p99 < 25ms over 5m",
+                   "scope": "fleet"}]}}), "scope: fleet"),
 ], ids=["rag", "qdrant", "milvus", "artifact", "learning", "flywheel",
         "resilience", "upstream"])
 def test_unported_options_are_refused_at_load(cfg, what):
     with pytest.raises(ValueError, match=what):
         load_config(cfg)
+    if what in (r"observability\.fleet", "scope: fleet"):
+        # without the still-refused block the fleet-shared form loads
+        del cfg["observability"]
+        assert load_config(cfg).stateplane_config()["enabled"]
 
 
 def test_served_options_load(tmp_path):
