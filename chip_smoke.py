@@ -293,9 +293,39 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    1e-4 of the threshold).  Then the cuda-marked tests of
    ``tests/test_torch_stateplane_cuda.py`` run in a pytest process.
 
+16. retrieval — 16a: the ANN bank (``ann.DeviceBank`` on the card, D 768,
+   seeded unit rows in clusters of 16 near-duplicates) at 65 536 and
+   1 048 576 rows, published in f32, bf16 and int8: the recall gate's
+   value (the view must publish in its mode), ``publish`` seconds, 64
+   seeded queries at k 8 whose slots equal the CPU port's program on the
+   same rows (and at f32 a numpy brute-force oracle's) outside near ties
+   (gap < 1e-5, counted and printed) with scores within 1e-5, the top-k
+   step at q_rows 1 / 16 / 64 in CUDA-event ms beside the bank's bytes
+   over 3.35 TB/s, and the card's allocated bytes.  16b: phase 3's bank
+   and phase 5's embedding model on one engine behind the HTTP server and
+   a mock backend, the ANN plane on, a store made through ``POST
+   /v1/vector_stores`` on the ``ann`` backend and 256 seeded documents
+   ingested through ``/files`` (K1 = chunks x 22), every decision
+   carrying the ``rag`` plugin: 32 requests, each reaching the backend
+   with the context message and ``x-vsr-rag-chunks``, K1 / K2 per
+   request equal to the steps'; the route p50 / p99 with the plugin and
+   with none; the first 8 again on the CPU port over the same chunks
+   (the card's embeddings of them, three checked against the CPU's),
+   the same messages, decision and model.  16c: two replicas over one
+   ``MiniRedis`` with ``ann.enabled`` and ``share.cache``: similarity
+   owned by the ANN plane, a write on A found similar on B after one
+   sync, no lookup failing with the store stopped and
+   ``llm_ann_local_fallback`` stamped, the replicas converging again
+   after a restart; lookup ms exact and similar.  16d: the port's
+   ``MiniQdrant`` and ``MiniMilvus`` on 127.0.0.1: a vector store, a
+   semantic cache and a memory store on each with the card's
+   embeddings, their hits equal to the CPU port's.  Then the cuda-marked
+   tests of ``tests/test_torch_retrieval_cuda.py`` run in a pytest
+   process.
+
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13, 14 and 15), ``nvidia-smi``'s name and power limit, and then
+13, 14, 15 and 16), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -7990,6 +8020,617 @@ def phase_stateplane(modules3: dict, modules5: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 16: the retrieval plane ------------------------------------------
+
+RT_DIM = MODERNBERT_BASE["hidden_size"]  # phase 5's embedding width
+RT_SIZES = (1 << 16, 1 << 20)            # rows; 1 << 20 = max_capacity
+RT_MODES = ("f32", "bf16", "int8")
+RT_QUERIES = 64
+RT_K = 8
+RT_Q_ROWS = (1, 16, 64)
+RT_SCORE_TOL = 1e-5      # card against the CPU port (and the f32 oracle)
+RT_TIE = 1e-5            # a score gap under this is a near tie
+RT_RECALL_FLOOR = 0.95   # the 16a banks' ann.recall_floor (0.99 default)
+RT_CLUSTER = 16          # rows a cluster
+RT_SPREAD = 0.01         # per-dimension spread of a cluster's rows
+N_RT_DOCS = 256
+N_RT_REQUESTS = 32
+N_RT_CPU = 8             # 16b requests routed again on the CPU port
+RT_TOP_K = 3
+RT_STORE = "corpus"
+RT_EMBED_TOL = 1e-4      # embeddings and store scores, card against CPU
+RT_NS = "p16"
+_RT_TOPICS = ("invoice", "vaccine", "compiler", "merger", "clinic",
+              "kernel", "budget", "audit")
+
+
+def rt_rows(n: int, seed: int) -> np.ndarray:
+    """``n`` seeded unit rows of RT_DIM in clusters of RT_CLUSTER
+    near-duplicates (cosine ~0.93 within a cluster, ~0 across), in a
+    seeded order: the geometry a semantic cache holds.  Drawn by torch's
+    generator on the host (threaded)."""
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.randn((max(1, n // RT_CLUSTER), RT_DIM), generator=g)
+    centers /= centers.norm(dim=1, keepdim=True)
+    rows = centers[torch.randperm(n, generator=g) // RT_CLUSTER]
+    rows += RT_SPREAD * torch.randn((n, RT_DIM), generator=g)
+    rows /= rows.norm(dim=1, keepdim=True)
+    return rows.numpy()
+
+
+def rt_queries(rows: np.ndarray, seed: int) -> np.ndarray:
+    """RT_QUERIES perturbed bank rows (a cache's probes), one an exact
+    copy of a row."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(rows), RT_QUERIES, replace=False)
+    q = rows[idx] + 0.02 * rng.standard_normal((RT_QUERIES, RT_DIM),
+                                                dtype=np.float32)
+    q[0] = rows[idx[0]]
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def _rt_agree(tag: str, got_s, got_i, want_s, want_i) -> int:
+    """The card's top-k against a reference: scores within RT_SCORE_TOL
+    at every rank, slots equal except inside a near tie of the
+    reference's (the near ties counted and returned)."""
+    err = float(np.abs(got_s - want_s).max())
+    check(err <= RT_SCORE_TOL, f"{tag}: scores differ by {err:.3g}")
+    gaps = np.abs(np.diff(want_s, axis=1)) < RT_TIE
+    near = np.zeros_like(want_i, bool)
+    near[:, 1:] |= gaps
+    near[:, :-1] |= gaps
+    near[:, -1] = True  # the k+1-th score is not seen
+    bad = (got_i != want_i) & ~near
+    check(not bad.any(), f"{tag}: {int(bad.sum())} slots differ outside a "
+                         f"near tie")
+    for row in got_i:
+        check(len(set(row.tolist())) == len(row), f"{tag}: a slot twice")
+    return int((got_i != want_i).sum())
+
+
+def rt_bank(n: int, smi: str) -> dict:
+    """16a at one bank size: one host store published in each mode on the
+    card; 64 queries at k 8 against the CPU port's program on the same
+    rows (and, at f32, a numpy brute-force oracle); publish seconds, the
+    recall gate, the top-k step at q_rows 1 / 16 / 64 in CUDA-event ms
+    against the bank's bytes over 3.35 TB/s, and the card's bytes."""
+    from semantic_router_tpu_torch.ann import DeviceBank, TopKPrograms
+    from semantic_router_tpu_torch.ann.bank import place_view
+
+    t0 = time.perf_counter()
+    rows = rt_rows(n, SEED + n % 997)
+    queries = rt_queries(rows, SEED + 16)
+    bank = DeviceBank(dim=RT_DIM, min_capacity=1024, max_capacity=1 << 20,
+                      recall_floor=RT_RECALL_FLOOR, name=f"bank{n}",
+                      device=DEVICE)
+    bank.extend([f"r{i}" for i in range(n)], rows)
+    del rows
+    dense, valid, ids = bank.snapshot()
+    made_s = time.perf_counter() - t0
+    # the f32 oracle: numpy brute force over the same host rows
+    t0 = time.perf_counter()
+    oracle = queries @ dense.T
+    top = np.argpartition(-oracle, RT_K, axis=1)[:, :RT_K]
+    order = np.argsort(-np.take_along_axis(oracle, top, 1), axis=1,
+                       kind="stable")
+    oracle_i = np.take_along_axis(top, order, 1)
+    oracle_s = np.take_along_axis(oracle, oracle_i, 1)
+    del oracle
+    out: dict = {"rows": n, "card": smi, "made_s": made_s,
+                 "oracle_s": time.perf_counter() - t0,
+                 "recall_floor": RT_RECALL_FLOOR, "modes": {}}
+    programs = TopKPrograms()
+    for mode in RT_MODES:
+        bank.configure(mode=mode)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        view = bank.publish()
+        torch.cuda.synchronize()
+        publish_s = time.perf_counter() - t0
+        check(view.mode == mode and not view.quant_fallback,
+              f"16a {n} {mode}: the view published as {view.mode} "
+              f"(recall {view.recall}, floor {bank.recall_floor})")
+        held = view.qbank if mode == "int8" else view.bank_t
+        check(held is not None and held.is_cuda
+              and tuple(held.shape) == (RT_DIM, view.tier),
+              f"16a {n} {mode}: the bank is not [D, tier] on the card")
+        card_s, card_i = programs.run(view, queries, RT_K)
+        t0 = time.perf_counter()
+        cpu_view = place_view(dense, valid, ids, view.tier, mode,
+                              torch.device("cpu"))
+        cpu_s, cpu_i = TopKPrograms().run(cpu_view, queries, RT_K)
+        cpu_ref_s = time.perf_counter() - t0
+        del cpu_view
+        ties = _rt_agree(f"16a {n} {mode} (CPU port)", card_s, card_i,
+                         cpu_s, cpu_i)
+        row = {"publish_s": publish_s, "cpu_ref_s": cpu_ref_s,
+               "recall": view.recall,
+               "tier": view.tier, "near_ties_cpu": ties,
+               "view_bytes": view.nbytes(),
+               "allocated_bytes": torch.cuda.memory_allocated(),
+               "view_allocated_bytes": torch.cuda.memory_allocated() - base}
+        if mode == "f32":
+            row["near_ties_oracle"] = _rt_agree(
+                f"16a {n} f32 (numpy oracle)", card_s, card_i, oracle_s,
+                oracle_i)
+        bank_bytes = float(view.nbytes())
+        for nq in RT_Q_ROWS:
+            fn, qb, kk, _ = programs.program(view, nq, RT_K)
+            qdev = torch.from_numpy(np.ascontiguousarray(
+                queries[:qb])).to(DEVICE)
+            row[f"q{nq}_ms"] = cuda_ms(lambda: fn(view, qdev), iters=10)
+            row[f"q{nq}_bound_ms"] = bound_ms(
+                bank_bytes + qb * RT_DIM * 4 + qb * kk * 12,
+                2.0 * qb * RT_DIM * view.tier,
+                torch.float32 if mode == "f32" else torch.bfloat16)[0]
+        out["modes"][mode] = row
+        print(f"phase 16a bank: {n} rows {mode}: " + json.dumps(row),
+              flush=True)
+        del view, held
+    if n == RT_SIZES[0]:
+        # the gate at the reference's strictest floor: a quantized view
+        # that misses it publishes f32, stamped
+        bank.recall_floor = 1.0
+        bank.configure(mode="int8")
+        view = bank.publish()
+        fell = view.recall < 1.0
+        check(view.quant_fallback == fell
+              and view.mode == ("f32" if fell else "int8"),
+              f"16a {n}: recall {view.recall} at floor 1.0 published "
+              f"{view.mode}, fallback {view.quant_fallback}")
+        out["floor_1_int8"] = {"recall": view.recall, "mode": view.mode,
+                               "quant_fallback": view.quant_fallback}
+        del view
+    del bank, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def rt_docs() -> list:
+    """N_RT_DOCS seeded documents (name, text, source): four sentences of
+    ten words each, over one topic word and the shared vocabulary."""
+    docs = []
+    for i in range(N_RT_DOCS):
+        topic = _RT_TOPICS[i % len(_RT_TOPICS)]
+        sents = [f"The {topic} note {i} says {_words(6, SEED + 40 * i + j)}."
+                 for j in range(4)]
+        docs.append((f"doc-{i:03d}", " ".join(sents), f"src-{i:03d}"))
+    return docs
+
+
+def rt_requests() -> list:
+    """N_RT_REQUESTS questions about the corpus."""
+    return [f"What does the {_RT_TOPICS[i % len(_RT_TOPICS)]} note "
+            f"{(37 * i) % N_RT_DOCS} say about {_words(4, SEED + 900 + i)}?"
+            for i in range(N_RT_REQUESTS)]
+
+
+def rt_config(rag: bool = True) -> dict:
+    """Phase 3's router with the ANN plane on, vector stores on its bank,
+    and (with ``rag``) the ``rag`` plugin on every decision."""
+    d = copy.deepcopy(ROUTER_CONFIG)
+    d["ann"] = {"enabled": True, "compact_interval_s": 3600.0}
+    d["vectorstore"] = {"backend": "ann"}
+    if rag:
+        for dec in d["routing"]["decisions"]:
+            dec["plugins"] = [{"type": "rag", "configuration": {
+                "store": RT_STORE, "top_k": RT_TOP_K, "max_chars": 1200}}]
+    return d
+
+
+class _RTRouter:
+    """A router over ``engine`` with its own registry (its route timed),
+    and with ``serve`` its HTTP server over ``backend_url``."""
+
+    def __init__(self, cfg: dict, engine, backend_url: str = "",
+                 serve: bool = True) -> None:
+        self.engine = engine
+        self.registry = RuntimeRegistry.isolated(runtimestats=None)
+        self.router = build_router(load_config(cfg), engine,
+                                   registry=self.registry)
+        self.server = RouterServer(self.router, backend_url,
+                                   registry=self.registry).start() \
+            if serve else None
+        self.route_ms: list = []
+        inner = self.router.route
+
+        def route(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.route_ms.append((time.perf_counter() - t0) * 1e3)
+
+        self.router.route = route
+
+    def close(self) -> None:
+        from semantic_router_tpu_torch.runtime import close_ann
+
+        if self.server is not None:
+            self.server.stop()
+        self.router.shutdown()
+        close_ann(self.registry)
+        close_stateplane(self.registry)
+
+
+def rt_rag(engine, cpu, smi: str) -> dict:
+    """16b: a store made through ``POST /v1/vector_stores`` on the ``ann``
+    backend, the corpus ingested through ``/files`` (each chunk embedded
+    through K1), 32 requests through the rag decisions (the backend sees
+    the context message and the header; K1 / K2 per request equal to the
+    steps'), route p50 / p99 with the plugin and with none; the first 8
+    again on the CPU port over the same chunks."""
+    from semantic_router_tpu_torch.router import headers as H
+
+    seen: list = []
+
+    def content(body):
+        seen.append(body)
+        return "ok"
+
+    backend = MockVLLMServer(content_fn=content).start()
+    rag = _RTRouter(rt_config(), engine, backend.url)
+    plain = _RTRouter(rt_config(rag=False), engine, backend.url)
+    cpu_r = None
+    out: dict = {"card": smi}
+    try:
+        url = rag.server.url
+        status, _, reply = _json_call(url, "POST", "/v1/vector_stores",
+                                      {"name": RT_STORE})
+        check(status == 200 and reply == {"id": RT_STORE},
+              f"16b: creating the store answered {status} {reply}")
+        docs = rt_docs()
+        k1_0 = _cuda.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        chunks = 0
+        for name, text, src in docs:
+            status, _, reply = _json_call(
+                url, "POST", f"/v1/vector_stores/{RT_STORE}/files",
+                {"name": name, "text": text, "metadata": {"source": src}})
+            check(status == 200, f"16b: ingesting {name} answered {status}")
+            chunks += reply["chunks"]
+        ingest_s = time.perf_counter() - t0
+        k1_ingest = _cuda.launch_counts()["flash_attention"] - k1_0
+        n_layers = MODERNBERT_BASE["num_hidden_layers"]
+        check(k1_ingest == chunks * n_layers,
+              f"16b: ingest launched K1 {k1_ingest} times for {chunks} "
+              f"chunks of {n_layers} layers")
+        store = rag.router.vectorstores.get(RT_STORE)
+        store.index.flush()  # the maintenance cycle, now: onto the bank
+        rep = store.index.bank.report()
+        check(rep["entries"] == chunks and store.index.bank.view()
+              .bank_t.is_cuda, f"16b: the bank holds {rep['entries']} of "
+                               f"{chunks} chunks")
+        status, _, listed = _json_call(url, "GET", "/v1/vector_stores")
+        check(status == 200 and listed["data"][0]["chunks"] == chunks,
+              f"16b: GET /v1/vector_stores answered {status} {listed}")
+        # the CPU port embeds a few documents: the card's chunk embeddings
+        # must agree
+        card_emb = {c.text: c.embedding for c in store.chunks.values()}
+        probe = [docs[i][1] for i in (0, 77, 255)]
+        want = cpu.embed(EMBED_TASK, probe)
+        emb_err = max(float(np.abs(card_emb[t] - w).max())
+                      for t, w in zip(probe, want))
+        check(emb_err <= RT_EMBED_TOL, f"16b: the card's chunk embeddings "
+                                       f"differ from the CPU port's by "
+                                       f"{emb_err:.3g}")
+        rows = []
+        for i, q in enumerate(rt_requests()):
+            body = {"model": "auto",
+                    "messages": [{"role": "user", "content": q}]}
+            l0 = _cuda.launch_counts()
+            s0 = len(engine.steps())
+            n0 = len(seen)
+            res = _chat_call(url, "/v1/chat/completions", body)
+            l1 = _cuda.launch_counts()
+            pred = _predicted_launches(engine.steps()[s0:])
+            h = res["headers"]
+            check(res["status"] == 200 and len(seen) == n0 + 1,
+                  f"16b: request {i} answered {res['status']}")
+            sent = seen[n0]["messages"]
+            check(sent[0]["role"] == "system" and sent[0]["content"]
+                  .startswith("Relevant context:\n["),
+                  f"16b: request {i} reached the backend without context")
+            check(backend.headers_seen[-1].get(H.RAG_CHUNKS)
+                  == str(RT_TOP_K), f"16b: request {i}: the backend saw "
+                                    f"{H.RAG_CHUNKS} "
+                  f"{backend.headers_seen[-1].get(H.RAG_CHUNKS)}")
+            k1 = l1["flash_attention"] - l0["flash_attention"]
+            k2 = l1["head_epilogue"] - l0["head_epilogue"]
+            check((k1, k2) == (pred["flash_attention"],
+                               pred["head_epilogue"]),
+                  f"16b: request {i}: K1 / K2 {k1} / {k2}, the steps "
+                  f"predict {pred}")
+            rows.append({"decision": h.get("x-vsr-selected-decision"),
+                         "model": h.get("x-vsr-selected-model"),
+                         "messages": sent, "k1": k1, "k2": k2})
+        for i, q in enumerate(rt_requests()):
+            res = _chat_call(plain.server.url, "/v1/chat/completions",
+                             {"model": "auto", "messages": [
+                                 {"role": "user", "content": q}]})
+            check(res["status"] == 200, f"16b: plain request {i} answered "
+                                        f"{res['status']}")
+        # the CPU port: the same chunks (the card's embeddings of them; a
+        # full-width CPU forward per chunk would take minutes), each query
+        # embedded on the CPU
+        cpu_r = _RTRouter(rt_config(), cpu, serve=False)
+        cpu_store = cpu_r.router.vectorstores.create(RT_STORE)
+        cpu_store.embed_fn = lambda t: card_emb[t] if t in card_emb \
+            else cpu.embed(EMBED_TASK, [t])[0]
+        for name, text, src in docs:
+            cpu_store.ingest(name, text, metadata={"source": src})
+        cpu_store.index.flush()
+        for i, q in enumerate(rt_requests()[:N_RT_CPU]):
+            r = cpu_r.router.route({"model": "auto", "messages": [
+                {"role": "user", "content": q}]}, {})
+            got = {"decision": r.decision.decision.name if r.decision
+                   else None, "model": r.model,
+                   "messages": r.body["messages"]}
+            want = {k: rows[i][k] for k in got}
+            check(got == want, f"16b: request {i} on the CPU port: "
+                               f"{json.dumps(got)[:400]} against the "
+                               f"card's {json.dumps(want)[:400]}")
+        out.update({
+            "docs": len(docs), "chunks": chunks, "ingest_s": ingest_s,
+            "k1_ingest": k1_ingest, "chunk_embed_err": emb_err,
+            "requests": len(rows), "cpu_requests": N_RT_CPU,
+            "decisions": dict(collections.Counter(
+                r["decision"] for r in rows)),
+            "k1_per_request": sorted({r["k1"] for r in rows}),
+            "k2_per_request": sorted({r["k2"] for r in rows}),
+            "route_ms": {"p50": _pct(rag.route_ms, 0.5),
+                         "p99": _pct(rag.route_ms, 0.99)},
+            "route_ms_no_plugin": {"p50": _pct(plain.route_ms, 0.5),
+                                   "p99": _pct(plain.route_ms, 0.99)}})
+        check('llm_ann_lookups_total{index="vs:corpus",path="device"}'
+              in rag.registry.metrics.expose(),
+              "16b: the store's lookups never took the device path")
+    finally:
+        for r in (rag, plain, cpu_r):
+            if r is not None:
+                r.close()
+        backend.stop()
+    print("phase 16b rag: " + json.dumps(out), flush=True)
+    return out
+
+
+def rt_cache_config(port: int, replica: str, threshold: float) -> dict:
+    """Phase 3's router with a semantic-cache plugin, the state plane on
+    the RESP store at ``port`` sharing the cache, and the ANN plane owning
+    its similarity."""
+    d = copy.deepcopy(ROUTER_CONFIG)
+    for dec in d["routing"]["decisions"]:
+        dec["plugins"] = [{"type": "semantic-cache"}]
+    d["semantic_cache"] = {"enabled": True, "backend_type": "memory",
+                           "use_hnsw": False,
+                           "similarity_threshold": threshold}
+    d["stateplane"] = {
+        "enabled": True, "backend": "resp",
+        "backend_config": {"host": "127.0.0.1", "port": port},
+        "replica_id": replica, "namespace": RT_NS, "heartbeat_s": 0.5,
+        "cooldown_s": 0.2, "share": {"cache": True, "explain": False,
+                                     "fleet": False}}
+    d["ann"] = {"enabled": True, "compact_interval_s": 3600.0,
+                "sync_interval_s": 0.05, "share": {"cache": True}}
+    return d
+
+
+def rt_cache(engine, smi: str) -> dict:
+    """16c: two replicas over one MiniRedis with the ANN plane owning the
+    shared cache's similarity: a write on A found similar on B after one
+    sync; with the store stopped no lookup fails and the fallback is
+    stamped; restarted, the replicas converge again."""
+    prompts = [PROMPTS[0], PROMPTS[2], PROMPTS[6], EMBED_PROMPTS[5]]
+    para = [p + " Thanks." for p in prompts]
+    embs = engine.embed(EMBED_TASK, prompts + para)
+    sims = [float(embs[i] @ embs[len(prompts) + i])
+            for i in range(len(prompts))]
+    threshold = min(sims) - 0.01
+    mini = MiniRedis().start()
+    reps = []
+    out: dict = {"card": smi, "threshold": threshold}
+    try:
+        reps = [_RTRouter(rt_cache_config(mini.port, n, threshold), engine,
+                          serve=False) for n in ("ann-a", "ann-b")]
+        a, b = (r.router.cache for r in reps)
+        planes = [r.registry.get("ann") for r in reps]
+        check(a.similarity_owner() == b.similarity_owner() == "ann",
+              f"16c: similarity owned by {a.similarity_owner()} / "
+              f"{b.similarity_owner()}")
+        exact_ms, similar_ms = [], []
+        for p in prompts[:2]:
+            a.add(p, f"answer to {p[:20]}", model="qwen3-8b")
+        indexes = [pl.index("cache") for pl in planes]
+        index_b = indexes[1]
+        index_b.sync.sync_once()   # one sync: A's rows into B's index
+        index_b.flush()            # promoted onto B's bank, published
+        view = index_b.bank.view()
+        check(view is not None and view.bank_t.is_cuda
+              and view.n_valid == 2,
+              "16c: B's cache index holds no view of A's rows on the card")
+        stored = embs[:2]
+        for i, p in enumerate(prompts[:2]):
+            t0 = time.perf_counter()
+            hit = b.find_similar(p)
+            exact_ms.append((time.perf_counter() - t0) * 1e3)
+            check(hit is not None and hit.query == p,
+                  f"16c: B missed A's exact entry {i}")
+            # the stored entry nearest the paraphrase (on the card's
+            # embeddings) is the hit
+            nearest = prompts[int(np.argmax(stored
+                                            @ embs[len(prompts) + i]))]
+            t0 = time.perf_counter()
+            hit = b.find_similar(para[i])
+            similar_ms.append((time.perf_counter() - t0) * 1e3)
+            check(hit is not None and hit.query == nearest,
+                  f"16c: B's similar lookup {i} found "
+                  f"{getattr(hit, 'query', None)!r}, not {nearest!r}")
+        check('llm_ann_lookups_total{index="cache",path="device"}'
+              in reps[1].registry.metrics.expose(),
+              "16c: B's lookups never took the device path")
+        port = mini.port
+        mini.stop()
+        for pl, idx in zip(planes, indexes):
+            idx.sync.sync_once()
+            pl.maintain_once()
+        failed = 0
+        for r in reps:
+            for p in para:
+                try:
+                    r.router.cache.find_similar(p)
+                    res = r.router.route({"model": "auto", "messages": [
+                        {"role": "user", "content": p}]}, {})
+                    failed += res.kind not in ("route", "cache_hit")
+                except Exception:
+                    failed += 1
+        check(failed == 0, f"16c: {failed} lookups failed with the store "
+                           f"down")
+        stamped = [('llm_ann_local_fallback 1' in r.registry.metrics
+                    .expose()) for r in reps]
+        check(all(stamped), f"16c: llm_ann_local_fallback stamped {stamped}")
+        mini = MiniRedis(port=port).start()
+        t0 = time.perf_counter()
+        converged = None
+        while time.perf_counter() - t0 < 10.0:
+            a.add(prompts[2], "after the restart", model="qwen3-8b")
+            for pl, idx in zip(planes, indexes):
+                idx.sync.sync_once()
+                pl.maintain_once()
+            hit = b.find_similar(prompts[2])
+            if hit is not None and hit.response == "after the restart":
+                converged = time.perf_counter() - t0
+                break
+            time.sleep(0.1)
+        check(converged is not None, "16c: the replicas did not converge "
+                                     "after the restart")
+        cleared = [('llm_ann_local_fallback 0' in r.registry.metrics
+                    .expose()) for r in reps]
+        check(all(cleared), f"16c: the fallback still stamped {cleared}")
+        out.update({"similarities": sims, "exact_ms": exact_ms,
+                    "similar_ms": similar_ms, "reconverged_s": converged,
+                    "bank_view_rows": view.n_valid})
+    finally:
+        for r in reps:
+            r.close()
+        mini.stop()
+    print("phase 16c cache: " + json.dumps(out), flush=True)
+    return out
+
+
+def rt_external(engine, cpu, smi: str) -> dict:
+    """16d: the port's MiniQdrant and MiniMilvus on 127.0.0.1; the vector
+    store, the semantic cache and the memory store round-trip on each
+    with the card's embeddings, and give the CPU port's hits."""
+    from semantic_router_tpu_torch.cache.semantic_cache import build_cache
+    from semantic_router_tpu_torch.config.schema import SemanticCacheConfig
+    from semantic_router_tpu_torch.memory.ann_store import \
+        MilvusMemoryStore, QdrantMemoryStore
+    from semantic_router_tpu_torch.state.milvus import MiniMilvus
+    from semantic_router_tpu_torch.state.qdrant import MiniQdrant
+    from semantic_router_tpu_torch.vectorstore import VectorStoreManager
+
+    memo: dict = {}
+
+    def embed_on(eng, tag):
+        def fn(text):
+            key = (tag, text)
+            if key not in memo:
+                memo[key] = eng.embed(EMBED_TASK, [text])[0]
+            return memo[key]
+        return fn
+
+    docs = rt_docs()[:8]
+    queries = rt_requests()[:4]
+    facts = ["I live in Lisbon.", "I prefer short answers.",
+             "I work at the clinic.", "I am allergic to peanuts."]
+    servers = {"qdrant": MiniQdrant(), "milvus": MiniMilvus()}
+    out: dict = {"card": smi}
+    try:
+        for kind, srv in servers.items():
+            sides = {}
+            for tag, eng in (("card", engine), ("cpu", cpu)):
+                embed = embed_on(eng, tag)
+                prefix = f"p16_{tag}_"
+                mgr = VectorStoreManager(embed, backend=kind, backend_config={
+                    "url": srv.url, "collection_prefix": prefix})
+                store = mgr.create("kb")
+                for name, text, src in docs:
+                    store.ingest(name, text, metadata={"source": src})
+                vs = [[(h.chunk.metadata.get("source"), h.score)
+                       for h in store.search(q, top_k=3)] for q in queries]
+                cache = build_cache(SemanticCacheConfig(
+                    enabled=True, backend_type=kind,
+                    similarity_threshold=0.9,
+                    backend_config={"base_url": srv.url,
+                                    "collection": f"{prefix}cache"}), embed)
+                for i, q in enumerate(queries[:2]):
+                    cache.add(q, f"answer {i}", model="qwen3-8b")
+                hits = [getattr(cache.find_similar(q), "response", None)
+                        for q in queries]
+                mem_cls = QdrantMemoryStore if kind == "qdrant" \
+                    else MilvusMemoryStore
+                mem = mem_cls(embed, base_url=srv.url,
+                              collection=f"{prefix}memory")
+                for f in facts:
+                    mem.remember("u16", f)
+                recalled = [[i.text for i in mem.search("u16", q, limit=2)]
+                            for q in ("where do I live", "food allergy")]
+                sides[tag] = {"vectorstore": vs, "cache": hits,
+                              "memory": recalled}
+                check(mgr.delete("kb"), f"16d {kind}: the store was not "
+                                        f"dropped")
+            card, cpu_side = sides["card"], sides["cpu"]
+            for qi, (got, want) in enumerate(zip(card["vectorstore"],
+                                                 cpu_side["vectorstore"])):
+                check([s for s, _ in got] == [s for s, _ in want]
+                      and all(abs(a - b) <= RT_EMBED_TOL for (_, a), (_, b)
+                              in zip(got, want)),
+                      f"16d {kind}: query {qi} hits {got} on the card, "
+                      f"{want} on the CPU port")
+            check(card["cache"] == cpu_side["cache"]
+                  and card["cache"][:2] == ["answer 0", "answer 1"],
+                  f"16d {kind}: cache {card['cache']} / {cpu_side['cache']}")
+            check(card["memory"] == cpu_side["memory"],
+                  f"16d {kind}: memory {card['memory']} / "
+                  f"{cpu_side['memory']}")
+            out[kind] = card
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    print("phase 16d external: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_retrieval(modules3: dict, modules5: dict, smi: str) -> dict:
+    """Phase 16: 16a the bank at 65 536 and 1 048 576 rows in each mode,
+    16b the RAG route, 16c the ANN-backed shared cache, 16d the external
+    stores, then the cuda tests of ``tests/test_torch_retrieval_cuda.py``."""
+    t0 = time.perf_counter()
+    out: dict = {"card": smi, "bank": [rt_bank(n, smi) for n in RT_SIZES]}
+    out["bank_s"] = time.perf_counter() - t0
+    cfg = load_config(rt_config())
+    engine = sp_engine(DEVICE, cfg, modules3["cuda"], modules5["cuda"])
+    engine.warmup()
+    cpu = sp_engine("cpu", cfg, modules3["cpu"], modules5["cpu"])
+    _cuda.reset_launch_counts()
+    try:
+        stamp("phase 16b: rag route")
+        out["rag"] = rt_rag(engine, cpu, smi)
+        stamp("phase 16c: ann cache")
+        out["cache"] = rt_cache(engine, smi)
+        stamp("phase 16d: external stores")
+        out["external"] = rt_external(engine, cpu, smi)
+        out["launches"] = _cuda.launch_counts()
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    out["cuda_tests"] = run_cuda_tests("test_torch_retrieval_cuda.py", 5)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16: {out['seconds']:.1f} s | {smi}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8056,6 +8697,9 @@ def main(argv=None) -> int:
     stamp("phase 15: state plane")
     sp = report["stateplane"] = phase_stateplane(modules3, modules5,
                                                  dev["smi"])
+    stamp("phase 16: retrieval")
+    rt = report["retrieval"] = phase_retrieval(modules3, modules5,
+                                               dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -8081,15 +8725,19 @@ def main(argv=None) -> int:
             # phases' bank and embedding model, the gates phase's
             # trunks, the models phase's intent bank, the multimodal
             # phase's bank and embedding model and the state plane
-            # phase's replicas' banks and embedding models; K2 in the
+            # phase's replicas' banks and embedding models and the
+            # retrieval phase's bank and embedding model (ingest, RAG
+            # queries, cache probes, the external stores); K2 in the
             # serve, fixture, respond, observe, gates, chat, models,
-            # multimodal and state plane banks and under every quant mode
+            # multimodal, state plane and retrieval banks and under
+            # every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
             + gates["launches"][kname] + res["launches"][kname]
             + chat["launches"][kname] + models["launches"][kname]
             + mm["launches"][kname] + sp["launches"][kname]
+            + rt["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

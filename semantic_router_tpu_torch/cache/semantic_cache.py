@@ -221,7 +221,8 @@ def build_cache(cfg, embed_fn: Callable[[str], np.ndarray]):
     and ``hybrid`` are in-process; ``redis`` / ``valkey`` is the
     ``RedisSemanticCache`` over the RESP client (its ``backend_config``:
     host, port, db, password, key_prefix); ``qdrant`` and ``milvus`` are
-    not served by this port yet."""
+    the external ANN stores of ``cache.ann_cache`` (``backend_config``:
+    base_url, api_key / token, db_name, collection)."""
     if not cfg.enabled:
         return None
     if cfg.backend_type in ("memory", "hnsw", "hybrid"):
@@ -247,10 +248,31 @@ def build_cache(cfg, embed_fn: Callable[[str], np.ndarray]):
             similarity_threshold=cfg.similarity_threshold,
             ttl_seconds=cfg.ttl_seconds,
         )
-    if cfg.backend_type in ("qdrant", "milvus"):
-        raise ValueError(f"cache backend {cfg.backend_type!r} is not served "
-                         f"by this port yet (memory|hnsw|hybrid|redis|"
-                         f"valkey)")
+    if cfg.backend_type == "qdrant":
+        from .ann_cache import QdrantSemanticCache
+
+        bc = cfg.backend_config or {}
+        return QdrantSemanticCache(
+            embed_fn,
+            base_url=bc.get("base_url", "http://127.0.0.1:6333"),
+            api_key=str(bc.get("api_key", "")),
+            collection=bc.get("collection", "vsr_cache"),
+            similarity_threshold=cfg.similarity_threshold,
+            ttl_seconds=cfg.ttl_seconds,
+        )
+    if cfg.backend_type == "milvus":
+        from .ann_cache import MilvusSemanticCache
+
+        bc = cfg.backend_config or {}
+        return MilvusSemanticCache(
+            embed_fn,
+            base_url=bc.get("base_url", "http://127.0.0.1:19530"),
+            token=str(bc.get("token", "")),
+            db_name=bc.get("db_name", "default"),
+            collection=bc.get("collection", "vsr_cache"),
+            similarity_threshold=cfg.similarity_threshold,
+            ttl_seconds=cfg.ttl_seconds,
+        )
     raise ValueError(f"unsupported cache backend {cfg.backend_type!r} "
                      f"(backends: memory|hnsw|hybrid|redis|valkey|"
                      f"qdrant|milvus)")

@@ -15,10 +15,11 @@ semantic cache, the ``memory`` and ``tool_selection`` blocks, the
 metrics, flight recorder, runtime and program stats, decision records),
 the request gates (``ratelimit``, ``skip_processing``,
 ``prompt_compression``) and the named routing profiles (``recipes``)
-with the virtual model names that select them (``entrypoints``).  A
-canonical
-``global:`` block is lifted to the top level first, as the reference
-does.  Other blocks of a config file are not read; the options the
+with the virtual model names that select them (``entrypoints``), the
+shared state plane (``stateplane``), the vector stores (``vectorstore``)
+and the on-device ANN plane (``ann``).  A canonical ``global:`` block
+is lifted to the top level first, as the reference does.  Other blocks
+of a config file are not read; the options the
 reference serves and the port does not yet (``refuse_unported``) are
 refused at load, never served as if absent.
 """
@@ -938,8 +939,6 @@ UNPORTED = {
 # when enabled (``enabled: true``, or a non-empty block or list without an
 # ``enabled`` switch), as the reference's default leaves each off
 UNPORTED_BLOCKS = {
-    "ann": "the on-device ANN plane",
-    "vectorstore": "vector stores",
     "mcp": "MCP classifiers",
     "external_models": "external models",
     "router_replay": "router replay",
@@ -998,13 +997,16 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
     observability sub-blocks this port does not serve (fleet-scoped SLO
     objectives, the fleet observability plane, OTLP export, a durable
-    decision store other than SQLite), a qdrant / milvus memory store, a
-    ``response_store`` backend outside ``RESPONSE_STORE_BACKENDS``, an
-    enabled ``rag`` plugin (the retrieval plane is not ported; an
-    ``image_generation`` plugin is served), a selector
+    decision store other than SQLite), a ``response_store`` backend
+    outside ``RESPONSE_STORE_BACKENDS``, the ANN bank's row sharding
+    (``ann.mesh``), the Llama-Stack vector store
+    (``vectorstore.backend: llamastack``), the Postgres store registry
+    (``vectorstore.registry.backend: postgres``), a selector
     ``algorithm.artifact``.  The shared state plane (``stateplane``, its
-    fleet-shared ladder and upstream circuits) and the RESP-backed stores
-    are served."""
+    fleet-shared ladder and upstream circuits), the RESP-backed stores
+    and the retrieval plane (``ann`` on one device, ``vectorstore``, the
+    ``rag`` plugin, qdrant / milvus memory stores and caches) are
+    served."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
     for key, what in UNPORTED.items():
@@ -1049,10 +1051,20 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         raise ValueError(f"response_store.backend {store['backend']!r} is "
                          f"not served by this port yet "
                          f"({'|'.join(RESPONSE_STORE_BACKENDS)})")
-    backend = str((d.get("memory") or {}).get("backend", ""))
-    if backend in ("qdrant", "milvus"):
-        raise ValueError(f"memory backend {backend!r} is not served by "
-                         f"this port yet (\"\" or sqlite)")
+    ann = routing.get("ann", d.get("ann")) or {}
+    if isinstance(ann, dict) and ann.get("enabled") \
+            and _enabled(ann.get("mesh")):
+        raise ValueError("ann.mesh: the ANN bank's row sharding is not "
+                         "served by this port yet (one device)")
+    vs = routing.get("vectorstore", d.get("vectorstore")) or {}
+    if isinstance(vs, dict):
+        if str(vs.get("backend", "") or "") == "llamastack":
+            raise ValueError("vectorstore.backend 'llamastack' is not "
+                             "served by this port yet")
+        if str((vs.get("registry") or {}).get("backend", "") or "") \
+                == "postgres":
+            raise ValueError("vectorstore.registry.backend 'postgres' is "
+                             "not served by this port yet")
     decisions = list(routing.get("decisions", d.get("decisions", [])) or [])
     for rec in d.get("recipes", []) or []:
         rec = rec or {}
@@ -1065,11 +1077,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
             raise ValueError(f"decision {name!r}: selector artifacts "
                              f"(algorithm.artifact) are not served by "
                              f"this port yet")
-        for p in dec.get("plugins", []) or []:
-            if p.get("type") == "rag" and \
-                    PluginConfig.from_dict(p).enabled:
-                raise ValueError(f"decision {name!r}: the {p['type']} "
-                                 f"plugin is not served by this port yet")
 
 
 @dataclass
@@ -1091,7 +1098,8 @@ class RouterConfig:
     # passes
     authz: Dict[str, Any] = field(default_factory=dict)
     knowledge_bases: List[KnowledgeBaseDef] = field(default_factory=list)
-    # {backend: "" | sqlite, path}: the user-memory store
+    # {backend: "" | sqlite | qdrant | milvus, path, base_url, ...}: the
+    # user-memory store
     memory: Dict[str, Any] = field(default_factory=dict)
     # {tools: [...]}: the tools database of ``auto_select``
     tool_selection: Dict[str, Any] = field(default_factory=dict)
@@ -1124,6 +1132,11 @@ class RouterConfig:
     response_store: Dict[str, Any] = field(default_factory=dict)
     # the shared state plane, read through stateplane_config()
     stateplane: Dict[str, Any] = field(default_factory=dict)
+    # {backend: memory | sqlite | ann | stateplane | qdrant | milvus, path,
+    # backend_config}: the named vector stores the rag plugin searches
+    vectorstore: Dict[str, Any] = field(default_factory=dict)
+    # the on-device ANN plane, read through ann_config()
+    ann: Dict[str, Any] = field(default_factory=dict)
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -1169,6 +1182,8 @@ class RouterConfig:
             looper=dict(d.get("looper", {}) or {}),
             response_store=dict(d.get("response_store", {}) or {}),
             stateplane=dict(d.get("stateplane", {}) or {}),
+            vectorstore=dict(d.get("vectorstore", {}) or {}),
+            ann=dict(d.get("ann", {}) or {}),
             raw=d,
         )
 
@@ -1406,7 +1421,7 @@ class RouterConfig:
             cooldown_s: 2          # breaker reopen probe interval
             share:                 # which layers ride the plane
               cache: true
-              vectorstore: true    # (the vector store is not served)
+              vectorstore: true
               explain: true
               fleet: true          # fleet-aggregated shed ladder
 
@@ -1439,6 +1454,13 @@ class RouterConfig:
                         for k in ("cache", "vectorstore", "explain",
                                   "fleet")}
         return out
+
+    def ann_config(self) -> Dict[str, Any]:
+        """Normalized ``ann`` block: ``ann.knobs.normalize_ann`` is the
+        one interpretation point of the ANN plane's knobs."""
+        from ..ann.knobs import normalize_ann
+
+        return normalize_ann(self.ann)
 
     def decision_explain_config(self) -> Dict[str, Any]:
         """The per-request decision-record knobs: enabled, ring_size,

@@ -17,6 +17,7 @@ PII_VIOLATION = "x-vsr-pii-violation"
 JAILBREAK_BLOCKED = "x-vsr-jailbreak-blocked"
 INJECTED_SYSTEM_PROMPT = "x-vsr-injected-system-prompt"
 MEMORIES_USED = "x-vsr-memories-used"
+RAG_CHUNKS = "x-vsr-rag-chunks"
 TOOLS_INJECTED = "x-vsr-tools-injected"
 WARNINGS = "x-vsr-warnings"
 HALLUCINATION = "x-vsr-hallucination"

@@ -174,8 +174,11 @@ class Router:
     the engine's ``semantic_cache.embedding_model`` task
     (``EMBEDDING_TASK`` when that is empty), provided the engine serves
     it.  ``memory_store`` (None until bootstrap attaches one) backs the
-    ``memory`` plugin and the response path's auto-store.  ``metrics`` (a
-    MetricSeries), ``tracer``, ``flightrec`` and ``explain`` bind the
+    ``memory`` plugin and the response path's auto-store;
+    ``vectorstores`` (a ``VectorStoreManager``, None until bootstrap
+    attaches one) holds the named stores the ``rag`` plugin searches.
+    ``metrics`` (a MetricSeries), ``tracer``, ``flightrec`` and
+    ``explain`` bind the
     router's observability, ``resilience`` its degradation controller
     (None: the process defaults; the default controller stays disabled
     at L0 until bootstrap configures it).  ``upstream_health`` (None
@@ -260,6 +263,7 @@ class Router:
         # one selector per decision, built at its first request
         self._selectors: Dict[str, Any] = {}
         self.memory_store = None
+        self.vectorstores = None
 
     def skip_requested(self, headers: Dict[str, str]) -> bool:
         """True when skip-processing is enabled and the request asks for
@@ -769,8 +773,9 @@ class Router:
                                 ctx: RequestContext,
                                 result: RouteResult) -> None:
         """The decision's system prompt first (``replace`` / ``insert``
-        act on the original system message), then retrieved memories
-        ahead of it, then the tools."""
+        act on the original system message), then retrieved memories and
+        the RAG context ahead of it (the context first), then the
+        tools."""
         body = result.body
         sp = decision.plugin("system_prompt")
         if sp is not None and sp.enabled:
@@ -810,6 +815,29 @@ class Router:
                     result.headers[H.MEMORIES_USED] = str(len(items))
             except Exception:
                 log.warning("memory retrieval failed", exc_info=True)
+
+        # RAG: the configured store's hits as a system message, first
+        rag = decision.plugin("rag")
+        if rag is not None and rag.enabled \
+                and self.vectorstores is not None:
+            try:
+                conf = rag.configuration
+                store = self.vectorstores.get(conf.get("store", "default"))
+                if store is not None:
+                    from ..vectorstore.store import format_rag_context
+
+                    hits = store.search(
+                        ctx.user_text, top_k=int(conf.get("top_k", 4)),
+                        threshold=float(conf.get("threshold", 0.0)))
+                    context = format_rag_context(
+                        hits, max_chars=int(conf.get("max_chars", 4000)))
+                    if context:
+                        body["messages"] = (
+                            [{"role": "system", "content": context}]
+                            + list(body.get("messages", [])))
+                        result.headers[H.RAG_CHUNKS] = str(len(hits))
+            except Exception:
+                log.warning("rag retrieval failed", exc_info=True)
 
         tools = decision.plugin("tools") or decision.plugin("tool_selection")
         if tools is not None and tools.enabled:

@@ -78,6 +78,13 @@ with no API keys configured:
   GET|POST|DELETE /v1/memory       a user's memories (``user_id``)
   GET|DELETE /v1/memory/{id}       one memory; a DELETE without
                                    ``user_id`` finds its owner
+  GET|POST /v1/vector_stores       the named vector stores; create one
+  GET|DELETE /v1/vector_stores/{id}   a store's stats; drop it
+  POST /v1/vector_stores/{id}/search  hybrid search (``query``, ``top_k``,
+                                   ``threshold``)
+  GET|POST /v1/vector_stores/{id}/files  its documents; ingest one
+                                   (``name``, ``text``, ``metadata``)
+  DELETE /v1/vector_stores/{id}/files/{file_id}  one document
   GET  /info/models                every task: kind, labels, task_info
   GET  /startup-status             the boot's phases (``serve``)
   GET  /openapi.json, /docs        the OpenAPI document of the catalog
@@ -140,6 +147,7 @@ from ..config.schema import RouterConfig
 from ..looper import HTTPLLMClient, Looper
 from ..looper.workflows import WorkflowsLooper, build_workflow_state_store
 from ..observability.inflight import default_tracker
+from ..observability.logging import component_event
 from ..observability.profiler import XLA_DUMP_UNSUPPORTED
 from ..resilience.upstream import attempt_timeout, parse_deadline
 from . import headers as H
@@ -208,6 +216,14 @@ API_CATALOG = {"endpoints": [
         ("/v1/memory", "DELETE"),
         ("/v1/memory/{id}", "GET"),
         ("/v1/memory/{id}", "DELETE"),
+        ("/v1/vector_stores", "GET"),
+        ("/v1/vector_stores", "POST"),
+        ("/v1/vector_stores/{id}", "GET"),
+        ("/v1/vector_stores/{id}", "DELETE"),
+        ("/v1/vector_stores/{id}/search", "POST"),
+        ("/v1/vector_stores/{id}/files", "GET"),
+        ("/v1/vector_stores/{id}/files", "POST"),
+        ("/v1/vector_stores/{id}/files/{file_id}", "DELETE"),
     )]}
 
 # Classification API route name → engine task
@@ -429,6 +445,14 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, {"id": item.id, "text": item.text,
                                   "kind": item.kind,
                                   "user_id": item.user_id})
+        elif path == "/v1/vector_stores":
+            mgr = srv.router.vectorstores
+            names = mgr.list() if mgr is not None else []
+            self._reply(200, {"data": [
+                {"id": n, **(mgr.get(n).stats() if mgr.get(n) else {})}
+                for n in names]})
+        elif path.startswith("/v1/vector_stores/"):
+            self._vectorstore_get(path)
         elif path == "/debug/decisions":
             self._decisions(reg.explain)
         elif path.startswith("/debug/decisions/"):
@@ -445,6 +469,29 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, rec)
         else:
             self._reply(404, {"error": "not found"})
+
+    def _vectorstore_get(self, path: str) -> None:
+        mgr = self.server.owner.router.vectorstores
+        name = path.split("/")[3]
+        store = mgr.get(name) if mgr is not None else None
+        if store is None:
+            self._reply(404, {"error": "vector store not found"})
+        elif path.endswith("/files"):
+            if hasattr(store, "documents"):
+                docs = [{"id": d.id, "name": d.name,
+                         "chunks": len(d.chunk_ids)}
+                        for d in store.documents.values()]
+            else:  # server-side stores (qdrant, milvus) aggregate
+                docs = store.list_documents()
+            self._reply(200, {"data": docs})
+        else:
+            self._reply(200, {"id": name, **store.stats()})
+
+    def _audit(self, action: str) -> None:
+        """The reference's audit line for a management mutation (no API
+        keys are configured here, so the roles are empty)."""
+        component_event("audit", action, path=self.path.split("?", 1)[0],
+                        roles=[])
 
     def _decisions(self, ex) -> None:
         """Newest-first decision records, filtered by model / decision /
@@ -502,8 +549,10 @@ class _Handler(BaseHTTPRequestHandler):
             "/v1/chat/completions", "/v1/messages", "/v1/responses",
             "/api/v1/embeddings", "/api/v1/similarity",
             "/api/v1/similarity/batch", "/api/v1/eval", "/api/v1/nli",
-            "/v1/memory") \
-            or path.startswith("/api/v1/classify/")
+            "/v1/memory", "/v1/vector_stores") \
+            or path.startswith("/api/v1/classify/") \
+            or (path.startswith("/v1/vector_stores/")
+                and path.endswith(("/search", "/files")))
         if not known:
             self._reply(404, {"error": "not found"})
             return
@@ -529,6 +578,14 @@ class _Handler(BaseHTTPRequestHandler):
                 self._nli(body)
             elif path == "/v1/memory":
                 self._memory_create(body)
+            elif path == "/v1/vector_stores":
+                self._audit("vectorstore_create")
+                self._vectorstore_create(body)
+            elif path.endswith("/search"):
+                self._vectorstore_search(path.split("/")[3], body)
+            elif path.endswith("/files"):
+                self._audit("vectorstore_ingest")
+                self._vectorstore_ingest(path.split("/")[3], body)
             else:
                 self._similarity(body)
         except Exception as exc:
@@ -671,8 +728,52 @@ class _Handler(BaseHTTPRequestHandler):
                               kind=str(body.get("kind", "fact")))
         self._reply(200, {"id": item.id, "text": item.text})
 
+    def _vectorstore_create(self, body: dict) -> None:
+        mgr = self.server.owner.router.vectorstores
+        if mgr is None:
+            self._reply(503, {"error": "no vectorstore manager"})
+            return
+        name = str(body.get("name", ""))
+        if not name:
+            self._reply(400, {"error": "name required"})
+            return
+        try:
+            mgr.create(name)
+        except ValueError as exc:
+            self._reply(409, {"error": str(exc)})
+            return
+        self._reply(200, {"id": name})
+
+    def _vectorstore_search(self, name: str, body: dict) -> None:
+        mgr = self.server.owner.router.vectorstores
+        store = mgr.get(name) if mgr is not None else None
+        if store is None:
+            self._reply(404, {"error": "vector store not found"})
+            return
+        hits = store.search(str(body.get("query", "")),
+                            top_k=int(body.get("top_k", 5)),
+                            threshold=float(body.get("threshold", 0.0)))
+        self._reply(200, {"data": [
+            {"text": h.chunk.text, "score": round(h.score, 4),
+             "document_id": h.chunk.document_id,
+             "metadata": h.chunk.metadata} for h in hits]})
+
+    def _vectorstore_ingest(self, name: str, body: dict) -> None:
+        mgr = self.server.owner.router.vectorstores
+        if mgr is None:
+            self._reply(503, {"error": "no vectorstore manager"})
+            return
+        store = mgr.get(name) or mgr.get_or_create(name)
+        doc = store.ingest(str(body.get("name", "file")),
+                           str(body.get("text", "")),
+                           metadata=body.get("metadata"))
+        self._reply(200, {"id": doc.id, "chunks": len(doc.chunk_ids)})
+
     def do_DELETE(self):
         path = self.path.split("?", 1)[0]
+        if path.startswith("/v1/vector_stores/"):
+            self._vectorstore_delete(path)
+            return
         if not path.startswith("/v1/memory"):
             self._reply(404, {"error": "not found"})
             return
@@ -691,6 +792,22 @@ class _Handler(BaseHTTPRequestHandler):
             item = store.find_by_id(mid)
             user = item.user_id if item else ""
         ok = store.delete(user, mid) if user else False
+        self._reply(200 if ok else 404, {"deleted": bool(ok)})
+
+    def _vectorstore_delete(self, path: str) -> None:
+        """``/v1/vector_stores/{id}`` drops the store,
+        ``/v1/vector_stores/{id}/files/{file_id}`` one document."""
+        self._audit("vectorstore_delete")
+        mgr = self.server.owner.router.vectorstores
+        if mgr is None:
+            self._reply(503, {"error": "no vectorstore manager"})
+            return
+        parts = path.split("/")
+        if len(parts) >= 6 and parts[4] == "files":
+            store = mgr.get(parts[3])
+            ok = store.delete_document(parts[5]) if store else False
+        else:
+            ok = mgr.delete(parts[3])
         self._reply(200 if ok else 404, {"deleted": bool(ok)})
 
     # -- chat ----------------------------------------------------------------

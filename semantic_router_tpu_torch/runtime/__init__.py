@@ -1,13 +1,14 @@
-from .bootstrap import apply_cascade_knobs, apply_observability_knobs, \
-    apply_quant_knobs, apply_resilience_knobs, apply_stateplane_knobs, \
-    apply_upstream_knobs, build_engine, build_router, \
-    checkpoint_architecture, close_stateplane, modernbert_state, \
-    select_attention_impl, serve, warm_engine
+from .bootstrap import apply_ann_knobs, apply_cascade_knobs, \
+    apply_observability_knobs, apply_quant_knobs, apply_resilience_knobs, \
+    apply_stateplane_knobs, apply_upstream_knobs, build_engine, \
+    build_router, checkpoint_architecture, close_ann, close_stateplane, \
+    modernbert_state, select_attention_impl, serve, warm_engine
 from .registry import RuntimeRegistry
 
-__all__ = ["RuntimeRegistry", "apply_cascade_knobs",
+__all__ = ["RuntimeRegistry", "apply_ann_knobs", "apply_cascade_knobs",
            "apply_observability_knobs", "apply_quant_knobs",
            "apply_resilience_knobs", "apply_stateplane_knobs",
            "apply_upstream_knobs", "build_engine", "build_router",
-           "checkpoint_architecture", "close_stateplane", "modernbert_state",
-           "select_attention_impl", "serve", "warm_engine"]
+           "checkpoint_architecture", "close_ann", "close_stateplane",
+           "modernbert_state", "select_attention_impl", "serve",
+           "warm_engine"]

@@ -375,13 +375,17 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
     None), its cascade attached as ``engine.cascade`` says (in
     ``registry``'s ``cascade`` slot), the shared state plane as
     ``stateplane`` says (``stateplane``) and its upstream plane as
-    ``resilience.upstream`` says (``upstreams``), with its memory store:
-    SQLite at ``memory.path`` under ``memory.backend: sqlite``, else
-    in-process; both embed on the engine's ``EMBEDDING_TASK`` when it
-    serves one.  ``carry_from`` (the router a config reload replaces)
-    hands on its semantic cache and its state plane."""
-    from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
+    ``resilience.upstream`` says (``upstreams``), with its memory store
+    (``_memory_store``) and its vector stores (a ``VectorStoreManager``
+    on ``vectorstore.backend``, ``memory`` promoted to ``stateplane``
+    under the plane's ``share.vectorstore``), both embedding on the
+    engine's ``EMBEDDING_TASK`` when it serves one, and the on-device
+    ANN plane as ``ann`` says (``apply_ann_knobs``, in the ``ann``
+    slot).  ``carry_from`` (the router a config reload replaces) hands
+    on its semantic cache, its state plane, its memory store and its
+    vector stores."""
     from ..router.pipeline import EMBEDDING_TASK, Router
+    from ..vectorstore import VectorStoreManager
 
     obs = {}
     if registry is not None:
@@ -403,12 +407,130 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
     embed_fn = None
     if engine is not None and engine.has_task(EMBEDDING_TASK):
         embed_fn = lambda text: engine.embed(EMBEDDING_TASK, [text])[0]
-    mem_cfg = cfg.memory or {}
-    if mem_cfg.get("backend", "") == "sqlite" and mem_cfg.get("path"):
-        router.memory_store = SQLiteMemoryStore(mem_cfg["path"], embed_fn)
+    if carry_from is not None:
+        router.memory_store = carry_from.memory_store
+        router.vectorstores = carry_from.vectorstores
     else:
-        router.memory_store = InMemoryMemoryStore(embed_fn)
+        router.memory_store = _memory_store(cfg, embed_fn)
+        vs_cfg = cfg.vectorstore or {}
+        vs_backend = vs_cfg.get("backend", "memory")
+        sp_cfg = cfg.stateplane_config()
+        if router.stateplane is not None \
+                and sp_cfg["share"]["vectorstore"] \
+                and vs_backend == "memory":
+            vs_backend = "stateplane"
+        router.vectorstores = VectorStoreManager(
+            embed_fn, backend=vs_backend, base_path=vs_cfg.get("path"),
+            backend_config=vs_cfg.get("backend_config"),
+            stateplane=router.stateplane)
+    apply_ann_knobs(cfg, registry, router)
     return router
+
+
+def _memory_store(cfg: RouterConfig, embed_fn):
+    """The ``memory`` block's store: SQLite at ``memory.path`` under
+    ``backend: sqlite``; the Qdrant / Milvus store of ``memory.ann_store``
+    under ``qdrant`` / ``milvus`` (in-process, stamped
+    ``memory_backend_fallback``, when there is no embedding task); else
+    in-process."""
+    from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
+
+    mem_cfg = cfg.memory or {}
+    backend = mem_cfg.get("backend", "")
+    if backend == "sqlite" and mem_cfg.get("path"):
+        return SQLiteMemoryStore(mem_cfg["path"], embed_fn)
+    if backend in ("qdrant", "milvus"):
+        if embed_fn is None:
+            component_event("bootstrap", "memory_backend_fallback",
+                            backend=backend, level="warning",
+                            reason="no embedding source; using in-proc")
+            return InMemoryMemoryStore(embed_fn)
+        if backend == "qdrant":
+            from ..memory.ann_store import QdrantMemoryStore
+
+            return QdrantMemoryStore(
+                embed_fn,
+                base_url=mem_cfg.get("base_url", "http://127.0.0.1:6333"),
+                api_key=str(mem_cfg.get("api_key", "")),
+                collection=mem_cfg.get("collection", "vsr_memory"))
+        from ..memory.ann_store import MilvusMemoryStore
+
+        return MilvusMemoryStore(
+            embed_fn,
+            base_url=mem_cfg.get("base_url", "http://127.0.0.1:19530"),
+            token=str(mem_cfg.get("token", "")),
+            db_name=mem_cfg.get("db_name", "default"),
+            collection=mem_cfg.get("collection", "vsr_memory"))
+    return InMemoryMemoryStore(embed_fn)
+
+
+def apply_ann_knobs(cfg: RouterConfig, registry, router) -> None:
+    """Attach, configure or detach the on-device ANN plane (``ann/``) for
+    a registry and router pair; called by ``build_router``, at boot and
+    on a rebuild.  ``ann.enabled: false`` (the default) constructs
+    nothing and closes any plane the registry holds (``ann_detached``);
+    the cache's similarity and the vector stores' search stay as they
+    were.  Enabled: the registry's plane (made once, on the engine's
+    device, ``ann_attached``) takes the normalized knobs; under
+    ``share.cache`` the shared semantic cache's similarity moves onto the
+    ``cache`` index (bound to the state plane's cache rows when a plane
+    is attached) and its mirror gates off; under ``share.vectorstore``
+    the ``ann`` vector-store backend gets the plane.  A malformed block
+    never stops the server (``ann_config_invalid``)."""
+    try:
+        ak = cfg.ann_config()
+        cache = getattr(router, "cache", None)
+        vsm = getattr(router, "vectorstores", None)
+        if not ak["enabled"]:
+            close_ann(registry)
+            if cache is not None and hasattr(cache, "detach_ann"):
+                cache.detach_ann()
+            if vsm is not None:
+                vsm.ann = None
+            return
+        from ..ann import AnnPlane
+
+        plane = registry.get("ann")
+        if plane is None:
+            engine = getattr(router, "engine", None)
+            plane = AnnPlane(registry.metrics,
+                             programstats=registry.get("programstats"),
+                             runtime_stats=registry.get("runtimestats"),
+                             device=engine.device if engine is not None
+                             else None)
+            registry.swap(ann=plane)
+            component_event("bootstrap", "ann_attached",
+                            device=str(plane.device))
+        plane.configure(ak)
+        if cache is not None and hasattr(cache, "attach_ann"):
+            if ak["share"]["cache"]:
+                sp = getattr(router, "stateplane", None)
+                idx = plane.bind_cache_sync(sp) if sp is not None \
+                    else plane.index("cache")
+                cache.attach_ann(idx)
+            else:
+                cache.detach_ann()
+        if vsm is not None:
+            vsm.ann = plane if ak["share"]["vectorstore"] else None
+        component_event("bootstrap", "ann_configured", quant=ak["quant"])
+    except Exception as exc:
+        component_event("bootstrap", "ann_config_invalid",
+                        error=f"{type(exc).__name__}: {exc}"[:200],
+                        level="warning")
+
+
+def close_ann(registry) -> None:
+    """Close the ANN plane ``registry`` holds (its maintenance thread and
+    lookup batchers) and let it go; a no-op without one."""
+    plane = registry.get("ann")
+    if plane is None:
+        return
+    registry.swap(ann=None)
+    try:
+        plane.close()
+    except Exception:
+        pass
+    component_event("bootstrap", "ann_detached")
 
 
 def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
@@ -752,7 +874,8 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     starts in the background and (server, tracker) is returned; the
     caller then does what the blocking path does when it ends (stop the
     server, shut the router and engine down, stop the registry's
-    sampler, SLO monitor and controller, ``close_stateplane``)."""
+    sampler, SLO monitor and controller, ``close_ann``,
+    ``close_stateplane``)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
     from .registry import RuntimeRegistry
@@ -797,6 +920,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         registry.runtimestats.stop()
         registry.slo.stop()
         registry.resilience.stop()
+        close_ann(registry)
         close_stateplane(registry)
 
 

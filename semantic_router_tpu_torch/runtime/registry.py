@@ -5,7 +5,7 @@ slots this package fills: the metrics registry, the tracer, the session
 telemetry, the profiler control, the runtime event bus, the flight recorder, the runtime-stats
 sampler, the program-cost catalog, the SLO monitor, the decision-record
 ring, the degradation controller, the upstream health plane, the
-cascade evaluator and the shared state plane.  ``RuntimeRegistry.with_defaults()``
+cascade evaluator, the shared state plane and the ANN plane.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -30,7 +30,10 @@ _SLOTS = ("metrics", "tracer", "sessions", "profiler", "events",
           # the shared state plane (stateplane.StatePlane): empty unless
           # stateplane.enabled (build_router); per registry, so two
           # embedded routers can sit on different planes
-          "stateplane")
+          "stateplane",
+          # the on-device ANN plane (ann.AnnPlane): empty unless
+          # ann.enabled (apply_ann_knobs)
+          "ann")
 
 
 class RuntimeRegistry:

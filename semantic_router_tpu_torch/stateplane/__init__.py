@@ -10,13 +10,12 @@ cross-replica concern:
   aggregation (the DegradationController's shared sensor);
 - :class:`~.cache.SharedSemanticCache` — one semantic-cache entry set
   across the fleet, local fallback on plane loss;
+- :class:`~.vectorstore.SharedVectorStore` — RAG rows visible to every
+  replica, local fallback on plane loss;
 - :class:`~.explain_mirror.StatePlaneDecisionStore` — fleet-wide
   durable decision-record mirror behind ``attach_durable``;
 - :class:`~.harness.ReplicaFleet` — the in-process multi-replica e2e
   the fleet tests run.
-
-The reference's plane-shared vector store rides the retrieval plane,
-which this port does not serve yet.
 
 ``stateplane.enabled: false`` (the default) constructs NONE of this:
 the router runs byte-identical to the single-process posture.
@@ -38,6 +37,7 @@ from .cache import SharedSemanticCache
 from .explain_mirror import StatePlaneDecisionStore
 from .plane import StatePlane
 from .ring import HashRing
+from .vectorstore import SharedVectorStore
 
 
 def build_state_plane(cfg, metrics=None) -> Optional[StatePlane]:
@@ -60,6 +60,6 @@ def build_state_plane(cfg, metrics=None) -> Optional[StatePlane]:
 __all__ = [
     "GuardedBackend", "HashRing", "InMemoryStateBackend",
     "RespStateBackend", "SQLiteStateBackend", "SharedSemanticCache",
-    "StateBackendUnavailable", "StatePlane",
+    "SharedVectorStore", "StateBackendUnavailable", "StatePlane",
     "StatePlaneDecisionStore", "build_backend", "build_state_plane",
 ]

@@ -1,10 +1,12 @@
 """Plane-shared semantic cache: N replicas, one entry set.
 
-The port's copy of ``semantic_router_tpu.stateplane.cache``, without its
-ANN handoff (the on-device ANN plane is not served by this port yet):
-similarity is numpy over the in-process mirror, on the host.  The query
-embedding comes off the card once per lookup (``host_f32``), and only
-when the exact path missed and the mirror holds entries.
+The port's copy of ``semantic_router_tpu.stateplane.cache``.  Similarity
+is owned by one path at a time (``similarity_owner()``): the on-device
+ANN plane's ``cache`` index once ``apply_ann_knobs`` attaches it
+(``attach_ann``; a failure of the device path falls back to the local
+cache, never fails a request), else numpy over the in-process mirror on
+the host.  The query embedding comes off the card once per lookup
+(``host_f32``), and only when the exact path missed.
 
 Same hybrid layout as cache/redis_cache.py (payloads external, the
 similarity index in-proc) but generic over the StateBackend seam and
@@ -61,6 +63,12 @@ class SharedSemanticCache:
         self.similarity_threshold = similarity_threshold
         self.ttl_seconds = ttl_seconds
         self.local = local
+        # when the on-device ANN plane attaches (bootstrap
+        # apply_ann_knobs → attach_ann), similarity routes through its
+        # "cache" index and the in-proc mirror below gates OFF — there
+        # is exactly ONE similarity interpretation point at a time
+        # (similarity_owner() says which)
+        self._ann = None
         self._ids: List[str] = []
         self._matrix: Optional[np.ndarray] = None
         self._seen_ver = -1
@@ -162,6 +170,41 @@ class SharedSemanticCache:
         n = float(np.linalg.norm(v))
         return v / n if n > 0 else v
 
+    # -- ANN plane handoff --------------------------------------------------
+
+    def attach_ann(self, index) -> None:
+        """Route similarity through the on-device ANN plane: seed the
+        index with whatever the mirror already holds, then gate the
+        mirror OFF.  Before this gate, an attached
+        external index AND the in-proc mirror could both answer
+        similarity with drifting thresholds; now exactly one owner
+        interprets it at a time.  The exact sha256 path is untouched."""
+        with self._lock:
+            ids = list(self._ids)
+            matrix = self._matrix
+            self._ids = []
+            self._matrix = None
+        if matrix is not None:
+            for i, qh in enumerate(ids):
+                index.add(qh, matrix[i])
+        self._ann = index
+
+    def detach_ann(self) -> None:
+        """ann.enabled flipped off: rebuild the in-proc mirror from the
+        plane so similarity keeps answering without the device bank."""
+        if self._ann is None:
+            return
+        self._ann = None
+        try:
+            self._resync()
+        except StateBackendUnavailable:
+            pass
+
+    def similarity_owner(self) -> str:
+        """Which path owns similarity lookups right now —
+        ``"ann"`` (device bank) or ``"mirror"`` (in-proc matrix)."""
+        return "ann" if self._ann is not None else "mirror"
+
     # -- CacheBackend -------------------------------------------------------
 
     def add(self, query: str, response: str, model: str = "",
@@ -185,7 +228,11 @@ class SharedSemanticCache:
                 except Exception:
                     pass
             return
-        self._append_mirror(qh, vec, ver)
+        ann = self._ann
+        if ann is not None:
+            ann.add(qh, vec)  # mirror gated off: the bank owns the vec
+        else:
+            self._append_mirror(qh, vec, ver)
         self._stats.additions += 1
 
     def find_similar(self, query: str, threshold: Optional[float] = None,
@@ -193,8 +240,10 @@ class SharedSemanticCache:
         thresh = self.similarity_threshold if threshold is None \
             else threshold
         qh = _qhash(query)
+        ann = self._ann
         try:
             # exact path first: one plane read, no embedding forward
+            # (bypasses the ANN bank too — a sha256 hit needs no top-k)
             h = self.backend.get_hash(self._entry_key(qh))
             if h:
                 entry = self._entry_from_hash(h)
@@ -203,10 +252,21 @@ class SharedSemanticCache:
                     self._stats.hits += 1
                     self._stats.exact_hits += 1
                     return entry
-            self._maybe_resync()
+            if ann is None:
+                self._maybe_resync()
         except StateBackendUnavailable:
             self._stats.errors += 1
             return self._local_find(query, threshold, category)
+        if ann is not None:
+            # ANN owns similarity (similarity_owner() == "ann"); any
+            # device-path failure degrades like a plane failure would —
+            # a device error mid hot-flip must cost a cache miss,
+            # never fail the request (the pre-ANN mirror path couldn't)
+            try:
+                return self._ann_find(ann, query, thresh, category)
+            except Exception:
+                self._stats.errors += 1
+                return self._local_find(query, threshold, category)
         with self._lock:
             matrix = self._matrix
             ids = list(self._ids)
@@ -229,6 +289,30 @@ class SharedSemanticCache:
                 self._drop_mirror(kid)
                 continue
             entry = self._entry_from_hash(h, embedding=matrix[i])
+            if category and entry.category \
+                    and entry.category != category:
+                continue
+            self._stats.hits += 1
+            return entry
+        self._stats.misses += 1
+        return None
+
+    def _ann_find(self, ann, query: str, thresh: float,
+                  category: str) -> Optional[CacheEntry]:
+        """ANN-owned similarity: candidates come off the device bank /
+        host tier, each verified against the plane before serving
+        (expired server-side rows retire from the index — the store
+        wins, same contract as the mirror path)."""
+        q = self._normalize(self.embed_fn(query))
+        ids, scores = ann.lookup(q)
+        for kid, score in zip(ids, scores):
+            if score < thresh:
+                break
+            h = self.backend.get_hash(self._entry_key(kid))
+            if not h:  # expired server-side: the store wins
+                ann.delete(kid)
+                continue
+            entry = self._entry_from_hash(h)
             if category and entry.category \
                     and entry.category != category:
                 continue
@@ -278,6 +362,8 @@ class SharedSemanticCache:
         except StateBackendUnavailable:
             self._stats.errors += 1
         self._drop_mirror(qh)
+        if self._ann is not None:
+            self._ann.delete(qh)
         if self.local is not None:
             try:
                 self.local.invalidate(query)
@@ -297,6 +383,10 @@ class SharedSemanticCache:
             self._ids = []
             self._matrix = None
             self._stats.entries = 0
+        ann = self._ann
+        if ann is not None:
+            for kid in ann.ids():
+                ann.delete(kid)
         if self.local is not None:
             try:
                 self.local.clear()
@@ -304,9 +394,12 @@ class SharedSemanticCache:
                 pass
 
     def stats(self) -> CacheStats:
+        ann = self._ann
         with self._lock:
             s = CacheStats(**self._stats.__dict__)
             s.entries = len(self._ids)
+        if ann is not None:
+            s.entries = len(ann)
         return s
 
     # -- recovery -----------------------------------------------------------
@@ -327,6 +420,7 @@ class SharedSemanticCache:
             except Exception:
                 break
         try:
-            self._resync()
+            if self._ann is None:  # ann-owned: its sync reconverges
+                self._resync()
         except StateBackendUnavailable:
             pass

@@ -242,7 +242,19 @@ class TestBuildCache:
                                          "milvus", "nope"])
     def test_other_backends_raise(self, backend):
         cfg = SemanticCacheConfig(enabled=True, backend_type=backend,
-                                  backend_config={"port": 1})
+                                  backend_config={
+                                      "port": 1,
+                                      "base_url": "http://127.0.0.1:1"})
+        if backend in ("qdrant", "milvus"):
+            # served since the retrieval plane was ported: an unreachable
+            # store fails open (a miss, counted as an error)
+            cache = build_cache(cfg, toy_embed())
+            assert type(cache).__name__ == {
+                "qdrant": "QdrantSemanticCache",
+                "milvus": "MilvusSemanticCache"}[backend]
+            assert cache.find_similar("q") is None
+            assert cache.stats().errors >= 1
+            return
         if backend in ("redis", "valkey"):
             # served since the RESP family was ported: an unreachable
             # store fails open to an empty mirror

@@ -12,16 +12,19 @@ reference routes it, executed over a live backend and refused (502,
 server does; a checkpoint of an architecture the port does not serve
 (Gemma3, a SigLIP checkpoint under a classifier kind) is refused by
 name, and a DeBERTa-v2/v3 classifier and a SigLIP ``kind: multimodal``
-checkpoint load; an enabled ``image_generation`` plugin loads and a
-``rag`` one is refused.
+checkpoint load; an enabled ``image_generation`` plugin and a ``rag``
+one load.
 The resilience plane (the degradation ladder, the upstream health
 plane, local SLO objectives) loads and parses as the reference's.  The
 shared state plane (``stateplane``), its fleet-shared ladder
 (``stateplane.share.fleet``), the fleet-shared open circuits and retry
-budget, and the RESP-backed Responses and workflow stores load and parse
-as the reference's too; beside each stays a refused option of its kind
-(the ANN plane, the fleet observability plane, fleet-scoped objectives,
-the vector store, a milvus memory store)."""
+budget, the RESP-backed Responses and workflow stores, and the retrieval
+plane (the ANN plane on one device, the vector stores, the ``rag``
+plugin, a qdrant / milvus memory store) load and parse as the
+reference's too; beside each stays a refused option of its kind (the ANN
+bank's row sharding, the fleet observability plane, fleet-scoped
+objectives, the Llama-Stack vector store, the Postgres store registry,
+selector artifacts)."""
 
 import copy
 import http.client
@@ -115,9 +118,6 @@ REFUSED = {
                     {"engine": {"mesh": {"enabled": False}}}),
     "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
                           {"engine": {"mesh_shape": {}}}),
-    "ann": ({"ann": {"enabled": True}}, {"ann": {"enabled": False}}),
-    "vectorstore": ({"vectorstore": {"enabled": True}},
-                    {"vectorstore": {"enabled": False}}),
     "mcp": ({"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
             {"mcp": {}}),
     "external_models": ({"external_models": [{"name": "x",
@@ -155,13 +155,44 @@ PORTED["image_generation"] = (
     {"routing": {"decisions": [dict(DEC, plugins=[
         {"type": "image_generation",
          "configuration": {"enabled": False, "backend": "mock"}}])]}})
+# the retrieval plane: served since it was refused
+PORTED["ann"] = ({"ann": {"enabled": True, "quant": "int8", "top_k": 4,
+                          "batch": {"enabled": True}}},
+                 {"ann": {"enabled": False}})
+PORTED["vectorstore"] = ({"vectorstore": {"enabled": True,
+                                          "backend": "ann"}},
+                         {"vectorstore": {"enabled": False}})
+PORTED["rag"] = (
+    {"routing": {"decisions": [dict(DEC, plugins=[
+        {"type": "rag", "configuration": {"store": "kb", "top_k": 3}}])]}},
+    {"routing": {"decisions": [dict(DEC, plugins=[
+        {"type": "rag", "configuration": {"enabled": False}}])]}})
+PORTED["memory.backend"] = ({"memory": {"backend": "milvus",
+                                        "base_url": "http://m:19530"}},
+                            {"memory": {"backend": ""}})
 SERVED_SINCE = {
     "image_generation": (
-        "rag", {"routing": {"decisions": [dict(DEC, plugins=[
-            {"type": "rag", "configuration": {"backend": "mock"}}])]}}),
-    # the plane is served; the ANN plane over it is not
-    "stateplane": ("ann", {"stateplane": {"enabled": True},
-                           "ann": {"enabled": True}}),
+        "artifact", {"routing": {"decisions": [dict(
+            DEC, algorithm={"type": "mlp", "artifact": "sel.json"},
+            plugins=[{"type": "image_generation",
+                      "configuration": {"backend": "mock"}}])]}}),
+    # the plane and the ANN plane over it are served; the bank's row
+    # sharding is not
+    "stateplane": (r"ann\.mesh", {"stateplane": {"enabled": True},
+                                  "ann": {"enabled": True,
+                                          "mesh": {"enabled": True}}}),
+    "ann": (r"ann\.mesh", {"ann": {"enabled": True,
+                                   "mesh": {"enabled": True, "dp": 2}}}),
+    "vectorstore": ("llamastack", {"vectorstore": {"backend":
+                                                   "llamastack"}}),
+    "rag": ("postgres", {
+        "routing": {"decisions": [dict(DEC, plugins=[
+            {"type": "rag", "configuration": {"store": "kb"}}])]},
+        "vectorstore": {"registry": {"backend": "postgres"}}}),
+    "memory.backend": ("artifact", {
+        "memory": {"backend": "qdrant"},
+        "routing": {"decisions": [dict(
+            DEC, algorithm={"type": "knn", "artifact": "k.json"})]}}),
     # the fleet-shared ladder is served; the fleet observability plane
     # (federated metrics, fleet-scoped objectives) is not
     "stateplane.share.fleet": (
@@ -175,13 +206,15 @@ SERVED_SINCE = {
             "observability": {"slo": {"objectives": [
                 {"objective": "routing_latency p99 < 25ms over 5m",
                  "scope": "fleet"}]}}}),
-    # the RESP stores are served; the vector store is not
+    # the RESP stores and the vector stores are served; the Llama-Stack
+    # store and the Postgres registry are not
     "response_store.backend": (
-        "vectorstore", {"response_store": {"backend": "redis"},
-                        "vectorstore": {"enabled": True}}),
+        "llamastack", {"response_store": {"backend": "redis"},
+                       "vectorstore": {"backend": "llamastack"}}),
     "looper.workflow_state.backend": (
-        "milvus", {"looper": {"workflow_state": {"backend": "redis"}},
-                   "memory": {"backend": "milvus"}}),
+        "postgres", {"looper": {"workflow_state": {"backend": "redis"}},
+                     "memory": {"backend": "milvus"},
+                     "vectorstore": {"registry": {"backend": "postgres"}}}),
     "resilience": (
         r"observability\.fleet", {"global": {
             "resilience": {"enabled": True},
@@ -245,6 +278,13 @@ def _parsed(cfg, key):
         return cfg.response_store
     if key == "looper.workflow_state.backend":
         return cfg.looper
+    if key == "ann":
+        return cfg.ann_config()
+    if key == "rag":
+        return [(d.name, [(p.type, p.configuration, p.enabled)
+                          for p in d.plugins]) for d in cfg.decisions]
+    if key == "memory.backend":
+        return cfg.memory
     return getattr(cfg, key)
 
 

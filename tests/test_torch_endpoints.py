@@ -534,7 +534,7 @@ def test_catalog_lists_exactly_what_the_port_serves(served):
         "endpoints"]}
     assert served_paths <= {(e["path"], e["method"])
                             for e in JCATALOG["endpoints"]}
-    for path in ("/config/router", "/v1/vector_stores", "/debug/fleet"):
+    for path in ("/config/router", "/dashboard/embedmap", "/debug/fleet"):
         assert (path, "GET") not in served_paths
         status, _, reply = _call(url, "GET", path)
         assert (status, reply) == (404, {"error": "not found"})

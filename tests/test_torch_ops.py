@@ -472,15 +472,18 @@ def _port_sources():
 
 def test_port_sources_cover_every_package():
     """The scan below reaches every package of the port, the state
-    plane's and the RESP family's included."""
+    plane's, the RESP family's and the retrieval plane's included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
-                "resilience", "ops"):
+                "resilience", "ops", "ann", "vectorstore", "memory"):
         assert pkg in scanned, pkg
-    assert (REPO / "semantic_router_tpu_torch" / "stateplane"
-            / "plane.py") in _port_sources()
-    assert (REPO / "semantic_router_tpu_torch" / "state"
-            / "resp.py") in _port_sources()
+    port = REPO / "semantic_router_tpu_torch"
+    for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
+                "state/milvus.py", "cache/ann_cache.py",
+                "memory/ann_store.py", "stateplane/vectorstore.py",
+                "ann/bank.py", "ann/search.py", "ann/plane.py",
+                "vectorstore/store.py", "vectorstore/ann_store.py"):
+        assert port / rel in _port_sources(), rel
 
 
 def _forbidden(module: str) -> bool:
@@ -512,7 +515,20 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "assert {'semantic_router_tpu_torch.state.resp',\n"
         "        'semantic_router_tpu_torch.state.rediscluster',\n"
         "        'semantic_router_tpu_torch.stateplane.plane',\n"
-        "        'semantic_router_tpu_torch.stateplane.harness'} \\\n"
+        "        'semantic_router_tpu_torch.stateplane.harness',\n"
+        "        'semantic_router_tpu_torch.stateplane.vectorstore',\n"
+        "        'semantic_router_tpu_torch.state.qdrant',\n"
+        "        'semantic_router_tpu_torch.state.milvus',\n"
+        "        'semantic_router_tpu_torch.cache.ann_cache',\n"
+        "        'semantic_router_tpu_torch.memory.ann_store',\n"
+        "        'semantic_router_tpu_torch.ann.bank',\n"
+        "        'semantic_router_tpu_torch.ann.search',\n"
+        "        'semantic_router_tpu_torch.ann.plane',\n"
+        "        'semantic_router_tpu_torch.ann.sync',\n"
+        "        'semantic_router_tpu_torch.ann.tiering',\n"
+        "        'semantic_router_tpu_torch.vectorstore.store',\n"
+        "        'semantic_router_tpu_torch.vectorstore.sqlite_store',\n"
+        "        'semantic_router_tpu_torch.vectorstore.ann_store'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_shared_trunk_engine\n"

@@ -420,11 +420,25 @@ def _refused(**change):
     return d
 
 
+# the rag plugin and the qdrant / milvus memory stores are served since the
+# retrieval plane was ported: each case pairs one with an option still
+# refused beside it (the Llama-Stack store, the Postgres registry, the ANN
+# bank's row sharding); without that option the config loads and serves
+SERVED_BESIDE = {
+    "llamastack": "vectorstore", "postgres": "vectorstore",
+    r"ann\.mesh": "ann"}
+
+
 @pytest.mark.parametrize("cfg,what", [
     (_refused(routing__decisions__0__plugins=[
-        {"type": "rag", "configuration": {"store": "kb"}}]), "rag"),
-    (_refused(memory={"backend": "qdrant"}), "qdrant"),
-    (_refused(memory={"backend": "milvus"}), "milvus"),
+        {"type": "rag", "configuration": {"store": "kb"}}],
+        vectorstore={"backend": "llamastack"}), "llamastack"),
+    (_refused(memory={"backend": "qdrant"},
+              vectorstore={"registry": {"backend": "postgres"}}),
+     "postgres"),
+    (_refused(memory={"backend": "milvus"},
+              ann={"enabled": True, "mesh": {"enabled": True}}),
+     r"ann\.mesh"),
     (_refused(routing__decisions__0__algorithm={
         "type": "mlp", "artifact": "sel.json"}), "artifact"),
     (_refused(learning={"enabled": True}), "learning"),
@@ -450,17 +464,33 @@ def test_unported_options_are_refused_at_load(cfg, what):
         # without the still-refused block the fleet-shared form loads
         del cfg["observability"]
         assert load_config(cfg).stateplane_config()["enabled"]
+    if what in SERVED_BESIDE:
+        # without the still-refused option the rest loads and serves
+        del cfg[SERVED_BESIDE[what]]
+        router = build_router(load_config(cfg))
+        try:
+            assert router.vectorstores is not None
+            if "memory" in cfg:
+                # no embedding task here: the in-process store, stamped
+                assert type(router.memory_store).__name__ \
+                    == "InMemoryMemoryStore"
+        finally:
+            router.shutdown()
 
 
 def test_served_options_load(tmp_path):
     cfg = load_config(_refused(
         memory={"backend": "sqlite", "path": str(tmp_path / "m.db")},
+        vectorstore={"backend": "sqlite", "path": str(tmp_path)},
         routing__decisions__0__plugins=[
-            {"type": "rag", "configuration": {"enabled": False}}]))
+            {"type": "rag", "configuration": {"store": "kb"}}]))
     assert cfg.tool_selection["tools"] == TOOLS_DB
     router = build_router(cfg)
     try:
         assert type(router.memory_store).__name__ == "SQLiteMemoryStore"
+        store = router.vectorstores.create("kb")
+        assert type(store).__name__ == "SQLiteVectorStore"
+        store.close()
     finally:
         router.memory_store.close()
         router.shutdown()
