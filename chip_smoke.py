@@ -323,9 +323,33 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    tests of ``tests/test_torch_retrieval_cuda.py`` run in a pytest
    process.
 
+17. dual path — 17a: four sequence tasks over phase 3's trunk,
+   registered twice from one set of weights: as ``ModernBertLoRAHead``
+   members of one trunk group and as the ``MultiTaskLoRAClassifier``
+   bank stacked from the same modules.  ``classify_multi`` at B=1 and
+   B=16 under the ``traditional``, ``stacked`` and ``adaptive``
+   strategies: labels equal and probabilities within 1e-4 between the
+   paths and against the CPU port (its first 4 texts); per strategy and
+   batch the trunk forwards and K1 / K2 launches a call, CUDA-event p50 /
+   p99, the captured and replayed steps, the paths ``adaptive`` picks
+   once warm; one routed request whose dispatcher prefetch takes the
+   stacked path (one forward: K1 22, K2 0), its decision the CPU
+   router's.  17b: a ``LoRAModernBertForSequenceClassification`` with
+   four adapters at B=16 x S=512 as one captured step: every adapter
+   replays the one graph (no new capture), each within 1e-4 of a plain
+   classifier over ``merge_lora_into_base``-merged weights; eager against
+   replayed ms, K1 launches a forward.  17c: chunks ingested through K1
+   into a ``llamastack`` vector store over ``MiniLlamaStack`` and a
+   ``memory`` store, each manager with a Postgres registry over
+   ``MiniPostgres``; the managers restarted on the registry
+   (``load_from_registry``): the Llama-Stack hits equal before and after
+   and to the CPU port's, the memory store's name and files back.  Then
+   the cuda-marked tests of ``tests/test_torch_dual_path_cuda.py`` run in
+   a pytest process.
+
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13, 14, 15 and 16), ``nvidia-smi``'s name and power limit, and then
+13, 14, 15, 16 and 17), ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -361,6 +385,7 @@ try:
     from semantic_router_tpu_torch.engine import InferenceEngine
     from semantic_router_tpu_torch.engine.testing import (
         init_weights,
+        make_dual_path_engine,
         make_shared_trunk_engine,
     )
     from semantic_router_tpu_torch.models import (
@@ -8631,6 +8656,450 @@ def phase_retrieval(modules3: dict, modules5: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 17: the dual-path engine, the LoRA trunk, the two stores ---------
+
+DP_TASKS = ROUTER_TASKS[:4]              # intent, jailbreak, fact_check,
+#                                          user_feedback
+DP_TEXTS = PROMPTS + WIDE_PROMPTS[:8]    # 16 texts, 4 past 128 tokens
+DP_STRATEGIES = ("traditional", "stacked", "adaptive")
+DP_BATCHES = (1, 16)
+DP_REPS = 10                             # timed calls a (strategy, batch)
+DP_CPU_TEXTS = 4                         # texts held against the CPU port
+DP_TOL = 1e-4
+DP_LORA = LoRAConfig(rank=8, alpha=16.0)
+LT_ADAPTERS = 4
+LT_SHAPE = (16, 512)
+DP_CONFIG = {
+    "default_model": "qwen3-8b",
+    "engine": ROUTER_CONFIG["engine"],
+    "routing": {
+        "strategy": "priority",
+        "modelCards": [{"name": m} for m in
+                       ("qwen3-8b", "qwen3-32b", "guard-model",
+                        "fixer-model", "checker-model", "biz-model",
+                        "med-model")],
+        "signals": {
+            "domains": [{"name": d} for d in DOMAINS],
+            "jailbreak": ROUTER_CONFIG["routing"]["signals"]["jailbreak"],
+            "fact_check": [{"name": "needs_fact_check"},
+                           {"name": "no_fact_check_needed"}],
+            "user_feedbacks": [{"name": n} for n in FEEDBACK]},
+        "decisions": [d for d in WIDE_ROUTER_CONFIG["routing"]["decisions"]
+                      if d["name"] not in ("pii_route", "image_route",
+                                           "omni_route")],
+    },
+}
+
+
+def dp_engine(device: str, modules3: dict, cfg):
+    """17a's engine over phase 3's trunk on ``device``: the four tasks as
+    LoRA-head members of one trunk group and as the stacked bank of those
+    very modules (``make_dual_path_engine``)."""
+    trunk = modules3["intent"][1].model
+    fields = {f.name: getattr(trunk.config, f.name)
+              for f in dataclasses.fields(trunk.config)}
+    return make_dual_path_engine(
+        tasks=DP_TASKS, engine_cfg=cfg.engine, seed=SEED, device=device,
+        model_config=fields, strategy="traditional", max_seq_len=512,
+        lora=DP_LORA, trunk=trunk,
+        tokenizer=HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"]))
+
+
+def _dp_same(tag: str, got: dict, want: dict, n: int) -> float:
+    """Labels equal and probabilities within DP_TOL for the first ``n``
+    texts of every task; returns the largest probability gap."""
+    worst = 0.0
+    for task, rows in want.items():
+        for i in range(n):
+            g, w = got[task][i], rows[i]
+            check(g.label == w.label,
+                  f"{tag}: {task} text {i}: {g.label!r} != {w.label!r}")
+            gap = max(abs(g.probs[k] - w.probs[k]) for k in w.probs)
+            check(gap <= DP_TOL, f"{tag}: {task} text {i}: probabilities "
+                                 f"differ by {gap:.3g}")
+            worst = max(worst, gap)
+    return worst
+
+
+def dp_dual(engine, cpu, cfg, smi: str) -> dict:
+    """17a: each strategy at B=1 and B=16 on the card (a first call, then
+    DP_REPS timed ones), the paths held equal to each other and to the
+    CPU port, the adaptive chooser once warm, one routed request through
+    the dispatcher's prefetch."""
+    tasks = [n for n, _ in DP_TASKS]
+    layers = MODERNBERT_BASE["num_hidden_layers"]
+    out: dict = {"card": smi, "rows": {}}
+    last: dict = {}
+    for strategy in DP_STRATEGIES:
+        engine.path_chooser.strategy = strategy
+        for B in DP_BATCHES:
+            texts = DP_TEXTS[:B]
+            n_steps = len(engine.steps())
+            engine.classify_multi(tasks, texts)        # captures, if new
+            first = [f"{st['group']}:{st['graph']}"
+                     for st in engine.steps()[n_steps:]]
+            n_steps = len(engine.steps())
+            ms, k1, k2, fwd = [], [], [], []
+            paths: dict = {}
+            for _ in range(DP_REPS):
+                before, f0 = _cuda.launch_counts(), engine.trunk_forwards
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = engine.classify_multi(tasks, texts)
+                end.record()
+                torch.cuda.synchronize()
+                after = _cuda.launch_counts()
+                ms.append(start.elapsed_time(end))
+                k1.append(after["flash_attention"]
+                          - before["flash_attention"])
+                k2.append(after["head_epilogue"] - before["head_epilogue"])
+                fwd.append(engine.trunk_forwards - f0)
+                sel = engine.last_path_selection
+                paths[sel.selected_path] = paths.get(sel.selected_path,
+                                                     0) + 1
+            steps = engine.steps()[n_steps:]
+            graph = {}
+            for st in steps:
+                key = f"{st['group']}:{st['graph']}"
+                graph[key] = graph.get(key, 0) + 1
+            row = {"paths": paths, "reasoning": sel.reasoning,
+                   "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99),
+                   "trunk_forwards": fwd, "k1": k1, "k2": k2,
+                   "first_call": first, "steps": graph}
+            # each path's launches a call: K1 once a layer a forward, K2
+            # once a traditional forward (the epilogue), never stacked
+            for f, a, b in zip(fwd, k1, k2):
+                check(a == layers * f, f"17a {strategy} B={B}: K1 {a} "
+                                       f"for {f} forwards")
+            if strategy != "adaptive":
+                check(paths == {strategy: DP_REPS},
+                      f"17a {strategy} B={B}: served {paths}")
+                check(all(b == (f if strategy == "traditional" else 0)
+                          for f, b in zip(fwd, k2)),
+                      f"17a {strategy} B={B}: K2 {k2} for {fwd} forwards")
+                check(any(k.endswith(":captured") for k in first),
+                      f"17a {strategy} B={B}: the first call captured "
+                      f"nothing: {first}")
+                last[(strategy, B)] = got
+            out["rows"][f"{strategy}_b{B}"] = row
+            print(f"phase 17a {strategy} B={B}: " + json.dumps(row)
+                  + f" | {smi}", flush=True)
+    # every timed call replays: the first call captured each shape
+    for key, row in out["rows"].items():
+        check(all(k.endswith(":replayed") for k in row["steps"]),
+              f"17a {key}: a timed call captured: {row['steps']}")
+    out["max_gap_paths"] = max(
+        _dp_same(f"17a B={B} stacked vs traditional",
+                 last[("stacked", B)], last[("traditional", B)], B)
+        for B in DP_BATCHES)
+    # the CPU port, both paths, the first DP_CPU_TEXTS texts
+    gaps = []
+    for strategy in ("traditional", "stacked"):
+        cpu.path_chooser.strategy = strategy
+        want = cpu.classify_multi(tasks, DP_TEXTS[:DP_CPU_TEXTS])
+        check(cpu.last_path_selection.selected_path == strategy,
+              f"17a CPU port served {cpu.last_path_selection}")
+        for B in DP_BATCHES:
+            gaps.append(_dp_same(f"17a {strategy} B={B} card vs CPU port",
+                                 last[(strategy, B)], want,
+                                 min(B, DP_CPU_TEXTS)))
+    out["max_gap_cpu"] = max(gaps)
+    print(f"phase 17a gaps: paths {out['max_gap_paths']:.3g}, CPU port "
+          f"{out['max_gap_cpu']:.3g} | {smi}", flush=True)
+    # one routed request: the dispatcher prefetches the four tasks as one
+    # classify_multi, which the pinned chooser serves stacked
+    body = {"model": "auto", "messages": [
+        {"role": "user", "content": DP_TEXTS[6]}]}
+    decisions = []
+    for eng in (engine, cpu):
+        eng.path_chooser.strategy = "stacked"
+        router = build_router(cfg, eng,
+                              registry=RuntimeRegistry.isolated(
+                                  runtimestats=None))
+        try:
+            n_steps = len(eng.steps())
+            before = _cuda.launch_counts()
+            res = router.route(copy.deepcopy(body))
+            after = _cuda.launch_counts()
+        finally:
+            router.shutdown()
+        steps = eng.steps()[n_steps:]
+        check([st["group"] for st in steps] == ["stacked"]
+              and eng.last_path_selection.selected_path == "stacked",
+              f"17a route: steps {[st['group'] for st in steps]}, "
+              f"{eng.last_path_selection}")
+        decisions.append((res.decision.decision.name if res.decision
+                          else None, res.model))
+        if eng is engine:
+            out["route"] = {
+                "decision": decisions[0][0], "model": decisions[0][1],
+                "k1": after["flash_attention"] - before["flash_attention"],
+                "k2": after["head_epilogue"] - before["head_epilogue"],
+                "graph": steps[0]["graph"]}
+    check(out["route"]["k1"] == layers and out["route"]["k2"] == 0,
+          f"17a route: launches {out['route']}")
+    check(decisions[0] == decisions[1],
+          f"17a route: card {decisions[0]}, CPU port {decisions[1]}")
+    print("phase 17a route: " + json.dumps(out["route"]) + f" | {smi}",
+          flush=True)
+    return out
+
+
+def lt_models(device: str):
+    """17b's LoRA sequence classifier at full width with LT_ADAPTERS
+    seeded adapters (every ``lora_B`` non-zero) on ``device``."""
+    from semantic_router_tpu_torch.models.lora import \
+        LoRAModernBertForSequenceClassification
+
+    cfg = ModernBertConfig(**dict(MODERNBERT_BASE, num_labels=len(DOMAINS),
+                                  attention_impl="flash"))
+    model = LoRAModernBertForSequenceClassification(
+        cfg, dataclasses.replace(DP_LORA, num_tasks=LT_ADAPTERS),
+        len(DOMAINS))
+    init_weights(model, SEED + 17)
+    rng = np.random.default_rng(SEED + 18)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_B"):
+                p.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape), np.float32) * 0.02))
+    return model.to(device).eval()
+
+
+def lt_merged(model, t: int):
+    """A plain ``ModernBertForSequenceClassification`` on the model's
+    device whose trunk projections are adapter ``t`` merged into the base
+    (``merge_lora_into_base``, on the card)."""
+    from semantic_router_tpu_torch.models import \
+        ModernBertForSequenceClassification
+    from semantic_router_tpu_torch.models.lora import lora_param_filter
+
+    device = next(model.parameters()).device
+    with torch.device("meta"):
+        plain = ModernBertForSequenceClassification(model.config)
+    state = model.state_dict()
+    merged = {}
+    with torch.no_grad():
+        for name, v in state.items():
+            if lora_param_filter(name):
+                continue
+            prefix = name[:-len("weight")]
+            if prefix + "lora_A" in state:
+                a = state[prefix + "lora_A"][t]
+                b = state[prefix + "lora_B"][t]
+                v = v + model.lora.scale * (a @ b).T
+            merged[name] = v
+    plain.load_state_dict(merged, assign=True)
+    return plain.to(device).eval()
+
+
+def dp_lora_trunk(smi: str) -> dict:
+    """17b: the LoRA trunk at B=16 x S=512 as one captured step keyed on
+    the shape; ``task_index`` is a step input, so every adapter replays
+    the one graph.  Each adapter's logits within DP_TOL of the merged
+    plain classifier's; eager against replayed ms."""
+    from semantic_router_tpu_torch.engine.graphs import CaptureGate, \
+        StepGraphs
+
+    B, S = LT_SHAPE
+    model = lt_models(DEVICE)
+    g = torch.Generator().manual_seed(SEED + 19)
+    ids = torch.randint(3, MODERNBERT_BASE["vocab_size"], (B, S),
+                        generator=g)
+    mask = torch.ones(B, S, dtype=torch.int32)
+    for b in range(1, B):
+        mask[b, max(1, S - 29 * b):] = 0
+    cache = StepGraphs(torch.device(DEVICE), CaptureGate(), "lora-trunk")
+    key = ("lora", S, B)
+
+    def step(i, m, ti):
+        return (model(i, m, task_index=ti),)
+
+    out: dict = {"card": smi, "shape": [B, S], "adapters": []}
+    before = _cuda.launch_counts()
+    logits = []
+    with torch.inference_mode():
+        for t in list(range(LT_ADAPTERS)) + [0]:
+            (got,), how = cache.run(key, step, [ids, mask,
+                                                torch.tensor([t])])
+            logits.append(got)
+            out["adapters"].append({"task_index": t, "graph": how})
+        after = _cuda.launch_counts()
+        check([a["graph"] for a in out["adapters"]]
+              == ["captured"] + ["replayed"] * LT_ADAPTERS
+              and cache.captured() == 1,
+              f"17b: switching adapters captured again: {out['adapters']}")
+        check(torch.equal(logits[0], logits[-1]),
+              "17b: adapter 0 replayed gives other logits")
+        out["adapter_gap"] = float((logits[0] - logits[1]).abs().max())
+        check(out["adapter_gap"] > 10 * DP_TOL,
+              f"17b: adapters 0 and 1 differ by {out['adapter_gap']:.3g} "
+              f"only")
+        out["k1"] = after["flash_attention"] - before["flash_attention"]
+        check(out["k1"] == MODERNBERT_BASE["num_hidden_layers"]
+              * (LT_ADAPTERS + 1),
+              f"17b: K1 {out['k1']} for {LT_ADAPTERS + 1} forwards")
+        ids_d, mask_d = ids.to(DEVICE), mask.to(DEVICE)
+        gaps = []
+        for t in range(LT_ADAPTERS):
+            plain = lt_merged(model, t)
+            want = plain(ids_d, mask_d).float().cpu()
+            gaps.append(float((logits[t] - want).abs().max()))
+            del plain
+        out["max_gap_merged"] = max(gaps)
+        check(out["max_gap_merged"] <= DP_TOL,
+              f"17b: adapter logits against the merged weights {gaps}")
+        ti = torch.tensor([2], device=DEVICE)
+        out["eager_ms"] = cuda_ms(lambda: model(ids_d, mask_d, task_index=ti),
+                                  iters=5, warmup=1, hold=False)
+        captured = _captured(cache, key)
+        captured.load([ids, mask, torch.tensor([2])])
+        out["replay_ms"] = cuda_ms(captured.replay, iters=5, warmup=1,
+                                   hold=False)
+    print("phase 17b lora trunk: " + json.dumps(out), flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_stores(engine, cpu, smi: str) -> dict:
+    """17c: the ``llamastack`` vector store over ``MiniLlamaStack`` and a
+    ``memory`` store, each manager with a Postgres registry over its own
+    ``MiniPostgres`` (a file that outlives the server), chunks embedded
+    through K1; then the managers restarted on the registry."""
+    import tempfile
+
+    from semantic_router_tpu_torch.state.llamastack import MiniLlamaStack
+    from semantic_router_tpu_torch.state.postgres import MiniPostgres, \
+        PostgresClient
+    from semantic_router_tpu_torch.vectorstore import VectorStoreManager
+    from semantic_router_tpu_torch.vectorstore.pg_registry import \
+        PostgresMetadataRegistry
+
+    docs = rt_docs()[:8]
+    queries = rt_requests()[:4]
+    memo: dict = {}
+
+    def embed_on(eng, tag):
+        def fn(text):
+            if (tag, text) not in memo:
+                memo[(tag, text)] = eng.embed(EMBED_TASK, [text])[0]
+            return memo[(tag, text)]
+        return fn
+
+    def hits(store):
+        return [[(h.chunk.metadata.get("source"), h.score)
+                 for h in store.search(q, top_k=3)] for q in queries]
+
+    out: dict = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="p17_")
+    sides = {}
+    try:
+        for tag, eng in (("card", engine), ("cpu", cpu)):
+            embed = embed_on(eng, tag)
+            ls = MiniLlamaStack(embed).start()
+            paths = {b: os.path.join(tmp, f"{tag}_{b}.db")
+                     for b in ("llamastack", "memory")}
+            try:
+                def managers():
+                    pgs = {b: MiniPostgres(path=p) for b, p in paths.items()}
+                    regs = {b: PostgresMetadataRegistry(
+                        client=PostgresClient(port=pg.port))
+                        for b, pg in pgs.items()}
+                    mgrs = {b: VectorStoreManager(
+                        embed, backend=b, registry=regs[b],
+                        backend_config={"url": ls.url})
+                        for b in regs}
+                    return pgs, regs, mgrs
+
+                t0 = time.perf_counter()
+                pgs, regs, mgrs = managers()
+                side = {}
+                for b, mgr in mgrs.items():
+                    store = mgr.create("kb")
+                    for name, text, src in docs:
+                        mgr.record_file("kb", store.ingest(
+                            name, text, metadata={"source": src}))
+                    side[b] = hits(store)
+                side["ingest_s"] = time.perf_counter() - t0
+                for b in regs:
+                    regs[b].close()
+                    pgs[b].close()
+                # restart: fresh servers on the files, fresh managers
+                pgs, regs, mgrs = managers()
+                side["attached"] = {b: m.load_from_registry()
+                                    for b, m in mgrs.items()}
+                side["files"] = {b: len(regs[b].list_files("kb"))
+                                 for b in regs}
+                side["llamastack_after"] = hits(mgrs["llamastack"].get("kb"))
+                side["memory_after"] = mgrs["memory"].get("kb").stats()
+                for b in regs:
+                    regs[b].close()
+                    pgs[b].close()
+            finally:
+                ls.stop()
+            sides[tag] = side
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card, cpu_side = sides["card"], sides["cpu"]
+    for what in ("llamastack", "memory", "llamastack_after"):
+        for qi, (got, want) in enumerate(zip(card[what], cpu_side[what])):
+            check([s for s, _ in got] == [s for s, _ in want]
+                  and all(abs(a - b) <= DP_TOL for (_, a), (_, b)
+                          in zip(got, want)),
+                  f"17c {what}: query {qi} hits {got} on the card, "
+                  f"{want} on the CPU port")
+    check(card["llamastack_after"] == card["llamastack"],
+          "17c: the Llama-Stack store's hits changed across the restart")
+    check(card["attached"] == {"llamastack": ["kb"], "memory": ["kb"]}
+          and card["files"] == {"llamastack": len(docs),
+                                "memory": len(docs)},
+          f"17c: registry after the restart {card['attached']}, "
+          f"files {card['files']}")
+    check(card["memory_after"] == {"documents": 0, "chunks": 0},
+          f"17c: a memory store re-attaches its name only, got "
+          f"{card['memory_after']}")
+    out.update(card)
+    print("phase 17c stores: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_dual_path(modules3: dict, modules5: dict, smi: str) -> dict:
+    """Phase 17: 17a the dual path over phase 3's trunk, 17b the LoRA
+    trunk, 17c the Llama-Stack and Postgres-registry stores over phase 5's
+    embedding model, then the cuda tests of
+    ``tests/test_torch_dual_path_cuda.py``."""
+    t0 = time.perf_counter()
+    cfg = load_config(DP_CONFIG)
+    out: dict = {"card": smi}
+    engine = dp_engine(DEVICE, modules3["cuda"], cfg)
+    cpu = dp_engine("cpu", modules3["cpu"], cfg)
+    _cuda.reset_launch_counts()
+    try:
+        stamp("phase 17a: dual path")
+        out["dual"] = dp_dual(engine, cpu, cfg, smi)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    stamp("phase 17b: lora trunk")
+    out["lora_trunk"] = dp_lora_trunk(smi)
+    stamp("phase 17c: stores")
+    scfg = load_config(rt_config(rag=False))
+    engine = sp_engine(DEVICE, scfg, modules3["cuda"], modules5["cuda"])
+    cpu = sp_engine("cpu", scfg, modules3["cpu"], modules5["cpu"])
+    try:
+        out["stores"] = dp_stores(engine, cpu, smi)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    out["launches"] = _cuda.launch_counts()
+    out["cuda_tests"] = run_cuda_tests("test_torch_dual_path_cuda.py", 2)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {out['seconds']:.1f} s | {smi}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8700,6 +9169,9 @@ def main(argv=None) -> int:
     stamp("phase 16: retrieval")
     rt = report["retrieval"] = phase_retrieval(modules3, modules5,
                                                dev["smi"])
+    stamp("phase 17: dual path")
+    dp = report["dual_path"] = phase_dual_path(modules3, modules5,
+                                               dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -8725,19 +9197,21 @@ def main(argv=None) -> int:
             # phases' bank and embedding model, the gates phase's
             # trunks, the models phase's intent bank, the multimodal
             # phase's bank and embedding model and the state plane
-            # phase's replicas' banks and embedding models and the
+            # phase's replicas' banks and embedding models, the
             # retrieval phase's bank and embedding model (ingest, RAG
-            # queries, cache probes, the external stores); K2 in the
-            # serve, fixture, respond, observe, gates, chat, models,
-            # multimodal, state plane and retrieval banks and under
-            # every quant mode
+            # queries, cache probes, the external stores) and the dual
+            # path phase's trunk (both paths), LoRA trunk and embedding
+            # model (the two stores); K2 in the serve, fixture, respond,
+            # observe, gates, chat, models, multimodal, state plane,
+            # retrieval and dual path (traditional side) banks and
+            # under every quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
             + gates["launches"][kname] + res["launches"][kname]
             + chat["launches"][kname] + models["launches"][kname]
             + mm["launches"][kname] + sp["launches"][kname]
-            + rt["launches"][kname]
+            + rt["launches"][kname] + dp["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -999,14 +999,12 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     objectives, the fleet observability plane, OTLP export, a durable
     decision store other than SQLite), a ``response_store`` backend
     outside ``RESPONSE_STORE_BACKENDS``, the ANN bank's row sharding
-    (``ann.mesh``), the Llama-Stack vector store
-    (``vectorstore.backend: llamastack``), the Postgres store registry
-    (``vectorstore.registry.backend: postgres``), a selector
-    ``algorithm.artifact``.  The shared state plane (``stateplane``, its
-    fleet-shared ladder and upstream circuits), the RESP-backed stores
-    and the retrieval plane (``ann`` on one device, ``vectorstore``, the
-    ``rag`` plugin, qdrant / milvus memory stores and caches) are
-    served."""
+    (``ann.mesh``), a selector ``algorithm.artifact``.  The shared state
+    plane (``stateplane``, its fleet-shared ladder and upstream
+    circuits), the RESP-backed stores and the retrieval plane (``ann`` on
+    one device, ``vectorstore`` with every backend the reference names,
+    Llama-Stack included, and its Postgres store registry, the ``rag``
+    plugin, qdrant / milvus memory stores and caches) are served."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
     for key, what in UNPORTED.items():
@@ -1056,15 +1054,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
             and _enabled(ann.get("mesh")):
         raise ValueError("ann.mesh: the ANN bank's row sharding is not "
                          "served by this port yet (one device)")
-    vs = routing.get("vectorstore", d.get("vectorstore")) or {}
-    if isinstance(vs, dict):
-        if str(vs.get("backend", "") or "") == "llamastack":
-            raise ValueError("vectorstore.backend 'llamastack' is not "
-                             "served by this port yet")
-        if str((vs.get("registry") or {}).get("backend", "") or "") \
-                == "postgres":
-            raise ValueError("vectorstore.registry.backend 'postgres' is "
-                             "not served by this port yet")
     decisions = list(routing.get("decisions", d.get("decisions", [])) or [])
     for rec in d.get("recipes", []) or []:
         rec = rec or {}

@@ -7,11 +7,23 @@ from .classify import (
     TokenClassResult,
     TrunkGroup,
 )
+from .pathing import (
+    STACKED,
+    TRADITIONAL,
+    DualPathChooser,
+    PathSelection,
+    ProcessingRequirements,
+)
 from .kernels import QUANT_MODES, normalize_kernels, normalize_quant, \
     quant_selects
 
 __all__ = [
     "BatchItem",
+    "DualPathChooser",
+    "PathSelection",
+    "ProcessingRequirements",
+    "STACKED",
+    "TRADITIONAL",
     "QUANT_MODES",
     "ClassResult",
     "DynamicBatcher",

@@ -51,6 +51,15 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   ``_generative_lock``, its adapter selected by name, its prefill and
   decode steps in the task's step cache under the engine's capture gate;
   ``guard_classify`` parses the guard's verdict;
+- the stacked multi-task LoRA bank (``register_stacked_bank``: a
+  ``MultiTaskLoRAClassifier`` whose sequence tasks are also registered
+  traditionally) is the second execution path of ``classify_multi``: one
+  trunk pass serves every task, as a step captured once per (padded rows,
+  bucket) in the bank's own step cache; ``engine.pathing``'s
+  ``DualPathChooser`` picks per call between it and the traditional path
+  (trunk group or per-task), learning from the outcome of each, and a
+  stacked pass that fails or outlives its half of the deadline fails open
+  to the traditional path;
 - ``multimodal`` tasks (``register_multimodal``: a SigLIP
   ``SiglipEmbedder``) bypass the batcher too: ``embed_multimodal``
   embeds texts and images into the shared space, each tower step in the
@@ -80,6 +89,8 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
 import threading
 import time
 import weakref
@@ -118,6 +129,14 @@ from .graphs import (
     on_first_execution,
 )
 from .kernels import normalize_kernels, normalize_quant, quant_selects
+from .pathing import (
+    STACKED,
+    TRADITIONAL,
+    DualPathChooser,
+    PathMetrics,
+    PathSelection,
+    ProcessingRequirements,
+)
 
 # batch-group key prefix for fused trunk groups
 TRUNK_KEY = "__trunk__"
@@ -298,6 +317,19 @@ class TrunkGroup:
                                cfg.classifier_activation, cfg.norm_eps)
 
 
+@dataclass
+class StackedBank:
+    """The registered multi-task LoRA bank: the second execution path of
+    its sequence tasks."""
+
+    module: nn.Module          # MultiTaskLoRAClassifier on the device
+    tokenizer: Tokenizer
+    tasks: List[str]           # the bank's sequence tasks, in bank order
+    max_seq_len: int
+    pad_id: int
+    graphs: StepGraphs         # the stacked steps' compiled-step cache
+
+
 class InferenceEngine:
     """Owner of the served classifier tasks + the batching shim.
 
@@ -345,6 +377,12 @@ class InferenceEngine:
         self._generative_lock = threading.Lock()
         self.trunk_forwards = 0
         self.fused_dedup_rows = 0
+        # the dual path: the stacked bank, its one-worker pool, the
+        # chooser and the last call's selection (register_stacked_bank)
+        self._stacked: Optional[StackedBank] = None
+        self._stacked_pool: Optional[ThreadPoolExecutor] = None
+        self.path_chooser: Optional[DualPathChooser] = None
+        self.last_path_selection: Optional[PathSelection] = None
         self.batcher = DynamicBatcher(
             self._run_batch,
             max_batch_size=self.cfg.max_batch_size,
@@ -762,11 +800,71 @@ class InferenceEngine:
 
     def fused_covers(self, tasks: Sequence[str]) -> bool:
         """True when one fused execution serves every listed sequence task
-        — the dispatcher's prefetch gate."""
+        — the dispatcher's prefetch gate.  A trunk group always
+        qualifies; the stacked bank only when the dual-path chooser would
+        pick it now (claiming coverage while the chooser serves
+        traditional would turn the prefetch into serial per-task
+        forwards).  A concurrent record can still flip classify_multi's
+        own choice after this check: the prefetch's timeout bounds that,
+        and its results are read from the memo all the same."""
         tasks = list(tasks)
         if not tasks or any(self.task_kind(t) != "sequence" for t in tasks):
             return False
-        return self._common_trunk_group(tasks) is not None
+        if self._common_trunk_group(tasks) is not None:
+            return True
+        stacked = self._stacked
+        if stacked is None or any(t not in stacked.tasks for t in tasks):
+            return False
+        sel = self.path_chooser.choose(
+            ProcessingRequirements(tasks=tasks, batch_size=1))
+        return sel.selected_path == STACKED
+
+    def register_stacked_bank(self, module: nn.Module, tokenizer: Tokenizer,
+                              max_seq_len: int = 0, pad_id: int = 0,
+                              strategy: str = "adaptive") -> None:
+        """Register a ``MultiTaskLoRAClassifier`` as the SECOND execution
+        path of its sequence tasks: one trunk pass serves every task.
+        Each of them must also be registered traditionally
+        (``register_task``): both paths can serve, the chooser picks.
+        ``strategy``: adaptive | latency | confidence | traditional |
+        stacked (the last two pin the path).  The module moves to the
+        engine's device; its steps capture in a cache of their own, which
+        a re-registration retires with the old bank, and the old bank's
+        one-worker pool retires with it.  The chooser's cost prior reads
+        the runtime-stats step EWMAs (resilience.costmodel)."""
+        from ..resilience.costmodel import CostModel, make_path_cost_prior
+
+        kinds = getattr(module, "task_kinds", {}) or {}
+        seq_tasks = [t for t in module.task_names
+                     if kinds.get(t, "sequence") == "sequence"]
+        for t in seq_tasks:
+            if not self.has_task(t):
+                raise ValueError(
+                    f"stacked bank task {t!r} has no traditional "
+                    "registration — register_task it first (dual-path "
+                    "needs both)")
+        module = module.to(self.device).eval()
+        bank = StackedBank(
+            module=module, tokenizer=tokenizer, tasks=seq_tasks,
+            max_seq_len=max_seq_len or self.cfg.seq_len_buckets[-1],
+            pad_id=pad_id,
+            graphs=StepGraphs(self.device, self._gate, "stacked"))
+        with self._changing():
+            old, self._stacked = self._stacked, bank
+            if old is not None:
+                self._stale.append(old.graphs)
+        # one worker: classify_multi waits on it with the caller's
+        # budget; an abandoned run (a first capture) keeps going and
+        # leaves its graph for the next attempt
+        old_pool, self._stacked_pool = self._stacked_pool, \
+            ThreadPoolExecutor(max_workers=1,
+                               thread_name_prefix="stacked-bank")
+        if old_pool is not None:
+            old_pool.shutdown(wait=False)
+        self.path_chooser = DualPathChooser(
+            strategy=strategy,
+            cost_prior=make_path_cost_prior(CostModel(self._runtime_stats)))
+        self.last_path_selection = None
 
     # -- public inference --------------------------------------------------
 
@@ -804,19 +902,87 @@ class InferenceEngine:
                           tok_s=tok_s, tok_cached=cached))
 
     def classify_multi(self, tasks: Sequence[str], texts: Sequence[str],
-                       timeout: float = 30.0,
+                       timeout: float = 30.0, requirements=None,
                        enc_cache=None) -> Dict[str, List[ClassResult]]:
-        """Classify the same texts under several sequence tasks.  Tasks of
-        one trunk group ride ONE item per text (tokenized once, one trunk
-        row, heads demuxed); otherwise each task classifies on its own."""
+        """Classify the same texts under several sequence tasks.  With a
+        stacked bank covering every task, the dual-path chooser decides
+        between its one pass and the traditional path, learning from the
+        outcome of each call; otherwise tasks of one trunk group ride ONE
+        item per text (tokenized once, one trunk row, heads demuxed), and
+        any other mix classifies task by task.  One deadline covers the
+        whole call: a stacked attempt gets half of it (all of it when the
+        strategy pins ``stacked``), and on a timeout or an error the call
+        fails open to the traditional path with what is left.  The
+        selection is left in ``last_path_selection``."""
         tasks = list(tasks)
         for t in tasks:
             self._require(t, kind="sequence")
-        g = self._common_trunk_group(tasks)
-        if g is None:
-            return {t: self.classify_batch(t, texts, timeout=timeout,
-                                           enc_cache=enc_cache)
-                    for t in tasks}
+        stacked = self._stacked
+        chooser = self.path_chooser
+        eligible = stacked is not None and len(tasks) > 0 and \
+            all(t in stacked.tasks for t in tasks)
+        req = requirements or ProcessingRequirements(
+            tasks=tasks, batch_size=len(texts))
+        if eligible:
+            sel = chooser.choose(req)
+        else:
+            sel = PathSelection(TRADITIONAL, 1.0,
+                                "no stacked bank covers these tasks",
+                                PathMetrics())
+        self.last_path_selection = sel
+        deadline = time.perf_counter() + timeout
+
+        def remaining() -> float:
+            return max(0.05, deadline - time.perf_counter())
+
+        if sel.selected_path == STACKED:
+            t0 = time.perf_counter()
+            budget = timeout if chooser.strategy == STACKED \
+                else timeout / 2
+            try:
+                out = self._stacked_pool.submit(
+                    self._stacked_run, tasks, texts,
+                    enc_cache).result(budget)
+            except FutureTimeout:
+                chooser.record(STACKED, tasks, len(texts), budget, 0.0,
+                               ok=True)
+                self.last_path_selection = PathSelection(
+                    TRADITIONAL, 1.0,
+                    f"stacked pass exceeded {budget:g}s budget — serving "
+                    "traditional", PathMetrics())
+            except Exception:
+                chooser.record(STACKED, tasks, len(texts),
+                               time.perf_counter() - t0, 0.0, ok=False)
+                self.last_path_selection = PathSelection(
+                    TRADITIONAL, 1.0,
+                    "stacked pass failed — fail-open to traditional",
+                    PathMetrics())
+            else:
+                chooser.record(STACKED, tasks, len(texts),
+                               time.perf_counter() - t0,
+                               _mean_confidence(out, texts))
+                return out
+
+        t0 = time.perf_counter()
+        group = self._common_trunk_group(tasks)
+        if group is not None:
+            out = self._fused_multi(group, tasks, texts, remaining(),
+                                    enc_cache)
+        else:
+            out = {t: self.classify_batch(t, texts, timeout=remaining(),
+                                          enc_cache=enc_cache)
+                   for t in tasks}
+        if eligible:
+            chooser.record(TRADITIONAL, tasks, len(texts),
+                           time.perf_counter() - t0,
+                           _mean_confidence(out, texts))
+        return out
+
+    def _fused_multi(self, g: TrunkGroup, tasks: List[str],
+                     texts: Sequence[str], timeout: float,
+                     enc_cache=None) -> Dict[str, List[ClassResult]]:
+        """The trunk-group fan-out: each text is ONE batch item carrying
+        every requested task, submitted per bucket as one submit_many."""
         deadline = time.perf_counter() + timeout
         by_bucket: Dict[int, List[tuple]] = {}
         for ti, text in enumerate(texts):
@@ -836,6 +1002,58 @@ class InferenceEngine:
             res = f.result(timeout=max(0.05, deadline - time.perf_counter()))
             results[ti] = res if isinstance(res, dict) else {tasks[0]: res}
         return {t: [results[i][t] for i in range(len(texts))] for t in tasks}
+
+    def _stacked_run(self, tasks: Sequence[str], texts: Sequence[str],
+                     enc_cache=None) -> Dict[str, List[ClassResult]]:
+        """One stacked pass: tokenize once, pad to (pow2 rows, bucket), run
+        the bank's step (captured once per shape, replayed after), decode
+        each requested task with ITS registered label set, width-tolerant
+        as the traditional path decodes."""
+        st = self._stacked
+        n = len(texts)
+        encs = [self._encode(st, text, enc_cache, "stacked",
+                             ("stacked",))[0] for text in texts]
+        bucket = pick_bucket(max((len(e) for e in encs), default=1),
+                             self.cfg.seq_len_buckets)
+        padded_n = pow2_batch(n, self.cfg.max_batch_size)
+        ids = np.full((padded_n, bucket), st.pad_id, dtype=np.int64)
+        mask = np.zeros((padded_n, bucket), dtype=np.int32)
+        for i, enc in enumerate(encs):
+            L = min(len(enc), bucket)
+            ids[i, :L] = enc.ids[:L]
+            mask[i, :L] = enc.attention_mask[:L]
+        module, order = st.module, list(st.tasks)
+
+        def step(ids, mask):
+            logits = module(ids, mask)
+            return tuple(logits[t] for t in order)
+
+        self._note_shape("stacked", (padded_n, bucket))
+        t0 = time.perf_counter()
+        first: list = []
+        with trace_span("engine.classify_multi.stacked",
+                        cuda=self.device.type == "cuda"):
+            outs, how = self._execute(
+                st.graphs, "stacked", "stacked", (bucket, padded_n), step,
+                [torch.from_numpy(ids), torch.from_numpy(mask)],
+                (bucket, padded_n, "stacked", "stacked", None), first)
+        secs = time.perf_counter() - t0
+        self._record_step("stacked", bucket, "stacked", n, padded_n, secs,
+                          bool(first), {
+                              "group": "stacked", "bucket": bucket,
+                              "flavor": "stacked", "rows": n,
+                              "padded_rows": padded_n,
+                              "layers": module.model.layers_run(),
+                              "seconds": secs, "graph": how})
+        self._series().trunk_forwards.inc(group="stacked", path="stacked")
+        logits_by_task = dict(zip(order, (o.numpy() for o in outs)))
+        out: Dict[str, List[ClassResult]] = {}
+        for task in tasks:
+            probs = _softmax(logits_by_task[task][:n])
+            out[task] = [self._demux_seq(task, probs[i], 0.0,
+                                         encs[i].truncated)
+                         for i in range(n)]
+        return out
 
     def classify_windowed(self, task: str, text: str, stride: int = 64,
                           timeout: float = 30.0) -> ClassResult:
@@ -981,7 +1199,9 @@ class InferenceEngine:
     def _live_caches(self) -> List[StepGraphs]:
         """Every live step cache (caller holds self._lock)."""
         return ([g.demux["graphs"] for g in self._groups_by_gid.values()]
-                + [t.graphs for t in self._tasks.values()])
+                + [t.graphs for t in self._tasks.values()]
+                + ([self._stacked.graphs] if self._stacked is not None
+                   else []))
 
     def _matryoshka_variants(self) -> List[tuple]:
         """(exit_layer, output_dim) pairs an embedding task serves: the
@@ -993,9 +1213,11 @@ class InferenceEngine:
                 + [(el, od) for el in layers for od in dims])
 
     def shutdown(self) -> None:
-        """Stop the batcher and drop every captured graph (their pools
-        return to the card)."""
+        """Stop the batcher and the stacked bank's pool and drop every
+        captured graph (their pools return to the card)."""
         self.batcher.shutdown()
+        if self._stacked_pool is not None:
+            self._stacked_pool.shutdown(wait=False)
         rs = self._runtime_stats
         rs.unregister_provider(self.batcher.name, self._queue_provider)
         rs.unregister_memory_provider(f"engine:{id(self):x}",
@@ -1554,6 +1776,14 @@ class InferenceEngine:
                                     threshold=item.payload.threshold)
         return TokenClassResult(entities=[EntitySpan(**s) for s in spans],
                                 latency_s=latency_s, truncated=truncated)
+
+
+def _mean_confidence(out: Dict[str, List[ClassResult]],
+                     texts: Sequence[str]) -> float:
+    """The mean top-class confidence of a classify_multi outcome (the
+    chooser's record)."""
+    return float(np.mean([r.confidence for rs in out.values()
+                          for r in rs])) if texts else 0.0
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:

@@ -15,7 +15,11 @@ from torch import nn
 from ..config.schema import InferenceEngineConfig
 from ..models.convert import params_from_flax
 from ..models.embeddings import MmBertEmbeddingModel
-from ..models.lora import LoRAConfig, ModernBertLoRAHeadClassifier
+from ..models.lora import (
+    LoRAConfig,
+    ModernBertLoRAHeadClassifier,
+    MultiTaskLoRAClassifier,
+)
 from ..models.modernbert import (
     ModernBertConfig,
     ModernBertForSequenceClassification,
@@ -190,6 +194,116 @@ def make_shared_trunk_engine(
         trunk = module.model
         engine.register_task(name, kind, module, tok, labels,
                              max_seq_len=max_seq_len, fuse=fuse)
+    return engine
+
+
+def stack_lora_heads(heads: Dict[str, ModernBertLoRAHeadClassifier]
+                     ) -> MultiTaskLoRAClassifier:
+    """The ``MultiTaskLoRAClassifier`` that computes what a set of
+    LoRA-head classifiers compute: one trunk object and one head dense
+    shared by every member, the members' adapters stacked in the given
+    order (``lora_A`` [T, D, r], ``lora_B`` [T, r, D]), each member's
+    LayerNorm and classifier under its task name.  The bank rides the
+    members' trunk (no copy).  Raises when the members do not share the
+    trunk, the head dense or the adapter shape, or their classifier
+    activation is not the bank's exact GELU."""
+    names = list(heads)
+    first = heads[names[0]]
+    cfg, rank = first.config, first.lora.rank
+    for name, h in heads.items():
+        if h.model is not first.model:
+            raise ValueError(f"{name!r} does not share the trunk")
+        if h.lora.rank != rank or h.lora.alpha != first.lora.alpha:
+            raise ValueError(f"{name!r}: adapter shape differs")
+        if not torch.equal(h.head_dense.weight, first.head_dense.weight):
+            raise ValueError(f"{name!r} does not share the head dense")
+        if h.config.classifier_activation not in ("gelu", "gelu_python"):
+            raise ValueError(f"{name!r}: classifier activation "
+                             f"{h.config.classifier_activation!r} is not "
+                             "the bank's exact GELU")
+    bank = MultiTaskLoRAClassifier(
+        cfg, LoRAConfig(rank=rank, alpha=first.lora.alpha,
+                        num_tasks=len(names)),
+        names, {n: h.classifier.out_features for n, h in heads.items()},
+        {n: "sequence" for n in names}, model=first.model)
+    with torch.no_grad():
+        bank.head_dense.weight.copy_(first.head_dense.weight)
+        if first.head_dense.bias is not None:
+            bank.head_dense.bias.copy_(first.head_dense.bias)
+        bank.head_lora.lora_A.copy_(torch.stack(
+            [heads[n].lora_A for n in names]))
+        bank.head_lora.lora_B.copy_(torch.stack(
+            [heads[n].lora_B for n in names]))
+        for n in names:
+            getattr(bank, f"head_norm_{n}").load_state_dict(
+                heads[n].head_norm.state_dict())
+            getattr(bank, f"classifier_{n}").load_state_dict(
+                heads[n].classifier.state_dict())
+    return bank.to(first.head_dense.weight.device).eval()
+
+
+DUAL_PATH_TASKS = [
+    ("intent", ["business", "law", "health", "computer science", "other"]),
+    ("jailbreak", ["benign", "jailbreak"]),
+    ("fact_check", ["no_fact_check", "fact_check"]),
+    ("user_feedback", ["satisfied", "need_clarification", "wrong_answer",
+                       "want_different"]),
+]
+
+
+def make_dual_path_engine(
+    tasks: Optional[Sequence[tuple]] = None,
+    engine_cfg: Optional[InferenceEngineConfig] = None,
+    seed: int = 0,
+    device: DeviceLike = None,
+    model_config: Optional[Dict[str, Any]] = None,
+    strategy: str = "adaptive",
+    max_seq_len: int = 512,
+    lora: LoRAConfig = LoRAConfig(rank=4, alpha=8.0),
+    trunk: Optional[ModernBertModel] = None,
+    tokenizer=None,
+    **observability,
+) -> InferenceEngine:
+    """An engine serving its sequence tasks on both paths of
+    ``classify_multi``, from one set of weights: traditionally, as
+    ``ModernBertLoRAHeadClassifier`` members of one trunk group (one
+    trunk, one head dense, an adapter, a LayerNorm and a classifier per
+    task), and as the ``MultiTaskLoRAClassifier`` bank stacked from those
+    very modules (``stack_lora_heads``), under ``strategy``.  Both paths
+    compute the same function.  ``tasks``: (name, labels) pairs (default
+    ``DUAL_PATH_TASKS``); ``model_config``: the ModernBertConfig fields
+    (default ``TINY``); weights from ``seed``, every ``lora_B`` non-zero.
+    ``trunk``: an existing ``ModernBertModel`` the heads ride (its
+    weights are kept; ``model_config`` must be its config's fields)."""
+    tasks = DUAL_PATH_TASKS if tasks is None else tasks
+    cfg = engine_cfg or InferenceEngineConfig(
+        max_batch_size=16, max_wait_ms=1.0, seq_len_buckets=[32, 128, 512])
+    mfields = dict(TINY if model_config is None else model_config)
+    engine = InferenceEngine(cfg, device=device, **observability)
+    tok = tokenizer or HashTokenizer(vocab_size=mfields["vocab_size"])
+    heads: Dict[str, ModernBertLoRAHeadClassifier] = {}
+    dense = None
+    for i, (name, labels) in enumerate(tasks):
+        mcfg = ModernBertConfig(**{**mfields, "num_labels": len(labels)})
+        module = ModernBertLoRAHeadClassifier(mcfg, lora, len(labels),
+                                              model=trunk)
+        init_weights(module, seed if trunk is None else seed * 1000 + i,
+                     skip="" if trunk is None else "model.")
+        module = module.to(module.model.embeddings.tok_embeddings
+                           .weight.device)
+        rng = np.random.default_rng(seed * 1000 + 500 + i)
+        with torch.no_grad():
+            module.lora_B.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(module.lora_B.shape), np.float32) * 0.3))
+            if dense is not None:
+                module.head_dense.load_state_dict(dense.state_dict())
+        trunk, dense = module.model, module.head_dense
+        heads[name] = module
+        engine.register_task(name, "sequence", module, tok, labels,
+                             max_seq_len=max_seq_len)
+    engine.register_stacked_bank(stack_lora_heads(heads), tok,
+                                 max_seq_len=max_seq_len,
+                                 strategy=strategy)
     return engine
 
 

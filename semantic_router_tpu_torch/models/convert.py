@@ -11,6 +11,12 @@
   leaves), whose Flax names follow HF's; ``deberta_params_from_flax``
   maps the DeBERTa tree's own names (``deberta/layers_i/...``,
   ``pooler_dense``, ``encoder_LayerNorm``, ``rel_embeddings``) onto HF's.
+- The LoRA modules (``MultiTaskLoRAClassifier``, the ``LoRAModernBert*``
+  classifiers, ``LoRAMmBertEmbeddingModel``) keep the Flax names, so
+  ``lora_params_from_flax`` is ``params_from_flax`` held to the module:
+  every parameter the module has must come from the tree, and nothing
+  else (a task-stacked ``lora_A`` [T, in, r] / ``lora_B`` [T, r, out]
+  keeps its layout; the trunk's ``LoRADense`` kernels transpose).
 - SigLIP: the port's names are the JAX tree's (``layers_i`` → ``layers.i``),
   so ``siglip_params_from_flax`` only transposes (Dense kernels; the patch
   conv's HWIO kernel → OIHW); ``siglip_state_from_hf`` maps an HF
@@ -35,8 +41,9 @@ import torch
 _LAYER_RE = re.compile(r"^layers_(\d+)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "weight": "weight", "bias": "bias"}
-# bare parameters, carried as they are (no transpose)
-_RAW = frozenset({"lora_A", "lora_B"})
+# bare parameters, carried as they are (no transpose): LoRA adapters,
+# ``lora_A`` / ``lora_B`` and Flax's suffixed ``lora_A<suffix>``
+_RAW_PREFIXES = ("lora_A", "lora_B")
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -54,7 +61,7 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 m = _LAYER_RE.match(key)
                 walk(val, path + ([f"layers.{m.group(1)}"] if m else [key]))
                 continue
-            if key not in _LEAF and key not in _RAW:
+            if key not in _LEAF and not key.startswith(_RAW_PREFIXES):
                 raise KeyError(f"unknown Flax leaf {'/'.join(path + [key])}")
             t = _host(val)
             out[".".join(path + [_LEAF.get(key, key)])] = \
@@ -62,6 +69,26 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def lora_params_from_flax(module: torch.nn.Module,
+                          flax_params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """A Flax LoRA module's params (numpy) → ``module``'s state dict:
+    ``params_from_flax`` checked against the module — a parameter the
+    tree lacks, a leaf the module lacks, or a shape that differs raises,
+    naming it."""
+    state = params_from_flax(flax_params)
+    want = {k: v.shape for k, v in module.state_dict().items()}
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"Flax tree does not fit {type(module).__name__}: "
+                       f"missing {missing[:8]}, unknown {extra[:8]}")
+    bad = [k for k, v in state.items() if tuple(v.shape) != tuple(want[k])]
+    if bad:
+        raise ValueError(f"shape mismatch for {bad[:8]}")
+    return state
 
 
 def _host(val) -> torch.Tensor:

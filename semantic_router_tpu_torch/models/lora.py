@@ -1,8 +1,8 @@
 """The stacked head bank of the fused classifier bank, the LoRA-head
-classifier that joins it, and the task-stacked ``LoRADense`` of the
-generative decoder.
+classifier that joins it, the task-stacked ``LoRADense`` of the generative
+decoder and the LoRA trunks, and the stacked multi-task LoRA bank.
 
-The port of the head-bank half of ``semantic_router_tpu.models.lora``:
+The port of ``semantic_router_tpu.models.lora``.  The head bank:
 every member task's prediction head (dense → act → LayerNorm →
 classifier, with an optional rank-r LoRA delta on the dense) stacks into
 one bank of [T, ...] arrays.  ``apply_head_bank`` fans the shared trunk's
@@ -10,6 +10,20 @@ features out through every head; ``apply_head_bank_bgmv`` computes only
 the (row, task) pairs a batch asked for, through the BGMV kernel.  Arrays
 keep the JAX layout (``dense_kernel`` [T, D, H], ``cls_kernel`` [T, H, L])
 so the bank and the kernels take the same operands on both sides.
+
+The LoRA modules: ``LoRADelta`` (task-stacked low-rank deltas, every task
+at once), ``MultiTaskLoRAClassifier`` (one frozen trunk, a shared head
+dense with a task-stacked delta, per-task LayerNorm and classifier: the
+engine's stacked bank, ``register_stacked_bank``), and the trunk-adapted
+``LoRAModernBertForSequenceClassification``,
+``LoRAModernBertForTokenClassification`` and ``LoRAMmBertEmbeddingModel``,
+whose trunks are ``ModernBertModel`` with ``LoRADense`` projections
+selected per call by ``task_index``.  Submodules and parameters keep the
+Flax names (``head_dense``, ``head_lora.lora_A``, ``head_norm_<task>``,
+``classifier_<task>``, ``model.layers.<i>.attn.Wqkv.lora_A``), so
+``models.convert`` carries the JAX trees 1:1.  The LoRA deltas and the
+stacked heads are torch products (the reference computes them outside
+any Pallas kernel); the trunks' attention is the flash kernel on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +39,9 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class LoRAConfig:
     """An adapter's rank and alpha, and the number of task-stacked
-    adapters a ``LoRADense`` carries (the JAX class's ``adapt_*`` fields
-    come with the LoRA trunks, a later slice)."""
+    adapters a ``LoRADense`` / ``LoRADelta`` carries.  The JAX class's
+    ``adapt_attention`` / ``adapt_mlp`` are not carried: its LoRA trunks
+    adapt every projection whatever they say, as these do."""
 
     rank: int = 8
     alpha: float = 16.0
@@ -115,11 +130,16 @@ class LoRADense(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``task_index`` None selects adapter 0 (the JAX ``_make_dense``
+        default)."""
         y = nn.functional.linear(x, self.weight, self.bias)
         if self.lora is None:
             return y
-        a = self.lora_A.index_select(0, task_index.reshape(1))[0]
-        b = self.lora_B.index_select(0, task_index.reshape(1))[0]
+        if task_index is None:
+            a, b = self.lora_A[0], self.lora_B[0]
+        else:
+            a = self.lora_A.index_select(0, task_index.reshape(1))[0]
+            b = self.lora_B.index_select(0, task_index.reshape(1))[0]
         return y + self.lora.scale * ((x @ a) @ b)
 
 
@@ -301,3 +321,213 @@ def apply_head_bank_bgmv(bank: Dict[str, torch.Tensor], pooled: torch.Tensor,
         h = h + bank["norm_bias"].index_select(0, pair_tasks)
     return bgmv(h, bank["cls_kernel"], pair_tasks) \
         + bank["cls_bias"].index_select(0, pair_tasks)
+
+
+# -- the LoRA modules ---------------------------------------------------------
+
+
+class LoRADelta(nn.Module):
+    """Task-stacked low-rank delta: x [B, S, D] (or task-stacked
+    [T, B, S, D]) → delta [T, B, S, out] = scale · (x A[t]) B[t] for every
+    task t.  ``lora_A`` [T, D, r] and ``lora_B`` [T, r, out] keep the Flax
+    layout; a fresh delta draws A ~ normal(0.02) and zeroes B (the
+    identity), as Flax's init does."""
+
+    def __init__(self, in_features: int, features: int,
+                 lora: LoRAConfig) -> None:
+        super().__init__()
+        self.lora = lora
+        self.lora_A = nn.Parameter(torch.randn(
+            lora.num_tasks, in_features, lora.rank) * 0.02)
+        self.lora_B = nn.Parameter(torch.zeros(
+            lora.num_tasks, lora.rank, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        T = self.lora.num_tasks
+        if x.dim() == 4 and x.shape[0] == T:  # already task-stacked
+            h = torch.einsum("tbsd,tdr->tbsr", x, self.lora_A)
+        else:
+            h = torch.einsum("bsd,tdr->tbsr", x, self.lora_A)
+        return self.lora.scale * torch.einsum("tbsr,tro->tbso", h,
+                                              self.lora_B)
+
+
+def _pool(cfg, hidden: torch.Tensor, mask: torch.Tensor,
+          pooling: Optional[str] = None) -> torch.Tensor:
+    from ..ops.attention import cls_pool, mean_pool
+
+    how = pooling or cfg.classifier_pooling
+    return mean_pool(hidden, mask) if how == "mean" else cls_pool(hidden)
+
+
+class MultiTaskLoRAClassifier(nn.Module):
+    """Shared frozen ModernBERT trunk + per-task LoRA'd prediction heads:
+    ONE forward evaluates every task on the same batch.  The trunk runs
+    once; ``head_dense`` and ALL tasks' ``head_lora`` deltas apply once
+    per feature kind (pooled for sequence tasks, every token for token
+    tasks), then per task an exact GELU, ``head_norm_<task>`` and
+    ``classifier_<task>``.  Returns {task: logits} — [B, L] for a sequence
+    task, [B, S, L] for a token task.
+
+    ``model``: an existing trunk to share (the engine's stacked bank may
+    ride the trunk a trunk group already holds on the card)."""
+
+    def __init__(self, cfg, lora: LoRAConfig, task_names: List[str],
+                 task_labels: Dict[str, int],
+                 task_kinds: Optional[Dict[str, str]] = None,
+                 model: Optional[nn.Module] = None) -> None:
+        from .modernbert import Dense, LayerNorm, ModernBertModel
+
+        super().__init__()
+        D = cfg.hidden_size
+        self.config = cfg
+        self.lora = lora
+        self.task_names = list(task_names)
+        self.task_labels = dict(task_labels)
+        self.task_kinds = dict(task_kinds or {})
+        self.model = model if model is not None else ModernBertModel(cfg)
+        self.head_dense = Dense(D, D, cfg.classifier_bias, cfg.dtype)
+        self.head_lora = LoRADelta(D, D, lora)
+        for task in self.task_names:
+            self.add_module(f"head_norm_{task}", LayerNorm(cfg))
+            self.add_module(f"classifier_{task}",
+                            Dense(D, self.task_labels[task], True,
+                                  cfg.dtype))
+
+    def kind(self, task: str) -> str:
+        return self.task_kinds.get(task, "sequence")
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask)
+        kinds = {self.kind(t) for t in self.task_names}
+        feats: Dict[str, torch.Tensor] = {}
+        if "sequence" in kinds:
+            xp = _pool(self.config, hidden, attention_mask)[:, None, :]
+            feats["sequence"] = self.head_dense(xp) + self.head_lora(xp)
+        if "token" in kinds:
+            feats["token"] = self.head_dense(hidden) + self.head_lora(hidden)
+        out: Dict[str, torch.Tensor] = {}
+        for ti, task in enumerate(self.task_names):
+            kind = self.kind(task)
+            h = nn.functional.gelu(feats[kind][ti])
+            h = getattr(self, f"head_norm_{task}")(h)
+            logits = getattr(self, f"classifier_{task}")(h)
+            out[task] = logits[:, 0, :] if kind == "sequence" else logits
+        return out
+
+
+def _task_tensor(task_index, like: torch.Tensor) -> torch.Tensor:
+    """``task_index`` as the one-element int64 tensor the trunk's
+    ``LoRADense`` projections gather by (a Python int is placed on
+    ``like``'s device: outside a captured step only)."""
+    if isinstance(task_index, torch.Tensor):
+        return task_index.reshape(1)
+    return torch.tensor([int(task_index)], dtype=torch.long,
+                        device=like.device)
+
+
+def lora_trunk(cfg, lora: LoRAConfig) -> nn.Module:
+    """A ``ModernBertModel`` whose every projection (Wqkv, Wo, Wi) is a
+    ``LoRADense`` carrying ``lora.num_tasks`` adapters — the JAX
+    ``dense_factory`` seam, in the Flax names."""
+    from .modernbert import ModernBertModel
+
+    def factory(d_in: int, d_out: int, bias: bool) -> LoRADense:
+        layer = LoRADense(d_in, d_out, lora, bias=bias)
+        nn.init.kaiming_uniform_(layer.weight, a=5 ** 0.5)
+        return layer
+
+    return ModernBertModel(cfg, dense_factory=factory)
+
+
+class LoRAModernBertForSequenceClassification(nn.Module):
+    """Trunk-adapted LoRA sequence classifier: every attention / MLP
+    projection carries a task-stacked adapter selected by ``task_index``
+    at call time; one set of base weights, T adapters, a switch that
+    changes no shape (and so no captured step)."""
+
+    def __init__(self, cfg, lora: LoRAConfig, num_labels: int) -> None:
+        from .modernbert import Dense, ModernBertPredictionHead
+
+        super().__init__()
+        self.config = cfg
+        self.lora = lora
+        self.model = lora_trunk(cfg, lora)
+        self.head = ModernBertPredictionHead(cfg)
+        self.classifier = Dense(cfg.hidden_size, num_labels, True,
+                                cfg.dtype)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                task_index=0) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask,
+                            task_index=_task_tensor(task_index, input_ids))
+        return self.classifier(self.head(
+            _pool(self.config, hidden, attention_mask)))
+
+
+class LoRAModernBertForTokenClassification(nn.Module):
+    """Token-level sibling of the LoRA sequence classifier: the same
+    adapted trunk, a per-token head → [B, S, num_labels]."""
+
+    def __init__(self, cfg, lora: LoRAConfig, num_labels: int) -> None:
+        from .modernbert import Dense, ModernBertPredictionHead
+
+        super().__init__()
+        self.config = cfg
+        self.lora = lora
+        self.model = lora_trunk(cfg, lora)
+        self.head = ModernBertPredictionHead(cfg)
+        self.classifier = Dense(cfg.hidden_size, num_labels, True,
+                                cfg.dtype)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                task_index=0) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask,
+                            task_index=_task_tensor(task_index, input_ids))
+        return self.classifier(self.head(hidden))
+
+
+class LoRAMmBertEmbeddingModel(nn.Module):
+    """LoRA-adapted embedding trunk: every trunk projection carries a
+    task-stacked adapter; pool → L2-normalize like
+    ``MmBertEmbeddingModel``.  The trained artifact is the adapter stack
+    (``lora_param_filter``)."""
+
+    def __init__(self, cfg, lora: LoRAConfig, pooling: str = "mean") -> None:
+        super().__init__()
+        if pooling not in ("mean", "cls"):
+            raise ValueError(f"pooling {pooling!r} not in ('mean', 'cls')")
+        self.config = cfg
+        self.lora = lora
+        self.pooling = pooling
+        self.model = lora_trunk(cfg, lora)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                task_index=0) -> torch.Tensor:
+        from ..ops.matryoshka import truncate_normalize
+
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask,
+                            task_index=_task_tensor(task_index, input_ids))
+        pooled = _pool(self.config, hidden, attention_mask, self.pooling)
+        return truncate_normalize(pooled, None).to(self.config.dtype)
+
+
+def lora_param_filter(name: str, _param=None) -> bool:
+    """The trainable-parameter predicate of a LoRA fine-tune: True for
+    adapter parameters only (a dotted name with a ``lora_*`` component,
+    as ``model.layers.0.attn.Wqkv.lora_A``); the base stays frozen."""
+    return any(part.startswith("lora_") for part in name.split("."))
+

@@ -24,8 +24,13 @@ float32 and are cast per op (dense inputs, kernels and biases to
 and normalization run in float32 with the output cast to ``dtype``, RoPE
 rotates in float32 and attention's softmax is float32 whatever the
 input.  ``dense_factory(in_features, out_features, bias)`` builds every
-trunk projection (Wqkv, Wo, Wi): the seam the int8 serving trunk uses
-(models.quant).
+trunk projection (Wqkv, Wo, Wi): the seam the int8 serving trunk
+(models.quant) and the LoRA trunks (models.lora: ``LoRADense``
+projections) use.  ``task_index`` threads through every projection as
+the JAX ``_make_dense`` threads it: a one-element int64 tensor on the
+device that a ``LoRADense`` reads by a gather (so switching adapters
+changes no shape and no captured step); ``Dense`` and ``QuantDense``
+take it and ignore it.
 """
 
 from __future__ import annotations
@@ -153,7 +158,10 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``task_index``: taken and ignored (the trunk's projection
+        seam passes it to every dense)."""
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
@@ -190,9 +198,10 @@ class ModernBertMLP(nn.Module):
         self.Wo = dense(cfg.intermediate_size, cfg.hidden_size, cfg.mlp_bias)
         self.act = activation(cfg.hidden_activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inp, gate = self.Wi(x).chunk(2, dim=-1)
-        return self.Wo(self.act(inp) * gate)
+    def forward(self, x: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        inp, gate = self.Wi(x, task_index).chunk(2, dim=-1)
+        return self.Wo(self.act(inp) * gate, task_index)
 
 
 class ModernBertAttention(nn.Module):
@@ -218,12 +227,12 @@ class ModernBertAttention(nn.Module):
             self.rope = RopeSpec(D, theta)
             self.window = cfg.local_attention
 
-    def forward(self, x: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
-        qkv = self.Wqkv(x).view(B, S, 3, H, D)
+        qkv = self.Wqkv(x, task_index).view(B, S, 3, H, D)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, H, S, D]
         cos, sin = self.rope.tables(S, x.device)
         q, k = apply_rotary(q, k, cos, sin)
@@ -243,7 +252,7 @@ class ModernBertAttention(nn.Module):
                                                   device=x.device)
             out = sdpa(q, k, v, bias=bias)
         out = out.transpose(1, 2).reshape(B, S, cfg.hidden_size)
-        return self.Wo(out)
+        return self.Wo(out, task_index)
 
 
 class ModernBertEncoderLayer(nn.Module):
@@ -256,10 +265,10 @@ class ModernBertEncoderLayer(nn.Module):
         self.mlp_norm = LayerNorm(cfg)
         self.mlp = ModernBertMLP(cfg, dense_factory)
 
-    def forward(self, x: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), attention_mask)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), attention_mask, task_index)
+        return x + self.mlp(self.mlp_norm(x), task_index)
 
 
 class ModernBertModel(nn.Module):
@@ -277,15 +286,18 @@ class ModernBertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                exit_layer: Optional[int] = None) -> torch.Tensor:
+                exit_layer: Optional[int] = None,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``exit_layer``: the Matryoshka layer early exit — only the first
         ``exit_layer`` layers run, and the final norm applies to the last
-        of them (None runs every layer)."""
+        of them (None runs every layer).  ``task_index``: the adapter a
+        LoRA trunk's projections select (None: adapter 0, as the JAX
+        ``_make_dense`` has it); plain and quantized trunks ignore it."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         x = self.embeddings(input_ids)
         for layer in self.layers[:self.layers_run(exit_layer)]:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, task_index)
         return self.final_norm(x)
 
     def layers_run(self, exit_layer: Optional[int] = None) -> int:

@@ -48,7 +48,10 @@ class QuantDense(nn.Module):
         self.register_buffer("bias", torch.zeros(out_features)
                              if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``task_index``: taken and ignored — a quantized trunk carries
+        no per-task adapters."""
         return dequant_matmul(x.to(self.compute_dtype), self.kernel_q,
                               self.scale, bias=self.bias,
                               compute_dtype=self.compute_dtype)

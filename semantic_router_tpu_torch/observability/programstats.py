@@ -468,7 +468,8 @@ class SLOCaptureController:
         self._last_mono: float = 0.0
         self._seq = 0
         self._unsub: Optional[Callable[[], None]] = None
-        self._stop_timer: Optional[threading.Timer] = None
+        # every capture's bounded-trace stop timer not yet joined
+        self._stop_timers: List[threading.Timer] = []
         if flightrec is not None:
             flightrec.capture_provider = self.links
 
@@ -542,7 +543,8 @@ class SLOCaptureController:
                 timer.daemon = True
                 timer.name = "slo-capture-stop"
                 with self._lock:
-                    self._stop_timer = timer
+                    self._stop_timers = [t for t in self._stop_timers
+                                         if t.is_alive()] + [timer]
                 timer.start()
             else:
                 cap["trace_skipped"] = started.get(
@@ -568,11 +570,13 @@ class SLOCaptureController:
             pass
 
     def join(self, timeout: float = 5.0) -> None:
-        """Wait for an in-flight bounded trace to stop."""
+        """Wait, within ``timeout`` in all, for every in-flight bounded
+        trace to stop: each capture's stop timer, not only the last."""
         with self._lock:
-            timer = self._stop_timer
-        if timer is not None:
-            timer.join(timeout)
+            timers, self._stop_timers = self._stop_timers, []
+        deadline = time.monotonic() + timeout
+        for timer in timers:
+            timer.join(max(0.0, deadline - time.monotonic()))
 
     # -- reading -----------------------------------------------------------
 

@@ -767,6 +767,7 @@ class _Handler(BaseHTTPRequestHandler):
         doc = store.ingest(str(body.get("name", "file")),
                            str(body.get("text", "")),
                            metadata=body.get("metadata"))
+        mgr.record_file(name, doc)
         self._reply(200, {"id": doc.id, "chunks": len(doc.chunk_ids)})
 
     def do_DELETE(self):

@@ -419,12 +419,41 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
                 and sp_cfg["share"]["vectorstore"] \
                 and vs_backend == "memory":
             vs_backend = "stateplane"
+        store_registry = _vectorstore_registry(vs_cfg)
         router.vectorstores = VectorStoreManager(
             embed_fn, backend=vs_backend, base_path=vs_cfg.get("path"),
             backend_config=vs_cfg.get("backend_config"),
-            stateplane=router.stateplane)
+            registry=store_registry, stateplane=router.stateplane)
+        if store_registry is not None:
+            attached = router.vectorstores.load_from_registry()
+            if attached:
+                component_event("bootstrap", "vectorstore_registry_attach",
+                                stores=attached)
     apply_ann_knobs(cfg, registry, router)
     return router
+
+
+def _vectorstore_registry(vs_cfg: dict):
+    """The vector stores' durable metadata registry:
+    ``vectorstore.registry.backend: postgres`` connects a
+    ``PostgresMetadataRegistry``; one that cannot connect fails open
+    (``vectorstore_registry_failed``, no registry).  None otherwise."""
+    reg_cfg = vs_cfg.get("registry") or {}
+    if reg_cfg.get("backend") != "postgres":
+        return None
+    from ..vectorstore.pg_registry import PostgresMetadataRegistry
+
+    try:
+        return PostgresMetadataRegistry(
+            host=reg_cfg.get("host", "127.0.0.1"),
+            port=int(reg_cfg.get("port", 5432)),
+            user=reg_cfg.get("user", "postgres"),
+            database=reg_cfg.get("database", "postgres"),
+            password=str(reg_cfg.get("password", "")))
+    except Exception as exc:
+        component_event("bootstrap", "vectorstore_registry_failed",
+                        level="warning", error=str(exc)[:200])
+        return None
 
 
 def _memory_store(cfg: RouterConfig, embed_fn):

@@ -1,6 +1,8 @@
 """Vector stores and the RAG retrieval layer (the port's copy of
 ``semantic_router_tpu.vectorstore``): in-memory, SQLite, ANN-backed,
-plane-shared, Qdrant and Milvus stores behind one manager."""
+plane-shared, Qdrant, Milvus and Llama-Stack stores behind one manager,
+with the Postgres metadata registry (``pg_registry``) that re-attaches
+them at boot."""
 
 from .store import (
     Chunk,

@@ -5,13 +5,13 @@ The port's copy of ``semantic_router_tpu.vectorstore.store``:
 byte.  Capability parity with pkg/vectorstore (11.6k LoC): document
 ingestion with sentence-window chunking (pipeline.go, chunking.go),
 embedding-indexed chunk search with hybrid (vector + keyword) scoring
-(hybrid.go), a named multi-store manager (manager.go, service.go; the
-reference's durable metadata registry is not served by this port yet),
-and the RAG plugin contract consumed by the router pipeline
+(hybrid.go), a named multi-store manager (manager.go, service.go) with
+its optional durable metadata registry (``record_file``,
+``load_from_registry``; vectorstore.pg_registry over Postgres), and the
+RAG plugin contract consumed by the router pipeline
 (extproc/req_filter_rag.go — context retrieved per request and injected
-ahead of the model call).  External backends (Milvus / Qdrant) plug
-behind the same protocol; the reference's Llama-Stack backend is not
-served by this port yet, and a manager asked for it raises by name.
+ahead of the model call).  External backends (Milvus / Qdrant /
+Llama-Stack) plug behind the same protocol.
 """
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ class InMemoryVectorStore:
 
 
 class VectorStoreManager:
-    """Named stores (manager.go role).
+    """Named stores + registry (manager.go / metadata registry role).
 
     ``backend="sqlite"`` + ``base_path`` makes every named store durable
     (one DB file per store under base_path); previously-persisted stores
@@ -174,14 +174,16 @@ class VectorStoreManager:
                  backend: str = "memory",
                  base_path: Optional[str] = None,
                  backend_config: Optional[Dict] = None,
-                 stateplane=None, ann=None) -> None:
-        if backend == "llamastack":
-            raise ValueError("vectorstore.backend 'llamastack' is not "
-                             "served by this port yet")
+                 registry=None, stateplane=None, ann=None) -> None:
         self.embed_fn = embed_fn
         self.backend = backend
         self.base_path = base_path
         self.backend_config = dict(backend_config or {})
+        # optional durable metadata registry (reference:
+        # metadata_registry_postgres.go; vectorstore.pg_registry);
+        # registry failures never block store operations — the registry
+        # is recovery metadata, not the data path
+        self.registry = registry
         # backend="stateplane": named stores live on the shared state
         # plane (stateplane.SharedVectorStore) — rows ingested through
         # one replica retrieve on every replica
@@ -216,6 +218,15 @@ class VectorStoreManager:
                 token=self.backend_config.get("token", ""))
         return self._milvus
 
+    def _llamastack_client(self):
+        if getattr(self, "_llamastack", None) is None:
+            from ..state.llamastack import LlamaStackClient
+
+            self._llamastack = LlamaStackClient(
+                self.backend_config.get("url", "http://127.0.0.1:8321"),
+                api_key=self.backend_config.get("api_key", ""))
+        return self._llamastack
+
     def _new_store(self, name: str, **kwargs) -> InMemoryVectorStore:
         if self.backend == "ann":
             if self.ann is not None:
@@ -237,6 +248,15 @@ class VectorStoreManager:
 
             return SharedVectorStore(self.stateplane, name,
                                      embed_fn=self.embed_fn, **kwargs)
+        if self.backend == "llamastack":
+            from ..state.llamastack import LlamaStackVectorStore
+
+            prefix = self.backend_config.get("collection_prefix", "vsr-")
+            return LlamaStackVectorStore(
+                self._llamastack_client(), f"{prefix}{name}",
+                embed_fn=self.embed_fn,
+                search_type=self.backend_config.get("search_type",
+                                                    "vector"), **kwargs)
         if self.backend == "sqlite":
             import os
 
@@ -315,6 +335,7 @@ class VectorStoreManager:
                 # attachment: drop our duplicate handle, keep theirs
                 self._close_store(store)
                 store = published
+        self._registry_register(name)
         return store
 
     def get(self, name: str) -> Optional[InMemoryVectorStore]:
@@ -328,6 +349,7 @@ class VectorStoreManager:
                 self._stores[name] = store
             if store is not None or self.backend not in ("qdrant",
                                                          "milvus",
+                                                         "llamastack",
                                                          "stateplane"):
                 return store
         # remote probes are network round-trips: NEVER hold the manager
@@ -345,6 +367,11 @@ class VectorStoreManager:
                                                  "vsr-")
                 exists = self._qdrant_client().collection_exists(
                     f"{prefix}{name}")
+            elif self.backend == "llamastack":
+                prefix = self.backend_config.get("collection_prefix",
+                                                 "vsr-")
+                exists = self._llamastack_client().resolve_store_id(
+                    f"{prefix}{name}") is not None
             else:
                 prefix = self.backend_config.get("collection_prefix",
                                                  "vsr_")
@@ -383,7 +410,70 @@ class VectorStoreManager:
                 store = self._stores.setdefault(name, built)
             if store is not built:
                 self._close_store(built)  # reader attached first
+        self._registry_register(name)
         return store
+
+    def _registry_register(self, name: str) -> None:
+        if self.registry is None:
+            return
+        try:
+            self.registry.register_store(name, backend=self.backend,
+                                         config=self.backend_config)
+        except Exception:
+            return  # fail-open: registry is recovery metadata only
+        # registry I/O runs outside the manager lock, so a concurrent
+        # delete() may have already unregistered this name — compensate
+        # rather than leave a ghost row that resurrects at next boot
+        with self._lock:
+            still_present = name in self._stores
+        if not still_present:
+            try:
+                self.registry.unregister_store(name)
+            except Exception:
+                pass
+
+    def record_file(self, store_name: str, doc) -> None:
+        """Register an ingested document in the durable file registry
+        (file_registry table role)."""
+        if self.registry is None:
+            return
+        try:
+            self.registry.register_file(
+                store_name, doc.id, name=doc.name,
+                chunks=len(getattr(doc, "chunk_ids", []) or []),
+                metadata=dict(getattr(doc, "metadata", {}) or {}))
+        except Exception:
+            pass
+
+    def load_from_registry(self) -> List[str]:
+        """Boot-time re-attach of every registered store (LoadFromRegistry
+        role: registry rows loaded at boot)."""
+        if self.registry is None:
+            return []
+        try:
+            names = self.registry.list_stores()
+        except Exception:
+            return []
+        if names and self.backend == "memory":
+            # in-memory stores cannot replay their contents from the
+            # registry (file_registry records names/ids, not text) —
+            # re-attach restores NAMES ONLY; say so instead of silently
+            # serving empty stores
+            from ..observability.logging import component_event
+
+            component_event(
+                "vectorstore", "registry_reattach_names_only",
+                level="warning", backend=self.backend, stores=names,
+                reason="memory backend holds no durable contents; "
+                       "re-attached stores start empty")
+        attached = []
+        for name in names:
+            try:
+                if self.get_or_create(name) is not None:
+                    attached.append(name)
+            except Exception:
+                continue
+        return attached
 
     def list(self) -> List[str]:
         with self._lock:
@@ -396,6 +486,11 @@ class VectorStoreManager:
             store = self._stores.pop(name, None)
         if store is not None and hasattr(store, "close"):
             store.close()
+        if self.registry is not None:
+            try:
+                self.registry.unregister_store(name)
+            except Exception:
+                pass
         # durable cleanup runs OUTSIDE the lock (file IO / network)
         if self.backend == "sqlite" \
                 and os.path.exists(self._db_path(name)):
@@ -439,6 +534,16 @@ class VectorStoreManager:
                         f"{prefix}{name}"):
                     self._milvus_client().drop_collection(
                         f"{prefix}{name}")
+                    return True
+            except Exception:
+                pass
+        elif self.backend == "llamastack":
+            prefix = self.backend_config.get("collection_prefix", "vsr-")
+            try:
+                sid = self._llamastack_client().resolve_store_id(
+                    f"{prefix}{name}")
+                if sid:
+                    self._llamastack_client().delete_store(sid)
                     return True
             except Exception:
                 pass

@@ -386,6 +386,11 @@ def test_plane_isolates_a_failing_index_and_stamps_the_series():
     try:
         plane.configure(tann.normalize_ann(_knobs(compact_interval_s=3600)))
         good, bad = plane.index("good"), plane.index("bad")
+        # the ann-maintain thread runs a pass as soon as it starts: stop
+        # it, so the counters below read only this test's own pass
+        plane._stop.set()
+        plane._thread.join(timeout=5.0)
+        assert not plane._thread.is_alive()
         rows = _clustered(20, seed=21)
         for i, r in enumerate(rows):
             good.add(f"g{i}", r)

@@ -170,6 +170,15 @@ PORTED["rag"] = (
 PORTED["memory.backend"] = ({"memory": {"backend": "milvus",
                                         "base_url": "http://m:19530"}},
                             {"memory": {"backend": ""}})
+PORTED["vectorstore.backend"] = (
+    {"vectorstore": {"backend": "llamastack", "backend_config": {
+        "url": "http://ls:8321", "search_type": "hybrid"}}},
+    {"vectorstore": {"backend": "memory"}})
+PORTED["vectorstore.registry"] = (
+    {"vectorstore": {"backend": "sqlite", "path": "/tmp/vs", "registry": {
+        "backend": "postgres", "host": "pg", "port": 5433,
+        "user": "router", "database": "vsr", "password": "pw"}}},
+    {"vectorstore": {"registry": {"backend": ""}}})
 SERVED_SINCE = {
     "image_generation": (
         "artifact", {"routing": {"decisions": [dict(
@@ -183,12 +192,22 @@ SERVED_SINCE = {
                                           "mesh": {"enabled": True}}}),
     "ann": (r"ann\.mesh", {"ann": {"enabled": True,
                                    "mesh": {"enabled": True, "dp": 2}}}),
-    "vectorstore": ("llamastack", {"vectorstore": {"backend":
-                                                   "llamastack"}}),
-    "rag": ("postgres", {
-        "routing": {"decisions": [dict(DEC, plugins=[
-            {"type": "rag", "configuration": {"store": "kb"}}])]},
+    "vectorstore": (r"ann\.mesh", {
+        "vectorstore": {"backend": "llamastack"},
+        "ann": {"enabled": True, "mesh": {"enabled": True}}}),
+    "rag": ("artifact", {
+        "routing": {"decisions": [dict(
+            DEC, algorithm={"type": "mlp", "artifact": "sel.json"},
+            plugins=[{"type": "rag", "configuration": {"store": "kb"}}])]},
         "vectorstore": {"registry": {"backend": "postgres"}}}),
+    # the Llama-Stack store and the Postgres registry: served since they
+    # were refused; the Postgres router replay store is not
+    "vectorstore.backend": ("router replay", {
+        "vectorstore": {"backend": "llamastack"},
+        "router_replay": {"enabled": True, "backend": "postgres"}}),
+    "vectorstore.registry": ("router replay", {
+        "vectorstore": {"registry": {"backend": "postgres"}},
+        "router_replay": {"enabled": True, "backend": "postgres"}}),
     "memory.backend": ("artifact", {
         "memory": {"backend": "qdrant"},
         "routing": {"decisions": [dict(
@@ -206,15 +225,20 @@ SERVED_SINCE = {
             "observability": {"slo": {"objectives": [
                 {"objective": "routing_latency p99 < 25ms over 5m",
                  "scope": "fleet"}]}}}),
-    # the RESP stores and the vector stores are served; the Llama-Stack
-    # store and the Postgres registry are not
+    # the RESP stores and the vector stores (the Llama-Stack store and the
+    # Postgres registry included) are served; the fleet observability
+    # plane and the router replay store are not
     "response_store.backend": (
-        "llamastack", {"response_store": {"backend": "redis"},
-                       "vectorstore": {"backend": "llamastack"}}),
+        r"observability\.fleet", {
+            "response_store": {"backend": "redis"},
+            "vectorstore": {"backend": "llamastack"},
+            "observability": {"fleet": {"enabled": True}}}),
     "looper.workflow_state.backend": (
-        "postgres", {"looper": {"workflow_state": {"backend": "redis"}},
-                     "memory": {"backend": "milvus"},
-                     "vectorstore": {"registry": {"backend": "postgres"}}}),
+        "router replay", {
+            "looper": {"workflow_state": {"backend": "redis"}},
+            "memory": {"backend": "milvus"},
+            "vectorstore": {"registry": {"backend": "postgres"}},
+            "router_replay": {"enabled": True}}),
     "resilience": (
         r"observability\.fleet", {"global": {
             "resilience": {"enabled": True},
@@ -285,6 +309,8 @@ def _parsed(cfg, key):
                           for p in d.plugins]) for d in cfg.decisions]
     if key == "memory.backend":
         return cfg.memory
+    if key in ("vectorstore.backend", "vectorstore.registry"):
+        return cfg.vectorstore
     return getattr(cfg, key)
 
 

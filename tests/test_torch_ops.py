@@ -472,7 +472,8 @@ def _port_sources():
 
 def test_port_sources_cover_every_package():
     """The scan below reaches every package of the port, the state
-    plane's, the RESP family's and the retrieval plane's included."""
+    plane's, the RESP family's, the retrieval plane's and the dual-path
+    engine's included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
                 "resilience", "ops", "ann", "vectorstore", "memory"):
@@ -482,7 +483,10 @@ def test_port_sources_cover_every_package():
                 "state/milvus.py", "cache/ann_cache.py",
                 "memory/ann_store.py", "stateplane/vectorstore.py",
                 "ann/bank.py", "ann/search.py", "ann/plane.py",
-                "vectorstore/store.py", "vectorstore/ann_store.py"):
+                "vectorstore/store.py", "vectorstore/ann_store.py",
+                "engine/pathing.py", "models/lora.py",
+                "state/llamastack.py", "state/postgres.py",
+                "vectorstore/pg_registry.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -528,12 +532,21 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.ann.tiering',\n"
         "        'semantic_router_tpu_torch.vectorstore.store',\n"
         "        'semantic_router_tpu_torch.vectorstore.sqlite_store',\n"
-        "        'semantic_router_tpu_torch.vectorstore.ann_store'} \\\n"
+        "        'semantic_router_tpu_torch.vectorstore.ann_store',\n"
+        "        'semantic_router_tpu_torch.vectorstore.pg_registry',\n"
+        "        'semantic_router_tpu_torch.state.llamastack',\n"
+        "        'semantic_router_tpu_torch.state.postgres',\n"
+        "        'semantic_router_tpu_torch.engine.pathing',\n"
+        "        'semantic_router_tpu_torch.models.lora'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
-        "make_shared_trunk_engine\n"
+        "make_dual_path_engine, make_shared_trunk_engine\n"
         "e = make_shared_trunk_engine(device='cpu')\n"
         "assert e.classify('intent', 'hello there').label\n"
+        "e.shutdown()\n"
+        "e = make_dual_path_engine(device='cpu', strategy='stacked')\n"
+        "out = e.classify_multi(['intent', 'jailbreak'], ['hello there'])\n"
+        "assert e.last_path_selection.selected_path == 'stacked', out\n"
         "e.shutdown()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'semantic_router_tpu')]\n"

@@ -420,22 +420,25 @@ def _refused(**change):
     return d
 
 
-# the rag plugin and the qdrant / milvus memory stores are served since the
-# retrieval plane was ported: each case pairs one with an option still
-# refused beside it (the Llama-Stack store, the Postgres registry, the ANN
-# bank's row sharding); without that option the config loads and serves
-SERVED_BESIDE = {
-    "llamastack": "vectorstore", "postgres": "vectorstore",
-    r"ann\.mesh": "ann"}
+# the rag plugin, the qdrant / milvus memory stores, the Llama-Stack vector
+# store and the Postgres store registry are served since the retrieval
+# plane and its two backends were ported: each case pairs served options
+# with one still refused beside them (the ANN bank's row sharding, the
+# router replay store); without that option the config loads and serves
+# (an unreachable Postgres registry fails open)
+SERVED_BESIDE = {r"ann\.mesh": "ann", "router replay": "router_replay"}
 
 
 @pytest.mark.parametrize("cfg,what", [
     (_refused(routing__decisions__0__plugins=[
         {"type": "rag", "configuration": {"store": "kb"}}],
-        vectorstore={"backend": "llamastack"}), "llamastack"),
+        vectorstore={"backend": "llamastack"},
+        ann={"enabled": True, "mesh": {"enabled": True}}), r"ann\.mesh"),
     (_refused(memory={"backend": "qdrant"},
-              vectorstore={"registry": {"backend": "postgres"}}),
-     "postgres"),
+              vectorstore={"registry": {"backend": "postgres",
+                                        "port": 1}},
+              router_replay={"enabled": True, "backend": "postgres"}),
+     "router replay"),
     (_refused(memory={"backend": "milvus"},
               ann={"enabled": True, "mesh": {"enabled": True}}),
      r"ann\.mesh"),

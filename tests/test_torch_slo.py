@@ -13,6 +13,7 @@ and, handed to the monitor directly, recorded as a configuration error."""
 import copy
 import http.client
 import json
+import time
 import urllib.parse
 
 import numpy as np
@@ -235,6 +236,12 @@ def test_slo_capture_matches_jax(monkeypatch):
             bus.emit(stage, objective=f"o{dt}")
             got.append(len(ctl.links()))
         ctl.join()
+        # the JAX join waits for the last capture's stop timer only: wait,
+        # within a bound, for every earlier capture's stop to land too
+        deadline = time.perf_counter() + 5.0
+        while prof.calls.count("stop") < prof.calls.count("start") \
+                and time.perf_counter() < deadline:
+            time.sleep(0.005)
         links = [{k: v for k, v in link.items() if k != "at_unix"}
                  for link in ctl.links()]
         caps = [e.detail for e in reversed(bus.recent(50, "slo_capture"))]
@@ -246,6 +253,41 @@ def test_slo_capture_matches_jax(monkeypatch):
     assert rows[1] == rows[0]
     # 1031 s is inside the first capture's 60 s cooldown; 1062 s is not
     assert rows[1][0] == [1, 1, 1, 2, 3]
+
+
+class _SlowFirstStopProfiler(_FakeProfiler):
+    """The first trace's stop takes 0.3 s, every later one returns at
+    once: a join that waits for the last timer only returns before the
+    first stop lands."""
+
+    def stop(self, force=False):
+        if "stop" not in self.calls and not getattr(self, "_slow", False):
+            self._slow = True
+            time.sleep(0.3)
+        return super().stop(force)
+
+
+def test_slo_capture_join_waits_for_every_capture_stop(monkeypatch):
+    clock = [1000.0]
+    monkeypatch.setattr("time.monotonic", lambda: clock[0])
+    bus = EventBus()
+    prof = _SlowFirstStopProfiler()
+    ctl = tps.SLOCaptureController(
+        catalog=tps.ProgramCatalog(), profiler=prof, trace_s=0.01,
+        cooldown_s=1.0)
+    ctl.attach(bus)
+    try:
+        for dt in (0, 10, 20):
+            clock[0] += dt
+            bus.emit("slo_alert_firing", objective=f"o{dt}")
+            # the next capture starts while the earlier stops are running
+            time.sleep(0.05)
+        assert len(ctl.links()) == 3
+        ctl.join()
+        assert prof.calls.count("start") == 3
+        assert prof.calls.count("stop") == 3
+    finally:
+        ctl.detach()
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,10 @@ hits (texts, documents, scores within 1e-5) on one embedding function;
 ``SQLiteVectorStore`` files written by either package open in the other;
 a JAX replica and a port replica on one ``MiniRedis`` share one
 ``SharedVectorStore``; ``VectorStoreManager`` builds every backend the
-port serves, attaches a sibling's stores by name, falls back to memory
-(stamped) when the ANN backend has no plane, deletes as the reference
-does, and refuses ``llamastack`` by name."""
+port serves (the Llama-Stack store over the JAX ``MiniLlamaStack``
+included), attaches a sibling's stores by name, falls back to memory
+(stamped) when the ANN backend has no plane, and deletes as the
+reference does."""
 
 import time
 
@@ -18,6 +19,8 @@ import pytest
 from semantic_router_tpu import ann as jann
 from semantic_router_tpu import stateplane as jsp
 from semantic_router_tpu import vectorstore as jvs
+from semantic_router_tpu.state.llamastack import \
+    MiniLlamaStack as JMiniLlamaStack
 from semantic_router_tpu.state.qdrant import MiniQdrant as JMiniQdrant
 from semantic_router_tpu.stateplane.vectorstore import \
     SharedVectorStore as JSharedVectorStore, store_exists as jstore_exists
@@ -294,5 +297,17 @@ def test_manager_backends(tmp_path, mini):
     finally:
         jq.stop()
         mm.stop()
-    with pytest.raises(ValueError, match="llamastack"):
-        tvs.VectorStoreManager(EMBED, backend="llamastack")
+    # llamastack: the server embeds; a second manager attaches by name
+    ls = JMiniLlamaStack(EMBED).start()
+    try:
+        x = tvs.VectorStoreManager(EMBED, backend="llamastack",
+                                   backend_config={"url": ls.url})
+        _ingest(x.create("kb"))
+        y = tvs.VectorStoreManager(EMBED, backend="llamastack",
+                                   backend_config={"url": ls.url})
+        hits = y.get("kb").search("boil pasta", top_k=1)
+        assert hits and hits[0].chunk.metadata["source"] == "pasta"
+        assert y.get("nope") is None
+        assert y.delete("kb") and y.get("kb") is None
+    finally:
+        ls.stop()
