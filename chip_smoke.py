@@ -346,10 +346,34 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    and to the CPU port's, the memory store's name and files back.  Then
    the cuda-marked tests of ``tests/test_torch_dual_path_cuda.py`` run in
    a pytest process.
+18. packing — 18a: phase 3's bank (full width, seeded) on a dense trunk
+   (``use_flash_attention: false``, the epilogue on, ``engine.packing``
+   at its defaults through ``apply_packing_knobs``): 64 seeded prompts
+   (56 of 8-96 tokens, 8 of 200-500) from 8 threads, each submitting its
+   prompts' pii items and ``classify_multi`` over the three sequence
+   tasks, with the batcher's picker held until a pass's items are all
+   queued, so every pass composes the same steps.  Two packed passes
+   (the first captures, the second only replays), then two with
+   ``configure_packing({"enabled": False})``: packed steps ran
+   (``llm_engine_packed_steps_total``, ``packed:*`` variants), K2
+   launched once a bank a step and K1 never, labels equal and
+   probabilities within 1e-4 packed against unpacked (and pii spans
+   alike), and for 16 prompts (12 short, 4 long) against the CPU port's
+   packed engine; steps, token fill, each step's CUDA-event time (its
+   graph replayed alone) and time per item, packed against unpacked.
+   18b: phase 4's 32-head bank with BGMV on a dense trunk, 16 texts x 5
+   tenant tasks as one packed step (K3 twice, 80 pairs over 16
+   segments), within 1e-4 of the CPU port.  18c: one routed request
+   through the HTTP server on the dense config, its decision and model
+   the CPU router's, ``/debug/runtime`` carrying ``packing``; one
+   ``ShapeAutoTuner.step()``.  Then the cuda-marked tests of
+   ``tests/test_torch_packing_cuda.py`` run in a pytest process.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13, 14, 15, 16 and 17), ``nvidia-smi``'s name and power limit, and then
+13, 14, 15, 16, 17 and 18 (none there: its trunk is dense); K2's count
+phase 18's packed and unpacked steps too, K3's phase 4's and 18b's),
+``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
 from another tree's ``csrc/`` (the parent commit's) against this tree's,
@@ -435,13 +459,21 @@ try:
         real_tiles,
     )
     from semantic_router_tpu_torch.ops.matryoshka import matryoshka_views
+    from semantic_router_tpu_torch.observability.metrics import (
+        MetricSeries,
+        MetricsRegistry,
+    )
     from semantic_router_tpu_torch.observability.profiler import gated_trace
+    from semantic_router_tpu_torch.observability.runtimestats import (
+        RuntimeStats,
+    )
     from semantic_router_tpu_torch.observability.tracing import Tracer
     from semantic_router_tpu_torch.router import MockVLLMServer, RouterServer
     from semantic_router_tpu_torch.router.mock_backend import stream_pieces
     from semantic_router_tpu_torch.runtime import (
         RuntimeRegistry,
         apply_observability_knobs,
+        apply_packing_knobs,
         build_router,
         close_stateplane,
         select_attention_impl,
@@ -1194,6 +1226,14 @@ def phase_kernels() -> dict:
                        1e-4, False, False),
         check_epilogue("respond_seq_rows1_T4", 1, 4, 768, 768, f32, 1e-4,
                        False, False),
+        # phase 18's packed steps: the sequence heads over K_pad 32 pooled
+        # segments, the token head over 8 and 16 packed rows of 128
+        check_epilogue("packed_seq_rows32_T3", 32, 3, 768, 768, f32, 1e-4,
+                       False, False),
+        check_epilogue("packed_tok_rows1024_T1", 1024, 1, 768, 768, f32,
+                       1e-4, False, False),
+        check_epilogue("packed_tok_rows2048_T1", 2048, 1, 768, 768, f32,
+                       1e-4, False, False),
         check_epilogue("rows64_T3", 64, 3, 768, 768, f32, 1e-4, True, True),
         check_epilogue("rows65_T3", 65, 3, 768, 768, f32, 1e-4, True, True),
         check_epilogue("unaligned_rows100_D30_H37", 100, 2, 30, 37, f32,
@@ -1306,7 +1346,7 @@ def compare_parent(parent_csrc: str) -> list:
 # -- phase 3: serve ----------------------------------------------------------
 
 
-def build_engine_for(device: str, cfg, attention_impl=None):
+def build_engine_for(device: str, cfg, attention_impl=None, **observability):
     model = dict(MODERNBERT_BASE, attention_impl=attention_impl
                  or select_attention_impl(cfg.engine, 512, device))
     return make_shared_trunk_engine(
@@ -1317,7 +1357,7 @@ def build_engine_for(device: str, cfg, attention_impl=None):
         engine_cfg=cfg.engine, seed=SEED, device=device,
         model_config=model,
         tokenizer=HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"]),
-        max_seq_len=512)
+        max_seq_len=512, **observability)
 
 
 def _post(url: str, body: dict, headers: dict = None) -> tuple:
@@ -5263,8 +5303,12 @@ def closed_loop(engine, registry, smi: str) -> dict:
         deadline = time.perf_counter() + 3 * LOOP_QUIET_S
         while True:
             now = time.perf_counter()
-            if now - t0 >= overload_end + LOOP_QUIET_S \
-                    and ctl.level() == 0 or now >= deadline:
+            # The monitor samples between /health calls, so its last sample
+            # can trail the ladder: wait until it too has seen L0, or the
+            # timeline would end on the level just before.
+            settled = ctl.level() == 0 and samples and samples[-1][1] == 0
+            if now - t0 >= overload_end + LOOP_QUIET_S and settled \
+                    or now >= deadline:
                 break
             time.sleep(0.1)
         quiet_end = time.perf_counter() - t0
@@ -5328,7 +5372,9 @@ def closed_loop(engine, registry, smi: str) -> dict:
     print("resilience 11b " + json.dumps(out), flush=True)
     check(out["max_level"] > 0, "11b: the ladder never left L0 under load")
     check(out["final_level"] == 0 and levels and levels[-1] == 0,
-          f"11b: the ladder ended at L{out['final_level']}, not L0")
+          f"11b: the ladder ended at L{out['final_level']} and was last "
+          f"sampled at L{levels[-1] if levels else None}, not L0 "
+          f"(timeline tail {timeline[-4:]})")
     check(shed.get("critical", 0) == 0 and not any(
         r[0] == "critical" and r[3] == 429 for r in rows),
         "11b: a critical request was shed")
@@ -9100,6 +9146,387 @@ def phase_dual_path(modules3: dict, modules5: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 18: sequence packing ----------------------------------------------
+
+# phase 3's bank on a dense trunk: with flash attention off the trunk
+# packs, as the reference's packs on its own chip only without flash
+PK_CONFIG = copy.deepcopy(ROUTER_CONFIG)
+PK_CONFIG["engine"]["use_flash_attention"] = False
+PK_WIDE_CONFIG = copy.deepcopy(WIDE_ROUTER_CONFIG)
+PK_WIDE_CONFIG["engine"]["use_flash_attention"] = False
+PK_SEQ = ["intent", "jailbreak", "fact_check"]
+N_PK_SHORT = 56              # 8-96 tokens: the 128 bucket
+N_PK_LONG = 8                # 200-500 tokens: the 512 bucket
+PK_THREADS = 8
+PK_CPU = tuple(range(12)) + tuple(range(N_PK_SHORT, N_PK_SHORT + 4))
+PK_TOL = 1e-4                # probabilities: packed vs unpacked, vs CPU
+PK_WIDE_TASKS = 5
+PK_WIDE_TEXTS = 16
+
+
+def pk_prompts() -> list:
+    """56 prompts of 8-96 tokens and 8 of 200-500 (a word a token, with
+    CLS and SEP), from a seeded generator."""
+    rng = np.random.default_rng(SEED + 18)
+    short = [_words(int(rng.integers(6, 95)), 1800 + i)
+             for i in range(N_PK_SHORT)]
+    long = [_words(int(rng.integers(198, 499)), 1900 + i)
+            for i in range(N_PK_LONG)]
+    return short + long
+
+
+def pk_chunks(n_short: int, n_long: int, threads: int) -> list:
+    """Prompt indices per thread: an equal share of the short ones and of
+    the long ones each."""
+    out = [[] for _ in range(threads)]
+    for i in range(n_short):
+        out[i * threads // n_short].append(i)
+    for i in range(n_long):
+        out[i * threads // n_long].append(n_short + i)
+    return out
+
+
+def pk_pass(engine, prompts: list, chunks: list) -> tuple:
+    """One pass of the phase's traffic: a thread per chunk submits its
+    prompts' pii items (``token_classify``'s submission) and then
+    ``classify_multi`` over the sequence tasks.  The batcher's picker is
+    held while thread i queues, and thread i + 1 starts once thread i's
+    items are all queued, so the queues hold the same items in the same
+    order in every pass and the steps compose alike; then the picker
+    runs.  Returns ({prompt index: (per-task results, entities)}, the
+    seconds from the picker's release to the last result)."""
+    b = engine.batcher
+    pii = engine._require("pii", kind="token")
+    results, errors = {}, []
+
+    def run(idx: list) -> None:
+        try:
+            texts = [prompts[i] for i in idx]
+            futs = [engine._submit(pii, t) for t in texts]
+            seq = engine.classify_multi(PK_SEQ, texts, timeout=600)
+            for j, i in enumerate(idx):
+                results[i] = ({t: seq[t][j] for t in PK_SEQ},
+                              futs[j].result(timeout=600).entities)
+        except Exception as exc:
+            errors.append(exc)
+
+    b._ready_group = lambda: None
+    b._next_deadline = lambda: None
+    threads, queued = [], 0
+    try:
+        for idx in chunks:
+            th = threading.Thread(target=run, args=(idx,), daemon=True)
+            th.start()
+            threads.append(th)
+            queued += 2 * len(idx)
+            check(_wait_for(lambda: errors or b.queue_depths()[
+                "pending_items"] >= queued, 60) is not None,
+                  f"18: {queued} items never queued")
+    finally:
+        del b._ready_group, b._next_deadline
+        with b._wake:
+            b._wake.notify_all()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    secs = time.perf_counter() - t0
+    check(not errors and len(results) == len(prompts),
+          f"18: pass failed: {errors[:2]}")
+    return results, secs
+
+
+def _pk_diff(a: dict, b: dict) -> dict:
+    return {k: b.get(k, 0) - a.get(k, 0) for k in b}
+
+
+def _pk_key(gid: str, s: dict) -> tuple:
+    """The step-cache key a step record ran under."""
+    pairs = s["padded_pairs"] if s["bgmv"] else 0
+    if s.get("variant", "").startswith("packed:"):
+        return (f"trunk:{gid}", f"packed:{s['flavor']}", s["bucket"],
+                s["padded_rows"], s["k_pad"], pairs, s["epilogue"], s["bgmv"])
+    return (f"trunk:{gid}", s["flavor"], s["bucket"], s["padded_rows"], pairs,
+            s["epilogue"], s["bgmv"])
+
+
+def _pk_same(tag: str, got: dict, want: dict, idx) -> float:
+    """Labels equal and probabilities within PK_TOL, per item and task."""
+    worst = 0.0
+    for i in idx:
+        for t in PK_SEQ:
+            a, b = got[i][0][t], want[i][0][t]
+            check(a.label == b.label,
+                  f"18 {tag}: prompt {i} {t} {a.label!r} != {b.label!r}")
+            worst = max(worst, max(abs(a.probs[k] - b.probs[k])
+                                   for k in a.probs))
+    check(worst <= PK_TOL, f"18 {tag}: probabilities differ by {worst:.3e}")
+    return worst
+
+
+def _pk_tokens(engine) -> tuple:
+    """(real, padded) tokens of every trunk-group step so far (runtime
+    stats)."""
+    progs = [p for p in engine._runtime_stats.programs()
+             if p["group"].startswith("trunk:")]
+    return (sum(p.get("tokens_real", 0) for p in progs),
+            sum(p.get("tokens_padded", 0) for p in progs))
+
+
+def pk_summary(engine, gid: str, run: dict, n: int) -> dict:
+    """Steps, token fill (real / padded), each step's CUDA-event time (its
+    captured graph replayed alone) summed, and time per item."""
+    cache = engine.trunk_group("intent").demux["graphs"]
+    steps, secs = run["steps"], run["secs"]
+    dev_ms = 0.0
+    for s in steps:
+        step = _captured(cache, _pk_key(gid, s))
+        dev_ms += cuda_ms(step.replay, iters=5, warmup=1)
+    real, padded = run["tokens"]
+    check(padded == sum(s["padded_rows"] * s["bucket"] for s in steps),
+          f"18: padded tokens {padded} against the steps'")
+    return {"steps": len(steps),
+            "packed_steps": sum(1 for s in steps
+                                if s.get("variant", "").startswith("packed")),
+            "rows": sum(s["rows"] for s in steps),
+            "padded_rows": sum(s["padded_rows"] for s in steps),
+            "tokens_real": real, "tokens_padded": padded,
+            "token_fill": real / padded if padded else 0.0,
+            "step_device_ms": dev_ms, "device_ms_per_item": dev_ms / n,
+            "wall_s": secs, "wall_ms_per_item": secs * 1e3 / n,
+            "shapes": sorted({(s.get("variant") or s["flavor"], s["bucket"],
+                               s["padded_rows"]) for s in steps})}
+
+
+def pk_wide(smi: str) -> dict:
+    """18b: phase 4's 32-head bank with BGMV on a dense trunk: 16 texts x
+    5 tenant tasks as one packed step whose pairs index segments."""
+    cfg = load_config(PK_WIDE_CONFIG)
+    engine = build_wide_engine(DEVICE, cfg)
+    cpu = build_wide_engine("cpu", cfg)
+    texts = pk_prompts()[:PK_WIDE_TEXTS]
+    tasks = [n for n, _ in TENANTS[:PK_WIDE_TASKS]]
+    try:
+        check(engine.kernels_report()["groups"]["trunk0"]["bgmv"],
+              "18b: the wide bank does not serve through BGMV")
+        _cuda.reset_launch_counts()
+        s0 = len(engine.steps())
+        got = engine.classify_multi(tasks, texts, timeout=600)
+        launches = _cuda.launch_counts()
+        steps = engine.steps()[s0:]
+        want = cpu.classify_multi(tasks, texts, timeout=600)
+    finally:
+        engine.shutdown()
+        cpu.shutdown()
+    check(len(steps) == 1 and steps[0].get("variant", "").startswith(
+        "packed:seq:") and steps[0]["bgmv"],
+          f"18b: expected one packed BGMV step, got "
+          f"{[(s.get('variant'), s['bgmv']) for s in steps]}")
+    st = steps[0]
+    check(st["pairs"] == PK_WIDE_TASKS * st["segments"] == PK_WIDE_TASKS
+          * PK_WIDE_TEXTS, f"18b: {st['pairs']} pairs for {st['segments']} "
+                           f"segments x {PK_WIDE_TASKS} tasks")
+    check(launches["bgmv"] == 2 and launches["flash_attention"] == 0,
+          f"18b: launches {launches}")
+    worst = 0.0
+    for t in tasks:
+        for a, b in zip(got[t], want[t]):
+            check(a.label == b.label, f"18b: {t} {a.label!r} != {b.label!r}")
+            worst = max(worst, max(abs(a.probs[k] - b.probs[k])
+                                   for k in a.probs))
+    check(worst <= PK_TOL, f"18b: card vs CPU {worst:.3e}")
+    out = {"step": st, "launches": launches, "max_prob_diff": worst}
+    print(f"18b wide bank: {st['variant']} rows {st['rows']}/"
+          f"{st['padded_rows']} segments {st['segments']} pairs "
+          f"{st['pairs']}/{st['padded_pairs']} launches {launches} vs CPU "
+          f"{worst:.2e} | {smi}", flush=True)
+    return out
+
+
+def pk_route(engine, cpu, cfg, smi: str) -> dict:
+    """18c: one routed request through the HTTP server on the phase's
+    dense config, against the CPU router; ``/debug/runtime`` carries the
+    packing block."""
+    body = {"model": "auto", "messages": [
+        {"role": "user", "content": PROMPTS[2]}]}
+    router = build_router(cfg, engine)
+    cpu_router = build_router(cfg, cpu)
+    backend = MockVLLMServer().start()
+    server = RouterServer(router, backend.url).start()
+    try:
+        l0 = _cuda.launch_counts()
+        status, headers, _b, _lat = _post(server.url, body)
+        launches = _pk_diff(l0, _cuda.launch_counts())
+        status_rt, runtime = _http(server.url, "GET", "/debug/runtime")
+        res = cpu_router.route(copy.deepcopy(body))
+    finally:
+        server.stop()
+        backend.stop()
+        router.shutdown()
+        cpu_router.shutdown()
+    check(status == 200 and status_rt == 200,
+          f"18c: HTTP {status} / {status_rt}")
+    check(res.decision is not None and res.decision.decision.name
+          == headers["x-vsr-selected-decision"]
+          and res.model == headers["x-vsr-selected-model"],
+          f"18c: card {headers.get('x-vsr-selected-decision')} / "
+          f"{headers.get('x-vsr-selected-model')} vs CPU "
+          f"{res.decision and res.decision.decision.name} / {res.model}")
+    check(runtime.get("packing", {}).get("scheduler", {}).get("enabled"),
+          f"18c: /debug/runtime packing {runtime.get('packing')}")
+    print(f"18c routed: {headers['x-vsr-selected-decision']} / "
+          f"{headers['x-vsr-selected-model']} (CPU alike), launches "
+          f"{launches} | {smi}", flush=True)
+    return {"decision": headers["x-vsr-selected-decision"],
+            "model": headers["x-vsr-selected-model"], "launches": launches,
+            "packing": runtime["packing"]}
+
+
+def phase_packing(smi: str) -> dict:
+    """Phase 18: 18a phase 3's bank on a dense trunk, 64 seeded prompts
+    (56 short, 8 long) from 8 threads over the four tasks, packed twice
+    (the first pass captures, the second only replays) and then unpacked
+    (``configure_packing({"enabled": False})``) twice, against each
+    other and, for 16 prompts, against the CPU port's packed engine;
+    18b the wide bank's packed BGMV step; 18c one routed request; one
+    ``ShapeAutoTuner.step()``; then the cuda-marked tests of
+    ``tests/test_torch_packing_cuda.py``."""
+    t0 = time.perf_counter()
+    cfg = load_config(PK_CONFIG)
+    out: dict = {"card": smi}
+    prompts = pk_prompts()
+    chunks = pk_chunks(N_PK_SHORT, N_PK_LONG, PK_THREADS)
+    series = MetricSeries(MetricsRegistry())
+    engine = build_engine_for(DEVICE, cfg, metrics=series,
+                              runtime_stats=RuntimeStats(MetricsRegistry()))
+    g = engine.trunk_group("intent")
+    gid = g.gid
+    check(g.config.attention_impl == "dense",
+          f"18: trunk attention {g.config.attention_impl!r} != 'dense'")
+    apply_packing_knobs(cfg, engine)      # as the bootstrap applies it
+    cpu = None
+    main = {"flash_attention": 0, "head_epilogue": 0, "bgmv": 0}
+    try:
+        stamp("phase 18a: packed and unpacked passes")
+        check(engine.packing_report()["scheduler"]["enabled"],
+              "18: packing is off")
+        runs = {}
+        for tag in ("packed_1", "packed_2", "unpacked_1", "unpacked_2"):
+            if tag == "unpacked_1":
+                runs["packed"] = pk_summary(engine, gid, runs["packed_2"],
+                                            len(prompts))
+                engine.configure_packing({"enabled": False})
+            _cuda.reset_launch_counts()
+            s0, tok0 = len(engine.steps()), _pk_tokens(engine)
+            res, secs = pk_pass(engine, prompts, chunks)
+            launches = _cuda.launch_counts()
+            tok1 = _pk_tokens(engine)
+            runs[tag] = {"results": res, "secs": secs,
+                         "steps": engine.steps()[s0:], "launches": launches,
+                         "tokens": (tok1[0] - tok0[0], tok1[1] - tok0[1])}
+            for k in main:
+                main[k] += launches.get(k, 0)
+        runs["unpacked"] = pk_summary(engine, gid, runs["unpacked_2"],
+                                      len(prompts))
+        for tag in ("packed_1", "packed_2"):
+            r = runs[tag]
+            packed = [s for s in r["steps"]
+                      if s.get("variant", "").startswith("packed:")]
+            check(packed, f"18 {tag}: no packed step ran")
+            check(all(s["epilogue"] for s in r["steps"]),
+                  f"18 {tag}: a step ran without the epilogue")
+            want = _predicted_launches(r["steps"])["head_epilogue"]
+            check(r["launches"]["head_epilogue"] == want > 0,
+                  f"18 {tag}: K2 launches {r['launches']['head_epilogue']}"
+                  f" != {want} the steps' banks")
+            check(r["launches"]["flash_attention"] == 0,
+                  f"18 {tag}: flash launched on a dense trunk")
+        check(all(s["graph"] == "replayed" for s in runs["packed_2"]["steps"]),
+              f"18: the second packed pass captured "
+              f"{[s['graph'] for s in runs['packed_2']['steps']]}")
+        check(runs["packed"]["shapes"] == sorted(
+            {(s.get("variant") or s["flavor"], s["bucket"], s["padded_rows"])
+             for s in runs["packed_1"]["steps"]}),
+              "18: the two packed passes composed different steps")
+        check(all(s["graph"] == "replayed"
+                  for s in runs["unpacked_2"]["steps"])
+              and not any(s.get("variant")
+                          for s in runs["unpacked_1"]["steps"]),
+              "18: the unpacked passes")
+        n_packed = series.packed_steps.get(group=gid)
+        check(n_packed > 0, "18: llm_engine_packed_steps_total is 0")
+        variants = sorted({s["variant"] for s in engine.steps()
+                           if s.get("variant")})
+        check(any(v.startswith("packed:") for v in variants),
+              f"18: steps() shows no packed variant: {variants}")
+        out["agree_packed_passes"] = _pk_same(
+            "pass 2 vs pass 1", runs["packed_2"]["results"],
+            runs["packed_1"]["results"], range(len(prompts)))
+        out["agree_unpacked"] = _pk_same(
+            "packed vs unpacked", runs["packed_2"]["results"],
+            runs["unpacked_2"]["results"], range(len(prompts)))
+        for i in range(len(prompts)):
+            a = runs["packed_2"]["results"][i][1]
+            b = runs["unpacked_2"]["results"][i][1]
+            check([(e.type, e.start, e.end) for e in a]
+                  == [(e.type, e.start, e.end) for e in b]
+                  and all(abs(x.score - y.score) <= PK_TOL
+                          for x, y in zip(a, b)),
+                  f"18: prompt {i} pii spans packed vs unpacked")
+        stamp("phase 18a: the CPU port")
+        cpu = build_engine_for("cpu", cfg)
+        sub = [prompts[i] for i in PK_CPU]
+        cres, _ = pk_pass(cpu, sub, [list(range(8)), list(range(8, 16))])
+        out["agree_cpu"] = _pk_same(
+            "card vs CPU", {k: runs["packed_2"]["results"][i]
+                            for k, i in enumerate(PK_CPU)},
+            cres, range(len(sub)))
+        check(any(s.get("variant", "").startswith("packed:")
+                  for s in cpu.steps()), "18: the CPU port did not pack")
+        out["packed"], out["unpacked"] = runs["packed"], runs["unpacked"]
+        out["packed_steps_total"] = n_packed
+        for tag in ("packed", "unpacked"):
+            r = runs[tag]
+            print(f"18a {tag}: {r['steps']} steps ({r['packed_steps']} "
+                  f"packed), rows {r['rows']}/{r['padded_rows']}, token "
+                  f"fill {r['tokens_real']}/{r['tokens_padded']} = "
+                  f"{r['token_fill']:.4f}, step device {r['step_device_ms']:.3f}"
+                  f" ms ({r['device_ms_per_item']:.4f} ms/item), wall "
+                  f"{r['wall_s'] * 1e3:.1f} ms ({r['wall_ms_per_item']:.3f} "
+                  f"ms/item) | {smi}", flush=True)
+        print(f"18a shapes packed {runs['packed']['shapes']} unpacked "
+              f"{runs['unpacked']['shapes']}", flush=True)
+        print(f"18a K2 launches a pass: packed "
+              f"{runs['packed_2']['launches']['head_epilogue']}, unpacked "
+              f"{runs['unpacked_2']['launches']['head_epilogue']}; "
+              f"llm_engine_packed_steps_total {n_packed}; agreement: "
+              f"unpacked {out['agree_unpacked']:.2e}, CPU "
+              f"{out['agree_cpu']:.2e}", flush=True)
+        stamp("phase 18c: routed request")
+        apply_packing_knobs(cfg, engine)   # packing back on, census warmed
+        _cuda.reset_launch_counts()
+        out["route"] = pk_route(engine, cpu, cfg, smi)
+        for k in main:
+            main[k] += out["route"]["launches"].get(k, 0)
+        pol = engine._autotuner.step()
+        out["autotuner"] = engine._autotuner.report()
+        print(f"18 autotuner: policy {json.dumps(pol)} report "
+              f"{json.dumps(out['autotuner'])}", flush=True)
+    finally:
+        engine.shutdown()
+        if cpu is not None:
+            cpu.shutdown()
+    stamp("phase 18b: wide bank")
+    out["wide"] = pk_wide(smi)
+    for k in main:
+        main[k] += out["wide"]["launches"].get(k, 0)
+    out["launches"] = main
+    out["cuda_tests"] = run_cuda_tests("test_torch_packing_cuda.py", 4)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {out['seconds']:.1f} s, launches {main} | {smi}",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -9172,6 +9599,8 @@ def main(argv=None) -> int:
     stamp("phase 17: dual path")
     dp = report["dual_path"] = phase_dual_path(modules3, modules5,
                                                dev["smi"])
+    stamp("phase 18: packing")
+    pk = report["packing"] = phase_packing(dev["smi"])
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -9203,8 +9632,9 @@ def main(argv=None) -> int:
             # path phase's trunk (both paths), LoRA trunk and embedding
             # model (the two stores); K2 in the serve, fixture, respond,
             # observe, gates, chat, models, multimodal, state plane,
-            # retrieval and dual path (traditional side) banks and
-            # under every quant mode
+            # retrieval and dual path (traditional side) banks, the
+            # packing phase's packed and unpacked steps and under every
+            # quant mode
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -9212,6 +9642,7 @@ def main(argv=None) -> int:
             + chat["launches"][kname] + models["launches"][kname]
             + mm["launches"][kname] + sp["launches"][kname]
             + rt["launches"][kname] + dp["launches"][kname]
+            + pk["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),
@@ -9227,7 +9658,9 @@ def main(argv=None) -> int:
         "name": "bgmv", "route": "cuda",
         "source": "semantic_router_tpu_torch/csrc/bgmv.cu",
         "replaces": "semantic_router_tpu/ops/bgmv.py:43",
-        "launches": wide["launches"]["bgmv"],
+        # K3 runs in the wide bank (phase 4) and the packed wide bank
+        # (phase 18b)
+        "launches": wide["launches"]["bgmv"] + pk["launches"]["bgmv"],
         "max_abs_err": max(x["max_abs_err"] for x in kern["bgmv"]
                            if x["dtype"] == "torch.float32"),
         "ms": main_bgmv["ms"], "warm_ms": main_bgmv["warm_ms"],

@@ -818,8 +818,8 @@ class SemanticCacheConfig:
 @dataclass
 class InferenceEngineConfig:
     """Engine knobs: the batching shim, the padding buckets, attention and
-    kernel toggles, and the 2D-Matryoshka variants an embedding task
-    serves (layer exits x output dims)."""
+    kernel toggles, sequence packing, and the 2D-Matryoshka variants an
+    embedding task serves (layer exits x output dims)."""
 
     max_batch_size: int = 32
     max_wait_ms: float = 2.0
@@ -836,6 +836,12 @@ class InferenceEngineConfig:
     # group; False serves every task on its own (register_task's ``fuse``
     # overrides it per task)
     fuse_trunks: bool = True
+    # sequence-packed continuous batching (enabled, min_segments,
+    # max_segments_per_row, max_items_per_step, max_inflight_steps,
+    # starvation_steps, autotune), normalized by
+    # engine.packing.normalize_packing; on by default, as the reference's
+    # (only a fused group on dense attention packs)
+    packing: Dict[str, Any] = field(default_factory=dict)
     # tuned-kernel toggles, normalized by engine.kernels.normalize_kernels
     kernels: Dict[str, Any] = field(default_factory=dict)
     # quantized trunk serving (mode off | bf16 | int8, group selector,
@@ -857,6 +863,7 @@ class InferenceEngineConfig:
             matryoshka_dims=list(d.get("matryoshka_dims", [])),
             dispatch_workers=int(d.get("dispatch_workers", 4)),
             fuse_trunks=bool(d.get("fuse_trunks", True)),
+            packing=dict(d.get("packing", {}) or {}),
             kernels=dict(d.get("kernels", {}) or {}),
             quant=dict(d.get("quant", {}) or {}),
             cascade=dict(d.get("cascade", {}) or {}),
@@ -864,6 +871,12 @@ class InferenceEngineConfig:
         if d.get("seq_len_buckets"):
             out.seq_len_buckets = [int(x) for x in d["seq_len_buckets"]]
         return out
+
+    def packing_config(self) -> Dict[str, Any]:
+        """The normalized ``engine.packing`` block."""
+        from ..engine.packing import normalize_packing
+
+        return normalize_packing(self.packing)
 
     def quant_config(self) -> Dict[str, Any]:
         """The normalized ``engine.quant`` block."""
@@ -945,7 +958,6 @@ UNPORTED_BLOCKS = {
 }
 # engine knobs the JAX engine reads and this port does not
 UNPORTED_ENGINE = {
-    "packing": "sequence packing",
     "mesh": "the serving mesh",
     "mesh_shape": "the engine mesh",
 }
@@ -1004,7 +1016,8 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     circuits), the RESP-backed stores and the retrieval plane (``ann`` on
     one device, ``vectorstore`` with every backend the reference names,
     Llama-Stack included, and its Postgres store registry, the ``rag``
-    plugin, qdrant / milvus memory stores and caches) are served."""
+    plugin, qdrant / milvus memory stores and caches) and sequence
+    packing (``engine.packing``) are served."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
     for key, what in UNPORTED.items():

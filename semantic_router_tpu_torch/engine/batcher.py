@@ -11,8 +11,12 @@ The port's copy of ``semantic_router_tpu.engine.batcher``:
 - fail-open: a runner error resolves every future of the batch with the
   exception instead of wedging callers;
 - concurrent dispatch: ready batches go to a small worker pool, at most
-  ONE in-flight batch per group, so a slow bucket cannot park live
-  traffic on others;
+  ONE in-flight batch per group by default, so a slow bucket cannot park
+  live traffic on others;
+- composition hooks (``_inflight_cap``, ``_group_full``,
+  ``_ready_immediately``, ``_take_batch``): the packing scheduler
+  (engine.packing.scheduler) overrides them; the defaults here are the
+  fixed-row batching above;
 - cancellation: a future cancelled while queued is dropped before its
   batch runs; once a batch starts, its futures can no longer be cancelled;
 - tracing: each item captures the submitting thread's trace context at
@@ -45,6 +49,9 @@ class BatchItem:
     # the originating request's (tracer, trace_id, span_id, sampled),
     # captured at enqueue — None on untraced requests
     trace: Any = field(default_factory=_capture_trace)
+    # packed steps this item was passed over by the packing scheduler's
+    # lookahead: bounded by its starvation_steps knob
+    deferred: int = 0
 
 
 BatchRunner = Callable[[Hashable, List[BatchItem]], Sequence[Any]]
@@ -251,20 +258,44 @@ class DynamicBatcher:
                         it.future.set_exception(RuntimeError("batcher stopped"))
             self._queues.clear()
 
+    # -- composition hooks (engine.packing.scheduler overrides them) -------
+
+    def _inflight_cap(self, key: Hashable) -> int:
+        """Most concurrent in-flight steps of a group: 1 keeps per-group
+        ordering; the packing scheduler raises it (continuous
+        admission)."""
+        return 1
+
+    def _group_full(self, key: Hashable, items: List[BatchItem]) -> bool:
+        """True when the group should fire without waiting."""
+        return len(items) >= self.max_batch_size
+
+    def _ready_immediately(self, key: Hashable,
+                           items: List[BatchItem]) -> bool:
+        """Readiness before max_wait because something else provides the
+        accumulation window (a step of the group in flight)."""
+        return False
+
+    def _take_batch(self, key: Hashable, items: List[BatchItem]) -> tuple:
+        """Split a group's queue into (batch to dispatch, remainder)."""
+        return items[:self.max_batch_size], items[self.max_batch_size:]
+
     # -- scheduler loop ----------------------------------------------------
 
     def _ready_group(self) -> Optional[Hashable]:
-        """A group is ready when full, or its oldest item aged past
-        max_wait, or (low-QPS fast path) it holds the only pending item.
-        A group with a batch in flight is never ready."""
+        """A group is ready when full (or ready at once), or its oldest
+        item aged past max_wait, or (low-QPS fast path) it holds the only
+        pending item.  A group at its in-flight cap is never ready."""
         now = time.perf_counter()
         oldest_key, oldest_age = None, -1.0
         total = 0
         for key, items in self._queues.items():
-            if not items or self._inflight.get(key, 0) >= 1:
+            if not items or self._inflight.get(key, 0) \
+                    >= self._inflight_cap(key):
                 continue
             total += len(items)
-            if len(items) >= self.max_batch_size:
+            if self._group_full(key, items) \
+                    or self._ready_immediately(key, items):
                 return key
             age = now - items[0].enqueue_t
             if age > oldest_age:
@@ -280,7 +311,8 @@ class DynamicBatcher:
     def _next_deadline(self) -> Optional[float]:
         deadline = None
         for key, items in self._queues.items():
-            if items and self._inflight.get(key, 0) < 1:
+            if items and self._inflight.get(key, 0) \
+                    < self._inflight_cap(key):
                 d = items[0].enqueue_t + self.max_wait_s
                 deadline = d if deadline is None else min(deadline, d)
         return deadline
@@ -299,8 +331,10 @@ class DynamicBatcher:
                 if self._stop:
                     return
                 items = self._queues[key]
-                batch = items[:self.max_batch_size]
-                self._queues[key] = items[self.max_batch_size:]
+                batch, rest = self._take_batch(key, items)
+                if not batch:  # a planner must never wedge the group
+                    batch, rest = items[:1], items[1:]
+                self._queues[key] = rest
                 self._inflight[key] = self._inflight.get(key, 0) + 1
             self._observe_batch(batch)
             try:

@@ -2,7 +2,7 @@
 the embedding tasks behind the batcher, every step a CUDA graph on the
 card.
 
-The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
+The port of ``semantic_router_tpu.engine.classify``:
 
 - tasks register a ModernBERT sequence or token classifier (or a LoRA-head
   classifier) + tokenizer + label set; classifiers whose trunk tensors
@@ -22,6 +22,26 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   own task and label set with a host softmax over the true label width;
 - identical encodings in a fused batch share one trunk row; rows pad to a
   power of two and sequences to the bucket edge;
+- sequence packing (``engine.packing``, on by default as the reference's):
+  the batcher is always a ``PackingBatcher`` (engine.packing.scheduler),
+  whose hooks compose length-aware, continuously admitted steps for a
+  fused group on ``dense`` attention (and delegate to the fixed-row
+  batching otherwise, or under ``enabled: false``).  A fused batch of at
+  least ``min_segments`` unique encodings packs when the first-fit plan
+  needs fewer padded rows than one row per encoding (or when the take
+  holds more encodings than ``max_batch_size``): the encodings bin-pack
+  into shared rows (engine.packing.packer) under a block-diagonal mask
+  with per-segment RoPE positions, the sequence heads pool PER SEGMENT
+  ([K_pad, D]; a BGMV pair indexes a segment) and the token heads read
+  each segment's span.  A packed step is keyed on (bucket, padded rows,
+  K_pad, pairs, epilogue, bgmv), catalogued as
+  ``packed:<flavor>:<K_pad>[:p<pairs>]`` and recorded under the
+  runtimestats variant ``packed`` with its token fill; the shape
+  auto-tuner (engine.packing.autotuner, its thread the bootstrap's)
+  retunes segment caps and demotes buckets from those series.
+  ``warmup`` also runs each packed flavor at 1 row and K_pad 2, and
+  ``warmup_packed_hot`` re-runs the packed shapes a snapshot change
+  dropped (its census carried over as warm hints);
 - ``classify_windowed`` classifies a text past ``max_seq_len`` as stride
   windows (utils.tokenization.encode_windows) on the per-task path and
   combines their probabilities by content share;
@@ -82,7 +102,7 @@ The port of ``semantic_router_tpu.engine.classify`` (unpacked paths):
   flavor, quant off, no epilogue, no BGMV) runs as two fenced eager
   calls, trunk then heads, under the variant ``fused_detailed``.
 
-Packing and meshes of the JAX engine are later slices (ROADMAP.md).
+The serving mesh of the JAX engine is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -113,7 +133,12 @@ from ..models.lora import (
 )
 from ..observability import batchtrace
 from ..observability.profiler import trace_span
-from ..ops.attention import cls_pool, mean_pool
+from ..ops.attention import (
+    cls_pool,
+    mean_pool,
+    packed_cls_pool,
+    packed_mean_pool,
+)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tokenization import (
     Encoding,
@@ -121,7 +146,7 @@ from ..utils.tokenization import (
     decode_entity_spans,
     encode_windows,
 )
-from .batcher import BatchItem, DynamicBatcher, pick_bucket, pow2_batch
+from .batcher import BatchItem, pick_bucket, pow2_batch
 from .graphs import (
     CaptureGate,
     SnapshotRetired,
@@ -129,6 +154,13 @@ from .graphs import (
     on_first_execution,
 )
 from .kernels import normalize_kernels, normalize_quant, quant_selects
+from .packing import (
+    PackingBatcher,
+    RowPlan,
+    ShapeAutoTuner,
+    normalize_packing,
+    pack_items,
+)
 from .pathing import (
     STACKED,
     TRADITIONAL,
@@ -270,22 +302,35 @@ class TrunkGroup:
     # indices (or a new serving trunk, or graphs captured over the old
     # tensors) with old ones
     demux: Any = None
+    # packed shapes (bucket, K_pad, padded rows, flavor, pairs) a replaced
+    # snapshot had run, for warmup_packed_hot to run again
+    warm_hints: Any = None
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, flavor: str,
                 demux: dict, epilogue: bool,
                 pair_rows: Optional[torch.Tensor] = None,
-                pair_tasks: Optional[torch.Tensor] = None):
+                pair_tasks: Optional[torch.Tensor] = None,
+                packing: Optional[tuple] = None):
         """One trunk forward feeding the head banks the flavor needs:
         ``seq`` → [B, T, L] logits, ``tok`` → [B, S, T, L], ``both`` →
         both.  With (pair_rows, pair_tasks) the sequence bank runs per
-        pair (BGMV) and ``seq`` is [P, L].  The serving trunk (and its
-        compute dtype) is the snapshot's; the heads take float32.  Returns
-        (seq_logits or None, tok_logits or None)."""
+        pair (BGMV) and ``seq`` is [P, L].  ``packing``: (position_ids,
+        segment_ids, seg_row, seg_start) of a packed step — the trunk runs
+        packed and the sequence heads take one pooled row per segment
+        (``seq`` is [K_pad, T, L], or [P, L] with pairs over segments).
+        The serving trunk (and its compute dtype) is the snapshot's; the
+        heads take float32.  Returns (seq_logits or None, tok_logits or
+        None)."""
         cfg = self.config
-        hidden = demux["trunk"](ids, mask)
+        if packing is None:
+            hidden = demux["trunk"](ids, mask)
+        else:
+            hidden = demux["trunk"](ids, mask, position_ids=packing[0],
+                                    segment_ids=packing[1])
         seq = tok = None
         if flavor in ("seq", "both"):
-            pooled = self.pool(hidden, mask)
+            pooled = self.pool(hidden, mask) if packing is None \
+                else self.packed_pool(hidden, *packing[1:])
             if pair_rows is not None:
                 seq = apply_head_bank_bgmv(
                     demux["bank"], pooled, pair_rows, pair_tasks,
@@ -307,6 +352,15 @@ class TrunkGroup:
         """The sequence heads' float32 features: mean or CLS pooling."""
         pooled = mean_pool(hidden, mask) \
             if self.config.classifier_pooling == "mean" else cls_pool(hidden)
+        return pooled.float()
+
+    def packed_pool(self, hidden: torch.Tensor, segment_ids: torch.Tensor,
+                    seg_row: torch.Tensor,
+                    seg_start: torch.Tensor) -> torch.Tensor:
+        """Per-segment float32 features of a packed step: [K_pad, D]."""
+        pooled = packed_mean_pool(hidden, segment_ids, seg_row.shape[0]) \
+            if self.config.classifier_pooling == "mean" \
+            else packed_cls_pool(hidden, seg_row, seg_start)
         return pooled.float()
 
     def heads(self, demux: dict, pooled: torch.Tensor) -> torch.Tensor:
@@ -370,6 +424,8 @@ class InferenceEngine:
         # step caches a change of snapshots replaced, retired once the
         # change releases the lock (_changing)
         self._stale: List[StepGraphs] = []
+        # changes that retired a replaced snapshot (``_changing``)
+        self._retirements = 0
         # replays share the gate, a capture holds it alone
         self._gate = CaptureGate()
         # one generation runs at a time (its decode steps saturate the
@@ -383,13 +439,34 @@ class InferenceEngine:
         self._stacked_pool: Optional[ThreadPoolExecutor] = None
         self.path_chooser: Optional[DualPathChooser] = None
         self.last_path_selection: Optional[PathSelection] = None
-        self.batcher = DynamicBatcher(
+        # sequence packing: the batcher is ALWAYS the packing scheduler;
+        # with packing off every hook delegates to the fixed-row base
+        # class, so the knob flips without swapping a live batcher
+        self._packing = normalize_packing(self.cfg.packing)
+        self._autotuner: Optional[ShapeAutoTuner] = None
+        self.batcher = PackingBatcher(
             self._run_batch,
+            bucket_of=self._packing_bucket_of,
+            segment_cap_of=self._packing_segment_cap_of,
             max_batch_size=self.cfg.max_batch_size,
             max_wait_ms=self.cfg.max_wait_ms,
             name="torch-engine-batcher",
             dispatch_workers=self.cfg.dispatch_workers,
-            metrics=metrics)
+            metrics=metrics,
+            enabled=self._packing["enabled"],
+            max_segments_per_row=self._packing["max_segments_per_row"],
+            max_items_per_step=self._packing["max_items_per_step"],
+            max_inflight_steps=self._packing["max_inflight_steps"],
+            starvation_steps=self._packing["starvation_steps"])
+        # the shape auto-tuner exists per engine; its polling thread is
+        # the bootstrap's to start (apply_packing_knobs)
+        at = self._packing["autotune"]
+        self._autotuner = ShapeAutoTuner(
+            runtime_stats, self.batcher,
+            target_fill=at["target_fill"], min_samples=at["min_samples"],
+            segments_floor=self._packing["max_segments_per_row"],
+            max_segments_cap=at["max_segments_cap"],
+            interval_s=at["interval_s"])
         # the sampler's queue-depth and graph-pool rows
         self._queue_provider = self.batcher.queue_depths
         self._memory_provider = lambda: {"graph_pool_bytes": sum(
@@ -576,6 +653,8 @@ class InferenceEngine:
         finally:
             with self._lock:
                 stale, self._stale = self._stale, []
+                if stale:
+                    self._retirements += 1
             for cache in stale:
                 cache.retire()
 
@@ -680,6 +759,11 @@ class InferenceEngine:
         old, g.demux = g.demux, demux
         if old is not None:
             self._stale.append(old["graphs"])
+            # the packed shapes the old snapshot ran stay hot: merged
+            # into the hints warmup_packed_hot runs on the new one
+            rows = _parse_census_keys(old["graphs"].keys())
+            if rows:
+                g.warm_hints = sorted(set(rows) | set(g.warm_hints or ()))
 
     # -- kernel knobs ------------------------------------------------------
 
@@ -749,6 +833,85 @@ class InferenceEngine:
 
     def trunk_group(self, task: str) -> Optional[TrunkGroup]:
         return self._task_group.get(task)
+
+    # -- sequence packing --------------------------------------------------
+
+    def _packing_bucket_of(self, key: Hashable) -> Optional[int]:
+        """The packing scheduler's eligibility callback: the row length of
+        a group the fused runner can PACK (a fused trunk group on dense
+        attention whose bucket the auto-tuner has not demoted), else
+        None (the scheduler then keeps the fixed-row batching)."""
+        if not (isinstance(key, tuple) and len(key) == 3
+                and key[0] == TRUNK_KEY):
+            return None
+        g = self._groups_by_gid.get(key[1])
+        if g is None or g.config.attention_impl != "dense":
+            return None
+        tuner = self._autotuner
+        if tuner is not None and tuner.blocked(f"trunk:{key[1]}", key[2]):
+            return None
+        return int(key[2])
+
+    def _packing_segment_cap_of(self, key: Hashable) -> int:
+        """Per-group segment cap, the tuner's policy over the config
+        default: the ONE value the scheduler's take and the runner's pack
+        both use, so a planned step always re-plans identically."""
+        base = self._packing["max_segments_per_row"]
+        tuner = self._autotuner
+        if tuner is None or not (isinstance(key, tuple) and len(key) == 3):
+            return base
+        pol = tuner.policy(f"trunk:{key[1]}")
+        try:
+            return max(1, int(pol.get("max_segments_per_row", base)))
+        except (TypeError, ValueError):
+            return base
+
+    def configure_packing(self, knobs: Optional[Dict[str, Any]]) -> None:
+        """Apply an ``engine.packing`` block (boot or reload): retunes the
+        live scheduler and auto-tuner in place, no batcher swap.  Turning
+        packing off drops the packed steps from every live step cache
+        (their shapes kept as warm hints, so turning it on again warms
+        them through ``warmup_packed_hot``) and retires their runtimestats
+        and catalog rows."""
+        pk = normalize_packing(knobs)
+        was_enabled = bool(self._packing.get("enabled"))
+        self._packing = pk
+        if was_enabled and not pk["enabled"]:
+            for g in list(self._groups_by_gid.values()):
+                cache = g.demux["graphs"]
+                rows = _parse_census_keys(cache.keys())
+                cache.evict(lambda k: str(k[1]).startswith("packed:"))
+                if rows:
+                    g.warm_hints = sorted(set(rows)
+                                          | set(g.warm_hints or ()))
+            for store in (self._runtime_stats, self._program_stats):
+                store.retire(variant_prefix="packed")
+        self.batcher.configure(pk)
+        at = pk["autotune"]
+        tuner = self._autotuner
+        tuner.target_fill = at["target_fill"]
+        tuner.min_samples = at["min_samples"]
+        tuner.max_segments_cap = at["max_segments_cap"]
+        tuner.interval_s = max(0.5, at["interval_s"])
+        # per-group caps grow from the (possibly retuned) config default
+        tuner.segments_floor = pk["max_segments_per_row"]
+
+    def packing_report(self) -> Dict[str, Any]:
+        """The live knobs, the scheduler's state and the auto-tuner's
+        policy (GET /debug/runtime's ``packing`` block)."""
+        b = self.batcher
+        return {
+            "knobs": {k: (dict(v) if isinstance(v, dict) else v)
+                      for k, v in self._packing.items()},
+            "scheduler": {
+                "enabled": b.enabled,
+                "max_segments_per_row": b.max_segments_per_row,
+                "max_items_per_step": b._item_budget(),
+                "max_inflight_steps": b.max_inflight_steps,
+                "starvation_steps": b.starvation_steps,
+            },
+            "autotuner": self._autotuner.report(),
+        }
 
     def device_work(self):
         """A context for work a caller launches on the engine's device
@@ -1171,8 +1334,75 @@ class InferenceEngine:
                     self._fused_step(g, demux, flavor, b, 1, meta, use_bgmv,
                                      inputs(b, g.pad_id)
                                      + (pairs if use_bgmv else []))
+                # the packed entry shape every packed bucket hits first
+                self._warm_packed_shape(g, b, k_pad=2, padded_rows=1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _warm_packed_shape(self, g: TrunkGroup, bucket: int, k_pad: int,
+                           padded_rows: int, pair_pad: int = 0,
+                           flavors: Optional[Sequence[str]] = None) -> bool:
+        """Run one packed (padded_rows, bucket, K_pad) shape off the
+        batcher, per flavor, through the live snapshot's step cache
+        (captured on the card, eager on the CPU), so the first real packed
+        step of the shape replays.  Two segments of half the bucket each,
+        laid out by ``pack_items``.  False (nothing run) while packing is
+        off or the group cannot pack; a capture that fails raises."""
+        if not self._packing["enabled"] \
+                or g.config.attention_impl != "dense":
+            return False
+        demux = g.demux
+        meta = self._serving_meta(demux)
+        k_eff = max(2, int(k_pad))
+        half = max(1, bucket // 2)
+        pb = pack_items([_WarmEncoding(half), _WarmEncoding(bucket - half)],
+                        bucket, g.pad_id, max_rows=1, max_segments_per_row=2,
+                        pad_rows_to=padded_rows, pad_segments_to=k_eff)
+        planes = _packed_inputs(pb)
+        pp = int(pair_pad) or 2
+        pairs = [torch.zeros(pp, dtype=torch.int32)] * 2
+        need = {"seq": demux["bank"] is not None,
+                "tok": demux["tok_bank"] is not None,
+                "both": demux["bank"] is not None
+                and demux["tok_bank"] is not None}
+        for flavor in flavors or ("seq", "tok", "both"):
+            if not need.get(flavor):
+                continue
+            use_bgmv = meta["bgmv"] and flavor != "tok"
+            self._packed_step(g, demux, flavor, bucket, padded_rows, k_eff,
+                              meta, use_bgmv,
+                              planes + (pairs if use_bgmv else []))
+        return True
+
+    def packed_shape_census(self) -> Dict[str, list]:
+        """gid → the packed shapes (bucket, K_pad, padded rows, flavor,
+        pairs) the group's live step cache has run."""
+        return {g.gid: _parse_census_keys(g.demux["graphs"].keys())
+                for g in list(self._groups_by_gid.values())}
+
+    def warmup_packed_hot(self) -> int:
+        """Run every packed shape the census and the warm hints (shapes a
+        replaced snapshot had run) name on the live snapshots, so the
+        first packed step after a boot, a retune or a kernel or quant
+        flip replays.  Hints that cannot run now (packing off) stay.
+        Returns the number of shapes run."""
+        n = 0
+        for g in list(self._groups_by_gid.values()):
+            rows = set(_parse_census_keys(g.demux["graphs"].keys()))
+            rows.update(tuple(r) for r in (g.warm_hints or ()))
+            remaining = set()
+            for row in sorted(rows):
+                bucket, k_pad, padded_rows, flavor, pair_pad = row
+                if self._warm_packed_shape(g, bucket, k_pad, padded_rows,
+                                           pair_pad=pair_pad,
+                                           flavors=(flavor,)):
+                    n += 1
+                else:
+                    remaining.add(row)
+            g.warm_hints = sorted(remaining) if remaining else None
+        if n and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
 
     def steps(self) -> List[dict]:
         """Recent step records (oldest first), a view of this engine's
@@ -1213,8 +1443,10 @@ class InferenceEngine:
                 + [(el, od) for el in layers for od in dims])
 
     def shutdown(self) -> None:
-        """Stop the batcher and the stacked bank's pool and drop every
-        captured graph (their pools return to the card)."""
+        """Stop the batcher, the shape auto-tuner's thread and the stacked
+        bank's pool and drop every captured graph (their pools return to
+        the card)."""
+        self._autotuner.stop()
         self.batcher.shutdown()
         if self._stacked_pool is not None:
             self._stacked_pool.shutdown(wait=False)
@@ -1378,6 +1610,32 @@ class InferenceEngine:
                 inputs, (bucket, padded_n, variant, "fused",
                          dict(meta, bgmv=use_bgmv)), first)
 
+    def _packed_step(self, g: TrunkGroup, demux: dict, flavor: str,
+                     bucket: int, padded_rows: int, k_pad: int, meta: dict,
+                     use_bgmv: bool, inputs: Sequence[torch.Tensor],
+                     first: Optional[list] = None) -> tuple:
+        """A trunk group's packed step: ``inputs`` are ids, mask,
+        position_ids, segment_ids, seg_row, seg_start (and the pairs).
+        Keyed on (bucket, padded rows, K_pad, pairs, epilogue, bgmv); its
+        catalog variant is the reference's
+        ``packed:<flavor>:<K_pad>[:p<pairs>]``."""
+        pairs = len(inputs[6]) if use_bgmv else 0
+        shape = (bucket, padded_rows, k_pad, pairs, meta["epilogue"],
+                 use_bgmv)
+
+        def step(ids, mask, pos, seg, seg_row, seg_start, *pairs):
+            return g.forward(ids, mask, flavor, demux, meta["epilogue"],
+                             *pairs, packing=(pos, seg, seg_row, seg_start))
+
+        variant = f"packed:{flavor}:{k_pad}" + (f":p{pairs}" if use_bgmv
+                                                 else "")
+        with trace_span(f"engine.classify.packed.{g.gid}",
+                        cuda=self.device.type == "cuda"):
+            return self._execute(
+                demux["graphs"], f"trunk:{g.gid}", f"packed:{flavor}", shape,
+                step, inputs, (bucket, padded_rows, variant, "packed",
+                               dict(meta, bgmv=use_bgmv)), first)
+
     def _task_step(self, t: _Task, bucket: int, padded_n: int,
                    inputs: Sequence[torch.Tensor],
                    first: Optional[list] = None) -> tuple:
@@ -1415,11 +1673,14 @@ class InferenceEngine:
     def _record_step(self, group: str, bucket: int, variant: str,
                      rows: int, padded_rows: int, seconds: float,
                      compiled: bool, detail: Dict[str, Any],
-                     tokens_real: int = 0, tokens_padded: int = 0) -> None:
+                     tokens_real: int = 0, tokens_padded: int = 0,
+                     segments: Optional[int] = None) -> None:
         """The step's one record: a runtimestats sample (a bounded deque
         append) carrying ``detail``, the record ``steps()`` shows, and one
         ``llm_classifier_batch_size`` observation of its real rows (the
-        reference declares the series; the port feeds it per step)."""
+        reference declares the series; the port feeds it per step).
+        ``segments``: a packed step's segment count (else the real rows
+        of a step with token counts)."""
         with self._lock:
             self.trunk_forwards += 1
         self._series().batch_size.observe(rows)
@@ -1427,7 +1688,8 @@ class InferenceEngine:
             group, bucket, variant, rows, padded_rows, seconds,
             compiled=compiled, tokens_real=tokens_real,
             tokens_padded=tokens_padded,
-            segments=rows if tokens_padded else 0,
+            segments=segments if segments is not None
+            else (rows if tokens_padded else 0),
             detail=detail, source=self)
 
     def _count_kernel_step(self, gid: str, meta: dict,
@@ -1446,12 +1708,17 @@ class InferenceEngine:
 
     def _run_batch(self, group_key: Hashable,
                    items: List[BatchItem]) -> Sequence[Any]:
-        try:
-            return self._dispatch(group_key, items)
-        except SnapshotRetired:
-            # a rebuild or a flip retired the snapshot this batch read:
-            # it runs once more, on the live one
-            return self._dispatch(group_key, items)
+        while True:
+            seen = self._retirements
+            try:
+                return self._dispatch(group_key, items)
+            except SnapshotRetired:
+                # a rebuild or a flip retired the snapshot this batch
+                # read: it runs again on the live one, for as long as
+                # flips land while it runs.  A cache retired with no
+                # change (shutdown) raises.
+                if self._retirements == seen:
+                    raise
 
     def _dispatch(self, group_key: Hashable,
                   items: List[BatchItem]) -> Sequence[Any]:
@@ -1598,6 +1865,37 @@ class InferenceEngine:
         need_seq = "sequence" in kinds or not need_tok
         flavor = "both" if (need_tok and need_seq) \
             else ("tok" if need_tok else "seq")
+
+        # packed vs unpacked: pack when the first-fit plan strictly needs
+        # fewer padded rows (or the scheduler took more encodings than a
+        # step has rows); a batch of one unique encoding (the dedup
+        # hot-prompt case included) stays on the unpacked path
+        pk = self._packing
+        n_rows = len(uniq)
+        row_cap = self.cfg.max_batch_size
+        max_segs = self._packing_segment_cap_of((TRUNK_KEY, gid, bucket))
+        plan_rows = 0
+        if pk["enabled"] and g.config.attention_impl == "dense" \
+                and n_rows >= pk["min_segments"]:
+            must_pack = n_rows > row_cap
+            if must_pack or not self._autotuner.blocked(f"trunk:{gid}",
+                                                        bucket):
+                plan = RowPlan(bucket, row_cap, max_segs)
+                fits = all(plan.add(min(len(it.payload.encoding), bucket))
+                           is not None for it in uniq)
+                if fits and (must_pack
+                             or pow2_batch(plan.rows_used, row_cap)
+                             < pow2_batch(n_rows, row_cap)):
+                    plan_rows = plan.rows_used
+        if not plan_rows and n_rows > row_cap:
+            # the scheduler over-took but the plan no longer fits (a
+            # reload lowered the knobs meanwhile): serve in halves
+            mid = max(1, len(items) // 2)
+            return (list(self._run_fused_batch(gid, bucket, items[:mid]))
+                    + list(self._run_fused_batch(gid, bucket, items[mid:])))
+        if plan_rows:
+            return self._run_fused_packed(g, bucket, items, urow, uniq,
+                                          demux, flavor, max_segs, plan_rows)
         return self._run_fused_unpacked(g, bucket, items, urow, uniq,
                                         demux, flavor)
 
@@ -1667,40 +1965,140 @@ class InferenceEngine:
             self._count_kernel_step(g.gid, meta, use_bgmv)
 
             with batchtrace.stage(step, "demux"):
-                now = time.perf_counter()
-                out: List[Any] = []
-                for i, item in enumerate(items):
-                    enc = item.payload.encoding
-                    L = min(len(enc), bucket)
-                    latency = now - item.payload.submit_t
-                    trunc = enc.truncated or clipped[urow[i]]
-                    per_task: Dict[str, Any] = {}
-                    for task in item.payload.tasks:
-                        if self._tasks[task].kind == "token":
-                            row = demux["tok_row_of"][task]
-                            width = demux["tok_widths"][row]
-                            probs = _softmax(
-                                tok_logits[urow[i], :L, row, :width])
-                            per_task[task] = self._demux_tok(
-                                task, probs, item, enc, L, latency, trunc)
-                        else:
-                            row = demux["row_of"][task]
-                            width = demux["widths"][row]
-                            # the BGMV path demuxes by PAIR: same logits,
-                            # gathered on the device
-                            src = seq_logits[pair_index[(urow[i], row)],
-                                             :width] \
-                                if use_bgmv else \
-                                seq_logits[urow[i], row, :width]
-                            p = _softmax(src[None])[0]
-                            per_task[task] = self._demux_seq(task, p,
-                                                             latency, trunc)
-                    out.append(per_task[item.payload.tasks[0]]
-                               if len(item.payload.tasks) == 1 else per_task)
-            return out
+                spans = [(u, 0, min(len(it.payload.encoding), bucket))
+                         for u, it in enumerate(uniq)]
+                return self._demux_fused(items, urow, demux, seq_logits,
+                                         tok_logits, use_bgmv, pair_index,
+                                         spans, clipped)
         finally:
             if step is not None:
                 step.finish()
+
+    def _run_fused_packed(self, g: TrunkGroup, bucket: int,
+                          items: List[BatchItem], urow: List[int],
+                          uniq: List[BatchItem], demux: dict, flavor: str,
+                          max_segs: int, plan_rows: int) -> Sequence[Any]:
+        """The sequence-packed fused path: the unique encodings bin-pack
+        into shared rows (segment k is unique encoding k) under a
+        block-diagonal mask with per-segment RoPE positions; sequence
+        heads pool per segment, token heads read each segment's span of
+        the per-token logits."""
+        n_seg = len(uniq)
+        padded_rows = pow2_batch(plan_rows, self.cfg.max_batch_size)
+        # the segment axis pads to a power of two, like the row axis
+        k_pad = 1 << max(0, n_seg - 1).bit_length()
+        meta = self._serving_meta(demux)
+        use_bgmv = meta["bgmv"] and flavor in ("seq", "both")
+        step = batchtrace.start_step(
+            items, group=f"trunk:{g.gid}", bucket=bucket,
+            max_batch=self.cfg.max_batch_size, padded_rows=padded_rows,
+            kind="fused")
+        try:
+            pair_index: Dict[tuple, int] = {}
+            pairs: list = []
+            with batchtrace.stage(step, "stack"):
+                pb = pack_items([it.payload.encoding for it in uniq], bucket,
+                                g.pad_id, max_rows=self.cfg.max_batch_size,
+                                max_segments_per_row=max_segs,
+                                pad_rows_to=padded_rows,
+                                pad_segments_to=k_pad)
+                for i, item in enumerate(items):
+                    if pb.segments[urow[i]].clipped:
+                        for task in item.payload.tasks:
+                            self._series().bucket_overflows.inc(task=task)
+                if use_bgmv:
+                    # packed pairs index SEGMENTS: the pool emits one row
+                    # per segment, and urow is the segment index
+                    pr, pt, pair_index = self._bgmv_pairs(items, urow, demux)
+                    pairs = [torch.from_numpy(pr), torch.from_numpy(pt)]
+                host = _packed_inputs(pb) + pairs
+            token_fill = pb.tokens_real / max(1, padded_rows * bucket)
+            if step is not None:
+                # how packed this step ran, beside the batch attributes
+                step.attrs["packing.packed"] = True
+                step.attrs["packing.segments"] = n_seg
+                step.attrs["packing.rows"] = pb.rows_used
+                step.attrs["packing.token_fill"] = round(token_fill, 4)
+            self._note_shape(f"trunk:{g.gid}", (padded_rows, bucket))
+            t0 = time.perf_counter()
+            first: list = []
+            with batchtrace.stage(step, "trunk_forward"):
+                (seq_t, tok_t), how = self._packed_step(
+                    g, demux, flavor, bucket, padded_rows, k_pad, meta,
+                    use_bgmv, host, first)
+            seq_logits = seq_t.numpy() if seq_t is not None else None
+            tok_logits = tok_t.numpy() if tok_t is not None else None
+            secs = time.perf_counter() - t0
+            self._record_step(
+                f"trunk:{g.gid}", bucket, "packed", pb.rows_used,
+                padded_rows, secs, bool(first), {
+                    "group": g.gid, "bucket": bucket, "flavor": flavor,
+                    "variant": f"packed:{flavor}:{k_pad}"
+                    + (f":p{len(pairs[0])}" if use_bgmv else ""),
+                    "rows": pb.rows_used, "padded_rows": padded_rows,
+                    "segments": n_seg, "k_pad": k_pad,
+                    "tokens_real": pb.tokens_real,
+                    "token_fill": token_fill,
+                    "quant": meta["quant"],
+                    "epilogue": meta["epilogue"], "bgmv": use_bgmv,
+                    "pairs": len(pair_index),
+                    "padded_pairs": len(pairs[0]) if pairs else 0,
+                    "seconds": secs, "graph": how},
+                tokens_real=pb.tokens_real,
+                tokens_padded=padded_rows * bucket, segments=n_seg)
+            # a packed step IS a fused trunk forward; packing has its own
+            # counter and the runtimestats "packed" variant
+            self._series().trunk_forwards.inc(group=g.gid, path="fused")
+            self._series().packed_steps.inc(group=g.gid)
+            self._count_kernel_step(g.gid, meta, use_bgmv)
+
+            with batchtrace.stage(step, "demux"):
+                return self._demux_fused(
+                    items, urow, demux, seq_logits, tok_logits, use_bgmv,
+                    pair_index, [(sg.row, sg.start, sg.length)
+                                 for sg in pb.segments],
+                    [sg.clipped for sg in pb.segments])
+        finally:
+            if step is not None:
+                step.finish()
+
+    def _demux_fused(self, items: List[BatchItem], urow: List[int],
+                     demux: dict, seq_logits, tok_logits, use_bgmv: bool,
+                     pair_index: Dict[tuple, int], spans: List[tuple],
+                     clipped: List[bool]) -> List[Any]:
+        """Each item's results from one fused step, decoded with its own
+        tasks' label sets.  Unique encoding u (``urow``) has its tokens at
+        ``tok_logits[row, start:start + length]`` for ``spans[u]`` = (row,
+        start, length) and its pooled row u in ``seq_logits`` [U, T, L],
+        or its (u, bank row) pairs under BGMV (same logits, gathered on
+        the device); ``clipped[u]``: cut at the bucket edge."""
+        now = time.perf_counter()
+        out: List[Any] = []
+        for i, item in enumerate(items):
+            u = urow[i]
+            enc = item.payload.encoding
+            at, start, length = spans[u]
+            latency = now - item.payload.submit_t
+            trunc = enc.truncated or clipped[u]
+            per_task: Dict[str, Any] = {}
+            for task in item.payload.tasks:
+                if self._tasks[task].kind == "token":
+                    row = demux["tok_row_of"][task]
+                    width = demux["tok_widths"][row]
+                    probs = _softmax(
+                        tok_logits[at, start:start + length, row, :width])
+                    per_task[task] = self._demux_tok(
+                        task, probs, item, enc, length, latency, trunc)
+                else:
+                    row = demux["row_of"][task]
+                    width = demux["widths"][row]
+                    src = seq_logits[pair_index[(u, row)], :width] \
+                        if use_bgmv else seq_logits[u, row, :width]
+                    p = _softmax(src[None])[0]
+                    per_task[task] = self._demux_seq(task, p, latency, trunc)
+            out.append(per_task[item.payload.tasks[0]]
+                       if len(item.payload.tasks) == 1 else per_task)
+        return out
 
     def _fused_detailed(self, g: TrunkGroup, demux: dict,
                         step: "batchtrace.BatchStep", ids: torch.Tensor,
@@ -1790,3 +2188,36 @@ def _softmax(x: np.ndarray) -> np.ndarray:
     x = x - x.max(axis=-1, keepdims=True)
     e = np.exp(x)
     return e / e.sum(axis=-1, keepdims=True)
+
+
+class _WarmEncoding:
+    """An n-token all-real encoding for the packed warmup (``pack_items``
+    lays it out as it lays out real ones)."""
+
+    def __init__(self, n: int) -> None:
+        self.ids = np.ones(n, np.int64)
+        self.attention_mask = np.ones(n, np.int32)
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+
+def _packed_inputs(pb) -> List[torch.Tensor]:
+    """A ``PackedBatch``'s host tensors in the packed step's order: ids
+    (int64), mask, position_ids, segment_ids, seg_row, seg_start."""
+    return [torch.from_numpy(pb.ids.astype(np.int64))] + [
+        torch.from_numpy(a) for a in (pb.mask, pb.position_ids,
+                                      pb.segment_ids, pb.seg_row,
+                                      pb.seg_start)]
+
+
+def _parse_census_keys(keys) -> List[tuple]:
+    """(bucket, K_pad, padded rows, flavor, pairs) of every packed step
+    key (group, ``packed:<flavor>``, bucket, padded rows, K_pad, pairs,
+    epilogue, bgmv) among ``keys``."""
+    out = set()
+    for k in keys:
+        if len(k) == 8 and str(k[1]).startswith("packed:"):
+            out.add((int(k[2]), int(k[4]), int(k[3]),
+                     k[1].split(":", 1)[1], int(k[5])))
+    return sorted(out)

@@ -158,12 +158,17 @@ class StepGraphs:
         """Drop the graphs of every key ``drop`` accepts, as ``retire``
         drops all of them (destroyed with the gate held alone); the cache
         stays live and such a key is captured again at its next
-        execution.  Returns how many keys went."""
+        execution.  Returns how many keys went.  When no graph is left,
+        the next capture takes a fresh pool: the caching allocator frees
+        a private pool once its last graph is destroyed, and capturing
+        into that pool's handle again fails."""
         with self.lock:
             gone = [k for k in self.steps if drop(k)]
             dropped = [self.steps.pop(k) for k in gone]
             eager = [k for k in self._eager if drop(k)]
             self._eager.difference_update(eager)
+            if dropped and not self.steps:
+                self._pool = None
         if dropped:
             with self.gate.exclusive():
                 del dropped

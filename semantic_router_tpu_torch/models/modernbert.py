@@ -18,6 +18,15 @@ ModernBERT state dict loads 1:1.  Architecture:
 streaming) or ``flash`` (the hand-written CUDA kernel on the GPU,
 ops.flash_attention).
 
+``position_ids`` / ``segment_ids`` ([B, S]) select the sequence-packed
+forward (engine.packing): several prompts share each row, RoPE rotates by
+segment-local position (the cos / sin tables gathered by position id) and
+attention is block-diagonal over segments (``block_diagonal_bias``, plus
+``packed_window_bias`` on the local layers), so each segment computes
+what it would alone in a padded row.  Only ``dense`` attention packs; any
+other impl raises.  The two biases are built once per forward and shared
+by the layers.
+
 ``dtype`` is the compute dtype, with Flax's semantics: parameters stay
 float32 and are cast per op (dense inputs, kernels and biases to
 ``dtype``; the embedding lookup cast to ``dtype``), LayerNorm statistics
@@ -43,9 +52,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (
+    block_diagonal_bias,
     chunked_sdpa,
     cls_pool,
     mean_pool,
+    packed_window_bias,
     padding_bias,
     sdpa,
     sliding_window_bias,
@@ -228,15 +239,31 @@ class ModernBertAttention(nn.Module):
             self.window = cfg.local_attention
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
-                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                task_index: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                packed_biases: Optional[Dict[int, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``packed_biases``: {window: bias} the model built once for the
+        packed forward (built here from the planes when None)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, D = cfg.num_attention_heads, cfg.head_dim
         qkv = self.Wqkv(x, task_index).view(B, S, 3, H, D)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, H, S, D]
         cos, sin = self.rope.tables(S, x.device)
+        if position_ids is not None:
+            # RoPE by segment-local position: the same float32 tables,
+            # gathered per token ([B, 1, S, D])
+            pos = position_ids.long()
+            cos, sin = cos[pos][:, None], sin[pos][:, None]
         q, k = apply_rotary(q, k, cos, sin)
-        if cfg.attention_impl == "flash":
+        if segment_ids is not None:
+            if packed_biases is None:
+                packed_biases = packed_attention_biases(cfg, position_ids,
+                                                        segment_ids)
+            out = sdpa(q, k, v, bias=packed_biases[self.window])
+        elif cfg.attention_impl == "flash":
             from ..ops.flash_attention import flash_attention
 
             out = flash_attention(q, k, v, key_padding_mask=attention_mask,
@@ -266,9 +293,36 @@ class ModernBertEncoderLayer(nn.Module):
         self.mlp = ModernBertMLP(cfg, dense_factory)
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
-                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), attention_mask, task_index)
+                task_index: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                packed_biases: Optional[Dict[int, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), attention_mask, task_index,
+                          position_ids, segment_ids, packed_biases)
         return x + self.mlp(self.mlp_norm(x), task_index)
+
+
+def packed_attention_biases(cfg: ModernBertConfig,
+                            position_ids: Optional[torch.Tensor],
+                            segment_ids: torch.Tensor
+                            ) -> Dict[int, torch.Tensor]:
+    """{window: additive bias} of a packed forward: 0 (global layers) →
+    ``block_diagonal_bias``; ``local_attention`` → that plus
+    ``packed_window_bias`` on segment-local positions.  Raises under any
+    ``attention_impl`` but ``dense``, as the reference does."""
+    if cfg.attention_impl != "dense":
+        raise ValueError(f"sequence packing requires attention_impl='dense' "
+                         f"(got {cfg.attention_impl!r})")
+    if position_ids is None:
+        raise ValueError("sequence packing needs position_ids with "
+                         "segment_ids")
+    block = block_diagonal_bias(segment_ids)
+    biases = {0: block}
+    if cfg.local_attention > 0:
+        biases[cfg.local_attention] = block + packed_window_bias(
+            position_ids, cfg.local_attention)
+    return biases
 
 
 class ModernBertModel(nn.Module):
@@ -287,17 +341,26 @@ class ModernBertModel(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 exit_layer: Optional[int] = None,
-                task_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                task_index: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``exit_layer``: the Matryoshka layer early exit — only the first
         ``exit_layer`` layers run, and the final norm applies to the last
         of them (None runs every layer).  ``task_index``: the adapter a
         LoRA trunk's projections select (None: adapter 0, as the JAX
-        ``_make_dense`` has it); plain and quantized trunks ignore it."""
+        ``_make_dense`` has it); plain and quantized trunks ignore it.
+        ``position_ids`` / ``segment_ids``: the packed forward (module
+        docstring); its attention biases are built here, once."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
+        biases = None
+        if segment_ids is not None:
+            biases = packed_attention_biases(self.config, position_ids,
+                                             segment_ids)
         x = self.embeddings(input_ids)
         for layer in self.layers[:self.layers_run(exit_layer)]:
-            x = layer(x, attention_mask, task_index)
+            x = layer(x, attention_mask, task_index, position_ids,
+                      segment_ids, biases)
         return self.final_norm(x)
 
     def layers_run(self, exit_layer: Optional[int] = None) -> int:

@@ -1,5 +1,5 @@
 """Attention primitives: dense SDPA, sliding-window masks, chunked SDPA,
-pooling.
+pooling, and the sequence-packing masks and per-segment pools.
 
 Masks are additive biases: 0 where attention is allowed and a large
 finite negative where it is not — finite so that fully masked rows (the
@@ -34,6 +34,34 @@ def sliding_window_bias(seq_len: int, window: int,
     zero = torch.zeros((), dtype=dtype, device=device)
     neg = torch.full((), NEG_INF, dtype=dtype, device=device)
     return torch.where(allowed, zero, neg)[None, None, :, :]
+
+
+def block_diagonal_bias(segment_ids: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, S] int segment ids (-1 = padding) → [B, 1, S, S] additive bias
+    allowing attention only WITHIN a segment: each packed prompt attends
+    exactly as if it sat alone in its row.  Padding keys (segment -1) are
+    masked even against padding queries, so a packed row is numerically
+    independent of what shares it."""
+    same = segment_ids[:, :, None] == segment_ids[:, None, :]
+    allowed = same & (segment_ids >= 0)[:, None, :]
+    zero = torch.zeros((), dtype=dtype, device=segment_ids.device)
+    neg = torch.full((), NEG_INF, dtype=dtype, device=segment_ids.device)
+    return torch.where(allowed, zero, neg)[:, None, :, :]
+
+
+def packed_window_bias(position_ids: torch.Tensor, window: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, S] per-segment position ids → [B, 1, S, S] sliding-window bias on
+    SEGMENT-LOCAL positions: inside one segment positions are contiguous,
+    so |p_i - p_j| is the unpacked |i - j|.  Combine with
+    ``block_diagonal_bias``: the position test alone would let a window
+    straddle two segments whose local positions align."""
+    dist = (position_ids[:, :, None] - position_ids[:, None, :]).abs()
+    allowed = dist <= (window // 2)
+    zero = torch.zeros((), dtype=dtype, device=position_ids.device)
+    neg = torch.full((), NEG_INF, dtype=dtype, device=position_ids.device)
+    return torch.where(allowed, zero, neg)[:, None, :, :]
 
 
 def causal_bias(seq_len: int, dtype: torch.dtype = torch.float32,
@@ -105,3 +133,24 @@ def mean_pool(hidden: torch.Tensor,
 
 def cls_pool(hidden: torch.Tensor) -> torch.Tensor:
     return hidden[:, 0]
+
+
+def packed_cls_pool(hidden: torch.Tensor, seg_row: torch.Tensor,
+                    seg_start: torch.Tensor) -> torch.Tensor:
+    """Per-segment CLS pooling over packed rows: each segment's first
+    token, hidden [R, S, D] × seg_row / seg_start [K] → [K, D].  Padding
+    segments point at (0, 0); their rows are dropped at demux."""
+    return hidden[seg_row.long(), seg_start.long()]
+
+
+def packed_mean_pool(hidden: torch.Tensor, segment_ids: torch.Tensor,
+                     n_segments: int) -> torch.Tensor:
+    """Per-segment masked mean over packed rows: hidden [R, S, D] ×
+    segment_ids [R, S] (global segment index, -1 = padding) → [K, D], as
+    one [K, R·S] selection matmul."""
+    flat = hidden.reshape(-1, hidden.shape[-1])
+    seg = segment_ids.reshape(-1)
+    sel = (seg[None, :] == torch.arange(n_segments, device=seg.device)
+           [:, None]).to(hidden.dtype)
+    counts = sel.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return (sel @ flat) / counts

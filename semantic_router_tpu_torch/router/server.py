@@ -1402,10 +1402,13 @@ def info_models(engine) -> List[dict]:
 def runtime_debug_report(registry, engine) -> dict:
     """The GET /debug/runtime body: the runtimestats snapshot (per
     (group, bucket, variant) step stats, process gauges, torch.cuda memory
-    rows) plus the engine's kernel knobs and step-graph caches, and the
-    cascade's block exactly when an evaluator is attached."""
+    rows) plus the engine's packing block (knobs, scheduler, auto-tuner
+    policy; present whenever an engine serves, its ``enabled`` the
+    truth), kernel knobs and step-graph caches, and the cascade's block
+    exactly when an evaluator is attached."""
     rep = registry.runtimestats.report()
     if engine is not None:
+        rep["packing"] = engine.packing_report()
         rep["kernels"] = engine.kernels_report()
         rep["graphs"] = engine.graph_report()
     casc = registry.get("cascade")

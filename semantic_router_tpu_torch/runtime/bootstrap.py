@@ -280,6 +280,7 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
                              pad_id=int(hf_cfg.get("pad_token_id", 0)))
         log.info("model loaded: task=%s kind=%s attention=%s", task, kind,
                  mcfg.attention_impl)
+    apply_packing_knobs(cfg, engine)
     apply_quant_knobs(cfg, engine)
     return engine
 
@@ -355,17 +356,44 @@ def _siglip(hf_cfg: Dict, weights_path: str, tokenizer, dev):
                           device=dev)
 
 
+def apply_packing_knobs(cfg: RouterConfig, engine) -> None:
+    """Apply ``engine.packing`` to a live engine (boot, before the quant
+    knobs, or a config reload): retunes the packing scheduler in place,
+    starts the shape auto-tuner's thread when packing and its autotune
+    are on (stops it otherwise; ``engine.shutdown()`` stops it too), and
+    runs the packed shapes the engine's census names, so the first
+    packed step after it replays.  A malformed block normalizes to the
+    defaults."""
+    if engine is None:
+        return
+    pk = cfg.engine.packing_config()
+    engine.configure_packing(cfg.engine.packing)
+    tuner = engine._autotuner
+    if pk["enabled"] and pk["autotune"]["enabled"]:
+        tuner.start(pk["autotune"]["interval_s"])
+    else:
+        tuner.stop()
+    warmed = engine.warmup_packed_hot() if pk["enabled"] else 0
+    component_event("bootstrap", "packing_configured",
+                    enabled=pk["enabled"],
+                    autotune=pk["autotune"]["enabled"],
+                    warmed_shapes=warmed)
+
+
 def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
     """Apply ``engine.quant`` to a live engine (boot, or a config reload):
     each affected trunk group rebuilds its serving trunk at the selected
-    mode.  A malformed block normalizes to off."""
+    mode, and the packed shapes the replaced snapshots had run are run
+    again on the new ones (``warmup_packed_hot``).  A malformed block
+    normalizes to off."""
     if engine is None:
         return
     engine.configure_quant(cfg.engine.quant)
-    log.info("quant configured: mode=%s groups=%s",
+    warmed = engine.warmup_packed_hot()
+    log.info("quant configured: mode=%s groups=%s packed shapes warmed=%d",
              cfg.engine.quant_config()["mode"],
              {gid: m["quant"] for gid, m in
-              engine.kernels_report()["groups"].items()})
+              engine.kernels_report()["groups"].items()}, warmed)
 
 
 def build_router(cfg: RouterConfig, engine=None, registry=None,

@@ -24,7 +24,9 @@ plugin, a qdrant / milvus memory store) load and parse as the
 reference's too; beside each stays a refused option of its kind (the ANN
 bank's row sharding, the fleet observability plane, fleet-scoped
 objectives, the Llama-Stack vector store, the Postgres store registry,
-selector artifacts)."""
+selector artifacts).  Sequence packing (``engine.packing``, its autotune
+block included) loads and parses as the reference's; the serving mesh
+(``engine.mesh``, ``engine.mesh_shape``) stays refused."""
 
 import copy
 import http.client
@@ -111,8 +113,6 @@ PORTED = {
 
 # refused key → (the config that enables it, the same block off)
 REFUSED = {
-    "engine.packing": ({"engine": {"packing": {"enabled": True}}},
-                       {"engine": {"packing": {"enabled": False}}}),
     "engine.mesh": ({"engine": {"mesh": {"enabled": True, "dp": 1,
                                          "tp": 1}}},
                     {"engine": {"mesh": {"enabled": False}}}),
@@ -155,6 +155,17 @@ PORTED["image_generation"] = (
     {"routing": {"decisions": [dict(DEC, plugins=[
         {"type": "image_generation",
          "configuration": {"enabled": False, "backend": "mock"}}])]}})
+# sequence packing: served since it was refused (on by default, as the
+# reference's); the serving mesh stays refused
+PORTED["engine.packing"] = (
+    {"engine": {"packing": {"enabled": True, "max_segments_per_row": 4,
+                            "starvation_steps": 7,
+                            "autotune": {"enabled": False}}}},
+    {"engine": {"packing": {"enabled": False}}})
+PORTED["engine.packing.autotune"] = (
+    {"engine": {"packing": {"autotune": {"interval_s": 5,
+                                         "target_fill": 0.7}}}},
+    {"engine": {"packing": {"autotune": {"enabled": False}}}})
 # the retrieval plane: served since it was refused
 PORTED["ann"] = ({"ann": {"enabled": True, "quant": "int8", "top_k": 4,
                           "batch": {"enabled": True}}},
@@ -180,6 +191,12 @@ PORTED["vectorstore.registry"] = (
         "user": "router", "database": "vsr", "password": "pw"}}},
     {"vectorstore": {"registry": {"backend": ""}}})
 SERVED_SINCE = {
+    "engine.packing": (r"engine\.mesh", {
+        "engine": {"packing": {"enabled": True},
+                   "mesh": {"enabled": True, "dp": 1, "tp": 1}}}),
+    "engine.packing.autotune": (r"engine\.mesh_shape", {
+        "engine": {"packing": {"autotune": {"enabled": True}},
+                   "mesh_shape": {"data": 1}}}),
     "image_generation": (
         "artifact", {"routing": {"decisions": [dict(
             DEC, algorithm={"type": "mlp", "artifact": "sel.json"},
@@ -277,6 +294,8 @@ def _parsed(cfg, key):
     """The block ``key`` parses to, as plain data."""
     if key == "engine.cascade":
         return cfg.engine.cascade, cfg.engine.cascade_config()
+    if key in ("engine.packing", "engine.packing.autotune"):
+        return cfg.engine.packing, cfg.engine.packing_config()
     if key == "recipes":
         return [(r.name, r.description, r.strategy,
                  [(d.name, d.priority, [m.model for m in d.model_refs])

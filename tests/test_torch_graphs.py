@@ -191,6 +191,63 @@ def test_a_flip_publishes_before_it_retires(monkeypatch):
         eng.shutdown()
 
 
+def test_a_batch_runs_again_past_every_flip_that_lands_while_it_runs(
+        monkeypatch):
+    """Flips that land one after another, each while the batch's retry is
+    on its way to the snapshot it read, retire that snapshot every time:
+    the batch runs again on the live one until it serves, and no
+    ``SnapshotRetired`` reaches the caller."""
+    eng = _engine("cpu")
+    modes = ["bf16", "off", "bf16"]
+    calls: list = []
+    real_run = StepGraphs.run
+
+    def run_after_a_flip(self, key, fn, inputs):
+        calls.append(self)
+        if len(calls) <= len(modes):
+            flip = threading.Thread(target=eng.configure_quant,
+                                    args=({"mode": modes[len(calls) - 1]},))
+            flip.start()
+            flip.join(timeout=10.0)
+            assert self.retired
+        return real_run(self, key, fn, inputs)
+
+    monkeypatch.setattr(StepGraphs, "run", run_after_a_flip)
+    try:
+        res = eng.classify("intent", TEXTS[0], timeout=10.0)
+        assert res.label in eng.task_labels("intent")
+        assert len(calls) == len(modes) + 1
+        assert len({id(c) for c in calls}) == len(calls)
+        assert eng.steps()[-1]["quant"] == "bf16"
+        assert len(eng.steps()) == 1
+    finally:
+        monkeypatch.undo()
+        eng.shutdown()
+
+
+def test_a_cache_retired_with_no_change_raises_at_once(monkeypatch):
+    """A cache retired with no new snapshot behind it (as shutdown retires
+    them) has nothing to run again on: the batch raises
+    ``SnapshotRetired`` after one attempt."""
+    eng = _engine("cpu")
+    calls: list = []
+    real_run = StepGraphs.run
+
+    def run_retired(self, key, fn, inputs):
+        calls.append(self)
+        self.retire()
+        return real_run(self, key, fn, inputs)
+
+    monkeypatch.setattr(StepGraphs, "run", run_retired)
+    try:
+        with pytest.raises(SnapshotRetired):
+            eng.classify("intent", TEXTS[0], timeout=10.0)
+        assert len(calls) == 1
+    finally:
+        monkeypatch.undo()
+        eng.shutdown()
+
+
 # -- on the card ---------------------------------------------------------------
 
 

@@ -472,11 +472,12 @@ def _port_sources():
 
 def test_port_sources_cover_every_package():
     """The scan below reaches every package of the port, the state
-    plane's, the RESP family's, the retrieval plane's and the dual-path
-    engine's included."""
+    plane's, the RESP family's, the retrieval plane's, the dual-path
+    engine's and the packing scheduler's included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
-                "resilience", "ops", "ann", "vectorstore", "memory"):
+                "resilience", "ops", "ann", "vectorstore", "memory",
+                "packing"):
         assert pkg in scanned, pkg
     port = REPO / "semantic_router_tpu_torch"
     for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
@@ -486,7 +487,9 @@ def test_port_sources_cover_every_package():
                 "vectorstore/store.py", "vectorstore/ann_store.py",
                 "engine/pathing.py", "models/lora.py",
                 "state/llamastack.py", "state/postgres.py",
-                "vectorstore/pg_registry.py"):
+                "vectorstore/pg_registry.py", "engine/packing/__init__.py",
+                "engine/packing/packer.py", "engine/packing/scheduler.py",
+                "engine/packing/autotuner.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -537,12 +540,18 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.state.llamastack',\n"
         "        'semantic_router_tpu_torch.state.postgres',\n"
         "        'semantic_router_tpu_torch.engine.pathing',\n"
+        "        'semantic_router_tpu_torch.engine.packing.packer',\n"
+        "        'semantic_router_tpu_torch.engine.packing.scheduler',\n"
+        "        'semantic_router_tpu_torch.engine.packing.autotuner',\n"
         "        'semantic_router_tpu_torch.models.lora'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"
         "e = make_shared_trunk_engine(device='cpu')\n"
         "assert e.classify('intent', 'hello there').label\n"
+        "assert len(e.classify_batch('intent', ['a b', 'c', 'd e f'])) == 3\n"
+        "assert any(s.get('variant', '').startswith('packed:')\n"
+        "           for s in e.steps())\n"
         "e.shutdown()\n"
         "e = make_dual_path_engine(device='cpu', strategy='stacked')\n"
         "out = e.classify_multi(['intent', 'jailbreak'], ['hello there'])\n"

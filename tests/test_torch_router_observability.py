@@ -333,7 +333,11 @@ def test_debug_routes_answer_like_the_reference(served):
         ts, _, td = _call(tside["url"], "GET", path)
         assert ts == js == 200, path
         jkeys, tkeys = set(json.loads(jd)), set(json.loads(td))
-        assert jkeys <= tkeys | {"packing", "mesh", "slo_captures"}, path
+        assert jkeys <= tkeys | {"mesh", "slo_captures"}, path
+    runtime = json.loads(_call(tside["url"], "GET", "/debug/runtime")[2])
+    jruntime = json.loads(_call(jside["url"], "GET", "/debug/runtime")[2])
+    assert set(runtime["packing"]) == set(jruntime["packing"])
+    assert runtime["packing"]["knobs"] == jruntime["packing"]["knobs"]
     runtime = json.loads(_call(tside["url"], "GET", "/debug/runtime")[2])
     ran = {(p["group"], p["bucket"], p["variant"])
            for p in runtime["programs"]}
