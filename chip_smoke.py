@@ -71,7 +71,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    off / bf16 / int8, the wide bank's BGMV steps, the embed step at exits
    22 and 6, and counts the K1/K2/K3 kernels in each replay's profiler
    trace against the launches its capture recorded (the launches every
-   replay adds to the counts).  7b serves phase 3's modules with ``fuse_trunks: false`` (K1
+   replay adds to the counts).  7b serves phase 3's modules with
+   ``fuse_trunks: false`` (K1
    once a layer per per-task forward, probabilities equal to the fused
    engine's, unchanged under bf16).  7c fuses a classifier over a byte-equal
    copy of the trunk into the original's group (one forward a batch) and
@@ -82,8 +83,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    wall, profiled busy share), serves phase 3's burst four times on an
    engine warmed as ``serve`` warms it, at batch 1 (a larger row count
    captures in the first burst that meets it, then replays; graphs,
-   capture seconds and pool bytes printed), and runs the ``cuda``-marked
-   tests of ``tests/test_torch_graphs.py`` in a pytest process of its own.
+   capture seconds and pool bytes printed), and its ``cuda``-marked tests
+   (``tests/test_torch_graphs.py``) run after phase 19.
 8. respond — phase 3's trunk and heads with new seeded fact_check,
    hallucination (token) and nli heads, and phase 5's embedding model,
    behind a router whose decisions select among three models each by
@@ -150,8 +151,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    compression (a ~720-word prompt; the compressed text and the decision
    equal the CPU's) and an entrypoint's recipe (decisions equal the
    CPU's) through the HTTP server and the mock backend, and reads the
-   cascade's ``/debug/runtime`` block; then the cuda-marked test of
-   ``tests/test_torch_cascade_cuda.py`` runs in a pytest process.
+   cascade's ``/debug/runtime`` block; its cuda-marked tests
+   (``tests/test_torch_cascade_cuda.py``) run after phase 19.
 
 11. resilience — phase 10b's engine under the degradation ladder, f32 at
    full width.  11a raises the ladder to each rung through its real
@@ -183,8 +184,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    ``/debug/resilience`` must agree with them, each model must reach
    only its own backends, a half-open probe must close the circuit
    once the proxy heals, and a refused proxy must fail over and reopen
-   it.  Then the cuda-marked tests of
-   ``tests/test_torch_resilience_cuda.py`` run in a pytest process.
+   it.  Its cuda-marked tests (``tests/test_torch_resilience_cuda.py``) run
+   after phase 19.
 12. chat — phase 8's engines (its trunk, its heads and phase 5's
    embedding model; the card's and the CPU's, kept alive by phase 9)
    behind the pooled server and a mock backend that streams SSE.
@@ -207,8 +208,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    the route's; fusion must classify ``nli`` once per panel answer and
    workflows answer a tool interrupt and its resume.  The first requests
    of each part run again on the CPU port and must give the same
-   statuses and x-vsr-* headers.  Then the cuda-marked test of
-   ``tests/test_torch_chat_surface_cuda.py`` runs in a pytest process.
+   statuses and x-vsr-* headers.  Its cuda-marked tests
+   (``tests/test_torch_chat_surface_cuda.py``) run after phase 19.
 13. models — the DeBERTa-v3 classifiers and the Qwen3 guard, f32 at full
    width, random weights from a numpy seed (built on the meta device,
    seeded on the CPU, copied to the card).  13a: DeBERTa-v3-base
@@ -230,8 +231,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    16 requests one at a time, K1 / K2 per request equal to the intent
    steps' layers and banks, route and HTTP p50 / p99 and the guard's
    latency, 4 requests again on the CPU port with the same decision,
-   model and headers.  Then the cuda-marked tests of
-   ``tests/test_torch_generative_cuda.py`` run in a pytest process.
+   model and headers.  Its cuda-marked tests
+   (``tests/test_torch_generative_cuda.py``) run after phase 19.
 14. multimodal and endpoints — SigLIP at google/siglip-base-patch16-224's
    width and depth (both towers, 12 layers each, 203 M parameters, f32,
    seeded), phase 3's trunk with its intent head and new modality and
@@ -263,8 +264,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    distinct lengths, twice in turn: at most ``MAX_CACHED_SHAPES`` KV
    shapes and their graphs kept, every returning shape captured again
    with the same text, the graph pool no larger in the second pass.
-   Then the cuda-marked tests of ``tests/test_torch_multimodal_cuda.py``
-   run in a pytest process.
+   Its cuda-marked tests (``tests/test_torch_multimodal_cuda.py``) run after
+   phase 19.
 15. state plane — three router replicas, each with its own engine (phase
    3's trunk and heads and phase 5's embedding model, the weights shared
    on the card), batcher, graphs, registry, router and HTTP server, and
@@ -290,8 +291,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    during the outage replays (seconds).  15e: the first 8 requests of 15b
    on three CPU replicas: the same status, kind, decision, model and
    affinity (a cache outcome that differs must be a similarity within
-   1e-4 of the threshold).  Then the cuda-marked tests of
-   ``tests/test_torch_stateplane_cuda.py`` run in a pytest process.
+   1e-4 of the threshold).  Its cuda-marked tests
+   (``tests/test_torch_stateplane_cuda.py``) run after phase 19.
 
 16. retrieval — 16a: the ANN bank (``ann.DeviceBank`` on the card, D 768,
    seeded unit rows in clusters of 16 near-duplicates) at 65 536 and
@@ -319,9 +320,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    after a restart; lookup ms exact and similar.  16d: the port's
    ``MiniQdrant`` and ``MiniMilvus`` on 127.0.0.1: a vector store, a
    semantic cache and a memory store on each with the card's
-   embeddings, their hits equal to the CPU port's.  Then the cuda-marked
-   tests of ``tests/test_torch_retrieval_cuda.py`` run in a pytest
-   process.
+   embeddings, their hits equal to the CPU port's.  Its cuda-marked tests
+   (``tests/test_torch_retrieval_cuda.py``) run after phase 19.
 
 17. dual path — 17a: four sequence tasks over phase 3's trunk,
    registered twice from one set of weights: as ``ModernBertLoRAHead``
@@ -343,9 +343,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    ``memory`` store, each manager with a Postgres registry over
    ``MiniPostgres``; the managers restarted on the registry
    (``load_from_registry``): the Llama-Stack hits equal before and after
-   and to the CPU port's, the memory store's name and files back.  Then
-   the cuda-marked tests of ``tests/test_torch_dual_path_cuda.py`` run in
-   a pytest process.
+   and to the CPU port's, the memory store's name and files back.  Its
+   cuda-marked tests (``tests/test_torch_dual_path_cuda.py``) run after phase
+   19.
 18. packing — 18a: phase 3's bank (full width, seeded) on a dense trunk
    (``use_flash_attention: false``, the epilogue on, ``engine.packing``
    at its defaults through ``apply_packing_knobs``): 64 seeded prompts
@@ -366,13 +366,37 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    segments), within 1e-4 of the CPU port.  18c: one routed request
    through the HTTP server on the dense config, its decision and model
    the CPU router's, ``/debug/runtime`` carrying ``packing``; one
-   ``ShapeAutoTuner.step()``.  Then the cuda-marked tests of
-   ``tests/test_torch_packing_cuda.py`` run in a pytest process.
+   ``ShapeAutoTuner.step()``.  Its cuda-marked tests
+   (``tests/test_torch_packing_cuda.py``) run after phase 19.
+
+19. config reload — phase 3's bank (full width, seeded) behind the port's
+   ``RouterServer`` with ``config_path`` (a file in a temporary
+   directory), three API keys (view / edit / admin + secret_view) and the
+   hot-reload watcher ``serve`` attaches (``attach_config_watcher``; the
+   phase calls ``poll_once()``), while 8 client threads send phase 3's
+   prompts through it.  The file is rewritten nine times: a renamed
+   decision, ``engine.quant`` bf16, int8, BGMV on (``min_tasks: 2``), the
+   cascade on, packing on, an invalid file and a refused option (both
+   leave the old config serving), the first file again; then a PATCH, a
+   rollback and a DSL program compiled and deployed over HTTP, with the
+   401 / 403 cases and the redacted read.  Per reload: the seconds from
+   the write to ``config_reloaded``, client p50 / p99 in the second
+   before and after, the longest stall, the steps captured on the new
+   snapshot (then replays only), K1 launches by dtype, K2 and K3, and
+   ``torch.cuda.memory_allocated()``.  No request may fail; every answer's
+   decision and model equal the CPU port router's on the config its
+   decision record names (the same weights, the config's quant mode); K1
+   bf16 runs only under the quant reloads, K3 only after the BGMV one;
+   the card's allocated bytes after the first file again are within 5%
+   of the start.  Then the cuda-marked tests of every file in
+   ``CUDA_TESTS`` run in one pytest process, its JUnit report split per
+   file (each file's expected passes as before).
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13, 14, 15, 16, 17 and 18 (none there: its trunk is dense); K2's count
-phase 18's packed and unpacked steps too, K3's phase 4's and 18b's),
+13, 14, 15, 16, 17, 18 (none there: its trunk is dense) and 19 (float32;
+its bf16 ones in the bf16 row); K2's count phase 18's packed and
+unpacked steps and phase 19's too, K3's phase 4's, 18b's and 19's),
 ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
@@ -387,6 +411,7 @@ import collections
 import copy
 import dataclasses
 import faulthandler
+import gc
 import hashlib
 import json
 import os
@@ -3222,31 +3247,6 @@ def serve_graphs(cfg, modules: dict) -> dict:
     return out
 
 
-def run_cuda_tests(name: str, passed: int = 0) -> dict:
-    """The cuda-marked tests of ``tests/<name>`` (the graph tests: capture,
-    replay against eager, launch counts through replays, retirement, the
-    failures that must raise; the cascade's: its waves through K1 / K2)
-    in a pytest process of their own; the repository's conftest imports
-    JAX, which the card's machine lacks, so it is not loaded.  With
-    ``passed``, exactly that many must pass (none skipped)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p",
-         "no:cacheprovider", "-q", "-m", "cuda",
-         os.path.join("tests", name)],
-        cwd=here, capture_output=True, text=True, timeout=600)
-    tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-    print(f"{name}: " + " | ".join(tail), flush=True)
-    last = tail[-1] if tail else ""
-    check(proc.returncode == 0 and (not passed or (
-        f"{passed} passed" in last and "skipped" not in last)),
-          f"the cuda tests of {name} failed:\n"
-          + (proc.stdout + proc.stderr)[-4000:])
-    return {"rc": proc.returncode, "summary": tail[-1] if tail else "",
-            "seconds": time.perf_counter() - t0}
-
-
 def phase_graphs(modules3: dict, modules5: dict, wide) -> dict:
     cfg = load_config(ROUTER_CONFIG)
     t0 = time.perf_counter()
@@ -3270,7 +3270,6 @@ def phase_graphs(modules3: dict, modules5: dict, wide) -> dict:
         cpu.shutdown()
         embed.shutdown()
     out["burst"] = serve_graphs(cfg, modules3["cuda"])
-    out["tests"] = run_cuda_tests("test_torch_graphs.py")
     print(f"phase 7 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -4962,7 +4961,6 @@ def phase_gates(modules3: dict, smi: str) -> dict:
     out["launches"] = {k: out["10a"]["launches"][k] + out["10b"]["launches"][k]
                        + out["10c"]["launches"][k]
                        for k in out["10c"]["launches"]}
-    out["tests"] = run_cuda_tests("test_torch_cascade_cuda.py", passed=1)
     print(f"phase 10 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -5549,7 +5547,6 @@ def phase_resilience(modules3: dict, smi: str) -> dict:
                        + out["11b"]["launches"][k]
                        + out["11c"]["launches"][k]
                        for k in out["11a"]["launches"]}
-    out["tests"] = run_cuda_tests("test_torch_resilience_cuda.py", passed=2)
     print(f"phase 11 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -6193,8 +6190,6 @@ def phase_chat(keep: dict, smi: str) -> dict:
             r.stop()
         engine.shutdown()
         cpu.shutdown()
-    out["tests"] = run_cuda_tests("test_torch_chat_surface_cuda.py",
-                                  passed=1)
     print("chat " + json.dumps({k: v for k, v in out.items()
                                 if k not in ("12a", "12b")}), flush=True)
     for part in ("12a", "12b"):
@@ -6646,7 +6641,6 @@ def phase_models(modules3: dict, smi: str) -> dict:
     stamp("phase 13c: route")
     out["route"] = models_route(modules3, deb, cfg_q, dec, smi)
     out["launches"] = out["route"]["launches"]
-    out["cuda_tests"] = run_cuda_tests("test_torch_generative_cuda.py", 5)
     # phase 14e calls the same guard
     out["_guard"] = (cfg_q, dec)
     return out
@@ -7502,7 +7496,6 @@ def phase_multimodal(modules3: dict, modules5: dict, guard: tuple,
         stub.stop()
     stamp("phase 14e: guard bound")
     out["guard_bound"] = mm_guard_bound(*guard, smi)
-    out["cuda_tests"] = run_cuda_tests("test_torch_multimodal_cuda.py", 4)
     return out
 
 
@@ -8087,7 +8080,6 @@ def phase_stateplane(modules3: dict, modules5: dict, smi: str) -> dict:
                                   out["plane"]["rows"], smi)
     finally:
         parity_backend.stop()
-    out["cuda_tests"] = run_cuda_tests("test_torch_stateplane_cuda.py", 1)
     return out
 
 
@@ -8696,7 +8688,6 @@ def phase_retrieval(modules3: dict, modules5: dict, smi: str) -> dict:
     finally:
         engine.shutdown()
         cpu.shutdown()
-    out["cuda_tests"] = run_cuda_tests("test_torch_retrieval_cuda.py", 5)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 16: {out['seconds']:.1f} s | {smi}", flush=True)
     return out
@@ -9140,7 +9131,6 @@ def phase_dual_path(modules3: dict, modules5: dict, smi: str) -> dict:
         engine.shutdown()
         cpu.shutdown()
     out["launches"] = _cuda.launch_counts()
-    out["cuda_tests"] = run_cuda_tests("test_torch_dual_path_cuda.py", 2)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 17: {out['seconds']:.1f} s | {smi}", flush=True)
     return out
@@ -9520,11 +9510,634 @@ def phase_packing(smi: str) -> dict:
     for k in main:
         main[k] += out["wide"]["launches"].get(k, 0)
     out["launches"] = main
-    out["cuda_tests"] = run_cuda_tests("test_torch_packing_cuda.py", 4)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 18: {out['seconds']:.1f} s, launches {main} | {smi}",
           flush=True)
     return out
+
+
+# -- phase 19: config reload under traffic ------------------------------------
+
+RL_KEYS = {"p19-view": ["view"], "p19-edit": ["edit"],
+           "p19-admin": ["admin", "secret_view"]}
+RL_BASE = copy.deepcopy(ROUTER_CONFIG)
+RL_BASE["engine"]["packing"] = {"enabled": False}
+RL_BASE["api_server"] = {"api_keys": [{"key": k, "roles": r}
+                                      for k, r in RL_KEYS.items()]}
+# the degradation ladder (on by default) would shed decision records and
+# brown routes out under the clients' load: every answer here must be
+# the config's own, reproducible on the CPU (phase 11 drives the ladder)
+RL_BASE["resilience"] = {"enabled": False}
+RL_CLIENTS = 8
+RL_WINDOW_S = 2.0           # traffic after each rewrite before the next
+RL_TOL = {"off": 2e-3, "bf16": 5e-2, "int8": 5e-2}   # probabilities
+RL_DSL = '''
+model "qwen3-8b"
+model "qwen3-32b"
+model "guard-model"
+model "private-model"
+model "biz-model"
+model "med-model"
+signal domain business
+signal domain "computer science"
+signal domain health
+signal domain other
+signal jailbreak prompt_injection { method: hybrid threshold: 0.9
+    jailbreak_patterns: ["ignore previous instructions"] }
+signal pii restricted_pii { threshold: 0.5 pii_types_allowed: [] }
+decision dsl_guard priority 300 {
+    when jailbreak(prompt_injection)
+    route to "guard-model"
+}
+decision dsl_private priority 200 {
+    when pii(restricted_pii)
+    route to "private-model"
+}
+decision dsl_tech priority 100 {
+    when domain("computer science") or domain(health)
+    route to "qwen3-32b"
+}
+decision dsl_rest priority 10 {
+    when domain(business) or domain(other)
+    route to "biz-model"
+}
+default model "qwen3-8b"
+'''
+
+
+def _rl_steps() -> list:
+    """(name, document, reloads, device flip) of the file rewrites."""
+    def engine(**kw):
+        d = copy.deepcopy(cur)
+        for k, v in kw.items():
+            d["engine"][k] = v
+        return d
+
+    steps = []
+    cur = copy.deepcopy(RL_BASE)
+    for dec in cur["routing"]["decisions"]:
+        if dec["name"] == "cs_route":
+            dec["name"] = "cs_route_v2"
+    steps.append(("rename", cur, True, False))
+    cur = engine(quant={"mode": "bf16"})
+    steps.append(("quant_bf16", cur, True, True))
+    cur = engine(quant={"mode": "int8"})
+    steps.append(("quant_int8", cur, True, True))
+    cur = engine(kernels={"epilogue": {"enabled": True},
+                          "bgmv": {"enabled": True, "min_tasks": 2}})
+    steps.append(("bgmv", cur, True, True))
+    cur = engine(cascade={"enabled": True})
+    steps.append(("cascade", cur, True, False))
+    cur = engine(packing={"enabled": True})
+    steps.append(("packing", cur, True, False))
+    ghost = copy.deepcopy(cur)
+    ghost["routing"]["decisions"][0]["rules"]["conditions"] = [
+        {"type": "jailbreak", "name": "ghost_signal"}]
+    steps.append(("invalid", ghost, False, False))
+    steps.append(("refused", dict(copy.deepcopy(cur),
+                                  router_replay={"enabled": True}),
+                  False, False))
+    steps.append(("back", copy.deepcopy(RL_BASE), True, True))
+    return steps
+
+
+def _rl_call(url: str, method: str, path: str, body=None,
+             key: str = "") -> tuple:
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    try:
+        headers = {"content-type": "application/json"}
+        if key:
+            headers["x-api-key"] = key
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body).encode(), headers=headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+class _RLClients:
+    """``RL_CLIENTS`` threads sending phase 3's prompts through the server
+    for as long as the phase runs; each answer is kept with its times,
+    its status, its decision and model headers and the ``config_hash``
+    of its decision record."""
+
+    def __init__(self, url: str, explain) -> None:
+        self.url, self.explain = url, explain
+        self.rows, self._lock = [], threading.Lock()
+        self._stop = threading.Event()
+        self.bodies = [{"model": "auto", "messages": [
+            {"role": "system", "content": "You are helpful."},
+            {"role": "user", "content": p}]} for p in PROMPTS]
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         name=f"p19-client-{i}")
+                        for i in range(RL_CLIENTS)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, i: int) -> None:
+        while not self._stop.is_set():
+            k = i % len(self.bodies)
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                status, headers, _body, _lat = _post(self.url,
+                                                     self.bodies[k])
+            except Exception as exc:  # counted as a failed request
+                status, headers = f"{type(exc).__name__}: {exc}", {}
+            t1 = time.perf_counter()
+            rec = None
+            rid = headers.get("x-vsr-decision-record", "")
+            for _ in range(50):
+                rec = self.explain.get(rid) if rid else None
+                if rec is not None:
+                    break
+                time.sleep(0.002)
+            with self._lock:
+                self.rows.append({
+                    "t0": t0, "t1": t1, "status": status, "prompt": k,
+                    "decision": headers.get("x-vsr-selected-decision"),
+                    "model": headers.get("x-vsr-selected-model"),
+                    "hash": (rec or {}).get("config_hash")})
+
+    def between(self, a: float, b: float) -> list:
+        with self._lock:
+            return [r for r in self.rows if a <= r["t0"] < b]
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self.threads:
+            t.join(timeout=120)
+
+
+def _rl_latency(rows: list) -> dict:
+    lat = [(r["t1"] - r["t0"]) * 1e3 for r in rows]
+    return {"n": len(lat), "p50_ms": _pct(lat, 0.5),
+            "p99_ms": _pct(lat, 0.99)}
+
+
+def _rl_stall(rows: list, a: float, b: float) -> float:
+    """The longest time in [a, b] in which no request completed."""
+    ends = sorted([a] + [r["t1"] for r in rows if a <= r["t1"] <= b] + [b])
+    return max(y - x for x, y in zip(ends, ends[1:]))
+
+
+def _rl_settle(clients, engine, since: float) -> dict:
+    """Traffic for ``RL_WINDOW_S`` after a reload: the step records of the
+    new serving meta (first a capture per shape, then replays only),
+    launches by kernel and dtype, and the card's allocated bytes."""
+    steps0 = len(engine.steps())
+    _cuda.reset_launch_counts()
+    time.sleep(RL_WINDOW_S)
+    # no device synchronize here: the clients' steps may be capturing,
+    # and CUDA fails a capture while the device is synchronized
+    steps = engine.steps()[steps0:]
+    launches = _cuda.launch_counts()
+    by_dtype = _cuda.launch_counts_by_dtype()["flash_attention"]
+    meta = next(iter(engine.kernels_report()["groups"].values()))
+    # the bytes the card holds once garbage is collected (under the
+    # capture gate: collecting a dead graph while a step captures would
+    # end that capture)
+    with engine.device_work():
+        gc.collect()
+        allocated = torch.cuda.memory_allocated()
+    mine = [s for s in steps if s.get("quant") == meta["quant"]
+            and s.get("epilogue") == meta["epilogue"]]
+    seen, recaptured = {}, []
+    for s in mine:
+        key = (s.get("flavor"), s["bucket"], s["padded_rows"],
+               s.get("bgmv"), s.get("padded_pairs"))
+        if s["graph"] == "replayed":
+            seen[key] = True
+        elif s["graph"] == "captured" and seen.get(key):
+            recaptured.append(key)
+    captures = sum(s["graph"] == "captured" for s in mine)
+    return {"steps": len(steps), "captures": captures,
+            "recaptured_after_replay": recaptured, "launches": launches,
+            "k1_by_dtype": by_dtype, "meta": meta,
+            "memory_allocated": allocated,
+            "graph_pool_bytes": sum(r["pool_bytes"] for r in
+                                    engine.graph_report().values()),
+            "requests": len(clients.between(since, time.perf_counter()))}
+
+
+def _rl_tie(cpu, cfg, text: str, card: str, want: str, tol: float) -> str:
+    """Why the card's decision ``card`` and the CPU's ``want`` may differ
+    on ``text``: the signal of the higher-priority one of them sits
+    within ``tol`` of its boundary on the CPU (the intent head's top two
+    classes for a domain rule, the jailbreak head's 0.9 threshold, a pii
+    span's 0.5 threshold); "" when it does not."""
+    decs = {d.name: d for d in cfg.decisions}
+    top = max((decs[n] for n in (card, want) if n in decs),
+              key=lambda d: d.priority, default=None)
+    kinds = {leaf.signal_type for leaf in top.rules.leaves()} if top \
+        else set()
+    res = cpu.classify_multi(["intent", "jailbreak"], [text])
+    probs = sorted(res["intent"][0].probs.values())
+    if "domain" in kinds and probs[-1] - probs[-2] <= tol:
+        return "domain"
+    jb = res["jailbreak"][0].probs.get("jailbreak", 0.0)
+    if "jailbreak" in kinds and abs(jb - 0.9) <= tol:
+        return "jailbreak"
+    spans = [{(e.type, e.start, e.end) for e in cpu.token_classify(
+        "pii", text, threshold=t).entities} for t in (0.5 - tol, 0.5 + tol)]
+    if "pii" in kinds and spans[0] != spans[1]:
+        return "pii"
+    return ""
+
+
+class _RLMemo:
+    """A CPU engine whose ``classify`` / ``token_classify`` /
+    ``classify_multi`` answers are kept by their arguments, so routers
+    over configs that differ only in their routing block reuse one
+    forward a text; everything else is the engine's."""
+
+    def __init__(self, engine) -> None:
+        self._engine, self._memo = engine, {}
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def _kept(self, name: str, *args, **kw):
+        kw.pop("enc_cache", None)
+        kw.pop("timeout", None)
+        key = (name, repr(args), repr(sorted(kw.items())))
+        with self._lock:
+            hit = self._memo.get(key)
+        if hit is None:
+            hit = getattr(self._engine, name)(*args, **kw)
+            with self._lock:
+                self._memo[key] = hit
+        return hit
+
+    def classify(self, task, text, **kw):
+        return self._kept("classify", task, text, **kw)
+
+    def token_classify(self, task, text, **kw):
+        return self._kept("token_classify", task, text, **kw)
+
+    def classify_multi(self, tasks, texts, **kw):
+        return self._kept("classify_multi", tuple(tasks), tuple(texts), **kw)
+
+
+def _rl_verify(rows: list, configs: dict, modules3: dict) -> dict:
+    """Every routed answer's decision and model against the CPU port's
+    router on the config its record names, over the same weights at the
+    config's quant mode (one CPU engine a mode, its answers kept by
+    text, so each mode runs one forward a prompt)."""
+    from semantic_router_tpu_torch.router import Router
+
+    check(all(r["hash"] in configs for r in rows),
+          f"19: answers name unknown configs "
+          f"{sorted({r['hash'] for r in rows} - set(configs), key=str)}")
+    engines = {}
+    out = {"configs": 0, "answers": len(rows), "ties": {}, "mode_s": {}}
+    bodies = [{"model": "auto", "messages": [
+        {"role": "system", "content": "You are helpful."},
+        {"role": "user", "content": p}]} for p in PROMPTS]
+    try:
+        for h, cfg in configs.items():
+            mine = [r for r in rows if r["hash"] == h]
+            if not mine:
+                continue
+            out["configs"] += 1
+            mode = cfg.engine.quant_config()["mode"]
+            t0 = time.perf_counter()
+            if mode not in engines:
+                engines[mode] = _RLMemo(quant_engine(
+                    "cpu", cfg, modules3["cpu"], mode))
+            router = Router(cfg, engine=engines[mode])
+            try:
+                with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                    want = list(pool.map(router.route, bodies))
+            finally:
+                router.shutdown()
+            out["mode_s"][mode] = out["mode_s"].get(mode, 0.0) \
+                + time.perf_counter() - t0
+            for r in mine:
+                w = want[r["prompt"]]
+                wd = w.decision.decision.name if w.decision else None
+                if (r["decision"], r["model"]) == (wd, w.model):
+                    continue
+                why = _rl_tie(engines[mode], cfg, PROMPTS[r["prompt"]],
+                              r["decision"], wd, RL_TOL[mode])
+                check(why != "", f"19: config {h} prompt {r['prompt']}: "
+                                 f"card {r['decision']} / {r['model']}, "
+                                 f"CPU {wd} / {w.model}")
+                tie = f"{mode}:{r['prompt']}:{r['decision']}/{wd}:{why}"
+                out["ties"][tie] = out["ties"].get(tie, 0) + 1
+    finally:
+        for e in engines.values():
+            e.shutdown()
+    return out
+
+
+def phase_reload(modules3: dict, smi: str) -> dict:
+    """Phase 19: phase 3's bank behind the port's server with
+    ``config_path`` and the hot-reload watcher of ``serve``
+    (``attach_config_watcher``, driven by ``poll_once``), under 8 client
+    threads: the file rewritten nine times (a renamed decision, quant
+    bf16, int8, BGMV on, the cascade on, packing on, an invalid file, a
+    refused option, the first file again), then a PATCH, a rollback and
+    a DSL deploy over HTTP with API keys."""
+    import tempfile
+
+    from semantic_router_tpu_torch.config import load_config as load_file
+    from semantic_router_tpu_torch.config.schema import config_hash
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs, \
+        attach_config_watcher
+    from semantic_router_tpu_torch.runtime.events import CONFIG_RELOADED
+
+    t0 = time.perf_counter()
+    gc.collect()   # the earlier phases' garbage, before the start's bytes
+    out: dict = {"card": smi, "flips": []}
+    tmp = tempfile.mkdtemp(prefix="p19-")
+    path = os.path.join(tmp, "router.yaml")
+
+    def write(doc) -> float:
+        import yaml
+
+        with open(path, "w") as f:
+            f.write(yaml.safe_dump(doc, sort_keys=False))
+        st = os.stat(path)  # a newer mtime than the last load's
+        os.utime(path, (st.st_atime, st.st_mtime + 1 + len(out["flips"])))
+        return time.perf_counter()
+
+    configs = {}
+
+    def note_config() -> str:
+        cfg = load_file(path)
+        h = config_hash(cfg.raw)
+        configs[h] = cfg
+        return h
+
+    write(RL_BASE)
+    cfg = load_file(path)
+    configs[config_hash(cfg.raw)] = cfg
+    registry = RuntimeRegistry.isolated()
+    engine = InferenceEngine(cfg.engine, device=DEVICE,
+                             metrics=registry.metric_series(),
+                             runtime_stats=registry.runtimestats,
+                             program_stats=registry.programstats)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in modules3["cuda"].items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    apply_packing_knobs(cfg, engine)
+    apply_kernel_knobs(cfg, engine)
+    engine.warmup()
+    backend = MockVLLMServer().start()
+    server = RouterServer(build_router(cfg, engine, registry=registry),
+                          backend.url, registry=registry,
+                          config_path=path).start()
+    watcher = attach_config_watcher(server, path, engine, registry,
+                                    start=False)
+    events = []
+    unsub = registry.get("events").subscribe(
+        lambda ev: events.append(time.perf_counter())
+        if ev.stage == CONFIG_RELOADED else None)
+    launches = collections.Counter()
+    k1_dtype = collections.Counter()
+    clients = None
+    try:
+        clients = _RLClients(server.url, registry.explain)
+        stamp("phase 19: steady state")
+        base = _rl_settle(clients, engine, time.perf_counter())
+        launches.update(base["launches"])
+        k1_dtype.update(base["k1_by_dtype"])
+        start_mem = base["memory_allocated"]
+        base["steady"] = _rl_latency(clients.between(
+            time.perf_counter() - RL_WINDOW_S, time.perf_counter()))
+        print(f"19 steady state: {json.dumps(base['steady'])} | {smi}",
+              flush=True)
+        out["start"] = base
+
+        def reload(name: str, t_write: float, want: bool,
+                   device_flip: bool, via: str) -> dict:
+            n_ev = len(events)
+            ok = watcher.poll_once()
+            check(ok == want, f"19 {name}: poll_once() {ok}, want {want}")
+            row = {"name": name, "via": via, "reloaded": ok,
+                   "device_flip": device_flip}
+            if ok:
+                check(len(events) == n_ev + 1,
+                      f"19 {name}: no config_reloaded event")
+                row["write_to_event_s"] = events[-1] - t_write
+                row["hash"] = note_config()
+            t_ev = events[-1] if ok else time.perf_counter()
+            row.update(_rl_settle(clients, engine, t_ev))
+            launches.update(row["launches"])
+            k1_dtype.update(row["k1_by_dtype"])
+            row["before"] = _rl_latency(clients.between(t_write - 1.0,
+                                                        t_write))
+            row["after"] = _rl_latency(clients.between(t_ev, t_ev + 1.0))
+            row["stall_s"] = _rl_stall(clients.rows, t_write,
+                                       t_write + RL_WINDOW_S)
+            if device_flip:
+                check(row["captures"] >= 1,
+                      f"19 {name}: no step captured after the flip")
+            check(not row["recaptured_after_replay"],
+                  f"19 {name}: steps captured again after replaying: "
+                  f"{row['recaptured_after_replay']}")
+            check(row["launches"]["head_epilogue"] > 0,
+                  f"19 {name}: K2 never launched")
+            print(f"19 {name}: " + json.dumps(
+                {k: row.get(k) for k in (
+                    "reloaded", "write_to_event_s", "captures", "steps",
+                    "requests", "before", "after", "stall_s", "meta",
+                    "k1_by_dtype", "memory_allocated",
+                    "graph_pool_bytes")}) + f" | {smi}",
+                flush=True)
+            out["flips"].append(row)
+            return row
+
+        rows = {}
+        for name, doc, want, flip in _rl_steps():
+            stamp(f"phase 19: {name}")
+            rows[name] = reload(name, write(doc), want, flip, "file")
+        bf16 = {n: rows[n]["k1_by_dtype"].get("bfloat16", 0)
+                for n in rows}
+        k3 = {n: rows[n]["launches"].get("bgmv", 0) for n in rows}
+        check(bf16["quant_bf16"] > 0 and bf16["quant_int8"] > 0,
+              f"19: K1 bf16 launches {bf16}")
+        check(bf16["back"] == 0 and bf16["rename"] == 0,
+              f"19: K1 bf16 after the flip back {bf16}")
+        check(all(k3[n] > 0 for n in ("bgmv", "cascade", "packing",
+                                      "invalid", "refused"))
+              and all(k3[n] == 0 for n in ("rename", "quant_bf16",
+                                           "quant_int8", "back")),
+              f"19: K3 launches {k3}")
+        check(rows["back"]["meta"] == base["meta"],
+              f"19: the first file again serves {rows['back']['meta']}, "
+              f"not {base['meta']}")
+        mem = rows["back"]["memory_allocated"]
+        out["memory"] = {"start": start_mem, "back": mem,
+                         "delta": mem - start_mem,
+                         "pool_start": base["graph_pool_bytes"],
+                         "pool_back": rows["back"]["graph_pool_bytes"],
+                         "flips": [r["memory_allocated"]
+                                   for r in out["flips"]]}
+        check(abs(mem - start_mem) <= 0.05 * start_mem,
+              f"19: allocated bytes {mem} after the first file again, "
+              f"{start_mem} at the start")
+
+        stamp("phase 19: the management API")
+        url = server.url
+        st, body = _rl_call(url, "GET", "/config/router")
+        check(st == 401, f"19: keyless GET /config/router {st}")
+        st, body = _rl_call(url, "GET", "/config/router", key="p19-view")
+        check(st == 200 and body["api_server"]["api_keys"] == "***",
+              f"19: the view key read secrets: {body.get('api_server')}")
+        st, body = _rl_call(url, "GET", "/config/router", key="p19-admin")
+        check(st == 200 and body["api_server"]["api_keys"][0]["key"]
+              == "p19-view", "19: the admin key's read is redacted")
+        st, _ = _rl_call(url, "PATCH", "/config/router",
+                         {"default_model": "qwen3-32b"}, key="p19-view")
+        check(st == 403, f"19: PATCH with the view key {st}")
+        decisions = copy.deepcopy(RL_BASE["routing"]["decisions"])
+        for dec in decisions:
+            if dec["name"] == "health_route":
+                dec["name"] = "health_patched"
+        t_w = time.perf_counter()
+        st, body = _rl_call(url, "PATCH", "/config/router",
+                            {"routing": {"decisions": decisions}},
+                            key="p19-edit")
+        check(st == 200 and body["applied"], f"19: PATCH {st} {body}")
+        backup = body["backup_version"]
+        reload("patch", t_w, True, False, "http")
+        st, body = _rl_call(url, "GET", "/config/router/versions",
+                            key="p19-view")
+        check(st == 200 and backup in [v["id"] for v in body["versions"]],
+              f"19: versions {body}")
+        t_w = time.perf_counter()
+        st, body = _rl_call(url, "POST", "/config/router/rollback",
+                            {"version": backup}, key="p19-edit")
+        check(st == 200, f"19: rollback {st} {body}")
+        reload("rollback", t_w, True, False, "http")
+        st, comp = _rl_call(url, "POST", "/dashboard/api/dsl/compile",
+                            {"dsl": RL_DSL}, key="p19-view")
+        check(st == 200 and comp["ok"], f"19: DSL compile {st} {comp}")
+        import yaml
+
+        doc = copy.deepcopy(RL_BASE)
+        compiled = yaml.safe_load(comp["yaml"])
+        doc["routing"] = compiled["routing"]
+        doc["default_model"] = compiled["default_model"]
+        text = "# deployed from the DSL editor\n" + yaml.safe_dump(
+            doc, sort_keys=False)
+        st, _ = _rl_call(url, "POST", "/dashboard/api/config/deploy",
+                         {"yaml": text}, key="p19-view")
+        check(st == 403, f"19: deploy with the view key {st}")
+        t_w = time.perf_counter()
+        st, body = _rl_call(url, "POST", "/dashboard/api/config/deploy",
+                            {"yaml": text}, key="p19-edit")
+        check(st == 200, f"19: deploy {st} {body}")
+        with open(path) as f:
+            check(f.read() == text, "19: the deployed text was not kept")
+        reload("dsl_deploy", t_w, True, False, "http")
+        dsl_rows = clients.between(events[-1], time.perf_counter())
+        check(dsl_rows and all(r["decision"].startswith("dsl_")
+                               for r in dsl_rows if r["status"] == 200),
+              f"19: after the DSL deploy "
+              f"{sorted({r['decision'] for r in dsl_rows}, key=str)}")
+    finally:
+        if clients is not None:
+            clients.stop()
+        unsub()
+        server.stop()
+        server.router.shutdown()
+        engine.shutdown()
+        backend.stop()
+        for slot in ("runtimestats", "slo", "resilience"):
+            registry.get(slot).stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows_all = clients.rows
+    bad = [r for r in rows_all if r["status"] != 200]
+    check(not bad, f"19: {len(bad)} of {len(rows_all)} requests failed: "
+                   f"{bad[:3]}")
+    stamp("phase 19: the CPU port on every config")
+    out["verify"] = _rl_verify(rows_all, configs, modules3)
+    out["requests"] = len(rows_all)
+    out["launches"] = {"flash_attention": k1_dtype.get("float32", 0),
+                       "flash_attention_bf16": k1_dtype.get("bfloat16", 0),
+                       "head_epilogue": launches["head_epilogue"],
+                       "bgmv": launches["bgmv"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 19: {out['seconds']:.1f} s, {len(rows_all)} requests, "
+          f"launches {out['launches']}, verify {out['verify']}, memory "
+          f"{out['memory']} | {smi}", flush=True)
+    return out
+
+
+# the cuda-marked test files and how many of each must pass (0: the file
+# passes whatever it skips)
+CUDA_TESTS = {
+    "test_torch_graphs.py": 0,
+    "test_torch_cascade_cuda.py": 1,
+    "test_torch_resilience_cuda.py": 2,
+    "test_torch_chat_surface_cuda.py": 1,
+    "test_torch_generative_cuda.py": 5,
+    "test_torch_multimodal_cuda.py": 4,
+    "test_torch_stateplane_cuda.py": 1,
+    "test_torch_retrieval_cuda.py": 5,
+    "test_torch_dual_path_cuda.py": 2,
+    "test_torch_packing_cuda.py": 4,
+    "test_torch_config_cuda.py": 1,
+}
+
+
+def run_cuda_tests() -> dict:
+    """The cuda-marked tests of every file in ``CUDA_TESTS`` (the graph
+    tests: capture, replay against eager, launch counts through replays,
+    retirement, the failures that must raise; each phase's own) in ONE
+    pytest process; the repository's conftest imports JAX, which the
+    card's machine lacks, so it is not loaded.  Its JUnit report is split
+    per file: a file with a count must pass exactly that many, none
+    skipped, and no file may fail."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    xml = os.path.join(tempfile.mkdtemp(prefix="cuda-tests-"), "r.xml")
+    torch.cuda.empty_cache()   # the tests' process allocates its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-m", "cuda", f"--junitxml={xml}"]
+        + [os.path.join("tests", name) for name in CUDA_TESTS],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+    print("cuda tests: " + " | ".join(tail), flush=True)
+    check(os.path.exists(xml), "the cuda tests wrote no report:\n"
+          + (proc.stdout + proc.stderr)[-4000:])
+    per = {name: collections.Counter() for name in CUDA_TESTS}
+    for case in ET.parse(xml).getroot().iter("testcase"):
+        mod = case.get("classname", "").split(".")
+        name = next((m + ".py" for m in mod if m + ".py" in per), None)
+        check(name is not None, f"a cuda test of no listed file: "
+                                f"{case.get('classname')}")
+        kind = next((c.tag for c in case
+                     if c.tag in ("failure", "error", "skipped")), "passed")
+        per[name][kind] += 1
+    shutil.rmtree(os.path.dirname(xml), ignore_errors=True)
+    for name, want in CUDA_TESTS.items():
+        got = per[name]
+        print(f"{name}: {got['passed']} passed, {got['skipped']} skipped, "
+              f"{got['failure'] + got['error']} failed", flush=True)
+        check(got["failure"] + got["error"] == 0 and (not want or (
+            got["passed"] == want and not got["skipped"])),
+              f"the cuda tests of {name}: {dict(got)}, want {want} "
+              f"passed:\n" + (proc.stdout + proc.stderr)[-4000:])
+    check(proc.returncode == 0, "the cuda tests failed:\n"
+          + (proc.stdout + proc.stderr)[-4000:])
+    return {"rc": proc.returncode, "seconds": secs,
+            "files": {n: dict(c) for n, c in per.items()}}
 
 
 def main(argv=None) -> int:
@@ -9601,6 +10214,10 @@ def main(argv=None) -> int:
                                                dev["smi"])
     stamp("phase 18: packing")
     pk = report["packing"] = phase_packing(dev["smi"])
+    stamp("phase 19: config reload")
+    rl = report["reload"] = phase_reload(modules3, dev["smi"])
+    stamp("cuda tests")
+    report["cuda_tests"] = run_cuda_tests()
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -9633,8 +10250,9 @@ def main(argv=None) -> int:
             # model (the two stores); K2 in the serve, fixture, respond,
             # observe, gates, chat, models, multimodal, state plane,
             # retrieval and dual path (traditional side) banks, the
-            # packing phase's packed and unpacked steps and under every
-            # quant mode
+            # packing phase's packed and unpacked steps, under every
+            # quant mode and in phase 19's reloads (K1's float32
+            # launches there; its bf16 ones count in the bf16 row)
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -9642,7 +10260,7 @@ def main(argv=None) -> int:
             + chat["launches"][kname] + models["launches"][kname]
             + mm["launches"][kname] + sp["launches"][kname]
             + rt["launches"][kname] + dp["launches"][kname]
-            + pk["launches"][kname]
+            + pk["launches"][kname] + rl["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),
@@ -9658,9 +10276,10 @@ def main(argv=None) -> int:
         "name": "bgmv", "route": "cuda",
         "source": "semantic_router_tpu_torch/csrc/bgmv.cu",
         "replaces": "semantic_router_tpu/ops/bgmv.py:43",
-        # K3 runs in the wide bank (phase 4) and the packed wide bank
-        # (phase 18b)
-        "launches": wide["launches"]["bgmv"] + pk["launches"]["bgmv"],
+        # K3 runs in the wide bank (phase 4), the packed wide bank
+        # (phase 18b) and phase 19's bank after its BGMV reload
+        "launches": wide["launches"]["bgmv"] + pk["launches"]["bgmv"]
+        + rl["launches"]["bgmv"],
         "max_abs_err": max(x["max_abs_err"] for x in kern["bgmv"]
                            if x["dtype"] == "torch.float32"),
         "ms": main_bgmv["ms"], "warm_ms": main_bgmv["warm_ms"],
@@ -9675,9 +10294,11 @@ def main(argv=None) -> int:
         "name": "flash_attention_bf16", "route": "cuda",
         "source": "semantic_router_tpu_torch/csrc/flash_attention.cu",
         "replaces": "semantic_router_tpu/ops/flash_attention.py:95",
-        # bf16 launches: the quantized trunks (engine.quant bf16, int8)
+        # bf16 launches: the quantized trunks (engine.quant bf16, int8),
+        # phase 6b's and phase 19's after its quant reloads
         "launches": sum(quant[m]["launches_by_dtype"]["flash_attention"]
-                        .get("bfloat16", 0) for m in ("bf16", "int8")),
+                        .get("bfloat16", 0) for m in ("bf16", "int8"))
+        + rl["launches"]["flash_attention_bf16"],
         "max_abs_err": max(x["max_abs_err"] for x in kern["flash"]
                            if x["dtype"] == "torch.bfloat16"),
         "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],

@@ -198,6 +198,10 @@ class Predicate:
         return cls(gt=fv("gt"), gte=fv("gte"), lt=fv("lt"), lte=fv("lte"),
                    eq=fv("eq"))
 
+    def is_empty(self) -> bool:
+        return all(v is None for v in (self.gt, self.gte, self.lt,
+                                       self.lte, self.eq))
+
     def check(self, value: float) -> bool:
         if self.gt is not None and not value > self.gt:
             return False
@@ -739,11 +743,25 @@ class Decision:
 
 
 @dataclass
+class LoRACard:
+    """A LoRA adapter a model card declares (a decision's ``lora_name``
+    must name one)."""
+
+    name: str
+    description: str = ""
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LoRACard":
+        return cls(name=d["name"], description=d.get("description", ""))
+
+
+@dataclass
 class ModelCard:
     """Backend model card (routing.modelCards): the catalog of models the
-    decisions may name, with what selectors read of each, and the
-    model's own weighted backend endpoints (``backend_refs``: [{endpoint,
-    weight}]; none = the server's default backend)."""
+    decisions may name, with what selectors read of each, its declared
+    LoRA adapters, and the model's own weighted backend endpoints
+    (``backend_refs``: [{endpoint, weight}]; none = the server's default
+    backend)."""
 
     name: str
     param_size: str = ""
@@ -753,6 +771,7 @@ class ModelCard:
     tags: List[str] = field(default_factory=list)
     pricing: Dict[str, float] = field(default_factory=dict)  # per 1M tokens
     backend_refs: List[Dict[str, Any]] = field(default_factory=list)
+    loras: List[LoRACard] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelCard":
@@ -766,6 +785,7 @@ class ModelCard:
             tags=list(d.get("tags", [])),
             pricing=dict(d.get("pricing", {}) or {}),
             backend_refs=[dict(b) for b in d.get("backend_refs", [])],
+            loras=[LoRACard.from_dict(x) for x in d.get("loras", []) or []],
         )
 
     def param_size_billions(self) -> float:
@@ -883,6 +903,12 @@ class InferenceEngineConfig:
         from ..engine.kernels import normalize_quant
 
         return normalize_quant(self.quant)
+
+    def kernels_config(self) -> Dict[str, Any]:
+        """The normalized ``engine.kernels`` block."""
+        from ..engine.kernels import normalize_kernels
+
+        return normalize_kernels(self.kernels)
 
     def cascade_config(self) -> Dict[str, Any]:
         """The normalized ``engine.cascade`` block."""
@@ -1139,6 +1165,11 @@ class RouterConfig:
     vectorstore: Dict[str, Any] = field(default_factory=dict)
     # the on-device ANN plane, read through ann_config()
     ann: Dict[str, Any] = field(default_factory=dict)
+    # the canonical contract's top-level surface, kept for its export
+    # (``canonical.export_canonical``)
+    listeners: List[Dict[str, Any]] = field(default_factory=list)
+    providers: Dict[str, Any] = field(default_factory=dict)
+    version: str = ""
     # the dict this config was parsed from (``global:`` lifted)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -1157,8 +1188,11 @@ class RouterConfig:
             decisions=[Decision.from_dict(x) for x in
                        routing.get("decisions", d.get("decisions", []))],
             strategy=routing.get("strategy", d.get("strategy", "priority")),
-            default_model=d.get("default_model",
-                                routing.get("default_model", "")),
+            # the canonical contract keeps it in providers.defaults
+            default_model=d.get("default_model", routing.get(
+                "default_model",
+                ((d.get("providers") or {}).get("defaults") or {})
+                .get("default_model", ""))),
             engine=InferenceEngineConfig.from_dict(
                 d.get("engine", d.get("inference_engine", {}))),
             semantic_cache=SemanticCacheConfig.from_dict(
@@ -1186,8 +1220,17 @@ class RouterConfig:
             stateplane=dict(d.get("stateplane", {}) or {}),
             vectorstore=dict(d.get("vectorstore", {}) or {}),
             ann=dict(d.get("ann", {}) or {}),
+            listeners=list(d.get("listeners", []) or []),
+            providers=dict(d.get("providers", {}) or {}),
+            version=str(d.get("version", "")),
             raw=d,
         )
+
+    def model_card(self, name: str) -> Optional[ModelCard]:
+        for m in self.model_cards:
+            if m.name == name:
+                return m
+        return None
 
     # -- recipes -------------------------------------------------------------
 
@@ -1505,3 +1548,32 @@ class RouterConfig:
             used.update(t for t in ALL_SIGNAL_TYPES
                         if members & set(self.signals.rule_names(t)))
         return sorted(used - {""})
+
+
+_SECRET_KEY_MARKERS = ("api_key", "apikey", "secret", "password",
+                       "private_key", "access_key")
+
+
+def _is_secret_key(key: str) -> bool:
+    lk = key.lower()
+    if any(m in lk for m in _SECRET_KEY_MARKERS):
+        return True
+    # "token" only as the trailing word: auth_token / bearer_token / token
+    # are secrets; min_tokens / max_tokens are routing limits
+    return lk == "token" or lk.endswith("_token") or lk == "credential"
+
+
+def redact_config(d: Any) -> Any:
+    """A deep copy of ``d`` with every value under a secret-naming key
+    (api_key, *_token, secret, password, ...) masked as ``"***"``,
+    whatever its type: a list or dict under such a key is masked whole.
+    ``GET /config/router`` serves this unless the caller holds
+    ``secret_view`` (or ``admin``)."""
+    if isinstance(d, dict):
+        return {k: "***" if _is_secret_key(str(k)) else redact_config(v)
+                for k, v in d.items()}
+    if isinstance(d, list):
+        return [redact_config(x) for x in d]
+    if isinstance(d, tuple):
+        return tuple(redact_config(x) for x in d)
+    return d

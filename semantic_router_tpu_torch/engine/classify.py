@@ -774,12 +774,14 @@ class InferenceEngine:
         one runs again on the new one)."""
         kk = normalize_kernels(knobs)
         with self._changing():
-            if kk != self._kernels:
+            changed, self._kernels = kk != self._kernels, kk
+            if changed:
                 self._kernel_rebuilds += 1
-                # graphs were captured under the old toggles
+                # graphs were captured under the old toggles.  The toggles
+                # change first: a batch reads its snapshot, then the
+                # toggles, so a new snapshot never serves the old ones
                 for g in list(self._groups_by_gid.values()):
                     self._publish(g, dict(g.demux))
-            self._kernels = kk
 
     def configure_quant(self, knobs: Optional[Dict[str, Any]]) -> None:
         """Apply an ``engine.quant`` block (boot or reload): each trunk
@@ -788,14 +790,24 @@ class InferenceEngine:
         empty step cache; the others keep theirs.  An in-flight batch on a
         retired snapshot runs again on the new one."""
         qk = normalize_quant(knobs)
+        with self._lock:
+            todo = [(g, quant_selects(qk, g.gid, g.members))
+                    for g in self._groups_by_gid.values()]
+        # the new serving trunks are built before the change, holding the
+        # capture gate shared: an int8 trunk quantizes on the card, and a
+        # reload runs under traffic, whose steps may be capturing
+        with self.device_work():
+            built = {g.gid: (mode, build_quant_trunk(g.trunk, mode))
+                     for g, mode in todo if mode != g.demux["quant"]}
         with self._changing():
             self._quant = qk
             for g in list(self._groups_by_gid.values()):
                 mode = quant_selects(qk, g.gid, g.members)
                 if mode != g.demux["quant"]:
-                    self._publish(g, dict(
-                        g.demux, quant=mode,
-                        trunk=build_quant_trunk(g.trunk, mode)))
+                    ready = built.get(g.gid)
+                    trunk = ready[1] if ready and ready[0] == mode \
+                        else build_quant_trunk(g.trunk, mode)
+                    self._publish(g, dict(g.demux, quant=mode, trunk=trunk))
                     self._kernel_rebuilds += 1
 
     def _serving_meta(self, demux: dict) -> Dict[str, Any]:
@@ -1336,8 +1348,7 @@ class InferenceEngine:
                                      + (pairs if use_bgmv else []))
                 # the packed entry shape every packed bucket hits first
                 self._warm_packed_shape(g, b, k_pad=2, padded_rows=1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
 
     def _warm_packed_shape(self, g: TrunkGroup, bucket: int, k_pad: int,
                            padded_rows: int, pair_pad: int = 0,
@@ -1400,9 +1411,17 @@ class InferenceEngine:
                 else:
                     remaining.add(row)
             g.warm_hints = sorted(remaining) if remaining else None
-        if n and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if n:
+            self._sync()
         return n
+
+    def _sync(self) -> None:
+        """Wait for the card, holding the capture gate shared: CUDA fails
+        a capture running on another thread when the device is
+        synchronized meanwhile (a reload's warmup runs under traffic)."""
+        if self.device.type == "cuda":
+            with self._gate.shared():
+                torch.cuda.synchronize(self.device)
 
     def steps(self) -> List[dict]:
         """Recent step records (oldest first), a view of this engine's

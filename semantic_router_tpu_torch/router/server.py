@@ -62,8 +62,15 @@ HTTP 200 either way), ``GET /ready`` readiness.  Serves on
 workers, idle keep-alive connections parked on a selector); request
 bodies may be chunked.  Standard library only.
 
-The Classification API answers as the reference server's handlers do
-with no API keys configured:
+The management routes sit behind the reference's access gate:
+``api_server.api_keys`` ([{key, roles}]; ``x-api-key`` or a bearer
+token, or a session token from ``POST /dashboard/api/login``) gives
+``view`` the reads, ``edit`` the writes (audited with the caller's
+roles), ``admin`` both, and ``secret_view`` (or ``admin``) the
+unredacted config; with no keys they are open and the config redacted.
+The chat routes, the login, liveness, the scrapes, ``/v1/models`` and
+the API's own description stay open.  The Classification API answers
+as the reference server's handlers do:
 
   POST /api/v1/classify/intent|pii|security|fact-check|user-feedback
        (``windowed`` / ``stride`` classify a long text over stride windows)
@@ -123,6 +130,24 @@ and the reference's telemetry surface, over the server's
                                    pressure; the fleet maximum and one
                                    level row per replica with a plane)
                                    for an autoscaler
+
+and the config management API over the file ``serve`` watches
+(``config_path``; its hot-reload watcher applies what these write):
+
+  GET  /config/router              the live config (redacted)
+  PATCH|PUT /config/router         an RFC 7396 merge into the on-disk
+                                   document, or a whole one: validated,
+                                   backed up, written; a document the
+                                   port refuses is answered 400
+  GET  /config/router/versions     the kept backups
+  POST /config/router/rollback     a backup made live again
+  GET  /config/hash                the live config's hash
+  GET  /dashboard/api/config[/raw] the editor's view; the on-disk text
+                                   (``secret_view``)
+  POST /dashboard/api/config/validate|deploy  a dry run (empty
+                                   environment); the operator's text
+                                   written verbatim
+  POST /dashboard/api/dsl/compile|decompile   the routing DSL
 """
 
 from __future__ import annotations
@@ -143,7 +168,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..config.schema import RouterConfig
+from ..config.schema import RouterConfig, config_hash, redact_config
 from ..looper import HTTPLLMClient, Looper
 from ..looper.workflows import WorkflowsLooper, build_workflow_state_store
 from ..observability.inflight import default_tracker
@@ -224,12 +249,97 @@ API_CATALOG = {"endpoints": [
         ("/v1/vector_stores/{id}/files", "GET"),
         ("/v1/vector_stores/{id}/files", "POST"),
         ("/v1/vector_stores/{id}/files/{file_id}", "DELETE"),
+        ("/config/router", "GET"),
+        ("/config/router", "PATCH"),
+        ("/config/router", "PUT"),
+        ("/config/router/rollback", "POST"),
+        ("/config/router/versions", "GET"),
+        ("/config/hash", "GET"),
+        ("/dashboard/api/login", "POST"),
+        ("/dashboard/api/dsl/compile", "POST"),
+        ("/dashboard/api/dsl/decompile", "POST"),
+        ("/dashboard/api/config/raw", "GET"),
+        ("/dashboard/api/config/validate", "POST"),
+        ("/dashboard/api/config/deploy", "POST"),
     )]}
 
 # Classification API route name → engine task
 CLASSIFY_TASKS = {"intent": "intent", "security": "jailbreak", "pii": "pii",
                   "fact-check": "fact_check",
                   "user-feedback": "user_feedback"}
+
+
+# gated POST routes → (write, audited action); None = open (the data plane
+# and the dashboard login)
+_POST_GATES = {
+    "/v1/chat/completions": None, "/v1/messages": None,
+    "/v1/responses": None, "/dashboard/api/login": None,
+    "/api/v1/embeddings": (False, ""), "/api/v1/similarity": (False, ""),
+    "/api/v1/similarity/batch": (False, ""), "/api/v1/eval": (False, ""),
+    "/api/v1/nli": (False, ""),
+    "/dashboard/api/config/validate": (False, ""),
+    "/dashboard/api/dsl/compile": (False, ""),
+    "/dashboard/api/dsl/decompile": (False, ""),
+    "/v1/memory": (True, "memory_create"),
+    "/v1/vector_stores": (True, "vectorstore_create"),
+    "/config/router/rollback": (True, "config_rollback"),
+    "/dashboard/api/config/deploy": (True, "config_put"),
+}
+# the config API's and the editor's POST routes → their handler
+_CONFIG_POSTS = {
+    "/config/router/rollback": "_config_rollback",
+    "/dashboard/api/config/validate": "_config_validate",
+    "/dashboard/api/config/deploy": "_config_deploy",
+    "/dashboard/api/dsl/compile": "_dsl_compile",
+    "/dashboard/api/dsl/decompile": "_dsl_decompile",
+    "/dashboard/api/login": "_login",
+}
+
+
+def _post_gate(path: str):
+    """A POST route's gate: () when it is open, (write, action) when it
+    is gated, None when the route is unknown."""
+    if path.startswith("/api/v1/classify/"):
+        return (False, "")
+    if path.startswith("/v1/vector_stores/"):
+        if path.endswith("/search"):
+            return (False, "")
+        if path.endswith("/files"):
+            return (True, "vectorstore_ingest")
+        return None
+    if path not in _POST_GATES:
+        return None
+    return _POST_GATES[path] or ()
+
+
+def _parse_yaml_mapping(text: str):
+    """(doc, error): editor or deploy YAML text as a config mapping."""
+    import yaml
+
+    try:
+        doc = yaml.safe_load(text) or {}
+    except yaml.YAMLError as exc:
+        return None, f"YAML: {exc}"[:500]
+    if not isinstance(doc, dict):
+        return None, "config must be a mapping"
+    return doc, None
+
+
+def _resolve_and_validate(doc: Dict[str, Any], env=None):
+    """(candidate, fatal, warnings) of a config document as it would load:
+    placeholders substituted (``env``, else the process's), the schema
+    parsed (the port's refusals raise here) and the validator run."""
+    import yaml
+
+    from ..config.loader import substitute_env
+    from ..config.validator import validate_config
+
+    resolved = yaml.safe_load(substitute_env(yaml.safe_dump(doc), env)) \
+        or {}
+    candidate = RouterConfig.from_dict(resolved)
+    findings = validate_config(candidate)
+    return (candidate, [str(e) for e in findings if e.fatal],
+            [str(e) for e in findings if not e.fatal])
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -355,8 +465,6 @@ class _Handler(BaseHTTPRequestHandler):
             from .openapi import DOCS_HTML
 
             self._reply_text(200, DOCS_HTML, "text/html")
-        elif path == "/api/v1":
-            self._reply(200, API_CATALOG)
         elif path == "/v1/models":
             self._reply(200, {"object": "list", "data": [
                 {"id": m.name, "object": "model",
@@ -368,6 +476,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200 if ok else 503, {
                 "ready": ok,
                 "uptime_s": round(time.time() - srv.started_t, 1)})
+        elif path == "/metrics/external":
+            self._reply(200, srv.external_metrics(
+                self._query().get("metric", "")))
         elif path == "/metrics":
             # exemplars are only legal in OpenMetrics (a 0.0.4 parser
             # rejects the '# {...}' clause and fails the whole scrape):
@@ -379,6 +490,18 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._reply_text(200, reg.metrics.expose(),
                                  "text/plain; version=0.0.4")
+        else:
+            self._management_get(path)
+
+    def _management_get(self, path: str) -> None:
+        """A GET behind the access gate (``view``)."""
+        roles = self._authorize()
+        if roles is None:
+            return
+        srv: RouterServer = self.server.owner
+        reg = srv.registry
+        if path == "/api/v1":
+            self._reply(200, API_CATALOG)
         elif path == "/debug/profiler":
             self._reply(200, reg.profiler.status())
         elif path == "/debug/flightrec":
@@ -420,9 +543,6 @@ class _Handler(BaseHTTPRequestHandler):
                                            "(stateplane.enabled is false)"})
             else:
                 self._reply(200, plane.report())
-        elif path == "/metrics/external":
-            self._reply(200, srv.external_metrics(
-                self._query().get("metric", "")))
         elif path == "/info/models":
             self._reply(200, {"tasks": info_models(srv.router.engine)})
         elif path == "/v1/memory":
@@ -467,6 +587,28 @@ class _Handler(BaseHTTPRequestHandler):
                                            f"{key!r}"})
             else:
                 self._reply(200, rec)
+        elif path == "/config/router":
+            if srv.api_keys and {"secret_view", "admin"} & roles:
+                self._reply(200, srv.cfg.raw)
+            else:
+                self._reply(200, redact_config(srv.cfg.raw))
+        elif path == "/config/hash":
+            self._reply(200, {"hash": config_hash(srv.cfg.raw)})
+        elif path == "/config/router/versions":
+            if srv.version_store is None:
+                self._reply(503, {"error": "no config path configured"})
+                return
+            self._reply(200, {"versions": srv.versions()})
+        elif path == "/dashboard/api/config":
+            cfg = srv.cfg
+            self._reply(200, {
+                "hash": config_hash(cfg.raw),
+                "decisions": [d.name for d in cfg.decisions],
+                "models": [m.name for m in cfg.model_cards],
+                "signal_families": cfg.used_signal_types(),
+                "config": redact_config(cfg.raw)})
+        elif path == "/dashboard/api/config/raw":
+            self._config_raw()
         else:
             self._reply(404, {"error": "not found"})
 
@@ -487,11 +629,49 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(200, {"id": name, **store.stats()})
 
-    def _audit(self, action: str) -> None:
-        """The reference's audit line for a management mutation (no API
-        keys are configured here, so the roles are empty)."""
-        component_event("audit", action, path=self.path.split("?", 1)[0],
-                        roles=[])
+    # -- the access gate ----------------------------------------------------
+    # The open / management split is the branch order of the do_* methods:
+    # the data plane and liveness answer before any ``_authorize``.
+
+    def _roles(self) -> Optional[set]:
+        """The presented credential's roles: ``set()`` when no API keys are
+        configured (open), None for a missing or unknown key.  The key
+        comes as ``x-api-key`` or a bearer token; a dashboard session
+        token (two dots) is verified first and, failing that, looked up
+        as a key."""
+        srv: RouterServer = self.server.owner
+        if not srv.api_keys:
+            return set()
+        h = self._req_headers()
+        key = h.get("x-api-key", "")
+        auth = h.get("authorization", "")
+        if not key and auth.lower().startswith("bearer "):
+            key = auth[7:].strip()
+        if key.count(".") == 2:
+            roles = srv.token_issuer.verify(key)
+            if roles is not None:
+                return roles
+        return srv.roles_for_key(key)
+
+    def _authorize(self, write: bool = False,
+                   action: str = "") -> Optional[set]:
+        """Gate a management route: ``view`` for reads, ``edit`` for
+        mutations (``admin`` holds both); a mutation named by ``action``
+        is audited with the caller's roles.  The roles, or None after a
+        401 / 403 was sent."""
+        roles = self._roles()
+        if roles is None:
+            self._reply(401, {"error": "missing or invalid API key"})
+            return None
+        if self.server.owner.api_keys:
+            need = "edit" if write else "view"
+            if need not in roles and "admin" not in roles:
+                self._reply(403, {"error": f"requires role {need!r}"})
+                return None
+        if action:
+            component_event("audit", action, path=self.path.split("?", 1)[0],
+                            roles=sorted(roles))
+        return roles
 
     def _decisions(self, ex) -> None:
         """Newest-first decision records, filtered by model / decision /
@@ -539,27 +719,27 @@ class _Handler(BaseHTTPRequestHandler):
         data = self._raw_body()
         if path == "/debug/flightrec/clear" \
                 or path.startswith("/debug/profiler/"):
+            # profiling perturbs the serving process: edit-gated
+            if self._authorize(write=True, action="flightrec"
+                               if path == "/debug/flightrec/clear"
+                               else "profiler") is None:
+                return
             try:
                 body = json.loads(data or b"{}")
             except json.JSONDecodeError:
                 body = {}
             self._debug_post(path, body if isinstance(body, dict) else {})
             return
-        known = path in (
-            "/v1/chat/completions", "/v1/messages", "/v1/responses",
-            "/api/v1/embeddings", "/api/v1/similarity",
-            "/api/v1/similarity/batch", "/api/v1/eval", "/api/v1/nli",
-            "/v1/memory", "/v1/vector_stores") \
-            or path.startswith("/api/v1/classify/") \
-            or (path.startswith("/v1/vector_stores/")
-                and path.endswith(("/search", "/files")))
-        if not known:
+        gate = _post_gate(path)
+        if gate is None:
             self._reply(404, {"error": "not found"})
             return
         try:
             body = json.loads(data or b"{}")
         except json.JSONDecodeError:
             self._reply(400, {"error": {"message": "request body is not JSON"}})
+            return
+        if gate and self._authorize(*gate) is None:
             return
         if path in ("/v1/chat/completions", "/v1/messages"):
             self._chat(body, anthropic=path == "/v1/messages")
@@ -579,18 +759,211 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/v1/memory":
                 self._memory_create(body)
             elif path == "/v1/vector_stores":
-                self._audit("vectorstore_create")
                 self._vectorstore_create(body)
+            elif path in _CONFIG_POSTS:
+                getattr(self, _CONFIG_POSTS[path])(body)
             elif path.endswith("/search"):
                 self._vectorstore_search(path.split("/")[3], body)
             elif path.endswith("/files"):
-                self._audit("vectorstore_ingest")
                 self._vectorstore_ingest(path.split("/")[3], body)
             else:
                 self._similarity(body)
         except Exception as exc:
             self._reply(500, {"error": {
                 "message": f"{type(exc).__name__}: {exc}"}})
+
+    # -- the config management API and the config editor -------------------
+
+    def do_PATCH(self):
+        self._config_write(merge=True)
+
+    def do_PUT(self):
+        self._config_write(merge=False)
+
+    def _config_write(self, merge: bool) -> None:
+        """``PATCH`` (an RFC 7396 merge into the on-disk document) or
+        ``PUT`` (the whole document) of ``/config/router``."""
+        if self.path.split("?", 1)[0] != "/config/router":
+            self._reply(404, {"error": "not found"})
+            return
+        if self._authorize(write=True, action="config_patch" if merge
+                           else "config_put") is None:
+            return
+        if self.server.owner.version_store is None:
+            self._reply(503, {"error": "no config path configured"})
+            return
+        try:
+            doc = json.loads(self._raw_body() or b"{}")
+        except json.JSONDecodeError:
+            self._reply(400, {"error": {"message": "invalid JSON"}})
+            return
+        if merge and not isinstance(doc, dict):
+            self._reply(400, {"error": {"message":
+                                        "a merge patch must be a mapping"}})
+            return
+        self._config_apply(doc, merge)
+
+    def _config_apply(self, doc: Dict[str, Any], merge: bool,
+                      raw_text: Optional[str] = None) -> None:
+        """Validate, back up and write a config document (``PATCH`` /
+        ``PUT /config/router`` and the editor's deploy); the watcher
+        reloads the written file.  The merge reads the ON-DISK document,
+        never ``cfg.raw``, whose ``${VAR}`` placeholders hold resolved
+        secrets; the whole read-merge-validate-write runs under the
+        server's ``config_write_lock``, so concurrent PATCHes serialize.
+        A document the validator or the port refuses is answered 400 and
+        nothing is written.  ``raw_text`` (deploy): the operator's YAML,
+        written verbatim."""
+        import yaml
+
+        from ..config.versions import deep_merge
+
+        srv: RouterServer = self.server.owner
+        with srv.config_write_lock:
+            try:
+                with open(srv.version_store.config_path) as f:
+                    disk_raw = yaml.safe_load(f) or {}
+            except Exception as exc:
+                self._reply(500, {"error": {
+                    "message": f"cannot read live config: {exc}"}})
+                return
+            new_raw = deep_merge(disk_raw, doc) if merge else doc
+            try:
+                _, fatal, _w = _resolve_and_validate(new_raw)
+            except Exception as exc:
+                self._reply(400, {"error": {
+                    "message": f"invalid config: {exc}"}})
+                return
+            if fatal:
+                self._reply(400, {"error": {"message": "invalid config",
+                                            "details": fatal}})
+                return
+            version = srv.version_store.snapshot()
+            if raw_text is not None and not merge:
+                srv.version_store.write_live_text(raw_text)
+            else:
+                srv.version_store.write_live(new_raw)
+        self._reply(200, {"applied": True,
+                          "backup_version": version.version_id,
+                          "hash": config_hash(new_raw),
+                          "note": "hot-reload watcher applies the new "
+                                  "config within its poll interval"})
+
+    def _config_rollback(self, body: dict) -> None:
+        srv: RouterServer = self.server.owner
+        if srv.version_store is None:
+            self._reply(503, {"error": "no config path configured"})
+            return
+        version = str(body.get("version", ""))
+        # serialized with PATCH / PUT: a concurrent merge must not
+        # clobber the restored version
+        with srv.config_write_lock:
+            ok = srv.version_store.rollback(version)
+        if ok:
+            self._reply(200, {"rolled_back_to": version})
+        else:
+            self._reply(404, {"error": f"version {version!r} not found"})
+
+    def _config_raw(self) -> None:
+        """The editor's source: the ON-DISK document (placeholders
+        unresolved) and the kept versions.  The file may hold inline
+        secrets, so it takes ``secret_view`` (or ``admin``) as well as
+        ``edit``."""
+        srv: RouterServer = self.server.owner
+        roles = self._authorize(write=True, action="config_raw")
+        if roles is None:
+            return
+        if srv.api_keys and not {"secret_view", "admin"} & roles:
+            self._reply(403, {"error": "config_raw requires the "
+                                       "secret_view role"})
+            return
+        if srv.version_store is None:
+            self._reply(503, {"error": "no config path configured"})
+            return
+        try:
+            with open(srv.version_store.config_path) as f:
+                text = f.read()
+        except OSError as exc:
+            self._reply(500, {"error": str(exc)})
+            return
+        self._reply(200, {"yaml": text,
+                          "path": srv.version_store.config_path,
+                          "versions": srv.versions()})
+
+    def _config_validate(self, body: dict) -> None:
+        """The editor's dry run: parse, substitute, parse the schema and
+        validate, nothing written.  Substitution runs against an EMPTY
+        environment (a placeholder becomes its default, else ""): the
+        process's environment holds secrets, and names or messages echoed
+        from resolved values would hand them to a view-role key."""
+        doc, err = _parse_yaml_mapping(str(body.get("yaml", "")))
+        if err is not None:
+            self._reply(200, {"ok": False, "errors": [err]})
+            return
+        try:
+            candidate, fatal, warnings = _resolve_and_validate(doc, env={})
+        except Exception as exc:
+            self._reply(200, {"ok": False, "errors": [
+                f"{type(exc).__name__}: {exc}"[:500]]})
+            return
+        self._reply(200, {
+            "ok": not fatal, "errors": fatal, "warnings": warnings,
+            "hash": config_hash(doc),
+            "decisions": [d.name for d in candidate.decisions],
+            "models": [m.name for m in candidate.model_cards]})
+
+    def _config_deploy(self, body: dict) -> None:
+        """The editor's deploy: the gate and the write path of ``PUT
+        /config/router``, with the operator's YAML kept verbatim."""
+        if self.server.owner.version_store is None:
+            self._reply(503, {"error": "no config path configured"})
+            return
+        text = str(body.get("yaml", ""))
+        doc, err = _parse_yaml_mapping(text)
+        if err is not None:
+            self._reply(400, {"error": {"message": err}})
+            return
+        self._config_apply(doc, merge=False, raw_text=text)
+
+    def _dsl_compile(self, body: dict) -> None:
+        from ..dsl.compiler import DSLCompileError, compile_dsl, emit_yaml
+        from ..dsl.parser import DSLSyntaxError
+
+        try:
+            compiled = compile_dsl(str(body.get("dsl", "")),
+                                   validate=not body.get("skip_validate"))
+        except (DSLCompileError, DSLSyntaxError, ValueError) as exc:
+            self._reply(422, {"ok": False, "error": str(exc)[:500]})
+            return
+        self._reply(200, {
+            "ok": True, "yaml": emit_yaml(compiled),
+            "decisions": [d.name for d in compiled.decisions],
+            "signal_families": compiled.used_signal_types()})
+
+    def _dsl_decompile(self, body: dict) -> None:
+        from ..dsl.compiler import decompile
+
+        try:
+            # the dict as given: a YAML round trip would substitute
+            # literal ${VAR} strings
+            cfg = RouterConfig.from_dict(body.get("config") or {})
+            self._reply(200, {"ok": True, "dsl": decompile(cfg)})
+        except Exception as exc:
+            self._reply(422, {"ok": False, "error": str(exc)[:500]})
+
+    def _login(self, body: dict) -> None:
+        """An API key for a short-lived dashboard session token."""
+        srv: RouterServer = self.server.owner
+        if not srv.api_keys:
+            self._reply(200, {"token": "", "open": True, "roles": []})
+            return
+        found = srv.roles_for_key(str(body.get("api_key", "")))
+        if found is None:
+            self._reply(401, {"error": "invalid API key"})
+            return
+        self._reply(200, {"token": srv.token_issuer.issue(found),
+                          "roles": sorted(found),
+                          "expires_in_s": srv.token_issuer.ttl_s})
 
     # -- the Classification API --------------------------------------------
 
@@ -773,10 +1146,14 @@ class _Handler(BaseHTTPRequestHandler):
     def do_DELETE(self):
         path = self.path.split("?", 1)[0]
         if path.startswith("/v1/vector_stores/"):
-            self._vectorstore_delete(path)
+            if self._authorize(write=True,
+                               action="vectorstore_delete") is not None:
+                self._vectorstore_delete(path)
             return
         if not path.startswith("/v1/memory"):
             self._reply(404, {"error": "not found"})
+            return
+        if self._authorize(write=True, action="memory_delete") is None:
             return
         store = self.server.owner.router.memory_store
         if store is None:
@@ -798,7 +1175,6 @@ class _Handler(BaseHTTPRequestHandler):
     def _vectorstore_delete(self, path: str) -> None:
         """``/v1/vector_stores/{id}`` drops the store,
         ``/v1/vector_stores/{id}/files/{file_id}`` one document."""
-        self._audit("vectorstore_delete")
         mgr = self.server.owner.router.vectorstores
         if mgr is None:
             self._reply(503, {"error": "no vectorstore manager"})
@@ -1494,11 +1870,21 @@ class RouterServer:
     runtime stats and program catalog.  The looper's client and its pool
     of 16 fan-out workers, the workflows engine (its pending tool state
     lives across requests), the Responses store and the credential
-    resolver are the server's own."""
+    resolver are the server's own, built from the config it starts with
+    (a hot reload swaps ``router`` and ``cfg`` and keeps them, as the
+    reference's server does).
+
+    ``api_server.api_keys`` ([{key, roles}]) gates every management
+    route: ``view`` reads, ``edit`` mutates, ``admin`` does both and
+    ``secret_view`` (or ``admin``) reads the config unredacted; with no
+    keys the management surface is open and the config redacted.
+    ``config_path`` (the file ``serve`` loaded and watches) enables the
+    config API's writes, versions and rollback."""
 
     def __init__(self, router: Router, backend_url: str,
                  host: str = "127.0.0.1", port: int = 0,
-                 timeout_s: float = 60.0, registry=None) -> None:
+                 timeout_s: float = 60.0, registry=None,
+                 config_path: str = "") -> None:
         from ..runtime.registry import RuntimeRegistry
 
         if registry is None:
@@ -1517,6 +1903,7 @@ class RouterServer:
         self.started_t = time.time()
         self.ready = threading.Event()
         self.router = router
+        self.cfg = router.cfg
         u = urllib.parse.urlsplit(backend_url)
         if u.scheme != "http" or not u.hostname:
             raise ValueError(f"backend must be an http:// URL, got "
@@ -1533,6 +1920,28 @@ class RouterServer:
             self.looper_client, pool=self.looper_pool,
             state_store=build_workflow_state_store(cfg.looper))
         self.upstream_pool = UpstreamPool()
+        # the management API's keys; an entry without a key is skipped
+        # (an empty key would match a request that presents none)
+        self.api_keys: Dict[str, set] = {}
+        for entry in (cfg.api_server or {}).get("api_keys", []) or []:
+            key = str(entry.get("key") or "")
+            if key:
+                self.api_keys[key] = set(entry.get("roles", []) or [])
+        from ..dashboard.auth import TokenIssuer
+
+        self.token_issuer = TokenIssuer()
+        from ..config.versions import ConfigVersionStore
+
+        self.version_store = ConfigVersionStore(config_path) \
+            if config_path else None
+        # serializes the config API's read-merge-backup-write sequences
+        self.config_write_lock = threading.Lock()
+        # the hot-reload watcher (runtime/bootstrap.py
+        # attach_config_watcher) and the routers a reload replaced, each
+        # with the timer that retires its dispatcher
+        self.watcher = None
+        self._retiring: List[Tuple[threading.Timer, Router]] = []
+        self._retiring_lock = threading.Lock()
         # the boot's StartupTracker (runtime/startup.py), set by serve()
         self.startup = None
         self._openapi_cache: Optional[Dict[str, Any]] = None
@@ -1570,6 +1979,43 @@ class RouterServer:
                 backend = build_backend(conf)
                 self._imagegen_backends[key] = backend
             return backend
+
+    def roles_for_key(self, presented: str) -> Optional[set]:
+        """The roles of a configured API key, compared in constant time
+        over bytes (surrogateescape: header values arrive latin-1
+        decoded); None when no key matches."""
+        import hmac
+
+        presented_b = presented.encode("utf-8", "surrogateescape")
+        found = None
+        for configured, roles in self.api_keys.items():
+            if hmac.compare_digest(
+                    configured.encode("utf-8", "surrogateescape"),
+                    presented_b):
+                found = roles
+        return found
+
+    def versions(self) -> List[dict]:
+        """The config file's kept versions, newest first."""
+        return [{"id": v.version_id, "created": v.created_t, "hash": v.hash}
+                for v in self.version_store.list()]
+
+    def retire_router(self, old: Router, grace_s: float) -> None:
+        """Shut a router a reload replaced down after ``grace_s`` seconds
+        (requests inside its ``route()`` finish their fan-out); ``stop``
+        shuts every router still waiting down at once."""
+        timer = threading.Timer(grace_s, self._retire, args=(old,))
+        timer.name, timer.daemon = "router-retire", True
+        with self._retiring_lock:
+            self._retiring = [(t, r) for t, r in self._retiring
+                              if t.is_alive()] + [(timer, old)]
+        timer.start()
+
+    def _retire(self, old: Router) -> None:
+        with self._retiring_lock:
+            self._retiring = [(t, r) for t, r in self._retiring
+                              if r is not old]
+        old.shutdown()
 
     @property
     def upstreams(self):
@@ -1886,6 +2332,14 @@ class RouterServer:
         self.httpd.serve_forever()
 
     def stop(self) -> None:
+        if self.watcher is not None:
+            self.watcher.stop()
+        with self._retiring_lock:
+            retiring, self._retiring = self._retiring, []
+        for timer, old in retiring:
+            timer.cancel()
+            timer.join()
+            old.shutdown()
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:

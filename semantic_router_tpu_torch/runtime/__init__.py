@@ -1,6 +1,6 @@
 from .bootstrap import apply_ann_knobs, apply_cascade_knobs, \
-    apply_observability_knobs, apply_packing_knobs, apply_quant_knobs, \
-    apply_resilience_knobs, \
+    apply_observability_knobs, apply_packing_knobs, \
+    apply_kernel_knobs, apply_resilience_knobs, attach_config_watcher, \
     apply_stateplane_knobs, apply_upstream_knobs, build_engine, \
     build_router, checkpoint_architecture, close_ann, close_stateplane, \
     modernbert_state, select_attention_impl, serve, warm_engine
@@ -8,7 +8,7 @@ from .registry import RuntimeRegistry
 
 __all__ = ["RuntimeRegistry", "apply_ann_knobs", "apply_cascade_knobs",
            "apply_observability_knobs", "apply_packing_knobs",
-           "apply_quant_knobs",
+           "apply_kernel_knobs", "attach_config_watcher",
            "apply_resilience_knobs", "apply_stateplane_knobs",
            "apply_upstream_knobs", "build_engine", "build_router",
            "checkpoint_architecture", "close_ann", "close_stateplane",

@@ -281,7 +281,7 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
         log.info("model loaded: task=%s kind=%s attention=%s", task, kind,
                  mcfg.attention_impl)
     apply_packing_knobs(cfg, engine)
-    apply_quant_knobs(cfg, engine)
+    apply_kernel_knobs(cfg, engine)
     return engine
 
 
@@ -380,20 +380,26 @@ def apply_packing_knobs(cfg: RouterConfig, engine) -> None:
                     warmed_shapes=warmed)
 
 
-def apply_quant_knobs(cfg: RouterConfig, engine) -> None:
-    """Apply ``engine.quant`` to a live engine (boot, or a config reload):
-    each affected trunk group rebuilds its serving trunk at the selected
-    mode, and the packed shapes the replaced snapshots had run are run
-    again on the new ones (``warmup_packed_hot``).  A malformed block
-    normalizes to off."""
+def apply_kernel_knobs(cfg: RouterConfig, engine) -> None:
+    """Apply ``engine.quant`` and ``engine.kernels`` to a live engine
+    (boot, or a config reload): each trunk group whose quant mode changes
+    rebuilds its serving trunk, a changed kernels block (epilogue fusion,
+    the BGMV gather and its ``min_tasks``) gives every group a new
+    snapshot, and the packed shapes the replaced snapshots had run are run
+    again on the new ones (``warmup_packed_hot``), so the first packed
+    step after the flip replays.  In-flight batches finish on the
+    snapshots they read or run again on the new ones.  A malformed block
+    normalizes to its defaults; a kernel that fails to launch raises."""
     if engine is None:
         return
     engine.configure_quant(cfg.engine.quant)
+    engine.configure_kernels(cfg.engine.kernels)
     warmed = engine.warmup_packed_hot()
-    log.info("quant configured: mode=%s groups=%s packed shapes warmed=%d",
-             cfg.engine.quant_config()["mode"],
-             {gid: m["quant"] for gid, m in
-              engine.kernels_report()["groups"].items()}, warmed)
+    kk = cfg.engine.kernels_config()
+    component_event("bootstrap", "kernels_configured",
+                    quant=cfg.engine.quant_config()["mode"],
+                    epilogue=kk["epilogue"]["enabled"],
+                    bgmv=kk["bgmv"]["enabled"], warmed_shapes=warmed)
 
 
 def build_router(cfg: RouterConfig, engine=None, registry=None,
@@ -914,15 +920,66 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
     apply_resilience_knobs(cfg, registry)
 
 
+# seconds a router a reload replaced keeps its dispatcher, so requests
+# already inside its route() finish their fan-out
+RELOAD_GRACE_S = 30.0
+
+
+def attach_config_watcher(server, config_path: str, engine, registry,
+                          start: bool = True):
+    """Hot reload for a live server: a ``ConfigWatcher`` on
+    ``config_path`` whose swap builds the new config's router over the
+    same engine (``build_router(carry_from=)`` hands on the semantic
+    cache, the state plane, the memory store and the vector stores, and
+    applies the cascade, state-plane, upstream and ANN knobs), swaps
+    ``server.router`` and ``server.cfg``, re-applies the knob blocks in
+    the reference's order (observability, cascade, upstream, ANN,
+    packing, then ``engine.quant`` / ``engine.kernels`` through
+    ``apply_kernel_knobs``), emits ``config_reloaded`` on the registry's
+    event bus and retires the old router's dispatcher after
+    ``RELOAD_GRACE_S`` (``server.stop()`` ends the grace at once).  A
+    file that does not load (invalid, refused, half written) leaves the
+    old config serving.  ``start`` runs the watcher's polling thread
+    (every 2 s); without it the caller drives ``poll_once()``."""
+    from ..config.loader import ConfigWatcher
+    from .events import CONFIG_RELOADED
+
+    def on_reload(new_cfg: RouterConfig) -> None:
+        old = server.router
+        new_router = build_router(new_cfg, engine, registry=registry,
+                                  carry_from=old)
+        server.router = new_router
+        server.cfg = new_cfg
+        apply_observability_knobs(new_cfg, registry)
+        apply_cascade_knobs(new_cfg, registry, new_router)
+        apply_upstream_knobs(new_cfg, registry, new_router)
+        apply_ann_knobs(new_cfg, registry, new_router)
+        apply_packing_knobs(new_cfg, engine)
+        apply_kernel_knobs(new_cfg, engine)
+        server.retire_router(old, RELOAD_GRACE_S)
+        component_event("bootstrap", "config_reloaded")
+        bus = registry.get("events")
+        if bus is not None:
+            bus.emit(CONFIG_RELOADED, decisions=len(new_cfg.decisions))
+
+    watcher = ConfigWatcher(config_path, on_reload)
+    server.watcher = watcher
+    return watcher.start() if start else watcher
+
+
 def serve(config: str, backend: str, host: str = "127.0.0.1",
           port: int = 8801, device: DeviceLike = None,
-          status_path: Optional[str] = None, block: bool = True):
+          status_path: Optional[str] = None, block: bool = True,
+          watch_config: bool = True):
     """Load the config, build engine + router over the process-default
     observability sinks (configured by ``apply_observability_knobs``),
     and serve ``POST /v1/chat/completions``, the Classification API,
-    ``/metrics`` and ``/debug/*`` until interrupted.  The engine warms
-    (captures every served step at batch 1) before the server accepts a
-    request; a warmup failure raises.
+    ``/metrics``, ``/debug/*`` and the ``/config/*`` management API until
+    interrupted.  The engine warms (captures every served step at batch
+    1) before the server accepts a request; a warmup failure raises.
+    With ``watch_config`` (the default) the config file is watched and
+    hot reloaded into the live server (``attach_config_watcher``); the
+    watcher is ``server.watcher``.
 
     A ``StartupTracker`` (written to ``status_path`` when given) follows
     the boot through ``loading_config``, ``loading_models``, ``warming``
@@ -930,9 +987,9 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     ``GET /startup-status`` serves it.  With ``block=False`` the server
     starts in the background and (server, tracker) is returned; the
     caller then does what the blocking path does when it ends (stop the
-    server, shut the router and engine down, stop the registry's
-    sampler, SLO monitor and controller, ``close_ann``,
-    ``close_stateplane``)."""
+    server, which stops its watcher, shut ``server.router`` and the
+    engine down, stop the registry's sampler, SLO monitor and
+    controller, ``close_ann``, ``close_stateplane``)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
     from .registry import RuntimeRegistry
@@ -953,7 +1010,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
             warm_engine(engine, registry)
         router = build_router(cfg, engine, registry=registry)
         server = RouterServer(router, backend, host=host, port=port,
-                              registry=registry)
+                              registry=registry, config_path=config)
         server.startup = tracker
     except Exception as exc:
         # a readiness monitor must see failed, not a boot that never ends
@@ -961,6 +1018,8 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         if engine is not None:
             engine.shutdown()
         raise
+    if watch_config:
+        attach_config_watcher(server, config, engine, registry)
     tracker.advance("ready")
     log.info("serving on %s → %s", server.url, backend)
     if not block:
@@ -970,8 +1029,8 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     except KeyboardInterrupt:
         pass
     finally:
-        server.httpd.server_close()
-        router.shutdown()
+        server.stop()
+        server.router.shutdown()
         if engine is not None:
             engine.shutdown()
         registry.runtimestats.stop()

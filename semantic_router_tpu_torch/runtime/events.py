@@ -2,7 +2,8 @@
 
 The port's copy of ``semantic_router_tpu.runtime.events``.  Components
 emit typed lifecycle events (engine ready or failed, SLO alert
-transitions, degradation-ladder moves, upstream circuit transitions),
+transitions, degradation-ladder moves, upstream circuit transitions,
+config reloads),
 subscribers react (the degradation controller, the SLO-burn capture), and
 a bounded ring keeps recent history (``recent``).
 
@@ -31,6 +32,9 @@ DEGRADATION_LEVEL_CHANGED = "degradation_level_changed"
 # upstream circuit-breaker transitions (resilience/upstream.py)
 UPSTREAM_UNHEALTHY = "upstream_unhealthy"
 UPSTREAM_RECOVERED = "upstream_recovered"
+# a config hot reload swapped the live router (runtime/bootstrap.py
+# attach_config_watcher)
+CONFIG_RELOADED = "config_reloaded"
 
 
 @dataclass

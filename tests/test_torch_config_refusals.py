@@ -190,6 +190,12 @@ PORTED["vectorstore.registry"] = (
         "backend": "postgres", "host": "pg", "port": 5433,
         "user": "router", "database": "vsr", "password": "pw"}}},
     {"vectorstore": {"registry": {"backend": ""}}})
+# the management API's keys: served since the config API and its access
+# gate were ported
+PORTED["api_server.api_keys"] = (
+    {"api_server": {"api_keys": [{"key": "k1", "roles": ["view"]},
+                                 {"roles": ["admin"]}]}},
+    {"api_server": {"api_keys": []}})
 SERVED_SINCE = {
     "engine.packing": (r"engine\.mesh", {
         "engine": {"packing": {"enabled": True},
@@ -330,6 +336,8 @@ def _parsed(cfg, key):
         return cfg.memory
     if key in ("vectorstore.backend", "vectorstore.registry"):
         return cfg.vectorstore
+    if key == "api_server.api_keys":
+        return cfg.api_server
     return getattr(cfg, key)
 
 

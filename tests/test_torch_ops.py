@@ -473,11 +473,13 @@ def _port_sources():
 def test_port_sources_cover_every_package():
     """The scan below reaches every package of the port, the state
     plane's, the RESP family's, the retrieval plane's, the dual-path
-    engine's and the packing scheduler's included."""
+    engine's, the packing scheduler's and config management's (the
+    validator, versions, canonical export, the routing DSL, the
+    dashboard's session tokens) included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
                 "resilience", "ops", "ann", "vectorstore", "memory",
-                "packing"):
+                "packing", "config", "dsl", "dashboard"):
         assert pkg in scanned, pkg
     port = REPO / "semantic_router_tpu_torch"
     for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
@@ -489,7 +491,11 @@ def test_port_sources_cover_every_package():
                 "state/llamastack.py", "state/postgres.py",
                 "vectorstore/pg_registry.py", "engine/packing/__init__.py",
                 "engine/packing/packer.py", "engine/packing/scheduler.py",
-                "engine/packing/autotuner.py"):
+                "engine/packing/autotuner.py", "config/validator.py",
+                "config/versions.py", "config/canonical.py",
+                "config/loader.py", "dsl/__init__.py", "dsl/parser.py",
+                "dsl/compiler.py", "dashboard/__init__.py",
+                "dashboard/auth.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -543,7 +549,13 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.engine.packing.packer',\n"
         "        'semantic_router_tpu_torch.engine.packing.scheduler',\n"
         "        'semantic_router_tpu_torch.engine.packing.autotuner',\n"
-        "        'semantic_router_tpu_torch.models.lora'} \\\n"
+        "        'semantic_router_tpu_torch.models.lora',\n"
+        "        'semantic_router_tpu_torch.config.validator',\n"
+        "        'semantic_router_tpu_torch.config.versions',\n"
+        "        'semantic_router_tpu_torch.config.canonical',\n"
+        "        'semantic_router_tpu_torch.dsl.parser',\n"
+        "        'semantic_router_tpu_torch.dsl.compiler',\n"
+        "        'semantic_router_tpu_torch.dashboard.auth'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"

@@ -386,7 +386,7 @@ def test_configure_quant_rebuilds_only_the_affected_groups():
 
 
 def test_schema_and_bootstrap_apply_engine_quant():
-    from semantic_router_tpu_torch.runtime import apply_quant_knobs
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs
 
     cfg = load_config({"engine": {"quant": {"mode": "INT8",
                                             "groups": ["intent"],
@@ -396,7 +396,7 @@ def test_schema_and_bootstrap_apply_engine_quant():
     assert normalize_quant({"mode": "fp4"})["mode"] == "off"
     eng = ttesting.make_shared_trunk_engine(device="cpu")
     try:
-        apply_quant_knobs(cfg, eng)
+        apply_kernel_knobs(cfg, eng)
         assert eng.trunk_group("intent").demux["quant"] == "int8"
     finally:
         eng.shutdown()

@@ -13,6 +13,7 @@ and, handed to the monitor directly, recorded as a configuration error."""
 import copy
 import http.client
 import json
+import threading
 import time
 import urllib.parse
 
@@ -216,9 +217,48 @@ class _FakeProfiler:
         return {"stopped": True}
 
 
+class _HandTimer:
+    """A ``threading.Timer`` that never runs on its own: ``fire_all``
+    runs every pending one in the order they were started, so the
+    bounded traces' stops land at fixed points of the event sequence."""
+
+    pending = []
+
+    def __init__(self, interval, function, args=None, kwargs=None):
+        self.function, self.args = function, args or ()
+        self.kwargs = kwargs or {}
+        self.daemon, self.name = False, ""
+        self._done = threading.Event()
+
+    def start(self):
+        _HandTimer.pending.append(self)
+
+    def cancel(self):
+        self._done.set()
+
+    def is_alive(self):
+        return not self._done.is_set()
+
+    def join(self, timeout=None):
+        self._done.wait(timeout)
+
+    @classmethod
+    def fire_all(cls):
+        while cls.pending:
+            t = cls.pending.pop(0)
+            if not t._done.is_set():
+                t.function(*t.args, **t.kwargs)
+                t._done.set()
+
+
 def test_slo_capture_matches_jax(monkeypatch):
     clock = [1000.0]
     monkeypatch.setattr("time.monotonic", lambda: clock[0])
+    # both controllers start their stop timers through the one threading
+    # module: each stop runs by hand right after the event that started
+    # its trace, in both runs, so the profilers see the same call order
+    monkeypatch.setattr(threading, "Timer", _HandTimer)
+    monkeypatch.setattr(_HandTimer, "pending", [])
     rows = []
     for ps, bus_cls, fr in ((jps, JBus, None),
                             (tps, EventBus, FlightRecorder())):
@@ -234,14 +274,10 @@ def test_slo_capture_matches_jax(monkeypatch):
                           (100, "slo_alert_firing")):
             clock[0] += dt
             bus.emit(stage, objective=f"o{dt}")
+            _HandTimer.fire_all()
             got.append(len(ctl.links()))
         ctl.join()
-        # the JAX join waits for the last capture's stop timer only: wait,
-        # within a bound, for every earlier capture's stop to land too
-        deadline = time.perf_counter() + 5.0
-        while prof.calls.count("stop") < prof.calls.count("start") \
-                and time.perf_counter() < deadline:
-            time.sleep(0.005)
+        assert prof.calls.count("stop") == prof.calls.count("start")
         links = [{k: v for k, v in link.items() if k != "at_unix"}
                  for link in ctl.links()]
         caps = [e.detail for e in reversed(bus.recent(50, "slo_capture"))]
@@ -253,6 +289,7 @@ def test_slo_capture_matches_jax(monkeypatch):
     assert rows[1] == rows[0]
     # 1031 s is inside the first capture's 60 s cooldown; 1062 s is not
     assert rows[1][0] == [1, 1, 1, 2, 3]
+    assert rows[1][3] == ["start", "stop"] * 3
 
 
 class _SlowFirstStopProfiler(_FakeProfiler):
