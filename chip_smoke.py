@@ -391,12 +391,51 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    of the start.  Then the cuda-marked tests of every file in
    ``CUDA_TESTS`` run in one pytest process, its JUnit report split per
    file (each file's expected passes as before).
+20. extproc — phase 3's bank (full width, seeded, the epilogue on, the
+   ladder off, skip-processing on) behind the port's Envoy ExtProc
+   filter (``ExtProcServer`` over loopback gRPC, looper decisions through
+   ``build_looper_executor``), the phase playing Envoy: each mutated body
+   goes to a mock backend and its reply comes back through the response
+   phases.  20a: phase 3's 8 prompts x 4 from 8 client threads, each body
+   in one chunk, one SSE reply a client (``mode_override`` STREAMED);
+   then 20b's bodies sent buffered (the route time to compare with).
+   20b: 16 bodies of ~2000 seeded words (cut to the 512 bucket) with ~30
+   KB of inert ``metadata``, streamed: the first chunk ends after
+   ``messages``, 8 more follow 20 ms apart; four carry a ``tools`` array
+   that completes in the second chunk and restarts the prefetch; from 4
+   clients (one a prefetch worker), then from 8 (a prefetch still queued
+   at the end of its stream is cancelled and route() evaluates inline).
+   20c: a
+   streamed request with a ``traceparent`` (the prefetch's
+   ``signals.evaluate`` span is a child of its ``router.route`` span, the
+   backend's ``traceparent`` names that span), a skip-processing one (no
+   K1 or K2 launch, every chunk passed through), and phase 6's fixture
+   router answering a fusion decision with an ImmediateResponse from the
+   mock backend.  Every routed stream ends in a body mutation whose
+   decision and model equal the CPU port router's on the same body
+   (outside near ties); each request is classified once (20a: inline;
+   20b: on the filter's prefetch workers, reused at the end of the
+   stream with 4 clients, a late ``tools`` body at most twice), the
+   engine's classified
+   items equal to what those evaluations and the answer screens cost
+   one at a time; every prefetch starts before the last chunk; no filter
+   thread captures a step.  Prints the EOS tail (last chunk sent → the
+   body's answer) p50 / p99 beside the buffered route time, K1 and K2
+   launches by sub-phase, the transport and the grpc / protobuf
+   versions.
+
+The CPU-port reference checks of phases 12, 13c, 19 and 20 run on one
+background thread (``Deferred``) while the card's phases go on (none
+starts during phases 19 and 20, whose timings are host-bound); the run
+waits for them after the cuda tests, prints each one's seconds and how
+long it waited, and fails on the first that failed.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
-13, 14, 15, 16, 17, 18 (none there: its trunk is dense) and 19 (float32;
-its bf16 ones in the bf16 row); K2's count phase 18's packed and
-unpacked steps and phase 19's too, K3's phase 4's, 18b's and 19's),
+13, 14, 15, 16, 17, 18 (none there: its trunk is dense), 19 (float32;
+its bf16 ones in the bf16 row) and 20; K2's count phase 18's packed and
+unpacked steps and phases 19's and 20's too, K3's phase 4's, 18b's and
+19's),
 ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
@@ -789,6 +828,89 @@ def stamp(what: str) -> None:
     """A progress line on stderr: seconds since start, then ``what``."""
     print(f"[chip_smoke {time.perf_counter() - _T0:.1f} s] {what}",
           file=sys.stderr, flush=True)
+
+
+class Deferred:
+    """CPU-port reference checks on one background thread while the card's
+    phases go on: a phase hands over the check of what it recorded
+    (``submit``) and moves on; ``drain`` (before "phases done") waits for
+    them in order, prints each check's seconds and the seconds the run
+    waited for them, and raises the first failure.  ``quiet`` holds the
+    checks not yet started (and waits out the one running) while a phase
+    times host-bound work; ``release`` lets them go.  The thread is a
+    daemon, so a failed phase ends the run without waiting for it."""
+
+    def __init__(self) -> None:
+        import queue
+
+        self._q: "queue.Queue" = queue.Queue()
+        self.jobs: list = []
+        self._open = threading.Event()
+        self._open.set()
+        self._idle = threading.Event()
+        self._idle.set()
+        self._thread = threading.Thread(target=self._work, daemon=True,
+                                        name="cpu-check")
+        self._thread.start()
+
+    def _work(self) -> None:
+        while True:
+            job = self._q.get()
+            self._open.wait()
+            self._idle.clear()
+            job["t0"] = time.perf_counter()
+            try:
+                job["fn"]()
+            except BaseException as exc:  # re-raised by drain
+                job["error"] = exc
+            job["t1"] = time.perf_counter()
+            self._idle.set()
+            job["done"].set()
+
+    def quiet(self) -> float:
+        """Start no further check until ``release``; returns the seconds
+        spent waiting for the running one to end."""
+        t0 = time.perf_counter()
+        self._open.clear()
+        self._idle.wait()
+        return time.perf_counter() - t0
+
+    def release(self) -> None:
+        self._open.set()
+
+    def submit(self, name: str, fn) -> None:
+        job = {"name": name, "fn": fn, "done": threading.Event(),
+               "error": None, "t_submit": time.perf_counter()}
+        self.jobs.append(job)
+        self._q.put(job)
+
+    def drain(self) -> dict:
+        self.release()
+        t0 = time.perf_counter()
+        for job in self.jobs:
+            job["done"].wait()
+        waited = time.perf_counter() - t0
+        rows = []
+        for job in self.jobs:
+            secs = job["t1"] - job["t0"]
+            rows.append({"name": job["name"], "seconds": secs,
+                         "queued_s": job["t0"] - job["t_submit"],
+                         "ok": job["error"] is None})
+            print(f"deferred {job['name']}: {secs:.1f} s on the cpu-check "
+                  f"thread, queued {job['t0'] - job['t_submit']:.1f} s",
+                  flush=True)
+        ran = sum(r["seconds"] for r in rows)
+        print(f"deferred checks: {ran:.1f} s of CPU-port checks ran beside "
+              f"the card's phases; the run waited {waited:.1f} s for them, "
+              f"so {ran - waited:.1f} s came off the run's path", flush=True)
+        for job in self.jobs:
+            if job["error"] is not None:
+                raise job["error"]
+        return {"jobs": rows, "ran_s": ran, "waited_s": waited,
+                "saved_s": ran - waited}
+
+
+DEFERRED: "Deferred | None" = None   # main() starts it
 
 
 SPIN_CYCLES = 10_000_000  # ~5 ms of a spinning kernel at the H100's clock
@@ -6096,6 +6218,64 @@ def _row_key(row: dict) -> list:
     return [row["status"], _vsr(row["headers"])]
 
 
+def _chat_cpu_replay(out: dict, cpu, nli: dict, bodies: list, chain: list,
+                     repairs: list) -> None:
+    """Phase 12's first requests of each part again on the CPU port:
+    equal statuses and x-vsr-* headers (so decisions and models), the
+    same Responses chain, repairs and looper rows; then the CPU engine
+    shuts down."""
+    runs = []
+    try:
+        cpu_card = _ChatRun(CHAT_CONFIG, cpu, False, nli)
+        runs.append(cpu_card)
+        agree = 0
+        half = N_CHAT_CPU // 2
+        for part, path, make, rows in (
+                ("12a", "/v1/chat/completions",
+                 lambda b, s: dict(b, stream=s), out["12a"]["rows"]),
+                ("12b", "/v1/messages", _anthropic_body,
+                 out["12b"]["rows"])):
+            first = bodies[:half] if part == "12a" \
+                else bodies[N_CHAT:N_CHAT + half]
+            for i, body in enumerate(first):
+                for stream in (False, True):
+                    got = cpu_card.call(path, make(body, stream))
+                    want = rows[i]["vsr"]
+                    if stream:
+                        want = {k: v for k, v in want.items()
+                                if k not in RESPONSE_HEADERS}
+                    check(got["status"] == 200
+                          and _vsr(got["headers"]) == want,
+                          f"chat CPU {part} {i}: {_vsr(got['headers'])} "
+                          f"!= card {want}")
+                    agree += 1
+        for part, got_rows, want_rows in (
+                ("12c", _responses_chain(cpu_card), chain),
+                ("12e", _repair_rows(cpu_card, bodies), repairs)):
+            for i, (got, want) in enumerate(zip(got_rows, want_rows)):
+                check(_row_key(got) == _row_key(want),
+                      f"chat CPU {part} {i}: {_row_key(got)} != card "
+                      f"{_row_key(want)}")
+                agree += 1
+        cpu_looper = _ChatRun(LOOPER_CHAT_CONFIG, cpu, False, nli)
+        runs.append(cpu_looper)
+        algos = list(LOOPER_CHAT_ALGORITHMS)[:N_CHAT_CPU]
+        cpu_loop = _looper_rows(cpu_looper, algos)
+        for algo in algos:
+            got, want = cpu_loop[algo], out["12d"][algo]
+            check((got["headers"], got["backend_calls"], got["nli"])
+                  == (want["headers"], want["backend_calls"], want["nli"]),
+                  f"chat CPU 12d {algo}: {got} != card {want}")
+            agree += 1
+        out["cpu_agreement"] = {"requests": agree}
+        print("chat cpu agreement " + json.dumps(out["cpu_agreement"]),
+              flush=True)
+    finally:
+        for r in runs:
+            r.stop()
+        cpu.shutdown()
+
+
 def phase_chat(keep: dict, smi: str) -> dict:
     """Phase 12: phase 8's engines (trunk, heads, embedding model) behind
     the pooled server: 12a streaming, 12b /v1/messages, 12c the Responses
@@ -6140,62 +6320,21 @@ def phase_chat(keep: dict, smi: str) -> dict:
         out["12d"] = _looper_rows(looper, list(LOOPER_CHAT_ALGORITHMS))
         out["launches"] = {k: card.launches[k] + looper.launches[k]
                            for k in card.launches}
-        # the CPU port on the first requests of each part: equal
-        # statuses and x-vsr-* headers (so decisions and models)
-        stamp("12: CPU replay")
-        cpu_card = _ChatRun(CHAT_CONFIG, cpu, False, nli)
-        runs.append(cpu_card)
-        agree = 0
-        half = N_CHAT_CPU // 2
-        for part, path, make, rows in (
-                ("12a", "/v1/chat/completions",
-                 lambda b, s: dict(b, stream=s), out["12a"]["rows"]),
-                ("12b", "/v1/messages", _anthropic_body,
-                 out["12b"]["rows"])):
-            first = bodies[:half] if part == "12a" \
-                else bodies[N_CHAT:N_CHAT + half]
-            for i, body in enumerate(first):
-                for stream in (False, True):
-                    got = cpu_card.call(path, make(body, stream))
-                    want = rows[i]["vsr"]
-                    if stream:
-                        want = {k: v for k, v in want.items()
-                                if k not in RESPONSE_HEADERS}
-                    check(got["status"] == 200
-                          and _vsr(got["headers"]) == want,
-                          f"chat CPU {part} {i}: {_vsr(got['headers'])} "
-                          f"!= card {want}")
-                    agree += 1
-        for part, got_rows, want_rows in (
-                ("12c", _responses_chain(cpu_card), chain),
-                ("12e", _repair_rows(cpu_card, bodies), repairs)):
-            for i, (got, want) in enumerate(zip(got_rows, want_rows)):
-                check(_row_key(got) == _row_key(want),
-                      f"chat CPU {part} {i}: {_row_key(got)} != card "
-                      f"{_row_key(want)}")
-                agree += 1
-        cpu_looper = _ChatRun(LOOPER_CHAT_CONFIG, cpu, False, nli)
-        runs.append(cpu_looper)
-        algos = list(LOOPER_CHAT_ALGORITHMS)[:N_CHAT_CPU]
-        cpu_loop = _looper_rows(cpu_looper, algos)
-        for algo in algos:
-            got, want = cpu_loop[algo], out["12d"][algo]
-            check((got["headers"], got["backend_calls"], got["nli"])
-                  == (want["headers"], want["backend_calls"], want["nli"]),
-                  f"chat CPU 12d {algo}: {got} != card {want}")
-            agree += 1
-        out["cpu_agreement"] = {"requests": agree}
     finally:
         for r in runs:
             r.stop()
         engine.shutdown()
-        cpu.shutdown()
     print("chat " + json.dumps({k: v for k, v in out.items()
                                 if k not in ("12a", "12b")}), flush=True)
     for part in ("12a", "12b"):
         print(f"chat {part} " + json.dumps(
             {k: v for k, v in out[part].items() if k != "rows"}),
             flush=True)
+    # the CPU port on the first requests of each part, on the cpu-check
+    # thread while the card goes on: equal statuses and x-vsr-* headers
+    # (so decisions and models)
+    DEFERRED.submit("12: CPU replay", lambda: _chat_cpu_replay(
+        out, cpu, nli, bodies, chain, repairs))
     print(f"phase 12 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -6584,30 +6723,34 @@ def models_route(modules3: dict, deb: dict, cfg_q, dec: dict,
         server.stop()
         backend.stop()
     routes = list(timed.routes)
+    router.shutdown()
+    engine.shutdown()
     check(len(routes) == len(bodies) and len(guard_ms) == len(bodies),
           f"13c: {len(routes)} routes, {len(guard_ms)} guard calls for "
           f"{len(bodies)} requests")
-    # the first requests again on the CPU port
-    cpu = engine_on("cpu", modules3["cpu"], deb["cpu"], dec["cpu"])
-    cpu_router = build_router(cfg, cpu)
-    agree = []
-    try:
-        for i in MODELS_CPU_BODIES:
-            want = cpu_router.route(copy.deepcopy(bodies[i]))
-            got = routes[i]
-            same = (_decision(got), got.model, _route_headers(got)) == \
-                (_decision(want), want.model, _route_headers(want))
-            agree.append({"decision": _decision(want), "model": want.model,
-                          "equal": same})
-            check(same, f"13c request {i}: card {_decision(got)} / "
-                        f"{got.model} {_route_headers(got)} != CPU "
-                        f"{_decision(want)} / {want.model} "
-                        f"{_route_headers(want)}")
-    finally:
-        cpu_router.shutdown()
-        cpu.shutdown()
-        router.shutdown()
-        engine.shutdown()
+    agree: list = []
+
+    def cpu_replay() -> None:
+        """The first requests again on the CPU port."""
+        cpu = engine_on("cpu", modules3["cpu"], deb["cpu"], dec["cpu"])
+        cpu_router = build_router(cfg, cpu)
+        try:
+            for i in MODELS_CPU_BODIES:
+                want = cpu_router.route(copy.deepcopy(bodies[i]))
+                got = routes[i]
+                same = (_decision(got), got.model, _route_headers(got)) \
+                    == (_decision(want), want.model, _route_headers(want))
+                agree.append({"decision": _decision(want),
+                              "model": want.model, "equal": same})
+                check(same, f"13c request {i}: card {_decision(got)} / "
+                            f"{got.model} {_route_headers(got)} != CPU "
+                            f"{_decision(want)} / {want.model} "
+                            f"{_route_headers(want)}")
+        finally:
+            cpu_router.shutdown()
+            cpu.shutdown()
+        print("models route cpu agreement " + json.dumps(agree), flush=True)
+
     route_ms = timed.ms["route"]
     out = {"rows": rows, "launches": launches,
            "k1_per_request": sum(r["k1"] for r in rows) / len(rows),
@@ -6621,6 +6764,7 @@ def models_route(modules3: dict, deb: dict, cfg_q, dec: dict,
            "cpu_agreement": agree, "card": smi}
     print("models route " + json.dumps({k: v for k, v in out.items()
                                         if k != "rows"}), flush=True)
+    DEFERRED.submit("13c: CPU replay", cpu_replay)
     return out
 
 
@@ -10060,8 +10204,6 @@ def phase_reload(modules3: dict, smi: str) -> dict:
     bad = [r for r in rows_all if r["status"] != 200]
     check(not bad, f"19: {len(bad)} of {len(rows_all)} requests failed: "
                    f"{bad[:3]}")
-    stamp("phase 19: the CPU port on every config")
-    out["verify"] = _rl_verify(rows_all, configs, modules3)
     out["requests"] = len(rows_all)
     out["launches"] = {"flash_attention": k1_dtype.get("float32", 0),
                        "flash_attention_bf16": k1_dtype.get("bfloat16", 0),
@@ -10069,8 +10211,736 @@ def phase_reload(modules3: dict, smi: str) -> dict:
                        "bgmv": launches["bgmv"]}
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 19: {out['seconds']:.1f} s, {len(rows_all)} requests, "
-          f"launches {out['launches']}, verify {out['verify']}, memory "
-          f"{out['memory']} | {smi}", flush=True)
+          f"launches {out['launches']}, memory {out['memory']} | {smi}",
+          flush=True)
+
+    def verify() -> None:
+        out["verify"] = _rl_verify(rows_all, configs, modules3)
+        print(f"19 the CPU port on every config: {out['verify']}",
+              flush=True)
+
+    DEFERRED.submit("19: the CPU port on every config", verify)
+    return out
+
+
+# -- phase 20: the Envoy ExtProc filter --------------------------------------
+
+EP_CONFIG = copy.deepcopy(ROUTER_CONFIG)
+# the degradation ladder stays off, as in phase 19: every answer must be
+# the config's own, reproducible on the CPU; skip-processing is on for
+# 20c's opted-out stream
+EP_CONFIG["resilience"] = {"enabled": False}
+EP_CONFIG["skip_processing"] = {"enabled": True}
+EP_CLIENTS = 8
+EP_ROUNDS = 4                 # 20a: phase 3's 8 prompts x 4
+N_EP_STREAMED = 16            # 20b: long bodies, streamed
+EP_WORDS = 2000               # a body's user text (cut to the 512 bucket)
+EP_METADATA = 30_000          # bytes of the signal-inert trailing field
+EP_CHUNKS = 8                 # chunks after the first (which ends after
+EP_GAP_S = 0.02               # ``messages``), this far apart
+EP_LATE_TOOLS = (1, 6, 11, 15)    # bodies whose ``tools`` completes late
+EP_TRACE = ("4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7")
+EP_TOL = RL_TOL["off"]        # a decision flip only within this of a tie
+
+
+def ep_streamed_bodies() -> list:
+    """20b's bodies: ~2000 seeded words a user message, then (four of
+    them) a ``tools`` array, then ~30 KB of inert ``metadata``."""
+    out = []
+    for i in range(N_EP_STREAMED):
+        body = {"model": "auto", "messages": [
+            {"role": "system", "content": "You are helpful."},
+            {"role": "user", "content": _words(EP_WORDS, 2000 + i)}]}
+        if i in EP_LATE_TOOLS:
+            body["tools"] = [{"type": "function", "function": {
+                "name": f"lookup_{i}", "description": _words(40, 3000 + i)}}]
+        body["metadata"] = {"trace": "d" * EP_METADATA, "i": i}
+        out.append(body)
+    return out
+
+
+def ep_chunks(body: dict) -> list:
+    """The body as Envoy streams it: the first chunk ends right after the
+    top-level ``messages``; the rest arrives in ``EP_CHUNKS`` pieces."""
+    raw = json.dumps(body).encode()
+    cut = raw.index(b'"tools"' if "tools" in body else b'"metadata"')
+    rest = raw[cut:]
+    step = -(-len(rest) // EP_CHUNKS)
+    return [raw[:cut]] + [rest[k:k + step]
+                          for k in range(0, len(rest), step)]
+
+
+def _ep_headers(pb, headers: dict):
+    base = {":method": "POST", ":path": "/v1/chat/completions",
+            ":authority": "router.local", "content-type": "application/json"}
+    base.update(headers or {})
+    return pb.HeaderMap(headers=[pb.HeaderValue(key=k, raw_value=v.encode())
+                                 for k, v in base.items()])
+
+
+def _ep_backend(url: str, body: dict) -> tuple:
+    """The body Envoy forwards, posted to the mock backend: (status,
+    content type, raw reply)."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    try:
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        return (resp.status, resp.getheader("content-type", ""),
+                resp.read())
+    finally:
+        conn.close()
+
+
+def ep_stream(pb, call, chunks: list, headers: dict = None,
+              gap: float = 0.0, backend: str = "") -> dict:
+    """One ExtProc stream as Envoy drives it: the request headers, the
+    body in ``chunks`` (``gap`` s apart), then, unless the filter answered
+    itself, the body it let through (mutated or not) to ``backend`` and
+    the reply back as response headers and a response body (an SSE reply
+    in two chunks).  Returns the responses, the final request-body answer
+    and the times (the last chunk's send, its answer, the stream's
+    start and end)."""
+    t: dict = {}
+    routed = threading.Event()
+    reply: dict = {}
+
+    def msgs():
+        yield pb.ProcessingRequest(request_headers=pb.HttpHeaders(
+            headers=_ep_headers(pb, headers)))
+        for k, chunk in enumerate(chunks):
+            if k and gap:
+                time.sleep(gap)
+            last = k == len(chunks) - 1
+            if last:
+                t["last_chunk"] = time.perf_counter()
+            yield pb.ProcessingRequest(request_body=pb.HttpBody(
+                body=chunk, end_of_stream=last))
+        routed.wait(600)
+        if "status" not in reply:
+            return
+        yield pb.ProcessingRequest(response_headers=pb.HttpHeaders(
+            headers=pb.HeaderMap(headers=[
+                pb.HeaderValue(key=":status",
+                               raw_value=str(reply["status"]).encode()),
+                pb.HeaderValue(key="content-type",
+                               raw_value=reply["ctype"].encode())])))
+        raw = reply["raw"]
+        parts = [raw[:len(raw) // 2], raw[len(raw) // 2:]] \
+            if "event-stream" in reply["ctype"] else [raw]
+        for k, part in enumerate(parts):
+            yield pb.ProcessingRequest(response_body=pb.HttpBody(
+                body=part, end_of_stream=k == len(parts) - 1))
+
+    out = {"responses": [], "final": None}
+    t["start"] = time.perf_counter()
+    try:
+        for r in call(msgs()):
+            out["responses"].append(r)
+            if len(out["responses"]) != 1 + len(chunks):
+                continue
+            t["answered"] = time.perf_counter()
+            out["final"] = r
+            which = r.WhichOneof("response")
+            if which == "request_body" and backend:
+                common = r.request_body.response
+                body = json.loads(common.body_mutation.body
+                                  if common.HasField("body_mutation")
+                                  else b"".join(chunks))
+                reply["status"], reply["ctype"], reply["raw"] = \
+                    _ep_backend(backend, body)
+            routed.set()
+    finally:
+        routed.set()
+    t["end"] = time.perf_counter()
+    out["t"] = t
+    return out
+
+
+def ep_answer(res: dict) -> dict:
+    """What a routed stream's final request-body answer says: whether it
+    mutated the body, the model it wrote, the decision and model headers;
+    or the ImmediateResponse's status, headers and body."""
+    r = res["final"]
+    which = r.WhichOneof("response") if r is not None else None
+    if which == "immediate_response":
+        imm = r.immediate_response
+        return {"which": which, "status": imm.status.code,
+                "headers": {o.header.key: o.header.raw_value.decode()
+                            for o in imm.headers.set_headers},
+                "body": json.loads(imm.body or "{}")}
+    if which != "request_body":
+        return {"which": which}
+    common = r.request_body.response
+    hdrs = {o.header.key: o.header.raw_value.decode()
+            for o in common.header_mutation.set_headers}
+    mutated = common.HasField("body_mutation")
+    return {"which": which, "mutated": mutated,
+            "clear_route_cache": common.clear_route_cache,
+            "model": json.loads(common.body_mutation.body)["model"]
+            if mutated else None,
+            "decision": hdrs.get("x-vsr-selected-decision"),
+            "header_model": hdrs.get("x-vsr-selected-model"),
+            "traceparent": hdrs.get("traceparent", "")}
+
+
+class _EPCounters:
+    """Signal evaluations a request text (the dispatcher's, inline in
+    route() or on a prefetch worker, by thread), the route() walls, the
+    filter's component events and the threads that captured a step."""
+
+    def __init__(self, router) -> None:
+        import logging
+
+        from semantic_router_tpu_torch.engine import graphs
+
+        self.router, self.graphs = router, graphs
+        self.lock = threading.Lock()
+        self.evals: list = []
+        self.routes: list = []
+        self.events: list = []
+        self.captures: list = []
+        self.prefetching = 0        # evaluate_signals calls running
+        self.idle = threading.Condition(self.lock)
+        disp_eval, route = router.dispatcher.evaluate, router.route
+        prefetch = router.evaluate_signals
+        capture = graphs.StepGraphs._capture
+        counters = self
+
+        def evaluate(ctx, *a, **kw):
+            with counters.lock:
+                counters.evals.append((ctx.user_text[:48],
+                                       threading.current_thread().name))
+            return disp_eval(ctx, *a, **kw)
+
+        def counted_prefetch(*a, **kw):
+            with counters.lock:
+                counters.prefetching += 1
+            try:
+                return prefetch(*a, **kw)
+            finally:
+                with counters.lock:
+                    counters.prefetching -= 1
+                    counters.idle.notify_all()
+
+        def timed_route(body, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return route(body, *a, **kw)
+            finally:
+                with counters.lock:
+                    counters.routes.append(time.perf_counter() - t0)
+
+        def captured(graphs_self, *a, **kw):
+            with counters.lock:
+                counters.captures.append(threading.current_thread().name)
+            return capture(graphs_self, *a, **kw)
+
+        class _Events(logging.Handler):
+            def emit(self, record):
+                try:
+                    row = json.loads(record.getMessage())
+                except ValueError:
+                    return
+                if row.get("component") == "extproc":
+                    with counters.lock:
+                        counters.events.append(row)
+
+        router.dispatcher.evaluate = evaluate
+        router.evaluate_signals = counted_prefetch
+        router.route = timed_route
+        graphs.StepGraphs._capture = captured
+        self._capture = capture
+        self._handler = _Events()
+        self._log = logging.getLogger("semantic_router_tpu_torch")
+        self._log.addHandler(self._handler)
+
+    def settle(self, timeout: float = 30.0) -> None:
+        """Wait for the prefetches still running: one a restart or the end
+        of its stream cancelled finishes its forward all the same."""
+        with self.lock:
+            check(self.idle.wait_for(lambda: self.prefetching == 0,
+                                     timeout),
+                  f"20: {self.prefetching} prefetches still running")
+
+    def mark(self) -> tuple:
+        with self.lock:
+            return (len(self.evals), len(self.routes), len(self.events))
+
+    def since(self, mark: tuple) -> tuple:
+        with self.lock:
+            return (self.evals[mark[0]:], self.routes[mark[1]:],
+                    self.events[mark[2]:])
+
+    def close(self) -> None:
+        self.graphs.StepGraphs._capture = self._capture
+        self._log.removeHandler(self._handler)
+
+
+def _ep_items(engine) -> int:
+    """Items the engine classified so far: each step's real rows (a
+    packed step's segments) plus the rows the fused bank folded into
+    another (the same text twice in one step)."""
+    return sum(s.get("segments") or s["rows"] for s in engine.steps()) \
+        + engine.fused_dedup_rows
+
+
+def _ep_check_evals(tag: str, evals: list, texts: dict, want: dict) -> dict:
+    """Evaluations a body (by its text's head) and where they ran: each
+    key of ``want`` maps to (prefetches allowed, inline allowed) bounds
+    as (lo, hi) pairs."""
+    got = {k: {"prefetch": 0, "inline": 0} for k in texts}
+    for head, thread in evals:
+        check(head in got, f"{tag}: an evaluation of an unknown text "
+                           f"{head!r} on {thread}")
+        side = "prefetch" if thread.startswith("extproc-prefetch") \
+            else "inline"
+        got[head][side] += 1
+    for head, (pre, inl) in want.items():
+        g = got[head]
+        check(pre[0] <= g["prefetch"] <= pre[1]
+              and inl[0] <= g["inline"] <= inl[1],
+              f"{tag} body {texts[head]}: {g['prefetch']} prefetch and "
+              f"{g['inline']} inline evaluations, want {pre} / {inl}")
+    return got
+
+
+def _ep_cpu_compare(cfg, modules3: dict, rows: list, out: dict) -> None:
+    """Every routed stream's decision and model against the CPU port
+    router's route of the same body (phase 3's weights on the CPU); a
+    difference only where the higher-priority rule sits within
+    ``EP_TOL`` of its boundary on the CPU."""
+    from semantic_router_tpu_torch.router import Router
+
+    cpu = quant_engine("cpu", cfg, modules3["cpu"], "off")
+    router = Router(cfg, engine=cpu)
+    bodies = {}
+    for r in rows:
+        bodies.setdefault(r["key"], r["body"])
+    try:
+        keys = list(bodies)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            want = dict(zip(keys, pool.map(
+                lambda k: router.route(copy.deepcopy(bodies[k])), keys)))
+        ties = {}
+        for r in rows:
+            w = want[r["key"]]
+            wd = _decision(w)
+            if (r["decision"], r["model"]) == (wd, w.model):
+                continue
+            text = bodies[r["key"]]["messages"][-1]["content"]
+            why = _rl_tie(cpu, cfg, text, r["decision"], wd, EP_TOL)
+            check(why != "", f"20 {r['tag']} {r['key']}: card "
+                             f"{r['decision']} / {r['model']}, CPU {wd} / "
+                             f"{w.model}")
+            ties[f"{r['key']}:{r['decision']}/{wd}:{why}"] = \
+                ties.get(f"{r['key']}:{r['decision']}/{wd}:{why}", 0) + 1
+    finally:
+        router.shutdown()
+        cpu.shutdown()
+    out["cpu_agreement"] = {"streams": len(rows), "bodies": len(bodies),
+                            "ties": ties}
+    print("20 the CPU port: " + json.dumps(out["cpu_agreement"]), flush=True)
+
+
+def phase_extproc(modules3: dict, modules5: dict, smi: str) -> dict:
+    """Phase 20: phase 3's bank (full width, seeded, the epilogue on)
+    behind the port's ExtProc filter over loopback gRPC
+    (``ExtProcServer`` with ``build_looper_executor``), the phase playing
+    Envoy and a ``MockVLLMServer`` the upstream.  20a: phase 3's 8
+    prompts x 4 from 8 client threads, buffered, each reply back through
+    the response phases (one SSE reply a client); then 20b's bodies sent
+    buffered.  20b: 16 bodies of ~2000 words with ~30 KB of inert
+    metadata, streamed (``messages`` complete in the first chunk, then 8
+    chunks 20 ms apart), four with a late ``tools`` field, from one
+    client a prefetch worker, then from 8.  20c: a traced
+    streamed request, a skip-processing one, and a looper decision of
+    phase 6's fixture router answered by an ImmediateResponse."""
+    import google.protobuf
+    import grpc
+
+    from semantic_router_tpu_torch.extproc import SERVICE_NAME, \
+        ExtProcServer, ExtProcService
+    from semantic_router_tpu_torch.extproc import \
+        external_processor_pb2 as pb
+    from semantic_router_tpu_torch.extproc.server import \
+        build_looper_executor, extproc_messages
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs
+
+    t0 = time.perf_counter()
+    cfg = load_config(EP_CONFIG)
+    out: dict = {"card": smi, "transport": "grpc (loopback)",
+                 "grpc": grpc.__version__,
+                 "protobuf": google.protobuf.__version__}
+    print(f"20: transport gRPC on loopback, grpc {grpc.__version__}, "
+          f"protobuf {google.protobuf.__version__}", flush=True)
+    registry = RuntimeRegistry.isolated()
+    engine = InferenceEngine(cfg.engine, device=DEVICE,
+                             metrics=registry.metric_series(),
+                             runtime_stats=registry.runtimestats,
+                             program_stats=registry.programstats)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in modules3["cuda"].items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    apply_packing_knobs(cfg, engine)
+    apply_kernel_knobs(cfg, engine)
+    engine.warmup()
+    backend = MockVLLMServer().start()
+    router = build_router(cfg, engine, registry=registry)
+    server = ExtProcServer(router, port=0, max_workers=32,
+                           looper_execute=build_looper_executor(
+                               cfg, backend.url)).start()
+    channel = grpc.insecure_channel(server.address)
+    call = channel.stream_stream(
+        f"/{SERVICE_NAME}/Process",
+        request_serializer=pb.ProcessingRequest.SerializeToString,
+        response_deserializer=pb.ProcessingResponse.FromString)
+    counters = _EPCounters(router)
+    prompt_bodies = [{"model": "auto", "messages": [
+        {"role": "system", "content": "You are helpful."},
+        {"role": "user", "content": p}]} for p in PROMPTS]
+    long_bodies = ep_streamed_bodies()
+    rows, launches = [], {}
+    fixture_router = fixture_engine_ = fixture_server = None
+    try:
+        # the items one evaluation of each text and one answer screen
+        # cost on this engine, measured one at a time
+        per_eval = {}
+        for body in prompt_bodies + long_bodies:
+            head = body["messages"][-1]["content"][:48]
+            if head not in per_eval:
+                n0 = _ep_items(engine)
+                router.evaluate_signals(copy.deepcopy(body))
+                per_eval[head] = _ep_items(engine) - n0
+        n0 = _ep_items(engine)
+        res0 = router.route(copy.deepcopy(prompt_bodies[0]))
+        router.process_response(res0, {"choices": [{"message": {
+            "role": "assistant", "content": "the answer"}}]})
+        per_screen = _ep_items(engine) - n0 \
+            - per_eval[prompt_bodies[0]["messages"][-1]["content"][:48]]
+        counters.evals.clear()
+        counters.routes.clear()
+
+        def record(tag: str, res: dict, body: dict, key: str) -> dict:
+            a = ep_answer(res)
+            check(a["which"] == "request_body" and a["mutated"]
+                  and a["clear_route_cache"],
+                  f"20 {tag} {key}: no routed body mutation: {a}")
+            check(a["model"] == a["header_model"],
+                  f"20 {tag} {key}: body model {a['model']} != header "
+                  f"{a['header_model']}")
+            row = {"tag": tag, "key": key, "body": body,
+                   "decision": a["decision"], "model": a["model"],
+                   "answer_s": res["t"]["answered"] - res["t"]["last_chunk"],
+                   "stream_s": res["t"]["end"] - res["t"]["start"],
+                   "responses": len(res["responses"])}
+            rows.append(row)
+            return row
+
+        # -- 20a: buffered, phase 3's prompts x 4 -------------------------
+        stamp("phase 20a: buffered")
+        _cuda.reset_launch_counts()
+        items0, mark = _ep_items(engine), counters.mark()
+        m0 = extproc_messages.total()
+
+        def client_a(c: int) -> list:
+            got = []
+            for r in range(EP_ROUNDS):
+                i = (c + r) % len(prompt_bodies)
+                body = dict(prompt_bodies[i], stream=True) if r == 0 \
+                    else prompt_bodies[i]
+                res = ep_stream(pb, call, [json.dumps(body).encode()],
+                                backend=backend.url)
+                got.append((record("20a", res, body, f"p{i}"), res, r))
+            return got
+
+        with ThreadPoolExecutor(max_workers=EP_CLIENTS) as pool:
+            runs_a = [x for xs in pool.map(client_a, range(EP_CLIENTS))
+                      for x in xs]
+        launches["20a"] = _cuda.launch_counts()
+        evals, route_s, _ev = counters.since(mark)
+        items_a = _ep_items(engine) - items0
+        for row, res, r in runs_a:
+            # headers, body, response headers, the reply (an SSE one in
+            # two chunks)
+            check(row["responses"] == 4 + (r == 0),
+                  f"20a {row['key']}: {row['responses']} responses")
+            rh = res["responses"][2]
+            check(rh.WhichOneof("response") == "response_headers"
+                  and (rh.mode_override.response_body_mode
+                       == pb.ProcessingMode.STREAMED) == (r == 0),
+                  f"20a {row['key']}: response headers {rh}")
+        texts = {b["messages"][-1]["content"][:48]: f"p{i}"
+                 for i, b in enumerate(prompt_bodies)}
+        n_per = collections.Counter(
+            prompt_bodies[(c + r) % 8]["messages"][-1]["content"][:48]
+            for c in range(EP_CLIENTS) for r in range(EP_ROUNDS))
+        _ep_check_evals("20a", evals, texts, {
+            h: ((0, 0), (n, n)) for h, n in n_per.items()})
+        want_items = sum(per_eval[h] * n for h, n in n_per.items()) \
+            + per_screen * len(runs_a)
+        check(items_a == want_items,
+              f"20a: the engine classified {items_a} items, one "
+              f"evaluation a stream and one answer screen make "
+              f"{want_items}")
+        check(launches["20a"]["flash_attention"] > 0
+              and launches["20a"]["head_epilogue"] > 0,
+              f"20a: launches {launches['20a']}")
+        out["20a"] = {"streams": len(runs_a), "items": items_a,
+                      "messages": extproc_messages.total() - m0,
+                      "answer_ms_p50": _pct([r[0]["answer_s"] * 1e3
+                                             for r in runs_a], 0.5),
+                      "answer_ms_p99": _pct([r[0]["answer_s"] * 1e3
+                                             for r in runs_a], 0.99),
+                      "route_ms_p50": _pct([s * 1e3 for s in route_s], 0.5),
+                      "route_ms_p99": _pct([s * 1e3 for s in route_s], 0.99),
+                      "launches": launches["20a"]}
+        print("20a buffered: " + json.dumps(out["20a"]) + f" | {smi}",
+              flush=True)
+
+        # -- 20b's bodies sent buffered ------------------------------------
+        stamp("phase 20a: long bodies buffered")
+        _cuda.reset_launch_counts()
+        mark = counters.mark()
+
+        def client_long(c: int, n_clients: int = 0) -> list:
+            """Client ``c``'s share of the long bodies: streamed when
+            ``n_clients`` (of that many clients) is given, else buffered
+            (of ``EP_CLIENTS``)."""
+            got = []
+            for i in range(c, N_EP_STREAMED, n_clients or EP_CLIENTS):
+                body = long_bodies[i]
+                chunks = ep_chunks(body) if n_clients \
+                    else [json.dumps(body).encode()]
+                res = ep_stream(pb, call, chunks,
+                                gap=EP_GAP_S if n_clients else 0.0,
+                                backend=backend.url)
+                got.append((record("20b" if n_clients else "20a-long", res,
+                                   body, f"s{i}"), res))
+            return got
+
+        with ThreadPoolExecutor(max_workers=EP_CLIENTS) as pool:
+            runs_l = [x for xs in pool.map(client_long, range(EP_CLIENTS))
+                      for x in xs]
+        launches["20a-long"] = _cuda.launch_counts()
+        _evals, route_l, _ev = counters.since(mark)
+        buffered_ms = [r[0]["answer_s"] * 1e3 for r in runs_l]
+        out["20a_long"] = {"streams": len(runs_l),
+                           "route_ms_p50": _pct(buffered_ms, 0.5),
+                           "route_ms_p99": _pct(buffered_ms, 0.99),
+                           "route_wall_ms_p50": _pct(
+                               [s * 1e3 for s in route_l], 0.5),
+                           "launches": launches["20a-long"]}
+        print("20a 20b's bodies buffered: " + json.dumps(out["20a_long"])
+              + f" | {smi}", flush=True)
+
+        # -- 20b: streamed ---------------------------------------------------
+        def streamed(tag: str, n_clients: int) -> dict:
+            """16 bodies streamed from ``n_clients`` threads: each
+            classified once (twice after a late ``tools`` restart), the
+            engine's items what those evaluations and the answer screens
+            cost, every prefetch started before the last chunk.  With
+            one client a prefetch worker, each body without a late field
+            reuses its prefetch; past that, a prefetch still queued at
+            the end of its stream is cancelled and route() evaluates
+            inline (the reference's cancel-first rule)."""
+            _cuda.reset_launch_counts()
+            items0, mark = _ep_items(engine), counters.mark()
+            with ThreadPoolExecutor(max_workers=n_clients) as pool:
+                runs = [x for xs in pool.map(
+                    lambda c: client_long(c, n_clients), range(n_clients))
+                    for x in xs]
+            counters.settle()
+            launches[tag] = _cuda.launch_counts()
+            evals, _routes, events = counters.since(mark)
+            items = _ep_items(engine) - items0
+            texts = {b["messages"][-1]["content"][:48]: f"s{i}"
+                     for i, b in enumerate(long_bodies)}
+            strict = n_clients <= ExtProcService.PREFETCH_WORKERS
+            got = _ep_check_evals(tag, evals, texts, {
+                b["messages"][-1]["content"][:48]:
+                    ((0, 2), (0, 1)) if i in EP_LATE_TOOLS
+                    else ((1, 1), (0, 0)) if strict else ((0, 1), (0, 1))
+                for i, b in enumerate(long_bodies)})
+            for i, b in enumerate(long_bodies):
+                g = got[b["messages"][-1]["content"][:48]]
+                n = g["prefetch"] + g["inline"]
+                check(n == 1 or (i in EP_LATE_TOOLS and n == 2),
+                      f"{tag} s{i}: classified {g}")
+            n_evals = {h: g["prefetch"] + g["inline"]
+                       for h, g in got.items()}
+            want_items = sum(per_eval[h] * n for h, n in n_evals.items()) \
+                + per_screen * len(runs)
+            check(items == want_items,
+                  f"{tag}: the engine classified {items} items; the "
+                  f"evaluations {n_evals} and the answer screens make "
+                  f"{want_items}")
+            early = [e for e in events
+                     if e["event"] == "streamed_early_detection"]
+            check(len(early) == N_EP_STREAMED
+                  and all(e["prefetch_started_at_chunk"] < e["chunks"]
+                          for e in early),
+                  f"{tag}: early detection {early}")
+            check(not [e for e in events if e["event"] == "route_error"],
+                  f"{tag}: route errors {events}")
+            check(launches[tag]["flash_attention"] > 0
+                  and launches[tag]["head_epilogue"] > 0,
+                  f"{tag}: launches {launches[tag]}")
+            tail_ms = [r[0]["answer_s"] * 1e3 for r in runs]
+            res = {"clients": n_clients, "streams": len(runs),
+                   "items": items,
+                   "reused": sum(1 for g in got.values()
+                                 if g["inline"] == 0),
+                   "late_tools_evaluations": {
+                       f"s{i}": got[long_bodies[i]["messages"][-1]
+                                    ["content"][:48]]
+                       for i in EP_LATE_TOOLS},
+                   "prefetch_chunk": sorted(
+                       e["prefetch_started_at_chunk"] for e in early),
+                   "eos_tail_ms_p50": _pct(tail_ms, 0.5),
+                   "eos_tail_ms_p99": _pct(tail_ms, 0.99),
+                   "stream_ms_p50": _pct([r[0]["stream_s"] * 1e3
+                                          for r in runs], 0.5),
+                   "launches": launches[tag]}
+            print(f"{tag} streamed: " + json.dumps(res) + f" | {smi}",
+                  flush=True)
+            return res
+
+        stamp("phase 20b: streamed, one client a prefetch worker")
+        out["20b"] = streamed("20b", ExtProcService.PREFETCH_WORKERS)
+        stamp("phase 20b: streamed, 8 clients")
+        out["20b_8"] = streamed("20b-8", EP_CLIENTS)
+
+        # -- 20c: traced, skip-processing, looper --------------------------
+        stamp("phase 20c: traced, skip-processing, looper")
+        _cuda.reset_launch_counts()
+        body = long_bodies[0]
+        tp = f"00-{EP_TRACE[0]}-{EP_TRACE[1]}-01"
+        res = ep_stream(pb, call, ep_chunks(body), {"traceparent": tp},
+                        gap=EP_GAP_S, backend=backend.url)
+        row = record("20c-traced", res, body, "s0")
+        spans = registry.tracer.trace(EP_TRACE[0])
+        roots = [s for s in spans if s.name == "router.route"]
+        pre = [s for s in spans if s.name == "signals.evaluate"
+               and s.attributes.get("prefetch")]
+        check(len(roots) == 1 and roots[0].parent_id == EP_TRACE[1]
+              and pre and all(s.parent_id == roots[0].span_id
+                              for s in pre),
+              f"20c: span tree {[(s.name, s.span_id, s.parent_id) for s in spans]}")
+        answer = ep_answer(res)
+        check(answer["traceparent"].split("-")[1:3]
+              == [EP_TRACE[0], roots[0].span_id],
+              f"20c: the backend's traceparent {answer['traceparent']}")
+        launches["20c-traced"] = _cuda.launch_counts()
+        _cuda.reset_launch_counts()
+        hits0 = backend.hits
+        skip = ep_stream(pb, call, ep_chunks(long_bodies[1]),
+                         {"x-vsr-skip-processing": "true"},
+                         backend=backend.url)
+        launches["20c-skip"] = _cuda.launch_counts()
+        check(all(r.WhichOneof("response") in ("request_headers",
+                                               "request_body",
+                                               "response_headers",
+                                               "response_body")
+                  and not getattr(r, r.WhichOneof("response"))
+                  .response.HasField("body_mutation")
+                  for r in skip["responses"])
+              and len(skip["responses"]) == 3 + len(ep_chunks(
+                  long_bodies[1])) and backend.hits == hits0 + 1,
+              f"20c skip-processing: {len(skip['responses'])} responses, "
+              f"backend hits {backend.hits - hits0}")
+        check(launches["20c-skip"]["flash_attention"] == 0
+              and launches["20c-skip"]["head_epilogue"] == 0,
+              f"20c skip-processing launched {launches['20c-skip']}")
+        # a looper decision of phase 6's fixture router
+        _cuda.reset_launch_counts()
+        fcfg = load_config(_fixture_dict())
+        fixture_engine_ = fixture_engine(
+            DEVICE, fcfg, modules3["cuda"]["intent"][1].model,
+            modules5["cuda"])
+        fixture_router = build_router(fcfg, fixture_engine_)
+        fixture_server = ExtProcServer(
+            fixture_router, port=0,
+            looper_execute=build_looper_executor(fcfg, backend.url)).start()
+        fchannel = grpc.insecure_channel(fixture_server.address)
+        fcall = fchannel.stream_stream(
+            f"/{SERVICE_NAME}/Process",
+            request_serializer=pb.ProcessingRequest.SerializeToString,
+            response_deserializer=pb.ProcessingResponse.FromString)
+        fbody, fheaders = FIXTURE_BODIES[4]
+        hits0 = backend.hits
+        try:
+            res = ep_stream(pb, fcall,
+                            [json.dumps(dict(fbody, model="auto")).encode()],
+                            fheaders, backend=backend.url)
+        finally:
+            fchannel.close()
+        launches["20c-looper"] = _cuda.launch_counts()
+        a = ep_answer(res)
+        looper = {d.name: str(d.algorithm.get("type"))
+                  for d in fcfg.decisions
+                  if str((d.algorithm or {}).get("type"))
+                  in LOOPER_ALGORITHMS}
+        check(a["which"] == "immediate_response" and a["status"] == 200
+              and a["headers"].get("x-vsr-looper-algorithm")
+              == looper.get(a["headers"].get("x-vsr-selected-decision"))
+              and a["body"]["choices"][0]["message"]["content"]
+              and backend.hits >= hits0 + 2,
+              f"20c looper: {a}, backend hits {backend.hits - hits0}")
+        out["20c"] = {"traced": {"spans": len(spans), "prefetch_spans":
+                                 len(pre), "decision": row["decision"]},
+                      "skip": {"responses": len(skip["responses"])},
+                      "looper": {"decision": a["headers"].get(
+                          "x-vsr-selected-decision"),
+                          "algorithm": a["headers"].get(
+                              "x-vsr-looper-algorithm"),
+                          "backend_calls": backend.hits - hits0},
+                      "launches": {k: launches[k] for k in
+                                   ("20c-traced", "20c-skip",
+                                    "20c-looper")}}
+        print("20c: " + json.dumps(out["20c"]) + f" | {smi}", flush=True)
+        check(not [c for c in counters.captures
+                   if c.startswith("extproc")],
+              f"20: a filter thread captured a step: {counters.captures}")
+        out["captures_by_thread"] = dict(collections.Counter(
+            c.split("_")[0] for c in counters.captures))
+    finally:
+        counters.close()
+        channel.close()
+        server.stop()
+        if fixture_server is not None:
+            fixture_server.stop()
+        if fixture_router is not None:
+            fixture_router.shutdown()
+        if fixture_engine_ is not None:
+            fixture_engine_.shutdown()
+        router.shutdown()
+        engine.shutdown()
+        backend.stop()
+        for slot in ("runtimestats", "slo", "resilience"):
+            registry.get(slot).stop()
+    out["launches"] = {k: sum(v.get(k, 0) for v in launches.values())
+                       for k in ("flash_attention", "head_epilogue", "bgmv")}
+    out["launches_by_subphase"] = launches
+    out["grpc_ms_per_stream_p50"] = (out["20a"]["answer_ms_p50"]
+                                     - out["20a"]["route_ms_p50"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {out['seconds']:.1f} s, {len(rows)} routed streams, "
+          f"launches {out['launches']}, EOS tail p50 / p99 "
+          f"{out['20b']['eos_tail_ms_p50']:.2f} / "
+          f"{out['20b']['eos_tail_ms_p99']:.2f} ms against the buffered "
+          f"route {out['20a_long']['route_ms_p50']:.2f} / "
+          f"{out['20a_long']['route_ms_p99']:.2f} ms; gRPC and filter "
+          f"{out['grpc_ms_per_stream_p50']:.2f} ms a stream | {smi}",
+          flush=True)
+    DEFERRED.submit("20: the CPU port", lambda: _ep_cpu_compare(
+        cfg, modules3, rows, out))
     return out
 
 
@@ -10088,6 +10958,7 @@ CUDA_TESTS = {
     "test_torch_dual_path_cuda.py": 2,
     "test_torch_packing_cuda.py": 4,
     "test_torch_config_cuda.py": 1,
+    "test_torch_extproc_cuda.py": 1,
 }
 
 
@@ -10153,6 +11024,8 @@ def main(argv=None) -> int:
                     help="write every phase's rows to FILE as JSON")
     args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    global DEFERRED
+    DEFERRED = Deferred()
     stamp("phase 1: device")
     dev = phase_device()
     stamp("phase 2: kernels")
@@ -10215,9 +11088,19 @@ def main(argv=None) -> int:
     stamp("phase 18: packing")
     pk = report["packing"] = phase_packing(dev["smi"])
     stamp("phase 19: config reload")
+    # phases 19 and 20 time host-bound serving (reloads under clients,
+    # the filter's streams): no CPU-port check runs beside them
+    report["quiet_wait_s"] = DEFERRED.quiet()
+    print(f"deferred checks held through phases 19 and 20 (waited "
+          f"{report['quiet_wait_s']:.1f} s for the running one)", flush=True)
     rl = report["reload"] = phase_reload(modules3, dev["smi"])
+    stamp("phase 20: extproc")
+    ep = report["extproc"] = phase_extproc(modules3, modules5, dev["smi"])
+    DEFERRED.release()
     stamp("cuda tests")
     report["cuda_tests"] = run_cuda_tests()
+    stamp("deferred CPU-port checks")
+    report["deferred"] = DEFERRED.drain()
     stamp("phases done")
     print(f"card: {dev['smi']}", flush=True)
     save()
@@ -10251,8 +11134,9 @@ def main(argv=None) -> int:
             # observe, gates, chat, models, multimodal, state plane,
             # retrieval and dual path (traditional side) banks, the
             # packing phase's packed and unpacked steps, under every
-            # quant mode and in phase 19's reloads (K1's float32
-            # launches there; its bf16 ones count in the bf16 row)
+            # quant mode, in phase 19's reloads (K1's float32
+            # launches there; its bf16 ones count in the bf16 row) and
+            # behind phase 20's ExtProc filter
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -10261,6 +11145,7 @@ def main(argv=None) -> int:
             + mm["launches"][kname] + sp["launches"][kname]
             + rt["launches"][kname] + dp["launches"][kname]
             + pk["launches"][kname] + rl["launches"][kname]
+            + ep["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -6,7 +6,10 @@ OpenAI-compatible backend (on the GPU unless ``--device cpu``), hot
 reloading the config file unless ``--no-watch``; ``validate --config``
 checks a config file (rc 0 or 1, a JSON line); ``migrate-config --config
 [--out FILE] [--check]`` lays a flat config out in the canonical v0.3
-contract."""
+contract; ``serve-extproc --config router.yaml [--port 50051] [--backend
+URL] [--device cpu]`` serves the Envoy ExtProc gRPC filter (its address on
+stderr as ``extproc listening on <addr>``); ``compose --config router.yaml
+--out-dir DIR`` renders the router + Envoy docker-compose deployment."""
 
 from __future__ import annotations
 
@@ -43,6 +46,21 @@ def main(argv=None) -> int:
     m.add_argument("--check", action="store_true",
                    help="verify the migrated config loads to the same "
                         "routing")
+    e = sub.add_parser("serve-extproc",
+                       help="serve the Envoy ExtProc gRPC filter")
+    e.add_argument("--config", required=True)
+    e.add_argument("--port", type=int, default=50051)
+    e.add_argument("--backend", default="",
+                   help="default backend base URL of looper decisions")
+    e.add_argument("--device", default=None,
+                   help="torch device for the classifiers (default: cuda)")
+    c = sub.add_parser("compose",
+                       help="render the router + Envoy docker-compose "
+                            "deployment")
+    c.add_argument("--config", required=True)
+    c.add_argument("--out-dir", required=True)
+    c.add_argument("--envoy-image", default="envoyproxy/envoy:v1.31-latest")
+    c.add_argument("--router-image", default="semantic-router-tpu:latest")
     args = p.parse_args(argv)
 
     if args.cmd == "validate":
@@ -92,13 +110,71 @@ def main(argv=None) -> int:
                               "was_canonical": is_canonical(cfg.raw or {})}))
         return 0
 
+    if args.cmd == "compose":
+        from .runtime.compose import render_compose
+
+        paths = render_compose(args.config, args.out_dir,
+                               envoy_image=args.envoy_image,
+                               router_image=args.router_image)
+        print(json.dumps({"rendered": sorted(paths)}))
+        return 0
+
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    if args.cmd == "serve-extproc":
+        return serve_extproc(args.config, args.port, args.backend,
+                             args.device)
     from .runtime.bootstrap import serve
 
     serve(args.config, args.backend, host=args.host, port=args.port,
           device=args.device, status_path=args.status_file or None,
           watch_config=not args.no_watch)
+    return 0
+
+
+def serve_extproc(config: str, port: int, backend: str, device) -> int:
+    """Build the engine (on ``device``, ``cuda`` when None) and the router
+    as ``serve`` does, and serve them behind the ExtProc filter, looper
+    decisions answered against ``backend``, until interrupted."""
+    import time
+
+    from .config import load_config
+    from .extproc import ExtProcServer
+    from .extproc.server import build_looper_executor
+    from .runtime.bootstrap import apply_observability_knobs, \
+        build_engine, build_router, close_ann, close_stateplane, \
+        warm_engine
+    from .runtime.registry import RuntimeRegistry
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = load_config(config)
+    registry = RuntimeRegistry.with_defaults()
+    apply_observability_knobs(cfg, registry)
+    engine = build_engine(cfg, device=dev, registry=registry)
+    if engine is not None:
+        warm_engine(engine, registry)
+    router = build_router(cfg, engine, registry=registry)
+    server = ExtProcServer(
+        router, port=port,
+        looper_execute=build_looper_executor(cfg, backend)).start()
+    print(f"extproc listening on {server.address}", file=sys.stderr,
+          flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        router.shutdown()
+        if engine is not None:
+            engine.shutdown()
+        registry.runtimestats.stop()
+        registry.slo.stop()
+        registry.resilience.stop()
+        close_ann(registry)
+        close_stateplane(registry)
     return 0
 
 

@@ -41,13 +41,21 @@ class InflightTracker:
 
     def count(self, model: str) -> int:
         with self._lock:
-            entries = self._entries.get(model)
-            if not entries:
-                return 0
-            cutoff = time.monotonic() - self.max_age_s
-            for t in [t for t, ts in entries.items() if ts < cutoff]:
-                del entries[t]
-            return len(entries)
+            return self._count_locked(model)
+
+    def total(self) -> int:
+        """Requests in flight over every model."""
+        with self._lock:
+            return sum(self._count_locked(m) for m in list(self._entries))
+
+    def _count_locked(self, model: str) -> int:
+        entries = self._entries.get(model)
+        if not entries:
+            return 0
+        cutoff = time.monotonic() - self.max_age_s
+        for t in [t for t, ts in entries.items() if ts < cutoff]:
+            del entries[t]
+        return len(entries)
 
 
 # process-global tracker: selectors read it without a handle threaded

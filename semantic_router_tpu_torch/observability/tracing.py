@@ -123,6 +123,21 @@ class Span:
         return (self.end_pc or time.perf_counter()) - self.start_pc
 
 
+@dataclass
+class PendingTrace:
+    """A trace begun before its root span exists: the streamed-prefetch
+    seam.  The ExtProc filter's early signal evaluation runs while the
+    request body is still arriving, before ``route()`` opens
+    ``router.route``; (trace_id, root_span_id) minted when the prefetch
+    is enqueued let its spans parent under the root span the request
+    will have, because ``route()`` later adopts both ids."""
+
+    tracer: "Tracer"
+    trace_id: str
+    root_span_id: str
+    parent_id: str = ""  # the caller's traceparent member, if any
+
+
 class Tracer:
     def __init__(self, capacity: int = 2048,
                  sample_rate: float = 0.1,

@@ -73,7 +73,8 @@ from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
 from ..observability import metrics as M
 from ..observability.explain import default_decision_explainer
 from ..observability.flightrec import default_flight_recorder
-from ..observability.tracing import default_tracer
+from ..observability.tracing import PendingTrace, default_tracer, \
+    new_span_id
 from ..resilience.controller import default_degradation_controller
 from ..resilience.priority import PriorityResolver
 from ..selection import Feedback, SelectionContext, registry as selectors
@@ -334,23 +335,85 @@ class Router:
     def _embed(self, texts: List[str]) -> np.ndarray:
         return self.engine.embed(EMBEDDING_TASK, texts)
 
+    def begin_pending_trace(self, headers: Optional[Dict[str, str]] = None
+                            ) -> PendingTrace:
+        """Mint the (trace_id, root_span_id) a later ``route()`` call will
+        adopt: the streamed-prefetch trace seam.  A prefetch enqueued with
+        it parents its spans under the root span the request will get."""
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        trace_id, parent = self.tracer.extract(headers)
+        return PendingTrace(self.tracer, trace_id, new_span_id(), parent)
+
+    def evaluate_signals(self, body: Dict[str, Any],
+                         headers: Optional[Dict[str, str]] = None,
+                         pending: Optional[PendingTrace] = None) -> tuple:
+        """(signals, report) exactly as ``route()`` evaluates them (the
+        same compression, skip view and recipe): the overlap seam of a
+        streamed body, whose complete ``messages`` array can start
+        classification while the rest arrives.  The degradation ladder's
+        brownout gates it too; ``report.compressed_view`` records the
+        compression decision for ``route()`` to keep.  ``pending``
+        (``begin_pending_trace``) parents the evaluation's spans under the
+        request's future ``router.route`` span."""
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        ctx = RequestContext.from_openai_body(body, headers)
+        compress = self._compress_allowed()
+        skip = self._prepare_signal_view(ctx, headers, compress=compress)
+        dispatcher, _, _ = self._engines_for_model(ctx.model)
+        # a browned-out priority class must not spend fused-bank capacity
+        # on an early evaluation the inline path would skip (read only:
+        # shedding and admission stay in route(), which answers)
+        if self.resilience is not None and self.resilience.level() > 0:
+            try:
+                if self.resilience.browned_out(self.priority.resolve(ctx)):
+                    skip = skip + self._learned_families(
+                        dispatcher,
+                        getattr(self.resilience, "brownout_keep", ()))
+            except Exception:
+                pass
+        if pending is None:
+            signals, report = dispatcher.evaluate(ctx, skip_signals=skip)
+        else:
+            with self.tracer.span("signals.evaluate",
+                                  trace_id=pending.trace_id,
+                                  parent_id=pending.root_span_id,
+                                  prefetch=True):
+                signals, report = dispatcher.evaluate(ctx,
+                                                      skip_signals=skip)
+        report.compressed_view = compress
+        return signals, report
+
     def route(self, body: Dict[str, Any],
-              headers: Optional[Dict[str, str]] = None) -> RouteResult:
+              headers: Optional[Dict[str, str]] = None,
+              precomputed_signals: Optional[tuple] = None,
+              pending_trace: Optional[PendingTrace] = None) -> RouteResult:
+        """Route one chat request.  ``precomputed_signals`` is the
+        (signals, report) of ``evaluate_signals`` on the same body (a
+        streamed prefetch); ``pending_trace`` the trace it was evaluated
+        under, whose root span id ``router.route`` adopts."""
         start = time.perf_counter()
         headers = {k.lower(): v for k, v in (headers or {}).items()}
         request_id = headers.get(H.REQUEST_ID, uuid.uuid4().hex[:16])
         # ONE root span per request, continuing the caller's traceparent:
         # the signal fan-out and the batcher's batch.wait / batch.ride
         # spans all hang off this trace
-        trace_id, parent_span = self.tracer.extract(headers)
+        if pending_trace is not None:
+            trace_id, parent_span = pending_trace.trace_id, \
+                pending_trace.parent_id
+        else:
+            trace_id, parent_span = self.tracer.extract(headers)
         # the decision-record sampling gate runs once, here; every capture
         # downstream is a no-op when rec is None
         rec = self.explain.begin(trace_id, request_id)
         with self.tracer.span("router.route", trace_id=trace_id,
                               parent_id=parent_span,
                               request_id=request_id) as root:
+            if pending_trace is not None:
+                # before any child span opens: children read the parent
+                # id when they are created
+                root.span_id = pending_trace.root_span_id
             result = self._route_impl(body, headers, request_id, trace_id,
-                                      start, rec)
+                                      start, rec, precomputed_signals)
             result.trace_id = trace_id
             result.root_span_id = root.span_id
             root.set(kind=result.kind, model=result.model)
@@ -406,7 +469,7 @@ class Router:
 
     def _route_impl(self, body: Dict[str, Any], headers: Dict[str, str],
                     request_id: str, trace_id: str, start: float,
-                    rec) -> RouteResult:
+                    rec, precomputed_signals=None) -> RouteResult:
         ctx = RequestContext.from_openai_body(body, headers)
         # the rate limit runs before any client-controlled skip, so a
         # bypass header cannot evade it
@@ -453,25 +516,43 @@ class Router:
         if disp is not None and disp.fail_static:
             return self._fail_static(body, ctx, request_id, trace_id,
                                      start, disp, rec)
-        skip = self._prepare_signal_view(ctx, headers,
-                                         compress=self._compress_allowed())
-        browned = disp is not None and not disp.use_learned
+        # compression and the skip view are evaluate_signals()'s too; a
+        # prefetched view keeps its recorded compression decision, so a
+        # ladder move between the prefetch and here cannot make
+        # ctx.user_text (which the cache, selection and memory read)
+        # differ from the text its signals saw
+        compress = self._compress_allowed()
+        if precomputed_signals is not None:
+            recorded = getattr(precomputed_signals[1], "compressed_view",
+                               None)
+            if recorded is not None:
+                compress = recorded
+        skip = self._prepare_signal_view(ctx, headers, compress=compress)
+        browned = (disp is not None and not disp.use_learned
+                   and precomputed_signals is None)
         if browned and self.cascade is None:
             # L2 brownout: this class routes without the engine-backed
             # families, except the safety floor (disp.keep_families);
             # with the cascade attached the same level truncates the
-            # cascade instead
+            # cascade instead.  A streamed prefetch already paid the
+            # forward: it is kept
             skip = skip + self._learned_families(dispatcher,
                                                  disp.keep_families)
-        with self.tracer.span("signals.evaluate", request_id=request_id):
-            if self.cascade is not None:
-                signals, report = self.cascade.evaluate(
-                    ctx, dispatcher, decision_engine,
-                    signals_cfg=self._signals_cfg_for(dispatcher),
-                    brownout=browned, skip_signals=skip)
-            else:
-                signals, report = dispatcher.evaluate(ctx,
-                                                      skip_signals=skip)
+        if precomputed_signals is not None:
+            # evaluated while the body was still arriving, on the same
+            # text, skip view and recipe
+            signals, report = precomputed_signals
+        else:
+            with self.tracer.span("signals.evaluate",
+                                  request_id=request_id):
+                if self.cascade is not None:
+                    signals, report = self.cascade.evaluate(
+                        ctx, dispatcher, decision_engine,
+                        signals_cfg=self._signals_cfg_for(dispatcher),
+                        brownout=browned, skip_signals=skip)
+                else:
+                    signals, report = dispatcher.evaluate(
+                        ctx, skip_signals=skip)
         for family, res in report.results.items():
             # trace-id exemplar: a slow signal-latency bucket links to a
             # trace that landed there (no-op unless exemplars are on)
@@ -983,8 +1064,7 @@ class Router:
             report=result.report, model=model,
             response_body=_immediate_chat_completion(hit.response,
                                                      model=model),
-            headers={H.CACHE_HIT: "true", H.DECISION: decision.name,
-                     H.REQUEST_ID: result.request_id})
+            headers={H.CACHE_HIT: "true", H.DECISION: decision.name})
 
     # -- response path -------------------------------------------------------
 

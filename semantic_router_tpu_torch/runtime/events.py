@@ -4,8 +4,9 @@ The port's copy of ``semantic_router_tpu.runtime.events``.  Components
 emit typed lifecycle events (engine ready or failed, SLO alert
 transitions, degradation-ladder moves, upstream circuit transitions,
 config reloads),
-subscribers react (the degradation controller, the SLO-burn capture), and
-a bounded ring keeps recent history (``recent``).
+subscribers react (the degradation controller, the SLO-burn capture), a
+bounded ring keeps recent history (``recent``), and ``wait_for`` blocks
+until a stage is seen.
 
 Emission never hurts the emitter: subscriber exceptions are swallowed and
 logged; the bus is lock-protected and the ring bounded.
@@ -17,7 +18,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 # engine lifecycle (runtime/bootstrap.py warm_engine)
 ENGINE_READY = "engine_ready"
@@ -94,6 +95,31 @@ class EventBus:
         if stage:
             evs = [e for e in evs if e.stage == stage]
         return evs[-limit:][::-1]
+
+    def wait_for(self, stage: str, timeout: float = 10.0
+                 ) -> Optional[RuntimeEvent]:
+        """The latest event of ``stage`` already in the ring, else the
+        first one emitted within ``timeout`` seconds, else None: the
+        startup-sequencing primitive."""
+        got: List[RuntimeEvent] = []
+        cond = threading.Event()
+
+        def on(ev: RuntimeEvent) -> None:
+            if ev.stage == stage:
+                got.append(ev)
+                cond.set()
+
+        unsub = self.subscribe(on)
+        try:
+            with self._lock:
+                for ev in reversed(self._ring):
+                    if ev.stage == stage:
+                        return ev
+            if cond.wait(timeout):
+                return got[0]
+            return None
+        finally:
+            unsub()
 
 
 # the process-default bus; registries built ``isolated()`` get their own

@@ -40,6 +40,11 @@ class DispatchReport:
     results: Dict[str, SignalResult] = field(default_factory=dict)
     wall_s: float = 0.0
     projection_trace: Optional[ProjectionTrace] = None
+    # set by Router.evaluate_signals: whether the evaluated view was
+    # prompt-compressed; route() keeps a prefetch's decision, so a ladder
+    # move between the prefetch and the route cannot make ctx.user_text
+    # differ from the text the signals saw.  None = not recorded
+    compressed_view: Optional[bool] = None
     # the cascade's skip certificate (engine/cascade): the waves, the
     # forwards never submitted or cancelled and why; None = full fan-out
     cascade: Optional[dict] = None

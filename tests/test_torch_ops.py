@@ -473,13 +473,15 @@ def _port_sources():
 def test_port_sources_cover_every_package():
     """The scan below reaches every package of the port, the state
     plane's, the RESP family's, the retrieval plane's, the dual-path
-    engine's, the packing scheduler's and config management's (the
+    engine's, the packing scheduler's, config management's (the
     validator, versions, canonical export, the routing DSL, the
-    dashboard's session tokens) included."""
+    dashboard's session tokens) and the ExtProc filter's (its generated
+    protobuf module, the streamed handler, the compose renderer)
+    included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
                 "resilience", "ops", "ann", "vectorstore", "memory",
-                "packing", "config", "dsl", "dashboard"):
+                "packing", "config", "dsl", "dashboard", "extproc"):
         assert pkg in scanned, pkg
     port = REPO / "semantic_router_tpu_torch"
     for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
@@ -495,7 +497,10 @@ def test_port_sources_cover_every_package():
                 "config/versions.py", "config/canonical.py",
                 "config/loader.py", "dsl/__init__.py", "dsl/parser.py",
                 "dsl/compiler.py", "dashboard/__init__.py",
-                "dashboard/auth.py"):
+                "dashboard/auth.py", "extproc/__init__.py",
+                "extproc/server.py", "extproc/streamed.py",
+                "extproc/external_processor_pb2.py", "runtime/compose.py",
+                "runtime/events.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -555,7 +560,11 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.config.canonical',\n"
         "        'semantic_router_tpu_torch.dsl.parser',\n"
         "        'semantic_router_tpu_torch.dsl.compiler',\n"
-        "        'semantic_router_tpu_torch.dashboard.auth'} \\\n"
+        "        'semantic_router_tpu_torch.dashboard.auth',\n"
+        "        'semantic_router_tpu_torch.extproc.server',\n"
+        "        'semantic_router_tpu_torch.extproc.streamed',\n"
+        "        'semantic_router_tpu_torch.extproc.external_processor_pb2',\n"
+        "        'semantic_router_tpu_torch.runtime.compose'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"
