@@ -423,8 +423,28 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    body's answer) p50 / p99 beside the buffered route time, K1 and K2
    launches by sub-phase, the transport and the grpc / protobuf
    versions.
+21. record — phase 3's bank and phase 5's embedding model (the semantic
+   cache's; its plugin's threshold above any cosine, so every answer is
+   written and none read) behind the port's ``RouterServer`` and a mock backend; the config has
+   no ``router_replay`` block (router replay is on by default) and an
+   ``otlp_endpoint`` naming a loopback collector.  21a: 32 distinct chat
+   requests from 4 clients; the replay store holds 32 records matching
+   the answers' headers; each record's ``POST /debug/decisions/{id}/
+   replay`` answers unchanged under the live config, and under a
+   candidate without the decision recorded most changes exactly its
+   records, as the CPU port's replay of its own records does.  21c: the dashboard's ``accuracy_eval`` (16
+   labelled cases) and ``selection_benchmark`` (knn and mlp artifacts
+   from the mock backend's answers) jobs; knn and mlp artifacts trained
+   on the card's embeddings of that corpus route 16 queries on the card
+   as the CPU port does, near ties reported.  21d: ``/dashboard/api/
+   embedmap?source=cache`` equals ``build_map`` of the vectors the card
+   embedded in 21a; the page and its assets answer with the bundled
+   bytes.  21e: 8 playground requests give route()'s decision and reach
+   no backend.  21b, after ``stop()``: the collector holds every span the
+   tracer finished once and every decision record.  K1 / K2 launches by
+   part.
 
-The CPU-port reference checks of phases 12, 13c, 19 and 20 run on one
+The CPU-port reference checks of phases 12, 13c, 19, 20 and 21 run on one
 background thread (``Deferred``) while the card's phases go on (none
 starts during phases 19 and 20, whose timings are host-bound); the run
 waits for them after the cuda tests, prints each one's seconds and how
@@ -433,9 +453,9 @@ long it waited, and fails on the first that failed.
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
 13, 14, 15, 16, 17, 18 (none there: its trunk is dense), 19 (float32;
-its bf16 ones in the bf16 row) and 20; K2's count phase 18's packed and
-unpacked steps and phases 19's and 20's too, K3's phase 4's, 18b's and
-19's),
+its bf16 ones in the bf16 row), 20 and 21; K2's count phase 18's packed
+and unpacked steps and phases 19's, 20's and 21's too, K3's phase 4's,
+18b's and 19's),
 ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
 phase's rows to FILE; ``--parent-csrc DIR`` times K1, K2 and K3 built
@@ -9739,7 +9759,7 @@ def _rl_steps() -> list:
         {"type": "jailbreak", "name": "ghost_signal"}]
     steps.append(("invalid", ghost, False, False))
     steps.append(("refused", dict(copy.deepcopy(cur),
-                                  router_replay={"enabled": True}),
+                                  learning={"enabled": True}),
                   False, False))
     steps.append(("back", copy.deepcopy(RL_BASE), True, True))
     return steps
@@ -10944,6 +10964,590 @@ def phase_extproc(modules3: dict, modules5: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 21: the decision record, trained selectors and the dashboard ------
+
+RP_MODELS = ("qwen3-8b", "qwen3-32b", "med-model")
+RP_CONFIG = copy.deepcopy(ROUTER_CONFIG)
+# no router_replay block: router replay is on by default.  The ladder is
+# off: under load it would sample decision records away.  The cache
+# plugin's threshold is above any cosine: every answer is written to the
+# cache (the embedding map's population), no request is answered from it
+# (each is routed, forwarded and recorded).
+RP_CONFIG["resilience"] = {"enabled": False}
+RP_CONFIG["semantic_cache"] = {"enabled": True, "backend_type": "memory",
+                               "embedding_model": EMBED_TASK}
+for _dec in RP_CONFIG["routing"]["decisions"][2:]:
+    _dec["plugins"] = [{"type": "semantic-cache",
+                        "configuration": {"similarity_threshold": 1.5}}]
+RP_CLIENTS = 4
+N_RP = 32                      # 21a: 8 distinct texts a client
+RP_TEXTS = [f"{PROMPTS[k % len(PROMPTS)]} Ticket {k}." for k in range(N_RP)]
+# 21c: 16 labelled cases (the decision each prompt is written for)
+RP_LABELS = {0: "business_route", 1: "default_route", 2: "health_route",
+             3: "default_route", 4: "jailbreak_block", 5: "pii_route",
+             6: "cs_route", 7: "cs_route"}
+RP_CASES = [{"query": f"{PROMPTS[i % 8]} Case {i}.",
+             "expected_decision": RP_LABELS[i % 8]} for i in range(16)]
+RP_QUERIES = [f"{PROMPTS[i % 8]} Question {i}." for i in range(16)]
+RP_PLAY = [f"{PROMPTS[i]} Playground." for i in range(8)]
+RP_TOL = 1e-4
+
+
+def rp_answer(body: dict) -> str:
+    """The mock backend's answer: one candidate a query (by a crc32 of its
+    text) echoes it, the others do not, so the benchmark's best model of
+    a query owes nothing to latency."""
+    import zlib
+
+    text = body["messages"][-1]["content"]
+    if body.get("model") == RP_MODELS[zlib.crc32(text.encode()) % 3]:
+        return text
+    return "zzz"
+
+
+class _Collector:
+    """A loopback OTLP/HTTP collector: what arrived on ``/v1/traces`` and
+    ``/v1/logs``."""
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.posts: list = []
+        self.lock = threading.Lock()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(
+                    int(self.headers.get("content-length", 0)))
+                with outer.lock:
+                    outer.posts.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.send_header("content-length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True, name="otlp-collector")
+        self.thread.start()
+
+    def spans(self) -> list:
+        with self.lock:
+            return [s for path, p in self.posts if path == "/v1/traces"
+                    for rs in p["resourceSpans"]
+                    for ss in rs["scopeSpans"] for s in ss["spans"]]
+
+    def logs(self) -> list:
+        with self.lock:
+            return [r for path, p in self.posts if path == "/v1/logs"
+                    for rl in p["resourceLogs"]
+                    for sl in rl["scopeLogs"] for r in sl["logRecords"]]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(30)
+
+
+def _rp_call(url: str, method: str, path: str, body=None) -> tuple:
+    """(status, content type, parsed JSON or raw bytes)."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        ctype = resp.getheader("content-type", "")
+        return (resp.status, ctype, json.loads(data)
+                if ctype.startswith("application/json") else data)
+    finally:
+        conn.close()
+
+
+def _rp_body(text: str) -> dict:
+    return {"model": "auto", "messages": [{"role": "user", "content": text}]}
+
+
+def _rp_without(cfg_dict: dict, name: str) -> dict:
+    d = copy.deepcopy(cfg_dict)
+    d["routing"]["decisions"] = [x for x in d["routing"]["decisions"]
+                                 if x["name"] != name]
+    return d
+
+
+def _rp_artifact_config(path: str, algo: str) -> dict:
+    """Phase 3's signals with one decision, on any domain, selecting among
+    ``RP_MODELS`` by the trained artifact at ``path``."""
+    d = copy.deepcopy(ROUTER_CONFIG)
+    d["resilience"] = {"enabled": False}
+    d["routing"]["decisions"] = [{
+        "name": f"trained_{algo}", "priority": 10,
+        "rules": {"operator": "OR", "conditions": [
+            {"type": "domain", "name": n} for n in DOMAINS]},
+        "modelRefs": [{"model": m} for m in RP_MODELS],
+        "algorithm": {"type": algo, "artifact": path}}]
+    return d
+
+
+def _rp_picks(router, queries: list) -> list:
+    out = []
+    for q in queries:
+        res = router.route(_rp_body(q))
+        out.append({"decision": _decision(res), "model": res.model,
+                    "category": next(iter(res.signals.matches.get(
+                        "domain", ())), "") if res.signals else ""})
+    return out
+
+
+def _rp_cpu_compare(cfg_dict: dict, modules3: dict, modules5: dict,
+                    card: dict, out: dict) -> None:
+    """The card's records, counterfactuals, accuracy job and artifact
+    picks against the CPU port's, on phase 3's and phase 5's weights on
+    the CPU; a difference only where the card's decision sits within
+    ``RP_TOL`` of a boundary on the CPU (``_rl_tie``), or, for an
+    artifact pick, where the CPU's selector given the card's embedding
+    picks the card's model (a near tie within the card-versus-CPU
+    embedding difference)."""
+    from semantic_router_tpu_torch.replay import replay_decision, \
+        replay_diff
+    from semantic_router_tpu_torch.router import Router
+    from semantic_router_tpu_torch.selection import SelectionContext
+
+    plain = copy.deepcopy(cfg_dict)
+    plain.pop("semantic_cache")
+    plain["observability"] = {}
+    cfg = load_config(plain)
+    cand = load_config(_rp_without(plain, card["drop"]))
+    cpu = quant_engine("cpu", cfg, modules3["cpu"], "off")
+    cpu.register_task(EMBED_TASK, "embedding", modules5["cpu"],
+                      HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"]),
+                      [], max_seq_len=512)
+    reg = RuntimeRegistry.isolated()
+    router = build_router(cfg, cpu, registry=reg)
+    routers = [router]
+    ties: dict = {}
+
+    def tie(tag, text, got, want):
+        why = _rl_tie(cpu, cfg, text, got, want, RP_TOL)
+        check(why != "", f"21 {tag}: card {got}, CPU {want} on {text[:40]!r}")
+        ties[f"{tag}:{why}"] = ties.get(f"{tag}:{why}", 0) + 1
+
+    try:
+        # 21a: the records and the counterfactual under the candidate
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            res = list(pool.map(lambda t: router.route(_rp_body(t)),
+                                RP_TEXTS))
+        cpu_changed = set()
+        for k, r in enumerate(res):
+            want = _decision(r) or ""
+            if want != card["decisions"][k]:
+                tie("21a", RP_TEXTS[k], card["decisions"][k], want)
+                continue
+            rec = reg.explain.get(r.decision_record_id)
+            check(rec is not None, f"21a: no CPU decision record for {k}")
+            if not replay_diff(rec, replay_decision(rec, cand))["identical"]:
+                cpu_changed.add(k)
+        agree = {k for k in range(N_RP)
+                 if card["decisions"][k] == (_decision(res[k]) or "")}
+        check(cpu_changed == card["changed"] & agree,
+              f"21a: the candidate config changes {sorted(card['changed'])} "
+              f"on the card, {sorted(cpu_changed)} on the CPU")
+        # 21c: the accuracy job's decisions, case by case
+        want = [_decision(router.route(_rp_body(c["query"]))) or ""
+                for c in RP_CASES]
+        for i, (got, w) in enumerate(zip(card["cases"], want)):
+            if got != w:
+                tie("21c-cases", RP_CASES[i]["query"], got, w)
+        if want == card["cases"]:
+            decisions: dict = {}
+            for w in want:
+                decisions[w or "default"] = decisions.get(w or "default",
+                                                          0) + 1
+            correct = sum(w == c["expected_decision"]
+                          for w, c in zip(want, RP_CASES))
+            check(card["accuracy"]["decisions"] == decisions
+                  and card["accuracy"]["decision_accuracy"]
+                  == round(correct / len(RP_CASES), 4),
+                  f"21c: accuracy_eval {card['accuracy']} on the card, "
+                  f"{decisions} / {correct} on the CPU")
+        # 21c: the artifact picks
+        near = []
+        for algo, path in card["artifacts"].items():
+            r2 = Router(load_config(_rp_artifact_config(path, algo)),
+                        engine=cpu)
+            routers.append(r2)
+            got = card["picks"][algo]
+            want = _rp_picks(r2, RP_QUERIES)
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g["decision"] != w["decision"]:
+                    tie(f"21c-{algo}", RP_QUERIES[i], g["decision"],
+                        w["decision"])
+                    continue
+                if g["model"] == w["model"]:
+                    continue
+                sel = r2._selectors[f"trained_{algo}"]
+                emb = card["embeddings"][i]
+                refs = r2.cfg.decisions[0].model_refs
+                alt = sel.select(refs, SelectionContext(
+                    query=RP_QUERIES[i], category=g["category"],
+                    embed_fn=lambda _q, e=emb: e)).ref.model
+                check(alt == g["model"],
+                      f"21c {algo} {RP_QUERIES[i][:40]!r}: card "
+                      f"{g['model']}, CPU {w['model']}, and not a near tie")
+                near.append({"algo": algo, "query": i, "card": g["model"],
+                             "cpu": w["model"]})
+        out["cpu_agreement"] = {"records": N_RP, "changed": len(cpu_changed),
+                                "ties": ties, "artifact_near_ties": near}
+    finally:
+        for r in routers:
+            r.shutdown()
+        cpu.shutdown()
+    print("21 the CPU port: " + json.dumps(out["cpu_agreement"]), flush=True)
+
+
+def phase_record(modules3: dict, modules5: dict, smi: str) -> dict:
+    """Phase 21: phase 3's bank (full width, seeded, the epilogue on) and
+    phase 5's embedding model (the semantic cache's) behind the port's
+    ``RouterServer`` and a mock backend, the config without a
+    ``router_replay`` block and with ``otlp_endpoint`` naming a loopback
+    collector.  21a: 32 distinct chat requests from 4 clients; the replay
+    store holds 32 records matching each answer's headers; every record's
+    ``POST /debug/decisions/{id}/replay`` under the live config answers
+    unchanged, and under a candidate without the decision the card
+    recorded most changes exactly that decision's records, and the
+    records the CPU port's replay of its own changes.  21c: ``accuracy_eval`` over 16
+    labelled cases and ``selection_benchmark`` (knn and mlp artifacts)
+    as dashboard jobs; knn and mlp artifacts trained on the card's
+    embeddings of the benchmark's corpus route 16 queries on the card as
+    the CPU port does (near ties reported).  21d: ``/dashboard/api/
+    embedmap?source=cache`` equals ``build_map`` of the vectors the card
+    embedded in 21a; the page and its assets answer with the bundled
+    bytes.  21e: 8 playground requests give route()'s decision and reach
+    no backend.  21b, after ``stop()``: the collector holds every finished
+    span once and every decision record.  K1 / K2 launches by part."""
+    import tempfile
+
+    from semantic_router_tpu_torch.dashboard.embedmap import build_map
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs, \
+        attach_otlp
+    from semantic_router_tpu_torch.training.selection_train import (
+        featurize,
+        load_routing_jsonl,
+        train_selector,
+    )
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    launches: dict = {}
+    collector = _Collector()
+    tmp = tempfile.mkdtemp(prefix="p21-")
+    registry = RuntimeRegistry.isolated(tracer=Tracer(capacity=1 << 17))
+    base = load_config(RP_CONFIG)
+    engine = InferenceEngine(base.engine, device=DEVICE,
+                             metrics=registry.metric_series(),
+                             runtime_stats=registry.runtimestats,
+                             program_stats=registry.programstats)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in modules3["cuda"].items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    engine.register_task(EMBED_TASK, "embedding", modules5["cuda"], tok, [],
+                         max_seq_len=512)
+    apply_packing_knobs(base, engine)
+    apply_kernel_knobs(base, engine)
+    engine.warmup()
+    cfg_dict = copy.deepcopy(RP_CONFIG)
+    cfg_dict["observability"] = {"tracing": {
+        "otlp_endpoint": collector.url, "flush_interval_s": 1.0}}
+    check("router_replay" not in cfg_dict, "21: a router_replay block")
+    cfg = load_config(cfg_dict)
+    backend = MockVLLMServer(content_fn=rp_answer).start()
+    router = build_router(cfg, engine, registry=registry)
+    server = RouterServer(router, backend.url, registry=registry)
+    # the spans before the exporters attach are not theirs to ship
+    before = {s.span_id for s in registry.tracer.spans()}
+    attach_otlp(server, cfg)
+    server.start()
+    routers = [router]
+    card: dict = {}
+    stopped = False
+    try:
+        check(type(router.replay_store).__name__ == "ReplayStore"
+              and server.otlp_exporter is not None
+              and server.otlp_log_exporter is not None,
+              "21: no replay store or no OTLP exporters")
+        # -- 21a: recording -------------------------------------------------
+        stamp("phase 21a: recording")
+        _cuda.reset_launch_counts()
+        t_a = time.perf_counter()
+
+        def client(c: int) -> list:
+            per = N_RP // RP_CLIENTS
+            return [(k, _post(server.url, _rp_body(RP_TEXTS[k])))
+                    for k in range(c * per, (c + 1) * per)]
+
+        with ThreadPoolExecutor(max_workers=RP_CLIENTS) as pool:
+            replies = sorted(x for xs in pool.map(client, range(RP_CLIENTS))
+                             for x in xs)
+        a_s = time.perf_counter() - t_a
+        launches["21a"] = _cuda.launch_counts()
+        store = router.replay_store
+        check(len(store) == N_RP, f"21a: {len(store)} records, want {N_RP}")
+        recs = {r.request_id: r for r in store.list(limit=1000)}
+        card["decisions"], rec_ids, trace_ids = [], [], set()
+        for k, (status, h, body, _lat) in replies:
+            check(status == 200 and "x-vsr-cache-hit" not in h,
+                  f"21a {k}: HTTP {status} {h.get('x-vsr-cache-hit')}")
+            rec = recs.get(h["x-vsr-request-id"])
+            check(rec is not None and rec.decision ==
+                  h.get("x-vsr-selected-decision", "")
+                  and rec.model == h["x-vsr-selected-model"]
+                  and rec.decision_record_id == h["x-vsr-decision-record"],
+                  f"21a {k}: record {rec} against headers {h}")
+            card["decisions"].append(rec.decision)
+            rec_ids.append(rec.decision_record_id)
+            trace_ids.add(registry.explain.get(
+                rec.decision_record_id)["trace_id"])
+        check(len(router.cache._entries) == sum(
+            d not in ("", "jailbreak_block", "pii_route")
+            for d in card["decisions"]),
+            f"21a: {len(router.cache._entries)} cache entries")
+        # the candidate drops the decision the card recorded most
+        card["drop"] = collections.Counter(
+            d for d in card["decisions"] if d).most_common(1)[0][0]
+        cand = _rp_without(cfg_dict, card["drop"])
+        card["changed"] = set()
+        for k, rid in enumerate(rec_ids):
+            st, _, live = _rp_call(server.url, "POST",
+                                   f"/debug/decisions/{rid}/replay", {})
+            check(st == 200 and live["identical"]
+                  and live["replayed"]["decision"] == card["decisions"][k],
+                  f"21a {k}: the live replay changed: {live}")
+            st, _, rep = _rp_call(server.url, "POST",
+                                  f"/debug/decisions/{rid}/replay",
+                                  {"config": cand})
+            check(st == 200 and rep["config_basis"] == "candidate config",
+                  f"21a {k}: candidate replay {st} {rep}")
+            if not rep["identical"]:
+                card["changed"].add(k)
+        want = {k for k, d in enumerate(card["decisions"])
+                if d == card["drop"]}
+        check(card["changed"] == want,
+              f"21a: dropping {card['drop']} changed "
+              f"{sorted(card['changed'])}, not its records {sorted(want)}")
+        out["21a"] = {"requests": N_RP, "records": len(store),
+                      "candidate_drops": card["drop"],
+                      "changed_by_candidate": len(card["changed"]),
+                      "cache_entries": len(router.cache._entries),
+                      "serve_s": a_s, "launches": launches["21a"]}
+        print("21a recording: " + json.dumps(out["21a"]) + f" | {smi}",
+              flush=True)
+
+        # -- 21c: jobs and artifacts -----------------------------------------
+        stamp("phase 21c: jobs and artifacts")
+        _cuda.reset_launch_counts()
+        seen, seen_lock = {}, threading.Lock()
+        route = router.route
+
+        def recorded_route(body, *a, **kw):
+            res = route(body, *a, **kw)
+            with seen_lock:
+                seen[body["messages"][-1]["content"]] = _decision(res) or ""
+            return res
+
+        router.route = recorded_route
+        try:
+            st, _, job = _rp_call(server.url, "POST", "/dashboard/api/jobs", {
+                "kind": "accuracy_eval", "params": {"cases": RP_CASES}})
+            check(st == 202, f"21c: accuracy_eval submit {st} {job}")
+            acc = server.jobs.wait(job["job_id"], 300)
+        finally:
+            router.route = route
+        check(acc is not None and acc.status == "done",
+              f"21c: accuracy_eval {acc}")
+        card["accuracy"] = acc.result
+        card["cases"] = [seen[c["query"]] for c in RP_CASES]
+        st, _, job = _rp_call(server.url, "POST", "/dashboard/api/jobs", {
+            "kind": "selection_benchmark", "params": {
+                "endpoint": backend.url, "models": list(RP_MODELS), "n": 16,
+                "algorithms": ["knn", "mlp"], "out_dir": tmp}})
+        check(st == 202, f"21c: selection_benchmark submit {st} {job}")
+        bench = server.jobs.wait(job["job_id"], 300)
+        check(bench is not None and bench.status == "done",
+              f"21c: selection_benchmark {bench}")
+        res = bench.result
+        check(res["records"] == 16 * len(RP_MODELS) and res["errors"] == 0
+              and all(os.path.exists(res["artifacts"][a])
+                      for a in ("knn", "mlp"))
+              and len(res["label_counts"]) >= 2,
+              f"21c: selection_benchmark result {res}")
+        st, _, listing = _rp_call(server.url, "GET", "/dashboard/api/jobs")
+        check(st == 200 and len(listing["jobs"]) == 2,
+              f"21c: job listing {st} {listing}")
+        # artifacts on the card's embeddings of the benchmark's corpus
+        records = load_routing_jsonl(res["data"])
+        feats, labels, _ = featurize(
+            records, embed_fn=lambda qs: engine.embed(EMBED_TASK, list(qs)))
+        card["artifacts"], card["picks"] = {}, {}
+        for algo in ("knn", "mlp"):
+            blob = train_selector(algo, feats, labels, records=records,
+                                  embed_kind="external", device=DEVICE)
+            path = os.path.join(tmp, f"card-{algo}.json")
+            with open(path, "w") as f:
+                f.write(blob)
+            card["artifacts"][algo] = path
+            r2 = build_router(load_config(_rp_artifact_config(path, algo)),
+                              engine, registry=RuntimeRegistry.isolated())
+            routers.append(r2)
+            card["picks"][algo] = _rp_picks(r2, RP_QUERIES)
+            sel = r2._selectors[f"trained_{algo}"]
+            check(type(sel).__name__ == "CategoryFeatureSelector"
+                  and not sel.hash_fallback,
+                  f"21c: the {algo} artifact's selector {sel}")
+            if algo == "mlp":
+                check(str(sel.inner.work.device).startswith("cuda"),
+                      f"21c: the mlp artifact serves on "
+                      f"{sel.inner.work.device}")
+        card["embeddings"] = engine.embed(EMBED_TASK, RP_QUERIES)
+        launches["21c"] = _cuda.launch_counts()
+        out["21c"] = {"accuracy_eval": card["accuracy"],
+                      "benchmark": {k: res[k] for k in
+                                    ("records", "errors", "label_counts")},
+                      "picks": {a: collections.Counter(
+                          p["model"] for p in ps)
+                          for a, ps in card["picks"].items()},
+                      "launches": launches["21c"]}
+        print("21c jobs and artifacts: " + json.dumps(out["21c"])
+              + f" | {smi}", flush=True)
+
+        # -- 21d: the embedding map and the page -------------------------------
+        stamp("phase 21d: embedding map")
+        _cuda.reset_launch_counts()
+        st, _, got = _rp_call(server.url, "GET",
+                              "/dashboard/api/embedmap?source=cache")
+        entries = list(router.cache._entries.values())
+        want = build_map([(e.query, e.embedding) for e in entries])
+        check(st == 200 and got == want and len(got["points"])
+              == len(entries) > 0,
+              f"21d: the embedding map ({st}, {len(got.get('points', []))} "
+              f"points) is not build_map of the {len(entries)} entries")
+        root = os.path.join(os.path.dirname(os.path.abspath(
+            sys.modules["semantic_router_tpu_torch"].__file__)), "dashboard")
+        for path, fname in (("/dashboard", "index.html"),
+                            ("/dashboard/static/app.js", "static/app.js"),
+                            ("/dashboard/static/app.css", "static/app.css"),
+                            ("/dashboard/static/editor.js",
+                             "static/editor.js")):
+            st, _, data = _rp_call(server.url, "GET", path)
+            with open(os.path.join(root, fname), "rb") as f:
+                check(st == 200 and data == f.read(),
+                      f"21d: {path} answered {st}")
+        st, _, _ = _rp_call(server.url, "GET",
+                            "/dashboard/static/..%2f..%2fchip_smoke.py")
+        check(st == 404, f"21d: the traversal guard answered {st}")
+        launches["21d"] = _cuda.launch_counts()
+        out["21d"] = {"points": len(got["points"]), "grid": got["grid"],
+                      "launches": launches["21d"]}
+        print("21d embedding map: " + json.dumps(out["21d"]) + f" | {smi}",
+              flush=True)
+
+        # -- 21e: the playground ---------------------------------------------
+        stamp("phase 21e: playground")
+        _cuda.reset_launch_counts()
+        hits = backend.hits
+        plays = []
+        for text in RP_PLAY:
+            st, _, pg = _rp_call(server.url, "POST",
+                                 "/dashboard/api/playground",
+                                 {"messages": [{"role": "user",
+                                                "content": text}]})
+            check(st == 200, f"21e: playground {st} {pg}")
+            plays.append(pg)
+        check(backend.hits == hits, f"21e: the playground reached the "
+                                    f"backend ({backend.hits - hits})")
+        launches["21e"] = _cuda.launch_counts()
+        for text, pg in zip(RP_PLAY, plays):
+            res = router.route(_rp_body(text))
+            check(pg["decision"] == (_decision(res) or "")
+                  and pg["model"] == res.model,
+                  f"21e {text[:40]!r}: playground {pg['decision']} / "
+                  f"{pg['model']}, route() {_decision(res)} / {res.model}")
+        out["21e"] = {"requests": len(RP_PLAY), "launches": launches["21e"]}
+        print("21e playground: " + json.dumps(out["21e"]) + f" | {smi}",
+              flush=True)
+
+        # -- 21b: OTLP --------------------------------------------------------
+        stamp("phase 21b: OTLP")
+        t_stop = time.perf_counter()
+        server.stop()
+        stopped = True
+        stop_s = time.perf_counter() - t_stop
+        spans = collector.spans()
+        ids = [s["spanId"] for s in spans]
+        want_ids = {s.span_id for s in registry.tracer.spans()} - before
+        check(len(ids) == len(set(ids)) and set(ids) == want_ids,
+              f"21b: the collector holds {len(ids)} spans ({len(set(ids))} "
+              f"distinct), the tracer {len(want_ids)}")
+        for tid in trace_ids:
+            check({s.span_id for s in registry.tracer.trace(tid)}
+                  == {s["spanId"] for s in spans if s["traceId"] == tid},
+                  f"21b: trace {tid}'s spans differ")
+        logs = collector.logs()
+        ex = registry.explain
+        got_ids = {a["value"]["stringValue"] for r in logs
+                   for a in r["attributes"] if a["key"] == "record_id"}
+        check(got_ids == {r["record_id"] for r in ex.list(limit=10_000)}
+              and len(logs) == ex.recorded + ex.re_exported,
+              f"21b: {len(logs)} log records, the explainer "
+              f"{ex.recorded} + {ex.re_exported}")
+        out["21b"] = {"spans": len(spans), "traces_21a": len(trace_ids),
+                      "spans_21a": sum(s["traceId"] in trace_ids
+                                       for s in spans),
+                      "logs": len(logs), "stop_flush_s": stop_s,
+                      "dropped": server.otlp_exporter.dropped
+                      + server.otlp_log_exporter.dropped}
+        check(out["21b"]["dropped"] == 0, f"21b: {out['21b']}")
+        print("21b OTLP: " + json.dumps(out["21b"]) + f" | {smi}",
+              flush=True)
+    finally:
+        if not stopped:
+            server.stop()
+        backend.stop()
+        collector.close()
+        for r in routers:
+            r.shutdown()
+        engine.shutdown()
+    out["launches"] = {k: sum(launches[p][k] for p in launches)
+                       for k in ("flash_attention", "head_epilogue")}
+    check(all(launches[p]["flash_attention"] > 0
+              and launches[p]["head_epilogue"] > 0
+              for p in ("21a", "21c", "21e")),
+          f"21: K1 / K2 launches by part {launches}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"21: K1 / K2 launches by part "
+          + json.dumps({p: {k: v for k, v in c.items() if k != "bgmv"}
+                        for p, c in launches.items()})
+          + f" in {out['seconds']:.1f} s | {smi}", flush=True)
+
+    def deferred() -> None:
+        try:
+            _rp_cpu_compare(cfg_dict, modules3, modules5, card, out)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    DEFERRED.submit("21: the CPU port", deferred)
+    return out
+
+
 # the cuda-marked test files and how many of each must pass (0: the file
 # passes whatever it skips)
 CUDA_TESTS = {
@@ -10959,6 +11563,7 @@ CUDA_TESTS = {
     "test_torch_packing_cuda.py": 4,
     "test_torch_config_cuda.py": 1,
     "test_torch_extproc_cuda.py": 1,
+    "test_torch_replay_cuda.py": 1,
 }
 
 
@@ -11097,6 +11702,8 @@ def main(argv=None) -> int:
     stamp("phase 20: extproc")
     ep = report["extproc"] = phase_extproc(modules3, modules5, dev["smi"])
     DEFERRED.release()
+    stamp("phase 21: decision record and dashboard")
+    rp = report["record"] = phase_record(modules3, modules5, dev["smi"])
     stamp("cuda tests")
     report["cuda_tests"] = run_cuda_tests()
     stamp("deferred CPU-port checks")
@@ -11135,8 +11742,9 @@ def main(argv=None) -> int:
             # retrieval and dual path (traditional side) banks, the
             # packing phase's packed and unpacked steps, under every
             # quant mode, in phase 19's reloads (K1's float32
-            # launches there; its bf16 ones count in the bf16 row) and
-            # behind phase 20's ExtProc filter
+            # launches there; its bf16 ones count in the bf16 row),
+            # behind phase 20's ExtProc filter and phase 21's recorded,
+            # replayed, trained-selector and playground routes
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -11145,7 +11753,7 @@ def main(argv=None) -> int:
             + mm["launches"][kname] + sp["launches"][kname]
             + rt["launches"][kname] + dp["launches"][kname]
             + pk["launches"][kname] + rl["launches"][kname]
-            + ep["launches"][kname]
+            + ep["launches"][kname] + rp["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -980,7 +980,6 @@ UNPORTED = {
 UNPORTED_BLOCKS = {
     "mcp": "MCP classifiers",
     "external_models": "external models",
-    "router_replay": "router replay",
 }
 # engine knobs the JAX engine reads and this port does not
 UNPORTED_ENGINE = {
@@ -1034,10 +1033,14 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     ``global:`` block lifted) enables: the blocks of ``UNPORTED`` and
     ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
     observability sub-blocks this port does not serve (fleet-scoped SLO
-    objectives, the fleet observability plane, OTLP export, a durable
-    decision store other than SQLite), a ``response_store`` backend
-    outside ``RESPONSE_STORE_BACKENDS``, the ANN bank's row sharding
-    (``ann.mesh``), a selector ``algorithm.artifact``.  The shared state
+    objectives, the fleet observability plane, a durable decision store
+    other than SQLite), a ``response_store`` backend outside
+    ``RESPONSE_STORE_BACKENDS``, the ANN bank's row sharding
+    (``ann.mesh``), a selector ``algorithm.artifact`` the routing
+    flywheel trains (``refuse_flywheel_artifact``).  Router replay
+    (``router_replay``, on by default), OTLP span and log export
+    (``observability.tracing.otlp_endpoint``) and every other selector
+    artifact are served, as are the shared state
     plane (``stateplane``, its fleet-shared ladder and upstream
     circuits), the RESP-backed stores and the retrieval plane (``ann`` on
     one device, ``vectorstore`` with every backend the reference names,
@@ -1071,9 +1074,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         raise ValueError("observability.fleet.enabled: the fleet "
                          "observability plane is not served by this port "
                          "yet")
-    if (obs.get("tracing") or {}).get("otlp_endpoint"):
-        raise ValueError("observability.tracing.otlp_endpoint: OTLP export "
-                         "is not served by this port yet")
     durable = (obs.get("decisions") or {}).get("durable") or {}
     if str(durable.get("backend", "") or "") not in ("", "sqlite"):
         raise ValueError(f"observability.decisions.durable.backend "
@@ -1099,12 +1099,31 @@ def refuse_unported(d: Dict[str, Any]) -> None:
         decisions += (rec.get("routing", rec) or {}).get("decisions", []) \
             or []
     for dec in decisions:
-        name = dec.get("name", "")
-        algo = dec.get("algorithm") or {}
-        if algo.get("artifact"):
-            raise ValueError(f"decision {name!r}: selector artifacts "
-                             f"(algorithm.artifact) are not served by "
-                             f"this port yet")
+        artifact = (dec.get("algorithm") or {}).get("artifact")
+        if artifact:
+            refuse_flywheel_artifact(dec.get("name", ""), str(artifact))
+
+
+# the selector artifact algorithm only the routing flywheel's policy loads
+FLYWHEEL_ARTIFACTS = ("cost_bandit",)
+
+
+def refuse_flywheel_artifact(decision: str, path: str) -> None:
+    """Raise ValueError when the selector artifact at ``path`` is one the
+    reference loads through the routing flywheel (a ``cost_bandit``
+    policy), which this port does not serve.  A missing or unreadable
+    file passes: the selector factory falls back to the untrained
+    selector for it, as the reference's does."""
+    try:
+        with open(path) as f:
+            algo = json.load(f).get("algorithm")
+    except (OSError, ValueError, AttributeError):
+        return
+    if algo in FLYWHEEL_ARTIFACTS:
+        raise ValueError(f"decision {decision!r}: algorithm.artifact "
+                         f"{path!r} is a {algo} artifact, which loads "
+                         f"through the routing flywheel (flywheel.policy); "
+                         f"the flywheel is not served by this port yet")
 
 
 @dataclass
@@ -1163,6 +1182,11 @@ class RouterConfig:
     # {backend: memory | sqlite | ann | stateplane | qdrant | milvus, path,
     # backend_config}: the named vector stores the rag plugin searches
     vectorstore: Dict[str, Any] = field(default_factory=dict)
+    # {enabled (default true), backend: memory | sqlite | postgres, path,
+    # max_records, capture_request_body, capture_response_body, host,
+    # port, user, database, password}: the router replay store every
+    # routed response is recorded to
+    router_replay: Dict[str, Any] = field(default_factory=dict)
     # the on-device ANN plane, read through ann_config()
     ann: Dict[str, Any] = field(default_factory=dict)
     # the canonical contract's top-level surface, kept for its export
@@ -1219,6 +1243,7 @@ class RouterConfig:
             response_store=dict(d.get("response_store", {}) or {}),
             stateplane=dict(d.get("stateplane", {}) or {}),
             vectorstore=dict(d.get("vectorstore", {}) or {}),
+            router_replay=dict(d.get("router_replay", {}) or {}),
             ann=dict(d.get("ann", {}) or {}),
             listeners=list(d.get("listeners", []) or []),
             providers=dict(d.get("providers", {}) or {}),

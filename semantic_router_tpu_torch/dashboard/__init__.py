@@ -1,6 +1,9 @@
-"""The config editor's session tokens (``auth.TokenIssuer``); the editor's
-routes live in ``router/server.py``."""
+"""The dashboard's backend: session tokens (``auth.TokenIssuer``), the
+durable job runner (``jobs``), the embedding map (``embedmap``), and the
+bundled page (``index.html``, ``static/``); its routes live in
+``router/server.py``."""
 
 from .auth import TokenIssuer
+from .jobs import JobRunner, JobStore
 
-__all__ = ["TokenIssuer"]
+__all__ = ["JobRunner", "JobStore", "TokenIssuer"]

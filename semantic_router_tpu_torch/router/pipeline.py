@@ -68,11 +68,12 @@ import numpy as np
 
 from ..cache.semantic_cache import build_cache
 from ..config.schema import LOOPER_ALGORITHMS, Decision, ModelRef, \
-    RouterConfig
+    RouterConfig, refuse_flywheel_artifact
 from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
 from ..observability import metrics as M
 from ..observability.explain import default_decision_explainer
 from ..observability.flightrec import default_flight_recorder
+from ..observability.logging import component_event
 from ..observability.tracing import PendingTrace, default_tracer, \
     new_span_id
 from ..resilience.controller import default_degradation_controller
@@ -214,6 +215,13 @@ class Router:
         # build_router when stateplane.enabled; None = single process
         self.stateplane = None
         self._cfg_hash: Optional[str] = None
+        # a flywheel-trained selector artifact is refused at boot, as at
+        # load (its file may have been written since)
+        for dec in list(cfg.decisions) + [d for r in cfg.recipes
+                                          for d in r.decisions]:
+            artifact = (dec.algorithm or {}).get("artifact")
+            if artifact:
+                refuse_flywheel_artifact(dec.name, str(artifact))
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
         # each recipe's own dispatcher and decision engine, built once: a
@@ -265,6 +273,11 @@ class Router:
         self._selectors: Dict[str, Any] = {}
         self.memory_store = None
         self.vectorstores = None
+        # callables (route, backend body, ResponseResult) run at the end
+        # of process_response; bootstrap appends the replay recorder and
+        # keeps its store as ``replay_store``
+        self.response_hooks: List[Any] = []
+        self.replay_store = None
 
     def skip_requested(self, headers: Dict[str, str]) -> bool:
         """True when skip-processing is enabled and the request asks for
@@ -793,25 +806,55 @@ class Router:
 
     def _selector(self, decision: Decision):
         """The decision's selector, built at its first request from
-        ``algorithm`` (type + keyword arguments); one the registry cannot
-        build is ``static``.  Selectors that run torch (kmeans, mlp) run it
+        ``algorithm`` (type + keyword arguments, or the trained
+        ``artifact``); one the registry cannot build is ``static``.  Selectors that run torch (kmeans, mlp) run it
         on the engine's device, holding the engine's capture gate."""
         selector = self._selectors.get(decision.name)
         if selector is None:
             algo = dict(decision.algorithm or {})
             kwargs = {k: v for k, v in algo.items()
-                      if k not in ("type", "on_error")}
+                      if k not in ("type", "on_error", "artifact")}
             if self.engine is not None:
                 kwargs.update(device=self.engine.device,
                               gate=self.engine.device_work)
-            try:
-                selector = selectors.create(str(algo.get("type", "static")),
-                                            **kwargs)
-            except (KeyError, TypeError):
-                selector = selectors.create("static")
+            artifact = str(algo.get("artifact") or "")
+            if artifact:
+                selector = self._artifact_selector(decision, artifact,
+                                                   kwargs)
+            if selector is None:
+                try:
+                    selector = selectors.create(
+                        str(algo.get("type", "static")), **kwargs)
+                except (KeyError, TypeError):
+                    selector = selectors.create("static")
             # concurrent first requests keep one selector
             selector = self._selectors.setdefault(decision.name, selector)
         return selector
+
+    @staticmethod
+    def _artifact_selector(decision: Decision, artifact: str,
+                           kwargs: Dict[str, Any]):
+        """The selector an offline-trained artifact cold-starts
+        (``training.selection_train.load_selector``; online learning goes
+        on from it), or None after an ``artifact_load_failed`` event when
+        the file is missing or does not load — the untrained algorithm
+        serves then.  A flywheel artifact raises: it is refused, never
+        served untrained."""
+        from ..training.selection_train import (
+            FlywheelArtifactError,
+            load_selector,
+        )
+
+        try:
+            return load_selector(artifact, device=kwargs.get("device"),
+                                 gate=kwargs.get("gate"))
+        except FlywheelArtifactError:
+            raise
+        except Exception as exc:
+            component_event("selection", "artifact_load_failed",
+                            decision=decision.name, artifact=artifact,
+                            error=str(exc), level="warning")
+            return None
 
     def _select_model(self, decision: Decision, ctx: RequestContext,
                       signals: SignalMatches) -> tuple:
@@ -1071,8 +1114,9 @@ class Router:
     def process_response(self, route: RouteResult,
                          response_body: Dict[str, Any]) -> ResponseResult:
         """The response path of a routed request the backend answered:
-        jailbreak screen, hallucination spans, warnings, the cache write
-        and memory auto-store.  Each stage fails open."""
+        jailbreak screen, hallucination spans, warnings, the cache write,
+        memory auto-store, then ``response_hooks`` (the replay recorder).
+        Each stage fails open."""
         out = ResponseResult(body=response_body)
         content = _response_text(response_body)
         decision = route.decision.decision if route.decision else None
@@ -1154,6 +1198,13 @@ class Router:
                         convo + [{"role": "assistant", "content": content}])
             except Exception:
                 log.warning("memory auto-store failed", exc_info=True)
+
+        # a hook's failure never reaches the response
+        for hook in self.response_hooks:
+            try:
+                hook(route, response_body, out)
+            except Exception:
+                log.warning("response hook failed", exc_info=True)
         return out
 
     def _detect_hallucinations(self, content: str,

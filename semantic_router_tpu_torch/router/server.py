@@ -148,6 +148,31 @@ and the config management API over the file ``serve`` watches
                                    environment); the operator's text
                                    written verbatim
   POST /dashboard/api/dsl/compile|decompile   the routing DSL
+
+and the rest of the dashboard (``dashboard/``):
+
+  GET  /dashboard, /dashboard/static/{asset}  the bundled page and its
+                                   ``.js`` / ``.css`` assets (open; a
+                                   basename, no traversal)
+  GET  /dashboard/embedmap         the embedding map's page (open, empty)
+  GET  /dashboard/api/overview|signals|events  the router's series, the
+                                   event bus
+  GET  /dashboard/api/replay       the replay store's newest records
+  GET  /dashboard/api/embedmap[/sources]  the 2-D map of the cache's,
+                                   the memory store's or a vector
+                                   store's embeddings (``?source=``)
+  GET|POST /dashboard/api/jobs, GET /dashboard/api/jobs/{id}  the
+                                   dashboard's jobs (``selection_benchmark``,
+                                   ``accuracy_eval``)
+  POST /dashboard/api/playground   what route() does with a request,
+                                   forwarded nowhere
+  POST /debug/decisions/{id}/replay  a decision record re-driven under the
+                                   live or a candidate ``config``, with
+                                   the diff
+
+With ``observability.tracing.otlp_endpoint`` the finished spans and the
+decision records go to that collector (``runtime.bootstrap.attach_otlp``);
+``stop()`` detaches and flushes the exporters and ends the jobs.
 """
 
 from __future__ import annotations
@@ -194,7 +219,9 @@ from .responseapi import (
 )
 
 # the routes this server answers (the reference's discovery document,
-# trimmed to what the port serves)
+# trimmed to what the port serves; like the reference's it leaves out the
+# dashboard page and its overview / signals / replay / events / config
+# reads)
 API_CATALOG = {"endpoints": [
     {"path": p, "method": m} for p, m in (
         ("/health", "GET"),
@@ -255,7 +282,16 @@ API_CATALOG = {"endpoints": [
         ("/config/router/rollback", "POST"),
         ("/config/router/versions", "GET"),
         ("/config/hash", "GET"),
+        ("/debug/decisions/{id}/replay", "POST"),
+        ("/dashboard/embedmap", "GET"),
+        ("/dashboard/api/embedmap", "GET"),
+        ("/dashboard/api/embedmap/sources", "GET"),
         ("/dashboard/api/login", "POST"),
+        ("/dashboard/api/jobs", "GET"),
+        ("/dashboard/api/jobs", "POST"),
+        ("/dashboard/api/jobs/{id}", "GET"),
+        ("/dashboard/api/playground", "POST"),
+        ("/dashboard/static/{asset}", "GET"),
         ("/dashboard/api/dsl/compile", "POST"),
         ("/dashboard/api/dsl/decompile", "POST"),
         ("/dashboard/api/config/raw", "GET"),
@@ -284,6 +320,8 @@ _POST_GATES = {
     "/v1/vector_stores": (True, "vectorstore_create"),
     "/config/router/rollback": (True, "config_rollback"),
     "/dashboard/api/config/deploy": (True, "config_put"),
+    "/dashboard/api/playground": (False, ""),
+    "/dashboard/api/jobs": (True, "dashboard_job"),
 }
 # the config API's and the editor's POST routes → their handler
 _CONFIG_POSTS = {
@@ -293,6 +331,8 @@ _CONFIG_POSTS = {
     "/dashboard/api/dsl/compile": "_dsl_compile",
     "/dashboard/api/dsl/decompile": "_dsl_decompile",
     "/dashboard/api/login": "_login",
+    "/dashboard/api/playground": "_playground",
+    "/dashboard/api/jobs": "_job_submit",
 }
 
 
@@ -300,6 +340,9 @@ def _post_gate(path: str):
     """A POST route's gate: () when it is open, (write, action) when it
     is gated, None when the route is unknown."""
     if path.startswith("/api/v1/classify/"):
+        return (False, "")
+    if path.startswith("/debug/decisions/") and path.endswith("/replay"):
+        # the re-drive computes and mutates nothing: view-gated
         return (False, "")
     if path.startswith("/v1/vector_stores/"):
         if path.endswith("/search"):
@@ -479,6 +522,17 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/metrics/external":
             self._reply(200, srv.external_metrics(
                 self._query().get("metric", "")))
+        elif path in ("/dashboard", "/dashboard/") \
+                or path.startswith("/dashboard/static/"):
+            # the page and its assets hold code, not data: open; their
+            # API calls carry the key the operator types in
+            self._dashboard_file(path)
+        elif path == "/dashboard/embedmap":
+            # served empty: store names and points come from the gated
+            # /dashboard/api/embedmap*
+            from ..dashboard.embedmap import render_page
+
+            self._reply_text(200, render_page(()), "text/html")
         elif path == "/metrics":
             # exemplars are only legal in OpenMetrics (a 0.0.4 parser
             # rejects the '# {...}' clause and fails the whole scrape):
@@ -609,6 +663,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "config": redact_config(cfg.raw)})
         elif path == "/dashboard/api/config/raw":
             self._config_raw()
+        elif path.startswith("/dashboard/api/"):
+            self._dashboard(path[len("/dashboard/api/"):])
         else:
             self._reply(404, {"error": "not found"})
 
@@ -762,6 +818,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._vectorstore_create(body)
             elif path in _CONFIG_POSTS:
                 getattr(self, _CONFIG_POSTS[path])(body)
+            elif path.startswith("/debug/decisions/"):
+                self._replay(path.split("/")[3], body)
             elif path.endswith("/search"):
                 self._vectorstore_search(path.split("/")[3], body)
             elif path.endswith("/files"):
@@ -964,6 +1022,223 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, {"token": srv.token_issuer.issue(found),
                           "roles": sorted(found),
                           "expires_in_s": srv.token_issuer.ttl_s})
+
+    # -- the dashboard ------------------------------------------------------
+
+    def _dashboard_file(self, path: str) -> None:
+        """The bundled page, or one of its assets: the basename of the
+        path, and only a ``.js`` or ``.css`` one (no traversal)."""
+        import os
+
+        root = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "dashboard")
+        if path.startswith("/dashboard/static/"):
+            name = os.path.basename(path)
+            ctype = {".js": "text/javascript",
+                     ".css": "text/css"}.get(os.path.splitext(name)[1])
+            if ctype is None:
+                self._reply(404, {"error": "not found"})
+                return
+            fname, missing = os.path.join(root, "static", name), \
+                {"error": "not found"}
+        else:
+            fname, ctype, missing = os.path.join(root, "index.html"), \
+                "text/html", {"error": "dashboard not bundled"}
+        try:
+            with open(fname, encoding="utf-8") as f:
+                self._reply_text(200, f.read(), ctype)
+        except (OSError, ValueError):
+            self._reply(404, missing)
+
+    def _dashboard(self, sub: str) -> None:
+        """``/dashboard/api/{sub}``: the router's own series (an embedded
+        router's registry, not the process's), the replay store, the
+        embedding map, the event bus and the jobs."""
+        srv: RouterServer = self.server.owner
+        router = srv.router
+        M = router.M
+        if sub == "overview":
+            cache_stats = {}
+            if router.cache is not None:
+                st = router.cache.stats()
+                cache_stats = {"hits": st.hits, "misses": st.misses,
+                               "entries": st.entries,
+                               "hit_rate": round(st.hit_rate, 4)}
+            sessions = srv.registry.get("sessions")
+            self._reply(200, {
+                "uptime_s": round(time.time() - srv.started_t, 1),
+                "requests_total": M.model_requests.total(),
+                "requests_by_model": {
+                    dict(k).get("model", "?"): v for k, v in
+                    M.model_requests.values().items()},
+                "decisions": {
+                    dict(k).get("name", "?"): v for k, v in
+                    M.decision_matches.values().items()},
+                "routing_latency": M.routing_latency.summary(),
+                "completion_latency": M.completion_latency.summary(),
+                "cost_total": round(M.model_cost.total(), 6),
+                "cache": cache_stats,
+                "sessions": sessions.count() if sessions is not None else 0,
+                "blocks": {"jailbreak": M.jailbreak_blocks.total(),
+                           "pii": M.pii_violations.total()},
+            })
+        elif sub == "signals":
+            self._reply(200, {
+                "latency": {dict(k).get("family", "?"): {"count": v}
+                            for k, v in M.signal_latency.totals().items()},
+                "summary": M.signal_latency.summary(),
+            })
+        elif sub == "replay" and router.replay_store is None:
+            self._reply(200, {"records": []})
+        elif sub in ("replay", "events"):
+            try:
+                limit = int(self._query().get("limit", "50"))
+            except ValueError:
+                self._reply(400, {"error": "limit must be an integer"})
+                return
+            if sub == "events":
+                bus = srv.registry.get("events")
+                self._reply(200, {"events": [
+                    e.public() for e in (bus.recent(
+                        limit, self._query().get("stage", ""))
+                        if bus is not None else [])]})
+                return
+            self._reply(200, {"records": [
+                {"id": r.record_id, "ts": r.timestamp,
+                 "decision": r.decision, "model": r.model, "kind": r.kind,
+                 "latency_ms": r.routing_latency_ms,
+                 "matched_rules": r.matched_rules}
+                for r in router.replay_store.list(limit=limit)]})
+        elif sub == "embedmap":
+            self._embedmap()
+        elif sub == "embedmap/sources":
+            self._reply(200, {"sources": self._embedmap_sources()})
+        elif sub == "jobs":
+            self._reply(200, {"kinds": srv.jobs.kinds(),
+                              "jobs": [j.public()
+                                       for j in srv.jobs.store.list()]})
+        elif sub.startswith("jobs/"):
+            job = srv.jobs.store.get(sub.split("/", 1)[1])
+            if job is None:
+                self._reply(404, {"error": "no such job"})
+            else:
+                self._reply(200, job.public())
+        else:
+            self._reply(404, {"error": "not found"})
+
+    def _embedmap_sources(self) -> list:
+        mgr = self.server.owner.router.vectorstores
+        return ["cache", "memory"] + (
+            [f"vectorstore:{n}" for n in mgr.list()] if mgr is not None
+            else [])
+
+    def _embedmap(self) -> None:
+        """The 2-D map of ``?source=`` (cache, memory, vectorstore:NAME):
+        its (text, embedding) pairs, projected on the host."""
+        from ..dashboard.embedmap import build_map
+
+        router = self.server.owner.router
+        source = self._query().get("source", "cache")
+        items = []
+        if source == "cache":
+            entries = getattr(router.cache, "_entries", {}) \
+                if router.cache is not None else {}
+            items = [(e.query, e.embedding) for e in list(entries.values())]
+        elif source == "memory":
+            store = router.memory_store
+            if store is not None and hasattr(store, "list_all"):
+                try:
+                    items = [(m.text, m.embedding)
+                             for m in store.list_all()]
+                except Exception:
+                    items = []
+        elif source.startswith("vectorstore:"):
+            mgr = router.vectorstores
+            store = mgr.get(source.split(":", 1)[1]) if mgr is not None \
+                else None
+            chunks = getattr(store, "chunks", {}) if store else {}
+            items = [(c.text, c.embedding) for c in list(chunks.values())]
+        else:
+            self._reply(400, {"error": f"unknown source {source!r}"})
+            return
+        self._reply(200, build_map(items))
+
+    def _playground(self, body: dict) -> None:
+        """What the router would do with a request, without forwarding
+        it: the route's kind, model, decision, matched rules, selection
+        reason, looper algorithm, signals (eight matches a family, with
+        confidences), headers and routing latency."""
+        req = dict(body)
+        req.setdefault("model", "auto")
+        res = self.server.owner.router.route(req)
+        signals = {}
+        if res.signals is not None:
+            signals = {
+                family: {
+                    "matches": list(names)[:8],
+                    "confidences": {
+                        n: round(res.signals.confidences.get(
+                            f"{family}:{n}", 1.0), 4)
+                        for n in list(names)[:8]},
+                }
+                for family, names in res.signals.matches.items()}
+        self._reply(200, {
+            "kind": res.kind,
+            "model": res.model,
+            "decision": res.decision.decision.name if res.decision else "",
+            "matched_rules": list(res.decision.matched_rules)
+            if res.decision else [],
+            "selection_reason": res.selection_reason,
+            "looper_algorithm": res.looper_algorithm,
+            "signals": signals,
+            "headers": res.headers,
+            "routing_latency_ms": round(res.routing_latency_s * 1e3, 3),
+        })
+
+    def _job_submit(self, body: dict) -> None:
+        jobs = self.server.owner.jobs
+        try:
+            job = jobs.submit(str(body.get("kind", "")),
+                              body.get("params") or {})
+        except KeyError as exc:
+            self._reply(400, {"error": str(exc), "kinds": jobs.kinds()})
+            return
+        self._reply(202, job.public())
+
+    def _replay(self, key: str, body: dict) -> None:
+        """The counterfactual re-drive of decision record ``key`` under the
+        live config, or the candidate one in ``body["config"]``, with its
+        diff against the record."""
+        from ..replay import replay_decision, replay_diff
+
+        srv: RouterServer = self.server.owner
+        rec = srv.registry.explain.get(key)
+        if rec is None:
+            self._reply(404, {"error": f"no decision record for {key!r}"})
+            return
+        cfg2, basis = srv.cfg, "live config"
+        if body.get("config"):
+            try:
+                cfg2 = RouterConfig.from_dict(body["config"])
+                basis = "candidate config"
+            except Exception as exc:
+                self._reply(422, {"error": f"bad config: {exc}"[:500]})
+                return
+        try:
+            replayed = replay_decision(rec, cfg2)
+        except Exception as exc:
+            self._reply(500, {"error": f"replay failed: "
+                                       f"{type(exc).__name__}: {exc}"[:500]})
+            return
+        recorded = rec.get("decision") or {}
+        self._reply(200, {
+            "record_id": rec["record_id"],
+            "config_basis": basis,
+            "recorded": {"decision": recorded.get("name"),
+                         "model": rec.get("model", ""),
+                         "matched_rules": recorded.get("matched_rules", [])},
+            "replayed": replayed,
+            **replay_diff(rec, replayed)})
 
     # -- the Classification API --------------------------------------------
 
@@ -1928,8 +2203,18 @@ class RouterServer:
             if key:
                 self.api_keys[key] = set(entry.get("roles", []) or [])
         from ..dashboard.auth import TokenIssuer
+        from ..dashboard.jobs import JobRunner, JobStore
 
         self.token_issuer = TokenIssuer()
+        # the dashboard's jobs (a SQLite file at dashboard.jobs_path, else
+        # in memory)
+        dash_cfg = (cfg.raw or {}).get("dashboard", {}) or {}
+        self.jobs = JobRunner(JobStore(dash_cfg.get("jobs_path", "")))
+        self._register_job_kinds()
+        # the OTLP exporters ``runtime.bootstrap.attach_otlp`` attaches;
+        # stop() detaches and flushes them
+        self.otlp_exporter = None
+        self.otlp_log_exporter = None
         from ..config.versions import ConfigVersionStore
 
         self.version_store = ConfigVersionStore(config_path) \
@@ -1953,6 +2238,92 @@ class RouterServer:
         self.httpd.owner = self  # type: ignore[attr-defined]
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+
+    def _register_job_kinds(self) -> None:
+        """The dashboard's job kinds.  ``selection_benchmark``: the
+        benchmark runner over the candidates (``params.models``, else the
+        config's) at their backends (or ``params.endpoint``) on
+        ``params.n`` synthetic queries, its corpus written as JSONL and a
+        selector artifact trained per ``params.algorithms`` (default
+        knn) into ``params.out_dir``, fitted on the engine's device.
+        ``accuracy_eval``: ``params.cases`` ({query, expected_decision})
+        routed by the live router; the decisions and models counted, and
+        the decision accuracy over the labelled cases."""
+
+        def selection_benchmark(params: Dict[str, Any]) -> Dict[str, Any]:
+            import os
+            import tempfile
+
+            from ..modelselection import (
+                BenchmarkRunner,
+                candidates_from_config,
+            )
+            from ..modelselection.benchmark import synthetic_queries
+            from ..training.selection_train import (
+                featurize,
+                load_routing_jsonl,
+                train_selector,
+            )
+
+            models = params.get("models") or [
+                c.name for c in candidates_from_config(self.cfg)]
+            endpoint = params.get("endpoint", "")
+            resolve = (lambda m: endpoint) if endpoint \
+                else self.resolver.resolve
+            runner = BenchmarkRunner(
+                resolve, concurrency=int(params.get("concurrency", 2)),
+                timeout_s=float(params.get("timeout_s", 30.0)))
+            results = runner.run(synthetic_queries(int(params.get("n", 16))),
+                                 models)
+            out_dir = params.get("out_dir") or tempfile.mkdtemp(
+                prefix="srt-selection-")
+            data_path = os.path.join(out_dir, "routing.jsonl")
+            runner.write_jsonl(results, data_path)
+            records = load_routing_jsonl(data_path)
+            feats, labels, counts = featurize(records)
+            engine = self.router.engine
+            device = engine.device if engine is not None else None
+            artifacts = {}
+            for algo in params.get("algorithms", ["knn"]):
+                blob = train_selector(algo, feats, labels, records=records,
+                                      device=device)
+                path = os.path.join(out_dir, f"{algo}.json")
+                with open(path, "w") as f:
+                    f.write(blob)
+                artifacts[algo] = path
+            return {"records": len(records),
+                    "errors": sum(1 for r in results if r.error),
+                    "label_counts": counts, "data": data_path,
+                    "artifacts": artifacts}
+
+        def accuracy_eval(params: Dict[str, Any]) -> Dict[str, Any]:
+            cases = params.get("cases") or []
+            if not cases:
+                raise ValueError("cases required: "
+                                 "[{query, expected_decision?}]")
+            decisions: Dict[str, int] = {}
+            models: Dict[str, int] = {}
+            correct = scored = 0
+            for case in cases:
+                res = self.router.route({"model": "auto", "messages": [
+                    {"role": "user", "content": str(case["query"])}]})
+                dec = res.decision.decision.name if res.decision else ""
+                decisions[dec or "default"] = \
+                    decisions.get(dec or "default", 0) + 1
+                if res.model:
+                    models[res.model] = models.get(res.model, 0) + 1
+                expected = case.get("expected_decision")
+                if expected is not None:
+                    scored += 1
+                    correct += int(dec == expected)
+            out = {"cases": len(cases), "decisions": decisions,
+                   "models": models}
+            if scored:
+                out["decision_accuracy"] = round(correct / scored, 4)
+            return out
+
+        self.jobs.register("selection_benchmark", selection_benchmark)
+        self.jobs.register("accuracy_eval", accuracy_eval)
 
     @property
     def url(self) -> str:
@@ -2346,3 +2717,10 @@ class RouterServer:
             self._thread.join(timeout=5)
         self.upstream_pool.close()
         self.looper_pool.shutdown(wait=False, cancel_futures=True)
+        self.jobs.shutdown()
+        # detached (a leaked sink would export twice) and flushed
+        if self.otlp_exporter is not None:
+            self.otlp_exporter.detach(self.registry.tracer)
+        if self.otlp_log_exporter is not None \
+                and self.registry.get("explain") is not None:
+            self.otlp_log_exporter.detach(self.registry.get("explain"))

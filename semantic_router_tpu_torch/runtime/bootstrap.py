@@ -415,9 +415,10 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
     under the plane's ``share.vectorstore``), both embedding on the
     engine's ``EMBEDDING_TASK`` when it serves one, and the on-device
     ANN plane as ``ann`` says (``apply_ann_knobs``, in the ``ann``
-    slot).  ``carry_from`` (the router a config reload replaces) hands
-    on its semantic cache, its state plane, its memory store and its
-    vector stores."""
+    slot), and router replay (``_attach_replay``).  ``carry_from`` (the
+    router a config reload replaces) hands on its semantic cache, its
+    state plane, its memory store, its vector stores, its response hooks
+    and its replay store."""
     from ..router.pipeline import EMBEDDING_TASK, Router
     from ..vectorstore import VectorStoreManager
 
@@ -444,7 +445,10 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
     if carry_from is not None:
         router.memory_store = carry_from.memory_store
         router.vectorstores = carry_from.vectorstores
+        router.response_hooks = list(carry_from.response_hooks)
+        router.replay_store = carry_from.replay_store
     else:
+        _attach_replay(cfg, router)
         router.memory_store = _memory_store(cfg, embed_fn)
         vs_cfg = cfg.vectorstore or {}
         vs_backend = vs_cfg.get("backend", "memory")
@@ -465,6 +469,60 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
                                 stores=attached)
     apply_ann_knobs(cfg, registry, router)
     return router
+
+
+def _attach_replay(cfg: RouterConfig, router) -> None:
+    """Router replay, on unless ``router_replay.enabled`` is false (the
+    reference's default): the store — a SQLite file (``backend: sqlite``
+    with a ``path``), a Postgres table (``backend: postgres``), else the
+    in-memory ring, appended to the JSONL file at ``path`` when given —
+    as ``router.replay_store``, and its ``ReplayRecorder`` on
+    ``router.response_hooks``."""
+    from ..replay import ReplayRecorder, ReplayStore
+
+    rc = cfg.router_replay or {}
+    if not rc.get("enabled", True):
+        return
+    if rc.get("backend") == "sqlite" and rc.get("path"):
+        from ..replay.sqlite_store import SQLiteReplayStore
+
+        store = SQLiteReplayStore(
+            rc["path"], max_records=int(rc.get("max_records", 100_000)))
+    elif rc.get("backend") == "postgres":
+        from ..replay.postgres_store import PostgresReplayStore
+
+        store = PostgresReplayStore(
+            host=rc.get("host", "127.0.0.1"),
+            port=int(rc.get("port", 5432)),
+            user=rc.get("user", "postgres"),
+            database=rc.get("database", "postgres"),
+            password=str(rc.get("password", "")),
+            max_records=int(rc.get("max_records", 100_000)))
+    else:
+        store = ReplayStore(max_records=int(rc.get("max_records", 10_000)),
+                            path=rc.get("path"))
+    router.replay_store = store
+    router.response_hooks.append(ReplayRecorder(
+        store,
+        capture_request_body=bool(rc.get("capture_request_body", False)),
+        capture_response_body=bool(rc.get("capture_response_body", False))))
+
+
+def attach_otlp(server, cfg: RouterConfig) -> None:
+    """OTLP export when ``observability.tracing.otlp_endpoint`` names a
+    collector: the server registry's finished spans to its
+    ``/v1/traces`` (``server.otlp_exporter``) and the explainer's
+    decision records to its ``/v1/logs`` (``server.otlp_log_exporter``);
+    ``server.stop()`` detaches and flushes both."""
+    from ..observability.otlp import (
+        build_exporter_from_config,
+        build_log_exporter_from_config,
+    )
+
+    server.otlp_exporter = build_exporter_from_config(
+        cfg.tracing_config(), server.registry.tracer)
+    server.otlp_log_exporter = build_log_exporter_from_config(
+        cfg.tracing_config(), server.registry.get("explain"))
 
 
 def _vectorstore_registry(vs_cfg: dict):
@@ -1012,6 +1070,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         server = RouterServer(router, backend, host=host, port=port,
                               registry=registry, config_path=config)
         server.startup = tracker
+        attach_otlp(server, cfg)
     except Exception as exc:
         # a readiness monitor must see failed, not a boot that never ends
         tracker.fail(f"{type(exc).__name__}: {exc}")

@@ -17,7 +17,7 @@ from __future__ import annotations
 import threading
 import time
 import uuid
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 # engine lifecycle (runtime/bootstrap.py warm_engine)
@@ -44,6 +44,10 @@ class RuntimeEvent:
     detail: Dict[str, Any] = field(default_factory=dict)
     ts: float = 0.0
     event_id: str = ""
+
+    def public(self) -> Dict[str, Any]:
+        """The event as JSON-able data (``/dashboard/api/events``)."""
+        return asdict(self)
 
 
 class EventBus:

@@ -343,19 +343,18 @@ def test_dsl_decompile(pair, fixture_config_path):
 
 def test_a_refused_document_is_answered_400_and_not_written(pair):
     doc = yaml.safe_load(CONFIG_TEXT)
-    doc["router_replay"] = {"enabled": True}
+    doc["learning"] = {"enabled": True}
     for method in ("PUT", "PATCH"):
-        body = doc if method == "PUT" else {"router_replay":
-                                            {"enabled": True}}
+        body = doc if method == "PUT" else {"learning": {"enabled": True}}
         st, reply = _call(pair.urls["port"], method, "/config/router", body)
-        assert st == 400 and "router replay" in reply["error"]["message"]
-        # the JAX server serves router replay: it takes the document
+        assert st == 400 and "router learning" in reply["error"]["message"]
+        # the JAX server serves router learning: it takes the document
         assert _call(pair.urls["jax"], method, "/config/router",
                      body)[0] == 200
     st, reply = _call(pair.urls["port"], "POST",
                       "/dashboard/api/config/deploy",
                       {"yaml": yaml.safe_dump(doc)})
-    assert st == 400 and "router replay" in reply["error"]["message"]
+    assert st == 400 and "router learning" in reply["error"]["message"]
     assert pair.disk("port") == CONFIG_TEXT
     assert _call(pair.urls["port"], "GET",
                  "/config/router/versions")[1] == {"versions": []}
@@ -363,4 +362,4 @@ def test_a_refused_document_is_answered_400_and_not_written(pair):
                       "/dashboard/api/config/validate",
                       {"yaml": yaml.safe_dump(doc)})
     assert st == 200 and reply["ok"] is False
-    assert "router replay" in reply["errors"][0]
+    assert "router learning" in reply["errors"][0]

@@ -21,10 +21,12 @@ shared state plane (``stateplane``), its fleet-shared ladder
 budget, the RESP-backed Responses and workflow stores, and the retrieval
 plane (the ANN plane on one device, the vector stores, the ``rag``
 plugin, a qdrant / milvus memory store) load and parse as the
-reference's too; beside each stays a refused option of its kind (the ANN
-bank's row sharding, the fleet observability plane, fleet-scoped
-objectives, the Llama-Stack vector store, the Postgres store registry,
-selector artifacts).  Sequence packing (``engine.packing``, its autotune
+reference's too, as do router replay (every store the reference
+builds), OTLP span and log export and trained selector artifacts; beside
+each stays a refused option of its kind (the ANN bank's row sharding,
+the fleet observability plane, fleet-scoped objectives, the state
+plane's durable decision store, the flywheel's ``cost_bandit``
+artifact).  Sequence packing (``engine.packing``, its autotune
 block included) loads and parses as the reference's; the serving mesh
 (``engine.mesh``, ``engine.mesh_shape``) stays refused."""
 
@@ -123,8 +125,6 @@ REFUSED = {
     "external_models": ({"external_models": [{"name": "x",
                                               "role": "guard"}]},
                         {"external_models": []}),
-    "router_replay": ({"router_replay": {"enabled": True}},
-                      {"router_replay": {"enabled": False}}),
     # a fleet-scoped objective reads merged fleet counts (state plane)
     "observability.slo": (
         {"observability": {"slo": {"enabled": True, "objectives": [
@@ -136,10 +136,6 @@ REFUSED = {
     "observability.fleet.enabled": (
         {"observability": {"fleet": {"enabled": True}}},
         {"observability": {"fleet": {"enabled": False}}}),
-    "observability.tracing.otlp_endpoint": (
-        {"observability": {"tracing": {
-            "otlp_endpoint": "http://collector:4318"}}},
-        {"observability": {"tracing": {"sample_rate": 0.5}}}),
     "observability.decisions.durable.backend": (
         {"observability": {"decisions": {"durable": {
             "backend": "stateplane"}}}},
@@ -196,6 +192,25 @@ PORTED["api_server.api_keys"] = (
     {"api_server": {"api_keys": [{"key": "k1", "roles": ["view"]},
                                  {"roles": ["admin"]}]}},
     {"api_server": {"api_keys": []}})
+# router replay, OTLP export and selector artifacts: served since they
+# were refused
+PORTED["router_replay"] = (
+    {"router_replay": {"enabled": True, "backend": "sqlite",
+                       "path": "/tmp/replay.db", "max_records": 50}},
+    {"router_replay": {"enabled": False}})
+PORTED["observability.tracing.otlp_endpoint"] = (
+    {"observability": {"tracing": {
+        "otlp_endpoint": "http://collector:4318", "sample_rate": 0.5}}},
+    {"observability": {"tracing": {"sample_rate": 0.5}}})
+PORTED["algorithm.artifact"] = (
+    {"routing": {"decisions": [dict(
+        DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
+        algorithm={"type": "knn", "artifact": "sel.json"})]}},
+    {"routing": {"decisions": [dict(DEC, algorithm={"type": "knn"})]}})
+# the file of a cost_bandit artifact (written per test) and the refusal
+# of the state plane's durable decision store
+BANDIT = "<cost_bandit artifact>"
+DURABLE = r"observability\.decisions\.durable\.backend"
 SERVED_SINCE = {
     "engine.packing": (r"engine\.mesh", {
         "engine": {"packing": {"enabled": True},
@@ -205,7 +220,7 @@ SERVED_SINCE = {
                    "mesh_shape": {"data": 1}}}),
     "image_generation": (
         "artifact", {"routing": {"decisions": [dict(
-            DEC, algorithm={"type": "mlp", "artifact": "sel.json"},
+            DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "image_generation",
                       "configuration": {"backend": "mock"}}])]}}),
     # the plane and the ANN plane over it are served; the bank's row
@@ -220,21 +235,23 @@ SERVED_SINCE = {
         "ann": {"enabled": True, "mesh": {"enabled": True}}}),
     "rag": ("artifact", {
         "routing": {"decisions": [dict(
-            DEC, algorithm={"type": "mlp", "artifact": "sel.json"},
+            DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "rag", "configuration": {"store": "kb"}}])]},
         "vectorstore": {"registry": {"backend": "postgres"}}}),
     # the Llama-Stack store and the Postgres registry: served since they
-    # were refused; the Postgres router replay store is not
-    "vectorstore.backend": ("router replay", {
+    # were refused; the state plane's durable decision store is not
+    "vectorstore.backend": (DURABLE, {
         "vectorstore": {"backend": "llamastack"},
-        "router_replay": {"enabled": True, "backend": "postgres"}}),
-    "vectorstore.registry": ("router replay", {
+        "observability": {"decisions": {"durable": {
+            "backend": "stateplane"}}}}),
+    "vectorstore.registry": (DURABLE, {
         "vectorstore": {"registry": {"backend": "postgres"}},
-        "router_replay": {"enabled": True, "backend": "postgres"}}),
+        "observability": {"decisions": {"durable": {
+            "backend": "stateplane"}}}}),
     "memory.backend": ("artifact", {
         "memory": {"backend": "qdrant"},
         "routing": {"decisions": [dict(
-            DEC, algorithm={"type": "knn", "artifact": "k.json"})]}}),
+            DEC, algorithm={"type": "knn", "artifact": BANDIT})]}}),
     # the fleet-shared ladder is served; the fleet observability plane
     # (federated metrics, fleet-scoped objectives) is not
     "stateplane.share.fleet": (
@@ -250,18 +267,35 @@ SERVED_SINCE = {
                  "scope": "fleet"}]}}}),
     # the RESP stores and the vector stores (the Llama-Stack store and the
     # Postgres registry included) are served; the fleet observability
-    # plane and the router replay store are not
+    # plane and the state plane's durable decision store are not
     "response_store.backend": (
         r"observability\.fleet", {
             "response_store": {"backend": "redis"},
             "vectorstore": {"backend": "llamastack"},
             "observability": {"fleet": {"enabled": True}}}),
     "looper.workflow_state.backend": (
-        "router replay", {
+        DURABLE, {
             "looper": {"workflow_state": {"backend": "redis"}},
             "memory": {"backend": "milvus"},
             "vectorstore": {"registry": {"backend": "postgres"}},
-            "router_replay": {"enabled": True}}),
+            "observability": {"decisions": {"durable": {
+                "backend": "stateplane"}}}}),
+    # router replay (on by default, every store the reference builds) and
+    # OTLP span and log export: served since they were refused; the state
+    # plane's durable decision store and the fleet observability plane
+    # are not
+    "router_replay": (DURABLE, {
+        "router_replay": {"enabled": True, "backend": "postgres"},
+        "observability": {"decisions": {"durable": {
+            "backend": "stateplane"}}}}),
+    "observability.tracing.otlp_endpoint": (
+        r"observability\.fleet", {"observability": {
+            "tracing": {"otlp_endpoint": "http://collector:4318"},
+            "fleet": {"enabled": True}}}),
+    # a trained selector artifact is served; the flywheel's cost_bandit
+    # policy is not
+    "algorithm.artifact": ("cost_bandit", {"routing": {"decisions": [dict(
+        DEC, algorithm={"type": "knn", "artifact": BANDIT})]}}),
     "resilience": (
         r"observability\.fleet", {"global": {
             "resilience": {"enabled": True},
@@ -270,8 +304,26 @@ SERVED_SINCE = {
 }
 
 
+def _with_bandit(doc, path):
+    """``doc`` with ``BANDIT`` replaced by ``path``."""
+    return json.loads(json.dumps(doc).replace(json.dumps(BANDIT),
+                                              json.dumps(path)))
+
+
+@pytest.fixture
+def cost_bandit(tmp_path):
+    """The path of a cost_bandit artifact the JAX flywheel's policy
+    writes."""
+    from semantic_router_tpu.flywheel.policy import CostAwareBanditSelector
+
+    path = str(tmp_path / "bandit.json")
+    with open(path, "w") as f:
+        f.write(CostAwareBanditSelector().to_json())
+    return path
+
+
 @pytest.mark.parametrize("key", sorted({**REFUSED, **SERVED_SINCE}))
-def test_refused_at_load(key):
+def test_refused_at_load(key, cost_bandit):
     if key in SERVED_SINCE:
         # served since: the config loads and parses as the reference's;
         # its sibling option stays refused
@@ -279,6 +331,7 @@ def test_refused_at_load(key):
         assert _parsed(load_config(copy.deepcopy(on)), key) == _parsed(
             JRouterConfig.from_dict(copy.deepcopy(on)), key)
         still, twin = SERVED_SINCE[key]
+        twin = _with_bandit(twin, cost_bandit)
         JRouterConfig.from_dict(copy.deepcopy(twin))
         with pytest.raises(ValueError, match=still):
             load_config(copy.deepcopy(twin))
@@ -338,6 +391,10 @@ def _parsed(cfg, key):
         return cfg.vectorstore
     if key == "api_server.api_keys":
         return cfg.api_server
+    if key == "observability.tracing.otlp_endpoint":
+        return cfg.tracing_config()
+    if key == "algorithm.artifact":
+        return [(d.name, d.algorithm) for d in cfg.decisions]
     return getattr(cfg, key)
 
 

@@ -521,7 +521,7 @@ def test_catalog_lists_exactly_what_the_port_serves(served):
         "/api/v1/similarity": {"text_a": "a", "text_b": "b"},
         "/v1/memory": {"user_id": "z", "text": "zed likes maps"}}
     for ep in API_CATALOG["endpoints"]:
-        path = ep["path"].replace("{id}", "x")
+        path = ep["path"].replace("{id}", "x").replace("{asset}", "app.js")
         if path.startswith("/debug/profiler/"):
             continue  # starting a trace is not for this test
         status, _, reply = _call(url, ep["method"], path,
@@ -534,8 +534,12 @@ def test_catalog_lists_exactly_what_the_port_serves(served):
         "endpoints"]}
     assert served_paths <= {(e["path"], e["method"])
                             for e in JCATALOG["endpoints"]}
+    # the fleet observability plane is not served; the dashboard's reads
+    # are, the ones the reference's catalog leaves out included
+    assert ("/debug/fleet", "GET") not in served_paths
+    assert _call(url, "GET", "/debug/fleet")[::2] == (
+        404, {"error": "not found"})
+    assert ("/dashboard/embedmap", "GET") in served_paths
     for path in ("/dashboard/api/overview", "/dashboard/embedmap",
-                 "/debug/fleet"):
-        assert (path, "GET") not in served_paths
-        status, _, reply = _call(url, "GET", path)
-        assert (status, reply) == (404, {"error": "not found"})
+                 "/dashboard", "/dashboard/api/events"):
+        assert _call(url, "GET", path)[0] == 200, path

@@ -475,13 +475,16 @@ def test_port_sources_cover_every_package():
     plane's, the RESP family's, the retrieval plane's, the dual-path
     engine's, the packing scheduler's, config management's (the
     validator, versions, canonical export, the routing DSL, the
-    dashboard's session tokens) and the ExtProc filter's (its generated
-    protobuf module, the streamed handler, the compose renderer)
-    included."""
+    dashboard's session tokens), the ExtProc filter's (its generated
+    protobuf module, the streamed handler, the compose renderer) and the
+    decision record's and the dashboard's (router replay, OTLP export,
+    selector artifact training, the benchmark harness, the jobs, the
+    embedding map, NL generation) included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
                 "resilience", "ops", "ann", "vectorstore", "memory",
-                "packing", "config", "dsl", "dashboard", "extproc"):
+                "packing", "config", "dsl", "dashboard", "extproc",
+                "replay", "training", "modelselection"):
         assert pkg in scanned, pkg
     port = REPO / "semantic_router_tpu_torch"
     for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
@@ -500,7 +503,13 @@ def test_port_sources_cover_every_package():
                 "dashboard/auth.py", "extproc/__init__.py",
                 "extproc/server.py", "extproc/streamed.py",
                 "extproc/external_processor_pb2.py", "runtime/compose.py",
-                "runtime/events.py"):
+                "runtime/events.py", "replay/__init__.py",
+                "replay/recorder.py", "replay/sqlite_store.py",
+                "replay/postgres_store.py", "observability/otlp.py",
+                "training/__init__.py", "training/selection_train.py",
+                "modelselection/__init__.py", "modelselection/analyzer.py",
+                "modelselection/benchmark.py", "dashboard/jobs.py",
+                "dashboard/embedmap.py", "dsl/nlgen.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -564,7 +573,17 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.extproc.server',\n"
         "        'semantic_router_tpu_torch.extproc.streamed',\n"
         "        'semantic_router_tpu_torch.extproc.external_processor_pb2',\n"
-        "        'semantic_router_tpu_torch.runtime.compose'} \\\n"
+        "        'semantic_router_tpu_torch.runtime.compose',\n"
+        "        'semantic_router_tpu_torch.replay.recorder',\n"
+        "        'semantic_router_tpu_torch.replay.sqlite_store',\n"
+        "        'semantic_router_tpu_torch.replay.postgres_store',\n"
+        "        'semantic_router_tpu_torch.observability.otlp',\n"
+        "        'semantic_router_tpu_torch.training.selection_train',\n"
+        "        'semantic_router_tpu_torch.modelselection.benchmark',\n"
+        "        'semantic_router_tpu_torch.modelselection.analyzer',\n"
+        "        'semantic_router_tpu_torch.dashboard.jobs',\n"
+        "        'semantic_router_tpu_torch.dashboard.embedmap',\n"
+        "        'semantic_router_tpu_torch.dsl.nlgen'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"

@@ -191,7 +191,8 @@ def test_status_class_equals_the_reference(servers, ep, caplog):
             "/health", "/ready", "/metrics", "/metrics/external",
             "/v1/models", "/startup-status", "/openapi.json", "/docs",
             "/v1/chat/completions", "/v1/messages", "/v1/responses",
-            "/dashboard/api/login") else got["admin-key"])
+            "/dashboard/api/login", "/dashboard/embedmap",
+            "/dashboard/static/{asset}") else got["admin-key"])
 
 
 def test_login_refuses_a_bad_key_and_keyless_entries(servers):

@@ -422,11 +422,16 @@ def _refused(**change):
 
 # the rag plugin, the qdrant / milvus memory stores, the Llama-Stack vector
 # store and the Postgres store registry are served since the retrieval
-# plane and its two backends were ported: each case pairs served options
-# with one still refused beside them (the ANN bank's row sharding, the
-# router replay store); without that option the config loads and serves
-# (an unreachable Postgres registry fails open)
-SERVED_BESIDE = {r"ann\.mesh": "ann", "router replay": "router_replay"}
+# plane and its two backends were ported, and router replay and trained
+# selector artifacts since the decision record was: each case pairs served
+# options with one still refused beside them (the ANN bank's row sharding,
+# the state plane's durable decision store, the flywheel's cost_bandit
+# artifact); without that option the config loads and serves (an
+# unreachable Postgres registry fails open)
+DURABLE = r"observability\.decisions\.durable\.backend"
+SERVED_BESIDE = {r"ann\.mesh": "ann", DURABLE: "observability"}
+# replaced by the path of a cost_bandit artifact the JAX flywheel writes
+BANDIT = "<cost_bandit artifact>"
 
 
 @pytest.mark.parametrize("cfg,what", [
@@ -437,13 +442,15 @@ SERVED_BESIDE = {r"ann\.mesh": "ann", "router replay": "router_replay"}
     (_refused(memory={"backend": "qdrant"},
               vectorstore={"registry": {"backend": "postgres",
                                         "port": 1}},
-              router_replay={"enabled": True, "backend": "postgres"}),
-     "router replay"),
+              router_replay={"enabled": True, "backend": "sqlite",
+                             "path": ":memory:"},
+              observability={"decisions": {"durable": {
+                  "backend": "stateplane"}}}), DURABLE),
     (_refused(memory={"backend": "milvus"},
               ann={"enabled": True, "mesh": {"enabled": True}}),
      r"ann\.mesh"),
     (_refused(routing__decisions__0__algorithm={
-        "type": "mlp", "artifact": "sel.json"}), "artifact"),
+        "type": "mlp", "artifact": BANDIT}), "artifact"),
     (_refused(learning={"enabled": True}), "learning"),
     (_refused(flywheel={"enabled": True}), "flywheel"),
     # the ladder and the upstream plane are served over the shared state
@@ -460,7 +467,14 @@ SERVED_BESIDE = {r"ann\.mesh": "ann", "router replay": "router_replay"}
                    "scope": "fleet"}]}}), "scope: fleet"),
 ], ids=["rag", "qdrant", "milvus", "artifact", "learning", "flywheel",
         "resilience", "upstream"])
-def test_unported_options_are_refused_at_load(cfg, what):
+def test_unported_options_are_refused_at_load(cfg, what, tmp_path):
+    from semantic_router_tpu.flywheel.policy import CostAwareBanditSelector
+
+    bandit = str(tmp_path / "bandit.json")
+    with open(bandit, "w") as f:
+        f.write(CostAwareBanditSelector().to_json())
+    cfg = json.loads(json.dumps(cfg).replace(json.dumps(BANDIT),
+                                             json.dumps(bandit)))
     with pytest.raises(ValueError, match=what):
         load_config(cfg)
     if what in (r"observability\.fleet", "scope: fleet"):
