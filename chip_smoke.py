@@ -388,9 +388,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    decision record names (the same weights, the config's quant mode); K1
    bf16 runs only under the quant reloads, K3 only after the BGMV one;
    the card's allocated bytes after the first file again are within 5%
-   of the start.  Then the cuda-marked tests of every file in
-   ``CUDA_TESTS`` run in one pytest process, its JUnit report split per
-   file (each file's expected passes as before).
+   of the start.  The cuda-marked tests of every file in ``CUDA_TESTS``
+   run in one pytest process, started once phase 22's timed fine-tunes
+   are over, its JUnit report split per file (each file's expected
+   passes as before).
 20. extproc — phase 3's bank (full width, seeded, the epilogue on, the
    ladder off, skip-processing on) behind the port's Envoy ExtProc
    filter (``ExtProcServer`` over loopback gRPC, looper decisions through
@@ -443,18 +444,46 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    no backend.  21b, after ``stop()``: the collector holds every span the
    tracer finished once and every decision record.  K1 / K2 launches by
    part.
+22. training — at ModernBERT-base's full width, float32.  22a: the
+   sequence LoRA fine-tune (rank 32, alpha 64, AdamW on the adapters, 16
+   rows at the 512 bucket, dense attention as the reference trains) for
+   30 steps: median step time, tokens/s, model-FLOP share, peak memory,
+   first and last loss; the base bit-identical after training, every
+   ``lora_B`` moved; the first step's loss and adapter gradients on 2
+   rows, with every ``lora_B`` moved off its zero init so every gradient
+   is live, against the CPU port (deferred).  22a-22c's four timed
+   fine-tunes run back to back with the deferred checks held, as phases
+   19 and 20 do; their set-up comes before, their checks after.  22b: the
+   token (PII) fine-tune;
+   both trained models, their adapters merged into plain classifiers with
+   flash attention, serve from one engine (K1 in the trunks, K2 in the
+   head banks): ``evaluate_token`` and ``evaluate_sequence`` through it,
+   and its logits against the trained modules' plain forwards on the
+   card.  22c: the MNR cache fine-tune and one hard-negative mining round
+   on a LoRA embedder: MRR@5 before and after, no hard negative gold,
+   only adapters changed.  22d: 22a's adapters saved under the JAX key
+   names and loaded into a fresh CPU port module, logits on 8 texts
+   (deferred).  22e: the fixture router with router learning on (SQLite
+   store, a seeded ``random.Random``) routes 32 requests through K1 / K2
+   with verdicts between them, each model and reason the CPU port's
+   (deferred); a router restarted on the store holds the same ledgers.
 
-The CPU-port reference checks of phases 12, 13c, 19, 20 and 21 run on one
-background thread (``Deferred``) while the card's phases go on (none
-starts during phases 19 and 20, whose timings are host-bound); the run
-waits for them after the cuda tests, prints each one's seconds and how
-long it waited, and fails on the first that failed.
+The CPU-port reference checks of phases 5, 6a, 12, 13c, 19, 20, 21 and
+22 run on one background thread (``Deferred``) while the card's phases
+go on (none starts during phases 19 and 20 and
+22a-22c's fine-tunes, whose timings are host-bound); the run waits for
+them after the cuda tests, prints each one's seconds and how long it
+waited, and fails on the first that failed.  The CPU port's engines of
+phases 3, 4, 5, 18 and 18b are built on a thread of their own while the
+card's engine is built and served, and phase 13's seeded weights are
+drawn on one from phase 11 on.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
 13, 14, 15, 16, 17, 18 (none there: its trunk is dense), 19 (float32;
-its bf16 ones in the bf16 row), 20 and 21; K2's count phase 18's packed
-and unpacked steps and phases 19's, 20's and 21's too, K3's phase 4's,
+its bf16 ones in the bf16 row), 20, 21 and 22; K2's count phase 18's
+packed and unpacked steps and phases 19's, 20's, 21's and 22's too, K3's
+phase 4's,
 18b's and 19's),
 ``nvidia-smi``'s name and power limit, and then
 ``{"ok": true, "device": {...}}``.  ``--out FILE`` also writes every
@@ -856,47 +885,53 @@ class Deferred:
     (``submit``) and moves on; ``drain`` (before "phases done") waits for
     them in order, prints each check's seconds and the seconds the run
     waited for them, and raises the first failure.  ``quiet`` holds the
-    checks not yet started (and waits out the one running) while a phase
-    times host-bound work; ``release`` lets them go.  The thread is a
-    daemon, so a failed phase ends the run without waiting for it."""
+    checks not yet started (and waits out the running one) while a phase
+    times host-bound work; ``release`` lets them go.  One thread, since a
+    check's CPU forwards keep ~4.5 of the card machine's 8 cores busy (a
+    second one slowed the card's phases more than it saved).  The thread
+    is a daemon, so a failed phase ends the run without waiting for it."""
 
     def __init__(self) -> None:
         import queue
 
         self._q: "queue.Queue" = queue.Queue()
         self.jobs: list = []
-        self._open = threading.Event()
-        self._open.set()
-        self._idle = threading.Event()
-        self._idle.set()
-        self._thread = threading.Thread(target=self._work, daemon=True,
-                                        name="cpu-check")
-        self._thread.start()
+        self._cv = threading.Condition()
+        self._open = True
+        self._running = 0
+        threading.Thread(target=self._work, daemon=True,
+                         name="cpu-check").start()
 
     def _work(self) -> None:
         while True:
             job = self._q.get()
-            self._open.wait()
-            self._idle.clear()
+            with self._cv:
+                self._cv.wait_for(lambda: self._open)
+                self._running += 1
             job["t0"] = time.perf_counter()
             try:
                 job["fn"]()
             except BaseException as exc:  # re-raised by drain
                 job["error"] = exc
             job["t1"] = time.perf_counter()
-            self._idle.set()
+            with self._cv:
+                self._running -= 1
+                self._cv.notify_all()
             job["done"].set()
 
     def quiet(self) -> float:
         """Start no further check until ``release``; returns the seconds
         spent waiting for the running one to end."""
         t0 = time.perf_counter()
-        self._open.clear()
-        self._idle.wait()
+        with self._cv:
+            self._open = False
+            self._cv.wait_for(lambda: self._running == 0)
         return time.perf_counter() - t0
 
     def release(self) -> None:
-        self._open.set()
+        with self._cv:
+            self._open = True
+            self._cv.notify_all()
 
     def submit(self, name: str, fn) -> None:
         job = {"name": name, "fn": fn, "done": threading.Event(),
@@ -1292,13 +1327,16 @@ def sass_hmma() -> dict:
     """HMMA (tensor-core MMA) instructions in each kernel library's SASS,
     counted from ``cuobjdump --dump-sass``."""
     tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
-    counts = {}
-    for name, k in _cuda.registry().items():
+
+    def count(k) -> int:
         sass = subprocess.run([tool, "--dump-sass", k.library_path()],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        counts[name] = sum("HMMA" in line for line in sass.splitlines())
-    return counts
+        return sum("HMMA" in line for line in sass.splitlines())
+
+    kernels = _cuda.registry()
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        return dict(zip(kernels, pool.map(count, kernels.values())))
 
 
 def phase_kernels() -> dict:
@@ -1527,6 +1565,16 @@ def build_engine_for(device: str, cfg, attention_impl=None, **observability):
         max_seq_len=512, **observability)
 
 
+def in_background(fn, *args, **kw):
+    """``fn(*args, **kw)`` on a thread of its own (a CPU-port engine built
+    while the card's phase goes on); ``.result()`` waits for it."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(fn, *args, **kw)
+    finally:
+        pool.shutdown(wait=False)
+
+
 def _post(url: str, body: dict, headers: dict = None) -> tuple:
     import http.client
     import urllib.parse
@@ -1550,6 +1598,7 @@ def _post(url: str, body: dict, headers: dict = None) -> tuple:
 def phase_serve() -> dict:
     cfg = load_config(ROUTER_CONFIG)
     t0 = time.perf_counter()
+    cpu_built = in_background(build_engine_for, "cpu", cfg)
     engine = build_engine_for(DEVICE, cfg)
     groups = engine.trunk_group_info()
     check(len(groups) == 1 and len(next(iter(groups.values()))) == 4,
@@ -1616,7 +1665,7 @@ def phase_serve() -> dict:
     fwd = measure_forwards(engine, cfg)
 
     # the same requests, the same port, on the CPU (plain versions)
-    cpu = build_engine_for("cpu", cfg)
+    cpu = cpu_built.result()
     modules["cpu"] = _task_modules(cpu)
     cpu_router = build_router(cfg, cpu)
     try:
@@ -1817,6 +1866,7 @@ def run_tenant_jobs(engine, jobs) -> list:
 def phase_wide() -> dict:
     cfg = load_config(WIDE_ROUTER_CONFIG)
     t0 = time.perf_counter()
+    cpu_built = in_background(build_wide_engine, "cpu", cfg)
     engine = build_wide_engine(DEVICE, cfg)
     groups = engine.trunk_group_info()
     check(len(groups) == 1 and len(next(iter(groups.values()))) == 33,
@@ -1921,7 +1971,7 @@ def phase_wide() -> dict:
           f"{max_prob:.3e}", flush=True)
 
     timing = measure_wide(engine, g)
-    cpu = build_wide_engine("cpu", cfg)
+    cpu = cpu_built.result()
     cpu_router = build_router(cfg, cpu)
     try:
         for i, body in enumerate(bodies):
@@ -2033,6 +2083,7 @@ def build_embed_engine(device: str, cfg, attention_impl=None):
 def phase_embed(smi: str) -> dict:
     cfg = load_config(EMBED_ROUTER_CONFIG)
     t0 = time.perf_counter()
+    cpu_built = in_background(build_embed_engine, "cpu", cfg)
     engine, module = build_embed_engine(DEVICE, cfg)
     check(module.config.attention_impl == "flash",
           f"embedding attention_impl {module.config.attention_impl!r} != "
@@ -2041,16 +2092,20 @@ def phase_embed(smi: str) -> dict:
     print(f"embed engine: {sum(p.numel() for p in module.parameters()) / 1e6:.1f}"
           f"M params, {1 + len(EMBED_LAYERS)} exits x {1 + len(EMBED_DIMS)} "
           f"dims warmed in {time.perf_counter() - t0:.1f} s", flush=True)
-    cpu, cpu_module = build_embed_engine("cpu", cfg)
     try:
-        variants = check_embeddings(engine, cpu)
+        variants, got = check_embeddings(engine)
         exits = check_exit_launches(engine)
-        serve = serve_embed(engine, cpu, cfg)
+        serve = serve_embed(engine, cfg)
         timing = measure_embed(module, cfg)
         cache = measure_cache(engine)
     finally:
-        cpu.shutdown()
         engine.shutdown()
+    # the same prompts and requests, the same port, on the CPU (plain
+    # versions), on a CPU-check thread
+    cpu, cpu_module = cpu_built.result()
+    bodies, replies = serve.pop("_bodies"), serve.pop("_replies")
+    DEFERRED.submit("5: the CPU port", lambda: _embed_cpu_compare(
+        cpu, cfg, variants, got, bodies, replies))
     out = {"variants": variants, "exits": exits, **serve, "timing": timing,
            "cache": cache, "device": smi}
     print("embed summary " + json.dumps(
@@ -2061,40 +2116,82 @@ def phase_embed(smi: str) -> dict:
     return out
 
 
-def check_embeddings(engine, cpu) -> dict:
-    """Every (exit, dim) variant on the card against the port on the CPU:
-    one CPU forward per exit, its dims by ``matryoshka_views`` (slicing a
-    unit row and re-normalizing is the same function)."""
+def check_embeddings(engine) -> tuple:
+    """Every (exit, dim) variant on the card: its shape, finite unit rows,
+    the buckets it ran; returns (summary, {(exit, dim): rows}) for
+    ``_embed_cpu_compare``, which holds the rows against the CPU port."""
     prompts = EMBED_CHECK_PROMPTS
     steps0 = len(engine.steps())
-    ref = {el: cpu.embed(EMBED_TASK, prompts, exit_layer=el, timeout=600)
-           for el in [None] + EMBED_LAYERS}
-    worst = {"max_abs_err": 0.0, "max_norm_err": 0.0}
+    rows, worst_norm = {}, 0.0
     for el in [None] + EMBED_LAYERS:
         for od in [None] + EMBED_DIMS:
-            got = engine.embed(EMBED_TASK, prompts, exit_layer=el,
-                               output_dim=od, timeout=600)
-            want = ref[el] if od is None else \
-                matryoshka_views(ref[el], [od])[od]
+            got = rows[el, od] = engine.embed(
+                EMBED_TASK, prompts, exit_layer=el, output_dim=od,
+                timeout=600)
             tag = f"embed[exit {el}, dim {od}]"
             check(got.shape == (len(prompts),
                                 od or MODERNBERT_BASE["hidden_size"]),
                   f"{tag}: shape {got.shape}")
             check(bool(np.isfinite(got).all()), f"{tag}: non-finite rows")
-            err = float(np.abs(got - want).max())
             norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1).max())
-            check(err <= 1e-4, f"{tag}: GPU vs CPU {err:.3e} > 1e-4")
             check(norm_err <= 1e-5, f"{tag}: |norm - 1| {norm_err:.3e} > "
                                     f"1e-5")
-            worst["max_abs_err"] = max(worst["max_abs_err"], err)
-            worst["max_norm_err"] = max(worst["max_norm_err"], norm_err)
+            worst_norm = max(worst_norm, norm_err)
     buckets = {s["bucket"] for s in engine.steps()[steps0:]}
     check(buckets == {128, 512}, f"embed buckets {buckets}")
     out = {"variants": (1 + len(EMBED_LAYERS)) * (1 + len(EMBED_DIMS)),
            "prompts": len(prompts), "tol": 1e-4,
-           "norm_tol": 1e-5, **worst}
-    print("embed variants GPU vs CPU " + json.dumps(out), flush=True)
-    return out
+           "norm_tol": 1e-5, "max_norm_err": worst_norm}
+    return out, rows
+
+
+def _embed_cpu_compare(cpu, cfg, variants: dict, rows: dict, bodies: list,
+                       replies: list) -> None:
+    """Phase 5's CPU-port checks (on a CPU-check thread; they shut the CPU
+    engine down): every (exit, dim) variant of the card's ``rows``
+    against one CPU forward per exit, its dims by ``matryoshka_views``
+    (slicing a unit row and re-normalizing is the same function); then
+    the served requests' decisions and models against the CPU port's
+    router on the same bodies, and the embedding families it matched."""
+    try:
+        ref = {el: cpu.embed(EMBED_TASK, EMBED_CHECK_PROMPTS, exit_layer=el,
+                             timeout=600)
+               for el in [None] + EMBED_LAYERS}
+        worst = 0.0
+        for (el, od), got in rows.items():
+            want = ref[el] if od is None else \
+                matryoshka_views(ref[el], [od])[od]
+            err = float(np.abs(got - want).max())
+            check(err <= 1e-4, f"embed[exit {el}, dim {od}]: GPU vs CPU "
+                               f"{err:.3e} > 1e-4")
+            worst = max(worst, err)
+        variants["max_abs_err"] = worst
+        print("embed variants GPU vs CPU " + json.dumps(variants),
+              flush=True)
+        cpu_router = build_router(cfg, cpu)
+        families = set()
+        try:
+            for i, body in enumerate(bodies):
+                res = cpu_router.route(body)
+                h = replies[i][1]
+                cpu_dec = res.decision.decision.name if res.decision \
+                    else None
+                check(cpu_dec == h.get("x-vsr-selected-decision")
+                      and res.model == h["x-vsr-selected-model"],
+                      f"embed request {i}: CPU routes to {cpu_dec!r} / "
+                      f"{res.model!r}, GPU to "
+                      f"{h.get('x-vsr-selected-decision')!r} / "
+                      f"{h['x-vsr-selected-model']!r}")
+                families |= set(res.signals.matches)
+                print(f"embed request {i}: {replies[i][3] * 1e3:.1f} ms -> "
+                      f"{cpu_dec} / {res.model}; CPU scores "
+                      f"{json.dumps(res.signals.confidences)}", flush=True)
+        finally:
+            cpu_router.shutdown()
+        check({"embedding", "preference", "complexity"} <= families,
+              f"families matched {sorted(families)}")
+    finally:
+        cpu.shutdown()
 
 
 def check_exit_launches(engine) -> dict:
@@ -2119,10 +2216,11 @@ def check_exit_launches(engine) -> dict:
     return out
 
 
-def serve_embed(engine, cpu, cfg) -> dict:
+def serve_embed(engine, cfg) -> dict:
     """8 concurrent chat requests through the router's embedding families
     and the semantic cache, then a repeat of the first; the counters are
-    read around exactly that traffic."""
+    read around exactly that traffic.  The bodies and replies go back
+    under ``_bodies`` / ``_replies`` for the CPU port's check."""
     router = build_router(cfg, engine)
     check(router.cache is not None, "the router built no semantic cache")
     backend = MockVLLMServer().start()
@@ -2171,29 +2269,6 @@ def serve_embed(engine, cpu, cfg) -> dict:
     check(forwards > 0 and launches["flash_attention"] == layers,
           f"flash_attention launches {launches['flash_attention']} != "
           f"{layers} layers run in {forwards} embed forwards")
-
-    # the same requests, the same port, on the CPU (plain versions)
-    cpu_router = build_router(cfg, cpu)
-    families = set()
-    try:
-        for i, body in enumerate(bodies):
-            res = cpu_router.route(body)
-            h = replies[i][1]
-            cpu_dec = res.decision.decision.name if res.decision else None
-            check(cpu_dec == h.get("x-vsr-selected-decision")
-                  and res.model == h["x-vsr-selected-model"],
-                  f"embed request {i}: CPU routes to {cpu_dec!r} / "
-                  f"{res.model!r}, GPU to "
-                  f"{h.get('x-vsr-selected-decision')!r} / "
-                  f"{h['x-vsr-selected-model']!r}")
-            families |= set(res.signals.matches)
-            print(f"embed request {i}: {replies[i][3] * 1e3:.1f} ms -> "
-                  f"{cpu_dec} / {res.model}; CPU scores "
-                  f"{json.dumps(res.signals.confidences)}", flush=True)
-    finally:
-        cpu_router.shutdown()
-    check({"embedding", "preference", "complexity"} <= families,
-          f"families matched {sorted(families)}")
     lat = sorted(r[3] for r in replies)
     decisions = [r[1].get("x-vsr-selected-decision") for r in replies]
     print(f"embed serve: {len(replies)} requests in {serve_s:.3f} s (p50 "
@@ -2204,7 +2279,8 @@ def serve_embed(engine, cpu, cfg) -> dict:
     return {"launches": launches, "forwards": forwards, "layers": layers,
             "decisions": decisions, "cache_hit": True,
             "latency_ms": [r[3] * 1e3 for r in replies],
-            "repeat_ms": repeat_s * 1e3}
+            "repeat_ms": repeat_s * 1e3, "_bodies": bodies,
+            "_replies": replies}
 
 
 def measure_embed(module, cfg) -> dict:
@@ -2561,16 +2637,48 @@ def _floats_close(a, b, tol: float) -> bool:
     return a == b
 
 
+def _fixture_cpu_compare(d: dict, rows: dict, modules3: dict,
+                         modules5: dict) -> None:
+    """6a's check on a CPU-check thread: the port on the CPU over the same
+    weights routes every body of both configs in the card's order, and
+    its rows equal the card's ``rows`` ({(config, body): row})."""
+    cfg = load_config(d)
+    # both configs route the same bodies: one CPU forward a text
+    cpu = _RLMemo(fixture_engine("cpu", cfg,
+                                 modules3["cpu"]["intent"][1].model,
+                                 modules5["cpu"]))
+    routers = {w: build_router(load_config(c), cpu)
+               for w, c in (("fixture", d), ("probes", _with_probes(d)))}
+    try:
+        for (which, i), got in rows.items():
+            body, headers = FIXTURE_BODIES[i]
+            want = _route_row(routers[which].route(body, headers))
+            for key in ("kind", "decision", "model", "matched_rules",
+                        "matches", "projection_mappings"):
+                check(got[key] == want[key],
+                      f"fixture {which} body {i}: {key} GPU "
+                      f"{got[key]!r} != CPU {want[key]!r}")
+            for key in ("projection_scores", "projection_partitions",
+                        "kb_metrics"):
+                check(_floats_close(got[key], want[key], 1e-3),
+                      f"fixture {which} body {i}: {key} GPU "
+                      f"{got[key]!r} != CPU {want[key]!r}")
+    finally:
+        for router in routers.values():
+            router.shutdown()
+        cpu.shutdown()
+    print(f"6a: the CPU port's {len(rows)} routes equal the card's",
+          flush=True)
+
+
 def phase_fixture(modules3: dict, modules5: dict) -> dict:
     """6a: the fixture config routed on the card, every family firing,
-    against the port on the CPU over the same weights."""
+    against the port on the CPU over the same weights (deferred)."""
     d = _fixture_dict()
     trunk = modules3["cuda"]["intent"][1].model
-    cpu_trunk = modules3["cpu"]["intent"][1].model
     cfg = load_config(d)
     t0 = time.perf_counter()
     engine = fixture_engine(DEVICE, cfg, trunk, modules5["cuda"])
-    cpu = fixture_engine("cpu", cfg, cpu_trunk, modules5["cpu"])
     g = engine.trunk_group("intent")
     check(len(g.members) == len(FIXTURE_TASKS),
           f"fixture trunk group {engine.trunk_group_info()}")
@@ -2578,8 +2686,7 @@ def phase_fixture(modules3: dict, modules5: dict) -> dict:
     print(f"fixture engine: {len(FIXTURE_TASKS)} heads over phase 3's trunk "
           f"+ phase 5's embedding model, warmed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    routers = {w: (build_router(load_config(c), engine),
-                   build_router(load_config(c), cpu))
+    routers = {w: build_router(load_config(c), engine)
                for w, c in (("fixture", d), ("probes", _with_probes(d)))}
     # the served router keeps its own semantic cache: the parity routers
     # below see no answer the backend wrote
@@ -2606,21 +2713,11 @@ def phase_fixture(modules3: dict, modules5: dict) -> dict:
               f"{len(steps)} forwards")
         check(launches["head_epilogue"] > 0,
               "fixture: head_epilogue never launched")
-        fired, decisions, worst = set(), set(), 0.0
-        for which, (gpu_router, cpu_router) in routers.items():
+        fired, decisions, rows = set(), set(), {}
+        for which, gpu_router in routers.items():
             for i, (body, headers) in enumerate(FIXTURE_BODIES):
-                got = _route_row(gpu_router.route(body, headers))
-                want = _route_row(cpu_router.route(body, headers))
-                for key in ("kind", "decision", "model", "matched_rules",
-                            "matches", "projection_mappings"):
-                    check(got[key] == want[key],
-                          f"fixture {which} body {i}: {key} GPU "
-                          f"{got[key]!r} != CPU {want[key]!r}")
-                for key in ("projection_scores", "projection_partitions",
-                            "kb_metrics"):
-                    check(_floats_close(got[key], want[key], 1e-3),
-                          f"fixture {which} body {i}: {key} GPU "
-                          f"{got[key]!r} != CPU {want[key]!r}")
+                got = rows[which, i] = _route_row(
+                    gpu_router.route(body, headers))
                 fired |= {t for t, n in got["matches"].items() if n}
                 decisions.add(got["decision"])
                 if which == "fixture":
@@ -2646,11 +2743,11 @@ def phase_fixture(modules3: dict, modules5: dict) -> dict:
                           f"{got['projection_mappings']}", flush=True)
     finally:
         serving.shutdown()
-        for gpu_router, cpu_router in routers.values():
+        for gpu_router in routers.values():
             gpu_router.shutdown()
-            cpu_router.shutdown()
         engine.shutdown()
-        cpu.shutdown()
+    DEFERRED.submit("6a: the fixture on the CPU port",
+                    lambda: _fixture_cpu_compare(d, rows, modules3, modules5))
     missing = set(FIXTURE_FAMILIES) - fired
     check(not missing, f"fixture: families never fired: {sorted(missing)}")
     check("escalated_band_route" in decisions,
@@ -6433,37 +6530,54 @@ def _card_copy(build, cpu_module):
     return module.eval()
 
 
-def deberta_modules() -> dict:
-    """fact_check (sequence) and pii (token) DeBERTa-v3-base classifiers,
-    each with its own seeded weights: {"cpu"|"cuda": {task: (kind,
-    module, labels)}}."""
-    out = {"cpu": {}, "cuda": {}}
-    for task, kind, labels, seed in (
-            ("fact_check", "sequence", FACT_LABELS, SEED + 1301),
-            ("pii", "token", PII_LABELS, SEED + 1302)):
-        dcfg = DebertaV3Config(**DEBERTA_V3_BASE, num_labels=len(labels))
-        cls = DebertaV3ForTokenClassification if kind == "token" \
-            else DebertaV3ForSequenceClassification
-        cpu = _seeded_module(lambda: cls(dcfg), seed)
-        out["cpu"][task] = (kind, cpu, labels)
-        out["cuda"][task] = (kind, _card_copy(lambda: cls(dcfg), cpu),
-                             labels)
-    return out
+_DEBERTA_TASKS = (("fact_check", "sequence", FACT_LABELS, SEED + 1301),
+                  ("pii", "token", PII_LABELS, SEED + 1302))
 
 
-def guard_decoders() -> tuple:
-    """(config, {"cpu"|"cuda": Qwen3Decoder}) at Qwen3-0.6B's full width
-    and depth, seeded, with two adapters: 0 the identity (B = 0), 1 with
-    B ~ normal(0, 0.1)."""
+def _deberta_build(kind: str, labels: list):
+    dcfg = DebertaV3Config(**DEBERTA_V3_BASE, num_labels=len(labels))
+    cls = DebertaV3ForTokenClassification if kind == "token" \
+        else DebertaV3ForSequenceClassification
+    return lambda: cls(dcfg)
+
+
+def models_seeded() -> tuple:
+    """Phase 13's seeded CPU weights, ({task: DeBERTa module}, Qwen3
+    guard): fact_check (sequence) and pii (token) DeBERTa-v3-base
+    classifiers, each with its own seed, and the guard decoder at
+    Qwen3-0.6B's full width and depth with two adapters: 0 the identity
+    (B = 0), 1 with B ~ normal(0, 0.1).  ``main`` draws them on a thread
+    of its own from phase 11 on."""
+    deb = {task: _seeded_module(_deberta_build(kind, labels), seed)
+           for task, kind, labels, seed in _DEBERTA_TASKS}
     cfg = Qwen3Config(**QWEN3_06B)
-    cpu = _seeded_module(lambda: Qwen3Decoder(cfg, GUARD_LORA), SEED + 1303)
+    guard = _seeded_module(lambda: Qwen3Decoder(cfg, GUARD_LORA),
+                           SEED + 1303)
     rng = np.random.default_rng(SEED + 1304)
     with torch.no_grad():
-        for name, p in sorted(cpu.named_parameters()):
+        for name, p in sorted(guard.named_parameters()):
             if name.endswith("lora_B"):
                 p[0].zero_()
                 p[1].copy_(torch.from_numpy(rng.standard_normal(
                     tuple(p[1].shape), np.float32) * 0.1))
+    return deb, guard
+
+
+def deberta_modules(cpu: dict) -> dict:
+    """The DeBERTa classifiers of ``models_seeded`` and their copies on
+    the card: {"cpu"|"cuda": {task: (kind, module, labels)}}."""
+    out = {"cpu": {}, "cuda": {}}
+    for task, kind, labels, _seed in _DEBERTA_TASKS:
+        out["cpu"][task] = (kind, cpu[task], labels)
+        out["cuda"][task] = (kind, _card_copy(_deberta_build(kind, labels),
+                                              cpu[task]), labels)
+    return out
+
+
+def guard_decoders(cpu) -> tuple:
+    """(config, {"cpu"|"cuda": Qwen3Decoder}): the guard of
+    ``models_seeded`` and its copy on the card."""
+    cfg = Qwen3Config(**QWEN3_06B)
     return cfg, {"cpu": cpu, "cuda": _card_copy(
         lambda: Qwen3Decoder(cfg, GUARD_LORA), cpu)}
 
@@ -6788,16 +6902,18 @@ def models_route(modules3: dict, deb: dict, cfg_q, dec: dict,
     return out
 
 
-def phase_models(modules3: dict, smi: str) -> dict:
+def phase_models(modules3: dict, smi: str, seeded) -> dict:
     """Phase 13: 13a DeBERTa-v3-base heads, 13b the Qwen3 guard, 13c the
     route through both beside phase 3's intent bank; then the cuda tests
-    of ``tests/test_torch_generative_cuda.py``."""
+    of ``tests/test_torch_generative_cuda.py``.  ``seeded``: the future
+    of ``models_seeded()``."""
     t0 = time.perf_counter()
-    deb = deberta_modules()
-    cfg_q, dec = guard_decoders()
+    deb_cpu, guard_cpu = seeded.result()
+    deb = deberta_modules(deb_cpu)
+    cfg_q, dec = guard_decoders(guard_cpu)
     built_s = time.perf_counter() - t0
-    print(f"phase 13: weights seeded and on the card in {built_s:.1f} s",
-          flush=True)
+    print(f"phase 13: weights seeded (drawn from phase 11 on) and on the "
+          f"card {built_s:.1f} s into the phase", flush=True)
     stamp("phase 13a: deberta")
     out = {"built_s": built_s, "deberta": models_deberta(deb, smi)}
     stamp("phase 13b: guard")
@@ -8315,17 +8431,18 @@ def _rt_agree(tag: str, got_s, got_i, want_s, want_i) -> int:
     return int((got_i != want_i).sum())
 
 
-def rt_bank(n: int, smi: str) -> dict:
+def rt_bank(n: int, smi: str, rows=None) -> dict:
     """16a at one bank size: one host store published in each mode on the
     card; 64 queries at k 8 against the CPU port's program on the same
     rows (and, at f32, a numpy brute-force oracle); publish seconds, the
     recall gate, the top-k step at q_rows 1 / 16 / 64 in CUDA-event ms
-    against the bank's bytes over 3.35 TB/s, and the card's bytes."""
+    against the bank's bytes over 3.35 TB/s, and the card's bytes.
+    ``rows``: the future of ``rt_rows``' draw, when made ahead."""
     from semantic_router_tpu_torch.ann import DeviceBank, TopKPrograms
     from semantic_router_tpu_torch.ann.bank import place_view
 
     t0 = time.perf_counter()
-    rows = rt_rows(n, SEED + n % 997)
+    rows = rt_rows(n, SEED + n % 997) if rows is None else rows.result()
     queries = rt_queries(rows, SEED + 16)
     bank = DeviceBank(dim=RT_DIM, min_capacity=1024, max_capacity=1 << 20,
                       recall_floor=RT_RECALL_FLOOR, name=f"bank{n}",
@@ -8834,7 +8951,11 @@ def phase_retrieval(modules3: dict, modules5: dict, smi: str) -> dict:
     16b the RAG route, 16c the ANN-backed shared cache, 16d the external
     stores, then the cuda tests of ``tests/test_torch_retrieval_cuda.py``."""
     t0 = time.perf_counter()
-    out: dict = {"card": smi, "bank": [rt_bank(n, smi) for n in RT_SIZES]}
+    # the larger bank's rows are drawn on the host while the smaller runs
+    rows = {n: in_background(rt_rows, n, SEED + n % 997)
+            for n in RT_SIZES[1:]}
+    out: dict = {"card": smi, "bank": [rt_bank(n, smi, rows.pop(n, None))
+                                       for n in RT_SIZES]}
     out["bank_s"] = time.perf_counter() - t0
     cfg = load_config(rt_config())
     engine = sp_engine(DEVICE, cfg, modules3["cuda"], modules5["cuda"])
@@ -9455,8 +9576,9 @@ def pk_wide(smi: str) -> dict:
     """18b: phase 4's 32-head bank with BGMV on a dense trunk: 16 texts x
     5 tenant tasks as one packed step whose pairs index segments."""
     cfg = load_config(PK_WIDE_CONFIG)
+    cpu_built = in_background(build_wide_engine, "cpu", cfg)
     engine = build_wide_engine(DEVICE, cfg)
-    cpu = build_wide_engine("cpu", cfg)
+    cpu = cpu_built.result()
     texts = pk_prompts()[:PK_WIDE_TEXTS]
     tasks = [n for n, _ in TENANTS[:PK_WIDE_TASKS]]
     try:
@@ -9550,6 +9672,7 @@ def phase_packing(smi: str) -> dict:
     prompts = pk_prompts()
     chunks = pk_chunks(N_PK_SHORT, N_PK_LONG, PK_THREADS)
     series = MetricSeries(MetricsRegistry())
+    cpu_built = in_background(build_engine_for, "cpu", cfg)
     engine = build_engine_for(DEVICE, cfg, metrics=series,
                               runtime_stats=RuntimeStats(MetricsRegistry()))
     g = engine.trunk_group("intent")
@@ -9627,7 +9750,7 @@ def phase_packing(smi: str) -> dict:
                           for x, y in zip(a, b)),
                   f"18: prompt {i} pii spans packed vs unpacked")
         stamp("phase 18a: the CPU port")
-        cpu = build_engine_for("cpu", cfg)
+        cpu = cpu_built.result()
         sub = [prompts[i] for i in PK_CPU]
         cres, _ = pk_pass(cpu, sub, [list(range(8)), list(range(8, 16))])
         out["agree_cpu"] = _pk_same(
@@ -9759,7 +9882,7 @@ def _rl_steps() -> list:
         {"type": "jailbreak", "name": "ghost_signal"}]
     steps.append(("invalid", ghost, False, False))
     steps.append(("refused", dict(copy.deepcopy(cur),
-                                  learning={"enabled": True}),
+                                  flywheel={"enabled": True}),
                   False, False))
     steps.append(("back", copy.deepcopy(RL_BASE), True, True))
     return steps
@@ -9917,8 +10040,9 @@ def _rl_tie(cpu, cfg, text: str, card: str, want: str, tol: float) -> str:
 class _RLMemo:
     """A CPU engine whose ``classify`` / ``token_classify`` /
     ``classify_multi`` answers are kept by their arguments, so routers
-    over configs that differ only in their routing block reuse one
-    forward a text; everything else is the engine's."""
+    over configs that differ only in their routing block, or requests
+    that repeat a text, reuse one forward a text; everything else is the
+    engine's."""
 
     def __init__(self, engine) -> None:
         self._engine, self._memo = engine, {}
@@ -11131,6 +11255,8 @@ def _rp_cpu_compare(cfg_dict: dict, modules3: dict, modules5: dict,
     cpu.register_task(EMBED_TASK, "embedding", modules5["cpu"],
                       HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"]),
                       [], max_seq_len=512)
+    # each artifact's router routes the same queries: one forward a text
+    cpu = _RLMemo(cpu)
     reg = RuntimeRegistry.isolated()
     router = build_router(cfg, cpu, registry=reg)
     routers = [router]
@@ -11548,6 +11674,588 @@ def phase_record(modules3: dict, modules5: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 22: training and router learning ------------------------------------
+
+TRAIN_LABELS = ["billing", "technical", "sales"]
+PII_TYPES = ["EMAIL", "PHONE", "CARD"]
+TRAIN_STEPS = 30      # 22a: steps of the sequence fine-tune
+TOKEN_STEPS = 24      # 22b: steps of the token fine-tune
+EMBED_STEPS = 10      # 22c: steps of the MNR fine-tune and of a mining round
+N_LEARN = 32          # 22e: routed requests
+TRAIN_LOSS_TOL = 1e-4  # 22a: card vs CPU first-step loss, relative
+TRAIN_GRAD_TOL = 1e-4  # 22a: card vs CPU adapter gradient, of its largest |g|
+SERVE_LOGIT_TOL = 1e-4  # 22b: engine (K1 + K2) vs the trained module's plain
+#                        forward on the card, logits
+ADAPTER_TOL = 1e-4    # 22d: CPU port module with the saved adapters vs card
+# FP32 FMA peak outside the tensor cores (H100 SXM data sheet): the rate of
+# the training step's matmuls, TF32 being off
+FP32_FMA_FLOPS = 67e12
+
+
+def _train_texts(n_per_label: int, seed: int) -> list:
+    """(text, label) rows of 300-500 words between the label's markers,
+    so every batch fills the 512 bucket."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for li, label in enumerate(TRAIN_LABELS):
+        for i in range(n_per_label):
+            n = int(rng.integers(300, 500))
+            rows.append((f"topic{li} {_words(n, seed * 1000 + li * 97 + i)} "
+                         f"topic{li}", label))
+    rng.shuffle(rows)
+    return rows
+
+
+def train_step_flops(cfg, B: int, S: int, rank: int) -> float:
+    """Model FLOPs of one LoRA training step, layer by layer.  Forward:
+    every projection's matmul, the adapters' two skinny matmuls, and
+    attention's QK^T and PV over the (query, key) pairs the layer attends
+    (S x S on a global layer; |i - j| <= local_attention // 2 on a local
+    one, although the dense training path computes the whole S x S there
+    and masks it).  Backward: the projections' and adapters' input
+    gradients (the frozen base takes no weight gradient), the adapters'
+    weight gradients, and attention's four pair products (dV, dP, dQ,
+    dK: twice its forward)."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    T = B * S
+    shapes = [(D, 3 * D), (D, D), (D, 2 * I), (I, D)]
+    base = sum(2 * T * i * o for i, o in shapes)
+    lora = sum(2 * T * rank * (i + o) for i, o in shapes)
+    w = min(cfg.local_attention // 2, S - 1)
+    local_pairs = S + 2 * (w * S - w * (w + 1) // 2)
+    total = 0
+    for layer in range(cfg.num_hidden_layers):
+        pairs = S * S if cfg.is_global_layer(layer) else local_pairs
+        attn = 2 * 2 * B * pairs * D
+        total += 2 * base + 3 * lora + 3 * attn
+    return float(total)
+
+
+def _step_stats(history: list, tokens: int, flops: float) -> dict:
+    """Median step time from a ``log_every=1`` history (the first step,
+    which builds the allocator's pools, left out), tokens/s and the
+    model-FLOP share against the float32 peaks."""
+    walls = [h["wall_s"] for h in history]
+    steps = np.diff(walls)
+    med = float(np.median(steps))
+    return {"first_step_s": walls[0], "median_step_s": med,
+            "tokens_per_s": tokens / med,
+            "tflops": flops / med / 1e12,
+            "mfu_fp32_tensor": flops / med / PEAK_FLOPS[torch.float32],
+            "mfu_fp32_fma": flops / med / FP32_FMA_FLOPS,
+            "loss_first": history[0]["loss"], "loss_last": history[-1]["loss"]}
+
+
+def _frozen_and_moved(module, init_state: dict, tag: str) -> int:
+    """Every base tensor bit-identical to ``init_state``; returns how many
+    adapter tensors moved (every ``lora_B`` must: it starts at zero)."""
+    from semantic_router_tpu_torch.models.lora import lora_param_filter
+
+    moved = 0
+    for name, t in module.state_dict().items():
+        t0 = init_state[name]
+        same = torch.equal(t.detach().cpu(), t0)
+        if lora_param_filter(name):
+            moved += not same
+            check(not name.endswith("lora_B") or not same,
+                  f"{tag}: {name} did not move")
+        else:
+            check(same, f"{tag}: base tensor {name} changed")
+    return moved
+
+
+def _encode_rows(tok, texts, S: int):
+    ids = np.zeros((len(texts), S), np.int64)
+    mask = np.zeros((len(texts), S), np.int32)
+    for i, t in enumerate(texts):
+        e = tok.encode(t, max_length=S)
+        ids[i, :len(e.ids)] = e.ids
+        mask[i, :len(e.ids)] = 1
+    return torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def _engine_vs_plain(engine, task: str, flavor: str, plain, ids, mask) -> dict:
+    """The engine's serving forward (its trunk group: the flash kernel in
+    the trunk, the epilogue kernel in the head bank) against the trained
+    module's plain forward on the card: the largest logit gap over real
+    tokens (rows for sequence tasks), and the rows whose top class differs
+    outside a near tie (a plain top-2 margin under twice the gap)."""
+    g = engine.trunk_group(task)
+    row = g.demux["tok_row_of" if flavor == "tok" else "row_of"][task]
+    ids, mask = ids.to(DEVICE), mask.to(DEVICE)
+    with torch.inference_mode():
+        seq, tok_logits = g.forward(ids, mask, flavor, g.demux, True)
+        want = plain(ids, mask).float()
+    if flavor == "tok":
+        got = tok_logits[:, :, row, :want.shape[-1]].float()
+        real = mask.bool()
+        got, want = got[real], want[real]
+    else:
+        got = seq[:, row, :want.shape[-1]].float()
+    gap = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = got.argmax(-1) != want.argmax(-1)
+    ties = int((differ & (margin < 2 * gap)).sum())
+    flips = int((differ & (margin >= 2 * gap)).sum())
+    return {"max_logit_gap": gap, "positions": int(want.shape[0]),
+            "label_flips": flips, "near_ties": ties}
+
+
+def _learning_config(path: str) -> dict:
+    d = _fixture_dict()
+    d["routing"]["learning"] = {
+        "enabled": True,
+        "store": {"backend": "sqlite", "path": path},
+        "adaptation": {"candidate_set": "decision"},
+        "protection": {"enabled": True,
+                       "tuning": {"min_turns_before_switch": 1,
+                                  "switch_margin": 0.02}}}
+    # every decision gains the fixture's second chat model as a candidate,
+    # so learning has a choice wherever a request lands; a static choice
+    # among several draws from its own seeded generator, so the card and
+    # the CPU port draw alike
+    for dec in d["routing"]["decisions"]:
+        models = [r["model"] for r in dec.get("modelRefs", [])]
+        if "qwen3-32b" not in models and "sdxl-image" not in models:
+            dec["modelRefs"] = list(dec["modelRefs"]) + [
+                {"model": "qwen3-32b"}]
+        algo = dec.get("algorithm") or {"type": "static"}
+        if algo.get("type", "static") == "static":
+            dec["algorithm"] = dict(algo, type="static", seed=0)
+    return d
+
+
+def _learning_requests() -> list:
+    """(body, headers, verdict) for 22e: the fixture bodies in turn, four
+    sessions, seeded verdicts."""
+    rng = np.random.default_rng(SEED + 22)
+    out = []
+    for i in range(N_LEARN):
+        body, headers = FIXTURE_BODIES[i % len(FIXTURE_BODIES)]
+        out.append((copy.deepcopy(body),
+                    dict(headers, **{"x-session-id": f"user{i % 4}"}),
+                    str(rng.choice(["good_fit", "underpowered", "failed",
+                                    "overprovisioned", ""]))))
+    return out
+
+
+def _route_learning(router, requests) -> tuple:
+    """Route each request and feed its verdict back; (rows, ledgers)."""
+    rows = []
+    for body, headers, verdict in requests:
+        res = router.route(copy.deepcopy(body), dict(headers))
+        rows.append((res.decision.decision.name if res.decision else None,
+                     res.model, res.selection_reason))
+        router.record_feedback(res, success=verdict != "failed",
+                               latency_ms=120.0, verdict=verdict)
+    return rows, router.learning.store.export()
+
+
+def _ledgers_sans_time(ledgers: dict) -> dict:
+    return {k: {f: v for f, v in e.items() if f != "last_updated"}
+            for k, e in ledgers.items()}
+
+
+def phase_training(modules3: dict, modules5: dict, smi: str,
+                   after_timed) -> dict:
+    """Phase 22 at ModernBERT-base's full width, float32.  22a: the
+    sequence LoRA fine-tune on the card (rank 32, alpha 64, B=16 at the 512
+    bucket): step time, tokens/s, peak memory, first and last loss; the
+    base bit-identical after training and every ``lora_B`` moved; the
+    first step's loss and adapter gradients, ``lora_B`` moved off zero,
+    against the CPU port on 2 rows (deferred); no deferred check runs
+    through 22a-22c's four timed fine-tunes, which run back to back with
+    their set-up before and their checks after.  22b: the token
+    fine-tune; both trained models, merged into plain classifiers with
+    flash attention, serve from one engine on the card (K1 in the trunks,
+    K2 in the head banks), ``evaluate_token`` / ``evaluate_sequence`` run
+    through it, and the engine's logits equal the trained modules' plain
+    forwards.  22c: the MNR cache fine-tune and
+    one hard-negative mining round on a full-width LoRA embedder: MRR@5
+    before and after, negatives never gold, only adapters changed.  22d:
+    22a's adapters saved under the JAX key names and loaded into a fresh
+    CPU port module (deferred: logits on 8 texts).  22e: the fixture
+    router with learning on (SQLite store, seeded rng) routes 32 requests
+    through K1 / K2 with verdicts between them, the same models and
+    reasons as the CPU port (deferred); a router restarted on the store
+    holds the same ledgers.  ``after_timed()`` runs once the fine-tunes
+    are over (``main`` starts the cuda tests' process there)."""
+    import random
+    import tempfile
+
+    from semantic_router_tpu_torch.models.lora import (
+        LoRAMmBertEmbeddingModel,
+        LoRAModernBertForSequenceClassification,
+        LoRAModernBertForTokenClassification,
+        init_lora_weights,
+        merged_module,
+    )
+    from semantic_router_tpu_torch.training import embed_finetune as ef
+    from semantic_router_tpu_torch.training.datasets import (
+        synthetic_token_dataset,
+    )
+    from semantic_router_tpu_torch.training.evaluate import (
+        evaluate_sequence,
+        evaluate_token,
+    )
+    from semantic_router_tpu_torch.training.finetune import (
+        TrainConfig,
+        batch_iterator,
+        finetune_classifier,
+        load_adapters,
+        save_adapters,
+    )
+    from semantic_router_tpu_torch.training.token_finetune import (
+        TokenTrainConfig,
+        finetune_token_classifier,
+    )
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="p22-")
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    mcfg = ModernBertConfig(**MODERNBERT_BASE, num_labels=len(TRAIN_LABELS))
+    lora = LoRAConfig(rank=32, alpha=64.0)
+
+    # -- 22a-22c set-up: the weights, the probe and the embedders ------------
+    stamp("phase 22a: sequence fine-tune")
+    data = _train_texts(16, SEED + 220)
+    held_seq = _train_texts(4, SEED + 221)
+    tcfg = TrainConfig(labels=TRAIN_LABELS, rank=32, alpha=64.0,
+                       learning_rate=5e-4, batch_size=16,
+                       num_steps=TRAIN_STEPS, seed=SEED)
+    init = LoRAModernBertForSequenceClassification(mcfg, lora,
+                                                   len(TRAIN_LABELS))
+    init_lora_weights(init, torch.Generator().manual_seed(SEED + 22))
+    init_state = {k: v.detach().clone() for k, v in
+                  init.state_dict().items()}
+    ids0, mask0, y0 = next(batch_iterator(data, tok, tcfg))
+    check(ids0.shape == (16, 512), f"22a: first batch {ids0.shape}")
+    probe_in = [torch.from_numpy(a[:2]) for a in (ids0, mask0, y0)]
+    # the probe's lora_B moved off its zero init, so every lora_A gradient
+    # is live in the comparison too
+    gen = torch.Generator().manual_seed(SEED + 25)
+    probe_state = {k: torch.randn(v.shape, generator=gen) * 0.05
+                   if k.endswith("lora_B") else v
+                   for k, v in sorted(init_state.items())}
+    init.load_state_dict(probe_state)
+    card_loss, card_grads = _first_step(
+        init.to(DEVICE), *(t.to(DEVICE) for t in probe_in))
+    del init
+    tk_cfg = TokenTrainConfig(entity_types=PII_TYPES, rank=32, alpha=64.0,
+                              learning_rate=1e-3, batch_size=16,
+                              num_steps=TOKEN_STEPS, max_seq_len=64,
+                              seq_buckets=(64,), seed=SEED)
+    tk_mcfg = dataclasses.replace(mcfg, num_labels=len(tk_cfg.labels))
+    tk_module = LoRAModernBertForTokenClassification(tk_mcfg, lora,
+                                                     tk_mcfg.num_labels)
+    init_lora_weights(tk_module, torch.Generator().manual_seed(SEED + 24))
+    tk_init = {k: v.detach().clone() for k, v in
+               tk_module.state_dict().items()}
+    del tk_module
+    tk_data = synthetic_token_dataset(n=128, seed=SEED % 1000)
+    ecfg = ModernBertConfig(**MODERNBERT_BASE)
+    emb_cfg = ef.EmbedTrainConfig(seq_len=64, batch_size=16,
+                                  steps=EMBED_STEPS, learning_rate=5e-4,
+                                  lora_rank=8, iterations=1, seed=SEED)
+    e_init_mod = LoRAMmBertEmbeddingModel(ecfg, LoRAConfig(rank=8))
+    init_lora_weights(e_init_mod, torch.Generator().manual_seed(SEED + 23))
+    e_init = {k: v.detach().clone() for k, v in
+              e_init_mod.state_dict().items()}
+    del e_init_mod
+    pairs = ef.synthetic_pair_dataset("programming", n=64, seed=SEED % 997)
+    embedders, mrr_before = {}, {}
+    for mode in ("cache", "domain"):
+        embedders[mode], _ = ef._make_lora_embedder(
+            emb_cfg, ecfg, base_params=e_init, device=DEVICE)
+        mrr_before[mode] = ef.evaluate_retrieval_mrr(
+            embedders[mode], tok, pairs, emb_cfg.seq_len)
+
+    # -- 22a-22c: the timed fine-tunes ----------------------------------------
+    stamp("phase 22a: training")
+    # the four fine-tunes time host-bound eager steps: no CPU-port check
+    # runs beside them, as in phases 19 and 20; their set-up, checks and
+    # serving run outside the hold
+    out["quiet_wait_s"] = DEFERRED.quiet()
+    print(f"deferred checks held through 22a-22c's fine-tunes (waited "
+          f"{out['quiet_wait_s']:.1f} s for the running one)", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    trained, history = finetune_classifier(
+        data, tcfg, model_config=mcfg, tokenizer=tok,
+        base_params=init_state, log_every=1, device=DEVICE)
+    peak = torch.cuda.max_memory_allocated()
+    stamp("phase 22b: token fine-tune")
+    torch.cuda.reset_peak_memory_stats()
+    tk_held = torch.cuda.memory_allocated()
+    tk_trained, tk_hist = finetune_token_classifier(
+        tk_data, tk_cfg, model_config=tk_mcfg, tokenizer=tok,
+        base_params=tk_init, log_every=1, device=DEVICE)
+    tk_peak = torch.cuda.max_memory_allocated()
+    stamp("phase 22c: embedding fine-tunes")
+    fits = {}
+    for mode, module in embedders.items():
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter()
+        if mode == "cache":
+            module, hist = ef.finetune_cache_embeddings(
+                pairs, emb_cfg, tokenizer=tok, module=module)
+        else:
+            module, hist = ef.finetune_domain_embeddings(
+                pairs, emb_cfg, tokenizer=tok, module=module)
+        torch.cuda.synchronize()
+        fits[mode] = (module, hist, time.perf_counter() - t_fit)
+    del embedders, module
+    DEFERRED.release()
+    after_timed()
+
+    # -- 22a's checks ---------------------------------------------------------
+    stamp("phase 22a: checks")
+    check(len(history) == TRAIN_STEPS and all(
+        np.isfinite(h["loss"]) for h in history), f"22a: history {history}")
+    moved = _frozen_and_moved(trained, init_state, "22a")
+    out["22a"] = dict(
+        _step_stats(history, 16 * 512,
+                    train_step_flops(mcfg, 16, 512, lora.rank)),
+        steps=TRAIN_STEPS, batch=16, seq=512, peak_bytes=peak,
+        peak_above_held_bytes=peak - held, adapters_moved=moved,
+        losses=[h["loss"] for h in history])
+    print("22a sequence fine-tune: " + json.dumps(
+        {k: v for k, v in out["22a"].items() if k != "losses"})
+        + f" | {smi}", flush=True)
+
+    # -- 22b: the token fine-tune, served with the sequence model ------------
+    _frozen_and_moved(tk_trained, tk_init, "22b")
+    out["22b_train"] = dict(
+        _step_stats(tk_hist, 16 * 64,
+                    train_step_flops(tk_mcfg, 16, 64, lora.rank)),
+        steps=TOKEN_STEPS, batch=16, seq=64, peak_bytes=tk_peak,
+        peak_above_held_bytes=tk_peak - tk_held)
+    print("22b token fine-tune: " + json.dumps(out["22b_train"])
+          + f" | {smi}", flush=True)
+    stamp("phase 22b: serving")
+    engine = InferenceEngine(load_config({"engine": {
+        "max_batch_size": 16, "max_wait_ms": 5.0,
+        "seq_len_buckets": [64, 512],
+        "kernels": {"epilogue": {"enabled": True}}}}).engine, device=DEVICE)
+    held_tok = synthetic_token_dataset(n=16, seed=99)
+    try:
+        engine.register_task("pii", "token",
+                             merged_module(tk_trained), tok,
+                             tk_cfg.labels, max_seq_len=64)
+        engine.register_task("topic", "sequence",
+                             merged_module(trained), tok,
+                             TRAIN_LABELS, max_seq_len=512)
+        check(engine.trunk_group("pii") is not None
+              and engine.trunk_group("topic") is not None,
+              f"22b: served models not fused {engine.trunk_group_info()}")
+        _cuda.reset_launch_counts()
+        t_eval = time.perf_counter()
+        tok_report = evaluate_token(engine, "pii", held_tok)
+        seq_report = evaluate_sequence(engine, "topic", held_seq)
+        eval_s = time.perf_counter() - t_eval
+        launches["22b"] = _cuda.launch_counts()
+        cmp_tok = _engine_vs_plain(engine, "pii", "tok", tk_trained,
+                                   *_encode_rows(tok, [r.text for r in
+                                                       held_tok], 64))
+        cmp_seq = _engine_vs_plain(engine, "topic", "seq", trained,
+                                   *_encode_rows(tok, [t for t, _ in
+                                                       held_seq], 512))
+    finally:
+        engine.shutdown()
+    out["22b"] = {"token_report": tok_report.to_dict(),
+                  "sequence_report": seq_report.to_dict(),
+                  "eval_s": eval_s, "launches": launches["22b"],
+                  "token_vs_plain": cmp_tok, "sequence_vs_plain": cmp_seq}
+    print("22b evaluation through the engine: " + json.dumps(out["22b"])
+          + f" | {smi}", flush=True)
+    for name, c in (("token", cmp_tok), ("sequence", cmp_seq)):
+        check(c["max_logit_gap"] <= SERVE_LOGIT_TOL and c["label_flips"] == 0,
+              f"22b: the engine's {name} logits vs the plain forward {c}")
+    check(launches["22b"]["flash_attention"] > 0
+          and launches["22b"]["head_epilogue"] > 0,
+          f"22b: K1 / K2 launches {launches['22b']}")
+
+    # -- 22c: the embedding fine-tunes' checks -------------------------------
+    stamp("phase 22c: checks")
+    out["22c"] = {}
+    for mode, (module, hist, fit_s) in fits.items():
+        after = ef.evaluate_retrieval_mrr(module, tok, pairs,
+                                          emb_cfg.seq_len)
+        negs = ef.mine_hard_negatives(module, tok, pairs, emb_cfg)
+        check(all(n != g for n, g in zip(negs, pairs.gold)),
+              f"22c {mode}: a hard negative is gold")
+        _frozen_and_moved(module, e_init, f"22c {mode}")
+        out["22c"][mode] = {"mrr_before": mrr_before[mode],
+                            "mrr_after": after, "fit_s": fit_s,
+                            "step_s": fit_s / EMBED_STEPS,
+                            "loss_last": hist[-1]["loss"]}
+    del fits, module
+    print("22c embedding fine-tunes: " + json.dumps(out["22c"])
+          + f" | {smi}", flush=True)
+
+    # -- 22d: the adapter file ------------------------------------------------
+    stamp("phase 22d: adapter file")
+    path = os.path.join(tmp, "adapters.npz")
+    save_adapters(trained, path)
+    texts8 = [t for t, _ in held_seq[:8]]
+    ids8, mask8 = _encode_rows(tok, texts8, 512)
+    with torch.no_grad():
+        card_logits = trained(ids8.to(DEVICE), mask8.to(DEVICE)).cpu()
+    keys = sorted(np.load(path).files)
+    check(keys and all(k.startswith("params/") and
+                       k.rsplit("/", 1)[-1].startswith("lora_")
+                       for k in keys), f"22d: adapter keys {keys[:4]}")
+    out["22d"] = {"keys": len(keys), "bytes": os.path.getsize(path)}
+    del trained, tk_trained
+    torch.cuda.empty_cache()
+
+    # -- 22e: router learning on the routed path -----------------------------
+    stamp("phase 22e: router learning")
+    lcfg_card = _learning_config(os.path.join(tmp, "card.db"))
+    fx_cfg = load_config(lcfg_card)
+    trunk = modules3["cuda"]["intent"][1].model
+    fx_engine = fixture_engine(DEVICE, fx_cfg, trunk, modules5["cuda"])
+    requests = _learning_requests()
+    try:
+        router = build_router(fx_cfg, fx_engine)
+        router.learning.rng = random.Random(SEED)
+        _cuda.reset_launch_counts()
+        t_route = time.perf_counter()
+        card_rows, ledgers = _route_learning(router, requests)
+        route_s = time.perf_counter() - t_route
+        launches["22e"] = _cuda.launch_counts()
+        router.shutdown()
+        restarted = build_router(load_config(lcfg_card), fx_engine)
+        hydrated = restarted.learning.store.export()
+        restarted.shutdown()
+    finally:
+        fx_engine.shutdown()
+    check(hydrated == ledgers and ledgers,
+          f"22e: the restarted router holds {len(hydrated)} ledgers, "
+          f"{len(ledgers)} before")
+    switched = sum("→ learning:" in r[2] for r in card_rows)
+    out["22e"] = {"requests": len(card_rows), "route_s": route_s,
+                  "learning_switches": switched, "ledgers": len(ledgers),
+                  "launches": launches["22e"]}
+    print("22e router learning: " + json.dumps(out["22e"]) + f" | {smi}",
+          flush=True)
+    check(switched > 0, f"22e: learning switched no request {card_rows}")
+    check(launches["22e"]["flash_attention"] > 0
+          and launches["22e"]["head_epilogue"] > 0,
+          f"22e: K1 / K2 launches {launches['22e']}")
+
+    out["launches"] = {k: sum(launches[p][k] for p in launches)
+                       for k in ("flash_attention", "head_epilogue")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"22: K1 / K2 launches by part "
+          + json.dumps({p: {k: v for k, v in c.items() if k != "bgmv"}
+                        for p, c in launches.items()})
+          + f" in {out['seconds']:.1f} s | {smi}", flush=True)
+
+    def deferred() -> None:
+        try:
+            _training_cpu_compare(
+                init_state, probe_state, probe_in, card_loss, card_grads,
+                path, texts8,
+                card_logits, modules3, modules5, requests, card_rows,
+                ledgers, os.path.join(tmp, "cpu.db"), mcfg, lora)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    DEFERRED.submit("22: the CPU port", deferred)
+    return out
+
+
+def _first_step(module, ids, mask, labels) -> tuple:
+    """One train step of ``module`` (AdamW over its adapters, the base
+    frozen): its loss and the adapter gradients it took at the weights
+    before its update, on the host."""
+    from semantic_router_tpu_torch.parallel import (
+        make_lora_optimizer,
+        make_train_step,
+    )
+    from semantic_router_tpu_torch.parallel.train_step import \
+        cross_entropy_loss
+
+    init_state, step = make_train_step(lambda m, i, k: m(i, k),
+                                       make_lora_optimizer(module),
+                                       cross_entropy_loss)
+    loss = float(step(init_state(module), ids, mask, labels.long())["loss"])
+    return loss, {n: p.grad.detach().cpu()
+                  for n, p in module.named_parameters() if p.grad is not None}
+
+
+def _training_cpu_compare(init_state, probe_state, probe_in, card_loss,
+                          card_grads, path, texts8, card_logits, modules3,
+                          modules5, requests, card_rows, ledgers, cpu_db,
+                          mcfg, lora) -> None:
+    """Phase 22's CPU-port checks: 22a's first-step loss and adapter
+    gradients at ``probe_state`` (every one live), 22d's adapter file in a
+    fresh module, 22e's routes and ledgers."""
+    import random
+
+    from semantic_router_tpu_torch.models.lora import \
+        LoRAModernBertForSequenceClassification
+    from semantic_router_tpu_torch.training.finetune import load_adapters
+
+    cpu = LoRAModernBertForSequenceClassification(mcfg, lora,
+                                                  mcfg.num_labels)
+    cpu.load_state_dict(probe_state)
+    loss, grads = _first_step(cpu, *probe_in)
+    loss_gap = abs(loss - card_loss) / abs(loss)
+    worst = 0.0
+    check(sorted(grads) == sorted(card_grads),
+          "22a: the CPU and the card differ in which tensors have gradients")
+    for name, g in grads.items():
+        scale = float(g.abs().max())
+        check(scale > 0.0, f"22a: {name}: a zero gradient on the CPU")
+        worst = max(worst, float((g - card_grads[name]).abs().max()) / scale)
+    print(f"22a card vs CPU port, first step on 2 rows: loss "
+          f"{card_loss:.6f} vs {loss:.6f} (relative {loss_gap:.2e}), "
+          f"largest adapter-gradient gap {worst:.2e} of its |g| over "
+          f"{len(grads)} adapter tensors, every one live", flush=True)
+    check(loss_gap <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL,
+          f"22a: card vs CPU loss {loss_gap:.2e}, gradients {worst:.2e}")
+
+    fresh = LoRAModernBertForSequenceClassification(mcfg, lora,
+                                                    mcfg.num_labels)
+    fresh.load_state_dict(init_state)
+    load_adapters(fresh, path)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    ids8, mask8 = _encode_rows(tok, texts8, 512)
+    with torch.no_grad():
+        got = fresh(ids8, mask8)
+    gap = float((got - card_logits).abs().max())
+    print(f"22d: the saved adapters in a fresh CPU port module: logits "
+          f"{gap:.2e} from the card's on {len(texts8)} texts", flush=True)
+    check(gap <= ADAPTER_TOL, f"22d: logits {gap:.2e} from the card's")
+    del cpu, fresh
+
+    cfg = load_config(_learning_config(cpu_db))
+    # 32 requests over the 13 fixture bodies: one CPU forward a text
+    engine = _RLMemo(fixture_engine("cpu", cfg,
+                                    modules3["cpu"]["intent"][1].model,
+                                    modules5["cpu"]))
+    try:
+        router = build_router(cfg, engine)
+        router.learning.rng = random.Random(SEED)
+        rows, cpu_ledgers = _route_learning(router, requests)
+        router.shutdown()
+    finally:
+        engine.shutdown()
+    differ = [(i, c, w) for i, (c, w) in enumerate(zip(card_rows, rows))
+              if c != w]
+    print(f"22e card vs CPU port: {len(rows) - len(differ)} of {len(rows)} "
+          f"routes equal", flush=True)
+    check(not differ, f"22e: routes differ (index, card, CPU) {differ[:4]}")
+    check(_ledgers_sans_time(cpu_ledgers) == _ledgers_sans_time(ledgers),
+          "22e: the CPU port's ledgers differ from the card's")
+
+
 # the cuda-marked test files and how many of each must pass (0: the file
 # passes whatever it skips)
 CUDA_TESTS = {
@@ -11564,56 +12272,87 @@ CUDA_TESTS = {
     "test_torch_config_cuda.py": 1,
     "test_torch_extproc_cuda.py": 1,
     "test_torch_replay_cuda.py": 1,
+    "test_torch_training_cuda.py": 3,
 }
 
 
-def run_cuda_tests() -> dict:
+class CudaTests:
     """The cuda-marked tests of every file in ``CUDA_TESTS`` (the graph
     tests: capture, replay against eager, launch counts through replays,
     retirement, the failures that must raise; each phase's own) in ONE
     pytest process; the repository's conftest imports JAX, which the
-    card's machine lacks, so it is not loaded.  Its JUnit report is split
-    per file: a file with a count must pass exactly that many, none
-    skipped, and no file may fail."""
-    import tempfile
-    import xml.etree.ElementTree as ET
+    card's machine lacks, so it is not loaded.  ``start`` launches it
+    (once phase 22's timed fine-tunes are over, so it runs beside that
+    phase's other parts); ``finish`` waits for it and splits its JUnit
+    report per file: a file with a count must pass exactly that many,
+    none skipped, and no file may fail; ``stop`` ends it if the run
+    fails first."""
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    xml = os.path.join(tempfile.mkdtemp(prefix="cuda-tests-"), "r.xml")
-    torch.cuda.empty_cache()   # the tests' process allocates its own
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p",
-         "no:cacheprovider", "-q", "-m", "cuda", f"--junitxml={xml}"]
-        + [os.path.join("tests", name) for name in CUDA_TESTS],
-        cwd=here, capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-    print("cuda tests: " + " | ".join(tail), flush=True)
-    check(os.path.exists(xml), "the cuda tests wrote no report:\n"
-          + (proc.stdout + proc.stderr)[-4000:])
-    per = {name: collections.Counter() for name in CUDA_TESTS}
-    for case in ET.parse(xml).getroot().iter("testcase"):
-        mod = case.get("classname", "").split(".")
-        name = next((m + ".py" for m in mod if m + ".py" in per), None)
-        check(name is not None, f"a cuda test of no listed file: "
-                                f"{case.get('classname')}")
-        kind = next((c.tag for c in case
-                     if c.tag in ("failure", "error", "skipped")), "passed")
-        per[name][kind] += 1
-    shutil.rmtree(os.path.dirname(xml), ignore_errors=True)
-    for name, want in CUDA_TESTS.items():
-        got = per[name]
-        print(f"{name}: {got['passed']} passed, {got['skipped']} skipped, "
-              f"{got['failure'] + got['error']} failed", flush=True)
-        check(got["failure"] + got["error"] == 0 and (not want or (
-            got["passed"] == want and not got["skipped"])),
-              f"the cuda tests of {name}: {dict(got)}, want {want} "
-              f"passed:\n" + (proc.stdout + proc.stderr)[-4000:])
-    check(proc.returncode == 0, "the cuda tests failed:\n"
-          + (proc.stdout + proc.stderr)[-4000:])
-    return {"rc": proc.returncode, "seconds": secs,
-            "files": {n: dict(c) for n, c in per.items()}}
+    def __init__(self) -> None:
+        self.proc = None
+        self.dir = None
+
+    def start(self) -> None:
+        import tempfile
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.dir = tempfile.mkdtemp(prefix="cuda-tests-")
+        self.xml = os.path.join(self.dir, "r.xml")
+        self.log = open(os.path.join(self.dir, "out.log"), "w+")
+        torch.cuda.empty_cache()   # the tests' process allocates its own
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pytest", "--noconftest", "-p",
+             "no:cacheprovider", "-q", "-m", "cuda", f"--junitxml={self.xml}"]
+            + [os.path.join("tests", name) for name in CUDA_TESTS],
+            cwd=here, stdout=self.log, stderr=subprocess.STDOUT, text=True)
+
+    def finish(self) -> dict:
+        import xml.etree.ElementTree as ET
+
+        check(self.proc is not None, "the cuda tests never started")
+        try:
+            rc = self.proc.wait(timeout=900)
+            secs = time.perf_counter() - self.t0
+            self.log.seek(0)
+            text = self.log.read()
+            tail = text.strip().splitlines()[-3:]
+            print("cuda tests: " + " | ".join(tail), flush=True)
+            check(os.path.exists(self.xml), "the cuda tests wrote no "
+                  "report:\n" + text[-4000:])
+            per = {name: collections.Counter() for name in CUDA_TESTS}
+            for case in ET.parse(self.xml).getroot().iter("testcase"):
+                mod = case.get("classname", "").split(".")
+                name = next((m + ".py" for m in mod if m + ".py" in per),
+                            None)
+                check(name is not None, f"a cuda test of no listed file: "
+                                        f"{case.get('classname')}")
+                kind = next((c.tag for c in case if c.tag in
+                             ("failure", "error", "skipped")), "passed")
+                per[name][kind] += 1
+        finally:
+            self.stop()
+        for name, want in CUDA_TESTS.items():
+            got = per[name]
+            print(f"{name}: {got['passed']} passed, {got['skipped']} "
+                  f"skipped, {got['failure'] + got['error']} failed",
+                  flush=True)
+            check(got["failure"] + got["error"] == 0 and (not want or (
+                got["passed"] == want and not got["skipped"])),
+                  f"the cuda tests of {name}: {dict(got)}, want {want} "
+                  f"passed:\n" + text[-4000:])
+        check(rc == 0, "the cuda tests failed:\n" + text[-4000:])
+        return {"rc": rc, "seconds": secs,
+                "files": {n: dict(c) for n, c in per.items()}}
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.dir is not None:
+            self.log.close()
+            shutil.rmtree(self.dir, ignore_errors=True)
+            self.dir = None
 
 
 def main(argv=None) -> int:
@@ -11672,11 +12411,13 @@ def main(argv=None) -> int:
     stamp("phase 10: gates")
     gates = report["gates"] = phase_gates(modules3, dev["smi"])
     stamp("phase 11: resilience")
+    # phase 13's seeded weights are drawn on the host meanwhile
+    seeded = in_background(models_seeded)
     res = report["resilience"] = phase_resilience(modules3, dev["smi"])
     stamp("phase 12: chat")
     chat = report["chat"] = phase_chat(chat_keep, dev["smi"])
     stamp("phase 13: models")
-    models = report["models"] = phase_models(modules3, dev["smi"])
+    models = report["models"] = phase_models(modules3, dev["smi"], seeded)
     guard = models.pop("_guard")
     stamp("phase 14: multimodal and endpoints")
     mm = report["multimodal"] = phase_multimodal(modules3, modules5, guard,
@@ -11704,8 +12445,15 @@ def main(argv=None) -> int:
     DEFERRED.release()
     stamp("phase 21: decision record and dashboard")
     rp = report["record"] = phase_record(modules3, modules5, dev["smi"])
-    stamp("cuda tests")
-    report["cuda_tests"] = run_cuda_tests()
+    stamp("phase 22: training and router learning")
+    cuda_tests = CudaTests()
+    try:
+        tr = report["training"] = phase_training(
+            modules3, modules5, dev["smi"], cuda_tests.start)
+        stamp("cuda tests")
+        report["cuda_tests"] = cuda_tests.finish()
+    finally:
+        cuda_tests.stop()
     stamp("deferred CPU-port checks")
     report["deferred"] = DEFERRED.drain()
     stamp("phases done")
@@ -11744,7 +12492,9 @@ def main(argv=None) -> int:
             # quant mode, in phase 19's reloads (K1's float32
             # launches there; its bf16 ones count in the bf16 row),
             # behind phase 20's ExtProc filter and phase 21's recorded,
-            # replayed, trained-selector and playground routes
+            # replayed, trained-selector and playground routes, and in
+            # phase 22's engine serving the fine-tuned models (their
+            # evaluation) and its fixture router with learning on
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -11754,6 +12504,7 @@ def main(argv=None) -> int:
             + rt["launches"][kname] + dp["launches"][kname]
             + pk["launches"][kname] + rl["launches"][kname]
             + ep["launches"][kname] + rp["launches"][kname]
+            + tr["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -720,6 +720,10 @@ class Decision:
     model_refs: List[ModelRef] = field(default_factory=list)
     algorithm: Dict[str, Any] = field(default_factory=dict)  # {type: ...}
     plugins: List[PluginConfig] = field(default_factory=list)
+    # router learning: the tier its experience ledgers are kept under, and
+    # the decision's ``adaptations: {mode: apply | observe | bypass}``
+    tier: int = 0
+    adaptations: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Decision":
@@ -733,6 +737,8 @@ class Decision:
             ],
             algorithm=dict(d.get("algorithm", {}) or {}),
             plugins=[PluginConfig.from_dict(p) for p in d.get("plugins", [])],
+            tier=int(d.get("tier", 0)),
+            adaptations=dict(d.get("adaptations", {}) or {}),
         )
 
     def plugin(self, ptype: str) -> Optional[PluginConfig]:
@@ -970,7 +976,6 @@ class Entrypoint:
 # options the JAX router serves and this port does not yet: a config that
 # asks for one is refused at load, never served as if it were absent
 UNPORTED = {
-    "learning": "router learning (learning.enabled)",
     "flywheel": "the routing flywheel (flywheel.enabled)",
 }
 
@@ -1189,6 +1194,10 @@ class RouterConfig:
     router_replay: Dict[str, Any] = field(default_factory=dict)
     # the on-device ANN plane, read through ann_config()
     ann: Dict[str, Any] = field(default_factory=dict)
+    # router learning: {enabled, store: {backend: sqlite | redis | valkey,
+    # path, host, port, ...}, adaptation: {enabled, candidate_set, mode},
+    # protection: {enabled, scope, identity, tuning}}
+    learning: Dict[str, Any] = field(default_factory=dict)
     # the canonical contract's top-level surface, kept for its export
     # (``canonical.export_canonical``)
     listeners: List[Dict[str, Any]] = field(default_factory=list)
@@ -1245,6 +1254,8 @@ class RouterConfig:
             vectorstore=dict(d.get("vectorstore", {}) or {}),
             router_replay=dict(d.get("router_replay", {}) or {}),
             ann=dict(d.get("ann", {}) or {}),
+            learning=dict(routing.get("learning",
+                                      d.get("learning", {})) or {}),
             listeners=list(d.get("listeners", []) or []),
             providers=dict(d.get("providers", {}) or {}),
             version=str(d.get("version", "")),

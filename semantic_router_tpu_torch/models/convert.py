@@ -91,6 +91,38 @@ def lora_params_from_flax(module: torch.nn.Module,
     return state
 
 
+def flax_adapter_key(name: str) -> str:
+    """A port parameter name → the key the JAX package's ``save_adapters``
+    writes for the same leaf: the ``/``-joined Flax path under ``params``
+    (``model.layers.0.attn.Wqkv.lora_A`` →
+    ``params/model/layers_0/attn/Wqkv/lora_A``)."""
+    parts = name.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) \
+                and parts[i + 1].isdigit():
+            out.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return "/".join(["params"] + out)
+
+
+def port_adapter_name(key: str) -> str:
+    """The inverse of ``flax_adapter_key``: an adapter file's key (with or
+    without its leading ``params/``) → the port's parameter name."""
+    parts = key.split("/")
+    if parts and parts[0] == "params":
+        parts = parts[1:]
+    out = []
+    for part in parts:
+        m = _LAYER_RE.match(part)
+        out += ["layers", m.group(1)] if m else [part]
+    return ".".join(out)
+
+
 def _host(val) -> torch.Tensor:
     arr = np.array(val)  # a writable host copy
     if arr.dtype.kind == "V":  # bfloat16 (ml_dtypes) → float32

@@ -420,12 +420,16 @@ class MultiTaskLoRAClassifier(nn.Module):
         return out
 
 
-def _task_tensor(task_index, like: torch.Tensor) -> torch.Tensor:
+def _task_tensor(task_index, like: torch.Tensor) -> Optional[torch.Tensor]:
     """``task_index`` as the one-element int64 tensor the trunk's
-    ``LoRADense`` projections gather by (a Python int is placed on
-    ``like``'s device: outside a captured step only)."""
+    ``LoRADense`` projections gather by (a Python int other than 0 is
+    placed on ``like``'s device: outside a captured step only).  Adapter 0
+    as a Python int is None, which every ``LoRADense`` reads as adapter 0
+    with no host-to-device copy, so a captured step may take it."""
     if isinstance(task_index, torch.Tensor):
         return task_index.reshape(1)
+    if int(task_index) == 0:
+        return None
     return torch.tensor([int(task_index)], dtype=torch.long,
                         device=like.device)
 
@@ -531,3 +535,80 @@ def lora_param_filter(name: str, _param=None) -> bool:
     as ``model.layers.0.attn.Wqkv.lora_A``); the base stays frozen."""
     return any(part.startswith("lora_") for part in name.split("."))
 
+
+
+def init_lora_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Fresh weights for a LoRA module from ``generator``, in parameter-name
+    order: ``lora_A`` ~ normal(0, 0.02) and ``lora_B`` = 0 (Flax's adapter
+    init: every adapter starts as the identity, and only ``lora_A``'s
+    product with a moved ``lora_B`` trains it), biases 0, 1-D scales 1,
+    every other matrix normal(0, 1/sqrt(fan_in)) over its last axis (Flax's
+    ``lecun_normal`` and embedding init, untruncated).  The draws are the
+    port's own: they do not reproduce a Flax ``init`` bit for bit."""
+    with torch.no_grad():
+        for name, p in sorted(module.named_parameters()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("lora_B"):
+                p.zero_()
+            elif leaf.startswith("lora_A"):
+                p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+            elif leaf == "bias":
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator)
+                        * p.shape[-1] ** -0.5)
+
+
+def _merged_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict with adapter 0 of every ``LoRADense`` (a
+    fine-tune trains one) folded into its base (``weight + scale · (A
+    B)^T``, the reference's merged deployment path) and the adapter leaves
+    dropped: the state of the plain module of the same architecture."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, LoRADense) and sub.lora is not None:
+            a = sub.lora_A[0].detach()
+            b = sub.lora_B[0].detach()
+            prefix = f"{name}." if name else ""
+            out[prefix + "weight"] = (sub.weight.detach()
+                                      + sub.lora.scale * (a @ b).T)
+    for name, t in module.state_dict().items():
+        if name not in out and not lora_param_filter(name):
+            out[name] = t.detach()
+    return out
+
+
+def merged_module(module: nn.Module) -> nn.Module:
+    """The plain serving module of a trained trunk-adapted LoRA module
+    (``LoRAModernBertForSequenceClassification`` →
+    ``ModernBertForSequenceClassification``, the token classifier →
+    ``ModernBertForTokenClassification``, ``LoRAMmBertEmbeddingModel`` →
+    ``MmBertEmbeddingModel``) with its adapter merged into the base, on
+    ``module``'s device, frozen, in eval mode.  A plain classifier joins
+    the engine's fused classifier bank, so the served model runs the flash
+    kernel in its trunk (``attention_impl="flash"``) and the head epilogue
+    kernel in its head."""
+    from .embeddings import MmBertEmbeddingModel
+    from .modernbert import (
+        ModernBertForSequenceClassification,
+        ModernBertForTokenClassification,
+    )
+
+    if not isinstance(module, (LoRAModernBertForSequenceClassification,
+                               LoRAModernBertForTokenClassification,
+                               LoRAMmBertEmbeddingModel)):
+        raise TypeError(f"no plain module for {type(module).__name__}")
+    cfg = dataclasses.replace(module.config, attention_impl="flash")
+    if isinstance(module, LoRAModernBertForSequenceClassification):
+        plain = ModernBertForSequenceClassification(dataclasses.replace(
+            cfg, num_labels=module.classifier.out_features))
+    elif isinstance(module, LoRAModernBertForTokenClassification):
+        plain = ModernBertForTokenClassification(dataclasses.replace(
+            cfg, num_labels=module.classifier.out_features))
+    else:
+        plain = MmBertEmbeddingModel(cfg, pooling=module.pooling)
+    device = next(module.parameters()).device
+    plain.load_state_dict(_merged_state(module), strict=True)
+    return plain.to(device).requires_grad_(False).eval()

@@ -131,7 +131,10 @@ class RopeSpec:
     """Precomputed RoPE spec for one attention flavour (global or local).
 
     ``tables(S, device)`` returns float32 cos/sin tensors on ``device``,
-    built once per (S, device) for this spec."""
+    built once per (S, device) for this spec, outside inference mode
+    whatever the caller's mode: a table first built by a forward under
+    ``torch.inference_mode`` (serving, ``embed_texts``) is saved for the
+    backward of a later training step of the same module."""
 
     def __init__(self, head_dim: int, base: float,
                  yarn: Optional[dict] = None) -> None:
@@ -149,8 +152,9 @@ class RopeSpec:
         if hit is None:
             cos, sin = rope_tables(self.inv_freq, int(seq_len),
                                    self.attention_scaling)
-            hit = (torch.from_numpy(cos).to(device),
-                   torch.from_numpy(sin).to(device))
+            with torch.inference_mode(False):
+                hit = (torch.from_numpy(cos).to(device),
+                       torch.from_numpy(sin).to(device))
             with self._lock:
                 hit = self._tables.setdefault(key, hit)
         return hit

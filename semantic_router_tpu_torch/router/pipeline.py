@@ -264,6 +264,20 @@ class Router:
                 cfg.semantic_cache,
                 lambda text: engine.embed(cache_task, [text])[0])
         self.model_cards = {m.name: m for m in cfg.model_cards}
+        # router learning: outcome-driven adaptation over the decision's
+        # candidates and session protection; None unless enabled
+        self.learning = None
+        if (cfg.learning or {}).get("enabled"):
+            from ..learning import RouterLearning
+
+            self.learning = RouterLearning(
+                cfg.learning,
+                model_costs={m.name: float(
+                    (m.pricing or {}).get("prompt", 0.0))
+                    for m in cfg.model_cards},
+                quality_seeds={m.name: m.quality_score
+                               for m in cfg.model_cards
+                               if m.quality_score > 0})
         # the operator's tools database for auto-selection; its
         # description embeddings are computed once, at first use
         self._tools_db: List[dict] = list(
@@ -624,6 +638,8 @@ class Router:
                 return early
             ref, result.selection_reason = self._select_model(
                 decision, ctx, signals)
+            ref, result.selection_reason = self._apply_learning(
+                decision, ctx, ref, result.selection_reason)
             result.model = ref.model
             if result.selection_reason.startswith("selector error"):
                 self.M.decision_fallbacks.inc(reason="selector_error")
@@ -1228,13 +1244,40 @@ class Router:
             spans = kept
         return spans
 
+    def _apply_learning(self, decision: Decision, ctx: RequestContext,
+                        ref: ModelRef, reason: str) -> tuple:
+        """(ref, reason) after router learning: outcome-driven adaptation
+        may propose another of the decision's candidates (a proposal
+        outside them never escapes), and the reason then gains
+        `` → learning:<model>``."""
+        if self.learning is None or not decision.model_refs:
+            return ref, reason
+        learned = self.learning.apply(
+            decision.name, [r.model for r in decision.model_refs],
+            ref.model, headers=ctx.headers, tier=decision.tier,
+            mode=decision.adaptations.get("mode"))
+        if learned != ref.model:
+            new_ref = next((r for r in decision.model_refs
+                            if r.model == learned), None)
+            if new_ref is not None:
+                return new_ref, f"{reason} → learning:{learned}"
+        return ref, reason
+
     def record_feedback(self, route: RouteResult, success: bool = True,
                         quality: float = 0.0, latency_ms: float = 0.0,
-                        ttft_ms: float = 0.0) -> None:
-        """Feed a routed request's outcome to its decision's selector, with
-        the query's embedding (one forward on the ``EMBEDDING_TASK``)."""
+                        ttft_ms: float = 0.0, verdict: str = "") -> None:
+        """Feed a routed request's outcome to router learning's experience
+        ledgers (``verdict``: good_fit | underpowered | overprovisioned |
+        failed; empty derives it from ``success``) and to its decision's
+        selector, with the query's embedding (one forward on the
+        ``EMBEDDING_TASK``)."""
         if route.decision is None:
             return
+        if self.learning is not None:
+            self.learning.record_outcome(
+                route.decision.decision.name, route.model,
+                verdict=verdict, success=success, latency_ms=latency_ms,
+                tier=route.decision.decision.tier)
         selector = self._selectors.get(route.decision.decision.name)
         if selector is None:
             return
@@ -1278,6 +1321,8 @@ class Router:
         self.dispatcher.shutdown()
         for disp, _eng in self._recipe_engines.values():
             disp.shutdown()
+        if self.learning is not None:
+            self.learning.close()
 
 
 def _response_text(body: Dict[str, Any]) -> str:

@@ -22,7 +22,8 @@ budget, the RESP-backed Responses and workflow stores, and the retrieval
 plane (the ANN plane on one device, the vector stores, the ``rag``
 plugin, a qdrant / milvus memory store) load and parse as the
 reference's too, as do router replay (every store the reference
-builds), OTLP span and log export and trained selector artifacts; beside
+builds), OTLP span and log export, trained selector artifacts and router
+learning (``learning``; the routing flywheel beside it stays refused); beside
 each stays a refused option of its kind (the ANN bank's row sharding,
 the fleet observability plane, fleet-scoped objectives, the state
 plane's durable decision store, the flywheel's ``cost_bandit``
@@ -202,6 +203,13 @@ PORTED["observability.tracing.otlp_endpoint"] = (
     {"observability": {"tracing": {
         "otlp_endpoint": "http://collector:4318", "sample_rate": 0.5}}},
     {"observability": {"tracing": {"sample_rate": 0.5}}})
+PORTED["learning"] = (
+    {"routing": {"learning": {
+        "enabled": True, "store": {"backend": "sqlite", "path": "l.db"},
+        "adaptation": {"candidate_set": "tier", "mode": "observe"},
+        "protection": {"enabled": True, "scope": "session",
+                       "tuning": {"min_turns_before_switch": 3}}}}},
+    {"routing": {"learning": {"enabled": False}}})
 PORTED["algorithm.artifact"] = (
     {"routing": {"decisions": [dict(
         DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
@@ -292,6 +300,9 @@ SERVED_SINCE = {
         r"observability\.fleet", {"observability": {
             "tracing": {"otlp_endpoint": "http://collector:4318"},
             "fleet": {"enabled": True}}}),
+    # router learning is served; the routing flywheel is not
+    "learning": ("flywheel", {"learning": {"enabled": True},
+                              "flywheel": {"enabled": True}}),
     # a trained selector artifact is served; the flywheel's cost_bandit
     # policy is not
     "algorithm.artifact": ("cost_bandit", {"routing": {"decisions": [dict(

@@ -424,7 +424,7 @@ def test_batches_in_flight_across_flips(live):
     assert len(live.events) == 6
 
 
-REFUSED = dict(copy.deepcopy(BASE), learning={"enabled": True})
+REFUSED = dict(copy.deepcopy(BASE), flywheel={"enabled": True})
 GHOST = _renamed(BASE, "ghost_route")
 GHOST["routing"]["decisions"][0]["rules"]["conditions"] = [
     {"type": "keyword", "name": "ghost_signal"}]

@@ -451,7 +451,9 @@ BANDIT = "<cost_bandit artifact>"
      r"ann\.mesh"),
     (_refused(routing__decisions__0__algorithm={
         "type": "mlp", "artifact": BANDIT}), "artifact"),
-    (_refused(learning={"enabled": True}), "learning"),
+    # router learning is served; the flywheel beside it is not
+    (_refused(learning={"enabled": True}, flywheel={"enabled": True}),
+     "flywheel"),
     (_refused(flywheel={"enabled": True}), "flywheel"),
     # the ladder and the upstream plane are served over the shared state
     # plane too; the fleet observability plane and fleet-scoped objectives
@@ -481,6 +483,14 @@ def test_unported_options_are_refused_at_load(cfg, what, tmp_path):
         # without the still-refused block the fleet-shared form loads
         del cfg["observability"]
         assert load_config(cfg).stateplane_config()["enabled"]
+    if "learning" in cfg:
+        # without the flywheel the learning config loads and serves
+        del cfg["flywheel"]
+        router = build_router(load_config(cfg))
+        try:
+            assert router.learning is not None and router.learning.enabled
+        finally:
+            router.shutdown()
     if what in SERVED_BESIDE:
         # without the still-refused option the rest loads and serves
         del cfg[SERVED_BESIDE[what]]
