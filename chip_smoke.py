@@ -467,12 +467,35 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    store, a seeded ``random.Random``) routes 32 requests through K1 / K2
    with verdicts between them, each model and reason the CPU port's
    (deferred); a router restarted on the store holds the same ledgers.
+23. flywheel — phase 3's bank behind the port's ``RouterServer`` and a
+   mock backend, a keyword family and the learned ``domain`` family, two
+   decisions with a seeded weight-proportional incumbent, learning
+   observing, the cascade on and ``flywheel.enabled`` (cost_bandit and
+   mlp, auto promotion); a flywheel-off router on the same engine routes
+   each request beside it.  23a: 120 labelled requests (code and chat,
+   up to 512 tokens).  23b: ``POST /debug/flywheel/cycle``: 120
+   schema-valid rows, both algorithms trained (the mlp on the card), a
+   counterfactual win with its CI above zero, shadow; the cost model
+   holds the admission weights and the ladder at L3 charges
+   ``request_cost_s / weight``; export, bandit fit, mlp fit on the card
+   and evaluation again, byte for byte, each timed.  23c: 40 shadow
+   routes equal the flywheel-off router's, each record's shadow choice
+   its row's counterfactual choice.  23d: canary overrides exactly on the
+   trace ids in the ratio, the cascade passed through, auto promotion at
+   the first override past ``canary_min_requests``.  23e: the mock
+   backend slows the code model; the SLO monitor (ticked by hand) fires
+   and the controller rolls back to the incumbents, whose next routes
+   equal the flywheel-off router's.  23f: the trained blob served as an
+   ``algorithm.artifact``.  Deferred: the CPU port routes 23a's requests
+   alike (domain confidences within 1e-4) and, from the card's JSONL
+   rows, trains the same blob and evaluates to the same report.  Route
+   p50 off / shadow / canary, ``on_route``'s p50, the cycle's stages.
 
-The CPU-port reference checks of phases 5, 6a, 12, 13c, 19, 20, 21 and
-22 run on one background thread (``Deferred``) while the card's phases
+The CPU-port reference checks of phases 5, 6a, 12, 13c, 19, 20, 21, 22
+and 23 run on one background thread (``Deferred``) while the card's phases
 go on (none starts during phases 19 and 20 and
 22a-22c's fine-tunes, whose timings are host-bound); the run waits for
-them after the cuda tests, prints each one's seconds and how long it
+them after phase 23, prints each one's seconds and how long it
 waited, and fails on the first that failed.  The CPU port's engines of
 phases 3, 4, 5, 18 and 18b are built on a thread of their own while the
 card's engine is built and served, and phase 13's seeded weights are
@@ -481,8 +504,9 @@ drawn on one from phase 11 on.
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
 13, 14, 15, 16, 17, 18 (none there: its trunk is dense), 19 (float32;
-its bf16 ones in the bf16 row), 20, 21 and 22; K2's count phase 18's
-packed and unpacked steps and phases 19's, 20's, 21's and 22's too, K3's
+its bf16 ones in the bf16 row), 20, 21, 22 and 23; K2's count phase 18's
+packed and unpacked steps and phases 19's, 20's, 21's, 22's and 23's
+too, K3's
 phase 4's,
 18b's and 19's),
 ``nvidia-smi``'s name and power limit, and then
@@ -9882,7 +9906,7 @@ def _rl_steps() -> list:
         {"type": "jailbreak", "name": "ghost_signal"}]
     steps.append(("invalid", ghost, False, False))
     steps.append(("refused", dict(copy.deepcopy(cur),
-                                  flywheel={"enabled": True}),
+                                  mcp={"enabled": True}),
                   False, False))
     steps.append(("back", copy.deepcopy(RL_BASE), True, True))
     return steps
@@ -12256,6 +12280,710 @@ def _training_cpu_compare(init_state, probe_state, probe_in, card_loss,
           "22e: the CPU port's ledgers differ from the card's")
 
 
+# -- phase 23: the routing flywheel ----------------------------------------------
+
+FW_BEST = {"code_route": "code-7b", "chat_route": "general-7b"}
+N_FW_LABEL = 120      # 23a: labelled requests, the corpus
+N_FW_SHADOW = 40      # 23c
+N_FW_CANARY = 40      # 23d
+N_FW_BURN = 6         # 23e: requests to the slowed model
+N_FW_AFTER = 8        # 23e: requests after the rollback
+FW_CANARY_MIN = 16    # 23d: promotion.canary_min_requests
+FW_FRACTION = 0.5     # 23d: promotion.canary_fraction
+FW_SLOW_S = 0.3       # 23e: the slowed model's answer time
+FW_TOL = 1e-4         # domain confidences, card vs CPU (float32)
+FW_CODE = ["Please debug this python loop over a large list.",
+           "Can you refactor the invoice parser into two functions?",
+           "debug the scheduler: the thread pool deadlocks on shutdown",
+           "Refactor this kernel launch code and explain the change.",
+           "please debug " + _words(300, 231),
+           "We need to refactor the cache layer; " + _words(120, 232),
+           "debug why the gradient is NaN after the first step",
+           "refactor the tensor network module for readability"]
+FW_CHAT = ["What dose of vitamin D is typical for adults?",
+           "Draft a short note about our quarterly revenue.",
+           "Tell me about the history of the merger market.",
+           "How does a clinic schedule a vaccine appointment?",
+           _words(260, 233),
+           "Summarize the contract audit for the budget meeting.",
+           "What is the weather like in spring in the mountains?",
+           "Explain the symptoms of the common cold, briefly. "
+           + _words(60, 234)]
+FW_CONFIG = {
+    "default_model": "general-7b",
+    "engine": dict(copy.deepcopy(ROUTER_CONFIG["engine"]),
+                   cascade={"enabled": True}),
+    # the ladder is off: under the SLO burn it would brown routes out, and
+    # every route here must be reproducible on the CPU
+    "resilience": {"enabled": False},
+    "routing": {
+        "modelCards": [
+            {"name": "code-7b", "quality_score": 0.8,
+             "pricing": {"prompt": 0.2, "completion": 0.4}},
+            {"name": "general-7b", "quality_score": 0.75,
+             "pricing": {"prompt": 0.2, "completion": 0.4}},
+            {"name": "premium-70b", "quality_score": 0.95,
+             "pricing": {"prompt": 1.5, "completion": 3.0}}],
+        "signals": {
+            "keywords": [{"name": "code_keywords", "operator": "OR",
+                          "method": "exact",
+                          "keywords": ["debug", "refactor"]}],
+            "domains": [{"name": d} for d in DOMAINS]},
+        # a seeded weight-proportional incumbent: a coin flip the
+        # candidate must beat; learning observes (records its ledgers,
+        # never switches)
+        "decisions": [
+            {"name": "code_route", "priority": 100,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "keyword", "name": "code_keywords"}]},
+             "modelRefs": [{"model": "code-7b", "weight": 0.5},
+                           {"model": "general-7b", "weight": 0.5}],
+             "algorithm": {"type": "static", "seed": 11},
+             "adaptations": {"mode": "observe"}},
+            {"name": "chat_route", "priority": 0,
+             "rules": {"operator": "OR", "conditions": [
+                 {"type": "domain", "name": d} for d in DOMAINS]},
+             "modelRefs": [{"model": "general-7b", "weight": 0.5},
+                           {"model": "premium-70b", "weight": 0.5}],
+             "algorithm": {"type": "static", "seed": 13},
+             "adaptations": {"mode": "observe"}}],
+    },
+    "flywheel": {
+        "enabled": True,
+        "evaluator": {"min_rows": 20, "bootstrap": 200, "seed": 0},
+        "trainer": {"algorithms": ["cost_bandit", "mlp"]},
+        "promotion": {"mode": "auto", "canary_fraction": FW_FRACTION,
+                      "canary_min_requests": FW_CANARY_MIN,
+                      "rollback_on": "any"},
+        "admission": {"enabled": True}},
+}
+
+
+def fw_config(tmp: str, flywheel: bool = True) -> dict:
+    """``FW_CONFIG`` with its stores under ``tmp``: the learning ledgers'
+    SQLite file, the corpus archive, the artifacts, and a local SLO
+    objective on the candidate's code model (its tick driven by hand)."""
+    os.makedirs(tmp, exist_ok=True)
+    d = copy.deepcopy(FW_CONFIG)
+    d["routing"]["learning"] = {
+        "enabled": True,
+        "store": {"backend": "sqlite", "path": os.path.join(tmp, "l.db")},
+        "adaptation": {"candidate_set": "decision"}}
+    d["observability"] = {"slo": {
+        "evaluation_interval_s": 3600, "objectives": [
+            {"name": "code_model_latency", "scope": "local",
+             "objective": "completion_latency{model=code-7b} p99 < 200ms "
+                          "over 1s"}]}}
+    if flywheel:
+        d["flywheel"]["corpus"] = {"path": os.path.join(tmp, "corpus.jsonl")}
+        d["flywheel"]["trainer"]["out_dir"] = os.path.join(tmp, "artifacts")
+    else:
+        d.pop("flywheel")
+    return d
+
+
+def fw_request(i: int) -> tuple:
+    """(body, headers) of request ``i``: code and chat in turn, code at
+    priority ``high``, each with its own fixed trace id."""
+    code = i % 2 == 0
+    text = (FW_CODE if code else FW_CHAT)[(i // 2) % 8]
+    tid = hashlib.md5(f"p23-{i}".encode()).hexdigest()
+    return ({"model": "auto", "messages": [{"role": "user",
+                                             "content": text}]},
+            {"traceparent": f"00-{tid}-{i + 1:016x}-01",
+             "x-vsr-priority": "high" if code else "normal"})
+
+
+class _FWRun:
+    """Phase 23's routers: the served one (its ``route`` wrapped so each
+    RouteResult is kept by request id and its ``on_route`` timed) and the
+    flywheel-off one beside it, which routes each request whose incumbent
+    selector ran on the served router (not while a candidate is
+    promoted), so both seeded incumbents draw alike."""
+
+    def __init__(self, server, router, plain, fw, backend) -> None:
+        self.server, self.router, self.plain = server, router, plain
+        self.fw, self.backend = fw, backend
+        self.results: dict = {}
+        self.on_route_s: list = []
+        self.n = 0
+        route, on_route = router.route, fw.on_route
+
+        def kept(body, *a, **kw):
+            res = route(body, *a, **kw)
+            self.results[res.request_id] = res
+            return res
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return on_route(*a, **kw)
+            finally:
+                self.on_route_s.append(time.perf_counter() - t0)
+
+        router.route = kept
+        fw.on_route = timed
+
+    def send(self, label: bool = True, mirror: bool = True) -> dict:
+        """One request through the server (fed back with the learnable
+        verdict when ``label``) and, when ``mirror`` and no candidate is
+        promoted, through the flywheel-off router."""
+        i = self.n
+        self.n += 1
+        body, headers = fw_request(i)
+        promoted = self.fw.state == "promoted"
+        st, h, reply, lat = _post(self.server.url, body, headers)
+        check(st == 200, f"23 request {i}: HTTP {st} {reply}")
+        res = self.results.pop(h["x-vsr-request-id"])
+        row = {"i": i, "res": res, "latency_s": lat,
+               "decision": _decision(res), "model": res.model,
+               "reason": res.selection_reason, "promoted_before": promoted}
+        if label:
+            good = res.model == FW_BEST.get(row["decision"])
+            self.router.record_feedback(
+                res, success=True, latency_ms=lat * 1e3,
+                verdict="good_fit" if good else "underpowered")
+        if mirror and not promoted:
+            pres = self.plain.route(copy.deepcopy(body), dict(headers))
+            row["plain"] = (_decision(pres), pres.model)
+            row["plain_route_s"] = pres.routing_latency_s
+            if label:
+                good = pres.model == FW_BEST.get(_decision(pres))
+                self.plain.record_feedback(
+                    pres, success=True, latency_ms=lat * 1e3,
+                    verdict="good_fit" if good else "underpowered")
+        return row
+
+
+def _fw_heads(modules: dict) -> dict:
+    """Phase 3's sequence heads (intent for the domain family; jailbreak
+    screens each answer, as the reference's response path does); its pii
+    token head has no part in phase 23's config."""
+    return {n: m for n, m in modules.items() if m[0] == "sequence"}
+
+
+def _fw_capture(explain, res) -> list:
+    rec = explain.get(res.decision_record_id)
+    return [p for p in (rec or {}).get("plugins", [])
+            if p["plugin"] == "flywheel"]
+
+
+def _p50_ms(xs) -> float:
+    return float(np.median(xs)) * 1e3 if xs else float("nan")
+
+
+def _fw_cpu_compare(modules3: dict, card: dict, out: dict) -> None:
+    """The CPU port on the card's corpus: 23a's requests routed again in
+    order (flywheel off) to the card's decisions and models, the rows'
+    domain confidences within ``FW_TOL`` (a text whose top two domains
+    sit within it on the CPU is a tie, reported); the card's JSONL rows
+    train the card's ``cost_bandit`` blob byte for byte and evaluate to
+    its report."""
+    import tempfile
+
+    from semantic_router_tpu_torch import flywheel as tfw
+    from semantic_router_tpu_torch.flywheel.trainer import train_bandit
+
+    tmp = tempfile.mkdtemp(prefix="p23-cpu-")
+    cfg = load_config(fw_config(tmp, flywheel=False))
+    cpu = _RLMemo(quant_engine("cpu", cfg, _fw_heads(modules3["cpu"]),
+                               "off"))
+    router = build_router(cfg, cpu, registry=RuntimeRegistry.isolated())
+    ties, worst = [], 0.0
+    try:
+        by_trace = {r["trace_id"]: r for r in card["rows"]}
+        for i, want in enumerate(card["seq"]):
+            body, headers = fw_request(i)
+            res = router.route(copy.deepcopy(body), dict(headers))
+            got = (_decision(res), res.model)
+            check(got == want, f"23 CPU port: request {i} {got}, card {want}")
+            row = by_trace[headers["traceparent"].split("-")[1]]
+            hits = row["signals"].get("domain")
+            mine = res.signals.matches.get("domain", [])
+            if hits is None:
+                check(not mine, f"23 CPU port: request {i} domain {mine}")
+                continue
+            text = body["messages"][0]["content"]
+            probs = sorted(cpu.classify("intent", text).probs.values())
+            if [h[0] for h in hits] != list(mine):
+                check(probs[-1] - probs[-2] <= FW_TOL,
+                      f"23 CPU port: request {i} domains {mine}, card "
+                      f"{hits}, not a tie")
+                ties.append(i)
+                continue
+            for name, conf in hits:
+                err = abs(res.signals.confidences[f"domain:{name}"] - conf)
+                worst = max(worst, err)
+                check(err <= FW_TOL, f"23 CPU port: request {i} domain "
+                                     f"{name} {conf} vs {err}")
+        path = os.path.join(tmp, "corpus.jsonl")
+        with open(path, "w") as f:
+            f.write(card["jsonl"])
+        rows = tfw.CorpusExporter.load_jsonl(path)
+        check(rows == card["rows"], "23 CPU port: the JSONL rows differ")
+        t_cfg = card["trainer"]
+        blob = train_bandit(rows, dim=card["dim"],
+                                alpha=float(t_cfg["alpha"]),
+                                cost_weight=float(t_cfg["cost_weight"]))
+        check(blob == card["blob"], "23 CPU port: the cost_bandit blob "
+                                    "differs from the card's")
+        e_cfg = card["evaluator"]
+        ev = tfw.counterfactual_eval(
+            rows, tfw.load_policy(blob), n_boot=int(e_cfg["bootstrap"]),
+            seed=int(e_cfg["seed"]), min_rows=int(e_cfg["min_rows"]))
+        check(ev == card["eval"], "23 CPU port: the counterfactual report "
+                                  "differs from the card's")
+    finally:
+        router.shutdown()
+        cpu.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cpu_agreement"] = {"requests": len(card["seq"]), "rows": len(rows),
+                            "domain_ties": ties,
+                            "max_conf_err": worst, "blob_equal": True,
+                            "eval_equal": True}
+    print("23 the CPU port: " + json.dumps(out["cpu_agreement"]), flush=True)
+
+
+def phase_flywheel(modules3: dict, smi: str) -> dict:
+    """Phase 23: the routing flywheel on the card.  Phase 3's bank (full
+    width, seeded, the epilogue on) behind the port's ``RouterServer``
+    and a mock backend; a keyword family and the learned ``domain`` family
+    (K1 / K2), two decisions with a seeded weight-proportional incumbent,
+    learning observing, the cascade on, ``flywheel.enabled`` (cost_bandit
+    and mlp, auto promotion) and a local SLO objective on the code model.
+    23a: 120 labelled requests (code and chat, up to 512 tokens), each fed
+    back with the verdict of the learnable split.  23b: ``POST
+    /debug/flywheel/cycle``: 120 schema-valid rows, both algorithms
+    trained (the mlp on the card), a counterfactual win with its CI above
+    zero, shadow; the cost model carries the reported admission weights
+    and the port's controller at L3 charges ``request_cost_s / weight``;
+    export → train → evaluate again on the card, byte for byte, each
+    stage timed.  23c: 40 requests in shadow route as the flywheel-off
+    router does, each record carrying the candidate's choice, which is
+    its counterfactual choice on the record's row.  23d: canary: overrides
+    exactly on the trace ids in the canary ratio, the cascade passed
+    through (``flywheel_canary``), promotion at the first override past
+    ``canary_min_requests``.  23e: the mock backend slows the code model;
+    the SLO monitor, ticked by hand, fires on the counts and the
+    controller rolls back; the incumbents are restored and the next
+    routes are the flywheel-off router's.  23f: the trained blob served
+    as both decisions' ``algorithm.artifact``.  Deferred: the CPU port on
+    the same requests and the card's JSONL rows.  K1 / K2 launches by
+    part; route p50 off / shadow / canary and ``on_route``'s p50."""
+    import tempfile
+
+    from semantic_router_tpu_torch import flywheel as tfw
+    from semantic_router_tpu_torch.flywheel.evaluator import _policy_choice
+    from semantic_router_tpu_torch.flywheel.trainer import train_bandit
+    from semantic_router_tpu_torch.observability.tracing import \
+        trace_id_in_ratio
+    from semantic_router_tpu_torch.resilience.controller import \
+        DegradationController
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs
+    from semantic_router_tpu_torch.selection import ml as sel_ml
+    from semantic_router_tpu_torch.utils.device import resolve_device
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="p23-")
+    cfg_dict = fw_config(tmp)
+    cfg = load_config(cfg_dict)
+    registry = RuntimeRegistry.isolated()
+    engine = InferenceEngine(cfg.engine, device=DEVICE,
+                             metrics=registry.metric_series(),
+                             runtime_stats=registry.runtimestats,
+                             program_stats=registry.programstats)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in _fw_heads(modules3["cuda"]).items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    apply_packing_knobs(cfg, engine)
+    apply_kernel_knobs(cfg, engine)
+    engine.warmup()
+    out["setup_s"] = time.perf_counter() - t0
+    slow = threading.Event()
+
+    def answer(body: dict) -> str:
+        if slow.is_set() and body.get("model") == FW_BEST["code_route"]:
+            time.sleep(FW_SLOW_S)
+        return "ok"
+
+    backend = MockVLLMServer(content_fn=answer).start()
+    router = build_router(cfg, engine, registry=registry)
+    fw = registry.get("flywheel")
+    check(fw is not None and router.flywheel is fw
+          and fw.experience is router.learning.store
+          and fw.cost_model is registry.resilience.cost_model,
+          "23: build_router attached no flywheel, or bound it wrong")
+    # the SLO monitor on the registry's bus, ticked by hand below
+    registry.slo.event_bus = registry.events
+    registry.slo.configure(cfg.slo_config())
+    check(registry.slo.enabled and not registry.slo.config_errors,
+          f"23: SLO objective {registry.slo.config_errors}")
+    plain = build_router(load_config(fw_config(os.path.join(tmp, "off"),
+                                               False)), engine,
+                         registry=RuntimeRegistry.isolated())
+    check(plain.flywheel is None, "23: the flywheel-off router has one")
+    server = RouterServer(router, backend.url, registry=registry).start()
+    run = _FWRun(server, router, plain, fw, backend)
+    fits: list = []
+    fit = sel_ml.MLPSelector.fit
+
+    def spied_fit(self, *a, **kw):
+        fits.append(str(resolve_device(self.work.device)))
+        return fit(self, *a, **kw)
+
+    try:
+        # -- 23a: the labelled corpus -------------------------------------------
+        stamp("phase 23a: labelled traffic")
+        _cuda.reset_launch_counts()
+        rows_a = [run.send() for _ in range(N_FW_LABEL)]
+        launches["23a"] = _cuda.launch_counts()
+        for r in rows_a:
+            check(r["plain"] == (r["decision"], r["model"])
+                  and r["decision"] in FW_BEST,
+                  f"23a request {r['i']}: {r['decision']} / {r['model']}, "
+                  f"flywheel off {r['plain']}")
+        good = sum(r["model"] == FW_BEST[r["decision"]] for r in rows_a)
+        check(0 < good < N_FW_LABEL, f"23a: {good} best-model routes: the "
+                                     f"incumbent is no coin flip")
+        check(fw.state == "idle" and fw.shadow_seen == 0
+              and sum(sum(d.values()) for d in fw._class_traffic.values())
+              == N_FW_LABEL, f"23a: flywheel {fw.stats()['state']}, class "
+                             f"traffic {fw._class_traffic}")
+        out["23a"] = {"requests": N_FW_LABEL, "best_model_routes": good,
+                      "decisions": dict(collections.Counter(
+                          r["decision"] for r in rows_a)),
+                      "launches": launches["23a"]}
+        print("23a labelled traffic: " + json.dumps(out["23a"]) + f" | {smi}",
+              flush=True)
+
+        # -- 23b: the cycle -----------------------------------------------------
+        stamp("phase 23b: cycle")
+        _cuda.reset_launch_counts()
+        sel_ml.MLPSelector.fit = spied_fit
+        try:
+            t_c = time.perf_counter()
+            st, _, rep = _rp_call(server.url, "POST",
+                                  "/debug/flywheel/cycle", {})
+            cycle_s = time.perf_counter() - t_c
+        finally:
+            sel_ml.MLPSelector.fit = fit
+        check(st == 200, f"23b: the cycle answered {st} {rep}")
+        with open(cfg_dict["flywheel"]["corpus"]["path"]) as f:
+            jsonl = f.read()
+        rows = tfw.CorpusExporter.load_jsonl(
+            cfg_dict["flywheel"]["corpus"]["path"])
+        bad = [p for r in rows for p in tfw.validate_row(r)]
+        check(rep["rows"] == len(rows) >= N_FW_LABEL and not bad,
+              f"23b: {rep['rows']} rows, {len(rows)} archived, {bad[:3]}")
+        check({r["outcome"]["source"] for r in rows} == {"observed"},
+              "23b: a row without its request's outcome")
+        train = fw.last_train
+        check(all(not (train.get(a) or {}).get("error") and
+                  (train.get(a) or {}).get("artifact")
+                  for a in ("cost_bandit", "mlp")),
+              f"23b: training {train}")
+        check(fits and all(d.startswith("cuda") for d in fits),
+              f"23b: the mlp fit on {fits}")
+        ev = rep["eval"]
+        check(ev["evaluated"] and ev["win"] and ev["reward_delta_ci"][0] > 0
+              and rep["state"] == "shadow" == fw.state
+              and fw.candidate_meta.get("algorithm") == "cost_bandit",
+              f"23b: evaluation {ev}, state {rep.get('state')}")
+        st, _, stats = _rp_call(server.url, "GET", "/debug/flywheel")
+        weights = stats["admission_weights"]
+        cm = registry.resilience.cost_model
+        check(st == 200 and weights == cm.value_weights
+              and set(weights) == {"high", "normal"},
+              f"23b: admission weights {weights} vs {cm.value_weights}")
+        for cls, w in weights.items():
+            check(cm.admission_cost_s(2, cls) == cm.request_cost_s(2) / w,
+                  f"23b: {cls}'s admission cost")
+        # one L3 charge through the port's ladder over this cost model
+        ladder = DegradationController(MetricsRegistry(), cost_model=cm)
+        ladder.configure({"enabled": True, "max_level": 3,
+                          "admission": {"reject_class": "low"}})
+        ladder._level = 3
+        ladder._refresh_buckets()
+        bucket = ladder._buckets["high"]
+        bucket._last = time.monotonic() + 3600.0  # no refill in between
+        before, want = bucket._tokens, cm.admission_cost_s(1, "high")
+        ladder.admit("high", n_signals=1)
+        taken = before - bucket._tokens
+        check(abs(taken - want) <= 1e-12 and abs(
+            want - cm.request_cost_s(1) / weights["high"]) <= 1e-12,
+            f"23b: L3 took {taken}, want {want}")
+        with open(train["cost_bandit"]["artifact"]) as f:
+            blob = f.read()
+        # export → train → evaluate again on the card, stage by stage
+        t_s = time.perf_counter()
+        rows2 = fw.export_corpus()
+        t_export = time.perf_counter() - t_s
+        t_s = time.perf_counter()
+        blob2 = train_bandit(rows2, dim=fw.cfg["features"]["dim"],
+                                 alpha=float(fw.cfg["trainer"]["alpha"]),
+                                 cost_weight=float(
+                                     fw.cfg["trainer"]["cost_weight"]))
+        t_bandit = time.perf_counter() - t_s
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        mlp = tfw.train_policies(rows2, algorithms=["mlp"], dim=64,
+                                 device=engine.device,
+                                 gate=engine.device_work)
+        torch.cuda.synchronize()
+        t_mlp = time.perf_counter() - t_s
+        e_cfg = fw.cfg["evaluator"]
+        t_s = time.perf_counter()
+        ev2 = tfw.counterfactual_eval(
+            rows2, tfw.load_policy(blob2), n_boot=int(e_cfg["bootstrap"]),
+            seed=int(e_cfg["seed"]), min_rows=int(e_cfg["min_rows"]))
+        t_eval = time.perf_counter() - t_s
+        check(rows2 == rows and blob2 == blob and ev2 == ev
+              and not mlp["mlp"].get("error"),
+              "23b: export → train → evaluate again differs on the card")
+        launches["23b"] = _cuda.launch_counts()
+        card = {"seq": [(r["decision"], r["model"]) for r in rows_a],
+                "rows": rows, "jsonl": jsonl, "blob": blob, "eval": ev,
+                "dim": fw.cfg["features"]["dim"],
+                "trainer": dict(fw.cfg["trainer"]),
+                "evaluator": dict(e_cfg)}
+        DEFERRED.submit("23: the CPU port",
+                        lambda: _fw_cpu_compare(modules3, card, out))
+        out["23b"] = {"rows": len(rows), "cycle_s": cycle_s,
+                      "stages_s": {"export": t_export, "bandit_fit": t_bandit,
+                                   "mlp_fit_card": t_mlp,
+                                   "evaluate": t_eval},
+                      "eval": {k: ev[k] for k in (
+                          "reward_delta", "reward_delta_ci", "agreement",
+                          "decision_values")},
+                      "policy_reward": ev["policy"]["reward_mean"],
+                      "incumbent_reward": ev["incumbent"]["reward_mean"],
+                      "admission_weights": weights,
+                      "mlp_fit_device": sorted(set(fits)),
+                      "launches": launches["23b"]}
+        print("23b cycle: " + json.dumps(out["23b"]) + f" | {smi}",
+              flush=True)
+
+        # -- 23c: shadow --------------------------------------------------------
+        stamp("phase 23c: shadow")
+        _cuda.reset_launch_counts()
+        run.on_route_s.clear()
+        rows_c = [run.send() for _ in range(N_FW_SHADOW)]
+        launches["23c"] = _cuda.launch_counts()
+        shadow_route = [r["res"].routing_latency_s for r in rows_c]
+        shadow_hook = list(run.on_route_s)
+        off_route = [r["plain_route_s"] for r in rows_a + rows_c]
+        for r in rows_c:
+            cap = _fw_capture(registry.explain, r["res"])
+            check(r["plain"] == (r["decision"], r["model"])
+                  and "flywheel" not in r["reason"],
+                  f"23c request {r['i']}: {r['decision']} / {r['model']} "
+                  f"({r['reason']}), flywheel off {r['plain']}")
+            check(len(cap) == 1 and cap[0]["verdict"] == "shadow",
+                  f"23c request {r['i']}: capture {cap}")
+            row = tfw.record_to_row(registry.explain.get(
+                r["res"].decision_record_id), cost_model=cm)
+            check(_policy_choice(fw.candidate, row)
+                  == cap[0]["detail"]["chosen"],
+                  f"23c request {r['i']}: live choice "
+                  f"{cap[0]['detail']['chosen']}, counterfactual "
+                  f"{_policy_choice(fw.candidate, row)}")
+        check(fw.shadow_seen == N_FW_SHADOW and fw.state == "shadow",
+              f"23c: shadow_seen {fw.shadow_seen}, state {fw.state}")
+        out["23c"] = {"requests": N_FW_SHADOW, "shadow_seen": fw.shadow_seen,
+                      "agree": fw.shadow_agree,
+                      "route_p50_ms": {"off": _p50_ms(off_route),
+                                       "shadow": _p50_ms(shadow_route)},
+                      "on_route_p50_ms": _p50_ms(shadow_hook),
+                      "launches": launches["23c"]}
+        print("23c shadow: " + json.dumps(out["23c"]) + f" | {smi}",
+              flush=True)
+
+        # -- 23d: canary and promotion ------------------------------------------
+        stamp("phase 23d: canary")
+        _cuda.reset_launch_counts()
+        incumbents = {n: router._selectors[n] for n in FW_BEST}
+        fw.enter_canary(reason="chip_smoke")
+        run.on_route_s.clear()
+        rows_d, canary_hook = [], []
+        for _ in range(N_FW_CANARY):
+            n_hook = len(run.on_route_s)
+            state = fw.state
+            r = run.send()
+            r["state_before"] = state
+            if state == "canary":
+                canary_hook += run.on_route_s[n_hook:]
+            rows_d.append(r)
+        launches["23d"] = _cuda.launch_counts()
+        # auto promotion: at the first override once canary_min_requests
+        # requests were seen in canary (every request here has two
+        # candidates, so the k-th in canary is the k-th seen)
+        in_canary = [k for k, r in enumerate(rows_d)
+                     if r["state_before"] == "canary"]
+        due = next((k for k in in_canary if k + 1 >= FW_CANARY_MIN
+                    and "flywheel:canary" in rows_d[k]["reason"]), None)
+        overrides = 0
+        for k, r in enumerate(rows_d):
+            res = r["res"]
+            tid = registry.explain.get(res.decision_record_id)["trace_id"]
+            cap = _fw_capture(registry.explain, res)
+            if r["state_before"] == "canary":
+                take = trace_id_in_ratio(tid, FW_FRACTION, default=False)
+                check(len(cap) == 1 and cap[0]["verdict"] ==
+                      ("canary" if take else "shadow")
+                      and ("flywheel:canary" in r["reason"]) == take,
+                      f"23d request {r['i']}: trace {tid} take {take}, "
+                      f"capture {cap}, reason {r['reason']}")
+                overrides += take
+                if take:
+                    check(r["model"] == cap[0]["detail"]["chosen"],
+                          f"23d request {r['i']}: override {r['model']}")
+                else:
+                    check(r["plain"] == (r["decision"], r["model"]),
+                          f"23d request {r['i']}: {r['model']}, flywheel "
+                          f"off {r['plain']}")
+            else:
+                check(not cap and "cost_bandit" in r["reason"]
+                      and r["model"] == FW_BEST[r["decision"]],
+                      f"23d request {r['i']} (promoted): {r['reason']} "
+                      f"{r['model']}")
+            casc = (res.report.cascade or {}) if res.report else {}
+            check(casc.get("mode") == "passthrough" and casc.get("reason")
+                  == f"flywheel_{r['state_before']}",
+                  f"23d request {r['i']}: cascade {casc}")
+        check(fw.state == "promoted" and due is not None
+              and in_canary[-1] == due and fw.canary_seen == due + 1
+              and fw.overrides == overrides > 0,
+              f"23d: state {fw.state}, last in canary "
+              f"{in_canary[-1:]}, due {due}, overrides {fw.overrides} / "
+              f"{overrides}, canary_seen {fw.canary_seen}")
+        check(sorted(fw._promoted_decisions) == sorted(FW_BEST)
+              and all(router._selectors[n] is fw.candidate
+                      for n in FW_BEST),
+              f"23d: promoted {fw._promoted_decisions}")
+        out["23d"] = {"requests": N_FW_CANARY, "overrides": overrides,
+                      "promoted_at_request": due + 1,
+                      "canary_seen": fw.canary_seen,
+                      "route_p50_ms": {"canary": _p50_ms(
+                          [r["res"].routing_latency_s for r in rows_d
+                           if r["state_before"] == "canary"])},
+                      "on_route_p50_ms": _p50_ms(canary_hook),
+                      "launches": launches["23d"]}
+        print("23d canary: " + json.dumps(out["23d"]) + f" | {smi}",
+              flush=True)
+
+        # -- 23e: SLO burn and rollback -----------------------------------------
+        stamp("phase 23e: SLO burn")
+        _cuda.reset_launch_counts()
+        registry.slo.tick()  # the baseline snapshot
+        slow.set()
+        burn = []
+        while len(burn) < N_FW_BURN:
+            r = run.send(label=False)
+            if r["decision"] == "code_route":
+                check(r["model"] == FW_BEST["code_route"]
+                      and r["latency_s"] >= FW_SLOW_S,
+                      f"23e request {r['i']}: {r['model']} in "
+                      f"{r['latency_s']:.3f} s")
+                burn.append(r)
+        slow.clear()
+        check(fw.state == "promoted", f"23e: {fw.state} before the tick")
+        registry.slo.tick()
+        firing = [e.detail for e in registry.events.recent(50)
+                  if e.stage == "slo_alert_firing"]
+        check(fw.state == "rolled_back" and firing
+              and fw.rollback_reason.startswith("slo_burn:code_model_latency"),
+              f"23e: state {fw.state}, reason {fw.rollback_reason!r}, "
+              f"alerts {firing}")
+        check(all(router._selectors.get(n) is incumbents[n]
+                  for n in FW_BEST), "23e: the incumbents are not restored")
+        rows_e = [run.send() for _ in range(N_FW_AFTER)]
+        for r in rows_e:
+            check(r["plain"] == (r["decision"], r["model"])
+                  and "flywheel" not in r["reason"],
+                  f"23e request {r['i']}: {r['decision']} / {r['model']} "
+                  f"({r['reason']}), flywheel off {r['plain']}")
+        launches["23e"] = _cuda.launch_counts()
+        want = [("idle", "shadow", "counterfactual_win"),
+                ("shadow", "canary", "chip_smoke"),
+                ("canary", "promoted", "canary_min_requests"),
+                ("promoted", "rolled_back", fw.rollback_reason)]
+        got = [(t["from"], t["to"], t["reason"]) for t in fw.transitions]
+        st, _, stats = _rp_call(server.url, "GET", "/debug/flywheel")
+        check(got == want and st == 200 and stats["state"] == "rolled_back"
+              and stats["scheduled_cycles_run"] == fw.cycles_run == 0
+              and stats["shadow"]["seen"] == fw.shadow_seen
+              and stats["canary"]["overrides"] == fw.overrides,
+              f"23e: transitions {got}, /debug/flywheel {st} "
+              f"{stats.get('state')}")
+        out["23e"] = {"burn_requests": len(burn), "alerts": firing,
+                      "rollback_reason": fw.rollback_reason,
+                      "after": N_FW_AFTER, "transitions": got,
+                      "launches": launches["23e"]}
+        print("23e SLO burn: " + json.dumps(out["23e"]) + f" | {smi}",
+              flush=True)
+
+        # -- 23f: the blob as a decision's artifact -----------------------------
+        stamp("phase 23f: artifact")
+        _cuda.reset_launch_counts()
+        d = fw_config(os.path.join(tmp, "artifact"), flywheel=False)
+        for dec in d["routing"]["decisions"]:
+            dec["algorithm"] = {"type": "cost_bandit",
+                                "artifact": train["cost_bandit"]["artifact"]}
+        r3 = build_router(load_config(d), engine,
+                          registry=RuntimeRegistry.isolated())
+        try:
+            picks = []
+            for i in range(16):
+                body, headers = fw_request(i)
+                res = r3.route(body, headers)
+                picks.append((_decision(res), res.model))
+                check("cost_bandit" in res.selection_reason
+                      and res.model == FW_BEST[_decision(res)],
+                      f"23f: {_decision(res)} → {res.model} "
+                      f"({res.selection_reason})")
+            for n in FW_BEST:
+                sel = r3._selectors[n]
+                check(type(sel).__name__ == "CostAwareBanditSelector"
+                      and sel.to_json() == blob,
+                      f"23f: {n}'s selector {type(sel).__name__}")
+        finally:
+            r3.shutdown()
+        launches["23f"] = _cuda.launch_counts()
+        out["23f"] = {"routes": len(picks), "launches": launches["23f"]}
+        print("23f artifact: " + json.dumps(out["23f"]) + f" | {smi}",
+              flush=True)
+    finally:
+        sel_ml.MLPSelector.fit = fit
+        server.stop()
+        backend.stop()
+        fw.close()
+        router.shutdown()
+        plain.shutdown()
+        engine.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: sum(launches[p][k] for p in launches)
+                       for k in ("flash_attention", "head_epilogue")}
+    check(all(launches[p]["flash_attention"] > 0
+              and launches[p]["head_epilogue"] > 0
+              for p in ("23a", "23c", "23d", "23e", "23f")),
+          f"23: K1 / K2 launches by part {launches}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"23: K1 / K2 launches by part "
+          + json.dumps({p: {k: v for k, v in c.items() if k != "bgmv"}
+                        for p, c in launches.items()})
+          + f"; route p50 off {out['23c']['route_p50_ms']['off']:.2f} ms, "
+            f"shadow {out['23c']['route_p50_ms']['shadow']:.2f} ms, canary "
+            f"{out['23d']['route_p50_ms']['canary']:.2f} ms; on_route p50 "
+            f"shadow {out['23c']['on_route_p50_ms']:.3f} ms, canary "
+            f"{out['23d']['on_route_p50_ms']:.3f} ms; phase "
+            f"{out['seconds']:.1f} s ({out['setup_s']:.1f} s its engine's "
+            f"set-up and warm-up) | {smi}", flush=True)
+    return out
+
+
 # the cuda-marked test files and how many of each must pass (0: the file
 # passes whatever it skips)
 CUDA_TESTS = {
@@ -12454,6 +13182,8 @@ def main(argv=None) -> int:
         report["cuda_tests"] = cuda_tests.finish()
     finally:
         cuda_tests.stop()
+    stamp("phase 23: flywheel")
+    fly = report["flywheel"] = phase_flywheel(modules3, dev["smi"])
     stamp("deferred CPU-port checks")
     report["deferred"] = DEFERRED.drain()
     stamp("phases done")
@@ -12492,9 +13222,12 @@ def main(argv=None) -> int:
             # quant mode, in phase 19's reloads (K1's float32
             # launches there; its bf16 ones count in the bf16 row),
             # behind phase 20's ExtProc filter and phase 21's recorded,
-            # replayed, trained-selector and playground routes, and in
+            # replayed, trained-selector and playground routes, in
             # phase 22's engine serving the fine-tuned models (their
-            # evaluation) and its fixture router with learning on
+            # evaluation) and its fixture router with learning on, and
+            # in phase 23's flywheel routers (labelled, shadow, canary,
+            # promoted and rolled-back routes, the flywheel-off router
+            # beside them and the router serving the trained bandit)
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -12504,7 +13237,7 @@ def main(argv=None) -> int:
             + rt["launches"][kname] + dp["launches"][kname]
             + pk["launches"][kname] + rl["launches"][kname]
             + ep["launches"][kname] + rp["launches"][kname]
-            + tr["launches"][kname]
+            + tr["launches"][kname] + fly["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

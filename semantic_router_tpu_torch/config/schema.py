@@ -16,8 +16,9 @@ metrics, flight recorder, runtime and program stats, decision records),
 the request gates (``ratelimit``, ``skip_processing``,
 ``prompt_compression``) and the named routing profiles (``recipes``)
 with the virtual model names that select them (``entrypoints``), the
-shared state plane (``stateplane``), the vector stores (``vectorstore``)
-and the on-device ANN plane (``ann``).  A canonical ``global:`` block
+shared state plane (``stateplane``), the vector stores (``vectorstore``),
+the on-device ANN plane (``ann``) and the routing flywheel
+(``flywheel``).  A canonical ``global:`` block
 is lifted to the top level first, as the reference does.  Other blocks
 of a config file are not read; the options the
 reference serves and the port does not yet (``refuse_unported``) are
@@ -973,12 +974,6 @@ class Entrypoint:
             recipe=str(d.get("recipe", "")))
 
 
-# options the JAX router serves and this port does not yet: a config that
-# asks for one is refused at load, never served as if it were absent
-UNPORTED = {
-    "flywheel": "the routing flywheel (flywheel.enabled)",
-}
-
 # top-level blocks the JAX router reads and this port does not: refused
 # when enabled (``enabled: true``, or a non-empty block or list without an
 # ``enabled`` switch), as the reference's default leaves each off
@@ -1035,17 +1030,17 @@ RESPONSE_STORE_BACKENDS = ("memory", "redis", "valkey", "redis-cluster",
 
 def refuse_unported(d: Dict[str, Any]) -> None:
     """Raise ValueError naming the first unported option ``d`` (with its
-    ``global:`` block lifted) enables: the blocks of ``UNPORTED`` and
-    ``UNPORTED_BLOCKS``, the engine knobs of ``UNPORTED_ENGINE``, the
-    observability sub-blocks this port does not serve (fleet-scoped SLO
-    objectives, the fleet observability plane, a durable decision store
-    other than SQLite), a ``response_store`` backend outside
-    ``RESPONSE_STORE_BACKENDS``, the ANN bank's row sharding
-    (``ann.mesh``), a selector ``algorithm.artifact`` the routing
-    flywheel trains (``refuse_flywheel_artifact``).  Router replay
-    (``router_replay``, on by default), OTLP span and log export
-    (``observability.tracing.otlp_endpoint``) and every other selector
-    artifact are served, as are the shared state
+    ``global:`` block lifted) enables: the blocks of ``UNPORTED_BLOCKS``,
+    the engine knobs of ``UNPORTED_ENGINE``, the observability sub-blocks
+    this port does not serve (fleet-scoped SLO objectives, the fleet
+    observability plane, a durable decision store other than SQLite), a
+    ``response_store`` backend outside ``RESPONSE_STORE_BACKENDS`` and
+    the ANN bank's row sharding (``ann.mesh``).  The routing flywheel
+    (``flywheel``) and every selector artifact (``algorithm.artifact``,
+    the flywheel's ``cost_bandit`` policy included), router replay
+    (``router_replay``, on by default) and OTLP span and log export
+    (``observability.tracing.otlp_endpoint``) are served, as are the
+    shared state
     plane (``stateplane``, its fleet-shared ladder and upstream
     circuits), the RESP-backed stores and the retrieval plane (``ann`` on
     one device, ``vectorstore`` with every backend the reference names,
@@ -1054,10 +1049,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
     packing (``engine.packing``) are served."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
-    for key, what in UNPORTED.items():
-        block = routing.get(key, d.get(key)) or {}
-        if isinstance(block, dict) and block.get("enabled"):
-            raise ValueError(f"{what} is not served by this port yet")
     for key, what in UNPORTED_BLOCKS.items():
         if _enabled(routing.get(key, d.get(key))):
             raise ValueError(f"{key}: {what} is not served by this port "
@@ -1098,37 +1089,6 @@ def refuse_unported(d: Dict[str, Any]) -> None:
             and _enabled(ann.get("mesh")):
         raise ValueError("ann.mesh: the ANN bank's row sharding is not "
                          "served by this port yet (one device)")
-    decisions = list(routing.get("decisions", d.get("decisions", [])) or [])
-    for rec in d.get("recipes", []) or []:
-        rec = rec or {}
-        decisions += (rec.get("routing", rec) or {}).get("decisions", []) \
-            or []
-    for dec in decisions:
-        artifact = (dec.get("algorithm") or {}).get("artifact")
-        if artifact:
-            refuse_flywheel_artifact(dec.get("name", ""), str(artifact))
-
-
-# the selector artifact algorithm only the routing flywheel's policy loads
-FLYWHEEL_ARTIFACTS = ("cost_bandit",)
-
-
-def refuse_flywheel_artifact(decision: str, path: str) -> None:
-    """Raise ValueError when the selector artifact at ``path`` is one the
-    reference loads through the routing flywheel (a ``cost_bandit``
-    policy), which this port does not serve.  A missing or unreadable
-    file passes: the selector factory falls back to the untrained
-    selector for it, as the reference's does."""
-    try:
-        with open(path) as f:
-            algo = json.load(f).get("algorithm")
-    except (OSError, ValueError, AttributeError):
-        return
-    if algo in FLYWHEEL_ARTIFACTS:
-        raise ValueError(f"decision {decision!r}: algorithm.artifact "
-                         f"{path!r} is a {algo} artifact, which loads "
-                         f"through the routing flywheel (flywheel.policy); "
-                         f"the flywheel is not served by this port yet")
 
 
 @dataclass
@@ -1194,6 +1154,13 @@ class RouterConfig:
     router_replay: Dict[str, Any] = field(default_factory=dict)
     # the on-device ANN plane, read through ann_config()
     ann: Dict[str, Any] = field(default_factory=dict)
+    # the routing flywheel, read through flywheel_config(): {enabled,
+    # cycle_interval_s, corpus: {max_rows, path}, features: {dim},
+    # trainer: {algorithms, out_dir, alpha, cost_weight}, evaluator:
+    # {min_rows, bootstrap, seed}, promotion: {mode: off|shadow|auto,
+    # canary_fraction, canary_min_requests, rollback_on: any|fast},
+    # admission: {enabled, floor, ceiling}}
+    flywheel: Dict[str, Any] = field(default_factory=dict)
     # router learning: {enabled, store: {backend: sqlite | redis | valkey,
     # path, host, port, ...}, adaptation: {enabled, candidate_set, mode},
     # protection: {enabled, scope, identity, tuning}}
@@ -1254,6 +1221,7 @@ class RouterConfig:
             vectorstore=dict(d.get("vectorstore", {}) or {}),
             router_replay=dict(d.get("router_replay", {}) or {}),
             ann=dict(d.get("ann", {}) or {}),
+            flywheel=dict(d.get("flywheel", {}) or {}),
             learning=dict(routing.get("learning",
                                       d.get("learning", {})) or {}),
             listeners=list(d.get("listeners", []) or []),
@@ -1542,6 +1510,94 @@ class RouterConfig:
         from ..ann.knobs import normalize_ann
 
         return normalize_ann(self.ann)
+
+    def flywheel_config(self) -> Dict[str, Any]:
+        """Normalized ``flywheel`` block — the ONE interpretation point
+        (bootstrap, the controller, and tests must never drift on
+        defaults)::
+
+          flywheel:
+            enabled: false         # default OFF: byte-identical routing
+            cycle_interval_s: 0    # scheduled run_cycle period
+                                   # (0 = operator-triggered POST only)
+            corpus:
+              max_rows: 10000      # export window over the explain ring
+                                   # + durable mirror
+              path: ""             # optional JSONL export target
+            features:
+              dim: 64              # signal-hash bucket width
+            trainer:
+              algorithms: [cost_bandit]   # first trainable = candidate
+              out_dir: ""          # artifact directory ("" = in-memory)
+              alpha: 0.0           # LinUCB exploration bonus
+              cost_weight: 0.1     # device-cost penalty weight
+            evaluator:
+              min_rows: 20         # corpus floor before any cycle acts
+              bootstrap: 200       # CI resamples
+              seed: 0
+            promotion:
+              mode: shadow         # off | shadow | auto
+              canary_fraction: 0.1
+              canary_min_requests: 200
+              rollback_on: any     # any | fast (SLO burn severities)
+            admission:
+              enabled: true        # feed value weights to L3 admission
+              floor: 0.25          # weight clamp (cheapest admission)
+              ceiling: 4.0
+
+        Malformed values fall back to defaults — flywheel config must
+        never stop the server."""
+        fw = dict(self.flywheel or {})
+        out: Dict[str, Any] = {"enabled": bool(fw.get("enabled", False))}
+        # scheduled cycle runner: run_cycle() fires every interval
+        # instead of operator-triggered POST only (0 = operator-only)
+        try:
+            out["cycle_interval_s"] = max(
+                0.0, float(fw.get("cycle_interval_s", 0.0)))
+        except (TypeError, ValueError):
+            out["cycle_interval_s"] = 0.0
+
+        def _block(name: str, defaults: Dict[str, Any]) -> Dict[str, Any]:
+            raw = dict(fw.get(name, {}) or {})
+            merged = dict(defaults)
+            for k, v in raw.items():
+                if k not in defaults:
+                    continue
+                want = type(defaults[k])
+                try:
+                    if want is bool:
+                        merged[k] = bool(v)
+                    elif want is int:
+                        merged[k] = int(v)
+                    elif want is float:
+                        merged[k] = float(v)
+                    elif want is list:
+                        # a bare scalar ("algorithms: cost_bandit") is
+                        # one entry, never exploded character-wise
+                        if isinstance(v, (list, tuple)):
+                            merged[k] = [str(x) for x in v]
+                        elif v:
+                            merged[k] = [str(v)]
+                    else:
+                        merged[k] = str(v)
+                except (TypeError, ValueError):
+                    pass
+            return merged
+
+        out["corpus"] = _block("corpus", {"max_rows": 10_000,
+                                          "path": ""})
+        out["features"] = _block("features", {"dim": 64})
+        out["trainer"] = _block("trainer", {
+            "algorithms": ["cost_bandit"], "out_dir": "",
+            "alpha": 0.0, "cost_weight": 0.1})
+        out["evaluator"] = _block("evaluator", {
+            "min_rows": 20, "bootstrap": 200, "seed": 0})
+        out["promotion"] = _block("promotion", {
+            "mode": "shadow", "canary_fraction": 0.1,
+            "canary_min_requests": 200, "rollback_on": "any"})
+        out["admission"] = _block("admission", {
+            "enabled": True, "floor": 0.25, "ceiling": 4.0})
+        return out
 
     def decision_explain_config(self) -> Dict[str, Any]:
         """The per-request decision-record knobs: enabled, ring_size,

@@ -68,8 +68,7 @@ def normalize_cascade(d: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     - ``cost_default_ms``: assumed per-forward cost before runtimestats
       has a warm EWMA for a family (default 5.0).
     - ``value_blend``: weight of flywheel per-decision value estimates
-      in the cheap→expensive ordering (default 0.25; 0 = pure cost; the
-      port serves no flywheel, so its order is the cost order).
+      in the cheap→expensive ordering (default 0.25; 0 = pure cost).
     """
     d = dict(d or {})
 

@@ -36,9 +36,11 @@ itself outcome-neutral against the FINAL match set — the property a
 replay of the decision record re-checks.
 
 The port's copy of ``semantic_router_tpu.engine.cascade.dispatcher``.
-The routing flywheel is not served by the port (refused at load), so
-the order is the cost order (``value_blend`` has no decision values to
-discount by) and no flywheel state passes the cascade through.
+With the flywheel policy live (canary/promoted), the cascade passes
+through to the plain fan-out: policy features hash every family's
+matches, so a skip — however decision-neutral — could move live model
+choice.  The order blends in the flywheel's per-decision values
+(``value_blend``) once its evaluation has measured them.
 """
 
 from __future__ import annotations
@@ -156,9 +158,11 @@ class CascadeEvaluator:
     """Owns plans, counters and knobs; per-request work happens in
     ``evaluate`` using the dispatcher's own pool and runner."""
 
-    def __init__(self, metrics=None, runtime_stats=None) -> None:
+    def __init__(self, metrics=None, runtime_stats=None,
+                 flywheel_provider=None) -> None:
         self.metrics = metrics
         self.runtime_stats = runtime_stats
+        self.flywheel_provider = flywheel_provider
         self.knobs: Dict = {}
         self._lock = threading.Lock()
         self._plans: Dict[tuple, CascadePlan] = {}
@@ -198,6 +202,16 @@ class CascadeEvaluator:
             # a plan that cannot honor the safety floor never dispatches
             # cascaded — fall open to the plain full fan-out
             return dispatcher.evaluate(ctx, skip_signals=skip_signals)
+
+        fw = self.flywheel_provider() if self.flywheel_provider else None
+        fw_state = str(getattr(fw, "state", "idle") or "idle")
+        if fw_state in ("canary", "promoted"):
+            signals, report = dispatcher.evaluate(
+                ctx, skip_signals=skip_signals)
+            report.cascade = {"mode": "passthrough",
+                              "reason": f"flywheel_{fw_state}",
+                              "planner_version": plan.version}
+            return signals, report
 
         start = time.perf_counter()
         report = DispatchReport()
@@ -356,8 +370,17 @@ class CascadeEvaluator:
         if self.runtime_stats is not None:
             cost_ms = {f: s * 1000.0 for f, s in
                        self.runtime_stats.family_costs().items()}
+        decision_values: Dict[str, float] = {}
+        fw = self.flywheel_provider() if self.flywheel_provider else None
+        if fw is not None:
+            try:
+                last = getattr(fw, "last_eval", None) or {}
+                decision_values = {str(k): float(v) for k, v in
+                                   (last.get("decision_values") or {}).items()}
+            except Exception:
+                decision_values = {}
         order = plan_order(
-            plan, cost_ms, {},
+            plan, cost_ms, decision_values,
             float(self.knobs.get("cost_default_ms", 5.0)),
             float(self.knobs.get("value_blend", 0.25)))
         with self._lock:

@@ -708,7 +708,11 @@ class DegradationController:
                 self._refresh_buckets()
             bucket = self._buckets.get(priority)
             if bucket is not None:
-                cost = self.cost_model.request_cost_s(n_signals)
+                # value-weighted charge (the flywheel's admission
+                # weights): request_cost_s until the flywheel has
+                # measured per-decision value
+                cost = self.cost_model.admission_cost_s(n_signals,
+                                                        priority)
                 if not bucket.try_take(cost):
                     return self._shed(lvl, priority,
                                       max(bucket.wait_s(cost),

@@ -10,7 +10,10 @@ one device step costs right now.  This module turns those into
   token buckets spend and refill in;
 - the per-path prior (``path_priors``): the expected step cost of the
   ``stacked`` bank pass against the ``traditional`` (fused / per-task)
-  path.
+  path;
+- the L3 admission charge (``admission_cost_s``): the per-request cost
+  divided by the priority class's measured-value weight, which the
+  routing flywheel installs (``set_value_weights``).
 
 Reads are snapshot-cached (``ttl_s``) so the admission hot path never
 walks the program registry per request; with no telemetry yet every
@@ -48,6 +51,12 @@ class CostModel:
         self._lock = threading.Lock()
         self._cached_at = float("-inf")
         self._programs: List[Dict[str, Any]] = []
+        # measured-value admission weights (the flywheel's
+        # update_admission_weights): priority class → weight.  Empty =
+        # every class pays the same per-request cost; a weight of 2.0
+        # halves the charged cost (high measured value admits more), 0.5
+        # doubles it.
+        self.value_weights: Dict[str, float] = {}
 
     # -- snapshot ----------------------------------------------------------
 
@@ -97,6 +106,33 @@ class CostModel:
             return self.default_request_cost_s
         return per_row * max(1, int(n_signals))
 
+    def set_value_weights(self, weights: Dict[str, float],
+                          floor: float = 0.05) -> None:
+        """Install per-priority-class value weights (the flywheel's
+        per-decision value estimates rolled up by live traffic share).
+        Weights are floored so a pathological estimate can never make a
+        class's admission cost unbounded."""
+        with self._lock:
+            self.value_weights = {
+                str(k): max(float(v), floor) for k, v in
+                (weights or {}).items()}
+
+    def value_weight(self, key: str) -> float:
+        with self._lock:
+            return self.value_weights.get(key, 1.0)
+
+    def admission_cost_s(self, n_signals: int = 1,
+                         key: str = "") -> float:
+        """The device-seconds the L3 bucket charges one request:
+        ``request_cost_s`` divided by the class's measured-value weight
+        — high-value traffic is charged less per request, so under the
+        same bucket refill the ladder sheds by measured value, not just
+        class rank.  No weights installed = exactly request_cost_s."""
+        cost = self.request_cost_s(n_signals)
+        if not self.value_weights or not key:
+            return cost
+        return cost / self.value_weight(key)
+
     def variant_ewma_s(self, variants) -> Optional[float]:
         """Execute-weighted mean of warm EWMAs across the given variants;
         None when none of them has executed warm yet."""
@@ -131,6 +167,7 @@ class CostModel:
             "default_request_cost_s": self.default_request_cost_s,
             "path_priors": {k: round(v, 9)
                             for k, v in self.path_priors().items()},
+            "value_weights": dict(self.value_weights),
             "programs_seen": len(self._snapshot()),
         }
 

@@ -68,7 +68,7 @@ import numpy as np
 
 from ..cache.semantic_cache import build_cache
 from ..config.schema import LOOPER_ALGORITHMS, Decision, ModelRef, \
-    RouterConfig, refuse_flywheel_artifact
+    RouterConfig
 from ..decision.engine import DecisionEngine, DecisionResult, SignalMatches
 from ..observability import metrics as M
 from ..observability.explain import default_decision_explainer
@@ -214,14 +214,11 @@ class Router:
         # the shared state plane (stateplane.StatePlane), attached by
         # build_router when stateplane.enabled; None = single process
         self.stateplane = None
+        # the routing flywheel (flywheel.FlywheelController), attached by
+        # build_router when flywheel.enabled; None = no flywheel work on
+        # the route
+        self.flywheel = None
         self._cfg_hash: Optional[str] = None
-        # a flywheel-trained selector artifact is refused at boot, as at
-        # load (its file may have been written since)
-        for dec in list(cfg.decisions) + [d for r in cfg.recipes
-                                          for d in r.decisions]:
-            artifact = (dec.algorithm or {}).get("artifact")
-            if artifact:
-                refuse_flywheel_artifact(dec.name, str(artifact))
         self.dispatcher = build_dispatcher(cfg, engine)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
         # each recipe's own dispatcher and decision engine, built once: a
@@ -640,6 +637,10 @@ class Router:
                 decision, ctx, signals)
             ref, result.selection_reason = self._apply_learning(
                 decision, ctx, ref, result.selection_reason)
+            if self.flywheel is not None:
+                ref, result.selection_reason = self._apply_flywheel(
+                    decision, ctx, ref, result.selection_reason, rec,
+                    signals, trace_id)
             result.model = ref.model
             if result.selection_reason.startswith("selector error"):
                 self.M.decision_fallbacks.inc(reason="selector_error")
@@ -854,18 +855,12 @@ class Router:
         (``training.selection_train.load_selector``; online learning goes
         on from it), or None after an ``artifact_load_failed`` event when
         the file is missing or does not load — the untrained algorithm
-        serves then.  A flywheel artifact raises: it is refused, never
-        served untrained."""
-        from ..training.selection_train import (
-            FlywheelArtifactError,
-            load_selector,
-        )
+        serves then."""
+        from ..training.selection_train import load_selector
 
         try:
             return load_selector(artifact, device=kwargs.get("device"),
                                  gate=kwargs.get("gate"))
-        except FlywheelArtifactError:
-            raise
         except Exception as exc:
             component_event("selection", "artifact_load_failed",
                             decision=decision.name, artifact=artifact,
@@ -1263,14 +1258,34 @@ class Router:
                 return new_ref, f"{reason} → learning:{learned}"
         return ref, reason
 
+    def _apply_flywheel(self, decision: Decision, ctx: RequestContext,
+                        ref: ModelRef, reason: str, rec, signals,
+                        trace_id: str) -> tuple:
+        """(ref, reason) after the flywheel's shadow / canary hook: shadow
+        logs the candidate policy's choice into the decision record (no
+        routing effect); canary returns an override for the deterministic
+        per-trace-id fraction, and the reason then gains
+        `` → flywheel:canary``.  Fail-open, as the reference's: a broken
+        flywheel never touches routing."""
+        try:
+            override = self.flywheel.on_route(
+                decision, decision.model_refs or [ref], ref, rec, signals,
+                trace_id=trace_id, priority=self.priority.resolve(ctx),
+                query=ctx.user_text)
+            if override is not None:
+                return override, f"{reason} → flywheel:canary"
+        except Exception:
+            pass
+        return ref, reason
+
     def record_feedback(self, route: RouteResult, success: bool = True,
                         quality: float = 0.0, latency_ms: float = 0.0,
                         ttft_ms: float = 0.0, verdict: str = "") -> None:
         """Feed a routed request's outcome to router learning's experience
         ledgers (``verdict``: good_fit | underpowered | overprovisioned |
-        failed; empty derives it from ``success``) and to its decision's
-        selector, with the query's embedding (one forward on the
-        ``EMBEDDING_TASK``)."""
+        failed; empty derives it from ``success``), to the flywheel's
+        per-request reward labels and to its decision's selector, with
+        the query's embedding (one forward on the ``EMBEDDING_TASK``)."""
         if route.decision is None:
             return
         if self.learning is not None:
@@ -1278,6 +1293,15 @@ class Router:
                 route.decision.decision.name, route.model,
                 verdict=verdict, success=success, latency_ms=latency_ms,
                 tier=route.decision.decision.tier)
+        if self.flywheel is not None and route.decision_record_id:
+            # the exact-outcome half of the flywheel's reward join
+            try:
+                self.flywheel.note_outcome(
+                    route.decision_record_id,
+                    verdict or ("good_fit" if success else "failed"),
+                    quality=quality, latency_ms=latency_ms)
+            except Exception:
+                pass
         selector = self._selectors.get(route.decision.decision.name)
         if selector is None:
             return

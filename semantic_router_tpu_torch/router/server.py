@@ -125,6 +125,12 @@ and the reference's telemetry surface, over the server's
                                    ring's distribution, the backend's
                                    health, fleet pressure (503 without
                                    a plane)
+  GET  /debug/flywheel             the routing flywheel: promotion state,
+                                   the last train and evaluation, shadow
+                                   agreement, admission weights (503
+                                   when it is off)
+  POST /debug/flywheel/cycle       one flywheel cycle now (export, train,
+                                   evaluate, shadow on a win); edit-gated
   GET  /metrics/external           ExternalMetricValueList scaling
                                    signals (degradation level, queue
                                    pressure; the fleet maximum and one
@@ -257,6 +263,8 @@ API_CATALOG = {"endpoints": [
         ("/debug/programs", "GET"),
         ("/debug/decisions", "GET"),
         ("/debug/decisions/{id}", "GET"),
+        ("/debug/flywheel", "GET"),
+        ("/debug/flywheel/cycle", "POST"),
         ("/debug/slo", "GET"),
         ("/debug/resilience", "GET"),
         ("/debug/upstreams", "GET"),
@@ -597,6 +605,15 @@ class _Handler(BaseHTTPRequestHandler):
                                            "(stateplane.enabled is false)"})
             else:
                 self._reply(200, plane.report())
+        elif path == "/debug/flywheel":
+            # promotion state, corpus stats, the last train / eval
+            # reports, shadow agreement, admission value weights
+            fw = reg.get("flywheel")
+            if fw is None:
+                self._reply(503, {"error": "no flywheel "
+                                           "(flywheel.enabled is false)"})
+            else:
+                self._reply(200, fw.stats())
         elif path == "/info/models":
             self._reply(200, {"tasks": info_models(srv.router.engine)})
         elif path == "/v1/memory":
@@ -785,6 +802,23 @@ class _Handler(BaseHTTPRequestHandler):
             except json.JSONDecodeError:
                 body = {}
             self._debug_post(path, body if isinstance(body, dict) else {})
+            return
+        if path == "/debug/flywheel/cycle":
+            # one flywheel turn (export → train → counterfactual eval →
+            # shadow on a win) runs trainers in process: edit-gated and
+            # audited like the profiler
+            if self._authorize(write=True, action="flywheel") is None:
+                return
+            fw = self.server.owner.registry.get("flywheel")
+            if fw is None:
+                self._reply(503, {"error": "no flywheel "
+                                           "(flywheel.enabled is false)"})
+                return
+            try:
+                self._reply(200, fw.run_cycle())
+            except Exception as exc:
+                self._reply(500, {"error": f"{type(exc).__name__}: "
+                                           f"{exc}"[:300]})
             return
         gate = _post_gate(path)
         if gate is None:

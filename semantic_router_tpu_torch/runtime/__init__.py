@@ -1,5 +1,5 @@
 from .bootstrap import apply_ann_knobs, apply_cascade_knobs, \
-    apply_observability_knobs, apply_packing_knobs, \
+    apply_flywheel_knobs, apply_observability_knobs, apply_packing_knobs, \
     apply_kernel_knobs, apply_resilience_knobs, attach_config_watcher, \
     attach_otlp, \
     apply_stateplane_knobs, apply_upstream_knobs, build_engine, \
@@ -8,6 +8,7 @@ from .bootstrap import apply_ann_knobs, apply_cascade_knobs, \
 from .registry import RuntimeRegistry
 
 __all__ = ["RuntimeRegistry", "apply_ann_knobs", "apply_cascade_knobs",
+           "apply_flywheel_knobs",
            "apply_observability_knobs", "apply_packing_knobs",
            "apply_kernel_knobs", "attach_config_watcher", "attach_otlp",
            "apply_resilience_knobs", "apply_stateplane_knobs",

@@ -415,7 +415,9 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
     under the plane's ``share.vectorstore``), both embedding on the
     engine's ``EMBEDDING_TASK`` when it serves one, and the on-device
     ANN plane as ``ann`` says (``apply_ann_knobs``, in the ``ann``
-    slot), and router replay (``_attach_replay``).  ``carry_from`` (the
+    slot), router replay (``_attach_replay``) and the routing flywheel as
+    ``flywheel`` says (``apply_flywheel_knobs``, in the ``flywheel``
+    slot; before the cascade, whose order reads its values).  ``carry_from`` (the
     router a config reload replaces) hands on its semantic cache, its
     state plane, its memory store, its vector stores, its response hooks
     and its replay store."""
@@ -436,6 +438,7 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
         from .registry import RuntimeRegistry
 
         registry = RuntimeRegistry.with_defaults()
+    apply_flywheel_knobs(cfg, registry, router)
     apply_cascade_knobs(cfg, registry, router)
     apply_stateplane_knobs(cfg, registry, router, carry_from=carry_from)
     apply_upstream_knobs(cfg, registry, router)
@@ -654,6 +657,52 @@ def close_ann(registry) -> None:
     component_event("bootstrap", "ann_detached")
 
 
+def apply_flywheel_knobs(cfg: RouterConfig, registry, router) -> None:
+    """Attach, configure or detach the routing flywheel
+    (``flywheel/controller.py``) for a registry and router pair, as the
+    reference's does: enabled, the registry's ``flywheel`` controller
+    (made once, so a reload keeps its state, its candidate and a
+    promotion, re-installed on the new router by ``bind``) binds the
+    registry's decision records, event bus and cost model and the
+    router, whose route then calls it; ``flywheel.enabled: false`` (the
+    default) builds nothing and closes and lets go a previous
+    controller.  A malformed block never stops the server."""
+    try:
+        fw_cfg = cfg.flywheel_config()
+        if not fw_cfg["enabled"]:
+            old = registry.get("flywheel")
+            if old is not None:
+                try:
+                    old.close()
+                except Exception:
+                    pass
+                registry.swap(flywheel=None)
+                component_event("bootstrap", "flywheel_detached")
+            if router is not None:
+                router.flywheel = None
+            return
+        from ..flywheel import FlywheelController
+
+        fw = registry.get("flywheel")
+        if fw is None:
+            fw = FlywheelController(registry.metrics)
+            registry.swap(flywheel=fw)
+            component_event("bootstrap", "flywheel_attached")
+        res = registry.get("resilience")
+        fw.bind(explain=registry.get("explain"),
+                events=registry.get("events"),
+                cost_model=getattr(res, "cost_model", None)
+                if res is not None else None,
+                router=router)
+        fw.configure(fw_cfg)
+        if router is not None:
+            router.flywheel = fw
+    except Exception as exc:
+        component_event("bootstrap", "flywheel_config_invalid",
+                        error=f"{type(exc).__name__}: {exc}"[:200],
+                        level="warning")
+
+
 def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
     """Attach, reconfigure or detach the decision-aware signal cascade
     (``engine/cascade``) on ``router``: enabled, the registry's evaluator
@@ -679,6 +728,9 @@ def apply_cascade_knobs(cfg: RouterConfig, registry, router) -> None:
                 runtime_stats=registry.get("runtimestats"))
             registry.swap(cascade=casc)
             log.info("cascade attached")
+        # re-bound every apply: a reload swaps the router (and with it
+        # the flywheel handle the ordering and the passthrough read)
+        casc.flywheel_provider = lambda: getattr(router, "flywheel", None)
         casc.runtime_stats = registry.get("runtimestats")
         casc.configure(ck)
         if router is not None:
@@ -989,10 +1041,10 @@ def attach_config_watcher(server, config_path: str, engine, registry,
     ``config_path`` whose swap builds the new config's router over the
     same engine (``build_router(carry_from=)`` hands on the semantic
     cache, the state plane, the memory store and the vector stores, and
-    applies the cascade, state-plane, upstream and ANN knobs), swaps
-    ``server.router`` and ``server.cfg``, re-applies the knob blocks in
-    the reference's order (observability, cascade, upstream, ANN,
-    packing, then ``engine.quant`` / ``engine.kernels`` through
+    applies the flywheel, cascade, state-plane, upstream and ANN knobs),
+    swaps ``server.router`` and ``server.cfg``, re-applies the knob blocks
+    in the reference's order (observability, flywheel, cascade, upstream,
+    ANN, packing, then ``engine.quant`` / ``engine.kernels`` through
     ``apply_kernel_knobs``), emits ``config_reloaded`` on the registry's
     event bus and retires the old router's dispatcher after
     ``RELOAD_GRACE_S`` (``server.stop()`` ends the grace at once).  A
@@ -1009,6 +1061,7 @@ def attach_config_watcher(server, config_path: str, engine, registry,
         server.router = new_router
         server.cfg = new_cfg
         apply_observability_knobs(new_cfg, registry)
+        apply_flywheel_knobs(new_cfg, registry, new_router)
         apply_cascade_knobs(new_cfg, registry, new_router)
         apply_upstream_knobs(new_cfg, registry, new_router)
         apply_ann_knobs(new_cfg, registry, new_router)
@@ -1047,7 +1100,8 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     caller then does what the blocking path does when it ends (stop the
     server, which stops its watcher, shut ``server.router`` and the
     engine down, stop the registry's sampler, SLO monitor and
-    controller, ``close_ann``, ``close_stateplane``)."""
+    controller, close its flywheel, ``close_ann``,
+    ``close_stateplane``)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
     from .registry import RuntimeRegistry
@@ -1095,6 +1149,8 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         registry.runtimestats.stop()
         registry.slo.stop()
         registry.resilience.stop()
+        if registry.get("flywheel") is not None:
+            registry.flywheel.close()
         close_ann(registry)
         close_stateplane(registry)
 

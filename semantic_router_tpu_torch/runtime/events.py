@@ -2,9 +2,9 @@
 
 The port's copy of ``semantic_router_tpu.runtime.events``.  Components
 emit typed lifecycle events (engine ready or failed, SLO alert
-transitions, degradation-ladder moves, upstream circuit transitions,
-config reloads),
-subscribers react (the degradation controller, the SLO-burn capture), a
+transitions, degradation-ladder moves, flywheel promotion moves,
+upstream circuit transitions, config reloads), subscribers react (the
+degradation controller, the SLO-burn capture, the flywheel's rollback), a
 bounded ring keeps recent history (``recent``), and ``wait_for`` blocks
 until a stage is seen.
 
@@ -30,6 +30,8 @@ SLO_ALERT_RESOLVED = "slo_alert_resolved"
 SLO_CAPTURE = "slo_capture"
 # degradation-ladder transitions (resilience/controller.py)
 DEGRADATION_LEVEL_CHANGED = "degradation_level_changed"
+# flywheel promotion-ladder transitions (flywheel/controller.py)
+FLYWHEEL_STATE_CHANGED = "flywheel_state_changed"
 # upstream circuit-breaker transitions (resilience/upstream.py)
 UPSTREAM_UNHEALTHY = "upstream_unhealthy"
 UPSTREAM_RECOVERED = "upstream_recovered"

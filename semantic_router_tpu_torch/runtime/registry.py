@@ -5,7 +5,8 @@ slots this package fills: the metrics registry, the tracer, the session
 telemetry, the profiler control, the runtime event bus, the flight recorder, the runtime-stats
 sampler, the program-cost catalog, the SLO monitor, the decision-record
 ring, the degradation controller, the upstream health plane, the
-cascade evaluator, the shared state plane and the ANN plane.  ``RuntimeRegistry.with_defaults()``
+cascade evaluator, the shared state plane, the ANN plane and the routing
+flywheel.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -33,7 +34,10 @@ _SLOTS = ("metrics", "tracer", "sessions", "profiler", "events",
           "stateplane",
           # the on-device ANN plane (ann.AnnPlane): empty unless
           # ann.enabled (apply_ann_knobs)
-          "ann")
+          "ann",
+          # the routing flywheel (flywheel.FlywheelController): empty
+          # unless flywheel.enabled (apply_flywheel_knobs)
+          "flywheel")
 
 
 class RuntimeRegistry:

@@ -18,8 +18,8 @@ JSON: either package loads the other's.
 
 The torch selectors (kmeans, mlp, gmtrouter) fit on ``device`` (``cuda``
 unless given).  A ``cost_bandit`` artifact — the routing flywheel's
-policy — is refused (``FlywheelArtifactError``): this port does not
-serve the flywheel.  ``python -m semantic_router_tpu_torch.training.
+policy — loads into ``flywheel.policy.CostAwareBanditSelector``, as the
+reference's does.  ``python -m semantic_router_tpu_torch.training.
 selection_train --device cpu`` trains every algorithm on the synthetic
 corpus and prints each artifact's routing accuracy.
 """
@@ -325,16 +325,12 @@ def train_selector(algorithm: str, feats: np.ndarray,
     raise ValueError(f"unknown algorithm {algorithm!r}")
 
 
-class FlywheelArtifactError(ValueError):
-    """A selector artifact only the routing flywheel loads."""
-
-
 def load_selector(path: str, **kwargs):
     """The serving selector of the artifact at ``path`` (``kwargs`` —
     ``device``, ``gate`` — go to it), wrapped in
     ``CategoryFeatureSelector`` when it was trained on the one-hot
-    features.  A ``cost_bandit`` artifact raises
-    ``FlywheelArtifactError``."""
+    features.  A ``cost_bandit`` artifact is the flywheel's bandit, whose
+    signal-hash features need no wrapping (host numpy)."""
     from ..selection.ml import (
         GMTRouterSelector,
         KMeansSelector,
@@ -348,9 +344,11 @@ def load_selector(path: str, **kwargs):
     data = json.loads(blob)
     algo = data["algorithm"]
     if algo == "cost_bandit":
-        raise FlywheelArtifactError(
-            f"{path}: a cost_bandit artifact loads through the routing "
-            f"flywheel (flywheel.policy), which this port does not serve")
+        # flywheel-trained contextual bandit: self-contained feature
+        # recipe (signal-hash), no category wrapping needed
+        from ..flywheel.policy import CostAwareBanditSelector
+
+        return CostAwareBanditSelector.from_json(blob)
     cls = {"knn": KNNSelector, "kmeans": KMeansSelector,
            "svm": SVMSelector, "mlp": MLPSelector,
            "gmtrouter": GMTRouterSelector}[algo]

@@ -22,12 +22,13 @@ budget, the RESP-backed Responses and workflow stores, and the retrieval
 plane (the ANN plane on one device, the vector stores, the ``rag``
 plugin, a qdrant / milvus memory store) load and parse as the
 reference's too, as do router replay (every store the reference
-builds), OTLP span and log export, trained selector artifacts and router
-learning (``learning``; the routing flywheel beside it stays refused); beside
-each stays a refused option of its kind (the ANN bank's row sharding,
-the fleet observability plane, fleet-scoped objectives, the state
-plane's durable decision store, the flywheel's ``cost_bandit``
-artifact).  Sequence packing (``engine.packing``, its autotune
+builds), OTLP span and log export, trained selector artifacts, router
+learning (``learning``) and the routing flywheel (``flywheel``, its
+``cost_bandit`` artifact as a decision's ``algorithm.artifact``
+included); beside each stays a refused option (the ANN bank's row
+sharding, the fleet observability plane, fleet-scoped objectives, the
+state plane's durable decision store, MCP classifiers, external
+models).  Sequence packing (``engine.packing``, its autotune
 block included) loads and parses as the reference's; the serving mesh
 (``engine.mesh``, ``engine.mesh_shape``) stays refused."""
 
@@ -215,6 +216,19 @@ PORTED["algorithm.artifact"] = (
         DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
         algorithm={"type": "knn", "artifact": "sel.json"})]}},
     {"routing": {"decisions": [dict(DEC, algorithm={"type": "knn"})]}})
+# the routing flywheel and its cost_bandit policy as a decision's
+# artifact: served since they were refused
+PORTED["flywheel"] = (
+    {"flywheel": {"enabled": True, "cycle_interval_s": 30,
+                  "trainer": {"algorithms": ["cost_bandit", "mlp"]},
+                  "evaluator": {"min_rows": "nope"},
+                  "promotion": {"mode": "auto", "canary_fraction": 0.25}}},
+    {"flywheel": {"enabled": False}})
+PORTED["algorithm.artifact.cost_bandit"] = (
+    {"routing": {"decisions": [dict(
+        DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
+        algorithm={"type": "cost_bandit", "artifact": "bandit.json"})]}},
+    {"routing": {"decisions": [dict(DEC, algorithm={"type": "static"})]}})
 # the file of a cost_bandit artifact (written per test) and the refusal
 # of the state plane's durable decision store
 BANDIT = "<cost_bandit artifact>"
@@ -227,10 +241,11 @@ SERVED_SINCE = {
         "engine": {"packing": {"autotune": {"enabled": True}},
                    "mesh_shape": {"data": 1}}}),
     "image_generation": (
-        "artifact", {"routing": {"decisions": [dict(
+        "external_models", {"routing": {"decisions": [dict(
             DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "image_generation",
-                      "configuration": {"backend": "mock"}}])]}}),
+                      "configuration": {"backend": "mock"}}])]},
+            "external_models": [{"name": "x", "role": "guard"}]}),
     # the plane and the ANN plane over it are served; the bank's row
     # sharding is not
     "stateplane": (r"ann\.mesh", {"stateplane": {"enabled": True},
@@ -241,11 +256,12 @@ SERVED_SINCE = {
     "vectorstore": (r"ann\.mesh", {
         "vectorstore": {"backend": "llamastack"},
         "ann": {"enabled": True, "mesh": {"enabled": True}}}),
-    "rag": ("artifact", {
+    "rag": ("mcp", {
         "routing": {"decisions": [dict(
             DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "rag", "configuration": {"store": "kb"}}])]},
-        "vectorstore": {"registry": {"backend": "postgres"}}}),
+        "vectorstore": {"registry": {"backend": "postgres"}},
+        "mcp": {"enabled": True}}),
     # the Llama-Stack store and the Postgres registry: served since they
     # were refused; the state plane's durable decision store is not
     "vectorstore.backend": (DURABLE, {
@@ -256,10 +272,11 @@ SERVED_SINCE = {
         "vectorstore": {"registry": {"backend": "postgres"}},
         "observability": {"decisions": {"durable": {
             "backend": "stateplane"}}}}),
-    "memory.backend": ("artifact", {
+    "memory.backend": (r"observability\.fleet", {
         "memory": {"backend": "qdrant"},
         "routing": {"decisions": [dict(
-            DEC, algorithm={"type": "knn", "artifact": BANDIT})]}}),
+            DEC, algorithm={"type": "knn", "artifact": BANDIT})]},
+        "observability": {"fleet": {"enabled": True}}}),
     # the fleet-shared ladder is served; the fleet observability plane
     # (federated metrics, fleet-scoped objectives) is not
     "stateplane.share.fleet": (
@@ -300,13 +317,24 @@ SERVED_SINCE = {
         r"observability\.fleet", {"observability": {
             "tracing": {"otlp_endpoint": "http://collector:4318"},
             "fleet": {"enabled": True}}}),
-    # router learning is served; the routing flywheel is not
-    "learning": ("flywheel", {"learning": {"enabled": True},
-                              "flywheel": {"enabled": True}}),
-    # a trained selector artifact is served; the flywheel's cost_bandit
-    # policy is not
-    "algorithm.artifact": ("cost_bandit", {"routing": {"decisions": [dict(
-        DEC, algorithm={"type": "knn", "artifact": BANDIT})]}}),
+    # router learning and the routing flywheel beside it are served; MCP
+    # classifiers are not
+    "learning": ("mcp", {"learning": {"enabled": True},
+                         "flywheel": {"enabled": True},
+                         "mcp": {"enabled": True}}),
+    "flywheel": ("mcp", {"flywheel": {"enabled": True},
+                         "mcp": {"enabled": True}}),
+    # trained selector artifacts (the flywheel's cost_bandit policy
+    # included) are served; external models are not
+    "algorithm.artifact": ("external_models", {
+        "routing": {"decisions": [dict(
+            DEC, algorithm={"type": "knn", "artifact": BANDIT})]},
+        "external_models": [{"name": "x", "role": "guard"}]}),
+    "algorithm.artifact.cost_bandit": ("external_models", {
+        "routing": {"decisions": [dict(
+            DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
+            algorithm={"type": "cost_bandit", "artifact": BANDIT})]},
+        "external_models": [{"name": "x", "role": "guard"}]}),
     "resilience": (
         r"observability\.fleet", {"global": {
             "resilience": {"enabled": True},
@@ -404,8 +432,10 @@ def _parsed(cfg, key):
         return cfg.api_server
     if key == "observability.tracing.otlp_endpoint":
         return cfg.tracing_config()
-    if key == "algorithm.artifact":
+    if key in ("algorithm.artifact", "algorithm.artifact.cost_bandit"):
         return [(d.name, d.algorithm) for d in cfg.decisions]
+    if key == "flywheel":
+        return cfg.flywheel_config()
     return getattr(cfg, key)
 
 

@@ -424,7 +424,9 @@ def test_batches_in_flight_across_flips(live):
     assert len(live.events) == 6
 
 
-REFUSED = dict(copy.deepcopy(BASE), flywheel={"enabled": True})
+# an option the port still refuses (the routing flywheel, once the refused
+# option here, is served now)
+REFUSED = dict(copy.deepcopy(BASE), mcp={"enabled": True})
 GHOST = _renamed(BASE, "ghost_route")
 GHOST["routing"]["decisions"][0]["rules"]["conditions"] = [
     {"type": "keyword", "name": "ghost_signal"}]

@@ -404,10 +404,78 @@ def test_disabled_learning_never_interferes_and_verdicts_record(tmp_path):
 
 
 def test_flywheel_stays_refused_beside_learning(tmp_path):
-    cfg = _learning_cfg(tmp_path)
-    cfg["flywheel"] = {"enabled": True}
-    with pytest.raises(ValueError, match="flywheel"):
-        load_config(cfg)
+    """Served now (the routing flywheel was refused beside learning until
+    it was ported): with ``flywheel.enabled`` both packages' routers build
+    their flywheel over learning's experience store, route alike, and
+    export the same corpus rows, labelled from learning's ledgers
+    (``source: ledger``) and from the per-request outcomes
+    (``observed``)."""
+    from semantic_router_tpu.flywheel import CorpusExporter as JExporter
+    from semantic_router_tpu.resilience.costmodel import \
+        CostModel as JCostModel
+    from semantic_router_tpu.runtime import bootstrap as jboot
+    from semantic_router_tpu.runtime.registry import \
+        RuntimeRegistry as JRuntimeRegistry
+    from semantic_router_tpu_torch.flywheel import CorpusExporter
+    from semantic_router_tpu_torch.resilience.costmodel import CostModel
+    from semantic_router_tpu_torch.runtime import RuntimeRegistry, \
+        build_router
+
+    routers = {}
+    for name in ("jax", "port"):
+        cfg = _learning_cfg(tmp_path, name=name)
+        cfg["flywheel"] = {"enabled": True}
+        if name == "jax":
+            reg = JRuntimeRegistry.isolated()
+            jcfg = JRouterConfig.from_dict(cfg)
+            r = jboot.build_router(jcfg, registry=reg)
+            jboot.apply_flywheel_knobs(jcfg, reg, r)
+        else:
+            reg = RuntimeRegistry.isolated()
+            r = build_router(load_config(cfg), registry=reg)
+        r.learning.rng = random.Random(11)
+        fw = reg.get("flywheel")
+        assert r.flywheel is fw and fw.experience is r.learning.store
+        routers[name] = (r, fw)
+    (jr, jfw), (tr, tfw) = routers["jax"], routers["port"]
+    try:
+        rng = np.random.default_rng(3)
+        for i in range(30):
+            body = copy.deepcopy(WATCH if i % 5 == 4 else BODY)
+            h = {"traceparent": f"00-{i + 1:032x}-{i + 1:016x}-01"}
+            jres = jr.route(copy.deepcopy(body), dict(h))
+            tres = tr.route(copy.deepcopy(body), dict(h))
+            assert (tres.model, tres.selection_reason) \
+                == (jres.model, jres.selection_reason)
+            ok = bool(rng.random() < 0.5)
+            if i % 3:
+                for r, res in ((jr, jres), (tr, tres)):
+                    r.record_feedback(res, success=ok, latency_ms=80.0)
+
+        def by_trace(rows):
+            # the two configs differ in their store's path (the hash)
+            return {row["trace_id"]: {k: v for k, v in row.items()
+                                      if k not in ("record_id",
+                                                   "config_hash")}
+                    for row in rows}
+
+        ledger = {name: by_trace(exp(explain=fw.explain,
+                                     experience=fw.experience,
+                                     cost_model=cm()).export_rows())
+                  for name, exp, cm, fw in (
+                      ("jax", JExporter, JCostModel, jfw),
+                      ("port", CorpusExporter, CostModel, tfw))}
+        assert ledger["port"] == ledger["jax"] and len(ledger["port"]) == 30
+        assert {r["outcome"]["source"] for r in ledger["port"].values()} \
+            == {"ledger"}
+        observed = by_trace(tfw.export_corpus())
+        assert observed == by_trace(jfw.export_corpus())
+        assert sum(r["outcome"]["source"] == "observed"
+                   for r in observed.values()) == 20
+    finally:
+        for r, fw in routers.values():
+            fw.close()
+            r.shutdown()
 
 
 # -- the reference's fixture config over one seeded engine pair --------------------

@@ -201,11 +201,9 @@ def _program_rows(rng, n):
 
 
 def _cost_report(jmodel):
-    """The JAX cost model's report without the flywheel's value weights
-    (the port has no flywheel; it charges every class the same)."""
-    rep = jmodel.report()
-    assert rep.pop("value_weights") == {}
-    return rep
+    """The JAX cost model's report, the flywheel's value weights
+    included (the port's carries them too)."""
+    return jmodel.report()
 
 
 def test_cost_model_matches_jax(clock):
@@ -216,12 +214,21 @@ def test_cost_model_matches_jax(clock):
     for step in range(40):
         if step % 7 == 0:
             stats.rows = _program_rows(rng, int(rng.integers(0, 6)))
+        if step == 20:
+            # the flywheel's admission weights, floored alike
+            weights = {"high": 2.5, "low": 0.01, "normal": 1.0}
+            j.set_value_weights(weights)
+            t.set_value_weights(weights)
         clock.t += float(rng.uniform(0, 0.8))
         n = int(rng.integers(0, 4))
         assert t.cost_per_row_s() == j.cost_per_row_s()
         assert t.request_cost_s(n) == j.request_cost_s(n)
         # no value weights installed: the reference charges request_cost_s
-        assert t.request_cost_s(n) == j.admission_cost_s(n, "high")
+        for cls in ("high", "low", "critical", ""):
+            assert t.admission_cost_s(n, cls) == j.admission_cost_s(n, cls)
+            assert t.value_weight(cls) == j.value_weight(cls)
+        if step < 20:
+            assert t.admission_cost_s(n, "high") == t.request_cost_s(n)
         assert t.path_priors() == j.path_priors()
         assert t.report() == _cost_report(j)
         assert tcost.make_path_cost_prior(t)() == \
@@ -285,7 +292,6 @@ def _ctl_report(ctl):
     rep = ctl.report()
     for t in rep["transitions"]:
         t.pop("at_unix")
-    rep["cost_model"].pop("value_weights", None)
     rep["brownout_keep_families"] = sorted(rep["brownout_keep_families"])
     return rep
 

@@ -27,7 +27,7 @@ from semantic_router_tpu_torch.engine import testing as ttesting
 from semantic_router_tpu_torch.models import MmBertEmbeddingModel, \
     params_from_flax
 from semantic_router_tpu_torch.router import headers as H
-from semantic_router_tpu_torch.runtime import build_router
+from semantic_router_tpu_torch.runtime import RuntimeRegistry, build_router
 
 PROB_TOL = 1e-4
 SEQ_TASKS = [("jailbreak", ["benign", "jailbreak"]),
@@ -423,13 +423,15 @@ def _refused(**change):
 # the rag plugin, the qdrant / milvus memory stores, the Llama-Stack vector
 # store and the Postgres store registry are served since the retrieval
 # plane and its two backends were ported, and router replay and trained
-# selector artifacts since the decision record was: each case pairs served
-# options with one still refused beside them (the ANN bank's row sharding,
-# the state plane's durable decision store, the flywheel's cost_bandit
-# artifact); without that option the config loads and serves (an
-# unreachable Postgres registry fails open)
+# selector artifacts since the decision record was, router learning and the
+# routing flywheel (its cost_bandit artifact included) since they were:
+# each case pairs served options with one still refused beside them (the
+# ANN bank's row sharding, the state plane's durable decision store, MCP
+# classifiers, external models); without that option the config loads and
+# serves (an unreachable Postgres registry fails open)
 DURABLE = r"observability\.decisions\.durable\.backend"
-SERVED_BESIDE = {r"ann\.mesh": "ann", DURABLE: "observability"}
+SERVED_BESIDE = {r"ann\.mesh": "ann", DURABLE: "observability",
+                 "mcp": "mcp", "external_models": "external_models"}
 # replaced by the path of a cost_bandit artifact the JAX flywheel writes
 BANDIT = "<cost_bandit artifact>"
 
@@ -449,12 +451,15 @@ BANDIT = "<cost_bandit artifact>"
     (_refused(memory={"backend": "milvus"},
               ann={"enabled": True, "mesh": {"enabled": True}}),
      r"ann\.mesh"),
+    # the flywheel's cost_bandit artifact is served; MCP classifiers are not
     (_refused(routing__decisions__0__algorithm={
-        "type": "mlp", "artifact": BANDIT}), "artifact"),
-    # router learning is served; the flywheel beside it is not
-    (_refused(learning={"enabled": True}, flywheel={"enabled": True}),
-     "flywheel"),
-    (_refused(flywheel={"enabled": True}), "flywheel"),
+        "type": "mlp", "artifact": BANDIT}, mcp={"enabled": True}), "mcp"),
+    # router learning and the flywheel beside it are served; external
+    # models are not
+    (_refused(learning={"enabled": True}, flywheel={"enabled": True},
+              external_models=[{"name": "x", "role": "guard"}]),
+     "external_models"),
+    (_refused(flywheel={"enabled": True}, mcp={"enabled": True}), "mcp"),
     # the ladder and the upstream plane are served over the shared state
     # plane too; the fleet observability plane and fleet-scoped objectives
     # beside them are not
@@ -483,14 +488,28 @@ def test_unported_options_are_refused_at_load(cfg, what, tmp_path):
         # without the still-refused block the fleet-shared form loads
         del cfg["observability"]
         assert load_config(cfg).stateplane_config()["enabled"]
-    if "learning" in cfg:
-        # without the flywheel the learning config loads and serves
-        del cfg["flywheel"]
-        router = build_router(load_config(cfg))
+    if what in ("mcp", "external_models"):
+        # without the still-refused option the served ones load and serve
+        del cfg[SERVED_BESIDE[what]]
+        registry = RuntimeRegistry.isolated()
+        router = build_router(load_config(cfg), registry=registry)
         try:
-            assert router.learning is not None and router.learning.enabled
+            if "flywheel" in cfg:
+                assert router.flywheel is registry.get("flywheel")
+                assert router.flywheel is not None
+            if "learning" in cfg:
+                assert router.learning is not None and router.learning.enabled
+                # the flywheel's ledger rewards read learning's store
+                assert router.flywheel.experience is router.learning.store
+            dec = router.cfg.decisions[0]
+            if (dec.algorithm or {}).get("artifact"):
+                assert type(router._selector(dec)).__name__ \
+                    == "CostAwareBanditSelector"
         finally:
+            if registry.get("flywheel") is not None:
+                registry.flywheel.close()
             router.shutdown()
+        return
     if what in SERVED_BESIDE:
         # without the still-refused option the rest loads and serves
         del cfg[SERVED_BESIDE[what]]

@@ -11,8 +11,9 @@ of either package loaded by the other's ``load_selector`` and
 the JAX router's models, a near-tie between a pick's two best scores
 reported rather than hidden; a missing or corrupt artifact falling back
 to the untrained selector with ``artifact_load_failed``; a
-``cost_bandit`` artifact (the flywheel's policy) refused at load, at the
-router's boot and by ``load_selector``; and ``main``."""
+``cost_bandit`` artifact (the flywheel's policy) served at load, at the
+router's boot and by ``load_selector`` as the reference serves it; and
+``main``."""
 
 import copy
 import json
@@ -326,50 +327,89 @@ def test_missing_or_corrupt_artifact_serves_untrained(content, tmp_path):
 
 @pytest.fixture
 def cost_bandit(tmp_path):
-    """A cost_bandit artifact the JAX flywheel's policy writes."""
+    """A cost_bandit artifact the JAX flywheel's policy writes, fitted on
+    the reference tests' synthetic corpus over ``MODELS``."""
     from semantic_router_tpu.flywheel.policy import CostAwareBanditSelector
+    from test_flywheel import synth_rows
 
+    sel = CostAwareBanditSelector()
+    sel.fit_offline(synth_rows(60))
     path = str(tmp_path / "bandit.json")
     with open(path, "w") as f:
-        f.write(CostAwareBanditSelector().to_json())
+        f.write(sel.to_json())
     return path
 
 
+BANDIT_QUERIES = ["tell me about the sea", "what is in a name",
+                  "the history of the world"]
+
+
+def _bandit_picks_equal(router, jrouter):
+    """The port's router picks what the JAX router picks, reason and all,
+    through the artifact's bandit."""
+    for q in BANDIT_QUERIES:
+        body = {"model": "auto", "messages": [{"role": "user", "content": q}]}
+        got, want = router.route(copy.deepcopy(body)), jrouter.route(body)
+        assert (got.model, got.selection_reason) \
+            == (want.model, want.selection_reason)
+        assert got.selection_reason.startswith("cost_bandit")
+    assert type(router._selectors["trained"]).__name__ \
+        == "CostAwareBanditSelector"
+
+
 def test_a_cost_bandit_artifact_is_refused(cost_bandit):
+    """Served now (refused until the flywheel was ported): a cost_bandit
+    artifact loads at load, through ``load_selector`` (the same blob as
+    the reference's load) and in the pipeline, picking the JAX router's
+    models."""
     from semantic_router_tpu.training.selection_train import \
         load_selector as jload
 
     d = _artifact_config(cost_bandit)
-    # the reference serves it through its flywheel
-    assert type(jload(cost_bandit)).__name__ == "CostAwareBanditSelector"
-    JRouter(JRouterConfig.from_dict(copy.deepcopy(d))).shutdown()
-    with pytest.raises(ValueError, match="flywheel"):
-        load_config(copy.deepcopy(d))
-    with pytest.raises(tst.FlywheelArtifactError, match="flywheel"):
-        tst.load_selector(cost_bandit)
+    want = jload(cost_bandit)
+    got = tst.load_selector(cost_bandit)
+    assert type(got).__name__ == type(want).__name__ \
+        == "CostAwareBanditSelector"
+    assert got.to_json() == want.to_json()
+    router = Router(load_config(copy.deepcopy(d)))
+    jrouter = JRouter(JRouterConfig.from_dict(copy.deepcopy(d)))
+    try:
+        _bandit_picks_equal(router, jrouter)
+    finally:
+        router.shutdown()
+        jrouter.shutdown()
 
 
 def test_a_cost_bandit_written_after_load_is_refused_at_boot(
         cost_bandit, tmp_path):
+    """Served now: a cost_bandit artifact written after the config loaded
+    boots and serves, as the reference's does."""
     path = str(tmp_path / "later.json")
     cfg = load_config(_artifact_config(path))  # no file yet: loads
     os.replace(cost_bandit, path)
-    with pytest.raises(ValueError, match="flywheel"):
-        Router(cfg)
+    router = Router(cfg)
+    jrouter = JRouter(JRouterConfig.from_dict(_artifact_config(path)))
+    try:
+        _bandit_picks_equal(router, jrouter)
+    finally:
+        router.shutdown()
+        jrouter.shutdown()
 
 
 def test_a_cost_bandit_swapped_in_after_boot_is_never_served(
         cost_bandit, tmp_path):
+    """Served now: a cost_bandit artifact swapped in after the boot and
+    before the decision's first request is the selector that request
+    builds, as the reference's is."""
     path = str(tmp_path / "swap.json")
     router = Router(load_config(_artifact_config(path)))
+    jrouter = JRouter(JRouterConfig.from_dict(_artifact_config(path)))
     os.replace(cost_bandit, path)
     try:
-        with pytest.raises(tst.FlywheelArtifactError):
-            router.route({"model": "auto", "messages": [
-                {"role": "user", "content": "tell me about the sea"}]})
-        assert "trained" not in router._selectors
+        _bandit_picks_equal(router, jrouter)
     finally:
         router.shutdown()
+        jrouter.shutdown()
 
 
 def test_main_trains_and_reports(tmp_path, capsys):
