@@ -9,7 +9,9 @@ checks a config file (rc 0 or 1, a JSON line); ``migrate-config --config
 contract; ``serve-extproc --config router.yaml [--port 50051] [--backend
 URL] [--device cpu]`` serves the Envoy ExtProc gRPC filter (its address on
 stderr as ``extproc listening on <addr>``); ``compose --config router.yaml
---out-dir DIR`` renders the router + Envoy docker-compose deployment."""
+--out-dir DIR`` renders the router + Envoy docker-compose deployment;
+``grafana --out-dir DIR`` renders provisioning-ready Grafana dashboards
+from the metric catalog (a JSON line of the files written)."""
 
 from __future__ import annotations
 
@@ -61,6 +63,10 @@ def main(argv=None) -> int:
     c.add_argument("--out-dir", required=True)
     c.add_argument("--envoy-image", default="envoyproxy/envoy:v1.31-latest")
     c.add_argument("--router-image", default="semantic-router-tpu:latest")
+    g = sub.add_parser("grafana",
+                       help="render provisioning-ready Grafana dashboards "
+                            "from the metric catalog")
+    g.add_argument("--out-dir", required=True)
     args = p.parse_args(argv)
 
     if args.cmd == "validate":
@@ -117,6 +123,12 @@ def main(argv=None) -> int:
                                envoy_image=args.envoy_image,
                                router_image=args.router_image)
         print(json.dumps({"rendered": sorted(paths)}))
+        return 0
+
+    if args.cmd == "grafana":
+        from .observability.grafana import render_all
+
+        print(json.dumps({"rendered": sorted(render_all(args.out_dir))}))
         return 0
 
     logging.basicConfig(level=logging.INFO,

@@ -17,8 +17,9 @@ the request gates (``ratelimit``, ``skip_processing``,
 ``prompt_compression``) and the named routing profiles (``recipes``)
 with the virtual model names that select them (``entrypoints``), the
 shared state plane (``stateplane``), the vector stores (``vectorstore``),
-the on-device ANN plane (``ann``) and the routing flywheel
-(``flywheel``).  A canonical ``global:`` block
+the on-device ANN plane (``ann``), the routing flywheel
+(``flywheel``), the MCP classifiers (``mcp``) and the external model
+endpoints (``external_models``).  A canonical ``global:`` block
 is lifted to the top level first, as the reference does.  Other blocks
 of a config file are not read; the options the
 reference serves and the port does not yet (``refuse_unported``) are
@@ -974,14 +975,9 @@ class Entrypoint:
             recipe=str(d.get("recipe", "")))
 
 
-# top-level blocks the JAX router reads and this port does not: refused
-# when enabled (``enabled: true``, or a non-empty block or list without an
-# ``enabled`` switch), as the reference's default leaves each off
-UNPORTED_BLOCKS = {
-    "mcp": "MCP classifiers",
-    "external_models": "external models",
-}
-# engine knobs the JAX engine reads and this port does not
+# engine knobs the JAX engine reads and this port does not: refused when
+# enabled (``enabled: true``, or a non-empty block without an ``enabled``
+# switch), as the reference's default leaves each off
 UNPORTED_ENGINE = {
     "mesh": "the serving mesh",
     "mesh_shape": "the engine mesh",
@@ -1023,67 +1019,26 @@ def config_hash(raw: Dict[str, Any]) -> str:
     return hashlib.sha256(dumped.encode()).hexdigest()[:16]
 
 
-# the Responses API stores the port builds (router/responseapi.py)
-RESPONSE_STORE_BACKENDS = ("memory", "redis", "valkey", "redis-cluster",
-                           "valkey-cluster")
-
-
 def refuse_unported(d: Dict[str, Any]) -> None:
     """Raise ValueError naming the first unported option ``d`` (with its
-    ``global:`` block lifted) enables: the blocks of ``UNPORTED_BLOCKS``,
-    the engine knobs of ``UNPORTED_ENGINE``, the observability sub-blocks
-    this port does not serve (fleet-scoped SLO objectives, the fleet
-    observability plane, a durable decision store other than SQLite), a
-    ``response_store`` backend outside ``RESPONSE_STORE_BACKENDS`` and
-    the ANN bank's row sharding (``ann.mesh``).  The routing flywheel
-    (``flywheel``) and every selector artifact (``algorithm.artifact``,
-    the flywheel's ``cost_bandit`` policy included), router replay
-    (``router_replay``, on by default) and OTLP span and log export
-    (``observability.tracing.otlp_endpoint``) are served, as are the
-    shared state
-    plane (``stateplane``, its fleet-shared ladder and upstream
-    circuits), the RESP-backed stores and the retrieval plane (``ann`` on
-    one device, ``vectorstore`` with every backend the reference names,
-    Llama-Stack included, and its Postgres store registry, the ``rag``
-    plugin, qdrant / milvus memory stores and caches) and sequence
-    packing (``engine.packing``) are served."""
+    ``global:`` block lifted) enables: the serving mesh (the engine knobs
+    of ``UNPORTED_ENGINE``) and the ANN bank's row sharding
+    (``ann.mesh``).  Every other option the reference reads is served:
+    the MCP classifiers (``mcp``), the external model endpoints
+    (``external_models``), the fleet observability plane
+    (``observability.fleet``) and fleet-scoped SLO objectives, any
+    durable decision backend (SQLite, else the state plane's mirror, as
+    the reference reads it), any ``response_store`` backend (an unknown
+    one in memory, as the reference builds it), the routing flywheel,
+    router replay, OTLP export, the shared state plane, the retrieval
+    plane on one device and sequence packing."""
     d = lift_global(d)
     routing = d.get("routing", {}) or {}
-    for key, what in UNPORTED_BLOCKS.items():
-        if _enabled(routing.get(key, d.get(key))):
-            raise ValueError(f"{key}: {what} is not served by this port "
-                             f"yet")
     engine = d.get("engine", d.get("inference_engine", {})) or {}
     for key, what in UNPORTED_ENGINE.items():
         if _enabled(engine.get(key)):
             raise ValueError(f"engine.{key}: {what} is not served by this "
                              f"port yet")
-    obs = d.get("observability", {}) or {}
-    for spec in (obs.get("slo") or {}).get("objectives", []) or []:
-        if isinstance(spec, dict) and \
-                str(spec.get("scope", "")).lower() == "fleet":
-            raise ValueError(f"observability.slo: objective {spec!r} has "
-                             f"scope: fleet, which reads the merged fleet "
-                             f"counts of the fleet observability plane; "
-                             f"this port does not serve it yet")
-    if (obs.get("fleet") or {}).get("enabled"):
-        raise ValueError("observability.fleet.enabled: the fleet "
-                         "observability plane is not served by this port "
-                         "yet")
-    durable = (obs.get("decisions") or {}).get("durable") or {}
-    if str(durable.get("backend", "") or "") not in ("", "sqlite"):
-        raise ValueError(f"observability.decisions.durable.backend "
-                         f"{durable['backend']!r} is not served by this "
-                         f"port yet (sqlite only)")
-    # the reference builds the configured store whether or not the block
-    # says enabled
-    store = d.get("response_store") or {}
-    if isinstance(store, dict) and str(store.get("backend", "memory")
-                                       or "memory") \
-            not in RESPONSE_STORE_BACKENDS:
-        raise ValueError(f"response_store.backend {store['backend']!r} is "
-                         f"not served by this port yet "
-                         f"({'|'.join(RESPONSE_STORE_BACKENDS)})")
     ann = routing.get("ann", d.get("ann")) or {}
     if isinstance(ann, dict) and ann.get("enabled") \
             and _enabled(ann.get("mesh")):
@@ -1165,6 +1120,13 @@ class RouterConfig:
     # path, host, port, ...}, adaptation: {enabled, candidate_set, mode},
     # protection: {enabled, scope, identity, tuning}}
     learning: Dict[str, Any] = field(default_factory=dict)
+    # remote MCP servers: {"classifiers": [{name, transport, command / url,
+    # tool, threshold}]}: served-classifier clients (``mcp/``)
+    mcp: Dict[str, Any] = field(default_factory=dict)
+    # external model endpoints: [{role: guardrail | embedding, base_url,
+    # model, api_key_env, ...}]: a vLLM-served guard classifier and a
+    # remote OpenAI-compatible embedding provider (``signals/remote.py``)
+    external_models: List[Dict[str, Any]] = field(default_factory=list)
     # the canonical contract's top-level surface, kept for its export
     # (``canonical.export_canonical``)
     listeners: List[Dict[str, Any]] = field(default_factory=list)
@@ -1224,6 +1186,8 @@ class RouterConfig:
             flywheel=dict(d.get("flywheel", {}) or {}),
             learning=dict(routing.get("learning",
                                       d.get("learning", {})) or {}),
+            mcp=dict(d.get("mcp", {}) or {}),
+            external_models=list(d.get("external_models", []) or []),
             listeners=list(d.get("listeners", []) or []),
             providers=dict(d.get("providers", {}) or {}),
             version=str(d.get("version", "")),
@@ -1336,6 +1300,29 @@ class RouterConfig:
         SLOMonitor.configure (which owns parsing + error containment) —
         absent block = no objectives = monitor disabled."""
         return dict((self.observability or {}).get("slo", {}) or {})
+
+    def fleet_obs_config(self) -> Dict[str, Any]:
+        """The normalized observability.fleet block: the fleet
+        observability plane (``observability/fleetobs.py``).  Off by
+        default (nothing built, no ``llm_fleet_*`` series); effective only
+        with ``stateplane.enabled`` (there is no plane to federate over
+        otherwise)."""
+        f = (self.observability or {}).get("fleet", {}) or {}
+        out: Dict[str, Any] = {"enabled": bool(f.get("enabled", False))}
+        try:
+            out["publish_interval_s"] = max(
+                0.0, float(f.get("publish_interval_s", 0.0)))
+        except (TypeError, ValueError):
+            out["publish_interval_s"] = 0.0
+        try:
+            out["cache_s"] = max(0.0, float(f.get("cache_s", 1.0)))
+        except (TypeError, ValueError):
+            out["cache_s"] = 1.0
+        try:
+            out["debug_top_n"] = max(1, int(f.get("debug_top_n", 8)))
+        except (TypeError, ValueError):
+            out["debug_top_n"] = 8
+        return out
 
     def resilience_config(self) -> Dict[str, Any]:
         """The ``resilience`` block, passed verbatim to

@@ -28,10 +28,12 @@ Alerting is multiwindow, multi-burn-rate: with a base window *w* (the
 both (w, 12w), a **slow** one at > 6x in both (6w, 72w).  Each tick
 snapshots cumulative (good, bad) counts into a bounded ring.
 
-Objectives scoped ``fleet`` read the fleet's merged counts, which the
-fleet observability plane (``observability.fleet``, over the state
-plane) publishes and this port does not serve yet: the loader refuses
-them, and the monitor records one as a configuration error.
+Objectives scoped ``fleet`` read the fleet's merged counts through
+``fleet_source`` (the fleet observability plane's
+``FleetAggregator.merged_registry``, bound by bootstrap), so one
+objective burns against all N replicas' traffic; without a plane, or
+while it is down, they read this replica's counts and say so
+(``source: local-fallback``).  Their series are ``llm_fleet_slo_*``.
 """
 
 from __future__ import annotations
@@ -62,10 +64,6 @@ RATIO_ALIASES: Dict[str, Tuple[str, str]] = {
 
 FAST_BURN = 14.4   # 2% of a 30d budget in 1h (SRE workbook page pair)
 SLOW_BURN = 6.0    # 10% of a 30d budget in 6h (ticket pair)
-
-FLEET_REFUSED = ("scope: fleet reads merged fleet counts, which the fleet "
-                 "observability plane publishes; this port does not serve "
-                 "it yet")
 
 _DURATION_RE = re.compile(r"^\s*([\d.]+)\s*(ms|s|m|h|d)?\s*$")
 _DUR_MULT = {"ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0,
@@ -273,6 +271,16 @@ class SLOMonitor:
         # alert transitions go out as slo_alert_firing / _resolved on
         # this bus (bootstrap wires the registry's)
         self.event_bus = None
+        # fleet-scoped count source: a callable returning (merged
+        # registry, scope), bound by bootstrap to the fleet plane's
+        # FleetAggregator.merged_registry; None = fleet objectives read
+        # local counts (stamped "local-fallback")
+        self.fleet_source = None
+        # llm_fleet_slo_* gauges, created at the first fleet-scoped tick
+        # (with no fleet objective /metrics carries none)
+        self._fleet_gauges: Optional[Tuple] = None
+        # per-objective count provenance: local, fleet or local-fallback
+        self._sources: Dict[str, str] = {}
         # rings are bounded by the 72w horizon and by count: an
         # aggressive scraper ticking inline must not grow them
         self.max_ring = 4096
@@ -292,21 +300,16 @@ class SLOMonitor:
     # -- configuration -----------------------------------------------------
 
     def configure(self, slo_cfg: Dict[str, Any]) -> None:
-        """Apply the observability.slo block.  Malformed objectives (and
-        fleet-scoped ones) are recorded in ``config_errors`` and skipped —
-        a telemetry typo never stops the server."""
+        """Apply the observability.slo block.  Malformed objectives are
+        recorded in ``config_errors`` and skipped — a telemetry typo never
+        stops the server."""
         objectives: List[SLOObjective] = []
         errors: List[str] = []
         for spec in slo_cfg.get("objectives", []) or []:
             try:
-                obj = parse_objective(spec)
+                objectives.append(parse_objective(spec))
             except (ValueError, KeyError, TypeError) as exc:
                 errors.append(f"{spec!r}: {exc}")
-                continue
-            if obj.scope == "fleet":
-                errors.append(f"{spec!r}: {FLEET_REFUSED}")
-                continue
-            objectives.append(obj)
         with self._lock:
             old_by_name = {o.name: o for o in self.objectives}
             old_names = set(old_by_name)
@@ -329,6 +332,9 @@ class SLOMonitor:
             for name in list(self._alerts):
                 if name not in keep:
                     del self._alerts[name]
+            for name in list(self._sources):
+                if name not in keep:
+                    del self._sources[name]
         # zero the firing gauge of every series no longer ticked
         stale = old_names - keep | ({o.name for o in objectives} - keep)
         by_name = {**old_by_name, **{o.name: o for o in objectives}}
@@ -346,9 +352,11 @@ class SLOMonitor:
         for name in names:
             obj = (by_name or {}).get(name)
             extra = obj.gauge_labels() if obj is not None else {}
+            gauge = self.alert_gauge
+            if obj is not None and obj.scope == "fleet":
+                gauge = self._ensure_fleet_gauges()[1]
             for sev in ("fast", "slow"):
-                self.alert_gauge.set(0.0, objective=name, severity=sev,
-                                     **extra)
+                gauge.set(0.0, objective=name, severity=sev, **extra)
 
     def windows_for(self, obj: SLOObjective) -> Dict[str, Any]:
         """The objective's four evaluation windows from its base window
@@ -358,12 +366,65 @@ class SLOMonitor:
         return {"fast": ((w, 12 * w), self.fast_burn),
                 "slow": ((6 * w, 72 * w), self.slow_burn)}
 
+    def _ensure_fleet_gauges(self) -> Tuple:
+        """(burn, alert, sli) gauges of fleet-scoped objectives, created
+        at first use: ``llm_fleet_slo_*``, so fleet alerts stay apart from
+        local ones."""
+        if self._fleet_gauges is None:
+            self._fleet_gauges = (
+                self.registry.gauge(
+                    "llm_fleet_slo_burn_rate",
+                    "Error-budget burn multiple per FLEET-scoped "
+                    "objective and window, evaluated over the merged "
+                    "fleet counts"),
+                self.registry.gauge(
+                    "llm_fleet_slo_alert_firing",
+                    "1 when a fleet-scoped objective's multi-window "
+                    "burn-rate alert fires (every replica converges on "
+                    "the same merged counts)"),
+                self.registry.gauge(
+                    "llm_fleet_slo_good_ratio",
+                    "Fraction of good events per fleet-scoped objective "
+                    "over its base window, fleet-wide"),
+            )
+        return self._fleet_gauges
+
+    def _gauges_for(self, obj: SLOObjective) -> Tuple:
+        if obj.scope == "fleet":
+            return self._ensure_fleet_gauges()
+        return self.burn_gauge, self.alert_gauge, self.sli_gauge
+
+    def firing(self) -> Dict[str, str]:
+        """{objective: severity} of every firing alert: what the fleet
+        publisher ships, so siblings' ``/debug/fleet`` can union who
+        pages (no tick)."""
+        with self._lock:
+            return {n: s.severity for n, s in self._alerts.items()
+                    if s.firing}
+
     # -- count reads -------------------------------------------------------
 
     def _counts(self, obj: SLOObjective) -> Tuple[float, float]:
         """Cumulative (good, bad) event counts for an objective right
-        now; (0, 0) when the series does not exist yet."""
-        find = getattr(self.registry, "find", None)
+        now; (0, 0) when the series does not exist yet.  Fleet-scoped
+        objectives read the merged fleet registry; without a plane, or
+        while it is degraded, the local registry stands in and the
+        provenance says "local-fallback"."""
+        registry = self.registry
+        source = "local"
+        if obj.scope == "fleet":
+            source = "local-fallback"
+            src = self.fleet_source
+            if src is not None:
+                try:
+                    merged, scope = src()
+                except Exception:
+                    merged, scope = None, ""
+                if merged is not None and scope == "fleet":
+                    registry, source = merged, "fleet"
+        with self._lock:
+            self._sources[obj.name] = source
+        find = getattr(registry, "find", None)
         if find is None:
             return 0.0, 0.0
         if obj.kind == "latency":
@@ -459,17 +520,18 @@ class SLOMonitor:
                 state.severity = firing
                 state.burn = burns
             extra = obj.gauge_labels()
+            # fleet-scoped objectives write llm_fleet_slo_* instead
+            burn_gauge, alert_gauge, sli_gauge = self._gauges_for(obj)
             for key, b in burns.items():
-                self.burn_gauge.set(round(b, 4), objective=obj.name,
-                                    window=key, **extra)
+                burn_gauge.set(round(b, 4), objective=obj.name,
+                               window=key, **extra)
             # every severity series each tick, so a cleared or changed
             # severity never latches the old one at 1.0
             for sev in ("fast", "slow"):
-                self.alert_gauge.set(1.0 if firing == sev else 0.0,
-                                     objective=obj.name, severity=sev,
-                                     **extra)
-            self.sli_gauge.set(round(1.0 - frac, 6), objective=obj.name,
-                               **extra)
+                alert_gauge.set(1.0 if firing == sev else 0.0,
+                                objective=obj.name, severity=sev, **extra)
+            sli_gauge.set(round(1.0 - frac, 6), objective=obj.name,
+                          **extra)
             # transitions → runtime events, outside the monitor lock
             # (subscribers may call back into the monitor)
             if firing != was_severity or bool(firing) != was_firing:
@@ -539,7 +601,11 @@ class SLOMonitor:
                     "severity": state.severity,
                     "since_unix": state.since_unix if state.firing
                     else None,
-                    "source": "local",
+                    # count provenance: whether the last tick read the
+                    # merged fleet counts or fell back to this replica's
+                    "source": self._sources.get(
+                        obj.name, "local" if obj.scope == "local"
+                        else "local-fallback"),
                 })
             return {
                 "enabled": self.enabled,

@@ -219,7 +219,13 @@ class Router:
         # the route
         self.flywheel = None
         self._cfg_hash: Optional[str] = None
-        self.dispatcher = build_dispatcher(cfg, engine)
+        # the remote embedding provider (external_models' embedding
+        # entry): the embedding families, the semantic cache and the
+        # qdrant / milvus memory stores share it; None without one
+        self._remote_embedder = None
+        extra, replaced = self._external_evaluators(cfg, engine)
+        self.dispatcher = build_dispatcher(cfg, engine, extra=extra,
+                                           replaced=replaced)
         self.decision_engine = DecisionEngine(cfg.decisions, cfg.strategy)
         # each recipe's own dispatcher and decision engine, built once: a
         # request resolves its profile with a dict lookup
@@ -229,7 +235,8 @@ class Router:
                 cfg, signals=rec.signals, projections=rec.projections,
                 decisions=rec.decisions, strategy=rec.strategy)
             self._recipe_engines[rec.name] = (
-                build_dispatcher(sub, engine, learned_cfg=cfg),
+                build_dispatcher(sub, engine, learned_cfg=cfg, extra=extra,
+                                 replaced=replaced),
                 DecisionEngine(rec.decisions, rec.strategy))
         # each dispatcher's learned families, frozen at construction: the
         # overload gate reads them per request while degraded
@@ -260,6 +267,13 @@ class Router:
             self.cache = build_cache(
                 cfg.semantic_cache,
                 lambda text: engine.embed(cache_task, [text])[0])
+        elif cfg.semantic_cache.enabled and self._remote_embedder is not None:
+            # no local embedding task: the remote provider the embedding
+            # families use backs the cache embedder
+            remote = self._remote_embedder
+            self.cache = build_cache(
+                cfg.semantic_cache,
+                lambda text: remote.embed("embedding", [text])[0])
         self.model_cards = {m.name: m for m in cfg.model_cards}
         # router learning: outcome-driven adaptation over the decision's
         # candidates and session protection; None unless enabled
@@ -289,6 +303,48 @@ class Router:
         # keeps its store as ``replay_store``
         self.response_hooks: List[Any] = []
         self.replay_store = None
+
+    def _external_evaluators(self, cfg: RouterConfig, engine) -> tuple:
+        """(evaluators, replaced): the MCP classifiers (``mcp
+        .classifiers``, each a ``domain`` evaluator that connects at its
+        first request and fails open), then the external models'
+        evaluators (``external_models``: a vLLM guard for the jailbreak
+        family unless the engine serves ``jailbreak``, the embedding
+        families on the remote provider unless it serves ``embedding``)
+        with the classes of the engine's evaluators they replace.  A
+        classifier or model that cannot be built is skipped with a
+        warning (``mcp_classifier_skipped``, ``external_model_skipped``),
+        as the reference's router does."""
+        self._mcp: list = []
+        for spec in (cfg.mcp or {}).get("classifiers", []) or []:
+            try:
+                from ..mcp import MCPClassifySignal, create_client
+
+                self._mcp.append(MCPClassifySignal(
+                    create_client(spec), cfg.signals.domains,
+                    tool_name=spec.get("tool", "classify_text"),
+                    threshold=float(spec.get("threshold", 0.0))))
+            except Exception as exc:
+                component_event("router", "mcp_classifier_skipped",
+                                error=str(exc), level="warning")
+        extra = list(self._mcp)
+        replaced: set = set()
+        if cfg.external_models:
+            from ..signals.remote import (
+                build_external_evaluators,
+                embedding_engine_from_config,
+            )
+
+            try:
+                self._remote_embedder = embedding_engine_from_config(cfg)
+            except Exception as exc:
+                component_event("router", "external_model_skipped",
+                                role="embedding", error=str(exc),
+                                level="warning")
+            remote_evs, replaced = build_external_evaluators(
+                cfg, engine, remote_embedder=self._remote_embedder)
+            extra += remote_evs
+        return extra, replaced
 
     def skip_requested(self, headers: Dict[str, str]) -> bool:
         """True when skip-processing is enabled and the request asks for
@@ -1341,12 +1397,20 @@ class Router:
         else:
             body.pop("reasoning_effort", None)
 
-    def shutdown(self) -> None:
+    def shutdown(self, close_clients: bool = True) -> None:
+        """Stop the dispatchers' pools and close router learning and, with
+        ``close_clients``, the MCP classifiers' clients (a stdio server is
+        a child process).  A router a config reload replaced is retired
+        without (``RouterServer.retire_router``): the reference leaves
+        its clients open, one stdio server a reload (ROADMAP, queue 3)."""
         self.dispatcher.shutdown()
         for disp, _eng in self._recipe_engines.values():
             disp.shutdown()
         if self.learning is not None:
             self.learning.close()
+        if close_clients:
+            for e in self._mcp:
+                e.client.close()
 
 
 def _response_text(body: Dict[str, Any]) -> str:

@@ -118,7 +118,8 @@ def build_response_store(cfg: Dict[str, Any]):
     store (``backend: memory``, the default), a ``RedisResponseStore`` on
     one server (``redis`` / ``valkey``: host, port, db, password) or on a
     cluster (``redis-cluster`` / ``valkey-cluster``: ``nodes``, the slot
-    map read at build)."""
+    map read at build).  Any other backend gets the in-memory store, as
+    the reference's does."""
     cfg = cfg or {}
     backend = str(cfg.get("backend", "memory") or "memory")
     if backend in ("redis-cluster", "valkey-cluster"):
@@ -141,10 +142,6 @@ def build_response_store(cfg: Dict[str, Any]):
             password=str(cfg.get("password", "")),
             key_prefix=cfg.get("key_prefix", "vsr:resp"),
             ttl_seconds=float(cfg.get("ttl_seconds", 86_400.0)))
-    if backend != "memory":
-        # the config loader refuses it first
-        raise ValueError(f"response_store.backend {backend!r} is not "
-                         f"served by this port yet")
     return ResponseStore(
         max_entries=int(cfg.get("max_entries", 10_000)),
         ttl_seconds=float(cfg.get("ttl_seconds", 86_400.0)))

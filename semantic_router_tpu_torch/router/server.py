@@ -134,8 +134,20 @@ and the reference's telemetry surface, over the server's
   GET  /metrics/external           ExternalMetricValueList scaling
                                    signals (degradation level, queue
                                    pressure; the fleet maximum and one
-                                   level row per replica with a plane)
-                                   for an autoscaler
+                                   level row per replica with a plane,
+                                   through the fleet plane's aggregator
+                                   when one is attached) for an
+                                   autoscaler
+  GET  /metrics/fleet              the fleet plane's merged exposition
+                                   (Prometheus 0.0.4, open like
+                                   /metrics; 503 without the plane)
+  GET  /debug/fleet                the fleet plane: merged-view scope,
+                                   per-replica staleness, publisher and
+                                   aggregator health, the fleet's firing
+                                   SLO alerts (503 without it);
+                                   ``?source=fleet`` on /debug/flightrec
+                                   and /debug/decisions merges the live
+                                   replicas' published summaries
 
 and the config management API over the file ``serve`` watches
 (``config_path``; its hot-reload watcher applies what these write):
@@ -269,7 +281,9 @@ API_CATALOG = {"endpoints": [
         ("/debug/resilience", "GET"),
         ("/debug/upstreams", "GET"),
         ("/debug/stateplane", "GET"),
+        ("/debug/fleet", "GET"),
         ("/metrics/external", "GET"),
+        ("/metrics/fleet", "GET"),
         ("/info/models", "GET"),
         ("/v1/memory", "GET"),
         ("/v1/memory", "POST"),
@@ -530,6 +544,19 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/metrics/external":
             self._reply(200, srv.external_metrics(
                 self._query().get("metric", "")))
+        elif path == "/metrics/fleet":
+            # the live members' published snapshots and the local
+            # registry merged, scope and staleness stamped as
+            # llm_fleet_* series; merged registries carry no exemplars,
+            # so always 0.0.4
+            fobs = reg.get("fleetobs")
+            if fobs is None:
+                self._reply(503, {"error": "no fleet observability plane "
+                                           "(observability.fleet.enabled "
+                                           "is false)"})
+            else:
+                self._reply_text(200, fobs.aggregator.exposition()[0],
+                                 "text/plain; version=0.0.4")
         elif path in ("/dashboard", "/dashboard/") \
                 or path.startswith("/dashboard/static/"):
             # the page and its assets hold code, not data: open; their
@@ -567,6 +594,18 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/debug/profiler":
             self._reply(200, reg.profiler.status())
         elif path == "/debug/flightrec":
+            if self._query().get("source", "") == "fleet":
+                # the live siblings' slowest-N summaries merged (full
+                # records stay on the owning replica)
+                fobs = reg.get("fleetobs")
+                if fobs is None:
+                    self._reply(503, {"error": "no fleet observability plane "
+                                           "(observability.fleet.enabled "
+                                           "is false)"})
+                else:
+                    self._reply(200, fobs.aggregator.flightrec_fleet(
+                        reg.flightrec.dump()))
+                return
             self._reply(200, reg.flightrec.dump())
         elif path == "/debug/runtime":
             self._reply(200, runtime_debug_report(
@@ -605,6 +644,14 @@ class _Handler(BaseHTTPRequestHandler):
                                            "(stateplane.enabled is false)"})
             else:
                 self._reply(200, plane.report())
+        elif path == "/debug/fleet":
+            fobs = reg.get("fleetobs")
+            if fobs is None:
+                self._reply(503, {"error": "no fleet observability plane "
+                                           "(observability.fleet.enabled "
+                                           "is false)"})
+            else:
+                self._reply(200, fobs.report())
         elif path == "/debug/flywheel":
             # promotion state, corpus stats, the last train / eval
             # reports, shadow agreement, admission value weights
@@ -748,13 +795,24 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _decisions(self, ex) -> None:
         """Newest-first decision records, filtered by model / decision /
-        rule / family / kind; ``?source=durable`` reads the SQLite
-        mirror."""
+        rule / family / kind; ``?source=durable`` reads the durable
+        mirror, ``?source=fleet`` merges the live replicas' newest record
+        summaries (the fleet plane)."""
         q = self._query()
         try:
             limit = int(q.get("limit", "50") or 50)
         except ValueError:
             limit = 50
+        if q.get("source", "") == "fleet":
+            fobs = self.server.owner.registry.get("fleetobs")
+            if fobs is None:
+                self._reply(503, {"error": "no fleet observability plane "
+                                           "(observability.fleet.enabled "
+                                           "is false)"})
+            else:
+                self._reply(200, fobs.aggregator.decisions_fleet(
+                    ex.list(limit=limit)))
+            return
         filters = {k: q.get(k, "") for k in ("model", "decision", "rule",
                                               "family", "kind")}
         if q.get("source", "") == "durable":
@@ -2420,7 +2478,9 @@ class RouterServer:
         with self._retiring_lock:
             self._retiring = [(t, r) for t, r in self._retiring
                               if r is not old]
-        old.shutdown()
+        # as the reference's reload: the replaced router's MCP clients
+        # stay open (a reference fault the port keeps; ROADMAP, queue 3)
+        old.shutdown(close_clients=False)
 
     @property
     def upstreams(self):
@@ -2679,11 +2739,13 @@ class RouterServer:
         ``llm_queue_pressure``, first (stable order), then one level row
         per replica when a state plane is attached.  With a plane both
         ``scope="fleet"`` rows are the fleet's maxima over the replicas'
-        published pressure (``fleet_pressure``); without one, or while
-        the plane is down, this replica's own values.  ``metric``
-        filters by name."""
+        published pressure (``fleet_pressure``), read through the fleet
+        plane's one aggregation point (``FleetAggregator.scaling_view``)
+        when it is attached; without a plane, or while it is down, this
+        replica's own values.  ``metric`` filters by name."""
         res = self.registry.get("resilience")
         plane = self.registry.get("stateplane") or self.router.stateplane
+        fobs = self.registry.get("fleetobs")
         level = float(res.level()) if res is not None else 0.0
         pending = 0.0
         if res is not None:
@@ -2693,7 +2755,15 @@ class RouterServer:
             except Exception:
                 pending = 0.0
         levels: Dict[str, float] = {}
-        if plane is not None:
+        if fobs is not None:
+            try:
+                sv = fobs.aggregator.scaling_view(level, pending)
+                levels = {str(r): float(v) for r, v in sv["levels"].items()}
+                level = float(sv["level"])
+                pending = float(sv["pending"])
+            except Exception:
+                pass  # fleet view down: serve the local values
+        elif plane is not None:
             try:
                 fleet = plane.fleet_pressure()
                 levels = {str(r): float(v)
@@ -2744,7 +2814,7 @@ class RouterServer:
         for timer, old in retiring:
             timer.cancel()
             timer.join()
-            old.shutdown()
+            old.shutdown(close_clients=False)
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:

@@ -452,7 +452,8 @@ def build_router(cfg: RouterConfig, engine=None, registry=None,
         router.replay_store = carry_from.replay_store
     else:
         _attach_replay(cfg, router)
-        router.memory_store = _memory_store(cfg, embed_fn)
+        router.memory_store = _memory_store(
+            cfg, embed_fn, getattr(router, "_remote_embedder", None))
         vs_cfg = cfg.vectorstore or {}
         vs_backend = vs_cfg.get("backend", "memory")
         sp_cfg = cfg.stateplane_config()
@@ -551,11 +552,13 @@ def _vectorstore_registry(vs_cfg: dict):
         return None
 
 
-def _memory_store(cfg: RouterConfig, embed_fn):
+def _memory_store(cfg: RouterConfig, embed_fn, remote=None):
     """The ``memory`` block's store: SQLite at ``memory.path`` under
     ``backend: sqlite``; the Qdrant / Milvus store of ``memory.ann_store``
-    under ``qdrant`` / ``milvus`` (in-process, stamped
-    ``memory_backend_fallback``, when there is no embedding task); else
+    under ``qdrant`` / ``milvus``, embedding on the engine's task or,
+    without one, through ``remote`` (the router's remote embedding
+    provider, ``external_models``), and in-process, stamped
+    ``memory_backend_fallback``, when there is neither; else
     in-process."""
     from ..memory import InMemoryMemoryStore, SQLiteMemoryStore
 
@@ -564,7 +567,10 @@ def _memory_store(cfg: RouterConfig, embed_fn):
     if backend == "sqlite" and mem_cfg.get("path"):
         return SQLiteMemoryStore(mem_cfg["path"], embed_fn)
     if backend in ("qdrant", "milvus"):
-        if embed_fn is None:
+        mem_embed = embed_fn
+        if mem_embed is None and remote is not None:
+            mem_embed = lambda text: remote.embed("embedding", [text])[0]
+        if mem_embed is None:
             component_event("bootstrap", "memory_backend_fallback",
                             backend=backend, level="warning",
                             reason="no embedding source; using in-proc")
@@ -573,14 +579,14 @@ def _memory_store(cfg: RouterConfig, embed_fn):
             from ..memory.ann_store import QdrantMemoryStore
 
             return QdrantMemoryStore(
-                embed_fn,
+                mem_embed,
                 base_url=mem_cfg.get("base_url", "http://127.0.0.1:6333"),
                 api_key=str(mem_cfg.get("api_key", "")),
                 collection=mem_cfg.get("collection", "vsr_memory"))
         from ..memory.ann_store import MilvusMemoryStore
 
         return MilvusMemoryStore(
-            embed_fn,
+            mem_embed,
             base_url=mem_cfg.get("base_url", "http://127.0.0.1:19530"),
             token=str(mem_cfg.get("token", "")),
             db_name=mem_cfg.get("db_name", "default"),
@@ -795,6 +801,51 @@ def apply_stateplane_knobs(cfg: RouterConfig, registry, router,
     if explain is not None and (plane is not None or getattr(
             explain.durable_store, "plane", None) is not None):
         _attach_durable(cfg, registry, explain)
+    _attach_fleetobs(cfg, registry)
+
+
+def _attach_fleetobs(cfg: RouterConfig, registry) -> None:
+    """The fleet observability plane (``observability/fleetobs.py``),
+    built only when both the registry holds a state plane and
+    ``observability.fleet.enabled``: its publisher on the plane's
+    heartbeat, the registry's ``fleetobs`` slot (``fleetobs_attached``)
+    and the SLO monitor's ``fleet_source``.  A plane swapped out under
+    an attached one re-homes it onto the new plane; an unchanged one
+    retunes its knobs and rebinds its sinks in place.  Disabled, or with
+    no plane: ``_detach_fleetobs``."""
+    fl_cfg = cfg.fleet_obs_config()
+    plane = registry.get("stateplane")
+    fobs = registry.get("fleetobs")
+    slo = registry.get("slo")
+    try:
+        if fl_cfg["enabled"] and plane is not None:
+            if fobs is None or fobs.plane is not plane:
+                from ..observability.fleetobs import build_fleet_obs
+
+                if fobs is not None:  # the plane was swapped out
+                    fobs.plane.remove_publisher(fobs.publisher.maybe_publish)
+                fobs = build_fleet_obs(
+                    fl_cfg, plane, registry.metrics,
+                    flightrec=registry.get("flightrec"),
+                    explain=registry.get("explain"), slo=slo)
+                plane.add_publisher(fobs.publisher.maybe_publish)
+                registry.swap(fleetobs=fobs)
+                component_event("bootstrap", "fleetobs_attached",
+                                replica=plane.replica_id)
+            else:
+                fobs.publisher.interval_s = fl_cfg["publish_interval_s"]
+                fobs.publisher.debug_top_n = fl_cfg["debug_top_n"]
+                fobs.aggregator.cache_s = fl_cfg["cache_s"]
+                fobs.publisher.flightrec = registry.get("flightrec")
+                fobs.publisher.explain = registry.get("explain")
+                fobs.publisher.slo = slo
+            if slo is not None:
+                slo.fleet_source = fobs.aggregator.merged_registry
+        else:
+            _detach_fleetobs(registry)
+    except Exception as exc:
+        component_event("bootstrap", "fleetobs_config_invalid",
+                        error=str(exc)[:200], level="warning")
 
 
 def _wrap_cache(cfg: RouterConfig, sp_cfg: Dict, plane, router) -> None:
@@ -978,8 +1029,9 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
     program catalog's switch and its SLO-burn capture (one bounded
     ``torch.profiler`` trace and a catalog snapshot per firing alert, on
     the registry's event bus), the decision-record knobs with their
-    SQLite mirror, and then the SLO monitor and the degradation ladder
-    (``apply_resilience_knobs``).  The accessors already fall back to the
+    SQLite mirror, the fleet observability plane over the registry's
+    state plane (``_attach_fleetobs``), and then the SLO monitor and the
+    degradation ladder (``apply_resilience_knobs``).  The accessors already fall back to the
     defaults on a malformed value; the runtime-stats sampler it starts
     is stopped by ``registry.runtimestats.stop()``."""
     registry.tracer.sample_rate = cfg.tracing_sample_rate()
@@ -1027,6 +1079,7 @@ def apply_observability_knobs(cfg: RouterConfig, registry) -> None:
     if explain is not None:
         explain.configure(cfg.decision_explain_config())
         _attach_durable(cfg, registry, explain)
+    _attach_fleetobs(cfg, registry)
     apply_resilience_knobs(cfg, registry)
 
 
@@ -1167,4 +1220,24 @@ def close_stateplane(registry) -> None:
                                        None) is plane:
         explain.attach_durable(None)
     registry.swap(stateplane=None)
+    _detach_fleetobs(registry)
     plane.close()
+
+
+def _detach_fleetobs(registry) -> None:
+    """"Off" means off: the registry's fleet plane comes off its state
+    plane's heartbeat, its published keys are dropped and its slot
+    emptied (``fleetobs_detached``), and the SLO monitor's
+    ``fleet_source`` is unbound."""
+    fobs = registry.get("fleetobs")
+    if fobs is not None:
+        fobs.plane.remove_publisher(fobs.publisher.maybe_publish)
+        registry.swap(fleetobs=None)
+        try:
+            fobs.close()
+        except Exception:
+            pass
+        component_event("bootstrap", "fleetobs_detached")
+    slo = registry.get("slo")
+    if slo is not None:
+        slo.fleet_source = None

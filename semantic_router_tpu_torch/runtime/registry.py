@@ -5,8 +5,8 @@ slots this package fills: the metrics registry, the tracer, the session
 telemetry, the profiler control, the runtime event bus, the flight recorder, the runtime-stats
 sampler, the program-cost catalog, the SLO monitor, the decision-record
 ring, the degradation controller, the upstream health plane, the
-cascade evaluator, the shared state plane, the ANN plane and the routing
-flywheel.  ``RuntimeRegistry.with_defaults()``
+cascade evaluator, the shared state plane, the fleet observability
+plane, the ANN plane and the routing flywheel.  ``RuntimeRegistry.with_defaults()``
 binds the process-default singletons (the single-router posture);
 ``isolated()`` builds fresh sinks, so two routers in one process built
 over isolated registries share no series, spans or records.  Consumers
@@ -32,6 +32,10 @@ _SLOTS = ("metrics", "tracer", "sessions", "profiler", "events",
           # stateplane.enabled (build_router); per registry, so two
           # embedded routers can sit on different planes
           "stateplane",
+          # the fleet observability plane (observability.fleetobs
+          # .FleetObs): empty unless both stateplane.enabled and
+          # observability.fleet.enabled (bootstrap's _attach_fleetobs)
+          "fleetobs",
           # the on-device ANN plane (ann.AnnPlane): empty unless
           # ann.enabled (apply_ann_knobs)
           "ann",

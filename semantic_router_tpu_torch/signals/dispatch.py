@@ -208,14 +208,20 @@ class SignalDispatcher:
         self.pool.shutdown(wait=False, cancel_futures=True)
 
 
-def build_dispatcher(cfg, engine=None, learned_cfg=None) -> SignalDispatcher:
+def build_dispatcher(cfg, engine=None, learned_cfg=None, extra=(),
+                     replaced=()) -> SignalDispatcher:
     """Every model-free evaluator, plus the learned, embedding-scored and
-    kb evaluators when an engine is given, restricted to the families
-    the config's decisions, composers and projections reference.  The
-    engine-backed evaluators read ``learned_cfg``'s rules (default
-    ``cfg``): a recipe's dispatcher takes its heuristic rules from the
-    recipe and its learned ones from the top-level config, as the
-    reference's does."""
+    kb evaluators when an engine is given, then ``extra`` (the router's
+    MCP classifiers and external-model evaluators), restricted to the
+    families the config's decisions, composers and projections
+    reference.  The engine-backed evaluators read ``learned_cfg``'s rules
+    (default ``cfg``): a recipe's dispatcher takes its heuristic rules
+    from the recipe and its learned ones from the top-level config, as
+    the reference's does; those whose class is named in ``replaced`` are
+    left out (an external model serves their family).  Evaluators are
+    keyed by family, so the last of a family wins: an MCP classifier
+    replaces the bank's ``domain`` head, and of several the last one
+    serves."""
     from .embedding_signal import build_embedding_evaluators
     from .heuristic import (
         AuthzSignal,
@@ -243,13 +249,16 @@ def build_dispatcher(cfg, engine=None, learned_cfg=None) -> SignalDispatcher:
     ]
     if engine is not None:
         lcfg = learned_cfg or cfg
-        evaluators += build_learned_evaluators(engine, lcfg)
+        learned = build_learned_evaluators(engine, lcfg)
         if lcfg.signals.kb and lcfg.knowledge_bases:
             from .kb import KBSignal
 
-            evaluators.append(KBSignal(engine, lcfg.signals.kb,
-                                       lcfg.knowledge_bases))
-        evaluators += build_embedding_evaluators(engine, lcfg)
+            learned.append(KBSignal(engine, lcfg.signals.kb,
+                                    lcfg.knowledge_bases))
+        learned += build_embedding_evaluators(engine, lcfg)
+        evaluators += [e for e in learned
+                       if type(e).__name__ not in replaced]
+    evaluators += list(extra)
     return SignalDispatcher(evaluators,
                             projections=ProjectionEvaluator(cfg.projections),
                             used_types=cfg.used_signal_types() or None,

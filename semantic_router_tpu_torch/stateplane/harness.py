@@ -1,8 +1,8 @@
 """Multi-replica e2e harness: N in-process router replicas, one plane.
 
-The port's copy of ``semantic_router_tpu.stateplane.harness`` (without
-the fleet observability plane, which this port does not serve yet).
-The stateplane tests drive this: each replica is a full Router with its OWN isolated
+The port's copy of ``semantic_router_tpu.stateplane.harness``.  The
+stateplane and fleet-plane tests drive this: each replica is a full
+Router with its OWN isolated
 RuntimeRegistry (metrics, event bus, SLO monitor, degradation
 controller — nothing process-global shared), its own StatePlane handle,
 and a plane-shared semantic cache; the only thing replicas have in
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -81,6 +81,7 @@ class Replica:
     registry: object
     router: object
     controller: object
+    fleetobs: object = None
 
     def route(self, text: str, **headers) -> object:
         return self.router.route(
@@ -101,6 +102,10 @@ class ReplicaFleet:
     cfg: Optional[RouterConfig] = None
     heartbeat_s: float = 0.2
     replicas: List[Replica] = field(default_factory=list)
+    # the fleet observability plane per replica (publisher on the
+    # heartbeat, aggregator and the fleet-scoped SLO source bound)
+    fleet_obs: bool = False
+    fleet_obs_cfg: Dict[str, object] = field(default_factory=dict)
 
     def start(self) -> "ReplicaFleet":
         from ..router.pipeline import Router
@@ -127,10 +132,27 @@ class ReplicaFleet:
                 plane, embed, similarity_threshold=0.85,
                 local=self._local_cache(embed))
             router.stateplane = plane
+            fobs = None
+            if self.fleet_obs:
+                from ..observability.fleetobs import build_fleet_obs
+
+                fl_cfg = {"publish_interval_s": 0.0, "cache_s": 0.0,
+                          "debug_top_n": 8}
+                fl_cfg.update(self.fleet_obs_cfg)
+                fobs = build_fleet_obs(
+                    fl_cfg, plane, registry.metrics,
+                    flightrec=registry.get("flightrec"),
+                    explain=registry.get("explain"),
+                    slo=registry.get("slo"))
+                plane.add_publisher(fobs.publisher.maybe_publish)
+                registry.swap(fleetobs=fobs)
+                mon = registry.get("slo")
+                if mon is not None:
+                    mon.fleet_source = fobs.aggregator.merged_registry
             plane.start()
             self.replicas.append(Replica(
                 name=name, plane=plane, registry=registry,
-                router=router, controller=controller))
+                router=router, controller=controller, fleetobs=fobs))
         # one settle beat so every replica sees the full membership
         for r in self.replicas:
             try:
@@ -171,6 +193,13 @@ class ReplicaFleet:
                 r.router.shutdown()
             except Exception:
                 pass
+            if r.fleetobs is not None:
+                try:
+                    r.plane.remove_publisher(
+                        r.fleetobs.publisher.maybe_publish)
+                    r.fleetobs.close()
+                except Exception:
+                    pass
             try:
                 r.plane.close()
             except Exception:

@@ -68,6 +68,10 @@ class StatePlane:
         self.heartbeats = 0
         self.last_heartbeat_t = 0.0
         self.last_members: List[str] = [self.replica_id]
+        # piggyback publishers (observability/fleetobs.py): run after
+        # every successful beat, on the heartbeat thread, so periodic
+        # publication costs the request path nothing
+        self._publishers: List[Any] = []
 
         self._members_gauge = self._avail_gauge = None
         if metrics is not None:
@@ -113,7 +117,31 @@ class StatePlane:
             self.heartbeats += 1
             self.last_heartbeat_t = time.time()
         self._publish_gauges()
+        self._run_publishers()
         return self.last_members
+
+    def add_publisher(self, fn) -> None:
+        """Register a callable run after each successful heartbeat (the
+        fleet plane's snapshot publication).  Publishers own their
+        fail-open policy; an escape is swallowed, so the membership loop
+        never dies."""
+        with self._lock:
+            if fn not in self._publishers:
+                self._publishers.append(fn)
+
+    def remove_publisher(self, fn) -> None:
+        with self._lock:
+            if fn in self._publishers:
+                self._publishers.remove(fn)
+
+    def _run_publishers(self) -> None:
+        with self._lock:
+            publishers = list(self._publishers)
+        for fn in publishers:
+            try:
+                fn()
+            except Exception:
+                pass
 
     def _publish_gauges(self) -> None:
         try:

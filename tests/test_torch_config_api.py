@@ -343,20 +343,22 @@ def test_dsl_decompile(pair, fixture_config_path):
 
 def test_a_refused_document_is_answered_400_and_not_written(pair):
     doc = yaml.safe_load(CONFIG_TEXT)
-    # MCP classifiers: an option the port still refuses (the routing
-    # flywheel, once the refused option here, is served now)
-    doc["mcp"] = {"enabled": True}
+    # the engine mesh: an option the port still refuses (the routing
+    # flywheel and then MCP classifiers, once the refused option here,
+    # are served now)
+    doc.setdefault("engine", {})["mesh_shape"] = {"data": 1}
     for method in ("PUT", "PATCH"):
-        body = doc if method == "PUT" else {"mcp": {"enabled": True}}
+        body = doc if method == "PUT" else {"engine": {
+            "mesh_shape": {"data": 1}}}
         st, reply = _call(pair.urls["port"], method, "/config/router", body)
-        assert st == 400 and "MCP classifiers" in reply["error"]["message"]
-        # the JAX server serves MCP classifiers: it takes the document
+        assert st == 400 and "the engine mesh" in reply["error"]["message"]
+        # the JAX server serves the engine mesh: it takes the document
         assert _call(pair.urls["jax"], method, "/config/router",
                      body)[0] == 200
     st, reply = _call(pair.urls["port"], "POST",
                       "/dashboard/api/config/deploy",
                       {"yaml": yaml.safe_dump(doc)})
-    assert st == 400 and "MCP classifiers" in reply["error"]["message"]
+    assert st == 400 and "the engine mesh" in reply["error"]["message"]
     assert pair.disk("port") == CONFIG_TEXT
     assert _call(pair.urls["port"], "GET",
                  "/config/router/versions")[1] == {"versions": []}
@@ -364,4 +366,4 @@ def test_a_refused_document_is_answered_400_and_not_written(pair):
                       "/dashboard/api/config/validate",
                       {"yaml": yaml.safe_dump(doc)})
     assert st == 200 and reply["ok"] is False
-    assert "MCP classifiers" in reply["errors"][0]
+    assert "the engine mesh" in reply["errors"][0]

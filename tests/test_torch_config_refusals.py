@@ -25,11 +25,13 @@ reference's too, as do router replay (every store the reference
 builds), OTLP span and log export, trained selector artifacts, router
 learning (``learning``) and the routing flywheel (``flywheel``, its
 ``cost_bandit`` artifact as a decision's ``algorithm.artifact``
-included); beside each stays a refused option (the ANN bank's row
-sharding, the fleet observability plane, fleet-scoped objectives, the
-state plane's durable decision store, MCP classifiers, external
-models).  Sequence packing (``engine.packing``, its autotune
-block included) loads and parses as the reference's; the serving mesh
+included), and the MCP classifiers (``mcp``), the external models
+(``external_models``), the fleet observability plane
+(``observability.fleet``), fleet-scoped objectives, a durable decision
+backend other than SQLite and an unknown ``response_store`` backend;
+beside each stays a refused option (the serving mesh, the ANN bank's row
+sharding).  Sequence packing (``engine.packing``, its autotune block
+included) loads and parses as the reference's; the serving mesh
 (``engine.mesh``, ``engine.mesh_shape``) stays refused."""
 
 import copy
@@ -122,28 +124,36 @@ REFUSED = {
                     {"engine": {"mesh": {"enabled": False}}}),
     "engine.mesh_shape": ({"engine": {"mesh_shape": {"data": 1}}},
                           {"engine": {"mesh_shape": {}}}),
-    "mcp": ({"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
-            {"mcp": {}}),
-    "external_models": ({"external_models": [{"name": "x",
-                                              "role": "guard"}]},
-                        {"external_models": []}),
-    # a fleet-scoped objective reads merged fleet counts (state plane)
-    "observability.slo": (
-        {"observability": {"slo": {"enabled": True, "objectives": [
-            {"objective": "routing_latency p99 < 25ms over 5m",
-             "scope": "fleet"}]}}},
-        {"observability": {"slo": {"enabled": True, "objectives": [
-            {"objective": "routing_latency p99 < 25ms over 5m",
-             "scope": "local"}]}}}),
-    "observability.fleet.enabled": (
-        {"observability": {"fleet": {"enabled": True}}},
-        {"observability": {"fleet": {"enabled": False}}}),
-    "observability.decisions.durable.backend": (
-        {"observability": {"decisions": {"durable": {
-            "backend": "stateplane"}}}},
-        {"observability": {"decisions": {"durable": {
-            "backend": "sqlite", "path": ""}}}}),
 }
+# the other signal sources, the fleet observability plane, fleet-scoped
+# objectives, a durable decision backend other than SQLite (the state
+# plane's mirror, as the reference reads it) and an unknown Responses
+# store backend (in memory, as the reference builds it): served since
+# they were refused; SERVED_SINCE pairs each with a mesh knob
+PORTED["mcp"] = (
+    {"mcp": {"classifiers": [{"name": "x", "transport": "stdio"}]}},
+    {"mcp": {}})
+PORTED["external_models"] = (
+    {"external_models": [{"name": "x", "role": "guard"}]},
+    {"external_models": []})
+PORTED["observability.slo"] = (
+    {"observability": {"slo": {"enabled": True, "objectives": [
+        {"objective": "routing_latency p99 < 25ms over 5m",
+         "scope": "fleet"}]}}},
+    {"observability": {"slo": {"enabled": True, "objectives": [
+        {"objective": "routing_latency p99 < 25ms over 5m",
+         "scope": "local"}]}}})
+PORTED["observability.fleet.enabled"] = (
+    {"observability": {"fleet": {"enabled": True, "cache_s": 0.5}}},
+    {"observability": {"fleet": {"enabled": False}}})
+PORTED["observability.decisions.durable.backend"] = (
+    {"observability": {"decisions": {"durable": {
+        "backend": "stateplane"}}}},
+    {"observability": {"decisions": {"durable": {
+        "backend": "sqlite", "path": ""}}}})
+PORTED["response_store.backend.unknown"] = (
+    {"response_store": {"backend": "dynamo", "max_entries": 8}},
+    {"response_store": {"backend": "memory"}})
 # options the port once refused and serves now, each beside the option of
 # the same refusal that stays refused (and a config enabling that one)
 PORTED["image_generation"] = (
@@ -229,10 +239,10 @@ PORTED["algorithm.artifact.cost_bandit"] = (
         DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
         algorithm={"type": "cost_bandit", "artifact": "bandit.json"})]}},
     {"routing": {"decisions": [dict(DEC, algorithm={"type": "static"})]}})
-# the file of a cost_bandit artifact (written per test) and the refusal
-# of the state plane's durable decision store
+# the file of a cost_bandit artifact (written per test) and the serving
+# mesh's refusals
 BANDIT = "<cost_bandit artifact>"
-DURABLE = r"observability\.decisions\.durable\.backend"
+MESH, MESH_SHAPE = r"engine\.mesh", r"engine\.mesh_shape"
 SERVED_SINCE = {
     "engine.packing": (r"engine\.mesh", {
         "engine": {"packing": {"enabled": True},
@@ -241,11 +251,12 @@ SERVED_SINCE = {
         "engine": {"packing": {"autotune": {"enabled": True}},
                    "mesh_shape": {"data": 1}}}),
     "image_generation": (
-        "external_models", {"routing": {"decisions": [dict(
+        MESH_SHAPE, {"routing": {"decisions": [dict(
             DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "image_generation",
                       "configuration": {"backend": "mock"}}])]},
-            "external_models": [{"name": "x", "role": "guard"}]}),
+            "external_models": [{"name": "x", "role": "guard"}],
+            "engine": {"mesh_shape": {"data": 1}}}),
     # the plane and the ANN plane over it are served; the bank's row
     # sharding is not
     "stateplane": (r"ann\.mesh", {"stateplane": {"enabled": True},
@@ -256,90 +267,131 @@ SERVED_SINCE = {
     "vectorstore": (r"ann\.mesh", {
         "vectorstore": {"backend": "llamastack"},
         "ann": {"enabled": True, "mesh": {"enabled": True}}}),
-    "rag": ("mcp", {
+    "rag": (MESH_SHAPE, {
         "routing": {"decisions": [dict(
             DEC, algorithm={"type": "mlp", "artifact": BANDIT},
             plugins=[{"type": "rag", "configuration": {"store": "kb"}}])]},
         "vectorstore": {"registry": {"backend": "postgres"}},
-        "mcp": {"enabled": True}}),
-    # the Llama-Stack store and the Postgres registry: served since they
-    # were refused; the state plane's durable decision store is not
-    "vectorstore.backend": (DURABLE, {
+        "mcp": {"enabled": True},
+        "engine": {"mesh_shape": {"data": 1}}}),
+    # the Llama-Stack store and the Postgres registry, and the state
+    # plane's durable decision store beside them: served since they were
+    # refused; the serving mesh is not
+    "vectorstore.backend": (MESH, {
         "vectorstore": {"backend": "llamastack"},
         "observability": {"decisions": {"durable": {
-            "backend": "stateplane"}}}}),
-    "vectorstore.registry": (DURABLE, {
+            "backend": "stateplane"}}},
+        "engine": {"mesh": {"enabled": True, "dp": 1, "tp": 1}}}),
+    "vectorstore.registry": (MESH, {
         "vectorstore": {"registry": {"backend": "postgres"}},
         "observability": {"decisions": {"durable": {
-            "backend": "stateplane"}}}}),
-    "memory.backend": (r"observability\.fleet", {
+            "backend": "stateplane"}}},
+        "engine": {"mesh": {"enabled": True}}}),
+    "memory.backend": (r"ann\.mesh", {
         "memory": {"backend": "qdrant"},
         "routing": {"decisions": [dict(
             DEC, algorithm={"type": "knn", "artifact": BANDIT})]},
-        "observability": {"fleet": {"enabled": True}}}),
-    # the fleet-shared ladder is served; the fleet observability plane
-    # (federated metrics, fleet-scoped objectives) is not
+        "observability": {"fleet": {"enabled": True}},
+        "ann": {"enabled": True, "mesh": {"enabled": True}}}),
+    # the fleet-shared ladder and the fleet observability plane
+    # (federated metrics, fleet-scoped objectives) are served; the
+    # serving mesh is not
     "stateplane.share.fleet": (
-        r"observability\.fleet", {
+        MESH_SHAPE, {
             "stateplane": {"enabled": True, "share": {"fleet": True}},
-            "observability": {"fleet": {"enabled": True}}}),
+            "observability": {"fleet": {"enabled": True}},
+            "engine": {"mesh_shape": {"data": 1}}}),
     "resilience.upstream.fleet_share": (
-        "scope: fleet", {
+        MESH, {
             "stateplane": {"enabled": True},
             "resilience": {"upstream": {"enabled": True}},
             "observability": {"slo": {"objectives": [
                 {"objective": "routing_latency p99 < 25ms over 5m",
-                 "scope": "fleet"}]}}}),
-    # the RESP stores and the vector stores (the Llama-Stack store and the
-    # Postgres registry included) are served; the fleet observability
-    # plane and the state plane's durable decision store are not
+                 "scope": "fleet"}]}},
+            "engine": {"mesh": {"enabled": True}}}),
+    # the RESP stores, the vector stores (the Llama-Stack store and the
+    # Postgres registry included), the fleet observability plane and the
+    # state plane's durable decision store are served; the ANN bank's row
+    # sharding and the serving mesh are not
     "response_store.backend": (
-        r"observability\.fleet", {
+        r"ann\.mesh", {
             "response_store": {"backend": "redis"},
             "vectorstore": {"backend": "llamastack"},
-            "observability": {"fleet": {"enabled": True}}}),
+            "observability": {"fleet": {"enabled": True}},
+            "ann": {"enabled": True, "mesh": {"enabled": True}}}),
     "looper.workflow_state.backend": (
-        DURABLE, {
+        MESH_SHAPE, {
             "looper": {"workflow_state": {"backend": "redis"}},
             "memory": {"backend": "milvus"},
             "vectorstore": {"registry": {"backend": "postgres"}},
             "observability": {"decisions": {"durable": {
-                "backend": "stateplane"}}}}),
-    # router replay (on by default, every store the reference builds) and
-    # OTLP span and log export: served since they were refused; the state
-    # plane's durable decision store and the fleet observability plane
-    # are not
-    "router_replay": (DURABLE, {
+                "backend": "stateplane"}}},
+            "engine": {"mesh_shape": {"data": 1}}}),
+    # router replay (on by default, every store the reference builds),
+    # OTLP span and log export and the plane's durable decision store:
+    # served since they were refused; the serving mesh is not
+    "router_replay": (MESH, {
         "router_replay": {"enabled": True, "backend": "postgres"},
         "observability": {"decisions": {"durable": {
-            "backend": "stateplane"}}}}),
+            "backend": "stateplane"}}},
+        "engine": {"mesh": {"enabled": True}}}),
     "observability.tracing.otlp_endpoint": (
-        r"observability\.fleet", {"observability": {
+        MESH_SHAPE, {"observability": {
             "tracing": {"otlp_endpoint": "http://collector:4318"},
-            "fleet": {"enabled": True}}}),
-    # router learning and the routing flywheel beside it are served; MCP
-    # classifiers are not
-    "learning": ("mcp", {"learning": {"enabled": True},
-                         "flywheel": {"enabled": True},
-                         "mcp": {"enabled": True}}),
-    "flywheel": ("mcp", {"flywheel": {"enabled": True},
-                         "mcp": {"enabled": True}}),
+            "fleet": {"enabled": True}},
+            "engine": {"mesh_shape": {"data": 1}}}),
+    # router learning, the routing flywheel and MCP classifiers beside
+    # them are served; the serving mesh is not
+    "learning": (MESH, {"learning": {"enabled": True},
+                        "flywheel": {"enabled": True},
+                        "mcp": {"enabled": True},
+                        "engine": {"mesh": {"enabled": True}}}),
+    "flywheel": (MESH_SHAPE, {"flywheel": {"enabled": True},
+                              "mcp": {"enabled": True},
+                              "engine": {"mesh_shape": {"data": 1}}}),
     # trained selector artifacts (the flywheel's cost_bandit policy
-    # included) are served; external models are not
-    "algorithm.artifact": ("external_models", {
+    # included) and external models are served; the mesh is not
+    "algorithm.artifact": (MESH, {
         "routing": {"decisions": [dict(
             DEC, algorithm={"type": "knn", "artifact": BANDIT})]},
-        "external_models": [{"name": "x", "role": "guard"}]}),
-    "algorithm.artifact.cost_bandit": ("external_models", {
+        "external_models": [{"name": "x", "role": "guard"}],
+        "engine": {"mesh": {"enabled": True}}}),
+    "algorithm.artifact.cost_bandit": (MESH_SHAPE, {
         "routing": {"decisions": [dict(
             DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
             algorithm={"type": "cost_bandit", "artifact": BANDIT})]},
-        "external_models": [{"name": "x", "role": "guard"}]}),
+        "external_models": [{"name": "x", "role": "guard"}],
+        "engine": {"mesh_shape": {"data": 1}}}),
     "resilience": (
-        r"observability\.fleet", {"global": {
+        MESH, {"global": {
             "resilience": {"enabled": True},
             "stateplane": {"enabled": True, "share": {"fleet": True}},
-            "observability": {"fleet": {"enabled": True}}}}),
+            "observability": {"fleet": {"enabled": True}},
+            "engine": {"mesh": {"enabled": True, "dp": 1, "tp": 1}}}}),
+    # the options this slice serves, each beside a mesh knob
+    "mcp": (MESH_SHAPE, {
+        "mcp": {"classifiers": [{"name": "x", "url": "http://m:1"}]},
+        "engine": {"mesh_shape": {"data": 1}}}),
+    "external_models": (MESH, {
+        "external_models": [{"role": "guardrail",
+                             "base_url": "http://g:1"}],
+        "engine": {"mesh": {"enabled": True}}}),
+    "observability.slo": (r"ann\.mesh", {
+        "observability": {"slo": {"objectives": [
+            {"objective": "routing_latency p99 < 25ms over 5m",
+             "scope": "fleet"}]}},
+        "ann": {"enabled": True, "mesh": {"enabled": True}}}),
+    "observability.fleet.enabled": (MESH_SHAPE, {
+        "stateplane": {"enabled": True},
+        "observability": {"fleet": {"enabled": True}},
+        "engine": {"mesh_shape": {"data": 1}}}),
+    "observability.decisions.durable.backend": (MESH, {
+        "observability": {"decisions": {"durable": {
+            "backend": "stateplane"}}},
+        "engine": {"mesh": {"enabled": True}}}),
+    "response_store.backend.unknown": (r"ann\.mesh", {
+        "response_store": {"backend": "dynamo"},
+        "ann": {"enabled": True, "mesh": {"enabled": True, "dp": 2}}}),
 }
 
 
@@ -415,8 +467,14 @@ def _parsed(cfg, key):
         return cfg.stateplane_config(), cfg.upstream_config()
     if key == "resilience":
         return cfg.stateplane_config(), cfg.resilience_config()
-    if key == "response_store.backend":
+    if key in ("response_store.backend", "response_store.backend.unknown"):
         return cfg.response_store
+    if key == "observability.slo":
+        return cfg.slo_config()
+    if key == "observability.fleet.enabled":
+        return cfg.fleet_obs_config()
+    if key == "observability.decisions.durable.backend":
+        return cfg.decision_explain_config()
     if key == "looper.workflow_state.backend":
         return cfg.looper
     if key == "ann":
@@ -788,3 +846,53 @@ def test_deberta_checkpoint_loads(tmp_path, hf, spec, kind):
         assert out is not None
     finally:
         eng.shutdown()
+
+
+@pytest.mark.parametrize("with_plane", [False, True],
+                         ids=["no_plane", "plane"])
+def test_unknown_backends_build_the_references_stores(with_plane):
+    """An unknown durable decision backend and an unknown Responses store
+    backend, served since they were refused: both packages build the same
+    kind of store, the durable one through the state plane's mirror (with
+    ``share.explain``) or none, the Responses one in memory."""
+    from semantic_router_tpu import stateplane as jsp
+    from semantic_router_tpu.router import responseapi as jresp
+    from semantic_router_tpu.runtime import bootstrap as jboot
+    from semantic_router_tpu.runtime.registry import \
+        RuntimeRegistry as JRuntimeRegistry
+    from semantic_router_tpu_torch import stateplane as tsp
+    from semantic_router_tpu_torch.router import responseapi as tresp
+    from semantic_router_tpu_torch.runtime import RuntimeRegistry
+    from semantic_router_tpu_torch.runtime import bootstrap as tboot
+
+    d = {"observability": {"decisions": {"durable": {
+             "backend": "dynamo", "max_records": 7}}},
+         "stateplane": {"enabled": with_plane, "backend": "memory",
+                        "share": {"explain": True}},
+         "response_store": {"backend": "dynamo", "max_entries": 8}}
+    kinds = []
+    for sp, Registry, boot, resp, cfg in (
+            (jsp, JRuntimeRegistry, jboot, jresp,
+             JRouterConfig.from_dict(copy.deepcopy(d))),
+            (tsp, RuntimeRegistry, tboot, tresp,
+             load_config(copy.deepcopy(d)))):
+        plane = sp.StatePlane(sp.build_backend({"backend": "memory"}),
+                              replica_id="r") if with_plane else None
+        registry = Registry.isolated(stateplane=plane)
+        try:
+            boot.apply_observability_knobs(cfg, registry)
+            store = registry.get("explain").durable_store
+            resp_store = resp.build_response_store(cfg.response_store)
+            kinds.append((type(store).__name__,
+                          getattr(store, "max_records", None),
+                          type(resp_store).__name__,
+                          resp_store.max_entries))
+        finally:
+            for slot in ("resilience", "slo", "runtimestats"):
+                registry.get(slot).stop()
+            registry.get("explain").attach_durable(None)
+            if plane is not None:
+                plane.close()
+    assert kinds[1] == kinds[0] == (
+        ("StatePlaneDecisionStore", 7) if with_plane else ("NoneType", None)
+    ) + ("ResponseStore", 8)

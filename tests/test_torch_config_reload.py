@@ -424,9 +424,10 @@ def test_batches_in_flight_across_flips(live):
     assert len(live.events) == 6
 
 
-# an option the port still refuses (the routing flywheel, once the refused
-# option here, is served now)
-REFUSED = dict(copy.deepcopy(BASE), mcp={"enabled": True})
+# an option the port still refuses (the routing flywheel and then MCP
+# classifiers, once the refused option here, are served now)
+REFUSED = copy.deepcopy(BASE)
+REFUSED.setdefault("engine", {})["mesh_shape"] = {"data": 1}
 GHOST = _renamed(BASE, "ghost_route")
 GHOST["routing"]["decisions"][0]["rules"]["conditions"] = [
     {"type": "keyword", "name": "ghost_signal"}]

@@ -534,11 +534,12 @@ def test_catalog_lists_exactly_what_the_port_serves(served):
         "endpoints"]}
     assert served_paths <= {(e["path"], e["method"])
                             for e in JCATALOG["endpoints"]}
-    # the fleet observability plane is not served; the dashboard's reads
-    # are, the ones the reference's catalog leaves out included
-    assert ("/debug/fleet", "GET") not in served_paths
-    assert _call(url, "GET", "/debug/fleet")[::2] == (
-        404, {"error": "not found"})
+    # the fleet observability plane is served (503 without a plane, as
+    # the reference's); the dashboard's reads are, the ones the
+    # reference's catalog leaves out included
+    for path in ("/debug/fleet", "/metrics/fleet"):
+        assert (path, "GET") in served_paths
+        assert _call(url, "GET", path)[0] == 503
     assert ("/dashboard/embedmap", "GET") in served_paths
     for path in ("/dashboard/api/overview", "/dashboard/embedmap",
                  "/dashboard", "/dashboard/api/events"):

@@ -509,7 +509,10 @@ def test_port_sources_cover_every_package():
                 "training/__init__.py", "training/selection_train.py",
                 "modelselection/__init__.py", "modelselection/analyzer.py",
                 "modelselection/benchmark.py", "dashboard/jobs.py",
-                "dashboard/embedmap.py", "dsl/nlgen.py"):
+                "dashboard/embedmap.py", "dsl/nlgen.py", "mcp/__init__.py",
+                "mcp/client.py", "mcp/classifier.py", "signals/remote.py",
+                "observability/fleetobs.py", "observability/grafana.py",
+                "observability/metrics_lint.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -583,7 +586,13 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.modelselection.analyzer',\n"
         "        'semantic_router_tpu_torch.dashboard.jobs',\n"
         "        'semantic_router_tpu_torch.dashboard.embedmap',\n"
-        "        'semantic_router_tpu_torch.dsl.nlgen'} \\\n"
+        "        'semantic_router_tpu_torch.dsl.nlgen',\n"
+        "        'semantic_router_tpu_torch.mcp.client',\n"
+        "        'semantic_router_tpu_torch.mcp.classifier',\n"
+        "        'semantic_router_tpu_torch.signals.remote',\n"
+        "        'semantic_router_tpu_torch.observability.fleetobs',\n"
+        "        'semantic_router_tpu_torch.observability.grafana',\n"
+        "        'semantic_router_tpu_torch.observability.metrics_lint'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"

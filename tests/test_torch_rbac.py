@@ -189,6 +189,7 @@ def test_status_class_equals_the_reference(servers, ep, caplog):
     assert got["none"] == got["bad"] == (
         "auth" if ep["path"] not in (
             "/health", "/ready", "/metrics", "/metrics/external",
+            "/metrics/fleet",
             "/v1/models", "/startup-status", "/openapi.json", "/docs",
             "/v1/chat/completions", "/v1/messages", "/v1/responses",
             "/dashboard/api/login", "/dashboard/embedmap",

@@ -59,8 +59,13 @@ class TestWire:
         assert client.get("k") is None
 
     def test_expiry_enforced(self, client):
-        client.execute("SET", "gone", "x", "PX", 30)
+        # readable before expiry: set with a long TTL (no read can come
+        # after it on a loaded host), then shortened to 30 ms by a second
+        # SET with PX (neither package's MiniRedis has PEXPIRE)
+        client.execute("SET", "gone", "x", "PX", 60_000)
         assert client.get("gone") == b"x"
+        assert 0 < client.ttl("gone") <= 60
+        client.execute("SET", "gone", "x", "PX", 30)
         deadline = time.time() + 5.0
         while client.get("gone") is not None and time.time() < deadline:
             time.sleep(0.02)

@@ -28,6 +28,8 @@ from semantic_router_tpu_torch.models import MmBertEmbeddingModel, \
     params_from_flax
 from semantic_router_tpu_torch.router import headers as H
 from semantic_router_tpu_torch.runtime import RuntimeRegistry, build_router
+from semantic_router_tpu_torch.runtime.bootstrap import \
+    apply_observability_knobs, close_stateplane
 
 PROB_TOL = 1e-4
 SEQ_TASKS = [("jailbreak", ["benign", "jailbreak"]),
@@ -422,18 +424,21 @@ def _refused(**change):
 
 # the rag plugin, the qdrant / milvus memory stores, the Llama-Stack vector
 # store and the Postgres store registry are served since the retrieval
-# plane and its two backends were ported, and router replay and trained
+# plane and its two backends were ported, router replay and trained
 # selector artifacts since the decision record was, router learning and the
-# routing flywheel (its cost_bandit artifact included) since they were:
-# each case pairs served options with one still refused beside them (the
-# ANN bank's row sharding, the state plane's durable decision store, MCP
-# classifiers, external models); without that option the config loads and
-# serves (an unreachable Postgres registry fails open)
-DURABLE = r"observability\.decisions\.durable\.backend"
-SERVED_BESIDE = {r"ann\.mesh": "ann", DURABLE: "observability",
-                 "mcp": "mcp", "external_models": "external_models"}
+# routing flywheel (its cost_bandit artifact included) since they were, and
+# the state plane's durable decision store, MCP classifiers, external
+# models, the fleet observability plane and fleet-scoped objectives since
+# the last signal sources and the fleet plane were: each case pairs served
+# options with one still refused beside them (the ANN bank's row sharding,
+# the serving mesh); without that option the config loads and serves (an
+# unreachable Postgres registry fails open) and its served parts build
+MESH, MESH_SHAPE = r"engine\.mesh", r"engine\.mesh_shape"
+SERVED_BESIDE = {r"ann\.mesh": ("ann",), MESH: ("engine", "mesh"),
+                 MESH_SHAPE: ("engine", "mesh_shape")}
 # replaced by the path of a cost_bandit artifact the JAX flywheel writes
 BANDIT = "<cost_bandit artifact>"
+MCP = {"classifiers": [{"name": "m", "url": "http://127.0.0.1:9/"}]}
 
 
 @pytest.mark.parametrize("cfg,what", [
@@ -447,31 +452,37 @@ BANDIT = "<cost_bandit artifact>"
               router_replay={"enabled": True, "backend": "sqlite",
                              "path": ":memory:"},
               observability={"decisions": {"durable": {
-                  "backend": "stateplane"}}}), DURABLE),
+                  "backend": "stateplane"}}},
+              engine__mesh={"enabled": True}), MESH),
     (_refused(memory={"backend": "milvus"},
               ann={"enabled": True, "mesh": {"enabled": True}}),
      r"ann\.mesh"),
-    # the flywheel's cost_bandit artifact is served; MCP classifiers are not
+    # the flywheel's cost_bandit artifact and MCP classifiers are served;
+    # the engine mesh is not
     (_refused(routing__decisions__0__algorithm={
-        "type": "mlp", "artifact": BANDIT}, mcp={"enabled": True}), "mcp"),
-    # router learning and the flywheel beside it are served; external
-    # models are not
+        "type": "mlp", "artifact": BANDIT}, mcp=MCP,
+        engine__mesh_shape={"data": 1}), MESH_SHAPE),
+    # router learning, the flywheel and external models are served; the
+    # serving mesh is not
     (_refused(learning={"enabled": True}, flywheel={"enabled": True},
-              external_models=[{"name": "x", "role": "guard"}]),
-     "external_models"),
-    (_refused(flywheel={"enabled": True}, mcp={"enabled": True}), "mcp"),
+              external_models=[{"role": "embedding",
+                                "base_url": "http://127.0.0.1:9/v1"}],
+              engine__mesh={"enabled": True}), MESH),
+    (_refused(flywheel={"enabled": True}, mcp=MCP,
+              engine__mesh_shape={"data": 1}), MESH_SHAPE),
     # the ladder and the upstream plane are served over the shared state
-    # plane too; the fleet observability plane and fleet-scoped objectives
-    # beside them are not
+    # plane, and the fleet observability plane and fleet-scoped
+    # objectives beside them; the serving mesh is not
     (_refused(resilience={"enabled": True},
               stateplane={"enabled": True, "share": {"fleet": True}},
-              observability={"fleet": {"enabled": True}}),
-     r"observability\.fleet"),
+              observability={"fleet": {"enabled": True}},
+              engine__mesh={"enabled": True}), MESH),
     (_refused(resilience={"upstream": {"enabled": True}},
               stateplane={"enabled": True},
               observability={"slo": {"objectives": [
                   {"objective": "routing_latency p99 < 25ms over 5m",
-                   "scope": "fleet"}]}}), "scope: fleet"),
+                   "scope": "fleet"}]}},
+              engine__mesh_shape={"data": 1}), MESH_SHAPE),
 ], ids=["rag", "qdrant", "milvus", "artifact", "learning", "flywheel",
         "resilience", "upstream"])
 def test_unported_options_are_refused_at_load(cfg, what, tmp_path):
@@ -484,44 +495,53 @@ def test_unported_options_are_refused_at_load(cfg, what, tmp_path):
                                              json.dumps(bandit)))
     with pytest.raises(ValueError, match=what):
         load_config(cfg)
-    if what in (r"observability\.fleet", "scope: fleet"):
-        # without the still-refused block the fleet-shared form loads
-        del cfg["observability"]
-        assert load_config(cfg).stateplane_config()["enabled"]
-    if what in ("mcp", "external_models"):
-        # without the still-refused option the served ones load and serve
-        del cfg[SERVED_BESIDE[what]]
-        registry = RuntimeRegistry.isolated()
-        router = build_router(load_config(cfg), registry=registry)
-        try:
-            if "flywheel" in cfg:
-                assert router.flywheel is registry.get("flywheel")
-                assert router.flywheel is not None
-            if "learning" in cfg:
-                assert router.learning is not None and router.learning.enabled
-                # the flywheel's ledger rewards read learning's store
-                assert router.flywheel.experience is router.learning.store
-            dec = router.cfg.decisions[0]
-            if (dec.algorithm or {}).get("artifact"):
-                assert type(router._selector(dec)).__name__ \
-                    == "CostAwareBanditSelector"
-        finally:
-            if registry.get("flywheel") is not None:
-                registry.flywheel.close()
-            router.shutdown()
-        return
-    if what in SERVED_BESIDE:
-        # without the still-refused option the rest loads and serves
-        del cfg[SERVED_BESIDE[what]]
-        router = build_router(load_config(cfg))
-        try:
-            assert router.vectorstores is not None
-            if "memory" in cfg:
-                # no embedding task here: the in-process store, stamped
-                assert type(router.memory_store).__name__ \
-                    == "InMemoryMemoryStore"
-        finally:
-            router.shutdown()
+    # without the still-refused option the rest loads, serves and builds
+    *parents, leaf = SERVED_BESIDE[what]
+    node = cfg
+    for key in parents:
+        node = node[key]
+    del node[leaf]
+    registry = RuntimeRegistry.isolated(runtimestats=None)
+    router = build_router(load_config(cfg), registry=registry)
+    try:
+        assert router.vectorstores is not None
+        if "memory" in cfg:
+            # no embedding task here: the in-process store, stamped
+            assert type(router.memory_store).__name__ \
+                == "InMemoryMemoryStore"
+        if "flywheel" in cfg:
+            assert router.flywheel is registry.get("flywheel")
+            assert router.flywheel is not None
+        if "learning" in cfg:
+            assert router.learning is not None and router.learning.enabled
+            # the flywheel's ledger rewards read learning's store
+            assert router.flywheel.experience is router.learning.store
+        dec = router.cfg.decisions[0]
+        if (dec.algorithm or {}).get("artifact"):
+            assert type(router._selector(dec)).__name__ \
+                == "CostAwareBanditSelector"
+        if "mcp" in cfg:
+            # the MCP classifier serves the domain family (it connects at
+            # its first request)
+            assert type(router.dispatcher.evaluators["domain"]).__name__ \
+                == "MCPClassifySignal"
+        if "external_models" in cfg:
+            assert type(router._remote_embedder).__name__ \
+                == "RemoteEmbeddingEngine"
+        if "observability" in cfg and "fleet" in cfg["observability"]:
+            apply_observability_knobs(router.cfg, registry)
+            assert registry.get("fleetobs") is not None
+            assert registry.slo.fleet_source is not None
+        if "observability" in cfg and "slo" in cfg["observability"]:
+            assert router.cfg.slo_config()["objectives"][0]["scope"] \
+                == "fleet"
+    finally:
+        if registry.get("flywheel") is not None:
+            registry.flywheel.close()
+        registry.slo.stop()
+        registry.resilience.stop()
+        close_stateplane(registry)
+        router.shutdown()
 
 
 def test_served_options_load(tmp_path):

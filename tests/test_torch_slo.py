@@ -188,16 +188,34 @@ def test_reconfigure_and_disable_match_jax():
 
 
 def test_fleet_objective_is_a_config_error():
-    reg = tmetrics.MetricsRegistry()
-    mon = tslo.SLOMonitor(reg)
-    mon.configure({"objectives": [
+    # served since the fleet observability plane was ported: a fleet
+    # objective is no longer a configuration error; both monitors parse
+    # it alike and, with no fleet source bound, read local counts stamped
+    # "local-fallback" into the llm_fleet_slo_* series
+    spec = {"objectives": [
         {"objective": "routing_latency p99 < 20ms", "scope": "fleet"},
-        "routing_latency p99 < 20ms"]})
-    assert [o.name for o in mon.objectives] == ["routing_latency_p99"]
-    assert len(mon.config_errors) == 1 and "fleet" in mon.config_errors[0]
-    with pytest.raises(ValueError, match="scope: fleet"):
-        load_config({"observability": {"slo": {"objectives": [
-            {"objective": "routing_latency p99 < 20ms", "scope": "fleet"}]}}})
+        "routing_latency p99 < 20ms"]}
+    mons = []
+    for metrics, slo in ((jmetrics, jslo), (tmetrics, tslo)):
+        reg = metrics.MetricsRegistry()
+        mon = slo.SLOMonitor(reg)
+        mon.configure(copy.deepcopy(spec))
+        reg.histogram("llm_model_routing_latency_seconds",
+                      "routing latency").observe(0.5)
+        mon.tick(now=1.0)
+        mons.append(mon)
+    j, t = mons
+    assert [o.name for o in t.objectives] == [o.name for o in j.objectives] \
+        == ["fleet:routing_latency_p99", "routing_latency_p99"]
+    assert t.config_errors == j.config_errors == []
+    assert _report(t) == _report(j)
+    assert {r["name"]: r["source"] for r in t.report()["objectives"]} == {
+        "fleet:routing_latency_p99": "local-fallback",
+        "routing_latency_p99": "local"}
+    assert t.registry.find("llm_fleet_slo_good_ratio") is not None
+    cfg = load_config({"observability": {"slo": {"objectives": [
+        {"objective": "routing_latency p99 < 20ms", "scope": "fleet"}]}}})
+    assert cfg.slo_config()["objectives"][0]["scope"] == "fleet"
 
 
 # ---------------------------------------------------------------------------
