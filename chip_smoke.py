@@ -512,23 +512,47 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
    A, B, B, A, baseline; 32 requests each); route p50 / p99, K1 / K2 a
    route against the engine's steps, captures, the fakes' calls, every
    route's decision and model against the CPU port's.
+25. the operator plane.  25b, untimed, beside the cuda tests' process
+   (after 24b's CPU-port routes): the port's ``serve`` boots a config
+   whose two checkpoints are repo ids; a fake ``hf`` CLI on ``PATH``
+   "downloads" phase 3's full-width ModernBERT-base intent module
+   (written once as an HF checkpoint) for one and answers 401 for the
+   other: ``download_started`` / ``download_done``, the first task loaded
+   at 22 layers x 768 and serving a chat request through K1 and K2 (its
+   probabilities against the module on the CPU), the second unloaded;
+   then ``fleetsim optimize`` (the CLI) on the workload
+   ``workload_from_replay_report`` builds from phase 21's routes equals
+   the same computation in this process.  25a, after 24b: phase 3's bank
+   behind the server with the hot-reload watcher and the Kubernetes
+   operator of the boot file's ``kubernetes`` block (a loopback
+   ``MiniKubeAPI``), under 4 clients: a pool and a route, the route
+   modified, a second route, an invalid route (refused, the file
+   untouched), a forced 410 re-list with a change, the second route
+   deleted; per step the time from the CR apply to each client's first
+   answer under the new config and K1 / K2 a routed request; every
+   answer's decision and model against the CPU port's router on its
+   config; then an SLO alert and a move to L2 on the bus become the
+   pool's status conditions and scale hint (and clear again), and the
+   port's admission webhook denies the invalid route.  25c: Qwen3-
+   Embedding-0.6B and EmbeddingGemma-300M at published widths (B 4 x S
+   128, padded rows) on the card, ms a forward, against the CPU port.
 
 The CPU-port reference checks of phases 5, 6a, 12, 13c, 19, 20, 21, 22,
-23 and 24b run on one background thread (``Deferred``) while the card's phases
-go on (none starts during phases 19 and 20 and
+23, 24b, 25a and 25c run on one background thread (``Deferred``) while
+the card's phases go on (none starts during phases 19 and 20 and
 22a-22c's fine-tunes, whose timings are host-bound); the run waits for
-them after phase 24b, prints each one's seconds and how long it
+them after phase 25c, prints each one's seconds and how long it
 waited, and fails on the first that failed.  The CPU port's engines of
 phases 3, 4, 5, 18 and 18b are built on a thread of their own while the
-card's engine is built and served, and phase 13's seeded weights are
-drawn on one from phase 11 on.
+card's engine is built and served, phase 13's seeded weights are drawn
+on one from phase 11 on, and 25c's (on the card) on one beside 25b.
 
 The last three lines of standard output are one JSON object with every
 kernel's numbers (K1's launches count phases 3, 5, 6, 8, 9, 10, 11, 12,
 13, 14, 15, 16, 17, 18 (none there: its trunk is dense), 19 (float32;
-its bf16 ones in the bf16 row), 20, 21, 22, 23, 24a and 24b; K2's count
-phase 18's packed and unpacked steps and phases 19's, 20's, 21's, 22's,
-23's, 24a's and 24b's too, K3's
+its bf16 ones in the bf16 row), 20, 21, 22, 23, 24a, 24b, 25a and 25b;
+K2's count phase 18's packed and unpacked steps and phases 19's, 20's,
+21's, 22's, 23's, 24a's, 24b's, 25a's and 25b's too, K3's
 phase 4's,
 18b's and 19's),
 ``nvidia-smi``'s name and power limit, and then
@@ -9896,12 +9920,12 @@ def _rl_call(url: str, method: str, path: str, body=None,
 
 
 class _RLClients:
-    """``RL_CLIENTS`` threads sending phase 3's prompts through the server
-    for as long as the phase runs; each answer is kept with its times,
-    its status, its decision and model headers and the ``config_hash``
-    of its decision record."""
+    """``clients`` threads (``RL_CLIENTS`` unless given) sending phase 3's
+    prompts through the server for as long as the phase runs; each answer
+    is kept with its client, its times, its status, its decision and
+    model headers and the ``config_hash`` of its decision record."""
 
-    def __init__(self, url: str, explain) -> None:
+    def __init__(self, url: str, explain, clients: int = RL_CLIENTS) -> None:
         self.url, self.explain = url, explain
         self.rows, self._lock = [], threading.Lock()
         self._stop = threading.Event()
@@ -9910,11 +9934,12 @@ class _RLClients:
             {"role": "user", "content": p}]} for p in PROMPTS]
         self.threads = [threading.Thread(target=self._run, args=(i,),
                                          name=f"p19-client-{i}")
-                        for i in range(RL_CLIENTS)]
+                        for i in range(clients)]
         for t in self.threads:
             t.start()
 
     def _run(self, i: int) -> None:
+        client = i
         while not self._stop.is_set():
             k = i % len(self.bodies)
             i += 1
@@ -9934,7 +9959,8 @@ class _RLClients:
                 time.sleep(0.002)
             with self._lock:
                 self.rows.append({
-                    "t0": t0, "t1": t1, "status": status, "prompt": k,
+                    "client": client, "t0": t0, "t1": t1,
+                    "status": status, "prompt": k,
                     "decision": headers.get("x-vsr-selected-decision"),
                     "model": headers.get("x-vsr-selected-model"),
                     "hash": (rec or {}).get("config_hash")})
@@ -11462,7 +11488,13 @@ def phase_record(modules3: dict, modules5: dict, smi: str) -> dict:
                       "candidate_drops": card["drop"],
                       "changed_by_candidate": len(card["changed"]),
                       "cache_entries": len(router.cache._entries),
-                      "serve_s": a_s, "launches": launches["21a"]}
+                      "serve_s": a_s, "launches": launches["21a"],
+                      # the replay bench's report shape, phase 25b's
+                      # fleet-simulator input
+                      "replay_report": {
+                          "signals_per_s": N_RP / a_s,
+                          "decisions": dict(collections.Counter(
+                              d or "none" for d in card["decisions"]))}}
         print("21a recording: " + json.dumps(out["21a"]) + f" | {smi}",
               flush=True)
 
@@ -13685,6 +13717,691 @@ def phase_sources(prep: dict, engines: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 25: the operator plane ----------------------------------------------
+
+# 25a: phase 3's router config, booted from a file whose ``kubernetes`` block
+# names a loopback MiniKubeAPI; the CRs then carry the same routing
+P25_BASE = copy.deepcopy(ROUTER_CONFIG)
+P25_BASE["engine"]["packing"] = {"enabled": False}
+# the ladder stays off at boot, as in phase 19 (a CR-rendered config has no
+# resilience block, so the reference's default applies after a reload)
+P25_BASE["resilience"] = {"enabled": False}
+P25_CRD = "srt.tpu.dev/v1alpha1"
+P25_POOL = {"apiVersion": P25_CRD, "kind": "IntelligentPool",
+            "metadata": {"name": "router-pool"},
+            "spec": {"defaultModel": ROUTER_CONFIG["default_model"],
+                     "models": [{"name": c["name"]} for c in
+                                ROUTER_CONFIG["routing"]["modelCards"]]}}
+P25_ROUTE = {"apiVersion": P25_CRD, "kind": "IntelligentRoute",
+             "metadata": {"name": "learned"},
+             "spec": {"signals": ROUTER_CONFIG["routing"]["signals"],
+                      "decisions": ROUTER_CONFIG["routing"]["decisions"]}}
+# the second route: a keyword decision above pii_route for phase 3's
+# python prompts
+P25_ROUTE2 = {"apiVersion": P25_CRD, "kind": "IntelligentRoute",
+              "metadata": {"name": "python"},
+              "spec": {"signals": {"keywords": [
+                  {"name": "python_kw", "operator": "OR",
+                   "keywords": ["python"]}]},
+                  "decisions": [{
+                      "name": "python_route", "priority": 250,
+                      "rules": {"operator": "OR", "conditions": [
+                          {"type": "keyword", "name": "python_kw"}]},
+                      "modelRefs": [{"model": "biz-model"}]}]}}
+# invalid: a decision without rules (admission and reconcile refuse it)
+P25_BAD = {"apiVersion": P25_CRD, "kind": "IntelligentRoute",
+           "metadata": {"name": "ghost"},
+           "spec": {"decisions": [{"name": "ghost_route", "priority": 5,
+                                   "modelRefs": [{"model": "qwen3-8b"}]}]}}
+P25_CLIENTS = 4
+P25_WINDOW_S = 0.75        # traffic after the last client's first new answer
+P25_DEADLINE_S = 30.0      # a CR step's file write, reload or answers
+# 25b: the downloaded checkpoint (phase 3's ModernBERT-base intent module)
+# and its repo ids
+P25_REPO, P25_GATED = "p25-org/intent-base", "p25-org/gated-guard"
+P25_WORDS = [f"w{i}" for i in range(400)]
+# the fleet simulator's input: parameters (billions) of each model card
+# phase 21's routes reach (a sizing assumption, not a measurement)
+P25_FLEET_PARAMS = {"qwen3-8b": 8.0, "qwen3-32b": 32.0, "guard-model": 0.6,
+                    "private-model": 8.0, "biz-model": 14.0,
+                    "med-model": 70.0}
+# 25c: google/embeddinggemma-300m's config.json fields and its
+# sentence-transformers bottleneck.  ``GemmaConfig.from_hf`` does not read
+# ``use_bidirectional_attention``, so 25c sets ``causal=False`` itself; no
+# ``layer_types`` is given, so the default pattern applies (every 6th
+# layer full)
+EMBEDDINGGEMMA_300M = dict(
+    vocab_size=262144, hidden_size=768, intermediate_size=1152,
+    num_hidden_layers=24, num_attention_heads=3, num_key_value_heads=1,
+    head_dim=256, rms_norm_eps=1e-6, rope_theta=1e6,
+    rope_local_base_freq=1e4, sliding_window=512,
+    query_pre_attn_scalar=256, max_position_embeddings=2048,
+    use_bidirectional_attention=True)
+GEMMA_BOTTLENECK = (3072, 768)
+P25_B, P25_S = 4, 128
+P25_LENGTHS = (128, 96, 50, 7)     # real tokens a row (padded rows)
+P25_EMBED_TOL = 1e-4               # card against the CPU port, float32
+
+
+def _p25_wait(cond, what: str, timeout: float = P25_DEADLINE_S,
+              step: float = 0.002) -> float:
+    """Seconds until ``cond()``; fails the run after ``timeout``."""
+    secs = _wait_for(cond, timeout, step)
+    check(secs is not None, f"25: {what} within {timeout} s")
+    return secs
+
+
+def _p25_status(client) -> tuple:
+    """The pool's pushed conditions {type: status} and scale hint."""
+    items, _ = client.list("intelligentpools")
+    status = (items[0].get("status") or {}) if items else {}
+    return ({c["type"]: c["status"] for c in status.get("conditions", [])},
+            status.get("scaleHint"))
+
+
+def phase_operator(modules3: dict, smi: str) -> dict:
+    """Phase 25a: phase 3's bank behind the port's ``RouterServer`` with
+    ``config_path``, the hot-reload watcher (``attach_config_watcher``,
+    driven by ``poll_once`` as in phase 19) and ``attach_kube_operator``
+    on a loopback ``MiniKubeAPI`` named by the boot file's ``kubernetes``
+    block, under ``P25_CLIENTS`` client threads sending phase 3's
+    prompts.  After a window on the boot config, six CR steps: a pool
+    and a route (phase 3's routing); the route MODIFIED (business_route's
+    model); a second route (a keyword decision); an invalid route (no
+    rules: the file stays as it was, the status ``invalid: …``, then it
+    is deleted); the fake's history expired and its streams ended, so the
+    operator is answered 410 and re-lists, and the second route modified;
+    the second route DELETED.  Per step: apply → first answer under the
+    new config a client (p50 / max), the file write and the reload, K1 /
+    K2 launches a routed request.  Then an SLO alert (fast) and a move to
+    L2 on the registry's bus become ``SLOAlertFiring`` / ``Degraded`` True
+    and ``scaleHint: scale_up`` on the pool's status, and ``steady`` once
+    resolved; the invalid route's AdmissionReview is denied by the port's
+    ``AdmissionWebhook`` with ``validate_admission``'s reason.  Every
+    answer's decision and model is held against the CPU port's router on
+    the config its record names (deferred)."""
+    import tempfile
+
+    import yaml
+
+    from semantic_router_tpu_torch.config import load_config as load_file
+    from semantic_router_tpu_torch.config.schema import config_hash
+    from semantic_router_tpu_torch.runtime import apply_kernel_knobs, \
+        attach_config_watcher, attach_kube_operator
+    from semantic_router_tpu_torch.runtime.crds import AdmissionWebhook, \
+        validate_admission
+    from semantic_router_tpu_torch.runtime.events import \
+        DEGRADATION_LEVEL_CHANGED, SLO_ALERT_FIRING, SLO_ALERT_RESOLVED
+    from semantic_router_tpu_torch.runtime.kubewatch import KubeClient, \
+        MiniKubeAPI
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi, "steps": []}
+    tmp = tempfile.mkdtemp(prefix="p25-")
+    path = os.path.join(tmp, "router.yaml")
+    api = MiniKubeAPI()
+    boot = copy.deepcopy(P25_BASE)
+    boot["kubernetes"] = {"enabled": True, "api_url": api.url,
+                          "namespace": "default"}
+    with open(path, "w") as f:
+        f.write(yaml.safe_dump(boot, sort_keys=False))
+    cfg = load_file(path)
+    configs = {config_hash(cfg.raw): cfg}
+    registry = RuntimeRegistry.isolated()
+    engine = InferenceEngine(cfg.engine, device=DEVICE,
+                             metrics=registry.metric_series(),
+                             runtime_stats=registry.runtimestats,
+                             program_stats=registry.programstats)
+    tok = HashTokenizer(vocab_size=MODERNBERT_BASE["vocab_size"])
+    for name, (kind, module, labels) in modules3["cuda"].items():
+        engine.register_task(name, kind, module, tok, labels,
+                             max_seq_len=512)
+    apply_packing_knobs(cfg, engine)
+    apply_kernel_knobs(cfg, engine)
+    engine.warmup()
+    backend = MockVLLMServer().start()
+    server = RouterServer(build_router(cfg, engine, registry=registry),
+                          backend.url, registry=registry,
+                          config_path=path).start()
+    watcher = attach_config_watcher(server, path, engine, registry,
+                                    start=False)
+    op = attach_kube_operator(server, cfg, path, registry)
+    check(op is not None and server.kube_operator is op,
+          "25a: the kubernetes block started no operator")
+    launches = collections.Counter()
+    clients = None
+    try:
+        clients = _RLClients(server.url, registry.explain, P25_CLIENTS)
+        stamp("phase 25a: the boot config")
+        _cuda.reset_launch_counts()
+        t_b = time.perf_counter()
+        time.sleep(2 * P25_WINDOW_S)
+        got = _cuda.launch_counts()
+        n = len(clients.between(t_b, time.perf_counter()))
+        launches.update(got)
+        out["boot"] = {"requests": n, "k1": got["flash_attention"],
+                       "k2": got["head_epilogue"],
+                       "k1_per_request": got["flash_attention"] / max(n, 1),
+                       "k2_per_request": got["head_epilogue"] / max(n, 1)}
+        check(got["flash_attention"] > 0 and got["head_epilogue"] > 0,
+              f"25a: the boot config's routes launched {got}")
+        print("25a boot config: " + json.dumps(out["boot"]) + f" | {smi}",
+              flush=True)
+
+        def reload_step(name: str, act) -> dict:
+            """``act()`` (the CR calls) → the operator's file → the
+            watcher's reload → every client answered under the new config,
+            then ``P25_WINDOW_S`` of traffic."""
+            before = open(path).read()
+            _cuda.reset_launch_counts()
+            t_apply = time.perf_counter()
+            act()
+            row = {"name": name}
+            row["file_s"] = _p25_wait(lambda: open(path).read() != before,
+                                      f"{name}: the operator's write")
+            t_r = time.perf_counter()
+            check(watcher.poll_once(), f"25a {name}: no reload")
+            row["reload_s"] = time.perf_counter() - t_r
+            # a CR-rendered config has no resilience block, so the reload
+            # started the reference's default ladder; it is stopped before
+            # its first tick (its loop waits one interval first), as phase
+            # 19 keeps it off: under the clients' load it would brown
+            # routes out, and every answer here must be the config's own
+            registry.resilience.stop()
+            check(registry.resilience.level() == 0,
+                  f"25a {name}: the ladder at L{registry.resilience.level()}")
+            new = load_file(path)
+            check("engine" not in (new.raw or {}), f"25a {name}: an engine "
+                                                   f"block was rendered")
+            h = config_hash(new.raw)
+            configs[h] = new
+
+            def firsts() -> dict:
+                seen = {}
+                for r in clients.between(t_apply, time.perf_counter()):
+                    if r["hash"] == h and r["status"] == 200:
+                        seen[r["client"]] = min(seen.get(r["client"],
+                                                         r["t1"]), r["t1"])
+                return seen
+
+            _p25_wait(lambda: len(firsts()) == P25_CLIENTS,
+                      f"{name}: every client answered under the new config",
+                      step=0.01)
+            lat = sorted(t - t_apply for t in firsts().values())
+            time.sleep(P25_WINDOW_S)
+            got = _cuda.launch_counts()
+            launches.update(got)
+            n = len(clients.between(t_apply, time.perf_counter()))
+            row.update({
+                "apply_to_answer_p50_s": _pct(lat, 0.5),
+                "apply_to_answer_max_s": lat[-1], "requests": n,
+                "k1": got["flash_attention"], "k2": got["head_epilogue"],
+                "k1_per_request": got["flash_attention"] / max(n, 1),
+                "k2_per_request": got["head_epilogue"] / max(n, 1),
+                "decisions": len(new.decisions), "status": op.last_status})
+            print(f"25a {name}: " + json.dumps(row) + f" | {smi}",
+                  flush=True)
+            out["steps"].append(row)
+            return row
+
+        stamp("phase 25a: CR steps")
+        reload_step("pool_and_route", lambda: (
+            api.apply("intelligentpools", copy.deepcopy(P25_POOL)),
+            api.apply("intelligentroutes", copy.deepcopy(P25_ROUTE))))
+        modified = copy.deepcopy(P25_ROUTE)
+        for dec in modified["spec"]["decisions"]:
+            if dec["name"] == "business_route":
+                dec["modelRefs"] = [{"model": "med-model"}]
+        reload_step("modify_route", lambda: api.apply(
+            "intelligentroutes", modified))
+        reload_step("second_route", lambda: api.apply(
+            "intelligentroutes", copy.deepcopy(P25_ROUTE2)))
+        # an invalid route: the file is left as it was
+        before = open(path).read()
+        t_bad = time.perf_counter()
+        api.apply("intelligentroutes", copy.deepcopy(P25_BAD))
+        _p25_wait(lambda: op.last_status.startswith("invalid: "),
+                  "the invalid route's status")
+        bad_s = time.perf_counter() - t_bad
+        check(open(path).read() == before and not watcher.poll_once(),
+              "25a: the invalid route touched the config file")
+        out["invalid"] = {"status": op.last_status, "seconds": bad_s}
+        api.delete("intelligentroutes", "ghost")
+        _p25_wait(lambda: op.last_status == "unchanged",
+                  "the status once the invalid route is deleted")
+        print("25a invalid route: " + json.dumps(out["invalid"]), flush=True)
+        # compaction: the streams end, the operator's watch from its newest
+        # resourceVersion is answered 410 and it re-lists
+        streams = dict(op._streams)
+        api.expire_history()
+        api.end_watches()
+        _p25_wait(lambda: api.expired_watches >= 2, "a 410 on each watch",
+                  step=0.01)
+        relisted = copy.deepcopy(P25_ROUTE2)
+        relisted["spec"]["decisions"][0]["modelRefs"] = [
+            {"model": "private-model"}]
+        row = reload_step("relist_410", lambda: api.apply(
+            "intelligentroutes", relisted))
+        row["expired_watches"] = api.expired_watches
+        check(all(op._streams.get(p) is not s for p, s in streams.items()),
+              "25a: a watch stream survived end_watches")
+        reload_step("delete_second", lambda: api.delete(
+            "intelligentroutes", "python"))
+        clients.stop()
+        rows_all = clients.rows
+        bad = [r for r in rows_all if r["status"] != 200]
+        check(rows_all and not bad, f"25a: {len(bad)} of {len(rows_all)} "
+                                    f"requests failed: {bad[:3]}")
+        by_step = {r["name"]: r for r in out["steps"]}
+        check(by_step["second_route"]["decisions"] == 7
+              and by_step["delete_second"]["decisions"] == 6,
+              f"25a: decisions by step "
+              f"{ {k: v['decisions'] for k, v in by_step.items()} }")
+
+        stamp("phase 25a: status conditions")
+        # the clients are done; the ladder's loop is stopped and the SLO
+        # capture (a profiler trace a firing alert) detached before the
+        # alerts are emitted on the bus
+        registry.resilience.stop()
+        ps = registry.get("programstats")
+        if getattr(ps, "slo_capture", None) is not None:
+            ps.slo_capture.detach()
+        bus = registry.get("events")
+        kube = KubeClient(api.url)
+        t_s = time.perf_counter()
+        bus.emit(SLO_ALERT_FIRING, objective="p25_latency", severity="fast")
+        bus.emit(DEGRADATION_LEVEL_CHANGED, from_level=0, to_level=2,
+                 direction="escalate", reason="fast_alert")
+        fire_s = _p25_wait(lambda: _p25_status(kube) == (
+            {"SLOAlertFiring": "True", "Degraded": "True"}, "scale_up"),
+            "the firing conditions on the pool", step=0.01)
+        bus.emit(SLO_ALERT_RESOLVED, objective="p25_latency")
+        bus.emit(DEGRADATION_LEVEL_CHANGED, from_level=2, to_level=0,
+                 direction="de_escalate", reason="recovered")
+        clear_s = _p25_wait(lambda: _p25_status(kube) == (
+            {"SLOAlertFiring": "False", "Degraded": "False"}, "steady"),
+            "the cleared conditions on the pool", step=0.01)
+        out["status"] = {"firing_s": fire_s, "cleared_s": clear_s,
+                         "pushes": op.status_push_count,
+                         "seconds": time.perf_counter() - t_s}
+        print("25a status conditions: " + json.dumps(out["status"]),
+              flush=True)
+        hook = AdmissionWebhook()
+        try:
+            review = {"apiVersion": "admission.k8s.io/v1",
+                      "kind": "AdmissionReview",
+                      "request": {"uid": "p25-bad", "operation": "CREATE",
+                                  "object": copy.deepcopy(P25_BAD)}}
+            st, _, res = _json_call(hook.url, "POST", "/validate", review)
+            want = validate_admission(copy.deepcopy(P25_BAD))
+            check(st == 200 and res["response"]["allowed"] is False
+                  and res["response"]["status"] == {"code": 422,
+                                                    "message": want[1]}
+                  and want[0] is False and "rules" in want[1],
+                  f"25a: the webhook's answer {st} {res}, want {want}")
+            review["request"].update(uid="p25-route",
+                                     object=copy.deepcopy(P25_ROUTE2))
+            st, _, res = _json_call(hook.url, "POST", "/validate", review)
+            check(st == 200 and res["response"]["allowed"] is True,
+                  f"25a: the webhook refused the second route: {res}")
+        finally:
+            hook.close()
+        out["admission"] = want[1]
+    finally:
+        if clients is not None:
+            clients.stop()
+        server.stop()   # stops the operator and the watcher
+        server.router.shutdown()
+        engine.shutdown()
+        backend.stop()
+        api.close()
+        for slot in ("runtimestats", "slo", "resilience"):
+            registry.get(slot).stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not any(t.name.startswith("kubewatch") and t.is_alive()
+                  for t in threading.enumerate()),
+          "25a: a kubewatch thread outlived server.stop()")
+    out["requests"] = len(rows_all)
+    out["launches"] = {"flash_attention": launches["flash_attention"],
+                       "head_epilogue": launches["head_epilogue"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25a: {out['seconds']:.1f} s, {len(rows_all)} requests, "
+          f"{len(configs)} configs, launches {out['launches']} | {smi}",
+          flush=True)
+
+    def verify() -> None:
+        out["verify"] = _rl_verify(rows_all, configs, modules3)
+        print(f"25a the CPU port on every config: {out['verify']}",
+              flush=True)
+
+    DEFERRED.submit("25a: the CPU port on every config", verify)
+    return out
+
+
+def _write_safetensors(path: str, state: dict) -> None:
+    """A float32 state dict as a safetensors file (an 8-byte little-endian
+    header length, the JSON header, the raw buffers), with numpy only;
+    each buffer is written as it is, not joined in memory first."""
+    header, arrs, offset = {}, [], 0
+    for name, t in sorted(state.items()):
+        arr = np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        arrs.append(arr)
+        offset += arr.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for arr in arrs:
+            f.write(memoryview(arr).cast("B"))
+
+
+P25_FAKE_HF = """#!{python}
+import os, shutil, sys
+args = sys.argv[1:]
+repo, target = args[1], args[args.index("--local-dir") + 1]
+if args[0] == "download" and repo == {good!r}:
+    # hard links: the checkpoint is 0.6 GB
+    shutil.copytree({src!r}, target, dirs_exist_ok=True,
+                    copy_function=os.link)
+    sys.exit(0)
+sys.stderr.write("401 Client Error: Unauthorized (gated repo)\\n")
+sys.exit(1)
+"""
+
+
+def _p25_checkpoint(root: str, module, labels) -> None:
+    """``module`` (a ModernBERT sequence classifier on the CPU) as an HF
+    checkpoint directory: config.json (its config's fields, ``labels`` as
+    ``id2label``), model.safetensors (its whole state dict, trunk
+    included) and a word-level tokenizer.json over ``P25_WORDS``."""
+    os.makedirs(root)
+    _write_safetensors(os.path.join(root, "model.safetensors"),
+                       module.state_dict())
+    fields = {k: v for k, v in dataclasses.asdict(module.config).items()
+              if k not in ("attention_impl", "chunk_block_size", "dtype",
+                           "num_labels")}
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dict(fields, model_type="modernbert",
+                       architectures=["ModernBertForSequenceClassification"],
+                       id2label={str(i): d for i, d in enumerate(labels)}),
+                  f)
+    vocab = {"[PAD]": 0, "[UNK]": 1}
+    vocab.update({w: i + 2 for i, w in enumerate(P25_WORDS)})
+    with open(os.path.join(root, "tokenizer.json"), "w") as f:
+        json.dump({"version": "1.0", "truncation": None, "padding": None,
+                   "added_tokens": [], "normalizer": None,
+                   "pre_tokenizer": {"type": "Whitespace"},
+                   "post_processor": None, "decoder": None,
+                   "model": {"type": "WordLevel", "vocab": vocab,
+                             "unk_token": "[UNK]"}}, f)
+
+
+def phase_download(modules3: dict, replay_report: dict, smi: str) -> dict:
+    """Phase 25b, untimed, beside the cuda tests' process: the port's real
+    ``serve(…, block=False)`` on the card with two tasks whose
+    ``checkpoint`` is a repo id; a fake ``hf`` first on ``PATH`` "downloads"
+    the first (phase 3's full-width ModernBERT-base intent module, 22
+    layers at 768, written once as an HF checkpoint) into a fresh cache
+    and answers the second 401.  ``download_started`` and
+    ``download_done`` (the first task resolved) must be emitted, the first
+    task load at the module's widths and serve one chat request through
+    K1 and K2 (its probabilities within ``PROB_TOL`` of the module on the
+    CPU), and the second stay unloaded.  Then ``workload_from_replay_report`` over phase 21's replay
+    report and ``python -m semantic_router_tpu_torch.fleetsim optimize``
+    on it: its JSON must equal ``optimize_fleet`` + ``simulate`` in this
+    process."""
+    import tempfile
+
+    from semantic_router_tpu_torch.fleetsim import optimize_fleet, \
+        simulate, workload_from_replay_report
+    from semantic_router_tpu_torch.runtime.bootstrap import serve
+    from semantic_router_tpu_torch.runtime.events import default_bus
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="p25b-")
+    src = os.path.join(tmp, "hub", "intent")
+    _kind, module, labels = modules3["cpu"]["intent"]
+    _p25_checkpoint(src, module, labels)
+    out["checkpoint"] = {
+        "write_s": time.perf_counter() - t0,
+        "bytes": os.path.getsize(os.path.join(src, "model.safetensors")),
+        "layers": module.config.num_hidden_layers,
+        "hidden": module.config.hidden_size}
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir)
+    hf = os.path.join(bindir, "hf")
+    with open(hf, "w") as f:
+        f.write(P25_FAKE_HF.format(python=sys.executable, good=P25_REPO,
+                                   src=src))
+    os.chmod(hf, 0o755)
+    doc = {"default_model": "qwen3-8b",
+           "resilience": {"enabled": False},
+           "engine": {"max_batch_size": 4, "max_wait_ms": 1.0,
+                      "seq_len_buckets": [32, 128],
+                      "packing": {"enabled": False},
+                      "kernels": {"epilogue": {"enabled": True}}},
+           "classifier_models": {
+               "intent": {"checkpoint": P25_REPO, "kind": "sequence"},
+               "guard": {"checkpoint": P25_GATED, "kind": "sequence"}},
+           "routing": copy.deepcopy({
+               k: ROUTER_CONFIG["routing"][k]
+               for k in ("strategy", "modelCards")})}
+    doc["routing"]["signals"] = {"domains": [{"name": d} for d in DOMAINS]}
+    doc["routing"]["decisions"] = [
+        d for d in ROUTER_CONFIG["routing"]["decisions"]
+        if d["rules"]["conditions"][0]["type"] == "domain"]
+    path = os.path.join(tmp, "router.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    env = {k: os.environ.get(k) for k in ("PATH", "SRT_MODEL_CACHE",
+                                          "HF_TOKEN")}
+    os.environ["PATH"] = bindir + os.pathsep + (env["PATH"] or "")
+    os.environ["SRT_MODEL_CACHE"] = os.path.join(tmp, "cache")
+    os.environ.pop("HF_TOKEN", None)
+    events = []
+    unsub = default_bus.subscribe(
+        lambda ev: events.append((ev.stage, dict(ev.detail)))
+        if ev.stage.startswith("download_") else None)
+    backend = MockVLLMServer().start()
+    server = None
+    try:
+        t_boot = time.perf_counter()
+        server, tracker = serve(path, backend.url, port=0, block=False,
+                                watch_config=False)
+        boot_s = time.perf_counter() - t_boot
+        engine = server.router.engine
+        check(tracker.ready and sorted(engine.tasks()) == ["intent"],
+              f"25b: the boot loaded {sorted(engine.tasks())}")
+        loaded = engine.trunk_group("intent").config
+        check((loaded.num_hidden_layers, loaded.hidden_size,
+               loaded.attention_impl) == (module.config.num_hidden_layers,
+                                          module.config.hidden_size,
+                                          "flash"),
+              f"25b: the downloaded trunk loaded as {loaded}")
+        check(events == [("download_started", {"tasks": ["guard",
+                                                         "intent"]}),
+                         ("download_done", {"resolved": ["intent"]})],
+              f"25b: download events {events}")
+        text = " ".join(P25_WORDS[i] for i in (3, 17, 42, 99, 7))
+        _cuda.reset_launch_counts()
+        status, headers, _body, lat = _post(server.url, {
+            "model": "auto", "messages": [{"role": "user", "content": text}]})
+        got = _cuda.launch_counts()
+        check(status == 200 and got["flash_attention"] > 0
+              and got["flash_attention"] % loaded.num_hidden_layers == 0
+              and got["head_epilogue"] > 0,
+              f"25b: HTTP {status}, launches {got}")
+        probs = engine.classify("intent", text).probs
+        ids = torch.tensor([engine.trunk_group("intent").tokenizer
+                            .encode(text).ids])
+        with torch.no_grad():
+            want = torch.softmax(module(ids), -1)[0]
+        err = max(abs(probs[d] - float(want[i]))
+                  for i, d in enumerate(labels))
+        check(err <= PROB_TOL, f"25b: the downloaded task's probabilities "
+                               f"are {err} from the checkpoint's module")
+        out["serve"] = {"boot_s": boot_s, "events": [e for e, _ in events],
+                        "decision": headers.get("x-vsr-selected-decision"),
+                        "route_ms": lat * 1e3, "launches": got,
+                        "max_prob_err": err,
+                        "cache": sorted(os.listdir(
+                            os.environ["SRT_MODEL_CACHE"]))}
+    finally:
+        unsub()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if server is not None:
+            server.stop()
+            server.router.shutdown()
+            server.router.engine.shutdown()
+            for name in ("runtimestats", "slo", "resilience"):
+                getattr(server.registry, name).stop()
+        backend.stop()
+    out["launches"] = {"flash_attention": got["flash_attention"],
+                       "head_epilogue": got["head_epilogue"]}
+    # the fleet simulator over phase 21's replay report
+    decision_models = {d["name"]: d["modelRefs"][0]["model"]
+                       for d in RP_CONFIG["routing"]["decisions"]}
+    workload = workload_from_replay_report(
+        replay_report, P25_FLEET_PARAMS, decision_models=decision_models)
+    wl_path = os.path.join(tmp, "workload.json")
+    with open(wl_path, "w") as f:
+        json.dump([dataclasses.asdict(w) for w in workload], f)
+    proc = subprocess.run(
+        [sys.executable, "-m", "semantic_router_tpu_torch.fleetsim",
+         "optimize", "--workload", wl_path],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    alloc = optimize_fleet(workload)
+    want = {"allocation": alloc.slices, **simulate(workload, alloc)
+            .to_dict()}
+    check(proc.returncode == 0 and json.loads(proc.stdout) ==
+          json.loads(json.dumps(want)),
+          f"25b: fleetsim optimize rc {proc.returncode}: "
+          f"{proc.stdout[-500:]} {proc.stderr[-500:]}")
+    out["fleetsim"] = {"report": replay_report, "allocation": alloc.slices,
+                       "cost_per_hour": want["cost_per_hour"],
+                       "feasible": want["feasible"]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print("25b download and fleet simulator: " + json.dumps(out)
+          + f" | {smi}", flush=True)
+    return out
+
+
+def _seeded_on_card(build, seed: int, std: float = 0.02) -> tuple:
+    """(card module, CPU copy): ``build()`` with weights drawn on the card
+    from a seeded generator in parameter-name order (biases 0, other 1-D
+    weights 1, the rest normal(0, std)), as ``_seeded_module`` lays them
+    out; the draw costs the host no CPU time, which the CPU-port checks on
+    the other thread need."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.device("meta"):
+        card, cpu = build(), build()
+    state = {}
+    for name, p in sorted(card.named_parameters()):
+        if name.endswith("bias"):
+            state[name] = torch.zeros(p.shape, device=DEVICE)
+        elif p.dim() == 1:
+            state[name] = torch.ones(p.shape, device=DEVICE)
+        else:
+            state[name] = torch.randn(tuple(p.shape), generator=gen,
+                                      device=DEVICE) * std
+    card.load_state_dict(state, assign=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in state.items()}, assign=True)
+    return card.eval(), cpu.eval()
+
+
+def embed_models_seeded() -> dict:
+    """25c's modules at published widths, {name: (card, CPU copy)}:
+    Qwen3-Embedding-0.6B (Qwen3-0.6B's widths, phase 13's guard seed) and
+    EmbeddingGemma-300M (bidirectional, the 768 → 3072 → 768
+    bottleneck).  ``main`` draws them on a thread of their own beside
+    the cuda tests."""
+    from semantic_router_tpu_torch.models.gemma import GemmaConfig, \
+        GemmaEmbeddingModel
+    from semantic_router_tpu_torch.models.qwen3 import Qwen3EmbeddingModel
+
+    qcfg = Qwen3Config(**QWEN3_06B)
+    gcfg = dataclasses.replace(GemmaConfig.from_hf(EMBEDDINGGEMMA_300M),
+                               causal=False)
+    return {"qwen3": _seeded_on_card(lambda: Qwen3EmbeddingModel(qcfg),
+                                     SEED + 1303),
+            "gemma": _seeded_on_card(lambda: GemmaEmbeddingModel(
+                gcfg, GEMMA_BOTTLENECK), SEED + 2503)}
+
+
+def phase_embed_models(seeded: dict, smi: str) -> dict:
+    """Phase 25c: Qwen3-Embedding-0.6B and EmbeddingGemma-300M at their
+    published widths (float32, ``P25_B`` x ``P25_S``, rows padded to
+    ``P25_LENGTHS``) on the card: ms a forward (CUDA events, the mean of
+    5 after a warmup: the wall time of eager forwards, which a CPU-port
+    check on the other thread slows), the device time of one forward
+    (its kernels in a profiler trace, by class, and the card's busy
+    share), unit rows, and (deferred) the CPU port's forward on the same
+    weights within ``P25_EMBED_TOL``.  No Pallas kernel reaches
+    these models in the JAX package (its plain ``sdpa`` computes their
+    attention), so none is owed: the port's plain ``ops.attention.sdpa``
+    runs here, and the kernel counters must not move."""
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    rng = np.random.default_rng(SEED + 2504)
+    mask = torch.zeros(P25_B, P25_S, dtype=torch.long)
+    for i, n in enumerate(P25_LENGTHS):
+        mask[i, :n] = 1
+    cards = {}
+    for name, (card, cpu) in seeded.items():
+        vocab = cpu.config.vocab_size
+        ids = torch.from_numpy(rng.integers(
+            1, vocab, size=(P25_B, P25_S))) * mask
+        ids_d, mask_d = ids.to(DEVICE), mask.to(DEVICE)
+        _cuda.reset_launch_counts()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: card(ids_d, mask_d), iters=5, warmup=1,
+                         hold=False)
+            prof = _profile(lambda: card(ids_d, mask_d))
+            emb = card(ids_d, mask_d).float().cpu()
+        check(not any(_cuda.launch_counts().values()),
+              f"25c {name}: a kernel launched: {_cuda.launch_counts()}")
+        norms = emb.norm(dim=-1)
+        check(emb.shape == (P25_B, GEMMA_BOTTLENECK[-1] if name == "gemma"
+                            else QWEN3_06B["hidden_size"])
+              and bool(torch.isfinite(emb).all())
+              and float((norms - 1).abs().max()) <= 1e-5,
+              f"25c {name}: shape {tuple(emb.shape)}, norms {norms}")
+        out[name] = {"ms": ms, "device_ms": prof["device_ms"],
+                     "busy_share": prof["busy_share"],
+                     "kernels": prof["kernels"],
+                     "by_class_ms": prof["by_class_ms"],
+                     "shape": list(emb.shape),
+                     "params": sum(p.numel() for p in cpu.parameters())}
+        cards[name] = (cpu, ids, emb)
+        del card
+        print(f"25c {name}: {json.dumps(out[name])} | {smi}", flush=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+
+    def compare() -> None:
+        for name, (cpu, ids, emb) in cards.items():
+            with torch.inference_mode():
+                want = cpu(ids, mask)
+            err = float((want - emb).abs().max())
+            out[name]["max_abs_err"] = err
+            print(f"25c {name}: the CPU port within {err:.3g} of the card",
+                  flush=True)
+            check(err <= P25_EMBED_TOL, f"25c {name}: the card's embeddings "
+                                        f"are {err} from the CPU port's")
+
+    DEFERRED.submit("25c: the CPU port's embeddings", compare)
+    return out
+
+
 CUDA_TESTS = {
     "test_torch_graphs.py": 0,
     "test_torch_cascade_cuda.py": 1,
@@ -13700,6 +14417,7 @@ CUDA_TESTS = {
     "test_torch_extproc_cuda.py": 1,
     "test_torch_replay_cuda.py": 1,
     "test_torch_training_cuda.py": 3,
+    "test_torch_operator_cuda.py": 3,
 }
 
 
@@ -13884,14 +14602,20 @@ def main(argv=None) -> int:
         src_engines = fleet.pop("_engines")
         stamp("phase 24b: the CPU port's routes")
         src_prep = src_prepare(modules3)
+        # 25c's weights are drawn on the card meanwhile
+        embed_seeded = in_background(embed_models_seeded)
+        stamp("phase 25b: download and fleet simulator")
+        dl = report["download"] = phase_download(
+            modules3, rp["21a"]["replay_report"], dev["smi"])
         stamp("cuda tests")
         t_wait = time.perf_counter()
         report["cuda_tests"] = cuda_tests.finish()
         report["cuda_tests"]["main_wait_s"] = time.perf_counter() - t_wait
         print(f"the main thread waited "
               f"{report['cuda_tests']['main_wait_s']:.1f} s for the cuda "
-              f"tests after phase 24a ({fleet['seconds']:.1f} s) and 24b's "
-              f"CPU-port routes ({src_prep['seconds']:.1f} s)", flush=True)
+              f"tests after phase 24a ({fleet['seconds']:.1f} s), 24b's "
+              f"CPU-port routes ({src_prep['seconds']:.1f} s) and 25b "
+              f"({dl['seconds']:.1f} s)", flush=True)
     finally:
         cuda_tests.stop()
     stamp("phase 23: flywheel")
@@ -13899,6 +14623,11 @@ def main(argv=None) -> int:
     stamp("phase 24b: signal sources")
     src = report["sources"] = phase_sources(src_prep, src_engines,
                                             dev["smi"])
+    stamp("phase 25a: the operator plane")
+    opr = report["operator"] = phase_operator(modules3, dev["smi"])
+    stamp("phase 25c: the embedding models")
+    report["embed_models"] = phase_embed_models(embed_seeded.result(),
+                                                dev["smi"])
     stamp("deferred CPU-port checks")
     report["deferred"] = DEFERRED.drain()
     stamp("phases done")
@@ -13944,7 +14673,10 @@ def main(argv=None) -> int:
             # promoted and rolled-back routes, the flywheel-off router
             # beside them and the router serving the trained bandit), and
             # in phase 24's fleet replicas (24a) and its routers with and
-            # without the last signal sources (24b)
+            # without the last signal sources (24b), and in phase 25's
+            # CR-driven routers (25a: K2 only under the boot config, whose
+            # engine block turns the epilogue on) and the router booted
+            # from a downloaded checkpoint (25b)
             "launches": serve["launches"][kname]
             + embed["launches"][kname] + fixture["launches"][kname]
             + respond["launches"][kname] + observe["launches"][kname]
@@ -13956,6 +14688,7 @@ def main(argv=None) -> int:
             + ep["launches"][kname] + rp["launches"][kname]
             + tr["launches"][kname] + fly["launches"][kname]
             + fleet["launches"][kname] + src["launches"][kname]
+            + opr["launches"][kname] + dl["launches"][kname]
             + (quant["off"]["launches"][kname]
                if kname == "flash_attention" else
                sum(q["launches"][kname] for q in quant.values())),

@@ -11,7 +11,11 @@ URL] [--device cpu]`` serves the Envoy ExtProc gRPC filter (its address on
 stderr as ``extproc listening on <addr>``); ``compose --config router.yaml
 --out-dir DIR`` renders the router + Envoy docker-compose deployment;
 ``grafana --out-dir DIR`` renders provisioning-ready Grafana dashboards
-from the metric catalog (a JSON line of the files written)."""
+from the metric catalog (a JSON line of the files written); ``openapi``
+prints the management API's OpenAPI 3.0 document (the one
+``GET /openapi.json`` serves).  A config whose ``kubernetes`` block is
+enabled runs the CRD operator beside ``serve``; ``python -m
+semantic_router_tpu_torch.fleetsim`` is the fleet simulator."""
 
 from __future__ import annotations
 
@@ -67,7 +71,17 @@ def main(argv=None) -> int:
                        help="render provisioning-ready Grafana dashboards "
                             "from the metric catalog")
     g.add_argument("--out-dir", required=True)
+    sub.add_parser("openapi",
+                   help="print the management API's OpenAPI 3.0 document "
+                        "(the one GET /openapi.json serves)")
     args = p.parse_args(argv)
+
+    if args.cmd == "openapi":
+        from .router.openapi import build_spec
+        from .router.server import API_CATALOG
+
+        print(json.dumps(build_spec(API_CATALOG), indent=1))
+        return 0
 
     if args.cmd == "validate":
         from .config import load_config, validate_config

@@ -7,10 +7,13 @@
   (numpy arrays) into a state dict: Flax ``Dense`` kernels are [in, out],
   torch ``Linear`` weights [out, in]; bare LoRA parameters (``lora_A``,
   ``lora_B``) keep the Flax layout.  It reads ModernBERT trees and the
-  Qwen3 trees (``Qwen3ForCausalLM``, ``Qwen3Decoder`` with its LoRA
-  leaves), whose Flax names follow HF's; ``deberta_params_from_flax``
-  maps the DeBERTa tree's own names (``deberta/layers_i/...``,
-  ``pooler_dense``, ``encoder_LayerNorm``, ``rel_embeddings``) onto HF's.
+  Qwen3 trees (``Qwen3ForCausalLM``, ``Qwen3EmbeddingModel``,
+  ``Qwen3Decoder`` with its LoRA leaves) and the Gemma trees
+  (``GemmaModel``, ``GemmaEmbeddingModel``), whose Flax names follow
+  HF's (``lora_params_from_flax`` holds such a tree to the module it
+  loads into); ``deberta_params_from_flax`` maps the DeBERTa tree's own names
+  (``deberta/layers_i/...``, ``pooler_dense``, ``encoder_LayerNorm``,
+  ``rel_embeddings``) onto HF's.
 - The LoRA modules (``MultiTaskLoRAClassifier``, the ``LoRAModernBert*``
   classifiers, ``LoRAMmBertEmbeddingModel``) keep the Flax names, so
   ``lora_params_from_flax`` is ``params_from_flax`` held to the module:
@@ -47,11 +50,12 @@ _RAW_PREFIXES = ("lora_A", "lora_B")
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ModernBERT or Qwen3 param tree (``{"params": {...}}`` or the
-    inner tree, for ``ModernBertModel``, ``ModernBertFor*Classification``,
-    ``ModernBertLoRAHeadClassifier``, ``Qwen3ForCausalLM`` or
-    ``Qwen3Decoder``) → a torch state dict with HF names (the LoRA
-    head's own names: ``head_dense``, ``lora_A``, ...)."""
+    """Flax ModernBERT, Qwen3 or Gemma param tree (``{"params": {...}}``
+    or the inner tree, for ``ModernBertModel``,
+    ``ModernBertFor*Classification``, ``ModernBertLoRAHeadClassifier``,
+    ``Qwen3ForCausalLM``, ``Qwen3EmbeddingModel``, ``Qwen3Decoder``,
+    ``GemmaModel`` or ``GemmaEmbeddingModel``) → a torch state dict with HF
+    names (the LoRA head's own names: ``head_dense``, ``lora_A``, ...)."""
     tree = flax_params.get("params", flax_params)
     out: Dict[str, torch.Tensor] = {}
 
@@ -74,10 +78,13 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def lora_params_from_flax(module: torch.nn.Module,
                           flax_params: Mapping[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    """A Flax LoRA module's params (numpy) → ``module``'s state dict:
+    """A Flax module's params (numpy) → ``module``'s state dict:
     ``params_from_flax`` checked against the module — a parameter the
     tree lacks, a leaf the module lacks, or a shape that differs raises,
-    naming it."""
+    naming it.  The embedding models' trees (``Qwen3EmbeddingModel``
+    and ``GemmaEmbeddingModel``, their trunk under ``model``, Gemma's
+    bottleneck ``dense_i``; a bare ``GemmaModel``) carry the port's
+    names, so this is their converter."""
     state = params_from_flax(flax_params)
     want = {k: v.shape for k, v in module.state_dict().items()}
     missing = sorted(set(want) - set(state))

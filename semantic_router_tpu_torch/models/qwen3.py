@@ -1,4 +1,4 @@
-"""Qwen3 decoder: the full-forward causal LM.
+"""Qwen3 decoder: the full-forward causal LM and the embedding model.
 
 The port of ``semantic_router_tpu.models.qwen3`` (Qwen3Config, RMSNorm,
 GQA attention with per-head q/k RMSNorm and RoPE, SwiGLU MLP, a tied or
@@ -6,7 +6,10 @@ separate LM head).  Submodules carry HF's names (``model.layers.0.
 self_attn.q_proj.weight``, ...), so an HF Qwen3 state dict loads as it
 is.  ``Qwen3ForCausalLM`` recomputes every position on every call: it is
 the oracle the KV-cached decoder (``models.generate``) is held against.
-The embedding model and ``last_token_pool`` come with a later slice.
+``Qwen3EmbeddingModel`` is the Qwen3-Embedding recipe: the trunk, the
+hidden state of the last real token (``last_token_pool``), L2-normalized
+in float32; Matryoshka truncation happens after it
+(``ops/matryoshka.py``), so one forward serves every output width.
 """
 
 from __future__ import annotations
@@ -170,6 +173,35 @@ class Qwen3Model(nn.Module):
         for layer in self.layers:
             x = layer(x, attention_mask)
         return self.norm(x)
+
+
+def last_token_pool(hidden: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+    """The hidden state at each row's last real (unpadded) token:
+    [B, S, D] × [B, S] → [B, D] (a row with no real token gives
+    position 0)."""
+    idx = (attention_mask.sum(dim=1) - 1).clamp_min(0).long()
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+
+
+class Qwen3EmbeddingModel(nn.Module):
+    """Trunk → last-token pool → L2 normalize (float32, then the trunk's
+    dtype): unit embeddings [B, hidden]."""
+
+    def __init__(self, cfg: Qwen3Config) -> None:
+        super().__init__()
+        self.config = cfg
+        self.model = Qwen3Model(cfg)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hidden = self.model(input_ids, attention_mask)
+        pooled = last_token_pool(hidden, attention_mask).float()
+        norm = pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        return (pooled / norm).to(hidden.dtype)
 
 
 class Qwen3ForCausalLM(nn.Module):

@@ -134,13 +134,20 @@ class RopeSpec:
     built once per (S, device) for this spec, outside inference mode
     whatever the caller's mode: a table first built by a forward under
     ``torch.inference_mode`` (serving, ``embed_texts``) is saved for the
-    backward of a later training step of the same module."""
+    backward of a later training step of the same module.
+
+    ``linear_factor`` divides every frequency (positions ÷ factor: linear
+    position interpolation, Gemma3's global-layer scaling, as the JAX
+    package's ``tables_scaled``)."""
 
     def __init__(self, head_dim: int, base: float,
-                 yarn: Optional[dict] = None) -> None:
+                 yarn: Optional[dict] = None,
+                 linear_factor: float = 1.0) -> None:
         yarn_key = tuple(sorted(yarn.items())) if yarn else None
         inv_freq_key, self.attention_scaling = _cached_spec(
             head_dim, float(base), yarn_key)
+        if linear_factor != 1.0:
+            inv_freq_key = tuple(f / linear_factor for f in inv_freq_key)
         self.inv_freq = np.asarray(inv_freq_key, dtype=np.float64)
         self._tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._lock = threading.Lock()

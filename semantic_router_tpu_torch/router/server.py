@@ -2317,6 +2317,9 @@ class RouterServer:
         # attach_config_watcher) and the routers a reload replaced, each
         # with the timer that retires its dispatcher
         self.watcher = None
+        # the Kubernetes operator writing that config file from the
+        # cluster's CRs (runtime/bootstrap.py attach_kube_operator)
+        self.kube_operator = None
         self._retiring: List[Tuple[threading.Timer, Router]] = []
         self._retiring_lock = threading.Lock()
         # the boot's StartupTracker (runtime/startup.py), set by serve()
@@ -2807,6 +2810,8 @@ class RouterServer:
         self.httpd.serve_forever()
 
     def stop(self) -> None:
+        if self.kube_operator is not None:
+            self.kube_operator.stop()
         if self.watcher is not None:
             self.watcher.stop()
         with self._retiring_lock:

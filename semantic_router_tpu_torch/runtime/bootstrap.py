@@ -4,9 +4,14 @@ Model loading: ``classifier_models`` maps task name → {checkpoint,
 tokenizer, kind, labels, max_seq_len, architecture, adapters, lora,
 eos_token_ids}.  A checkpoint is a local directory holding HF
 ``config.json`` + ``model.safetensors`` (or the safetensors file itself,
-beside its config.json); there is no download step.  The architecture is
-read as the reference reads it: the spec's ``architecture``, else the
-config's ``model_type`` (else its ``architectures``).
+beside its config.json).  A checkpoint not on disk is first resolved
+through ``runtime/modeldownload.py`` (a cached copy, else the ``hf``
+CLI), with ``download_started`` / ``download_done`` (or
+``download_failed``) on the event bus; one that cannot be resolved
+leaves its task unloaded, and a fault that escapes the downloader fails
+the boot.  The architecture is read as the reference reads it: the
+spec's ``architecture``, else the config's ``model_type`` (else its
+``architectures``).
 
 - ModernBERT (kinds sequence, token, embedding): classifier tasks whose
   specs name the same checkpoint share one trunk module, and so one fused
@@ -172,6 +177,7 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
     from ..utils.tokenization import HFTokenizer
 
     dev = resolve_device(device)
+    resolved = resolve_checkpoints(specs, registry)
     obs = {}
     if registry is not None:
         obs = {"metrics": registry.metric_series(),
@@ -197,8 +203,11 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
             raise ValueError(f"task {task!r}: kind {kind!r} is not served by "
                              f"this port yet (sequence, token, embedding, "
                              f"generative and multimodal only)")
+        if path and not os.path.exists(path):
+            path = resolved.get(task, "")
         if not path or not os.path.exists(path):
-            log.warning("model missing: task=%s path=%s", task, path)
+            log.warning("model missing: task=%s path=%s", task,
+                        spec.get("checkpoint", ""))
             continue
         cfg_path, weights_path = _checkpoint_files(path)
         with open(cfg_path) as f:
@@ -283,6 +292,35 @@ def build_engine(cfg: RouterConfig, device: DeviceLike = None,
     apply_packing_knobs(cfg, engine)
     apply_kernel_knobs(cfg, engine)
     return engine
+
+
+def resolve_checkpoints(specs: Dict[str, Dict], registry=None
+                        ) -> Dict[str, str]:
+    """Task → local path for each spec whose ``checkpoint`` is not on
+    disk, through ``ModelDownloader.ensure_all`` (a cached copy, else the
+    ``hf`` CLI; a task it cannot resolve is left out), with
+    ``download_started`` before and ``download_done`` after on
+    ``registry``'s event bus (the process default when None).  A fault
+    that escapes ``ensure_all`` emits ``download_failed`` and raises: the
+    boot fails rather than serving without its checkpoints."""
+    from .events import DOWNLOAD_DONE, DOWNLOAD_FAILED, DOWNLOAD_STARTED, \
+        default_bus
+    from .modeldownload import ModelDownloader
+
+    missing = {t: s for t, s in specs.items()
+               if s.get("checkpoint") and not os.path.exists(s["checkpoint"])}
+    if not missing:
+        return {}
+    bus = registry.get("events") if registry is not None else None
+    bus = bus if bus is not None else default_bus
+    bus.emit(DOWNLOAD_STARTED, tasks=sorted(missing))
+    try:
+        resolved = ModelDownloader().ensure_all(missing)
+    except Exception as exc:
+        bus.emit(DOWNLOAD_FAILED, error=f"{type(exc).__name__}: {exc}"[:200])
+        raise
+    bus.emit(DOWNLOAD_DONE, resolved=sorted(resolved))
+    return resolved
 
 
 def _deberta(kind: str, hf_cfg: Dict, labels, weights_path: str):
@@ -1131,6 +1169,43 @@ def attach_config_watcher(server, config_path: str, engine, registry,
     return watcher.start() if start else watcher
 
 
+def attach_kube_operator(server, cfg: RouterConfig, config_path: str,
+                         registry):
+    """The config's ``kubernetes`` block (``enabled``, ``api_url``,
+    ``token``, ``namespace``, ``ca_file``): when enabled, a started
+    ``KubeOperator`` that reconciles the cluster's IntelligentPool /
+    IntelligentRoute CRs into ``config_path`` (which the config watcher
+    hot-reloads), on a ``KubeClient`` for ``api_url`` when given, else
+    ``KubeClient.in_cluster()``, attached to ``registry``'s event bus (SLO
+    alerts and ladder moves become the pool's status conditions and scale
+    hint).  It is ``server.kube_operator`` (None when the block is off),
+    and ``server.stop()`` stops it.  A cluster fault fails open: the
+    on-disk config keeps serving, with ``kube_operator_failed`` logged."""
+    server.kube_operator = None
+    k8s_cfg = (cfg.raw or {}).get("kubernetes", {}) or {}
+    if not k8s_cfg.get("enabled"):
+        return None
+    from .kubewatch import KubeClient, KubeOperator
+
+    try:
+        if k8s_cfg.get("api_url"):
+            client = KubeClient(
+                k8s_cfg["api_url"], token=str(k8s_cfg.get("token", "")),
+                namespace=k8s_cfg.get("namespace", "default"),
+                ca_file=k8s_cfg.get("ca_file", ""))
+        else:
+            client = KubeClient.in_cluster()
+        server.kube_operator = KubeOperator(client, config_path).start()
+        server.kube_operator.attach_bus(registry.get("events"))
+        component_event("bootstrap", "kube_operator_started",
+                        namespace=client.namespace)
+    except Exception as exc:
+        component_event("bootstrap", "kube_operator_failed",
+                        level="warning",
+                        error=f"{type(exc).__name__}: {exc}"[:200])
+    return server.kube_operator
+
+
 def serve(config: str, backend: str, host: str = "127.0.0.1",
           port: int = 8801, device: DeviceLike = None,
           status_path: Optional[str] = None, block: bool = True,
@@ -1143,7 +1218,9 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     1) before the server accepts a request; a warmup failure raises.
     With ``watch_config`` (the default) the config file is watched and
     hot reloaded into the live server (``attach_config_watcher``); the
-    watcher is ``server.watcher``.
+    watcher is ``server.watcher``.  A ``kubernetes`` block that is
+    enabled starts ``server.kube_operator`` (``attach_kube_operator``),
+    which writes the CRs' config into that file.
 
     A ``StartupTracker`` (written to ``status_path`` when given) follows
     the boot through ``loading_config``, ``loading_models``, ``warming``
@@ -1151,9 +1228,9 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
     ``GET /startup-status`` serves it.  With ``block=False`` the server
     starts in the background and (server, tracker) is returned; the
     caller then does what the blocking path does when it ends (stop the
-    server, which stops its watcher, shut ``server.router`` and the
-    engine down, stop the registry's sampler, SLO monitor and
-    controller, close its flywheel, ``close_ann``,
+    server, which stops its watcher and its Kubernetes operator, shut
+    ``server.router`` and the engine down, stop the registry's sampler,
+    SLO monitor and controller, close its flywheel, ``close_ann``,
     ``close_stateplane``)."""
     from ..config.loader import load_config
     from ..router.server import RouterServer
@@ -1184,6 +1261,7 @@ def serve(config: str, backend: str, host: str = "127.0.0.1",
         if engine is not None:
             engine.shutdown()
         raise
+    attach_kube_operator(server, cfg, config, registry)
     if watch_config:
         attach_config_watcher(server, config, engine, registry)
     tracker.advance("ready")

@@ -1,12 +1,13 @@
 """Runtime lifecycle events: a small process-local bus.
 
 The port's copy of ``semantic_router_tpu.runtime.events``.  Components
-emit typed lifecycle events (engine ready or failed, SLO alert
-transitions, degradation-ladder moves, flywheel promotion moves,
-upstream circuit transitions, config reloads), subscribers react (the
-degradation controller, the SLO-burn capture, the flywheel's rollback), a
-bounded ring keeps recent history (``recent``), and ``wait_for`` blocks
-until a stage is seen.
+emit typed lifecycle events (checkpoint downloads, engine ready or
+failed, SLO alert transitions, degradation-ladder moves, flywheel
+promotion moves, upstream circuit transitions, config reloads),
+subscribers react (the degradation controller, the SLO-burn capture,
+the flywheel's rollback, the Kubernetes operator's status), a bounded
+ring keeps recent history (``recent``), and ``wait_for`` blocks until a
+stage is seen.
 
 Emission never hurts the emitter: subscriber exceptions are swallowed and
 logged; the bus is lock-protected and the ring bounded.
@@ -20,6 +21,11 @@ import uuid
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+# checkpoint download at boot (runtime/bootstrap.py build_engine,
+# runtime/modeldownload.py)
+DOWNLOAD_STARTED = "download_started"
+DOWNLOAD_DONE = "download_done"
+DOWNLOAD_FAILED = "download_failed"
 # engine lifecycle (runtime/bootstrap.py warm_engine)
 ENGINE_READY = "engine_ready"
 ENGINE_FAILED = "engine_failed"

@@ -25,8 +25,9 @@ reference's too, as do router replay (every store the reference
 builds), OTLP span and log export, trained selector artifacts, router
 learning (``learning``) and the routing flywheel (``flywheel``, its
 ``cost_bandit`` artifact as a decision's ``algorithm.artifact``
-included), and the MCP classifiers (``mcp``), the external models
-(``external_models``), the fleet observability plane
+included), the Kubernetes operator (``kubernetes``), and the MCP
+classifiers (``mcp``), the external models (``external_models``), the
+fleet observability plane
 (``observability.fleet``), fleet-scoped objectives, a durable decision
 backend other than SQLite and an unknown ``response_store`` backend;
 beside each stays a refused option (the serving mesh, the ANN bank's row
@@ -239,6 +240,13 @@ PORTED["algorithm.artifact.cost_bandit"] = (
         DEC, modelRefs=[{"model": "m"}, {"model": "n"}],
         algorithm={"type": "cost_bandit", "artifact": "bandit.json"})]}},
     {"routing": {"decisions": [dict(DEC, algorithm={"type": "static"})]}})
+# the Kubernetes operator behind ``serve``'s ``kubernetes`` block: served
+# since it was ported (before, the port booted such a config and ran no
+# operator; test_torch_operator.py's serve test starts one on both)
+PORTED["kubernetes"] = (
+    {"kubernetes": {"enabled": True, "api_url": "http://127.0.0.1:9",
+                    "token": "t", "namespace": "prod", "ca_file": ""}},
+    {"kubernetes": {"enabled": False}})
 # the file of a cost_bandit artifact (written per test) and the serving
 # mesh's refusals
 BANDIT = "<cost_bandit artifact>"
@@ -494,6 +502,8 @@ def _parsed(cfg, key):
         return [(d.name, d.algorithm) for d in cfg.decisions]
     if key == "flywheel":
         return cfg.flywheel_config()
+    if key == "kubernetes":
+        return (cfg.raw or {}).get("kubernetes")
     return getattr(cfg, key)
 
 

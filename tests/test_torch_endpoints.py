@@ -396,6 +396,23 @@ def test_openapi_spec_equals_jax_on_the_port_catalog(served):
     assert jopenapi.validate_spec(jspec) == []
 
 
+def test_openapi_subcommand_on_both_clis(capsys):
+    """Both command lines' ``openapi`` print a document that both
+    packages' ``validate_spec`` accept; the port's is ``build_spec`` of
+    its own catalog."""
+    from semantic_router_tpu.__main__ import main as jmain
+    from semantic_router_tpu_torch.__main__ import main as tmain
+
+    assert tmain(["openapi"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert jmain(["openapi"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert got == topenapi.build_spec(API_CATALOG)
+    for spec in (got, want):
+        assert topenapi.validate_spec(spec) == []
+        assert jopenapi.validate_spec(spec) == []
+
+
 def test_openapi_on_the_jax_catalog_and_broken_specs_equal_jax():
     from semantic_router_tpu.router.server import API_CATALOG as JCATALOG
 

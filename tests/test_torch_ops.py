@@ -479,12 +479,14 @@ def test_port_sources_cover_every_package():
     protobuf module, the streamed handler, the compose renderer) and the
     decision record's and the dashboard's (router replay, OTLP export,
     selector artifact training, the benchmark harness, the jobs, the
-    embedding map, NL generation) included."""
+    embedding map, NL generation) and the operator plane's (the CRDs, the
+    file and Kubernetes operators, checkpoint download, the fleet
+    simulator, the Gemma encoder) included."""
     scanned = {p.parent.name for p in _port_sources()}
     for pkg in ("state", "stateplane", "cache", "router", "runtime",
                 "resilience", "ops", "ann", "vectorstore", "memory",
                 "packing", "config", "dsl", "dashboard", "extproc",
-                "replay", "training", "modelselection"):
+                "replay", "training", "modelselection", "fleetsim"):
         assert pkg in scanned, pkg
     port = REPO / "semantic_router_tpu_torch"
     for rel in ("stateplane/plane.py", "state/resp.py", "state/qdrant.py",
@@ -512,7 +514,11 @@ def test_port_sources_cover_every_package():
                 "dashboard/embedmap.py", "dsl/nlgen.py", "mcp/__init__.py",
                 "mcp/client.py", "mcp/classifier.py", "signals/remote.py",
                 "observability/fleetobs.py", "observability/grafana.py",
-                "observability/metrics_lint.py"):
+                "observability/metrics_lint.py", "runtime/operator.py",
+                "runtime/crds.py", "runtime/kubewatch.py",
+                "runtime/modeldownload.py", "fleetsim/__init__.py",
+                "fleetsim/sim.py", "fleetsim/__main__.py",
+                "models/gemma.py"):
         assert port / rel in _port_sources(), rel
 
 
@@ -592,7 +598,13 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
         "        'semantic_router_tpu_torch.signals.remote',\n"
         "        'semantic_router_tpu_torch.observability.fleetobs',\n"
         "        'semantic_router_tpu_torch.observability.grafana',\n"
-        "        'semantic_router_tpu_torch.observability.metrics_lint'} \\\n"
+        "        'semantic_router_tpu_torch.observability.metrics_lint',\n"
+        "        'semantic_router_tpu_torch.runtime.operator',\n"
+        "        'semantic_router_tpu_torch.runtime.crds',\n"
+        "        'semantic_router_tpu_torch.runtime.kubewatch',\n"
+        "        'semantic_router_tpu_torch.runtime.modeldownload',\n"
+        "        'semantic_router_tpu_torch.fleetsim.sim',\n"
+        "        'semantic_router_tpu_torch.models.gemma'} \\\n"
         "    <= set(sys.modules)\n"
         "from semantic_router_tpu_torch.engine.testing import "
         "make_dual_path_engine, make_shared_trunk_engine\n"
@@ -615,6 +627,26 @@ def test_import_and_cpu_engine_leave_jax_unloaded():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_operator_plane_imports_load_no_yaml():
+    """``yaml`` is imported where a CR or config file is read or written,
+    not when the operator plane's modules are imported (the card's machine
+    may lack it)."""
+    code = ("import sys\n"
+            "import semantic_router_tpu_torch.runtime.operator\n"
+            "import semantic_router_tpu_torch.runtime.crds\n"
+            "import semantic_router_tpu_torch.runtime.kubewatch\n"
+            "import semantic_router_tpu_torch.runtime.modeldownload\n"
+            "import semantic_router_tpu_torch.fleetsim.__main__\n"
+            "import semantic_router_tpu_torch.models.gemma\n"
+            "assert 'yaml' not in sys.modules\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch,
